@@ -1,0 +1,177 @@
+"""Executors: run an int8 PoolProgram on the ring, op by op.
+
+Counterpart of the int8 half of :mod:`repro.core.executors`.  One
+dispatch (:func:`op_kernel_call`, a port of ``_run_pallas_q``) maps each
+op to a ring kernel and its arguments; the pool's device picks the
+implementation:
+
+  * a CUDA pool runs the hand-written kernels
+    (:data:`repro_torch.kernels.quantized.KERNELS`),
+  * a CPU pool runs their plain PyTorch versions
+    (:data:`repro_torch.kernels.quantized.PLAIN`) — the port of
+    ``_apply_op_q``/``_run_jnp_q``.
+
+Nothing on the CUDA path calls a plain version.  The kinds ``add``,
+``conv_stream`` and ``gru_cell`` have no kernel in the port yet and
+raise ``NotImplementedError`` on both paths; fp32 programs come in a
+later slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.quantized import KERNELS, PLAIN
+from .program import EXECUTABLE_KINDS, PoolProgram
+from .vpool import VirtualPool, segments_for
+
+#: Op kinds the port's int8 executors run.
+Q_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "pool_avg")
+
+
+def _normalize_qparams(program: PoolProgram, params):
+    """Validate int8 param entries: ``(w_q, b_q, mult, shift)`` for
+    gemm/conv (a missing bias becomes zeros), ``(mult_in, shift_in,
+    mult_aux, shift_aux)`` for add, ``(mult, shift)`` for pool_avg."""
+    if params is None:
+        raise ValueError("quantized programs need explicit qparams")
+    params = list(params)
+    if len(params) != len(program.ops):
+        raise ValueError(f"{len(params)} qparam entries for "
+                         f"{len(program.ops)} ops")
+    out = []
+    for op, p in zip(program.ops, params):
+        if op.kind in ("gemm", "conv_pw", "conv_dw", "conv_k2d",
+                       "conv_stream"):
+            w, b, mult, shift = p
+            if b is None:
+                b = torch.zeros((op.d_out,), dtype=torch.int32,
+                                device=w.device)
+            out.append((w, b, mult, shift))
+        elif op.kind == "gru_cell":
+            w, u, b, mx, sx, mu, su = p
+            if b is None:
+                b = torch.zeros((3 * op.d_out,), dtype=torch.int32,
+                                device=w.device)
+            out.append((w, u, b, mx, sx, mu, su))
+        elif op.kind in ("add", "pool_avg"):
+            out.append(tuple(p))
+        else:
+            raise NotImplementedError(
+                f"op kind {op.kind!r} has no int8 execution path")
+    return out
+
+
+def _image_ptr(op, seg_width: int) -> int:
+    """Effective base pointer of the op's input image — the source base
+    advanced past the rows above the slice window (``in_row0``; 0 for
+    every unsliced op)."""
+    if not op.in_row0:
+        return op.in_ptr
+    return op.in_ptr + op.in_row0 * op.w_in * segments_for(op.d_in,
+                                                           seg_width)
+
+
+def _pw_row_block(op, n_seg: int, in_ptr: int, seg_width: int,
+                  limit: int) -> int:
+    """Largest safe pointwise-conv row block ``<= limit``.
+
+    Blocking needs the identity pixel map (stride 1, no resample) so a
+    block's source rows are contiguous, plus the reference's no-wrap
+    alignment: the pool length and both pointers must be multiples of
+    the block's input and output chunk sizes.  Execution granularity
+    only — the plan and its certificates are untouched.
+    """
+    if limit <= 1 or op.stride != 1 or op.resample:
+        return 1
+    ic = op.w_in * segments_for(op.d_in, seg_width)
+    oc = op.w_out * segments_for(op.d_out, seg_width)
+    for rb in range(min(limit, op.h_out), 1, -1):
+        if op.h_out % rb:
+            continue
+        if n_seg % (rb * ic) or in_ptr % (rb * ic):
+            continue
+        if n_seg % (rb * oc) or op.out_ptr % (rb * oc):
+            continue
+        return rb
+    return 1
+
+
+def op_kernel_call(program: PoolProgram, op, p, *,
+                   kernel_block_rows: int = 8):
+    """``(kernel_name, params, kwargs)``: the ring kernel that runs
+    ``op``, its weight operands and its keyword arguments."""
+    sw, n = program.seg_width, program.n_segments
+    if op.kind == "gemm":
+        return "ring_gemm_q", tuple(p), dict(
+            m_rows=op.rows_in or program.m_rows, d_in=op.d_in,
+            d_out=op.d_out, in_ptr=op.in_ptr, out_ptr=op.out_ptr,
+            block_rows=program.block_rows, activation=op.activation)
+    if op.kind == "conv_pw":
+        iptr = _image_ptr(op, sw)
+        return "ring_conv_pw_q", tuple(p), dict(
+            h_in=op.h_in, w_in=op.w_in, h_out=op.h_out, w_out=op.w_out,
+            c_in=op.d_in, c_out=op.d_out, stride=op.stride,
+            resample=op.resample, in_ptr=iptr, out_ptr=op.out_ptr,
+            activation=op.activation,
+            row_block=_pw_row_block(op, n, iptr, sw, kernel_block_rows))
+    if op.kind == "conv_dw":
+        return "ring_conv_dw_q", tuple(p), dict(
+            h_in=op.h_in, w_in=op.w_in, h_out=op.h_out, w_out=op.w_out,
+            c=op.d_in, rs=op.rs, stride=op.stride, padding=op.padding,
+            in_ptr=_image_ptr(op, sw), out_ptr=op.out_ptr,
+            activation=op.activation)
+    if op.kind == "conv_k2d":
+        return "ring_conv_k2d_q", tuple(p), dict(
+            h_in=op.h_in, w_in=op.w_in, h_out=op.h_out, w_out=op.w_out,
+            c_in=op.d_in, c_out=op.d_out, k=op.rs, stride=op.stride,
+            padding=op.padding, in_ptr=_image_ptr(op, sw),
+            out_ptr=op.out_ptr, activation=op.activation)
+    if op.kind == "pool_avg":
+        mult, shift = p
+        return "ring_avgpool_q", (), dict(
+            h=op.h_in, w=op.w_in, c=op.d_in, in_ptr=op.in_ptr,
+            out_ptr=op.out_ptr, mult=mult, shift=shift)
+    raise NotImplementedError(
+        f"no int8 ring kernel for op kind {op.kind!r} in the port yet "
+        f"(it runs {Q_KINDS})")
+
+
+def execute(program: PoolProgram, pool, params, *,
+            kernel_block_rows: int = 8):
+    """Run ``program`` on ``pool`` (a :class:`VirtualPool` or raw
+    ``[n_segments, seg_width]`` int8 tensor with the input staged at
+    ``program.input_ptr``), in place; returns ``pool``.
+
+    A CUDA pool runs the CUDA kernels, a CPU pool their plain versions;
+    ``params`` must lie on the pool's device."""
+    if not program.executable:
+        raise NotImplementedError(
+            f"program contains plan-only ops; only kinds "
+            f"{EXECUTABLE_KINDS} are executable")
+    if not program.quantized:
+        raise NotImplementedError("the port runs int8 programs only; fp32 "
+                                  "execution comes in a later slice")
+    arr = pool.array if isinstance(pool, VirtualPool) else pool
+    if arr.device.type == "cuda":
+        table = KERNELS
+    elif arr.device.type == "cpu":
+        table = PLAIN
+    else:
+        raise ValueError(f"no ring executor for device {arr.device}")
+    for op, p in zip(program.ops, _normalize_qparams(program, params)):
+        name, args, kwargs = op_kernel_call(
+            program, op, p, kernel_block_rows=kernel_block_rows)
+        table[name](arr, *args, **kwargs)
+    return pool
+
+
+def run_program(program: PoolProgram, x: torch.Tensor, params, *,
+                kernel_block_rows: int = 8):
+    """Allocate a zero pool on ``x``'s device, stage ``x`` at the input
+    pointer, execute, fetch the output.  Returns ``(y, pool)``."""
+    pool = VirtualPool.alloc(program.spec(), x.device)
+    pool.stage_rows(x, program.input_ptr)
+    execute(program, pool, params, kernel_block_rows=kernel_block_rows)
+    y = pool.fetch_rows(program.output_ptr, program.out_rows,
+                        program.out_dim).clone()
+    return y, pool

@@ -1,0 +1,436 @@
+// Int8 segment-ring kernels for Hopper (sm_90a), bound to Python with ctypes.
+//
+// Each kernel replaces one Pallas TPU kernel of src/repro/kernels/quantized.py:
+//
+//   ring_gemm_q      <- ring_gemm_q      (quantized.py:87)   ring FC
+//   ring_conv_pw_q   <- ring_conv_pw_q   (quantized.py:196)  1x1 conv
+//   ring_conv_dw_q   <- ring_conv_dw_q   (quantized.py:310)  depthwise rs x rs conv
+//   ring_conv_k2d_q  <- ring_conv_k2d_q  (quantized.py:419)  k x k conv
+//   ring_avgpool_q   <- ring_avgpool_q   (quantized.py:603)  global average pool
+//
+// The pool is one int8 tensor [n_seg, 128]: a tensor of c-wide rows takes
+// ceil(c / 128) consecutive segments per row, and every segment address is
+// taken modulo n_seg.  Every op reads its input rows from the ring and writes
+// its output rows into the same ring, often over input rows it has already
+// consumed (a depthwise op stores output row p onto input row p - 1, which
+// output rows p - 2 and p - 1 still read).  The plan is certified clobber-free
+// only for the order of the TPU's sequential grid: no store of step i may move
+// ahead of a read of an earlier step.  Blocks of a CUDA grid run in no order,
+// so each op runs as ONE thread block that walks the steps in plan order:
+//
+//   load the step's input segments into shared memory   (ring load, modulo n_seg)
+//   __syncthreads()
+//   int32 accumulate -> bias -> relu -> requantize        (threads over w_out x c_out)
+//   store the step's output segments                      (ring store, modulo n_seg)
+//   __syncthreads()                                       (stores visible before the next load)
+//
+// A run of segments that wraps the ring inside one step is handled segment by
+// segment.  Channel tails (c .. segs(c) * 128) are stored as zeros.
+//
+// What bounds these kernels on the card: the bytes and operations are tiny
+// (tens of KB and about a million int8 MACs per op for DS-CNN), so the bound
+// is a few nanoseconds; what the serial walk costs is latency, one SM and one
+// barrier pair per step.  Against that latency the weights, biases and
+// requant constants are staged once per op into shared memory (weights only
+// when they fit beside the step's input tile; otherwise they are read from
+// global memory), so the dot products of every step read shared memory.  This
+// is the faithful baseline: a wavefront of concurrent steps bounded by the
+// op's solved delta, cp.async/TMA loads and dp4a/wgmma products are later
+// work.
+//
+// Requantization is the reference's (src/repro/quant/requant.py): the exact
+// 64-bit product acc * mult, one round-to-nearest-even at 31 - shift,
+// saturation to int32, a clip to +-2**24, then a clip to int8.  The int32
+// accumulator wraps on overflow as the reference's int32 arithmetic does.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int SEG = 128;              // bytes per int8 segment
+constexpr int VEC = SEG / 16;         // 16-byte vectors per segment
+constexpr int THREADS = 1024;        // one pass over a DS-CNN step's outputs
+constexpr long long I24 = 1LL << 24;
+constexpr long long I32_MIN = -2147483648LL;
+constexpr long long I32_MAX = 2147483647LL;
+constexpr size_t MAX_SMEM = 232448;   // a block's shared memory on sm_90
+
+__host__ __device__ __forceinline__ int segs_for(int c) {
+  return (c + SEG - 1) / SEG;
+}
+
+__device__ __forceinline__ int32_t requant_i32(int32_t acc, int32_t mult,
+                                               int32_t shift) {
+  const long long p = (long long)acc * (long long)mult;
+  int s = 31 - shift;
+  s = s < 1 ? 1 : (s > 62 ? 62 : s);
+  const long long half = 1LL << (s - 1);
+  long long q = (p + half) >> s;                      // arithmetic: floor
+  if ((p & ((1LL << s) - 1)) == half && (q & 1)) q -= 1;  // ties to even
+  q = q < I32_MIN ? I32_MIN : (q > I32_MAX ? I32_MAX : q);
+  q = q < -I24 ? -I24 : (q > I24 ? I24 : q);
+  return (int32_t)q;
+}
+
+__device__ __forceinline__ int8_t sat8(int32_t v) {
+  return (int8_t)(v < -128 ? -128 : (v > 127 ? 127 : v));
+}
+
+// int32 accumulator (wrapping) + bias -> relu? -> requantize -> int8
+__device__ __forceinline__ int8_t epilogue(uint32_t acc, int32_t bias,
+                                           int32_t mult, int32_t shift,
+                                           int relu) {
+  int32_t a = (int32_t)(acc + (uint32_t)bias);
+  if (relu && a < 0) a = 0;
+  return sat8(requant_i32(a, mult, shift));
+}
+
+// Copy `count` ring segments starting at segment `ptr` into shared memory.
+// (Pointers are normalized into [0, n_seg) by the wrappers and no tensor is
+// longer than the ring, so segment numbers stay well inside int32.)
+__device__ __forceinline__ void ring_load(int4* dst, const int8_t* pool,
+                                          int ptr, int count, int n_seg) {
+  for (int i = threadIdx.x; i < count * VEC; i += blockDim.x) {
+    const int seg = (ptr + i / VEC) % n_seg;
+    dst[i] = reinterpret_cast<const int4*>(pool + (size_t)seg * SEG)[i % VEC];
+  }
+}
+
+// Byte `j` of the run of segments starting at ring segment `ptr`.
+__device__ __forceinline__ int8_t* ring_byte(int8_t* pool, int ptr, int j,
+                                             int n_seg) {
+  return pool + (size_t)((ptr + j / SEG) % n_seg) * SEG + j % SEG;
+}
+
+// An op's weights and per-channel constants, wherever they are read from.
+struct Params {
+  const int8_t* w;
+  const int32_t* b;
+  const int32_t* mult;
+  const int32_t* shift;
+};
+
+// Stage bias, mult and shift (and the weights, when `stage_w`) into shared
+// memory at `dst`.  Read only after the first step's __syncthreads().
+__device__ __forceinline__ Params stage_params(
+    char* dst, const int8_t* __restrict__ w, int w_bytes,
+    const int32_t* __restrict__ b, const int32_t* __restrict__ mult,
+    const int32_t* __restrict__ shift, int c_out, int stage_w) {
+  int32_t* bs = reinterpret_cast<int32_t*>(dst);
+  int32_t* ms = bs + c_out;
+  int32_t* ss = ms + c_out;
+  for (int i = threadIdx.x; i < c_out; i += blockDim.x) {
+    bs[i] = b[i];
+    ms[i] = mult[i];
+    ss[i] = shift[i];
+  }
+  if (!stage_w) return {w, bs, ms, ss};
+  int8_t* ws = reinterpret_cast<int8_t*>(ss + c_out);
+  for (int i = threadIdx.x; i < w_bytes; i += blockDim.x) ws[i] = w[i];
+  return {ws, bs, ms, ss};
+}
+
+
+// ---------------------------------------------------------------------------
+// FC: m_rows rows, block_rows rows per step.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+gemm_kernel(int8_t* pool, const int8_t* __restrict__ w,
+            const int32_t* __restrict__ b, const int32_t* __restrict__ mult,
+            const int32_t* __restrict__ shift, int n_seg, int m_rows,
+            int d_in, int d_out, int block_rows, int in_ptr, int out_ptr,
+            int relu, int stage_w) {
+  extern __shared__ int4 smem[];
+  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
+  const int ksegs = segs_for(d_in), nsegs = segs_for(d_out);
+  const int bk = block_rows * ksegs, bn = block_rows * nsegs;
+  const Params prm = stage_params(reinterpret_cast<char*>(smem) + bk * SEG,
+                                  w, d_in * d_out, b, mult, shift, d_out,
+                                  stage_w);
+  for (int i = 0; i < m_rows / block_rows; ++i) {
+    ring_load(smem, pool, (in_ptr + i * bk) % n_seg, bk, n_seg);
+    __syncthreads();
+    for (int j = threadIdx.x; j < bn * SEG; j += blockDim.x) {
+      const int r = j / (nsegs * SEG), co = j % (nsegs * SEG);
+      int8_t y = 0;
+      if (co < d_out) {
+        const int8_t* xr = x + r * ksegs * SEG;
+        const int8_t* wc = prm.w + co;
+        uint32_t acc = 0;
+#pragma unroll 4
+        for (int k = 0; k < d_in; ++k)
+          acc += (uint32_t)((int)xr[k] * (int)wc[k * d_out]);
+        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
+      }
+      *ring_byte(pool, (out_ptr + i * bn) % n_seg, j, n_seg) = y;
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 1x1 conv: row_block output image rows per step (identity pixel map), or one
+// row with strided / resampled source rows and columns.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+conv_pw_kernel(int8_t* pool, const int8_t* __restrict__ w,
+               const int32_t* __restrict__ b,
+               const int32_t* __restrict__ mult,
+               const int32_t* __restrict__ shift, int n_seg, int h_in,
+               int w_in, int h_out, int w_out, int c_in, int c_out,
+               int stride, int resample, int row_block, int in_ptr,
+               int out_ptr, int relu, int stage_w) {
+  extern __shared__ int4 smem[];
+  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int in_row = w_in * ksegs;
+  const int in_chunk = row_block * in_row;
+  const int out_chunk = row_block * w_out * nsegs;
+  const bool pick_cols = row_block == 1 && (stride != 1 || resample);
+  const Params prm = stage_params(
+      reinterpret_cast<char*>(smem) + in_chunk * SEG, w, c_in * c_out, b,
+      mult, shift, c_out, stage_w);
+  for (int blk = 0; blk < h_out / row_block; ++blk) {
+    const int src = resample ? (blk * h_in) / h_out : blk * row_block * stride;
+    ring_load(smem, pool, (in_ptr + src * in_row) % n_seg, in_chunk, n_seg);
+    __syncthreads();
+    for (int j = threadIdx.x; j < out_chunk * SEG; j += blockDim.x) {
+      const int m = j / (nsegs * SEG), co = j % (nsegs * SEG);
+      int8_t y = 0;
+      if (co < c_out) {
+        int pix = m;
+        if (pick_cols) pix = resample ? (m * w_in) / w_out : m * stride;
+        const int8_t* xr = x + pix * ksegs * SEG;
+        const int8_t* wc = prm.w + co;
+        uint32_t acc = 0;
+#pragma unroll 4
+        for (int k = 0; k < c_in; ++k)
+          acc += (uint32_t)((int)xr[k] * (int)wc[k * c_out]);
+        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
+      }
+      *ring_byte(pool, (out_ptr + blk * out_chunk) % n_seg, j, n_seg) = y;
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// k x k conv and depthwise rs x rs conv share one step body: per output row,
+// the k halo rows (clamped into the image; taps outside it are masked).
+// ---------------------------------------------------------------------------
+template <bool DEPTHWISE>
+__device__ __forceinline__ void conv_kxk(
+    int8_t* pool, const int8_t* __restrict__ w,
+    const int32_t* __restrict__ b, const int32_t* __restrict__ mult,
+    const int32_t* __restrict__ shift, int n_seg, int h_in, int w_in,
+    int h_out, int w_out, int c_in, int c_out, int k, int stride, int pad_v,
+    int pad_h, int in_ptr, int out_ptr, int relu, int stage_w) {
+  extern __shared__ int4 smem[];
+  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int in_row = w_in * ksegs, out_row = w_out * nsegs;
+  const int w_bytes = DEPTHWISE ? k * k * c_in : k * k * c_in * c_out;
+  const Params prm = stage_params(
+      reinterpret_cast<char*>(smem) + k * in_row * SEG, w, w_bytes, b, mult,
+      shift, c_out, stage_w);
+  for (int p = 0; p < h_out; ++p) {
+    for (int r = 0; r < k; ++r) {
+      int src = p * stride - pad_v + r;
+      src = src < 0 ? 0 : (src > h_in - 1 ? h_in - 1 : src);
+      ring_load(smem + r * in_row * VEC, pool, (in_ptr + src * in_row) % n_seg,
+                in_row, n_seg);
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < out_row * SEG; j += blockDim.x) {
+      const int q = j / (nsegs * SEG), co = j % (nsegs * SEG);
+      int8_t y = 0;
+      if (co < c_out) {
+        uint32_t acc = 0;
+        for (int r = 0; r < k; ++r) {
+          const int src = p * stride - pad_v + r;
+          if (src < 0 || src >= h_in) continue;
+          for (int s = 0; s < k; ++s) {
+            const int col = q * stride - pad_h + s;
+            if (col < 0 || col >= w_in) continue;
+            const int8_t* xr = x + (r * in_row + col * ksegs) * SEG;
+            if (DEPTHWISE) {
+              acc += (uint32_t)((int)xr[co] *
+                                (int)prm.w[(r * k + s) * c_in + co]);
+            } else {
+              const int8_t* wc = prm.w + (r * k + s) * c_in * c_out + co;
+#pragma unroll 4
+              for (int ci = 0; ci < c_in; ++ci)
+                acc += (uint32_t)((int)xr[ci] * (int)wc[ci * c_out]);
+            }
+          }
+        }
+        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
+      }
+      *ring_byte(pool, (out_ptr + p * out_row) % n_seg, j, n_seg) = y;
+    }
+    __syncthreads();
+  }
+}
+
+// Depthwise rs x rs conv: w [rs, rs, c].
+__global__ void __launch_bounds__(THREADS)
+conv_dw_kernel(int8_t* pool, const int8_t* __restrict__ w,
+               const int32_t* __restrict__ b,
+               const int32_t* __restrict__ mult,
+               const int32_t* __restrict__ shift, int n_seg, int h_in,
+               int w_in, int h_out, int w_out, int c, int rs, int stride,
+               int pad_v, int pad_h, int in_ptr, int out_ptr, int relu,
+               int stage_w) {
+  conv_kxk<true>(pool, w, b, mult, shift, n_seg, h_in, w_in, h_out, w_out, c,
+                 c, rs, stride, pad_v, pad_h, in_ptr, out_ptr, relu, stage_w);
+}
+
+// k x k conv, one int32 dot per tap: w [k, k, c_in, c_out].
+__global__ void __launch_bounds__(THREADS)
+conv_k2d_kernel(int8_t* pool, const int8_t* __restrict__ w,
+                const int32_t* __restrict__ b,
+                const int32_t* __restrict__ mult,
+                const int32_t* __restrict__ shift, int n_seg, int h_in,
+                int w_in, int h_out, int w_out, int c_in, int c_out, int k,
+                int stride, int pad_v, int pad_h, int in_ptr, int out_ptr,
+                int relu, int stage_w) {
+  conv_kxk<false>(pool, w, b, mult, shift, n_seg, h_in, w_in, h_out, w_out,
+                  c_in, c_out, k, stride, pad_v, pad_h, in_ptr, out_ptr,
+                  relu, stage_w);
+}
+
+// ---------------------------------------------------------------------------
+// Global average pool: int32 column sums over h x w pixels, one requantized
+// channel row stored after every read (the 1/(h*w) is folded into mult).
+// Nothing is stored before the last read, so the pixels are read in chunks of
+// `chunk_pix` as large as shared memory allows (all of DS-CNN's at once).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+avgpool_kernel(int8_t* pool, int n_seg, int h, int w, int c, int in_ptr,
+               int out_ptr, int mult, int shift, int chunk_pix) {
+  extern __shared__ int4 smem[];
+  const int segs = segs_for(c);
+  uint32_t* sums = reinterpret_cast<uint32_t*>(smem);     // [segs * SEG]
+  int4* tile = smem + segs * SEG * 4 / 16;
+  const int8_t* x = reinterpret_cast<const int8_t*>(tile);
+  for (int j = threadIdx.x; j < segs * SEG; j += blockDim.x) sums[j] = 0;
+  for (int p0 = 0; p0 < h * w; p0 += chunk_pix) {
+    const int n = min(chunk_pix, h * w - p0);
+    ring_load(tile, pool, (in_ptr + p0 * segs) % n_seg, n * segs, n_seg);
+    __syncthreads();
+    // thread j owns column j: sums[j] is only ever touched by its owner
+    for (int j = threadIdx.x; j < c; j += blockDim.x) {
+      uint32_t acc = sums[j];
+#pragma unroll 4
+      for (int pix = 0; pix < n; ++pix)
+        acc += (uint32_t)(int)x[pix * segs * SEG + j];
+      sums[j] = acc;
+    }
+    __syncthreads();
+  }
+  for (int j = threadIdx.x; j < segs * SEG; j += blockDim.x)
+    *ring_byte(pool, out_ptr, j, n_seg) =
+        j < c ? sat8(requant_i32((int32_t)sums[j], mult, shift)) : (int8_t)0;
+}
+
+// Shared memory of a conv/FC launch: the step's input tile, the per-channel
+// constants and, when they fit too, the weights.
+struct Smem {
+  size_t bytes;
+  int stage_w;
+};
+
+Smem plan_smem(size_t x_bytes, size_t w_bytes, int c_out) {
+  const size_t base = x_bytes + 12 * (size_t)c_out;
+  const int stage_w = base + w_bytes <= MAX_SMEM;
+  return {stage_w ? base + w_bytes : base, stage_w};
+}
+
+// Launch one block with `smem` bytes of dynamic shared memory (above 48 KB
+// only after raising the kernel's limit) and report the launch's error code.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ring_q_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int ring_gemm_q(void* pool, const void* w, const void* b, const void* mult,
+                const void* shift, int n_seg, int m_rows, int d_in,
+                int d_out, int block_rows, int in_ptr, int out_ptr, int relu,
+                void* stream) {
+  const Smem sm = plan_smem((size_t)block_rows * segs_for(d_in) * SEG,
+                            (size_t)d_in * d_out, d_out);
+  return launch(gemm_kernel, sm.bytes, stream, (int8_t*)pool,
+                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
+                (const int32_t*)shift, n_seg, m_rows, d_in, d_out,
+                block_rows, in_ptr, out_ptr, relu, sm.stage_w);
+}
+
+int ring_conv_pw_q(void* pool, const void* w, const void* b,
+                   const void* mult, const void* shift, int n_seg, int h_in,
+                   int w_in, int h_out, int w_out, int c_in, int c_out,
+                   int stride, int resample, int row_block, int in_ptr,
+                   int out_ptr, int relu, void* stream) {
+  const Smem sm = plan_smem((size_t)row_block * w_in * segs_for(c_in) * SEG,
+                            (size_t)c_in * c_out, c_out);
+  return launch(conv_pw_kernel, sm.bytes, stream, (int8_t*)pool,
+                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
+                (const int32_t*)shift, n_seg, h_in, w_in, h_out, w_out, c_in,
+                c_out, stride, resample, row_block, in_ptr, out_ptr, relu,
+                sm.stage_w);
+}
+
+int ring_conv_dw_q(void* pool, const void* w, const void* b,
+                   const void* mult, const void* shift, int n_seg, int h_in,
+                   int w_in, int h_out, int w_out, int c, int rs, int stride,
+                   int pad_v, int pad_h, int in_ptr, int out_ptr, int relu,
+                   void* stream) {
+  const Smem sm = plan_smem((size_t)rs * w_in * segs_for(c) * SEG,
+                            (size_t)rs * rs * c, c);
+  return launch(conv_dw_kernel, sm.bytes, stream, (int8_t*)pool,
+                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
+                (const int32_t*)shift, n_seg, h_in, w_in, h_out, w_out, c, rs,
+                stride, pad_v, pad_h, in_ptr, out_ptr, relu, sm.stage_w);
+}
+
+int ring_conv_k2d_q(void* pool, const void* w, const void* b,
+                    const void* mult, const void* shift, int n_seg, int h_in,
+                    int w_in, int h_out, int w_out, int c_in, int c_out,
+                    int k, int stride, int pad_v, int pad_h, int in_ptr,
+                    int out_ptr, int relu, void* stream) {
+  const Smem sm = plan_smem((size_t)k * w_in * segs_for(c_in) * SEG,
+                            (size_t)k * k * c_in * c_out, c_out);
+  return launch(conv_k2d_kernel, sm.bytes, stream, (int8_t*)pool,
+                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
+                (const int32_t*)shift, n_seg, h_in, w_in, h_out, w_out, c_in,
+                c_out, k, stride, pad_v, pad_h, in_ptr, out_ptr, relu,
+                sm.stage_w);
+}
+
+int ring_avgpool_q(void* pool, int n_seg, int h, int w, int c, int in_ptr,
+                   int out_ptr, int mult, int shift, void* stream) {
+  const size_t pix_bytes = (size_t)segs_for(c) * SEG;
+  const size_t room = MAX_SMEM - pix_bytes * sizeof(uint32_t);
+  const int chunk_pix = (int)(room / pix_bytes < (size_t)h * w
+                                  ? room / pix_bytes : (size_t)h * w);
+  return launch(avgpool_kernel,
+                pix_bytes * sizeof(uint32_t) + chunk_pix * pix_bytes, stream,
+                (int8_t*)pool, n_seg, h, w, c, in_ptr, out_ptr, mult, shift,
+                chunk_pix);
+}
+
+}  // extern "C"

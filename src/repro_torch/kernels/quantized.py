@@ -1,0 +1,383 @@
+"""Int8 ring kernels: CUDA wrappers and their plain PyTorch versions.
+
+Counterpart of :mod:`repro.kernels.quantized`.  Each wrapper takes the
+reference kernel's arguments, raises the reference's ``ValueError`` on a
+misaligned pool or pointer, checks device, dtype, shape and contiguity,
+and launches its hand-written kernel (``csrc/ring_q.cu``) on the current
+CUDA stream without synchronising.  It updates the pool in place and
+returns it.  A wrapper never falls back to its plain version: it raises
+on anything but CUDA tensors.
+
+Beside each wrapper sits its plain version (``<name>_plain``), a port of
+the reference's jnp executor op: gather every input row, compute in
+integer arithmetic, requantize, scatter.  It takes the same arguments,
+works on any device, and is what the CPU path runs and what the kernels
+are held against.  On a certified plan the gather-then-scatter order
+leaves the same pool as the kernels' sequential walk.
+
+Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w, resample_src
+from ..core.vpool import SEG_WIDTH, fetch_rows, segments_for, stage_rows
+from ..quant.requant import act_i32, requantize
+
+#: Shared memory one thread block may use on Hopper (bytes).
+MAX_SMEM = 232_448
+
+
+def _segs(d: int) -> int:
+    return segments_for(d, SEG_WIDTH)
+
+
+def _relu(activation) -> int:
+    if activation in (None, "identity"):
+        return 0
+    if activation == "relu":
+        return 1
+    raise NotImplementedError(
+        f"activation {activation!r} has no int8 path (relu/None only)")
+
+
+# ---------------------------------------------------------------------------
+# Alignment checks (the reference kernels' own), shared by both versions.
+# ---------------------------------------------------------------------------
+
+def _check_gemm(n_seg, m_rows, d_in, d_out, in_ptr, out_ptr, block_rows):
+    bk, bn = block_rows * _segs(d_in), block_rows * _segs(d_out)
+    if m_rows % block_rows:
+        raise ValueError("block_rows must divide m_rows")
+    if n_seg % math.lcm(bk, bn) or in_ptr % bk or out_ptr % bn:
+        raise ValueError("pool/pointers not block-aligned")
+
+
+def _check_rows(n_seg, w_in, w_out, c_in, c_out, in_ptr, out_ptr):
+    ic, oc = w_in * _segs(c_in), w_out * _segs(c_out)
+    if n_seg % ic or n_seg % oc or in_ptr % ic or out_ptr % oc:
+        raise ValueError("pool/pointers not image-row aligned")
+
+
+def _check_pw(n_seg, h_out, w_in, w_out, c_in, c_out, stride, resample,
+              in_ptr, out_ptr, row_block):
+    _check_rows(n_seg, w_in, w_out, c_in, c_out, in_ptr, out_ptr)
+    if row_block != 1 and (stride != 1 or resample or h_out % row_block):
+        raise ValueError("row_block needs stride==1, no resample, and "
+                         "row_block | h_out")
+
+
+def _check_avgpool(n_seg, w, c, in_ptr, out_ptr):
+    segs = _segs(c)
+    if n_seg % (w * segs) or in_ptr % (w * segs) or out_ptr % segs:
+        raise ValueError("pool/pointers not aligned")
+
+
+# ---------------------------------------------------------------------------
+# Launching.
+# ---------------------------------------------------------------------------
+
+def _check_cuda(pool, tensors=()):
+    """Validate the pool and ``(name, tensor, dtype, shape)`` operands
+    before their pointers go to the kernel."""
+    if not isinstance(pool, torch.Tensor) or pool.device.type != "cuda":
+        raise ValueError("the ring kernels run on CUDA tensors only; got a "
+                         f"pool on {getattr(pool, 'device', type(pool))} "
+                         "(the CPU path uses the *_plain versions)")
+    if pool.dtype != torch.int8 or pool.ndim != 2 \
+            or pool.shape[1] != SEG_WIDTH or not pool.is_contiguous():
+        raise ValueError(f"pool must be a contiguous int8 "
+                         f"[n_segments, {SEG_WIDTH}] tensor, got "
+                         f"{pool.dtype} {tuple(pool.shape)}")
+    if pool.data_ptr() % 16:
+        raise ValueError("pool must be 16-byte aligned")
+    for name, t, dtype, shape in tensors:
+        if not isinstance(t, torch.Tensor) or t.device != pool.device:
+            raise ValueError(f"{name} must be a tensor on {pool.device}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} "
+                             f"{tuple(shape)} tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def _per_channel(w, b, mult, shift, w_shape, c_out):
+    return (("w", w, torch.int8, w_shape), ("b", b, torch.int32, (c_out,)),
+            ("mult", mult, torch.int32, (c_out,)),
+            ("shift", shift, torch.int32, (c_out,)))
+
+
+def _launch(name: str, pool: torch.Tensor, smem: int, tensors, ints):
+    """Launch ``name`` on ``pool``'s device and current stream.  ``smem``
+    is the shared memory a step needs without the weights (the kernel
+    stages the weights too when they fit beside it)."""
+    if smem > MAX_SMEM:
+        raise ValueError(f"{name} needs {smem} B of shared memory per "
+                         f"block, above the card's {MAX_SMEM} B")
+    from ._build import library
+
+    lib, _ = library()
+    with torch.cuda.device(pool.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(pool.data_ptr(),
+                                 *(t.data_ptr() for t in tensors),
+                                 *ints, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.ring_q_error_string(err).decode()})")
+
+
+# ---------------------------------------------------------------------------
+# GEMM.
+# ---------------------------------------------------------------------------
+
+def ring_gemm_q(pool, w, b, mult, shift, *, m_rows: int, d_in: int,
+                d_out: int, in_ptr: int, out_ptr: int, block_rows: int = 8,
+                activation: str | None = None):
+    """Int8 Fig.-4 FC kernel: int8 In @ int8 W -> int32 acc -> requantize
+    per output channel on store (replaces ``ring_gemm_q``,
+    ``src/repro/kernels/quantized.py:87``)."""
+    n_seg = pool.shape[0]
+    _check_gemm(n_seg, m_rows, d_in, d_out, in_ptr, out_ptr, block_rows)
+    _check_cuda(pool, _per_channel(w, b, mult, shift, (d_in, d_out), d_out))
+    _launch("ring_gemm_q", pool,
+            block_rows * _segs(d_in) * SEG_WIDTH + 12 * d_out,
+            (w, b, mult, shift),
+            (n_seg, m_rows, d_in, d_out, block_rows, in_ptr % n_seg,
+             out_ptr % n_seg, _relu(activation)))
+    ring_gemm_q.launches += 1
+    return pool
+
+
+def ring_gemm_q_plain(pool, w, b, mult, shift, *, m_rows: int, d_in: int,
+                      d_out: int, in_ptr: int, out_ptr: int,
+                      block_rows: int = 8, activation: str | None = None):
+    """Plain version of :func:`ring_gemm_q` (``executors.py``'s
+    ``gemm_ring_scan_q``)."""
+    _check_gemm(pool.shape[0], m_rows, d_in, d_out, in_ptr, out_ptr,
+                block_rows)
+    x = fetch_rows(pool, in_ptr, m_rows, d_in).to(torch.int64)
+    acc = _acc32(_idot(x, w), b, activation)
+    stage_rows(pool, requantize(acc, mult[None, :], shift[None, :]),
+               out_ptr)
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# Pointwise conv.
+# ---------------------------------------------------------------------------
+
+def ring_conv_pw_q(pool, w, b, mult, shift, *, h_in: int, w_in: int,
+                   h_out: int, w_out: int, c_in: int, c_out: int,
+                   stride: int = 1, resample: bool = False, in_ptr: int = 0,
+                   out_ptr: int = 0, activation: str | None = None,
+                   row_block: int = 1):
+    """Int8 pointwise conv in the ring, ``row_block`` output image rows
+    per step (blocking requires the identity pixel map); replaces
+    ``ring_conv_pw_q``, ``src/repro/kernels/quantized.py:196``."""
+    n_seg = pool.shape[0]
+    _check_pw(n_seg, h_out, w_in, w_out, c_in, c_out, stride, resample,
+              in_ptr, out_ptr, row_block)
+    _check_cuda(pool, _per_channel(w, b, mult, shift, (c_in, c_out), c_out))
+    _launch("ring_conv_pw_q", pool,
+            row_block * w_in * _segs(c_in) * SEG_WIDTH + 12 * c_out,
+            (w, b, mult, shift),
+            (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, stride,
+             int(resample), row_block, in_ptr % n_seg, out_ptr % n_seg,
+             _relu(activation)))
+    ring_conv_pw_q.launches += 1
+    return pool
+
+
+def ring_conv_pw_q_plain(pool, w, b, mult, shift, *, h_in: int, w_in: int,
+                         h_out: int, w_out: int, c_in: int, c_out: int,
+                         stride: int = 1, resample: bool = False,
+                         in_ptr: int = 0, out_ptr: int = 0,
+                         activation: str | None = None, row_block: int = 1):
+    """Plain version of :func:`ring_conv_pw_q` (``conv_pw_ring_q``);
+    ``row_block`` is execution granularity and changes nothing here."""
+    _check_pw(pool.shape[0], h_out, w_in, w_out, c_in, c_out, stride,
+              resample, in_ptr, out_ptr, row_block)
+    img = _fetch_image(pool, in_ptr, h_in, w_in, c_in)
+    if resample:
+        ridx = [resample_src(p, h_in, h_out) for p in range(h_out)]
+        cidx = [resample_src(q, w_in, w_out) for q in range(w_out)]
+    else:
+        ridx = [p * stride for p in range(h_out)]
+        cidx = [q * stride for q in range(w_out)]
+    sub = img[ridx][:, cidx]
+    acc = _acc32(_idot(sub, w), b, activation)
+    return _store_image(pool, requantize(acc, mult, shift), out_ptr)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise and k x k conv.
+# ---------------------------------------------------------------------------
+
+def ring_conv_dw_q(pool, w, b, mult, shift, *, h_in: int, w_in: int,
+                   h_out: int, w_out: int, c: int, rs: int = 3,
+                   stride: int = 1, padding: str = "same", in_ptr: int = 0,
+                   out_ptr: int = 0, activation: str | None = None):
+    """Int8 depthwise RSxRS conv inside the ring (replaces
+    ``ring_conv_dw_q``, ``src/repro/kernels/quantized.py:310``)."""
+    n_seg = pool.shape[0]
+    _check_rows(n_seg, w_in, w_out, c, c, in_ptr, out_ptr)
+    _check_cuda(pool, _per_channel(w, b, mult, shift, (rs, rs, c), c))
+    _launch("ring_conv_dw_q", pool,
+            rs * w_in * _segs(c) * SEG_WIDTH + 12 * c, (w, b, mult, shift),
+            (n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
+             conv_k2d_pad(rs, padding), conv_k2d_pad_w(rs, padding),
+             in_ptr % n_seg, out_ptr % n_seg, _relu(activation)))
+    ring_conv_dw_q.launches += 1
+    return pool
+
+
+def ring_conv_dw_q_plain(pool, w, b, mult, shift, *, h_in: int, w_in: int,
+                         h_out: int, w_out: int, c: int, rs: int = 3,
+                         stride: int = 1, padding: str = "same",
+                         in_ptr: int = 0, out_ptr: int = 0,
+                         activation: str | None = None):
+    """Plain version of :func:`ring_conv_dw_q` (``conv_dw_ring_q``)."""
+    _check_rows(pool.shape[0], w_in, w_out, c, c, in_ptr, out_ptr)
+    img = _fetch_image(pool, in_ptr, h_in, w_in, c)
+    acc = 0
+    for r, s, tap in _taps(img, h_out, w_out, rs, stride, padding):
+        acc = acc + tap * w[r, s].to(torch.int64)
+    acc = _acc32(acc, b, activation)
+    return _store_image(pool, requantize(acc, mult, shift), out_ptr)
+
+
+def ring_conv_k2d_q(pool, w, b, mult, shift, *, h_in: int, w_in: int,
+                    h_out: int, w_out: int, c_in: int, c_out: int,
+                    k: int = 3, stride: int = 1, padding: str = "same",
+                    in_ptr: int = 0, out_ptr: int = 0,
+                    activation: str | None = None):
+    """Int8 k x k conv inside the ring: int8 halo rows -> int32 dot per
+    tap -> per-output-channel requantize on store (replaces
+    ``ring_conv_k2d_q``, ``src/repro/kernels/quantized.py:419``)."""
+    n_seg = pool.shape[0]
+    _check_rows(n_seg, w_in, w_out, c_in, c_out, in_ptr, out_ptr)
+    _check_cuda(pool, _per_channel(w, b, mult, shift, (k, k, c_in, c_out),
+                                   c_out))
+    _launch("ring_conv_k2d_q", pool,
+            k * w_in * _segs(c_in) * SEG_WIDTH + 12 * c_out,
+            (w, b, mult, shift),
+            (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
+             conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding),
+             in_ptr % n_seg, out_ptr % n_seg, _relu(activation)))
+    ring_conv_k2d_q.launches += 1
+    return pool
+
+
+def ring_conv_k2d_q_plain(pool, w, b, mult, shift, *, h_in: int, w_in: int,
+                          h_out: int, w_out: int, c_in: int, c_out: int,
+                          k: int = 3, stride: int = 1, padding: str = "same",
+                          in_ptr: int = 0, out_ptr: int = 0,
+                          activation: str | None = None):
+    """Plain version of :func:`ring_conv_k2d_q` (``conv_k2d_ring_q``)."""
+    _check_rows(pool.shape[0], w_in, w_out, c_in, c_out, in_ptr, out_ptr)
+    img = _fetch_image(pool, in_ptr, h_in, w_in, c_in)
+    acc = 0
+    for r, s, tap in _taps(img, h_out, w_out, k, stride, padding):
+        acc = acc + _idot(tap, w[r, s])
+    acc = _acc32(acc, b, activation)
+    return _store_image(pool, requantize(acc, mult, shift), out_ptr)
+
+
+# ---------------------------------------------------------------------------
+# Global average pool.
+# ---------------------------------------------------------------------------
+
+def ring_avgpool_q(pool, *, h: int, w: int, c: int, in_ptr: int,
+                   out_ptr: int, mult: int, shift: int):
+    """Int8 global average pool: int32 column sums, one requantized
+    output row stored after every read (replaces ``ring_avgpool_q``,
+    ``src/repro/kernels/quantized.py:603``)."""
+    n_seg = pool.shape[0]
+    _check_avgpool(n_seg, w, c, in_ptr, out_ptr)
+    _check_cuda(pool)
+    _launch("ring_avgpool_q", pool, _segs(c) * SEG_WIDTH * 5, (),
+            (n_seg, h, w, c, in_ptr % n_seg, out_ptr % n_seg, int(mult),
+             int(shift)))
+    ring_avgpool_q.launches += 1
+    return pool
+
+
+def ring_avgpool_q_plain(pool, *, h: int, w: int, c: int, in_ptr: int,
+                         out_ptr: int, mult: int, shift: int):
+    """Plain version of :func:`ring_avgpool_q` (``pool_avg_ring_q``)."""
+    _check_avgpool(pool.shape[0], w, c, in_ptr, out_ptr)
+    img = fetch_rows(pool, in_ptr, h * w, c).to(torch.int64)
+    acc = img.sum(dim=0, keepdim=True).to(torch.int32)
+    stage_rows(pool, requantize(acc, int(mult), int(shift)), out_ptr)
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# Plain-version helpers.
+# ---------------------------------------------------------------------------
+
+def _idot(x, w):
+    """Exact integer ``x @ w`` over the last axis of ``x`` (int64;
+    broadcast multiply and sum, which every device supports for
+    integers)."""
+    return (x.unsqueeze(-1) * w.to(torch.int64)).sum(dim=-2)
+
+
+def _acc32(acc, b, activation):
+    """The reference's int32 accumulator: the exact sum taken mod 2**32,
+    plus the bias in int32 arithmetic, then the int32 activation."""
+    acc = acc.to(torch.int32) + b.to(torch.int32)
+    return act_i32(acc, activation)
+
+
+def _fetch_image(pool, ptr, h, w, c):
+    return fetch_rows(pool, ptr, h * w, c).reshape(h, w, c).to(torch.int64)
+
+
+def _store_image(pool, q, out_ptr):
+    stage_rows(pool, q.reshape(-1, q.shape[-1]), out_ptr)
+    return pool
+
+
+def _taps(img, h_out, w_out, k, stride, padding):
+    """``(r, s, tap)`` for every tap of a k x k conv: ``tap`` is the
+    ``[h_out, w_out, c]`` strided slice of the zero-padded image."""
+    h_in, w_in, c = img.shape
+    pad_t = conv_k2d_pad(k, padding)
+    pad_l = conv_k2d_pad_w(k, padding)
+    pad_b = max(0, stride * (h_out - 1) + k - pad_t - h_in)
+    pad_r = max(0, stride * (w_out - 1) + k - pad_l - w_in)
+    padded = img.new_zeros((pad_t + h_in + pad_b, pad_l + w_in + pad_r, c))
+    padded[pad_t:pad_t + h_in, pad_l:pad_l + w_in] = img
+    for r in range(k):
+        for s in range(k):
+            yield r, s, padded[r:r + stride * (h_out - 1) + 1:stride,
+                               s:s + stride * (w_out - 1) + 1:stride]
+
+
+#: The wrappers, by name (what the CUDA executor launches) ...
+KERNELS = {f.__name__: f for f in (ring_gemm_q, ring_conv_pw_q,
+                                   ring_conv_dw_q, ring_conv_k2d_q,
+                                   ring_avgpool_q)}
+#: ... and their plain versions under the same names.
+PLAIN = {"ring_gemm_q": ring_gemm_q_plain,
+         "ring_conv_pw_q": ring_conv_pw_q_plain,
+         "ring_conv_dw_q": ring_conv_dw_q_plain,
+         "ring_conv_k2d_q": ring_conv_k2d_q_plain,
+         "ring_avgpool_q": ring_avgpool_q_plain}
+
+
+def reset_launch_counts() -> None:
+    for f in KERNELS.values():
+        f.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: f.launches for name, f in KERNELS.items()}
+
+
+reset_launch_counts()

@@ -1,0 +1,69 @@
+"""``repro_torch`` and ``chip_smoke.py`` stand alone: they import neither
+JAX nor anything of the reference package ``repro``, by the source and
+in a run with both blocked."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_sources_exist():
+    names = {p.name for p in SOURCES}
+    assert {"chip_smoke.py", "quantized.py", "executors.py",
+            "driver.py"} <= names
+    assert all(p.exists() for p in SOURCES)
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [(line, name) for line, name in _imports(path)
+           if _forbidden(name)]
+    assert not bad, f"{path}: {bad}"
+
+
+def test_cpu_run_with_jax_and_repro_blocked():
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np, torch
+torch.set_num_threads(1)
+import repro_torch
+assets = {str(ROOT / "src" / "repro_torch" / "assets")!r}
+cn = repro_torch.load(assets + "/ds-cnn.cortex-m4.int8.json")
+with np.load(assets + "/ds-cnn.cortex-m4.int8.golden.npz") as g:
+    x, want = g["x"][:2], g["y"][:2]
+y = cn.run(x, device="cpu")
+assert np.array_equal(y.numpy(), want)
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -1,0 +1,90 @@
+"""The port's main path on the CPU: ``repro_torch.load(artifact).run(x,
+device="cpu")`` serves DS-CNN int8 bitwise equal to the reference, in
+float outputs, int8 outputs and final-pool sha256, and refuses to run
+on the CPU unless asked to."""
+import hashlib
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro
+from repro.core.executors import run_program as ref_run_program
+from repro.quant import QParams as RefQParams
+from repro.quant import quantize as ref_quantize
+from repro_torch import load
+from repro_torch.compile.artifact import to_device
+from repro_torch.core.executors import run_program
+from repro_torch.quant.qtensor import QParams, quantize
+
+ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
+          / "repro_torch" / "assets")
+ARTIFACT = ASSETS / "ds-cnn.cortex-m4.int8.json"
+GOLDEN = ASSETS / "ds-cnn.cortex-m4.int8.golden.npz"
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(GOLDEN) as g:
+        return {k: g[k] for k in g.files}
+
+
+def _int8_run(cn, x):
+    """The port's int8 output and final pool for one float input."""
+    qparams = to_device(cn.qnet.qparams, "cpu")
+    xq = quantize(torch.from_numpy(x), QParams(scale=cn.qnet.in_scale))
+    return run_program(cn.program, xq, qparams,
+                       kernel_block_rows=cn.target.kernel_block_rows)
+
+
+def test_batched_run_bitwise_equals_golden(golden):
+    y = load(ARTIFACT).run(golden["x"], device="cpu")
+    assert y.dtype == torch.float32 and y.device.type == "cpu"
+    assert tuple(y.shape) == (8, 1, 12)
+    np.testing.assert_array_equal(y.numpy(), golden["y"])
+
+
+def test_single_runs_bitwise_equal_golden(golden):
+    cn = load(ARTIFACT)
+    for i, x in enumerate(golden["x"]):
+        y = cn.run(torch.from_numpy(x), device="cpu")
+        np.testing.assert_array_equal(y.numpy(), golden["y"][i])
+
+
+def test_int8_outputs_and_final_pools_equal_golden(golden):
+    cn = load(ARTIFACT)
+    for i, x in enumerate(golden["x"]):
+        y_q, pool = _int8_run(cn, x)
+        np.testing.assert_array_equal(y_q.numpy(), golden["y_q"][i])
+        sha = hashlib.sha256(pool.array.numpy().tobytes()).hexdigest()
+        assert sha == golden["pool_sha256"][i], i
+
+
+def test_one_input_equals_the_reference_pallas_path(golden):
+    x = golden["x"][3]
+    ref = repro.load(str(ARTIFACT))
+    qn = ref.qnet
+    yq_ref, pool_ref = ref_run_program(
+        qn.program, ref_quantize(jnp.asarray(x), RefQParams(qn.in_scale)),
+        qn.qparams, backend="pallas",
+        kernel_block_rows=ref.target.kernel_block_rows)
+    y_q, pool = _int8_run(load(ARTIFACT), x)
+    np.testing.assert_array_equal(y_q.numpy(), np.asarray(yq_ref))
+    np.testing.assert_array_equal(pool.array.numpy(),
+                                  np.asarray(pool_ref.array))
+
+
+def test_run_defaults_to_cuda_and_refuses_without_it(golden, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cn = load(ARTIFACT)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cn.run(golden["x"][0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cn.run(golden["x"][0], device="cuda")
