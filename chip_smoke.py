@@ -12,21 +12,28 @@ Phases, one summary line each:
   1. build ``src/repro_torch/kernels/csrc/ring_q.cu`` with nvcc for
      sm_90a (time and the ``-Xptxas -v`` lines);
   2. every hand-written kernel against its plain PyTorch version on the
-     card, bitwise: on every DS-CNN op and on the edge cases of
-     ``repro_torch.kernels.cases``;
-  3. the main path: ``repro_torch.load(artifact).run(x)`` on the card
-     for the 8 golden inputs, batched and one by one, with the launch
-     counts set to 0 just before and read just after; the float
-     outputs, int8 outputs and final-pool sha256 must equal the golden
-     that the reference wrote;
-  4. timing: per-inference host-clock latency at batch 1 and 8, the
-     device-busy share from ``torch.profiler``, and per kernel its
-     CUDA-event time, its plain version's time and its bound.
+     card, bitwise: on every op of the five committed plans (DS-CNN,
+     ResNet-8, MCUNet-5fps-VWW, the DS-CNN stream and the GRU chain) and
+     on the edge cases of ``repro_torch.kernels.cases``; and which ops
+     read their weights from global memory (too large for shared);
+  3. the paths, each with the launch counts set to 0 just before it and
+     read just after:
+       * ``repro_torch.load(artifact).run(x)`` on DS-CNN, ResNet-8 and
+         MCUNet-5fps-VWW for the 8 golden inputs, batched and one by
+         one; float outputs, int8 outputs and final-pool sha256 equal
+         the golden that the reference wrote;
+       * ``CompiledNet.stream().step(frame)`` on the DS-CNN stream and
+         the GRU chain for 60 frames; every step's int8 output and the
+         final pool's sha256 equal the golden;
+  4. timing: per-inference host-clock latency at batch 1 and 8 and
+     per-step stream latency, the device-busy share of each path from
+     ``torch.profiler``, and per kernel its CUDA-event time, its plain
+     version's time and its bound, at the shapes each path gives it.
 
-Then one JSON line per kernel set (``{"kernels": [...]}``), the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
-mismatch, a failed build or launch, a missing card, or a run outside a
-checkout exits nonzero and prints no result.
+Then one JSON line with every kernel (``{"kernels": [...]}``), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Any mismatch, a failed build or launch, a missing card, or a run outside
+a checkout exits nonzero and prints no result.
 """
 from __future__ import annotations
 
@@ -43,9 +50,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 ASSETS = ROOT / "src" / "repro_torch" / "assets"
-ARTIFACT = ASSETS / "ds-cnn.cortex-m4.int8.json"
-GOLDEN = ASSETS / "ds-cnn.cortex-m4.int8.golden.npz"
 SOURCE = "src/repro_torch/kernels/csrc/ring_q.cu"
+#: Plans served by ``run`` and plans stepped by ``stream``.
+NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 
 #: The TPU kernel each CUDA kernel replaces.
 REPLACES = {
@@ -53,12 +61,17 @@ REPLACES = {
     "ring_conv_pw_q": "src/repro/kernels/quantized.py:196",
     "ring_conv_dw_q": "src/repro/kernels/quantized.py:310",
     "ring_conv_k2d_q": "src/repro/kernels/quantized.py:419",
+    "ring_add_q": "src/repro/kernels/quantized.py:515",
     "ring_avgpool_q": "src/repro/kernels/quantized.py:603",
+    "ring_conv_stream_q": "src/repro/kernels/stream.py:235",
+    "ring_gru_cell_q": "src/repro/kernels/stream.py:417",
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
+INT8_OPS_PER_S = 1.979e15          # tensor cores: int8 multiply-adds
+CUDA_CORE_OPS_PER_S = 67e12        # outside the tensor cores (fp32 rate)
+DEVICE_TYPE = "cuda"               # where every path's outputs must lie
 
 
 def say(*args) -> None:
@@ -72,50 +85,113 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def artifact(name: str) -> pathlib.Path:
+    return ASSETS / f"{name}.cortex-m4.int8.json"
+
+
+def load_golden(name: str) -> dict:
+    with np.load(ASSETS / f"{name}.cortex-m4.int8.golden.npz") as g:
+        return {k: g[k] for k in g.files}
+
+
 # ---------------------------------------------------------------------------
-# Bounds: bytes moved once and int8 operations, from a kernel call's shapes.
+# Bounds: bytes moved once and operations done, from a kernel call's shapes.
 # ---------------------------------------------------------------------------
 
 def _segs(d: int) -> int:
     return -(-d // 128)
 
 
-def work(kernel: str, kw: dict) -> tuple[int, int]:
-    """``(bytes, ops)`` a kernel call must move and do: every input row
-    read once, every output row written once (whole segments), weights,
-    biases and requant constants once; 2 ops per MAC at in-bounds taps
-    (1 per add for the average pool)."""
+def _conv_taps(k, stride, padding, h_in, w_in, h_out, w_out) -> int:
+    """In-bounds taps of a k x k conv over all output pixels."""
     from repro_torch.core.rowsched import conv_k2d_pad, conv_k2d_pad_w
 
+    pv, ph = conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding)
+    rows_ok = [sum(0 <= p * stride - pv + r < h_in for r in range(k))
+               for p in range(h_out)]
+    cols_ok = [sum(0 <= q * stride - ph + t < w_in for t in range(k))
+               for q in range(w_out)]
+    return sum(rows_ok) * sum(cols_ok)
+
+
+def _conv_pixels_read(k, stride, padding, h_in, w_in, h_out, w_out) -> int:
+    """Input pixels that some in-bounds tap of a k x k conv reads."""
+    from repro_torch.core.rowsched import conv_k2d_pad, conv_k2d_pad_w
+
+    pv, ph = conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding)
+    rows = {p * stride - pv + r for p in range(h_out) for r in range(k)}
+    cols = {q * stride - ph + t for q in range(w_out) for t in range(k)}
+    return (len(rows & set(range(h_in))) * len(cols & set(range(w_in))))
+
+
+def _pw_pixels_read(kw) -> int:
+    """Input pixels a 1x1 conv reads (strided or resampled picks)."""
+    from repro_torch.core.rowsched import resample_src
+
+    def picks(n_in, n_out):
+        if kw.get("resample"):
+            return {resample_src(p, n_in, n_out) for p in range(n_out)}
+        return {p * kw.get("stride", 1) for p in range(n_out)}
+    return len(picks(kw["h_in"], kw["h_out"])) \
+        * len(picks(kw["w_in"], kw["w_out"]))
+
+
+def work(kernel: str, kw: dict) -> tuple[int, int, int]:
+    """``(bytes, tensor_ops, core_ops)`` a kernel call must move and do.
+
+    Bytes: every input pixel the op reads, once, at its data width (its
+    live channels, not the whole 128-byte segments it sits in); every
+    output row written once as whole segments (the kernels must store
+    the channel tails as zeros); the streaming window read once and
+    written back once at its data width; weights, biases and requant
+    constants once.  Operations: 2 int8 ops per multiply-accumulate at
+    in-bounds taps; elementwise integer ops (the pool's adds, the
+    residual add's two requantizations and sum) counted apart, for the
+    CUDA cores."""
     if kernel == "ring_avgpool_q":
         rows = kw["h"] * kw["w"]
-        return (rows + 1) * _segs(kw["c"]) * 128, rows * kw["c"]
+        return rows * kw["c"] + _segs(kw["c"]) * 128, 0, rows * kw["c"]
+    if kernel == "ring_add_q":
+        rows, d = kw["rows"], kw["d"]
+        return 2 * rows * d + rows * _segs(d) * 128, 0, 3 * rows * d
     if kernel == "ring_gemm_q":
         m, ci, co = kw["m_rows"], kw["d_in"], kw["d_out"]
-        return ((m * _segs(ci) + m * _segs(co)) * 128 + ci * co + 12 * co,
-                2 * m * ci * co)
+        return (m * ci + m * _segs(co) * 128 + ci * co + 12 * co,
+                2 * m * ci * co, 0)
+    if kernel == "ring_gru_cell_q":
+        ci, dh = kw["d_in"], kw["d_h"]
+        g = 3 * dh
+        # x and h read once; h' stored to the state and to the output.
+        return (ci + dh + 2 * _segs(dh) * 128 + (ci + dh) * g + 20 * g,
+                2 * (ci + dh) * g, 0)
+    if kernel == "ring_conv_stream_q":
+        ci, co, k = kw["c_in"], kw["c_out"], kw["k"]
+        win = kw["h_win"] * kw["w_in"] * ci
+        out = kw["h_out"] * kw["w_out"] * _segs(co) * 128
+        taps = _conv_taps(k, kw["stride"], kw["padding"], kw["h_win"],
+                          kw["w_in"], kw["h_out"], kw["w_out"])
+        return 2 * win + out + k * k * ci * co + 12 * co, \
+            2 * taps * ci * co, 0
     ci = kw["c"] if kernel == "ring_conv_dw_q" else kw["c_in"]
     co = kw["c"] if kernel == "ring_conv_dw_q" else kw["c_out"]
-    rows_in, rows_out = kw["h_in"] * kw["w_in"], kw["h_out"] * kw["w_out"]
-    io = (rows_in * _segs(ci) + rows_out * _segs(co)) * 128 + 12 * co
+    out = kw["h_out"] * kw["w_out"] * _segs(co) * 128 + 12 * co
     if kernel == "ring_conv_pw_q":
-        return io + ci * co, 2 * rows_out * ci * co
+        return (_pw_pixels_read(kw) * ci + out + ci * co,
+                2 * kw["h_out"] * kw["w_out"] * ci * co, 0)
     k = kw["rs"] if kernel == "ring_conv_dw_q" else kw["k"]
-    s, pad = kw["stride"], kw["padding"]
-    pv, ph = conv_k2d_pad(k, pad), conv_k2d_pad_w(k, pad)
-    rows_ok = [sum(0 <= p * s - pv + r < kw["h_in"] for r in range(k))
-               for p in range(kw["h_out"])]
-    cols_ok = [sum(0 <= q * s - ph + t < kw["w_in"] for t in range(k))
-               for q in range(kw["w_out"])]
-    taps = sum(rows_ok) * sum(cols_ok)
+    geom = (k, kw["stride"], kw["padding"], kw["h_in"], kw["w_in"],
+            kw["h_out"], kw["w_out"])
+    io = _conv_pixels_read(*geom) * ci + out
+    taps = _conv_taps(*geom)
     if kernel == "ring_conv_dw_q":
-        return io + k * k * ci, 2 * taps * ci
-    return io + k * k * ci * co, 2 * taps * ci * co
+        return io + k * k * ci, 2 * taps * ci, 0
+    return io + k * k * ci * co, 2 * taps * ci * co, 0
 
 
 def bound(kernel: str, kw: dict) -> tuple[float, str]:
-    nbytes, ops = work(kernel, kw)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    nbytes, tensor_ops, core_ops = work(kernel, kw)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = tensor_ops / INT8_OPS_PER_S + core_ops / CUDA_CORE_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -139,21 +215,35 @@ def _cuda(arrays):
     return tuple(torch.from_numpy(a).cuda() for a in arrays)
 
 
+def plan_cases(name: str, cn):
+    """One case per op of a loaded plan, named after the plan."""
+    from repro_torch.kernels.cases import program_cases
+
+    return program_cases(cn.program, cn.qnet.qparams,
+                         kernel_block_rows=cn.target.kernel_block_rows,
+                         prefix=f"{name}_")
+
+
 def phase_parity(cases) -> dict[str, int]:
-    """Every case: kernel vs plain version on the card, bitwise.
-    Returns the max |difference| per kernel (0, or this raises)."""
-    from repro_torch.kernels import quantized as qk
+    """Every case: kernel vs plain version on the card, bitwise; and the
+    cases whose launch read its weights from global memory, as the
+    wrapper decided (``<wrapper>.weights_staged``).  Returns the max
+    |difference| per kernel (0, or this raises)."""
+    from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import case_inputs
 
     say(f"phase 2: {len(cases)} kernel calls against their plain versions "
         "on the card (bitwise)")
-    err: dict[str, int] = {name: 0 for name in qk.KERNELS}
+    err: dict[str, int] = {name: 0 for name in KERNELS}
+    global_w = []
     for case in cases:
         pool, params = case_inputs(case, seed=0)
         want = torch.from_numpy(pool).cuda()
-        qk.PLAIN[case.kernel](want, *_cuda(params), **case.kwargs)
+        PLAIN[case.kernel](want, *_cuda(params), **case.kwargs)
         got = torch.from_numpy(pool).cuda()
-        qk.KERNELS[case.kernel](got, *_cuda(params), **case.kwargs)
+        KERNELS[case.kernel](got, *_cuda(params), **case.kwargs)
+        if KERNELS[case.kernel].weights_staged is False:
+            global_w.append(case.name)
         torch.cuda.synchronize()
         diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
         err[case.kernel] = max(err[case.kernel], int(diff.max()))
@@ -161,48 +251,107 @@ def phase_parity(cases) -> dict[str, int]:
             seg = int(diff.amax(dim=1).nonzero()[0])
             raise SystemExit(f"{case.name}: {case.kernel} differs from its "
                              f"plain version, first at segment {seg}")
-        say(f"  {case.name:18s} {case.kernel:16s} bitwise equal")
+    say(f"  all {len(cases)} bitwise equal; kernels covered: "
+        f"{sorted({c.kernel for c in cases})}")
+    say(f"  weights read from global memory (too large for shared): "
+        f"{global_w or 'none'}")
     return err
 
 
-def phase_main_path(cn, golden) -> dict[str, int]:
-    """The served path on the card; returns the launch counts of its run."""
+def _path_kernels(cn) -> set[str]:
+    """The kernels a plan's ops launch."""
+    from repro_torch.core.executors import op_kernel_call
+
+    return {op_kernel_call(cn.program, op, p)[0]
+            for op, p in zip(cn.program.ops, cn.qnet.qparams)}
+
+
+def _counted(label: str, cn, drive) -> dict[str, int]:
+    """Run ``drive()`` with the launch counts set to 0 just before and
+    read just after; every kernel of the plan must have launched."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    drive()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    missing = sorted(k for k in _path_kernels(cn) if not counts[k])
+    if missing:
+        raise SystemExit(f"{label}: kernels never launched: {missing}")
+    say(f"  {label} launches: "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    return counts
+
+
+def _sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def path_serve(name: str, cn, golden) -> dict[str, int]:
+    """``run`` on the card: 8 inputs batched and 8 one by one, equal to
+    the golden in float outputs, int8 outputs and final-pool sha256."""
     from repro_torch.compile.artifact import to_device
     from repro_torch.core.executors import run_program
-    from repro_torch.kernels import quantized as qk
     from repro_torch.quant.qtensor import QParams, quantize
 
     x = torch.from_numpy(golden["x"]).cuda()
-    qk.reset_launch_counts()
-    y_batch = cn.run(x)
-    y_single = [cn.run(xi) for xi in x]
-    torch.cuda.synchronize()
-    counts = qk.launch_counts()
-    say(f"phase 3: main path, repro_torch.load(plan).run(x) on "
-        f"{y_batch.device}: 8 inputs batched + 8 one by one")
-    say(f"  launches: {counts}")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise SystemExit(f"kernels never launched on the main path: "
-                         f"{missing}")
+    out = {}
+
+    def drive():
+        out["batch"] = cn.run(x)
+        out["single"] = [cn.run(xi) for xi in x]
+
+    counts = _counted(f"{name} run", cn, drive)
     want = torch.from_numpy(golden["y"]).cuda()
-    if not torch.equal(y_batch, want):
-        raise SystemExit("batched float outputs differ from the golden")
-    for i, y in enumerate(y_single):
+    if out["batch"].device.type != DEVICE_TYPE \
+            or not torch.equal(out["batch"], want):
+        raise SystemExit(f"{name}: batched float outputs differ from the "
+                         "golden")
+    for i, y in enumerate(out["single"]):
         if not torch.equal(y, want[i]):
-            raise SystemExit(f"float output {i} differs from the golden")
-    qparams = to_device(cn.qnet.qparams, "cuda")
+            raise SystemExit(f"{name}: float output {i} differs from the "
+                             "golden")
+    qparams = to_device(cn.qnet.qparams, x.device)
     for i, xi in enumerate(x):
         xq = quantize(xi, QParams(scale=cn.qnet.in_scale))
         y_q, pool = run_program(cn.program, xq, qparams,
                                 kernel_block_rows=cn.target.kernel_block_rows)
         if not np.array_equal(y_q.cpu().numpy(), golden["y_q"][i]):
-            raise SystemExit(f"int8 output {i} differs from the golden")
-        sha = hashlib.sha256(pool.array.cpu().numpy().tobytes()).hexdigest()
-        if sha != golden["pool_sha256"][i]:
-            raise SystemExit(f"final pool {i} differs from the golden")
-    say(f"  {tuple(y_batch.shape)} {y_batch.dtype}: float outputs, int8 "
-        "outputs and final-pool sha256 equal the golden on all 8")
+            raise SystemExit(f"{name}: int8 output {i} differs from the "
+                             "golden")
+        if _sha(pool.array) != golden["pool_sha256"][i]:
+            raise SystemExit(f"{name}: final pool {i} differs from the "
+                             "golden")
+    say(f"  {name}: {tuple(out['batch'].shape)} float outputs, int8 outputs "
+        "and final-pool sha256 equal the golden on all 8")
+    return counts
+
+
+def path_stream(name: str, cn, golden) -> dict[str, int]:
+    """``stream().step`` on the card for every golden frame: each step's
+    int8 output and the last pool equal the golden; then float frames
+    give the dequantized golden."""
+    frames = torch.from_numpy(golden["x_q"]).cuda()
+    session = cn.stream()
+    ys = []
+    counts = _counted(f"{name} stream", cn,
+                      lambda: ys.extend(session.step(f) for f in frames))
+    for i, y in enumerate(ys):
+        if y.device.type != DEVICE_TYPE \
+                or not np.array_equal(y.cpu().numpy(), golden["y_q"][i]):
+            raise SystemExit(f"{name}: step {i} differs from the golden")
+    if _sha(session.pool.array) != str(golden["pool_sha256"]):
+        raise SystemExit(f"{name}: the pool after {len(ys)} steps differs "
+                         "from the golden")
+    session.reset()
+    for i, f in enumerate(golden["x"][:8]):
+        if not np.array_equal(session.step(f).cpu().numpy(),
+                              golden["y"][i]):
+            raise SystemExit(f"{name}: float step {i} differs from the "
+                             "golden")
+    say(f"  {name}: {len(ys)} steps, every int8 output and the final pool "
+        f"equal the golden ({session.state_bytes} B of state)")
     return counts
 
 
@@ -268,24 +417,27 @@ KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
                   "ring_conv_pw_q": "conv_pw_kernel",
                   "ring_conv_dw_q": "conv_dw_kernel",
                   "ring_conv_k2d_q": "conv_k2d_kernel",
-                  "ring_avgpool_q": "avgpool_kernel"}
+                  "ring_add_q": "add_kernel",
+                  "ring_avgpool_q": "avgpool_kernel",
+                  "ring_conv_stream_q": "conv_stream_kernel",
+                  "ring_gru_cell_q": "gru_kernel"}
 
 
-def _device_busy(cn, x1, reps: int = 20):
-    """From torch.profiler over ``reps`` batch-1 runs: the device time
+def _device_busy(fn, reps: int = 20):
+    """From torch.profiler over ``reps`` calls of ``fn``: the device time
     of all kernels over the wall time (None when the profiler sees no
-    device time), the wall time per run in us, and each ring kernel's
+    device time), the wall time per call in us, and each ring kernel's
     mean device time per launch in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cn.run(x1)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            cn.run(x1)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
@@ -302,53 +454,86 @@ def _device_busy(cn, x1, reps: int = 20):
             per_launch)
 
 
-def phase_timing(cn, golden, ds_cnn_cases, counts, errs) -> list[dict]:
-    from repro_torch.kernels import quantized as qk
+def time_cases(cases) -> dict[str, dict]:
+    """Per kernel over ``cases`` (one per op of a plan): the mean device
+    time per launch, host time with the launch, plain-version time and
+    bound."""
+    from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import case_inputs
 
-    say("phase 4: timing")
-    rows = []
-    n_inf = 16                       # the main path ran 8 + 8 inferences
-    for name in qk.KERNELS:
+    out: dict[str, dict] = {}
+    for name in KERNELS:
         ms, plain_ms, host_ms, bounds = [], [], [], []
-        for case in (c for c in ds_cnn_cases if c.kernel == name):
+        for case in (c for c in cases if c.kernel == name):
             pool, params = case_inputs(case, seed=0)
             pool, params = torch.from_numpy(pool).cuda(), _cuda(params)
-            kern, plain = qk.KERNELS[name], qk.PLAIN[name]
+            kern, plain = KERNELS[name], PLAIN[name]
             host_ms.append(_host_ms(
-                lambda: kern(pool, *params, **case.kwargs), 50))
+                lambda: kern(pool, *params, **case.kwargs), 20))
             ms.append(_held_ms(lambda: kern(pool, *params, **case.kwargs),
-                               100))
+                               50))
             plain_ms.append(_event_ms(
-                lambda: plain(pool, *params, **case.kwargs), 10))
+                lambda: plain(pool, *params, **case.kwargs), 5))
             bounds.append(bound(name, case.kwargs))
-        bound_ms = statistics.mean(b for b, _ in bounds)
-        row = {"name": name, "route": "cuda", "source": SOURCE,
-               "replaces": REPLACES[name], "launches": counts[name],
-               "max_abs_err": errs[name], "ms": statistics.mean(ms),
-               "plain_ms": statistics.mean(plain_ms), "bound_ms": bound_ms,
-               "bound_by": bounds[0][1], "library_ms": None,
-               "launches_per_inference": counts[name] / n_inf,
-               "host_ms": statistics.mean(host_ms)}
-        rows.append(row)
-        say(f"  {name:16s} {row['ms'] * 1e3:9.2f} us/launch (device), "
-            f"{row['host_ms'] * 1e3:8.2f} us with launch (host), plain "
-            f"{row['plain_ms'] * 1e3:9.2f} us, bound "
-            f"{bound_ms * 1e3:.4f} us ({row['bound_by']}), "
-            f"{row['launches_per_inference']:g} per inference")
-    x = torch.from_numpy(golden["x"]).cuda()
-    b1 = _host_ms(lambda: cn.run(x[0]), 50)
-    b8 = _host_ms(lambda: cn.run(x), 20) / 8
-    busy, window_us, prof_ms = _device_busy(cn, x[0])
-    busy_txt = "not measured" if busy is None else f"{busy:.4f}"
-    say(f"  per inference {b1:.4f} ms at batch 1, {b8:.4f} ms at batch 8 "
-        f"(host clock, ending in synchronize); device busy {busy_txt} of "
-        f"{window_us:.1f} us per batch-1 run (profiler)")
-    for row in rows:
-        row["profiler_ms"] = prof_ms.get(row["name"])
-    say("  profiler device time per launch on the main path (us): "
-        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in prof_ms.items()))
-    return rows
+        if ms:
+            out[name] = {"ms": statistics.mean(ms),
+                         "plain_ms": statistics.mean(plain_ms),
+                         "host_ms": statistics.mean(host_ms),
+                         "bound_ms": statistics.mean(b for b, _ in bounds),
+                         "bound_by": bounds[0][1], "ops": len(ms)}
+    return out
+
+
+def phase_timing(served, streamed, cases, counts, errs):
+    """Times every path and its kernels; returns the per-kernel rows of
+    the ``{"kernels": [...]}`` line and the per-path latency and busy
+    share."""
+    from repro_torch.kernels import KERNELS
+
+    say("phase 4: timing")
+    by_path = {}
+    for label, cn, drive, per in served + streamed:
+        t = time_cases(cases[label])
+        busy, call_us, prof_ms = _device_busy(drive)
+        lat = _host_ms(drive, 30)
+        busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+        say(f"  {label}: {lat:.4f} ms per {per} (host clock, ending in "
+            f"synchronize); device busy {busy_txt} of {call_us:.1f} us per "
+            f"{per} (profiler)")
+        if per == "inference":
+            x = torch.from_numpy(load_golden(label)["x"]).cuda()
+            b8 = _host_ms(lambda: cn.run(x), 10) / len(x)
+            say(f"  {label}: {b8:.4f} ms per inference at batch {len(x)}")
+        for name, row in t.items():
+            row["profiler_ms"] = prof_ms.get(name)
+            row["launches"] = counts[label][name]
+            say(f"    {name:18s} {row['ms'] * 1e3:9.2f} us/launch (device, "
+                f"mean of {row['ops']} ops), {row['host_ms'] * 1e3:8.2f} us "
+                f"with launch (host), plain {row['plain_ms'] * 1e3:9.2f} "
+                f"us, bound {row['bound_ms'] * 1e3:.4f} us "
+                f"({row['bound_by']}), {row['launches']} launches")
+        by_path[label] = {"latency_ms": lat, "device_busy": busy,
+                          "kernels": t}
+    rows = []
+    for name in KERNELS:
+        per = {p: v["kernels"][name] for p, v in by_path.items()
+               if name in v["kernels"]}
+        weight = {p: r["ops"] for p, r in per.items()}
+        n = sum(weight.values())
+
+        def avg(key):
+            return sum(r[key] * weight[p] for p, r in per.items()) / n
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name],
+            "launches": sum(c[name] for c in counts.values()),
+            "max_abs_err": errs[name], "ms": avg("ms"),
+            "plain_ms": avg("plain_ms"), "bound_ms": avg("bound_ms"),
+            "bound_by": next(iter(per.values()))["bound_by"],
+            "library_ms": None, "host_ms": avg("host_ms"),
+            "by_path": per})
+    return rows, {p: {k: v for k, v in d.items() if k != "kernels"}
+                  for p, d in by_path.items()}
 
 
 def main() -> None:
@@ -360,7 +545,7 @@ def main() -> None:
                          "available")
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
-    from repro_torch.kernels.cases import EDGE_CASES, program_cases
+    from repro_torch.kernels.cases import EDGE_CASES
 
     card = nvidia_smi_line()
     say(f"phase 0: card {card}")
@@ -368,15 +553,32 @@ def main() -> None:
         f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
     phase_build()
 
-    cn = repro_torch.load(ARTIFACT)
-    with np.load(GOLDEN) as g:
-        golden = {k: g[k] for k in g.files}
-    ds_cnn = program_cases(cn.program, cn.qnet.qparams,
-                           kernel_block_rows=cn.target.kernel_block_rows)
-    errs = phase_parity(ds_cnn + EDGE_CASES)
-    counts = phase_main_path(cn, golden)
-    rows = phase_timing(cn, golden, ds_cnn, counts, errs)
+    plans = {n: repro_torch.load(artifact(n)) for n in NETS + STREAMS}
+    goldens = {n: load_golden(n) for n in NETS + STREAMS}
+    cases = {n: plan_cases(n, cn) for n, cn in plans.items()}
+    errs = phase_parity(EDGE_CASES + sum(cases.values(), ()))
 
+    say("phase 3: the paths on the card")
+    counts = {}
+    for n in NETS:
+        counts[n] = path_serve(n, plans[n], goldens[n])
+    for n in STREAMS:
+        counts[n] = path_stream(n, plans[n], goldens[n])
+
+    served = []
+    for n in NETS:
+        x1 = torch.from_numpy(goldens[n]["x"][0]).cuda()
+        served.append((n, plans[n],
+                       lambda cn=plans[n], x1=x1: cn.run(x1), "inference"))
+    streamed = []
+    for n in STREAMS:
+        session = plans[n].stream()
+        frame = torch.from_numpy(goldens[n]["x_q"][0]).cuda()
+        streamed.append((n, plans[n],
+                         lambda s=session, f=frame: s.step(f), "step"))
+    rows, paths = phase_timing(served, streamed, cases, counts, errs)
+
+    say(json.dumps({"paths": paths}))
     say(json.dumps({"kernels": rows}))
     say(nvidia_smi_line())
     say(json.dumps({"ok": True, "device": {

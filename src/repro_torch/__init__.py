@@ -9,6 +9,11 @@ compiler wrote::
     y = cn.run(x)                 # on the CUDA card, through the ring kernels
     y = cn.run(x, device="cpu")   # plain PyTorch versions of the kernels
 
+A streaming plan steps frame by frame on a persistent pool::
+
+    s = repro_torch.load("ds-cnn-stream.cortex-m4.int8.json").stream()
+    y = s.step(frame)             # stream(device="cpu") on the CPU
+
 The compile pipeline (``repro.compile``) is not ported yet.
 """
 from .compile.driver import CompiledNet, load

@@ -9,6 +9,8 @@ later slice.
 
 ``CompiledNet.run`` runs on the CUDA card unless the caller passes
 ``device="cpu"``; without a card it raises rather than run elsewhere.
+``CompiledNet.stream`` opens a :class:`repro_torch.stream.StreamSession`
+on a streaming plan, on the same terms.
 """
 from __future__ import annotations
 
@@ -76,6 +78,11 @@ class CompiledNet:
     _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
+    def quantized(self) -> bool:
+        """Always True: the port loads int8 plans only."""
+        return self.qnet is not None
+
+    @property
     def pool_bytes(self) -> int:
         """The executed ring footprint (bytes of pool state)."""
         return self.program.pool_bytes
@@ -123,6 +130,16 @@ class CompiledNet:
                                                   kernel_block_rows=kbr)
                                 for xi in x])
         return run_net_quantized(qnet, x, kernel_block_rows=kbr)
+
+    def stream(self, device=None, *, backend: str | None = None,
+               trace: bool = False):
+        """Open a :class:`repro_torch.stream.StreamSession` on this net —
+        the per-frame reset/step driver over the persistent-state ring,
+        on ``device`` (the CUDA card when ``None``).  Needs a streaming
+        plan (``conv_stream``/``gru_cell`` ops)."""
+        from ..stream import StreamSession
+
+        return StreamSession(self, device, backend=backend, trace=trace)
 
     def report(self) -> dict:
         """Footprint / bottleneck accounting against the target budget,

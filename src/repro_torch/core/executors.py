@@ -11,21 +11,20 @@ implementation:
     (:data:`repro_torch.kernels.quantized.PLAIN`) — the port of
     ``_apply_op_q``/``_run_jnp_q``.
 
-Nothing on the CUDA path calls a plain version.  The kinds ``add``,
-``conv_stream`` and ``gru_cell`` have no kernel in the port yet and
-raise ``NotImplementedError`` on both paths; fp32 programs come in a
-later slice.
+Nothing on the CUDA path calls a plain version.  Every int8 op kind
+has its kernel; fp32 programs come in a later slice.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.quantized import KERNELS, PLAIN
+from ..kernels import KERNELS, PLAIN
 from .program import EXECUTABLE_KINDS, PoolProgram
 from .vpool import VirtualPool, segments_for
 
 #: Op kinds the port's int8 executors run.
-Q_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "pool_avg")
+Q_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "add", "pool_avg",
+           "conv_stream", "gru_cell")
 
 
 def _normalize_qparams(program: PoolProgram, params):
@@ -126,14 +125,32 @@ def op_kernel_call(program: PoolProgram, op, p, *,
             c_in=op.d_in, c_out=op.d_out, k=op.rs, stride=op.stride,
             padding=op.padding, in_ptr=_image_ptr(op, sw),
             out_ptr=op.out_ptr, activation=op.activation)
+    if op.kind == "add":
+        mi, si, ma, sa = p
+        return "ring_add_q", (), dict(
+            rows=op.rows_in or program.m_rows, d=op.d_in, in_ptr=op.in_ptr,
+            aux_ptr=op.aux_ptr, out_ptr=op.out_ptr, mult_in=mi,
+            shift_in=si, mult_aux=ma, shift_aux=sa,
+            activation=op.activation)
     if op.kind == "pool_avg":
         mult, shift = p
         return "ring_avgpool_q", (), dict(
             h=op.h_in, w=op.w_in, c=op.d_in, in_ptr=op.in_ptr,
             out_ptr=op.out_ptr, mult=mult, shift=shift)
+    if op.kind == "conv_stream":
+        return "ring_conv_stream_q", tuple(p), dict(
+            h_win=op.h_in, w_in=op.w_in, h_out=op.h_out, w_out=op.w_out,
+            c_in=op.d_in, c_out=op.d_out, k=op.rs, stride=op.stride,
+            padding=op.padding, hop=op.hop, in_ptr=op.in_ptr,
+            out_ptr=op.out_ptr, state_ptr=op.state_ptr,
+            activation=op.activation)
+    if op.kind == "gru_cell":
+        return "ring_gru_cell_q", tuple(p), dict(
+            d_in=op.d_in, d_h=op.d_out, in_ptr=op.in_ptr,
+            out_ptr=op.out_ptr, state_ptr=op.state_ptr)
     raise NotImplementedError(
-        f"no int8 ring kernel for op kind {op.kind!r} in the port yet "
-        f"(it runs {Q_KINDS})")
+        f"no int8 ring kernel for op kind {op.kind!r} (the port runs "
+        f"{Q_KINDS})")
 
 
 def execute(program: PoolProgram, pool, params, *,

@@ -1,3 +1,21 @@
 """The port's hand-written CUDA ring kernels (``csrc/``), their build
-(``_build``), their Python wrappers and plain versions (``quantized``) and
-the parity cases they are held to (``cases``)."""
+(``_build``), their Python wrappers and plain versions (``quantized``,
+``stream``) and the parity cases they are held to (``cases``).
+
+:data:`KERNELS` and :data:`PLAIN` are every wrapper and every plain
+version by kernel name; each wrapper counts its launches in
+``<wrapper>.launches`` (:func:`launch_counts`).  Importing this package
+builds nothing."""
+from . import quantized, stream
+
+KERNELS = {**quantized.KERNELS, **stream.KERNELS}
+PLAIN = {**quantized.PLAIN, **stream.PLAIN}
+
+
+def reset_launch_counts() -> None:
+    for f in KERNELS.values():
+        f.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: f.launches for name, f in KERNELS.items()}

@@ -9,10 +9,16 @@ inputs can go to the reference's Pallas kernels, to the plain versions
 and to the CUDA kernels.
 
 :data:`EDGE_CASES` are the geometries the DS-CNN plan does not reach
-(wrapping runs, other strides, paddings and blockings);
+(wrapping runs, other strides, paddings and blockings, saturating and
+wrapping int32 sums, streaming windows with ``hop`` 2);
 :func:`program_cases` gives one case per op of a real program, with its
 real weights.  Every in/out overlap here is one a certified plan allows:
-no output row lands on an input row a later step still reads.
+no output row lands on an input row (or residual row) a later step still
+reads, and no output lands on a streaming state region.  Only such
+overlaps are a test of anything: the reference kernels in interpret mode
+read an unaliased copy of the pool, and the plain versions read every
+input before they store, so an illegal overlap would set them apart from
+a kernel that walks the ring in order.
 """
 from __future__ import annotations
 
@@ -50,6 +56,46 @@ def _pw(h, w, ci, co, s, rsmp, hout, wout, i, o, act, rb=1):
                 stride=s, resample=rsmp, in_ptr=i, out_ptr=o,
                 activation=act, row_block=rb)
 
+
+def _add(rows, d, i, aux, o, ratio_in, ratio_aux, act):
+    mi, si = quantize_multiplier(ratio_in)
+    ma, sa = quantize_multiplier(ratio_aux)
+    return dict(rows=rows, d=d, in_ptr=i, aux_ptr=aux, out_ptr=o,
+                mult_in=mi, shift_in=si, mult_aux=ma, shift_aux=sa,
+                activation=act)
+
+
+def _stream(h_win, w, ci, co, k, s, hop, hout, wout, i, o, st, act,
+            pad="same"):
+    return dict(h_win=h_win, w_in=w, h_out=hout, w_out=wout, c_in=ci,
+                c_out=co, k=k, stride=s, padding=pad, hop=hop, in_ptr=i,
+                out_ptr=o, state_ptr=st, activation=act)
+
+
+def _gru(d_in, d_h, i, o, st):
+    return dict(d_in=d_in, d_h=d_h, in_ptr=i, out_ptr=o, state_ptr=st)
+
+
+def _gru_params(d_in: int, d_h: int, seed: int, bias: int):
+    """GRU weights and Q12 constants whose biases lie within ``bias`` of
+    the int32 limits, so that ``gx + b`` wraps on some channels."""
+    rng = np.random.default_rng(seed)
+    g = 3 * d_h
+    w = rng.integers(-127, 128, (d_in, g), dtype=np.int8)
+    u = rng.integers(-127, 128, (d_h, g), dtype=np.int8)
+    b = np.where(rng.integers(0, 2, g) == 1,
+                 rng.integers((1 << 31) - bias, 1 << 31, g),
+                 rng.integers(-(1 << 31), -(1 << 31) + bias, g)) \
+        .astype(np.int32)
+    mult = rng.integers(1 << 30, (1 << 31) - 1, (4, g), dtype=np.int32)
+    shift = rng.integers(-3, 0, (4, g), dtype=np.int32)
+    return w, u, b, mult[0], shift[0], mult[1], shift[1]
+
+
+#: Multiplier and shift that saturate ``requantize_i32`` (int32, then
+#: the ``2**24`` clip) for any nonzero int8 operand.
+SATURATE = dict(mult_in=(1 << 31) - 1, shift_in=30, mult_aux=(1 << 31) - 1,
+                shift_aux=30)
 
 EDGE_CASES = (
     # k = 3 'same', input run wrapping the ring
@@ -90,30 +136,68 @@ EDGE_CASES = (
          dict(h=3, w=4, c=200, in_ptr=24, out_ptr=42,
               mult=quantize_multiplier(0.9 / 12)[0],
               shift=quantize_multiplier(0.9 / 12)[1])),
+    # in place, the input run wrapping the ring, the residual elsewhere
+    Case("add_inplace_wrap", "ring_add_q", 64,
+         _add(24, 100, 52, 20, 52, 0.7, 1.3, "relu")),
+    # out_ptr one chunk below in_ptr: row t lands on input row t - 1
+    Case("add_shifted", "ring_add_q", 80,
+         _add(12, 200, 40, 10, 38, 1.1, 0.45, None)),
+    # both operands requantize to the 2**24 clip: the int32 sum is +-2**25
+    Case("add_saturating", "ring_add_q", 32,
+         dict(_add(8, 64, 0, 8, 16, 1.0, 1.0, None), **SATURATE)),
+    # more rows than one shared-memory tile (908 one-segment rows), shifted
+    Case("add_tiles_shifted", "ring_add_q", 2048,
+         _add(1000, 16, 1048, 0, 1047, 0.9, 0.6, "relu")),
+    # hop 2 (the test_stream.py chain geometry); the output lands on the
+    # frame's rows, which the kernel has read
+    Case("stream_hop2", "ring_conv_stream_q", 60,
+         _stream(6, 5, 8, 16, 3, 1, 2, 6, 5, 20, 0, 30, "relu")),
+    # stride 2, two output segments per pixel, the output run wrapping
+    Case("stream_out_wraps", "ring_conv_stream_q", 120,
+         _stream(6, 5, 20, 140, 3, 2, 1, 3, 3, 90, 114, 60, None)),
+    # two input segments per pixel, out_ptr past the ring's end
+    Case("gru_wide_input", "ring_gru_cell_q", 20, _gru(130, 40, 4, 25, 19)),
+    # Q12 biases near the int32 limits: gx + b wraps
+    Case("gru_bias_wraps", "ring_gru_cell_q", 8, _gru(64, 64, 2, 3, 6),
+         _gru_params(64, 64, seed=5, bias=1 << 12)),
 )
 
 
-def program_cases(program, qparams, *, kernel_block_rows: int = 8):
-    """One case per op of ``program``, with the op's real weights."""
+def program_cases(program, qparams, *, kernel_block_rows: int = 8,
+                  prefix: str = "", kinds=None):
+    """One case per op of ``program`` (of the op kinds ``kinds``, when
+    given), with the op's real weights; case names are
+    ``<prefix>op<i>_<kind>``."""
     from ..core.executors import op_kernel_call
 
     cases = []
     for i, (op, p) in enumerate(zip(program.ops, qparams)):
+        if kinds is not None and op.kind not in kinds:
+            continue
         name, params, kwargs = op_kernel_call(
             program, op, p, kernel_block_rows=kernel_block_rows)
-        cases.append(Case(f"op{i:02d}_{op.kind}", name, program.n_segments,
-                          kwargs, params))
+        cases.append(Case(f"{prefix}op{i:02d}_{op.kind}", name,
+                          program.n_segments, kwargs, params))
     return tuple(cases)
 
 
-def input_region(kernel: str, kw: dict) -> tuple[int, int, int]:
-    """``(ptr, rows, width)`` of the tensor the kernel reads."""
+def input_regions(kernel: str, kw: dict) -> list[tuple[int, int, int]]:
+    """``(ptr, rows, width)`` of each tensor the kernel reads."""
     if kernel == "ring_gemm_q":
-        return kw["in_ptr"], kw["m_rows"], kw["d_in"]
+        return [(kw["in_ptr"], kw["m_rows"], kw["d_in"])]
     if kernel == "ring_avgpool_q":
-        return kw["in_ptr"], kw["h"] * kw["w"], kw["c"]
+        return [(kw["in_ptr"], kw["h"] * kw["w"], kw["c"])]
+    if kernel == "ring_add_q":
+        return [(kw["in_ptr"], kw["rows"], kw["d"]),
+                (kw["aux_ptr"], kw["rows"], kw["d"])]
+    if kernel == "ring_conv_stream_q":
+        return [(kw["in_ptr"], kw["hop"] * kw["w_in"], kw["c_in"]),
+                (kw["state_ptr"], kw["h_win"] * kw["w_in"], kw["c_in"])]
+    if kernel == "ring_gru_cell_q":
+        return [(kw["in_ptr"], 1, kw["d_in"]),
+                (kw["state_ptr"], 1, kw["d_h"])]
     c = kw["c"] if kernel == "ring_conv_dw_q" else kw["c_in"]
-    return kw["in_ptr"], kw["h_in"] * kw["w_in"], c
+    return [(kw["in_ptr"], kw["h_in"] * kw["w_in"], c)]
 
 
 def _weight_shape(kernel: str, kw: dict) -> tuple[tuple[int, ...], int]:
@@ -128,22 +212,40 @@ def _weight_shape(kernel: str, kw: dict) -> tuple[tuple[int, ...], int]:
     return (k, k, kw["c_in"], kw["c_out"]), k * k * kw["c_in"]
 
 
+def _gru_draw(rng, kw):
+    """Seeded GRU weights and constants that put the Q12 gates around
+    their linear regions (so the hard gates both clip and pass)."""
+    d_in, d_h = kw["d_in"], kw["d_h"]
+    g = 3 * d_h
+    w = rng.integers(-127, 128, (d_in, g), dtype=np.int8)
+    u = rng.integers(-127, 128, (d_h, g), dtype=np.int8)
+    b = rng.integers(-(1 << 13), 1 << 13, (g,), dtype=np.int32)
+    consts = []
+    for depth in (d_in, d_h):
+        s0 = -int(np.ceil(np.log2(np.sqrt(depth) * 4096 / 8192)))
+        consts += [rng.integers(1 << 30, (1 << 31) - 1, (g,), dtype=np.int32),
+                   rng.integers(s0 - 1, s0 + 2, (g,), dtype=np.int32)]
+    return (w, u, b, *consts)
+
+
 def case_inputs(case: Case, seed: int = 0):
     """``(pool, params)`` as numpy arrays: an int8 ``[n_seg, 128]`` pool
-    and the kernel's weight operands (``()`` for avgpool)."""
+    and the kernel's weight operands (``()`` for add and avgpool)."""
     rng = np.random.default_rng([seed, zlib.crc32(case.name.encode())])
     pool = rng.integers(-128, 128, (case.n_seg, SEG_WIDTH), dtype=np.int8)
-    ptr, rows, d = input_region(case.kernel, case.kwargs)
-    x = rng.integers(-128, 128, (rows, d), dtype=np.int8)
-    segs = segments_for(d)
-    padded = np.zeros((rows, segs * SEG_WIDTH), np.int8)
-    padded[:, :d] = x
-    idx = (ptr + np.arange(rows * segs)) % case.n_seg
-    pool[idx] = padded.reshape(rows * segs, SEG_WIDTH)
+    for ptr, rows, d in input_regions(case.kernel, case.kwargs):
+        x = rng.integers(-128, 128, (rows, d), dtype=np.int8)
+        segs = segments_for(d)
+        padded = np.zeros((rows, segs * SEG_WIDTH), np.int8)
+        padded[:, :d] = x
+        idx = (ptr + np.arange(rows * segs)) % case.n_seg
+        pool[idx] = padded.reshape(rows * segs, SEG_WIDTH)
     if case.params is not None:
         return pool, tuple(case.params)
-    if case.kernel == "ring_avgpool_q":
+    if case.kernel in ("ring_avgpool_q", "ring_add_q"):
         return pool, ()
+    if case.kernel == "ring_gru_cell_q":
+        return pool, _gru_draw(rng, case.kwargs)
     shape, depth = _weight_shape(case.kernel, case.kwargs)
     c_out = shape[-1]
     w = rng.integers(-127, 128, shape, dtype=np.int8)

@@ -1,12 +1,16 @@
 // Int8 segment-ring kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
-// Each kernel replaces one Pallas TPU kernel of src/repro/kernels/quantized.py:
+// Each kernel replaces one Pallas TPU kernel of src/repro/kernels/quantized.py
+// or src/repro/kernels/stream.py:
 //
-//   ring_gemm_q      <- ring_gemm_q      (quantized.py:87)   ring FC
-//   ring_conv_pw_q   <- ring_conv_pw_q   (quantized.py:196)  1x1 conv
-//   ring_conv_dw_q   <- ring_conv_dw_q   (quantized.py:310)  depthwise rs x rs conv
-//   ring_conv_k2d_q  <- ring_conv_k2d_q  (quantized.py:419)  k x k conv
-//   ring_avgpool_q   <- ring_avgpool_q   (quantized.py:603)  global average pool
+//   ring_gemm_q        <- ring_gemm_q        (quantized.py:87)   ring FC
+//   ring_conv_pw_q     <- ring_conv_pw_q     (quantized.py:196)  1x1 conv
+//   ring_conv_dw_q     <- ring_conv_dw_q     (quantized.py:310)  depthwise rs x rs conv
+//   ring_conv_k2d_q    <- ring_conv_k2d_q    (quantized.py:419)  k x k conv
+//   ring_add_q         <- ring_add_q         (quantized.py:515)  residual add
+//   ring_avgpool_q     <- ring_avgpool_q     (quantized.py:603)  global average pool
+//   ring_conv_stream_q <- ring_conv_stream_q (stream.py:235)     streaming k x k conv
+//   ring_gru_cell_q    <- ring_gru_cell_q    (stream.py:417)     int8 GRU cell
 //
 // The pool is one int8 tensor [n_seg, 128]: a tensor of c-wide rows takes
 // ceil(c / 128) consecutive segments per row, and every segment address is
@@ -33,15 +37,28 @@
 // barrier pair per step.  Against that latency the weights, biases and
 // requant constants are staged once per op into shared memory (weights only
 // when they fit beside the step's input tile; otherwise they are read from
-// global memory), so the dot products of every step read shared memory.  This
+// global memory), so the dot products of every step read shared memory.
+// The Python wrappers (kernels/quantized.py) size shared memory: they pass
+// `stage_w`, the add's `tile_rows` and the pool's `chunk_pix`, and the entry
+// points below only turn those into the launch's byte count.  This
 // is the faithful baseline: a wavefront of concurrent steps bounded by the
 // op's solved delta, cp.async/TMA loads and dp4a/wgmma products are later
-// work.
+// work.  The residual add is bound by its bytes (two operand rows in, one
+// out, no MACs); it reads as many rows per step as shared memory holds.  The
+// GRU cell is one step of two small matrix-vector products.
 //
 // Requantization is the reference's (src/repro/quant/requant.py): the exact
 // 64-bit product acc * mult, one round-to-nearest-even at 31 - shift,
 // saturation to int32, a clip to +-2**24, then a clip to int8.  The int32
-// accumulator wraps on overflow as the reference's int32 arithmetic does.
+// accumulator wraps on overflow as the reference's int32 arithmetic does, and
+// so do the residual add's sum and the GRU's gx + bias (summed in uint32).
+//
+// The streaming kernels keep persistent state in the ring, above the frame
+// program's extent (it never wraps).  ring_conv_stream_q reads the whole
+// window and the new frame into shared memory before it writes anything: the
+// shifted window goes back to the state region, then the output rows, which
+// may land on the frame's rows.  ring_gru_cell_q reads x and h before it
+// stores h' to the state and to the chained output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,7 +71,6 @@ constexpr int THREADS = 1024;        // one pass over a DS-CNN step's outputs
 constexpr long long I24 = 1LL << 24;
 constexpr long long I32_MIN = -2147483648LL;
 constexpr long long I32_MAX = 2147483647LL;
-constexpr size_t MAX_SMEM = 232448;   // a block's shared memory on sm_90
 
 __host__ __device__ __forceinline__ int segs_for(int c) {
   return (c + SEG - 1) / SEG;
@@ -219,6 +235,40 @@ conv_pw_kernel(int8_t* pool, const int8_t* __restrict__ w,
 // k x k conv and depthwise rs x rs conv share one step body: per output row,
 // the k halo rows (clamped into the image; taps outside it are masked).
 // ---------------------------------------------------------------------------
+
+// The int32 (wrapping) sum of output channel `co` at output column `q` of a
+// k x k conv.  Tap row r reads image row src0 + r, held in shared memory at
+// row (row0 + r) of `x`; rows outside [0, h_in) and columns outside
+// [0, w_in) are the zero padding.
+template <bool DEPTHWISE>
+__device__ __forceinline__ uint32_t kxk_dot(const int8_t* x, int row0,
+                                            int src0, int h_in, int w_in,
+                                            int ksegs, int c_in, int c_out,
+                                            int k, int q, int stride,
+                                            int pad_h, int co,
+                                            const int8_t* w) {
+  const int in_row = w_in * ksegs;
+  uint32_t acc = 0;
+  for (int r = 0; r < k; ++r) {
+    const int src = src0 + r;
+    if (src < 0 || src >= h_in) continue;
+    for (int s = 0; s < k; ++s) {
+      const int col = q * stride - pad_h + s;
+      if (col < 0 || col >= w_in) continue;
+      const int8_t* xr = x + ((row0 + r) * in_row + col * ksegs) * SEG;
+      if (DEPTHWISE) {
+        acc += (uint32_t)((int)xr[co] * (int)w[(r * k + s) * c_in + co]);
+      } else {
+        const int8_t* wc = w + (r * k + s) * c_in * c_out + co;
+#pragma unroll 4
+        for (int ci = 0; ci < c_in; ++ci)
+          acc += (uint32_t)((int)xr[ci] * (int)wc[ci * c_out]);
+      }
+    }
+  }
+  return acc;
+}
+
 template <bool DEPTHWISE>
 __device__ __forceinline__ void conv_kxk(
     int8_t* pool, const int8_t* __restrict__ w,
@@ -246,25 +296,9 @@ __device__ __forceinline__ void conv_kxk(
       const int q = j / (nsegs * SEG), co = j % (nsegs * SEG);
       int8_t y = 0;
       if (co < c_out) {
-        uint32_t acc = 0;
-        for (int r = 0; r < k; ++r) {
-          const int src = p * stride - pad_v + r;
-          if (src < 0 || src >= h_in) continue;
-          for (int s = 0; s < k; ++s) {
-            const int col = q * stride - pad_h + s;
-            if (col < 0 || col >= w_in) continue;
-            const int8_t* xr = x + (r * in_row + col * ksegs) * SEG;
-            if (DEPTHWISE) {
-              acc += (uint32_t)((int)xr[co] *
-                                (int)prm.w[(r * k + s) * c_in + co]);
-            } else {
-              const int8_t* wc = prm.w + (r * k + s) * c_in * c_out + co;
-#pragma unroll 4
-              for (int ci = 0; ci < c_in; ++ci)
-                acc += (uint32_t)((int)xr[ci] * (int)wc[ci * c_out]);
-            }
-          }
-        }
+        const uint32_t acc = kxk_dot<DEPTHWISE>(
+            x, 0, p * stride - pad_v, h_in, w_in, ksegs, c_in, c_out, k, q,
+            stride, pad_h, co, prm.w);
         y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
       }
       *ring_byte(pool, (out_ptr + p * out_row) % n_seg, j, n_seg) = y;
@@ -334,17 +368,162 @@ avgpool_kernel(int8_t* pool, int n_seg, int h, int w, int c, int in_ptr,
         j < c ? sat8(requant_i32((int32_t)sums[j], mult, shift)) : (int8_t)0;
 }
 
-// Shared memory of a conv/FC launch: the step's input tile, the per-channel
-// constants and, when they fit too, the weights.
-struct Smem {
-  size_t bytes;
-  int stage_w;
-};
+// ---------------------------------------------------------------------------
+// Residual add: `rows` pixel rows of `chunk` segments at in_ptr and at
+// aux_ptr, each requantized to the output scale, summed (wrapping), relu'd,
+// clipped to int8 and stored at out_ptr, often in place.  A step takes
+// `tile_rows` rows, all read before any is stored; a certified plan stores no
+// row onto one that a later step still reads, so reading ahead of the stores
+// leaves the sequential grid's pool (the prefetch-before-store corollary).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+add_kernel(int8_t* pool, int n_seg, int rows, int chunk, int d, int in_ptr,
+           int aux_ptr, int out_ptr, int mult_in, int shift_in,
+           int mult_aux, int shift_aux, int relu, int tile_rows) {
+  extern __shared__ int4 smem[];
+  const int tile = tile_rows * chunk;               // segments per operand
+  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
+  const int8_t* res = x + (size_t)tile * SEG;
+  const int width = chunk * SEG;
+  for (int t0 = 0; t0 < rows; t0 += tile_rows) {
+    const int n = min(tile_rows, rows - t0);
+    ring_load(smem, pool, (in_ptr + t0 * chunk) % n_seg, n * chunk, n_seg);
+    ring_load(smem + tile * VEC, pool, (aux_ptr + t0 * chunk) % n_seg,
+              n * chunk, n_seg);
+    __syncthreads();
+    for (int j = threadIdx.x; j < n * width; j += blockDim.x) {
+      int8_t y = 0;
+      if (j % width < d) {
+        const uint32_t sum =
+            (uint32_t)requant_i32(x[j], mult_in, shift_in) +
+            (uint32_t)requant_i32(res[j], mult_aux, shift_aux);
+        int32_t a = (int32_t)sum;
+        if (relu && a < 0) a = 0;
+        y = sat8(a);
+      }
+      *ring_byte(pool, (out_ptr + t0 * chunk) % n_seg, j, n_seg) = y;
+    }
+    __syncthreads();
+  }
+}
 
-Smem plan_smem(size_t x_bytes, size_t w_bytes, int c_out) {
-  const size_t base = x_bytes + 12 * (size_t)c_out;
-  const int stage_w = base + w_bytes <= MAX_SMEM;
-  return {stage_w ? base + w_bytes : base, stage_w};
+// ---------------------------------------------------------------------------
+// Streaming k x k conv: the [h_win, w_in, c_in] window at state_ptr drops its
+// oldest `hop` image rows and appends the frame at in_ptr, in shared memory;
+// the window goes back to state_ptr (an exact copy), then each of the h_out
+// output rows is computed from the window in shared memory and stored at
+// out_ptr (modulo n_seg).  Everything is read before anything is stored.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+conv_stream_kernel(int8_t* pool, const int8_t* __restrict__ w,
+                   const int32_t* __restrict__ b,
+                   const int32_t* __restrict__ mult,
+                   const int32_t* __restrict__ shift, int n_seg, int h_win,
+                   int w_in, int h_out, int w_out, int c_in, int c_out, int k,
+                   int stride, int hop, int pad_v, int pad_h, int in_ptr,
+                   int out_ptr, int state_ptr, int relu, int stage_w) {
+  extern __shared__ int4 smem[];
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int wc = w_in * ksegs, win = h_win * wc, keep = (h_win - hop) * wc;
+  const int out_row = w_out * nsegs;
+  const Params prm = stage_params(
+      reinterpret_cast<char*>(smem) + (size_t)win * SEG, w,
+      k * k * c_in * c_out, b, mult, shift, c_out, stage_w);
+  ring_load(smem, pool, state_ptr + hop * wc, keep, n_seg);
+  ring_load(smem + (size_t)keep * VEC, pool, in_ptr, hop * wc, n_seg);
+  __syncthreads();
+  int4* state = reinterpret_cast<int4*>(pool + (size_t)state_ptr * SEG);
+  for (int i = threadIdx.x; i < win * VEC; i += blockDim.x) state[i] = smem[i];
+  __syncthreads();
+  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
+  for (int p = 0; p < h_out; ++p) {
+    const int src0 = p * stride - pad_v;
+    for (int j = threadIdx.x; j < out_row * SEG; j += blockDim.x) {
+      const int q = j / (nsegs * SEG), co = j % (nsegs * SEG);
+      int8_t y = 0;
+      if (co < c_out) {
+        const uint32_t acc = kxk_dot<false>(x, src0, src0, h_win, w_in, ksegs,
+                                            c_in, c_out, k, q, stride, pad_h,
+                                            co, prm.w);
+        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
+      }
+      *ring_byte(pool, (out_ptr + p * out_row) % n_seg, j, n_seg) = y;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Int8 GRU cell: gx = rq(x @ W, mx, sx) + b (wrapping) and gh = rq(h @ U, mu,
+// su) in the Q12 gate domain, then the fixed-point hard-gate update of
+// src/repro/quant/requant.py::gru_update_q12 into the Q7 state, stored at
+// state_ptr and at out_ptr.  W is [d_in, 3 d_h], U [d_h, 3 d_h]; gates z, r, n.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ int32_t clip32(int32_t v, int32_t lo, int32_t hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ int8_t gru_update_q12(int32_t xz, int32_t xr,
+                                                 int32_t xn, int32_t hz,
+                                                 int32_t hr, int32_t hn,
+                                                 int32_t h) {
+  const int32_t lim = 1 << 18;     // all products below fit int32
+  xz = clip32(xz, -lim, lim); xr = clip32(xr, -lim, lim);
+  xn = clip32(xn, -lim, lim); hz = clip32(hz, -lim, lim);
+  hr = clip32(hr, -lim, lim); hn = clip32(hn, -lim, lim);
+  const int32_t z = clip32(((xz + hz + 2) >> 2) + 2048, 0, 4096);
+  const int32_t r = clip32(((xr + hr + 2) >> 2) + 2048, 0, 4096);
+  const int32_t n = clip32(xn + ((r * hn + 2048) >> 12), -4096, 4096);
+  const int32_t n_q7 = clip32((n + 16) >> 5, -128, 127);
+  return sat8((z * h + (4096 - z) * n_q7 + 2048) >> 12);
+}
+
+__global__ void __launch_bounds__(THREADS)
+gru_kernel(int8_t* pool, const int8_t* __restrict__ w,
+           const int8_t* __restrict__ u, const int32_t* __restrict__ b,
+           const int32_t* __restrict__ mx, const int32_t* __restrict__ sx,
+           const int32_t* __restrict__ mu, const int32_t* __restrict__ su,
+           int n_seg, int d_in, int d_h, int in_ptr, int out_ptr,
+           int state_ptr) {
+  extern __shared__ int4 smem[];
+  const int ci = segs_for(d_in), co = segs_for(d_h), g = 3 * d_h;
+  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
+  const int8_t* h = x + (size_t)ci * SEG;
+  int32_t* gx = reinterpret_cast<int32_t*>(smem + (ci + co) * VEC);
+  int32_t* gh = gx + g;
+  ring_load(smem, pool, in_ptr, ci, n_seg);
+  ring_load(smem + ci * VEC, pool, state_ptr, co, n_seg);
+  __syncthreads();
+  for (int j = threadIdx.x; j < 2 * g; j += blockDim.x) {
+    const bool rec = j >= g;
+    const int col = rec ? j - g : j, depth = rec ? d_h : d_in;
+    const int8_t* v = rec ? h : x;
+    const int8_t* m = (rec ? u : w) + col;
+    uint32_t acc = 0;
+#pragma unroll 4
+    for (int kk = 0; kk < depth; ++kk)
+      acc += (uint32_t)((int)v[kk] * (int)m[kk * g]);
+    if (rec)
+      gh[col] = requant_i32((int32_t)acc, mu[col], su[col]);
+    else
+      gx[col] = (int32_t)((uint32_t)requant_i32((int32_t)acc, mx[col],
+                                                sx[col]) +
+                          (uint32_t)b[col]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < co * SEG; i += blockDim.x) {
+    int8_t y = 0;
+    if (i < d_h)
+      y = gru_update_q12(gx[i], gx[d_h + i], gx[2 * d_h + i], gh[i],
+                         gh[d_h + i], gh[2 * d_h + i], h[i]);
+    pool[(size_t)state_ptr * SEG + i] = y;
+    *ring_byte(pool, out_ptr, i, n_seg) = y;
+  }
+}
+
+// Shared memory of a conv/FC launch: the step's input tile, the per-channel
+// constants and, when the wrapper says they fit too, the weights.
+size_t conv_smem(size_t x_bytes, size_t w_bytes, int c_out, int stage_w) {
+  return x_bytes + 12 * (size_t)c_out + (stage_w ? w_bytes : 0);
 }
 
 // Launch one block with `smem` bytes of dynamic shared memory (above 48 KB
@@ -371,66 +550,102 @@ const char* ring_q_error_string(int err) {
 int ring_gemm_q(void* pool, const void* w, const void* b, const void* mult,
                 const void* shift, int n_seg, int m_rows, int d_in,
                 int d_out, int block_rows, int in_ptr, int out_ptr, int relu,
-                void* stream) {
-  const Smem sm = plan_smem((size_t)block_rows * segs_for(d_in) * SEG,
-                            (size_t)d_in * d_out, d_out);
-  return launch(gemm_kernel, sm.bytes, stream, (int8_t*)pool,
+                int stage_w, void* stream) {
+  const size_t smem = conv_smem((size_t)block_rows * segs_for(d_in) * SEG,
+                                (size_t)d_in * d_out, d_out, stage_w);
+  return launch(gemm_kernel, smem, stream, (int8_t*)pool,
                 (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
                 (const int32_t*)shift, n_seg, m_rows, d_in, d_out,
-                block_rows, in_ptr, out_ptr, relu, sm.stage_w);
+                block_rows, in_ptr, out_ptr, relu, stage_w);
 }
 
 int ring_conv_pw_q(void* pool, const void* w, const void* b,
                    const void* mult, const void* shift, int n_seg, int h_in,
                    int w_in, int h_out, int w_out, int c_in, int c_out,
                    int stride, int resample, int row_block, int in_ptr,
-                   int out_ptr, int relu, void* stream) {
-  const Smem sm = plan_smem((size_t)row_block * w_in * segs_for(c_in) * SEG,
-                            (size_t)c_in * c_out, c_out);
-  return launch(conv_pw_kernel, sm.bytes, stream, (int8_t*)pool,
+                   int out_ptr, int relu, int stage_w, void* stream) {
+  const size_t smem = conv_smem((size_t)row_block * w_in * segs_for(c_in) * SEG,
+                                (size_t)c_in * c_out, c_out, stage_w);
+  return launch(conv_pw_kernel, smem, stream, (int8_t*)pool,
                 (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
                 (const int32_t*)shift, n_seg, h_in, w_in, h_out, w_out, c_in,
                 c_out, stride, resample, row_block, in_ptr, out_ptr, relu,
-                sm.stage_w);
+                stage_w);
 }
 
 int ring_conv_dw_q(void* pool, const void* w, const void* b,
                    const void* mult, const void* shift, int n_seg, int h_in,
                    int w_in, int h_out, int w_out, int c, int rs, int stride,
                    int pad_v, int pad_h, int in_ptr, int out_ptr, int relu,
-                   void* stream) {
-  const Smem sm = plan_smem((size_t)rs * w_in * segs_for(c) * SEG,
-                            (size_t)rs * rs * c, c);
-  return launch(conv_dw_kernel, sm.bytes, stream, (int8_t*)pool,
+                   int stage_w, void* stream) {
+  const size_t smem = conv_smem((size_t)rs * w_in * segs_for(c) * SEG,
+                                (size_t)rs * rs * c, c, stage_w);
+  return launch(conv_dw_kernel, smem, stream, (int8_t*)pool,
                 (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
                 (const int32_t*)shift, n_seg, h_in, w_in, h_out, w_out, c, rs,
-                stride, pad_v, pad_h, in_ptr, out_ptr, relu, sm.stage_w);
+                stride, pad_v, pad_h, in_ptr, out_ptr, relu, stage_w);
 }
 
 int ring_conv_k2d_q(void* pool, const void* w, const void* b,
                     const void* mult, const void* shift, int n_seg, int h_in,
                     int w_in, int h_out, int w_out, int c_in, int c_out,
                     int k, int stride, int pad_v, int pad_h, int in_ptr,
-                    int out_ptr, int relu, void* stream) {
-  const Smem sm = plan_smem((size_t)k * w_in * segs_for(c_in) * SEG,
-                            (size_t)k * k * c_in * c_out, c_out);
-  return launch(conv_k2d_kernel, sm.bytes, stream, (int8_t*)pool,
+                    int out_ptr, int relu, int stage_w, void* stream) {
+  const size_t smem = conv_smem((size_t)k * w_in * segs_for(c_in) * SEG,
+                                (size_t)k * k * c_in * c_out, c_out, stage_w);
+  return launch(conv_k2d_kernel, smem, stream, (int8_t*)pool,
                 (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
                 (const int32_t*)shift, n_seg, h_in, w_in, h_out, w_out, c_in,
                 c_out, k, stride, pad_v, pad_h, in_ptr, out_ptr, relu,
-                sm.stage_w);
+                stage_w);
 }
 
 int ring_avgpool_q(void* pool, int n_seg, int h, int w, int c, int in_ptr,
-                   int out_ptr, int mult, int shift, void* stream) {
+                   int out_ptr, int mult, int shift, int chunk_pix,
+                   void* stream) {
   const size_t pix_bytes = (size_t)segs_for(c) * SEG;
-  const size_t room = MAX_SMEM - pix_bytes * sizeof(uint32_t);
-  const int chunk_pix = (int)(room / pix_bytes < (size_t)h * w
-                                  ? room / pix_bytes : (size_t)h * w);
   return launch(avgpool_kernel,
                 pix_bytes * sizeof(uint32_t) + chunk_pix * pix_bytes, stream,
                 (int8_t*)pool, n_seg, h, w, c, in_ptr, out_ptr, mult, shift,
                 chunk_pix);
+}
+
+int ring_add_q(void* pool, int n_seg, int rows, int d, int in_ptr,
+               int aux_ptr, int out_ptr, int mult_in, int shift_in,
+               int mult_aux, int shift_aux, int relu, int tile_rows,
+               void* stream) {
+  const int chunk = segs_for(d);
+  return launch(add_kernel, 2 * (size_t)tile_rows * chunk * SEG, stream,
+                (int8_t*)pool, n_seg, rows, chunk, d, in_ptr, aux_ptr,
+                out_ptr, mult_in, shift_in, mult_aux, shift_aux, relu,
+                tile_rows);
+}
+
+int ring_conv_stream_q(void* pool, const void* w, const void* b,
+                       const void* mult, const void* shift, int n_seg,
+                       int h_win, int w_in, int h_out, int w_out, int c_in,
+                       int c_out, int k, int stride, int hop, int pad_v,
+                       int pad_h, int in_ptr, int out_ptr, int state_ptr,
+                       int relu, int stage_w, void* stream) {
+  const size_t smem = conv_smem((size_t)h_win * w_in * segs_for(c_in) * SEG,
+                                (size_t)k * k * c_in * c_out, c_out, stage_w);
+  return launch(conv_stream_kernel, smem, stream, (int8_t*)pool,
+                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
+                (const int32_t*)shift, n_seg, h_win, w_in, h_out, w_out,
+                c_in, c_out, k, stride, hop, pad_v, pad_h, in_ptr, out_ptr,
+                state_ptr, relu, stage_w);
+}
+
+int ring_gru_cell_q(void* pool, const void* w, const void* u, const void* b,
+                    const void* mx, const void* sx, const void* mu,
+                    const void* su, int n_seg, int d_in, int d_h, int in_ptr,
+                    int out_ptr, int state_ptr, void* stream) {
+  const size_t smem = (size_t)(segs_for(d_in) + segs_for(d_h)) * SEG +
+                      2 * 3 * (size_t)d_h * sizeof(int32_t);
+  return launch(gru_kernel, smem, stream, (int8_t*)pool, (const int8_t*)w,
+                (const int8_t*)u, (const int32_t*)b, (const int32_t*)mx,
+                (const int32_t*)sx, (const int32_t*)mu, (const int32_t*)su,
+                n_seg, d_in, d_h, in_ptr, out_ptr, state_ptr);
 }
 
 }  // extern "C"

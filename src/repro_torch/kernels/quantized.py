@@ -15,7 +15,12 @@ works on any device, and is what the CPU path runs and what the kernels
 are held against.  On a certified plan the gather-then-scatter order
 leaves the same pool as the kernels' sequential walk.
 
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``, and a conv
+or FC wrapper records in ``<wrapper>.weights_staged`` whether its last
+launch staged the weights in shared memory (False: they were read from
+global memory; None for a kernel without weights to stage).  The
+wrappers size every kernel's shared memory; the kernels take the
+decision as an argument.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 
 from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w, resample_src
 from ..core.vpool import SEG_WIDTH, fetch_rows, segments_for, stage_rows
-from ..quant.requant import act_i32, requantize
+from ..quant.requant import act_i32, requantize, requantize_i32, wrap_i32
 
 #: Shared memory one thread block may use on Hopper (bytes).
 MAX_SMEM = 232_448
@@ -70,6 +75,13 @@ def _check_pw(n_seg, h_out, w_in, w_out, c_in, c_out, stride, resample,
                          "row_block | h_out")
 
 
+def _check_add(n_seg, d, in_ptr, aux_ptr, out_ptr):
+    chunk = _segs(d)
+    if n_seg % chunk or in_ptr % chunk or aux_ptr % chunk \
+            or out_ptr % chunk:
+        raise ValueError("pool/pointers not row aligned")
+
+
 def _check_avgpool(n_seg, w, c, in_ptr, out_ptr):
     segs = _segs(c)
     if n_seg % (w * segs) or in_ptr % (w * segs) or out_ptr % segs:
@@ -110,13 +122,19 @@ def _per_channel(w, b, mult, shift, w_shape, c_out):
             ("shift", shift, torch.int32, (c_out,)))
 
 
-def _launch(name: str, pool: torch.Tensor, smem: int, tensors, ints):
+def _launch(name: str, pool: torch.Tensor, smem: int, tensors, ints,
+            w_bytes: int | None = None) -> bool | None:
     """Launch ``name`` on ``pool``'s device and current stream.  ``smem``
-    is the shared memory a step needs without the weights (the kernel
-    stages the weights too when they fit beside it)."""
+    is the shared memory a step needs without the weights.  Given
+    ``w_bytes``, the weights are staged too when they fit beside it: the
+    kernel gets that choice as its last int, and it is returned."""
     if smem > MAX_SMEM:
         raise ValueError(f"{name} needs {smem} B of shared memory per "
                          f"block, above the card's {MAX_SMEM} B")
+    staged = None
+    if w_bytes is not None:
+        staged = smem + w_bytes <= MAX_SMEM
+        ints = (*ints, int(staged))
     from ._build import library
 
     lib, _ = library()
@@ -128,6 +146,7 @@ def _launch(name: str, pool: torch.Tensor, smem: int, tensors, ints):
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.ring_q_error_string(err).decode()})")
+    return staged
 
 
 # ---------------------------------------------------------------------------
@@ -143,11 +162,12 @@ def ring_gemm_q(pool, w, b, mult, shift, *, m_rows: int, d_in: int,
     n_seg = pool.shape[0]
     _check_gemm(n_seg, m_rows, d_in, d_out, in_ptr, out_ptr, block_rows)
     _check_cuda(pool, _per_channel(w, b, mult, shift, (d_in, d_out), d_out))
-    _launch("ring_gemm_q", pool,
-            block_rows * _segs(d_in) * SEG_WIDTH + 12 * d_out,
-            (w, b, mult, shift),
-            (n_seg, m_rows, d_in, d_out, block_rows, in_ptr % n_seg,
-             out_ptr % n_seg, _relu(activation)))
+    ring_gemm_q.weights_staged = _launch(
+        "ring_gemm_q", pool,
+        block_rows * _segs(d_in) * SEG_WIDTH + 12 * d_out,
+        (w, b, mult, shift),
+        (n_seg, m_rows, d_in, d_out, block_rows, in_ptr % n_seg,
+         out_ptr % n_seg, _relu(activation)), w_bytes=d_in * d_out)
     ring_gemm_q.launches += 1
     return pool
 
@@ -182,12 +202,13 @@ def ring_conv_pw_q(pool, w, b, mult, shift, *, h_in: int, w_in: int,
     _check_pw(n_seg, h_out, w_in, w_out, c_in, c_out, stride, resample,
               in_ptr, out_ptr, row_block)
     _check_cuda(pool, _per_channel(w, b, mult, shift, (c_in, c_out), c_out))
-    _launch("ring_conv_pw_q", pool,
-            row_block * w_in * _segs(c_in) * SEG_WIDTH + 12 * c_out,
-            (w, b, mult, shift),
-            (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, stride,
-             int(resample), row_block, in_ptr % n_seg, out_ptr % n_seg,
-             _relu(activation)))
+    ring_conv_pw_q.weights_staged = _launch(
+        "ring_conv_pw_q", pool,
+        row_block * w_in * _segs(c_in) * SEG_WIDTH + 12 * c_out,
+        (w, b, mult, shift),
+        (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, stride,
+         int(resample), row_block, in_ptr % n_seg, out_ptr % n_seg,
+         _relu(activation)), w_bytes=c_in * c_out)
     ring_conv_pw_q.launches += 1
     return pool
 
@@ -226,11 +247,13 @@ def ring_conv_dw_q(pool, w, b, mult, shift, *, h_in: int, w_in: int,
     n_seg = pool.shape[0]
     _check_rows(n_seg, w_in, w_out, c, c, in_ptr, out_ptr)
     _check_cuda(pool, _per_channel(w, b, mult, shift, (rs, rs, c), c))
-    _launch("ring_conv_dw_q", pool,
-            rs * w_in * _segs(c) * SEG_WIDTH + 12 * c, (w, b, mult, shift),
-            (n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
-             conv_k2d_pad(rs, padding), conv_k2d_pad_w(rs, padding),
-             in_ptr % n_seg, out_ptr % n_seg, _relu(activation)))
+    ring_conv_dw_q.weights_staged = _launch(
+        "ring_conv_dw_q", pool, rs * w_in * _segs(c) * SEG_WIDTH + 12 * c,
+        (w, b, mult, shift),
+        (n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
+         conv_k2d_pad(rs, padding), conv_k2d_pad_w(rs, padding),
+         in_ptr % n_seg, out_ptr % n_seg, _relu(activation)),
+        w_bytes=rs * rs * c)
     ring_conv_dw_q.launches += 1
     return pool
 
@@ -262,12 +285,14 @@ def ring_conv_k2d_q(pool, w, b, mult, shift, *, h_in: int, w_in: int,
     _check_rows(n_seg, w_in, w_out, c_in, c_out, in_ptr, out_ptr)
     _check_cuda(pool, _per_channel(w, b, mult, shift, (k, k, c_in, c_out),
                                    c_out))
-    _launch("ring_conv_k2d_q", pool,
-            k * w_in * _segs(c_in) * SEG_WIDTH + 12 * c_out,
-            (w, b, mult, shift),
-            (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
-             conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding),
-             in_ptr % n_seg, out_ptr % n_seg, _relu(activation)))
+    ring_conv_k2d_q.weights_staged = _launch(
+        "ring_conv_k2d_q", pool,
+        k * w_in * _segs(c_in) * SEG_WIDTH + 12 * c_out,
+        (w, b, mult, shift),
+        (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
+         conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding),
+         in_ptr % n_seg, out_ptr % n_seg, _relu(activation)),
+        w_bytes=k * k * c_in * c_out)
     ring_conv_k2d_q.launches += 1
     return pool
 
@@ -288,6 +313,46 @@ def ring_conv_k2d_q_plain(pool, w, b, mult, shift, *, h_in: int, w_in: int,
 
 
 # ---------------------------------------------------------------------------
+# Residual add.
+# ---------------------------------------------------------------------------
+
+def ring_add_q(pool, *, rows: int, d: int, in_ptr: int, aux_ptr: int,
+               out_ptr: int, mult_in: int, shift_in: int, mult_aux: int,
+               shift_aux: int, activation: str | None = None):
+    """Int8 residual add: both operands requantized to the output scale,
+    summed (int32, wrapping), optional relu, saturated to int8 and
+    stored at ``out_ptr`` (replaces ``ring_add_q``,
+    ``src/repro/kernels/quantized.py:515``)."""
+    n_seg = pool.shape[0]
+    _check_add(n_seg, d, in_ptr, aux_ptr, out_ptr)
+    _check_cuda(pool)
+    # A step reads as many rows of both operands as shared memory holds.
+    row_bytes = 2 * _segs(d) * SEG_WIDTH
+    tile_rows = min(rows, MAX_SMEM // row_bytes)
+    _launch("ring_add_q", pool, tile_rows * row_bytes, (),
+            (n_seg, rows, d, in_ptr % n_seg, aux_ptr % n_seg,
+             out_ptr % n_seg, int(mult_in), int(shift_in), int(mult_aux),
+             int(shift_aux), _relu(activation), tile_rows))
+    ring_add_q.launches += 1
+    return pool
+
+
+def ring_add_q_plain(pool, *, rows: int, d: int, in_ptr: int, aux_ptr: int,
+                     out_ptr: int, mult_in: int, shift_in: int,
+                     mult_aux: int, shift_aux: int,
+                     activation: str | None = None):
+    """Plain version of :func:`ring_add_q` (``add_ring_q``)."""
+    _check_add(pool.shape[0], d, in_ptr, aux_ptr, out_ptr)
+    x = fetch_rows(pool, in_ptr, rows, d)
+    res = fetch_rows(pool, aux_ptr, rows, d)
+    acc = wrap_i32(requantize_i32(x, int(mult_in), int(shift_in))
+                   + requantize_i32(res, int(mult_aux), int(shift_aux)))
+    acc = act_i32(acc, activation)
+    stage_rows(pool, acc.clamp(-128, 127).to(torch.int8), out_ptr)
+    return pool
+
+
+# ---------------------------------------------------------------------------
 # Global average pool.
 # ---------------------------------------------------------------------------
 
@@ -299,9 +364,12 @@ def ring_avgpool_q(pool, *, h: int, w: int, c: int, in_ptr: int,
     n_seg = pool.shape[0]
     _check_avgpool(n_seg, w, c, in_ptr, out_ptr)
     _check_cuda(pool)
-    _launch("ring_avgpool_q", pool, _segs(c) * SEG_WIDTH * 5, (),
+    # int32 column sums, then as many pixels per step as the rest holds.
+    pix_bytes = _segs(c) * SEG_WIDTH
+    chunk_pix = min(h * w, (MAX_SMEM - 4 * pix_bytes) // pix_bytes)
+    _launch("ring_avgpool_q", pool, (4 + chunk_pix) * pix_bytes, (),
             (n_seg, h, w, c, in_ptr % n_seg, out_ptr % n_seg, int(mult),
-             int(shift)))
+             int(shift), chunk_pix))
     ring_avgpool_q.launches += 1
     return pool
 
@@ -362,22 +430,10 @@ def _taps(img, h_out, w_out, k, stride, padding):
 #: The wrappers, by name (what the CUDA executor launches) ...
 KERNELS = {f.__name__: f for f in (ring_gemm_q, ring_conv_pw_q,
                                    ring_conv_dw_q, ring_conv_k2d_q,
-                                   ring_avgpool_q)}
+                                   ring_add_q, ring_avgpool_q)}
 #: ... and their plain versions under the same names.
-PLAIN = {"ring_gemm_q": ring_gemm_q_plain,
-         "ring_conv_pw_q": ring_conv_pw_q_plain,
-         "ring_conv_dw_q": ring_conv_dw_q_plain,
-         "ring_conv_k2d_q": ring_conv_k2d_q_plain,
-         "ring_avgpool_q": ring_avgpool_q_plain}
+PLAIN = {name: globals()[f"{name}_plain"] for name in KERNELS}
 
-
-def reset_launch_counts() -> None:
-    for f in KERNELS.values():
-        f.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {name: f.launches for name, f in KERNELS.items()}
-
-
-reset_launch_counts()
+for _f in KERNELS.values():
+    _f.launches = 0
+    _f.weights_staged = None

@@ -1,0 +1,178 @@
+"""Int8 streaming ring kernels: CUDA wrappers and their plain versions.
+
+Counterpart of the int8 half of :mod:`repro.kernels.stream`.  Both ops
+keep persistent state in the ring, above the frame program's linear
+extent, so the state region never wraps:
+
+  * :func:`ring_conv_stream_q` shifts the ``[h_win, w_in, c_in]`` window
+    at ``state_ptr`` by ``hop`` image rows, appends the frame at
+    ``in_ptr``, writes the window back and stores the k x k conv over it
+    at ``out_ptr``;
+  * :func:`ring_gru_cell_q` reads ``x`` at ``in_ptr`` and the Q7 hidden
+    row at ``state_ptr`` and stores ``h'`` to both the state and
+    ``out_ptr``.
+
+The wrappers follow :mod:`repro_torch.kernels.quantized`: the
+reference's geometry checks, then device, dtype and shape checks, then
+one launch of the kernel in ``csrc/ring_q.cu``; they never fall back.
+Beside each sits its plain version (``<name>_plain``), which copies the
+window as raw segments, exactly as the reference kernel's DMA does.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w
+from ..core.vpool import (SEG_WIDTH, fetch_rows, fetch_segments,
+                          stage_rows, stage_segments)
+from ..quant.requant import gru_update_q12, requantize, requantize_i32, \
+    wrap_i32
+from .quantized import (_acc32, _check_cuda, _idot, _launch, _per_channel,
+                        _relu, _segs, _store_image, _taps)
+
+
+def _stream_geometry(n_seg, *, w_in, w_out, c_in, c_out, h_win, hop,
+                     in_ptr, out_ptr, state_ptr) -> int:
+    """The reference's checks (``stream.py::_stream_geometry``); returns
+    the segments of one window row."""
+    wc = w_in * _segs(c_in)
+    if h_win % hop:
+        raise ValueError("hop must divide h_win")
+    if n_seg % wc or n_seg % (w_out * _segs(c_out)) or in_ptr % wc \
+            or out_ptr % (w_out * _segs(c_out)) or state_ptr % wc:
+        raise ValueError("pool/pointers not image-row aligned")
+    if state_ptr + h_win * wc > n_seg or in_ptr + hop * wc > n_seg:
+        raise ValueError("state/frame region wraps — streaming programs "
+                         "must be planned wrap-free (core.program)")
+    return wc
+
+
+def _gru_geometry(n_seg, *, d_in, d_h, in_ptr, out_ptr, state_ptr) -> None:
+    """The reference's checks (``stream.py::_gru_geometry``)."""
+    ci, co = _segs(d_in), _segs(d_h)
+    if n_seg % ci or n_seg % co or in_ptr % ci or out_ptr % co \
+            or state_ptr % co:
+        raise ValueError("pool/pointers not row aligned")
+    if state_ptr + co > n_seg or in_ptr + ci > n_seg:
+        raise ValueError("state/frame region wraps — streaming programs "
+                         "must be planned wrap-free (core.program)")
+
+
+# ---------------------------------------------------------------------------
+# Streaming conv.
+# ---------------------------------------------------------------------------
+
+def ring_conv_stream_q(pool, w, b, mult, shift, *, h_win: int, w_in: int,
+                       h_out: int, w_out: int, c_in: int, c_out: int,
+                       k: int = 3, stride: int = 1, padding: str = "same",
+                       hop: int = 1, in_ptr: int = 0, out_ptr: int = 0,
+                       state_ptr: int = 0, activation: str | None = None):
+    """Int8 streaming conv step: window shift and writeback (an exact
+    int8 copy), then the k x k int32-accumulate conv with per-channel
+    requantization over the window (replaces ``ring_conv_stream_q``,
+    ``src/repro/kernels/stream.py:235``).  The window is held whole in
+    shared memory."""
+    n_seg = pool.shape[0]
+    wc = _stream_geometry(n_seg, w_in=w_in, w_out=w_out, c_in=c_in,
+                          c_out=c_out, h_win=h_win, hop=hop, in_ptr=in_ptr,
+                          out_ptr=out_ptr, state_ptr=state_ptr)
+    _check_cuda(pool, _per_channel(w, b, mult, shift,
+                                   (k, k, c_in, c_out), c_out))
+    ring_conv_stream_q.weights_staged = _launch(
+        "ring_conv_stream_q", pool, h_win * wc * SEG_WIDTH + 12 * c_out,
+        (w, b, mult, shift),
+        (n_seg, h_win, w_in, h_out, w_out, c_in, c_out, k, stride, hop,
+         conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding), in_ptr,
+         out_ptr % n_seg, state_ptr, _relu(activation)),
+        w_bytes=k * k * c_in * c_out)
+    ring_conv_stream_q.launches += 1
+    return pool
+
+
+def ring_conv_stream_q_plain(pool, w, b, mult, shift, *, h_win: int,
+                             w_in: int, h_out: int, w_out: int, c_in: int,
+                             c_out: int, k: int = 3, stride: int = 1,
+                             padding: str = "same", hop: int = 1,
+                             in_ptr: int = 0, out_ptr: int = 0,
+                             state_ptr: int = 0,
+                             activation: str | None = None):
+    """Plain version of :func:`ring_conv_stream_q` (``conv_stream_ring_q``
+    with the kernel's raw-segment window copy)."""
+    wc = _stream_geometry(pool.shape[0], w_in=w_in, w_out=w_out,
+                          c_in=c_in, c_out=c_out, h_win=h_win, hop=hop,
+                          in_ptr=in_ptr, out_ptr=out_ptr,
+                          state_ptr=state_ptr)
+    keep = fetch_segments(pool, state_ptr + hop * wc, (h_win - hop) * wc)
+    frame = fetch_segments(pool, in_ptr, hop * wc)
+    win = torch.cat([keep, frame], dim=0)
+    stage_segments(pool, win, state_ptr)
+    img = win.reshape(h_win, w_in, _segs(c_in) * SEG_WIDTH)[..., :c_in] \
+        .to(torch.int64)
+    acc = 0
+    for r, s, tap in _taps(img, h_out, w_out, k, stride, padding):
+        acc = acc + _idot(tap, w[r, s])
+    acc = _acc32(acc, b, activation)
+    return _store_image(pool, requantize(acc, mult, shift), out_ptr)
+
+
+# ---------------------------------------------------------------------------
+# GRU cell.
+# ---------------------------------------------------------------------------
+
+def _gru_operands(w, u, b, mx, sx, mu, su, d_in, d_h):
+    g = 3 * d_h
+    return (("w", w, torch.int8, (d_in, g)), ("u", u, torch.int8, (d_h, g)),
+            ("b", b, torch.int32, (g,)), ("mult_x", mx, torch.int32, (g,)),
+            ("shift_x", sx, torch.int32, (g,)),
+            ("mult_u", mu, torch.int32, (g,)),
+            ("shift_u", su, torch.int32, (g,)))
+
+
+def ring_gru_cell_q(pool, w, u, b, mult_x, shift_x, mult_u, shift_u, *,
+                    d_in: int, d_h: int, in_ptr: int = 0, out_ptr: int = 0,
+                    state_ptr: int = 0):
+    """Int8 GRU step: ``x@W`` and ``h@U`` accumulate in int32, requantize
+    to the Q12 gate domain (plus the Q12 bias, wrapping), and
+    ``gru_update_q12`` gives the Q7 ``h'``, stored at ``state_ptr`` and
+    ``out_ptr`` (replaces ``ring_gru_cell_q``,
+    ``src/repro/kernels/stream.py:417``)."""
+    n_seg = pool.shape[0]
+    _gru_geometry(n_seg, d_in=d_in, d_h=d_h, in_ptr=in_ptr, out_ptr=out_ptr,
+                  state_ptr=state_ptr)
+    ops = _gru_operands(w, u, b, mult_x, shift_x, mult_u, shift_u, d_in, d_h)
+    _check_cuda(pool, ops)
+    _launch("ring_gru_cell_q", pool,
+            (_segs(d_in) + _segs(d_h)) * SEG_WIDTH + 24 * d_h,
+            tuple(t for _, t, _, _ in ops),
+            (n_seg, d_in, d_h, in_ptr, out_ptr % n_seg, state_ptr))
+    ring_gru_cell_q.weights_staged = False     # W and U: global memory
+    ring_gru_cell_q.launches += 1
+    return pool
+
+
+def ring_gru_cell_q_plain(pool, w, u, b, mult_x, shift_x, mult_u, shift_u,
+                          *, d_in: int, d_h: int, in_ptr: int = 0,
+                          out_ptr: int = 0, state_ptr: int = 0):
+    """Plain version of :func:`ring_gru_cell_q` (``gru_cell_ring_q``)."""
+    _gru_geometry(pool.shape[0], d_in=d_in, d_h=d_h, in_ptr=in_ptr,
+                  out_ptr=out_ptr, state_ptr=state_ptr)
+    x = fetch_rows(pool, in_ptr, 1, d_in).to(torch.int64)
+    h = fetch_rows(pool, state_ptr, 1, d_h)
+    gx = requantize_i32(wrap_i32(_idot(x, w)), mult_x[None, :],
+                        shift_x[None, :])
+    gx = wrap_i32(gx + b.to(torch.int64))
+    gh = requantize_i32(wrap_i32(_idot(h.to(torch.int64), u)),
+                        mult_u[None, :], shift_u[None, :])
+    hp = gru_update_q12(gx, gh, h, d_h)
+    stage_rows(pool, hp, state_ptr)
+    stage_rows(pool, hp, out_ptr)
+    return pool
+
+
+#: The wrappers, by name, and their plain versions under the same names.
+KERNELS = {f.__name__: f for f in (ring_conv_stream_q, ring_gru_cell_q)}
+PLAIN = {name: globals()[f"{name}_plain"] for name in KERNELS}
+
+for _f in KERNELS.values():
+    _f.launches = 0
+    _f.weights_staged = None

@@ -84,6 +84,38 @@ def requantize(acc, multiplier, shift, *, zero_point: int = 0):
     return v.clamp(-128, 127).to(torch.int8)
 
 
+def wrap_i32(v: torch.Tensor) -> torch.Tensor:
+    """Integer ``v`` taken mod 2**32 into the int32 range — the
+    reference's int32 overflow — returned as int64."""
+    return v.to(torch.int64).to(torch.int32).to(torch.int64)
+
+
+def gru_update_q12(gx, gh, h_q7, d_h: int) -> torch.Tensor:
+    """Fixed-point hard-gate GRU update (gate order z, r, n) — the
+    reference's ``gru_update_q12``, bit for bit.
+
+    ``gx``/``gh`` are ``[..., 3*d_h]`` integer gate pre-activations in
+    Q12 with values in the int32 range (the Q12 bias already folded
+    into ``gx``); ``h_q7`` is the int8 hidden state at the fixed Q7
+    scale.  Pre-activations saturate at ``±2**18``, hard-sigmoid lands
+    in ``[0, 4096]``, hard-tanh in ``[-4096, 4096]``, and the blend
+    ``(1-z)*n + z*h`` resolves at Q7 with one arithmetic ``>> 12``.
+    Every intermediate fits int32, so int64 arithmetic gives the same
+    bits.  Returns int8."""
+    lim = 1 << 18
+    gx = gx.to(torch.int64).clamp(-lim, lim)
+    gh = gh.to(torch.int64).clamp(-lim, lim)
+    h = h_q7.to(torch.int64)
+    z = (((gx[..., :d_h] + gh[..., :d_h] + 2) >> 2) + 2048).clamp(0, 4096)
+    r = (((gx[..., d_h:2 * d_h] + gh[..., d_h:2 * d_h] + 2) >> 2)
+         + 2048).clamp(0, 4096)
+    n = (gx[..., 2 * d_h:]
+         + ((r * gh[..., 2 * d_h:] + 2048) >> 12)).clamp(-4096, 4096)
+    n_q7 = ((n + 16) >> 5).clamp(-128, 127)
+    hp = (z * h + (4096 - z) * n_q7 + 2048) >> 12
+    return hp.clamp(-128, 127).to(torch.int8)
+
+
 def act_i32(acc, activation):
     """Int32-domain activation between accumulate and requantize.
 

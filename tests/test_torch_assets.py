@@ -1,41 +1,124 @@
-"""The port's committed plan artifact and golden outputs, held against a
+"""The port's committed plan artifacts and golden outputs, held against a
 fresh compile and a fresh run of the reference.
 
-``repro_torch`` serves DS-CNN from a plan artifact that the reference
-compiler writes; the machine with the GPU has no JAX, so the artifact
-and the reference's outputs on it are committed with the port.  A stale
-asset fails here, not on the card.  Run this file as a script to
-rewrite both:
+``repro_torch`` serves plans that the reference compiler writes; the
+machine with the GPU has no JAX, so the artifacts and the reference's
+outputs on them are committed with the port.  A stale asset fails here,
+not on the card.  Run this file as a script to rewrite them all:
 
     PYTHONPATH=src python tests/test_torch_assets.py
+
+The artifacts are the reference's ``CompiledNet.save`` without the fp32
+``params`` entry: the port serves int8 only and never reads it.  Three
+kinds of asset:
+
+  * main-path nets (``NETS``): the golden holds the float outputs, int8
+    outputs and final-pool sha256 of 8 inputs;
+  * streaming plans (``STREAMS``): ``ds-cnn-stream`` is
+    ``repro.compile("ds-cnn", streaming=True)``; ``kws-gru-chain`` is the
+    conv_stream -> avgpool -> GRU program of ``tests/test_stream.py`` at
+    the DS-CNN stem's width, calibrated by the reference.  The golden
+    holds the int8 output of each of 60 steps from pre-quantized frames
+    and the pool's sha256 after the last.
 """
+import dataclasses
 import hashlib
 import json
 import pathlib
+import tempfile
 
+import jax
 import numpy as np
+import pytest
 
 import repro
+from repro.analysis import verify_program
+from repro.compile import artifact as ref_artifact
+from repro.compile.driver import CompiledNet as RefCompiledNet
+from repro.compile.targets import get_target
 from repro.core.executors import run_program
-from repro.quant import QParams, quantize
+from repro.core.program import (AvgPoolSpec, ConvStreamSpec, GRUCellSpec,
+                                plan_program)
+from repro.graph.run import _quantize_net
+from repro.quant import QParams, dequantize, quantize
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
-ARTIFACT = ASSETS / "ds-cnn.cortex-m4.int8.json"
-GOLDEN = ASSETS / "ds-cnn.cortex-m4.int8.golden.npz"
-NET, TARGET = "ds-cnn", "cortex-m4"
+TARGET = "cortex-m4"
+NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+STREAMS = ("ds-cnn-stream", "kws-gru-chain")
+N_INPUTS, N_FRAMES = 8, 60
+#: Keys of a saved artifact that vary from compile to compile (timings).
+TIMED = ("passes", "spans")
 
 
-def golden_inputs() -> np.ndarray:
-    return np.random.default_rng(0).standard_normal((8, 490, 1),
-                                                    np.float32)
+def artifact_path(name: str) -> pathlib.Path:
+    return ASSETS / f"{name}.{TARGET}.int8.json"
 
 
-def reference_golden(path) -> dict:
+def golden_path(name: str) -> pathlib.Path:
+    return ASSETS / f"{name}.{TARGET}.int8.golden.npz"
+
+
+def _chain_params():
+    """``tests/test_stream.py::_chain_params`` at the chain's widths."""
+    k1, k2, k3, k4, k5 = jax.random.split(jax.random.PRNGKey(7), 5)
+    w = jax.random.normal(k1, (5, 5, 1, 64)) / 25 ** 0.5
+    b = jax.random.normal(k2, (64,)) / 8
+    wg = jax.random.normal(k3, (64, 192)) / 64 ** 0.5
+    ug = jax.random.normal(k4, (64, 192)) / 64 ** 0.5
+    bg = jax.random.normal(k5, (192,)) / 8
+    return [(w, b), None, (wg, ug, bg)]
+
+
+def _gru_chain() -> RefCompiledNet:
+    """The keyword-spotting GRU chain as a reference ``CompiledNet``."""
+    prog = plan_program(10, 1, [
+        ConvStreamSpec(49, 10, 1, 64, k=5, stride=2, hop=1,
+                       activation="relu"),
+        AvgPoolSpec(25, 5, 64), GRUCellSpec(64)], block_rows=1)
+    params = _chain_params()
+    qnet = _quantize_net(prog, params)
+    qprog = qnet.program
+    cert = verify_program(qprog).certificate(
+        ref_artifact.program_sha256(qprog))
+    return RefCompiledNet(net_name="kws-gru-chain", target=get_target(TARGET),
+                          dtype="int8", program=qprog, params=params,
+                          qnet=qnet, mcu={}, certificate=cert, passes=[])
+
+
+def compile_reference(name: str) -> RefCompiledNet:
+    if name == "kws-gru-chain":
+        return _gru_chain()
+    if name == "ds-cnn-stream":
+        return repro.compile("ds-cnn", TARGET, streaming=True)
+    return repro.compile(name, TARGET)
+
+
+def artifact_payload(cn: RefCompiledNet) -> dict:
+    """What ``cn.save`` writes, without the fp32 ``params``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "a.json"
+        cn.save(str(path))
+        payload = json.loads(path.read_text())
+    del payload["params"]
+    return payload
+
+
+def golden_inputs(program, n: int) -> np.ndarray:
+    return np.random.default_rng(0).standard_normal(
+        (n, program.ops[0].rows_in or program.in_rows, program.in_dim),
+        np.float32)
+
+
+def _sha(pool) -> str:
+    return hashlib.sha256(np.asarray(pool.array).tobytes()).hexdigest()
+
+
+def net_golden(cn: RefCompiledNet) -> dict:
     """The reference's float outputs (``run(x, backend="jnp")`` on the
     batch), int8 outputs and final-pool sha256 per input."""
-    cn = repro.load(str(path))
-    x = golden_inputs()
+    x = golden_inputs(cn.program, N_INPUTS)
     y = np.asarray(cn.run(x, backend="jnp"))
     qn = cn.qnet
     y_q, shas = [], []
@@ -44,37 +127,83 @@ def reference_golden(path) -> dict:
                                quantize(xi, QParams(scale=qn.in_scale)),
                                qn.qparams, backend="jnp")
         y_q.append(np.asarray(yq))
-        shas.append(hashlib.sha256(np.asarray(pool.array).tobytes())
-                    .hexdigest())
+        shas.append(_sha(pool))
     return {"x": x, "y": y, "y_q": np.stack(y_q),
             "pool_sha256": np.array(shas)}
 
 
-def write_assets() -> None:
+def stream_golden(cn: RefCompiledNet) -> dict:
+    """The reference session's int8 output of every step, from frames
+    quantized at the input scale, their dequantized float outputs, and
+    the pool's sha256 after the last step."""
+    qn = cn.qnet
+    x = golden_inputs(cn.program, N_FRAMES)
+    x_q = np.asarray(quantize(x, QParams(scale=qn.in_scale)))
+    session = cn.stream(backend="jnp")
+    y_q = np.stack([np.asarray(session.step(f)) for f in x_q])
+    y = np.asarray(dequantize(y_q, QParams(scale=qn.out_scale)))
+    return {"x": x, "x_q": x_q, "y_q": y_q, "y": y,
+            "pool_sha256": np.array(_sha(session._pool))}
+
+
+def reference_golden(name: str, cn: RefCompiledNet) -> dict:
+    return stream_golden(cn) if name in STREAMS else net_golden(cn)
+
+
+def write_assets(names=NETS + STREAMS) -> None:
     ASSETS.mkdir(parents=True, exist_ok=True)
-    repro.compile(NET, TARGET).save(str(ARTIFACT))
-    np.savez(GOLDEN, **reference_golden(ARTIFACT))
+    for name in names:
+        cn = compile_reference(name)
+        artifact_path(name).write_text(json.dumps(artifact_payload(cn)))
+        np.savez(golden_path(name), **reference_golden(name, cn))
 
 
-def test_artifact_matches_a_fresh_compile(tmp_path):
-    fresh = tmp_path / "fresh.json"
-    repro.compile(NET, TARGET).save(str(fresh))
-    have = json.loads(ARTIFACT.read_text())
-    want = json.loads(fresh.read_text())
-    for key in ("program", "params", "quant", "certificate"):
+@pytest.fixture(scope="module")
+def fresh():
+    """A fresh reference compile of every asset, made once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = compile_reference(name)
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("name", NETS + STREAMS)
+def test_artifact_matches_a_fresh_compile(name, fresh):
+    have = json.loads(artifact_path(name).read_text())
+    want = artifact_payload(fresh(name))
+    assert "params" not in have
+    assert sorted(have) == sorted(want)
+    for key in sorted(set(want) - set(TIMED)):
         assert have[key] == want[key], key
 
 
-def test_golden_matches_a_fresh_reference_run():
-    want = reference_golden(ARTIFACT)
-    with np.load(GOLDEN) as have:
+@pytest.mark.parametrize("name", NETS + STREAMS)
+def test_golden_matches_a_fresh_reference_run(name, fresh):
+    want = reference_golden(name, fresh(name))
+    with np.load(golden_path(name)) as have:
         assert sorted(have.files) == sorted(want)
         for key, arr in want.items():
             np.testing.assert_array_equal(have[key], arr, err_msg=key)
+    n = N_FRAMES if name in STREAMS else N_INPUTS
     # the float golden is the dequantized int8 golden
-    assert want["y"].shape == want["y_q"].shape == (8, 1, 12)
+    assert want["y"].shape == want["y_q"].shape
+    assert want["y"].shape[0] == n
+
+
+def test_stream_assets_hold_state_and_every_stream_kind(fresh):
+    kinds = {op.kind for name in STREAMS
+             for op in fresh(name).program.ops}
+    assert {"conv_stream", "gru_cell"} <= kinds
+    chain = fresh("kws-gru-chain")
+    assert chain.certificate["stream_horizon"] == "unbounded"
+    assert chain.qnet.out_scale == 1.0 / 128.0    # the fixed Q7 state
+    win = fresh("ds-cnn-stream").program.ops[0]
+    assert win.state_segments * 128 == 62_720     # 49 x 10 x 1 window
 
 
 if __name__ == "__main__":
     write_assets()
-    print(f"wrote {ARTIFACT} and {GOLDEN}")
+    print(f"wrote the artifacts and goldens of {NETS + STREAMS} in {ASSETS}")

@@ -1,5 +1,6 @@
 """The port on a CUDA card: each hand-written kernel against its plain
-version, and the served main path against the reference's golden.
+version, and the served and streaming paths against the reference's
+goldens.
 
 These tests import neither JAX nor the reference package, so they run
 on a machine that has only PyTorch and the CUDA toolkit:
@@ -18,20 +19,35 @@ import torch
 from repro_torch import load
 from repro_torch.compile.artifact import to_device
 from repro_torch.core.executors import run_program
-from repro_torch.kernels import quantized as qk
+from repro_torch.kernels import (KERNELS, PLAIN, launch_counts,
+                                 reset_launch_counts)
 from repro_torch.kernels.cases import (EDGE_CASES, case_inputs,
                                        program_cases)
 from repro_torch.quant.qtensor import QParams, quantize
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
-ARTIFACT = ASSETS / "ds-cnn.cortex-m4.int8.json"
-GOLDEN = ASSETS / "ds-cnn.cortex-m4.int8.golden.npz"
+NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 
-_CN = load(ARTIFACT)
-CASES = program_cases(_CN.program, _CN.qnet.qparams,
-                      kernel_block_rows=_CN.target.kernel_block_rows) \
-    + EDGE_CASES
+
+def _artifact(name):
+    return ASSETS / f"{name}.cortex-m4.int8.json"
+
+
+def _golden(name):
+    with np.load(ASSETS / f"{name}.cortex-m4.int8.golden.npz") as g:
+        return {k: g[k] for k in g.files}
+
+
+def _program_cases(name):
+    cn = load(_artifact(name))
+    return program_cases(cn.program, cn.qnet.qparams,
+                         kernel_block_rows=cn.target.kernel_block_rows,
+                         prefix=f"{name}_")
+
+
+CASES = EDGE_CASES + sum((_program_cases(n) for n in NETS + STREAMS), ())
 
 
 def _need_card():
@@ -46,26 +62,37 @@ def test_cuda_kernel_bitwise_equals_plain_on_card(case):
     pool, params = case_inputs(case, seed=0)
     cuda_params = [torch.from_numpy(a).cuda() for a in params]
     want = torch.from_numpy(pool).cuda()
-    qk.PLAIN[case.kernel](want, *cuda_params, **case.kwargs)
+    PLAIN[case.kernel](want, *cuda_params, **case.kwargs)
     got = torch.from_numpy(pool).cuda()
-    qk.KERNELS[case.kernel](got, *cuda_params, **case.kwargs)
+    KERNELS[case.kernel](got, *cuda_params, **case.kwargs)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
+#: Launches of ``run`` on the 8 golden inputs, per kernel.
+SERVED_LAUNCHES = {
+    "ds-cnn": {"ring_gemm_q": 8, "ring_conv_pw_q": 32, "ring_conv_dw_q": 32,
+               "ring_conv_k2d_q": 8, "ring_avgpool_q": 8},
+    "resnet-8": {"ring_gemm_q": 8, "ring_conv_pw_q": 16,
+                 "ring_conv_k2d_q": 56, "ring_add_q": 24,
+                 "ring_avgpool_q": 8},
+    "mcunet-5fps-vww": {"ring_gemm_q": 8, "ring_conv_pw_q": 168,
+                        "ring_conv_dw_q": 64, "ring_add_q": 56,
+                        "ring_avgpool_q": 8},
+}
+
+
 @pytest.mark.gpu
-def test_served_main_path_equals_golden_on_card():
+@pytest.mark.parametrize("name", NETS)
+def test_served_main_path_equals_golden_on_card(name):
     _need_card()
-    cn = load(ARTIFACT)
-    with np.load(GOLDEN) as g:
-        golden = {k: g[k] for k in g.files}
-    qk.reset_launch_counts()
+    cn, golden = load(_artifact(name)), _golden(name)
+    reset_launch_counts()
     y = cn.run(golden["x"])
     torch.cuda.synchronize()
     assert y.device.type == "cuda"
-    assert qk.launch_counts() == {
-        "ring_gemm_q": 8, "ring_conv_pw_q": 32, "ring_conv_dw_q": 32,
-        "ring_conv_k2d_q": 8, "ring_avgpool_q": 8}
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == SERVED_LAUNCHES[name]
     np.testing.assert_array_equal(y.cpu().numpy(), golden["y"])
     qparams = to_device(cn.qnet.qparams, "cuda")
     for i, x in enumerate(golden["x"]):
@@ -75,3 +102,31 @@ def test_served_main_path_equals_golden_on_card():
         np.testing.assert_array_equal(y_q.cpu().numpy(), golden["y_q"][i])
         sha = hashlib.sha256(pool.array.cpu().numpy().tobytes()).hexdigest()
         assert sha == golden["pool_sha256"][i]
+
+
+#: Launches of 60 ``step`` calls, per kernel.
+STREAM_LAUNCHES = {
+    "ds-cnn-stream": {"ring_conv_stream_q": 60, "ring_conv_dw_q": 240,
+                      "ring_conv_pw_q": 240, "ring_avgpool_q": 60,
+                      "ring_gemm_q": 60},
+    "kws-gru-chain": {"ring_conv_stream_q": 60, "ring_avgpool_q": 60,
+                      "ring_gru_cell_q": 60},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", STREAMS)
+def test_stream_equals_golden_on_card(name):
+    _need_card()
+    cn, golden = load(_artifact(name)), _golden(name)
+    s = cn.stream()
+    reset_launch_counts()
+    for i, f in enumerate(golden["x_q"]):
+        y = s.step(torch.from_numpy(f).cuda())
+        assert y.device.type == "cuda"
+        np.testing.assert_array_equal(y.cpu().numpy(), golden["y_q"][i])
+    torch.cuda.synchronize()
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == STREAM_LAUNCHES[name]
+    sha = hashlib.sha256(s.pool.array.cpu().numpy().tobytes()).hexdigest()
+    assert sha == str(golden["pool_sha256"])

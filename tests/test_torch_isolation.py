@@ -31,8 +31,8 @@ def _imports(path: pathlib.Path):
 
 def test_sources_exist():
     names = {p.name for p in SOURCES}
-    assert {"chip_smoke.py", "quantized.py", "executors.py",
-            "driver.py"} <= names
+    assert {"chip_smoke.py", "quantized.py", "stream.py", "session.py",
+            "executors.py", "driver.py"} <= names
     assert all(p.exists() for p in SOURCES)
 
 
@@ -58,6 +58,14 @@ with np.load(assets + "/ds-cnn.cortex-m4.int8.golden.npz") as g:
     x, want = g["x"][:2], g["y"][:2]
 y = cn.run(x, device="cpu")
 assert np.array_equal(y.numpy(), want)
+cn = repro_torch.load(assets + "/resnet-8.cortex-m4.int8.json")
+with np.load(assets + "/resnet-8.cortex-m4.int8.golden.npz") as g:
+    assert np.array_equal(cn.run(g["x"][0], device="cpu").numpy(), g["y"][0])
+s = repro_torch.load(assets + "/kws-gru-chain.cortex-m4.int8.json").stream(
+    device="cpu")
+with np.load(assets + "/kws-gru-chain.cortex-m4.int8.golden.npz") as g:
+    for f, want in zip(g["x_q"][:3], g["y_q"]):
+        assert np.array_equal(s.step(torch.from_numpy(f)).numpy(), want)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")

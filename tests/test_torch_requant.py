@@ -3,6 +3,8 @@ encoding and (de)quantization agree bit for bit."""
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.quant import QParams as RefQParams
 from repro.quant import dequantize as ref_dequantize
@@ -148,3 +150,64 @@ def test_quantize_and_dequantize_bitwise_equal_reference():
     got = qtensor.quantize(torch.from_numpy(x),
                            qtensor.QParams(scale=per_ch, axis=1))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# The Q12 GRU update.
+# ---------------------------------------------------------------------------
+
+D_H = 256      # one row holds every Q7 hidden value, -128 .. 127
+
+
+def _gates(rng, rows: int) -> np.ndarray:
+    """``[rows, 3 * D_H]`` int32 gate pre-activations: the int32 limits,
+    the ``±2**18`` clip and the hard gates' corners, and draws over the
+    full int32 range and over the gates' linear regions."""
+    edges = np.array([I32_MIN, I32_MIN + 1, I32_MAX, I32_MAX - 1, 0, 1, -1,
+                      -2, 2, 3, -3, 4096, -4096, 8192, -8192, 8190, -8194,
+                      (1 << 18) - 1, 1 << 18, (1 << 18) + 1, -(1 << 18) - 1,
+                      -(1 << 18), -(1 << 18) + 1], np.int64)
+    g = 3 * D_H
+    out = np.concatenate([
+        rng.choice(edges, (rows // 4, g)),
+        rng.integers(I32_MIN, I32_MAX, (rows // 4, g), endpoint=True),
+        rng.integers(-(1 << 19), 1 << 19, (rows // 4, g)),
+        rng.integers(-(1 << 14), 1 << 14, (rows - 3 * (rows // 4), g)),
+    ])
+    return out.astype(np.int32)
+
+
+def test_gru_update_q12_bitwise_equals_reference():
+    rng = np.random.default_rng(3)
+    rows = 64
+    gx, gh = _gates(rng, rows), _gates(rng, rows)
+    gh = gh[rng.permutation(rows)]
+    h = np.tile(np.arange(-128, 128, dtype=np.int8), (rows, 1))
+    want = np.asarray(ref.gru_update_q12(gx, gh, h, D_H))
+    got = requant.gru_update_q12(torch.from_numpy(gx), torch.from_numpy(gh),
+                                 torch.from_numpy(h), D_H)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the grid reaches both int8 limits and every gate's saturation
+    assert {-128, 127} <= set(np.unique(want).tolist())
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.integers(I32_MIN, I32_MAX), min_size=6, max_size=6),
+       st.integers(-128, 127))
+def test_gru_update_q12_property(gates, h):
+    """Any int32 pre-activations and any Q7 state, one channel at a
+    time."""
+    gx = np.array([gates[:3]], np.int32)
+    gh = np.array([gates[3:]], np.int32)
+    hq = np.array([[h]], np.int8)
+    want = np.asarray(ref.gru_update_q12(gx, gh, hq, 1))
+    got = requant.gru_update_q12(torch.from_numpy(gx), torch.from_numpy(gh),
+                                 torch.from_numpy(hq), 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wrap_i32_is_int32_overflow():
+    v = torch.tensor([I32_MAX + 1, I32_MIN - 1, (1 << 32) + 5, -7, 2 ** 40])
+    got = requant.wrap_i32(v).tolist()
+    assert got == [I32_MIN, I32_MAX, 5, -7, 0]
