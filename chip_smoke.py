@@ -9,26 +9,37 @@ Phases, one summary line each:
 
   0. the card's name and power limit (``nvidia-smi``), torch, CUDA and
      Python versions;
-  1. build ``src/repro_torch/kernels/csrc/ring_q.cu`` with nvcc for
-     sm_90a (time and the ``-Xptxas -v`` lines);
+  1. build ``src/repro_torch/kernels/csrc/ring_q.cu`` (int8) and
+     ``ring_f32.cu`` (fp32) with nvcc for sm_90a, one nvcc each, both
+     started together (time and the ``-Xptxas -v`` lines);
   2. every hand-written kernel against its plain PyTorch version on the
-     card, bitwise: on every op of the five committed plans (DS-CNN,
-     ResNet-8, MCUNet-5fps-VWW, the DS-CNN stream and the GRU chain) and
-     on the edge cases of ``repro_torch.kernels.cases``; and which ops
-     read their weights from global memory (too large for shared);
+     card, with TF32 off: the eight int8 kernels bitwise, on every op of
+     the five committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
+     the DS-CNN stream and the GRU chain) and on the int8 edge cases of
+     ``repro_torch.kernels.cases``; the six fp32 kernels within the
+     tolerance of ``cases.compare_f32`` (channel tails and unwritten
+     lanes exact), on every op of the two fp32 ``host-sim`` plans
+     (DS-CNN, ResNet-8) and on the fp32 edge cases; and which ops read
+     their weights from global memory (too large for shared);
   3. the paths, each with the launch counts set to 0 just before it and
      read just after:
-       * ``repro_torch.load(artifact).run(x)`` on DS-CNN, ResNet-8 and
-         MCUNet-5fps-VWW for the 8 golden inputs, batched and one by
-         one; float outputs, int8 outputs and final-pool sha256 equal
-         the golden that the reference wrote;
+       * ``repro_torch.load(artifact).run(x)`` on the int8 DS-CNN,
+         ResNet-8 and MCUNet-5fps-VWW for the 8 golden inputs, batched
+         and one by one; float outputs, int8 outputs and final-pool
+         sha256 equal the golden that the reference wrote;
+       * the same on the fp32 DS-CNN and ResNet-8: outputs within the
+         tolerance of the reference's golden and of the plain
+         ``reference_forward``, each final pool within it of the pool
+         the plain versions leave, channel tails exactly 0;
        * ``CompiledNet.stream().step(frame)`` on the DS-CNN stream and
          the GRU chain for 60 frames; every step's int8 output and the
          final pool's sha256 equal the golden;
   4. timing: per-inference host-clock latency at batch 1 and 8 and
      per-step stream latency, the device-busy share of each path from
      ``torch.profiler``, and per kernel its CUDA-event time, its plain
-     version's time and its bound, at the shapes each path gives it.
+     version's time, its bound and (fp32) the time of the PyTorch
+     library call that computes the same op, at the shapes each path
+     gives it.
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -50,10 +61,13 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 ASSETS = ROOT / "src" / "repro_torch" / "assets"
-SOURCE = "src/repro_torch/kernels/csrc/ring_q.cu"
-#: Plans served by ``run`` and plans stepped by ``stream``.
+CSRC = "src/repro_torch/kernels/csrc"
+#: Plans served by ``run`` (int8 and fp32) and plans stepped by ``stream``.
 NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+FLOAT_NETS = ("ds-cnn", "resnet-8")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
+#: An fp32 plan's label in the output (its int8 twin keeps the name).
+F32 = "-f32"
 
 #: The TPU kernel each CUDA kernel replaces.
 REPLACES = {
@@ -65,12 +79,18 @@ REPLACES = {
     "ring_avgpool_q": "src/repro/kernels/quantized.py:603",
     "ring_conv_stream_q": "src/repro/kernels/stream.py:235",
     "ring_gru_cell_q": "src/repro/kernels/stream.py:417",
+    "ring_gemm": "src/repro/kernels/segment_matmul.py:117",
+    "ring_conv_pw": "src/repro/kernels/conv2d.py:108",
+    "ring_conv_dw": "src/repro/kernels/conv2d.py:225",
+    "ring_conv_k2d": "src/repro/kernels/conv2d.py:336",
+    "ring_add": "src/repro/kernels/conv2d.py:432",
+    "ring_avgpool": "src/repro/kernels/conv2d.py:514",
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15          # tensor cores: int8 multiply-adds
-CUDA_CORE_OPS_PER_S = 67e12        # outside the tensor cores (fp32 rate)
+CUDA_CORE_OPS_PER_S = 67e12        # outside the tensor cores: fp32 FMA
 DEVICE_TYPE = "cuda"               # where every path's outputs must lie
 
 
@@ -85,13 +105,26 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def artifact(name: str) -> pathlib.Path:
-    return ASSETS / f"{name}.cortex-m4.int8.json"
+def _asset(label: str) -> str:
+    """The asset stem of a path label."""
+    if label.endswith(F32):
+        return f"{label.removesuffix(F32)}.host-sim.float32"
+    return f"{label}.cortex-m4.int8"
 
 
-def load_golden(name: str) -> dict:
-    with np.load(ASSETS / f"{name}.cortex-m4.int8.golden.npz") as g:
+def artifact(label: str) -> pathlib.Path:
+    return ASSETS / f"{_asset(label)}.json"
+
+
+def load_golden(label: str) -> dict:
+    with np.load(ASSETS / f"{_asset(label)}.golden.npz") as g:
         return {k: g[k] for k in g.files}
+
+
+def params_of(cn):
+    """A loaded plan's weight entries (numpy): int8 qparams or fp32
+    params."""
+    return cn.qnet.qparams if cn.quantized else cn.params
 
 
 # ---------------------------------------------------------------------------
@@ -140,14 +173,14 @@ def work(kernel: str, kw: dict) -> tuple[int, int, int]:
     """``(bytes, tensor_ops, core_ops)`` a kernel call must move and do.
 
     Bytes: every input pixel the op reads, once, at its data width (its
-    live channels, not the whole 128-byte segments it sits in); every
-    output row written once as whole segments (the kernels must store
-    the channel tails as zeros); the streaming window read once and
-    written back once at its data width; weights, biases and requant
-    constants once.  Operations: 2 int8 ops per multiply-accumulate at
-    in-bounds taps; elementwise integer ops (the pool's adds, the
+    live channels, not the whole segments it sits in); every output row
+    written once as whole segments (the kernels must store the channel
+    tails as zeros); the streaming window read once and written back
+    once at its data width; weights, biases and requant constants once.
+    Int8 operations: 2 int8 ops per multiply-accumulate at in-bounds
+    taps (tensor cores); elementwise integer ops (the pool's adds, the
     residual add's two requantizations and sum) counted apart, for the
-    CUDA cores."""
+    CUDA cores.  An fp32 kernel's work is :func:`work_f32`'s."""
     if kernel == "ring_avgpool_q":
         rows = kw["h"] * kw["w"]
         return rows * kw["c"] + _segs(kw["c"]) * 128, 0, rows * kw["c"]
@@ -188,8 +221,44 @@ def work(kernel: str, kw: dict) -> tuple[int, int, int]:
     return io + k * k * ci * co, 2 * taps * ci * co, 0
 
 
+def work_f32(kernel: str, kw: dict) -> tuple[int, int]:
+    """``(bytes, ops)`` an fp32 kernel call must move and do: as
+    :func:`work`, at 4 bytes per element (the bias, 4 bytes per output
+    channel, is the only per-channel constant); 2 fp32 operations per
+    multiply-accumulate at in-bounds taps, 1 per add or division and 1
+    per activation."""
+    if kernel == "ring_avgpool":
+        rows, c = kw["h"] * kw["w"], kw["c"]
+        return 4 * (rows * c + _segs(c) * 128), rows * c + c
+    if kernel == "ring_add":
+        rows, d = kw["rows"], kw["d"]
+        return 4 * (2 * rows * d + rows * _segs(d) * 128), 2 * rows * d
+    if kernel == "ring_gemm":
+        m, ci, co = kw["m_rows"], kw["d_in"], kw["d_out"]
+        return (4 * (m * ci + m * _segs(co) * 128 + ci * co + co),
+                2 * m * ci * co + 2 * m * co)
+    ci = kw["c"] if kernel == "ring_conv_dw" else kw["c_in"]
+    co = kw["c"] if kernel == "ring_conv_dw" else kw["c_out"]
+    pix = kw["h_out"] * kw["w_out"]
+    out = 4 * (pix * _segs(co) * 128 + co)
+    if kernel == "ring_conv_pw":
+        return (out + 4 * (_pw_pixels_read(kw) * ci + ci * co),
+                2 * pix * ci * co + 2 * pix * co)
+    k = kw["rs"] if kernel == "ring_conv_dw" else kw["k"]
+    geom = (k, kw["stride"], kw["padding"], kw["h_in"], kw["w_in"],
+            kw["h_out"], kw["w_out"])
+    io = out + 4 * _conv_pixels_read(*geom) * ci
+    taps = _conv_taps(*geom)
+    if kernel == "ring_conv_dw":
+        return io + 4 * k * k * ci, 2 * taps * ci + 2 * pix * co
+    return io + 4 * k * k * ci * co, 2 * taps * ci * co + 2 * pix * co
+
+
 def bound(kernel: str, kw: dict) -> tuple[float, str]:
-    nbytes, tensor_ops, core_ops = work(kernel, kw)
+    if kernel.endswith("_q"):
+        nbytes, tensor_ops, core_ops = work(kernel, kw)
+    else:
+        (nbytes, core_ops), tensor_ops = work_f32(kernel, kw), 0
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = tensor_ops / INT8_OPS_PER_S + core_ops / CUDA_CORE_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -200,41 +269,49 @@ def bound(kernel: str, kw: dict) -> tuple[float, str]:
 # Phases.
 # ---------------------------------------------------------------------------
 
-def phase_build():
-    from repro_torch.kernels._build import library
+def phase_build() -> None:
+    from repro_torch.kernels._build import build_all, library
 
-    lib, b = library()
-    how = f"nvcc {b.seconds:.2f} s" if b.compiled else "already built"
-    say(f"phase 1: built {b.path.name} for sm_90a ({how})")
-    for line in b.ptxas_lines:
-        say(f"  {line}")
-    return lib
+    t0 = time.perf_counter()
+    builds = build_all()
+    say(f"phase 1: {len(builds)} sources built for sm_90a in "
+        f"{time.perf_counter() - t0:.2f} s, one nvcc each, in parallel")
+    for stem, b in builds.items():
+        how = f"nvcc {b.seconds:.2f} s" if b.compiled else "already built"
+        say(f"  {b.path.name} ({how})")
+        for line in b.ptxas_lines:
+            say(f"    {line}")
+        library(stem)
 
 
 def _cuda(arrays):
     return tuple(torch.from_numpy(a).cuda() for a in arrays)
 
 
-def plan_cases(name: str, cn):
+def plan_cases(label: str, cn):
     """One case per op of a loaded plan, named after the plan."""
     from repro_torch.kernels.cases import program_cases
 
-    return program_cases(cn.program, cn.qnet.qparams,
+    return program_cases(cn.program, params_of(cn),
                          kernel_block_rows=cn.target.kernel_block_rows,
-                         prefix=f"{name}_")
+                         prefix=f"{label}_")
 
 
-def phase_parity(cases) -> dict[str, int]:
-    """Every case: kernel vs plain version on the card, bitwise; and the
-    cases whose launch read its weights from global memory, as the
-    wrapper decided (``<wrapper>.weights_staged``).  Returns the max
-    |difference| per kernel (0, or this raises)."""
+def phase_parity(cases) -> dict[str, float]:
+    """Every case: kernel vs plain version on the card, int8 bitwise and
+    fp32 by ``cases.compare_f32``; and the cases whose launch read its
+    weights from global memory, as the wrapper decided
+    (``<wrapper>.weights_staged``).  Returns the max |difference| per
+    kernel (0 for int8, or this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
-    from repro_torch.kernels.cases import case_inputs
+    from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
+                                           live_lanes, output_region)
 
+    n_f32 = sum(is_f32(c.kernel) for c in cases)
     say(f"phase 2: {len(cases)} kernel calls against their plain versions "
-        "on the card (bitwise)")
-    err: dict[str, int] = {name: 0 for name in KERNELS}
+        f"on the card ({len(cases) - n_f32} int8 bitwise, {n_f32} fp32 "
+        "within the tolerance; TF32 off)")
+    err: dict[str, float] = {name: 0 for name in KERNELS}
     global_w = []
     for case in cases:
         pool, params = case_inputs(case, seed=0)
@@ -245,14 +322,26 @@ def phase_parity(cases) -> dict[str, int]:
         if KERNELS[case.kernel].weights_staged is False:
             global_w.append(case.name)
         torch.cuda.synchronize()
+        if is_f32(case.kernel):
+            live = live_lanes(case.n_seg,
+                              [output_region(case.kernel, case.kwargs)])
+            e, bad = compare_f32(got.cpu().numpy(), want.cpu().numpy(),
+                                 live)
+            err[case.kernel] = max(err[case.kernel], e)
+            if bad:
+                raise SystemExit(f"{case.name}: {case.kernel} differs from "
+                                 f"its plain version, {bad}")
+            continue
         diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
         err[case.kernel] = max(err[case.kernel], int(diff.max()))
         if not torch.equal(got, want):
             seg = int(diff.amax(dim=1).nonzero()[0])
             raise SystemExit(f"{case.name}: {case.kernel} differs from its "
                              f"plain version, first at segment {seg}")
-    say(f"  all {len(cases)} bitwise equal; kernels covered: "
-        f"{sorted({c.kernel for c in cases})}")
+    say(f"  int8 all bitwise equal, fp32 all within the tolerance; max "
+        f"|difference| per fp32 kernel: "
+        f"{ {k: e for k, e in err.items() if not k.endswith('_q')} }")
+    say(f"  kernels covered: {sorted({c.kernel for c in cases})}")
     say(f"  weights read from global memory (too large for shared): "
         f"{global_w or 'none'}")
     return err
@@ -263,7 +352,7 @@ def _path_kernels(cn) -> set[str]:
     from repro_torch.core.executors import op_kernel_call
 
     return {op_kernel_call(cn.program, op, p)[0]
-            for op, p in zip(cn.program.ops, cn.qnet.qparams)}
+            for op, p in zip(cn.program.ops, params_of(cn))}
 
 
 def _counted(label: str, cn, drive) -> dict[str, int]:
@@ -325,6 +414,73 @@ def path_serve(name: str, cn, golden) -> dict[str, int]:
                              "golden")
     say(f"  {name}: {tuple(out['batch'].shape)} float outputs, int8 outputs "
         "and final-pool sha256 equal the golden on all 8")
+    return counts
+
+
+def _within(got: np.ndarray, want: np.ndarray) -> bool:
+    from repro_torch.kernels.cases import ATOL_REL, RTOL
+
+    scale = float(np.abs(want).max()) or 1.0
+    return bool(np.all(np.abs(got - want) <= ATOL_REL * scale
+                       + RTOL * np.abs(want)))
+
+
+def path_serve_f32(label: str, cn, golden) -> dict[str, int]:
+    """``run`` of an fp32 plan on the card: 8 inputs batched and 8 one by
+    one, within the tolerance of the golden and of the plain
+    ``reference_forward``; each input's final pool within the tolerance
+    of the plain versions' pool, channel tails and unwritten lanes
+    exactly equal, the tails of every live row exactly 0."""
+    from repro_torch.compile.artifact import to_device
+    from repro_torch.core.executors import run_program
+    from repro_torch.graph.run import reference_forward
+    from repro_torch.kernels.cases import (compare_f32, plain_pool,
+                                           program_live_lanes)
+
+    x = torch.from_numpy(golden["x"]).cuda()
+    out = {}
+
+    def drive():
+        out["batch"] = cn.run(x)
+        out["single"] = [cn.run(xi) for xi in x]
+
+    counts = _counted(f"{label} run", cn, drive)
+    if out["batch"].device.type != DEVICE_TYPE:
+        raise SystemExit(f"{label}: outputs left the card")
+    batch = out["batch"].cpu().numpy()
+    if not _within(batch, golden["y"]):
+        raise SystemExit(f"{label}: outputs differ from the golden by "
+                         f"{np.abs(batch - golden['y']).max():.3g}")
+    for i, y in enumerate(out["single"]):
+        if not torch.equal(y, out["batch"][i]):
+            raise SystemExit(f"{label}: single run {i} differs from the "
+                             "batched one")
+    kbr = cn.target.kernel_block_rows
+    params = to_device(cn.params, x.device)
+    ref = torch.stack([reference_forward(cn.program, xi, params)
+                       for xi in x]).cpu().numpy()
+    if not _within(batch, ref):
+        raise SystemExit(f"{label}: outputs differ from reference_forward "
+                         f"by {np.abs(batch - ref).max():.3g}")
+    live = program_live_lanes(cn.program, cn.params, kernel_block_rows=kbr)
+    worst = 0.0
+    for i, xi in enumerate(x):
+        _, pool = run_program(cn.program, xi, params, kernel_block_rows=kbr)
+        got = pool.array.cpu().numpy()
+        want = plain_pool(cn.program, xi, cn.params,
+                          kernel_block_rows=kbr).cpu().numpy()
+        err, bad = compare_f32(got, want, live)
+        if bad:
+            raise SystemExit(f"{label}: final pool {i} differs from the "
+                             f"plain path's, {bad}")
+        if got[~live].any():
+            raise SystemExit(f"{label}: final pool {i} has a nonzero "
+                             "channel tail or unwritten lane")
+        worst = max(worst, err)
+    say(f"  {label}: {batch.shape} outputs within the tolerance of the "
+        f"golden (max |difference| {np.abs(batch - golden['y']).max():.3g}"
+        f") and of reference_forward; final pools within it of the plain "
+        f"path's (max {worst:.3g}), channel tails 0, on all 8")
     return counts
 
 
@@ -420,7 +576,13 @@ KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
                   "ring_add_q": "add_kernel",
                   "ring_avgpool_q": "avgpool_kernel",
                   "ring_conv_stream_q": "conv_stream_kernel",
-                  "ring_gru_cell_q": "gru_kernel"}
+                  "ring_gru_cell_q": "gru_kernel",
+                  "ring_gemm": "gemm_f32_kernel",
+                  "ring_conv_pw": "conv_pw_f32_kernel",
+                  "ring_conv_dw": "conv_dw_f32_kernel",
+                  "ring_conv_k2d": "conv_k2d_f32_kernel",
+                  "ring_add": "add_f32_kernel",
+                  "ring_avgpool": "avgpool_f32_kernel"}
 
 
 def _device_busy(fn, reps: int = 20):
@@ -454,6 +616,55 @@ def _device_busy(fn, reps: int = 20):
             per_launch)
 
 
+def library_call(kernel: str, pool, params, kw):
+    """One PyTorch library call (cuBLAS, cuDNN or a reduction) that
+    computes what fp32 ``kernel`` computes on the gathered tensor, as a
+    function of no arguments; None for an int8 kernel or a resampling
+    pw, which no single call computes.  The gather from the ring, and a
+    conv's zero padding, are left out of the call."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.program import resolve_activation
+    from repro_torch.core.rowsched import conv_k2d_pad, conv_k2d_pad_w
+    from repro_torch.core.vpool import fetch_rows
+
+    if kernel.endswith("_q") or kw.get("resample"):
+        return None
+    act = resolve_activation(kw.get("activation"))
+    if kernel == "ring_avgpool":
+        img = fetch_rows(pool, kw["in_ptr"], kw["h"] * kw["w"],
+                         kw["c"]).contiguous()
+        return lambda: img.mean(dim=0)
+    if kernel == "ring_add":
+        x, r = (fetch_rows(pool, kw[p], kw["rows"], kw["d"]).contiguous()
+                for p in ("in_ptr", "aux_ptr"))
+        return lambda: act(torch.add(x, r))
+    w, b = params
+    if kernel == "ring_gemm":
+        x = fetch_rows(pool, kw["in_ptr"], kw["m_rows"],
+                       kw["d_in"]).contiguous()
+        return lambda: act(torch.addmm(b, x, w))
+    dw = kernel == "ring_conv_dw"
+    c_in = kw["c"] if dw else kw["c_in"]
+    img = fetch_rows(pool, kw["in_ptr"], kw["h_in"] * kw["w_in"], c_in)
+    img = img.reshape(1, kw["h_in"], kw["w_in"], c_in).permute(0, 3, 1, 2)
+    if kernel == "ring_conv_pw":
+        wt = w.t().reshape(kw["c_out"], c_in, 1, 1).contiguous()
+        k, pv, ph = 1, 0, 0
+    else:
+        k = kw["rs"] if dw else kw["k"]
+        wt = (w.permute(2, 0, 1)[:, None] if dw else
+              w.permute(3, 2, 0, 1)).contiguous()
+        pv = conv_k2d_pad(k, kw["padding"])
+        ph = conv_k2d_pad_w(k, kw["padding"])
+    s = kw["stride"]
+    bottom = (kw["h_out"] - 1) * s + k - pv - kw["h_in"]
+    right = (kw["w_out"] - 1) * s + k - ph - kw["w_in"]
+    x = F.pad(img, (ph, right, pv, bottom)).contiguous()
+    groups = c_in if dw else 1
+    return lambda: act(F.conv2d(x, wt, b, stride=s, groups=groups))
+
+
 def time_cases(cases) -> dict[str, dict]:
     """Per kernel over ``cases`` (one per op of a plan): the mean device
     time per launch, host time with the launch, plain-version time and
@@ -463,11 +674,14 @@ def time_cases(cases) -> dict[str, dict]:
 
     out: dict[str, dict] = {}
     for name in KERNELS:
-        ms, plain_ms, host_ms, bounds = [], [], [], []
+        ms, plain_ms, host_ms, bounds, lib_ms = [], [], [], [], []
         for case in (c for c in cases if c.kernel == name):
             pool, params = case_inputs(case, seed=0)
             pool, params = torch.from_numpy(pool).cuda(), _cuda(params)
             kern, plain = KERNELS[name], PLAIN[name]
+            lib = library_call(name, pool, params, case.kwargs)
+            if lib is not None:
+                lib_ms.append(_held_ms(lib, 50))
             host_ms.append(_host_ms(
                 lambda: kern(pool, *params, **case.kwargs), 20))
             ms.append(_held_ms(lambda: kern(pool, *params, **case.kwargs),
@@ -480,7 +694,10 @@ def time_cases(cases) -> dict[str, dict]:
                          "plain_ms": statistics.mean(plain_ms),
                          "host_ms": statistics.mean(host_ms),
                          "bound_ms": statistics.mean(b for b, _ in bounds),
-                         "bound_by": bounds[0][1], "ops": len(ms)}
+                         "bound_by": bounds[0][1], "ops": len(ms),
+                         "library_ms": (statistics.mean(lib_ms)
+                                        if len(lib_ms) == len(ms)
+                                        else None)}
     return out
 
 
@@ -489,8 +706,10 @@ def phase_timing(served, streamed, cases, counts, errs):
     the ``{"kernels": [...]}`` line and the per-path latency and busy
     share."""
     from repro_torch.kernels import KERNELS
+    from repro_torch.kernels._build import source_of
 
-    say("phase 4: timing")
+    say("phase 4: timing (library calls: one PyTorch call per op on the "
+        "gathered, zero-padded tensors, TF32 off)")
     by_path = {}
     for label, cn, drive, per in served + streamed:
         t = time_cases(cases[label])
@@ -507,11 +726,13 @@ def phase_timing(served, streamed, cases, counts, errs):
         for name, row in t.items():
             row["profiler_ms"] = prof_ms.get(name)
             row["launches"] = counts[label][name]
+            lib = ("" if row["library_ms"] is None else
+                   f", library {row['library_ms'] * 1e3:.2f} us")
             say(f"    {name:18s} {row['ms'] * 1e3:9.2f} us/launch (device, "
                 f"mean of {row['ops']} ops), {row['host_ms'] * 1e3:8.2f} us "
                 f"with launch (host), plain {row['plain_ms'] * 1e3:9.2f} "
                 f"us, bound {row['bound_ms'] * 1e3:.4f} us "
-                f"({row['bound_by']}), {row['launches']} launches")
+                f"({row['bound_by']}), {row['launches']} launches{lib}")
         by_path[label] = {"latency_ms": lat, "device_busy": busy,
                           "kernels": t}
     rows = []
@@ -522,15 +743,18 @@ def phase_timing(served, streamed, cases, counts, errs):
         n = sum(weight.values())
 
         def avg(key):
+            if any(r[key] is None for r in per.values()):
+                return None
             return sum(r[key] * weight[p] for p, r in per.items()) / n
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": f"{CSRC}/{source_of(name)}.cu",
             "replaces": REPLACES[name],
             "launches": sum(c[name] for c in counts.values()),
             "max_abs_err": errs[name], "ms": avg("ms"),
             "plain_ms": avg("plain_ms"), "bound_ms": avg("bound_ms"),
             "bound_by": next(iter(per.values()))["bound_by"],
-            "library_ms": None, "host_ms": avg("host_ms"),
+            "library_ms": avg("library_ms"), "host_ms": avg("host_ms"),
             "by_path": per})
     return rows, {p: {k: v for k, v in d.items() if k != "kernels"}
                   for p, d in by_path.items()}
@@ -545,28 +769,42 @@ def main() -> None:
                          "available")
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
-    from repro_torch.kernels.cases import EDGE_CASES
+    from repro_torch.kernels.cases import EDGE_CASES, F32_EDGE_CASES
 
     card = nvidia_smi_line()
     say(f"phase 0: card {card}")
     say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
+    # fp32 products and convolutions of the plain versions, of
+    # reference_forward and of the library calls run in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("  TF32 off: torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}")
     phase_build()
 
-    plans = {n: repro_torch.load(artifact(n)) for n in NETS + STREAMS}
-    goldens = {n: load_golden(n) for n in NETS + STREAMS}
+    served_labels = NETS + tuple(n + F32 for n in FLOAT_NETS)
+    labels = served_labels + STREAMS
+    plans = {n: repro_torch.load(artifact(n)) for n in labels}
+    goldens = {n: load_golden(n) for n in labels}
     cases = {n: plan_cases(n, cn) for n, cn in plans.items()}
-    errs = phase_parity(EDGE_CASES + sum(cases.values(), ()))
+    errs = phase_parity(EDGE_CASES + F32_EDGE_CASES
+                        + sum(cases.values(), ()))
 
     say("phase 3: the paths on the card")
     counts = {}
     for n in NETS:
         counts[n] = path_serve(n, plans[n], goldens[n])
+    for n in FLOAT_NETS:
+        counts[n + F32] = path_serve_f32(n + F32, plans[n + F32],
+                                         goldens[n + F32])
     for n in STREAMS:
         counts[n] = path_stream(n, plans[n], goldens[n])
 
     served = []
-    for n in NETS:
+    for n in served_labels:
         x1 = torch.from_numpy(goldens[n]["x"][0]).cuda()
         served.append((n, plans[n],
                        lambda cn=plans[n], x1=x1: cn.run(x1), "inference"))

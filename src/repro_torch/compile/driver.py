@@ -7,10 +7,13 @@ the planner, and checks that the stored program is the one its
 certificate proved safe (VMCU403).  The compile pipeline itself is a
 later slice.
 
-``CompiledNet.run`` runs on the CUDA card unless the caller passes
-``device="cpu"``; without a card it raises rather than run elsewhere.
+A float plan (the ``host-sim`` target's default) carries its fp32
+``params`` in the artifact; an int8 plan carries its calibrated
+``quant`` payload and may leave ``params`` out.  ``CompiledNet.run``
+runs either on the CUDA card unless the caller passes ``device="cpu"``;
+without a card it raises rather than run elsewhere.
 ``CompiledNet.stream`` opens a :class:`repro_torch.stream.StreamSession`
-on a streaming plan, on the same terms.
+on an int8 streaming plan, on the same terms.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import dataclasses
 import torch
 
 from ..core.program import PoolProgram
-from ..graph.run import QuantizedNet, run_net_quantized
+from ..graph.run import QuantizedNet, run_net, run_net_quantized
 from . import artifact
 from .targets import Target
 
@@ -37,7 +40,7 @@ class PassRecord:
 
 
 def _nbytes(obj) -> int:
-    """Total array bytes in a qparams structure."""
+    """Total array bytes in a params or qparams structure."""
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return 0
     if isinstance(obj, (list, tuple)):
@@ -62,24 +65,25 @@ def _device(device) -> torch.device:
 
 @dataclasses.dataclass
 class CompiledNet:
-    """A deployed int8 network: one solved ring plus what it needs to
-    run and report.  ``qnet.qparams`` hold numpy arrays; :meth:`run`
-    copies them to each device it runs on, once."""
+    """A deployed network: one solved ring plus what it needs to run and
+    report.  An int8 net holds ``qnet`` (its ``qparams``), a float net
+    its fp32 ``params`` and no ``qnet``; both hold numpy arrays, which
+    :meth:`run` copies to each device it runs on, once."""
 
     net_name: str
     target: Target
     dtype: str
     program: PoolProgram
-    qnet: QuantizedNet
+    qnet: QuantizedNet | None
     mcu: dict
     certificate: dict | None
     passes: list
     partial: dict | None = None
+    params: list | None = None
     _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def quantized(self) -> bool:
-        """Always True: the port loads int8 plans only."""
         return self.qnet is not None
 
     @property
@@ -96,7 +100,7 @@ class CompiledNet:
     def flash_bytes_used(self) -> int:
         """Parameter storage the target's flash must hold; slices of one
         op share its parameters and count once."""
-        entries = self.qnet.qparams
+        entries = self.qnet.qparams if self.quantized else self.params
         parents = (self.partial or {}).get("parents")
         if parents is not None:
             seen: set[int] = set()
@@ -116,20 +120,37 @@ class CompiledNet:
                                                       dev))
         return self._on_device[key]
 
+    def _params_on(self, dev: torch.device) -> list:
+        key = str(dev)
+        if key not in self._on_device:
+            self._on_device[key] = artifact.to_device(self.params, dev)
+        return self._on_device[key]
+
     def run(self, x, *, device=None) -> torch.Tensor:
         """Run the net on float input ``x`` — one sample ``[rows, d]`` or
         a batch ``[B, rows, d]`` — and return float output on
-        ``device`` (the CUDA card when ``None``).  A batch runs every
-        sample through the one solved plan in turn."""
+        ``device`` (the CUDA card when ``None``).  An int8 net quantizes
+        on entry and dequantizes on exit; a float net stages ``x`` as it
+        is.  A batch runs every sample through the one solved plan in
+        turn."""
         dev = _device(device)
-        qnet = self._qnet_on(dev)
-        x = torch.as_tensor(x, device=dev)
         kbr = self.target.kernel_block_rows
+        x = torch.as_tensor(x, device=dev)
+        if self.quantized:
+            qnet = self._qnet_on(dev)
+
+            def one(xi):
+                return run_net_quantized(qnet, xi, kernel_block_rows=kbr)
+        else:
+            params = self._params_on(dev)
+            x = x.to(torch.float32)
+
+            def one(xi):
+                return run_net(self.program, xi, params,
+                               kernel_block_rows=kbr)
         if x.ndim == 3:
-            return torch.stack([run_net_quantized(qnet, xi,
-                                                  kernel_block_rows=kbr)
-                                for xi in x])
-        return run_net_quantized(qnet, x, kernel_block_rows=kbr)
+            return torch.stack([one(xi) for xi in x])
+        return one(x)
 
     def stream(self, device=None, *, backend: str | None = None,
                trace: bool = False):
@@ -139,6 +160,11 @@ class CompiledNet:
         plan (``conv_stream``/``gru_cell`` ops)."""
         from ..stream import StreamSession
 
+        if not self.quantized:
+            raise NotImplementedError(
+                "the port streams int8 plans only; fp32 streams (the "
+                "ring_conv_stream and ring_gru_cell kernels) come in a "
+                "later slice")
         return StreamSession(self, device, backend=backend, trace=trace)
 
     def report(self) -> dict:
@@ -193,20 +219,22 @@ class CompiledNet:
                     f"program (certified {cert['program_sha256'][:12]}"
                     f"..., stored {have[:12]}...) — the plan changed "
                     "after it was certified")
-        if payload["quant"] is None:
-            raise NotImplementedError(
-                f"{path} holds a float plan; the port serves int8 plans "
-                "only (fp32 execution comes in a later slice)")
-        qnet = QuantizedNet(
-            plan=None, program=program, params=None,
-            qparams=artifact.decode(payload["quant"]["qparams"]),
-            act_scales=tuple(payload["quant"]["act_scales"]))
+        params = artifact.decode(payload.get("params"))
+        qnet = None
+        if payload["quant"] is not None:
+            qnet = QuantizedNet(
+                plan=None, program=program, params=None,
+                qparams=artifact.decode(payload["quant"]["qparams"]),
+                act_scales=tuple(payload["quant"]["act_scales"]))
+        elif params is None:
+            raise CompileError(f"{path} holds a float plan without its "
+                               "fp32 params: nothing to run it with")
         return cls(net_name=payload["net"], target=target,
                    dtype=payload["dtype"], program=program, qnet=qnet,
                    mcu=payload["mcu"], certificate=cert,
                    passes=[PassRecord(n, s, note)
                            for n, s, note in payload["passes"]],
-                   partial=payload.get("partial"))
+                   partial=payload.get("partial"), params=params)
 
 
 def load(path) -> CompiledNet:

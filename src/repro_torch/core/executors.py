@@ -1,18 +1,21 @@
-"""Executors: run an int8 PoolProgram on the ring, op by op.
+"""Executors: run an int8 or fp32 PoolProgram on the ring, op by op.
 
-Counterpart of the int8 half of :mod:`repro.core.executors`.  One
-dispatch (:func:`op_kernel_call`, a port of ``_run_pallas_q``) maps each
-op to a ring kernel and its arguments; the pool's device picks the
+Counterpart of :mod:`repro.core.executors` for the op kinds the port
+has kernels for.  One dispatch (:func:`op_kernel_call`, a port of
+``_run_pallas_q`` and of the fp32 loop of ``run_program_pallas``) maps
+each op to a ring kernel and its arguments; the pool's device picks the
 implementation:
 
   * a CUDA pool runs the hand-written kernels
-    (:data:`repro_torch.kernels.quantized.KERNELS`),
+    (:data:`repro_torch.kernels.KERNELS`),
   * a CPU pool runs their plain PyTorch versions
-    (:data:`repro_torch.kernels.quantized.PLAIN`) — the port of
-    ``_apply_op_q``/``_run_jnp_q``.
+    (:data:`repro_torch.kernels.PLAIN`) — the port of ``_apply_op_q``/
+    ``_run_jnp_q`` and of ``_apply_op``/``_run_jnp``.
 
-Nothing on the CUDA path calls a plain version.  Every int8 op kind
-has its kernel; fp32 programs come in a later slice.
+Nothing on the CUDA path calls a plain version.  Every int8 op kind has
+its kernel; of the fp32 kinds, the whole-network ones (:data:`F32_KINDS`)
+do, and the fused MLP, elementwise, fused inverted bottleneck and
+streaming kinds come in later slices.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from .vpool import VirtualPool, segments_for
 #: Op kinds the port's int8 executors run.
 Q_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "add", "pool_avg",
            "conv_stream", "gru_cell")
+#: Op kinds the port's fp32 executors run.
+F32_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "add", "pool_avg")
 
 
 def _normalize_qparams(program: PoolProgram, params):
@@ -57,6 +62,36 @@ def _normalize_qparams(program: PoolProgram, params):
         else:
             raise NotImplementedError(
                 f"op kind {op.kind!r} has no int8 execution path")
+    return out
+
+
+def _normalize_params(program: PoolProgram, params):
+    """Validate param entries: int8 programs through
+    :func:`_normalize_qparams`; fp32 ones take ``(w, b)`` for gemm/conv
+    (a missing bias becomes zeros) and ``None`` for add and pool_avg."""
+    if program.quantized:
+        return _normalize_qparams(program, params)
+    if params is None:
+        params = [None] * len(program.ops)
+    params = list(params)
+    if len(params) != len(program.ops):
+        raise ValueError(f"{len(params)} param entries for "
+                         f"{len(program.ops)} ops")
+    out = []
+    for op, p in zip(program.ops, params):
+        if op.kind not in F32_KINDS:
+            raise NotImplementedError(
+                f"op kind {op.kind!r} has no fp32 execution path in the "
+                f"port yet (it runs {F32_KINDS})")
+        if op.kind in ("gemm", "conv_pw", "conv_dw", "conv_k2d"):
+            w, b = p
+            if b is None:
+                b = torch.zeros((op.d_out,), dtype=w.dtype, device=w.device)
+            out.append((w, b))
+        else:
+            if p is not None:
+                raise ValueError(f"{op.kind} op takes no params")
+            out.append(None)
     return out
 
 
@@ -99,6 +134,9 @@ def op_kernel_call(program: PoolProgram, op, p, *,
                    kernel_block_rows: int = 8):
     """``(kernel_name, params, kwargs)``: the ring kernel that runs
     ``op``, its weight operands and its keyword arguments."""
+    if not program.quantized:
+        return _f32_kernel_call(program, op, p,
+                                kernel_block_rows=kernel_block_rows)
     sw, n = program.seg_width, program.n_segments
     if op.kind == "gemm":
         return "ring_gemm_q", tuple(p), dict(
@@ -153,11 +191,56 @@ def op_kernel_call(program: PoolProgram, op, p, *,
         f"{Q_KINDS})")
 
 
+def _f32_kernel_call(program: PoolProgram, op, p, *,
+                     kernel_block_rows: int):
+    """The fp32 half of :func:`op_kernel_call` (the fp32 dispatch of the
+    reference's ``run_program_pallas``)."""
+    sw, n = program.seg_width, program.n_segments
+    rows = op.rows_in or program.m_rows
+    if op.kind == "gemm":
+        return "ring_gemm", tuple(p), dict(
+            m_rows=rows, d_in=op.d_in, d_out=op.d_out, in_ptr=op.in_ptr,
+            out_ptr=op.out_ptr, block_rows=program.block_rows,
+            activation=op.activation)
+    if op.kind == "conv_pw":
+        iptr = _image_ptr(op, sw)
+        return "ring_conv_pw", tuple(p), dict(
+            h_in=op.h_in, w_in=op.w_in, h_out=op.h_out, w_out=op.w_out,
+            c_in=op.d_in, c_out=op.d_out, stride=op.stride,
+            resample=op.resample, in_ptr=iptr, out_ptr=op.out_ptr,
+            activation=op.activation,
+            row_block=_pw_row_block(op, n, iptr, sw, kernel_block_rows))
+    if op.kind == "conv_dw":
+        return "ring_conv_dw", tuple(p), dict(
+            h_in=op.h_in, w_in=op.w_in, h_out=op.h_out, w_out=op.w_out,
+            c=op.d_in, rs=op.rs, stride=op.stride, padding=op.padding,
+            in_ptr=_image_ptr(op, sw), out_ptr=op.out_ptr,
+            activation=op.activation)
+    if op.kind == "conv_k2d":
+        return "ring_conv_k2d", tuple(p), dict(
+            h_in=op.h_in, w_in=op.w_in, h_out=op.h_out, w_out=op.w_out,
+            c_in=op.d_in, c_out=op.d_out, k=op.rs, stride=op.stride,
+            padding=op.padding, in_ptr=_image_ptr(op, sw),
+            out_ptr=op.out_ptr, activation=op.activation)
+    if op.kind == "add":
+        return "ring_add", (), dict(
+            rows=rows, d=op.d_in, in_ptr=op.in_ptr, aux_ptr=op.aux_ptr,
+            out_ptr=op.out_ptr, activation=op.activation)
+    if op.kind == "pool_avg":
+        return "ring_avgpool", (), dict(
+            h=op.h_in, w=op.w_in, c=op.d_in, in_ptr=op.in_ptr,
+            out_ptr=op.out_ptr)
+    raise NotImplementedError(
+        f"no fp32 ring kernel for op kind {op.kind!r} (the port runs "
+        f"{F32_KINDS})")
+
+
 def execute(program: PoolProgram, pool, params, *,
             kernel_block_rows: int = 8):
     """Run ``program`` on ``pool`` (a :class:`VirtualPool` or raw
-    ``[n_segments, seg_width]`` int8 tensor with the input staged at
-    ``program.input_ptr``), in place; returns ``pool``.
+    ``[n_segments, seg_width]`` tensor of the program's dtype, int8 or
+    float32, with the input staged at ``program.input_ptr``), in place;
+    returns ``pool``.
 
     A CUDA pool runs the CUDA kernels, a CPU pool their plain versions;
     ``params`` must lie on the pool's device."""
@@ -165,9 +248,6 @@ def execute(program: PoolProgram, pool, params, *,
         raise NotImplementedError(
             f"program contains plan-only ops; only kinds "
             f"{EXECUTABLE_KINDS} are executable")
-    if not program.quantized:
-        raise NotImplementedError("the port runs int8 programs only; fp32 "
-                                  "execution comes in a later slice")
     arr = pool.array if isinstance(pool, VirtualPool) else pool
     if arr.device.type == "cuda":
         table = KERNELS
@@ -175,7 +255,7 @@ def execute(program: PoolProgram, pool, params, *,
         table = PLAIN
     else:
         raise ValueError(f"no ring executor for device {arr.device}")
-    for op, p in zip(program.ops, _normalize_qparams(program, params)):
+    for op, p in zip(program.ops, _normalize_params(program, params)):
         name, args, kwargs = op_kernel_call(
             program, op, p, kernel_block_rows=kernel_block_rows)
         table[name](arr, *args, **kwargs)

@@ -44,6 +44,32 @@ def dtype_itemsize(dtype: str) -> int:
                          f"{sorted(DTYPE_ITEMSIZE)}") from None
 
 
+# Element-wise maps usable as fp32 epilogues.  Every fn maps 0 -> 0 so
+# segment padding columns stay zero through the ring.  ``gelu`` is the
+# tanh approximation, the reference's (``jax.nn.gelu``) default.
+ACTIVATIONS = {
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "silu": torch.nn.functional.silu,
+    "relu": lambda x: torch.clamp_min(x, 0.0),
+    "square": lambda x: x * x,
+    "identity": lambda x: x,
+}
+
+#: Each activation's code in the fp32 CUDA epilogue (``ring_f32.cu``).
+ACTIVATION_CODES = {"identity": 0, "relu": 1, "gelu": 2, "silu": 3,
+                    "square": 4}
+
+
+def resolve_activation(name: str | None):
+    if name is None:
+        return ACTIVATIONS["identity"]
+    try:
+        return ACTIVATIONS[name]
+    except KeyError:
+        raise ValueError(f"unknown activation {name!r}; "
+                         f"known: {sorted(ACTIVATIONS)}") from None
+
+
 # ---------------------------------------------------------------------------
 # Layer specs — the vocabulary the reference planner accepts.
 # ---------------------------------------------------------------------------

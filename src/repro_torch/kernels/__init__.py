@@ -1,15 +1,18 @@
 """The port's hand-written CUDA ring kernels (``csrc/``), their build
-(``_build``), their Python wrappers and plain versions (``quantized``,
-``stream``) and the parity cases they are held to (``cases``).
+(``_build``), their Python wrappers and plain versions (int8:
+``quantized``, ``stream``; fp32: ``segment_matmul``, ``conv2d``) and the
+parity cases they are held to (``cases``).
 
 :data:`KERNELS` and :data:`PLAIN` are every wrapper and every plain
 version by kernel name; each wrapper counts its launches in
 ``<wrapper>.launches`` (:func:`launch_counts`).  Importing this package
 builds nothing."""
-from . import quantized, stream
+from . import conv2d, quantized, segment_matmul, stream
 
-KERNELS = {**quantized.KERNELS, **stream.KERNELS}
-PLAIN = {**quantized.PLAIN, **stream.PLAIN}
+KERNELS = {**quantized.KERNELS, **stream.KERNELS, **segment_matmul.KERNELS,
+           **conv2d.KERNELS}
+PLAIN = {**quantized.PLAIN, **stream.PLAIN, **segment_matmul.PLAIN,
+         **conv2d.PLAIN}
 
 
 def reset_launch_counts() -> None:

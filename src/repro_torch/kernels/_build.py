@@ -1,12 +1,16 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-``csrc/ring_q.cu`` has a plain C interface: every entry point takes raw
-device pointers, ints and a CUDA stream, launches one kernel and returns
-the launch's ``cudaError_t``.  It is compiled for Hopper (``sm_90a``)
-into a shared library named by a hash of the source and the flags, so a
-changed source rebuilds, under ``<checkout>/build/repro_torch/`` (or the
-directory ``REPRO_TORCH_BUILD_DIR`` names).  Nothing is built or loaded
-when this module is imported: :func:`library` builds on first use.
+Each source in ``csrc/`` (``ring_q.cu``, the int8 kernels;
+``ring_f32.cu``, the fp32 ones) has a plain C interface: every entry
+point takes raw device pointers, ints and a CUDA stream, launches one
+kernel and returns the launch's ``cudaError_t``, and
+``<stem>_error_string`` names an error code.  Each source is compiled
+for Hopper (``sm_90a``) into a shared library named by a hash of the
+source and the flags, so a changed source rebuilds, under
+``<checkout>/build/repro_torch/`` (or the directory
+``REPRO_TORCH_BUILD_DIR`` names).  :func:`build_all` starts one nvcc per
+source, all at once.  Nothing is built or loaded when this module is
+imported: :func:`library` builds on first use.
 """
 from __future__ import annotations
 
@@ -20,23 +24,46 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ring_q.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-#: C entry points of ring_q.cu: argument types, the stream last.
+#: C entry points of each source (by stem): argument types, the stream
+#: last.
 SIGNATURES = {
-    "ring_gemm_q": [_P] * 5 + [_I] * 9 + [_P],
-    "ring_conv_pw_q": [_P] * 5 + [_I] * 14 + [_P],
-    "ring_conv_dw_q": [_P] * 5 + [_I] * 14 + [_P],
-    "ring_conv_k2d_q": [_P] * 5 + [_I] * 15 + [_P],
-    "ring_avgpool_q": [_P] + [_I] * 9 + [_P],
-    "ring_add_q": [_P] + [_I] * 12 + [_P],
-    "ring_conv_stream_q": [_P] * 5 + [_I] * 17 + [_P],
-    "ring_gru_cell_q": [_P] * 8 + [_I] * 6 + [_P],
+    "ring_q": {
+        "ring_gemm_q": [_P] * 5 + [_I] * 9 + [_P],
+        "ring_conv_pw_q": [_P] * 5 + [_I] * 14 + [_P],
+        "ring_conv_dw_q": [_P] * 5 + [_I] * 14 + [_P],
+        "ring_conv_k2d_q": [_P] * 5 + [_I] * 15 + [_P],
+        "ring_avgpool_q": [_P] + [_I] * 9 + [_P],
+        "ring_add_q": [_P] + [_I] * 12 + [_P],
+        "ring_conv_stream_q": [_P] * 5 + [_I] * 17 + [_P],
+        "ring_gru_cell_q": [_P] * 8 + [_I] * 6 + [_P],
+    },
+    "ring_f32": {
+        "ring_gemm": [_P] * 3 + [_I] * 9 + [_P],
+        "ring_conv_pw": [_P] * 3 + [_I] * 14 + [_P],
+        "ring_conv_dw": [_P] * 3 + [_I] * 14 + [_P],
+        "ring_conv_k2d": [_P] * 3 + [_I] * 15 + [_P],
+        "ring_add": [_P] + [_I] * 8 + [_P],
+        "ring_avgpool": [_P] + [_I] * 7 + [_P],
+    },
 }
+
+
+def source(stem: str) -> Path:
+    return CSRC / f"{stem}.cu"
+
+
+def source_of(entry: str) -> str:
+    """The stem of the source that defines C entry point ``entry``."""
+    for stem, entries in SIGNATURES.items():
+        if entry in entries:
+            return stem
+    raise KeyError(f"no CUDA source defines {entry!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,36 +103,54 @@ def _nvcc() -> str:
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(source: Path = SOURCE) -> Build:
-    """Compile ``source`` unless a library of its hash exists."""
-    digest = hashlib.sha256(source.read_bytes()
+def _library_path(stem: str) -> Path:
+    digest = hashlib.sha256(source(stem).read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = build_dir() / f"lib{source.stem}-{digest[:16]}.so"
-    if out.exists():
-        return Build(out, False, 0.0, "")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(source)], capture_output=True, text=True)
-    if proc.returncode:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {source} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
-    return Build(out, True, time.perf_counter() - t0,
-                 proc.stdout + proc.stderr)
+    return build_dir() / f"lib{stem}-{digest[:16]}.so"
+
+
+def build_all(stems=tuple(SIGNATURES)) -> dict[str, Build]:
+    """Compile every source in ``stems`` whose library of the same hash
+    is not there yet: one nvcc per source, all started together."""
+    started, done = {}, {}
+    for stem in stems:
+        out = _library_path(stem)
+        if out.exists():
+            done[stem] = Build(out, False, 0.0, "")
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(stem))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started[stem] = (proc, out, tmp, time.perf_counter())
+    failed = []
+    for stem, (proc, out, tmp, t0) in started.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {source(stem)} "
+                          f"(exit {proc.returncode}):\n{stderr}")
+            continue
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+        done[stem] = Build(out, True, time.perf_counter() - t0,
+                           stdout + stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
 
 
 @functools.cache
-def library() -> tuple[ctypes.CDLL, Build]:
-    """The loaded kernel library (built on first call) and its build."""
-    b = build()
+def library(stem: str) -> tuple[ctypes.CDLL, Build]:
+    """The loaded kernel library of source ``stem`` (built on first
+    call) and its build."""
+    b = build_all((stem,))[stem]
     lib = ctypes.CDLL(str(b.path))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in SIGNATURES[stem].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.ring_q_error_string.argtypes = [ctypes.c_int]
-    lib.ring_q_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, f"{stem}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib, b

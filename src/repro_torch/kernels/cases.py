@@ -4,21 +4,31 @@ A :class:`Case` is one kernel call at one geometry: the kernel's name,
 the pool length and its keyword arguments.  :func:`case_inputs` draws a
 seeded pool (garbage everywhere, the input rows staged with zero channel
 tails, as a ring holds them) and, unless the case carries real weights,
-seeded weights and requant constants.  Everything is numpy, so the same
-inputs can go to the reference's Pallas kernels, to the plain versions
-and to the CUDA kernels.
+seeded weights and requant constants (int8 kernels, ``ring_*_q``) or
+seeded fp32 weights and biases (fp32 kernels).  Everything is numpy, so
+the same inputs can go to the reference's Pallas kernels, to the plain
+versions and to the CUDA kernels.
 
-:data:`EDGE_CASES` are the geometries the DS-CNN plan does not reach
-(wrapping runs, other strides, paddings and blockings, saturating and
-wrapping int32 sums, streaming windows with ``hop`` 2);
-:func:`program_cases` gives one case per op of a real program, with its
-real weights.  Every in/out overlap here is one a certified plan allows:
-no output row lands on an input row (or residual row) a later step still
-reads, and no output lands on a streaming state region.  Only such
-overlaps are a test of anything: the reference kernels in interpret mode
-read an unaliased copy of the pool, and the plain versions read every
-input before they store, so an illegal overlap would set them apart from
-a kernel that walks the ring in order.
+:data:`EDGE_CASES` are the int8 geometries the DS-CNN plan does not
+reach (wrapping runs, other strides, paddings and blockings, saturating
+and wrapping int32 sums, streaming windows with ``hop`` 2);
+:data:`F32_EDGE_CASES` are their fp32 twins, with every activation of
+the fp32 epilogue; :func:`program_cases` gives one case per op of a real
+program, with its real weights.
+
+An int8 kernel is held to its plain version bitwise.  An fp32 kernel is
+held by :func:`compare_f32` at the one tolerance :data:`RTOL` and
+:data:`ATOL_REL` (the reference's conformance-matrix rule): within it on
+the live channels of the rows the call writes, and exactly everywhere
+else (channel tails and segments the call does not write).
+
+Every in/out overlap here is one a certified plan allows: no output row
+lands on an input row (or residual row) a later step still reads, and
+no output lands on a streaming state region.  Only such overlaps are a
+test of anything: the reference kernels in interpret mode read an
+unaliased copy of the pool, and the plain versions read every input
+before they store, so an illegal overlap would set them apart from a
+kernel that walks the ring in order.
 """
 from __future__ import annotations
 
@@ -29,6 +39,23 @@ import numpy as np
 
 from ..core.vpool import SEG_WIDTH, segments_for
 from ..quant.requant import quantize_multiplier
+
+
+#: The fp32 tolerance: ``|got - want| <= ATOL_REL * max|want| + RTOL *
+#: |want|`` (``tests/test_conformance_matrix.py::_tol``).  Summation
+#: order differs between the kernels, their plain versions and the
+#: reference, so fp32 results agree to rounding, not bitwise.
+RTOL = 3e-4
+ATOL_REL = 3e-5
+
+
+def is_f32(kernel: str) -> bool:
+    """Whether ``kernel`` is an fp32 kernel (int8 ones end in ``_q``)."""
+    return not kernel.endswith("_q")
+
+
+def _base(kernel: str) -> str:
+    return kernel.removesuffix("_q")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,17 +190,61 @@ EDGE_CASES = (
 )
 
 
-def program_cases(program, qparams, *, kernel_block_rows: int = 8,
+def _f32(case: Case, name: str, **kwargs) -> Case:
+    """The fp32 twin of an int8 edge case, with ``kwargs`` changed."""
+    kw = {k: v for k, v in case.kwargs.items()
+          if not k.startswith(("mult", "shift"))}
+    return Case(name, _base(case.kernel), case.n_seg, {**kw, **kwargs})
+
+
+_EDGE = {c.name: c for c in EDGE_CASES}
+
+F32_EDGE_CASES = (
+    _f32(_EDGE["k2d_k3_wrap"], "f32_k2d_k3_wrap"),
+    _f32(_EDGE["k2d_valid_s2"], "f32_k2d_valid_s2"),
+    _f32(_EDGE["dw_valid_s2"], "f32_dw_valid_s2"),
+    _f32(_EDGE["dw_same_top"], "f32_dw_same_top", activation="silu"),
+    _f32(_EDGE["dw_wrap_shifted"], "f32_dw_wrap_shifted"),
+    _f32(_EDGE["pw_stride2"], "f32_pw_stride2_gelu", activation="gelu"),
+    _f32(_EDGE["pw_resample"], "f32_pw_resample_silu", activation="silu"),
+    _f32(_EDGE["pw_row_block"], "f32_pw_row_block_square",
+         activation="square"),
+    _f32(_EDGE["pw_inplace_wrap"], "f32_pw_inplace_wrap"),
+    _f32(_EDGE["gemm_block_rows"], "f32_gemm_block_rows_gelu",
+         activation="gelu"),
+    _f32(_EDGE["gemm_wrap"], "f32_gemm_wrap_silu", activation="silu"),
+    _f32(_EDGE["gemm_wrap"], "f32_gemm_wrap_square", activation="square"),
+    # 960,000 B of fp32 weights: read from global memory
+    _f32(_EDGE["gemm_weights_global"], "f32_gemm_weights_global"),
+    Case("f32_avgpool_wrap", "ring_avgpool", 40,
+         dict(h=3, w=4, c=200, in_ptr=24, out_ptr=42)),
+    _f32(_EDGE["add_inplace_wrap"], "f32_add_inplace_wrap"),
+    _f32(_EDGE["add_shifted"], "f32_add_shifted_gelu", activation="gelu"),
+    _f32(_EDGE["add_saturating"], "f32_add_square", activation="square"),
+    _f32(_EDGE["add_saturating"], "f32_add_silu", activation="silu"),
+    # three shared-memory tiles (223 two-segment rows each), shifted: row
+    # t lands on input row t - 1; the residual rows lie below them all
+    Case("f32_add_tiles_shifted", "ring_add", 2048,
+         dict(rows=500, d=130, in_ptr=1010, aux_ptr=0, out_ptr=1008,
+              activation="relu")),
+)
+
+
+def program_cases(program, params, *, kernel_block_rows: int = 8,
                   prefix: str = "", kinds=None):
     """One case per op of ``program`` (of the op kinds ``kinds``, when
-    given), with the op's real weights; case names are
-    ``<prefix>op<i>_<kind>``."""
+    given), with the op's real weights (``params``: an int8 program's
+    qparams or an fp32 one's params, numpy; a missing bias becomes
+    zeros); case names are ``<prefix>op<i>_<kind>``."""
     from ..core.executors import op_kernel_call
 
     cases = []
-    for i, (op, p) in enumerate(zip(program.ops, qparams)):
+    for i, (op, p) in enumerate(zip(program.ops, params)):
         if kinds is not None and op.kind not in kinds:
             continue
+        if p is not None and p[1] is None:     # a net without biases
+            p = (p[0], np.zeros((op.d_out,), np.int32 if program.quantized
+                                else np.float32), *p[2:])
         name, params, kwargs = op_kernel_call(
             program, op, p, kernel_block_rows=kernel_block_rows)
         cases.append(Case(f"{prefix}op{i:02d}_{op.kind}", name,
@@ -181,32 +252,112 @@ def program_cases(program, qparams, *, kernel_block_rows: int = 8,
     return tuple(cases)
 
 
+def program_live_lanes(program, params, *,
+                       kernel_block_rows: int = 8) -> np.ndarray:
+    """:func:`live_lanes` of an fp32 program's final pool: the staged
+    input, then every op's output in plan order."""
+    regions = [(program.input_ptr, program.in_rows, program.in_dim)]
+    regions += [output_region(c.kernel, c.kwargs) for c in program_cases(
+        program, params, kernel_block_rows=kernel_block_rows)]
+    return live_lanes(program.n_segments, regions)
+
+
+def plain_pool(program, x, params, *, kernel_block_rows: int = 8):
+    """The final pool of ``program`` run on input ``x`` through the
+    plain versions on ``x``'s device (a CUDA one too): the whole-plan
+    oracle the kernels' pool is held to.  ``params`` are numpy arrays,
+    as :func:`program_cases` takes them."""
+    import torch
+
+    from ..core.vpool import stage_rows
+    from . import PLAIN
+
+    spec = program.spec()
+    pool = torch.zeros(spec.shape, dtype=spec.dtype, device=x.device)
+    stage_rows(pool, x, program.input_ptr)
+    for c in program_cases(program, params,
+                           kernel_block_rows=kernel_block_rows):
+        PLAIN[c.kernel](pool, *(torch.from_numpy(a).to(x.device)
+                                for a in c.params), **c.kwargs)
+    return pool
+
+
 def input_regions(kernel: str, kw: dict) -> list[tuple[int, int, int]]:
     """``(ptr, rows, width)`` of each tensor the kernel reads."""
-    if kernel == "ring_gemm_q":
+    kernel = _base(kernel)
+    if kernel == "ring_gemm":
         return [(kw["in_ptr"], kw["m_rows"], kw["d_in"])]
-    if kernel == "ring_avgpool_q":
+    if kernel == "ring_avgpool":
         return [(kw["in_ptr"], kw["h"] * kw["w"], kw["c"])]
-    if kernel == "ring_add_q":
+    if kernel == "ring_add":
         return [(kw["in_ptr"], kw["rows"], kw["d"]),
                 (kw["aux_ptr"], kw["rows"], kw["d"])]
-    if kernel == "ring_conv_stream_q":
+    if kernel == "ring_conv_stream":
         return [(kw["in_ptr"], kw["hop"] * kw["w_in"], kw["c_in"]),
                 (kw["state_ptr"], kw["h_win"] * kw["w_in"], kw["c_in"])]
-    if kernel == "ring_gru_cell_q":
+    if kernel == "ring_gru_cell":
         return [(kw["in_ptr"], 1, kw["d_in"]),
                 (kw["state_ptr"], 1, kw["d_h"])]
-    c = kw["c"] if kernel == "ring_conv_dw_q" else kw["c_in"]
+    c = kw["c"] if kernel == "ring_conv_dw" else kw["c_in"]
     return [(kw["in_ptr"], kw["h_in"] * kw["w_in"], c)]
+
+
+def output_region(kernel: str, kw: dict) -> tuple[int, int, int]:
+    """``(ptr, rows, width)`` of the tensor an fp32 kernel writes."""
+    kernel = _base(kernel)
+    if kernel == "ring_gemm":
+        return kw["out_ptr"], kw["m_rows"], kw["d_out"]
+    if kernel == "ring_avgpool":
+        return kw["out_ptr"], 1, kw["c"]
+    if kernel == "ring_add":
+        return kw["out_ptr"], kw["rows"], kw["d"]
+    c = kw["c"] if kernel == "ring_conv_dw" else kw["c_out"]
+    return kw["out_ptr"], kw["h_out"] * kw["w_out"], c
+
+
+def live_lanes(n_seg: int, regions) -> np.ndarray:
+    """``[n_seg, 128]`` mask of the lanes that hold live channels after
+    the ``(ptr, rows, width)`` tensors ``regions`` are written into a
+    ring in that order: each row's first ``width`` lanes, not its channel
+    tails; a later tensor overrides an earlier one where they overlap."""
+    mask = np.zeros((n_seg, SEG_WIDTH), bool)
+    for ptr, rows, d in regions:
+        segs = segments_for(d)
+        lanes = np.zeros((rows, segs * SEG_WIDTH), bool)
+        lanes[:, :d] = True
+        mask[(ptr + np.arange(rows * segs)) % n_seg] = \
+            lanes.reshape(rows * segs, SEG_WIDTH)
+    return mask
+
+
+def compare_f32(got, want, live) -> tuple[float, str | None]:
+    """Hold an fp32 pool ``got`` to ``want``: within the tolerance on the
+    ``live`` lanes, exactly everywhere else.  Returns the largest
+    |difference| on the live lanes and ``None``, or a description of the
+    first segment out of bounds."""
+    got, want = np.asarray(got), np.asarray(want)
+    diff = np.abs(got.astype(np.float64) - want)
+    err = float(diff[live].max()) if live.any() else 0.0
+    scale = float(np.abs(want[live]).max()) if live.any() else 0.0
+    close = diff <= ATOL_REL * (scale or 1.0) + RTOL * np.abs(want)
+    bad = np.where(live, ~close, got != want)
+    if not bad.any():
+        return err, None
+    seg = int(bad.any(axis=1).nonzero()[0][0])
+    what = "a live lane" if live[seg][bad[seg]].any() else \
+        "a channel tail or an unwritten lane"
+    return err, (f"first at segment {seg} ({what}; max |difference| on "
+                 f"live lanes {err:.3g}, scale {scale:.3g})")
 
 
 def _weight_shape(kernel: str, kw: dict) -> tuple[tuple[int, ...], int]:
     """Weight shape and reduction depth per output of a kernel."""
-    if kernel == "ring_gemm_q":
+    kernel = _base(kernel)
+    if kernel == "ring_gemm":
         return (kw["d_in"], kw["d_out"]), kw["d_in"]
-    if kernel == "ring_conv_pw_q":
+    if kernel == "ring_conv_pw":
         return (kw["c_in"], kw["c_out"]), kw["c_in"]
-    if kernel == "ring_conv_dw_q":
+    if kernel == "ring_conv_dw":
         return (kw["rs"], kw["rs"], kw["c"]), kw["rs"] ** 2
     k = kw["k"]
     return (k, k, kw["c_in"], kw["c_out"]), k * k * kw["c_in"]
@@ -228,10 +379,33 @@ def _gru_draw(rng, kw):
     return (w, u, b, *consts)
 
 
+def _f32_inputs(case: Case, rng):
+    pool = rng.standard_normal((case.n_seg, SEG_WIDTH), np.float32)
+    for ptr, rows, d in input_regions(case.kernel, case.kwargs):
+        segs = segments_for(d)
+        padded = np.zeros((rows, segs * SEG_WIDTH), np.float32)
+        padded[:, :d] = rng.standard_normal((rows, d), np.float32)
+        idx = (ptr + np.arange(rows * segs)) % case.n_seg
+        pool[idx] = padded.reshape(rows * segs, SEG_WIDTH)
+    if case.params is not None:
+        return pool, tuple(case.params)
+    if case.kernel in ("ring_avgpool", "ring_add"):
+        return pool, ()
+    shape, depth = _weight_shape(case.kernel, case.kwargs)
+    w = (rng.standard_normal(shape, np.float32) / np.sqrt(depth)) \
+        .astype(np.float32)
+    b = (0.1 * rng.standard_normal((shape[-1],), np.float32)) \
+        .astype(np.float32)
+    return pool, (w, b)
+
+
 def case_inputs(case: Case, seed: int = 0):
-    """``(pool, params)`` as numpy arrays: an int8 ``[n_seg, 128]`` pool
-    and the kernel's weight operands (``()`` for add and avgpool)."""
+    """``(pool, params)`` as numpy arrays: an int8 (fp32) ``[n_seg, 128]``
+    pool for an int8 (fp32) kernel and the kernel's weight operands
+    (``()`` for add and avgpool)."""
     rng = np.random.default_rng([seed, zlib.crc32(case.name.encode())])
+    if is_f32(case.kernel):
+        return _f32_inputs(case, rng)
     pool = rng.integers(-128, 128, (case.n_seg, SEG_WIDTH), dtype=np.int8)
     for ptr, rows, d in input_regions(case.kernel, case.kwargs):
         x = rng.integers(-128, 128, (rows, d), dtype=np.int8)

@@ -1,0 +1,241 @@
+"""Fp32 ring conv, residual and pool kernels: CUDA wrappers and their
+plain PyTorch versions.
+
+Counterpart of :mod:`repro.kernels.conv2d`: the pointwise, depthwise and
+k x k convs, the residual add and the global average pool of a whole
+network on the fp32 ring.  Each wrapper takes the reference kernel's
+arguments, raises its ``ValueError`` on a misaligned pool or pointer,
+checks device, dtype, shape and contiguity, and launches its
+hand-written kernel (``csrc/ring_f32.cu``) on the current CUDA stream
+without synchronising; it updates the pool in place and returns it.  A
+wrapper never falls back to its plain version: it raises on anything
+but CUDA tensors.  It counts its launches in ``<wrapper>.launches``; a
+conv wrapper records in ``<wrapper>.weights_staged`` whether its last
+launch staged the weights in shared memory (None for the add and the
+pool, which have none).  The wrappers size every kernel's shared memory
+at 4 bytes per element.
+
+Beside each wrapper sits its plain version (``<name>_plain``), a port
+of the reference's jnp executor op (``conv_pw_ring``, ``conv_dw_ring``,
+``conv_k2d_ring``, ``add_ring``, ``pool_avg_ring``): gather every input
+row, compute in fp32, scatter.  On a certified plan that leaves the
+pool the kernels' sequential walk leaves, up to the order of fp32 sums.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.program import resolve_activation
+from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w, resample_src
+from ..core.vpool import fetch_rows, stage_rows
+from ._launch import MAX_SMEM, check_cuda, launch
+from .quantized import _check_add, _check_avgpool, _check_pw, _check_rows, \
+    _taps
+from .segment_matmul import F32, act_code
+
+
+def _weights(w, b, w_shape, c_out):
+    return (("w", w, F32, w_shape), ("b", b, F32, (c_out,)))
+
+
+def _fetch_image(pool, ptr, h, w, c):
+    return fetch_rows(pool, ptr, h * w, c).reshape(h, w, c).to(F32)
+
+
+def _store_image(pool, y, out_ptr):
+    stage_rows(pool, y.reshape(-1, y.shape[-1]), out_ptr)
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# Pointwise conv.
+# ---------------------------------------------------------------------------
+
+def ring_conv_pw(pool, w, b, *, h_in: int, w_in: int, h_out: int,
+                 w_out: int, c_in: int, c_out: int, stride: int = 1,
+                 resample: bool = False, in_ptr: int = 0, out_ptr: int = 0,
+                 activation: str | None = None, row_block: int = 1):
+    """Fp32 pointwise conv ``[h_in, w_in, c_in] -> [h_out, w_out, c_out]``
+    in the ring, ``row_block`` output image rows per step (blocking
+    requires the identity pixel map); replaces ``ring_conv_pw``,
+    ``src/repro/kernels/conv2d.py:108``."""
+    n_seg = pool.shape[0]
+    _check_pw(n_seg, h_out, w_in, w_out, c_in, c_out, stride, resample,
+              in_ptr, out_ptr, row_block)
+    check_cuda(pool, _weights(w, b, (c_in, c_out), c_out), dtype=F32)
+    ring_conv_pw.weights_staged = launch(
+        "ring_conv_pw", pool, 4 * (row_block * w_in * c_in + c_out), (w, b),
+        (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, stride, int(resample),
+         row_block, in_ptr % n_seg, out_ptr % n_seg, act_code(activation)),
+        w_bytes=4 * c_in * c_out)
+    ring_conv_pw.launches += 1
+    return pool
+
+
+def ring_conv_pw_plain(pool, w, b, *, h_in: int, w_in: int, h_out: int,
+                       w_out: int, c_in: int, c_out: int, stride: int = 1,
+                       resample: bool = False, in_ptr: int = 0,
+                       out_ptr: int = 0, activation: str | None = None,
+                       row_block: int = 1):
+    """Plain version of :func:`ring_conv_pw` (``conv_pw_ring``);
+    ``row_block`` is execution granularity and changes nothing here."""
+    _check_pw(pool.shape[0], h_out, w_in, w_out, c_in, c_out, stride,
+              resample, in_ptr, out_ptr, row_block)
+    act = resolve_activation(activation)
+    img = _fetch_image(pool, in_ptr, h_in, w_in, c_in)
+    if resample:
+        ridx = [resample_src(p, h_in, h_out) for p in range(h_out)]
+        cidx = [resample_src(q, w_in, w_out) for q in range(w_out)]
+    else:
+        ridx = [p * stride for p in range(h_out)]
+        cidx = [q * stride for q in range(w_out)]
+    sub = img[ridx][:, cidx]
+    y = torch.einsum("hwc,cd->hwd", sub, w.to(F32))
+    return _store_image(pool, act(y + b.to(F32)), out_ptr)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise and k x k conv.
+# ---------------------------------------------------------------------------
+
+def ring_conv_dw(pool, w, b, *, h_in: int, w_in: int, h_out: int,
+                 w_out: int, c: int, rs: int = 3, stride: int = 1,
+                 padding: str = "same", in_ptr: int = 0, out_ptr: int = 0,
+                 activation: str | None = None):
+    """Fp32 depthwise RSxRS conv inside the ring; ``w`` is ``[rs, rs, c]``
+    (replaces ``ring_conv_dw``, ``src/repro/kernels/conv2d.py:225``)."""
+    n_seg = pool.shape[0]
+    _check_rows(n_seg, w_in, w_out, c, c, in_ptr, out_ptr)
+    check_cuda(pool, _weights(w, b, (rs, rs, c), c), dtype=F32)
+    ring_conv_dw.weights_staged = launch(
+        "ring_conv_dw", pool, 4 * (rs * w_in * c + c), (w, b),
+        (n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
+         conv_k2d_pad(rs, padding), conv_k2d_pad_w(rs, padding),
+         in_ptr % n_seg, out_ptr % n_seg, act_code(activation)),
+        w_bytes=4 * rs * rs * c)
+    ring_conv_dw.launches += 1
+    return pool
+
+
+def ring_conv_dw_plain(pool, w, b, *, h_in: int, w_in: int, h_out: int,
+                       w_out: int, c: int, rs: int = 3, stride: int = 1,
+                       padding: str = "same", in_ptr: int = 0,
+                       out_ptr: int = 0, activation: str | None = None):
+    """Plain version of :func:`ring_conv_dw` (``conv_dw_ring``)."""
+    _check_rows(pool.shape[0], w_in, w_out, c, c, in_ptr, out_ptr)
+    act = resolve_activation(activation)
+    img = _fetch_image(pool, in_ptr, h_in, w_in, c)
+    acc = torch.zeros((h_out, w_out, c), dtype=F32, device=pool.device)
+    for r, s, tap in _taps(img, h_out, w_out, rs, stride, padding):
+        acc = acc + tap * w[r, s].to(F32)
+    return _store_image(pool, act(acc + b.to(F32)), out_ptr)
+
+
+def ring_conv_k2d(pool, w, b, *, h_in: int, w_in: int, h_out: int,
+                  w_out: int, c_in: int, c_out: int, k: int = 3,
+                  stride: int = 1, padding: str = "same", in_ptr: int = 0,
+                  out_ptr: int = 0, activation: str | None = None):
+    """Fp32 k x k conv ``[h_in, w_in, c_in] -> [h_out, w_out, c_out]``
+    inside the ring; ``w`` is ``[k, k, c_in, c_out]`` (replaces
+    ``ring_conv_k2d``, ``src/repro/kernels/conv2d.py:336``)."""
+    n_seg = pool.shape[0]
+    _check_rows(n_seg, w_in, w_out, c_in, c_out, in_ptr, out_ptr)
+    check_cuda(pool, _weights(w, b, (k, k, c_in, c_out), c_out), dtype=F32)
+    ring_conv_k2d.weights_staged = launch(
+        "ring_conv_k2d", pool, 4 * (k * w_in * c_in + c_out), (w, b),
+        (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
+         conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding),
+         in_ptr % n_seg, out_ptr % n_seg, act_code(activation)),
+        w_bytes=4 * k * k * c_in * c_out)
+    ring_conv_k2d.launches += 1
+    return pool
+
+
+def ring_conv_k2d_plain(pool, w, b, *, h_in: int, w_in: int, h_out: int,
+                        w_out: int, c_in: int, c_out: int, k: int = 3,
+                        stride: int = 1, padding: str = "same",
+                        in_ptr: int = 0, out_ptr: int = 0,
+                        activation: str | None = None):
+    """Plain version of :func:`ring_conv_k2d` (``conv_k2d_ring``)."""
+    _check_rows(pool.shape[0], w_in, w_out, c_in, c_out, in_ptr, out_ptr)
+    act = resolve_activation(activation)
+    img = _fetch_image(pool, in_ptr, h_in, w_in, c_in)
+    acc = torch.zeros((h_out, w_out, c_out), dtype=F32, device=pool.device)
+    for r, s, tap in _taps(img, h_out, w_out, k, stride, padding):
+        acc = acc + torch.einsum("hwc,cd->hwd", tap, w[r, s].to(F32))
+    return _store_image(pool, act(acc + b.to(F32)), out_ptr)
+
+
+# ---------------------------------------------------------------------------
+# Residual add.
+# ---------------------------------------------------------------------------
+
+def ring_add(pool, *, rows: int, d: int, in_ptr: int, aux_ptr: int,
+             out_ptr: int, activation: str | None = None):
+    """``Out[t] = act(In[t] + Res[t])`` over ``rows`` pixel rows, the
+    residual read from the held rows at ``aux_ptr`` (replaces
+    ``ring_add``, ``src/repro/kernels/conv2d.py:432``)."""
+    n_seg = pool.shape[0]
+    _check_add(n_seg, d, in_ptr, aux_ptr, out_ptr)
+    check_cuda(pool, dtype=F32)
+    # A step reads as many rows of both operands as shared memory holds
+    # (at least one: a row too wide for it fails launch's check).
+    row_bytes = 2 * 4 * d
+    tile_rows = min(rows, max(1, MAX_SMEM // row_bytes))
+    launch("ring_add", pool, tile_rows * row_bytes, (),
+           (n_seg, rows, d, in_ptr % n_seg, aux_ptr % n_seg,
+            out_ptr % n_seg, act_code(activation), tile_rows))
+    ring_add.launches += 1
+    return pool
+
+
+def ring_add_plain(pool, *, rows: int, d: int, in_ptr: int, aux_ptr: int,
+                   out_ptr: int, activation: str | None = None):
+    """Plain version of :func:`ring_add` (``add_ring``)."""
+    _check_add(pool.shape[0], d, in_ptr, aux_ptr, out_ptr)
+    act = resolve_activation(activation)
+    x = fetch_rows(pool, in_ptr, rows, d).to(F32)
+    res = fetch_rows(pool, aux_ptr, rows, d).to(F32)
+    stage_rows(pool, act(x + res), out_ptr)
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# Global average pool.
+# ---------------------------------------------------------------------------
+
+def ring_avgpool(pool, *, h: int, w: int, c: int, in_ptr: int,
+                 out_ptr: int):
+    """Global average pool ``[h, w, c] -> [1, c]`` in the ring: fp32 sums,
+    one division by ``h * w``, one output row stored after every read
+    (replaces ``ring_avgpool``, ``src/repro/kernels/conv2d.py:514``)."""
+    n_seg = pool.shape[0]
+    _check_avgpool(n_seg, w, c, in_ptr, out_ptr)
+    check_cuda(pool, dtype=F32)
+    # fp32 column sums, then as many pixels per step as the rest holds
+    # (at least one, as for the add).
+    chunk_pix = min(h * w, max(1, MAX_SMEM // (4 * c) - 1))
+    launch("ring_avgpool", pool, 4 * c * (1 + chunk_pix), (),
+           (n_seg, h, w, c, in_ptr % n_seg, out_ptr % n_seg, chunk_pix))
+    ring_avgpool.launches += 1
+    return pool
+
+
+def ring_avgpool_plain(pool, *, h: int, w: int, c: int, in_ptr: int,
+                       out_ptr: int):
+    """Plain version of :func:`ring_avgpool` (``pool_avg_ring``)."""
+    _check_avgpool(pool.shape[0], w, c, in_ptr, out_ptr)
+    img = _fetch_image(pool, in_ptr, h, w, c)
+    stage_rows(pool, torch.mean(img, dim=(0, 1))[None, :], out_ptr)
+    return pool
+
+
+#: The wrappers, by name (what the CUDA executor launches) ...
+KERNELS = {f.__name__: f for f in (ring_conv_pw, ring_conv_dw,
+                                   ring_conv_k2d, ring_add, ring_avgpool)}
+#: ... and their plain versions under the same names.
+PLAIN = {name: globals()[f"{name}_plain"] for name in KERNELS}
+
+for _f in KERNELS.values():
+    _f.launches = 0
+    _f.weights_staged = None

@@ -1,0 +1,430 @@
+// Fp32 segment-ring kernels for Hopper (sm_90a), bound to Python with ctypes.
+//
+// Each kernel replaces one Pallas TPU kernel of src/repro/kernels/:
+//
+//   ring_gemm     <- ring_gemm     (segment_matmul.py:117)  ring FC, Fig. 4
+//   ring_conv_pw  <- ring_conv_pw  (conv2d.py:108)          1x1 conv
+//   ring_conv_dw  <- ring_conv_dw  (conv2d.py:225)          depthwise rs x rs conv
+//   ring_conv_k2d <- ring_conv_k2d (conv2d.py:336)          k x k conv
+//   ring_add      <- ring_add      (conv2d.py:432)          residual add
+//   ring_avgpool  <- ring_avgpool  (conv2d.py:514)          global average pool
+//
+// They are the fp32 twins of the int8 kernels of ring_q.cu and keep their
+// ring order.  The pool is one float tensor [n_seg, 128]: a tensor of c-wide
+// rows takes ceil(c / 128) consecutive segments per row, and every segment
+// address is taken modulo n_seg.  Every op writes its output rows into the
+// ring it reads, often over input rows it has already consumed; the plan is
+// certified clobber-free only for the TPU's sequential grid, where no store
+// of step i moves ahead of a read of an earlier step.  Blocks of a CUDA grid
+// run in no order, so each op runs as ONE thread block that walks the steps
+// in plan order:
+//
+//   load the step's input rows into shared memory   (ring load, modulo n_seg)
+//   __syncthreads()
+//   fp32 FMA dot -> + bias -> activation             (threads over live outputs)
+//   store the step's output rows                     (ring store, modulo n_seg)
+//   __syncthreads()                                  (stores visible before the next load)
+//
+// Every element address is taken modulo n_seg on its own, so a step's run of
+// segments that wraps the ring is handled segment by segment.  Shared memory
+// holds only the live channels of each row (c of its segs(c) * 128 floats),
+// so a 16-channel image row costs 64 bytes a pixel and not 512; threads run
+// over the live outputs only, and the channel tails (c .. segs(c) * 128) are
+// stored as exact zeros after them, as the reference's jnp.pad does.
+//
+// What bounds these kernels on the card: bytes and operations are tiny
+// (ResNet-8's largest conv is 4.7 MFLOP over about 0.2 MB), so the bound is
+// a few microseconds at most; what the serial walk costs is latency, one SM and
+// one barrier pair per step.  Against that latency each op stages its bias,
+// and its weights when they fit beside the step's input tile, into shared
+// memory once; the wrappers (kernels/segment_matmul.py, kernels/conv2d.py)
+// size shared memory and pass that choice (`stage_w`), the add's `tile_rows`
+// and the pool's `chunk_pix`.  A wavefront of steps bounded by the op's
+// solved delta, cp.async/TMA prefetch and tensor-core products are later
+// work.
+//
+// Numerics: fp32 FMA accumulation over the reduction in its natural order
+// (taps row-major, then input channels), then the bias, then the activation
+// of core/program.py::ACTIVATIONS with precise expf/tanhf (gelu is the tanh
+// approximation, the reference's default).  No fast math, no TF32.  The
+// average pool sums in fp32 and divides once by h * w (IEEE division).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int SEG = 128;              // floats per segment
+constexpr int THREADS = 1024;
+
+enum Activation { IDENTITY = 0, RELU = 1, GELU = 2, SILU = 3, SQUARE = 4 };
+
+__host__ __device__ __forceinline__ int segs_for(int c) {
+  return (c + SEG - 1) / SEG;
+}
+
+__device__ __forceinline__ float activate(float x, int act) {
+  switch (act) {
+    case RELU:
+      return fmaxf(x, 0.f);
+    case GELU: {
+      const float k0 = 0.7978845608028654f;   // sqrt(2 / pi)
+      const float cdf = 0.5f * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
+      return x * cdf;
+    }
+    case SILU:
+      return x * (1.f / (1.f + expf(-x)));
+    case SQUARE:
+      return x * x;
+    default:
+      return x;
+  }
+}
+
+// Index into the pool of channel `col` of row `row` of a run of rows that
+// are `chunk` segments long and start at ring segment `ptr`.  (Pointers are
+// normalized into [0, n_seg) by the wrappers and no run is longer than the
+// ring, so segment numbers stay well inside int32.)
+__device__ __forceinline__ size_t ring_index(int ptr, int row, int col,
+                                             int chunk, int n_seg) {
+  return (size_t)((ptr + row * chunk + col / SEG) % n_seg) * SEG + col % SEG;
+}
+
+// Copy the `d` live channels of `n` rows starting at ring segment `ptr` into
+// dst[n * d] in shared memory.
+__device__ __forceinline__ void load_rows(float* dst, const float* pool,
+                                          int ptr, int n, int d, int chunk,
+                                          int n_seg) {
+  for (int j = threadIdx.x; j < n * d; j += blockDim.x) {
+    const int row = j / d, col = j - row * d;
+    dst[j] = pool[ring_index(ptr, row, col, chunk, n_seg)];
+  }
+}
+
+// Store zeros in the channel tails (lanes d .. chunk * SEG) of `n` rows.
+__device__ __forceinline__ void zero_tails(float* pool, int ptr, int n,
+                                           int d, int chunk, int n_seg) {
+  const int tail = chunk * SEG - d;
+  for (int j = threadIdx.x; j < n * tail; j += blockDim.x) {
+    const int row = j / tail, col = d + (j - row * tail);
+    pool[ring_index(ptr, row, col, chunk, n_seg)] = 0.f;
+  }
+}
+
+// An op's weights and bias, wherever they are read from.
+struct Params {
+  const float* w;
+  const float* b;
+};
+
+// Stage the bias (and the weights, when `stage_w`) into shared memory at
+// `dst`.  Read only after the first step's __syncthreads().
+__device__ __forceinline__ Params stage_params(float* dst,
+                                               const float* __restrict__ w,
+                                               int w_len,
+                                               const float* __restrict__ b,
+                                               int c_out, int stage_w) {
+  for (int i = threadIdx.x; i < c_out; i += blockDim.x) dst[i] = b[i];
+  if (!stage_w) return {w, dst};
+  float* ws = dst + c_out;
+  for (int i = threadIdx.x; i < w_len; i += blockDim.x) ws[i] = w[i];
+  return {ws, dst};
+}
+
+// ---------------------------------------------------------------------------
+// FC: m_rows rows, block_rows rows per step; w [d_in, d_out].
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+gemm_f32_kernel(float* pool, const float* __restrict__ w,
+                const float* __restrict__ b, int n_seg, int m_rows, int d_in,
+                int d_out, int block_rows, int in_ptr, int out_ptr, int act,
+                int stage_w) {
+  extern __shared__ float smem[];
+  float* x = smem;                                  // [block_rows, d_in]
+  const int ksegs = segs_for(d_in), nsegs = segs_for(d_out);
+  const Params prm = stage_params(x + block_rows * d_in, w, d_in * d_out, b,
+                                  d_out, stage_w);
+  for (int i = 0; i < m_rows / block_rows; ++i) {
+    const int dst = (out_ptr + i * block_rows * nsegs) % n_seg;
+    load_rows(x, pool, (in_ptr + i * block_rows * ksegs) % n_seg, block_rows,
+              d_in, ksegs, n_seg);
+    __syncthreads();
+    for (int j = threadIdx.x; j < block_rows * d_out; j += blockDim.x) {
+      const int r = j / d_out, co = j - r * d_out;
+      const float* xr = x + r * d_in;
+      float acc = 0.f;
+      for (int k = 0; k < d_in; ++k)
+        acc = fmaf(xr[k], prm.w[k * d_out + co], acc);
+      pool[ring_index(dst, r, co, nsegs, n_seg)] =
+          activate(acc + prm.b[co], act);
+    }
+    zero_tails(pool, dst, block_rows, d_out, nsegs, n_seg);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 1x1 conv: row_block output image rows per step (identity pixel map), or one
+// row with strided / resampled source rows and columns; w [c_in, c_out].
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+conv_pw_f32_kernel(float* pool, const float* __restrict__ w,
+                   const float* __restrict__ b, int n_seg, int h_in, int w_in,
+                   int h_out, int w_out, int c_in, int c_out, int stride,
+                   int resample, int row_block, int in_ptr, int out_ptr,
+                   int act, int stage_w) {
+  extern __shared__ float smem[];
+  float* x = smem;                            // [row_block * w_in, c_in]
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int in_row = w_in * ksegs;            // segments per source image row
+  const int in_pix = row_block * w_in, out_pix = row_block * w_out;
+  const bool pick_cols = row_block == 1 && (stride != 1 || resample);
+  const Params prm = stage_params(x + in_pix * c_in, w, c_in * c_out, b,
+                                  c_out, stage_w);
+  for (int blk = 0; blk < h_out / row_block; ++blk) {
+    const int src = resample ? (blk * h_in) / h_out : blk * row_block * stride;
+    const int dst = (out_ptr + blk * out_pix * nsegs) % n_seg;
+    load_rows(x, pool, (in_ptr + src * in_row) % n_seg, in_pix, c_in, ksegs,
+              n_seg);
+    __syncthreads();
+    for (int j = threadIdx.x; j < out_pix * c_out; j += blockDim.x) {
+      const int m = j / c_out, co = j - m * c_out;
+      int pix = m;
+      if (pick_cols) pix = resample ? (m * w_in) / w_out : m * stride;
+      const float* xr = x + pix * c_in;
+      float acc = 0.f;
+      for (int k = 0; k < c_in; ++k)
+        acc = fmaf(xr[k], prm.w[k * c_out + co], acc);
+      pool[ring_index(dst, m, co, nsegs, n_seg)] =
+          activate(acc + prm.b[co], act);
+    }
+    zero_tails(pool, dst, out_pix, c_out, nsegs, n_seg);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// k x k conv and depthwise rs x rs conv share one step body: per output row,
+// the k halo rows (clamped into the image; taps outside it are masked).
+// ---------------------------------------------------------------------------
+template <bool DEPTHWISE>
+__device__ __forceinline__ void conv_kxk(
+    float* pool, const float* __restrict__ w, const float* __restrict__ b,
+    int n_seg, int h_in, int w_in, int h_out, int w_out, int c_in, int c_out,
+    int k, int stride, int pad_v, int pad_h, int in_ptr, int out_ptr, int act,
+    int stage_w) {
+  extern __shared__ float smem[];
+  float* x = smem;                                  // [k, w_in, c_in]
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int in_row = w_in * ksegs, out_row = w_out * nsegs;
+  const int w_len = DEPTHWISE ? k * k * c_in : k * k * c_in * c_out;
+  const Params prm = stage_params(x + k * w_in * c_in, w, w_len, b, c_out,
+                                  stage_w);
+  for (int p = 0; p < h_out; ++p) {
+    const int src0 = p * stride - pad_v;
+    for (int r = 0; r < k; ++r) {
+      int src = src0 + r;
+      src = src < 0 ? 0 : (src > h_in - 1 ? h_in - 1 : src);
+      load_rows(x + r * w_in * c_in, pool, (in_ptr + src * in_row) % n_seg,
+                w_in, c_in, ksegs, n_seg);
+    }
+    __syncthreads();
+    const int dst = (out_ptr + p * out_row) % n_seg;
+    for (int j = threadIdx.x; j < w_out * c_out; j += blockDim.x) {
+      const int q = j / c_out, co = j - q * c_out;
+      float acc = 0.f;
+      for (int r = 0; r < k; ++r) {
+        if (src0 + r < 0 || src0 + r >= h_in) continue;
+        for (int s = 0; s < k; ++s) {
+          const int col = q * stride - pad_h + s;
+          if (col < 0 || col >= w_in) continue;
+          const float* xr = x + (r * w_in + col) * c_in;
+          if (DEPTHWISE) {
+            acc = fmaf(xr[co], prm.w[(r * k + s) * c_in + co], acc);
+          } else {
+            const float* wc = prm.w + (r * k + s) * c_in * c_out + co;
+            for (int ci = 0; ci < c_in; ++ci)
+              acc = fmaf(xr[ci], wc[ci * c_out], acc);
+          }
+        }
+      }
+      pool[ring_index(dst, q, co, nsegs, n_seg)] =
+          activate(acc + prm.b[co], act);
+    }
+    zero_tails(pool, dst, w_out, c_out, nsegs, n_seg);
+    __syncthreads();
+  }
+}
+
+// Depthwise rs x rs conv: w [rs, rs, c].
+__global__ void __launch_bounds__(THREADS)
+conv_dw_f32_kernel(float* pool, const float* __restrict__ w,
+                   const float* __restrict__ b, int n_seg, int h_in, int w_in,
+                   int h_out, int w_out, int c, int rs, int stride, int pad_v,
+                   int pad_h, int in_ptr, int out_ptr, int act, int stage_w) {
+  conv_kxk<true>(pool, w, b, n_seg, h_in, w_in, h_out, w_out, c, c, rs,
+                 stride, pad_v, pad_h, in_ptr, out_ptr, act, stage_w);
+}
+
+// k x k conv: w [k, k, c_in, c_out].
+__global__ void __launch_bounds__(THREADS)
+conv_k2d_f32_kernel(float* pool, const float* __restrict__ w,
+                    const float* __restrict__ b, int n_seg, int h_in,
+                    int w_in, int h_out, int w_out, int c_in, int c_out, int k,
+                    int stride, int pad_v, int pad_h, int in_ptr, int out_ptr,
+                    int act, int stage_w) {
+  conv_kxk<false>(pool, w, b, n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k,
+                  stride, pad_v, pad_h, in_ptr, out_ptr, act, stage_w);
+}
+
+// ---------------------------------------------------------------------------
+// Residual add: act(x + r) over `rows` pixel rows of d channels at in_ptr and
+// at aux_ptr (the held residual), stored at out_ptr, often in place.  A step
+// takes `tile_rows` rows of both operands, all read before any is stored; a
+// certified plan stores no row onto one that a later step still reads, so
+// reading ahead of the stores leaves the sequential grid's pool (the
+// prefetch-before-store corollary).  Bound by its bytes.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+add_f32_kernel(float* pool, int n_seg, int rows, int d, int in_ptr,
+               int aux_ptr, int out_ptr, int act, int tile_rows) {
+  extern __shared__ float smem[];
+  const int chunk = segs_for(d);
+  float* x = smem;                                 // [tile_rows, d]
+  float* res = smem + (size_t)tile_rows * d;       // [tile_rows, d]
+  for (int t0 = 0; t0 < rows; t0 += tile_rows) {
+    const int n = min(tile_rows, rows - t0);
+    const int dst = (out_ptr + t0 * chunk) % n_seg;
+    load_rows(x, pool, (in_ptr + t0 * chunk) % n_seg, n, d, chunk, n_seg);
+    load_rows(res, pool, (aux_ptr + t0 * chunk) % n_seg, n, d, chunk, n_seg);
+    __syncthreads();
+    for (int j = threadIdx.x; j < n * d; j += blockDim.x) {
+      const int row = j / d, col = j - row * d;
+      pool[ring_index(dst, row, col, chunk, n_seg)] =
+          activate(x[j] + res[j], act);
+    }
+    zero_tails(pool, dst, n, d, chunk, n_seg);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Global average pool: fp32 column sums over h x w pixels, divided once by
+// h * w, one channel row stored after every read.  Nothing is stored before
+// the last read, so the pixels are read in chunks of `chunk_pix` as large as
+// shared memory allows (all of DS-CNN's and ResNet-8's at once).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+avgpool_f32_kernel(float* pool, int n_seg, int h, int w, int c, int in_ptr,
+                   int out_ptr, int chunk_pix) {
+  extern __shared__ float smem[];
+  const int segs = segs_for(c);
+  float* sums = smem;                              // [c]
+  float* x = smem + c;                             // [chunk_pix, c]
+  // thread j owns column j: sums[j] is only ever touched by its owner
+  for (int j = threadIdx.x; j < c; j += blockDim.x) sums[j] = 0.f;
+  for (int p0 = 0; p0 < h * w; p0 += chunk_pix) {
+    const int n = min(chunk_pix, h * w - p0);
+    load_rows(x, pool, (in_ptr + p0 * segs) % n_seg, n, c, segs, n_seg);
+    __syncthreads();
+    for (int j = threadIdx.x; j < c; j += blockDim.x) {
+      float acc = sums[j];
+      for (int pix = 0; pix < n; ++pix) acc += x[pix * c + j];
+      sums[j] = acc;
+    }
+    __syncthreads();
+  }
+  const float count = (float)(h * w);
+  for (int j = threadIdx.x; j < segs * SEG; j += blockDim.x)
+    pool[ring_index(out_ptr, 0, j, segs, n_seg)] = j < c ? sums[j] / count
+                                                         : 0.f;
+}
+
+// Shared memory of a conv/FC launch: the step's input tile and the bias and,
+// when the wrapper says they fit too, the weights (floats, 4 bytes each).
+size_t conv_smem(size_t x_len, size_t w_len, int c_out, int stage_w) {
+  return sizeof(float) * (x_len + (size_t)c_out + (stage_w ? w_len : 0));
+}
+
+// Launch one block with `smem` bytes of dynamic shared memory (above 48 KB
+// only after raising the kernel's limit) and report the launch's error code.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ring_f32_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int ring_gemm(void* pool, const void* w, const void* b, int n_seg, int m_rows,
+              int d_in, int d_out, int block_rows, int in_ptr, int out_ptr,
+              int act, int stage_w, void* stream) {
+  const size_t smem = conv_smem((size_t)block_rows * d_in,
+                                (size_t)d_in * d_out, d_out, stage_w);
+  return launch(gemm_f32_kernel, smem, stream, (float*)pool, (const float*)w,
+                (const float*)b, n_seg, m_rows, d_in, d_out, block_rows,
+                in_ptr, out_ptr, act, stage_w);
+}
+
+int ring_conv_pw(void* pool, const void* w, const void* b, int n_seg,
+                 int h_in, int w_in, int h_out, int w_out, int c_in,
+                 int c_out, int stride, int resample, int row_block,
+                 int in_ptr, int out_ptr, int act, int stage_w, void* stream) {
+  const size_t smem = conv_smem((size_t)row_block * w_in * c_in,
+                                (size_t)c_in * c_out, c_out, stage_w);
+  return launch(conv_pw_f32_kernel, smem, stream, (float*)pool,
+                (const float*)w, (const float*)b, n_seg, h_in, w_in, h_out,
+                w_out, c_in, c_out, stride, resample, row_block, in_ptr,
+                out_ptr, act, stage_w);
+}
+
+int ring_conv_dw(void* pool, const void* w, const void* b, int n_seg,
+                 int h_in, int w_in, int h_out, int w_out, int c, int rs,
+                 int stride, int pad_v, int pad_h, int in_ptr, int out_ptr,
+                 int act, int stage_w, void* stream) {
+  const size_t smem = conv_smem((size_t)rs * w_in * c, (size_t)rs * rs * c, c,
+                                stage_w);
+  return launch(conv_dw_f32_kernel, smem, stream, (float*)pool,
+                (const float*)w, (const float*)b, n_seg, h_in, w_in, h_out,
+                w_out, c, rs, stride, pad_v, pad_h, in_ptr, out_ptr, act,
+                stage_w);
+}
+
+int ring_conv_k2d(void* pool, const void* w, const void* b, int n_seg,
+                  int h_in, int w_in, int h_out, int w_out, int c_in,
+                  int c_out, int k, int stride, int pad_v, int pad_h,
+                  int in_ptr, int out_ptr, int act, int stage_w,
+                  void* stream) {
+  const size_t smem = conv_smem((size_t)k * w_in * c_in,
+                                (size_t)k * k * c_in * c_out, c_out, stage_w);
+  return launch(conv_k2d_f32_kernel, smem, stream, (float*)pool,
+                (const float*)w, (const float*)b, n_seg, h_in, w_in, h_out,
+                w_out, c_in, c_out, k, stride, pad_v, pad_h, in_ptr, out_ptr,
+                act, stage_w);
+}
+
+int ring_add(void* pool, int n_seg, int rows, int d, int in_ptr, int aux_ptr,
+             int out_ptr, int act, int tile_rows, void* stream) {
+  return launch(add_f32_kernel, 2 * sizeof(float) * (size_t)tile_rows * d,
+                stream, (float*)pool, n_seg, rows, d, in_ptr, aux_ptr,
+                out_ptr, act, tile_rows);
+}
+
+int ring_avgpool(void* pool, int n_seg, int h, int w, int c, int in_ptr,
+                 int out_ptr, int chunk_pix, void* stream) {
+  return launch(avgpool_f32_kernel,
+                sizeof(float) * (size_t)c * (1 + (size_t)chunk_pix), stream,
+                (float*)pool, n_seg, h, w, c, in_ptr, out_ptr, chunk_pix);
+}
+
+}  // extern "C"

@@ -31,10 +31,9 @@ import torch
 from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w, resample_src
 from ..core.vpool import SEG_WIDTH, fetch_rows, segments_for, stage_rows
 from ..quant.requant import act_i32, requantize, requantize_i32, wrap_i32
-
-#: Shared memory one thread block may use on Hopper (bytes).
-MAX_SMEM = 232_448
-
+from ._launch import MAX_SMEM
+from ._launch import check_cuda as _check_cuda
+from ._launch import launch as _launch
 
 def _segs(d: int) -> int:
     return segments_for(d, SEG_WIDTH)
@@ -92,61 +91,10 @@ def _check_avgpool(n_seg, w, c, in_ptr, out_ptr):
 # Launching.
 # ---------------------------------------------------------------------------
 
-def _check_cuda(pool, tensors=()):
-    """Validate the pool and ``(name, tensor, dtype, shape)`` operands
-    before their pointers go to the kernel."""
-    if not isinstance(pool, torch.Tensor) or pool.device.type != "cuda":
-        raise ValueError("the ring kernels run on CUDA tensors only; got a "
-                         f"pool on {getattr(pool, 'device', type(pool))} "
-                         "(the CPU path uses the *_plain versions)")
-    if pool.dtype != torch.int8 or pool.ndim != 2 \
-            or pool.shape[1] != SEG_WIDTH or not pool.is_contiguous():
-        raise ValueError(f"pool must be a contiguous int8 "
-                         f"[n_segments, {SEG_WIDTH}] tensor, got "
-                         f"{pool.dtype} {tuple(pool.shape)}")
-    if pool.data_ptr() % 16:
-        raise ValueError("pool must be 16-byte aligned")
-    for name, t, dtype, shape in tensors:
-        if not isinstance(t, torch.Tensor) or t.device != pool.device:
-            raise ValueError(f"{name} must be a tensor on {pool.device}")
-        if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} "
-                             f"{tuple(shape)} tensor, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-
-
 def _per_channel(w, b, mult, shift, w_shape, c_out):
     return (("w", w, torch.int8, w_shape), ("b", b, torch.int32, (c_out,)),
             ("mult", mult, torch.int32, (c_out,)),
             ("shift", shift, torch.int32, (c_out,)))
-
-
-def _launch(name: str, pool: torch.Tensor, smem: int, tensors, ints,
-            w_bytes: int | None = None) -> bool | None:
-    """Launch ``name`` on ``pool``'s device and current stream.  ``smem``
-    is the shared memory a step needs without the weights.  Given
-    ``w_bytes``, the weights are staged too when they fit beside it: the
-    kernel gets that choice as its last int, and it is returned."""
-    if smem > MAX_SMEM:
-        raise ValueError(f"{name} needs {smem} B of shared memory per "
-                         f"block, above the card's {MAX_SMEM} B")
-    staged = None
-    if w_bytes is not None:
-        staged = smem + w_bytes <= MAX_SMEM
-        ints = (*ints, int(staged))
-    from ._build import library
-
-    lib, _ = library()
-    with torch.cuda.device(pool.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(pool.data_ptr(),
-                                 *(t.data_ptr() for t in tensors),
-                                 *ints, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.ring_q_error_string(err).decode()})")
-    return staged
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,17 @@ not on the card.  Run this file as a script to rewrite them all:
 
     PYTHONPATH=src python tests/test_torch_assets.py
 
-The artifacts are the reference's ``CompiledNet.save`` without the fp32
-``params`` entry: the port serves int8 only and never reads it.  Three
-kinds of asset:
+The int8 artifacts are the reference's ``CompiledNet.save`` without the
+fp32 ``params`` entry, which an int8 plan never reads.  Four kinds of
+asset:
 
-  * main-path nets (``NETS``): the golden holds the float outputs, int8
-    outputs and final-pool sha256 of 8 inputs;
+  * main-path int8 nets (``NETS``): the golden holds the float outputs,
+    int8 outputs and final-pool sha256 of 8 inputs;
+  * main-path fp32 nets (``FLOAT_NETS``, compiled for ``host-sim``): the
+    artifact is the reference's ``save()`` output with its fp32
+    ``params``; the golden holds 8 inputs and the reference's
+    ``run(x, backend="pallas")`` outputs for them (Pallas in interpret
+    mode).  fp32 pools are compared by tolerance, so no pool hash;
   * streaming plans (``STREAMS``): ``ds-cnn-stream`` is
     ``repro.compile("ds-cnn", streaming=True)``; ``kws-gru-chain`` is the
     conv_stream -> avgpool -> GRU program of ``tests/test_stream.py`` at
@@ -46,6 +51,8 @@ ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
 TARGET = "cortex-m4"
 NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+FLOAT_TARGET = "host-sim"
+FLOAT_NETS = ("ds-cnn", "resnet-8")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 N_INPUTS, N_FRAMES = 8, 60
 #: Keys of a saved artifact that vary from compile to compile (timings).
@@ -58,6 +65,14 @@ def artifact_path(name: str) -> pathlib.Path:
 
 def golden_path(name: str) -> pathlib.Path:
     return ASSETS / f"{name}.{TARGET}.int8.golden.npz"
+
+
+def float_artifact_path(name: str) -> pathlib.Path:
+    return ASSETS / f"{name}.{FLOAT_TARGET}.float32.json"
+
+
+def float_golden_path(name: str) -> pathlib.Path:
+    return ASSETS / f"{name}.{FLOAT_TARGET}.float32.golden.npz"
 
 
 def _chain_params():
@@ -95,13 +110,15 @@ def compile_reference(name: str) -> RefCompiledNet:
     return repro.compile(name, TARGET)
 
 
-def artifact_payload(cn: RefCompiledNet) -> dict:
-    """What ``cn.save`` writes, without the fp32 ``params``."""
+def artifact_payload(cn: RefCompiledNet, *, params: bool = False) -> dict:
+    """What ``cn.save`` writes, without the fp32 ``params`` unless
+    ``params``."""
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "a.json"
         cn.save(str(path))
         payload = json.loads(path.read_text())
-    del payload["params"]
+    if not params:
+        del payload["params"]
     return payload
 
 
@@ -150,12 +167,24 @@ def reference_golden(name: str, cn: RefCompiledNet) -> dict:
     return stream_golden(cn) if name in STREAMS else net_golden(cn)
 
 
-def write_assets(names=NETS + STREAMS) -> None:
+def float_golden(cn: RefCompiledNet) -> dict:
+    """8 seeded inputs and the reference's Pallas outputs for them."""
+    x = golden_inputs(cn.program, N_INPUTS)
+    y = np.stack([np.asarray(cn.run(xi, backend="pallas")) for xi in x])
+    return {"x": x, "y": y}
+
+
+def write_assets(names=NETS + STREAMS, float_names=FLOAT_NETS) -> None:
     ASSETS.mkdir(parents=True, exist_ok=True)
     for name in names:
         cn = compile_reference(name)
         artifact_path(name).write_text(json.dumps(artifact_payload(cn)))
         np.savez(golden_path(name), **reference_golden(name, cn))
+    for name in float_names:
+        cn = repro.compile(name, FLOAT_TARGET)
+        float_artifact_path(name).write_text(
+            json.dumps(artifact_payload(cn, params=True)))
+        np.savez(float_golden_path(name), **float_golden(cn))
 
 
 @pytest.fixture(scope="module")
@@ -193,6 +222,45 @@ def test_golden_matches_a_fresh_reference_run(name, fresh):
     assert want["y"].shape[0] == n
 
 
+@pytest.fixture(scope="module")
+def fresh_float():
+    """A fresh reference ``host-sim`` compile of every fp32 asset, and
+    its golden, each made once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cn = repro.compile(name, FLOAT_TARGET)
+            cache[name] = cn, float_golden(cn)
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("name", FLOAT_NETS)
+def test_float_artifact_matches_a_fresh_compile(name, fresh_float):
+    have = json.loads(float_artifact_path(name).read_text())
+    want = artifact_payload(fresh_float(name)[0], params=True)
+    assert have["dtype"] == "float32" and have["quant"] is None
+    assert sorted(have) == sorted(want)
+    for key in sorted(set(want) - set(TIMED)):
+        assert have[key] == want[key], key
+
+
+@pytest.mark.parametrize("name", FLOAT_NETS)
+def test_float_golden_matches_a_fresh_reference_run(name, fresh_float):
+    """The inputs are the seeded ones and the outputs the reference's
+    Pallas outputs for them (to the fp32 tolerance: the golden was
+    written in another process)."""
+    want = fresh_float(name)[1]
+    with np.load(float_golden_path(name)) as have:
+        assert sorted(have.files) == ["x", "y"]
+        np.testing.assert_array_equal(have["x"], want["x"])
+        scale = float(np.abs(want["y"]).max())
+        np.testing.assert_allclose(have["y"], want["y"], rtol=3e-4,
+                                   atol=3e-5 * scale)
+    assert want["y"].shape[0] == N_INPUTS and np.isfinite(want["y"]).all()
+
+
 def test_stream_assets_hold_state_and_every_stream_kind(fresh):
     kinds = {op.kind for name in STREAMS
              for op in fresh(name).program.ops}
@@ -206,4 +274,5 @@ def test_stream_assets_hold_state_and_every_stream_kind(fresh):
 
 if __name__ == "__main__":
     write_assets()
-    print(f"wrote the artifacts and goldens of {NETS + STREAMS} in {ASSETS}")
+    print(f"wrote the artifacts and goldens of {NETS + STREAMS} and of "
+          f"the fp32 {FLOAT_NETS} in {ASSETS}")

@@ -1,6 +1,7 @@
 """The port on a CUDA card: each hand-written kernel against its plain
-version, and the served and streaming paths against the reference's
-goldens.
+version (int8 bitwise, fp32 within the tolerance of
+``repro_torch.kernels.cases.compare_f32``, with TF32 off), and the
+served and streaming paths against the reference's goldens.
 
 These tests import neither JAX nor the reference package, so they run
 on a machine that has only PyTorch and the CUDA toolkit:
@@ -21,8 +22,11 @@ from repro_torch.compile.artifact import to_device
 from repro_torch.core.executors import run_program
 from repro_torch.kernels import (KERNELS, PLAIN, launch_counts,
                                  reset_launch_counts)
-from repro_torch.kernels.cases import (EDGE_CASES, case_inputs,
-                                       program_cases)
+from repro_torch.kernels.cases import (ATOL_REL, EDGE_CASES,
+                                       F32_EDGE_CASES, RTOL, case_inputs,
+                                       compare_f32, live_lanes,
+                                       output_region, plain_pool,
+                                       program_cases, program_live_lanes)
 from repro_torch.quant.qtensor import QParams, quantize
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -48,11 +52,35 @@ def _program_cases(name):
 
 
 CASES = EDGE_CASES + sum((_program_cases(n) for n in NETS + STREAMS), ())
+FLOAT_NETS = ("ds-cnn", "resnet-8")
+
+
+def _float_artifact(name):
+    return ASSETS / f"{name}.host-sim.float32.json"
+
+
+def _float_golden(name):
+    with np.load(ASSETS / f"{name}.host-sim.float32.golden.npz") as g:
+        return {k: g[k] for k in g.files}
+
+
+def _float_program_cases(name):
+    cn = load(_float_artifact(name))
+    return program_cases(cn.program, cn.params,
+                         kernel_block_rows=cn.target.kernel_block_rows,
+                         prefix=f"{name}_f32_")
+
+
+F32_CASES = F32_EDGE_CASES + sum((_float_program_cases(n)
+                                  for n in FLOAT_NETS), ())
 
 
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the plain versions' products must not run in TF32 on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 @pytest.mark.gpu
@@ -130,3 +158,59 @@ def test_stream_equals_golden_on_card(name):
         == STREAM_LAUNCHES[name]
     sha = hashlib.sha256(s.pool.array.cpu().numpy().tobytes()).hexdigest()
     assert sha == str(golden["pool_sha256"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", F32_CASES, ids=lambda c: c.name)
+def test_fp32_cuda_kernel_matches_plain_on_card(case):
+    _need_card()
+    pool, params = case_inputs(case, seed=0)
+    cuda_params = [torch.from_numpy(a).cuda() for a in params]
+    want = torch.from_numpy(pool).cuda()
+    PLAIN[case.kernel](want, *cuda_params, **case.kwargs)
+    got = torch.from_numpy(pool).cuda()
+    KERNELS[case.kernel](got, *cuda_params, **case.kwargs)
+    torch.cuda.synchronize()
+    live = live_lanes(case.n_seg, [output_region(case.kernel, case.kwargs)])
+    err, bad = compare_f32(got.cpu().numpy(), want.cpu().numpy(), live)
+    assert bad is None, bad
+
+
+#: Launches of ``run`` on the 8 golden inputs of the fp32 plans.
+FLOAT_LAUNCHES = {
+    "ds-cnn": {"ring_gemm": 8, "ring_conv_pw": 32, "ring_conv_dw": 32,
+               "ring_conv_k2d": 8, "ring_avgpool": 8},
+    "resnet-8": {"ring_gemm": 8, "ring_conv_pw": 16, "ring_conv_k2d": 56,
+                 "ring_add": 24, "ring_avgpool": 8},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FLOAT_NETS)
+def test_fp32_served_main_path_matches_golden_on_card(name):
+    """The fp32 plan through its six CUDA kernels: outputs within the
+    tolerance of the golden, and each final pool within it of the final
+    pool the plain versions leave on the card, channel tails zero."""
+    _need_card()
+    cn, golden = load(_float_artifact(name)), _float_golden(name)
+    reset_launch_counts()
+    y = cn.run(golden["x"])
+    torch.cuda.synchronize()
+    assert y.device.type == "cuda"
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == FLOAT_LAUNCHES[name]
+    scale = float(np.abs(golden["y"]).max())
+    np.testing.assert_allclose(y.cpu().numpy(), golden["y"], rtol=RTOL,
+                               atol=ATOL_REL * scale)
+    params = to_device(cn.params, "cuda")
+    kbr = cn.target.kernel_block_rows
+    live = program_live_lanes(cn.program, cn.params, kernel_block_rows=kbr)
+    for x in golden["x"][:2]:
+        _, pool = run_program(cn.program, torch.from_numpy(x).cuda(),
+                              params, kernel_block_rows=kbr)
+        want = plain_pool(cn.program, torch.from_numpy(x).cuda(),
+                          cn.params, kernel_block_rows=kbr)
+        got = pool.array.cpu().numpy()
+        err, bad = compare_f32(got, want.cpu().numpy(), live)
+        assert bad is None, bad
+        assert not got[~live].any()

@@ -32,7 +32,8 @@ def _imports(path: pathlib.Path):
 def test_sources_exist():
     names = {p.name for p in SOURCES}
     assert {"chip_smoke.py", "quantized.py", "stream.py", "session.py",
-            "executors.py", "driver.py"} <= names
+            "executors.py", "driver.py", "segment_matmul.py", "conv2d.py",
+            "_launch.py", "cases.py", "run.py", "program.py"} <= names
     assert all(p.exists() for p in SOURCES)
 
 
@@ -61,6 +62,10 @@ assert np.array_equal(y.numpy(), want)
 cn = repro_torch.load(assets + "/resnet-8.cortex-m4.int8.json")
 with np.load(assets + "/resnet-8.cortex-m4.int8.golden.npz") as g:
     assert np.array_equal(cn.run(g["x"][0], device="cpu").numpy(), g["y"][0])
+cn = repro_torch.load(assets + "/resnet-8.host-sim.float32.json")
+with np.load(assets + "/resnet-8.host-sim.float32.golden.npz") as g:
+    y, want = cn.run(g["x"][0], device="cpu").numpy(), g["y"][0]
+    assert np.allclose(y, want, rtol=3e-4, atol=3e-5 * np.abs(want).max())
 s = repro_torch.load(assets + "/kws-gru-chain.cortex-m4.int8.json").stream(
     device="cpu")
 with np.load(assets + "/kws-gru-chain.cortex-m4.int8.golden.npz") as g:

@@ -81,8 +81,10 @@ def test_ds_cnn_cases_cover_every_op_and_all_five_kernels():
 
 
 def test_cases_cover_all_eight_kernels_and_resnet_8():
-    assert {c.kernel for c in CASES} == set(KERNELS) == set(PLAIN)
-    assert len(KERNELS) == 8
+    int8 = {name for name in KERNELS if name.endswith("_q")}
+    assert {c.kernel for c in CASES} == int8
+    assert set(KERNELS) == set(PLAIN)
+    assert len(int8) == 8
     assert len(RESNET_CASES) == 14
     assert sum(c.kernel == "ring_add_q" for c in RESNET_CASES) == 3
     assert {c.kernel for c in STREAM_CASES} == {"ring_conv_stream_q",
@@ -178,20 +180,26 @@ def test_wrapping_state_is_refused_like_the_reference(case):
 
 
 def test_ctypes_signatures_match_the_cuda_entry_points():
-    """Every ``extern "C"`` launcher of ``ring_q.cu`` takes the pointers
-    and ints that ``_build.SIGNATURES`` declares, in that order (ctypes
-    would pass a wrong count silently)."""
+    """Every ``extern "C"`` launcher of ``ring_q.cu`` and ``ring_f32.cu``
+    takes the pointers and ints that ``_build.SIGNATURES`` declares, in
+    that order (ctypes would pass a wrong count silently), and each
+    source names its error codes."""
     import re
 
     from repro_torch.kernels import _build
 
-    text = _build.SOURCE.read_text()
-    text = text[text.index('extern "C" {'):]
-    found = {}
-    for name, args in re.findall(r"^int (ring_\w+)\(([^)]*)\)", text,
-                                 re.MULTILINE):
-        found[name] = ["P" if "*" in a else "I" for a in args.split(",")]
-    declared = {name: ["P" if t is _build._P else "I" for t in argtypes]
-                for name, argtypes in _build.SIGNATURES.items()}
-    assert found == declared
-    assert set(declared) == set(KERNELS)
+    every = set()
+    for stem, entries in _build.SIGNATURES.items():
+        text = _build.source(stem).read_text()
+        text = text[text.index('extern "C" {'):]
+        assert f"const char* {stem}_error_string(int err)" in text
+        found = {}
+        for name, args in re.findall(r"^int (ring_\w+)\(([^)]*)\)", text,
+                                     re.MULTILINE):
+            found[name] = ["P" if "*" in a else "I"
+                           for a in args.split(",")]
+        declared = {name: ["P" if t is _build._P else "I" for t in argtypes]
+                    for name, argtypes in entries.items()}
+        assert found == declared, stem
+        every |= set(declared)
+    assert every == set(KERNELS)
