@@ -16,30 +16,37 @@ Phases, one summary line each:
      card, with TF32 off: the eight int8 kernels bitwise, on every op of
      the five committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
      the DS-CNN stream and the GRU chain) and on the int8 edge cases of
-     ``repro_torch.kernels.cases``; the six fp32 kernels within the
+     ``repro_torch.kernels.cases``; the nine fp32 kernels within the
      tolerance of ``cases.compare_f32`` (channel tails and unwritten
-     lanes exact), on every op of the two fp32 ``host-sim`` plans
-     (DS-CNN, ResNet-8) and on the fp32 edge cases; and which ops read
-     their weights from global memory (too large for shared);
+     lanes exact), on every op of the five fp32 ``host-sim`` plans
+     (DS-CNN, ResNet-8, MCUNet-5fps-VWW, the DS-CNN stream, the GRU
+     chain) and on the fp32 edge cases; and which ops read their weights
+     from global memory (too large for shared, or used once);
   3. the paths, each with the launch counts set to 0 just before it and
      read just after:
        * ``repro_torch.load(artifact).run(x)`` on the int8 DS-CNN,
          ResNet-8 and MCUNet-5fps-VWW for the 8 golden inputs, batched
          and one by one; float outputs, int8 outputs and final-pool
          sha256 equal the golden that the reference wrote;
-       * the same on the fp32 DS-CNN and ResNet-8: outputs within the
-         tolerance of the reference's golden and of the plain
-         ``reference_forward``, each final pool within it of the pool
-         the plain versions leave, channel tails exactly 0;
+       * the same on the fp32 DS-CNN, ResNet-8 and MCUNet-5fps-VWW:
+         outputs within the tolerance of the reference's golden and of
+         the plain ``reference_forward``, each final pool within it of
+         the pool the plain versions leave, channel tails exactly 0;
        * ``CompiledNet.stream().step(frame)`` on the DS-CNN stream and
          the GRU chain for 60 frames; every step's int8 output and the
          final pool's sha256 equal the golden;
+       * the same on the two fp32 streams: every step's output within
+         the tolerance of the golden, the last pool within it of the
+         pool the plain versions leave over the same frames (exact on
+         channel tails, unwritten lanes and the window's copy), and a
+         reset replaying the first step;
   4. timing: per-inference host-clock latency at batch 1 and 8 and
      per-step stream latency, the device-busy share of each path from
      ``torch.profiler``, and per kernel its CUDA-event time, its plain
      version's time, its bound and (fp32) the time of the PyTorch
      library call that computes the same op, at the shapes each path
-     gives it.
+     gives it (the fused bottleneck and the fp32 GRU cell against a
+     short sequence of calls, with the count stated).
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -64,8 +71,9 @@ ASSETS = ROOT / "src" / "repro_torch" / "assets"
 CSRC = "src/repro_torch/kernels/csrc"
 #: Plans served by ``run`` (int8 and fp32) and plans stepped by ``stream``.
 NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
-FLOAT_NETS = ("ds-cnn", "resnet-8")
+FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
+FLOAT_STREAMS = STREAMS
 #: An fp32 plan's label in the output (its int8 twin keeps the name).
 F32 = "-f32"
 
@@ -85,6 +93,9 @@ REPLACES = {
     "ring_conv_k2d": "src/repro/kernels/conv2d.py:336",
     "ring_add": "src/repro/kernels/conv2d.py:432",
     "ring_avgpool": "src/repro/kernels/conv2d.py:514",
+    "ring_inverted_bottleneck": "src/repro/kernels/inverted_bottleneck.py:107",
+    "ring_conv_stream": "src/repro/kernels/stream.py:142",
+    "ring_gru_cell": "src/repro/kernels/stream.py:350",
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -226,7 +237,28 @@ def work_f32(kernel: str, kw: dict) -> tuple[int, int]:
     :func:`work`, at 4 bytes per element (the bias, 4 bytes per output
     channel, is the only per-channel constant); 2 fp32 operations per
     multiply-accumulate at in-bounds taps, 1 per add or division and 1
-    per activation."""
+    per activation.  The fused bottleneck reads each input pixel once
+    (its residual re-read is not counted) and does 2 operations per
+    multiply-accumulate of its three products; the streaming conv reads
+    and writes back its window once at its data width and does 2 k^2
+    c_in c_out operations per output pixel; the GRU cell reads x and h
+    once, stores h' twice as whole segments and does 2 (d_in + d_h) 3
+    d_h operations."""
+    if kernel == "ring_inverted_bottleneck":
+        pix, ci, cm, co = kw["H"] * kw["W"], kw["C_in"], kw["C_mid"], \
+            kw["C_out"]
+        mid = ci * cm + kw["RS"] ** 2 * cm + cm * co
+        return 4 * (pix * ci + pix * 128 + mid), 2 * pix * mid
+    if kernel == "ring_conv_stream":
+        ci, co, k = kw["c_in"], kw["c_out"], kw["k"]
+        win, pix = kw["h_win"] * kw["w_in"] * ci, kw["h_out"] * kw["w_out"]
+        return (4 * (2 * win + pix * _segs(co) * 128 + k * k * ci * co + co),
+                2 * k * k * ci * co * pix)
+    if kernel == "ring_gru_cell":
+        ci, dh = kw["d_in"], kw["d_h"]
+        g = 3 * dh
+        return (4 * (ci + dh + 2 * _segs(dh) * 128 + (ci + dh) * g + g),
+                2 * (ci + dh) * g)
     if kernel == "ring_avgpool":
         rows, c = kw["h"] * kw["w"], kw["c"]
         return 4 * (rows * c + _segs(c) * 128), rows * c + c
@@ -305,7 +337,7 @@ def phase_parity(cases) -> dict[str, float]:
     kernel (0 for int8, or this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
-                                           live_lanes, output_region)
+                                           live_lanes, output_regions)
 
     n_f32 = sum(is_f32(c.kernel) for c in cases)
     say(f"phase 2: {len(cases)} kernel calls against their plain versions "
@@ -324,7 +356,7 @@ def phase_parity(cases) -> dict[str, float]:
         torch.cuda.synchronize()
         if is_f32(case.kernel):
             live = live_lanes(case.n_seg,
-                              [output_region(case.kernel, case.kwargs)])
+                              output_regions(case.kernel, case.kwargs))
             e, bad = compare_f32(got.cpu().numpy(), want.cpu().numpy(),
                                  live)
             err[case.kernel] = max(err[case.kernel], e)
@@ -355,9 +387,11 @@ def _path_kernels(cn) -> set[str]:
             for op, p in zip(cn.program.ops, params_of(cn))}
 
 
-def _counted(label: str, cn, drive) -> dict[str, int]:
-    """Run ``drive()`` with the launch counts set to 0 just before and
-    read just after; every kernel of the plan must have launched."""
+def _counted(label: str, cn, runs: int, unit: str,
+             drive) -> dict[str, int]:
+    """Run ``drive()`` (``runs`` inferences or steps) with the launch
+    counts set to 0 just before and read just after; every kernel of the
+    plan must have launched."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     torch.cuda.synchronize()
@@ -368,8 +402,8 @@ def _counted(label: str, cn, drive) -> dict[str, int]:
     missing = sorted(k for k in _path_kernels(cn) if not counts[k])
     if missing:
         raise SystemExit(f"{label}: kernels never launched: {missing}")
-    say(f"  {label} launches: "
-        f"{ {k: n for k, n in counts.items() if n} }")
+    say(f"  {label} launches: {({k: n for k, n in counts.items() if n})} "
+        f"({sum(counts.values()) / runs:g} per {unit})")
     return counts
 
 
@@ -391,7 +425,7 @@ def path_serve(name: str, cn, golden) -> dict[str, int]:
         out["batch"] = cn.run(x)
         out["single"] = [cn.run(xi) for xi in x]
 
-    counts = _counted(f"{name} run", cn, drive)
+    counts = _counted(f"{name} run", cn, 2 * len(x), "inference", drive)
     want = torch.from_numpy(golden["y"]).cuda()
     if out["batch"].device.type != DEVICE_TYPE \
             or not torch.equal(out["batch"], want):
@@ -444,7 +478,7 @@ def path_serve_f32(label: str, cn, golden) -> dict[str, int]:
         out["batch"] = cn.run(x)
         out["single"] = [cn.run(xi) for xi in x]
 
-    counts = _counted(f"{label} run", cn, drive)
+    counts = _counted(f"{label} run", cn, 2 * len(x), "inference", drive)
     if out["batch"].device.type != DEVICE_TYPE:
         raise SystemExit(f"{label}: outputs left the card")
     batch = out["batch"].cpu().numpy()
@@ -491,7 +525,7 @@ def path_stream(name: str, cn, golden) -> dict[str, int]:
     frames = torch.from_numpy(golden["x_q"]).cuda()
     session = cn.stream()
     ys = []
-    counts = _counted(f"{name} stream", cn,
+    counts = _counted(f"{name} stream", cn, len(frames), "step",
                       lambda: ys.extend(session.step(f) for f in frames))
     for i, y in enumerate(ys):
         if y.device.type != DEVICE_TYPE \
@@ -508,6 +542,51 @@ def path_stream(name: str, cn, golden) -> dict[str, int]:
                              "golden")
     say(f"  {name}: {len(ys)} steps, every int8 output and the final pool "
         f"equal the golden ({session.state_bytes} B of state)")
+    return counts
+
+
+def path_stream_f32(label: str, cn, golden) -> dict[str, int]:
+    """``stream().step`` of an fp32 streaming plan on the card for every
+    golden frame: each step's output within the tolerance of the golden;
+    the last pool within it of the pool the plain versions leave over
+    the same frames on the card, exactly equal on channel tails,
+    unwritten lanes and the window (a copy), the window's tails 0; and
+    a reset replays the first step bit for bit."""
+    from repro_torch.kernels.cases import (compare_f32, plain_pool,
+                                           program_live_lanes)
+
+    frames = [torch.from_numpy(f).cuda() for f in golden["x"]]
+    session = cn.stream()
+    ys = []
+    counts = _counted(f"{label} stream", cn, len(frames), "step",
+                      lambda: ys.extend(session.step(f) for f in frames))
+    worst = 0.0
+    for i, y in enumerate(ys):
+        got = y.cpu().numpy()
+        if y.device.type != DEVICE_TYPE or not _within(got, golden["y"][i]):
+            raise SystemExit(f"{label}: step {i} differs from the golden by "
+                             f"{np.abs(got - golden['y'][i]).max():.3g}")
+        worst = max(worst, float(np.abs(got - golden["y"][i]).max()))
+    kbr = cn.target.kernel_block_rows
+    want = plain_pool(cn.program, frames, cn.params, kernel_block_rows=kbr)
+    live = program_live_lanes(cn.program, cn.params, kernel_block_rows=kbr)
+    got = session.pool.array.cpu().numpy()
+    err, bad = compare_f32(got, want.cpu().numpy(), live)
+    if bad:
+        raise SystemExit(f"{label}: the pool after {len(ys)} steps differs "
+                         f"from the plain path's, {bad}")
+    win = cn.program.ops[0]
+    window = got[win.state_ptr:win.state_ptr + win.state_segments]
+    if window[:, win.d_in:].any():
+        raise SystemExit(f"{label}: a window channel tail is not 0")
+    first = ys[0].clone()
+    session.reset()
+    if not torch.equal(session.step(frames[0]), first):
+        raise SystemExit(f"{label}: the first step after reset differs")
+    say(f"  {label}: {len(ys)} steps, every output within the tolerance of "
+        f"the golden (max |difference| {worst:.3g}); the last pool within "
+        f"it of the plain path's (max {err:.3g}), exact elsewhere; reset "
+        f"replays ({session.state_bytes} B of state)")
     return counts
 
 
@@ -582,7 +661,10 @@ KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
                   "ring_conv_dw": "conv_dw_f32_kernel",
                   "ring_conv_k2d": "conv_k2d_f32_kernel",
                   "ring_add": "add_f32_kernel",
-                  "ring_avgpool": "avgpool_f32_kernel"}
+                  "ring_avgpool": "avgpool_f32_kernel",
+                  "ring_inverted_bottleneck": "ib_f32_kernel",
+                  "ring_conv_stream": "conv_stream_f32_kernel",
+                  "ring_gru_cell": "gru_f32_kernel"}
 
 
 def _device_busy(fn, reps: int = 20):
@@ -616,12 +698,53 @@ def _device_busy(fn, reps: int = 20):
             per_launch)
 
 
+def _library_ib(pool, params, kw):
+    """The fused bottleneck as PyTorch calls on the gathered image: 1x1
+    conv, relu, grouped RS x RS conv, relu, 1x1 conv (and the residual
+    add); returns the function and its number of calls."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.vpool import fetch_rows
+
+    w1, wd, w2 = params
+    H, W, ci, cm, co = kw["H"], kw["W"], kw["C_in"], kw["C_mid"], kw["C_out"]
+    a = fetch_rows(pool, kw["in_ptr"], H * W, ci).reshape(1, H, W, ci) \
+        .permute(0, 3, 1, 2).contiguous()
+    k1 = w1.t().reshape(cm, ci, 1, 1).contiguous()
+    kd = wd.permute(2, 0, 1)[:, None].contiguous()
+    k2 = w2.t().reshape(co, cm, 1, 1).contiguous()
+    pad = (kw["RS"] - 1) // 2
+
+    def body():
+        b = torch.relu(F.conv2d(a, k1))
+        c = torch.relu(F.conv2d(b, kd, padding=pad, groups=cm))
+        e = F.conv2d(c, k2)
+        return e + a if kw["residual"] else e
+    return body, 6 if kw["residual"] else 5
+
+
+def _library_gru(pool, params, kw):
+    """The fp32 GRU cell as PyTorch calls: ``addmm`` and ``mm`` for the
+    gate pre-activations, then ``gru_update``'s 15 elementwise calls."""
+    from repro_torch.core.vpool import fetch_rows
+    from repro_torch.quant.requant import gru_update
+
+    w, u, b = params
+    d_h = kw["d_h"]
+    x = fetch_rows(pool, kw["in_ptr"], 1, kw["d_in"]).contiguous()
+    h = fetch_rows(pool, kw["state_ptr"], 1, d_h).contiguous()
+    return (lambda: gru_update(torch.addmm(b, x, w), torch.mm(h, u), h,
+                               d_h)), 17
+
+
 def library_call(kernel: str, pool, params, kw):
-    """One PyTorch library call (cuBLAS, cuDNN or a reduction) that
-    computes what fp32 ``kernel`` computes on the gathered tensor, as a
-    function of no arguments; None for an int8 kernel or a resampling
-    pw, which no single call computes.  The gather from the ring, and a
-    conv's zero padding, are left out of the call."""
+    """PyTorch library calls (cuBLAS, cuDNN or a reduction) that compute
+    what fp32 ``kernel`` computes on the gathered tensors, as a function
+    of no arguments, and the number of calls in it: one, but for the
+    fused bottleneck and the GRU cell, which no single call computes.
+    None for an int8 kernel or a resampling pw.  The gather from the
+    ring (a stream's shifted window too), and a conv's zero padding, are
+    left out of the calls."""
     import torch.nn.functional as F
 
     from repro_torch.core.program import resolve_activation
@@ -630,24 +753,39 @@ def library_call(kernel: str, pool, params, kw):
 
     if kernel.endswith("_q") or kw.get("resample"):
         return None
+    if kernel == "ring_inverted_bottleneck":
+        return _library_ib(pool, params, kw)
+    if kernel == "ring_gru_cell":
+        return _library_gru(pool, params, kw)
     act = resolve_activation(kw.get("activation"))
     if kernel == "ring_avgpool":
         img = fetch_rows(pool, kw["in_ptr"], kw["h"] * kw["w"],
                          kw["c"]).contiguous()
-        return lambda: img.mean(dim=0)
+        return (lambda: img.mean(dim=0)), 1
     if kernel == "ring_add":
         x, r = (fetch_rows(pool, kw[p], kw["rows"], kw["d"]).contiguous()
                 for p in ("in_ptr", "aux_ptr"))
-        return lambda: act(torch.add(x, r))
+        return (lambda: act(torch.add(x, r))), 1
     w, b = params
     if kernel == "ring_gemm":
         x = fetch_rows(pool, kw["in_ptr"], kw["m_rows"],
                        kw["d_in"]).contiguous()
-        return lambda: act(torch.addmm(b, x, w))
-    dw = kernel == "ring_conv_dw"
-    c_in = kw["c"] if dw else kw["c_in"]
-    img = fetch_rows(pool, kw["in_ptr"], kw["h_in"] * kw["w_in"], c_in)
-    img = img.reshape(1, kw["h_in"], kw["w_in"], c_in).permute(0, 3, 1, 2)
+        return (lambda: act(torch.addmm(b, x, w))), 1
+    if kernel == "ring_conv_stream":
+        c_in, hop, w_in = kw["c_in"], kw["hop"], kw["w_in"]
+        keep = fetch_rows(pool, kw["state_ptr"] + hop * w_in * _segs(c_in),
+                          (kw["h_win"] - hop) * w_in, c_in)
+        frame = fetch_rows(pool, kw["in_ptr"], hop * w_in, c_in)
+        img = torch.cat([keep, frame]).reshape(1, kw["h_win"], w_in, c_in) \
+            .permute(0, 3, 1, 2)
+        kw = dict(kw, h_in=kw["h_win"])
+        dw = False
+    else:
+        dw = kernel == "ring_conv_dw"
+        c_in = kw["c"] if dw else kw["c_in"]
+        img = fetch_rows(pool, kw["in_ptr"], kw["h_in"] * kw["w_in"], c_in)
+        img = img.reshape(1, kw["h_in"], kw["w_in"], c_in) \
+            .permute(0, 3, 1, 2)
     if kernel == "ring_conv_pw":
         wt = w.t().reshape(kw["c_out"], c_in, 1, 1).contiguous()
         k, pv, ph = 1, 0, 0
@@ -662,7 +800,7 @@ def library_call(kernel: str, pool, params, kw):
     right = (kw["w_out"] - 1) * s + k - ph - kw["w_in"]
     x = F.pad(img, (ph, right, pv, bottom)).contiguous()
     groups = c_in if dw else 1
-    return lambda: act(F.conv2d(x, wt, b, stride=s, groups=groups))
+    return (lambda: act(F.conv2d(x, wt, b, stride=s, groups=groups))), 1
 
 
 def time_cases(cases) -> dict[str, dict]:
@@ -675,13 +813,15 @@ def time_cases(cases) -> dict[str, dict]:
     out: dict[str, dict] = {}
     for name in KERNELS:
         ms, plain_ms, host_ms, bounds, lib_ms = [], [], [], [], []
+        lib_calls = None
         for case in (c for c in cases if c.kernel == name):
             pool, params = case_inputs(case, seed=0)
             pool, params = torch.from_numpy(pool).cuda(), _cuda(params)
             kern, plain = KERNELS[name], PLAIN[name]
             lib = library_call(name, pool, params, case.kwargs)
             if lib is not None:
-                lib_ms.append(_held_ms(lib, 50))
+                lib_ms.append(_held_ms(lib[0], 50))
+                lib_calls = lib[1]
             host_ms.append(_host_ms(
                 lambda: kern(pool, *params, **case.kwargs), 20))
             ms.append(_held_ms(lambda: kern(pool, *params, **case.kwargs),
@@ -697,7 +837,8 @@ def time_cases(cases) -> dict[str, dict]:
                          "bound_by": bounds[0][1], "ops": len(ms),
                          "library_ms": (statistics.mean(lib_ms)
                                         if len(lib_ms) == len(ms)
-                                        else None)}
+                                        else None),
+                         "library_calls": lib_calls}
     return out
 
 
@@ -709,7 +850,8 @@ def phase_timing(served, streamed, cases, counts, errs):
     from repro_torch.kernels._build import source_of
 
     say("phase 4: timing (library calls: one PyTorch call per op on the "
-        "gathered, zero-padded tensors, TF32 off)")
+        "gathered, zero-padded tensors, a short sequence for the fused "
+        "bottleneck and the fp32 GRU cell; TF32 off)")
     by_path = {}
     for label, cn, drive, per in served + streamed:
         t = time_cases(cases[label])
@@ -727,7 +869,8 @@ def phase_timing(served, streamed, cases, counts, errs):
             row["profiler_ms"] = prof_ms.get(name)
             row["launches"] = counts[label][name]
             lib = ("" if row["library_ms"] is None else
-                   f", library {row['library_ms'] * 1e3:.2f} us")
+                   f", library {row['library_ms'] * 1e3:.2f} us in "
+                   f"{row['library_calls']} call(s)")
             say(f"    {name:18s} {row['ms'] * 1e3:9.2f} us/launch (device, "
                 f"mean of {row['ops']} ops), {row['host_ms'] * 1e3:8.2f} us "
                 f"with launch (host), plain {row['plain_ms'] * 1e3:9.2f} "
@@ -754,8 +897,9 @@ def phase_timing(served, streamed, cases, counts, errs):
             "max_abs_err": errs[name], "ms": avg("ms"),
             "plain_ms": avg("plain_ms"), "bound_ms": avg("bound_ms"),
             "bound_by": next(iter(per.values()))["bound_by"],
-            "library_ms": avg("library_ms"), "host_ms": avg("host_ms"),
-            "by_path": per})
+            "library_ms": avg("library_ms"),
+            "library_calls": next(iter(per.values()))["library_calls"],
+            "host_ms": avg("host_ms"), "by_path": per})
     return rows, {p: {k: v for k, v in d.items() if k != "kernels"}
                   for p, d in by_path.items()}
 
@@ -769,7 +913,8 @@ def main() -> None:
                          "available")
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
-    from repro_torch.kernels.cases import EDGE_CASES, F32_EDGE_CASES
+    from repro_torch.kernels.cases import (EDGE_CASES, F32_EDGE_CASES,
+                                           F32_FUSED_STREAM_EDGE_CASES)
 
     card = nvidia_smi_line()
     say(f"phase 0: card {card}")
@@ -786,11 +931,13 @@ def main() -> None:
     phase_build()
 
     served_labels = NETS + tuple(n + F32 for n in FLOAT_NETS)
-    labels = served_labels + STREAMS
+    stream_labels = STREAMS + tuple(n + F32 for n in FLOAT_STREAMS)
+    labels = served_labels + stream_labels
     plans = {n: repro_torch.load(artifact(n)) for n in labels}
     goldens = {n: load_golden(n) for n in labels}
     cases = {n: plan_cases(n, cn) for n, cn in plans.items()}
     errs = phase_parity(EDGE_CASES + F32_EDGE_CASES
+                        + F32_FUSED_STREAM_EDGE_CASES
                         + sum(cases.values(), ()))
 
     say("phase 3: the paths on the card")
@@ -802,6 +949,9 @@ def main() -> None:
                                          goldens[n + F32])
     for n in STREAMS:
         counts[n] = path_stream(n, plans[n], goldens[n])
+    for n in FLOAT_STREAMS:
+        counts[n + F32] = path_stream_f32(n + F32, plans[n + F32],
+                                          goldens[n + F32])
 
     served = []
     for n in served_labels:
@@ -809,9 +959,10 @@ def main() -> None:
         served.append((n, plans[n],
                        lambda cn=plans[n], x1=x1: cn.run(x1), "inference"))
     streamed = []
-    for n in STREAMS:
+    for n in stream_labels:
         session = plans[n].stream()
-        frame = torch.from_numpy(goldens[n]["x_q"][0]).cuda()
+        first = goldens[n]["x_q" if plans[n].quantized else "x"][0]
+        frame = torch.from_numpy(first).cuda()
         streamed.append((n, plans[n],
                          lambda s=session, f=frame: s.step(f), "step"))
     rows, paths = phase_timing(served, streamed, cases, counts, errs)

@@ -13,7 +13,7 @@ A float plan (the ``host-sim`` target's default) carries its fp32
 runs either on the CUDA card unless the caller passes ``device="cpu"``;
 without a card it raises rather than run elsewhere.
 ``CompiledNet.stream`` opens a :class:`repro_torch.stream.StreamSession`
-on an int8 streaming plan, on the same terms.
+on a streaming plan, int8 or float, on the same terms.
 """
 from __future__ import annotations
 
@@ -157,14 +157,9 @@ class CompiledNet:
         """Open a :class:`repro_torch.stream.StreamSession` on this net —
         the per-frame reset/step driver over the persistent-state ring,
         on ``device`` (the CUDA card when ``None``).  Needs a streaming
-        plan (``conv_stream``/``gru_cell`` ops)."""
+        plan (``conv_stream``/``gru_cell`` ops), int8 or float."""
         from ..stream import StreamSession
 
-        if not self.quantized:
-            raise NotImplementedError(
-                "the port streams int8 plans only; fp32 streams (the "
-                "ring_conv_stream and ring_gru_cell kernels) come in a "
-                "later slice")
         return StreamSession(self, device, backend=backend, trace=trace)
 
     def report(self) -> dict:

@@ -13,9 +13,9 @@ implementation:
     ``_run_jnp_q`` and of ``_apply_op``/``_run_jnp``.
 
 Nothing on the CUDA path calls a plain version.  Every int8 op kind has
-its kernel; of the fp32 kinds, the whole-network ones (:data:`F32_KINDS`)
-do, and the fused MLP, elementwise, fused inverted bottleneck and
-streaming kinds come in later slices.
+its kernel; of the fp32 kinds, the whole-network, fused inverted
+bottleneck and streaming ones (:data:`F32_KINDS`) do, and the fused MLP
+and elementwise kinds come in a later slice.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ from .vpool import VirtualPool, segments_for
 Q_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "add", "pool_avg",
            "conv_stream", "gru_cell")
 #: Op kinds the port's fp32 executors run.
-F32_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "add", "pool_avg")
+F32_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "add", "pool_avg",
+             "ib_fused", "conv_stream", "gru_cell")
 
 
 def _normalize_qparams(program: PoolProgram, params):
@@ -67,8 +68,10 @@ def _normalize_qparams(program: PoolProgram, params):
 
 def _normalize_params(program: PoolProgram, params):
     """Validate param entries: int8 programs through
-    :func:`_normalize_qparams`; fp32 ones take ``(w, b)`` for gemm/conv
-    (a missing bias becomes zeros) and ``None`` for add and pool_avg."""
+    :func:`_normalize_qparams`; fp32 ones take ``(w, b)`` for gemm, conv
+    and conv_stream, ``(w, u, b)`` for gru_cell (a missing bias becomes
+    zeros), ``(w1, wd, w2)`` for ib_fused and ``None`` for add and
+    pool_avg."""
     if program.quantized:
         return _normalize_qparams(program, params)
     if params is None:
@@ -83,11 +86,21 @@ def _normalize_params(program: PoolProgram, params):
             raise NotImplementedError(
                 f"op kind {op.kind!r} has no fp32 execution path in the "
                 f"port yet (it runs {F32_KINDS})")
-        if op.kind in ("gemm", "conv_pw", "conv_dw", "conv_k2d"):
+        if op.kind in ("gemm", "conv_pw", "conv_dw", "conv_k2d",
+                       "conv_stream"):
             w, b = p
             if b is None:
                 b = torch.zeros((op.d_out,), dtype=w.dtype, device=w.device)
             out.append((w, b))
+        elif op.kind == "gru_cell":
+            w, u, b = p
+            if b is None:
+                b = torch.zeros((3 * op.d_out,), dtype=w.dtype,
+                                device=w.device)
+            out.append((w, u, b))
+        elif op.kind == "ib_fused":
+            w1, wd, w2 = p
+            out.append((w1, wd, w2))
         else:
             if p is not None:
                 raise ValueError(f"{op.kind} op takes no params")
@@ -230,6 +243,22 @@ def _f32_kernel_call(program: PoolProgram, op, p, *,
         return "ring_avgpool", (), dict(
             h=op.h_in, w=op.w_in, c=op.d_in, in_ptr=op.in_ptr,
             out_ptr=op.out_ptr)
+    if op.kind == "ib_fused":
+        return "ring_inverted_bottleneck", tuple(p), dict(
+            H=op.h_in, W=op.w_in, C_in=op.d_in, C_mid=op.d_mid,
+            C_out=op.d_out, RS=op.rs, in_ptr=op.in_ptr, out_ptr=op.out_ptr,
+            residual=op.residual)
+    if op.kind == "conv_stream":
+        return "ring_conv_stream", tuple(p), dict(
+            h_win=op.h_in, w_in=op.w_in, h_out=op.h_out, w_out=op.w_out,
+            c_in=op.d_in, c_out=op.d_out, k=op.rs, stride=op.stride,
+            padding=op.padding, hop=op.hop, in_ptr=op.in_ptr,
+            out_ptr=op.out_ptr, state_ptr=op.state_ptr,
+            activation=op.activation)
+    if op.kind == "gru_cell":
+        return "ring_gru_cell", tuple(p), dict(
+            d_in=op.d_in, d_h=op.d_out, in_ptr=op.in_ptr,
+            out_ptr=op.out_ptr, state_ptr=op.state_ptr)
     raise NotImplementedError(
         f"no fp32 ring kernel for op kind {op.kind!r} (the port runs "
         f"{F32_KINDS})")

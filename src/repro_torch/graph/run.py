@@ -3,12 +3,13 @@
 Counterpart of the execution half of :mod:`repro.graph.run`:
 :func:`run_net` (an fp32 plan), :class:`QuantizedNet` (the data of a
 calibrated int8 deployment), :func:`run_net_quantized` and, for
-streaming programs, one step on a persistent pool
-(:func:`step_net_quantized`); and :func:`reference_forward`, the same
-network as a plain forward pass with no pool mechanics — the float
-ground truth the ring paths are held to.  Calibration (``_quantize_net``,
-which pins every GRU output at the fixed Q7 scale 1/128 in
-``act_scales``) comes with the compile pipeline, in a later slice.
+streaming programs, one step on a persistent pool (:func:`step_net`,
+fp32, and :func:`step_net_quantized`); and :func:`reference_forward`,
+the same network as a plain forward pass with no pool mechanics — the
+float ground truth the ring paths are held to.  Calibration
+(``_quantize_net``, which pins every GRU output at the fixed Q7 scale
+1/128 in ``act_scales``) comes with the compile pipeline, in a later
+slice.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from ..core.executors import execute, run_program
 from ..core.program import PoolProgram, resolve_activation
 from ..core.rowsched import conv_k2d_pad, resample_src
 from ..core.vpool import VirtualPool
+from ..kernels.inverted_bottleneck import inverted_bottleneck_ref
 from ..quant.qtensor import QParams, dequantize, quantize
 
 
@@ -32,6 +34,18 @@ def run_net(program: PoolProgram, x: torch.Tensor, params, *,
     y, _pool = run_program(program, x, params,
                            kernel_block_rows=kernel_block_rows)
     return y
+
+
+def step_net(program: PoolProgram, pool: VirtualPool, frame: torch.Tensor,
+             params, *, kernel_block_rows: int = 8) -> torch.Tensor:
+    """One fp32 streaming step on the persistent ``pool`` (on
+    ``frame``'s device, which must hold ``params``): stage the frame at
+    the input pointer, execute, fetch the output — a copy, since the
+    next step overwrites the pool."""
+    pool.stage_rows(frame.to(torch.float32), program.input_ptr)
+    execute(program, pool, params, kernel_block_rows=kernel_block_rows)
+    return pool.fetch_rows(program.output_ptr, program.out_rows,
+                           program.out_dim).clone()
 
 
 def _conv_ref(img, w, *, stride: int, pad_lo: int, h_out: int, w_out: int,
@@ -61,7 +75,8 @@ def _wb(op, p):
 def reference_forward(program: PoolProgram, x: torch.Tensor,
                       params) -> torch.Tensor:
     """Plain forward pass of the planned network (no pool): the port of
-    the reference's ``reference_forward`` for the whole-network kinds.
+    the reference's ``reference_forward`` for the whole-network kinds
+    and the fused inverted bottleneck.
 
     ``x`` is ``[rows, d]``, the flattened input image.  Residual ``add``
     ops read the saved input of their source op, and branch convs (the
@@ -105,6 +120,12 @@ def reference_forward(program: PoolProgram, x: torch.Tensor,
                           pad_lo=conv_k2d_pad(op.rs, op.padding),
                           h_out=op.h_out, w_out=op.w_out)
             cur = act(y + b).reshape(op.rows_out, op.d_out)
+        elif op.kind == "ib_fused":
+            w1, wd, w2 = p
+            a = src.reshape(op.h_in, op.w_in, op.d_in)
+            cur = inverted_bottleneck_ref(
+                a, w1, wd, w2, residual=op.residual).reshape(op.rows_out,
+                                                             op.d_out)
         elif op.kind == "add":
             cur = act(cur + saved[op.aux_op])
         elif op.kind == "pool_avg":

@@ -1,18 +1,18 @@
 """The port's hand-written CUDA ring kernels (``csrc/``), their build
 (``_build``), their Python wrappers and plain versions (int8:
-``quantized``, ``stream``; fp32: ``segment_matmul``, ``conv2d``) and the
-parity cases they are held to (``cases``).
+``quantized``; fp32: ``segment_matmul``, ``conv2d``,
+``inverted_bottleneck``; both: ``stream``) and the parity cases they are
+held to (``cases``).
 
 :data:`KERNELS` and :data:`PLAIN` are every wrapper and every plain
 version by kernel name; each wrapper counts its launches in
 ``<wrapper>.launches`` (:func:`launch_counts`).  Importing this package
 builds nothing."""
-from . import conv2d, quantized, segment_matmul, stream
+from . import conv2d, inverted_bottleneck, quantized, segment_matmul, stream
 
-KERNELS = {**quantized.KERNELS, **stream.KERNELS, **segment_matmul.KERNELS,
-           **conv2d.KERNELS}
-PLAIN = {**quantized.PLAIN, **stream.PLAIN, **segment_matmul.PLAIN,
-         **conv2d.PLAIN}
+_MODULES = (quantized, stream, segment_matmul, conv2d, inverted_bottleneck)
+KERNELS = {name: f for m in _MODULES for name, f in m.KERNELS.items()}
+PLAIN = {name: f for m in _MODULES for name, f in m.PLAIN.items()}
 
 
 def reset_launch_counts() -> None:

@@ -12,9 +12,11 @@ versions and to the CUDA kernels.
 :data:`EDGE_CASES` are the int8 geometries the DS-CNN plan does not
 reach (wrapping runs, other strides, paddings and blockings, saturating
 and wrapping int32 sums, streaming windows with ``hop`` 2);
-:data:`F32_EDGE_CASES` are their fp32 twins, with every activation of
-the fp32 epilogue; :func:`program_cases` gives one case per op of a real
-program, with its real weights.
+:data:`F32_EDGE_CASES` are their fp32 twins for the six whole-network
+kernels, with every activation of the fp32 epilogue;
+:data:`F32_FUSED_STREAM_EDGE_CASES` those of the fused inverted
+bottleneck and the fp32 streaming kernels; :func:`program_cases` gives
+one case per op of a real program, with its real weights.
 
 An int8 kernel is held to its plain version bitwise.  An fp32 kernel is
 held by :func:`compare_f32` at the one tolerance :data:`RTOL` and
@@ -97,6 +99,11 @@ def _stream(h_win, w, ci, co, k, s, hop, hout, wout, i, o, st, act,
     return dict(h_win=h_win, w_in=w, h_out=hout, w_out=wout, c_in=ci,
                 c_out=co, k=k, stride=s, padding=pad, hop=hop, in_ptr=i,
                 out_ptr=o, state_ptr=st, activation=act)
+
+
+def _ib(h, w, ci, cm, co, i, o, residual):
+    return dict(H=h, W=w, C_in=ci, C_mid=cm, C_out=co, RS=3, in_ptr=i,
+                out_ptr=o, residual=residual)
 
 
 def _gru(d_in, d_h, i, o, st):
@@ -229,6 +236,29 @@ F32_EDGE_CASES = (
               activation="relu")),
 )
 
+#: Edge cases of the fp32 fused inverted bottleneck, streaming conv and
+#: GRU cell.  Every image row of the bottleneck lies whole inside the ring
+#: (the reference copies a row as one run that does not wrap).
+F32_FUSED_STREAM_EDGE_CASES = (
+    # no residual, C_in != C_out (as MCUNet-VWW's 24 -> 144 -> 16 op), in
+    # place: row p's store narrows A row p after step p - 1 expanded it
+    Case("f32_ib_narrowing_inplace", "ring_inverted_bottleneck", 40,
+         _ib(6, 5, 24, 144, 16, 10, 10, False)),
+    # out row p onto A row p - 1, both runs wrapping the ring
+    Case("f32_ib_shifted_wrap", "ring_inverted_bottleneck", 50,
+         _ib(7, 5, 32, 96, 32, 30, 25, True)),
+    # a one-row image: the halo primes row 0 twice and masks the rest
+    Case("f32_ib_one_row", "ring_inverted_bottleneck", 8,
+         _ib(1, 4, 8, 40, 8, 4, 0, True)),
+    # hop 2 and c_in 3; the output lands on the frame's rows
+    Case("f32_stream_hop2_c3", "ring_conv_stream", 60,
+         _stream(6, 5, 3, 16, 3, 1, 2, 6, 5, 20, 0, 30, "gelu")),
+    _f32(_EDGE["stream_out_wraps"], "f32_stream_out_wraps"),
+    # d_h not a multiple of 128, two input segments, out_ptr past the end
+    _f32(_EDGE["gru_wide_input"], "f32_gru_wide_input"),
+    Case("f32_gru_d_h_72", "ring_gru_cell", 12, _gru(64, 72, 2, 3, 6)),
+)
+
 
 def program_cases(program, params, *, kernel_block_rows: int = 8,
                   prefix: str = "", kinds=None):
@@ -245,6 +275,8 @@ def program_cases(program, params, *, kernel_block_rows: int = 8,
         if p is not None and p[1] is None:     # a net without biases
             p = (p[0], np.zeros((op.d_out,), np.int32 if program.quantized
                                 else np.float32), *p[2:])
+        if op.kind == "gru_cell" and not program.quantized and p[2] is None:
+            p = (*p[:2], np.zeros((3 * op.d_out,), np.float32))
         name, params, kwargs = op_kernel_call(
             program, op, p, kernel_block_rows=kernel_block_rows)
         cases.append(Case(f"{prefix}op{i:02d}_{op.kind}", name,
@@ -257,28 +289,36 @@ def program_live_lanes(program, params, *,
     """:func:`live_lanes` of an fp32 program's final pool: the staged
     input, then every op's output in plan order."""
     regions = [(program.input_ptr, program.in_rows, program.in_dim)]
-    regions += [output_region(c.kernel, c.kwargs) for c in program_cases(
-        program, params, kernel_block_rows=kernel_block_rows)]
+    for c in program_cases(program, params,
+                           kernel_block_rows=kernel_block_rows):
+        regions += output_regions(c.kernel, c.kwargs)
     return live_lanes(program.n_segments, regions)
 
 
 def plain_pool(program, x, params, *, kernel_block_rows: int = 8):
     """The final pool of ``program`` run on input ``x`` through the
     plain versions on ``x``'s device (a CUDA one too): the whole-plan
-    oracle the kernels' pool is held to.  ``params`` are numpy arrays,
-    as :func:`program_cases` takes them."""
+    oracle the kernels' pool is held to.  ``x`` is one input, or a list
+    of frames that a streaming program steps through on one persistent
+    pool.  ``params`` are numpy arrays, as :func:`program_cases` takes
+    them."""
     import torch
 
     from ..core.vpool import stage_rows
     from . import PLAIN
 
+    frames = x if isinstance(x, (list, tuple)) else [x]
+    device = frames[0].device
     spec = program.spec()
-    pool = torch.zeros(spec.shape, dtype=spec.dtype, device=x.device)
-    stage_rows(pool, x, program.input_ptr)
-    for c in program_cases(program, params,
-                           kernel_block_rows=kernel_block_rows):
-        PLAIN[c.kernel](pool, *(torch.from_numpy(a).to(x.device)
-                                for a in c.params), **c.kwargs)
+    pool = torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    calls = [(PLAIN[c.kernel], [torch.from_numpy(a).to(device)
+                                for a in c.params], c.kwargs)
+             for c in program_cases(program, params,
+                                    kernel_block_rows=kernel_block_rows)]
+    for frame in frames:
+        stage_rows(pool, frame, program.input_ptr)
+        for fn, weights, kwargs in calls:
+            fn(pool, *weights, **kwargs)
     return pool
 
 
@@ -298,21 +338,30 @@ def input_regions(kernel: str, kw: dict) -> list[tuple[int, int, int]]:
     if kernel == "ring_gru_cell":
         return [(kw["in_ptr"], 1, kw["d_in"]),
                 (kw["state_ptr"], 1, kw["d_h"])]
+    if kernel == "ring_inverted_bottleneck":
+        return [(kw["in_ptr"], kw["H"] * kw["W"], kw["C_in"])]
     c = kw["c"] if kernel == "ring_conv_dw" else kw["c_in"]
     return [(kw["in_ptr"], kw["h_in"] * kw["w_in"], c)]
 
 
-def output_region(kernel: str, kw: dict) -> tuple[int, int, int]:
-    """``(ptr, rows, width)`` of the tensor an fp32 kernel writes."""
+def output_regions(kernel: str, kw: dict) -> list[tuple[int, int, int]]:
+    """``(ptr, rows, width)`` of each tensor an fp32 kernel computes (a
+    streaming conv's window writeback is a copy and not among them; a
+    GRU cell's new state is)."""
     kernel = _base(kernel)
     if kernel == "ring_gemm":
-        return kw["out_ptr"], kw["m_rows"], kw["d_out"]
+        return [(kw["out_ptr"], kw["m_rows"], kw["d_out"])]
     if kernel == "ring_avgpool":
-        return kw["out_ptr"], 1, kw["c"]
+        return [(kw["out_ptr"], 1, kw["c"])]
     if kernel == "ring_add":
-        return kw["out_ptr"], kw["rows"], kw["d"]
+        return [(kw["out_ptr"], kw["rows"], kw["d"])]
+    if kernel == "ring_gru_cell":
+        return [(kw["state_ptr"], 1, kw["d_h"]),
+                (kw["out_ptr"], 1, kw["d_h"])]
+    if kernel == "ring_inverted_bottleneck":
+        return [(kw["out_ptr"], kw["H"] * kw["W"], kw["C_out"])]
     c = kw["c"] if kernel == "ring_conv_dw" else kw["c_out"]
-    return kw["out_ptr"], kw["h_out"] * kw["w_out"], c
+    return [(kw["out_ptr"], kw["h_out"] * kw["w_out"], c)]
 
 
 def live_lanes(n_seg: int, regions) -> np.ndarray:
@@ -379,6 +428,29 @@ def _gru_draw(rng, kw):
     return (w, u, b, *consts)
 
 
+def _normal(rng, shape, scale):
+    return (scale * rng.standard_normal(shape, np.float32)) \
+        .astype(np.float32)
+
+
+def _ib_draw(rng, kw):
+    """Seeded fp32 bottleneck weights, He-scaled per reduction depth."""
+    ci, cm, co, rs = kw["C_in"], kw["C_mid"], kw["C_out"], kw["RS"]
+    return (_normal(rng, (ci, cm), np.sqrt(2 / ci)),
+            _normal(rng, (rs, rs, cm), np.sqrt(2) / rs),
+            _normal(rng, (cm, co), 1 / np.sqrt(cm)))
+
+
+def _gru_f32_draw(rng, kw):
+    """Seeded fp32 GRU weights whose gate pre-activations spread over
+    about +-4, so the hard gates both clip and pass."""
+    d_in, d_h = kw["d_in"], kw["d_h"]
+    g = 3 * d_h
+    return (_normal(rng, (d_in, g), 2 / np.sqrt(d_in)),
+            _normal(rng, (d_h, g), 2 / np.sqrt(d_h)),
+            _normal(rng, (g,), 0.5))
+
+
 def _f32_inputs(case: Case, rng):
     pool = rng.standard_normal((case.n_seg, SEG_WIDTH), np.float32)
     for ptr, rows, d in input_regions(case.kernel, case.kwargs):
@@ -391,6 +463,10 @@ def _f32_inputs(case: Case, rng):
         return pool, tuple(case.params)
     if case.kernel in ("ring_avgpool", "ring_add"):
         return pool, ()
+    if case.kernel == "ring_inverted_bottleneck":
+        return pool, _ib_draw(rng, case.kwargs)
+    if case.kernel == "ring_gru_cell":
+        return pool, _gru_f32_draw(rng, case.kwargs)
     shape, depth = _weight_shape(case.kernel, case.kwargs)
     w = (rng.standard_normal(shape, np.float32) / np.sqrt(depth)) \
         .astype(np.float32)

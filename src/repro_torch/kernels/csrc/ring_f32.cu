@@ -8,6 +8,10 @@
 //   ring_conv_k2d <- ring_conv_k2d (conv2d.py:336)          k x k conv
 //   ring_add      <- ring_add      (conv2d.py:432)          residual add
 //   ring_avgpool  <- ring_avgpool  (conv2d.py:514)          global average pool
+//   ring_inverted_bottleneck <- ring_inverted_bottleneck
+//                    (inverted_bottleneck.py:107)           fused PW-DW-PW, Fig. 6
+//   ring_conv_stream <- ring_conv_stream (stream.py:142)    streaming k x k conv
+//   ring_gru_cell    <- ring_gru_cell    (stream.py:350)    fp32 GRU cell
 //
 // They are the fp32 twins of the int8 kernels of ring_q.cu and keep their
 // ring order.  The pool is one float tensor [n_seg, 128]: a tensor of c-wide
@@ -43,11 +47,23 @@
 // solved delta, cp.async/TMA prefetch and tensor-core products are later
 // work.
 //
+// The fused inverted bottleneck keeps its C_mid-wide expansion as an RS-row
+// halo in shared memory (the Pallas kernel's VMEM halo ring) and never
+// writes it to the ring; its three weight tensors are staged once when they
+// fit (84 KB for MCUNet-VWW's widest op).  The streaming conv holds the
+// whole window, live channels only (1,960 B for DS-CNN's 49 x 10 x 1; whole
+// segments would be 250,880 B, over the card's limit), and computes every
+// output pixel in one parallel sweep, since nothing is stored before the
+// window is on chip.  The GRU cell uses each of W and U once per launch, so
+// it reads them from global memory (coalesced across output columns).
+//
 // Numerics: fp32 FMA accumulation over the reduction in its natural order
 // (taps row-major, then input channels), then the bias, then the activation
 // of core/program.py::ACTIVATIONS with precise expf/tanhf (gelu is the tanh
 // approximation, the reference's default).  No fast math, no TF32.  The
-// average pool sums in fp32 and divides once by h * w (IEEE division).
+// average pool sums in fp32 and divides once by h * w (IEEE division).  The
+// GRU gates round each product and sum on its own (__fmul_rn, __fadd_rn),
+// as PyTorch's elementwise ops do.
 
 #include <cuda_runtime.h>
 
@@ -339,6 +355,207 @@ avgpool_f32_kernel(float* pool, int n_seg, int h, int w, int c, int in_ptr,
                                                          : 0.f;
 }
 
+// ---------------------------------------------------------------------------
+// Fused inverted bottleneck (paper Fig. 6): A [H, W, C_in] at in_ptr, one
+// segment per pixel, -> E [H, W, C_out] at out_ptr; stride 1, 'same'
+// padding, relu after the expansion and after the depthwise conv.  A row h,
+// expanded, lives in halo slot h % RS.  Step p (one output row, in order):
+//   1. expand A row min(p + pad, H - 1) into slot (p + pad) % RS (step 0
+//      first primes rows 0 .. pad): relu(A row @ w1);
+//   2. DW RS x RS over halo rows p - pad .. p + pad inside the image, relu;
+//   3. PW-project (@ w2), plus A row p when `residual`;
+//   4. store E row p, channel tails zero; barrier.
+// Step p reads A rows p + pad and p before its store, so in place (all six
+// MCUNet-VWW ops) row p's store lands on a row that no later step reads.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void ib_expand(float* slot, const float* a_row,
+                                          const float* w1, int W, int C_in,
+                                          int C_mid) {
+  for (int j = threadIdx.x; j < W * C_mid; j += blockDim.x) {
+    const int q = j / C_mid, m = j - q * C_mid;
+    const float* ar = a_row + q * C_in;
+    float acc = 0.f;
+    for (int k = 0; k < C_in; ++k) acc = fmaf(ar[k], w1[k * C_mid + m], acc);
+    slot[j] = fmaxf(acc, 0.f);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+ib_f32_kernel(float* pool, const float* __restrict__ w1,
+              const float* __restrict__ wd, const float* __restrict__ w2,
+              int n_seg, int H, int W, int C_in, int C_mid, int C_out, int RS,
+              int in_ptr, int out_ptr, int residual, int stage_w) {
+  extern __shared__ float smem[];
+  const int pad = (RS - 1) / 2;
+  const int mid_row = W * C_mid;
+  float* halo = smem;                               // [RS, W, C_mid]
+  float* c_row = halo + (size_t)RS * mid_row;       // [W, C_mid]
+  float* a_row = c_row + mid_row;                   // [W, C_in]
+  float* res = a_row + W * C_in;                    // [W, C_out]
+  const float *pw1 = w1, *pwd = wd, *pw2 = w2;
+  if (stage_w) {   // read only after the first step's first barrier
+    float* ws = res + W * C_out;
+    const int n1 = C_in * C_mid, nd = RS * RS * C_mid, n2 = C_mid * C_out;
+    for (int i = threadIdx.x; i < n1; i += blockDim.x) ws[i] = w1[i];
+    for (int i = threadIdx.x; i < nd; i += blockDim.x) ws[n1 + i] = wd[i];
+    for (int i = threadIdx.x; i < n2; i += blockDim.x) ws[n1 + nd + i] = w2[i];
+    pw1 = ws;
+    pwd = ws + n1;
+    pw2 = ws + n1 + nd;
+  }
+  for (int p = 0; p < H; ++p) {
+    for (int h = p == 0 ? 0 : p + pad; h <= p + pad; ++h) {
+      load_rows(a_row, pool, (in_ptr + min(h, H - 1) * W) % n_seg, W, C_in, 1,
+                n_seg);
+      if (residual && h == p + pad)
+        load_rows(res, pool, (in_ptr + p * W) % n_seg, W, C_out, 1, n_seg);
+      __syncthreads();
+      ib_expand(halo + (size_t)(h % RS) * mid_row, a_row, pw1, W, C_in, C_mid);
+      __syncthreads();
+    }
+    for (int j = threadIdx.x; j < mid_row; j += blockDim.x) {
+      const int q = j / C_mid, m = j - q * C_mid;
+      float acc = 0.f;
+      for (int r = 0; r < RS; ++r) {
+        const int src = p + r - pad;
+        if (src < 0 || src >= H) continue;
+        const float* row = halo + (size_t)(src % RS) * mid_row;
+        for (int s = 0; s < RS; ++s) {
+          const int col = q + s - pad;
+          if (col < 0 || col >= W) continue;
+          acc = fmaf(row[col * C_mid + m], pwd[(r * RS + s) * C_mid + m], acc);
+        }
+      }
+      c_row[j] = fmaxf(acc, 0.f);
+    }
+    __syncthreads();
+    const int dst = (out_ptr + p * W) % n_seg;
+    for (int j = threadIdx.x; j < W * C_out; j += blockDim.x) {
+      const int q = j / C_out, co = j - q * C_out;
+      const float* cr = c_row + q * C_mid;
+      float acc = 0.f;
+      for (int m = 0; m < C_mid; ++m) acc = fmaf(cr[m], pw2[m * C_out + co], acc);
+      if (residual) acc += res[j];
+      pool[ring_index(dst, q, co, 1, n_seg)] = acc;
+    }
+    zero_tails(pool, dst, W, C_out, 1, n_seg);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Streaming k x k conv: the [h_win, w_in, c_in] window at state_ptr drops its
+// oldest `hop` image rows and appends the frame at in_ptr, in shared memory
+// (live channels only); the window goes back to state_ptr (an exact copy,
+// channel tails zero), then every output pixel of the k x k conv over it is
+// computed in one sweep and stored at out_ptr (modulo n_seg).  Everything is
+// read before anything is stored, so the output may land on the frame's rows.
+// The state region never wraps (the planner places it above the frame
+// program's extent).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+conv_stream_f32_kernel(float* pool, const float* __restrict__ w,
+                       const float* __restrict__ b, int n_seg, int h_win,
+                       int w_in, int h_out, int w_out, int c_in, int c_out,
+                       int k, int stride, int hop, int pad_v, int pad_h,
+                       int in_ptr, int out_ptr, int state_ptr, int act,
+                       int stage_w) {
+  extern __shared__ float smem[];
+  float* win = smem;                                // [h_win, w_in, c_in]
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int keep = (h_win - hop) * w_in, pix = h_win * w_in;
+  const Params prm = stage_params(win + (size_t)pix * c_in, w,
+                                  k * k * c_in * c_out, b, c_out, stage_w);
+  load_rows(win, pool, state_ptr + hop * w_in * ksegs, keep, c_in, ksegs,
+            n_seg);
+  load_rows(win + (size_t)keep * c_in, pool, in_ptr, pix - keep, c_in, ksegs,
+            n_seg);
+  __syncthreads();
+  for (int j = threadIdx.x; j < pix * c_in; j += blockDim.x) {
+    const int px = j / c_in, col = j - px * c_in;
+    pool[ring_index(state_ptr, px, col, ksegs, n_seg)] = win[j];
+  }
+  zero_tails(pool, state_ptr, pix, c_in, ksegs, n_seg);
+  __syncthreads();
+  const int out_pix = h_out * w_out;
+  for (int j = threadIdx.x; j < out_pix * c_out; j += blockDim.x) {
+    const int px = j / c_out, co = j - px * c_out;
+    const int p = px / w_out, q = px - p * w_out;
+    float acc = 0.f;
+    for (int r = 0; r < k; ++r) {
+      const int src = p * stride - pad_v + r;
+      if (src < 0 || src >= h_win) continue;
+      for (int s = 0; s < k; ++s) {
+        const int col = q * stride - pad_h + s;
+        if (col < 0 || col >= w_in) continue;
+        const float* xr = win + (src * w_in + col) * c_in;
+        const float* wc = prm.w + (r * k + s) * c_in * c_out + co;
+        for (int ci = 0; ci < c_in; ++ci)
+          acc = fmaf(xr[ci], wc[ci * c_out], acc);
+      }
+    }
+    pool[ring_index(out_ptr, px, co, nsegs, n_seg)] =
+        activate(acc + prm.b[co], act);
+  }
+  zero_tails(pool, out_ptr, out_pix, c_out, nsegs, n_seg);
+}
+
+// ---------------------------------------------------------------------------
+// Fp32 GRU cell: gx = x @ W + b and gh = h @ U (W [d_in, 3 d_h], U [d_h,
+// 3 d_h], gates z, r, n), then the hard-gate update of
+// src/repro/quant/requant.py::gru_update, stored at state_ptr and at out_ptr
+// with zero channel tails.  x and h are read before anything is stored.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float hard_sigmoid(float t) {
+  return fminf(fmaxf(__fadd_rn(__fmul_rn(0.25f, t), 0.5f), 0.f), 1.f);
+}
+
+__device__ __forceinline__ float gru_update(float xz, float xr, float xn,
+                                            float hz, float hr, float hn,
+                                            float h) {
+  const float z = hard_sigmoid(__fadd_rn(xz, hz));
+  const float r = hard_sigmoid(__fadd_rn(xr, hr));
+  const float n = fminf(fmaxf(__fadd_rn(xn, __fmul_rn(r, hn)), -1.f), 1.f);
+  return __fadd_rn(__fmul_rn(__fsub_rn(1.f, z), n), __fmul_rn(z, h));
+}
+
+__global__ void __launch_bounds__(THREADS)
+gru_f32_kernel(float* pool, const float* __restrict__ w,
+               const float* __restrict__ u, const float* __restrict__ b,
+               int n_seg, int d_in, int d_h, int in_ptr, int out_ptr,
+               int state_ptr) {
+  extern __shared__ float smem[];
+  const int ci = segs_for(d_in), co = segs_for(d_h), g = 3 * d_h;
+  float* x = smem;                                  // [d_in]
+  float* h = x + d_in;                              // [d_h]
+  float* gx = h + d_h;                              // [3 d_h]
+  float* gh = gx + g;                               // [3 d_h]
+  load_rows(x, pool, in_ptr, 1, d_in, ci, n_seg);
+  load_rows(h, pool, state_ptr, 1, d_h, co, n_seg);
+  __syncthreads();
+  for (int j = threadIdx.x; j < 2 * g; j += blockDim.x) {
+    const bool rec = j >= g;
+    const int col = rec ? j - g : j, depth = rec ? d_h : d_in;
+    const float* v = rec ? h : x;
+    const float* m = (rec ? u : w) + col;
+    float acc = 0.f;
+    for (int kk = 0; kk < depth; ++kk) acc = fmaf(v[kk], m[kk * g], acc);
+    if (rec)
+      gh[col] = acc;
+    else
+      gx[col] = __fadd_rn(acc, b[col]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < co * SEG; i += blockDim.x) {
+    float y = 0.f;
+    if (i < d_h)
+      y = gru_update(gx[i], gx[d_h + i], gx[2 * d_h + i], gh[i], gh[d_h + i],
+                     gh[2 * d_h + i], h[i]);
+    pool[ring_index(state_ptr, 0, i, co, n_seg)] = y;
+    pool[ring_index(out_ptr, 0, i, co, n_seg)] = y;
+  }
+}
+
 // Shared memory of a conv/FC launch: the step's input tile and the bias and,
 // when the wrapper says they fit too, the weights (floats, 4 bytes each).
 size_t conv_smem(size_t x_len, size_t w_len, int c_out, int stage_w) {
@@ -425,6 +642,42 @@ int ring_avgpool(void* pool, int n_seg, int h, int w, int c, int in_ptr,
   return launch(avgpool_f32_kernel,
                 sizeof(float) * (size_t)c * (1 + (size_t)chunk_pix), stream,
                 (float*)pool, n_seg, h, w, c, in_ptr, out_ptr, chunk_pix);
+}
+
+int ring_inverted_bottleneck(void* pool, const void* w1, const void* wd,
+                             const void* w2, int n_seg, int H, int W,
+                             int C_in, int C_mid, int C_out, int RS,
+                             int in_ptr, int out_ptr, int residual,
+                             int stage_w, void* stream) {
+  const size_t smem =
+      sizeof(float) *
+      ((size_t)W * (RS * C_mid + C_mid + C_in + C_out) +
+       (stage_w ? (size_t)C_mid * (C_in + RS * RS + C_out) : 0));
+  return launch(ib_f32_kernel, smem, stream, (float*)pool, (const float*)w1,
+                (const float*)wd, (const float*)w2, n_seg, H, W, C_in, C_mid,
+                C_out, RS, in_ptr, out_ptr, residual, stage_w);
+}
+
+int ring_conv_stream(void* pool, const void* w, const void* b, int n_seg,
+                     int h_win, int w_in, int h_out, int w_out, int c_in,
+                     int c_out, int k, int stride, int hop, int pad_v,
+                     int pad_h, int in_ptr, int out_ptr, int state_ptr,
+                     int act, int stage_w, void* stream) {
+  const size_t smem = conv_smem((size_t)h_win * w_in * c_in,
+                                (size_t)k * k * c_in * c_out, c_out, stage_w);
+  return launch(conv_stream_f32_kernel, smem, stream, (float*)pool,
+                (const float*)w, (const float*)b, n_seg, h_win, w_in, h_out,
+                w_out, c_in, c_out, k, stride, hop, pad_v, pad_h, in_ptr,
+                out_ptr, state_ptr, act, stage_w);
+}
+
+int ring_gru_cell(void* pool, const void* w, const void* u, const void* b,
+                  int n_seg, int d_in, int d_h, int in_ptr, int out_ptr,
+                  int state_ptr, void* stream) {
+  return launch(gru_f32_kernel, sizeof(float) * (size_t)(d_in + 7 * d_h),
+                stream, (float*)pool, (const float*)w, (const float*)u,
+                (const float*)b, n_seg, d_in, d_h, in_ptr, out_ptr,
+                state_ptr);
 }
 
 }  // extern "C"

@@ -1,34 +1,39 @@
-"""Int8 streaming ring kernels: CUDA wrappers and their plain versions.
+"""Streaming ring kernels, int8 and fp32: CUDA wrappers and their plain
+versions.
 
-Counterpart of the int8 half of :mod:`repro.kernels.stream`.  Both ops
-keep persistent state in the ring, above the frame program's linear
-extent, so the state region never wraps:
+Counterpart of :mod:`repro.kernels.stream`.  Both ops keep persistent
+state in the ring, above the frame program's linear extent, so the
+state region never wraps:
 
-  * :func:`ring_conv_stream_q` shifts the ``[h_win, w_in, c_in]`` window
-    at ``state_ptr`` by ``hop`` image rows, appends the frame at
-    ``in_ptr``, writes the window back and stores the k x k conv over it
-    at ``out_ptr``;
-  * :func:`ring_gru_cell_q` reads ``x`` at ``in_ptr`` and the Q7 hidden
-    row at ``state_ptr`` and stores ``h'`` to both the state and
-    ``out_ptr``.
+  * :func:`ring_conv_stream_q` / :func:`ring_conv_stream` shift the
+    ``[h_win, w_in, c_in]`` window at ``state_ptr`` by ``hop`` image
+    rows, append the frame at ``in_ptr``, write the window back and
+    store the k x k conv over it at ``out_ptr``;
+  * :func:`ring_gru_cell_q` / :func:`ring_gru_cell` read ``x`` at
+    ``in_ptr`` and the hidden row at ``state_ptr`` (Q7 int8, or fp32)
+    and store ``h'`` to both the state and ``out_ptr``.
 
-The wrappers follow :mod:`repro_torch.kernels.quantized`: the
-reference's geometry checks, then device, dtype and shape checks, then
-one launch of the kernel in ``csrc/ring_q.cu``; they never fall back.
-Beside each sits its plain version (``<name>_plain``), which copies the
-window as raw segments, exactly as the reference kernel's DMA does.
+The wrappers follow :mod:`repro_torch.kernels.quantized` and
+:mod:`repro_torch.kernels.conv2d`: the reference's geometry checks, then
+device, dtype and shape checks, then one launch of the kernel in
+``csrc/ring_q.cu`` (int8) or ``csrc/ring_f32.cu`` (fp32); they never
+fall back.  Beside each sits its plain version (``<name>_plain``), which
+copies the window as raw segments, exactly as the reference kernel's
+DMA does.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.program import resolve_activation
 from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w
 from ..core.vpool import (SEG_WIDTH, fetch_rows, fetch_segments,
                           stage_rows, stage_segments)
-from ..quant.requant import gru_update_q12, requantize, requantize_i32, \
-    wrap_i32
+from ..quant.requant import gru_update, gru_update_q12, requantize, \
+    requantize_i32, wrap_i32
 from .quantized import (_acc32, _check_cuda, _idot, _launch, _per_channel,
                         _relu, _segs, _store_image, _taps)
+from .segment_matmul import F32, act_code
 
 
 def _stream_geometry(n_seg, *, w_in, w_out, c_in, c_out, h_win, hop,
@@ -46,6 +51,17 @@ def _stream_geometry(n_seg, *, w_in, w_out, c_in, c_out, h_win, hop,
                          "must be planned wrap-free (core.program)")
     return wc
 
+
+def _shift_window(pool, wc, *, h_win, w_in, c_in, hop, in_ptr, state_ptr):
+    """The plain versions' window step (``_shift_window_p0``): drop the
+    oldest ``hop`` image rows of the window at ``state_ptr``, append the
+    frame at ``in_ptr``, write the window back as raw segments, and
+    return its live channels ``[h_win, w_in, c_in]``."""
+    keep = fetch_segments(pool, state_ptr + hop * wc, (h_win - hop) * wc)
+    frame = fetch_segments(pool, in_ptr, hop * wc)
+    win = torch.cat([keep, frame], dim=0)
+    stage_segments(pool, win, state_ptr)
+    return win.reshape(h_win, w_in, _segs(c_in) * SEG_WIDTH)[..., :c_in]
 
 def _gru_geometry(n_seg, *, d_in, d_h, in_ptr, out_ptr, state_ptr) -> None:
     """The reference's checks (``stream.py::_gru_geometry``)."""
@@ -102,17 +118,63 @@ def ring_conv_stream_q_plain(pool, w, b, mult, shift, *, h_win: int,
                           c_in=c_in, c_out=c_out, h_win=h_win, hop=hop,
                           in_ptr=in_ptr, out_ptr=out_ptr,
                           state_ptr=state_ptr)
-    keep = fetch_segments(pool, state_ptr + hop * wc, (h_win - hop) * wc)
-    frame = fetch_segments(pool, in_ptr, hop * wc)
-    win = torch.cat([keep, frame], dim=0)
-    stage_segments(pool, win, state_ptr)
-    img = win.reshape(h_win, w_in, _segs(c_in) * SEG_WIDTH)[..., :c_in] \
+    img = _shift_window(pool, wc, h_win=h_win, w_in=w_in, c_in=c_in,
+                        hop=hop, in_ptr=in_ptr, state_ptr=state_ptr) \
         .to(torch.int64)
     acc = 0
     for r, s, tap in _taps(img, h_out, w_out, k, stride, padding):
         acc = acc + _idot(tap, w[r, s])
     acc = _acc32(acc, b, activation)
     return _store_image(pool, requantize(acc, mult, shift), out_ptr)
+
+
+def ring_conv_stream(pool, w, b, *, h_win: int, w_in: int, h_out: int,
+                     w_out: int, c_in: int, c_out: int, k: int = 3,
+                     stride: int = 1, padding: str = "same", hop: int = 1,
+                     in_ptr: int = 0, out_ptr: int = 0, state_ptr: int = 0,
+                     activation: str | None = None):
+    """Fp32 streaming conv step: window shift and writeback (an exact
+    copy of the live channels, zero channel tails), then the k x k conv
+    over the window, bias and activation (replaces ``ring_conv_stream``,
+    ``src/repro/kernels/stream.py:142``).  Shared memory holds the
+    window's live channels only."""
+    n_seg = pool.shape[0]
+    _stream_geometry(n_seg, w_in=w_in, w_out=w_out, c_in=c_in, c_out=c_out,
+                     h_win=h_win, hop=hop, in_ptr=in_ptr, out_ptr=out_ptr,
+                     state_ptr=state_ptr)
+    _check_cuda(pool, (("w", w, F32, (k, k, c_in, c_out)),
+                       ("b", b, F32, (c_out,))), dtype=F32)
+    ring_conv_stream.weights_staged = _launch(
+        "ring_conv_stream", pool, 4 * (h_win * w_in * c_in + c_out), (w, b),
+        (n_seg, h_win, w_in, h_out, w_out, c_in, c_out, k, stride, hop,
+         conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding), in_ptr,
+         out_ptr % n_seg, state_ptr, act_code(activation)),
+        w_bytes=4 * k * k * c_in * c_out)
+    ring_conv_stream.launches += 1
+    return pool
+
+
+def ring_conv_stream_plain(pool, w, b, *, h_win: int, w_in: int,
+                           h_out: int, w_out: int, c_in: int, c_out: int,
+                           k: int = 3, stride: int = 1,
+                           padding: str = "same", hop: int = 1,
+                           in_ptr: int = 0, out_ptr: int = 0,
+                           state_ptr: int = 0,
+                           activation: str | None = None):
+    """Plain version of :func:`ring_conv_stream` (``conv_stream_ring``
+    with the kernel's raw-segment window copy)."""
+    wc = _stream_geometry(pool.shape[0], w_in=w_in, w_out=w_out,
+                          c_in=c_in, c_out=c_out, h_win=h_win, hop=hop,
+                          in_ptr=in_ptr, out_ptr=out_ptr,
+                          state_ptr=state_ptr)
+    img = _shift_window(pool, wc, h_win=h_win, w_in=w_in, c_in=c_in,
+                        hop=hop, in_ptr=in_ptr, state_ptr=state_ptr).to(F32)
+    acc = torch.zeros((h_out, w_out, c_out), dtype=F32, device=pool.device)
+    for r, s, tap in _taps(img, h_out, w_out, k, stride, padding):
+        acc = acc + torch.einsum("hwc,cd->hwd", tap, w[r, s].to(F32))
+    y = resolve_activation(activation)(acc + b.to(F32))
+    stage_rows(pool, y.reshape(h_out * w_out, c_out), out_ptr)
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +231,42 @@ def ring_gru_cell_q_plain(pool, w, u, b, mult_x, shift_x, mult_u, shift_u,
     return pool
 
 
+def ring_gru_cell(pool, w, u, b, *, d_in: int, d_h: int, in_ptr: int = 0,
+                  out_ptr: int = 0, state_ptr: int = 0):
+    """Fp32 GRU step: ``h' = gru_update(x@W + b, h@U, h)``, stored at
+    ``state_ptr`` and ``out_ptr`` (replaces ``ring_gru_cell``,
+    ``src/repro/kernels/stream.py:350``).  W and U are each used once
+    per launch, so they are read from global memory where they lie."""
+    n_seg = pool.shape[0]
+    _gru_geometry(n_seg, d_in=d_in, d_h=d_h, in_ptr=in_ptr, out_ptr=out_ptr,
+                  state_ptr=state_ptr)
+    g = 3 * d_h
+    _check_cuda(pool, (("w", w, F32, (d_in, g)), ("u", u, F32, (d_h, g)),
+                       ("b", b, F32, (g,))), dtype=F32)
+    _launch("ring_gru_cell", pool, 4 * (d_in + d_h + 2 * g), (w, u, b),
+            (n_seg, d_in, d_h, in_ptr, out_ptr % n_seg, state_ptr))
+    ring_gru_cell.weights_staged = False       # W and U: global memory
+    ring_gru_cell.launches += 1
+    return pool
+
+
+def ring_gru_cell_plain(pool, w, u, b, *, d_in: int, d_h: int,
+                        in_ptr: int = 0, out_ptr: int = 0,
+                        state_ptr: int = 0):
+    """Plain version of :func:`ring_gru_cell` (``gru_cell_ring``)."""
+    _gru_geometry(pool.shape[0], d_in=d_in, d_h=d_h, in_ptr=in_ptr,
+                  out_ptr=out_ptr, state_ptr=state_ptr)
+    x = fetch_rows(pool, in_ptr, 1, d_in).to(F32)
+    h = fetch_rows(pool, state_ptr, 1, d_h).to(F32)
+    hp = gru_update(x @ w.to(F32) + b.to(F32), h @ u.to(F32), h, d_h)
+    stage_rows(pool, hp, state_ptr)
+    stage_rows(pool, hp, out_ptr)
+    return pool
+
+
 #: The wrappers, by name, and their plain versions under the same names.
-KERNELS = {f.__name__: f for f in (ring_conv_stream_q, ring_gru_cell_q)}
+KERNELS = {f.__name__: f for f in (ring_conv_stream_q, ring_gru_cell_q,
+                                   ring_conv_stream, ring_gru_cell)}
 PLAIN = {name: globals()[f"{name}_plain"] for name in KERNELS}
 
 for _f in KERNELS.values():

@@ -90,6 +90,21 @@ def wrap_i32(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.int64).to(torch.int32).to(torch.int64)
 
 
+def gru_update(gx, gh, h, d_h: int) -> torch.Tensor:
+    """Fp32 hard-gate GRU update (gate order z, r, n) — the reference's
+    ``gru_update``.
+
+    ``gx = x @ w + b`` and ``gh = h @ u`` are ``[..., 3*d_h]`` gate
+    pre-activations; ``hard_sigmoid(t) = clip(t/4 + 0.5, 0, 1)`` and
+    ``hard_tanh(t) = clip(t, -1, 1)``.  The CUDA kernel in
+    ``kernels/csrc/ring_f32.cu`` computes the same expression."""
+    z = torch.clamp(0.25 * (gx[..., :d_h] + gh[..., :d_h]) + 0.5, 0.0, 1.0)
+    r = torch.clamp(0.25 * (gx[..., d_h:2 * d_h] + gh[..., d_h:2 * d_h])
+                    + 0.5, 0.0, 1.0)
+    n = torch.clamp(gx[..., 2 * d_h:] + r * gh[..., 2 * d_h:], -1.0, 1.0)
+    return (1.0 - z) * n + z * h
+
+
 def gru_update_q12(gx, gh, h_q7, d_h: int) -> torch.Tensor:
     """Fixed-point hard-gate GRU update (gate order z, r, n) — the
     reference's ``gru_update_q12``, bit for bit.

@@ -7,7 +7,8 @@ ops shift their ring-resident state and consume the frame — and fetches
 the step output.  The state regions live wrap-free above the frame
 program's linear extent, so frame traffic never aliases them.
 
-The pool lives on the session's device: a CUDA pool runs the
+A session runs an int8 plan (its calibrated qparams) or a float plan
+(its fp32 params), each on the session's device: a CUDA pool runs the
 hand-written kernels, a CPU pool (``device="cpu"``) their plain
 versions, as :meth:`repro_torch.CompiledNet.run` does.  The reference's
 ``sim`` backend (the clobber oracle) and ``trace=True`` (per-step ring
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..core.vpool import VirtualPool
-from ..graph.run import step_net_quantized
+from ..graph.run import step_net, step_net_quantized
 
 
 class StreamSession:
@@ -46,8 +47,13 @@ class StreamSession:
 
         self.compiled = compiled
         self.device = _device(device)
-        self.qnet = compiled._qnet_on(self.device)
-        self.program = self.qnet.program
+        self.quantized = compiled.quantized
+        if self.quantized:
+            self.qnet = compiled._qnet_on(self.device)
+            self.program = self.qnet.program
+        else:
+            self.params = compiled._params_on(self.device)
+            self.program = compiled.program
         if not any(op.state_segments for op in self.program.ops):
             raise ValueError(
                 f"{compiled.net_name!r} has no stream state — load a "
@@ -67,15 +73,20 @@ class StreamSession:
         """Advance one frame.
 
         ``frame`` is ``[rows_in, d_in]`` (or anything reshapeable to it).
-        A float frame is quantized on entry and the output dequantized;
-        an int8 frame counts as quantized and the raw int8 output comes
-        back (the bitwise contract)."""
+        Through an int8 plan a float frame is quantized on entry and the
+        output dequantized, while an int8 frame counts as quantized and
+        the raw int8 output comes back (the bitwise contract); a float
+        plan takes the frame as fp32 and returns fp32."""
         first = self.program.ops[0]
         frame = torch.as_tensor(frame, device=self.device).reshape(
             first.rows_in, self.program.in_dim)
-        y = step_net_quantized(
-            self.qnet, self._pool, frame,
-            kernel_block_rows=self.compiled.target.kernel_block_rows)
+        kbr = self.compiled.target.kernel_block_rows
+        if self.quantized:
+            y = step_net_quantized(self.qnet, self._pool, frame,
+                                   kernel_block_rows=kbr)
+        else:
+            y = step_net(self.program, self._pool, frame, self.params,
+                         kernel_block_rows=kbr)
         self.steps += 1
         return y
 

@@ -19,6 +19,10 @@ asset:
     ``params``; the golden holds 8 inputs and the reference's
     ``run(x, backend="pallas")`` outputs for them (Pallas in interpret
     mode).  fp32 pools are compared by tolerance, so no pool hash;
+  * fp32 streaming plans (``FLOAT_STREAMS``, ``host-sim``): the two
+    streams below left unquantized, saved with their fp32 ``params``;
+    the golden holds 60 seeded frames and the reference session's
+    output of each step (``backend="jnp"``);
   * streaming plans (``STREAMS``): ``ds-cnn-stream`` is
     ``repro.compile("ds-cnn", streaming=True)``; ``kws-gru-chain`` is the
     conv_stream -> avgpool -> GRU program of ``tests/test_stream.py`` at
@@ -52,8 +56,9 @@ ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
 TARGET = "cortex-m4"
 NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
 FLOAT_TARGET = "host-sim"
-FLOAT_NETS = ("ds-cnn", "resnet-8")
+FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
+FLOAT_STREAMS = STREAMS
 N_INPUTS, N_FRAMES = 8, 60
 #: Keys of a saved artifact that vary from compile to compile (timings).
 TIMED = ("passes", "spans")
@@ -86,20 +91,23 @@ def _chain_params():
     return [(w, b), None, (wg, ug, bg)]
 
 
-def _gru_chain() -> RefCompiledNet:
-    """The keyword-spotting GRU chain as a reference ``CompiledNet``."""
+def _gru_chain(quantize: bool = True) -> RefCompiledNet:
+    """The keyword-spotting GRU chain as a reference ``CompiledNet``:
+    calibrated int8 for ``cortex-m4``, or left in fp32 for ``host-sim``."""
     prog = plan_program(10, 1, [
         ConvStreamSpec(49, 10, 1, 64, k=5, stride=2, hop=1,
                        activation="relu"),
         AvgPoolSpec(25, 5, 64), GRUCellSpec(64)], block_rows=1)
     params = _chain_params()
-    qnet = _quantize_net(prog, params)
-    qprog = qnet.program
-    cert = verify_program(qprog).certificate(
-        ref_artifact.program_sha256(qprog))
-    return RefCompiledNet(net_name="kws-gru-chain", target=get_target(TARGET),
-                          dtype="int8", program=qprog, params=params,
-                          qnet=qnet, mcu={}, certificate=cert, passes=[])
+    qnet = _quantize_net(prog, params) if quantize else None
+    prog = qnet.program if quantize else prog
+    cert = verify_program(prog).certificate(
+        ref_artifact.program_sha256(prog))
+    return RefCompiledNet(
+        net_name="kws-gru-chain",
+        target=get_target(TARGET if quantize else FLOAT_TARGET),
+        dtype="int8" if quantize else "float32", program=prog,
+        params=params, qnet=qnet, mcu={}, certificate=cert, passes=[])
 
 
 def compile_reference(name: str) -> RefCompiledNet:
@@ -108,6 +116,15 @@ def compile_reference(name: str) -> RefCompiledNet:
     if name == "ds-cnn-stream":
         return repro.compile("ds-cnn", TARGET, streaming=True)
     return repro.compile(name, TARGET)
+
+
+def compile_float_reference(name: str) -> RefCompiledNet:
+    """The reference's fp32 ``host-sim`` compile of a net or stream."""
+    if name == "kws-gru-chain":
+        return _gru_chain(quantize=False)
+    if name == "ds-cnn-stream":
+        return repro.compile("ds-cnn", FLOAT_TARGET, streaming=True)
+    return repro.compile(name, FLOAT_TARGET)
 
 
 def artifact_payload(cn: RefCompiledNet, *, params: bool = False) -> dict:
@@ -167,24 +184,31 @@ def reference_golden(name: str, cn: RefCompiledNet) -> dict:
     return stream_golden(cn) if name in STREAMS else net_golden(cn)
 
 
-def float_golden(cn: RefCompiledNet) -> dict:
-    """8 seeded inputs and the reference's Pallas outputs for them."""
+def float_golden(name: str, cn: RefCompiledNet) -> dict:
+    """A net's 8 seeded inputs and the reference's Pallas outputs for
+    them (one batched ``run``), or a stream's 60 seeded frames and the
+    reference session's output of each step."""
+    if name in FLOAT_STREAMS:
+        x = golden_inputs(cn.program, N_FRAMES)
+        session = cn.stream(backend="jnp")
+        return {"x": x, "y": np.stack([np.asarray(session.step(f))
+                                       for f in x])}
     x = golden_inputs(cn.program, N_INPUTS)
-    y = np.stack([np.asarray(cn.run(xi, backend="pallas")) for xi in x])
-    return {"x": x, "y": y}
+    return {"x": x, "y": np.asarray(cn.run(x, backend="pallas"))}
 
 
-def write_assets(names=NETS + STREAMS, float_names=FLOAT_NETS) -> None:
+def write_assets(names=NETS + STREAMS,
+                 float_names=FLOAT_NETS + FLOAT_STREAMS) -> None:
     ASSETS.mkdir(parents=True, exist_ok=True)
     for name in names:
         cn = compile_reference(name)
         artifact_path(name).write_text(json.dumps(artifact_payload(cn)))
         np.savez(golden_path(name), **reference_golden(name, cn))
     for name in float_names:
-        cn = repro.compile(name, FLOAT_TARGET)
+        cn = compile_float_reference(name)
         float_artifact_path(name).write_text(
             json.dumps(artifact_payload(cn, params=True)))
-        np.savez(float_golden_path(name), **float_golden(cn))
+        np.savez(float_golden_path(name), **float_golden(name, cn))
 
 
 @pytest.fixture(scope="module")
@@ -230,13 +254,13 @@ def fresh_float():
 
     def get(name):
         if name not in cache:
-            cn = repro.compile(name, FLOAT_TARGET)
-            cache[name] = cn, float_golden(cn)
+            cn = compile_float_reference(name)
+            cache[name] = cn, float_golden(name, cn)
         return cache[name]
     return get
 
 
-@pytest.mark.parametrize("name", FLOAT_NETS)
+@pytest.mark.parametrize("name", FLOAT_NETS + FLOAT_STREAMS)
 def test_float_artifact_matches_a_fresh_compile(name, fresh_float):
     have = json.loads(float_artifact_path(name).read_text())
     want = artifact_payload(fresh_float(name)[0], params=True)
@@ -246,11 +270,11 @@ def test_float_artifact_matches_a_fresh_compile(name, fresh_float):
         assert have[key] == want[key], key
 
 
-@pytest.mark.parametrize("name", FLOAT_NETS)
+@pytest.mark.parametrize("name", FLOAT_NETS + FLOAT_STREAMS)
 def test_float_golden_matches_a_fresh_reference_run(name, fresh_float):
     """The inputs are the seeded ones and the outputs the reference's
-    Pallas outputs for them (to the fp32 tolerance: the golden was
-    written in another process)."""
+    outputs for them (to the fp32 tolerance: the golden was written in
+    another process)."""
     want = fresh_float(name)[1]
     with np.load(float_golden_path(name)) as have:
         assert sorted(have.files) == ["x", "y"]
@@ -258,7 +282,24 @@ def test_float_golden_matches_a_fresh_reference_run(name, fresh_float):
         scale = float(np.abs(want["y"]).max())
         np.testing.assert_allclose(have["y"], want["y"], rtol=3e-4,
                                    atol=3e-5 * scale)
-    assert want["y"].shape[0] == N_INPUTS and np.isfinite(want["y"]).all()
+    n = N_FRAMES if name in FLOAT_STREAMS else N_INPUTS
+    assert want["y"].shape[0] == n and np.isfinite(want["y"]).all()
+
+
+def test_float_assets_reach_the_three_kernels_of_their_paths(fresh_float):
+    """fp32 VWW runs six fused inverted bottlenecks and both fp32 streams
+    hold their state in the ring; the DS-CNN window is 490 segments."""
+    kinds = [op.kind for op in fresh_float("mcunet-5fps-vww")[0].program.ops]
+    assert len(kinds) == 21 and kinds.count("ib_fused") == 6
+    for name in FLOAT_STREAMS:
+        cn = fresh_float(name)[0]
+        assert not cn.quantized and cn.dtype == "float32"
+        assert cn.target.name == FLOAT_TARGET
+        assert cn.certificate["stream_horizon"] == "unbounded"
+    chain = {op.kind for op in fresh_float("kws-gru-chain")[0].program.ops}
+    assert chain == {"conv_stream", "pool_avg", "gru_cell"}
+    win = fresh_float("ds-cnn-stream")[0].program.ops[0]
+    assert win.kind == "conv_stream" and win.state_segments == 490
 
 
 def test_stream_assets_hold_state_and_every_stream_kind(fresh):
@@ -275,4 +316,4 @@ def test_stream_assets_hold_state_and_every_stream_kind(fresh):
 if __name__ == "__main__":
     write_assets()
     print(f"wrote the artifacts and goldens of {NETS + STREAMS} and of "
-          f"the fp32 {FLOAT_NETS} in {ASSETS}")
+          f"the fp32 {FLOAT_NETS + FLOAT_STREAMS} in {ASSETS}")

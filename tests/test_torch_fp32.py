@@ -40,7 +40,7 @@ from repro_torch.graph.run import reference_forward
 from repro_torch.kernels import KERNELS, PLAIN, launch_counts
 from repro_torch.kernels.cases import (ATOL_REL, F32_EDGE_CASES, RTOL,
                                        case_inputs, compare_f32, live_lanes,
-                                       output_region, program_cases,
+                                       output_regions, program_cases,
                                        program_live_lanes)
 from repro_torch.kernels.segment_matmul import aligned_pool_geometry
 
@@ -153,7 +153,7 @@ def test_plain_version_matches_pallas_kernel(case):
                          **case.kwargs, interpret=True))
     got = _plain_pool(case, pool, params)
     assert not np.array_equal(want, pool), "the kernel stored nothing"
-    live = live_lanes(case.n_seg, [output_region(case.kernel, case.kwargs)])
+    live = live_lanes(case.n_seg, output_regions(case.kernel, case.kwargs))
     err, bad = compare_f32(got, want, live)
     assert bad is None, bad
 
@@ -162,7 +162,7 @@ def test_compare_f32_holds_tails_and_unwritten_lanes_exactly():
     (case,) = [c for c in F32_EDGE_CASES if c.name == "f32_gemm_wrap_silu"]
     pool, params = case_inputs(case, seed=0)
     want = _plain_pool(case, pool, params)
-    live = live_lanes(case.n_seg, [output_region(case.kernel, case.kwargs)])
+    live = live_lanes(case.n_seg, output_regions(case.kernel, case.kwargs))
     assert compare_f32(want, want, live) == (0.0, None)
     for seg, lane, what in ((4, 3, "a live lane"),
                             (4, 100, "a channel tail"),
@@ -292,7 +292,7 @@ def test_float_run_defaults_to_cuda_and_refuses_without_it(monkeypatch):
         cn.run(x)
     with pytest.raises(RuntimeError, match="CUDA"):
         cn.run(x, device="cuda")
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="no stream state"):
         cn.stream(device="cpu")
 
 

@@ -23,9 +23,10 @@ from repro_torch.core.executors import run_program
 from repro_torch.kernels import (KERNELS, PLAIN, launch_counts,
                                  reset_launch_counts)
 from repro_torch.kernels.cases import (ATOL_REL, EDGE_CASES,
-                                       F32_EDGE_CASES, RTOL, case_inputs,
-                                       compare_f32, live_lanes,
-                                       output_region, plain_pool,
+                                       F32_EDGE_CASES,
+                                       F32_FUSED_STREAM_EDGE_CASES, RTOL,
+                                       case_inputs, compare_f32, live_lanes,
+                                       output_regions, plain_pool,
                                        program_cases, program_live_lanes)
 from repro_torch.quant.qtensor import QParams, quantize
 
@@ -52,7 +53,7 @@ def _program_cases(name):
 
 
 CASES = EDGE_CASES + sum((_program_cases(n) for n in NETS + STREAMS), ())
-FLOAT_NETS = ("ds-cnn", "resnet-8")
+FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
 
 
 def _float_artifact(name):
@@ -71,8 +72,8 @@ def _float_program_cases(name):
                          prefix=f"{name}_f32_")
 
 
-F32_CASES = F32_EDGE_CASES + sum((_float_program_cases(n)
-                                  for n in FLOAT_NETS), ())
+F32_CASES = F32_EDGE_CASES + F32_FUSED_STREAM_EDGE_CASES \
+    + sum((_float_program_cases(n) for n in FLOAT_NETS + STREAMS), ())
 
 
 def _need_card():
@@ -171,7 +172,7 @@ def test_fp32_cuda_kernel_matches_plain_on_card(case):
     got = torch.from_numpy(pool).cuda()
     KERNELS[case.kernel](got, *cuda_params, **case.kwargs)
     torch.cuda.synchronize()
-    live = live_lanes(case.n_seg, [output_region(case.kernel, case.kwargs)])
+    live = live_lanes(case.n_seg, output_regions(case.kernel, case.kwargs))
     err, bad = compare_f32(got.cpu().numpy(), want.cpu().numpy(), live)
     assert bad is None, bad
 
@@ -182,6 +183,9 @@ FLOAT_LAUNCHES = {
                "ring_conv_k2d": 8, "ring_avgpool": 8},
     "resnet-8": {"ring_gemm": 8, "ring_conv_pw": 16, "ring_conv_k2d": 56,
                  "ring_add": 24, "ring_avgpool": 8},
+    "mcunet-5fps-vww": {"ring_gemm": 8, "ring_conv_pw": 72,
+                        "ring_conv_dw": 16, "ring_add": 16,
+                        "ring_avgpool": 8, "ring_inverted_bottleneck": 48},
 }
 
 
@@ -214,3 +218,43 @@ def test_fp32_served_main_path_matches_golden_on_card(name):
         err, bad = compare_f32(got, want.cpu().numpy(), live)
         assert bad is None, bad
         assert not got[~live].any()
+
+
+#: Launches of 60 fp32 ``step`` calls, per kernel.
+FLOAT_STREAM_LAUNCHES = {
+    "ds-cnn-stream": {"ring_conv_stream": 60, "ring_conv_dw": 240,
+                      "ring_conv_pw": 240, "ring_avgpool": 60,
+                      "ring_gemm": 60},
+    "kws-gru-chain": {"ring_conv_stream": 60, "ring_avgpool": 60,
+                      "ring_gru_cell": 60},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", STREAMS)
+def test_fp32_stream_matches_golden_on_card(name):
+    """The fp32 stream through its CUDA kernels: every step's output
+    within the tolerance of the golden, and the last pool within it of
+    the pool the plain versions leave on the card over the same frames,
+    exact on channel tails, unwritten lanes and the window's copy."""
+    _need_card()
+    cn, golden = load(_float_artifact(name)), _float_golden(name)
+    s = cn.stream()
+    reset_launch_counts()
+    frames = [torch.from_numpy(f).cuda() for f in golden["x"]]
+    ys = [s.step(f) for f in frames]
+    torch.cuda.synchronize()
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == FLOAT_STREAM_LAUNCHES[name]
+    scale = float(np.abs(golden["y"]).max())
+    for i, y in enumerate(ys):
+        assert y.device.type == "cuda"
+        np.testing.assert_allclose(y.cpu().numpy(), golden["y"][i],
+                                   rtol=RTOL, atol=ATOL_REL * scale,
+                                   err_msg=f"step {i}")
+    kbr = cn.target.kernel_block_rows
+    want = plain_pool(cn.program, frames, cn.params, kernel_block_rows=kbr)
+    live = program_live_lanes(cn.program, cn.params, kernel_block_rows=kbr)
+    err, bad = compare_f32(s.pool.array.cpu().numpy(), want.cpu().numpy(),
+                           live)
+    assert bad is None, bad

@@ -33,7 +33,8 @@ def test_sources_exist():
     names = {p.name for p in SOURCES}
     assert {"chip_smoke.py", "quantized.py", "stream.py", "session.py",
             "executors.py", "driver.py", "segment_matmul.py", "conv2d.py",
-            "_launch.py", "cases.py", "run.py", "program.py"} <= names
+            "_launch.py", "cases.py", "run.py", "program.py",
+            "inverted_bottleneck.py", "requant.py"} <= names
     assert all(p.exists() for p in SOURCES)
 
 
@@ -66,6 +67,16 @@ cn = repro_torch.load(assets + "/resnet-8.host-sim.float32.json")
 with np.load(assets + "/resnet-8.host-sim.float32.golden.npz") as g:
     y, want = cn.run(g["x"][0], device="cpu").numpy(), g["y"][0]
     assert np.allclose(y, want, rtol=3e-4, atol=3e-5 * np.abs(want).max())
+cn = repro_torch.load(assets + "/mcunet-5fps-vww.host-sim.float32.json")
+with np.load(assets + "/mcunet-5fps-vww.host-sim.float32.golden.npz") as g:
+    y, want = cn.run(g["x"][0], device="cpu").numpy(), g["y"][0]
+    assert np.allclose(y, want, rtol=3e-4, atol=3e-5 * np.abs(want).max())
+s = repro_torch.load(assets + "/kws-gru-chain.host-sim.float32.json").stream(
+    device="cpu")
+with np.load(assets + "/kws-gru-chain.host-sim.float32.golden.npz") as g:
+    for f, want in zip(g["x"][:3], g["y"]):
+        y = s.step(torch.from_numpy(f)).numpy()
+        assert np.allclose(y, want, rtol=3e-4, atol=3e-5 * np.abs(want).max())
 s = repro_torch.load(assets + "/kws-gru-chain.cortex-m4.int8.json").stream(
     device="cpu")
 with np.load(assets + "/kws-gru-chain.cortex-m4.int8.golden.npz") as g:
