@@ -16,12 +16,13 @@ Phases, one summary line each:
      card, with TF32 off: the eight int8 kernels bitwise, on every op of
      the five committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
      the DS-CNN stream and the GRU chain) and on the int8 edge cases of
-     ``repro_torch.kernels.cases``; the nine fp32 kernels within the
+     ``repro_torch.kernels.cases``; the eleven fp32 kernels within the
      tolerance of ``cases.compare_f32`` (channel tails and unwritten
-     lanes exact), on every op of the five fp32 ``host-sim`` plans
+     lanes exact), on every op of the six fp32 ``host-sim`` plans
      (DS-CNN, ResNet-8, MCUNet-5fps-VWW, the DS-CNN stream, the GRU
-     chain) and on the fp32 edge cases; and which ops read their weights
-     from global memory (too large for shared, or used once);
+     chain, the whisper-tiny MLP tower) and on the fp32 edge cases (a
+     gemma3-1b-width geglu layer among them); and which ops read their
+     weights from global memory (too large for shared, or used once);
   3. the paths, each with the launch counts set to 0 just before it and
      read just after:
        * ``repro_torch.load(artifact).run(x)`` on the int8 DS-CNN,
@@ -32,6 +33,13 @@ Phases, one summary line each:
          outputs within the tolerance of the reference's golden and of
          the plain ``reference_forward``, each final pool within it of
          the pool the plain versions leave, channel tails exactly 0;
+       * the same on whisper-tiny's MLP tower (4 fused MLP layers at
+         d_model 384, d_ff 1536 over 1,500 rows, then an elementwise
+         gelu), served from its params-less artifact with the weights of
+         ``cases.mlp_tower_params`` (seed 0) on 2 seeded inputs: the
+         golden holds 128 of the 1,500 rows, ``reference_forward`` is
+         held on all of them, and every inference makes exactly 5
+         launches (4 ``ring_fused_mlp``, 1 ``ring_elementwise``);
        * ``CompiledNet.stream().step(frame)`` on the DS-CNN stream and
          the GRU chain for 60 frames; every step's int8 output and the
          final pool's sha256 equal the golden;
@@ -45,8 +53,8 @@ Phases, one summary line each:
      ``torch.profiler``, and per kernel its CUDA-event time, its plain
      version's time, its bound and (fp32) the time of the PyTorch
      library call that computes the same op, at the shapes each path
-     gives it (the fused bottleneck and the fp32 GRU cell against a
-     short sequence of calls, with the count stated).
+     gives it (the fused bottleneck, the fp32 GRU cell and the fused MLP
+     against a short sequence of calls, with the count stated).
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -74,6 +82,10 @@ NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
 FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 FLOAT_STREAMS = STREAMS
+#: fp32 plans whose artifact holds no weights: ``mlp_tower_params`` of
+#: ``SEED`` gives them, and their golden holds the outputs' ``rows``.
+SEEDED_FLOAT_NETS = ("whisper-tiny-mlp",)
+SEED = 0
 #: An fp32 plan's label in the output (its int8 twin keeps the name).
 F32 = "-f32"
 
@@ -96,6 +108,8 @@ REPLACES = {
     "ring_inverted_bottleneck": "src/repro/kernels/inverted_bottleneck.py:107",
     "ring_conv_stream": "src/repro/kernels/stream.py:142",
     "ring_gru_cell": "src/repro/kernels/stream.py:350",
+    "ring_fused_mlp": "src/repro/kernels/fused_mlp.py:97",
+    "ring_elementwise": "src/repro/kernels/elementwise.py:61",
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -127,9 +141,30 @@ def artifact(label: str) -> pathlib.Path:
     return ASSETS / f"{_asset(label)}.json"
 
 
-def load_golden(label: str) -> dict:
+def load_golden(label: str, cn) -> dict:
+    """Plan ``cn``'s golden; a seeded plan's inputs are drawn again from
+    ``SEED`` and held to the sha256 the golden keeps."""
     with np.load(ASSETS / f"{_asset(label)}.golden.npz") as g:
-        return {k: g[k] for k in g.files}
+        golden = {k: g[k] for k in g.files}
+    if "x_sha256" in golden:
+        x = np.random.default_rng(SEED).standard_normal(
+            (len(golden["y"]), cn.program.m_rows, cn.program.in_dim),
+            np.float32)
+        if hashlib.sha256(x.tobytes()).hexdigest() != str(golden["x_sha256"]):
+            raise SystemExit(f"{label}: the seeded inputs differ from the "
+                             "golden's")
+        golden["x"] = x
+    return golden
+
+
+def load_plan(label: str):
+    """A plan from its artifact (a seeded plan with its seeded weights)."""
+    import repro_torch
+    from repro_torch.kernels.cases import seeded_float_net
+
+    if label.removesuffix(F32) in SEEDED_FLOAT_NETS:
+        return seeded_float_net(artifact(label), SEED)
+    return repro_torch.load(artifact(label))
 
 
 def params_of(cn):
@@ -243,7 +278,22 @@ def work_f32(kernel: str, kw: dict) -> tuple[int, int]:
     and writes back its window once at its data width and does 2 k^2
     c_in c_out operations per output pixel; the GRU cell reads x and h
     once, stores h' twice as whole segments and does 2 (d_in + d_h) 3
-    d_h operations."""
+    d_h operations; the fused MLP (``kw`` with its ``d_ff``) reads its
+    rows once at their data width, stores them as whole segments, reads
+    each weight once (W_gate only when gated) and does 2 operations per
+    multiply-accumulate of its two (three) products, 1 per activation,
+    gate product, tile sum and residual add; the elementwise map reads
+    its rows at their data width, stores them as whole segments and does
+    1 operation per live element."""
+    if kernel == "ring_fused_mlp":
+        m, d, f = kw["m_rows"], kw["d_model"], kw["d_ff"]
+        mats = 3 if kw["gated"] else 2
+        return (4 * (m * d + m * _segs(d) * 128 + mats * d * f),
+                2 * mats * m * d * f + (2 if kw["gated"] else 1) * m * f
+                + m * d * (f // kw["ff_tile"]) + m * d * kw["residual"])
+    if kernel == "ring_elementwise":
+        m, d = kw["m_rows"], kw["d"]
+        return 4 * (m * d + m * _segs(d) * 128), m * d
     if kernel == "ring_inverted_bottleneck":
         pix, ci, cm, co = kw["H"] * kw["W"], kw["C_in"], kw["C_mid"], \
             kw["C_out"]
@@ -459,12 +509,19 @@ def _within(got: np.ndarray, want: np.ndarray) -> bool:
                        + RTOL * np.abs(want)))
 
 
+#: Launches per inference that a path must make exactly, per kernel.
+LAUNCHES_PER_INFERENCE = {
+    "whisper-tiny-mlp" + F32: {"ring_fused_mlp": 4, "ring_elementwise": 1},
+}
+
+
 def path_serve_f32(label: str, cn, golden) -> dict[str, int]:
-    """``run`` of an fp32 plan on the card: 8 inputs batched and 8 one by
-    one, within the tolerance of the golden and of the plain
-    ``reference_forward``; each input's final pool within the tolerance
-    of the plain versions' pool, channel tails and unwritten lanes
-    exactly equal, the tails of every live row exactly 0."""
+    """``run`` of an fp32 plan on the card: the golden inputs batched and
+    one by one, within the tolerance of the golden (on its ``rows`` where
+    it holds only some) and of the plain ``reference_forward`` on every
+    row; each input's final pool within the tolerance of the plain
+    versions' pool, channel tails and unwritten lanes exactly equal, the
+    tails of every live row exactly 0."""
     from repro_torch.compile.artifact import to_device
     from repro_torch.core.executors import run_program
     from repro_torch.graph.run import reference_forward
@@ -479,12 +536,18 @@ def path_serve_f32(label: str, cn, golden) -> dict[str, int]:
         out["single"] = [cn.run(xi) for xi in x]
 
     counts = _counted(f"{label} run", cn, 2 * len(x), "inference", drive)
+    exact = LAUNCHES_PER_INFERENCE.get(label)
+    if exact is not None and {k: n for k, n in counts.items() if n} \
+            != {k: n * 2 * len(x) for k, n in exact.items()}:
+        raise SystemExit(f"{label}: launches {counts} are not {exact} per "
+                         "inference")
     if out["batch"].device.type != DEVICE_TYPE:
         raise SystemExit(f"{label}: outputs left the card")
     batch = out["batch"].cpu().numpy()
-    if not _within(batch, golden["y"]):
+    shown = batch if "rows" not in golden else batch[:, golden["rows"]]
+    if not _within(shown, golden["y"]):
         raise SystemExit(f"{label}: outputs differ from the golden by "
-                         f"{np.abs(batch - golden['y']).max():.3g}")
+                         f"{np.abs(shown - golden['y']).max():.3g}")
     for i, y in enumerate(out["single"]):
         if not torch.equal(y, out["batch"][i]):
             raise SystemExit(f"{label}: single run {i} differs from the "
@@ -511,10 +574,14 @@ def path_serve_f32(label: str, cn, golden) -> dict[str, int]:
             raise SystemExit(f"{label}: final pool {i} has a nonzero "
                              "channel tail or unwritten lane")
         worst = max(worst, err)
+    rows = "" if "rows" not in golden else \
+        f" on its {len(golden['rows'])} rows"
     say(f"  {label}: {batch.shape} outputs within the tolerance of the "
-        f"golden (max |difference| {np.abs(batch - golden['y']).max():.3g}"
-        f") and of reference_forward; final pools within it of the plain "
-        f"path's (max {worst:.3g}), channel tails 0, on all 8")
+        f"golden{rows} (max |difference| "
+        f"{np.abs(shown - golden['y']).max():.3g}) and of reference_forward"
+        f" (max {np.abs(batch - ref).max():.3g}); final pools within it of "
+        f"the plain path's (max {worst:.3g}), channel tails 0, on all "
+        f"{len(x)}")
     return counts
 
 
@@ -664,7 +731,9 @@ KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
                   "ring_avgpool": "avgpool_f32_kernel",
                   "ring_inverted_bottleneck": "ib_f32_kernel",
                   "ring_conv_stream": "conv_stream_f32_kernel",
-                  "ring_gru_cell": "gru_f32_kernel"}
+                  "ring_gru_cell": "gru_f32_kernel",
+                  "ring_fused_mlp": "fused_mlp_f32_kernel",
+                  "ring_elementwise": "elementwise_f32_kernel"}
 
 
 def _device_busy(fn, reps: int = 20):
@@ -737,11 +806,32 @@ def _library_gru(pool, params, kw):
                                d_h)), 17
 
 
+def _library_mlp(pool, params, kw):
+    """The fused MLP as PyTorch calls on the gathered rows: ``mm`` (two
+    when gated), the activation (and the gate's product), ``mm`` and the
+    residual ``add``; returns the function and its number of calls."""
+    from repro_torch.core.program import resolve_activation
+    from repro_torch.core.vpool import fetch_rows
+
+    wg, wu, wd = params
+    x = fetch_rows(pool, kw["ptr"], kw["m_rows"], kw["d_model"]).contiguous()
+    act = resolve_activation(kw["activation"])
+    gated, residual = kw["gated"], kw["residual"]
+
+    def body():
+        up = torch.mm(x, wu)
+        h = act(torch.mm(x, wg)) * up if gated else act(up)
+        y = torch.mm(h, wd)
+        return y + x if residual else y
+    return body, (6 if gated else 4) - (not residual)
+
+
 def library_call(kernel: str, pool, params, kw):
     """PyTorch library calls (cuBLAS, cuDNN or a reduction) that compute
     what fp32 ``kernel`` computes on the gathered tensors, as a function
     of no arguments, and the number of calls in it: one, but for the
-    fused bottleneck and the GRU cell, which no single call computes.
+    fused bottleneck, the GRU cell and the fused MLP, which no single
+    call computes.
     None for an int8 kernel or a resampling pw.  The gather from the
     ring (a stream's shifted window too), and a conv's zero padding, are
     left out of the calls."""
@@ -749,7 +839,7 @@ def library_call(kernel: str, pool, params, kw):
 
     from repro_torch.core.program import resolve_activation
     from repro_torch.core.rowsched import conv_k2d_pad, conv_k2d_pad_w
-    from repro_torch.core.vpool import fetch_rows
+    from repro_torch.core.vpool import fetch_rows, fetch_segments
 
     if kernel.endswith("_q") or kw.get("resample"):
         return None
@@ -757,6 +847,13 @@ def library_call(kernel: str, pool, params, kw):
         return _library_ib(pool, params, kw)
     if kernel == "ring_gru_cell":
         return _library_gru(pool, params, kw)
+    if kernel == "ring_fused_mlp":
+        return _library_mlp(pool, params, kw)
+    if kernel == "ring_elementwise":
+        segs = fetch_segments(pool, kw["ptr"],
+                              kw["m_rows"] * _segs(kw["d"])).contiguous()
+        fn = resolve_activation(kw["fn"])
+        return (lambda: fn(segs)), 1
     act = resolve_activation(kw.get("activation"))
     if kernel == "ring_avgpool":
         img = fetch_rows(pool, kw["in_ptr"], kw["h"] * kw["w"],
@@ -803,6 +900,14 @@ def library_call(kernel: str, pool, params, kw):
     return (lambda: act(F.conv2d(x, wt, b, stride=s, groups=groups))), 1
 
 
+def _work_kw(kernel: str, kw: dict, params) -> dict:
+    """A call's kwargs and what its bound needs beyond them: a fused
+    MLP's ``d_ff``, from W_up."""
+    if kernel == "ring_fused_mlp":
+        return dict(kw, d_ff=params[1].shape[1])
+    return kw
+
+
 def time_cases(cases) -> dict[str, dict]:
     """Per kernel over ``cases`` (one per op of a plan): the mean device
     time per launch, host time with the launch, plain-version time and
@@ -828,7 +933,7 @@ def time_cases(cases) -> dict[str, dict]:
                                50))
             plain_ms.append(_event_ms(
                 lambda: plain(pool, *params, **case.kwargs), 5))
-            bounds.append(bound(name, case.kwargs))
+            bounds.append(bound(name, _work_kw(name, case.kwargs, params)))
         if ms:
             out[name] = {"ms": statistics.mean(ms),
                          "plain_ms": statistics.mean(plain_ms),
@@ -842,7 +947,11 @@ def time_cases(cases) -> dict[str, dict]:
     return out
 
 
-def phase_timing(served, streamed, cases, counts, errs):
+#: The batch whose per-inference latency phase 4 reports beside batch 1.
+BATCH = 8
+
+
+def phase_timing(served, streamed, cases, counts, errs, goldens):
     """Times every path and its kernels; returns the per-kernel rows of
     the ``{"kernels": [...]}`` line and the per-path latency and busy
     share."""
@@ -851,7 +960,7 @@ def phase_timing(served, streamed, cases, counts, errs):
 
     say("phase 4: timing (library calls: one PyTorch call per op on the "
         "gathered, zero-padded tensors, a short sequence for the fused "
-        "bottleneck and the fp32 GRU cell; TF32 off)")
+        "bottleneck, the fp32 GRU cell and the fused MLP; TF32 off)")
     by_path = {}
     for label, cn, drive, per in served + streamed:
         t = time_cases(cases[label])
@@ -862,7 +971,8 @@ def phase_timing(served, streamed, cases, counts, errs):
             f"synchronize); device busy {busy_txt} of {call_us:.1f} us per "
             f"{per} (profiler)")
         if per == "inference":
-            x = torch.from_numpy(load_golden(label)["x"]).cuda()
+            x = torch.from_numpy(goldens[label]["x"]).cuda()
+            x = x[torch.arange(BATCH) % len(x)]
             b8 = _host_ms(lambda: cn.run(x), 10) / len(x)
             say(f"  {label}: {b8:.4f} ms per inference at batch {len(x)}")
         for name, row in t.items():
@@ -912,9 +1022,9 @@ def main() -> None:
         raise SystemExit("chip_smoke.py needs a CUDA card; none is "
                          "available")
     sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch
     from repro_torch.kernels.cases import (EDGE_CASES, F32_EDGE_CASES,
-                                           F32_FUSED_STREAM_EDGE_CASES)
+                                           F32_FUSED_STREAM_EDGE_CASES,
+                                           F32_MLP_EDGE_CASES)
 
     card = nvidia_smi_line()
     say(f"phase 0: card {card}")
@@ -930,21 +1040,22 @@ def main() -> None:
         f"{torch.backends.cudnn.allow_tf32}")
     phase_build()
 
-    served_labels = NETS + tuple(n + F32 for n in FLOAT_NETS)
+    served_labels = NETS + tuple(n + F32 for n in FLOAT_NETS
+                                 + SEEDED_FLOAT_NETS)
     stream_labels = STREAMS + tuple(n + F32 for n in FLOAT_STREAMS)
     labels = served_labels + stream_labels
-    plans = {n: repro_torch.load(artifact(n)) for n in labels}
-    goldens = {n: load_golden(n) for n in labels}
+    plans = {n: load_plan(n) for n in labels}
+    goldens = {n: load_golden(n, plans[n]) for n in labels}
     cases = {n: plan_cases(n, cn) for n, cn in plans.items()}
     errs = phase_parity(EDGE_CASES + F32_EDGE_CASES
-                        + F32_FUSED_STREAM_EDGE_CASES
+                        + F32_FUSED_STREAM_EDGE_CASES + F32_MLP_EDGE_CASES
                         + sum(cases.values(), ()))
 
     say("phase 3: the paths on the card")
     counts = {}
     for n in NETS:
         counts[n] = path_serve(n, plans[n], goldens[n])
-    for n in FLOAT_NETS:
+    for n in FLOAT_NETS + SEEDED_FLOAT_NETS:
         counts[n + F32] = path_serve_f32(n + F32, plans[n + F32],
                                          goldens[n + F32])
     for n in STREAMS:
@@ -965,7 +1076,8 @@ def main() -> None:
         frame = torch.from_numpy(first).cuda()
         streamed.append((n, plans[n],
                          lambda s=session, f=frame: s.step(f), "step"))
-    rows, paths = phase_timing(served, streamed, cases, counts, errs)
+    rows, paths = phase_timing(served, streamed, cases, counts, errs,
+                               goldens)
 
     say(json.dumps({"paths": paths}))
     say(json.dumps({"kernels": rows}))

@@ -9,7 +9,11 @@ later slice.
 
 A float plan (the ``host-sim`` target's default) carries its fp32
 ``params`` in the artifact; an int8 plan carries its calibrated
-``quant`` payload and may leave ``params`` out.  ``CompiledNet.run``
+``quant`` payload and may leave ``params`` out.  A float artifact saved
+without its params (weights too large to commit) runs only with params
+the caller supplies, through :meth:`CompiledNet.from_payload` —
+``repro_torch.kernels.cases.seeded_float_net`` builds them from a numpy
+seed.  ``CompiledNet.run``
 runs either on the CUDA card unless the caller passes ``device="cpu"``;
 without a card it raises rather than run elsewhere.
 ``CompiledNet.stream`` opens a :class:`repro_torch.stream.StreamSession`
@@ -202,7 +206,16 @@ class CompiledNet:
 
     @classmethod
     def load(cls, path) -> "CompiledNet":
-        payload = artifact.load(path)
+        return cls.from_payload(artifact.load(path), where=path)
+
+    @classmethod
+    def from_payload(cls, payload: dict, *, where="the artifact",
+                     params: list | None = None) -> "CompiledNet":
+        """A net from a decoded artifact ``payload`` (:func:`load` reads
+        one from ``where``).  A float plan runs with the artifact's fp32
+        ``params`` or, where the artifact has none, with the ``params``
+        the caller supplies (numpy arrays, one entry per op); without
+        either it is refused."""
         target = Target(**payload["target"])
         program = PoolProgram.from_json_dict(payload["program"])
         cert = payload.get("certificate")
@@ -210,11 +223,18 @@ class CompiledNet:
             have = artifact.program_sha256(program)
             if cert["program_sha256"] != have:
                 raise CompileError(
-                    f"VMCU403: {path} certificate does not match its "
+                    f"VMCU403: {where} certificate does not match its "
                     f"program (certified {cert['program_sha256'][:12]}"
                     f"..., stored {have[:12]}...) — the plan changed "
                     "after it was certified")
-        params = artifact.decode(payload.get("params"))
+        stored = artifact.decode(payload.get("params"))
+        if params is None:
+            params = stored
+        elif stored is not None:
+            raise ValueError(f"{where} holds its own params")
+        elif len(params) != len(program.ops):
+            raise ValueError(f"{len(params)} param entries for "
+                             f"{len(program.ops)} ops")
         qnet = None
         if payload["quant"] is not None:
             qnet = QuantizedNet(
@@ -222,7 +242,7 @@ class CompiledNet:
                 qparams=artifact.decode(payload["quant"]["qparams"]),
                 act_scales=tuple(payload["quant"]["act_scales"]))
         elif params is None:
-            raise CompileError(f"{path} holds a float plan without its "
+            raise CompileError(f"{where} holds a float plan without its "
                                "fp32 params: nothing to run it with")
         return cls(net_name=payload["net"], target=target,
                    dtype=payload["dtype"], program=program, qnet=qnet,

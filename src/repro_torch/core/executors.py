@@ -13,9 +13,9 @@ implementation:
     ``_run_jnp_q`` and of ``_apply_op``/``_run_jnp``.
 
 Nothing on the CUDA path calls a plain version.  Every int8 op kind has
-its kernel; of the fp32 kinds, the whole-network, fused inverted
-bottleneck and streaming ones (:data:`F32_KINDS`) do, and the fused MLP
-and elementwise kinds come in a later slice.
+its kernel, and so does every executable fp32 kind (:data:`F32_KINDS`):
+the whole-network ones, the fused inverted bottleneck, the streaming
+ones, and the two delta-0 kinds, the fused MLP and the elementwise map.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ Q_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "add", "pool_avg",
            "conv_stream", "gru_cell")
 #: Op kinds the port's fp32 executors run.
 F32_KINDS = ("gemm", "conv_pw", "conv_dw", "conv_k2d", "add", "pool_avg",
-             "ib_fused", "conv_stream", "gru_cell")
+             "ib_fused", "conv_stream", "gru_cell", "fused_mlp",
+             "elementwise")
 
 
 def _normalize_qparams(program: PoolProgram, params):
@@ -70,8 +71,10 @@ def _normalize_params(program: PoolProgram, params):
     """Validate param entries: int8 programs through
     :func:`_normalize_qparams`; fp32 ones take ``(w, b)`` for gemm, conv
     and conv_stream, ``(w, u, b)`` for gru_cell (a missing bias becomes
-    zeros), ``(w1, wd, w2)`` for ib_fused and ``None`` for add and
-    pool_avg."""
+    zeros), ``(w1, wd, w2)`` for ib_fused, ``(w_gate, w_up, w_down)``
+    for fused_mlp (an ungated op's ``None`` gate becomes ``w_up``, as in
+    the reference; the kernel never reads it) and ``None`` for add,
+    pool_avg and elementwise."""
     if program.quantized:
         return _normalize_qparams(program, params)
     if params is None:
@@ -101,6 +104,9 @@ def _normalize_params(program: PoolProgram, params):
         elif op.kind == "ib_fused":
             w1, wd, w2 = p
             out.append((w1, wd, w2))
+        elif op.kind == "fused_mlp":
+            wg, wu, wd = p
+            out.append((wu if wg is None else wg, wu, wd))
         else:
             if p is not None:
                 raise ValueError(f"{op.kind} op takes no params")
@@ -248,6 +254,15 @@ def _f32_kernel_call(program: PoolProgram, op, p, *,
             H=op.h_in, W=op.w_in, C_in=op.d_in, C_mid=op.d_mid,
             C_out=op.d_out, RS=op.rs, in_ptr=op.in_ptr, out_ptr=op.out_ptr,
             residual=op.residual)
+    if op.kind == "fused_mlp":
+        return "ring_fused_mlp", tuple(p), dict(
+            m_rows=rows, d_model=op.d_in, ptr=op.in_ptr,
+            block_rows=program.block_rows, ff_tile=op.ff_tile,
+            gated=op.gated, residual=op.residual, activation=op.activation)
+    if op.kind == "elementwise":
+        return "ring_elementwise", (), dict(
+            m_rows=rows, d=op.d_in, ptr=op.in_ptr, fn=op.activation,
+            block_rows=program.block_rows)
     if op.kind == "conv_stream":
         return "ring_conv_stream", tuple(p), dict(
             h_win=op.h_in, w_in=op.w_in, h_out=op.h_out, w_out=op.w_out,

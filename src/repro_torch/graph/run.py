@@ -22,6 +22,7 @@ from ..core.executors import execute, run_program
 from ..core.program import PoolProgram, resolve_activation
 from ..core.rowsched import conv_k2d_pad, resample_src
 from ..core.vpool import VirtualPool
+from ..kernels.fused_mlp import fused_mlp_ref
 from ..kernels.inverted_bottleneck import inverted_bottleneck_ref
 from ..quant.qtensor import QParams, dequantize, quantize
 
@@ -75,8 +76,9 @@ def _wb(op, p):
 def reference_forward(program: PoolProgram, x: torch.Tensor,
                       params) -> torch.Tensor:
     """Plain forward pass of the planned network (no pool): the port of
-    the reference's ``reference_forward`` for the whole-network kinds
-    and the fused inverted bottleneck.
+    the reference's ``reference_forward`` for every executable kind but
+    the streaming ones (whole-network, the fused inverted bottleneck,
+    the fused MLP and the elementwise map).
 
     ``x`` is ``[rows, d]``, the flattened input image.  Residual ``add``
     ops read the saved input of their source op, and branch convs (the
@@ -126,6 +128,11 @@ def reference_forward(program: PoolProgram, x: torch.Tensor,
             cur = inverted_bottleneck_ref(
                 a, w1, wd, w2, residual=op.residual).reshape(op.rows_out,
                                                              op.d_out)
+        elif op.kind == "fused_mlp":
+            wg, wu, wd = p
+            cur = fused_mlp_ref(cur, wg, wu, wd, gated=op.gated,
+                                residual=op.residual,
+                                activation=op.activation).to(torch.float32)
         elif op.kind == "add":
             cur = act(cur + saved[op.aux_op])
         elif op.kind == "pool_avg":

@@ -1,16 +1,19 @@
 """The port's hand-written CUDA ring kernels (``csrc/``), their build
 (``_build``), their Python wrappers and plain versions (int8:
 ``quantized``; fp32: ``segment_matmul``, ``conv2d``,
-``inverted_bottleneck``; both: ``stream``) and the parity cases they are
+``inverted_bottleneck``, ``fused_mlp``, ``elementwise``; both:
+``stream``) and the parity cases they are
 held to (``cases``).
 
 :data:`KERNELS` and :data:`PLAIN` are every wrapper and every plain
 version by kernel name; each wrapper counts its launches in
 ``<wrapper>.launches`` (:func:`launch_counts`).  Importing this package
 builds nothing."""
-from . import conv2d, inverted_bottleneck, quantized, segment_matmul, stream
+from . import (conv2d, elementwise, fused_mlp, inverted_bottleneck, quantized,
+               segment_matmul, stream)
 
-_MODULES = (quantized, stream, segment_matmul, conv2d, inverted_bottleneck)
+_MODULES = (quantized, stream, segment_matmul, conv2d, inverted_bottleneck,
+            fused_mlp, elementwise)
 KERNELS = {name: f for m in _MODULES for name, f in m.KERNELS.items()}
 PLAIN = {name: f for m in _MODULES for name, f in m.PLAIN.items()}
 

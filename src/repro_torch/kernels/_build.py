@@ -53,6 +53,8 @@ SIGNATURES = {
         "ring_inverted_bottleneck": [_P] * 4 + [_I] * 11 + [_P],
         "ring_conv_stream": [_P] * 3 + [_I] * 17 + [_P],
         "ring_gru_cell": [_P] * 4 + [_I] * 6 + [_P],
+        "ring_fused_mlp": [_P] * 4 + [_I] * 10 + [_P],
+        "ring_elementwise": [_P] + [_I] * 4 + [_P],
     },
 }
 

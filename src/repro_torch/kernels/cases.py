@@ -15,8 +15,16 @@ and wrapping int32 sums, streaming windows with ``hop`` 2);
 :data:`F32_EDGE_CASES` are their fp32 twins for the six whole-network
 kernels, with every activation of the fp32 epilogue;
 :data:`F32_FUSED_STREAM_EDGE_CASES` those of the fused inverted
-bottleneck and the fp32 streaming kernels; :func:`program_cases` gives
-one case per op of a real program, with its real weights.
+bottleneck and the fp32 streaming kernels;
+:data:`F32_MLP_EDGE_CASES` those of the two delta-0 kernels, the fused
+MLP and the elementwise map; :func:`program_cases` gives one case per
+op of a real program, with its real weights.
+
+:func:`mlp_tower_params` is the numpy recipe for the weights of an MLP
+tower plan, whose fp32 weights are too large to commit (whisper-tiny's
+four layers are 18.9 MB): the same seed gives the same weights on every
+machine, to the reference and to the port; :func:`seeded_float_net`
+serves such a plan from its params-less artifact.
 
 An int8 kernel is held to its plain version bitwise.  An fp32 kernel is
 held by :func:`compare_f32` at the one tolerance :data:`RTOL` and
@@ -67,6 +75,7 @@ class Case:
     n_seg: int
     kwargs: dict
     params: tuple | None = None   # real weights, or None to draw them
+    d_ff: int = 0         # a fused MLP's hidden width, for drawn weights
 
 
 def _k2d(h, w, ci, co, k, s, pad, hout, wout, i, o, act):
@@ -260,6 +269,82 @@ F32_FUSED_STREAM_EDGE_CASES = (
 )
 
 
+def _mlp(m, d, ptr, ff_tile, gated, residual, act, block_rows=1):
+    return dict(m_rows=m, d_model=d, ptr=ptr, block_rows=block_rows,
+                ff_tile=ff_tile, gated=gated, residual=residual,
+                activation=act)
+
+
+def _ew(m, d, ptr, fn):
+    return dict(m_rows=m, d=d, ptr=ptr, fn=fn, block_rows=1)
+
+
+#: Edge cases of the fp32 fused MLP and elementwise map (both delta 0, in
+#: place).  The fused MLP's kernel runs one block per 16 rows (8 at d_model
+#: 1152), so every case with more than 16 rows runs several blocks at once.
+F32_MLP_EDGE_CASES = (
+    # the conformance-matrix cell (tests/test_conformance_matrix.py)
+    Case("f32_mlp_conformance_cell", "ring_fused_mlp", 16,
+         _mlp(8, 256, 0, 256, True, True, "gelu", block_rows=8), d_ff=512),
+    # gated silu over three blocks of rows
+    Case("f32_mlp_gated_silu", "ring_fused_mlp", 48,
+         _mlp(40, 128, 4, 128, True, True, "silu"), d_ff=384),
+    Case("f32_mlp_ungated_no_residual", "ring_fused_mlp", 40,
+         _mlp(24, 96, 10, 128, False, False, "gelu"), d_ff=256),
+    # two segments a row, 56 tail lanes each
+    Case("f32_mlp_d200_tail", "ring_fused_mlp", 50,
+         _mlp(20, 200, 6, 160, True, True, "gelu"), d_ff=320),
+    # the run of rows wraps the ring inside the second block
+    Case("f32_mlp_ring_wraps", "ring_fused_mlp", 64,
+         _mlp(30, 160, 52, 256, True, True, "gelu"), d_ff=256),
+    # one gemma3-1b geglu layer (d_model 1152, d_ff 6912, the planner's
+    # ff_tile 432): 95.6 MB of weights; the wrapper shrinks its blocks to
+    # 8 rows to fit shared memory
+    Case("f32_mlp_gemma3_1b_geglu", "ring_fused_mlp", 160,
+         _mlp(16, 1152, 16, 432, True, True, "gelu"), d_ff=6912),
+    # every activation over a region that wraps the ring
+    *(Case(f"f32_elementwise_{fn}_wrap", "ring_elementwise", 40,
+           _ew(12, 200, 30, fn))
+      for fn in ("gelu", "silu", "relu", "square", "identity")),
+)
+
+
+def mlp_tower_params(program, seed: int) -> list:
+    """fp32 weights of an MLP tower plan (fused_mlp and elementwise ops),
+    numpy, from one ``np.random.default_rng(seed)`` in op order: per
+    fused_mlp op ``W_gate`` (gated ops only; ``None`` otherwise) and
+    ``W_up`` ``[d, d_ff]`` from N(0, 1)/sqrt(d), then ``W_down`` ``[d_ff,
+    d]`` from N(0, 1)/d_ff (the reference's init scale); ``None`` per
+    elementwise op."""
+    rng = np.random.default_rng(seed)
+    params = []
+    for op in program.ops:
+        if op.kind == "elementwise":
+            params.append(None)
+            continue
+        if op.kind != "fused_mlp":
+            raise ValueError(f"an MLP tower has no {op.kind!r} op")
+        d, f = op.d_in, op.d_ff
+        wg = _normal(rng, (d, f), 1 / np.sqrt(d)) if op.gated else None
+        wu = _normal(rng, (d, f), 1 / np.sqrt(d))
+        params.append((wg, wu, _normal(rng, (f, d), 1 / f)))
+    return params
+
+
+def seeded_float_net(path, seed: int = 0):
+    """A :class:`repro_torch.compile.driver.CompiledNet` from a float
+    artifact saved without params, run with :func:`mlp_tower_params` of
+    ``seed``."""
+    from ..compile import artifact
+    from ..compile.driver import CompiledNet
+    from ..core.program import PoolProgram
+
+    payload = artifact.load(path)
+    program = PoolProgram.from_json_dict(payload["program"])
+    return CompiledNet.from_payload(payload, where=path,
+                                    params=mlp_tower_params(program, seed))
+
+
 def program_cases(program, params, *, kernel_block_rows: int = 8,
                   prefix: str = "", kinds=None):
     """One case per op of ``program`` (of the op kinds ``kinds``, when
@@ -272,6 +357,8 @@ def program_cases(program, params, *, kernel_block_rows: int = 8,
     for i, (op, p) in enumerate(zip(program.ops, params)):
         if kinds is not None and op.kind not in kinds:
             continue
+        if op.kind == "fused_mlp" and p[0] is None:   # ungated: no gate
+            p = (p[1], *p[1:])
         if p is not None and p[1] is None:     # a net without biases
             p = (p[0], np.zeros((op.d_out,), np.int32 if program.quantized
                                 else np.float32), *p[2:])
@@ -340,6 +427,10 @@ def input_regions(kernel: str, kw: dict) -> list[tuple[int, int, int]]:
                 (kw["state_ptr"], 1, kw["d_h"])]
     if kernel == "ring_inverted_bottleneck":
         return [(kw["in_ptr"], kw["H"] * kw["W"], kw["C_in"])]
+    if kernel == "ring_fused_mlp":
+        return [(kw["ptr"], kw["m_rows"], kw["d_model"])]
+    if kernel == "ring_elementwise":
+        return [(kw["ptr"], kw["m_rows"], kw["d"])]
     c = kw["c"] if kernel == "ring_conv_dw" else kw["c_in"]
     return [(kw["in_ptr"], kw["h_in"] * kw["w_in"], c)]
 
@@ -360,6 +451,8 @@ def output_regions(kernel: str, kw: dict) -> list[tuple[int, int, int]]:
                 (kw["out_ptr"], 1, kw["d_h"])]
     if kernel == "ring_inverted_bottleneck":
         return [(kw["out_ptr"], kw["H"] * kw["W"], kw["C_out"])]
+    if kernel in ("ring_fused_mlp", "ring_elementwise"):
+        return input_regions(kernel, kw)            # in place
     c = kw["c"] if kernel == "ring_conv_dw" else kw["c_out"]
     return [(kw["out_ptr"], kw["h_out"] * kw["w_out"], c)]
 
@@ -451,6 +544,19 @@ def _gru_f32_draw(rng, kw):
             _normal(rng, (g,), 0.5))
 
 
+def _mlp_draw(rng, kw, d_ff: int):
+    """Seeded fused-MLP weights.  ``W_down`` is N(0, 1)/sqrt(d_ff), not
+    the reference's init scale 1/d_ff, so that the MLP's term is as large
+    as the residual's and the tolerance does not hide an error in it.  An
+    ungated op gets ``W_up`` in the gate's place, as the executor gives
+    it."""
+    d = kw["d_model"]
+    wg = _normal(rng, (d, d_ff), 1 / np.sqrt(d)) if kw["gated"] else None
+    wu = _normal(rng, (d, d_ff), 1 / np.sqrt(d))
+    return (wu if wg is None else wg, wu,
+            _normal(rng, (d_ff, d), 1 / np.sqrt(d_ff)))
+
+
 def _f32_inputs(case: Case, rng):
     pool = rng.standard_normal((case.n_seg, SEG_WIDTH), np.float32)
     for ptr, rows, d in input_regions(case.kernel, case.kwargs):
@@ -461,8 +567,10 @@ def _f32_inputs(case: Case, rng):
         pool[idx] = padded.reshape(rows * segs, SEG_WIDTH)
     if case.params is not None:
         return pool, tuple(case.params)
-    if case.kernel in ("ring_avgpool", "ring_add"):
+    if case.kernel in ("ring_avgpool", "ring_add", "ring_elementwise"):
         return pool, ()
+    if case.kernel == "ring_fused_mlp":
+        return pool, _mlp_draw(rng, case.kwargs, case.d_ff)
     if case.kernel == "ring_inverted_bottleneck":
         return pool, _ib_draw(rng, case.kwargs)
     if case.kernel == "ring_gru_cell":

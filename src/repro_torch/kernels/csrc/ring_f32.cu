@@ -12,6 +12,8 @@
 //                    (inverted_bottleneck.py:107)           fused PW-DW-PW, Fig. 6
 //   ring_conv_stream <- ring_conv_stream (stream.py:142)    streaming k x k conv
 //   ring_gru_cell    <- ring_gru_cell    (stream.py:350)    fp32 GRU cell
+//   ring_fused_mlp   <- ring_fused_mlp   (fused_mlp.py:97)  in-place (gated) MLP
+//   ring_elementwise <- ring_elementwise (elementwise.py:61) in-place activation
 //
 // They are the fp32 twins of the int8 kernels of ring_q.cu and keep their
 // ring order.  The pool is one float tensor [n_seg, 128]: a tensor of c-wide
@@ -56,6 +58,11 @@
 // output pixel in one parallel sweep, since nothing is stored before the
 // window is on chip.  The GRU cell uses each of W and U once per launch, so
 // it reads them from global memory (coalesced across output columns).
+//
+// The fused MLP and the elementwise map are the two delta-0 ops: step t reads
+// row t and stores row t (core/rowsched.py::rowwise_schedule), so the row
+// blocks of one op are disjoint and they are the only kernels here that run
+// many thread blocks at once (see each kernel's comment).
 //
 // Numerics: fp32 FMA accumulation over the reduction in its natural order
 // (taps row-major, then input channels), then the bias, then the activation
@@ -556,23 +563,177 @@ gru_f32_kernel(float* pool, const float* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Fused MLP, in place (delta 0): over m_rows rows of d_model channels at ptr,
+//   up = x @ W_up, gate = x @ W_gate (gated only), h = act(gate) * up or
+//   act(up), y = h @ W_down (+ x), stored over the rows it was read from.
+// W_gate, W_up [d_model, d_ff], W_down [d_ff, d_model], read from global
+// memory (whisper-tiny's 4.7 MB a layer stays in L2).  The [rows, d_ff]
+// intermediate never exists: d_ff is walked in tiles of `tile` columns, and
+// only the [rows_per_block, tile] slice h lives in shared memory.
+//
+// Many thread blocks, one per block of `rows_per_block` rows.  A delta-0 op's
+// step t reads row t and writes row t, so two blocks never touch the same
+// row: what keeps the op in place is that each block reads ALL of its rows
+// (x, which every d_ff tile and the residual need) into shared memory before
+// it stores any of them.  The wrapper refuses m_rows * segs(d_model) > n_seg
+// (a run of rows that wraps onto itself).
+//
+// Each thread computes MLP_RPT rows of one output column: one weight read
+// from global memory feeds MLP_RPT FMAs, and x (or h) comes from shared
+// memory four floats at a time, the same address for the whole warp.  Bound
+// on the card: whisper-tiny's layer at 1,500 rows is 1.77 G FMAs over 9.3 MB,
+// so it is the FMA rate's (no tensor cores: fp32 without TF32).  Per d_ff
+// tile the down-projection's partial sum starts from zero and is added to
+// the fp32 accumulator, as the reference's per-ff_tile accumulation does.
+// ---------------------------------------------------------------------------
+constexpr int MLP_RPT = 8;   // rows per thread (rows_per_block is a multiple)
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// acc[r] = sum_k a[r * lda + k] * b[k * ldb] for the MLP_RPT rows of `a`
+// (shared memory, lda a multiple of 4, 16-byte aligned) and one column of `b`
+// (global memory).  The sum runs over k in order, one FMA at a time.
+__device__ __forceinline__ void rows_dot(float (&acc)[MLP_RPT], const float* a,
+                                         int lda, int K,
+                                         const float* __restrict__ b,
+                                         int ldb) {
+#pragma unroll
+  for (int r = 0; r < MLP_RPT; ++r) acc[r] = 0.f;
+  int k = 0;
+  for (; k + 4 <= K; k += 4) {
+    const float b0 = b[(size_t)k * ldb], b1 = b[(size_t)(k + 1) * ldb];
+    const float b2 = b[(size_t)(k + 2) * ldb], b3 = b[(size_t)(k + 3) * ldb];
+#pragma unroll
+    for (int r = 0; r < MLP_RPT; ++r) {
+      const float4 x = *reinterpret_cast<const float4*>(a + r * lda + k);
+      acc[r] = fmaf(x.w, b3, fmaf(x.z, b2, fmaf(x.y, b1, fmaf(x.x, b0, acc[r]))));
+    }
+  }
+  for (; k < K; ++k) {
+    const float bk = b[(size_t)k * ldb];
+#pragma unroll
+    for (int r = 0; r < MLP_RPT; ++r) acc[r] = fmaf(a[r * lda + k], bk, acc[r]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+fused_mlp_f32_kernel(float* pool, const float* __restrict__ w_gate,
+                     const float* __restrict__ w_up,
+                     const float* __restrict__ w_down, int n_seg, int m_rows,
+                     int d, int d_ff, int ptr, int gated, int residual,
+                     int act, int rows_per_block, int tile) {
+  extern __shared__ float4 smem4[];
+  const int R = rows_per_block, dp = round4(d), tp = round4(tile);
+  float* xs = reinterpret_cast<float*>(smem4);      // [R, dp]
+  float* hs = xs + (size_t)R * dp;                  // [R, tp]
+  float* acc = hs + (size_t)R * tp;                 // [R, d]
+  const int dsegs = segs_for(d), groups = R / MLP_RPT;
+  const int r0 = blockIdx.x * R, rows = min(R, m_rows - r0);
+  // Every read of this block's rows, before any store (rows past m_rows and
+  // the lanes d .. dp are zeros that nothing stores).
+  for (int j = threadIdx.x; j < R * dp; j += blockDim.x) {
+    const int r = j / dp, col = j - r * dp;
+    xs[j] = r < rows && col < d
+                ? pool[ring_index(ptr, r0 + r, col, dsegs, n_seg)]
+                : 0.f;
+  }
+  for (int j = threadIdx.x; j < R * d; j += blockDim.x) acc[j] = 0.f;
+  __syncthreads();
+  for (int f0 = 0; f0 < d_ff; f0 += tile) {
+    const int tw = min(tile, d_ff - f0);
+    for (int j = threadIdx.x; j < tw * groups; j += blockDim.x) {
+      const int g = j / tw, t = j - g * tw;
+      const float* xg = xs + (size_t)g * MLP_RPT * dp;
+      float up[MLP_RPT];
+      rows_dot(up, xg, dp, d, w_up + f0 + t, d_ff);
+      float* hg = hs + (size_t)g * MLP_RPT * tp + t;
+      if (gated) {   // an ungated op never reads w_gate
+        float gt[MLP_RPT];
+        rows_dot(gt, xg, dp, d, w_gate + f0 + t, d_ff);
+#pragma unroll
+        for (int r = 0; r < MLP_RPT; ++r) hg[r * tp] = activate(gt[r], act) * up[r];
+      } else {
+#pragma unroll
+        for (int r = 0; r < MLP_RPT; ++r) hg[r * tp] = activate(up[r], act);
+      }
+    }
+    __syncthreads();
+    // thread j always owns the same accumulator entries: no barrier for acc
+    for (int j = threadIdx.x; j < d * groups; j += blockDim.x) {
+      const int g = j / d, c = j - g * d;
+      float part[MLP_RPT];
+      rows_dot(part, hs + (size_t)g * MLP_RPT * tp, tp, tw,
+               w_down + (size_t)f0 * d + c, d);
+#pragma unroll
+      for (int r = 0; r < MLP_RPT; ++r) acc[(g * MLP_RPT + r) * d + c] += part[r];
+    }
+    __syncthreads();   // h is rewritten by the next tile; acc read below
+  }
+  const int row_len = dsegs * SEG;
+  for (int j = threadIdx.x; j < rows * row_len; j += blockDim.x) {
+    const int r = j / row_len, col = j - r * row_len;
+    float y = 0.f;
+    if (col < d) {
+      y = acc[r * d + col];
+      if (residual) y += xs[r * dp + col];
+    }
+    pool[ring_index(ptr, r0 + r, col, dsegs, n_seg)] = y;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Elementwise map, in place (delta 0): act over the n_segs whole segments at
+// ptr (the padded [m_rows * segs(d), 128] region, channel tails included;
+// every activation maps 0 to 0, so tails stay zero), modulo n_seg.  Each
+// float is read and stored by the same thread, so a grid-stride loop over
+// many blocks keeps the op in place.  Bound by its bytes: 16 bytes a thread
+// per access, neighbouring threads on neighbouring addresses.
+// ---------------------------------------------------------------------------
+constexpr int EW_THREADS = 256;
+
+__global__ void __launch_bounds__(EW_THREADS)
+elementwise_f32_kernel(float* pool, int n_seg, int n_segs, int ptr, int act) {
+  float4* p4 = reinterpret_cast<float4*>(pool);
+  constexpr int V = SEG / 4;                        // float4s per segment
+  const int n = n_segs * V;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const size_t at = (size_t)((ptr + i / V) % n_seg) * V + i % V;
+    float4 v = p4[at];
+    v.x = activate(v.x, act);
+    v.y = activate(v.y, act);
+    v.z = activate(v.z, act);
+    v.w = activate(v.w, act);
+    p4[at] = v;
+  }
+}
+
 // Shared memory of a conv/FC launch: the step's input tile and the bias and,
 // when the wrapper says they fit too, the weights (floats, 4 bytes each).
 size_t conv_smem(size_t x_len, size_t w_len, int c_out, int stage_w) {
   return sizeof(float) * (x_len + (size_t)c_out + (stage_w ? w_len : 0));
 }
 
-// Launch one block with `smem` bytes of dynamic shared memory (above 48 KB
-// only after raising the kernel's limit) and report the launch's error code.
+// Launch `blocks` blocks of `threads` with `smem` bytes of dynamic shared
+// memory (above 48 KB only after raising the kernel's limit) and report the
+// launch's error code.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
+int launch_grid(Kernel kernel, int blocks, int threads, size_t smem,
+                void* stream, Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(args...);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// One block of THREADS: the ring-order walk of every other kernel.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
+  return launch_grid(kernel, 1, THREADS, smem, stream, args...);
 }
 
 }  // namespace
@@ -678,6 +839,29 @@ int ring_gru_cell(void* pool, const void* w, const void* u, const void* b,
                 stream, (float*)pool, (const float*)w, (const float*)u,
                 (const float*)b, n_seg, d_in, d_h, in_ptr, out_ptr,
                 state_ptr);
+}
+
+int ring_fused_mlp(void* pool, const void* w_gate, const void* w_up,
+                   const void* w_down, int n_seg, int m_rows, int d_model,
+                   int d_ff, int ptr, int gated, int residual, int act,
+                   int rows_per_block, int tile, void* stream) {
+  const size_t smem =
+      sizeof(float) * (size_t)rows_per_block *
+      (round4(d_model) + round4(tile) + (size_t)d_model);
+  const int blocks = (m_rows + rows_per_block - 1) / rows_per_block;
+  return launch_grid(fused_mlp_f32_kernel, blocks, THREADS, smem, stream,
+                     (float*)pool, (const float*)w_gate, (const float*)w_up,
+                     (const float*)w_down, n_seg, m_rows, d_model, d_ff, ptr,
+                     gated, residual, act, rows_per_block, tile);
+}
+
+int ring_elementwise(void* pool, int n_seg, int n_segs, int ptr, int act,
+                     void* stream) {
+  const int vecs = n_segs * (SEG / 4);
+  int blocks = (vecs + EW_THREADS - 1) / EW_THREADS;
+  blocks = blocks < 132 * 8 ? blocks : 132 * 8;
+  return launch_grid(elementwise_f32_kernel, blocks, EW_THREADS, 0, stream,
+                     (float*)pool, n_seg, n_segs, ptr, act);
 }
 
 }  // extern "C"

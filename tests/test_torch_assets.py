@@ -23,6 +23,18 @@ asset:
     streams below left unquantized, saved with their fp32 ``params``;
     the golden holds 60 seeded frames and the reference session's
     output of each step (``backend="jnp"``);
+  * seeded fp32 plans (``SEEDED_FLOAT_NETS``, ``host-sim``), whose
+    weights are too large to commit: ``whisper-tiny-mlp`` is the
+    reference's compile of ``graph/ir.py::build_mlp_tower`` at
+    whisper-tiny's width and depth (4 ungated tanh-gelu residual layers,
+    d_model 384, d_ff 1536) over its encoder's 1,500 rows, plus one
+    elementwise gelu, with the weights of
+    ``repro_torch.kernels.cases.mlp_tower_params(program, PARAMS_SEED)``.
+    The artifact is saved with ``"params": null`` (ints only); the golden
+    holds the sha256 of 2 inputs drawn by ``golden_inputs`` and the
+    reference's ``run(x, backend="jnp")`` outputs on ``GOLDEN_ROWS``
+    (rows are independent under a delta-0 op, so a row subset is a true
+    check);
   * streaming plans (``STREAMS``): ``ds-cnn-stream`` is
     ``repro.compile("ds-cnn", streaming=True)``; ``kws-gru-chain`` is the
     conv_stream -> avgpool -> GRU program of ``tests/test_stream.py`` at
@@ -45,11 +57,14 @@ from repro.analysis import verify_program
 from repro.compile import artifact as ref_artifact
 from repro.compile.driver import CompiledNet as RefCompiledNet
 from repro.compile.targets import get_target
+from repro.configs import get_config
 from repro.core.executors import run_program
 from repro.core.program import (AvgPoolSpec, ConvStreamSpec, GRUCellSpec,
                                 plan_program)
+from repro.graph.ir import Tensor, build_mlp_tower
 from repro.graph.run import _quantize_net
 from repro.quant import QParams, dequantize, quantize
+from repro_torch.kernels.cases import mlp_tower_params
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
@@ -59,7 +74,12 @@ FLOAT_TARGET = "host-sim"
 FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 FLOAT_STREAMS = STREAMS
-N_INPUTS, N_FRAMES = 8, 60
+SEEDED_FLOAT_NETS = ("whisper-tiny-mlp",)
+#: Seed of ``mlp_tower_params`` for the seeded plans' weights.
+PARAMS_SEED = 0
+#: Rows of a seeded net's output that its golden holds.
+GOLDEN_ROWS = np.r_[0:64, 1436:1500]
+N_INPUTS, N_FRAMES, N_SEEDED_INPUTS = 8, 60, 2
 #: Keys of a saved artifact that vary from compile to compile (timings).
 TIMED = ("passes", "spans")
 
@@ -118,8 +138,24 @@ def compile_reference(name: str) -> RefCompiledNet:
     return repro.compile(name, TARGET)
 
 
+def _mlp_tower(seed: int = PARAMS_SEED) -> RefCompiledNet:
+    """whisper-tiny's MLP tower over its 1,500 encoder rows, one
+    elementwise gelu after the last layer, compiled for ``host-sim`` with
+    the seeded weights."""
+    cfg = get_config("whisper-tiny")
+    g = build_mlp_tower(cfg, m_rows=cfg.encoder_seq, elem_bytes=4)
+    g.add("gelu", "elementwise", [f"L{cfg.n_layers - 1}.mlp"],
+          Tensor(rows=cfg.encoder_seq, d=cfg.d_model, elem_bytes=4),
+          activation="gelu")
+    g.validate()
+    params = mlp_tower_params(repro.compile(g, FLOAT_TARGET).program, seed)
+    return repro.compile(g, FLOAT_TARGET, params=params)
+
+
 def compile_float_reference(name: str) -> RefCompiledNet:
     """The reference's fp32 ``host-sim`` compile of a net or stream."""
+    if name == "whisper-tiny-mlp":
+        return _mlp_tower()
     if name == "kws-gru-chain":
         return _gru_chain(quantize=False)
     if name == "ds-cnn-stream":
@@ -137,6 +173,15 @@ def artifact_payload(cn: RefCompiledNet, *, params: bool = False) -> dict:
     if not params:
         del payload["params"]
     return payload
+
+
+def float_payload(name: str, cn: RefCompiledNet) -> dict:
+    """What an fp32 asset holds: ``cn.save``'s payload, with its fp32
+    ``params`` but for a seeded plan, which keeps ``"params": null``."""
+    if name not in SEEDED_FLOAT_NETS:
+        return artifact_payload(cn, params=True)
+    blank = dataclasses.replace(cn, params=[None] * len(cn.program.ops))
+    return dict(artifact_payload(blank, params=True), params=None)
 
 
 def golden_inputs(program, n: int) -> np.ndarray:
@@ -188,6 +233,11 @@ def float_golden(name: str, cn: RefCompiledNet) -> dict:
     """A net's 8 seeded inputs and the reference's Pallas outputs for
     them (one batched ``run``), or a stream's 60 seeded frames and the
     reference session's output of each step."""
+    if name in SEEDED_FLOAT_NETS:
+        x = golden_inputs(cn.program, N_SEEDED_INPUTS)
+        y = np.asarray(cn.run(x, backend="jnp"))
+        return {"x_sha256": np.array(hashlib.sha256(x.tobytes()).hexdigest()),
+                "rows": GOLDEN_ROWS, "y": y[:, GOLDEN_ROWS]}
     if name in FLOAT_STREAMS:
         x = golden_inputs(cn.program, N_FRAMES)
         session = cn.stream(backend="jnp")
@@ -198,7 +248,8 @@ def float_golden(name: str, cn: RefCompiledNet) -> dict:
 
 
 def write_assets(names=NETS + STREAMS,
-                 float_names=FLOAT_NETS + FLOAT_STREAMS) -> None:
+                 float_names=FLOAT_NETS + FLOAT_STREAMS
+                 + SEEDED_FLOAT_NETS) -> None:
     ASSETS.mkdir(parents=True, exist_ok=True)
     for name in names:
         cn = compile_reference(name)
@@ -207,7 +258,7 @@ def write_assets(names=NETS + STREAMS,
     for name in float_names:
         cn = compile_float_reference(name)
         float_artifact_path(name).write_text(
-            json.dumps(artifact_payload(cn, params=True)))
+            json.dumps(float_payload(name, cn)))
         np.savez(float_golden_path(name), **float_golden(name, cn))
 
 
@@ -260,30 +311,54 @@ def fresh_float():
     return get
 
 
-@pytest.mark.parametrize("name", FLOAT_NETS + FLOAT_STREAMS)
+@pytest.mark.parametrize("name", FLOAT_NETS + FLOAT_STREAMS
+                         + SEEDED_FLOAT_NETS)
 def test_float_artifact_matches_a_fresh_compile(name, fresh_float):
     have = json.loads(float_artifact_path(name).read_text())
-    want = artifact_payload(fresh_float(name)[0], params=True)
+    want = float_payload(name, fresh_float(name)[0])
     assert have["dtype"] == "float32" and have["quant"] is None
     assert sorted(have) == sorted(want)
     for key in sorted(set(want) - set(TIMED)):
         assert have[key] == want[key], key
 
 
-@pytest.mark.parametrize("name", FLOAT_NETS + FLOAT_STREAMS)
+@pytest.mark.parametrize("name", FLOAT_NETS + FLOAT_STREAMS
+                         + SEEDED_FLOAT_NETS)
 def test_float_golden_matches_a_fresh_reference_run(name, fresh_float):
-    """The inputs are the seeded ones and the outputs the reference's
-    outputs for them (to the fp32 tolerance: the golden was written in
-    another process)."""
+    """The inputs (or a seeded plan's inputs' sha256 and its golden rows)
+    are the seeded ones and the outputs the reference's outputs for them
+    (to the fp32 tolerance: the golden was written in another
+    process)."""
     want = fresh_float(name)[1]
     with np.load(float_golden_path(name)) as have:
-        assert sorted(have.files) == ["x", "y"]
-        np.testing.assert_array_equal(have["x"], want["x"])
+        assert sorted(have.files) == sorted(want)
+        for key in sorted(set(want) - {"y"}):
+            np.testing.assert_array_equal(have[key], want[key], err_msg=key)
         scale = float(np.abs(want["y"]).max())
         np.testing.assert_allclose(have["y"], want["y"], rtol=3e-4,
                                    atol=3e-5 * scale)
-    n = N_FRAMES if name in FLOAT_STREAMS else N_INPUTS
+    n = N_FRAMES if name in FLOAT_STREAMS else N_SEEDED_INPUTS \
+        if name in SEEDED_FLOAT_NETS else N_INPUTS
     assert want["y"].shape[0] == n and np.isfinite(want["y"]).all()
+
+
+def test_the_mlp_tower_asset_is_whisper_tiny_at_full_width(fresh_float):
+    """Four in-place fused MLPs at d_model 384 and d_ff 1536 over 1,500
+    rows, then the elementwise gelu, on a 4,500-segment ring; 18.9 MB of
+    seeded weights that the artifact does not hold."""
+    cn = fresh_float("whisper-tiny-mlp")[0]
+    prog = cn.program
+    assert [op.kind for op in prog.ops] == ["fused_mlp"] * 4 \
+        + ["elementwise"]
+    assert prog.n_segments == 4500 and prog.m_rows == 1500
+    for op in prog.ops[:4]:
+        assert (op.d_in, op.d_ff, op.ff_tile, op.gated, op.residual,
+                op.activation, op.in_ptr, op.out_ptr) == \
+            (384, 1536, 512, False, True, "gelu", 0, 0)
+    assert prog.ops[4].activation == "gelu"
+    assert cn.flash_bytes_used == 18_874_368
+    have = json.loads(float_artifact_path("whisper-tiny-mlp").read_text())
+    assert have["params"] is None
 
 
 def test_float_assets_reach_the_three_kernels_of_their_paths(fresh_float):
@@ -316,4 +391,5 @@ def test_stream_assets_hold_state_and_every_stream_kind(fresh):
 if __name__ == "__main__":
     write_assets()
     print(f"wrote the artifacts and goldens of {NETS + STREAMS} and of "
-          f"the fp32 {FLOAT_NETS + FLOAT_STREAMS} in {ASSETS}")
+          f"the fp32 {FLOAT_NETS + FLOAT_STREAMS + SEEDED_FLOAT_NETS} in "
+          f"{ASSETS}")

@@ -16,6 +16,7 @@ Tolerance, everywhere: ``|got - want| <= 3e-5 * max|want| + 3e-4 *
 reference's conformance-matrix rule) on the live channels; channel
 tails and lanes no op writes are held exactly.
 """
+import dataclasses
 import json
 import pathlib
 
@@ -297,11 +298,20 @@ def test_float_run_defaults_to_cuda_and_refuses_without_it(monkeypatch):
 
 
 def test_fp32_executor_refuses_kinds_of_later_slices():
+    """Every executable fp32 kind has its kernel now: the elementwise op
+    that the port once refused runs (gelu over its whole segment), and a
+    plan-only kind is still refused."""
     op = PoolOp(kind="elementwise", in_ptr=0, out_ptr=0, delta=0,
                 in_segments=1, out_segments=1, segment_bytes=512, d_in=128,
                 d_out=128, activation="gelu")
     program = PoolProgram(m_rows=1, seg_width=128, block_rows=1,
                           n_segments=1, pool_segments=1, elem_bytes=4,
                           ops=(op,))
-    with pytest.raises(NotImplementedError, match="fp32"):
-        execute(program, torch.zeros((1, 128)), [None])
+    x = torch.linspace(-4, 4, 128)[None]
+    pool = x.clone()
+    execute(program, pool, [None])
+    assert torch.equal(pool, ACTIVATIONS["gelu"](x))
+    plan_only = dataclasses.replace(
+        program, ops=(dataclasses.replace(op, kind="fused_chain"),))
+    with pytest.raises(NotImplementedError, match="plan-only"):
+        execute(plan_only, torch.zeros((1, 128)), [None])

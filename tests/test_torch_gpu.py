@@ -22,12 +22,15 @@ from repro_torch.compile.artifact import to_device
 from repro_torch.core.executors import run_program
 from repro_torch.kernels import (KERNELS, PLAIN, launch_counts,
                                  reset_launch_counts)
+from repro_torch.graph.run import reference_forward
 from repro_torch.kernels.cases import (ATOL_REL, EDGE_CASES,
                                        F32_EDGE_CASES,
-                                       F32_FUSED_STREAM_EDGE_CASES, RTOL,
+                                       F32_FUSED_STREAM_EDGE_CASES,
+                                       F32_MLP_EDGE_CASES, RTOL,
                                        case_inputs, compare_f32, live_lanes,
                                        output_regions, plain_pool,
-                                       program_cases, program_live_lanes)
+                                       program_cases, program_live_lanes,
+                                       seeded_float_net)
 from repro_torch.quant.qtensor import QParams, quantize
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -72,8 +75,26 @@ def _float_program_cases(name):
                          prefix=f"{name}_f32_")
 
 
+#: The whisper-tiny MLP tower: its artifact holds no params, its weights
+#: come from ``mlp_tower_params`` of this seed.
+TOWER, TOWER_SEED = "whisper-tiny-mlp", 0
+
+
+def _tower():
+    return seeded_float_net(_float_artifact(TOWER), TOWER_SEED)
+
+
+def _tower_cases():
+    cn = _tower()
+    return program_cases(cn.program, cn.params,
+                         kernel_block_rows=cn.target.kernel_block_rows,
+                         prefix=f"{TOWER}_f32_")
+
+
 F32_CASES = F32_EDGE_CASES + F32_FUSED_STREAM_EDGE_CASES \
-    + sum((_float_program_cases(n) for n in FLOAT_NETS + STREAMS), ())
+    + F32_MLP_EDGE_CASES \
+    + sum((_float_program_cases(n) for n in FLOAT_NETS + STREAMS), ()) \
+    + _tower_cases()
 
 
 def _need_card():
@@ -258,3 +279,42 @@ def test_fp32_stream_matches_golden_on_card(name):
     err, bad = compare_f32(s.pool.array.cpu().numpy(), want.cpu().numpy(),
                            live)
     assert bad is None, bad
+
+
+@pytest.mark.gpu
+def test_fp32_mlp_tower_matches_golden_on_card():
+    """whisper-tiny's MLP tower through ``run(x)`` on the card, 2 inputs
+    of 1,500 rows: 5 launches per inference (4 ``ring_fused_mlp``, 1
+    ``ring_elementwise``); outputs within the tolerance of the golden
+    rows and of ``reference_forward`` on every row; each final pool
+    within it of the pool the plain versions leave, tails zero."""
+    _need_card()
+    cn, golden = _tower(), _float_golden(TOWER)
+    x = np.random.default_rng(0).standard_normal(
+        (2, cn.program.m_rows, cn.program.in_dim), np.float32)
+    assert hashlib.sha256(x.tobytes()).hexdigest() == str(golden["x_sha256"])
+    reset_launch_counts()
+    y = cn.run(x)
+    torch.cuda.synchronize()
+    assert y.device.type == "cuda" and tuple(y.shape) == x.shape
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == {"ring_fused_mlp": 8, "ring_elementwise": 2}
+    assert KERNELS["ring_fused_mlp"].tiles == (16, 512)   # 81,920 B
+    got = y.cpu().numpy()
+    want = golden["y"]
+    np.testing.assert_allclose(got[:, golden["rows"]], want, rtol=RTOL,
+                               atol=ATOL_REL * float(np.abs(want).max()))
+    params = to_device(cn.params, "cuda")
+    kbr = cn.target.kernel_block_rows
+    live = program_live_lanes(cn.program, cn.params, kernel_block_rows=kbr)
+    for i, xi in enumerate(x):
+        xc = torch.from_numpy(xi).cuda()
+        ref = reference_forward(cn.program, xc, params).cpu().numpy()
+        np.testing.assert_allclose(got[i], ref, rtol=RTOL,
+                                   atol=ATOL_REL * float(np.abs(ref).max()))
+        _, pool = run_program(cn.program, xc, params, kernel_block_rows=kbr)
+        plain = plain_pool(cn.program, xc, cn.params, kernel_block_rows=kbr)
+        have = pool.array.cpu().numpy()
+        err, bad = compare_f32(have, plain.cpu().numpy(), live)
+        assert bad is None, bad
+        assert not have[~live].any()

@@ -34,7 +34,8 @@ def test_sources_exist():
     assert {"chip_smoke.py", "quantized.py", "stream.py", "session.py",
             "executors.py", "driver.py", "segment_matmul.py", "conv2d.py",
             "_launch.py", "cases.py", "run.py", "program.py",
-            "inverted_bottleneck.py", "requant.py"} <= names
+            "inverted_bottleneck.py", "requant.py", "fused_mlp.py",
+            "elementwise.py"} <= names
     assert all(p.exists() for p in SOURCES)
 
 
@@ -82,6 +83,12 @@ s = repro_torch.load(assets + "/kws-gru-chain.cortex-m4.int8.json").stream(
 with np.load(assets + "/kws-gru-chain.cortex-m4.int8.golden.npz") as g:
     for f, want in zip(g["x_q"][:3], g["y_q"]):
         assert np.array_equal(s.step(torch.from_numpy(f)).numpy(), want)
+from repro_torch.kernels.cases import seeded_float_net
+cn = seeded_float_net(assets + "/whisper-tiny-mlp.host-sim.float32.json", 0)
+x = np.random.default_rng(0).standard_normal((2, 1500, 384), np.float32)
+with np.load(assets + "/whisper-tiny-mlp.host-sim.float32.golden.npz") as g:
+    y, want = cn.run(x[1], device="cpu").numpy()[g["rows"]], g["y"][1]
+    assert np.allclose(y, want, rtol=3e-4, atol=3e-5 * np.abs(want).max())
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
