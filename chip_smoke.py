@@ -9,8 +9,9 @@ Phases, one summary line each:
 
   0. the card's name and power limit (``nvidia-smi``), torch, CUDA and
      Python versions;
-  1. build ``src/repro_torch/kernels/csrc/ring_q.cu`` (int8) and
-     ``ring_f32.cu`` (fp32) with nvcc for sm_90a, one nvcc each, both
+  1. build ``src/repro_torch/kernels/csrc/ring_q.cu`` (int8),
+     ``ring_f32.cu`` (fp32) and ``ring_decode.cu`` (the decode attention
+     over a ring KV cache) with nvcc for sm_90a, one nvcc each, all
      started together (time and the ``-Xptxas -v`` lines);
   2. every hand-written kernel against its plain PyTorch version on the
      card, with TF32 off: the eight int8 kernels bitwise, on every op of
@@ -23,6 +24,9 @@ Phases, one summary line each:
      chain, the whisper-tiny MLP tower) and on the fp32 edge cases (a
      gemma3-1b-width geglu layer among them); and which ops read their
      weights from global memory (too large for shared, or used once);
+     then ``ring_decode_attention`` against its plain version on every
+     case of ``cases.DECODE_CASES`` (fp32 within 2e-5, bf16 within one
+     bf16 ulp of the output's scale);
   3. the paths, each with the launch counts set to 0 just before it and
      read just after:
        * ``repro_torch.load(artifact).run(x)`` on the int8 DS-CNN,
@@ -48,13 +52,31 @@ Phases, one summary line each:
          pool the plain versions leave over the same frames (exact on
          channel tails, unwritten lanes and the window's copy), and a
          reset replaying the first step;
+       * gemma3-1b served at full width and depth (26 layers, weights
+         ``cases.lm_params(cfg, 0)`` drawn on the host):
+         ``ServingEngine(build_model("gemma3-1b"), params,
+         cache_len=1024).generate`` on 4 seeded prompts of 8, 64, 500
+         and 600 tokens (left-padded to 600, so the 512-slot local rings
+         wrap in prefill and in decode), 32 new tokens, exactly 26
+         ``ring_decode_attention`` launches per decode step (one per
+         layer for the batch); its logits, teacher-forced on its tokens,
+         within rtol 2e-2 and atol 2e-2 * max|logits| of the plain path's
+         (``build_model(..., plain=True)``) at every step; and, at batch
+         1, the committed full-width golden's tokens and top-64 logits
+         (``cases.hold_lm_golden``);
   4. timing: per-inference host-clock latency at batch 1 and 8 and
      per-step stream latency, the device-busy share of each path from
      ``torch.profiler``, and per kernel its CUDA-event time, its plain
      version's time, its bound and (fp32) the time of the PyTorch
      library call that computes the same op, at the shapes each path
      gives it (the fused bottleneck, the fp32 GRU cell and the fused MLP
-     against a short sequence of calls, with the count stated).
+     against a short sequence of calls, with the count stated); and the
+     gemma3-1b path's prefill latency at batch 4, per-token decode
+     latency at batch 1 and 4, its device-busy share, and
+     ``ring_decode_attention`` at its two serve shapes (a 512-slot local
+     ring and the 1,024-slot global cache, bf16, batch 4) beside its
+     bound, its plain version and one
+     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call.
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -110,7 +132,16 @@ REPLACES = {
     "ring_gru_cell": "src/repro/kernels/stream.py:350",
     "ring_fused_mlp": "src/repro/kernels/fused_mlp.py:97",
     "ring_elementwise": "src/repro/kernels/elementwise.py:61",
+    "ring_decode_attention": "src/repro/kernels/ring_decode.py:77",
 }
+
+#: The LM served in phase 3: its config, the decode cache length, the
+#: prompts' lengths (the longest 600 > the 512-slot local window) and the
+#: tokens generated.
+LM = "gemma3-1b"
+LM_CACHE_LEN = 1024
+LM_PROMPT_LENS = (8, 64, 500, 600)
+LM_MAX_NEW = 32
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -420,10 +451,11 @@ def phase_parity(cases) -> dict[str, float]:
             seg = int(diff.amax(dim=1).nonzero()[0])
             raise SystemExit(f"{case.name}: {case.kernel} differs from its "
                              f"plain version, first at segment {seg}")
+    covered = sorted({c.kernel for c in cases})
     say(f"  int8 all bitwise equal, fp32 all within the tolerance; max "
         f"|difference| per fp32 kernel: "
-        f"{ {k: e for k, e in err.items() if not k.endswith('_q')} }")
-    say(f"  kernels covered: {sorted({c.kernel for c in cases})}")
+        f"{ {k: err[k] for k in covered if not k.endswith('_q')} }")
+    say(f"  kernels covered: {covered}")
     say(f"  weights read from global memory (too large for shared): "
         f"{global_w or 'none'}")
     return err
@@ -733,7 +765,8 @@ KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
                   "ring_conv_stream": "conv_stream_f32_kernel",
                   "ring_gru_cell": "gru_f32_kernel",
                   "ring_fused_mlp": "fused_mlp_f32_kernel",
-                  "ring_elementwise": "elementwise_f32_kernel"}
+                  "ring_elementwise": "elementwise_f32_kernel",
+                  "ring_decode_attention": "ring_decode_kernel"}
 
 
 def _device_busy(fn, reps: int = 20):
@@ -758,7 +791,8 @@ def _device_busy(fn, reps: int = 20):
     busy_us = sum(e.self_device_time_total for e in kernels)
     per_launch = {}
     for name, sym in KERNEL_SYMBOLS.items():
-        hits = [e for e in kernels if sym + "(" in e.key]
+        hits = [e for e in kernels
+                if sym + "(" in e.key or sym + "<" in e.key]
         calls = sum(e.count for e in hits)
         if calls:
             per_launch[name] = sum(e.self_device_time_total
@@ -992,6 +1026,8 @@ def phase_timing(served, streamed, cases, counts, errs, goldens):
     for name in KERNELS:
         per = {p: v["kernels"][name] for p, v in by_path.items()
                if name in v["kernels"]}
+        if not per:   # not a ring-plan kernel (the decode attention)
+            continue
         weight = {p: r["ops"] for p, r in per.items()}
         n = sum(weight.values())
 
@@ -1012,6 +1048,290 @@ def phase_timing(served, streamed, cases, counts, errs, goldens):
             "host_ms": avg("host_ms"), "by_path": per})
     return rows, {p: {k: v for k, v in d.items() if k != "kernels"}
                   for p, d in by_path.items()}
+
+# ---------------------------------------------------------------------------
+# The decode attention and the gemma3-1b serve path.
+# ---------------------------------------------------------------------------
+
+def _decode_call(case):
+    """A decode case's inputs on the card, in its dtype."""
+    from repro_torch.kernels.cases import decode_inputs
+
+    q, k, v, seq = decode_inputs(case)
+    dt = getattr(torch, case.dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(DEVICE_TYPE, dt) for a in (q, k, v))
+    if not isinstance(seq, int):
+        seq = torch.from_numpy(seq).to(DEVICE_TYPE)
+    return tq, tk, tv, seq
+
+
+def phase_decode_parity() -> float:
+    """``ring_decode_attention`` against its plain version on the card on
+    every decode case; returns the max |difference|."""
+    from repro_torch.kernels.cases import DECODE_CASES, compare_decode
+    from repro_torch.kernels.ring_decode import (
+        ring_decode_attention, ring_decode_attention_plain)
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for case in DECODE_CASES:
+        args = _decode_call(case)
+        want = ring_decode_attention_plain(*args, **case.kwargs)
+        got = ring_decode_attention(*args, **case.kwargs)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise SystemExit(f"{case.name}: the kernel gives {got.dtype} "
+                             f"{tuple(got.shape)}")
+        err, bad = compare_decode(got.float().cpu().numpy(),
+                                  want.float().cpu().numpy(), case.dtype)
+        if bad:
+            raise SystemExit(f"{case.name}: ring_decode_attention differs "
+                             f"from its plain version, {bad}")
+        worst[case.dtype] = max(worst[case.dtype], err)
+    say(f"  ring_decode_attention: {len(DECODE_CASES)} calls within the "
+        f"tolerance of its plain version (fp32 2e-5, bf16 one ulp of the "
+        f"output's scale); max |difference| fp32 {worst['float32']:.3g}, "
+        f"bf16 {worst['bfloat16']:.3g}")
+    return max(worst.values())
+
+
+def lm_setup():
+    """gemma3-1b's config and its ``lm_params(cfg, SEED)`` on the card
+    (matmul weights bf16, embedding fp32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cases import lm_params
+    from repro_torch.models import params_from_reference
+
+    cfg = get_config(LM)
+    t0 = time.perf_counter()
+    tree = lm_params(cfg, SEED)
+    t1 = time.perf_counter()
+    params = params_from_reference(cfg, tree, DEVICE_TYPE)
+    del tree
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    say(f"  {LM}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}: {n:,} parameters ({nbytes / 1e9:.3f} GB on the "
+        f"card) drawn by lm_params in {t1 - t0:.1f} s, moved in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return cfg, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_prompts_of_path(cfg):
+    """The serve path's seeded prompts (``LM_PROMPT_LENS`` tokens) and
+    the left-padded batch the engine makes of them."""
+    rng = np.random.default_rng([SEED, 2])
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, n)]
+               for n in LM_PROMPT_LENS]
+    L = max(LM_PROMPT_LENS)
+    padded = torch.tensor([[0] * (L - len(p)) + p for p in prompts],
+                          device=DEVICE_TYPE)
+    return prompts, padded
+
+
+def path_lm(cfg, params, golden) -> dict[str, int]:
+    """gemma3-1b's ``ServingEngine.generate`` on the card: exactly one
+    ``ring_decode_attention`` launch per layer per decode step and no
+    other kernel; logits teacher-forced on its tokens within the bf16
+    tolerance of the plain path's at every step; the golden's tokens and
+    top-64 logits at batch 1."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.cases import (hold_lm_golden, logits_close,
+                                           near_tie)
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServingEngine
+
+    model, plain = build_model(cfg), build_model(cfg, plain=True)
+    prompts, padded = lm_prompts_of_path(cfg)
+    engine = ServingEngine(model, params, cache_len=LM_CACHE_LEN)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new=LM_MAX_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {"ring_decode_attention": cfg.n_layers * LM_MAX_NEW}
+    if {k: n for k, n in counts.items() if n} != want:
+        raise SystemExit(f"{LM}: launches {counts} are not {want} "
+                         f"({cfg.n_layers} per decode step)")
+    say(f"  {LM} generate launches: {want} ({cfg.n_layers} per decode "
+        f"step at batch {len(prompts)}; {gen_s:.2f} s)")
+    if [len(o) for o in out] != [LM_MAX_NEW] * len(prompts) or not all(
+            0 <= t < cfg.vocab for o in out for t in o):
+        raise SystemExit(f"{LM}: generate gave {out}")
+
+    lk, ck, cur_k = model.prefill(params, padded, cache_len=LM_CACHE_LEN)
+    lp, cp, cur_p = plain.prefill(params, padded, cache_len=LM_CACHE_LEN)
+    worst, scale = 0.0, 0.0
+    for t in range(LM_MAX_NEW + 1):
+        got, ref = lk.float().cpu().numpy(), lp.float().cpu().numpy()
+        if not np.isfinite(got).all() or got.shape != (len(prompts),
+                                                       cfg.vocab):
+            raise SystemExit(f"{LM}: step {t} logits {got.shape} are not "
+                             "finite")
+        s = float(np.abs(ref).max())
+        err, ok = logits_close(got, ref, s)
+        if not ok:
+            raise SystemExit(f"{LM}: step {t} logits differ from the plain "
+                             f"path's by {err:.3g} (max |logit| {s:.3g})")
+        worst, scale = max(worst, err), max(scale, s)
+        if t == LM_MAX_NEW:
+            break
+        tok = [row[t] for row in out]
+        if [int(i) for i in got.argmax(-1)] != tok:
+            raise SystemExit(f"{LM}: generate's tokens {t} {tok} are not "
+                             "the argmax of the same path's logits")
+        tok = torch.tensor(tok, device=DEVICE_TYPE)
+        lk, ck, cur_k = model.decode_step(params, ck, tok, cur_k)
+        lp, cp, cur_p = plain.decode_step(params, cp, tok, cur_p)
+    say(f"  {LM}: {len(prompts)} prompts of {list(LM_PROMPT_LENS)} tokens, "
+        f"{LM_MAX_NEW} new: the prefill and every decode step's logits "
+        f"within rtol 2e-2, atol 2e-2 * max|logits| of the plain path's "
+        f"(max |difference| {worst:.4g}, max |logit| {scale:.4g})")
+
+    held = hold_lm_golden(model, params, golden)
+    if not held["ok"]:
+        raise SystemExit(f"{LM}: the port differs from the full-width "
+                         f"golden: {held}")
+    for i, n in enumerate(golden["prompt_lens"]):
+        row = ServingEngine(model, params,
+                            cache_len=int(golden["cache_len"])).generate(
+            [[int(t) for t in golden["prompts"][i, :n]]],
+            max_new=golden["tokens"].shape[1])[0]
+        for t, (a, b) in enumerate(zip(row, golden["tokens"][i])):
+            if a == b:
+                continue
+            if not near_tie(golden["top_logits"][i, t, :2],
+                            float(golden["absmax"][i, t])):
+                raise SystemExit(f"{LM}: golden prompt {i} token {t} is "
+                                 f"{a}, not {b}")
+            break   # after a flipped near tie the contexts differ
+    say(f"  {LM}: the full-width golden held at batch 1 (teacher-forced "
+        f"top-64 logits within the tolerance, max |difference| "
+        f"{held['max_err']:.4g}; greedy tokens {held['tokens']}, near ties "
+        f"flipped at {held['flips'] or 'none'})")
+    torch.cuda.synchronize()
+    return counts
+
+
+def _decode_bound(B, q_heads, kv_heads, d, valid, elem=2):
+    """``(bound_ms, by)`` of one decode-attention launch: q, the valid
+    slots' K and V and the output once each; 2 fp32 operations per
+    multiply-add of its two products (CUDA cores)."""
+    nbytes = elem * (2 * B * q_heads * d + 2 * B * valid * kv_heads * d)
+    ops = 4 * B * q_heads * valid * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def time_decode_kernel(cfg, seq: int, counts, err) -> dict:
+    """``ring_decode_attention`` at the serve path's two shapes (batch 4,
+    bf16): a local ring of ``cfg.window`` slots and the global cache of
+    ``LM_CACHE_LEN``, ``seq`` tokens so far; the kernel's time, its plain
+    version's, one ``F.scaled_dot_product_attention`` call on the same
+    tensors with the validity mask, and the bound.  The row's numbers are
+    the means over the path's launches (22 local, 4 global)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ring_decode import (
+        ring_decode_attention, ring_decode_attention_plain)
+    from repro_torch.models.transformer import layer_kinds
+
+    B, H, KV, d = len(LM_PROMPT_LENS), cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    kinds = layer_kinds(cfg)
+    g = torch.Generator(device=DEVICE_TYPE).manual_seed(SEED)
+    shapes = {}
+    for kind, S in (("local", cfg.window), ("global", LM_CACHE_LEN)):
+        q = torch.randn((B, H, d), generator=g, device=DEVICE_TYPE) \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((B, S, KV, d), generator=g, device=DEVICE_TYPE)
+                .to(torch.bfloat16) for _ in range(2))
+        slot = torch.arange(S, device=DEVICE_TYPE)
+        mask = ((slot < seq) | (seq >= S))[None, None, None, :] \
+            .expand(B, 1, 1, S)
+        qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), \
+            v.permute(0, 2, 1, 3)
+        kw = dict(window=S, block=128)
+        ms = _held_ms(lambda: ring_decode_attention(q, k, v, seq, **kw),
+                      200)
+        plain_ms = _event_ms(
+            lambda: ring_decode_attention_plain(q, k, v, seq, **kw), 20)
+        lib_ms = _held_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), 200)
+        valid = S if seq >= S else min(seq, S)
+        b_ms, by = _decode_bound(B, H, KV, d, valid)
+        shapes[kind] = {"slots": S, "valid": valid, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": b_ms, "bound_by": by,
+                        "per_step": kinds.count(kind)}
+        say(f"    ring_decode_attention {kind:6s} ({S} slots, {valid} "
+            f"valid, batch {B}, bf16): {ms * 1e3:8.2f} us/launch (device), "
+            f"plain {plain_ms * 1e3:9.2f} us, library (SDPA) "
+            f"{lib_ms * 1e3:8.2f} us, bound {b_ms * 1e3:.4f} us ({by})")
+    n = sum(v["per_step"] for v in shapes.values())
+
+    def avg(key):
+        return sum(v[key] * v["per_step"] for v in shapes.values()) / n
+    return {"name": "ring_decode_attention", "route": "cuda",
+            "source": f"{CSRC}/ring_decode.cu",
+            "replaces": REPLACES["ring_decode_attention"],
+            "launches": counts["ring_decode_attention"],
+            "max_abs_err": err, "ms": avg("ms"), "plain_ms": avg("plain_ms"),
+            "bound_ms": avg("bound_ms"), "bound_by": shapes["local"]
+            ["bound_by"], "library_ms": avg("library_ms"),
+            "library_calls": 1, "by_shape": shapes}
+
+
+def time_lm(cfg, params) -> dict:
+    """gemma3-1b's prefill latency at batch 4, per-token decode latency
+    at batch 1 and 4 (host clock ending in synchronize), and the
+    device-busy share and ring_decode_attention's profiled time per
+    launch over decode steps."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    _, padded = lm_prompts_of_path(cfg)
+    prefill_ms = _host_ms(lambda: model.prefill(params, padded,
+                                                cache_len=LM_CACHE_LEN), 5)
+    out = {"prefill_ms_batch4": prefill_ms}
+    say(f"  {LM} serve: prefill {prefill_ms:.3f} ms at batch "
+        f"{len(padded)} x {padded.shape[1]} tokens")
+    for B in (1, len(padded)):
+        toks = padded[-B:]
+        logits, caches, cur = model.prefill(params, toks,
+                                            cache_len=LM_CACHE_LEN)
+        tok = logits.argmax(-1)
+
+        def step():   # the same step again: the same work every call
+            model.decode_step(params, caches, tok, cur)
+        ms = _host_ms(step, 20)
+        busy, call_us, prof = _device_busy(step, 10)
+        out[f"decode_ms_batch{B}"] = ms
+        out[f"device_busy_batch{B}"] = busy
+        out[f"decode_kernel_profiler_ms_batch{B}"] = prof.get(
+            "ring_decode_attention")
+        busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+        say(f"  {LM} serve: {ms:.4f} ms per decode step at batch {B} (host "
+            f"clock, ending in synchronize); device busy {busy_txt} of "
+            f"{call_us:.1f} us per step (profiler); ring_decode_attention "
+            f"{(prof.get('ring_decode_attention') or 0) * 1e3:.2f} us per "
+            "launch on the path (profiler)")
+    return out
+
 
 
 def main() -> None:
@@ -1050,6 +1370,7 @@ def main() -> None:
     errs = phase_parity(EDGE_CASES + F32_EDGE_CASES
                         + F32_FUSED_STREAM_EDGE_CASES + F32_MLP_EDGE_CASES
                         + sum(cases.values(), ()))
+    decode_err = phase_decode_parity()
 
     say("phase 3: the paths on the card")
     counts = {}
@@ -1063,6 +1384,10 @@ def main() -> None:
     for n in FLOAT_STREAMS:
         counts[n + F32] = path_stream_f32(n + F32, plans[n + F32],
                                           goldens[n + F32])
+    lm_cfg, lm_weights = lm_setup()
+    with np.load(ASSETS / f"{LM}.golden.npz") as g:
+        lm_golden = {k: g[k] for k in g.files}
+    counts[LM] = path_lm(lm_cfg, lm_weights, lm_golden)
 
     served = []
     for n in served_labels:
@@ -1078,6 +1403,10 @@ def main() -> None:
                          lambda s=session, f=frame: s.step(f), "step"))
     rows, paths = phase_timing(served, streamed, cases, counts, errs,
                                goldens)
+    paths[f"{LM} serve"] = time_lm(lm_cfg, lm_weights)
+    rows.append(time_decode_kernel(
+        lm_cfg, max(LM_PROMPT_LENS) + LM_MAX_NEW // 2, counts[LM],
+        decode_err))
 
     say(json.dumps({"paths": paths}))
     say(json.dumps({"kernels": rows}))

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each source in ``csrc/`` (``ring_q.cu``, the int8 kernels;
-``ring_f32.cu``, the fp32 ones) has a plain C interface: every entry
-point takes raw device pointers, ints and a CUDA stream, launches one
-kernel and returns the launch's ``cudaError_t``, and
+``ring_f32.cu``, the fp32 ones; ``ring_decode.cu``, the decode
+attention over a ring KV cache) has a plain C interface: every entry
+point takes raw device pointers, ints (and floats) and a CUDA stream,
+launches one kernel and returns the launch's ``cudaError_t``, and
 ``<stem>_error_string`` names an error code.  Each source is compiled
 for Hopper (``sm_90a``) into a shared library named by a hash of the
 source and the flags, so a changed source rebuilds, under
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: C entry points of each source (by stem): argument types, the stream
 #: last.
@@ -55,6 +56,9 @@ SIGNATURES = {
         "ring_gru_cell": [_P] * 4 + [_I] * 6 + [_P],
         "ring_fused_mlp": [_P] * 4 + [_I] * 10 + [_P],
         "ring_elementwise": [_P] + [_I] * 4 + [_P],
+    },
+    "ring_decode": {
+        "ring_decode_attention": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_P],
     },
 }
 

@@ -43,7 +43,8 @@ def check_cuda(pool, tensors=(), dtype: torch.dtype = torch.int8) -> None:
 def launch(name: str, pool: torch.Tensor, smem: int, tensors, ints,
            w_bytes: int | None = None) -> bool | None:
     """Launch C entry point ``name`` on ``pool``'s device and current
-    stream.  ``smem`` is the shared memory a step needs without the
+    stream (a ``None`` in ``tensors`` goes as a null pointer).  ``smem``
+    is the shared memory a step needs without the
     weights.  Given ``w_bytes``, the weights are staged too when they
     fit beside it: the kernel gets that choice as its last int, and it
     is returned."""
@@ -61,7 +62,8 @@ def launch(name: str, pool: torch.Tensor, smem: int, tensors, ints,
     with torch.cuda.device(pool.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, name)(pool.data_ptr(),
-                                 *(t.data_ptr() for t in tensors),
+                                 *(None if t is None else t.data_ptr()
+                                   for t in tensors),
                                  *ints, stream)
     if err:
         text = getattr(lib, f"{stem}_error_string")(err).decode()

@@ -24,7 +24,17 @@ op of a real program, with its real weights.
 tower plan, whose fp32 weights are too large to commit (whisper-tiny's
 four layers are 18.9 MB): the same seed gives the same weights on every
 machine, to the reference and to the port; :func:`seeded_float_net`
-serves such a plan from its params-less artifact.
+serves such a plan from its params-less artifact.  :func:`lm_params` is
+the same kind of recipe for a whole decoder LM's params tree (gemma3-1b's
+is 5.2 GB in fp32).
+
+:data:`DECODE_CASES` are the geometries of the decode attention over a
+ring KV cache (:class:`DecodeCase`, inputs from :func:`decode_inputs`):
+the reference's kernel-test grid in fp32, its softcap case, gemma3-1b's
+bf16 local ring and a global cache whose length is no multiple of the
+kernel's block, and a batch of 4 in one launch; :func:`compare_decode`
+holds them (fp32 within 2e-5, bf16 within one bf16 ulp of the output's
+scale).
 
 An int8 kernel is held to its plain version bitwise.  An fp32 kernel is
 held by :func:`compare_f32` at the one tolerance :data:`RTOL` and
@@ -43,6 +53,7 @@ kernel that walks the ring in order.
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 
 import numpy as np
@@ -615,3 +626,245 @@ def case_inputs(case: Case, seed: int = 0):
     s0 = -int(np.ceil(np.log2(np.sqrt(depth) * 4096 / 64)))
     shift = rng.integers(s0 - 1, s0 + 2, (c_out,), dtype=np.int32)
     return pool, (w, b, mult, shift)
+
+
+# ---------------------------------------------------------------------------
+# The decoder LM: a seeded params tree, and the decode attention's cases.
+# ---------------------------------------------------------------------------
+
+#: Version of :func:`lm_params`'s recipe; a golden made from it records it.
+LM_PARAMS_VERSION = 1
+
+
+def _lm_norm(rng, cfg, lead: tuple) -> dict:
+    """Norm params drawn as 0.1 N(0, 1), not the reference's zeros, so a
+    misplaced norm vector shows."""
+    p = {"scale": _normal(rng, lead + (cfg.d_model,), 0.1)}
+    if cfg.norm == "layernorm":
+        p["bias"] = _normal(rng, lead + (cfg.d_model,), 0.1)
+    return p
+
+
+def _lm_block(rng, cfg, lead: tuple) -> dict:
+    """One dense attention block's params (``lead`` = ``(g,)`` stacks a
+    scan group), drawn in this order: attention ln, w_q, w_k, w_v, w_o,
+    post_ln; FFN ln, w_gate (gated MLPs), w_up, w_down, post_ln."""
+    d, f = cfg.d_model, cfg.d_ff
+    s_in, s_out = 1 / math.sqrt(d), 1 / math.sqrt(f)
+    attn = {"ln": _lm_norm(rng, cfg, lead),
+            "w_q": _normal(rng, lead + (d, cfg.q_dim), s_in),
+            "w_k": _normal(rng, lead + (d, cfg.kv_dim), s_in),
+            "w_v": _normal(rng, lead + (d, cfg.kv_dim), s_in),
+            "w_o": _normal(rng, lead + (cfg.q_dim, d), s_in)}
+    if cfg.post_norms:
+        attn["post_ln"] = _lm_norm(rng, cfg, lead)
+    ffn = {"ln": _lm_norm(rng, cfg, lead)}
+    if cfg.mlp in ("geglu", "swiglu"):
+        ffn["w_gate"] = _normal(rng, lead + (d, f), s_in)
+    ffn["w_up"] = _normal(rng, lead + (d, f), s_in)
+    ffn["w_down"] = _normal(rng, lead + (f, d), s_out)
+    if cfg.post_norms:
+        ffn["post_ln"] = _lm_norm(rng, cfg, lead)
+    return {"attn": attn, "ffn": ffn}
+
+
+def lm_params(cfg, seed: int) -> dict:
+    """A dense decoder LM's params tree as numpy fp32 arrays, laid out as
+    the reference's ``Model.init`` builds it (``transformer.py:301-340``:
+    ``embed``, ``final_ln``, ``groups`` — one subtree per pattern
+    position stacked ``[g, ...]`` — and ``rem``), from one
+    ``np.random.default_rng(seed)``, tensor by tensor in this order:
+    embed (N(0, 1) x 0.02), final_ln, each pattern position's stacked
+    block, each remainder block.  Matmul weights take the reference's
+    init scales (``common.py:186-200, 231-245``: 1/sqrt(d) into the
+    model width's products, 1/sqrt(d_ff) for w_down); norm scales are
+    0.1 N(0, 1).  The same seed gives the same tree to the reference and
+    to the port on every machine."""
+    bad = set(cfg.pattern) - {"full", "local", "global"}
+    if bad or cfg.n_experts or cfg.first_dense_layers \
+            or not cfg.tie_embeddings or not cfg.d_ff:
+        raise ValueError(f"lm_params draws dense attention LMs with tied "
+                         f"embeddings; {cfg.name} is not one")
+    rng = np.random.default_rng(seed)
+    g, rem = cfg.n_groups()
+    tree = {"embed": _normal(rng, (cfg.vocab, cfg.d_model), 0.02),
+            "final_ln": _lm_norm(rng, cfg, ())}
+    tree["groups"] = tuple(_lm_block(rng, cfg, (g,)) for _ in cfg.pattern)
+    tree["rem"] = tuple(_lm_block(rng, cfg, ()) for _ in range(rem))
+    return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeCase:
+    """One call of the decode attention: q ``[q_heads, head_dim]`` and a
+    ring ``[window, kv_heads, head_dim]`` (``batch`` 0, the reference's
+    layout), or ``batch`` of them; ``seq_len`` an int or one per row."""
+
+    name: str
+    q_heads: int
+    kv_heads: int
+    head_dim: int
+    window: int
+    block: int
+    seq_len: int | tuple
+    batch: int = 0
+    dtype: str = "float32"
+    softcap: float | None = None
+    q_scale: float = 1.0
+
+    @property
+    def kwargs(self) -> dict:
+        return dict(window=self.window, block=self.block,
+                    softcap=self.softcap)
+
+
+#: The reference's kernel-test grid (``tests/test_kernels.py:66-81``, a T
+#: that is a multiple of the window above it moved one on), its softcap
+#: case (``:83-92``), gemma3-1b's shapes in bf16 (a local ring of 512
+#: slots part full and wrapped; a global cache of 1,000 slots, 7 blocks
+#: of 128 and a ragged one of 104), and a batch of 4 in one launch.
+DECODE_CASES = (
+    *(DecodeCase(f"decode_q{qh}_kv{kvh}_d{dh}_w{w}_b{b}_T{t}", qh, kvh, dh,
+                 w, b, t)
+      for qh, kvh, dh, w, b in ((8, 2, 64, 256, 64), (4, 4, 128, 128, 128),
+                                (16, 1, 64, 512, 128))
+      for t in (t0 + (t0 > w and t0 % w == 0)
+                for t0 in (7, 100, 256, 512, 5000))),
+    DecodeCase("decode_softcap50", 4, 2, 64, 128, 64, 1000, softcap=50.0,
+               q_scale=10.0),
+    DecodeCase("decode_gemma3_local_bf16_T300", 4, 1, 256, 512, 128, 300,
+               dtype="bfloat16"),
+    DecodeCase("decode_gemma3_local_bf16_T1000", 4, 1, 256, 512, 128, 1000,
+               dtype="bfloat16"),
+    DecodeCase("decode_gemma3_global_1000_bf16", 4, 1, 256, 1000, 128, 700,
+               batch=1, dtype="bfloat16"),
+    DecodeCase("decode_gemma3_global_1000_f32", 4, 1, 256, 1000, 128, 999,
+               batch=1),
+    DecodeCase("decode_gemma3_batch4_bf16", 4, 1, 256, 512, 128, 600,
+               batch=4, dtype="bfloat16"),
+    DecodeCase("decode_batch4_per_row_seq", 8, 2, 64, 256, 64,
+               (1, 100, 256, 700), batch=4),
+)
+
+
+def decode_inputs(case: DecodeCase, seed: int = 0):
+    """``(q, k_ring, v_ring, seq_len)``: fp32 numpy arrays from N(0, 1)
+    (q times ``q_scale``; a bf16 case rounds them to bf16 at the call)
+    and ``seq_len`` as an int or an int32 array."""
+    rng = np.random.default_rng([seed, zlib.crc32(case.name.encode())])
+    lead = (case.batch,) if case.batch else ()
+    q = _normal(rng, lead + (case.q_heads, case.head_dim), case.q_scale)
+    kv = lead + (case.window, case.kv_heads, case.head_dim)
+    k, v = _normal(rng, kv, 1.0), _normal(rng, kv, 1.0)
+    seq = case.seq_len if isinstance(case.seq_len, int) \
+        else np.asarray(case.seq_len, np.int32)
+    return q, k, v, seq
+
+
+#: The fp32 tolerance of the decode attention (``tests/test_kernels.py:80``).
+DECODE_TOL = 2e-5
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at magnitude ``x`` (8 significant
+    bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 2.0 ** -133
+
+
+def compare_decode(got: np.ndarray, want: np.ndarray,
+                   dtype: str) -> tuple[float, str | None]:
+    """``(max |got - want|, None)`` when an fp32 output is within rtol and
+    atol 2e-5 of ``want`` and a bf16 output within one bf16 ulp of
+    ``max|want|``, else a description of the first miss."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    err = np.abs(got - want)
+    if dtype == "bfloat16":
+        bad = err > bf16_ulp(float(np.abs(want).max()))
+    else:
+        bad = err > DECODE_TOL + DECODE_TOL * np.abs(want)
+    if not bad.any():
+        return float(err.max()), None
+    at = tuple(int(i) for i in np.argwhere(bad)[0])
+    return float(err.max()), (f"first at {at}: {got[at]!r} against "
+                              f"{want[at]!r}")
+
+
+# ---------------------------------------------------------------------------
+# The LM golden: the reference's greedy steps on seeded prompts.
+# ---------------------------------------------------------------------------
+
+#: Prompt lengths, greedy steps and logits kept per step of an LM golden.
+LM_GOLDEN_PROMPT_LENS = (8, 24)
+LM_GOLDEN_STEPS = 8
+LM_GOLDEN_TOP = 64
+#: The cache length an LM golden is served with (prompt + steps fit).
+LM_GOLDEN_CACHE_LEN = 32
+#: bf16 logits: ``|got - want| <= LM_ATOL_REL * max|logits| + LM_RTOL *
+#: |want|``.
+LM_RTOL = LM_ATOL_REL = 2e-2
+
+
+def lm_prompts(vocab: int, seed: int, lens=LM_GOLDEN_PROMPT_LENS):
+    """Seeded prompts of token ids in ``[1, vocab)``."""
+    rng = np.random.default_rng([seed, 1])
+    return [[int(t) for t in rng.integers(1, vocab, n)] for n in lens]
+
+
+def logits_close(got, want, scale: float):
+    """The elementwise bf16-logits test: ``|got - want| <= LM_ATOL_REL *
+    scale + LM_RTOL * |want|``, with ``scale`` the max |logit| of the
+    step; returns ``(max |difference|, all within)``."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    err = np.abs(got - want)
+    return float(err.max()), bool(np.all(
+        err <= LM_ATOL_REL * scale + LM_RTOL * np.abs(want)))
+
+
+def near_tie(top2, scale: float) -> bool:
+    """Whether a step's top two logits ``(first, second)`` are close
+    enough that two implementations within :func:`logits_close` may
+    order them apart."""
+    tol = LM_ATOL_REL * scale + LM_RTOL * abs(float(top2[0]))
+    return float(top2[0]) - float(top2[1]) <= 2 * tol
+
+
+def hold_lm_golden(model, params, golden) -> dict:
+    """Hold the port's model against an LM golden: for each prompt at
+    batch 1, teacher-forced on the golden's tokens, every step's logits
+    at the golden's top ids within :func:`logits_close`, and its greedy
+    token equal to the golden's unless the golden's top two are a
+    :func:`near_tie`.  Returns ``{"max_err", "ok", "tokens", "flips"}``:
+    the port's greedy token at every step and the steps where a near tie
+    flipped."""
+    import torch
+
+    device = params["embed"].device
+    out = {"max_err": 0.0, "ok": True, "tokens": [], "flips": []}
+    for i, n in enumerate(golden["prompt_lens"]):
+        prompt = torch.as_tensor(golden["prompts"][i, :n][None],
+                                 device=device).to(torch.int64)
+        logits, caches, cur = model.prefill(
+            params, prompt, cache_len=int(golden["cache_len"]))
+        row = []
+        for t in range(golden["tokens"].shape[1]):
+            if t:
+                tok = torch.as_tensor(golden["tokens"][i, t - 1:t],
+                                      device=device).to(torch.int64)
+                logits, caches, cur = model.decode_step(params, caches, tok,
+                                                        cur)
+            got = logits[0].float().cpu().numpy()
+            ids, want = golden["top_ids"][i, t], golden["top_logits"][i, t]
+            scale = float(golden["absmax"][i, t])
+            err, ok = logits_close(got[ids], want, scale)
+            out["max_err"] = max(out["max_err"], err)
+            out["ok"] &= ok
+            row.append(int(got.argmax()))
+            if row[-1] != int(golden["tokens"][i, t]):
+                if near_tie(want[:2], scale):
+                    out["flips"].append((i, t))
+                else:
+                    out["ok"] = False
+        out["tokens"].append(row)
+    return out

@@ -1,0 +1,219 @@
+"""Shared layers: norms, RoPE, attention (prefill and decode), dense MLPs,
+as plain functions on tensors (the port of ``repro.models.common``).
+
+The reference's order of operations and dtypes are kept: norms and RoPE
+compute in fp32 and cast back, attention scores and softmax are fp32,
+activations stay in the residual stream's dtype (bf16 on the serve
+path) and every matmul weight is cast to it.  There is no sharding: the
+reference's ``rules.act`` constraints are single-device no-ops here.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
+
+import torch
+
+F32 = torch.float32
+NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
+
+
+def matmul(x, w):
+    """``x @ w`` in x's dtype, ``w`` cast to it.  On the CPU a bf16
+    product is computed in fp32 and rounded once, as XLA's CPU backend
+    computes the reference's bf16 dots (bit for bit at the reduced
+    widths the tests use; PyTorch's own CPU bf16 kernel sums in another
+    order); on the card cuBLAS's bf16 GEMM accumulates in fp32."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return (x.to(F32) @ w.to(F32)).to(x.dtype)
+    return x @ w
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    xf = x.to(F32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    xf = x.to(F32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(F32) + bias.to(F32)).to(x.dtype)
+
+
+def apply_norm(p: dict, x, cfg):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope(x, positions, theta: float):
+    """x: [..., S, H, D]; positions: [..., S] (broadcastable), or one int
+    position for S = 1 (a decode step: no host-to-device copy)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.pow(theta, -torch.arange(0, half, dtype=F32,
+                                          device=x.device) / half)
+    if isinstance(positions, int):
+        ang = (freq * positions)[None]                  # [1, half]
+    else:
+        ang = positions[..., None].to(F32) * freq       # [..., S, half]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].to(F32), x[..., half:].to(F32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+
+def _softcap(s, cap: float | None):
+    if cap is None:
+        return s
+    return torch.tanh(s / cap) * cap
+
+
+def _expand_kv(k, n_heads: int):
+    """GQA: repeat KV heads to the full head count (on the head axis,
+    dim 2)."""
+    group = n_heads // k.shape[2]
+    return torch.repeat_interleave(k, group, dim=2) if group > 1 else k
+
+
+def attention(q, k, v, *, causal: bool, window: int | None,
+              softcap: float | None, q_offset: int = 0, chunk: int = 2048,
+              bf16_einsum: bool = False):
+    """q: [B,Sq,H,D]; k/v: [B,Skv,KV,D] (GQA).  Query-chunked so the
+    score matrix never exceeds [B,H,chunk,Skv], as the reference."""
+    if bf16_einsum:
+        raise NotImplementedError("the bf16 score pipeline (bf16_einsum) is "
+                                  "not ported; no config sets it")
+    B, Sq, H, D = q.shape
+    k = _expand_kv(k, H).to(F32)
+    v = _expand_kv(v, H).to(F32)
+    qs = q * _const(D ** -0.5, q)
+    kpos = torch.arange(k.shape[1], device=q.device)
+
+    def chunk_attn(qc, cstart: int):
+        s = torch.einsum("bqhd,bshd->bhqs", qc.to(F32), k)
+        s = _softcap(s, softcap)
+        qpos = (cstart + q_offset
+                + torch.arange(qc.shape[1], device=q.device))[:, None]
+        mask = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqs,bshd->bqhd", p, v).to(q.dtype)
+
+    return torch.cat([chunk_attn(qs[:, c0:c0 + chunk], c0)
+                      for c0 in range(0, Sq, chunk)], dim=1)
+
+
+def decode_attention(q, k, v, cur_len, *, softcap: float | None,
+                     ring: bool = False, window: int = 0):
+    """Single-step decode, the plain version.  q: [B,1,H,D]; k/v:
+    [B,S,KV,D] (S = cache length or ring window).  ``cur_len``: tokens so
+    far *including* the current one.  For ``ring`` caches, slot validity
+    is the vMCU boundary check."""
+    B, _, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = (q.to(F32) * D ** -0.5).reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k.to(F32))
+    s = _softcap(s, softcap)
+    slot = torch.arange(S, device=q.device)
+    if ring:
+        valid = (slot < cur_len) | (cur_len >= window)
+    else:
+        valid = slot < cur_len
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.to(F32))
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention block
+# --------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # [B, S_or_window, KV, D]
+    v: torch.Tensor
+
+
+def project_qkv(p: dict, x, cfg, positions, *, rope_q: bool = True,
+                rope_k: bool = True):
+    B, S, _ = x.shape
+    q = matmul(x, p["w_q"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = matmul(x, p["w_k"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = matmul(x, p["w_v"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if rope_q:
+        q = rope(q, positions, cfg.rope_theta)
+    if rope_k:
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+# --------------------------------------------------------------------------
+# Dense MLPs
+# --------------------------------------------------------------------------
+
+@functools.cache
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: JAX rounds a
+    weakly typed Python float to the array's dtype before the operation,
+    and torch computes a bf16 operation with a Python scalar in fp32,
+    where the rounded value is exact (no device tensor, so no copy to
+    the card and no wait for it)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _const(value: float, like) -> float:
+    return _rounded(value, like.dtype)
+
+
+def _gelu(x):
+    """``jax.nn.gelu``'s default, the tanh form, one operation at a time
+    in x's dtype as the reference computes it (in bf16 every product and
+    sum is rounded; one rounding of the fp32 result differs from it in
+    about 45% of bf16 outputs)."""
+    inner = x + _const(0.044715, x) * (x * x * x)
+    cdf = 0.5 * (1.0 + torch.tanh(_const(math.sqrt(2 / math.pi), x) * inner))
+    return x * cdf
+
+
+def _silu(x):
+    """``jax.nn.silu``: ``x * sigmoid(x)``, two roundings in x's dtype."""
+    return x * torch.sigmoid(x)
+
+
+def mlp_forward(p: dict, x, cfg):
+    h = apply_norm(p["ln"], x, cfg)
+    up = matmul(h, p["w_up"])
+    if cfg.mlp == "geglu":
+        up = _gelu(matmul(h, p["w_gate"])) * up
+    elif cfg.mlp == "swiglu":
+        up = _silu(matmul(h, p["w_gate"])) * up
+    else:
+        up = _gelu(up)
+    out = matmul(up, p["w_down"])
+    if cfg.post_norms:
+        out = apply_norm(p["post_ln"], out, cfg)
+    return out

@@ -1,0 +1,76 @@
+"""Batched serving engine: greedy lockstep decode over ring KV caches (the
+port of ``repro.serve.engine``).
+
+``prefill`` materializes the caches (full and global layers ->
+``[B, cache_len, KV, D]``; sliding-window layers -> the vMCU ring of
+``window`` slots) and ``decode_step`` advances every row one token,
+writing ring slots modulo the window; on a CUDA card each layer's decode
+attention is one launch of the hand-written ``ring_decode_attention``
+for the whole batch.  The engine runs where the params lie.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..models.transformer import Model
+from ..obs.spans import active, span
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: list[int]
+    max_new: int = 16
+    generated: list[int] = dataclasses.field(default_factory=list)
+
+
+def make_serve_fns(model: Model, *, cache_len: int):
+    """The prefill and decode-step functions of ``model`` (plain calls:
+    PyTorch runs eagerly, so there is nothing to compile)."""
+
+    def prefill(params, tokens):
+        return model.prefill(params, tokens, cache_len=cache_len)
+
+    def decode_step(params, caches, token, cur_len):
+        return model.decode_step(params, caches, token, cur_len)
+
+    return prefill, decode_step
+
+
+class ServingEngine:
+    """Greedy batched generation; one prefill per batch, then lockstep
+    decode (one ``cur_len`` for every row, as the reference)."""
+
+    def __init__(self, model: Model, params: Any, cache_len: int = 256):
+        self.model = model
+        self.params = params
+        self.cache_len = cache_len
+        self.prefill, self.decode = make_serve_fns(model,
+                                                   cache_len=cache_len)
+
+    def generate(self, prompts: list[list[int]],
+                 max_new: int = 16) -> list[list[int]]:
+        B = len(prompts)
+        L = max(len(p) for p in prompts)
+        device = self.params["embed"].device
+        # left-pad with token 0, which is attended (no pad mask), as the
+        # reference does
+        toks = torch.tensor([[0] * (L - len(p)) + list(p) for p in prompts],
+                            dtype=torch.int64, device=device)
+        with span("serve.prefill", batch=B, prompt_len=L):
+            logits, caches, cur = self.prefill(self.params, toks)
+            if active() and device.type == "cuda":  # sync only when timing
+                torch.cuda.synchronize(device)
+        out = [[] for _ in range(B)]
+        tok = torch.argmax(logits, dim=-1)
+        with span("serve.decode", batch=B, steps=max_new):
+            for _ in range(max_new):
+                for i, t in enumerate(tok.tolist()):
+                    out[i].append(t)
+                logits, caches, cur = self.decode(self.params, caches, tok,
+                                                  cur)
+                tok = torch.argmax(logits, dim=-1)
+        return out

@@ -41,14 +41,30 @@ asset:
     the DS-CNN stem's width, calibrated by the reference.  The golden
     holds the int8 output of each of 60 steps from pre-quantized frames
     and the pool's sha256 after the last.
+
+And one LM golden, written only by the ``--lm`` mode, never by pytest:
+
+    PYTHONPATH=src python tests/test_torch_assets.py --lm
+
+``gemma3-1b.golden.npz`` is the reference ``Model(get_config("gemma3-1b"))``
+at full width and depth (1.0 B parameters, ``lm_params(cfg, 0)``) on the
+CPU: for 2 seeded prompts of 8 and 24 tokens, each at batch 1, the
+reference's greedy tokens of 8 steps and each step's top-64 logits and
+ids and max |logit|, with the recipe's seed and version.  The same mode
+writes ``gemma3-1b-smoke.golden.npz``, the same golden of the reduced
+config, which is the one tier-1 re-derives (a full-width reference run
+takes gigabytes and minutes, so tier-1 checks only the full golden's
+record and the reduced golden's freshness).
 """
 import dataclasses
 import hashlib
 import json
 import pathlib
+import sys
 import tempfile
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -64,7 +80,14 @@ from repro.core.program import (AvgPoolSpec, ConvStreamSpec, GRUCellSpec,
 from repro.graph.ir import Tensor, build_mlp_tower
 from repro.graph.run import _quantize_net
 from repro.quant import QParams, dequantize, quantize
-from repro_torch.kernels.cases import mlp_tower_params
+from repro.models.registry import build_model as ref_build_model
+from repro.serve.engine import ServingEngine as RefEngine
+from repro_torch.configs import get_config as port_get_config
+from repro_torch.kernels.cases import (LM_GOLDEN_CACHE_LEN, LM_GOLDEN_STEPS,
+                                       LM_GOLDEN_TOP, LM_PARAMS_VERSION,
+                                       hold_lm_golden, lm_params, lm_prompts,
+                                       mlp_tower_params)
+from repro_torch.models import build_model, params_from_reference
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
@@ -388,8 +411,135 @@ def test_stream_assets_hold_state_and_every_stream_kind(fresh):
     assert win.state_segments * 128 == 62_720     # 49 x 10 x 1 window
 
 
+# ---------------------------------------------------------------------------
+# The LM golden.
+# ---------------------------------------------------------------------------
+
+#: The LM whose golden is committed, at full width and reduced.
+LM_NAME = "gemma3-1b"
+
+
+def lm_golden_path(cfg) -> pathlib.Path:
+    return ASSETS / f"{cfg.name}.golden.npz"
+
+
+def lm_golden(cfg, seed: int = PARAMS_SEED) -> dict:
+    """The reference's greedy steps on ``lm_prompts``: per prompt, at
+    batch 1 through the reference ``ServingEngine``'s jitted prefill and
+    decode step (what its ``generate`` runs), each step's token (the
+    argmax), top-``LM_GOLDEN_TOP`` logits and ids and max |logit|."""
+    model = ref_build_model(cfg)
+    tree = jax.tree.map(jnp.asarray, lm_params(cfg, seed))
+    engine = RefEngine(model, tree, cache_len=LM_GOLDEN_CACHE_LEN)
+    prompts = lm_prompts(cfg.vocab, seed)
+    L = max(len(p) for p in prompts)
+    out = {"prompts": np.zeros((len(prompts), L), np.int32),
+           "prompt_lens": np.asarray([len(p) for p in prompts], np.int32),
+           "tokens": np.zeros((len(prompts), LM_GOLDEN_STEPS), np.int32),
+           "top_ids": np.zeros((len(prompts), LM_GOLDEN_STEPS,
+                                LM_GOLDEN_TOP), np.int32),
+           "top_logits": np.zeros((len(prompts), LM_GOLDEN_STEPS,
+                                   LM_GOLDEN_TOP), np.float32),
+           "absmax": np.zeros((len(prompts), LM_GOLDEN_STEPS), np.float32),
+           "seed": np.int32(seed), "recipe_version":
+           np.int32(LM_PARAMS_VERSION), "config": np.str_(cfg.name),
+           "cache_len": np.int32(LM_GOLDEN_CACHE_LEN)}
+    for i, prompt in enumerate(prompts):
+        out["prompts"][i, :len(prompt)] = prompt
+        logits, caches, cur = engine.prefill(
+            tree, jnp.asarray([prompt], jnp.int32))
+        for t in range(LM_GOLDEN_STEPS):
+            if t:
+                logits, caches, cur = engine.decode(
+                    tree, caches, jnp.asarray(out["tokens"][i, t - 1:t]),
+                    cur)
+            vals, ids = jax.lax.top_k(logits[0], LM_GOLDEN_TOP)
+            out["top_logits"][i, t] = np.asarray(vals)
+            out["top_ids"][i, t] = np.asarray(ids)
+            out["tokens"][i, t] = int(jnp.argmax(logits[0]))
+            out["absmax"][i, t] = float(jnp.abs(logits[0]).max())
+    return out
+
+
+def write_lm_goldens() -> None:
+    for cfg in (get_config(LM_NAME), get_config(LM_NAME).reduced()):
+        np.savez(lm_golden_path(cfg), **lm_golden(cfg))
+
+
+@pytest.fixture(scope="module")
+def lm_smoke_golden():
+    """A fresh reference run of the reduced LM golden."""
+    return lm_golden(get_config(LM_NAME).reduced())
+
+
+def test_lm_golden_matches_a_fresh_reference_run(lm_smoke_golden):
+    """The reduced golden is the reference's greedy run on the recipe's
+    weights: the same prompts, tokens and top ids, logits to the fp32
+    tolerance of a golden written in another process."""
+    want = lm_smoke_golden
+    tol = 3e-5 * float(want["absmax"].max())
+    with np.load(lm_golden_path(get_config(LM_NAME).reduced())) as have:
+        assert sorted(have.files) == sorted(want)
+        for key in sorted(set(want) - {"top_logits", "absmax", "top_ids"}):
+            np.testing.assert_array_equal(have[key], want[key], err_msg=key)
+        for key in ("top_logits", "absmax"):
+            np.testing.assert_allclose(have[key], want[key], rtol=3e-4,
+                                       atol=tol)
+        # ids agree but where two logits within the tolerance swap places
+        # (or the 64th place goes to a near tie outside the list)
+        logits = want["top_logits"]
+        for at in zip(*np.nonzero(have["top_ids"] != want["top_ids"])):
+            *step, k = at
+            near = [abs(logits[(*step, k)] - logits[(*step, n)]) <= tol
+                    for n in (k - 1, k + 1) if 0 <= n < logits.shape[-1]]
+            assert any(near) or k == logits.shape[-1] - 1, at
+    assert (want["tokens"] == want["top_ids"][..., 0]).all()
+
+
+def test_the_full_width_lm_golden_is_the_recipe_of_record():
+    """The committed full-width golden was written from ``lm_params`` of
+    the current recipe version and seed for gemma3-1b, on the prompts
+    ``lm_prompts`` draws, and is small."""
+    cfg = get_config(LM_NAME)
+    path = lm_golden_path(cfg)
+    assert path.stat().st_size < 1 << 20
+    with np.load(path) as g:
+        assert str(g["config"]) == "gemma3-1b" == cfg.name
+        assert int(g["seed"]) == PARAMS_SEED
+        assert int(g["recipe_version"]) == LM_PARAMS_VERSION
+        assert int(g["cache_len"]) == LM_GOLDEN_CACHE_LEN
+        prompts = lm_prompts(cfg.vocab, PARAMS_SEED)
+        assert list(g["prompt_lens"]) == [8, 24]
+        for i, p in enumerate(prompts):
+            assert list(g["prompts"][i, :len(p)]) == p
+        assert g["tokens"].shape == (2, LM_GOLDEN_STEPS)
+        assert g["top_ids"].shape == g["top_logits"].shape \
+            == (2, LM_GOLDEN_STEPS, LM_GOLDEN_TOP)
+        assert (g["tokens"] == g["top_ids"][..., 0]).all()
+        assert ((g["top_ids"] >= 0) & (g["top_ids"] < cfg.vocab)).all()
+        assert np.isfinite(g["top_logits"]).all()
+
+
+def test_the_port_holds_the_reduced_lm_golden():
+    """The port on the CPU, teacher-forced on the reduced golden's
+    tokens: every step's logits at the golden's top ids within rtol 2e-2
+    and atol 2e-2 * max|logits|, greedy tokens equal unless a near tie
+    flips (the check ``chip_smoke.py`` makes at full width on the
+    card)."""
+    cfg = port_get_config(LM_NAME).reduced()
+    params = params_from_reference(cfg, lm_params(cfg, PARAMS_SEED), "cpu")
+    with np.load(lm_golden_path(cfg)) as g:
+        held = hold_lm_golden(build_model(cfg), params, dict(g))
+    assert held["ok"], held
+
+
 if __name__ == "__main__":
-    write_assets()
-    print(f"wrote the artifacts and goldens of {NETS + STREAMS} and of "
-          f"the fp32 {FLOAT_NETS + FLOAT_STREAMS + SEEDED_FLOAT_NETS} in "
-          f"{ASSETS}")
+    if "--lm" in sys.argv[1:]:
+        write_lm_goldens()
+        print(f"wrote the {LM_NAME} goldens (full width and reduced) in "
+              f"{ASSETS}")
+    else:
+        write_assets()
+        print(f"wrote the artifacts and goldens of {NETS + STREAMS} and of "
+              f"the fp32 {FLOAT_NETS + FLOAT_STREAMS + SEEDED_FLOAT_NETS} "
+              f"in {ASSETS}")

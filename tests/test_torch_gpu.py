@@ -1,7 +1,9 @@
 """The port on a CUDA card: each hand-written kernel against its plain
 version (int8 bitwise, fp32 within the tolerance of
-``repro_torch.kernels.cases.compare_f32``, with TF32 off), and the
-served and streaming paths against the reference's goldens.
+``repro_torch.kernels.cases.compare_f32``, with TF32 off; the decode
+attention within ``cases.compare_decode``), the served and streaming
+paths against the reference's goldens, and reduced gemma3-1b served
+through one ``ring_decode_attention`` launch per layer per decode step.
 
 These tests import neither JAX nor the reference package, so they run
 on a machine that has only PyTorch and the CUDA toolkit:
@@ -32,6 +34,14 @@ from repro_torch.kernels.cases import (ATOL_REL, EDGE_CASES,
                                        program_cases, program_live_lanes,
                                        seeded_float_net)
 from repro_torch.quant.qtensor import QParams, quantize
+from repro_torch.configs import get_config
+from repro_torch.kernels.cases import (DECODE_CASES, compare_decode,
+                                       decode_inputs, hold_lm_golden,
+                                       lm_params, logits_close)
+from repro_torch.kernels.ring_decode import (ring_decode_attention,
+                                             ring_decode_attention_plain)
+from repro_torch.models import build_model, params_from_reference
+from repro_torch.serve import ServingEngine
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
@@ -318,3 +328,61 @@ def test_fp32_mlp_tower_matches_golden_on_card():
         err, bad = compare_f32(have, plain.cpu().numpy(), live)
         assert bad is None, bad
         assert not have[~live].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: c.name)
+def test_ring_decode_kernel_matches_plain_on_card(case):
+    """fp32 within rtol and atol 2e-5, bf16 within one bf16 ulp of the
+    output's scale; one launch per call, batch and all."""
+    _need_card()
+    q, k, v, seq = decode_inputs(case)
+    dt = getattr(torch, case.dtype)
+    args = [torch.from_numpy(a).cuda().to(dt) for a in (q, k, v)]
+    seq = seq if isinstance(seq, int) else torch.from_numpy(seq).cuda()
+    want = ring_decode_attention_plain(*args, seq, **case.kwargs)
+    before = ring_decode_attention.launches
+    got = ring_decode_attention(*args, seq, **case.kwargs)
+    torch.cuda.synchronize()
+    assert ring_decode_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == want.shape
+    err, bad = compare_decode(got.float().cpu().numpy(),
+                              want.float().cpu().numpy(), case.dtype)
+    assert bad is None, bad
+
+
+@pytest.mark.gpu
+def test_reduced_gemma3_serves_through_the_decode_kernel_on_card():
+    """Reduced gemma3-1b (6 layers, window 32) generates 8 tokens for 3
+    prompts (one longer than the window) with exactly one
+    ``ring_decode_attention`` launch per layer per decode step; its
+    logits, teacher-forced on its tokens, are within the bf16 tolerance
+    of the plain path's, and it holds the reduced golden."""
+    _need_card()
+    cfg = get_config("gemma3-1b").reduced()
+    params = params_from_reference(cfg, lm_params(cfg, 0), "cuda")
+    model, plain = build_model(cfg), build_model(cfg, plain=True)
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, n)]
+               for n in (40, 9, 21)]
+    reset_launch_counts()
+    out = ServingEngine(model, params, cache_len=48).generate(prompts, 8)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == {"ring_decode_attention": cfg.n_layers * 8}
+    toks = torch.tensor([[0] * (40 - len(p)) + p for p in prompts],
+                        device="cuda")
+    lk, ck, curk = model.prefill(params, toks, cache_len=48)
+    lp, cp, curp = plain.prefill(params, toks, cache_len=48)
+    for t in range(8):
+        tok = torch.tensor([row[t] for row in out], device="cuda")
+        assert lk.argmax(-1).tolist() == tok.tolist()
+        lk, ck, curk = model.decode_step(params, ck, tok, curk)
+        lp, cp, curp = plain.decode_step(params, cp, tok, curp)
+        want = lp.float().cpu().numpy()
+        err, ok = logits_close(lk.float().cpu().numpy(), want,
+                               float(np.abs(want).max()))
+        assert ok, (t, err)
+    with np.load(ASSETS / f"{cfg.name}.golden.npz") as g:
+        held = hold_lm_golden(model, params, dict(g))
+    assert held["ok"], held

@@ -35,7 +35,11 @@ def test_sources_exist():
             "executors.py", "driver.py", "segment_matmul.py", "conv2d.py",
             "_launch.py", "cases.py", "run.py", "program.py",
             "inverted_bottleneck.py", "requant.py", "fused_mlp.py",
-            "elementwise.py"} <= names
+            "elementwise.py", "ring_decode.py", "ops.py", "base.py",
+            "gemma3_1b.py", "common.py", "transformer.py", "registry.py",
+            "engine.py", "spans.py"} <= names
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+            / "ring_decode.cu").exists()
     assert all(p.exists() for p in SOURCES)
 
 
@@ -89,6 +93,17 @@ x = np.random.default_rng(0).standard_normal((2, 1500, 384), np.float32)
 with np.load(assets + "/whisper-tiny-mlp.host-sim.float32.golden.npz") as g:
     y, want = cn.run(x[1], device="cpu").numpy()[g["rows"]], g["y"][1]
     assert np.allclose(y, want, rtol=3e-4, atol=3e-5 * np.abs(want).max())
+from repro_torch.configs import get_config
+from repro_torch.kernels.cases import hold_lm_golden, lm_params
+from repro_torch.models import build_model, params_from_reference
+from repro_torch.serve import ServingEngine
+cfg = get_config("gemma3-1b").reduced()
+params = params_from_reference(cfg, lm_params(cfg, 0), "cpu")
+out = ServingEngine(build_model(cfg), params, cache_len=48).generate(
+    [[5, 6, 7], list(range(1, 41))], max_new=4)
+assert [len(o) for o in out] == [4, 4]
+with np.load(assets + "/gemma3-1b-smoke.golden.npz") as g:
+    assert hold_lm_golden(build_model(cfg), params, dict(g))["ok"]
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")

@@ -180,10 +180,11 @@ def test_wrapping_state_is_refused_like_the_reference(case):
 
 
 def test_ctypes_signatures_match_the_cuda_entry_points():
-    """Every ``extern "C"`` launcher of ``ring_q.cu`` and ``ring_f32.cu``
-    takes the pointers and ints that ``_build.SIGNATURES`` declares, in
-    that order (ctypes would pass a wrong count silently), and each
-    source names its error codes."""
+    """Every ``extern "C"`` launcher of ``ring_q.cu``, ``ring_f32.cu`` and
+    ``ring_decode.cu`` takes the pointers, ints and floats that
+    ``_build.SIGNATURES`` declares, in that order (ctypes would pass a
+    wrong count or type silently), and each source names its error
+    codes."""
     import re
 
     from repro_torch.kernels import _build
@@ -196,9 +197,10 @@ def test_ctypes_signatures_match_the_cuda_entry_points():
         found = {}
         for name, args in re.findall(r"^int (ring_\w+)\(([^)]*)\)", text,
                                      re.MULTILINE):
-            found[name] = ["P" if "*" in a else "I"
-                           for a in args.split(",")]
-        declared = {name: ["P" if t is _build._P else "I" for t in argtypes]
+            found[name] = ["P" if "*" in a else "F" if "float" in a
+                           else "I" for a in args.split(",")]
+        declared = {name: ["P" if t is _build._P else "F" if t is _build._F
+                           else "I" for t in argtypes]
                     for name, argtypes in entries.items()}
         assert found == declared, stem
         every |= set(declared)
