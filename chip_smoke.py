@@ -22,8 +22,12 @@ Phases, one summary line each:
      lanes exact), on every op of the six fp32 ``host-sim`` plans
      (DS-CNN, ResNet-8, MCUNet-5fps-VWW, the DS-CNN stream, the GRU
      chain, the whisper-tiny MLP tower) and on the fp32 edge cases (a
-     gemma3-1b-width geglu layer among them); and which ops read their
-     weights from global memory (too large for shared, or used once);
+     gemma3-1b-width geglu layer among them; the depthwise and k x k
+     convs also in place, where only a kernel that reads all of an op
+     before storing matches); which ops read their weights from global
+     memory (too large for shared, or used once); and, for each
+     ``ring_conv_dw`` / ``ring_conv_k2d`` call, its CTAs and the bytes
+     each holds across the grid barrier (``conv2d.conv_tiling``);
      then ``ring_decode_attention`` against its plain version on every
      case of ``cases.DECODE_CASES`` (fp32 within 2e-5, bf16 within one
      bf16 ulp of the output's scale);
@@ -414,19 +418,25 @@ def phase_parity(cases) -> dict[str, float]:
     """Every case: kernel vs plain version on the card, int8 bitwise and
     fp32 by ``cases.compare_f32``; and the cases whose launch read its
     weights from global memory, as the wrapper decided
-    (``<wrapper>.weights_staged``).  Returns the max |difference| per
-    kernel (0 for int8, or this raises)."""
+    (``<wrapper>.weights_staged``); and the tiling of each depthwise and
+    k x k fp32 conv.  Returns the max |difference| per kernel (0 for
+    int8, or this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
                                            live_lanes, output_regions)
+    from repro_torch.kernels.conv2d import conv_tiling
 
     n_f32 = sum(is_f32(c.kernel) for c in cases)
     say(f"phase 2: {len(cases)} kernel calls against their plain versions "
         f"on the card ({len(cases) - n_f32} int8 bitwise, {n_f32} fp32 "
         "within the tolerance; TF32 off)")
     err: dict[str, float] = {name: 0 for name in KERNELS}
-    global_w = []
+    global_w, tiles = [], []
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for case in cases:
+        if case.kernel in ("ring_conv_dw", "ring_conv_k2d"):
+            t = conv_tiling(case.kernel, case.kwargs, n_sm)
+            tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
         pool, params = case_inputs(case, seed=0)
         want = torch.from_numpy(pool).cuda()
         PLAIN[case.kernel](want, *_cuda(params), **case.kwargs)
@@ -458,6 +468,10 @@ def phase_parity(cases) -> dict[str, float]:
     say(f"  kernels covered: {covered}")
     say(f"  weights read from global memory (too large for shared): "
         f"{global_w or 'none'}")
+    say(f"  ring_conv_dw / ring_conv_k2d tiles on {n_sm} SMs (CTAs, bytes "
+        "each holds across the grid barrier):")
+    for line in tiles:
+        say(f"    {line}")
     return err
 
 

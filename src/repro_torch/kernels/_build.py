@@ -47,8 +47,8 @@ SIGNATURES = {
     "ring_f32": {
         "ring_gemm": [_P] * 3 + [_I] * 9 + [_P],
         "ring_conv_pw": [_P] * 3 + [_I] * 14 + [_P],
-        "ring_conv_dw": [_P] * 3 + [_I] * 14 + [_P],
-        "ring_conv_k2d": [_P] * 3 + [_I] * 15 + [_P],
+        "ring_conv_dw": [_P] * 3 + [_I] * 15 + [_P],
+        "ring_conv_k2d": [_P] * 3 + [_I] * 17 + [_P],
         "ring_add": [_P] + [_I] * 8 + [_P],
         "ring_avgpool": [_P] + [_I] * 7 + [_P],
         "ring_inverted_bottleneck": [_P] * 4 + [_I] * 11 + [_P],

@@ -42,13 +42,19 @@ held by :func:`compare_f32` at the one tolerance :data:`RTOL` and
 the live channels of the rows the call writes, and exactly everywhere
 else (channel tails and segments the call does not write).
 
-Every in/out overlap here is one a certified plan allows: no output row
-lands on an input row (or residual row) a later step still reads, and
-no output lands on a streaming state region.  Only such overlaps are a
-test of anything: the reference kernels in interpret mode read an
-unaliased copy of the pool, and the plain versions read every input
-before they store, so an illegal overlap would set them apart from a
-kernel that walks the ring in order.
+Every in/out overlap here but three is one a certified plan allows: no
+output row lands on an input row (or residual row) a later step still
+reads, and no output lands on a streaming state region.  The reference
+kernels in interpret mode read an unaliased copy of the pool, and the
+plain versions read every input before they store, so an overlap no
+plan has would set them apart from a kernel that walks the ring in
+order.  The exceptions are the fp32 depthwise and k x k convs in place
+(``f32_dw_inplace*``, ``f32_k2d_inplace``): those kernels read
+all of an op's input before any CTA stores, so they too must match
+the plain version there, where a kernel that walks the rows in order
+does not.  A store before their grid barrier shows when it lands while
+another CTA still reads: reliably in ``f32_dw_inplace_uneven``, whose
+short last tile finishes first.
 """
 from __future__ import annotations
 
@@ -254,6 +260,26 @@ F32_EDGE_CASES = (
     Case("f32_add_tiles_shifted", "ring_add", 2048,
          dict(rows=500, d=130, in_ptr=1010, aux_ptr=0, out_ptr=1008,
               activation="relu")),
+    # in place (out_ptr == in_ptr), an overlap no certified plan has: only
+    # a kernel whose every read precedes every store matches the plain
+    # version (6 and 40 CTAs)
+    Case("f32_dw_inplace", "ring_conv_dw", 48,
+         _dw(6, 4, 32, 3, 1, "same", 6, 4, 24, 24, "relu")),
+    # in place with uneven tiles: 2 rows a tile over 3 channel tiles, the
+    # last tile one row, so its CTA finishes first; it must not store row 46
+    # while the CTA of rows 44-45 still reads it
+    Case("f32_dw_inplace_uneven", "ring_conv_dw", 1152,
+         _dw(47, 8, 384, 3, 1, "same", 47, 8, 24, 24, "relu")),
+    Case("f32_k2d_inplace", "ring_conv_k2d", 144,
+         _k2d(8, 6, 3, 20, 3, 1, "same", 8, 6, 96, 96, "relu")),
+    # c_out 140, two output segments per pixel (the last channel tile
+    # stores the 116-lane tail), stride 2, the input run wrapping the ring
+    Case("f32_k2d_c140_s2_wrap", "ring_conv_k2d", 168,
+         _k2d(9, 7, 20, 140, 3, 2, "same", 5, 4, 140, 40, "gelu")),
+    # 45 rows x 3 channel tiles: 2 rows per tile (69 CTAs on 132 SMs), 1,024
+    # outputs per CTA over 512 threads; the output run wraps the ring
+    Case("f32_dw_row_blocks_wrap", "ring_conv_dw", 1200,
+         _dw(45, 4, 260, 3, 1, "same", 45, 4, 300, 960, "relu")),
 )
 
 #: Edge cases of the fp32 fused inverted bottleneck, streaming conv and

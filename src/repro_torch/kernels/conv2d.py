@@ -11,23 +11,31 @@ without synchronising; it updates the pool in place and returns it.  A
 wrapper never falls back to its plain version: it raises on anything
 but CUDA tensors.  It counts its launches in ``<wrapper>.launches``; a
 conv wrapper records in ``<wrapper>.weights_staged`` whether its last
-launch staged the weights in shared memory (None for the add and the
-pool, which have none).  The wrappers size every kernel's shared memory
-at 4 bytes per element.
+launch staged the weights (the depthwise and k x k convs: each CTA's
+weight slice) in shared memory (None for the add and the pool, which
+have none).  The wrappers size every kernel's shared memory at 4 bytes
+per element.
+
+The depthwise and k x k convs run many CTAs that read all of the op's
+input before any stores (one grid-wide barrier between);
+:func:`conv_tiling` is how they cut an op into tiles, one per CTA.
 
 Beside each wrapper sits its plain version (``<name>_plain``), a port
 of the reference's jnp executor op (``conv_pw_ring``, ``conv_dw_ring``,
 ``conv_k2d_ring``, ``add_ring``, ``pool_avg_ring``): gather every input
 row, compute in fp32, scatter.  On a certified plan that leaves the
-pool the kernels' sequential walk leaves, up to the order of fp32 sums.
+pool the kernels leave, up to the order of fp32 sums.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from ..core.program import resolve_activation
 from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w, resample_src
-from ..core.vpool import fetch_rows, stage_rows
+from ..core.vpool import SEG_WIDTH, fetch_rows, stage_rows
 from ._launch import MAX_SMEM, check_cuda, launch
 from .quantized import _check_add, _check_avgpool, _check_pw, _check_rows, \
     _taps
@@ -98,6 +106,140 @@ def ring_conv_pw_plain(pool, w, b, *, h_in: int, w_in: int, h_out: int,
 # Depthwise and k x k conv.
 # ---------------------------------------------------------------------------
 
+#: SMs of an H100 SXM, the tiling's CTA limit where no card is asked.
+H100_SMS = 132
+#: Output-channel tiles a k x k conv may take (a smaller ``c_out`` is one
+#: tile); every one divides a segment.
+K2D_CHANNEL_TILES = (4, 8, 16, 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvTiling:
+    """How :func:`ring_conv_dw` / :func:`ring_conv_k2d` cut an op: CTA i
+    owns tile i, ``rows`` output image rows (fewer in the last block) by
+    ``ctile`` output channels, channel tiles fastest; ``ctas`` is at most
+    the SM count, so all of them are resident at once.  ``smem`` is one
+    CTA's shared memory in bytes (a k x k conv's staged input rows or a
+    depthwise conv's input row segments, the held outputs, the bias, the
+    weight slice when ``stage_w``, the output row segments), ``held`` the
+    bytes of outputs it keeps across the grid barrier."""
+
+    kernel: str
+    h_in: int
+    h_out: int
+    w_out: int
+    c_out: int
+    k: int
+    stride: int
+    pad_v: int
+    rows: int
+    ctile: int
+    stage_w: bool
+    smem: int
+
+    @property
+    def channel_tiles(self) -> int:
+        return -(-self.c_out // self.ctile)
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.h_out // self.rows) * self.channel_tiles
+
+    @property
+    def halo(self) -> int:
+        """Input rows a CTA's taps can reach."""
+        return (self.rows - 1) * self.stride + self.k
+
+    @property
+    def held(self) -> int:
+        return 4 * self.rows * self.w_out * self.ctile
+
+    def tile(self, i: int) -> tuple[int, int, int, int, int, int]:
+        """CTA ``i``'s ``(p0, np, c0, cn, lo, nh)``: output rows ``p0 ..
+        p0 + np - 1``, channels ``c0 .. c0 + cn - 1`` and the input rows
+        ``lo .. lo + nh - 1`` inside the image that its taps reach (the
+        kernel's ``conv_tile``)."""
+        rb, cb = divmod(i, self.channel_tiles)
+        p0, c0 = rb * self.rows, cb * self.ctile
+        np_ = min(self.rows, self.h_out - p0)
+        top = p0 * self.stride - self.pad_v
+        lo = max(0, top)
+        nh = max(0, min(self.h_in - 1, top + (np_ - 1) * self.stride
+                        + self.k - 1) - lo + 1)
+        return p0, np_, c0, min(self.ctile, self.c_out - c0), lo, nh
+
+
+def _conv_smem(rows, ctile, stage_w, *, w_in, w_out, c_in, k, stride,
+               dw) -> int:
+    """Bytes of a conv CTA's shared memory (``conv_smem_layout``): a
+    depthwise conv keeps its input rows' ring segments, a k x k conv the
+    rows themselves."""
+    halo = (rows - 1) * stride + k
+    rows_in = halo if dw else halo * w_in * c_in
+    w_len = k * k * ctile * (1 if dw else c_in)
+    return 4 * (rows_in + rows * w_out * ctile + ctile
+                + (w_len if stage_w else 0) + rows)
+
+
+def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
+    """The tiling of a ``ring_conv_dw`` / ``ring_conv_k2d`` call (its
+    kwargs ``kw``) over at most ``n_sm`` CTAs.
+
+    A depthwise conv takes channel tiles of one segment (``min(c,
+    128)``); a k x k conv the ``K2D_CHANNEL_TILES`` entry (or ``c_out``)
+    that gives the fewest outputs per CTA, ties to the wider tile.  Each
+    takes the fewest output rows per tile that keep the tiles within
+    ``n_sm``, and stages its weight slice when it fits beside the rest.
+    Raises ``ValueError``, naming the op's geometry, when no tile fits
+    ``MAX_SMEM``."""
+    dw = kernel == "ring_conv_dw"
+    return _tiling(kernel, kw["h_in"], kw["w_in"], kw["h_out"], kw["w_out"],
+                   kw["c"] if dw else kw["c_in"],
+                   kw["c"] if dw else kw["c_out"],
+                   kw["rs"] if dw else kw["k"], kw["stride"], kw["padding"],
+                   n_sm)
+
+
+@functools.lru_cache(maxsize=4096)
+def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
+            padding, n_sm) -> ConvTiling:
+    """:func:`conv_tiling` by geometry, once per geometry (a wrapper
+    calls it on every launch)."""
+    dw = kernel == "ring_conv_dw"
+    geom = dict(w_in=w_in, w_out=w_out, c_in=c_in, k=k, stride=stride,
+                dw=dw)
+    tiles = [min(c_out, SEG_WIDTH)] if dw else \
+        sorted({min(c_out, t) for t in K2D_CHANNEL_TILES})
+    best = None
+    for ctile in tiles:
+        per_row = -(-c_out // ctile)
+        if per_row > n_sm:
+            continue
+        rows = -(-h_out // (n_sm // per_row))
+        smem = _conv_smem(rows, ctile, True, **geom)
+        stage_w = smem <= MAX_SMEM
+        if not stage_w:
+            smem = _conv_smem(rows, ctile, False, **geom)
+            if smem > MAX_SMEM:
+                continue
+        key = (rows * ctile, -ctile)
+        if best is None or key < best[0]:
+            best = key, ConvTiling(
+                kernel, h_in, h_out, w_out, c_out, k, stride,
+                conv_k2d_pad(k, padding), rows, ctile, stage_w, smem)
+    if best is None:
+        raise ValueError(
+            f"{kernel}: no tile of the op [{h_in}, {w_in}, {c_in}] -> "
+            f"[{h_out}, {w_out}, {c_out}], k {k}, stride {stride}, fits "
+            f"{MAX_SMEM} B of shared memory over at most {n_sm} CTAs")
+    return best[1]
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def ring_conv_dw(pool, w, b, *, h_in: int, w_in: int, h_out: int,
                  w_out: int, c: int, rs: int = 3, stride: int = 1,
                  padding: str = "same", in_ptr: int = 0, out_ptr: int = 0,
@@ -107,12 +249,14 @@ def ring_conv_dw(pool, w, b, *, h_in: int, w_in: int, h_out: int,
     n_seg = pool.shape[0]
     _check_rows(n_seg, w_in, w_out, c, c, in_ptr, out_ptr)
     check_cuda(pool, _weights(w, b, (rs, rs, c), c), dtype=F32)
-    ring_conv_dw.weights_staged = launch(
-        "ring_conv_dw", pool, 4 * (rs * w_in * c + c), (w, b),
-        (n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
-         conv_k2d_pad(rs, padding), conv_k2d_pad_w(rs, padding),
-         in_ptr % n_seg, out_ptr % n_seg, act_code(activation)),
-        w_bytes=4 * rs * rs * c)
+    t = _tiling("ring_conv_dw", h_in, w_in, h_out, w_out, c, c, rs, stride,
+                padding, _sm_count(pool.device))
+    launch("ring_conv_dw", pool, t.smem, (w, b),
+           (n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
+            conv_k2d_pad(rs, padding), conv_k2d_pad_w(rs, padding),
+            in_ptr % n_seg, out_ptr % n_seg, act_code(activation), t.rows,
+            int(t.stage_w)))
+    ring_conv_dw.weights_staged = t.stage_w
     ring_conv_dw.launches += 1
     return pool
 
@@ -141,12 +285,14 @@ def ring_conv_k2d(pool, w, b, *, h_in: int, w_in: int, h_out: int,
     n_seg = pool.shape[0]
     _check_rows(n_seg, w_in, w_out, c_in, c_out, in_ptr, out_ptr)
     check_cuda(pool, _weights(w, b, (k, k, c_in, c_out), c_out), dtype=F32)
-    ring_conv_k2d.weights_staged = launch(
-        "ring_conv_k2d", pool, 4 * (k * w_in * c_in + c_out), (w, b),
-        (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
-         conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding),
-         in_ptr % n_seg, out_ptr % n_seg, act_code(activation)),
-        w_bytes=4 * k * k * c_in * c_out)
+    t = _tiling("ring_conv_k2d", h_in, w_in, h_out, w_out, c_in, c_out, k,
+                stride, padding, _sm_count(pool.device))
+    launch("ring_conv_k2d", pool, t.smem, (w, b),
+           (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
+            conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding),
+            in_ptr % n_seg, out_ptr % n_seg, act_code(activation), t.rows,
+            t.ctile, int(t.stage_w)))
+    ring_conv_k2d.weights_staged = t.stage_w
     ring_conv_k2d.launches += 1
     return pool
 

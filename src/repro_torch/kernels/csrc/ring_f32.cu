@@ -15,15 +15,16 @@
 //   ring_fused_mlp   <- ring_fused_mlp   (fused_mlp.py:97)  in-place (gated) MLP
 //   ring_elementwise <- ring_elementwise (elementwise.py:61) in-place activation
 //
-// They are the fp32 twins of the int8 kernels of ring_q.cu and keep their
-// ring order.  The pool is one float tensor [n_seg, 128]: a tensor of c-wide
-// rows takes ceil(c / 128) consecutive segments per row, and every segment
-// address is taken modulo n_seg.  Every op writes its output rows into the
-// ring it reads, often over input rows it has already consumed; the plan is
-// certified clobber-free only for the TPU's sequential grid, where no store
-// of step i moves ahead of a read of an earlier step.  Blocks of a CUDA grid
-// run in no order, so each op runs as ONE thread block that walks the steps
-// in plan order:
+// They are the fp32 twins of the int8 kernels of ring_q.cu.  The pool is
+// one float tensor [n_seg, 128]: a tensor of c-wide rows takes
+// ceil(c / 128) consecutive segments per row, and every segment address is
+// taken modulo n_seg.  Every op writes its output rows into the ring it
+// reads, often over input rows it has already consumed.  A certified plan
+// never stores onto a segment that a later step of the same op still
+// reads, so in the TPU's sequential grid every read of an op sees the pool
+// as it was before the op.  A kernel keeps that in one of two ways.
+//
+// Most of them run as ONE thread block that walks the steps in plan order:
 //
 //   load the step's input rows into shared memory   (ring load, modulo n_seg)
 //   __syncthreads()
@@ -31,8 +32,24 @@
 //   store the step's output rows                     (ring store, modulo n_seg)
 //   __syncthreads()                                  (stores visible before the next load)
 //
-// Every element address is taken modulo n_seg on its own, so a step's run of
-// segments that wraps the ring is handled segment by segment.  Shared memory
+// The depthwise and the k x k conv read EVERYTHING before they store
+// anything, over many CTAs in one cooperative launch: (a) each CTA computes
+// the outputs of its tile (a block of output image rows x a channel tile)
+// from the ring into shared memory, storing nothing; (b) one grid-wide
+// barrier; (c) each CTA stores its tile's outputs and channel-tail zeros.
+// Every read then sees the pool from before the op, as in the sequential
+// walk, and every output lands on the same segment, so the final pool is
+// the same (the superblock argument of DESIGN.md, "coalescing only delays
+// stores relative to reads", applied to the whole op); it holds for any
+// overlap of input and output, in place too.  The fused MLP and the
+// elementwise map are delta-0 ops whose row blocks are disjoint; they too
+// read each block's rows before storing any (see each kernel's comment).
+//
+// The walking kernels take every element address modulo n_seg on its own,
+// so a step's run of segments that wraps the ring is handled segment by
+// segment; the two convs take one modulo per image row (per staged pixel
+// for the k x k conv's input; their wrappers require image-row alignment,
+// so no row wraps).  Shared memory
 // holds only the live channels of each row (c of its segs(c) * 128 floats),
 // so a 16-channel image row costs 64 bytes a pixel and not 512; threads run
 // over the live outputs only, and the channel tails (c .. segs(c) * 128) are
@@ -41,13 +58,12 @@
 // What bounds these kernels on the card: bytes and operations are tiny
 // (ResNet-8's largest conv is 4.7 MFLOP over about 0.2 MB), so the bound is
 // a few microseconds at most; what the serial walk costs is latency, one SM and
-// one barrier pair per step.  Against that latency each op stages its bias,
-// and its weights when they fit beside the step's input tile, into shared
-// memory once; the wrappers (kernels/segment_matmul.py, kernels/conv2d.py)
-// size shared memory and pass that choice (`stage_w`), the add's `tile_rows`
-// and the pool's `chunk_pix`.  A wavefront of steps bounded by the op's
-// solved delta, cp.async/TMA prefetch and tensor-core products are later
-// work.
+// one barrier pair per step.  Against that latency each walking op stages
+// its bias, and its weights when they fit beside the step's input tile,
+// into shared memory once; the wrappers (kernels/segment_matmul.py,
+// kernels/conv2d.py) size shared memory and pass that choice (`stage_w`),
+// the add's `tile_rows`, the pool's `chunk_pix` and the convs' tiling
+// (conv2d.py::conv_tiling).
 //
 // The fused inverted bottleneck keeps its C_mid-wide expansion as an RS-row
 // halo in shared memory (the Pallas kernel's VMEM halo ring) and never
@@ -59,11 +75,6 @@
 // window is on chip.  The GRU cell uses each of W and U once per launch, so
 // it reads them from global memory (coalesced across output columns).
 //
-// The fused MLP and the elementwise map are the two delta-0 ops: step t reads
-// row t and stores row t (core/rowsched.py::rowwise_schedule), so the row
-// blocks of one op are disjoint and they are the only kernels here that run
-// many thread blocks at once (see each kernel's comment).
-//
 // Numerics: fp32 FMA accumulation over the reduction in its natural order
 // (taps row-major, then input channels), then the bias, then the activation
 // of core/program.py::ACTIVATIONS with precise expf/tanhf (gelu is the tanh
@@ -72,6 +83,7 @@
 // GRU gates round each product and sum on its own (__fmul_rn, __fadd_rn),
 // as PyTorch's elementwise ops do.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -226,77 +238,225 @@ conv_pw_f32_kernel(float* pool, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// k x k conv and depthwise rs x rs conv share one step body: per output row,
-// the k halo rows (clamped into the image; taps outside it are masked).
+// Depthwise rs x rs conv and k x k conv: many CTAs, one grid-wide barrier.
+// CTA i owns tile i: `rows` output image rows (the last block may have
+// fewer) x a tile of `ctile` output channels, channel tiles fastest.  It
+//   (a) stages what it reads and computes every output of its tile into
+//       shared memory, storing nothing into the pool;
+//   (b) meets every other CTA at the grid barrier;
+//   (c) stores its outputs, and its share of the channel tails as zeros.
+// The wrapper keeps the tiles at most the card's SM count, so the
+// cooperative launch has every CTA resident at once whatever its occupancy
+// (the launch is refused otherwise).  Threads run x over the tile's
+// channels and y over its pixels.
+//
+// What bounds them: the bound is tens of nanoseconds (bytes); what remains
+// is one launch, the staging of a CTA's inputs, its longest FMA chain
+// (k * k * c_in for the k x k conv) and the barrier.
 // ---------------------------------------------------------------------------
-template <bool DEPTHWISE>
-__device__ __forceinline__ void conv_kxk(
-    float* pool, const float* __restrict__ w, const float* __restrict__ b,
-    int n_seg, int h_in, int w_in, int h_out, int w_out, int c_in, int c_out,
-    int k, int stride, int pad_v, int pad_h, int in_ptr, int out_ptr, int act,
-    int stage_w) {
-  extern __shared__ float smem[];
-  float* x = smem;                                  // [k, w_in, c_in]
-  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
-  const int in_row = w_in * ksegs, out_row = w_out * nsegs;
-  const int w_len = DEPTHWISE ? k * k * c_in : k * k * c_in * c_out;
-  const Params prm = stage_params(x + k * w_in * c_in, w, w_len, b, c_out,
-                                  stage_w);
-  for (int p = 0; p < h_out; ++p) {
-    const int src0 = p * stride - pad_v;
-    for (int r = 0; r < k; ++r) {
-      int src = src0 + r;
-      src = src < 0 ? 0 : (src > h_in - 1 ? h_in - 1 : src);
-      load_rows(x + r * w_in * c_in, pool, (in_ptr + src * in_row) % n_seg,
-                w_in, c_in, ksegs, n_seg);
-    }
-    __syncthreads();
-    const int dst = (out_ptr + p * out_row) % n_seg;
-    for (int j = threadIdx.x; j < w_out * c_out; j += blockDim.x) {
-      const int q = j / c_out, co = j - q * c_out;
-      float acc = 0.f;
-      for (int r = 0; r < k; ++r) {
-        if (src0 + r < 0 || src0 + r >= h_in) continue;
-        for (int s = 0; s < k; ++s) {
-          const int col = q * stride - pad_h + s;
-          if (col < 0 || col >= w_in) continue;
-          const float* xr = x + (r * w_in + col) * c_in;
-          if (DEPTHWISE) {
-            acc = fmaf(xr[co], prm.w[(r * k + s) * c_in + co], acc);
-          } else {
-            const float* wc = prm.w + (r * k + s) * c_in * c_out + co;
-            for (int ci = 0; ci < c_in; ++ci)
-              acc = fmaf(xr[ci], wc[ci * c_out], acc);
-          }
-        }
-      }
-      pool[ring_index(dst, q, co, nsegs, n_seg)] =
-          activate(acc + prm.b[co], act);
-    }
-    zero_tails(pool, dst, w_out, c_out, nsegs, n_seg);
-    __syncthreads();
+constexpr int CONV_THREADS = 512;   // most threads a conv CTA runs
+
+namespace cg = cooperative_groups;
+
+// The tile of CTA blockIdx.x: output rows p0 .. p0 + np - 1, channels
+// c0 .. c0 + cn - 1, and the input rows lo .. lo + nh - 1 inside the image
+// that its taps reach.
+struct ConvTile {
+  int p0, np, c0, cn, lo, nh;
+};
+
+__device__ __forceinline__ ConvTile conv_tile(int h_in, int h_out, int c,
+                                              int k, int stride, int pad_v,
+                                              int rows, int ctile) {
+  const int n_ct = (c + ctile - 1) / ctile;
+  const int rb = blockIdx.x / n_ct, cb = blockIdx.x - rb * n_ct;
+  ConvTile t;
+  t.p0 = rb * rows;
+  t.np = min(rows, h_out - t.p0);
+  t.c0 = cb * ctile;
+  t.cn = min(ctile, c - t.c0);
+  const int top = t.p0 * stride - pad_v;
+  t.lo = max(0, top);
+  t.nh = max(0, min(h_in - 1, top + (t.np - 1) * stride + k - 1) - t.lo + 1);
+  return t;
+}
+
+// A conv CTA's shared memory, in 4-byte words: the staged input rows
+// (`x_len`, the k x k conv's halo; 0 for the depthwise conv, which reads the
+// pool directly), the held outputs [rows * w_out, ctile], the bias [ctile],
+// the weight slice (`w_len`, when staged), then the ring segment of each
+// input row the tile reaches (`in_rows` ints: the depthwise conv's halo; 0
+// for the k x k conv, which stages its rows at once) and of each output row
+// ([rows]).
+struct ConvSmem {
+  int y, bias, w, in_row, out_row, words;
+};
+
+__host__ __device__ __forceinline__ ConvSmem conv_smem_layout(
+    int x_len, int rows, int w_out, int ctile, int w_len, int stage_w,
+    int in_rows) {
+  ConvSmem m;
+  m.y = x_len;
+  m.bias = m.y + rows * w_out * ctile;
+  m.w = m.bias + ctile;
+  m.in_row = m.w + (stage_w ? w_len : 0);
+  m.out_row = m.in_row + in_rows;
+  m.words = m.out_row + rows;
+  return m;
+}
+
+// Threads of a conv CTA, all CONV_THREADS of them (staging spreads its loads
+// over every thread; the outputs may need fewer): x over the tile's
+// channels, y over its pixels.
+inline dim3 conv_block(int ctile) { return dim3(ctile, CONV_THREADS / ctile); }
+
+// Stage a tile's output row segments (one modulo per image row), its bias
+// and, when `stage_w`, its weight slice [taps, ctile] of w [taps, ldw]
+// (columns c0 .. c0 + cn - 1); returns where the kernel reads the slice
+// from and its row stride.
+__device__ __forceinline__ const float* stage_tile(
+    const ConvTile& t, const ConvSmem& m, float* smem, const float* w,
+    const float* b, int taps, int ldw, int ctile, int stage_w, int n_seg,
+    int out_ptr, int out_seg, int* ld) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y;
+  int* out_row = reinterpret_cast<int*>(smem + m.out_row);
+  for (int i = tid; i < t.np; i += nthr)
+    out_row[i] = (out_ptr + (t.p0 + i) * out_seg) % n_seg;
+  if (threadIdx.y == 0 && threadIdx.x < t.cn)
+    smem[m.bias + threadIdx.x] = b[t.c0 + threadIdx.x];
+  if (!stage_w) {
+    *ld = ldw;
+    return w + t.c0;
+  }
+  float* ws = smem + m.w;
+  if (threadIdx.x < t.cn)
+    for (int r = threadIdx.y; r < taps; r += blockDim.y)
+      ws[r * ctile + threadIdx.x] = w[(size_t)r * ldw + t.c0 + threadIdx.x];
+  *ld = ctile;
+  return ws;
+}
+
+// (c) Store the tile's held outputs y [np * w_out, ctile] over lanes
+// c0 .. end of each output pixel, zeros from channel c on: the last channel
+// tile also stores the pixel's channel tail, up to osegs * SEG.
+__device__ __forceinline__ void store_tile(float* pool, const ConvTile& t,
+                                           const float* y, const int* out_row,
+                                           int w_out, int c, int osegs,
+                                           int ctile) {
+  const int end = t.c0 + ctile >= c ? osegs * SEG : t.c0 + ctile;
+  for (int m = threadIdx.y; m < t.np * w_out; m += blockDim.y) {
+    const int pl = m / w_out, q = m - pl * w_out;
+    float* dst = pool + (size_t)out_row[pl] * SEG + (size_t)q * osegs * SEG;
+    for (int lane = t.c0 + threadIdx.x; lane < end; lane += blockDim.x)
+      dst[lane] = lane < c ? y[m * ctile + lane - t.c0] : 0.f;
   }
 }
 
-// Depthwise rs x rs conv: w [rs, rs, c].
-__global__ void __launch_bounds__(THREADS)
+// Depthwise rs x rs conv: w [rs, rs, c]; channel tiles of min(c, 128), one
+// segment each.  Each thread reads its taps straight from the pool
+// (channels fastest, so a warp's loads are coalesced).
+__global__ void __launch_bounds__(CONV_THREADS)
 conv_dw_f32_kernel(float* pool, const float* __restrict__ w,
                    const float* __restrict__ b, int n_seg, int h_in, int w_in,
                    int h_out, int w_out, int c, int rs, int stride, int pad_v,
-                   int pad_h, int in_ptr, int out_ptr, int act, int stage_w) {
-  conv_kxk<true>(pool, w, b, n_seg, h_in, w_in, h_out, w_out, c, c, rs,
-                 stride, pad_v, pad_h, in_ptr, out_ptr, act, stage_w);
+                   int pad_h, int in_ptr, int out_ptr, int act, int rows,
+                   int stage_w) {
+  extern __shared__ float smem[];
+  const int ct = min(c, SEG), segs = segs_for(c);
+  const ConvTile t = conv_tile(h_in, h_out, c, rs, stride, pad_v, rows, ct);
+  const ConvSmem m = conv_smem_layout(0, rows, w_out, ct, rs * rs * ct,
+                                      stage_w, (rows - 1) * stride + rs);
+  int* in_row = reinterpret_cast<int*>(smem + m.in_row);
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < t.nh;
+       i += blockDim.x * blockDim.y)
+    in_row[i] = (in_ptr + (t.lo + i) * w_in * segs) % n_seg;
+  int ldw;
+  const float* wp = stage_tile(t, m, smem, w, b, rs * rs, c, ct, stage_w,
+                               n_seg, out_ptr, w_out * segs, &ldw);
+  __syncthreads();
+  float* y = smem + m.y;
+  const int x = threadIdx.x, ch = t.c0 + x;
+  if (x < t.cn) {
+    for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y) {
+      const int pl = j / w_out, q = j - pl * w_out;
+      const int top = (t.p0 + pl) * stride - pad_v;
+      float acc = 0.f;
+      for (int r = 0; r < rs; ++r) {
+        const int src = top + r;
+        if (src < 0 || src >= h_in) continue;
+        const float* row = pool + (size_t)in_row[src - t.lo] * SEG + ch;
+        for (int s = 0; s < rs; ++s) {
+          const int col = q * stride - pad_h + s;
+          if (col < 0 || col >= w_in) continue;
+          acc = fmaf(row[(size_t)col * segs * SEG], wp[(r * rs + s) * ldw + x],
+                     acc);
+        }
+      }
+      y[j * ct + x] = activate(acc + smem[m.bias + x], act);
+    }
+  }
+  cg::this_grid().sync();   // (b): every read of the op is done
+  store_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
+             w_out, c, segs, ct);
 }
 
-// k x k conv: w [k, k, c_in, c_out].
-__global__ void __launch_bounds__(THREADS)
+// k x k conv: w [k, k, c_in, c_out].  A CTA stages the live channels of the
+// input rows its taps reach ((rows - 1) * stride + k at most) and its weight
+// slice [k, k, c_in, ctile] in shared memory; each thread accumulates one
+// output at a time in a register.
+__global__ void __launch_bounds__(CONV_THREADS)
 conv_k2d_f32_kernel(float* pool, const float* __restrict__ w,
                     const float* __restrict__ b, int n_seg, int h_in,
                     int w_in, int h_out, int w_out, int c_in, int c_out, int k,
                     int stride, int pad_v, int pad_h, int in_ptr, int out_ptr,
-                    int act, int stage_w) {
-  conv_kxk<false>(pool, w, b, n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k,
-                  stride, pad_v, pad_h, in_ptr, out_ptr, act, stage_w);
+                    int act, int rows, int ctile, int stage_w) {
+  extern __shared__ float smem[];
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int halo = (rows - 1) * stride + k, row_len = w_in * c_in;
+  const ConvTile t = conv_tile(h_in, h_out, c_out, k, stride, pad_v, rows,
+                               ctile);
+  const ConvSmem m = conv_smem_layout(halo * row_len, rows, w_out, ctile,
+                                      k * k * c_in * ctile, stage_w, 0);
+  int ldw;
+  const float* wp = stage_tile(t, m, smem, w, b, k * k * c_in, c_out, ctile,
+                               stage_w, n_seg, out_ptr, w_out * nsegs, &ldw);
+  float* x = smem;                                  // [nh, w_in, c_in]
+  for (int i = threadIdx.y; i < t.nh * w_in; i += blockDim.y) {
+    const int hr = i / w_in, px = i - hr * w_in;
+    const float* src =
+        pool + (size_t)((in_ptr + (t.lo + hr) * w_in * ksegs) % n_seg) * SEG +
+        (size_t)px * ksegs * SEG;
+    for (int ci = threadIdx.x; ci < c_in; ci += blockDim.x)
+      x[i * c_in + ci] = src[ci];
+  }
+  __syncthreads();
+  float* y = smem + m.y;
+  const int co = threadIdx.x;
+  if (co < t.cn) {
+    for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y) {
+      const int pl = j / w_out, q = j - pl * w_out;
+      const int top = (t.p0 + pl) * stride - pad_v;
+      float acc = 0.f;
+      for (int r = 0; r < k; ++r) {
+        const int src = top + r;
+        if (src < 0 || src >= h_in) continue;
+        const float* xrow = x + (size_t)(src - t.lo) * row_len;
+        for (int s = 0; s < k; ++s) {
+          const int col = q * stride - pad_h + s;
+          if (col < 0 || col >= w_in) continue;
+          const float* xr = xrow + col * c_in;
+          const float* wc = wp + (size_t)(r * k + s) * c_in * ldw + co;
+          for (int ci = 0; ci < c_in; ++ci)
+            acc = fmaf(xr[ci], wc[(size_t)ci * ldw], acc);
+        }
+      }
+      y[j * ctile + co] = activate(acc + smem[m.bias + co], act);
+    }
+  }
+  cg::this_grid().sync();   // (b): every read of the op is done
+  store_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
+             w_out, c_out, nsegs, ctile);
 }
 
 // ---------------------------------------------------------------------------
@@ -730,6 +890,23 @@ int launch_grid(Kernel kernel, int blocks, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// Launch `blocks` CTAs of `threads` cooperatively (all resident at once, so
+// that cg::this_grid().sync() can meet them) and report the launch's error
+// code: cudaErrorCooperativeLaunchTooLarge when they do not fit together.
+template <typename Kernel, typename... Args>
+int launch_cooperative(Kernel kernel, int blocks, dim3 threads, size_t smem,
+                       void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  void* argv[] = {static_cast<void*>(&args)...};
+  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                          dim3(blocks), threads, argv, smem,
+                                          (cudaStream_t)stream);
+}
+
 // One block of THREADS: the ring-order walk of every other kernel.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
@@ -769,26 +946,33 @@ int ring_conv_pw(void* pool, const void* w, const void* b, int n_seg,
 int ring_conv_dw(void* pool, const void* w, const void* b, int n_seg,
                  int h_in, int w_in, int h_out, int w_out, int c, int rs,
                  int stride, int pad_v, int pad_h, int in_ptr, int out_ptr,
-                 int act, int stage_w, void* stream) {
-  const size_t smem = conv_smem((size_t)rs * w_in * c, (size_t)rs * rs * c, c,
-                                stage_w);
-  return launch(conv_dw_f32_kernel, smem, stream, (float*)pool,
-                (const float*)w, (const float*)b, n_seg, h_in, w_in, h_out,
-                w_out, c, rs, stride, pad_v, pad_h, in_ptr, out_ptr, act,
-                stage_w);
+                 int act, int rows, int stage_w, void* stream) {
+  const int ct = c < SEG ? c : SEG;
+  const ConvSmem m = conv_smem_layout(0, rows, w_out, ct, rs * rs * ct,
+                                      stage_w, (rows - 1) * stride + rs);
+  const int ctas = (h_out + rows - 1) / rows * segs_for(c);
+  return launch_cooperative(conv_dw_f32_kernel, ctas, conv_block(ct),
+                            sizeof(float) * (size_t)m.words, stream,
+                            (float*)pool, (const float*)w, (const float*)b,
+                            n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
+                            pad_v, pad_h, in_ptr, out_ptr, act, rows, stage_w);
 }
 
 int ring_conv_k2d(void* pool, const void* w, const void* b, int n_seg,
                   int h_in, int w_in, int h_out, int w_out, int c_in,
                   int c_out, int k, int stride, int pad_v, int pad_h,
-                  int in_ptr, int out_ptr, int act, int stage_w,
-                  void* stream) {
-  const size_t smem = conv_smem((size_t)k * w_in * c_in,
-                                (size_t)k * k * c_in * c_out, c_out, stage_w);
-  return launch(conv_k2d_f32_kernel, smem, stream, (float*)pool,
-                (const float*)w, (const float*)b, n_seg, h_in, w_in, h_out,
-                w_out, c_in, c_out, k, stride, pad_v, pad_h, in_ptr, out_ptr,
-                act, stage_w);
+                  int in_ptr, int out_ptr, int act, int rows, int ctile,
+                  int stage_w, void* stream) {
+  const int halo = (rows - 1) * stride + k;
+  const ConvSmem m = conv_smem_layout(halo * w_in * c_in, rows, w_out, ctile,
+                                      k * k * c_in * ctile, stage_w, 0);
+  const int ctas = (h_out + rows - 1) / rows * ((c_out + ctile - 1) / ctile);
+  return launch_cooperative(conv_k2d_f32_kernel, ctas, conv_block(ctile),
+                            sizeof(float) * (size_t)m.words, stream,
+                            (float*)pool, (const float*)w, (const float*)b,
+                            n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k,
+                            stride, pad_v, pad_h, in_ptr, out_ptr, act, rows,
+                            ctile, stage_w);
 }
 
 int ring_add(void* pool, int n_seg, int rows, int d, int in_ptr, int aux_ptr,
