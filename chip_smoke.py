@@ -26,8 +26,9 @@ Phases, one summary line each:
      convs also in place, where only a kernel that reads all of an op
      before storing matches); which ops read their weights from global
      memory (too large for shared, or used once); and, for each
-     ``ring_conv_dw`` / ``ring_conv_k2d`` call, its CTAs and the bytes
-     each holds across the grid barrier (``conv2d.conv_tiling``);
+     ``ring_conv_dw`` / ``ring_conv_k2d`` / ``ring_conv_stream`` /
+     ``ring_add`` call, its CTAs and the bytes each holds across the grid
+     barrier (``conv2d.conv_tiling``, ``conv2d.add_tiling``);
      then ``ring_decode_attention`` against its plain version on every
      case of ``cases.DECODE_CASES`` (fp32 within 2e-5, bf16 within one
      bf16 ulp of the output's scale);
@@ -310,8 +311,9 @@ def work_f32(kernel: str, kw: dict) -> tuple[int, int]:
     per activation.  The fused bottleneck reads each input pixel once
     (its residual re-read is not counted) and does 2 operations per
     multiply-accumulate of its three products; the streaming conv reads
-    and writes back its window once at its data width and does 2 k^2
-    c_in c_out operations per output pixel; the GRU cell reads x and h
+    its window once at its data width, writes it back as whole segments
+    (as the reference's copy of the window's segments does) and does
+    2 k^2 c_in c_out operations per output pixel; the GRU cell reads x and h
     once, stores h' twice as whole segments and does 2 (d_in + d_h) 3
     d_h operations; the fused MLP (``kw`` with its ``d_ff``) reads its
     rows once at their data width, stores them as whole segments, reads
@@ -337,7 +339,9 @@ def work_f32(kernel: str, kw: dict) -> tuple[int, int]:
     if kernel == "ring_conv_stream":
         ci, co, k = kw["c_in"], kw["c_out"], kw["k"]
         win, pix = kw["h_win"] * kw["w_in"] * ci, kw["h_out"] * kw["w_out"]
-        return (4 * (2 * win + pix * _segs(co) * 128 + k * k * ci * co + co),
+        win_segs = kw["h_win"] * kw["w_in"] * _segs(ci) * 128
+        return (4 * (win + win_segs + pix * _segs(co) * 128
+                     + k * k * ci * co + co),
                 2 * k * k * ci * co * pix)
     if kernel == "ring_gru_cell":
         ci, dh = kw["d_in"], kw["d_h"]
@@ -418,13 +422,13 @@ def phase_parity(cases) -> dict[str, float]:
     """Every case: kernel vs plain version on the card, int8 bitwise and
     fp32 by ``cases.compare_f32``; and the cases whose launch read its
     weights from global memory, as the wrapper decided
-    (``<wrapper>.weights_staged``); and the tiling of each depthwise and
-    k x k fp32 conv.  Returns the max |difference| per kernel (0 for
-    int8, or this raises)."""
+    (``<wrapper>.weights_staged``); and the tiling of each depthwise,
+    k x k and streaming fp32 conv and of each fp32 add.  Returns the max
+    |difference| per kernel (0 for int8, or this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
                                            live_lanes, output_regions)
-    from repro_torch.kernels.conv2d import conv_tiling
+    from repro_torch.kernels.conv2d import add_tiling, conv_tiling
 
     n_f32 = sum(is_f32(c.kernel) for c in cases)
     say(f"phase 2: {len(cases)} kernel calls against their plain versions "
@@ -434,8 +438,12 @@ def phase_parity(cases) -> dict[str, float]:
     global_w, tiles = [], []
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for case in cases:
-        if case.kernel in ("ring_conv_dw", "ring_conv_k2d"):
+        if case.kernel in ("ring_conv_dw", "ring_conv_k2d",
+                           "ring_conv_stream"):
             t = conv_tiling(case.kernel, case.kwargs, n_sm)
+            tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
+        elif case.kernel == "ring_add":
+            t = add_tiling(case.kwargs["rows"], case.kwargs["d"], n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
         pool, params = case_inputs(case, seed=0)
         want = torch.from_numpy(pool).cuda()
@@ -468,8 +476,9 @@ def phase_parity(cases) -> dict[str, float]:
     say(f"  kernels covered: {covered}")
     say(f"  weights read from global memory (too large for shared): "
         f"{global_w or 'none'}")
-    say(f"  ring_conv_dw / ring_conv_k2d tiles on {n_sm} SMs (CTAs, bytes "
-        "each holds across the grid barrier):")
+    say(f"  ring_conv_dw / ring_conv_k2d / ring_conv_stream / ring_add "
+        f"tiles on {n_sm} SMs (CTAs, bytes each holds across the grid "
+        "barrier):")
     for line in tiles:
         say(f"    {line}")
     return err

@@ -42,19 +42,26 @@ held by :func:`compare_f32` at the one tolerance :data:`RTOL` and
 the live channels of the rows the call writes, and exactly everywhere
 else (channel tails and segments the call does not write).
 
-Every in/out overlap here but three is one a certified plan allows: no
+Every in/out overlap here but four is one a certified plan allows: no
 output row lands on an input row (or residual row) a later step still
 reads, and no output lands on a streaming state region.  The reference
 kernels in interpret mode read an unaliased copy of the pool, and the
 plain versions read every input before they store, so an overlap no
 plan has would set them apart from a kernel that walks the ring in
 order.  The exceptions are the fp32 depthwise and k x k convs in place
-(``f32_dw_inplace*``, ``f32_k2d_inplace``): those kernels read
-all of an op's input before any CTA stores, so they too must match
-the plain version there, where a kernel that walks the rows in order
-does not.  A store before their grid barrier shows when it lands while
-another CTA still reads: reliably in ``f32_dw_inplace_uneven``, whose
-short last tile finishes first.
+(``f32_dw_inplace*``, ``f32_k2d_inplace``) and the fp32 stream whose
+output overlaps its window (``f32_stream_out_over_window``): those
+kernels read all of an op's input before any CTA stores, so they too
+must match the plain version there, where a kernel that walks the rows
+in order does not.  A store before their grid barrier shows when it
+lands while another CTA still reads: reliably in
+``f32_dw_inplace_uneven``, whose short last tile finishes first.  The
+fp32 add and stream cases ``f32_add_shifted_uneven``,
+``f32_add_out_on_residual``, ``f32_stream_dscnn_out_on_frame`` and
+``f32_stream_out_over_window`` store onto rows that another CTA of the
+op reads (and the last, onto the window another CTA stores), so a
+kernel without its grid barrier may differ there
+(``tests/test_torch_add_stream_tiles.py`` models it).
 """
 from __future__ import annotations
 
@@ -280,6 +287,18 @@ F32_EDGE_CASES = (
     # outputs per CTA over 512 threads; the output run wraps the ring
     Case("f32_dw_row_blocks_wrap", "ring_conv_dw", 1200,
          _dw(45, 4, 260, 3, 1, "same", 45, 4, 300, 960, "relu")),
+    # 8,385 rows over 132 CTAs, 64 each but the last, which has one and
+    # finishes first; row t lands on input row t - 1, which the CTA of the
+    # rows before reads last; the input run wraps the ring
+    Case("f32_add_shifted_uneven", "ring_add", 17000,
+         dict(rows=8385, d=16, in_ptr=9000, aux_ptr=400, out_ptr=8999,
+              activation="silu")),
+    # two segments a row, 32 rows a CTA but the last, which has one: row
+    # t lands on residual row t - 1, which the CTA of the rows before reads
+    # last
+    Case("f32_add_out_on_residual", "ring_add", 16800,
+         dict(rows=4193, d=130, in_ptr=0, aux_ptr=8400, out_ptr=8398,
+              activation="gelu")),
 )
 
 #: Edge cases of the fp32 fused inverted bottleneck, streaming conv and
@@ -303,6 +322,14 @@ F32_FUSED_STREAM_EDGE_CASES = (
     # d_h not a multiple of 128, two input segments, out_ptr past the end
     _f32(_EDGE["gru_wide_input"], "f32_gru_wide_input"),
     Case("f32_gru_d_h_72", "ring_gru_cell", 12, _gru(64, 72, 2, 3, 6)),
+    # DS-CNN's stream geometry (100 CTAs on 132 SMs); output rows 10 and
+    # 11 land on the frame, which other CTAs read for the window's last row
+    Case("f32_stream_dscnn_out_on_frame", "ring_conv_stream", 700,
+         _stream(49, 10, 1, 64, 5, 2, 1, 25, 5, 100, 50, 200, "silu")),
+    # the output run overlaps the window region, an overlap no plan has:
+    # the reference stores the window first, so the output wins there
+    Case("f32_stream_out_over_window", "ring_conv_stream", 80,
+         _stream(6, 5, 8, 16, 3, 1, 2, 6, 5, 0, 40, 30, "relu")),
 )
 
 

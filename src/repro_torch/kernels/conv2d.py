@@ -16,9 +16,11 @@ weight slice) in shared memory (None for the add and the pool, which
 have none).  The wrappers size every kernel's shared memory at 4 bytes
 per element.
 
-The depthwise and k x k convs run many CTAs that read all of the op's
-input before any stores (one grid-wide barrier between);
-:func:`conv_tiling` is how they cut an op into tiles, one per CTA.
+The depthwise and k x k convs, the streaming conv
+(:mod:`repro_torch.kernels.stream`) and the residual add run many CTAs
+that read all of the op's input before any stores (one grid-wide barrier
+between); :func:`conv_tiling` and :func:`add_tiling` are how they cut an
+op into tiles, one per CTA.
 
 Beside each wrapper sits its plain version (``<name>_plain``), a port
 of the reference's jnp executor op (``conv_pw_ring``, ``conv_dw_ring``,
@@ -103,7 +105,7 @@ def ring_conv_pw_plain(pool, w, b, *, h_in: int, w_in: int, h_out: int,
 
 
 # ---------------------------------------------------------------------------
-# Depthwise and k x k conv.
+# Depthwise, k x k and streaming conv.
 # ---------------------------------------------------------------------------
 
 #: SMs of an H100 SXM, the tiling's CTA limit where no card is asked.
@@ -115,14 +117,17 @@ K2D_CHANNEL_TILES = (4, 8, 16, 32)
 
 @dataclasses.dataclass(frozen=True)
 class ConvTiling:
-    """How :func:`ring_conv_dw` / :func:`ring_conv_k2d` cut an op: CTA i
-    owns tile i, ``rows`` output image rows (fewer in the last block) by
-    ``ctile`` output channels, channel tiles fastest; ``ctas`` is at most
-    the SM count, so all of them are resident at once.  ``smem`` is one
-    CTA's shared memory in bytes (a k x k conv's staged input rows or a
+    """How :func:`ring_conv_dw` / :func:`ring_conv_k2d` /
+    ``ring_conv_stream`` cut an op: CTA i owns tile i, ``rows`` output
+    image rows (fewer in the last block) by ``ctile`` output channels,
+    channel tiles fastest; ``ctas`` is at most the SM count, so all of them
+    are resident at once.  A streaming conv's CTA i also copies back window
+    rows ``i * win_rows ..`` (:meth:`window`; ``h_in`` is the window's
+    ``h_win``).  ``smem`` is one CTA's shared memory in bytes (a k x k or
+    streaming conv's staged input rows and its window rows, or a
     depthwise conv's input row segments, the held outputs, the bias, the
     weight slice when ``stage_w``, the output row segments), ``held`` the
-    bytes of outputs it keeps across the grid barrier."""
+    bytes of outputs and window rows it keeps across the grid barrier."""
 
     kernel: str
     h_in: int
@@ -136,6 +141,8 @@ class ConvTiling:
     ctile: int
     stage_w: bool
     smem: int
+    win_rows: int = 0       # a streaming conv's window rows per CTA
+    win_row_len: int = 0    # their live floats, w_in * c_in
 
     @property
     def channel_tiles(self) -> int:
@@ -152,7 +159,14 @@ class ConvTiling:
 
     @property
     def held(self) -> int:
-        return 4 * self.rows * self.w_out * self.ctile
+        return 4 * (self.rows * self.w_out * self.ctile
+                    + self.win_rows * self.win_row_len)
+
+    def window(self, i: int) -> tuple[int, int]:
+        """CTA ``i``'s window rows of a streaming conv's writeback, ``(r0,
+        n)``: rows ``r0 .. r0 + n - 1`` (``n`` 0 past the window's end)."""
+        r0 = i * self.win_rows
+        return r0, max(0, min(self.win_rows, self.h_in - r0))
 
     def tile(self, i: int) -> tuple[int, int, int, int, int, int]:
         """CTA ``i``'s ``(p0, np, c0, cn, lo, nh)``: output rows ``p0 ..
@@ -170,29 +184,36 @@ class ConvTiling:
 
 
 def _conv_smem(rows, ctile, stage_w, *, w_in, w_out, c_in, k, stride,
-               dw) -> int:
+               dw, win_rows=0) -> int:
     """Bytes of a conv CTA's shared memory (``conv_smem_layout``): a
     depthwise conv keeps its input rows' ring segments, a k x k conv the
-    rows themselves."""
+    rows themselves, a streaming conv also its ``win_rows`` window rows."""
     halo = (rows - 1) * stride + k
-    rows_in = halo if dw else halo * w_in * c_in
+    rows_in = halo if dw else (halo + win_rows) * w_in * c_in
     w_len = k * k * ctile * (1 if dw else c_in)
     return 4 * (rows_in + rows * w_out * ctile + ctile
                 + (w_len if stage_w else 0) + rows)
 
 
 def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
-    """The tiling of a ``ring_conv_dw`` / ``ring_conv_k2d`` call (its
-    kwargs ``kw``) over at most ``n_sm`` CTAs.
+    """The tiling of a ``ring_conv_dw`` / ``ring_conv_k2d`` /
+    ``ring_conv_stream`` call (its kwargs ``kw``) over at most ``n_sm``
+    CTAs.
 
     A depthwise conv takes channel tiles of one segment (``min(c,
     128)``); a k x k conv the ``K2D_CHANNEL_TILES`` entry (or ``c_out``)
-    that gives the fewest outputs per CTA, ties to the wider tile.  Each
+    that gives the fewest outputs per CTA, ties to the wider tile, and a
+    streaming conv the k x k conv's tiles over its window (``h_in =
+    h_win``), its ``h_win`` window rows shared out in equal blocks.  Each
     takes the fewest output rows per tile that keep the tiles within
     ``n_sm``, and stages its weight slice when it fits beside the rest.
     Raises ``ValueError``, naming the op's geometry, when no tile fits
     ``MAX_SMEM``."""
     dw = kernel == "ring_conv_dw"
+    if kernel == "ring_conv_stream":
+        return _tiling(kernel, kw["h_win"], kw["w_in"], kw["h_out"],
+                       kw["w_out"], kw["c_in"], kw["c_out"], kw["k"],
+                       kw["stride"], kw["padding"], n_sm)
     return _tiling(kernel, kw["h_in"], kw["w_in"], kw["h_out"], kw["w_out"],
                    kw["c"] if dw else kw["c_in"],
                    kw["c"] if dw else kw["c_out"],
@@ -206,8 +227,7 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
     """:func:`conv_tiling` by geometry, once per geometry (a wrapper
     calls it on every launch)."""
     dw = kernel == "ring_conv_dw"
-    geom = dict(w_in=w_in, w_out=w_out, c_in=c_in, k=k, stride=stride,
-                dw=dw)
+    stream = kernel == "ring_conv_stream"
     tiles = [min(c_out, SEG_WIDTH)] if dw else \
         sorted({min(c_out, t) for t in K2D_CHANNEL_TILES})
     best = None
@@ -216,6 +236,9 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
         if per_row > n_sm:
             continue
         rows = -(-h_out // (n_sm // per_row))
+        win_rows = -(-h_in // (-(-h_out // rows) * per_row)) if stream else 0
+        geom = dict(w_in=w_in, w_out=w_out, c_in=c_in, k=k, stride=stride,
+                    dw=dw, win_rows=win_rows)
         smem = _conv_smem(rows, ctile, True, **geom)
         stage_w = smem <= MAX_SMEM
         if not stage_w:
@@ -226,7 +249,8 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
         if best is None or key < best[0]:
             best = key, ConvTiling(
                 kernel, h_in, h_out, w_out, c_out, k, stride,
-                conv_k2d_pad(k, padding), rows, ctile, stage_w, smem)
+                conv_k2d_pad(k, padding), rows, ctile, stage_w, smem,
+                win_rows, w_in * c_in if stream else 0)
     if best is None:
         raise ValueError(
             f"{kernel}: no tile of the op [{h_in}, {w_in}, {c_in}] -> "
@@ -316,6 +340,48 @@ def ring_conv_k2d_plain(pool, w, b, *, h_in: int, w_in: int, h_out: int,
 # Residual add.
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class AddTiling:
+    """How :func:`ring_add` cuts an op of ``rows`` rows of ``d`` channels:
+    CTA i owns rows ``i * tile_rows ..`` (fewer in the last block) and
+    holds ``act(x + r)`` of their live channels across the grid barrier
+    (``held`` bytes, its whole shared memory ``smem``)."""
+
+    rows: int
+    d: int
+    tile_rows: int
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.rows // self.tile_rows)
+
+    @property
+    def smem(self) -> int:
+        return 4 * self.tile_rows * self.d
+
+    held = smem
+
+    def tile(self, i: int) -> tuple[int, int]:
+        """CTA ``i``'s rows ``(r0, n)``: ``r0 .. r0 + n - 1``."""
+        r0 = i * self.tile_rows
+        return r0, min(self.tile_rows, self.rows - r0)
+
+
+@functools.lru_cache(maxsize=4096)
+def add_tiling(rows: int, d: int, n_sm: int = H100_SMS) -> AddTiling:
+    """The tiling of a ``ring_add`` call over at most ``n_sm`` CTAs: the
+    fewest rows per CTA that keep the CTAs within ``n_sm``.  Raises
+    ``ValueError``, naming the op's geometry, when a CTA's rows do not fit
+    ``MAX_SMEM``."""
+    t = AddTiling(rows, d, -(-rows // n_sm))
+    if t.smem > MAX_SMEM:
+        raise ValueError(
+            f"ring_add: {rows} rows of {d} channels over at most {n_sm} "
+            f"CTAs hold {t.smem} B a CTA, above {MAX_SMEM} B of shared "
+            "memory")
+    return t
+
+
 def ring_add(pool, *, rows: int, d: int, in_ptr: int, aux_ptr: int,
              out_ptr: int, activation: str | None = None):
     """``Out[t] = act(In[t] + Res[t])`` over ``rows`` pixel rows, the
@@ -324,13 +390,10 @@ def ring_add(pool, *, rows: int, d: int, in_ptr: int, aux_ptr: int,
     n_seg = pool.shape[0]
     _check_add(n_seg, d, in_ptr, aux_ptr, out_ptr)
     check_cuda(pool, dtype=F32)
-    # A step reads as many rows of both operands as shared memory holds
-    # (at least one: a row too wide for it fails launch's check).
-    row_bytes = 2 * 4 * d
-    tile_rows = min(rows, max(1, MAX_SMEM // row_bytes))
-    launch("ring_add", pool, tile_rows * row_bytes, (),
+    t = add_tiling(rows, d, _sm_count(pool.device))
+    launch("ring_add", pool, t.smem, (),
            (n_seg, rows, d, in_ptr % n_seg, aux_ptr % n_seg,
-            out_ptr % n_seg, act_code(activation), tile_rows))
+            out_ptr % n_seg, act_code(activation), t.tile_rows))
     ring_add.launches += 1
     return pool
 

@@ -24,7 +24,9 @@
 // reads, so in the TPU's sequential grid every read of an op sees the pool
 // as it was before the op.  A kernel keeps that in one of two ways.
 //
-// Most of them run as ONE thread block that walks the steps in plan order:
+// Five of them run as ONE thread block that walks the steps in plan order
+// (the FC, the 1x1 conv, the average pool, the inverted bottleneck and the
+// GRU cell):
 //
 //   load the step's input rows into shared memory   (ring load, modulo n_seg)
 //   __syncthreads()
@@ -32,28 +34,33 @@
 //   store the step's output rows                     (ring store, modulo n_seg)
 //   __syncthreads()                                  (stores visible before the next load)
 //
-// The depthwise and the k x k conv read EVERYTHING before they store
-// anything, over many CTAs in one cooperative launch: (a) each CTA computes
-// the outputs of its tile (a block of output image rows x a channel tile)
-// from the ring into shared memory, storing nothing; (b) one grid-wide
-// barrier; (c) each CTA stores its tile's outputs and channel-tail zeros.
-// Every read then sees the pool from before the op, as in the sequential
-// walk, and every output lands on the same segment, so the final pool is
-// the same (the superblock argument of DESIGN.md, "coalescing only delays
-// stores relative to reads", applied to the whole op); it holds for any
-// overlap of input and output, in place too.  The fused MLP and the
-// elementwise map are delta-0 ops whose row blocks are disjoint; they too
-// read each block's rows before storing any (see each kernel's comment).
+// The depthwise, the k x k and the streaming conv and the residual add read
+// EVERYTHING before they store anything, over many CTAs in one cooperative
+// launch: (a) each CTA reads its share of the op (a conv's tile, a block of
+// output image rows x a channel tile, and a stream's share of its window
+// rows; a block of the add's rows) from the ring and computes into shared
+// memory, storing nothing; (b) one grid-wide barrier; (c) each CTA stores
+// its share, channel tails as zeros.  Every read then sees the pool from
+// before the op, as in the sequential walk, and every output lands on the
+// same segment, so the final pool is the same (the superblock argument of
+// DESIGN.md, "coalescing only delays stores relative to reads", applied to
+// the whole op); it holds for any overlap of input and output, in place
+// too.  The fused MLP and the elementwise map are delta-0 ops whose row
+// blocks are disjoint; they too read each block's rows before storing any
+// (see each kernel's comment).
 //
 // The walking kernels take every element address modulo n_seg on its own,
 // so a step's run of segments that wraps the ring is handled segment by
-// segment; the two convs take one modulo per image row (per staged pixel
-// for the k x k conv's input; their wrappers require image-row alignment,
-// so no row wraps).  Shared memory
-// holds only the live channels of each row (c of its segs(c) * 128 floats),
-// so a 16-channel image row costs 64 bytes a pixel and not 512; threads run
-// over the live outputs only, and the channel tails (c .. segs(c) * 128) are
-// stored as exact zeros after them, as the reference's jnp.pad does.
+// segment; the read-first kernels take one modulo per row (an image row of
+// the dw, the output rows of a conv; a staged pixel of the k x k and the
+// streaming conv; a row of the add), since their wrappers require the pool
+// and the pointers aligned to whole rows, so no row wraps; the add and the
+// stream's window store a row's segments one warp a row, a float4 a lane.
+// Shared memory holds only the live channels of each row (c of its
+// segs(c) * 128 floats), so a 16-channel image row costs 64 bytes a pixel
+// and not 512; threads run over the live outputs only, and the channel
+// tails (c .. segs(c) * 128) are stored as exact zeros after them, as the
+// reference's jnp.pad does.
 //
 // What bounds these kernels on the card: bytes and operations are tiny
 // (ResNet-8's largest conv is 4.7 MFLOP over about 0.2 MB), so the bound is
@@ -61,19 +68,18 @@
 // one barrier pair per step.  Against that latency each walking op stages
 // its bias, and its weights when they fit beside the step's input tile,
 // into shared memory once; the wrappers (kernels/segment_matmul.py,
-// kernels/conv2d.py) size shared memory and pass that choice (`stage_w`),
-// the add's `tile_rows`, the pool's `chunk_pix` and the convs' tiling
-// (conv2d.py::conv_tiling).
+// kernels/conv2d.py, kernels/stream.py) size shared memory and pass that
+// choice (`stage_w`), the pool's `chunk_pix`, the convs' tiling
+// (conv2d.py::conv_tiling) and the add's (conv2d.py::add_tiling).
 //
 // The fused inverted bottleneck keeps its C_mid-wide expansion as an RS-row
 // halo in shared memory (the Pallas kernel's VMEM halo ring) and never
 // writes it to the ring; its three weight tensors are staged once when they
-// fit (84 KB for MCUNet-VWW's widest op).  The streaming conv holds the
-// whole window, live channels only (1,960 B for DS-CNN's 49 x 10 x 1; whole
-// segments would be 250,880 B, over the card's limit), and computes every
-// output pixel in one parallel sweep, since nothing is stored before the
-// window is on chip.  The GRU cell uses each of W and U once per launch, so
-// it reads them from global memory (coalesced across output columns).
+// fit (84 KB for MCUNet-VWW's widest op).  The streaming conv's CTAs stage
+// the window rows their taps reach, live channels only, each from where it
+// lies (old state or the new frame), and never assemble the whole window.
+// The GRU cell uses each of W and U once per launch, so it reads them from
+// global memory (coalesced across output columns).
 //
 // Numerics: fp32 FMA accumulation over the reduction in its natural order
 // (taps row-major, then input channels), then the bias, then the activation
@@ -238,7 +244,8 @@ conv_pw_f32_kernel(float* pool, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Depthwise rs x rs conv and k x k conv: many CTAs, one grid-wide barrier.
+// Depthwise rs x rs conv and k x k conv (and the streaming conv below): many
+// CTAs, one grid-wide barrier.
 // CTA i owns tile i: `rows` output image rows (the last block may have
 // fewer) x a tile of `ctile` output channels, channel tiles fastest.  It
 //   (a) stages what it reads and computes every output of its tile into
@@ -282,12 +289,13 @@ __device__ __forceinline__ ConvTile conv_tile(int h_in, int h_out, int c,
 }
 
 // A conv CTA's shared memory, in 4-byte words: the staged input rows
-// (`x_len`, the k x k conv's halo; 0 for the depthwise conv, which reads the
-// pool directly), the held outputs [rows * w_out, ctile], the bias [ctile],
-// the weight slice (`w_len`, when staged), then the ring segment of each
-// input row the tile reaches (`in_rows` ints: the depthwise conv's halo; 0
-// for the k x k conv, which stages its rows at once) and of each output row
-// ([rows]).
+// (`x_len`: the k x k conv's halo, and after it a streaming conv's share of
+// its window rows; 0 for the depthwise conv, which reads the pool directly),
+// the held outputs [rows * w_out, ctile], the bias [ctile], the weight slice
+// (`w_len`, when staged), then the ring segment of each input row the tile
+// reaches (`in_rows` ints: the depthwise conv's halo; 0 for the k x k and
+// the streaming conv, which stage their rows at once) and of each output
+// row ([rows]).
 struct ConvSmem {
   int y, bias, w, in_row, out_row, words;
 };
@@ -401,10 +409,102 @@ conv_dw_f32_kernel(float* pool, const float* __restrict__ w,
              w_out, c, segs, ct);
 }
 
+// The ring segment of row r of a run of rows `row_segs` segments long that
+// starts at ring segment `ptr`: one modulo per row (a row never wraps: the
+// wrappers require the pool and the pointers aligned to whole rows).
+struct RunRows {
+  int ptr, row_segs, n_seg;
+  __device__ __forceinline__ int operator()(int r) const {
+    return (ptr + r * row_segs) % n_seg;
+  }
+};
+
+// The ring segment of row r of a streaming conv's shifted window: the first
+// `keep` rows are old state rows r + hop at state_ptr, the rest the frame's
+// rows at in_ptr, `wc` segments each (neither region wraps the ring).
+struct WindowRows {
+  int state_ptr, in_ptr, keep, hop, wc;
+  __device__ __forceinline__ int operator()(int r) const {
+    return r < keep ? state_ptr + (r + hop) * wc : in_ptr + (r - keep) * wc;
+  }
+};
+
+// Stage the live channels of image rows lo .. lo + n - 1 (w_in pixels of
+// c_in channels, ksegs segments each; `seg` maps an image row to its ring
+// segment) into x [n, w_in, c_in]: threads y over pixels, x over channels.
+template <typename Rows>
+__device__ __forceinline__ void stage_image_rows(float* x, const float* pool,
+                                                 Rows seg, int lo, int n,
+                                                 int w_in, int c_in,
+                                                 int ksegs) {
+  for (int i = threadIdx.y; i < n * w_in; i += blockDim.y) {
+    const int hr = i / w_in, px = i - hr * w_in;
+    const float* src =
+        pool + (size_t)seg(lo + hr) * SEG + (size_t)px * ksegs * SEG;
+    for (int ci = threadIdx.x; ci < c_in; ci += blockDim.x)
+      x[i * c_in + ci] = src[ci];
+  }
+}
+
+// (a) of the k x k conv: every output of tile t into y [np * w_out, ctile]
+// from the staged input rows x (image rows t.lo ..; [nh, w_in, c_in]) and
+// the weight slice wp (row stride ldw).  Each thread accumulates one output
+// at a time in a register: taps row-major, then input channels.
+__device__ __forceinline__ void k2d_outputs(
+    float* y, const float* x, const float* wp, int ldw, const float* bias,
+    const ConvTile& t, int h_in, int w_in, int w_out, int c_in, int k,
+    int stride, int pad_v, int pad_h, int ctile, int act) {
+  const int co = threadIdx.x, row_len = w_in * c_in;
+  if (co >= t.cn) return;
+  for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y) {
+    const int pl = j / w_out, q = j - pl * w_out;
+    const int top = (t.p0 + pl) * stride - pad_v;
+    float acc = 0.f;
+    for (int r = 0; r < k; ++r) {
+      const int src = top + r;
+      if (src < 0 || src >= h_in) continue;
+      const float* xrow = x + (size_t)(src - t.lo) * row_len;
+      for (int s = 0; s < k; ++s) {
+        const int col = q * stride - pad_h + s;
+        if (col < 0 || col >= w_in) continue;
+        const float* xr = xrow + col * c_in;
+        const float* wc = wp + (size_t)(r * k + s) * c_in * ldw + co;
+        for (int ci = 0; ci < c_in; ++ci)
+          acc = fmaf(xr[ci], wc[(size_t)ci * ldw], acc);
+      }
+    }
+    y[j * ctile + co] = activate(acc + bias[co], act);
+  }
+}
+
+// Store n rows y [n, d] as whole segments (`segs` a row, at ring segment
+// seg(p) for row p): live channels, then zeros up to segs * SEG.  One warp a
+// row, a float4 a lane, so each store instruction writes 512 contiguous
+// bytes; the warps of a CTA whose size is no multiple of 32 leave out the
+// partial one.
+template <typename Rows>
+__device__ __forceinline__ void store_rows(float* pool, const float* y,
+                                           Rows seg, int n, int d,
+                                           int segs) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int warps = blockDim.x * blockDim.y / 32;
+  if (warp >= warps) return;
+  for (int p = warp; p < n; p += warps) {
+    float4* dst = reinterpret_cast<float4*>(pool + (size_t)seg(p) * SEG);
+    const float* yr = y + (size_t)p * d;
+    for (int v = lane; v < segs * (SEG / 4); v += 32) {
+      const int c = 4 * v;
+      dst[v] = make_float4(c < d ? yr[c] : 0.f, c + 1 < d ? yr[c + 1] : 0.f,
+                           c + 2 < d ? yr[c + 2] : 0.f,
+                           c + 3 < d ? yr[c + 3] : 0.f);
+    }
+  }
+}
+
 // k x k conv: w [k, k, c_in, c_out].  A CTA stages the live channels of the
 // input rows its taps reach ((rows - 1) * stride + k at most) and its weight
-// slice [k, k, c_in, ctile] in shared memory; each thread accumulates one
-// output at a time in a register.
+// slice [k, k, c_in, ctile] in shared memory, then k2d_outputs.
 __global__ void __launch_bounds__(CONV_THREADS)
 conv_k2d_f32_kernel(float* pool, const float* __restrict__ w,
                     const float* __restrict__ b, int n_seg, int h_in,
@@ -413,47 +513,20 @@ conv_k2d_f32_kernel(float* pool, const float* __restrict__ w,
                     int act, int rows, int ctile, int stage_w) {
   extern __shared__ float smem[];
   const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
-  const int halo = (rows - 1) * stride + k, row_len = w_in * c_in;
+  const int halo = (rows - 1) * stride + k;
   const ConvTile t = conv_tile(h_in, h_out, c_out, k, stride, pad_v, rows,
                                ctile);
-  const ConvSmem m = conv_smem_layout(halo * row_len, rows, w_out, ctile,
+  const ConvSmem m = conv_smem_layout(halo * w_in * c_in, rows, w_out, ctile,
                                       k * k * c_in * ctile, stage_w, 0);
   int ldw;
   const float* wp = stage_tile(t, m, smem, w, b, k * k * c_in, c_out, ctile,
                                stage_w, n_seg, out_ptr, w_out * nsegs, &ldw);
-  float* x = smem;                                  // [nh, w_in, c_in]
-  for (int i = threadIdx.y; i < t.nh * w_in; i += blockDim.y) {
-    const int hr = i / w_in, px = i - hr * w_in;
-    const float* src =
-        pool + (size_t)((in_ptr + (t.lo + hr) * w_in * ksegs) % n_seg) * SEG +
-        (size_t)px * ksegs * SEG;
-    for (int ci = threadIdx.x; ci < c_in; ci += blockDim.x)
-      x[i * c_in + ci] = src[ci];
-  }
+  stage_image_rows(smem, pool, RunRows{in_ptr, w_in * ksegs, n_seg}, t.lo,
+                   t.nh, w_in, c_in, ksegs);
   __syncthreads();
   float* y = smem + m.y;
-  const int co = threadIdx.x;
-  if (co < t.cn) {
-    for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y) {
-      const int pl = j / w_out, q = j - pl * w_out;
-      const int top = (t.p0 + pl) * stride - pad_v;
-      float acc = 0.f;
-      for (int r = 0; r < k; ++r) {
-        const int src = top + r;
-        if (src < 0 || src >= h_in) continue;
-        const float* xrow = x + (size_t)(src - t.lo) * row_len;
-        for (int s = 0; s < k; ++s) {
-          const int col = q * stride - pad_h + s;
-          if (col < 0 || col >= w_in) continue;
-          const float* xr = xrow + col * c_in;
-          const float* wc = wp + (size_t)(r * k + s) * c_in * ldw + co;
-          for (int ci = 0; ci < c_in; ++ci)
-            acc = fmaf(xr[ci], wc[(size_t)ci * ldw], acc);
-        }
-      }
-      y[j * ctile + co] = activate(acc + smem[m.bias + co], act);
-    }
-  }
+  k2d_outputs(y, smem, wp, ldw, smem + m.bias, t, h_in, w_in, w_out, c_in, k,
+              stride, pad_v, pad_h, ctile, act);
   cg::this_grid().sync();   // (b): every read of the op is done
   store_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
              w_out, c_out, nsegs, ctile);
@@ -461,33 +534,40 @@ conv_k2d_f32_kernel(float* pool, const float* __restrict__ w,
 
 // ---------------------------------------------------------------------------
 // Residual add: act(x + r) over `rows` pixel rows of d channels at in_ptr and
-// at aux_ptr (the held residual), stored at out_ptr, often in place.  A step
-// takes `tile_rows` rows of both operands, all read before any is stored; a
-// certified plan stores no row onto one that a later step still reads, so
-// reading ahead of the stores leaves the sequential grid's pool (the
-// prefetch-before-store corollary).  Bound by its bytes.
+// at aux_ptr (the held residual), stored at out_ptr, often in place, in one
+// cooperative launch: CTA i owns rows i * tile_rows .. (the last block may
+// have fewer).  It
+//   (a) reads the live channels of its rows of both operands, one warp a
+//       row, and holds act(x + r) in shared memory, storing nothing;
+//   (b) meets every other CTA at the grid barrier;
+//   (c) stores its rows as whole segments, channel tails zero.
+// The barrier is needed: an output row may land on an input row of another
+// block (row t onto input row t - 1 when out_ptr is one row below in_ptr)
+// or on residual rows another block reads.  Bound by its bytes; what
+// remains is the launch, one row's loads and stores per warp and the
+// barrier.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
+constexpr int ADD_THREADS = 256;
+
+__global__ void __launch_bounds__(ADD_THREADS)
 add_f32_kernel(float* pool, int n_seg, int rows, int d, int in_ptr,
                int aux_ptr, int out_ptr, int act, int tile_rows) {
-  extern __shared__ float smem[];
+  extern __shared__ float smem[];                  // y [tile_rows, d]
   const int chunk = segs_for(d);
-  float* x = smem;                                 // [tile_rows, d]
-  float* res = smem + (size_t)tile_rows * d;       // [tile_rows, d]
-  for (int t0 = 0; t0 < rows; t0 += tile_rows) {
-    const int n = min(tile_rows, rows - t0);
-    const int dst = (out_ptr + t0 * chunk) % n_seg;
-    load_rows(x, pool, (in_ptr + t0 * chunk) % n_seg, n, d, chunk, n_seg);
-    load_rows(res, pool, (aux_ptr + t0 * chunk) % n_seg, n, d, chunk, n_seg);
-    __syncthreads();
-    for (int j = threadIdx.x; j < n * d; j += blockDim.x) {
-      const int row = j / d, col = j - row * d;
-      pool[ring_index(dst, row, col, chunk, n_seg)] =
-          activate(x[j] + res[j], act);
-    }
-    zero_tails(pool, dst, n, d, chunk, n_seg);
-    __syncthreads();
+  const int r0 = blockIdx.x * tile_rows, n = min(tile_rows, rows - r0);
+  const int first = (r0 * chunk) % n_seg;          // r0's offset in a run
+  const RunRows xs{(in_ptr + first) % n_seg, chunk, n_seg};
+  const RunRows rs{(aux_ptr + first) % n_seg, chunk, n_seg};
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int p = warp; p < n; p += ADD_THREADS / 32) {
+    const float* x = pool + (size_t)xs(p) * SEG;
+    const float* r = pool + (size_t)rs(p) * SEG;
+    for (int c = lane; c < d; c += 32)
+      smem[p * d + c] = activate(x[c] + r[c], act);
   }
+  cg::this_grid().sync();   // (b): every read of the op is done
+  store_rows(pool, smem, RunRows{(out_ptr + first) % n_seg, chunk, n_seg}, n,
+             d, chunk);
 }
 
 // ---------------------------------------------------------------------------
@@ -612,59 +692,59 @@ ib_f32_kernel(float* pool, const float* __restrict__ w1,
 
 // ---------------------------------------------------------------------------
 // Streaming k x k conv: the [h_win, w_in, c_in] window at state_ptr drops its
-// oldest `hop` image rows and appends the frame at in_ptr, in shared memory
-// (live channels only); the window goes back to state_ptr (an exact copy,
-// channel tails zero), then every output pixel of the k x k conv over it is
-// computed in one sweep and stored at out_ptr (modulo n_seg).  Everything is
-// read before anything is stored, so the output may land on the frame's rows.
-// The state region never wraps (the planner places it above the frame
+// oldest `hop` image rows and appends the frame at in_ptr; the window goes
+// back to state_ptr (live channels, channel tails zero) and the k x k conv
+// over it is stored at out_ptr (modulo n_seg).  One cooperative launch, tiled
+// as the k x k conv (conv_tile with h_in = h_win); CTA i also owns window rows
+// i * win_rows .. of the writeback.  It
+//   (a) stages the window rows its taps reach, each from its source (old
+//       state or frame: WindowRows), and its own window rows, then computes
+//       its outputs into shared memory (k2d_outputs), storing nothing;
+//   (b) meets every other CTA at the grid barrier;
+//   (c) stores its window rows at state_ptr, then its outputs.
+// The reference stores the window before the outputs, so where the output
+// run overlaps the window region the output wins; the wrapper then passes
+// `out_over_window` and a second grid barrier orders the two kinds of store
+// (no committed plan has that overlap: the state lies above the frame
 // program's extent).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(CONV_THREADS)
 conv_stream_f32_kernel(float* pool, const float* __restrict__ w,
                        const float* __restrict__ b, int n_seg, int h_win,
                        int w_in, int h_out, int w_out, int c_in, int c_out,
                        int k, int stride, int hop, int pad_v, int pad_h,
                        int in_ptr, int out_ptr, int state_ptr, int act,
-                       int stage_w) {
+                       int rows, int ctile, int stage_w, int out_over_window,
+                       int win_rows) {
   extern __shared__ float smem[];
-  float* win = smem;                                // [h_win, w_in, c_in]
   const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
-  const int keep = (h_win - hop) * w_in, pix = h_win * w_in;
-  const Params prm = stage_params(win + (size_t)pix * c_in, w,
-                                  k * k * c_in * c_out, b, c_out, stage_w);
-  load_rows(win, pool, state_ptr + hop * w_in * ksegs, keep, c_in, ksegs,
-            n_seg);
-  load_rows(win + (size_t)keep * c_in, pool, in_ptr, pix - keep, c_in, ksegs,
-            n_seg);
+  const int wc = w_in * ksegs, row_len = w_in * c_in;
+  const int halo = (rows - 1) * stride + k;
+  const ConvTile t = conv_tile(h_win, h_out, c_out, k, stride, pad_v, rows,
+                               ctile);
+  const ConvSmem m = conv_smem_layout((halo + win_rows) * row_len, rows,
+                                      w_out, ctile, k * k * c_in * ctile,
+                                      stage_w, 0);
+  int ldw;
+  const float* wp = stage_tile(t, m, smem, w, b, k * k * c_in, c_out, ctile,
+                               stage_w, n_seg, out_ptr, w_out * nsegs, &ldw);
+  const WindowRows src{state_ptr, in_ptr, h_win - hop, hop, wc};
+  const int r0 = blockIdx.x * win_rows;
+  const int nw = max(0, min(win_rows, h_win - r0));
+  float* win = smem + (size_t)halo * row_len;       // [nw, w_in, c_in]
+  stage_image_rows(smem, pool, src, t.lo, t.nh, w_in, c_in, ksegs);
+  stage_image_rows(win, pool, src, r0, nw, w_in, c_in, ksegs);
   __syncthreads();
-  for (int j = threadIdx.x; j < pix * c_in; j += blockDim.x) {
-    const int px = j / c_in, col = j - px * c_in;
-    pool[ring_index(state_ptr, px, col, ksegs, n_seg)] = win[j];
-  }
-  zero_tails(pool, state_ptr, pix, c_in, ksegs, n_seg);
-  __syncthreads();
-  const int out_pix = h_out * w_out;
-  for (int j = threadIdx.x; j < out_pix * c_out; j += blockDim.x) {
-    const int px = j / c_out, co = j - px * c_out;
-    const int p = px / w_out, q = px - p * w_out;
-    float acc = 0.f;
-    for (int r = 0; r < k; ++r) {
-      const int src = p * stride - pad_v + r;
-      if (src < 0 || src >= h_win) continue;
-      for (int s = 0; s < k; ++s) {
-        const int col = q * stride - pad_h + s;
-        if (col < 0 || col >= w_in) continue;
-        const float* xr = win + (src * w_in + col) * c_in;
-        const float* wc = prm.w + (r * k + s) * c_in * c_out + co;
-        for (int ci = 0; ci < c_in; ++ci)
-          acc = fmaf(xr[ci], wc[ci * c_out], acc);
-      }
-    }
-    pool[ring_index(out_ptr, px, co, nsegs, n_seg)] =
-        activate(acc + prm.b[co], act);
-  }
-  zero_tails(pool, out_ptr, out_pix, c_out, nsegs, n_seg);
+  float* y = smem + m.y;
+  k2d_outputs(y, smem, wp, ldw, smem + m.bias, t, h_win, w_in, w_out, c_in,
+              k, stride, pad_v, pad_h, ctile, act);
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();   // (b): every read of the op is done
+  store_rows(pool, win, RunRows{state_ptr + r0 * wc, ksegs, n_seg}, nw * w_in,
+             c_in, ksegs);
+  if (out_over_window) grid.sync();   // the window's stores first
+  store_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
+             w_out, c_out, nsegs, ctile);
 }
 
 // ---------------------------------------------------------------------------
@@ -977,9 +1057,11 @@ int ring_conv_k2d(void* pool, const void* w, const void* b, int n_seg,
 
 int ring_add(void* pool, int n_seg, int rows, int d, int in_ptr, int aux_ptr,
              int out_ptr, int act, int tile_rows, void* stream) {
-  return launch(add_f32_kernel, 2 * sizeof(float) * (size_t)tile_rows * d,
-                stream, (float*)pool, n_seg, rows, d, in_ptr, aux_ptr,
-                out_ptr, act, tile_rows);
+  return launch_cooperative(add_f32_kernel, (rows + tile_rows - 1) / tile_rows,
+                            dim3(ADD_THREADS),
+                            sizeof(float) * (size_t)tile_rows * d, stream,
+                            (float*)pool, n_seg, rows, d, in_ptr, aux_ptr,
+                            out_ptr, act, tile_rows);
 }
 
 int ring_avgpool(void* pool, int n_seg, int h, int w, int c, int in_ptr,
@@ -1007,13 +1089,21 @@ int ring_conv_stream(void* pool, const void* w, const void* b, int n_seg,
                      int h_win, int w_in, int h_out, int w_out, int c_in,
                      int c_out, int k, int stride, int hop, int pad_v,
                      int pad_h, int in_ptr, int out_ptr, int state_ptr,
-                     int act, int stage_w, void* stream) {
-  const size_t smem = conv_smem((size_t)h_win * w_in * c_in,
-                                (size_t)k * k * c_in * c_out, c_out, stage_w);
-  return launch(conv_stream_f32_kernel, smem, stream, (float*)pool,
-                (const float*)w, (const float*)b, n_seg, h_win, w_in, h_out,
-                w_out, c_in, c_out, k, stride, hop, pad_v, pad_h, in_ptr,
-                out_ptr, state_ptr, act, stage_w);
+                     int act, int rows, int ctile, int stage_w,
+                     int out_over_window, void* stream) {
+  const int ctas = (h_out + rows - 1) / rows * ((c_out + ctile - 1) / ctile);
+  const int win_rows = (h_win + ctas - 1) / ctas;
+  const int halo = (rows - 1) * stride + k;
+  const ConvSmem m = conv_smem_layout((halo + win_rows) * w_in * c_in, rows,
+                                      w_out, ctile, k * k * c_in * ctile,
+                                      stage_w, 0);
+  return launch_cooperative(conv_stream_f32_kernel, ctas, conv_block(ctile),
+                            sizeof(float) * (size_t)m.words, stream,
+                            (float*)pool, (const float*)w, (const float*)b,
+                            n_seg, h_win, w_in, h_out, w_out, c_in, c_out, k,
+                            stride, hop, pad_v, pad_h, in_ptr, out_ptr,
+                            state_ptr, act, rows, ctile, stage_w,
+                            out_over_window, win_rows);
 }
 
 int ring_gru_cell(void* pool, const void* w, const void* u, const void* b,

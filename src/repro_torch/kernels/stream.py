@@ -31,6 +31,7 @@ from ..core.vpool import (SEG_WIDTH, fetch_rows, fetch_segments,
                           stage_rows, stage_segments)
 from ..quant.requant import gru_update, gru_update_q12, requantize, \
     requantize_i32, wrap_i32
+from . import conv2d
 from .quantized import (_acc32, _check_cuda, _idot, _launch, _per_channel,
                         _relu, _segs, _store_image, _taps)
 from .segment_matmul import F32, act_code
@@ -128,6 +129,13 @@ def ring_conv_stream_q_plain(pool, w, b, mult, shift, *, h_win: int,
     return _store_image(pool, requantize(acc, mult, shift), out_ptr)
 
 
+def _runs_overlap(n_seg, a, len_a, b, len_b) -> bool:
+    """Whether two runs of segments of the ring (``len`` segments from
+    ``a`` and from ``b``, modulo ``n_seg``) share a segment."""
+    return len_a >= n_seg or len_b >= n_seg or (b - a) % n_seg < len_a \
+        or (a - b) % n_seg < len_b
+
+
 def ring_conv_stream(pool, w, b, *, h_win: int, w_in: int, h_out: int,
                      w_out: int, c_in: int, c_out: int, k: int = 3,
                      stride: int = 1, padding: str = "same", hop: int = 1,
@@ -136,20 +144,28 @@ def ring_conv_stream(pool, w, b, *, h_win: int, w_in: int, h_out: int,
     """Fp32 streaming conv step: window shift and writeback (an exact
     copy of the live channels, zero channel tails), then the k x k conv
     over the window, bias and activation (replaces ``ring_conv_stream``,
-    ``src/repro/kernels/stream.py:142``).  Shared memory holds the
-    window's live channels only."""
+    ``src/repro/kernels/stream.py:142``).  One cooperative launch over
+    the CTAs of :func:`conv2d.conv_tiling`; where the output run overlaps
+    the window region, the kernel is told to store the window first, as
+    the reference does."""
     n_seg = pool.shape[0]
-    _stream_geometry(n_seg, w_in=w_in, w_out=w_out, c_in=c_in, c_out=c_out,
-                     h_win=h_win, hop=hop, in_ptr=in_ptr, out_ptr=out_ptr,
-                     state_ptr=state_ptr)
+    wc = _stream_geometry(n_seg, w_in=w_in, w_out=w_out, c_in=c_in,
+                          c_out=c_out, h_win=h_win, hop=hop, in_ptr=in_ptr,
+                          out_ptr=out_ptr, state_ptr=state_ptr)
     _check_cuda(pool, (("w", w, F32, (k, k, c_in, c_out)),
                        ("b", b, F32, (c_out,))), dtype=F32)
-    ring_conv_stream.weights_staged = _launch(
-        "ring_conv_stream", pool, 4 * (h_win * w_in * c_in + c_out), (w, b),
+    t = conv2d._tiling("ring_conv_stream", h_win, w_in, h_out, w_out, c_in,
+                       c_out, k, stride, padding,
+                       conv2d._sm_count(pool.device))
+    over = _runs_overlap(n_seg, out_ptr % n_seg,
+                         h_out * w_out * _segs(c_out), state_ptr, h_win * wc)
+    _launch(
+        "ring_conv_stream", pool, t.smem, (w, b),
         (n_seg, h_win, w_in, h_out, w_out, c_in, c_out, k, stride, hop,
          conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding), in_ptr,
-         out_ptr % n_seg, state_ptr, act_code(activation)),
-        w_bytes=4 * k * k * c_in * c_out)
+         out_ptr % n_seg, state_ptr, act_code(activation), t.rows, t.ctile,
+         int(t.stage_w), int(over)))
+    ring_conv_stream.weights_staged = t.stage_w
     ring_conv_stream.launches += 1
     return pool
 
