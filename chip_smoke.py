@@ -27,11 +27,13 @@ Phases, one summary line each:
      before storing matches); which ops read their weights from global
      memory (too large for shared, or used once); and, for each
      ``ring_conv_dw`` / ``ring_conv_k2d`` / ``ring_conv_stream`` /
-     ``ring_add`` call, its CTAs and the bytes each holds across the grid
-     barrier (``conv2d.conv_tiling``, ``conv2d.add_tiling``);
+     ``ring_add`` / ``ring_inverted_bottleneck`` call, its CTAs and the
+     bytes each holds across the grid barrier (``conv2d.conv_tiling``,
+     ``conv2d.add_tiling``, ``inverted_bottleneck.ib_tiling``);
      then ``ring_decode_attention`` against its plain version on every
      case of ``cases.DECODE_CASES`` (fp32 within 2e-5, bf16 within one
-     bf16 ulp of the output's scale);
+     bf16 ulp of the output's scale), with each case's splits and CTAs
+     (``ring_decode.decode_splits``);
   3. the paths, each with the launch counts set to 0 just before it and
      read just after:
        * ``repro_torch.load(artifact).run(x)`` on the int8 DS-CNN,
@@ -423,12 +425,14 @@ def phase_parity(cases) -> dict[str, float]:
     fp32 by ``cases.compare_f32``; and the cases whose launch read its
     weights from global memory, as the wrapper decided
     (``<wrapper>.weights_staged``); and the tiling of each depthwise,
-    k x k and streaming fp32 conv and of each fp32 add.  Returns the max
-    |difference| per kernel (0 for int8, or this raises)."""
+    k x k and streaming fp32 conv, of each fp32 add and of each fused
+    bottleneck.  Returns the max |difference| per kernel (0 for int8, or
+    this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
                                            live_lanes, output_regions)
     from repro_torch.kernels.conv2d import add_tiling, conv_tiling
+    from repro_torch.kernels.inverted_bottleneck import ib_tiling
 
     n_f32 = sum(is_f32(c.kernel) for c in cases)
     say(f"phase 2: {len(cases)} kernel calls against their plain versions "
@@ -445,6 +449,11 @@ def phase_parity(cases) -> dict[str, float]:
         elif case.kernel == "ring_add":
             t = add_tiling(case.kwargs["rows"], case.kwargs["d"], n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
+        elif case.kernel == "ring_inverted_bottleneck":
+            t = ib_tiling(case.kwargs, n_sm)
+            tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held "
+                         f"({t.rows} x {t.cols} pixels in sub-tiles of "
+                         f"{t.sub_rows} x {t.sub_cols})")
         pool, params = case_inputs(case, seed=0)
         want = torch.from_numpy(pool).cuda()
         PLAIN[case.kernel](want, *_cuda(params), **case.kwargs)
@@ -476,9 +485,9 @@ def phase_parity(cases) -> dict[str, float]:
     say(f"  kernels covered: {covered}")
     say(f"  weights read from global memory (too large for shared): "
         f"{global_w or 'none'}")
-    say(f"  ring_conv_dw / ring_conv_k2d / ring_conv_stream / ring_add "
-        f"tiles on {n_sm} SMs (CTAs, bytes each holds across the grid "
-        "barrier):")
+    say(f"  ring_conv_dw / ring_conv_k2d / ring_conv_stream / ring_add / "
+        f"ring_inverted_bottleneck tiles on {n_sm} SMs (CTAs, bytes each "
+        "holds across the grid barrier):")
     for line in tiles:
         say(f"    {line}")
     return err
@@ -769,7 +778,9 @@ def _host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-#: Each wrapper's CUDA kernel, as the profiler names it.
+#: Each wrapper's CUDA kernels, as the profiler names them: the first is
+#: launched once a wrapper call, and the row's device time is the sum of
+#: them all.
 KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
                   "ring_conv_pw_q": "conv_pw_kernel",
                   "ring_conv_dw_q": "conv_dw_kernel",
@@ -789,7 +800,8 @@ KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
                   "ring_gru_cell": "gru_f32_kernel",
                   "ring_fused_mlp": "fused_mlp_f32_kernel",
                   "ring_elementwise": "elementwise_f32_kernel",
-                  "ring_decode_attention": "ring_decode_kernel"}
+                  "ring_decode_attention": ("ring_decode_kernel",
+                                            "ring_decode_combine_kernel")}
 
 
 def _device_busy(fn, reps: int = 20):
@@ -813,13 +825,14 @@ def _device_busy(fn, reps: int = 20):
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     per_launch = {}
-    for name, sym in KERNEL_SYMBOLS.items():
-        hits = [e for e in kernels
-                if sym + "(" in e.key or sym + "<" in e.key]
-        calls = sum(e.count for e in hits)
+    for name, syms in KERNEL_SYMBOLS.items():
+        syms = (syms,) if isinstance(syms, str) else syms
+        hits = [[e for e in kernels if sym + "(" in e.key
+                 or sym + "<" in e.key] for sym in syms]
+        calls = sum(e.count for e in hits[0])
         if calls:
             per_launch[name] = sum(e.self_device_time_total
-                                   for e in hits) / calls / 1e3
+                                   for h in hits for e in h) / calls / 1e3
     return ((busy_us / wall_us if busy_us > 0 else None), wall_us / reps,
             per_launch)
 
@@ -1093,10 +1106,15 @@ def phase_decode_parity() -> float:
     every decode case; returns the max |difference|."""
     from repro_torch.kernels.cases import DECODE_CASES, compare_decode
     from repro_torch.kernels.ring_decode import (
-        ring_decode_attention, ring_decode_attention_plain)
+        decode_splits, ring_decode_attention, ring_decode_attention_plain)
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = []
     for case in DECODE_CASES:
+        sp = decode_splits(case.batch or 1, case.kv_heads, case.window, n_sm)
+        splits.append(f"{case.name} {sp.splits} splits of {sp.split_len} "
+                      f"slots, {sp.ctas} CTAs")
         args = _decode_call(case)
         want = ring_decode_attention_plain(*args, **case.kwargs)
         got = ring_decode_attention(*args, **case.kwargs)
@@ -1113,7 +1131,9 @@ def phase_decode_parity() -> float:
     say(f"  ring_decode_attention: {len(DECODE_CASES)} calls within the "
         f"tolerance of its plain version (fp32 2e-5, bf16 one ulp of the "
         f"output's scale); max |difference| fp32 {worst['float32']:.3g}, "
-        f"bf16 {worst['bfloat16']:.3g}")
+        f"bf16 {worst['bfloat16']:.3g}; splits on {n_sm} SMs:")
+    for line in splits:
+        say(f"    {line}")
     return max(worst.values())
 
 

@@ -31,8 +31,10 @@ is 5.2 GB in fp32).
 :data:`DECODE_CASES` are the geometries of the decode attention over a
 ring KV cache (:class:`DecodeCase`, inputs from :func:`decode_inputs`):
 the reference's kernel-test grid in fp32, its softcap case, gemma3-1b's
-bf16 local ring and a global cache whose length is no multiple of the
-kernel's block, and a batch of 4 in one launch; :func:`compare_decode`
+bf16 local ring (also at batch 1) and a global cache whose length is no
+multiple of the kernel's block, the serve path's 1,024-slot global cache
+at batch 4 with whole splits past seq_len, and a batch of 4 in one
+launch; :func:`compare_decode`
 holds them (fp32 within 2e-5, bf16 within one bf16 ulp of the output's
 scale).
 
@@ -61,7 +63,11 @@ fp32 add and stream cases ``f32_add_shifted_uneven``,
 ``f32_stream_out_over_window`` store onto rows that another CTA of the
 op reads (and the last, onto the window another CTA stores), so a
 kernel without its grid barrier may differ there
-(``tests/test_torch_add_stream_tiles.py`` models it).
+(``tests/test_torch_add_stream_tiles.py`` models it).  So may the fused
+bottleneck in place (a plan's overlap: every VWW bottleneck runs in
+place) on ``f32_ib_inplace_uneven``, whose short last tile stores onto
+the rows its neighbour's last sub-tile reads
+(``tests/test_torch_ib_tiles.py`` models it).
 """
 from __future__ import annotations
 
@@ -134,8 +140,8 @@ def _stream(h_win, w, ci, co, k, s, hop, hout, wout, i, o, st, act,
                 out_ptr=o, state_ptr=st, activation=act)
 
 
-def _ib(h, w, ci, cm, co, i, o, residual):
-    return dict(H=h, W=w, C_in=ci, C_mid=cm, C_out=co, RS=3, in_ptr=i,
+def _ib(h, w, ci, cm, co, i, o, residual, rs=3):
+    return dict(H=h, W=w, C_in=ci, C_mid=cm, C_out=co, RS=rs, in_ptr=i,
                 out_ptr=o, residual=residual)
 
 
@@ -330,6 +336,18 @@ F32_FUSED_STREAM_EDGE_CASES = (
     # the reference stores the window first, so the output wins there
     Case("f32_stream_out_over_window", "ring_conv_stream", 80,
          _stream(6, 5, 8, 16, 3, 1, 2, 6, 5, 0, 40, 30, "relu")),
+    # in place, RS 5, C_mid 1024 (the weights too large to stage): at 132
+    # SMs, 108 CTAs of 6 x 3 pixels in three 2 x 3 sub-tiles each, the last
+    # row block one row in one sub-tile, so its CTA finishes first; it must
+    # not store row 48 while the CTA of rows 42-47 still reads it for its
+    # last sub-tile.  The input run wraps the ring between whole rows.
+    Case("f32_ib_inplace_uneven", "ring_inverted_bottleneck", 1800,
+         _ib(49, 36, 16, 1024, 16, 360, 360, True, rs=5)),
+    # RS 7 at C_mid 240 (an ImageNet 11 x 11 op's widths, 121 CTAs of one
+    # pixel, 180 KB of shared memory each): out row p onto A row p - 1,
+    # both runs wrapping the ring
+    Case("f32_ib_rs7_shifted_wrap", "ring_inverted_bottleneck", 176,
+         _ib(11, 11, 40, 240, 40, 110, 99, True, rs=7)),
 )
 
 
@@ -774,8 +792,10 @@ class DecodeCase:
 #: The reference's kernel-test grid (``tests/test_kernels.py:66-81``, a T
 #: that is a multiple of the window above it moved one on), its softcap
 #: case (``:83-92``), gemma3-1b's shapes in bf16 (a local ring of 512
-#: slots part full and wrapped; a global cache of 1,000 slots, 7 blocks
-#: of 128 and a ragged one of 104), and a batch of 4 in one launch.
+#: slots part full and wrapped, also at batch 1; a global cache of 1,000
+#: slots, 7 blocks of 128 and a ragged one of 104; the serve path's
+#: 1,024-slot global cache at batch 4, part full), and a batch of 4 in one
+#: launch.
 DECODE_CASES = (
     *(DecodeCase(f"decode_q{qh}_kv{kvh}_d{dh}_w{w}_b{b}_T{t}", qh, kvh, dh,
                  w, b, t)
@@ -797,6 +817,15 @@ DECODE_CASES = (
                batch=4, dtype="bfloat16"),
     DecodeCase("decode_batch4_per_row_seq", 8, 2, 64, 256, 64,
                (1, 100, 256, 700), batch=4),
+    # the serve path's local ring at batch 1 (32 splits of 16 slots on
+    # 132 SMs), part full: a split ends inside it, the splits past it are
+    # skipped
+    DecodeCase("decode_gemma3_local_batch1_bf16", 4, 1, 256, 512, 128, 450,
+               batch=1, dtype="bfloat16"),
+    # the global cache at batch 4 (32 splits of 32 slots), 600 tokens in:
+    # 13 whole splits past seq_len skipped
+    DecodeCase("decode_gemma3_global_1024_batch4_bf16", 4, 1, 256, 1024,
+               128, 600, batch=4, dtype="bfloat16"),
 )
 
 

@@ -15,9 +15,11 @@
 // NEG_INF), o = softmax(s) . v accumulated in fp32 and stored in q's dtype
 // (fp32 for the kernel tests, bf16 on the serve path).
 //
-// One thread block per (kv head, batch row) holds the group's q rows in
-// shared memory and walks the window in blocks of `block` slots, as the
-// Pallas grid does, with the online softmax of its body:
+// Flash-decoding: the window is split into `splits` contiguous ranges of
+// `split_len` slots (kernels/ring_decode.py::decode_splits, a multiple of 16
+// slots), and the grid is (kv head, batch row, split).  Each CTA holds the
+// group's q rows in shared memory and runs the Pallas body's online softmax
+// over its own range in blocks of at most `block` slots:
 //
 //   scores: one warp per slot, lanes across d, a shuffle sum per q row
 //   __syncthreads()
@@ -28,24 +30,30 @@
 //                                in registers)
 //   __syncthreads()
 //
-// and divides by l once at the end.  A last block shorter than `block` (a
-// cache_len that is no multiple of it) holds only the slots that exist, and
-// blocks wholly past seq_len (a global cache not yet full) are skipped:
-// they would add p = 0 with alpha = 1.  The group (q heads per kv head, at
-// most 16) is a template parameter rounded up to a power of two, so the
-// per-row loops unroll to it; head_dim is a power of two up to 256.
+// then writes its partial (m, l, acc[group][d]), fp32, to a workspace.  A
+// second kernel, one thread per output element, combines the splits:
+// M = max m_i, o = sum_i acc_i exp(m_i - M) / sum_i l_i exp(m_i - M),
+// stored in q's dtype.
+//
+// A range stops at `end`: seq_len, or the whole window once the ring has
+// wrapped (seq_len >= window) or when seq_len < 1.  Slots past seq_len
+// would add p = 0 (the range's first slot is valid, so m is a real score),
+// and splits wholly past it (a global cache not yet full) are skipped and
+// never reach the combine, which counts ceil(end / split_len) splits.  At
+// seq_len < 1 every slot is masked (-1e30, not -inf), each split has
+// m = -1e30 and p = 1 per slot, and the combine weighs them all by
+// exp(0) = 1: the uniform average over the window, as the plain version
+// gives.  The group (q heads per kv head, at most 16) is a template
+// parameter rounded up to a power of two, so the per-row loops unroll to
+// it; head_dim is a power of two up to 256.
 //
 // What bounds it on the card: bytes.  Each K/V element is read once (group q
 // rows share it), 2 fp32 operations per multiply-add: at gemma3-1b's shapes
 // (kv_heads 1, d 256, bf16) a 512-slot local ring is 0.52 MB per batch row,
-// about 0.16 us at 3.35 TB/s.  At batch 4 the grid is only 4 blocks on 4 of
-// the 132 SMs, and each warp walks its slots one after another (load, dot,
-// shuffle sums), so that walk, not bytes, sets the time.  Tried and slower
-// on the card: one thread per slot with 16-byte K loads (rows 512 B apart
-// in a warp), and two or four slots in flight per warp; the depth of the
-// p . v unroll made no difference.  Splitting the window across blocks
-// (flash-decoding with a second combine pass), TMA and wgmma are later
-// work.
+// about 0.16 us at 3.35 TB/s.  One CTA per (kv head, batch row) walked its
+// window one block after another on 4 of the 132 SMs at batch 4; the split
+// grid puts about one CTA on every SM, each walking 16 or 32 slots, so the
+// walk is a few loads deep and the time is two launches and their latency.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,9 +93,10 @@ template <typename T, int G>
 __global__ void __launch_bounds__(THREADS)
     ring_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
-                       const int* __restrict__ seq_lens, T* __restrict__ out,
-                       int seq_scalar, int window, int kv_heads, int group,
-                       int d, int block, float scale, float softcap) {
+                       const int* __restrict__ seq_lens,
+                       float* __restrict__ part, int seq_scalar, int window,
+                       int kv_heads, int group, int d, int block,
+                       int split_len, float scale, float softcap) {
   // G: the group rounded up to a power of two (a template, so the per-row
   // loops unroll exactly); rows g >= group are skipped.
   extern __shared__ __align__(16) float smem[];
@@ -97,10 +106,13 @@ __global__ void __launch_bounds__(THREADS)
   float* l_s = alpha_s + group;          // [group]
   float* m_s = l_s + group;              // [group]
 
-  const int kh = blockIdx.x, b = blockIdx.y;
+  const int kh = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q_heads = kv_heads * group;
   const int seq = seq_lens ? seq_lens[b] : seq_scalar;
+  const int end = (seq >= window || seq < 1) ? window : seq;
+  const int s0 = z * split_len, s1 = min(s0 + split_len, end);
+  if (s0 >= end) return;   // wholly past seq: the combine skips it
   const size_t q_row = ((size_t)b * q_heads + (size_t)kh * group) * d;
 
   for (int e = tid; e < group * d; e += THREADS)
@@ -122,11 +134,8 @@ __global__ void __launch_bounds__(THREADS)
   const int per_lane = d >= 32 ? d / 32 : 1;  // K elements a lane reads
   __syncthreads();
 
-  // Blocks wholly past seq (a global cache not yet full) would add p = 0
-  // with alpha = 1: they are skipped.
-  const int end = (seq >= window || seq < 1) ? window : seq;
-  for (int base = 0; base < end; base += block) {
-    const int nb = min(block, window - base);
+  for (int base = s0; base < s1; base += block) {
+    const int nb = min(block, s1 - base);
 
     // scores, one warp per slot, lanes across d
     for (int j = warp; j < nb; j += WARPS) {
@@ -142,13 +151,13 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         if (g >= group) break;
-        float part = 0.f;
+        float part_dot = 0.f;
 #pragma unroll
         for (int i = 0; i < KPL; ++i) {
           const int c = lane + 32 * i;
-          if (i < per_lane && c < d) part += q_s[g * d + c] * kr[i];
+          if (i < per_lane && c < d) part_dot += q_s[g * d + c] * kr[i];
         }
-        float x = warp_sum(part);
+        float x = warp_sum(part_dot);
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
         if (lane == 0) p_s[g * block + j] = valid ? x : NEG_INF;
       }
@@ -203,18 +212,79 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
   }
 
+  // the partial of split z of (b, kh): [m, l] per q row, then acc [group][d]
+  float* pz = part + (((size_t)b * kv_heads + kh) * gridDim.z + z) *
+                         (size_t)group * (d + 2);
+  for (int g = tid; g < group; g += THREADS) {
+    pz[2 * g] = m_s[g];
+    pz[2 * g + 1] = l_s[g];
+  }
 #pragma unroll
   for (int i = 0; i < G; ++i) {
     const int g = g0 + i * gstep;
-    if (g < group) store(&out[q_row + (size_t)g * d + dd], acc[i] / l_s[g]);
+    if (g < group) pz[2 * group + (size_t)g * d + dd] = acc[i];
   }
+}
+
+// Combine the live splits of each (kv head, batch row), over
+// ceil(group * d / THREADS) CTAs of it, one output element a thread: m and
+// l of every live split into shared memory; per q row (one warp each) M,
+// the weights exp(m_i - M) and L = sum l_i exp(m_i - M); then each thread
+// sums acc_i exp(m_i - M) over the splits in order and divides once by L.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    ring_decode_combine_kernel(const int* __restrict__ seq_lens,
+                               const float* __restrict__ part,
+                               T* __restrict__ out, int seq_scalar,
+                               int window, int kv_heads, int group, int d,
+                               int split_len, int splits) {
+  extern __shared__ float w_s[];          // [group][splits]: m, then weights
+  float* l_s = w_s + group * splits;      // [group][splits]: l
+  float* big_l = l_s + group * splits;    // [group]: L
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int seq = seq_lens ? seq_lens[b] : seq_scalar;
+  const int end = (seq >= window || seq < 1) ? window : seq;
+  const int live = (end + split_len - 1) / split_len;
+  const size_t stride = (size_t)group * (d + 2);
+  const float* pb = part + ((size_t)b * kv_heads + kh) * splits * stride;
+
+  for (int e = tid; e < 2 * group * live; e += THREADS) {
+    const int i = e / (2 * group), r = e - i * 2 * group, g = r >> 1;
+    (r & 1 ? l_s : w_s)[g * splits + i] = pb[i * stride + r];
+  }
+  __syncthreads();
+  for (int g = warp; g < group; g += WARPS) {
+    float* w = w_s + g * splits;
+    float mx = -INFINITY;
+    for (int i = lane; i < live; i += 32) mx = fmaxf(mx, w[i]);
+    mx = warp_max(mx);
+    float l = 0.f;
+    for (int i = lane; i < live; i += 32) {
+      w[i] = expf(w[i] - mx);
+      l += l_s[g * splits + i] * w[i];
+    }
+    l = warp_sum(l);
+    if (lane == 0) big_l[g] = l;
+  }
+  __syncthreads();
+  const int e = blockIdx.z * THREADS + tid;
+  if (e >= group * d) return;
+  const int g = e / d;
+  const float* w = w_s + g * splits;
+  const float* acc = pb + 2 * group + e;
+  float o = 0.f;
+#pragma unroll 16
+  for (int i = 0; i < live; ++i) o += acc[i * stride] * w[i];
+  store(&out[((size_t)b * kv_heads + kh) * group * d + e], o / big_l[g]);
 }
 
 template <typename T, int G>
 int launch_g(const void* q, const void* k, const void* v,
-             const void* seq_lens, void* out, int batch, int window,
-             int kv_heads, int group, int d, int block, int seq_scalar,
-             float scale, float softcap, void* stream) {
+             const void* seq_lens, void* out, void* part, int batch,
+             int window, int kv_heads, int group, int d, int block,
+             int seq_scalar, int split_len, int splits, float scale,
+             float softcap, void* stream) {
   const size_t smem =
       sizeof(float) * ((size_t)group * d + (size_t)group * block + 3 * group);
   if (smem > 48 * 1024) {
@@ -223,22 +293,32 @@ int launch_g(const void* q, const void* k, const void* v,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ring_decode_kernel<T, G><<<dim3(kv_heads, batch), THREADS, smem,
+  ring_decode_kernel<T, G><<<dim3(kv_heads, batch, splits), THREADS, smem,
                              (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)seq_lens, (T*)out,
-      seq_scalar, window, kv_heads, group, d, block, scale, softcap);
+      (const T*)q, (const T*)k, (const T*)v, (const int*)seq_lens,
+      (float*)part, seq_scalar, window, kv_heads, group, d, block, split_len,
+      scale, softcap);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ring_decode_combine_kernel<T><<<
+      dim3(kv_heads, batch, (group * d + THREADS - 1) / THREADS), THREADS,
+      sizeof(float) * (size_t)group * (2 * splits + 1),
+      (cudaStream_t)stream>>>(
+      (const int*)seq_lens, (const float*)part, (T*)out, seq_scalar, window,
+      kv_heads, group, d, split_len, splits);
   return (int)cudaGetLastError();
 }
 
 // The group rounded up to a power of two picks the instantiation.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* seq_lens,
-           void* out, int batch, int window, int kv_heads, int group, int d,
-           int block, int seq_scalar, float scale, float softcap,
-           void* stream) {
+           void* out, void* part, int batch, int window, int kv_heads,
+           int group, int d, int block, int seq_scalar, int split_len,
+           int splits, float scale, float softcap, void* stream) {
 #define RING_DECODE_LAUNCH(G)                                                 \
-  return launch_g<T, G>(q, k, v, seq_lens, out, batch, window, kv_heads,     \
-                        group, d, block, seq_scalar, scale, softcap, stream)
+  return launch_g<T, G>(q, k, v, seq_lens, out, part, batch, window,         \
+                        kv_heads, group, d, block, seq_scalar, split_len,    \
+                        splits, scale, softcap, stream)
   if (group <= 1) RING_DECODE_LAUNCH(1);
   if (group <= 2) RING_DECODE_LAUNCH(2);
   if (group <= 4) RING_DECODE_LAUNCH(4);
@@ -256,18 +336,22 @@ const char* ring_decode_error_string(int err) {
 }
 
 // seq_lens: an int32 [batch] device array, or NULL for seq_scalar in every
-// row; softcap 0 for none; bf16 selects bf16 q/k/v/out (else fp32).
+// row; part: the splits' fp32 workspace, batch * kv_heads * splits *
+// group * (d + 2) floats; softcap 0 for none; bf16
+// selects bf16 q/k/v/out (else fp32).
 int ring_decode_attention(const void* q, const void* k, const void* v,
-                          const void* seq_lens, void* out, int batch,
-                          int window, int kv_heads, int group, int d,
-                          int block, int seq_scalar, int bf16, float scale,
+                          const void* seq_lens, void* out, void* part,
+                          int batch, int window, int kv_heads, int group,
+                          int d, int block, int seq_scalar, int bf16,
+                          int split_len, int splits, float scale,
                           float softcap, void* stream) {
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, seq_lens, out, batch, window,
-                                 kv_heads, group, d, block, seq_scalar, scale,
-                                 softcap, stream);
-  return launch<float>(q, k, v, seq_lens, out, batch, window, kv_heads, group,
-                       d, block, seq_scalar, scale, softcap, stream);
+    return launch<__nv_bfloat16>(q, k, v, seq_lens, out, part, batch, window,
+                                 kv_heads, group, d, block, seq_scalar,
+                                 split_len, splits, scale, softcap, stream);
+  return launch<float>(q, k, v, seq_lens, out, part, batch, window, kv_heads,
+                       group, d, block, seq_scalar, split_len, splits, scale,
+                       softcap, stream);
 }
 
 }  // extern "C"

@@ -24,9 +24,8 @@
 // reads, so in the TPU's sequential grid every read of an op sees the pool
 // as it was before the op.  A kernel keeps that in one of two ways.
 //
-// Five of them run as ONE thread block that walks the steps in plan order
-// (the FC, the 1x1 conv, the average pool, the inverted bottleneck and the
-// GRU cell):
+// Four of them run as ONE thread block that walks the steps in plan order
+// (the FC, the 1x1 conv, the average pool and the GRU cell):
 //
 //   load the step's input rows into shared memory   (ring load, modulo n_seg)
 //   __syncthreads()
@@ -34,12 +33,13 @@
 //   store the step's output rows                     (ring store, modulo n_seg)
 //   __syncthreads()                                  (stores visible before the next load)
 //
-// The depthwise, the k x k and the streaming conv and the residual add read
-// EVERYTHING before they store anything, over many CTAs in one cooperative
-// launch: (a) each CTA reads its share of the op (a conv's tile, a block of
-// output image rows x a channel tile, and a stream's share of its window
-// rows; a block of the add's rows) from the ring and computes into shared
-// memory, storing nothing; (b) one grid-wide barrier; (c) each CTA stores
+// The depthwise, the k x k and the streaming conv, the residual add and the
+// inverted bottleneck read EVERYTHING before they store anything, over many
+// CTAs in one cooperative launch: (a) each CTA reads its share of the op (a
+// conv's tile, a block of output image rows x a channel tile, and a
+// stream's share of its window rows; a block of the add's rows; a
+// bottleneck's tile of output pixels and the halo its taps reach) from the
+// ring and computes into shared memory, storing nothing; (b) one grid-wide barrier; (c) each CTA stores
 // its share, channel tails as zeros.  Every read then sees the pool from
 // before the op, as in the sequential walk, and every output lands on the
 // same segment, so the final pool is the same (the superblock argument of
@@ -53,9 +53,11 @@
 // so a step's run of segments that wraps the ring is handled segment by
 // segment; the read-first kernels take one modulo per row (an image row of
 // the dw, the output rows of a conv; a staged pixel of the k x k and the
-// streaming conv; a row of the add), since their wrappers require the pool
-// and the pointers aligned to whole rows, so no row wraps; the add and the
-// stream's window store a row's segments one warp a row, a float4 a lane.
+// streaming conv; a row of the add; a pixel of the bottleneck), since their
+// wrappers require the pool and the pointers aligned to whole rows (the
+// bottleneck's rows are one segment a pixel), so no row wraps; the add,
+// the stream's window and the bottleneck store a row's (a pixel's)
+// segments one warp a row, a float4 a lane.
 // Shared memory holds only the live channels of each row (c of its
 // segs(c) * 128 floats), so a 16-channel image row costs 64 bytes a pixel
 // and not 512; threads run over the live outputs only, and the channel
@@ -72,12 +74,13 @@
 // choice (`stage_w`), the pool's `chunk_pix`, the convs' tiling
 // (conv2d.py::conv_tiling) and the add's (conv2d.py::add_tiling).
 //
-// The fused inverted bottleneck keeps its C_mid-wide expansion as an RS-row
-// halo in shared memory (the Pallas kernel's VMEM halo ring) and never
-// writes it to the ring; its three weight tensors are staged once when they
-// fit (84 KB for MCUNet-VWW's widest op).  The streaming conv's CTAs stage
-// the window rows their taps reach, live channels only, each from where it
-// lies (old state or the new frame), and never assemble the whole window.
+// The fused inverted bottleneck keeps the C_mid-wide expansion of its
+// tile's halo in shared memory (the Pallas kernel's VMEM halo ring) and
+// never writes it to the ring; its three weight tensors are staged in each
+// CTA when they fit (84 KB for MCUNet-VWW's widest op).  The streaming
+// conv's CTAs stage the window rows their taps reach, live channels only,
+// each from where it lies (old state or the new frame), and never assemble
+// the whole window.
 // The GRU cell uses each of W and U once per launch, so it reads them from
 // global memory (coalesced across output columns).
 //
@@ -605,43 +608,83 @@ avgpool_f32_kernel(float* pool, int n_seg, int h, int w, int c, int in_ptr,
 // ---------------------------------------------------------------------------
 // Fused inverted bottleneck (paper Fig. 6): A [H, W, C_in] at in_ptr, one
 // segment per pixel, -> E [H, W, C_out] at out_ptr; stride 1, 'same'
-// padding, relu after the expansion and after the depthwise conv.  A row h,
-// expanded, lives in halo slot h % RS.  Step p (one output row, in order):
-//   1. expand A row min(p + pad, H - 1) into slot (p + pad) % RS (step 0
-//      first primes rows 0 .. pad): relu(A row @ w1);
-//   2. DW RS x RS over halo rows p - pad .. p + pad inside the image, relu;
-//   3. PW-project (@ w2), plus A row p when `residual`;
-//   4. store E row p, channel tails zero; barrier.
-// Step p reads A rows p + pad and p before its store, so in place (all six
-// MCUNet-VWW ops) row p's store lands on a row that no later step reads.
+// padding, relu after the expansion and after the depthwise conv.  One
+// cooperative launch: CTA i owns tile i, `rows` x `cols` output pixels
+// (fewer at the bottom and right edges), column tiles fastest
+// (kernels/inverted_bottleneck.py::ib_tiling).  It
+//   (a) walks its tile in sub-tiles of `sub_rows` x `sub_cols` pixels
+//       (the whole tile when its halo fits); for each it stages the live
+//       channels of the A pixels its taps reach (the sub-tile plus a
+//       (RS - 1) / 2 halo on each side, clipped to the image), expands them
+//       (relu(A @ w1)), runs the depthwise RS x RS conv (relu) and the
+//       projection (@ w2), adds the residual from the staged centre pixels,
+//       and keeps the E pixels in shared memory, storing nothing;
+//   (b) meets every other CTA at the grid barrier;
+//   (c) stores its E pixels as whole segments, channel tails zero.
+// Only the E pixels are held across the barrier: a sub-tile's staged A,
+// its expansion and its depthwise outputs are scratch, safe to reuse
+// because nothing is stored before (b).  Neighbouring tiles expand their
+// shared halo pixels each on their own.  Every output keeps the walking
+// kernel's FMA order (the expansion over C_in, the taps row-major, the
+// projection over C_mid, then the residual), so the result is the same
+// bit for bit.  w1, wd and w2 are staged in each CTA when they fit beside
+// the tile (`stage_w`), else read through L2.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void ib_expand(float* slot, const float* a_row,
-                                          const float* w1, int W, int C_in,
-                                          int C_mid) {
-  for (int j = threadIdx.x; j < W * C_mid; j += blockDim.x) {
-    const int q = j / C_mid, m = j - q * C_mid;
-    const float* ar = a_row + q * C_in;
-    float acc = 0.f;
-    for (int k = 0; k < C_in; ++k) acc = fmaf(ar[k], w1[k * C_mid + m], acc);
-    slot[j] = fmaxf(acc, 0.f);
-  }
+
+// A bottleneck CTA's shared memory, in 4-byte words: the held E pixels
+// [rows * cols, C_out], a sub-tile's staged A pixels [halo, C_in] and their
+// expansion [halo, C_mid] (halo: the most pixels a sub-tile's taps reach),
+// its depthwise outputs [sub_rows * sub_cols, C_mid], then w1, wd and w2
+// when staged.
+struct IbSmem {
+  int a, b, c, w, words;
+};
+
+__host__ __device__ __forceinline__ IbSmem ib_smem_layout(
+    int H, int W, int C_in, int C_mid, int C_out, int RS, int rows, int cols,
+    int sub_rows, int sub_cols, int stage_w) {
+  const int halo =
+      min(H, sub_rows + RS - 1) * min(W, sub_cols + RS - 1);
+  IbSmem m;
+  m.a = rows * cols * C_out;
+  m.b = m.a + halo * C_in;
+  m.c = m.b + halo * C_mid;
+  m.w = m.c + sub_rows * sub_cols * C_mid;
+  m.words = m.w + (stage_w ? C_mid * (C_in + RS * RS + C_out) : 0);
+  return m;
 }
+
+// The ring segment of pixel p (row-major) of a tile of nq columns whose
+// first pixel is image pixel (p0, q0) of an image W pixels wide at `ptr`.
+struct TilePixels {
+  int ptr, W, p0, q0, nq, n_seg;
+  __device__ __forceinline__ int operator()(int p) const {
+    const int r = p / nq;
+    return (ptr + (p0 + r) * W + q0 + p - r * nq) % n_seg;
+  }
+};
 
 __global__ void __launch_bounds__(THREADS)
 ib_f32_kernel(float* pool, const float* __restrict__ w1,
               const float* __restrict__ wd, const float* __restrict__ w2,
               int n_seg, int H, int W, int C_in, int C_mid, int C_out, int RS,
-              int in_ptr, int out_ptr, int residual, int stage_w) {
+              int in_ptr, int out_ptr, int residual, int rows, int cols,
+              int sub_rows, int sub_cols, int stage_w) {
   extern __shared__ float smem[];
+  const IbSmem m = ib_smem_layout(H, W, C_in, C_mid, C_out, RS, rows, cols,
+                                  sub_rows, sub_cols, stage_w);
   const int pad = (RS - 1) / 2;
-  const int mid_row = W * C_mid;
-  float* halo = smem;                               // [RS, W, C_mid]
-  float* c_row = halo + (size_t)RS * mid_row;       // [W, C_mid]
-  float* a_row = c_row + mid_row;                   // [W, C_in]
-  float* res = a_row + W * C_in;                    // [W, C_out]
+  const int col_tiles = (W + cols - 1) / cols;
+  const int rb = blockIdx.x / col_tiles, cb = blockIdx.x - rb * col_tiles;
+  const int t0 = rb * rows, tn = min(rows, H - t0);
+  const int u0 = cb * cols, un = min(cols, W - u0);
+  float* e = smem;                                  // [tn * un, C_out]
+  float* a = smem + m.a;
+  float* b = smem + m.b;
+  float* c = smem + m.c;
   const float *pw1 = w1, *pwd = wd, *pw2 = w2;
-  if (stage_w) {   // read only after the first step's first barrier
-    float* ws = res + W * C_out;
+  if (stage_w) {   // read only after the first sub-tile's first barrier
+    float* ws = smem + m.w;
     const int n1 = C_in * C_mid, nd = RS * RS * C_mid, n2 = C_mid * C_out;
     for (int i = threadIdx.x; i < n1; i += blockDim.x) ws[i] = w1[i];
     for (int i = threadIdx.x; i < nd; i += blockDim.x) ws[n1 + i] = wd[i];
@@ -650,44 +693,63 @@ ib_f32_kernel(float* pool, const float* __restrict__ w1,
     pwd = ws + n1;
     pw2 = ws + n1 + nd;
   }
-  for (int p = 0; p < H; ++p) {
-    for (int h = p == 0 ? 0 : p + pad; h <= p + pad; ++h) {
-      load_rows(a_row, pool, (in_ptr + min(h, H - 1) * W) % n_seg, W, C_in, 1,
-                n_seg);
-      if (residual && h == p + pad)
-        load_rows(res, pool, (in_ptr + p * W) % n_seg, W, C_out, 1, n_seg);
-      __syncthreads();
-      ib_expand(halo + (size_t)(h % RS) * mid_row, a_row, pw1, W, C_in, C_mid);
-      __syncthreads();
-    }
-    for (int j = threadIdx.x; j < mid_row; j += blockDim.x) {
-      const int q = j / C_mid, m = j - q * C_mid;
-      float acc = 0.f;
-      for (int r = 0; r < RS; ++r) {
-        const int src = p + r - pad;
-        if (src < 0 || src >= H) continue;
-        const float* row = halo + (size_t)(src % RS) * mid_row;
-        for (int s = 0; s < RS; ++s) {
-          const int col = q + s - pad;
-          if (col < 0 || col >= W) continue;
-          acc = fmaf(row[col * C_mid + m], pwd[(r * RS + s) * C_mid + m], acc);
-        }
+  for (int p0 = t0; p0 < t0 + tn; p0 += sub_rows) {
+    for (int q0 = u0; q0 < u0 + un; q0 += sub_cols) {
+      const int np = min(sub_rows, t0 + tn - p0);
+      const int nq = min(sub_cols, u0 + un - q0);
+      const int lo = max(0, p0 - pad), nh = min(H, p0 + np + pad) - lo;
+      const int lc = max(0, q0 - pad), nc = min(W, q0 + nq + pad) - lc;
+      const int halo = nh * nc;
+      for (int j = threadIdx.x; j < halo * C_in; j += blockDim.x) {
+        const int px = j / C_in, k = j - px * C_in, hr = px / nc;
+        const int seg = (in_ptr + (lo + hr) * W + lc + px - hr * nc) % n_seg;
+        a[j] = pool[(size_t)seg * SEG + k];
       }
-      c_row[j] = fmaxf(acc, 0.f);
+      __syncthreads();
+      for (int j = threadIdx.x; j < halo * C_mid; j += blockDim.x) {
+        const int px = j / C_mid, mm = j - px * C_mid;
+        const float* ar = a + px * C_in;
+        float acc = 0.f;
+        for (int k = 0; k < C_in; ++k)
+          acc = fmaf(ar[k], pw1[k * C_mid + mm], acc);
+        b[j] = fmaxf(acc, 0.f);
+      }
+      __syncthreads();
+      for (int j = threadIdx.x; j < np * nq * C_mid; j += blockDim.x) {
+        const int o = j / C_mid, mm = j - o * C_mid;
+        const int ph = p0 + o / nq, pq = q0 + o % nq;
+        float acc = 0.f;
+        for (int r = 0; r < RS; ++r) {
+          const int src = ph + r - pad;
+          if (src < 0 || src >= H) continue;
+          const float* row = b + (size_t)(src - lo) * nc * C_mid + mm;
+          for (int s = 0; s < RS; ++s) {
+            const int col = pq + s - pad;
+            if (col < 0 || col >= W) continue;
+            acc = fmaf(row[(col - lc) * C_mid], pwd[(r * RS + s) * C_mid + mm],
+                       acc);
+          }
+        }
+        c[j] = fmaxf(acc, 0.f);
+      }
+      __syncthreads();
+      for (int j = threadIdx.x; j < np * nq * C_out; j += blockDim.x) {
+        const int o = j / C_out, co = j - o * C_out;
+        const int oh = o / nq, oq = o - oh * nq;
+        const float* cr = c + o * C_mid;
+        float acc = 0.f;
+        for (int mm = 0; mm < C_mid; ++mm)
+          acc = fmaf(cr[mm], pw2[mm * C_out + co], acc);
+        if (residual)
+          acc += a[((p0 + oh - lo) * nc + q0 + oq - lc) * C_in + co];
+        e[((p0 - t0 + oh) * un + q0 - u0 + oq) * C_out + co] = acc;
+      }
+      __syncthreads();   // the next sub-tile reuses a, b and c
     }
-    __syncthreads();
-    const int dst = (out_ptr + p * W) % n_seg;
-    for (int j = threadIdx.x; j < W * C_out; j += blockDim.x) {
-      const int q = j / C_out, co = j - q * C_out;
-      const float* cr = c_row + q * C_mid;
-      float acc = 0.f;
-      for (int m = 0; m < C_mid; ++m) acc = fmaf(cr[m], pw2[m * C_out + co], acc);
-      if (residual) acc += res[j];
-      pool[ring_index(dst, q, co, 1, n_seg)] = acc;
-    }
-    zero_tails(pool, dst, W, C_out, 1, n_seg);
-    __syncthreads();
   }
+  cg::this_grid().sync();   // (b): every read of the op is done
+  store_rows(pool, e, TilePixels{out_ptr, W, t0, u0, un, n_seg}, tn * un,
+             C_out, 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -1074,15 +1136,18 @@ int ring_avgpool(void* pool, int n_seg, int h, int w, int c, int in_ptr,
 int ring_inverted_bottleneck(void* pool, const void* w1, const void* wd,
                              const void* w2, int n_seg, int H, int W,
                              int C_in, int C_mid, int C_out, int RS,
-                             int in_ptr, int out_ptr, int residual,
+                             int in_ptr, int out_ptr, int residual, int rows,
+                             int cols, int sub_rows, int sub_cols,
                              int stage_w, void* stream) {
-  const size_t smem =
-      sizeof(float) *
-      ((size_t)W * (RS * C_mid + C_mid + C_in + C_out) +
-       (stage_w ? (size_t)C_mid * (C_in + RS * RS + C_out) : 0));
-  return launch(ib_f32_kernel, smem, stream, (float*)pool, (const float*)w1,
-                (const float*)wd, (const float*)w2, n_seg, H, W, C_in, C_mid,
-                C_out, RS, in_ptr, out_ptr, residual, stage_w);
+  const IbSmem m = ib_smem_layout(H, W, C_in, C_mid, C_out, RS, rows, cols,
+                                  sub_rows, sub_cols, stage_w);
+  const int ctas = (H + rows - 1) / rows * ((W + cols - 1) / cols);
+  return launch_cooperative(ib_f32_kernel, ctas, dim3(THREADS),
+                            sizeof(float) * (size_t)m.words, stream,
+                            (float*)pool, (const float*)w1, (const float*)wd,
+                            (const float*)w2, n_seg, H, W, C_in, C_mid, C_out,
+                            RS, in_ptr, out_ptr, residual, rows, cols,
+                            sub_rows, sub_cols, stage_w);
 }
 
 int ring_conv_stream(void* pool, const void* w, const void* b, int n_seg,

@@ -14,14 +14,16 @@ A global layer's cache of ``cache_len`` slots is the same ring with
 layout, q ``[q_heads, d]`` and k/v ``[window, kv_heads, d]``, or a batch
 of them, q ``[B, q_heads, d]`` and k/v ``[B, window, kv_heads, d]``, and
 ``seq_len`` as an int, a 0-d tensor or one int per batch row.  It checks
-its arguments and launches the hand-written kernel of
-``csrc/ring_decode.cu`` (one launch for the whole batch) on the current
-CUDA stream without synchronising; it raises for a tensor that is not on
-a CUDA card and never falls back to its plain version.  It walks the
-window in blocks of ``block`` slots; a last block shorter than ``block``
-holds only the slots that exist, so any window (a global cache of any
-``cache_len``) is taken.  It counts its launches in
-``ring_decode_attention.launches``.
+its arguments and launches the hand-written kernels of
+``csrc/ring_decode.cu`` on the current CUDA stream without
+synchronising; it raises for a tensor that is not on a CUDA card and
+never falls back to its plain version.  The kernel splits the window
+across CTAs (:func:`decode_splits`): each CTA walks its range of slots
+in blocks of at most ``block`` slots and writes a partial softmax to a
+workspace, and a second kernel combines the partials; the wrapper call
+counts as one launch in ``ring_decode_attention.launches``.  A range
+shorter than ``block`` holds only the slots that exist, so any window (a
+global cache of any ``cache_len``) is taken.
 
 :func:`ring_decode_attention_plain` is the plain version: the Pallas
 body's block-by-block online softmax in PyTorch, batched.
@@ -31,9 +33,13 @@ ring_decode_ref`` (an exact softmax over the whole window), and
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from ._launch import MAX_SMEM, launch
+from .conv2d import H100_SMS, _sm_count
 
 F32 = torch.float32
 #: Masked scores, as the Pallas kernel's ``NEG_INF``.
@@ -43,6 +49,10 @@ NEG_INF = -1e30
 MAX_GROUP = 16
 MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
+#: Slots a split's length is a multiple of: two for each of the kernel's
+#: 8 warps (8-slot sub-blocks were slower on the card at batch 1, their
+#: many splits costing the combine more than the shorter walk saved).
+SPLIT_SLOTS = 16
 
 
 def _batched(q, k_ring, v_ring):
@@ -87,20 +97,54 @@ def _seq_rows(seq_len, B: int, device) -> torch.Tensor:
 
 
 def decode_smem(group: int, d: int, block: int) -> int:
-    """Shared memory of one block of the kernel: the group's scaled q
+    """Shared memory of one CTA of the kernel: the group's scaled q
     rows, a ``[group, block]`` score tile and three floats per q row."""
     return 4 * (group * d + group * block + 3 * group)
 
 
-def ring_decode_attention(q, k_ring, v_ring, seq_len, *, window: int,
-                          block: int = 128, softcap: float | None = None):
-    """One decode step of attention over a ring KV cache on the card
-    (replaces ``ring_decode_attention``,
-    ``src/repro/kernels/ring_decode.py:77``); returns q's shape and
-    dtype."""
-    q, k, v, unbatched = _batched(q, k_ring, v_ring)
-    group = _check(q, k, v, window, block)
-    B, q_heads, d = q.shape
+@dataclasses.dataclass(frozen=True)
+class DecodeSplits:
+    """How :func:`ring_decode_attention` splits a ``window``-slot ring
+    across CTAs: split z holds slots ``z * split_len ..`` (fewer in the
+    last), and the grid is one CTA per (kv head, batch row, split)."""
+
+    batch: int
+    kv_heads: int
+    window: int
+    split_len: int
+
+    @property
+    def splits(self) -> int:
+        return -(-self.window // self.split_len)
+
+    @property
+    def ctas(self) -> int:
+        return self.batch * self.kv_heads * self.splits
+
+    def split(self, z: int) -> tuple[int, int]:
+        """Split ``z``'s slots ``(s0, n)``: ``s0 .. s0 + n - 1``."""
+        s0 = z * self.split_len
+        return s0, min(self.split_len, self.window - s0)
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_splits(batch: int, kv_heads: int, window: int,
+                  n_sm: int = H100_SMS) -> DecodeSplits:
+    """The split of a ``window``-slot ring for ``batch`` rows of
+    ``kv_heads`` kv heads on ``n_sm`` SMs: ``ceil(n_sm / (batch *
+    kv_heads))`` splits per (kv head, batch row) would put one CTA on
+    each SM; the split length is the window over that, rounded up to a
+    whole number of ``SPLIT_SLOTS``-slot sub-blocks, so the CTAs come to
+    at most about one per SM (fewer where a short window runs out of
+    sub-blocks; one split where the rows alone fill the card)."""
+    want = -(-n_sm // (batch * kv_heads))
+    split_len = -(-window // want)
+    split_len = -(-split_len // SPLIT_SLOTS) * SPLIT_SLOTS
+    return DecodeSplits(batch, kv_heads, window, split_len)
+
+
+def _check_cuda(q, k, v) -> None:
+    """The kernel's device, dtype and contiguity rules."""
     for name, t in (("q", q), ("k_ring", k), ("v_ring", v)):
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError("ring_decode_attention runs on CUDA tensors "
@@ -113,6 +157,18 @@ def ring_decode_attention(q, k_ring, v_ring, seq_len, *, window: int,
                              f"on {q.device}")
     if q.dtype not in DTYPES:
         raise ValueError(f"the kernel takes {DTYPES}, not {q.dtype}")
+
+
+def ring_decode_attention(q, k_ring, v_ring, seq_len, *, window: int,
+                          block: int = 128, softcap: float | None = None):
+    """One decode step of attention over a ring KV cache on the card
+    (replaces ``ring_decode_attention``,
+    ``src/repro/kernels/ring_decode.py:77``); returns q's shape and
+    dtype."""
+    q, k, v, unbatched = _batched(q, k_ring, v_ring)
+    group = _check(q, k, v, window, block)
+    B, q_heads, d = q.shape
+    _check_cuda(q, k, v)
     if group > MAX_GROUP or d > MAX_HEAD_DIM or d & (d - 1):
         raise ValueError(f"the kernel takes up to {MAX_GROUP} q heads per kv "
                          f"head and a power-of-two head_dim up to "
@@ -131,11 +187,16 @@ def ring_decode_attention(q, k_ring, v_ring, seq_len, *, window: int,
             seq_rows = _seq_rows(s, B, "cpu").to(torch.int32).to(q.device)
         else:
             seq_scalar = int(s)
+    kv_heads = k.shape[2]
+    sp = decode_splits(B, kv_heads, window, _sm_count(q.device))
     out = torch.empty_like(q)
-    launch("ring_decode_attention", q, smem, (k, v, seq_rows, out),
-           (B, window, k.shape[2], group, d, block, seq_scalar,
-            int(q.dtype == torch.bfloat16), d ** -0.5,
-            float(softcap or 0.0)))
+    # the splits' partials: (m, l) per q row, then acc [group, d], fp32
+    part = torch.empty((sp.ctas * group * (d + 2),), dtype=F32,
+                       device=q.device)
+    launch("ring_decode_attention", q, smem, (k, v, seq_rows, out, part),
+           (B, window, kv_heads, group, d, block, seq_scalar,
+            int(q.dtype == torch.bfloat16), sp.split_len, sp.splits,
+            d ** -0.5, float(softcap or 0.0)))
     ring_decode_attention.launches += 1
     return out[0] if unbatched else out
 

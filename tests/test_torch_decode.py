@@ -98,11 +98,12 @@ def test_plain_and_port_oracle_match_reference_oracle(case):
 
 
 def test_decode_cases_cover_the_serve_shapes():
-    """gemma3-1b's local ring (512 slots, part full and wrapped), a global
-    cache whose last block is ragged, a batch of 4, and the reference's
-    whole kernel-test grid."""
+    """gemma3-1b's local ring (512 slots, part full and wrapped, also at
+    batch 1), a global cache whose last block is ragged, the serve path's
+    1,024-slot global cache at batch 4 with whole splits past seq_len, a
+    batch of 4, and the reference's whole kernel-test grid."""
     names = {c.name for c in DECODE_CASES}
-    assert len(names) == len(DECODE_CASES) == 22
+    assert len(names) == len(DECODE_CASES) == 24
     g3 = [c for c in DECODE_CASES if (c.q_heads, c.kv_heads, c.head_dim)
           == (4, 1, 256)]
     assert {(c.window, c.dtype) for c in g3} >= {(512, "bfloat16"),
@@ -111,6 +112,10 @@ def test_decode_cases_cover_the_serve_shapes():
     assert any(c.seq_len > c.window for c in g3)
     assert any(c.window % c.block for c in g3)
     assert any(c.batch == 4 for c in g3)
+    assert any(c.batch == 1 and c.window == 512 and c.dtype == "bfloat16"
+               for c in g3)
+    assert any(c.batch == 4 and c.window == 1024 and c.seq_len < 1024
+               for c in g3)
     assert sum(c.name.startswith("decode_q") for c in DECODE_CASES) == 15
 
 
