@@ -22,14 +22,18 @@ Phases, one summary line each:
      lanes exact), on every op of the six fp32 ``host-sim`` plans
      (DS-CNN, ResNet-8, MCUNet-5fps-VWW, the DS-CNN stream, the GRU
      chain, the whisper-tiny MLP tower) and on the fp32 edge cases (a
-     gemma3-1b-width geglu layer among them; the depthwise and k x k
-     convs also in place, where only a kernel that reads all of an op
-     before storing matches); which ops read their weights from global
-     memory (too large for shared, or used once); and, for each
-     ``ring_conv_dw`` / ``ring_conv_k2d`` / ``ring_conv_stream`` /
-     ``ring_add`` / ``ring_inverted_bottleneck`` call, its CTAs and the
-     bytes each holds across the grid barrier (``conv2d.conv_tiling``,
-     ``conv2d.add_tiling``, ``inverted_bottleneck.ib_tiling``);
+     gemma3-1b-width geglu layer and a d_model-4096 one among them; the
+     depthwise and k x k convs also in place, where only a kernel that
+     reads all of an op before storing matches, and the pointwise conv in
+     place with a short last tile); which ops read their weights from global
+     memory (too large for shared, used once, or streamed in chunks);
+     for each ``ring_conv_pw`` / ``ring_conv_dw`` / ``ring_conv_k2d`` /
+     ``ring_conv_stream`` / ``ring_add`` / ``ring_inverted_bottleneck``
+     call, its CTAs and the bytes each holds across the grid barrier
+     (``conv2d.conv_tiling``, ``conv2d.add_tiling``,
+     ``inverted_bottleneck.ib_tiling``); and for each ``ring_fused_mlp``
+     call, the CTAs, row blocks and d_ff sub-tiles of its first kernel and
+     its scratch bytes (``fused_mlp.mlp_tiling``);
      then ``ring_decode_attention`` against its plain version on every
      case of ``cases.DECODE_CASES`` (fp32 within 2e-5, bf16 within one
      bf16 ulp of the output's scale), with each case's splits and CTAs
@@ -83,7 +87,9 @@ Phases, one summary line each:
      ``ring_decode_attention`` at its two serve shapes (a 512-slot local
      ring and the 1,024-slot global cache, bf16, batch 4) beside its
      bound, its plain version and one
-     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call.
+     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call; and
+     ``ring_fused_mlp`` on the tower's layer under its tiling and a few
+     others (``MLP_TILINGS``).
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -92,6 +98,7 @@ a checkout exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import pathlib
@@ -442,7 +449,7 @@ def phase_parity(cases) -> dict[str, float]:
     global_w, tiles = [], []
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for case in cases:
-        if case.kernel in ("ring_conv_dw", "ring_conv_k2d",
+        if case.kernel in ("ring_conv_pw", "ring_conv_dw", "ring_conv_k2d",
                            "ring_conv_stream"):
             t = conv_tiling(case.kernel, case.kwargs, n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
@@ -461,6 +468,12 @@ def phase_parity(cases) -> dict[str, float]:
         KERNELS[case.kernel](got, *_cuda(params), **case.kwargs)
         if KERNELS[case.kernel].weights_staged is False:
             global_w.append(case.name)
+        if case.kernel == "ring_fused_mlp":
+            t = KERNELS[case.kernel].tiles
+            tiles.append(f"{case.name} {t.ctas} CTAs ({t.rows}-row blocks x "
+                         f"{t.n_sub} sub-tiles of {t.sub} d_ff columns), "
+                         f"{t.smem} B of shared memory, {t.scratch_bytes} B "
+                         "of scratch")
         torch.cuda.synchronize()
         if is_f32(case.kernel):
             live = live_lanes(case.n_seg,
@@ -483,11 +496,13 @@ def phase_parity(cases) -> dict[str, float]:
         f"|difference| per fp32 kernel: "
         f"{ {k: err[k] for k in covered if not k.endswith('_q')} }")
     say(f"  kernels covered: {covered}")
-    say(f"  weights read from global memory (too large for shared): "
+    say(f"  weights read from global memory (too large for shared, used "
+        f"once, or streamed through it in chunks): "
         f"{global_w or 'none'}")
-    say(f"  ring_conv_dw / ring_conv_k2d / ring_conv_stream / ring_add / "
-        f"ring_inverted_bottleneck tiles on {n_sm} SMs (CTAs, bytes each "
-        "holds across the grid barrier):")
+    say(f"  ring_conv_pw / ring_conv_dw / ring_conv_k2d / ring_conv_stream "
+        f"/ ring_add / ring_inverted_bottleneck tiles on {n_sm} SMs (CTAs, "
+        "bytes each holds across the grid barrier), and ring_fused_mlp's "
+        "(CTAs of its first kernel, tiling, scratch):")
     for line in tiles:
         say(f"    {line}")
     return err
@@ -798,7 +813,8 @@ KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
                   "ring_inverted_bottleneck": "ib_f32_kernel",
                   "ring_conv_stream": "conv_stream_f32_kernel",
                   "ring_gru_cell": "gru_f32_kernel",
-                  "ring_fused_mlp": "fused_mlp_f32_kernel",
+                  "ring_fused_mlp": ("fused_mlp_f32_kernel",
+                                     "mlp_reduce_f32_kernel"),
                   "ring_elementwise": "elementwise_f32_kernel",
                   "ring_decode_attention": ("ring_decode_kernel",
                                             "ring_decode_combine_kernel")}
@@ -807,8 +823,9 @@ KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
 def _device_busy(fn, reps: int = 20):
     """From torch.profiler over ``reps`` calls of ``fn``: the device time
     of all kernels over the wall time (None when the profiler sees no
-    device time), the wall time per call in us, and each ring kernel's
-    mean device time per launch in ms."""
+    device time), the wall time per call in us, each ring kernel's mean
+    device time per launch in ms, and, for a wrapper of several kernels,
+    each one's share of it in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -824,17 +841,20 @@ def _device_busy(fn, reps: int = 20):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    per_launch = {}
+    per_launch, parts = {}, {}
     for name, syms in KERNEL_SYMBOLS.items():
         syms = (syms,) if isinstance(syms, str) else syms
         hits = [[e for e in kernels if sym + "(" in e.key
                  or sym + "<" in e.key] for sym in syms]
         calls = sum(e.count for e in hits[0])
         if calls:
-            per_launch[name] = sum(e.self_device_time_total
-                                   for h in hits for e in h) / calls / 1e3
+            each = [sum(e.self_device_time_total for e in h) / calls / 1e3
+                    for h in hits]
+            per_launch[name] = sum(each)
+            if len(each) > 1:
+                parts[name] = each
     return ((busy_us / wall_us if busy_us > 0 else None), wall_us / reps,
-            per_launch)
+            per_launch, parts)
 
 
 def _library_ib(pool, params, kw):
@@ -1019,6 +1039,42 @@ def time_cases(cases) -> dict[str, dict]:
 
 #: The batch whose per-inference latency phase 4 reports beside batch 1.
 BATCH = 8
+#: Tilings of a fused-MLP layer timed beside the one ``mlp_tiling`` picks:
+#: (rows per thread, d_ff columns per sub-tile).
+MLP_TILINGS = ((3, 128), (5, 128), (5, 256), (8, 256))
+
+
+def time_mlp_tilings(case) -> dict[str, float]:
+    """``ring_fused_mlp``'s device time per launch on ``case`` under each
+    of ``MLP_TILINGS`` and under the tiling ``fused_mlp.mlp_tiling``
+    picks, by ``"<rows>x<sub-tile>"``; the first key is the pick."""
+    from repro_torch.kernels import fused_mlp
+    from repro_torch.kernels.cases import case_inputs
+
+    pool, params = case_inputs(case, seed=0)
+    pool, params = torch.from_numpy(pool).cuda(), _cuda(params)
+    kw = case.kwargs
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    pick = fused_mlp.mlp_tiling(kw["m_rows"], kw["d_model"],
+                                params[1].shape[1], kw["ff_tile"],
+                                kw["gated"], n_sm)
+    tilings = [pick] + [dataclasses.replace(
+        pick, tm=tm, sub=sub, splits=-(-kw["ff_tile"] // sub))
+        for tm, sub in MLP_TILINGS if (tm, sub) != (pick.tm, pick.sub)]
+    out = {}
+    choose = fused_mlp.mlp_tiling
+    try:
+        for t in tilings:
+            fused_mlp.mlp_tiling = lambda *a, t=t, **k: t
+            out[f"{t.rows}x{t.sub}"] = _held_ms(
+                lambda: fused_mlp.ring_fused_mlp(pool, *params, **kw), 50)
+    finally:
+        fused_mlp.mlp_tiling = choose
+    say(f"  ring_fused_mlp on {case.name} by tiling (rows per CTA x d_ff "
+        f"columns per sub-tile: us a launch; the first is mlp_tiling's "
+        f"pick, {pick.ctas} CTAs): "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in out.items()))
+    return out
 
 
 def phase_timing(served, streamed, cases, counts, errs, goldens):
@@ -1034,7 +1090,7 @@ def phase_timing(served, streamed, cases, counts, errs, goldens):
     by_path = {}
     for label, cn, drive, per in served + streamed:
         t = time_cases(cases[label])
-        busy, call_us, prof_ms = _device_busy(drive)
+        busy, call_us, prof_ms, prof_parts = _device_busy(drive)
         lat = _host_ms(drive, 30)
         busy_txt = "not measured" if busy is None else f"{busy:.4f}"
         say(f"  {label}: {lat:.4f} ms per {per} (host clock, ending in "
@@ -1047,6 +1103,8 @@ def phase_timing(served, streamed, cases, counts, errs, goldens):
             say(f"  {label}: {b8:.4f} ms per inference at batch {len(x)}")
         for name, row in t.items():
             row["profiler_ms"] = prof_ms.get(name)
+            if name in prof_parts:
+                row["profiler_ms_parts"] = prof_parts[name]
             row["launches"] = counts[label][name]
             lib = ("" if row["library_ms"] is None else
                    f", library {row['library_ms'] * 1e3:.2f} us in "
@@ -1056,6 +1114,11 @@ def phase_timing(served, streamed, cases, counts, errs, goldens):
                 f"with launch (host), plain {row['plain_ms'] * 1e3:9.2f} "
                 f"us, bound {row['bound_ms'] * 1e3:.4f} us "
                 f"({row['bound_by']}), {row['launches']} launches{lib}")
+            if name in prof_parts:
+                say(f"      on the path (profiler): "
+                    + " + ".join(f"{sym} {ms * 1e3:.2f}" for sym, ms in
+                                 zip(KERNEL_SYMBOLS[name], prof_parts[name]))
+                    + " us a launch")
         by_path[label] = {"latency_ms": lat, "device_busy": busy,
                           "kernels": t}
     rows = []
@@ -1362,7 +1425,7 @@ def time_lm(cfg, params) -> dict:
         def step():   # the same step again: the same work every call
             model.decode_step(params, caches, tok, cur)
         ms = _host_ms(step, 20)
-        busy, call_us, prof = _device_busy(step, 10)
+        busy, call_us, prof, _ = _device_busy(step, 10)
         out[f"decode_ms_batch{B}"] = ms
         out[f"device_busy_batch{B}"] = busy
         out[f"decode_kernel_profiler_ms_batch{B}"] = prof.get(
@@ -1446,6 +1509,9 @@ def main() -> None:
                          lambda s=session, f=frame: s.step(f), "step"))
     rows, paths = phase_timing(served, streamed, cases, counts, errs,
                                goldens)
+    tower = cases[SEEDED_FLOAT_NETS[0] + F32][0]
+    next(r for r in rows if r["name"] == "ring_fused_mlp")["by_tiling"] = \
+        time_mlp_tilings(tower)
     paths[f"{LM} serve"] = time_lm(lm_cfg, lm_weights)
     rows.append(time_decode_kernel(
         lm_cfg, max(LM_PROMPT_LENS) + LM_MAX_NEW // 2, counts[LM],

@@ -46,7 +46,7 @@ SIGNATURES = {
     },
     "ring_f32": {
         "ring_gemm": [_P] * 3 + [_I] * 9 + [_P],
-        "ring_conv_pw": [_P] * 3 + [_I] * 14 + [_P],
+        "ring_conv_pw": [_P] * 3 + [_I] * 15 + [_P],
         "ring_conv_dw": [_P] * 3 + [_I] * 15 + [_P],
         "ring_conv_k2d": [_P] * 3 + [_I] * 17 + [_P],
         "ring_add": [_P] + [_I] * 8 + [_P],
@@ -54,7 +54,7 @@ SIGNATURES = {
         "ring_inverted_bottleneck": [_P] * 4 + [_I] * 15 + [_P],
         "ring_conv_stream": [_P] * 3 + [_I] * 20 + [_P],
         "ring_gru_cell": [_P] * 4 + [_I] * 6 + [_P],
-        "ring_fused_mlp": [_P] * 4 + [_I] * 10 + [_P],
+        "ring_fused_mlp": [_P] * 5 + [_I] * 13 + [_P],
         "ring_elementwise": [_P] + [_I] * 4 + [_P],
     },
     "ring_decode": {

@@ -58,6 +58,10 @@ must match the plain version there, where a kernel that walks the rows
 in order does not.  A store before their grid barrier shows when it
 lands while another CTA still reads: reliably in
 ``f32_dw_inplace_uneven``, whose short last tile finishes first.  The
+fp32 pointwise conv in place (``f32_pw_inplace_uneven``,
+``f32_pw_s2_inplace_uneven``: a plan's overlap, each output row landing
+on an input row read earlier in the walk but by another CTA) is such a
+case too (``tests/test_torch_pw_mlp_tiles.py`` models it).  The
 fp32 add and stream cases ``f32_add_shifted_uneven``,
 ``f32_add_out_on_residual``, ``f32_stream_dscnn_out_on_frame`` and
 ``f32_stream_out_over_window`` store onto rows that another CTA of the
@@ -305,6 +309,22 @@ F32_EDGE_CASES = (
     Case("f32_add_out_on_residual", "ring_add", 16800,
          dict(rows=4193, d=130, in_ptr=0, aux_ptr=8400, out_ptr=8398,
               activation="gelu")),
+    # in place, stride 1, two input segments a pixel onto one output
+    # segment: output row p lands on input row p / 2, which the CTA of
+    # those rows reads.  At 132 SMs 16 row blocks of 3 rows x 8 channel
+    # tiles, the last block 2 rows, so its CTAs finish first; the input run
+    # wraps the ring
+    Case("f32_pw_inplace_uneven", "ring_conv_pw", 800,
+         _pw(47, 8, 200, 64, 1, False, 47, 8, 400, 400, "relu")),
+    # in place, stride 2, one segment a pixel (ResNet-8's and VWW's shortcut
+    # widths): output row p lands on input row p / 2; at 132 SMs 14 row
+    # blocks of 5 rows x 8 channel tiles, the last block 2 rows
+    Case("f32_pw_s2_inplace_uneven", "ring_conv_pw", 600,
+         _pw(134, 4, 16, 32, 2, False, 67, 2, 100, 100, "silu")),
+    # 256 x 256 weights (262,144 B, more than a CTA's shared memory): each
+    # CTA stages its channel tile's slice
+    Case("f32_pw_wide_weights", "ring_conv_pw", 64,
+         _pw(4, 4, 256, 256, 1, False, 4, 4, 0, 32, "relu")),
 )
 
 #: Edge cases of the fp32 fused inverted bottleneck, streaming conv and
@@ -362,8 +382,9 @@ def _ew(m, d, ptr, fn):
 
 
 #: Edge cases of the fp32 fused MLP and elementwise map (both delta 0, in
-#: place).  The fused MLP's kernel runs one block per 16 rows (8 at d_model
-#: 1152), so every case with more than 16 rows runs several blocks at once.
+#: place).  The fused MLP's first kernel runs one CTA per (block of rows,
+#: sub-tile of an ff tile) (``fused_mlp.mlp_tiling``: 16-row blocks for all
+#: of these), so every case runs many CTAs at once.
 F32_MLP_EDGE_CASES = (
     # the conformance-matrix cell (tests/test_conformance_matrix.py)
     Case("f32_mlp_conformance_cell", "ring_fused_mlp", 16,
@@ -384,6 +405,18 @@ F32_MLP_EDGE_CASES = (
     # 8 rows to fit shared memory
     Case("f32_mlp_gemma3_1b_geglu", "ring_fused_mlp", 160,
          _mlp(16, 1152, 16, 432, True, True, "gelu"), d_ff=6912),
+    # d_model 4096 (32 segments a row): more than a block of the old
+    # kernel's shared memory held for x and its sum; the rows wrap the ring
+    Case("f32_mlp_d4096", "ring_fused_mlp", 300,
+         _mlp(8, 4096, 100, 128, True, True, "silu"), d_ff=256),
+    # 100 rows, not a multiple of a 16-row block, two segments a row with
+    # 64 tail lanes; the run of rows wraps the ring
+    Case("f32_mlp_uneven_rows", "ring_fused_mlp", 240,
+         _mlp(100, 192, 150, 256, False, True, "gelu"), d_ff=512),
+    # d_model 130 and ff_tile 150: weight rows and sub-tiles off 16-byte
+    # alignment, so the kernel copies them 4 bytes at a time
+    Case("f32_mlp_unaligned", "ring_fused_mlp", 60,
+         _mlp(24, 130, 8, 150, True, False, "gelu"), d_ff=300),
     # every activation over a region that wraps the ring
     *(Case(f"f32_elementwise_{fn}_wrap", "ring_elementwise", 40,
            _ew(12, 200, 30, fn))

@@ -11,16 +11,17 @@ without synchronising; it updates the pool in place and returns it.  A
 wrapper never falls back to its plain version: it raises on anything
 but CUDA tensors.  It counts its launches in ``<wrapper>.launches``; a
 conv wrapper records in ``<wrapper>.weights_staged`` whether its last
-launch staged the weights (the depthwise and k x k convs: each CTA's
-weight slice) in shared memory (None for the add and the pool, which
-have none).  The wrappers size every kernel's shared memory at 4 bytes
-per element.
+launch staged the weights (each CTA's weight slice) in shared memory
+(None for the add and the pool, which have none).  The wrappers size
+every kernel's shared memory at 4 bytes per element.
 
-The depthwise and k x k convs, the streaming conv
+The pointwise, depthwise and k x k convs, the streaming conv
 (:mod:`repro_torch.kernels.stream`) and the residual add run many CTAs
 that read all of the op's input before any stores (one grid-wide barrier
 between); :func:`conv_tiling` and :func:`add_tiling` are how they cut an
-op into tiles, one per CTA.
+op into tiles, one per CTA.  The pointwise conv's ``row_block`` is the
+reference's argument and is checked as the reference checks it; it
+shapes nothing, here or in the plain version.
 
 Beside each wrapper sits its plain version (``<name>_plain``), a port
 of the reference's jnp executor op (``conv_pw_ring``, ``conv_dw_ring``,
@@ -66,18 +67,21 @@ def ring_conv_pw(pool, w, b, *, h_in: int, w_in: int, h_out: int,
                  resample: bool = False, in_ptr: int = 0, out_ptr: int = 0,
                  activation: str | None = None, row_block: int = 1):
     """Fp32 pointwise conv ``[h_in, w_in, c_in] -> [h_out, w_out, c_out]``
-    in the ring, ``row_block`` output image rows per step (blocking
-    requires the identity pixel map); replaces ``ring_conv_pw``,
-    ``src/repro/kernels/conv2d.py:108``."""
+    in the ring (replaces ``ring_conv_pw``,
+    ``src/repro/kernels/conv2d.py:108``).  ``row_block`` is checked as the
+    reference does (blocking requires the identity pixel map) and shapes
+    nothing: the kernel runs the tiles of :func:`conv_tiling`."""
     n_seg = pool.shape[0]
     _check_pw(n_seg, h_out, w_in, w_out, c_in, c_out, stride, resample,
               in_ptr, out_ptr, row_block)
     check_cuda(pool, _weights(w, b, (c_in, c_out), c_out), dtype=F32)
-    ring_conv_pw.weights_staged = launch(
-        "ring_conv_pw", pool, 4 * (row_block * w_in * c_in + c_out), (w, b),
-        (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, stride, int(resample),
-         row_block, in_ptr % n_seg, out_ptr % n_seg, act_code(activation)),
-        w_bytes=4 * c_in * c_out)
+    t = _pw_tiling(h_in, w_in, h_out, w_out, c_in, c_out, stride, resample,
+                   _sm_count(pool.device))
+    launch("ring_conv_pw", pool, t.smem, (w, b),
+           (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, stride,
+            int(resample), in_ptr % n_seg, out_ptr % n_seg,
+            act_code(activation), t.rows, t.ctile, int(t.stage_w)))
+    ring_conv_pw.weights_staged = t.stage_w
     ring_conv_pw.launches += 1
     return pool
 
@@ -93,19 +97,25 @@ def ring_conv_pw_plain(pool, w, b, *, h_in: int, w_in: int, h_out: int,
               resample, in_ptr, out_ptr, row_block)
     act = resolve_activation(activation)
     img = _fetch_image(pool, in_ptr, h_in, w_in, c_in)
-    if resample:
-        ridx = [resample_src(p, h_in, h_out) for p in range(h_out)]
-        cidx = [resample_src(q, w_in, w_out) for q in range(w_out)]
-    else:
-        ridx = [p * stride for p in range(h_out)]
-        cidx = [q * stride for q in range(w_out)]
+    ridx = pw_sources(h_in, h_out, stride, resample)
+    cidx = pw_sources(w_in, w_out, stride, resample)
     sub = img[ridx][:, cidx]
     y = torch.einsum("hwc,cd->hwd", sub, w.to(F32))
     return _store_image(pool, act(y + b.to(F32)), out_ptr)
 
 
+def pw_sources(n_in: int, n_out: int, stride: int,
+               resample: bool) -> list[int]:
+    """The source row (column) of each output row (column) of a pointwise
+    conv: ``p * stride``, or the nearest-grid pick when resampling."""
+    if resample:
+        return [resample_src(p, n_in, n_out) for p in range(n_out)]
+    return [p * stride for p in range(n_out)]
+
+
 # ---------------------------------------------------------------------------
-# Depthwise, k x k and streaming conv.
+# Tiling of the convs that read first: pointwise, depthwise, k x k and
+# streaming.
 # ---------------------------------------------------------------------------
 
 #: SMs of an H100 SXM, the tiling's CTA limit where no card is asked.
@@ -117,15 +127,16 @@ K2D_CHANNEL_TILES = (4, 8, 16, 32)
 
 @dataclasses.dataclass(frozen=True)
 class ConvTiling:
-    """How :func:`ring_conv_dw` / :func:`ring_conv_k2d` /
-    ``ring_conv_stream`` cut an op: CTA i owns tile i, ``rows`` output
-    image rows (fewer in the last block) by ``ctile`` output channels,
-    channel tiles fastest; ``ctas`` is at most the SM count, so all of them
-    are resident at once.  A streaming conv's CTA i also copies back window
-    rows ``i * win_rows ..`` (:meth:`window`; ``h_in`` is the window's
-    ``h_win``).  ``smem`` is one CTA's shared memory in bytes (a k x k or
-    streaming conv's staged input rows and its window rows, or a
-    depthwise conv's input row segments, the held outputs, the bias, the
+    """How :func:`ring_conv_pw` / :func:`ring_conv_dw` /
+    :func:`ring_conv_k2d` / ``ring_conv_stream`` cut an op: CTA i owns
+    tile i, ``rows`` output image rows (fewer in the last block) by
+    ``ctile`` output channels, channel tiles fastest; ``ctas`` is at most
+    the SM count, so all of them are resident at once.  A streaming conv's
+    CTA i also copies back window rows ``i * win_rows ..``
+    (:meth:`window`; ``h_in`` is the window's ``h_win``).  ``smem`` is one
+    CTA's shared memory in bytes (a pointwise conv's staged source pixels,
+    a k x k or streaming conv's staged input rows and its window rows, or
+    a depthwise conv's input row segments, the held outputs, the bias, the
     weight slice when ``stage_w``, the output row segments), ``held`` the
     bytes of outputs and window rows it keeps across the grid barrier."""
 
@@ -143,6 +154,7 @@ class ConvTiling:
     smem: int
     win_rows: int = 0       # a streaming conv's window rows per CTA
     win_row_len: int = 0    # their live floats, w_in * c_in
+    resample: bool = False  # a pointwise conv's nearest-grid pixel map
 
     @property
     def channel_tiles(self) -> int:
@@ -172,37 +184,52 @@ class ConvTiling:
         """CTA ``i``'s ``(p0, np, c0, cn, lo, nh)``: output rows ``p0 ..
         p0 + np - 1``, channels ``c0 .. c0 + cn - 1`` and the input rows
         ``lo .. lo + nh - 1`` inside the image that its taps reach (the
-        kernel's ``conv_tile``)."""
+        kernel's ``conv_tile``; a pointwise conv's are the span of its
+        source rows, :func:`pw_sources`, of which it stages only the
+        picked pixels)."""
         rb, cb = divmod(i, self.channel_tiles)
         p0, c0 = rb * self.rows, cb * self.ctile
         np_ = min(self.rows, self.h_out - p0)
-        top = p0 * self.stride - self.pad_v
-        lo = max(0, top)
-        nh = max(0, min(self.h_in - 1, top + (np_ - 1) * self.stride
-                        + self.k - 1) - lo + 1)
+        if self.kernel == "ring_conv_pw":
+            src = pw_sources(self.h_in, self.h_out, self.stride,
+                             self.resample)[p0:p0 + np_]
+            lo, nh = src[0], src[-1] - src[0] + 1
+        else:
+            top = p0 * self.stride - self.pad_v
+            lo = max(0, top)
+            nh = max(0, min(self.h_in - 1, top + (np_ - 1) * self.stride
+                            + self.k - 1) - lo + 1)
         return p0, np_, c0, min(self.ctile, self.c_out - c0), lo, nh
 
 
 def _conv_smem(rows, ctile, stage_w, *, w_in, w_out, c_in, k, stride,
-               dw, win_rows=0) -> int:
+               kind, win_rows=0) -> int:
     """Bytes of a conv CTA's shared memory (``conv_smem_layout``): a
-    depthwise conv keeps its input rows' ring segments, a k x k conv the
-    rows themselves, a streaming conv also its ``win_rows`` window rows."""
+    pointwise conv keeps the source pixel of each output (``c_in | 1``
+    floats a pixel), a depthwise conv its input rows' ring segments, a k x
+    k conv the rows themselves, a streaming conv also its ``win_rows``
+    window rows."""
     halo = (rows - 1) * stride + k
-    rows_in = halo if dw else (halo + win_rows) * w_in * c_in
-    w_len = k * k * ctile * (1 if dw else c_in)
+    if kind == "ring_conv_pw":
+        rows_in = rows * w_out * (c_in | 1)
+    elif kind == "ring_conv_dw":
+        rows_in = halo
+    else:
+        rows_in = (halo + win_rows) * w_in * c_in
+    w_len = k * k * ctile * (1 if kind == "ring_conv_dw" else c_in)
     return 4 * (rows_in + rows * w_out * ctile + ctile
                 + (w_len if stage_w else 0) + rows)
 
 
 def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
-    """The tiling of a ``ring_conv_dw`` / ``ring_conv_k2d`` /
-    ``ring_conv_stream`` call (its kwargs ``kw``) over at most ``n_sm``
-    CTAs.
+    """The tiling of a ``ring_conv_pw`` / ``ring_conv_dw`` /
+    ``ring_conv_k2d`` / ``ring_conv_stream`` call (its kwargs ``kw``) over
+    at most ``n_sm`` CTAs.
 
     A depthwise conv takes channel tiles of one segment (``min(c,
-    128)``); a k x k conv the ``K2D_CHANNEL_TILES`` entry (or ``c_out``)
-    that gives the fewest outputs per CTA, ties to the wider tile, and a
+    128)``); a k x k or pointwise conv (k = 1, each output reading one
+    source pixel) the ``K2D_CHANNEL_TILES`` entry (or ``c_out``) that
+    gives the fewest outputs per CTA, ties to the wider tile, and a
     streaming conv the k x k conv's tiles over its window (``h_in =
     h_win``), its ``h_win`` window rows shared out in equal blocks.  Each
     takes the fewest output rows per tile that keep the tiles within
@@ -210,6 +237,10 @@ def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
     Raises ``ValueError``, naming the op's geometry, when no tile fits
     ``MAX_SMEM``."""
     dw = kernel == "ring_conv_dw"
+    if kernel == "ring_conv_pw":
+        return _pw_tiling(kw["h_in"], kw["w_in"], kw["h_out"], kw["w_out"],
+                          kw["c_in"], kw["c_out"], kw.get("stride", 1),
+                          bool(kw.get("resample")), n_sm)
     if kernel == "ring_conv_stream":
         return _tiling(kernel, kw["h_win"], kw["w_in"], kw["h_out"],
                        kw["w_out"], kw["c_in"], kw["c_out"], kw["k"],
@@ -221,9 +252,15 @@ def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
                    n_sm)
 
 
+def _pw_tiling(h_in, w_in, h_out, w_out, c_in, c_out, stride, resample,
+               n_sm) -> ConvTiling:
+    return _tiling("ring_conv_pw", h_in, w_in, h_out, w_out, c_in, c_out, 1,
+                   stride, "valid", n_sm, resample)
+
+
 @functools.lru_cache(maxsize=4096)
 def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
-            padding, n_sm) -> ConvTiling:
+            padding, n_sm, resample=False) -> ConvTiling:
     """:func:`conv_tiling` by geometry, once per geometry (a wrapper
     calls it on every launch)."""
     dw = kernel == "ring_conv_dw"
@@ -238,7 +275,7 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
         rows = -(-h_out // (n_sm // per_row))
         win_rows = -(-h_in // (-(-h_out // rows) * per_row)) if stream else 0
         geom = dict(w_in=w_in, w_out=w_out, c_in=c_in, k=k, stride=stride,
-                    dw=dw, win_rows=win_rows)
+                    kind=kernel, win_rows=win_rows)
         smem = _conv_smem(rows, ctile, True, **geom)
         stage_w = smem <= MAX_SMEM
         if not stage_w:
@@ -250,7 +287,7 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
             best = key, ConvTiling(
                 kernel, h_in, h_out, w_out, c_out, k, stride,
                 conv_k2d_pad(k, padding), rows, ctile, stage_w, smem,
-                win_rows, w_in * c_in if stream else 0)
+                win_rows, w_in * c_in if stream else 0, resample)
     if best is None:
         raise ValueError(
             f"{kernel}: no tile of the op [{h_in}, {w_in}, {c_in}] -> "

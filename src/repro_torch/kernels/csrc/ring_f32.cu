@@ -24,8 +24,8 @@
 // reads, so in the TPU's sequential grid every read of an op sees the pool
 // as it was before the op.  A kernel keeps that in one of two ways.
 //
-// Four of them run as ONE thread block that walks the steps in plan order
-// (the FC, the 1x1 conv, the average pool and the GRU cell):
+// Three of them run as ONE thread block that walks the steps in plan order
+// (the FC, the average pool and the GRU cell):
 //
 //   load the step's input rows into shared memory   (ring load, modulo n_seg)
 //   __syncthreads()
@@ -33,27 +33,31 @@
 //   store the step's output rows                     (ring store, modulo n_seg)
 //   __syncthreads()                                  (stores visible before the next load)
 //
-// The depthwise, the k x k and the streaming conv, the residual add and the
-// inverted bottleneck read EVERYTHING before they store anything, over many
-// CTAs in one cooperative launch: (a) each CTA reads its share of the op (a
-// conv's tile, a block of output image rows x a channel tile, and a
-// stream's share of its window rows; a block of the add's rows; a
-// bottleneck's tile of output pixels and the halo its taps reach) from the
-// ring and computes into shared memory, storing nothing; (b) one grid-wide barrier; (c) each CTA stores
-// its share, channel tails as zeros.  Every read then sees the pool from
-// before the op, as in the sequential walk, and every output lands on the
-// same segment, so the final pool is the same (the superblock argument of
-// DESIGN.md, "coalescing only delays stores relative to reads", applied to
-// the whole op); it holds for any overlap of input and output, in place
-// too.  The fused MLP and the elementwise map are delta-0 ops whose row
-// blocks are disjoint; they too read each block's rows before storing any
-// (see each kernel's comment).
+// The pointwise, depthwise, k x k and streaming convs, the residual add and
+// the inverted bottleneck read EVERYTHING before they store anything, over
+// many CTAs in one cooperative launch: (a) each CTA reads its share of the
+// op (a conv's tile, a block of output image rows x a channel tile: the
+// pointwise conv's the source pixel of each output, and a stream's share
+// of its window rows; a block of the add's rows; a bottleneck's tile of
+// output pixels and the halo its taps reach) from the ring and computes
+// into shared memory, storing nothing; (b) one grid-wide barrier; (c) each
+// CTA stores its share, channel tails as zeros.  Every read then sees the
+// pool from before the op, as in the sequential walk, and every output
+// lands on the same segment, so the final pool is the same (the superblock
+// argument of DESIGN.md, "coalescing only delays stores relative to
+// reads", applied to the whole op); it holds for any overlap of input and
+// output, in place too.  The fused MLP and the elementwise map are delta-0
+// ops: the fused MLP's first kernel reads every row it needs and stores
+// only into a scratch tensor, and a second launch stores the rows; the
+// elementwise map reads and stores each float in one thread (see each
+// kernel's comment).
 //
 // The walking kernels take every element address modulo n_seg on its own,
 // so a step's run of segments that wraps the ring is handled segment by
 // segment; the read-first kernels take one modulo per row (an image row of
-// the dw, the output rows of a conv; a staged pixel of the k x k and the
-// streaming conv; a row of the add; a pixel of the bottleneck), since their
+// the dw, the output rows of a conv; a staged pixel of the pointwise, the
+// k x k and the streaming conv; a row of the add; a pixel of the
+// bottleneck), since their
 // wrappers require the pool and the pointers aligned to whole rows (the
 // bottleneck's rows are one segment a pixel), so no row wraps; the add,
 // the stream's window and the bottleneck store a row's (a pixel's)
@@ -70,9 +74,12 @@
 // one barrier pair per step.  Against that latency each walking op stages
 // its bias, and its weights when they fit beside the step's input tile,
 // into shared memory once; the wrappers (kernels/segment_matmul.py,
-// kernels/conv2d.py, kernels/stream.py) size shared memory and pass that
-// choice (`stage_w`), the pool's `chunk_pix`, the convs' tiling
-// (conv2d.py::conv_tiling) and the add's (conv2d.py::add_tiling).
+// kernels/conv2d.py, kernels/stream.py, kernels/fused_mlp.py) size shared
+// memory and pass that choice (`stage_w`), the pool's `chunk_pix`, the
+// convs' tiling (conv2d.py::conv_tiling), the add's (conv2d.py::add_tiling)
+// and the fused MLP's (fused_mlp.py::mlp_tiling).  The fused MLP alone is
+// bound by operations (fp32 FMAs, whisper-tiny's layer 52.9 us at the
+// card's peak): a register-tiled product, see its comment.
 //
 // The fused inverted bottleneck keeps the C_mid-wide expansion of its
 // tile's halo in shared memory (the Pallas kernel's VMEM halo ring) and
@@ -85,7 +92,9 @@
 // global memory (coalesced across output columns).
 //
 // Numerics: fp32 FMA accumulation over the reduction in its natural order
-// (taps row-major, then input channels), then the bias, then the activation
+// (taps row-major, then input channels; the fused MLP's over d_model, then
+// over each d_ff sub-tile, the sub-tiles' partials summed in order), then
+// the bias, then the activation
 // of core/program.py::ACTIVATIONS with precise expf/tanhf (gelu is the tanh
 // approximation, the reference's default).  No fast math, no TF32.  The
 // average pool sums in fp32 and divides once by h * w (IEEE division).  The
@@ -202,46 +211,6 @@ gemm_f32_kernel(float* pool, const float* __restrict__ w,
           activate(acc + prm.b[co], act);
     }
     zero_tails(pool, dst, block_rows, d_out, nsegs, n_seg);
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 1x1 conv: row_block output image rows per step (identity pixel map), or one
-// row with strided / resampled source rows and columns; w [c_in, c_out].
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-conv_pw_f32_kernel(float* pool, const float* __restrict__ w,
-                   const float* __restrict__ b, int n_seg, int h_in, int w_in,
-                   int h_out, int w_out, int c_in, int c_out, int stride,
-                   int resample, int row_block, int in_ptr, int out_ptr,
-                   int act, int stage_w) {
-  extern __shared__ float smem[];
-  float* x = smem;                            // [row_block * w_in, c_in]
-  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
-  const int in_row = w_in * ksegs;            // segments per source image row
-  const int in_pix = row_block * w_in, out_pix = row_block * w_out;
-  const bool pick_cols = row_block == 1 && (stride != 1 || resample);
-  const Params prm = stage_params(x + in_pix * c_in, w, c_in * c_out, b,
-                                  c_out, stage_w);
-  for (int blk = 0; blk < h_out / row_block; ++blk) {
-    const int src = resample ? (blk * h_in) / h_out : blk * row_block * stride;
-    const int dst = (out_ptr + blk * out_pix * nsegs) % n_seg;
-    load_rows(x, pool, (in_ptr + src * in_row) % n_seg, in_pix, c_in, ksegs,
-              n_seg);
-    __syncthreads();
-    for (int j = threadIdx.x; j < out_pix * c_out; j += blockDim.x) {
-      const int m = j / c_out, co = j - m * c_out;
-      int pix = m;
-      if (pick_cols) pix = resample ? (m * w_in) / w_out : m * stride;
-      const float* xr = x + pix * c_in;
-      float acc = 0.f;
-      for (int k = 0; k < c_in; ++k)
-        acc = fmaf(xr[k], prm.w[k * c_out + co], acc);
-      pool[ring_index(dst, m, co, nsegs, n_seg)] =
-          activate(acc + prm.b[co], act);
-    }
-    zero_tails(pool, dst, out_pix, c_out, nsegs, n_seg);
     __syncthreads();
   }
 }
@@ -530,6 +499,53 @@ conv_k2d_f32_kernel(float* pool, const float* __restrict__ w,
   float* y = smem + m.y;
   k2d_outputs(y, smem, wp, ldw, smem + m.bias, t, h_in, w_in, w_out, c_in, k,
               stride, pad_v, pad_h, ctile, act);
+  cg::this_grid().sync();   // (b): every read of the op is done
+  store_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
+             w_out, c_out, nsegs, ctile);
+}
+
+// 1x1 conv: w [c_in, c_out]; output pixel (p, q) reads source pixel (p *
+// stride, q * stride), or (p * h_in / h_out, q * w_in / w_out) when
+// resampling (rowsched.resample_src).  Tiled as the k x k conv (conv_tile
+// with k = 1; its halo is not used): a CTA stages only the live channels of
+// the source pixel of each of its outputs, one pixel pitch c_in | 1 (odd,
+// so that the pixels a warp's y-threads read lie in different banks), and
+// its weight slice [c_in, ctile]; then each output is the walking kernel's
+// FMA chain over c_in in order, + bias, activation.
+__global__ void __launch_bounds__(CONV_THREADS)
+conv_pw_f32_kernel(float* pool, const float* __restrict__ w,
+                   const float* __restrict__ b, int n_seg, int h_in, int w_in,
+                   int h_out, int w_out, int c_in, int c_out, int stride,
+                   int resample, int in_ptr, int out_ptr, int act, int rows,
+                   int ctile, int stage_w) {
+  extern __shared__ float smem[];
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out), xp = c_in | 1;
+  const ConvTile t = conv_tile(h_in, h_out, c_out, 1, stride, 0, rows, ctile);
+  const ConvSmem m = conv_smem_layout(rows * w_out * xp, rows, w_out, ctile,
+                                      c_in * ctile, stage_w, 0);
+  int ldw;
+  const float* wp = stage_tile(t, m, smem, w, b, c_in, c_out, ctile, stage_w,
+                               n_seg, out_ptr, w_out * nsegs, &ldw);
+  for (int i = threadIdx.y; i < t.np * w_out; i += blockDim.y) {
+    const int p = t.p0 + i / w_out, q = i % w_out;
+    const int sr = resample ? p * h_in / h_out : p * stride;
+    const int sc = resample ? q * w_in / w_out : q * stride;
+    const float* src =
+        pool + (size_t)((in_ptr + (sr * w_in + sc) * ksegs) % n_seg) * SEG;
+    for (int ci = threadIdx.x; ci < c_in; ci += blockDim.x)
+      smem[i * xp + ci] = src[ci];
+  }
+  __syncthreads();
+  float* y = smem + m.y;
+  const int co = threadIdx.x;
+  if (co < t.cn) {
+    for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y) {
+      const float* xr = smem + j * xp;
+      float acc = 0.f;
+      for (int k = 0; k < c_in; ++k) acc = fmaf(xr[k], wp[k * ldw + co], acc);
+      y[j * ctile + co] = activate(acc + smem[m.bias + co], act);
+    }
+  }
   cg::this_grid().sync();   // (b): every read of the op is done
   store_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
              w_out, c_out, nsegs, ctile);
@@ -869,118 +885,345 @@ gru_f32_kernel(float* pool, const float* __restrict__ w,
 // Fused MLP, in place (delta 0): over m_rows rows of d_model channels at ptr,
 //   up = x @ W_up, gate = x @ W_gate (gated only), h = act(gate) * up or
 //   act(up), y = h @ W_down (+ x), stored over the rows it was read from.
-// W_gate, W_up [d_model, d_ff], W_down [d_ff, d_model], read from global
-// memory (whisper-tiny's 4.7 MB a layer stays in L2).  The [rows, d_ff]
-// intermediate never exists: d_ff is walked in tiles of `tile` columns, and
-// only the [rows_per_block, tile] slice h lives in shared memory.
+// W_gate, W_up [d_model, d_ff], W_down [d_ff, d_model].  The [m_rows, d_ff]
+// intermediate never exists, and no whole row of x or of the sum is ever
+// held, so d_model is not bounded by shared memory.
 //
-// Many thread blocks, one per block of `rows_per_block` rows.  A delta-0 op's
-// step t reads row t and writes row t, so two blocks never touch the same
-// row: what keeps the op in place is that each block reads ALL of its rows
-// (x, which every d_ff tile and the residual need) into shared memory before
-// it stores any of them.  The wrapper refuses m_rows * segs(d_model) > n_seg
-// (a run of rows that wraps onto itself).
+// Two launches; the boundary between them is the op's barrier (every read
+// of x before any store):
+//   1. fused_mlp_f32_kernel, one CTA per (block of 16 * TM rows, ff
+//      sub-tile): d_ff is cut into the op's ff_tile tiles (the reference's
+//      accumulation unit) and each tile into `splits` sub-tiles of `sub`
+//      columns (the last one shorter).  The CTA computes h = act(...) of its
+//      rows x sub-tile into shared memory (the up and gate products over
+//      d_model in k-chunks, x read straight from the ring), then its partial
+//      h @ W_down[sub-tile] over d_model in blocks of 128 columns, and
+//      writes it to scratch[sub-tile][row][:] (fp32, rows padded to whole
+//      segments; the wrapper allocates it).  It stores nothing into the pool.
+//   2. mlp_reduce_f32_kernel sums each row's partials in sub-tile order from
+//      zero (ff-tile order, as the reference's acc + h_tile @ W_down[tile]),
+//      adds x read from the pool, and stores whole segments, channel tails
+//      zero; one thread reads and stores the same four lanes.
 //
-// Each thread computes MLP_RPT rows of one output column: one weight read
-// from global memory feeds MLP_RPT FMAs, and x (or h) comes from shared
-// memory four floats at a time, the same address for the whole warp.  Bound
-// on the card: whisper-tiny's layer at 1,500 rows is 1.77 G FMAs over 9.3 MB,
-// so it is the FMA rate's (no tensor cores: fp32 without TF32).  Per d_ff
-// tile the down-projection's partial sum starts from zero and is added to
-// the fp32 accumulator, as the reference's per-ff_tile accumulation does.
+// Each product is a register-tiled fp32 SIMT matrix product: 256 threads,
+// each holding TM rows x 8 columns of a [16 TM, 128] output block in
+// registers; both operands pass through shared memory in k-chunks of
+// MLP_BK, double-buffered with cp.async (zero-filled past the rows, the
+// columns and d_model), so that one shared-memory load feeds several FMAs.
+// Each output's sum runs over k in order, one FMA at a time.  What bounds it:
+// whisper-tiny's layer (1,500 rows, d_model 384, d_ff 1536) is 1.77 G FMAs
+// over 9.3 MB, so the FMA rate (no tensor cores: fp32 without TF32);
+// kernels/fused_mlp.py::mlp_tiling picks TM and the sub-tiles that leave
+// the busiest SM the fewest FMAs (whisper-tiny's layer: 114 CTAs of 80 rows
+// x 256 d_ff columns, one an SM).
 // ---------------------------------------------------------------------------
-constexpr int MLP_RPT = 8;   // rows per thread (rows_per_block is a multiple)
+constexpr int MLP_THREADS = 256;
+constexpr int MLP_BK = 32;     // depth of a staged k-chunk
+constexpr int MLP_BN = 128;    // columns of an output block (16 x 8)
+constexpr int MLP_AP = MLP_BK + 4;   // row pitch of a staged x chunk
+constexpr int MLP_STAGES = 2;  // k-chunks in flight (shared-memory buffers)
 
-__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ __forceinline__ int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
 
-// acc[r] = sum_k a[r * lda + k] * b[k * ldb] for the MLP_RPT rows of `a`
-// (shared memory, lda a multiple of 4, 16-byte aligned) and one column of `b`
-// (global memory).  The sum runs over k in order, one FMA at a time.
-__device__ __forceinline__ void rows_dot(float (&acc)[MLP_RPT], const float* a,
-                                         int lda, int K,
-                                         const float* __restrict__ b,
-                                         int ldb) {
+// Shared memory of a phase-1 CTA, in floats: h [16 TM, hp] (hp: the
+// sub-tile's columns rounded up to MLP_BK, + 4), MLP_STAGES x chunks
+// [16 TM, MLP_AP] and MLP_STAGES weight chunks [MLP_BK, MLP_BN].
+struct MlpSmem {
+  int a, b, words;
+};
+
+__host__ __device__ __forceinline__ MlpSmem mlp_smem_layout(int tm, int sub) {
+  const int bm = 16 * tm, hp = round_up(sub, MLP_BK) + 4;
+  MlpSmem m;
+  m.a = bm * hp;
+  m.b = m.a + MLP_STAGES * bm * MLP_AP;
+  m.words = m.b + MLP_STAGES * MLP_BK * MLP_BN;
+  return m;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy the `n` (0..4) floats at src to dst and zero the rest of the four:
+// one 16-byte copy where src is 16-byte aligned (`vec`), else four.
+__device__ __forceinline__ void copy4(float* dst, const float* src, int n,
+                                      int vec) {
+  if (vec) {
+    cp_async16(dst, src, 4 * n);
+  } else {
 #pragma unroll
-  for (int r = 0; r < MLP_RPT; ++r) acc[r] = 0.f;
-  int k = 0;
-  for (; k + 4 <= K; k += 4) {
-    const float b0 = b[(size_t)k * ldb], b1 = b[(size_t)(k + 1) * ldb];
-    const float b2 = b[(size_t)(k + 2) * ldb], b3 = b[(size_t)(k + 3) * ldb];
-#pragma unroll
-    for (int r = 0; r < MLP_RPT; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(a + r * lda + k);
-      acc[r] = fmaf(x.w, b3, fmaf(x.z, b2, fmaf(x.y, b1, fmaf(x.x, b0, acc[r]))));
-    }
-  }
-  for (; k < K; ++k) {
-    const float bk = b[(size_t)k * ldb];
-#pragma unroll
-    for (int r = 0; r < MLP_RPT; ++r) acc[r] = fmaf(a[r * lda + k], bk, acc[r]);
+    for (int j = 0; j < 4; ++j) cp_async4(dst + j, src + (j < n ? j : 0),
+                                          j < n ? 4 : 0);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_mlp_f32_kernel(float* pool, const float* __restrict__ w_gate,
-                     const float* __restrict__ w_up,
-                     const float* __restrict__ w_down, int n_seg, int m_rows,
-                     int d, int d_ff, int ptr, int gated, int residual,
-                     int act, int rows_per_block, int tile) {
-  extern __shared__ float4 smem4[];
-  const int R = rows_per_block, dp = round4(d), tp = round4(tile);
-  float* xs = reinterpret_cast<float*>(smem4);      // [R, dp]
-  float* hs = xs + (size_t)R * dp;                  // [R, tp]
-  float* acc = hs + (size_t)R * tp;                 // [R, d]
-  const int dsegs = segs_for(d), groups = R / MLP_RPT;
-  const int r0 = blockIdx.x * R, rows = min(R, m_rows - r0);
-  // Every read of this block's rows, before any store (rows past m_rows and
-  // the lanes d .. dp are zeros that nothing stores).
-  for (int j = threadIdx.x; j < R * dp; j += blockDim.x) {
-    const int r = j / dp, col = j - r * dp;
-    xs[j] = r < rows && col < d
-                ? pool[ring_index(ptr, r0 + r, col, dsegs, n_seg)]
-                : 0.f;
+// This thread's share of a stream of weight chunks [MLP_BK, MLP_BN]: chunk
+// c is rows c * MLP_BK .. of w (row stride ldw; those below k_end) and
+// columns c0 .. (those below c_end).  The addresses are found once, and
+// each chunk moves them MLP_BK rows on.
+struct WeightChunks {
+  static constexpr int N = MLP_BK * MLP_BN / 4 / MLP_THREADS;
+  const float* src[N];
+  int row[N], n[N];
+
+  __device__ __forceinline__ WeightChunks(const float* w, int ldw, int c0,
+                                          int c_end) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int e = threadIdx.x + j * MLP_THREADS;
+      const int cq = 4 * (e % (MLP_BN / 4));
+      row[j] = e / (MLP_BN / 4);
+      n[j] = max(0, min(4, c_end - c0 - cq));
+      src[j] = w + (size_t)row[j] * ldw + c0 + cq;
+    }
   }
-  for (int j = threadIdx.x; j < R * d; j += blockDim.x) acc[j] = 0.f;
-  __syncthreads();
-  for (int f0 = 0; f0 < d_ff; f0 += tile) {
-    const int tw = min(tile, d_ff - f0);
-    for (int j = threadIdx.x; j < tw * groups; j += blockDim.x) {
-      const int g = j / tw, t = j - g * tw;
-      const float* xg = xs + (size_t)g * MLP_RPT * dp;
-      float up[MLP_RPT];
-      rows_dot(up, xg, dp, d, w_up + f0 + t, d_ff);
-      float* hg = hs + (size_t)g * MLP_RPT * tp + t;
-      if (gated) {   // an ungated op never reads w_gate
-        float gt[MLP_RPT];
-        rows_dot(gt, xg, dp, d, w_gate + f0 + t, d_ff);
+
+  __device__ __forceinline__ void stage(float* dst, int c, int ldw,
+                                        int k_end, int vec) const {
+    const size_t step = (size_t)c * MLP_BK * ldw;
 #pragma unroll
-        for (int r = 0; r < MLP_RPT; ++r) hg[r * tp] = activate(gt[r], act) * up[r];
-      } else {
+    for (int j = 0; j < N; ++j) {
+      const int live = c * MLP_BK + row[j] < k_end ? n[j] : 0;
+      copy4(dst + 4 * (threadIdx.x + j * MLP_THREADS),
+            live ? src[j] + step : src[j], live, vec);
+    }
+  }
+};
+
+// acc[i][j] += sum_k a[i][k] * b[k][j] over the MLP_BK depths of a chunk,
+// for this thread's TM rows (a: its first row; rows 16 apart, row pitch
+// lda) and its 8 columns (b: its first column of a [MLP_BK, MLP_BN] chunk;
+// columns +0..3 and +64..67).  In order of k, one FMA at a time per
+// output.  A warp reads 4 rows (consecutive: in different banks for the
+// pitches used) and 8 float4s of b (contiguous) per load.
+template <int TM>
+__device__ __forceinline__ void mma_chunk(float (&acc)[TM][8], const float* a,
+                                          int lda, const float* b) {
 #pragma unroll
-        for (int r = 0; r < MLP_RPT; ++r) hg[r * tp] = activate(up[r], act);
+  for (int k = 0; k < MLP_BK; k += 4) {
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + 16 * i * lda + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(b + (k + kk) * MLP_BN);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(b + (k + kk) * MLP_BN + 64);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y
+                        : kk == 2 ? av[i].z : av[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
       }
     }
-    __syncthreads();
-    // thread j always owns the same accumulator entries: no barrier for acc
-    for (int j = threadIdx.x; j < d * groups; j += blockDim.x) {
-      const int g = j / d, c = j - g * d;
-      float part[MLP_RPT];
-      rows_dot(part, hs + (size_t)g * MLP_RPT * tp, tp, tw,
-               w_down + (size_t)f0 * d + c, d);
-#pragma unroll
-      for (int r = 0; r < MLP_RPT; ++r) acc[(g * MLP_RPT + r) * d + c] += part[r];
-    }
-    __syncthreads();   // h is rewritten by the next tile; acc read below
   }
-  const int row_len = dsegs * SEG;
-  for (int j = threadIdx.x; j < rows * row_len; j += blockDim.x) {
-    const int r = j / row_len, col = j - r * row_len;
-    float y = 0.f;
-    if (col < d) {
-      y = acc[r * d + col];
-      if (residual) y += xs[r * dp + col];
+}
+
+// Run `nk` k-chunks through MLP_STAGES shared-memory buffers: load(c, buf)
+// issues chunk c's copies MLP_STAGES - 1 chunks ahead, compute(c, buf)
+// uses them once they have landed.  One barrier a chunk: after it, every
+// thread is done with the buffer the next load overwrites.
+template <typename Load, typename Compute>
+__device__ __forceinline__ void pipeline(int nk, Load load, Compute compute) {
+  for (int c = 0; c < MLP_STAGES - 1; ++c) {
+    if (c < nk) load(c, c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<MLP_STAGES - 2>();
+    __syncthreads();
+    const int next = c + MLP_STAGES - 1;
+    if (next < nk) load(next, next % MLP_STAGES);
+    cp_async_commit();
+    compute(c, c % MLP_STAGES);
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the caller's next pipeline reuses the buffers
+}
+
+template <int TM>
+__global__ void __launch_bounds__(MLP_THREADS)
+fused_mlp_f32_kernel(const float* __restrict__ pool,
+                     const float* __restrict__ w_gate,
+                     const float* __restrict__ w_up,
+                     const float* __restrict__ w_down,
+                     float* __restrict__ scratch, int n_seg, int m_rows,
+                     int d, int d_ff, int ptr, int gated, int act,
+                     int ff_tile, int sub, int splits, int vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int BM = 16 * TM;
+  const MlpSmem m = mlp_smem_layout(TM, sub);
+  const int hp = round_up(sub, MLP_BK) + 4;
+  const int n_sub = d_ff / ff_tile * splits;
+  const int rb = blockIdx.x / n_sub, s = blockIdx.x - rb * n_sub;
+  const int tile = s / splits;
+  const int f0 = tile * ff_tile + (s - tile * splits) * sub;
+  const int ft = min(sub, (tile + 1) * ff_tile - f0);   // > 0 (wrapper)
+  const int ftp = round_up(ft, MLP_BK);
+  const int r0 = rb * BM, dsegs = segs_for(d), dp = dsegs * SEG;
+  // this thread's rows rg + 16 i and columns cg * 4 .. (+ 64 ..) of a block
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = (warp / 2) * 4 + lane / 8, cg = (warp % 2) * 8 + lane % 8;
+  float* hs = smem;                                  // [BM, hp]
+  float acc[TM][8];
+
+  // x chunk c ([BM, MLP_BK] at columns c * MLP_BK) straight from the ring:
+  // lanes past d and rows past m_rows are zeros.  Each thread copies the
+  // same rows in every chunk, so it finds their ring segments once.
+  constexpr int XC = (BM * MLP_BK / 4 + MLP_THREADS - 1) / MLP_THREADS;
+  int xseg[XC];
+#pragma unroll
+  for (int j = 0; j < XC; ++j) {
+    const int r = r0 + (threadIdx.x + j * MLP_THREADS) / (MLP_BK / 4);
+    xseg[j] = r < m_rows ? (ptr + r * dsegs) % n_seg : -1;
+  }
+  auto load_x = [&](int c, int buf) {
+    float* dst = smem + m.a + buf * BM * MLP_AP;
+#pragma unroll
+    for (int j = 0; j < XC; ++j) {
+      const int e = threadIdx.x + j * MLP_THREADS;
+      if (e >= BM * MLP_BK / 4) break;
+      const int i = e / (MLP_BK / 4), k = c * MLP_BK + 4 * (e % (MLP_BK / 4));
+      const int n = xseg[j] < 0 ? 0 : max(0, min(4, d - k));
+      int seg = xseg[j] + k / SEG;   // k / SEG < dsegs: wraps at most once
+      if (seg >= n_seg) seg -= n_seg;
+      cp_async16(dst + i * MLP_AP + k - c * MLP_BK,
+                 n ? pool + (size_t)seg * SEG + k % SEG : pool,
+                 4 * n);   // 16-byte aligned
     }
-    pool[ring_index(ptr, r0 + r, col, dsegs, n_seg)] = y;
+  };
+  // h = act(x @ W[:, sub-tile]) (the gate, or the ungated up), or
+  // h *= x @ W_up[:, sub-tile] (the gated up), over 128-column passes.
+  auto up_product = [&](const float* __restrict__ w, bool gate) {
+    for (int n0 = 0; n0 < ftp; n0 += MLP_BN) {
+      const WeightChunks wc(w, d_ff, f0 + n0, f0 + ft);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      pipeline(
+          (d + MLP_BK - 1) / MLP_BK,
+          [&](int c, int buf) {
+            load_x(c, buf);
+            wc.stage(smem + m.b + buf * MLP_BK * MLP_BN, c, d_ff, d, vec);
+          },
+          [&](int, int buf) {
+            mma_chunk<TM>(acc, smem + m.a + (buf * BM + rg) * MLP_AP,
+                          MLP_AP, smem + m.b + buf * MLP_BK * MLP_BN + cg * 4);
+          });
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = n0 + cg * 4 + (j < 4 ? j : 60 + j);
+          if (col >= ftp) continue;
+          float* h = hs + (rg + 16 * i) * hp + col;
+          if (gate || !gated)
+            *h = activate(acc[i][j], act);
+          else
+            *h = *h * acc[i][j];   // act(gate) * up, this thread's own h
+        }
+    }
+  };
+  if (gated) up_product(w_gate, true);
+  up_product(w_up, false);
+
+  // partial = h @ W_down[sub-tile, :] in blocks of 128 output columns
+  float* part = scratch + ((size_t)s * m_rows + r0) * dp;
+  for (int n0 = 0; n0 < d; n0 += MLP_BN) {
+    const WeightChunks wc(w_down + (size_t)f0 * d, d, n0, d);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    pipeline(
+        ftp / MLP_BK,
+        [&](int c, int buf) {
+          wc.stage(smem + m.b + buf * MLP_BK * MLP_BN, c, d, ft, vec);
+        },
+        [&](int c, int buf) {
+          mma_chunk<TM>(acc, hs + rg * hp + c * MLP_BK, hp,
+                        smem + m.b + buf * MLP_BK * MLP_BN + cg * 4);
+        });
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = rg + 16 * i;
+      if (r0 + r >= m_rows) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = n0 + cg * 4 + 64 * half;   // < dp
+        *reinterpret_cast<float4*>(part + (size_t)r * dp + col) =
+            make_float4(acc[i][4 * half], acc[i][4 * half + 1],
+                        acc[i][4 * half + 2], acc[i][4 * half + 3]);
+      }
+    }
+  }
+}
+
+// Phase 2: y = sum of the n_sub partials in order (+ x), whole segments.
+constexpr int EW_THREADS = 256;
+
+__global__ void __launch_bounds__(EW_THREADS)
+mlp_reduce_f32_kernel(float* pool, const float* __restrict__ scratch,
+                      int n_seg, int m_rows, int d, int ptr, int n_sub,
+                      int residual) {
+  float4* p4 = reinterpret_cast<float4*>(pool);
+  const float4* s4 = reinterpret_cast<const float4*>(scratch);
+  constexpr int V = SEG / 4;                        // float4s per segment
+  const int dsegs = segs_for(d), row = dsegs * V;
+  const size_t plane = (size_t)m_rows * row;        // float4s per partial
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < m_rows * row;
+       i += gridDim.x * blockDim.x) {
+    const int r = i / row, v = i - r * row, c = 4 * v;
+    const size_t at = (size_t)((ptr + r * dsegs + v / V) % n_seg) * V + v % V;
+    float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < d) {
+      for (int s = 0; s < n_sub; ++s) {
+        const float4 q = s4[s * plane + i];
+        y.x += q.x;
+        y.y += q.y;
+        y.z += q.z;
+        y.w += q.w;
+      }
+      if (residual) {
+        const float4 x = p4[at];
+        y.x += x.x;
+        y.y += x.y;
+        y.z += x.z;
+        y.w += x.w;
+      }
+      if (c + 1 >= d) y.y = 0.f;
+      if (c + 2 >= d) y.z = 0.f;
+      if (c + 3 >= d) y.w = 0.f;
+    }
+    p4[at] = y;
   }
 }
 
@@ -992,7 +1235,6 @@ fused_mlp_f32_kernel(float* pool, const float* __restrict__ w_gate,
 // many blocks keeps the op in place.  Bound by its bytes: 16 bytes a thread
 // per access, neighbouring threads on neighbouring addresses.
 // ---------------------------------------------------------------------------
-constexpr int EW_THREADS = 256;
 
 __global__ void __launch_bounds__(EW_THREADS)
 elementwise_f32_kernel(float* pool, int n_seg, int n_segs, int ptr, int act) {
@@ -1011,7 +1253,7 @@ elementwise_f32_kernel(float* pool, int n_seg, int n_segs, int ptr, int act) {
   }
 }
 
-// Shared memory of a conv/FC launch: the step's input tile and the bias and,
+// Shared memory of the FC's launch: the step's input tile and the bias and,
 // when the wrapper says they fit too, the weights (floats, 4 bytes each).
 size_t conv_smem(size_t x_len, size_t w_len, int c_out, int stage_w) {
   return sizeof(float) * (x_len + (size_t)c_out + (stage_w ? w_len : 0));
@@ -1075,14 +1317,17 @@ int ring_gemm(void* pool, const void* w, const void* b, int n_seg, int m_rows,
 
 int ring_conv_pw(void* pool, const void* w, const void* b, int n_seg,
                  int h_in, int w_in, int h_out, int w_out, int c_in,
-                 int c_out, int stride, int resample, int row_block,
-                 int in_ptr, int out_ptr, int act, int stage_w, void* stream) {
-  const size_t smem = conv_smem((size_t)row_block * w_in * c_in,
-                                (size_t)c_in * c_out, c_out, stage_w);
-  return launch(conv_pw_f32_kernel, smem, stream, (float*)pool,
-                (const float*)w, (const float*)b, n_seg, h_in, w_in, h_out,
-                w_out, c_in, c_out, stride, resample, row_block, in_ptr,
-                out_ptr, act, stage_w);
+                 int c_out, int stride, int resample, int in_ptr, int out_ptr,
+                 int act, int rows, int ctile, int stage_w, void* stream) {
+  const ConvSmem m = conv_smem_layout(rows * w_out * (c_in | 1), rows, w_out,
+                                      ctile, c_in * ctile, stage_w, 0);
+  const int ctas = (h_out + rows - 1) / rows * ((c_out + ctile - 1) / ctile);
+  return launch_cooperative(conv_pw_f32_kernel, ctas, conv_block(ctile),
+                            sizeof(float) * (size_t)m.words, stream,
+                            (float*)pool, (const float*)w, (const float*)b,
+                            n_seg, h_in, w_in, h_out, w_out, c_in, c_out,
+                            stride, resample, in_ptr, out_ptr, act, rows,
+                            ctile, stage_w);
 }
 
 int ring_conv_dw(void* pool, const void* w, const void* b, int n_seg,
@@ -1181,17 +1426,38 @@ int ring_gru_cell(void* pool, const void* w, const void* u, const void* b,
 }
 
 int ring_fused_mlp(void* pool, const void* w_gate, const void* w_up,
-                   const void* w_down, int n_seg, int m_rows, int d_model,
-                   int d_ff, int ptr, int gated, int residual, int act,
-                   int rows_per_block, int tile, void* stream) {
-  const size_t smem =
-      sizeof(float) * (size_t)rows_per_block *
-      (round4(d_model) + round4(tile) + (size_t)d_model);
-  const int blocks = (m_rows + rows_per_block - 1) / rows_per_block;
-  return launch_grid(fused_mlp_f32_kernel, blocks, THREADS, smem, stream,
-                     (float*)pool, (const float*)w_gate, (const float*)w_up,
-                     (const float*)w_down, n_seg, m_rows, d_model, d_ff, ptr,
-                     gated, residual, act, rows_per_block, tile);
+                   const void* w_down, void* scratch, int n_seg, int m_rows,
+                   int d_model, int d_ff, int ptr, int gated, int residual,
+                   int act, int ff_tile, int tm, int sub, int splits, int vec,
+                   void* stream) {
+  const int n_sub = d_ff / ff_tile * splits;
+  const int ctas = (m_rows + 16 * tm - 1) / (16 * tm) * n_sub;
+  const size_t smem = sizeof(float) * (size_t)mlp_smem_layout(tm, sub).words;
+  const float* p = (const float*)pool;
+  const float *wg = (const float*)w_gate, *wu = (const float*)w_up,
+              *wd = (const float*)w_down;
+  float* sc = (float*)scratch;
+  int err;
+#define MLP_LAUNCH(T)                                                        \
+  case T:                                                                    \
+    err = launch_grid(fused_mlp_f32_kernel<T>, ctas, MLP_THREADS, smem,      \
+                      stream, p, wg, wu, wd, sc, n_seg, m_rows, d_model,     \
+                      d_ff, ptr, gated, act, ff_tile, sub, splits, vec);     \
+    break;
+  switch (tm) {
+    MLP_LAUNCH(1) MLP_LAUNCH(2) MLP_LAUNCH(3) MLP_LAUNCH(4)
+    MLP_LAUNCH(5) MLP_LAUNCH(6) MLP_LAUNCH(7) MLP_LAUNCH(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MLP_LAUNCH
+  if (err) return err;
+  const int vecs = m_rows * segs_for(d_model) * (SEG / 4);
+  int blocks = (vecs + EW_THREADS - 1) / EW_THREADS;
+  blocks = blocks < 132 * 8 ? blocks : 132 * 8;
+  return launch_grid(mlp_reduce_f32_kernel, blocks, EW_THREADS, 0, stream,
+                     (float*)pool, (const float*)scratch, n_seg, m_rows,
+                     d_model, ptr, n_sub, residual);
 }
 
 int ring_elementwise(void* pool, int n_seg, int n_segs, int ptr, int act,

@@ -4,8 +4,8 @@ against the reference on the CPU.
 * The plain ``ring_fused_mlp`` and ``ring_elementwise`` against the
   reference's Pallas kernels in interpret mode, from the same seeded pool
   and weights, on every case of ``F32_MLP_EDGE_CASES`` but the
-  gemma3-1b-width one (95.6 MB of weights, too large for interpret mode
-  here).
+  gemma3-1b-width one (95.6 MB of weights) and the d_model-4096 one, too
+  large for interpret mode here.
 * The whisper-tiny MLP tower at full width and depth (4 layers, d_model
   384, d_ff 1536, 1,500 rows, then an elementwise gelu), from its
   params-less artifact and ``mlp_tower_params`` (seed 0): the port's
@@ -53,15 +53,17 @@ from repro_torch.kernels.cases import (ATOL_REL, F32_MLP_EDGE_CASES, RTOL,
                                        mlp_tower_params, output_regions,
                                        program_cases, program_live_lanes,
                                        seeded_float_net)
-from repro_torch.kernels.fused_mlp import (SMEM_TARGET, fused_mlp_ref,
-                                           mlp_smem, mlp_tiles)
+from repro_torch.kernels.fused_mlp import (fused_mlp_ref, mlp_smem,
+                                           mlp_tiling)
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
 TOWER = ASSETS / "whisper-tiny-mlp.host-sim.float32"
 REFERENCE = {"ring_fused_mlp": ref_fused_mlp,
              "ring_elementwise": ref_elementwise}
-SMALL_CASES = tuple(c for c in F32_MLP_EDGE_CASES if "gemma" not in c.name)
+SMALL_CASES = tuple(c for c in F32_MLP_EDGE_CASES
+                    if c.name not in ("f32_mlp_gemma3_1b_geglu",
+                                      "f32_mlp_d4096"))
 
 
 @pytest.fixture(autouse=True)
@@ -103,7 +105,8 @@ def test_edge_cases_cover_both_kernels_every_fn_and_the_geometries():
     wraps = mlp["f32_mlp_ring_wraps"]
     n_seg = dict((c.name, c.n_seg) for c in F32_MLP_EDGE_CASES)
     assert wraps["ptr"] + 2 * wraps["m_rows"] > n_seg["f32_mlp_ring_wraps"]
-    assert wraps["m_rows"] > mlp_tiles(wraps["m_rows"], 160, 256)[0]
+    assert wraps["m_rows"] > mlp_tiling(wraps["m_rows"], 160, 256, 256,
+                                        True).rows
     for c in F32_MLP_EDGE_CASES:
         if c.kernel == "ring_elementwise":
             kw = c.kwargs
@@ -216,17 +219,20 @@ def test_the_port_does_not_demand_the_references_block_alignment():
 
 
 def test_tiles_fit_shared_memory_at_every_width():
-    assert mlp_tiles(1500, 384, 512) == (16, 512)
-    assert mlp_smem(16, 384, 512) == 81_920
-    assert mlp_tiles(16, 1152, 432) == (8, 432)
-    assert mlp_smem(8, 1152, 432) == 87_552
-    assert mlp_tiles(8, 256, 256) == (8, 256)
-    assert mlp_tiles(3, 64, 128) == (8, 128)
-    for d in (64, 384, 1152, 2048):
-        rows, tile = mlp_tiles(1024, d, 512)
-        smem = mlp_smem(rows, d, tile)
-        assert rows % 8 == 0 and smem <= MAX_SMEM
-        assert d > 1152 or smem <= SMEM_TARGET
+    # whisper-tiny's layer: 19 blocks of 80 rows x 6 sub-tiles of 256 d_ff
+    # columns, 114 CTAs on 132 SMs, 13.8 MB of partials
+    t = mlp_tiling(1500, 384, 1536, 512)
+    assert (t.tm, t.sub, t.splits, t.ctas) == (5, 256, 2, 114)
+    assert mlp_smem(5, 256) == t.smem == 139_008
+    # gemma3-1b's width: 16 rows, 7 sub-tiles of each of its 16 ff tiles
+    t = mlp_tiling(16, 1152, 6912, 432, True)
+    assert (t.rows, t.ctas) == (16, 112) and t.smem <= MAX_SMEM
+    assert mlp_tiling(8, 256, 512, 256, True).rows == 16
+    assert mlp_tiling(3, 64, 256, 128).rows == 16
+    for d in (64, 384, 1152, 2048, 4096, 8192):
+        t = mlp_tiling(1024, d, 4 * d, min(512, 4 * d), True)
+        assert t.smem <= MAX_SMEM and t.ctas >= 100
+        assert t.smem == mlp_smem(t.tm, t.sub)      # no term in d_model
 
 
 # ---------------------------------------------------------------------------

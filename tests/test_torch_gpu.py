@@ -38,6 +38,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.cases import (DECODE_CASES, compare_decode,
                                        decode_inputs, hold_lm_golden,
                                        lm_params, logits_close)
+from repro_torch.kernels import fused_mlp
+from repro_torch.kernels.fused_mlp import MlpTiling, mlp_tiling
 from repro_torch.kernels.ring_decode import (ring_decode_attention,
                                              ring_decode_attention_plain)
 from repro_torch.models import build_model, params_from_reference
@@ -309,7 +311,10 @@ def test_fp32_mlp_tower_matches_golden_on_card():
     assert y.device.type == "cuda" and tuple(y.shape) == x.shape
     assert {k: n for k, n in launch_counts().items() if n} \
         == {"ring_fused_mlp": 8, "ring_elementwise": 2}
-    assert KERNELS["ring_fused_mlp"].tiles == (16, 512)   # 81,920 B
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = KERNELS["ring_fused_mlp"].tiles
+    assert tiles == mlp_tiling(1500, 384, 1536, 512, False, n_sm)
+    assert 94 < tiles.ctas <= n_sm       # one wave, more than 94 blocks
     got = y.cpu().numpy()
     want = golden["y"]
     np.testing.assert_allclose(got[:, golden["rows"]], want, rtol=RTOL,
@@ -328,6 +333,39 @@ def test_fp32_mlp_tower_matches_golden_on_card():
         err, bad = compare_f32(have, plain.cpu().numpy(), live)
         assert bad is None, bad
         assert not have[~live].any()
+
+
+MLP_TILED = tuple(c for c in F32_MLP_EDGE_CASES if c.name in (
+    "f32_mlp_gated_silu", "f32_mlp_uneven_rows", "f32_mlp_unaligned"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tm", range(1, 9))
+@pytest.mark.parametrize("case", MLP_TILED, ids=lambda c: c.name)
+def test_fused_mlp_every_row_block_matches_plain_on_card(case, tm,
+                                                         monkeypatch):
+    """Each of the kernel's row-block widths (16 to 128 rows) and sub-tile
+    splits, forced, against the plain version."""
+    _need_card()
+    kw = case.kwargs
+    # one sub-tile an ff tile at even TM, three (of a multiple of 4
+    # columns, the last shorter) at odd TM
+    sub = kw["ff_tile"] if tm % 2 == 0 else -(-kw["ff_tile"] // 12) * 4
+    splits = -(-kw["ff_tile"] // sub)
+    t = MlpTiling(kw["m_rows"], kw["d_model"], case.d_ff, kw["ff_tile"], tm,
+                  sub, splits)
+    monkeypatch.setattr(fused_mlp, "mlp_tiling", lambda *a, **k: t)
+    pool, params = case_inputs(case, seed=0)
+    cuda_params = [torch.from_numpy(a).cuda() for a in params]
+    want = torch.from_numpy(pool).cuda()
+    PLAIN[case.kernel](want, *cuda_params, **kw)
+    got = torch.from_numpy(pool).cuda()
+    KERNELS[case.kernel](got, *cuda_params, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[case.kernel].tiles is t
+    live = live_lanes(case.n_seg, output_regions(case.kernel, kw))
+    err, bad = compare_f32(got.cpu().numpy(), want.cpu().numpy(), live)
+    assert bad is None, bad
 
 
 @pytest.mark.gpu
