@@ -15,23 +15,27 @@ Phases, one summary line each:
      started together (time and the ``-Xptxas -v`` lines);
   2. every hand-written kernel against its plain PyTorch version on the
      card, with TF32 off: the eight int8 kernels bitwise, on every op of
-     the five committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
-     the DS-CNN stream and the GRU chain) and on the int8 edge cases of
-     ``repro_torch.kernels.cases``; the eleven fp32 kernels within the
-     tolerance of ``cases.compare_f32`` (channel tails and unwritten
-     lanes exact), on every op of the six fp32 ``host-sim`` plans
-     (DS-CNN, ResNet-8, MCUNet-5fps-VWW, the DS-CNN stream, the GRU
-     chain, the whisper-tiny MLP tower) and on the fp32 edge cases (a
-     gemma3-1b-width geglu layer and a d_model-4096 one among them; the
-     depthwise and k x k convs also in place, where only a kernel that
-     reads all of an op before storing matches, and the pointwise conv in
-     place with a short last tile); which ops read their weights from global
-     memory (too large for shared, used once, or streamed in chunks);
-     for each ``ring_conv_pw`` / ``ring_conv_dw`` / ``ring_conv_k2d`` /
+     the six committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
+     ToyADMOS, the DS-CNN stream and the GRU chain) and on the int8 edge
+     cases of ``repro_torch.kernels.cases``; the eleven fp32 kernels
+     within the tolerance of ``cases.compare_f32`` (channel tails and
+     unwritten lanes exact), on every op of the seven fp32 ``host-sim``
+     plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW, ToyADMOS, the DS-CNN
+     stream, the GRU chain, the whisper-tiny MLP tower) and on the fp32
+     edge cases (a gemma3-1b-width geglu layer and a d_model-4096 one
+     among them; the depthwise and k x k convs also in place, where only
+     a kernel that reads all of an op before storing matches, and the
+     pointwise conv and the FC in place with a short last tile); which
+     ops read their weights from global memory (too large for shared,
+     used once, or streamed in chunks); for each ``ring_gemm`` /
+     ``ring_conv_pw`` / ``ring_conv_dw`` / ``ring_conv_k2d`` /
      ``ring_conv_stream`` / ``ring_add`` / ``ring_inverted_bottleneck``
      call, its CTAs and the bytes each holds across the grid barrier
-     (``conv2d.conv_tiling``, ``conv2d.add_tiling``,
-     ``inverted_bottleneck.ib_tiling``); and for each ``ring_fused_mlp``
+     (``segment_matmul.gemm_tiling``, ``conv2d.conv_tiling``,
+     ``conv2d.add_tiling``, ``inverted_bottleneck.ib_tiling``), for each
+     ``ring_elementwise`` call its runs and blocks
+     (``elementwise.ring_runs``, ``ew_blocks``); and for each
+     ``ring_fused_mlp``
      call, the CTAs, row blocks and d_ff sub-tiles of its first kernel and
      its scratch bytes (``fused_mlp.mlp_tiling``);
      then ``ring_decode_attention`` against its plain version on every
@@ -41,13 +45,15 @@ Phases, one summary line each:
   3. the paths, each with the launch counts set to 0 just before it and
      read just after:
        * ``repro_torch.load(artifact).run(x)`` on the int8 DS-CNN,
-         ResNet-8 and MCUNet-5fps-VWW for the 8 golden inputs, batched
-         and one by one; float outputs, int8 outputs and final-pool
-         sha256 equal the golden that the reference wrote;
-       * the same on the fp32 DS-CNN, ResNet-8 and MCUNet-5fps-VWW:
-         outputs within the tolerance of the reference's golden and of
-         the plain ``reference_forward``, each final pool within it of
-         the pool the plain versions leave, channel tails exactly 0;
+         ResNet-8, MCUNet-5fps-VWW and ToyADMOS for the 8 golden
+         inputs, batched and one by one; float outputs, int8 outputs and
+         final-pool sha256 equal the golden that the reference wrote
+         (ToyADMOS: exactly 10 ``ring_gemm_q`` launches an inference);
+       * the same on the fp32 DS-CNN, ResNet-8, MCUNet-5fps-VWW and
+         ToyADMOS: outputs within the tolerance of the reference's golden
+         and of the plain ``reference_forward``, each final pool within
+         it of the pool the plain versions leave, channel tails exactly
+         0 (ToyADMOS: exactly 10 ``ring_gemm`` launches an inference);
        * the same on whisper-tiny's MLP tower (4 fused MLP layers at
          d_model 384, d_ff 1536 over 1,500 rows, then an elementwise
          gelu), served from its params-less artifact with the weights of
@@ -81,7 +87,8 @@ Phases, one summary line each:
      version's time, its bound and (fp32) the time of the PyTorch
      library call that computes the same op, at the shapes each path
      gives it (the fused bottleneck, the fp32 GRU cell and the fused MLP
-     against a short sequence of calls, with the count stated); and the
+     against a short sequence of calls, with the count stated; the FC
+     kernels also op by op, ``PER_OP_KERNELS``); and the
      gemma3-1b path's prefill latency at batch 4, per-token decode
      latency at batch 1 and 4, its device-busy share, and
      ``ring_decode_attention`` at its two serve shapes (a 512-slot local
@@ -114,8 +121,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 ASSETS = ROOT / "src" / "repro_torch" / "assets"
 CSRC = "src/repro_torch/kernels/csrc"
 #: Plans served by ``run`` (int8 and fp32) and plans stepped by ``stream``.
-NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
-FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
+FLOAT_NETS = NETS
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 FLOAT_STREAMS = STREAMS
 #: fp32 plans whose artifact holds no weights: ``mlp_tower_params`` of
@@ -439,7 +446,9 @@ def phase_parity(cases) -> dict[str, float]:
     from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
                                            live_lanes, output_regions)
     from repro_torch.kernels.conv2d import add_tiling, conv_tiling
+    from repro_torch.kernels.elementwise import ew_blocks, ring_runs
     from repro_torch.kernels.inverted_bottleneck import ib_tiling
+    from repro_torch.kernels.segment_matmul import gemm_tiling
 
     n_f32 = sum(is_f32(c.kernel) for c in cases)
     say(f"phase 2: {len(cases)} kernel calls against their plain versions "
@@ -456,6 +465,17 @@ def phase_parity(cases) -> dict[str, float]:
         elif case.kernel == "ring_add":
             t = add_tiling(case.kwargs["rows"], case.kwargs["d"], n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
+        elif case.kernel == "ring_gemm":
+            kw = case.kwargs
+            t = gemm_tiling(kw["m_rows"], kw["d_in"], kw["d_out"], n_sm)
+            tiles.append(f"{case.name} {t.ctas} CTAs ({t.rows} rows x "
+                         f"{t.ctile} columns), {t.held} B held")
+        elif case.kernel == "ring_elementwise":
+            kw = case.kwargs
+            n = kw["m_rows"] * _segs(kw["d"])
+            runs = ring_runs(case.n_seg, kw["ptr"] % case.n_seg, n)
+            tiles.append(f"{case.name} runs (start, segments) {runs}, "
+                         f"{ew_blocks(n, n_sm)} blocks")
         elif case.kernel == "ring_inverted_bottleneck":
             t = ib_tiling(case.kwargs, n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held "
@@ -499,10 +519,11 @@ def phase_parity(cases) -> dict[str, float]:
     say(f"  weights read from global memory (too large for shared, used "
         f"once, or streamed through it in chunks): "
         f"{global_w or 'none'}")
-    say(f"  ring_conv_pw / ring_conv_dw / ring_conv_k2d / ring_conv_stream "
-        f"/ ring_add / ring_inverted_bottleneck tiles on {n_sm} SMs (CTAs, "
-        "bytes each holds across the grid barrier), and ring_fused_mlp's "
-        "(CTAs of its first kernel, tiling, scratch):")
+    say(f"  ring_gemm / ring_conv_pw / ring_conv_dw / ring_conv_k2d / "
+        f"ring_conv_stream / ring_add / ring_inverted_bottleneck tiles on "
+        f"{n_sm} SMs (CTAs, bytes each holds across the grid barrier), "
+        "ring_elementwise's runs and blocks, and ring_fused_mlp's (CTAs of "
+        "its first kernel, tiling, scratch):")
     for line in tiles:
         say(f"    {line}")
     return err
@@ -555,6 +576,7 @@ def path_serve(name: str, cn, golden) -> dict[str, int]:
         out["single"] = [cn.run(xi) for xi in x]
 
     counts = _counted(f"{name} run", cn, 2 * len(x), "inference", drive)
+    _exact_launches(name, counts, 2 * len(x))
     want = torch.from_numpy(golden["y"]).cuda()
     if out["batch"].device.type != DEVICE_TYPE \
             or not torch.equal(out["batch"], want):
@@ -590,8 +612,20 @@ def _within(got: np.ndarray, want: np.ndarray) -> bool:
 
 #: Launches per inference that a path must make exactly, per kernel.
 LAUNCHES_PER_INFERENCE = {
+    "ad-toyadmos": {"ring_gemm_q": 10},
+    "ad-toyadmos" + F32: {"ring_gemm": 10},
     "whisper-tiny-mlp" + F32: {"ring_fused_mlp": 4, "ring_elementwise": 1},
 }
+
+
+def _exact_launches(label: str, counts: dict[str, int], runs: int) -> None:
+    """A path with a fixed number of launches per inference must make
+    exactly that many of each kernel, and no other."""
+    exact = LAUNCHES_PER_INFERENCE.get(label)
+    if exact is not None and {k: n for k, n in counts.items() if n} \
+            != {k: n * runs for k, n in exact.items()}:
+        raise SystemExit(f"{label}: launches {counts} are not {exact} per "
+                         "inference")
 
 
 def path_serve_f32(label: str, cn, golden) -> dict[str, int]:
@@ -615,11 +649,7 @@ def path_serve_f32(label: str, cn, golden) -> dict[str, int]:
         out["single"] = [cn.run(xi) for xi in x]
 
     counts = _counted(f"{label} run", cn, 2 * len(x), "inference", drive)
-    exact = LAUNCHES_PER_INFERENCE.get(label)
-    if exact is not None and {k: n for k, n in counts.items() if n} \
-            != {k: n * 2 * len(x) for k, n in exact.items()}:
-        raise SystemExit(f"{label}: launches {counts} are not {exact} per "
-                         "inference")
+    _exact_launches(label, counts, 2 * len(x))
     if out["batch"].device.type != DEVICE_TYPE:
         raise SystemExit(f"{label}: outputs left the card")
     batch = out["batch"].cpu().numpy()
@@ -998,17 +1028,23 @@ def _work_kw(kernel: str, kw: dict, params) -> dict:
     return kw
 
 
+#: Kernels whose phase-4 row also lists each op's device and library
+#: time (``per_op``), not only the plan's mean.
+PER_OP_KERNELS = ("ring_gemm_q", "ring_gemm")
+
+
 def time_cases(cases) -> dict[str, dict]:
     """Per kernel over ``cases`` (one per op of a plan): the mean device
     time per launch, host time with the launch, plain-version time and
-    bound."""
+    bound (and, for ``PER_OP_KERNELS``, each op's device and library
+    time)."""
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import case_inputs
 
     out: dict[str, dict] = {}
     for name in KERNELS:
         ms, plain_ms, host_ms, bounds, lib_ms = [], [], [], [], []
-        lib_calls = None
+        lib_calls, per_op = None, {}
         for case in (c for c in cases if c.kernel == name):
             pool, params = case_inputs(case, seed=0)
             pool, params = torch.from_numpy(pool).cuda(), _cuda(params)
@@ -1024,6 +1060,7 @@ def time_cases(cases) -> dict[str, dict]:
             plain_ms.append(_event_ms(
                 lambda: plain(pool, *params, **case.kwargs), 5))
             bounds.append(bound(name, _work_kw(name, case.kwargs, params)))
+            per_op[case.name] = [ms[-1], lib_ms[-1] if lib else None]
         if ms:
             out[name] = {"ms": statistics.mean(ms),
                          "plain_ms": statistics.mean(plain_ms),
@@ -1034,6 +1071,8 @@ def time_cases(cases) -> dict[str, dict]:
                                         if len(lib_ms) == len(ms)
                                         else None),
                          "library_calls": lib_calls}
+            if name in PER_OP_KERNELS:
+                out[name]["per_op"] = per_op
     return out
 
 
@@ -1114,6 +1153,10 @@ def phase_timing(served, streamed, cases, counts, errs, goldens):
                 f"with launch (host), plain {row['plain_ms'] * 1e3:9.2f} "
                 f"us, bound {row['bound_ms'] * 1e3:.4f} us "
                 f"({row['bound_by']}), {row['launches']} launches{lib}")
+            for op, (op_ms, op_lib) in row.get("per_op", {}).items():
+                say(f"      {op}: {op_ms * 1e3:.2f} us/launch"
+                    + ("" if op_lib is None else
+                       f", library {op_lib * 1e3:.2f} us"))
             if name in prof_parts:
                 say(f"      on the path (profiler): "
                     + " + ".join(f"{sym} {ms * 1e3:.2f}" for sym, ms in

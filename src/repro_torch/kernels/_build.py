@@ -55,7 +55,7 @@ SIGNATURES = {
         "ring_conv_stream": [_P] * 3 + [_I] * 20 + [_P],
         "ring_gru_cell": [_P] * 4 + [_I] * 6 + [_P],
         "ring_fused_mlp": [_P] * 5 + [_I] * 13 + [_P],
-        "ring_elementwise": [_P] + [_I] * 4 + [_P],
+        "ring_elementwise": [_P] + [_I] * 5 + [_P],
     },
     "ring_decode": {
         "ring_decode_attention": [_P] * 6 + [_I] * 10 + [_F] * 2 + [_P],

@@ -8,12 +8,22 @@ every kernel's shared memory against :data:`MAX_SMEM`.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.vpool import SEG_WIDTH
 
 #: Shared memory one thread block may use on Hopper (bytes).
 MAX_SMEM = 232_448
+#: SMs of an H100 SXM, the tilings' CTA limit where no card is asked.
+H100_SMS = 132
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    """The SMs of ``device``: the most CTAs a cooperative launch takes."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_cuda(pool, tensors=(), dtype: torch.dtype = torch.int8) -> None:

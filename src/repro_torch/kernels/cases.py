@@ -71,7 +71,11 @@ kernel without its grid barrier may differ there
 bottleneck in place (a plan's overlap: every VWW bottleneck runs in
 place) on ``f32_ib_inplace_uneven``, whose short last tile stores onto
 the rows its neighbour's last sub-tile reads
-(``tests/test_torch_ib_tiles.py`` models it).
+(``tests/test_torch_ib_tiles.py`` models it), and the fp32 FC on
+``f32_gemm_inplace_uneven`` and ``f32_gemm_widen`` (plans' overlaps:
+every ToyADMOS layer but the last runs in place), whose CTAs store onto
+input channels that other CTAs read (``tests/test_torch_gemm_tiles.py``
+models it).
 """
 from __future__ import annotations
 
@@ -325,6 +329,20 @@ F32_EDGE_CASES = (
     # CTA stages its channel tile's slice
     Case("f32_pw_wide_weights", "ring_conv_pw", 64,
          _pw(4, 4, 256, 256, 1, False, 4, 4, 0, 32, "relu")),
+    # ToyADMOS's 640-wide layer in place, 132 outputs a row: at 132 SMs 2
+    # row blocks x 17 column tiles of 8, the last 4 columns wide, so its
+    # CTA finishes first; it stores lanes 128 .. 255 of row 1's output
+    # (segment 13), channels 384 .. 511 of row 0's input, while the CTAs
+    # of row 0 still read them
+    Case("f32_gemm_inplace_uneven", "ring_gemm", 20,
+         dict(m_rows=2, d_in=640, d_out=132, in_ptr=10, out_ptr=10,
+              block_rows=1, activation="relu")),
+    # ToyADMOS's last layer, 128 -> 640, onto a shifted pointer: row 1's
+    # output wraps the ring onto segments 0 .. 4, over both rows' inputs
+    # (80 CTAs of 2 rows x 8 columns)
+    Case("f32_gemm_widen", "ring_gemm", 20,
+         dict(m_rows=2, d_in=128, d_out=640, in_ptr=0, out_ptr=15,
+              block_rows=1, activation=None)),
 )
 
 #: Edge cases of the fp32 fused inverted bottleneck, streaming conv and
@@ -421,6 +439,9 @@ F32_MLP_EDGE_CASES = (
     *(Case(f"f32_elementwise_{fn}_wrap", "ring_elementwise", 40,
            _ew(12, 200, 30, fn))
       for fn in ("gelu", "silu", "relu", "square", "identity")),
+    # a region that ends exactly at the ring's end: one run, none from 0
+    Case("f32_elementwise_ends_at_ring_end", "ring_elementwise", 40,
+         _ew(10, 200, 20, "gelu")),
 )
 
 

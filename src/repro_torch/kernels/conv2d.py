@@ -39,7 +39,7 @@ import torch
 from ..core.program import resolve_activation
 from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w, resample_src
 from ..core.vpool import SEG_WIDTH, fetch_rows, stage_rows
-from ._launch import MAX_SMEM, check_cuda, launch
+from ._launch import H100_SMS, MAX_SMEM, _sm_count, check_cuda, launch
 from .quantized import _check_add, _check_avgpool, _check_pw, _check_rows, \
     _taps
 from .segment_matmul import F32, act_code
@@ -118,8 +118,6 @@ def pw_sources(n_in: int, n_out: int, stride: int,
 # streaming.
 # ---------------------------------------------------------------------------
 
-#: SMs of an H100 SXM, the tiling's CTA limit where no card is asked.
-H100_SMS = 132
 #: Output-channel tiles a k x k conv may take (a smaller ``c_out`` is one
 #: tile); every one divides a segment.
 K2D_CHANNEL_TILES = (4, 8, 16, 32)
@@ -294,11 +292,6 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
             f"[{h_out}, {w_out}, {c_out}], k {k}, stride {stride}, fits "
             f"{MAX_SMEM} B of shared memory over at most {n_sm} CTAs")
     return best[1]
-
-
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ring_conv_dw(pool, w, b, *, h_in: int, w_in: int, h_out: int,

@@ -24,19 +24,20 @@
 // reads, so in the TPU's sequential grid every read of an op sees the pool
 // as it was before the op.  A kernel keeps that in one of two ways.
 //
-// Three of them run as ONE thread block that walks the steps in plan order
-// (the FC, the average pool and the GRU cell):
+// Two of them run as ONE thread block that walks the steps in plan order
+// (the average pool and the GRU cell):
 //
 //   load the step's input rows into shared memory   (ring load, modulo n_seg)
 //   __syncthreads()
-//   fp32 FMA dot -> + bias -> activation             (threads over live outputs)
+//   fp32 sums -> activation                         (threads over live outputs)
 //   store the step's output rows                     (ring store, modulo n_seg)
 //   __syncthreads()                                  (stores visible before the next load)
 //
-// The pointwise, depthwise, k x k and streaming convs, the residual add and
-// the inverted bottleneck read EVERYTHING before they store anything, over
-// many CTAs in one cooperative launch: (a) each CTA reads its share of the
-// op (a conv's tile, a block of output image rows x a channel tile: the
+// The FC, the pointwise, depthwise, k x k and streaming convs, the residual
+// add and the inverted bottleneck read EVERYTHING before they store
+// anything, over many CTAs in one cooperative launch: (a) each CTA reads
+// its share of the op (the FC's rows and a weight slice of a tile of output
+// columns; a conv's tile, a block of output image rows x a channel tile: the
 // pointwise conv's the source pixel of each output, and a stream's share
 // of its window rows; a block of the add's rows; a bottleneck's tile of
 // output pixels and the halo its taps reach) from the ring and computes
@@ -54,10 +55,10 @@
 //
 // The walking kernels take every element address modulo n_seg on its own,
 // so a step's run of segments that wraps the ring is handled segment by
-// segment; the read-first kernels take one modulo per row (an image row of
-// the dw, the output rows of a conv; a staged pixel of the pointwise, the
-// k x k and the streaming conv; a row of the add; a pixel of the
-// bottleneck), since their
+// segment; the read-first kernels take one modulo per row (a row of the FC,
+// an image row of the dw, the output rows of a conv; a staged pixel of the
+// pointwise, the k x k and the streaming conv; a row of the add; a pixel of
+// the bottleneck), since their
 // wrappers require the pool and the pointers aligned to whole rows (the
 // bottleneck's rows are one segment a pixel), so no row wraps; the add,
 // the stream's window and the bottleneck store a row's (a pixel's)
@@ -71,13 +72,14 @@
 // What bounds these kernels on the card: bytes and operations are tiny
 // (ResNet-8's largest conv is 4.7 MFLOP over about 0.2 MB), so the bound is
 // a few microseconds at most; what the serial walk costs is latency, one SM and
-// one barrier pair per step.  Against that latency each walking op stages
-// its bias, and its weights when they fit beside the step's input tile,
-// into shared memory once; the wrappers (kernels/segment_matmul.py,
-// kernels/conv2d.py, kernels/stream.py, kernels/fused_mlp.py) size shared
-// memory and pass that choice (`stage_w`), the pool's `chunk_pix`, the
-// convs' tiling (conv2d.py::conv_tiling), the add's (conv2d.py::add_tiling)
-// and the fused MLP's (fused_mlp.py::mlp_tiling).  The fused MLP alone is
+// one barrier pair per step.  The wrappers (kernels/segment_matmul.py,
+// kernels/conv2d.py, kernels/stream.py, kernels/fused_mlp.py,
+// kernels/elementwise.py) size shared memory and pass whether a conv's
+// weight slice is staged (`stage_w`), the pool's `chunk_pix`, the FC's
+// tiling (segment_matmul.py::gemm_tiling), the convs'
+// (conv2d.py::conv_tiling), the add's (conv2d.py::add_tiling), the fused
+// MLP's (fused_mlp.py::mlp_tiling) and the elementwise map's runs and grid
+// (elementwise.py::ring_runs, ew_blocks).  The fused MLP alone is
 // bound by operations (fp32 FMAs, whisper-tiny's layer 52.9 us at the
 // card's peak): a register-tiled product, see its comment.
 //
@@ -92,7 +94,7 @@
 // global memory (coalesced across output columns).
 //
 // Numerics: fp32 FMA accumulation over the reduction in its natural order
-// (taps row-major, then input channels; the fused MLP's over d_model, then
+// (the FC's over d_in, in slices of 32 summed in order; taps row-major, then input channels; the fused MLP's over d_model, then
 // over each d_ff sub-tile, the sub-tiles' partials summed in order), then
 // the bias, then the activation
 // of core/program.py::ACTIVATIONS with precise expf/tanhf (gelu is the tanh
@@ -108,6 +110,8 @@ namespace {
 
 constexpr int SEG = 128;              // floats per segment
 constexpr int THREADS = 1024;
+
+namespace cg = cooperative_groups;
 
 enum Activation { IDENTITY = 0, RELU = 1, GELU = 2, SILU = 3, SQUARE = 4 };
 
@@ -153,65 +157,156 @@ __device__ __forceinline__ void load_rows(float* dst, const float* pool,
   }
 }
 
-// Store zeros in the channel tails (lanes d .. chunk * SEG) of `n` rows.
-__device__ __forceinline__ void zero_tails(float* pool, int ptr, int n,
-                                           int d, int chunk, int n_seg) {
-  const int tail = chunk * SEG - d;
-  for (int j = threadIdx.x; j < n * tail; j += blockDim.x) {
-    const int row = j / tail, col = d + (j - row * tail);
-    pool[ring_index(ptr, row, col, chunk, n_seg)] = 0.f;
-  }
+// Asynchronous copies from global to shared memory (sm_80 and later): a
+// thread issues many before it waits on any.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
 }
 
-// An op's weights and bias, wherever they are read from.
-struct Params {
-  const float* w;
-  const float* b;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// FC: act(x @ w + b), w [d_in, d_out], over m_rows rows of d_in channels at
+// in_ptr, stored at out_ptr (every ToyADMOS layer but the last in place).
+// One cooperative launch: CTA i owns tile i of
+// kernels/segment_matmul.py::gemm_tiling, `rows` rows (fewer in the last
+// row block) x `ctile` output columns (fewer in the last column tile),
+// column tiles fastest.  It
+//   (a) stages the live channels of its rows (all of d_in), its weight
+//       slice [d_in, ctile] (transposed) and its bias, every copy in flight
+//       at once (cp.async), and computes its outputs into shared memory,
+//       storing nothing;
+//   (b) meets every other CTA at the grid barrier;
+//   (c) stores its outputs over lanes c0 .. c0 + ctile - 1 of each row (the
+//       last column tile on through the channel tail, as zeros).
+// Each output sums its d_in inputs in slices of GEMM_KSLICE, an fp32 FMA chain
+// each in k order from 0, then the slices' partials in order, then the bias,
+// then the activation: with d_in <= GEMM_KSLICE one chain, the walking
+// kernel's bit for bit; a wider input (ToyADMOS's 640) takes 20 chains of 32
+// in parallel, within the fp32 tolerance of it (one d_in-long chain an output
+// keeps the walking kernel's bits, but is then that layer's critical path,
+// 640 dependent FMAs).  What bounds it: bytes (a 640 -> 128 layer's 331 KB
+// in 0.1 us); what remains is the launch, one staging round trip per CTA (at
+// ctile 8 a weight row's slice is one 32-byte sector, so no two CTAs of a row
+// block read one sector), a chain of at most GEMM_KSLICE FMAs, the partials'
+// sum and the barrier.  The rows never wrap the ring (the wrapper requires
+// the reference's block alignment), so one modulo a row.
+// ---------------------------------------------------------------------------
+constexpr int GEMM_THREADS = 256;
+constexpr int GEMM_KSLICE = 32;    // inputs a thread's FMA chain takes
+
+// A gemm CTA's shared memory, in 4-byte words: its rows x [rows, xp], its
+// weight slice transposed, ws [ctile, wp], its bias [ctile], the partial sums
+// of its outputs' k slices part [kslices, rows * ctile] and its outputs
+// y [rows, ctile].  xp is d_in rounded up to 4 and wp d_in rounded up to 32,
+// plus 4, so that a thread reads 4 of its k at a time and the 8 columns of a
+// quarter warp lie in distinct banks.
+struct GemmSmem {
+  int xp, wp, kslices, ws, bias, part, y, words;
 };
 
-// Stage the bias (and the weights, when `stage_w`) into shared memory at
-// `dst`.  Read only after the first step's __syncthreads().
-__device__ __forceinline__ Params stage_params(float* dst,
-                                               const float* __restrict__ w,
-                                               int w_len,
-                                               const float* __restrict__ b,
-                                               int c_out, int stage_w) {
-  for (int i = threadIdx.x; i < c_out; i += blockDim.x) dst[i] = b[i];
-  if (!stage_w) return {w, dst};
-  float* ws = dst + c_out;
-  for (int i = threadIdx.x; i < w_len; i += blockDim.x) ws[i] = w[i];
-  return {ws, dst};
+__host__ __device__ __forceinline__ GemmSmem gemm_smem_layout(int rows,
+                                                              int ctile,
+                                                              int d_in) {
+  GemmSmem m;
+  m.xp = (d_in + 3) / 4 * 4;
+  m.wp = (d_in + 31) / 32 * 32 + 4;
+  m.kslices = (d_in + GEMM_KSLICE - 1) / GEMM_KSLICE;
+  m.ws = rows * m.xp;
+  m.bias = m.ws + ctile * m.wp;
+  m.part = m.bias + ctile;
+  m.y = m.part + m.kslices * rows * ctile;
+  m.words = m.y + rows * ctile;
+  return m;
 }
 
-// ---------------------------------------------------------------------------
-// FC: m_rows rows, block_rows rows per step; w [d_in, d_out].
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GEMM_THREADS)
 gemm_f32_kernel(float* pool, const float* __restrict__ w,
                 const float* __restrict__ b, int n_seg, int m_rows, int d_in,
-                int d_out, int block_rows, int in_ptr, int out_ptr, int act,
-                int stage_w) {
-  extern __shared__ float smem[];
-  float* x = smem;                                  // [block_rows, d_in]
+                int d_out, int in_ptr, int out_ptr, int act, int rows,
+                int ctile) {
+  extern __shared__ float4 gemm_smem4[];             // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(gemm_smem4);
   const int ksegs = segs_for(d_in), nsegs = segs_for(d_out);
-  const Params prm = stage_params(x + block_rows * d_in, w, d_in * d_out, b,
-                                  d_out, stage_w);
-  for (int i = 0; i < m_rows / block_rows; ++i) {
-    const int dst = (out_ptr + i * block_rows * nsegs) % n_seg;
-    load_rows(x, pool, (in_ptr + i * block_rows * ksegs) % n_seg, block_rows,
-              d_in, ksegs, n_seg);
-    __syncthreads();
-    for (int j = threadIdx.x; j < block_rows * d_out; j += blockDim.x) {
-      const int r = j / d_out, co = j - r * d_out;
-      const float* xr = x + r * d_in;
-      float acc = 0.f;
-      for (int k = 0; k < d_in; ++k)
-        acc = fmaf(xr[k], prm.w[k * d_out + co], acc);
-      pool[ring_index(dst, r, co, nsegs, n_seg)] =
-          activate(acc + prm.b[co], act);
+  const int n_ct = (d_out + ctile - 1) / ctile;
+  const int rb = blockIdx.x / n_ct, cb = blockIdx.x - rb * n_ct;
+  const int r0 = rb * rows, nr = min(rows, m_rows - r0);
+  const int c0 = cb * ctile, cn = min(ctile, d_out - c0);
+  const GemmSmem m = gemm_smem_layout(rows, ctile, d_in);
+  float *x = smem, *ws = smem + m.ws, *bias = smem + m.bias,
+        *part = smem + m.part, *y = smem + m.y;
+  // (a) every copy in flight before any wait: weight row k's slice is cn
+  // floats of one sector, consecutive threads on consecutive columns
+  for (int i = threadIdx.x; i < d_in * cn; i += GEMM_THREADS) {
+    const int k = i / cn, j = i - k * cn;
+    cp_async4(ws + j * m.wp + k, w + (size_t)k * d_out + c0 + j, 4);
+  }
+  for (int i = threadIdx.x; i < nr * d_in; i += GEMM_THREADS) {
+    const int r = i / d_in, k = i - r * d_in;
+    cp_async4(x + r * m.xp + k,
+              pool + (size_t)((in_ptr + (r0 + r) * ksegs) % n_seg) * SEG + k,
+              4);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < cn; i += GEMM_THREADS) bias[i] = b[c0 + i];
+  cp_async_wait<0>();
+  __syncthreads();
+  // one FMA chain per (output, k slice), in k order from 0; output o of
+  // row r = o / cn, column co = o % cn, fastest, so the columns of a quarter
+  // warp share a slice
+  const int n_out = nr * cn;
+  for (int j = threadIdx.x; j < n_out * m.kslices; j += GEMM_THREADS) {
+    const int sl = j / n_out, o = j - sl * n_out;
+    const int r = o / cn, co = o - r * cn;
+    const int k0 = sl * GEMM_KSLICE, k1 = min(d_in, k0 + GEMM_KSLICE);
+    const float* xr = x + r * m.xp;
+    const float* wc = ws + co * m.wp;
+    const float4* x4 = reinterpret_cast<const float4*>(xr + k0);
+    const float4* w4 = reinterpret_cast<const float4*>(wc + k0);
+    const int nq = (k1 - k0) / 4;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int q = 0; q < nq; ++q) {
+      const float4 a = x4[q], c = w4[q];
+      acc = fmaf(a.x, c.x, acc);
+      acc = fmaf(a.y, c.y, acc);
+      acc = fmaf(a.z, c.z, acc);
+      acc = fmaf(a.w, c.w, acc);
     }
-    zero_tails(pool, dst, block_rows, d_out, nsegs, n_seg);
-    __syncthreads();
+    for (int k = k0 + 4 * nq; k < k1; ++k) acc = fmaf(xr[k], wc[k], acc);
+    part[sl * n_out + o] = acc;
+  }
+  __syncthreads();
+  // the slices' partials summed in order, then the bias and the activation
+  for (int o = threadIdx.x; o < n_out; o += GEMM_THREADS) {
+    float acc = part[o];
+    for (int sl = 1; sl < m.kslices; ++sl) acc += part[sl * n_out + o];
+    const int r = o / cn, co = o - r * cn;
+    y[r * ctile + co] = activate(acc + bias[co], act);
+  }
+  cg::this_grid().sync();   // (b): every read of the op is done
+  const int span = (c0 + ctile >= d_out ? nsegs * SEG : c0 + ctile) - c0;
+  for (int i = threadIdx.x; i < nr * span; i += GEMM_THREADS) {
+    const int r = i / span, lane = c0 + (i - r * span);
+    pool[(size_t)((out_ptr + (r0 + r) * nsegs) % n_seg) * SEG + lane] =
+        lane < d_out ? y[r * ctile + lane - c0] : 0.f;
   }
 }
 
@@ -234,8 +329,6 @@ gemm_f32_kernel(float* pool, const float* __restrict__ w,
 // (k * k * c_in for the k x k conv) and the barrier.
 // ---------------------------------------------------------------------------
 constexpr int CONV_THREADS = 512;   // most threads a conv CTA runs
-
-namespace cg = cooperative_groups;
 
 // The tile of CTA blockIdx.x: output rows p0 .. p0 + np - 1, channels
 // c0 .. c0 + cn - 1, and the input rows lo .. lo + nh - 1 inside the image
@@ -943,29 +1036,6 @@ __host__ __device__ __forceinline__ MlpSmem mlp_smem_layout(int tm, int sub) {
   return m;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Copy the `n` (0..4) floats at src to dst and zero the rest of the four:
 // one 16-byte copy where src is 16-byte aligned (`vec`), else four.
 __device__ __forceinline__ void copy4(float* dst, const float* src, int n,
@@ -1230,33 +1300,34 @@ mlp_reduce_f32_kernel(float* pool, const float* __restrict__ scratch,
 // ---------------------------------------------------------------------------
 // Elementwise map, in place (delta 0): act over the n_segs whole segments at
 // ptr (the padded [m_rows * segs(d), 128] region, channel tails included;
-// every activation maps 0 to 0, so tails stay zero), modulo n_seg.  Each
-// float is read and stored by the same thread, so a grid-stride loop over
-// many blocks keeps the op in place.  Bound by its bytes: 16 bytes a thread
-// per access, neighbouring threads on neighbouring addresses.
+// every activation maps 0 to 0, so tails stay zero), on past the ring's end
+// from segment 0.  Each float is read and stored by the same thread, so many
+// blocks keep the op in place.  The region is at most two linear runs, [ptr,
+// ptr + first) and [0, n_segs - first) (kernels/elementwise.py::ring_runs
+// gives `first`), so an index maps to its float4 with one compare and no
+// modulo, and the activation is a template argument, so its code has no
+// branch.  Bound by its bytes: a float4 a thread, a warp's on 512 contiguous
+// bytes, over a grid the wrapper sizes to the SMs
+// (kernels/elementwise.py::ew_blocks: whisper-tiny's 144,000 float4s are all
+// in flight at once, 563 blocks of 256 threads).
 // ---------------------------------------------------------------------------
-
+template <int ACT>
 __global__ void __launch_bounds__(EW_THREADS)
-elementwise_f32_kernel(float* pool, int n_seg, int n_segs, int ptr, int act) {
+elementwise_f32_kernel(float* pool, int n_segs, int ptr, int first) {
   float4* p4 = reinterpret_cast<float4*>(pool);
   constexpr int V = SEG / 4;                        // float4s per segment
-  const int n = n_segs * V;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const size_t at = (size_t)((ptr + i / V) % n_seg) * V + i % V;
+  const int n = n_segs * V, head = first * V;
+  const size_t base = (size_t)ptr * V;
+  for (int i = blockIdx.x * EW_THREADS + threadIdx.x; i < n;
+       i += gridDim.x * EW_THREADS) {
+    const size_t at = i < head ? base + i : (size_t)(i - head);
     float4 v = p4[at];
-    v.x = activate(v.x, act);
-    v.y = activate(v.y, act);
-    v.z = activate(v.z, act);
-    v.w = activate(v.w, act);
+    v.x = activate(v.x, ACT);
+    v.y = activate(v.y, ACT);
+    v.z = activate(v.z, ACT);
+    v.w = activate(v.w, ACT);
     p4[at] = v;
   }
-}
-
-// Shared memory of the FC's launch: the step's input tile and the bias and,
-// when the wrapper says they fit too, the weights (floats, 4 bytes each).
-size_t conv_smem(size_t x_len, size_t w_len, int c_out, int stage_w) {
-  return sizeof(float) * (x_len + (size_t)c_out + (stage_w ? w_len : 0));
 }
 
 // Launch `blocks` blocks of `threads` with `smem` bytes of dynamic shared
@@ -1306,13 +1377,15 @@ const char* ring_f32_error_string(int err) {
 }
 
 int ring_gemm(void* pool, const void* w, const void* b, int n_seg, int m_rows,
-              int d_in, int d_out, int block_rows, int in_ptr, int out_ptr,
-              int act, int stage_w, void* stream) {
-  const size_t smem = conv_smem((size_t)block_rows * d_in,
-                                (size_t)d_in * d_out, d_out, stage_w);
-  return launch(gemm_f32_kernel, smem, stream, (float*)pool, (const float*)w,
-                (const float*)b, n_seg, m_rows, d_in, d_out, block_rows,
-                in_ptr, out_ptr, act, stage_w);
+              int d_in, int d_out, int in_ptr, int out_ptr, int act, int rows,
+              int ctile, void* stream) {
+  const int ctas = (m_rows + rows - 1) / rows * ((d_out + ctile - 1) / ctile);
+  const GemmSmem m = gemm_smem_layout(rows, ctile, d_in);
+  return launch_cooperative(gemm_f32_kernel, ctas, dim3(GEMM_THREADS),
+                            sizeof(float) * (size_t)m.words, stream,
+                            (float*)pool, (const float*)w, (const float*)b,
+                            n_seg, m_rows, d_in, d_out, in_ptr, out_ptr, act,
+                            rows, ctile);
 }
 
 int ring_conv_pw(void* pool, const void* w, const void* b, int n_seg,
@@ -1460,13 +1533,28 @@ int ring_fused_mlp(void* pool, const void* w_gate, const void* w_up,
                      d_model, ptr, n_sub, residual);
 }
 
-int ring_elementwise(void* pool, int n_seg, int n_segs, int ptr, int act,
-                     void* stream) {
-  const int vecs = n_segs * (SEG / 4);
-  int blocks = (vecs + EW_THREADS - 1) / EW_THREADS;
-  blocks = blocks < 132 * 8 ? blocks : 132 * 8;
-  return launch_grid(elementwise_f32_kernel, blocks, EW_THREADS, 0, stream,
-                     (float*)pool, n_seg, n_segs, ptr, act);
+int ring_elementwise(void* pool, int n_segs, int ptr, int first, int act,
+                     int blocks, void* stream) {
+  float* p = (float*)pool;
+  switch (act) {
+    case IDENTITY:
+      return launch_grid(elementwise_f32_kernel<IDENTITY>, blocks, EW_THREADS,
+                         0, stream, p, n_segs, ptr, first);
+    case RELU:
+      return launch_grid(elementwise_f32_kernel<RELU>, blocks, EW_THREADS, 0,
+                         stream, p, n_segs, ptr, first);
+    case GELU:
+      return launch_grid(elementwise_f32_kernel<GELU>, blocks, EW_THREADS, 0,
+                         stream, p, n_segs, ptr, first);
+    case SILU:
+      return launch_grid(elementwise_f32_kernel<SILU>, blocks, EW_THREADS, 0,
+                         stream, p, n_segs, ptr, first);
+    case SQUARE:
+      return launch_grid(elementwise_f32_kernel<SQUARE>, blocks, EW_THREADS,
+                         0, stream, p, n_segs, ptr, first);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -92,9 +92,9 @@ from repro_torch.models import build_model, params_from_reference
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
 TARGET = "cortex-m4"
-NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
 FLOAT_TARGET = "host-sim"
-FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 FLOAT_STREAMS = STREAMS
 SEEDED_FLOAT_NETS = ("whisper-tiny-mlp",)

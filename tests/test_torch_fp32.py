@@ -4,10 +4,10 @@
   ``ring_conv_pw``, ``ring_conv_dw``, ``ring_conv_k2d``, ``ring_add``,
   ``ring_avgpool``) against the reference's Pallas kernel in interpret
   mode, from the same seeded pool and weights: on every op of the fp32
-  ``host-sim`` plans of DS-CNN and ResNet-8, with their real weights,
-  and on ``F32_EDGE_CASES``.
+  ``host-sim`` plans of DS-CNN, ResNet-8 and ToyADMOS (ten FC layers,
+  nine in place), with their real weights, and on ``F32_EDGE_CASES``.
 * ``ACTIVATIONS`` against the reference's (``jax.nn``) over a grid.
-* Both whole nets: ``repro_torch.load(asset).run(x, device="cpu")`` and
+* The three whole nets: ``repro_torch.load(asset).run(x, device="cpu")`` and
   its final pool against the reference's Pallas path on the same
   artifact, and the port's ``reference_forward`` against the JAX one.
 
@@ -47,7 +47,7 @@ from repro_torch.kernels.segment_matmul import aligned_pool_geometry
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
-NETS = ("ds-cnn", "resnet-8")
+NETS = ("ds-cnn", "resnet-8", "ad-toyadmos")
 F32_KERNELS = ("ring_gemm", "ring_conv_pw", "ring_conv_dw", "ring_conv_k2d",
                "ring_add", "ring_avgpool")
 
@@ -131,7 +131,7 @@ def test_gelu_is_the_tanh_approximation_and_names_resolve():
 def test_cases_cover_the_six_kernels_every_op_and_every_activation():
     assert {c.kernel for c in CASES} == set(F32_KERNELS)
     assert set(F32_KERNELS) <= set(KERNELS) == set(PLAIN)
-    assert [len(PLAN_CASES[n]) for n in NETS] == [11, 14]
+    assert [len(PLAN_CASES[n]) for n in NETS] == [11, 14, 10]
     assert {c.kernel for c in PLAN_CASES["ds-cnn"]} == set(F32_KERNELS) \
         - {"ring_add"}
     assert {c.kernel for c in PLAN_CASES["resnet-8"]} == set(F32_KERNELS) \

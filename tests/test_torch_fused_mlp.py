@@ -110,7 +110,12 @@ def test_edge_cases_cover_both_kernels_every_fn_and_the_geometries():
     for c in F32_MLP_EDGE_CASES:
         if c.kernel == "ring_elementwise":
             kw = c.kwargs
-            assert kw["ptr"] + 2 * kw["m_rows"] > c.n_seg    # wraps
+            end = kw["ptr"] + 2 * kw["m_rows"]
+            if c.name.endswith("_wrap"):
+                assert end > c.n_seg                      # wraps
+            else:                                 # ends at the ring's end
+                assert c.name.endswith("_ends_at_ring_end")
+                assert end == c.n_seg
 
 
 @pytest.mark.parametrize("case", SMALL_CASES, ids=lambda c: c.name)

@@ -47,7 +47,7 @@ from repro_torch.serve import ServingEngine
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
-NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 
 
@@ -68,7 +68,7 @@ def _program_cases(name):
 
 
 CASES = EDGE_CASES + sum((_program_cases(n) for n in NETS + STREAMS), ())
-FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww")
+FLOAT_NETS = NETS
 
 
 def _float_artifact(name):
@@ -141,6 +141,7 @@ SERVED_LAUNCHES = {
     "mcunet-5fps-vww": {"ring_gemm_q": 8, "ring_conv_pw_q": 168,
                         "ring_conv_dw_q": 64, "ring_add_q": 56,
                         "ring_avgpool_q": 8},
+    "ad-toyadmos": {"ring_gemm_q": 80},
 }
 
 
@@ -219,13 +220,14 @@ FLOAT_LAUNCHES = {
     "mcunet-5fps-vww": {"ring_gemm": 8, "ring_conv_pw": 72,
                         "ring_conv_dw": 16, "ring_add": 16,
                         "ring_avgpool": 8, "ring_inverted_bottleneck": 48},
+    "ad-toyadmos": {"ring_gemm": 80},
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", FLOAT_NETS)
 def test_fp32_served_main_path_matches_golden_on_card(name):
-    """The fp32 plan through its six CUDA kernels: outputs within the
+    """The fp32 plan through its CUDA kernels: outputs within the
     tolerance of the golden, and each final pool within it of the final
     pool the plain versions leave on the card, channel tails zero."""
     _need_card()
