@@ -30,7 +30,8 @@ Phases, one summary line each:
      used once, or streamed in chunks); for each ``ring_gemm`` /
      ``ring_conv_pw`` / ``ring_conv_dw`` / ``ring_conv_k2d`` /
      ``ring_conv_stream`` / ``ring_add`` / ``ring_inverted_bottleneck``
-     call, its CTAs and the bytes each holds across the grid barrier
+     / ``ring_conv_pw_q`` / ``ring_conv_k2d_q`` call, its CTAs and the
+     bytes each holds across the grid barrier
      (``segment_matmul.gemm_tiling``, ``conv2d.conv_tiling``,
      ``conv2d.add_tiling``, ``inverted_bottleneck.ib_tiling``), for each
      ``ring_elementwise`` call its runs and blocks
@@ -88,7 +89,8 @@ Phases, one summary line each:
      library call that computes the same op, at the shapes each path
      gives it (the fused bottleneck, the fp32 GRU cell and the fused MLP
      against a short sequence of calls, with the count stated; the FC
-     kernels also op by op, ``PER_OP_KERNELS``); and the
+     kernels and the int8 pw and k x k convs also op by op,
+     ``PER_OP_KERNELS``); and the
      gemma3-1b path's prefill latency at batch 4, per-token decode
      latency at batch 1 and 4, its device-busy share, and
      ``ring_decode_attention`` at its two serve shapes (a 512-slot local
@@ -273,8 +275,10 @@ def work(kernel: str, kw: dict) -> tuple[int, int, int]:
     Bytes: every input pixel the op reads, once, at its data width (its
     live channels, not the whole segments it sits in); every output row
     written once as whole segments (the kernels must store the channel
-    tails as zeros); the streaming window read once and written back
-    once at its data width; weights, biases and requant constants once.
+    tails as zeros); the streaming window read once at its data width
+    and written back once as whole segments (as the reference copies
+    the window's segments, and as :func:`work_f32` counts it); weights,
+    biases and requant constants once.
     Int8 operations: 2 int8 ops per multiply-accumulate at in-bounds
     taps (tensor cores); elementwise integer ops (the pool's adds, the
     residual add's two requantizations and sum) counted apart, for the
@@ -301,7 +305,8 @@ def work(kernel: str, kw: dict) -> tuple[int, int, int]:
         out = kw["h_out"] * kw["w_out"] * _segs(co) * 128
         taps = _conv_taps(k, kw["stride"], kw["padding"], kw["h_win"],
                           kw["w_in"], kw["h_out"], kw["w_out"])
-        return 2 * win + out + k * k * ci * co + 12 * co, \
+        win_segs = kw["h_win"] * kw["w_in"] * _segs(ci) * 128
+        return win + win_segs + out + k * k * ci * co + 12 * co, \
             2 * taps * ci * co, 0
     ci = kw["c"] if kernel == "ring_conv_dw_q" else kw["c_in"]
     co = kw["c"] if kernel == "ring_conv_dw_q" else kw["c_out"]
@@ -439,7 +444,8 @@ def phase_parity(cases) -> dict[str, float]:
     fp32 by ``cases.compare_f32``; and the cases whose launch read its
     weights from global memory, as the wrapper decided
     (``<wrapper>.weights_staged``); and the tiling of each depthwise,
-    k x k and streaming fp32 conv, of each fp32 add and of each fused
+    k x k and streaming fp32 conv, of each int8 pw and k x k conv, of
+    each fp32 add and of each fused
     bottleneck.  Returns the max |difference| per kernel (0 for int8, or
     this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
@@ -459,7 +465,8 @@ def phase_parity(cases) -> dict[str, float]:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for case in cases:
         if case.kernel in ("ring_conv_pw", "ring_conv_dw", "ring_conv_k2d",
-                           "ring_conv_stream"):
+                           "ring_conv_stream", "ring_conv_pw_q",
+                           "ring_conv_k2d_q"):
             t = conv_tiling(case.kernel, case.kwargs, n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
         elif case.kernel == "ring_add":
@@ -520,7 +527,8 @@ def phase_parity(cases) -> dict[str, float]:
         f"once, or streamed through it in chunks): "
         f"{global_w or 'none'}")
     say(f"  ring_gemm / ring_conv_pw / ring_conv_dw / ring_conv_k2d / "
-        f"ring_conv_stream / ring_add / ring_inverted_bottleneck tiles on "
+        f"ring_conv_stream / ring_add / ring_inverted_bottleneck / "
+        f"ring_conv_pw_q / ring_conv_k2d_q tiles on "
         f"{n_sm} SMs (CTAs, bytes each holds across the grid barrier), "
         "ring_elementwise's runs and blocks, and ring_fused_mlp's (CTAs of "
         "its first kernel, tiling, scratch):")
@@ -827,9 +835,9 @@ def _host_ms(fn, reps: int) -> float:
 #: launched once a wrapper call, and the row's device time is the sum of
 #: them all.
 KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
-                  "ring_conv_pw_q": "conv_pw_kernel",
+                  "ring_conv_pw_q": "conv_pw_q_kernel",
                   "ring_conv_dw_q": "conv_dw_kernel",
-                  "ring_conv_k2d_q": "conv_k2d_kernel",
+                  "ring_conv_k2d_q": "conv_k2d_q_kernel",
                   "ring_add_q": "add_kernel",
                   "ring_avgpool_q": "avgpool_kernel",
                   "ring_conv_stream_q": "conv_stream_kernel",
@@ -1030,7 +1038,8 @@ def _work_kw(kernel: str, kw: dict, params) -> dict:
 
 #: Kernels whose phase-4 row also lists each op's device and library
 #: time (``per_op``), not only the plan's mean.
-PER_OP_KERNELS = ("ring_gemm_q", "ring_gemm")
+PER_OP_KERNELS = ("ring_gemm_q", "ring_gemm", "ring_conv_k2d_q",
+                  "ring_conv_pw_q")
 
 
 def time_cases(cases) -> dict[str, dict]:

@@ -44,24 +44,27 @@ held by :func:`compare_f32` at the one tolerance :data:`RTOL` and
 the live channels of the rows the call writes, and exactly everywhere
 else (channel tails and segments the call does not write).
 
-Every in/out overlap here but four is one a certified plan allows: no
+Every in/out overlap here but five is one a certified plan allows: no
 output row lands on an input row (or residual row) a later step still
 reads, and no output lands on a streaming state region.  The reference
 kernels in interpret mode read an unaliased copy of the pool, and the
 plain versions read every input before they store, so an overlap no
 plan has would set them apart from a kernel that walks the ring in
-order.  The exceptions are the fp32 depthwise and k x k convs in place
-(``f32_dw_inplace*``, ``f32_k2d_inplace``) and the fp32 stream whose
-output overlaps its window (``f32_stream_out_over_window``): those
-kernels read all of an op's input before any CTA stores, so they too
-must match the plain version there, where a kernel that walks the rows
-in order does not.  A store before their grid barrier shows when it
-lands while another CTA still reads: reliably in
-``f32_dw_inplace_uneven``, whose short last tile finishes first.  The
-fp32 pointwise conv in place (``f32_pw_inplace_uneven``,
-``f32_pw_s2_inplace_uneven``: a plan's overlap, each output row landing
-on an input row read earlier in the walk but by another CTA) is such a
-case too (``tests/test_torch_pw_mlp_tiles.py`` models it).  The
+order.  The exceptions are the fp32 depthwise and k x k convs and the
+int8 k x k conv in place (``f32_dw_inplace*``, ``f32_k2d_inplace``,
+``k2d_inplace_uneven``) and the fp32 stream whose output overlaps its
+window (``f32_stream_out_over_window``): those kernels read all of an
+op's input before any CTA stores, so they too must match the plain
+version there, where a kernel that walks the rows in order does not.  A
+store before their grid barrier shows when it lands while another CTA
+still reads: reliably in ``f32_dw_inplace_uneven``, whose short last
+tile finishes first (``k2d_inplace_uneven`` is built the same way).  The pointwise conv in place
+(``f32_pw_inplace_uneven``, ``f32_pw_s2_inplace_uneven`` and their int8
+twins ``pw_inplace_uneven``, ``pw_s2_inplace_uneven``: a plan's
+overlap, each output row landing on an input row read earlier in the
+walk but by another CTA) is such a case too
+(``tests/test_torch_pw_mlp_tiles.py`` and
+``tests/test_torch_q_conv_tiles.py`` model it).  The
 fp32 add and stream cases ``f32_add_shifted_uneven``,
 ``f32_add_out_on_residual``, ``f32_stream_dscnn_out_on_frame`` and
 ``f32_stream_out_over_window`` store onto rows that another CTA of the
@@ -241,6 +244,26 @@ EDGE_CASES = (
     # Q12 biases near the int32 limits: gx + b wraps
     Case("gru_bias_wraps", "ring_gru_cell_q", 8, _gru(64, 64, 2, 3, 6),
          _gru_params(64, 64, seed=5, bias=1 << 12)),
+    # in place (out_ptr == in_ptr), an overlap no certified plan has: at
+    # 132 SMs 16 row blocks of 3 rows x 8 channel tiles (128 CTAs), the
+    # last block rows 45-46, so its CTAs finish first; they store row 45
+    # while the CTAs of rows 42-44 still read it; the input run wraps
+    Case("k2d_inplace_uneven", "ring_conv_k2d_q", 400,
+         _k2d(47, 8, 64, 64, 3, 1, "same", 47, 8, 200, 200, "relu")),
+    # in place, two input segments a pixel onto one output segment: output
+    # row p lands on input row p / 2.  At 132 SMs 16 row blocks of 3 rows x
+    # 8 channel tiles, the last block rows 45-46, so its CTAs finish first;
+    # they store onto input rows 22-23, which the CTAs of rows 21-23 read;
+    # the input run wraps the ring
+    Case("pw_inplace_uneven", "ring_conv_pw_q", 800,
+         _pw(47, 8, 200, 64, 1, False, 47, 8, 400, 400, "relu")),
+    # in place, stride 2, one segment a pixel (ResNet-8's and VWW's shortcut
+    # widths): output row p lands on input row p / 2.  At 132 SMs 14 row
+    # blocks of 5 rows x 8 channel tiles (112 CTAs), the last block rows
+    # 65-66; they store onto input row 32, the source row of output row 16,
+    # which the CTAs of rows 15-19 read
+    Case("pw_s2_inplace_uneven", "ring_conv_pw_q", 600,
+         _pw(134, 4, 16, 32, 2, False, 67, 2, 100, 100, None)),
 )
 
 

@@ -115,18 +115,21 @@ def pw_sources(n_in: int, n_out: int, stride: int,
 
 # ---------------------------------------------------------------------------
 # Tiling of the convs that read first: pointwise, depthwise, k x k and
-# streaming.
+# streaming, fp32, and the int8 pointwise and k x k convs.
 # ---------------------------------------------------------------------------
 
 #: Output-channel tiles a k x k conv may take (a smaller ``c_out`` is one
 #: tile); every one divides a segment.
 K2D_CHANNEL_TILES = (4, 8, 16, 32)
+#: The pointwise convs, fp32 and int8.
+PW_KERNELS = ("ring_conv_pw", "ring_conv_pw_q")
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvTiling:
     """How :func:`ring_conv_pw` / :func:`ring_conv_dw` /
-    :func:`ring_conv_k2d` / ``ring_conv_stream`` cut an op: CTA i owns
+    :func:`ring_conv_k2d` / ``ring_conv_stream`` and the int8
+    ``ring_conv_pw_q`` / ``ring_conv_k2d_q`` cut an op: CTA i owns
     tile i, ``rows`` output image rows (fewer in the last block) by
     ``ctile`` output channels, channel tiles fastest; ``ctas`` is at most
     the SM count, so all of them are resident at once.  A streaming conv's
@@ -135,8 +138,9 @@ class ConvTiling:
     CTA's shared memory in bytes (a pointwise conv's staged source pixels,
     a k x k or streaming conv's staged input rows and its window rows, or
     a depthwise conv's input row segments, the held outputs, the bias, the
-    weight slice when ``stage_w``, the output row segments), ``held`` the
-    bytes of outputs and window rows it keeps across the grid barrier."""
+    weight slice when ``stage_w``, the output row segments; an int8
+    conv's as :func:`_conv_smem_q` counts them), ``held`` the bytes of
+    outputs and window rows it keeps across the grid barrier."""
 
     kernel: str
     h_in: int
@@ -168,9 +172,14 @@ class ConvTiling:
         return (self.rows - 1) * self.stride + self.k
 
     @property
+    def elem(self) -> int:
+        """Bytes of an element: 1 for an int8 conv, else 4."""
+        return 1 if self.kernel.endswith("_q") else 4
+
+    @property
     def held(self) -> int:
-        return 4 * (self.rows * self.w_out * self.ctile
-                    + self.win_rows * self.win_row_len)
+        return self.elem * (self.rows * self.w_out * self.ctile
+                            + self.win_rows * self.win_row_len)
 
     def window(self, i: int) -> tuple[int, int]:
         """CTA ``i``'s window rows of a streaming conv's writeback, ``(r0,
@@ -188,7 +197,7 @@ class ConvTiling:
         rb, cb = divmod(i, self.channel_tiles)
         p0, c0 = rb * self.rows, cb * self.ctile
         np_ = min(self.rows, self.h_out - p0)
-        if self.kernel == "ring_conv_pw":
+        if self.kernel in PW_KERNELS:
             src = pw_sources(self.h_in, self.h_out, self.stride,
                              self.resample)[p0:p0 + np_]
             lo, nh = src[0], src[-1] - src[0] + 1
@@ -219,10 +228,39 @@ def _conv_smem(rows, ctile, stage_w, *, w_in, w_out, c_in, k, stride,
                 + (w_len if stage_w else 0) + rows)
 
 
+def q_pixel_pitch(c_in: int) -> int:
+    """Bytes an int8 conv CTA keeps of one staged pixel (and of one output
+    channel's weights at one tap): its live channels in whole 16-byte
+    chunks, an odd number of them, so that the 16-byte shared loads of
+    neighbouring pixels and channels fall in different banks (the
+    kernels' ``pitch``)."""
+    return 16 * (-(-c_in // 16) | 1)
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _conv_smem_q(rows, ctile, *, w_in, w_out, c_in, k, stride, kind) -> int:
+    """Bytes of an int8 pw / k x k conv CTA's shared memory
+    (``ring_q.cu::conv_q_layout``): the staged pixels (the pointwise
+    conv's source pixel of each output, the k x k conv's halo rows) at
+    :func:`q_pixel_pitch`, the held int8 outputs, bias, mult and shift (4
+    bytes each a channel), the weight slice ``[k * k, ctile, pitch]``
+    and the output rows' ring segments; each part from a 16-byte
+    boundary."""
+    pitch = q_pixel_pitch(c_in)
+    pixels = rows * w_out if kind in PW_KERNELS \
+        else ((rows - 1) * stride + k) * w_in
+    return (pixels * pitch + _r16(rows * w_out * ctile) + _r16(12 * ctile)
+            + k * k * ctile * pitch + 4 * rows)
+
+
 def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
     """The tiling of a ``ring_conv_pw`` / ``ring_conv_dw`` /
-    ``ring_conv_k2d`` / ``ring_conv_stream`` call (its kwargs ``kw``) over
-    at most ``n_sm`` CTAs.
+    ``ring_conv_k2d`` / ``ring_conv_stream`` / ``ring_conv_pw_q`` /
+    ``ring_conv_k2d_q`` call (its kwargs ``kw``) over at most ``n_sm``
+    CTAs.
 
     A depthwise conv takes channel tiles of one segment (``min(c,
     128)``); a k x k or pointwise conv (k = 1, each output reading one
@@ -231,14 +269,15 @@ def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
     streaming conv the k x k conv's tiles over its window (``h_in =
     h_win``), its ``h_win`` window rows shared out in equal blocks.  Each
     takes the fewest output rows per tile that keep the tiles within
-    ``n_sm``, and stages its weight slice when it fits beside the rest.
-    Raises ``ValueError``, naming the op's geometry, when no tile fits
+    ``n_sm``, and stages its weight slice when it fits beside the rest
+    (an int8 conv's tile always stages it, at int8 widths).  Raises
+    ``ValueError``, naming the op's geometry, when no tile fits
     ``MAX_SMEM``."""
     dw = kernel == "ring_conv_dw"
-    if kernel == "ring_conv_pw":
+    if kernel in PW_KERNELS:
         return _pw_tiling(kw["h_in"], kw["w_in"], kw["h_out"], kw["w_out"],
                           kw["c_in"], kw["c_out"], kw.get("stride", 1),
-                          bool(kw.get("resample")), n_sm)
+                          bool(kw.get("resample")), n_sm, kernel)
     if kernel == "ring_conv_stream":
         return _tiling(kernel, kw["h_win"], kw["w_in"], kw["h_out"],
                        kw["w_out"], kw["c_in"], kw["c_out"], kw["k"],
@@ -251,8 +290,8 @@ def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
 
 
 def _pw_tiling(h_in, w_in, h_out, w_out, c_in, c_out, stride, resample,
-               n_sm) -> ConvTiling:
-    return _tiling("ring_conv_pw", h_in, w_in, h_out, w_out, c_in, c_out, 1,
+               n_sm, kernel="ring_conv_pw") -> ConvTiling:
+    return _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, 1,
                    stride, "valid", n_sm, resample)
 
 
@@ -273,13 +312,19 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
         rows = -(-h_out // (n_sm // per_row))
         win_rows = -(-h_in // (-(-h_out // rows) * per_row)) if stream else 0
         geom = dict(w_in=w_in, w_out=w_out, c_in=c_in, k=k, stride=stride,
-                    kind=kernel, win_rows=win_rows)
-        smem = _conv_smem(rows, ctile, True, **geom)
-        stage_w = smem <= MAX_SMEM
-        if not stage_w:
-            smem = _conv_smem(rows, ctile, False, **geom)
+                    kind=kernel)
+        if kernel.endswith("_q"):
+            smem, stage_w = _conv_smem_q(rows, ctile, **geom), True
             if smem > MAX_SMEM:
                 continue
+        else:
+            smem = _conv_smem(rows, ctile, True, win_rows=win_rows, **geom)
+            stage_w = smem <= MAX_SMEM
+            if not stage_w:
+                smem = _conv_smem(rows, ctile, False, win_rows=win_rows,
+                                  **geom)
+                if smem > MAX_SMEM:
+                    continue
         key = (rows * ctile, -ctile)
         if best is None or key < best[0]:
             best = key, ConvTiling(

@@ -19,8 +19,21 @@
 // consumed (a depthwise op stores output row p onto input row p - 1, which
 // output rows p - 2 and p - 1 still read).  The plan is certified clobber-free
 // only for the order of the TPU's sequential grid: no store of step i may move
-// ahead of a read of an earlier step.  Blocks of a CUDA grid run in no order,
-// so each op runs as ONE thread block that walks the steps in plan order:
+// ahead of a read of an earlier step, so in that order every read of an op
+// sees the pool as it was before the op.  A kernel keeps that in one of two
+// ways.
+//
+// The 1x1 and k x k convs (ring_conv_pw_q, ring_conv_k2d_q) read EVERYTHING
+// before they store anything, over many CTAs in one cooperative launch:
+// each CTA stages what its tile of output rows x output channels reads,
+// computes its outputs into shared memory, meets every other CTA at one
+// grid-wide barrier, then stores (see their section below).  What bounds
+// them is the floor of that launch and its barrier, not bytes or MACs; their
+// products are __dp4a, bitwise the reference's wrapping int32 sums.
+//
+// The other six (the FC, the depthwise conv, the residual add, the average
+// pool, the streaming conv and the GRU cell) run as ONE thread block that
+// walks the steps in plan order:
 //
 //   load the step's input segments into shared memory   (ring load, modulo n_seg)
 //   __syncthreads()
@@ -31,21 +44,20 @@
 // A run of segments that wraps the ring inside one step is handled segment by
 // segment.  Channel tails (c .. segs(c) * 128) are stored as zeros.
 //
-// What bounds these kernels on the card: the bytes and operations are tiny
-// (tens of KB and about a million int8 MACs per op for DS-CNN), so the bound
-// is a few nanoseconds; what the serial walk costs is latency, one SM and one
-// barrier pair per step.  Against that latency the weights, biases and
-// requant constants are staged once per op into shared memory (weights only
-// when they fit beside the step's input tile; otherwise they are read from
-// global memory), so the dot products of every step read shared memory.
+// What bounds the walking kernels on the card: the bytes and operations are
+// tiny (tens of KB and about a million int8 MACs per op for DS-CNN), so the
+// bound is a few nanoseconds; what the serial walk costs is latency, one SM
+// and one barrier pair per step.  Against that latency the weights, biases
+// and requant constants are staged once per op into shared memory (weights
+// only when they fit beside the step's input tile; otherwise they are read
+// from global memory), so the dot products of every step read shared memory.
 // The Python wrappers (kernels/quantized.py) size shared memory: they pass
-// `stage_w`, the add's `tile_rows` and the pool's `chunk_pix`, and the entry
-// points below only turn those into the launch's byte count.  This
-// is the faithful baseline: a wavefront of concurrent steps bounded by the
-// op's solved delta, cp.async/TMA loads and dp4a/wgmma products are later
-// work.  The residual add is bound by its bytes (two operand rows in, one
-// out, no MACs); it reads as many rows per step as shared memory holds.  The
-// GRU cell is one step of two small matrix-vector products.
+// `stage_w`, the add's `tile_rows`, the pool's `chunk_pix` and the read-first
+// convs' tiling (conv2d.py::conv_tiling), and the entry points below only
+// turn those into the launch's byte count.  The residual add is bound by its
+// bytes (two operand rows in, one out, no MACs); it reads as many rows per
+// step as shared memory holds.  The GRU cell is one step of two small
+// matrix-vector products.
 //
 // Requantization is the reference's (src/repro/quant/requant.py): the exact
 // 64-bit product acc * mult, one round-to-nearest-even at 31 - shift,
@@ -60,10 +72,13 @@
 // may land on the frame's rows.  ring_gru_cell_q reads x and h before it
 // stores h' to the state and to the chained output.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int SEG = 128;              // bytes per int8 segment
 constexpr int VEC = SEG / 16;         // 16-byte vectors per segment
@@ -186,54 +201,326 @@ gemm_kernel(int8_t* pool, const int8_t* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// 1x1 conv: row_block output image rows per step (identity pixel map), or one
-// row with strided / resampled source rows and columns.
+// 1x1 and k x k convs that read first, over many CTAs in one cooperative
+// launch.  CTA i owns tile i of conv2d.py::conv_tiling (kinds
+// ring_conv_pw_q, ring_conv_k2d_q): output rows p0 .. p0 + np - 1 (fewer in
+// the last row block) x output channels c0 .. c0 + cn - 1, channel tiles
+// fastest.  It
+//   (a) stages, with 16-byte cp.async copies all in flight at once, what
+//       its taps reach: the k x k conv's input rows lo .. lo + nh - 1, the
+//       1x1 conv the source pixel of each of its outputs (p * stride, or
+//       the nearest-grid pick when resampling); and, with plain loads
+//       (STAGE_WORDS words a thread in flight), its weight slice,
+//       transposed, and its bias, mult and shift; then computes every
+//       output of its tile into shared memory as int8, storing nothing;
+//   (b) meets every other CTA at the grid barrier;
+//   (c) stores its outputs as 32-bit words, and the last channel tile the
+//       channel tail as zeros.
+// A certified plan never stores onto a segment that a later step of the op
+// still reads, so every read of the sequential walk sees the pool from
+// before the op; so does every read here, and each output lands where the
+// walk puts it: the final pool is the walk's, in place too.
+//
+// Products: a staged pixel keeps its first c_in bytes in whole 16-byte
+// chunks (`chunks`), at a pitch of an odd number of chunks (`pitch`, so
+// that the 16-byte shared loads of neighbouring pixels and channels fall in
+// different banks); channel c0 + co's weights at a tap are `pitch`
+// consecutive bytes, input channels in order, zero from c_in on.  A thread
+// (x over the tile's channels, y over its pixels) reads a chunk of pixel
+// and of weights and takes four __dp4a, so a 16-channel tap is 4 dp4a and
+// DS-CNN's 1-channel stem costs a 16-byte chunk a tap (the 15 bytes past
+// c_in, whatever the pool holds there, meet zero weights).  __dp4a adds in
+// 32-bit modular arithmetic and a sum mod 2**32 is the same in any order,
+// so the accumulator is bitwise the reference's wrapping int32 one.
+//
+// What bounds them: not bytes (ResNet-8's 3x3 convs move 36-150 KB, tens of
+// ns at 3.35 TB/s) nor operations (its largest is 2.26 M multiply-adds at
+// in-image taps: over 128 CTAs of 512 threads about 9 dp4a a thread), but
+// the floor of a cooperative launch and its grid barrier, about 4.5 us
+// (PERF.md).  So the products stay on the CUDA cores: tensor cores
+// (mma.sync s8) would cut nothing that shows above that floor.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-conv_pw_kernel(int8_t* pool, const int8_t* __restrict__ w,
-               const int32_t* __restrict__ b,
-               const int32_t* __restrict__ mult,
-               const int32_t* __restrict__ shift, int n_seg, int h_in,
-               int w_in, int h_out, int w_out, int c_in, int c_out,
-               int stride, int resample, int row_block, int in_ptr,
-               int out_ptr, int relu, int stage_w) {
-  extern __shared__ int4 smem[];
-  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
-  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
-  const int in_row = w_in * ksegs;
-  const int in_chunk = row_block * in_row;
-  const int out_chunk = row_block * w_out * nsegs;
-  const bool pick_cols = row_block == 1 && (stride != 1 || resample);
-  const Params prm = stage_params(
-      reinterpret_cast<char*>(smem) + in_chunk * SEG, w, c_in * c_out, b,
-      mult, shift, c_out, stage_w);
-  for (int blk = 0; blk < h_out / row_block; ++blk) {
-    const int src = resample ? (blk * h_in) / h_out : blk * row_block * stride;
-    ring_load(smem, pool, (in_ptr + src * in_row) % n_seg, in_chunk, n_seg);
-    __syncthreads();
-    for (int j = threadIdx.x; j < out_chunk * SEG; j += blockDim.x) {
-      const int m = j / (nsegs * SEG), co = j % (nsegs * SEG);
-      int8_t y = 0;
-      if (co < c_out) {
-        int pix = m;
-        if (pick_cols) pix = resample ? (m * w_in) / w_out : m * stride;
-        const int8_t* xr = x + pix * ksegs * SEG;
-        const int8_t* wc = prm.w + co;
-        uint32_t acc = 0;
-#pragma unroll 4
-        for (int k = 0; k < c_in; ++k)
-          acc += (uint32_t)((int)xr[k] * (int)wc[k * c_out]);
-        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
-      }
-      *ring_byte(pool, (out_ptr + blk * out_chunk) % n_seg, j, n_seg) = y;
+constexpr int CONV_THREADS = 512;   // threads of a read-first conv CTA
+constexpr int STAGE_WORDS = 4;      // weight words a thread loads at once
+
+struct ConvTile {
+  int p0, np, c0, cn, lo, nh;
+};
+
+// The tile of CTA blockIdx.x (conv2d.py::ConvTiling.tile): output rows
+// p0 .. p0 + np - 1, channels c0 .. c0 + cn - 1, and the input rows
+// lo .. lo + nh - 1 inside the image that its taps reach.
+__device__ __forceinline__ ConvTile conv_tile(int h_in, int h_out, int c,
+                                              int k, int stride, int pad_v,
+                                              int rows, int ctile) {
+  const int n_ct = (c + ctile - 1) / ctile;
+  const int rb = blockIdx.x / n_ct, cb = blockIdx.x - rb * n_ct;
+  ConvTile t;
+  t.p0 = rb * rows;
+  t.np = min(rows, h_out - t.p0);
+  t.c0 = cb * ctile;
+  t.cn = min(ctile, c - t.c0);
+  const int top = t.p0 * stride - pad_v;
+  t.lo = max(0, top);
+  t.nh = max(0, min(h_in - 1, top + (t.np - 1) * stride + k - 1) - t.lo + 1);
+  return t;
+}
+
+// A staged pixel's (and a channel's weights') 16-byte chunks: ceil(c_in /
+// 16), made odd (conv2d.py::q_pixel_pitch).
+__host__ __device__ __forceinline__ int q_pitch(int c_in) {
+  return ((c_in + 15) / 16) | 1;
+}
+
+__host__ __device__ __forceinline__ int round16(int n) {
+  return (n + 15) / 16 * 16;
+}
+
+// A read-first int8 conv CTA's shared memory, byte offsets
+// (conv2d.py::_conv_smem_q): the staged pixels [pixels, pitch chunks] from
+// 0, the held outputs [rows * w_out, ctile] int8, bias, mult and shift
+// [3, ctile] int32, the weight slice [taps, ctile, pitch chunks], the ring
+// segment of each output row [rows].
+struct ConvQSmem {
+  int y, prm, w, out_row, bytes;
+};
+
+__host__ __device__ __forceinline__ ConvQSmem conv_q_layout(
+    int pixels, int pitch, int rows, int w_out, int ctile, int taps) {
+  ConvQSmem m;
+  m.y = pixels * pitch * 16;
+  m.prm = m.y + round16(rows * w_out * ctile);
+  m.w = m.prm + round16(12 * ctile);
+  m.out_row = m.w + taps * ctile * pitch * 16;
+  m.bytes = m.out_row + 4 * rows;
+  return m;
+}
+
+// Asynchronous 16-byte copy from global to shared memory (sm_80 and later):
+// a thread issues all of its copies before it waits on any.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int conv_tid() {
+  return threadIdx.y * blockDim.x + threadIdx.x;
+}
+
+// Stage tile t's bias, mult and shift, the ring segment of each of its
+// output rows (one modulo a row: a row never wraps, the wrappers require
+// the pool and the pointers aligned to whole rows), and its weight slice of
+// w [taps, c_in, c_out], transposed to [taps, ctile, pitch chunks] with
+// zeros past c_in (and for channels past the tile's cn).
+__device__ __forceinline__ void stage_q_tile(
+    const ConvTile& t, const ConvQSmem& m, char* smem,
+    const int8_t* __restrict__ w, const int32_t* __restrict__ b,
+    const int32_t* __restrict__ mult, const int32_t* __restrict__ shift,
+    int taps, int c_in, int c_out, int ctile, int pitch, int n_seg,
+    int out_ptr, int out_seg) {
+  const int tid = conv_tid(), nthr = blockDim.x * blockDim.y;
+  int32_t* prm = reinterpret_cast<int32_t*>(smem + m.prm);
+  for (int i = tid; i < t.cn; i += nthr) {
+    prm[i] = b[t.c0 + i];
+    prm[ctile + i] = mult[t.c0 + i];
+    prm[2 * ctile + i] = shift[t.c0 + i];
+  }
+  int* out_row = reinterpret_cast<int*>(smem + m.out_row);
+  for (int i = tid; i < t.np; i += nthr)
+    out_row[i] = (out_ptr + (t.p0 + i) * out_seg) % n_seg;
+  // word j of channel co at tap r; co fastest, so a warp reads runs of a
+  // weight row.  A thread loads STAGE_WORDS words before it stores any, so
+  // that their loads are in flight together (a plan's slice is at most
+  // about four words a thread).
+  const int words = 4 * pitch, total = taps * words * ctile;
+  uint32_t* ws = reinterpret_cast<uint32_t*>(smem + m.w);
+  for (int i0 = tid; i0 < total; i0 += STAGE_WORDS * nthr) {
+    uint32_t word[STAGE_WORDS];
+#pragma unroll
+    for (int u = 0; u < STAGE_WORDS; ++u) {
+      const int i = i0 + u * nthr;
+      const int co = i % ctile, rest = i / ctile;
+      const int j = rest % words, r = rest / words;
+      word[u] = 0;
+      if (i < total && co < t.cn)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int ci = 4 * j + k;
+          if (ci < c_in)
+            word[u] |= (uint32_t)(uint8_t)w[((size_t)r * c_in + ci) * c_out +
+                                            t.c0 + co] << (8 * k);
+        }
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < STAGE_WORDS; ++u) {
+      const int i = i0 + u * nthr;
+      if (i < total) {
+        const int co = i % ctile, rest = i / ctile;
+        ws[(rest / words * ctile + co) * words + rest % words] = word[u];
+      }
+    }
   }
 }
 
+// The int32 (wrapping) dot product of a staged pixel and a channel's
+// weights at one tap, `chunks` 16-byte chunks of each, added to acc: four
+// independent dp4a chains, summed mod 2**32.
+__device__ __forceinline__ uint32_t dot_q(const int4* x, const int4* w,
+                                          int chunks, uint32_t acc) {
+  int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int4 u = x[c], v = w[c];
+    a0 = __dp4a(u.x, v.x, a0);
+    a1 = __dp4a(u.y, v.y, a1);
+    a2 = __dp4a(u.z, v.z, a2);
+    a3 = __dp4a(u.w, v.w, a3);
+  }
+  return acc + (uint32_t)a0 + (uint32_t)a1 + (uint32_t)a2 + (uint32_t)a3;
+}
+
+// (c) Store the tile's held outputs y [np * w_out, ctile] over lanes c0 ..
+// end of each output pixel as 32-bit words (c0 is 0 or a multiple of a
+// channel tile of 4 to 32, and end a multiple of 4), zeros from channel c
+// on: the last channel tile also stores the pixel's channel tail, up to
+// osegs * SEG.
+__device__ __forceinline__ void store_q_tile(int8_t* pool, const ConvTile& t,
+                                             const int8_t* y,
+                                             const int* out_row, int w_out,
+                                             int c, int osegs, int ctile) {
+  const int end = t.c0 + ctile >= c ? osegs * SEG : t.c0 + ctile;
+  const int words = (end - t.c0) / 4;
+  const int nthr = blockDim.x * blockDim.y;
+  for (int i = conv_tid(); i < t.np * w_out * words; i += nthr) {
+    const int px = i / words, wd = i - px * words;
+    const int pl = px / w_out, q = px - pl * w_out;
+    uint32_t v = 0;
+    for (int k = 0; k < 4; ++k) {
+      const int lane = t.c0 + 4 * wd + k;
+      if (lane < c)
+        v |= (uint32_t)(uint8_t)y[px * ctile + lane - t.c0] << (8 * k);
+    }
+    int8_t* dst = pool + ((size_t)out_row[pl] + (size_t)q * osegs) * SEG;
+    reinterpret_cast<uint32_t*>(dst + t.c0)[wd] = v;
+  }
+}
+
+// k x k conv: w [k, k, c_in, c_out].  A CTA stages the input rows its taps
+// reach ((rows - 1) * stride + k at most); each output sums its in-image
+// taps, row-major (sums mod 2**32 do not depend on the order).
+__global__ void __launch_bounds__(CONV_THREADS)
+conv_k2d_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
+                  const int32_t* __restrict__ b,
+                  const int32_t* __restrict__ mult,
+                  const int32_t* __restrict__ shift, int n_seg, int h_in,
+                  int w_in, int h_out, int w_out, int c_in, int c_out, int k,
+                  int stride, int pad_v, int pad_h, int in_ptr, int out_ptr,
+                  int relu, int rows, int ctile) {
+  extern __shared__ int4 qsmem[];
+  char* smem = reinterpret_cast<char*>(qsmem);
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int pitch = q_pitch(c_in), chunks = (c_in + 15) / 16;
+  const ConvTile t = conv_tile(h_in, h_out, c_out, k, stride, pad_v, rows,
+                               ctile);
+  const ConvQSmem m = conv_q_layout(((rows - 1) * stride + k) * w_in, pitch,
+                                    rows, w_out, ctile, k * k);
+  const int nthr = blockDim.x * blockDim.y;
+  for (int i = conv_tid(); i < t.nh * w_in * chunks; i += nthr) {
+    const int pix = i / chunks, c = i - pix * chunks;
+    const int hr = pix / w_in, px = pix - hr * w_in;
+    const int seg = (in_ptr + (t.lo + hr) * w_in * ksegs) % n_seg +
+                    px * ksegs;
+    cp_async16(qsmem + pix * pitch + c, pool + (size_t)seg * SEG + 16 * c);
+  }
+  stage_q_tile(t, m, smem, w, b, mult, shift, k * k, c_in, c_out, ctile,
+               pitch, n_seg, out_ptr, w_out * nsegs);
+  cp_async_wait_all();
+  __syncthreads();
+  int8_t* y = reinterpret_cast<int8_t*>(smem + m.y);
+  const int co = threadIdx.x;
+  if (co < t.cn) {
+    const int4* wc = reinterpret_cast<const int4*>(smem + m.w) + co * pitch;
+    const int32_t* prm = reinterpret_cast<const int32_t*>(smem + m.prm);
+    for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y) {
+      const int pl = j / w_out, q = j - pl * w_out;
+      const int top = (t.p0 + pl) * stride - pad_v, left = q * stride - pad_h;
+      // the in-image taps: rows r0 .. r1 - 1, columns s0 .. s1 - 1
+      const int r0 = max(0, -top), r1 = min(k, h_in - top);
+      const int s0 = max(0, -left), s1 = min(k, w_in - left);
+      uint32_t acc = 0;
+      for (int r = r0; r < r1; ++r) {
+        const int4* xrow = qsmem + (top + r - t.lo) * w_in * pitch;
+        const int4* wr = wc + r * k * ctile * pitch;
+        for (int s = s0; s < s1; ++s)
+          acc = dot_q(xrow + (left + s) * pitch, wr + s * ctile * pitch,
+                      chunks, acc);
+      }
+      y[j * ctile + co] =
+          epilogue(acc, prm[co], prm[ctile + co], prm[2 * ctile + co], relu);
+    }
+  }
+  cg::this_grid().sync();   // (b): every read of the op is done
+  store_q_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
+               w_out, c_out, nsegs, ctile);
+}
+
+// 1x1 conv: w [c_in, c_out]; output pixel (p, q) reads source pixel (p *
+// stride, q * stride), or (p * h_in / h_out, q * w_in / w_out) when
+// resampling (rowsched.resample_src).  Tiled as the k x k conv (conv_tile
+// with k = 1; its halo is not used): a CTA stages only the source pixel of
+// each of its outputs.
+__global__ void __launch_bounds__(CONV_THREADS)
+conv_pw_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
+                 const int32_t* __restrict__ b,
+                 const int32_t* __restrict__ mult,
+                 const int32_t* __restrict__ shift, int n_seg, int h_in,
+                 int w_in, int h_out, int w_out, int c_in, int c_out,
+                 int stride, int resample, int in_ptr, int out_ptr, int relu,
+                 int rows, int ctile) {
+  extern __shared__ int4 qsmem[];
+  char* smem = reinterpret_cast<char*>(qsmem);
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int pitch = q_pitch(c_in), chunks = (c_in + 15) / 16;
+  const ConvTile t = conv_tile(h_in, h_out, c_out, 1, stride, 0, rows,
+                               ctile);
+  const ConvQSmem m = conv_q_layout(rows * w_out, pitch, rows, w_out, ctile,
+                                    1);
+  const int nthr = blockDim.x * blockDim.y;
+  for (int i = conv_tid(); i < t.np * w_out * chunks; i += nthr) {
+    const int pix = i / chunks, c = i - pix * chunks;
+    const int p = t.p0 + pix / w_out, q = pix % w_out;
+    const int sr = resample ? p * h_in / h_out : p * stride;
+    const int sc = resample ? q * w_in / w_out : q * stride;
+    const int seg = (in_ptr + (sr * w_in + sc) * ksegs) % n_seg;
+    cp_async16(qsmem + pix * pitch + c, pool + (size_t)seg * SEG + 16 * c);
+  }
+  stage_q_tile(t, m, smem, w, b, mult, shift, 1, c_in, c_out, ctile, pitch,
+               n_seg, out_ptr, w_out * nsegs);
+  cp_async_wait_all();
+  __syncthreads();
+  int8_t* y = reinterpret_cast<int8_t*>(smem + m.y);
+  const int co = threadIdx.x;
+  if (co < t.cn) {
+    const int4* wc = reinterpret_cast<const int4*>(smem + m.w) + co * pitch;
+    const int32_t* prm = reinterpret_cast<const int32_t*>(smem + m.prm);
+    for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y)
+      y[j * ctile + co] = epilogue(dot_q(qsmem + j * pitch, wc, chunks, 0),
+                                   prm[co], prm[ctile + co],
+                                   prm[2 * ctile + co], relu);
+  }
+  cg::this_grid().sync();   // (b): every read of the op is done
+  store_q_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
+               w_out, c_out, nsegs, ctile);
+}
+
 // ---------------------------------------------------------------------------
-// k x k conv and depthwise rs x rs conv share one step body: per output row,
-// the k halo rows (clamped into the image; taps outside it are masked).
+// Depthwise rs x rs conv (w [rs, rs, c]), walking one output row per step:
+// the rs halo rows (clamped into the image; taps outside it are masked).
+// The streaming conv shares the dot product (kxk_dot<false>).
 // ---------------------------------------------------------------------------
 
 // The int32 (wrapping) sum of output channel `co` at output column `q` of a
@@ -269,45 +556,6 @@ __device__ __forceinline__ uint32_t kxk_dot(const int8_t* x, int row0,
   return acc;
 }
 
-template <bool DEPTHWISE>
-__device__ __forceinline__ void conv_kxk(
-    int8_t* pool, const int8_t* __restrict__ w,
-    const int32_t* __restrict__ b, const int32_t* __restrict__ mult,
-    const int32_t* __restrict__ shift, int n_seg, int h_in, int w_in,
-    int h_out, int w_out, int c_in, int c_out, int k, int stride, int pad_v,
-    int pad_h, int in_ptr, int out_ptr, int relu, int stage_w) {
-  extern __shared__ int4 smem[];
-  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
-  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
-  const int in_row = w_in * ksegs, out_row = w_out * nsegs;
-  const int w_bytes = DEPTHWISE ? k * k * c_in : k * k * c_in * c_out;
-  const Params prm = stage_params(
-      reinterpret_cast<char*>(smem) + k * in_row * SEG, w, w_bytes, b, mult,
-      shift, c_out, stage_w);
-  for (int p = 0; p < h_out; ++p) {
-    for (int r = 0; r < k; ++r) {
-      int src = p * stride - pad_v + r;
-      src = src < 0 ? 0 : (src > h_in - 1 ? h_in - 1 : src);
-      ring_load(smem + r * in_row * VEC, pool, (in_ptr + src * in_row) % n_seg,
-                in_row, n_seg);
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < out_row * SEG; j += blockDim.x) {
-      const int q = j / (nsegs * SEG), co = j % (nsegs * SEG);
-      int8_t y = 0;
-      if (co < c_out) {
-        const uint32_t acc = kxk_dot<DEPTHWISE>(
-            x, 0, p * stride - pad_v, h_in, w_in, ksegs, c_in, c_out, k, q,
-            stride, pad_h, co, prm.w);
-        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
-      }
-      *ring_byte(pool, (out_ptr + p * out_row) % n_seg, j, n_seg) = y;
-    }
-    __syncthreads();
-  }
-}
-
-// Depthwise rs x rs conv: w [rs, rs, c].
 __global__ void __launch_bounds__(THREADS)
 conv_dw_kernel(int8_t* pool, const int8_t* __restrict__ w,
                const int32_t* __restrict__ b,
@@ -316,22 +564,34 @@ conv_dw_kernel(int8_t* pool, const int8_t* __restrict__ w,
                int w_in, int h_out, int w_out, int c, int rs, int stride,
                int pad_v, int pad_h, int in_ptr, int out_ptr, int relu,
                int stage_w) {
-  conv_kxk<true>(pool, w, b, mult, shift, n_seg, h_in, w_in, h_out, w_out, c,
-                 c, rs, stride, pad_v, pad_h, in_ptr, out_ptr, relu, stage_w);
-}
-
-// k x k conv, one int32 dot per tap: w [k, k, c_in, c_out].
-__global__ void __launch_bounds__(THREADS)
-conv_k2d_kernel(int8_t* pool, const int8_t* __restrict__ w,
-                const int32_t* __restrict__ b,
-                const int32_t* __restrict__ mult,
-                const int32_t* __restrict__ shift, int n_seg, int h_in,
-                int w_in, int h_out, int w_out, int c_in, int c_out, int k,
-                int stride, int pad_v, int pad_h, int in_ptr, int out_ptr,
-                int relu, int stage_w) {
-  conv_kxk<false>(pool, w, b, mult, shift, n_seg, h_in, w_in, h_out, w_out,
-                  c_in, c_out, k, stride, pad_v, pad_h, in_ptr, out_ptr,
-                  relu, stage_w);
+  extern __shared__ int4 smem[];
+  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
+  const int segs = segs_for(c);
+  const int in_row = w_in * segs, out_row = w_out * segs;
+  const Params prm = stage_params(
+      reinterpret_cast<char*>(smem) + rs * in_row * SEG, w, rs * rs * c, b,
+      mult, shift, c, stage_w);
+  for (int p = 0; p < h_out; ++p) {
+    for (int r = 0; r < rs; ++r) {
+      int src = p * stride - pad_v + r;
+      src = src < 0 ? 0 : (src > h_in - 1 ? h_in - 1 : src);
+      ring_load(smem + r * in_row * VEC, pool, (in_ptr + src * in_row) % n_seg,
+                in_row, n_seg);
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < out_row * SEG; j += blockDim.x) {
+      const int q = j / (segs * SEG), co = j % (segs * SEG);
+      int8_t y = 0;
+      if (co < c) {
+        const uint32_t acc = kxk_dot<true>(
+            x, 0, p * stride - pad_v, h_in, w_in, segs, c, c, rs, q,
+            stride, pad_h, co, prm.w);
+        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
+      }
+      *ring_byte(pool, (out_ptr + p * out_row) % n_seg, j, n_seg) = y;
+    }
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -539,6 +799,28 @@ int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
+// Launch `blocks` CTAs of `threads` cooperatively (all resident at once, so
+// that cg::this_grid().sync() can meet them) and report the launch's error
+// code: cudaErrorCooperativeLaunchTooLarge when they do not fit together.
+template <typename Kernel, typename... Args>
+int launch_cooperative(Kernel kernel, int blocks, dim3 threads, size_t smem,
+                       void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  void* argv[] = {static_cast<void*>(&args)...};
+  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                          dim3(blocks), threads, argv, smem,
+                                          (cudaStream_t)stream);
+}
+
+// Threads of a read-first conv CTA, all CONV_THREADS of them (staging
+// spreads its copies over every thread; the outputs may need fewer): x over
+// the tile's channels, y over its pixels.
+inline dim3 conv_block(int ctile) { return dim3(ctile, CONV_THREADS / ctile); }
+
 }  // namespace
 
 extern "C" {
@@ -562,15 +844,18 @@ int ring_gemm_q(void* pool, const void* w, const void* b, const void* mult,
 int ring_conv_pw_q(void* pool, const void* w, const void* b,
                    const void* mult, const void* shift, int n_seg, int h_in,
                    int w_in, int h_out, int w_out, int c_in, int c_out,
-                   int stride, int resample, int row_block, int in_ptr,
-                   int out_ptr, int relu, int stage_w, void* stream) {
-  const size_t smem = conv_smem((size_t)row_block * w_in * segs_for(c_in) * SEG,
-                                (size_t)c_in * c_out, c_out, stage_w);
-  return launch(conv_pw_kernel, smem, stream, (int8_t*)pool,
-                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
-                (const int32_t*)shift, n_seg, h_in, w_in, h_out, w_out, c_in,
-                c_out, stride, resample, row_block, in_ptr, out_ptr, relu,
-                stage_w);
+                   int stride, int resample, int in_ptr, int out_ptr,
+                   int relu, int rows, int ctile, void* stream) {
+  const ConvQSmem m = conv_q_layout(rows * w_out, q_pitch(c_in), rows, w_out,
+                                    ctile, 1);
+  const int ctas = (h_out + rows - 1) / rows * ((c_out + ctile - 1) / ctile);
+  return launch_cooperative(conv_pw_q_kernel, ctas, conv_block(ctile),
+                            (size_t)m.bytes, stream, (int8_t*)pool,
+                            (const int8_t*)w, (const int32_t*)b,
+                            (const int32_t*)mult, (const int32_t*)shift,
+                            n_seg, h_in, w_in, h_out, w_out, c_in, c_out,
+                            stride, resample, in_ptr, out_ptr, relu, rows,
+                            ctile);
 }
 
 int ring_conv_dw_q(void* pool, const void* w, const void* b,
@@ -590,14 +875,18 @@ int ring_conv_k2d_q(void* pool, const void* w, const void* b,
                     const void* mult, const void* shift, int n_seg, int h_in,
                     int w_in, int h_out, int w_out, int c_in, int c_out,
                     int k, int stride, int pad_v, int pad_h, int in_ptr,
-                    int out_ptr, int relu, int stage_w, void* stream) {
-  const size_t smem = conv_smem((size_t)k * w_in * segs_for(c_in) * SEG,
-                                (size_t)k * k * c_in * c_out, c_out, stage_w);
-  return launch(conv_k2d_kernel, smem, stream, (int8_t*)pool,
-                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
-                (const int32_t*)shift, n_seg, h_in, w_in, h_out, w_out, c_in,
-                c_out, k, stride, pad_v, pad_h, in_ptr, out_ptr, relu,
-                stage_w);
+                    int out_ptr, int relu, int rows, int ctile,
+                    void* stream) {
+  const ConvQSmem m = conv_q_layout(((rows - 1) * stride + k) * w_in,
+                                    q_pitch(c_in), rows, w_out, ctile, k * k);
+  const int ctas = (h_out + rows - 1) / rows * ((c_out + ctile - 1) / ctile);
+  return launch_cooperative(conv_k2d_q_kernel, ctas, conv_block(ctile),
+                            (size_t)m.bytes, stream, (int8_t*)pool,
+                            (const int8_t*)w, (const int32_t*)b,
+                            (const int32_t*)mult, (const int32_t*)shift,
+                            n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k,
+                            stride, pad_v, pad_h, in_ptr, out_ptr, relu, rows,
+                            ctile);
 }
 
 int ring_avgpool_q(void* pool, int n_seg, int h, int w, int c, int in_ptr,

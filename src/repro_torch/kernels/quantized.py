@@ -18,9 +18,18 @@ leaves the same pool as the kernels' sequential walk.
 Each wrapper counts its launches in ``<wrapper>.launches``, and a conv
 or FC wrapper records in ``<wrapper>.weights_staged`` whether its last
 launch staged the weights in shared memory (False: they were read from
-global memory; None for a kernel without weights to stage).  The
-wrappers size every kernel's shared memory; the kernels take the
-decision as an argument.
+global memory; None for a kernel without weights to stage; for the
+pointwise and k x k convs, whether each CTA staged its weight slice,
+which it always does).  The wrappers size every kernel's shared memory;
+the kernels take the decision as an argument.
+
+The pointwise and k x k convs run many CTAs that read all of the op's
+input before any stores, one grid-wide barrier between, tiled by
+:func:`repro_torch.kernels.conv2d.conv_tiling` (kinds
+``ring_conv_pw_q``, ``ring_conv_k2d_q``: a block of output image rows x
+a channel tile a CTA, at most one CTA per SM, shared memory counted at
+int8 widths); a launch the card refuses (more CTAs than fit at once)
+raises.  The other six kernels walk an op in one block.
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ import torch
 from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w, resample_src
 from ..core.vpool import SEG_WIDTH, fetch_rows, segments_for, stage_rows
 from ..quant.requant import act_i32, requantize, requantize_i32, wrap_i32
-from ._launch import MAX_SMEM
+from ._launch import MAX_SMEM, _sm_count
 from ._launch import check_cuda as _check_cuda
 from ._launch import launch as _launch
 
@@ -143,20 +152,27 @@ def ring_conv_pw_q(pool, w, b, mult, shift, *, h_in: int, w_in: int,
                    stride: int = 1, resample: bool = False, in_ptr: int = 0,
                    out_ptr: int = 0, activation: str | None = None,
                    row_block: int = 1):
-    """Int8 pointwise conv in the ring, ``row_block`` output image rows
-    per step (blocking requires the identity pixel map); replaces
-    ``ring_conv_pw_q``, ``src/repro/kernels/quantized.py:196``."""
+    """Int8 pointwise conv ``[h_in, w_in, c_in] -> [h_out, w_out, c_out]``
+    in the ring (replaces ``ring_conv_pw_q``,
+    ``src/repro/kernels/quantized.py:196``).  ``row_block`` is checked as
+    the reference does (blocking requires the identity pixel map) and
+    shapes nothing: one cooperative launch runs the tiles of
+    ``conv2d.conv_tiling``, each CTA staging the source pixel of each of
+    its outputs and its weight slice, every read before one grid
+    barrier, then every store."""
+    from .conv2d import _pw_tiling   # conv2d imports this module
+
     n_seg = pool.shape[0]
     _check_pw(n_seg, h_out, w_in, w_out, c_in, c_out, stride, resample,
               in_ptr, out_ptr, row_block)
     _check_cuda(pool, _per_channel(w, b, mult, shift, (c_in, c_out), c_out))
-    ring_conv_pw_q.weights_staged = _launch(
-        "ring_conv_pw_q", pool,
-        row_block * w_in * _segs(c_in) * SEG_WIDTH + 12 * c_out,
-        (w, b, mult, shift),
-        (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, stride,
-         int(resample), row_block, in_ptr % n_seg, out_ptr % n_seg,
-         _relu(activation)), w_bytes=c_in * c_out)
+    t = _pw_tiling(h_in, w_in, h_out, w_out, c_in, c_out, stride, resample,
+                   _sm_count(pool.device), "ring_conv_pw_q")
+    _launch("ring_conv_pw_q", pool, t.smem, (w, b, mult, shift),
+            (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, stride,
+             int(resample), in_ptr % n_seg, out_ptr % n_seg,
+             _relu(activation), t.rows, t.ctile))
+    ring_conv_pw_q.weights_staged = t.stage_w
     ring_conv_pw_q.launches += 1
     return pool
 
@@ -228,19 +244,24 @@ def ring_conv_k2d_q(pool, w, b, mult, shift, *, h_in: int, w_in: int,
                     activation: str | None = None):
     """Int8 k x k conv inside the ring: int8 halo rows -> int32 dot per
     tap -> per-output-channel requantize on store (replaces
-    ``ring_conv_k2d_q``, ``src/repro/kernels/quantized.py:419``)."""
+    ``ring_conv_k2d_q``, ``src/repro/kernels/quantized.py:419``).  One
+    cooperative launch runs the tiles of ``conv2d.conv_tiling``, each CTA
+    staging the input rows its taps reach and its weight slice, every
+    read before one grid barrier, then every store."""
+    from .conv2d import _tiling   # conv2d imports this module
+
     n_seg = pool.shape[0]
     _check_rows(n_seg, w_in, w_out, c_in, c_out, in_ptr, out_ptr)
     _check_cuda(pool, _per_channel(w, b, mult, shift, (k, k, c_in, c_out),
                                    c_out))
-    ring_conv_k2d_q.weights_staged = _launch(
-        "ring_conv_k2d_q", pool,
-        k * w_in * _segs(c_in) * SEG_WIDTH + 12 * c_out,
-        (w, b, mult, shift),
-        (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
-         conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding),
-         in_ptr % n_seg, out_ptr % n_seg, _relu(activation)),
-        w_bytes=k * k * c_in * c_out)
+    t = _tiling("ring_conv_k2d_q", h_in, w_in, h_out, w_out, c_in, c_out, k,
+                stride, padding, _sm_count(pool.device))
+    _launch("ring_conv_k2d_q", pool, t.smem, (w, b, mult, shift),
+            (n_seg, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
+             conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding),
+             in_ptr % n_seg, out_ptr % n_seg, _relu(activation), t.rows,
+             t.ctile))
+    ring_conv_k2d_q.weights_staged = t.stage_w
     ring_conv_k2d_q.launches += 1
     return pool
 

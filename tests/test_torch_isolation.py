@@ -1,6 +1,6 @@
-"""``repro_torch`` and ``chip_smoke.py`` stand alone: they import neither
-JAX nor anything of the reference package ``repro``, by the source and
-in a run with both blocked."""
+"""``repro_torch``, ``chip_smoke.py`` and ``tools/chip_ab.py`` stand alone:
+they import neither JAX nor anything of the reference package ``repro``,
+by the source and in a run with both blocked."""
 import ast
 import os
 import pathlib
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "chip_ab.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of this repo on one CUDA card, in turns.
+
+    python3 tools/chip_ab.py A_DIR B_DIR [--rounds N]
+
+Each round runs A, B, B, A, each in a process of its own
+(``--child DIR``), which builds that checkout's kernels and measures,
+through that checkout's own ``repro_torch`` and ``chip_smoke.py``:
+
+* the batch-1 latency of the int8 paths (``run`` on DS-CNN, ResNet-8
+  and MCUNet-5fps-VWW, ``stream().step`` on the DS-CNN stream): median
+  and quartiles of 300 calls on the host clock, each ending in
+  ``torch.cuda.synchronize()``, after 20 calls of warm-up;
+* the device time of ``ring_conv_k2d_q`` and ``ring_conv_pw_q`` on every
+  op of those plans (``chip_smoke._held_ms``: held-stream CUDA events,
+  50 launches).
+
+It prints each process's result as a JSON line, then a summary: per
+path the median of the processes' medians, per op the mean of the
+processes' times, for A and for B.  Host times move between processes
+and machines, so only an A/B inside one call counts.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+PATHS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ds-cnn-stream")
+KERNELS = ("ring_conv_k2d_q", "ring_conv_pw_q")
+CALLS, WARM = 300, 20
+
+
+def child(root: pathlib.Path) -> dict:
+    import torch
+
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import chip_smoke as cs
+    from repro_torch.kernels import KERNELS as WRAPPERS
+    from repro_torch.kernels.cases import case_inputs
+
+    latency, kernel_us = {}, {}
+    for name in PATHS:
+        cn = cs.load_plan(name)
+        golden = cs.load_golden(name, cn)
+        if name.endswith("-stream"):
+            session = cn.stream()
+            frame = torch.from_numpy(golden["x_q"][0]).cuda()
+            fn = lambda s=session, f=frame: s.step(f)   # noqa: E731
+        else:
+            x1 = torch.from_numpy(golden["x"][0]).cuda()
+            fn = lambda c=cn, x=x1: c.run(x)             # noqa: E731
+        for _ in range(WARM):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(CALLS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        q = statistics.quantiles(times, n=4)
+        latency[name] = [q[1], q[0], q[2]]
+        for case in cs.plan_cases(name, cn):
+            if case.kernel not in KERNELS:
+                continue
+            pool, params = case_inputs(case, seed=0)
+            pool, params = torch.from_numpy(pool).cuda(), cs._cuda(params)
+            wrapper = WRAPPERS[case.kernel]
+            kernel_us[case.name] = cs._held_ms(
+                lambda: wrapper(pool, *params, **case.kwargs), 50) * 1e3
+    return {"root": str(root), "latency_ms": latency, "kernel_us": kernel_us}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("dirs", nargs="*", type=pathlib.Path)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--child", type=pathlib.Path)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(child(args.child.resolve())), flush=True)
+        return
+    if len(args.dirs) != 2:
+        ap.error("give two checkouts, A and B")
+    a, b = (d.resolve() for d in args.dirs)
+    runs = {a: [], b: []}
+    for _ in range(args.rounds):
+        for root in (a, b, b, a):
+            out = subprocess.run(
+                [sys.executable, __file__, "--child", str(root)],
+                capture_output=True, text=True, check=True)
+            line = out.stdout.strip().splitlines()[-1]
+            print(line, flush=True)
+            runs[root].append(json.loads(line))
+    for label, root in (("A", a), ("B", b)):
+        rs = runs[root]
+        lat = {p: statistics.median(r["latency_ms"][p][0] for r in rs)
+               for p in PATHS}
+        us = {op: statistics.mean(r["kernel_us"][op] for r in rs)
+              for op in rs[0]["kernel_us"]}
+        print(json.dumps({label: str(root), "latency_ms": lat,
+                          "kernel_us": us}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
