@@ -17,7 +17,8 @@ Phases, one summary line each:
      card, with TF32 off: the eight int8 kernels bitwise, on every op of
      the six committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
      ToyADMOS, the DS-CNN stream and the GRU chain) and on the int8 edge
-     cases of ``repro_torch.kernels.cases``; the eleven fp32 kernels
+     cases of ``repro_torch.kernels.cases`` (``CARD_EDGE_CASES``' 8,385-row
+     shifted add among them); the eleven fp32 kernels
      within the tolerance of ``cases.compare_f32`` (channel tails and
      unwritten lanes exact), on every op of the seven fp32 ``host-sim``
      plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW, ToyADMOS, the DS-CNN
@@ -30,10 +31,13 @@ Phases, one summary line each:
      used once, or streamed in chunks); for each ``ring_gemm`` /
      ``ring_conv_pw`` / ``ring_conv_dw`` / ``ring_conv_k2d`` /
      ``ring_conv_stream`` / ``ring_add`` / ``ring_inverted_bottleneck``
-     / ``ring_conv_pw_q`` / ``ring_conv_k2d_q`` call, its CTAs and the
-     bytes each holds across the grid barrier
+     / ``ring_conv_pw_q`` / ``ring_conv_dw_q`` / ``ring_conv_k2d_q``
+     call, its CTAs and the bytes each holds across the grid barrier
      (``segment_matmul.gemm_tiling``, ``conv2d.conv_tiling``,
      ``conv2d.add_tiling``, ``inverted_bottleneck.ib_tiling``), for each
+     ``ring_add_q`` call its mode (the barrier-free row map where
+     ``quantized.add_needs_barrier`` is False, and the wrapper must have
+     taken it; else read first), CTAs and bytes held, for each
      ``ring_elementwise`` call its runs and blocks
      (``elementwise.ring_runs``, ``ew_blocks``); and for each
      ``ring_fused_mlp``
@@ -89,8 +93,8 @@ Phases, one summary line each:
      library call that computes the same op, at the shapes each path
      gives it (the fused bottleneck, the fp32 GRU cell and the fused MLP
      against a short sequence of calls, with the count stated; the FC
-     kernels and the int8 pw and k x k convs also op by op,
-     ``PER_OP_KERNELS``); and the
+     kernels, the int8 pw, dw and k x k convs and the int8 add also op by
+     op, ``PER_OP_KERNELS``); and the
      gemma3-1b path's prefill latency at batch 4, per-token decode
      latency at batch 1 and 4, its device-busy share, and
      ``ring_decode_attention`` at its two serve shapes (a 512-slot local
@@ -98,7 +102,9 @@ Phases, one summary line each:
      bound, its plain version and one
      ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call; and
      ``ring_fused_mlp`` on the tower's layer under its tiling and a few
-     others (``MLP_TILINGS``).
+     others (``MLP_TILINGS``), and ``ring_add_q`` on every int8 add of
+     the plans and edge cases in each mode it may take (the row map, and
+     reading first, forced where the map would do).
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -444,9 +450,9 @@ def phase_parity(cases) -> dict[str, float]:
     fp32 by ``cases.compare_f32``; and the cases whose launch read its
     weights from global memory, as the wrapper decided
     (``<wrapper>.weights_staged``); and the tiling of each depthwise,
-    k x k and streaming fp32 conv, of each int8 pw and k x k conv, of
-    each fp32 add and of each fused
-    bottleneck.  Returns the max |difference| per kernel (0 for int8, or
+    k x k and streaming fp32 conv, of each int8 pw, dw and k x k conv, of
+    each fp32 add, of each fused bottleneck and each int8 add's mode,
+    which the wrapper must have taken (``ring_add_q.barrier``).  Returns the max |difference| per kernel (0 for int8, or
     this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
@@ -454,6 +460,7 @@ def phase_parity(cases) -> dict[str, float]:
     from repro_torch.kernels.conv2d import add_tiling, conv_tiling
     from repro_torch.kernels.elementwise import ew_blocks, ring_runs
     from repro_torch.kernels.inverted_bottleneck import ib_tiling
+    from repro_torch.kernels.quantized import add_map_rows, add_needs_barrier
     from repro_torch.kernels.segment_matmul import gemm_tiling
 
     n_f32 = sum(is_f32(c.kernel) for c in cases)
@@ -464,14 +471,28 @@ def phase_parity(cases) -> dict[str, float]:
     global_w, tiles = [], []
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for case in cases:
+        barrier = None
         if case.kernel in ("ring_conv_pw", "ring_conv_dw", "ring_conv_k2d",
                            "ring_conv_stream", "ring_conv_pw_q",
-                           "ring_conv_k2d_q"):
+                           "ring_conv_dw_q", "ring_conv_k2d_q"):
             t = conv_tiling(case.kernel, case.kwargs, n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
         elif case.kernel == "ring_add":
             t = add_tiling(case.kwargs["rows"], case.kwargs["d"], n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
+        elif case.kernel == "ring_add_q":
+            kw, n = case.kwargs, case.n_seg
+            rows, d = kw["rows"], kw["d"]
+            barrier = add_needs_barrier(n, rows, d, kw["in_ptr"] % n,
+                                        kw["aux_ptr"] % n, kw["out_ptr"] % n)
+            if barrier:
+                t = add_tiling(rows, d, n_sm, "ring_add_q")
+                tiles.append(f"{case.name} read first: {t.ctas} CTAs, "
+                             f"{t.held} B held")
+            else:
+                tiles.append(f"{case.name} row map, no barrier: "
+                             f"{-(-rows // add_map_rows(d))} CTAs of "
+                             f"{add_map_rows(d)} rows, 0 B held")
         elif case.kernel == "ring_gemm":
             kw = case.kwargs
             t = gemm_tiling(kw["m_rows"], kw["d_in"], kw["d_out"], n_sm)
@@ -495,6 +516,9 @@ def phase_parity(cases) -> dict[str, float]:
         KERNELS[case.kernel](got, *_cuda(params), **case.kwargs)
         if KERNELS[case.kernel].weights_staged is False:
             global_w.append(case.name)
+        if barrier is not None and KERNELS[case.kernel].barrier != barrier:
+            raise SystemExit(f"{case.name}: ring_add_q took barrier="
+                             f"{KERNELS[case.kernel].barrier}, not {barrier}")
         if case.kernel == "ring_fused_mlp":
             t = KERNELS[case.kernel].tiles
             tiles.append(f"{case.name} {t.ctas} CTAs ({t.rows}-row blocks x "
@@ -528,10 +552,11 @@ def phase_parity(cases) -> dict[str, float]:
         f"{global_w or 'none'}")
     say(f"  ring_gemm / ring_conv_pw / ring_conv_dw / ring_conv_k2d / "
         f"ring_conv_stream / ring_add / ring_inverted_bottleneck / "
-        f"ring_conv_pw_q / ring_conv_k2d_q tiles on "
+        f"ring_conv_pw_q / ring_conv_dw_q / ring_conv_k2d_q tiles on "
         f"{n_sm} SMs (CTAs, bytes each holds across the grid barrier), "
-        "ring_elementwise's runs and blocks, and ring_fused_mlp's (CTAs of "
-        "its first kernel, tiling, scratch):")
+        "ring_add_q's mode, CTAs and bytes held, ring_elementwise's runs "
+        "and blocks, and ring_fused_mlp's (CTAs of its first kernel, "
+        "tiling, scratch):")
     for line in tiles:
         say(f"    {line}")
     return err
@@ -836,9 +861,9 @@ def _host_ms(fn, reps: int) -> float:
 #: them all.
 KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
                   "ring_conv_pw_q": "conv_pw_q_kernel",
-                  "ring_conv_dw_q": "conv_dw_kernel",
+                  "ring_conv_dw_q": "conv_dw_q_kernel",
                   "ring_conv_k2d_q": "conv_k2d_q_kernel",
-                  "ring_add_q": "add_kernel",
+                  "ring_add_q": "add_q_kernel",
                   "ring_avgpool_q": "avgpool_kernel",
                   "ring_conv_stream_q": "conv_stream_kernel",
                   "ring_gru_cell_q": "gru_kernel",
@@ -1039,7 +1064,7 @@ def _work_kw(kernel: str, kw: dict, params) -> dict:
 #: Kernels whose phase-4 row also lists each op's device and library
 #: time (``per_op``), not only the plan's mean.
 PER_OP_KERNELS = ("ring_gemm_q", "ring_gemm", "ring_conv_k2d_q",
-                  "ring_conv_pw_q")
+                  "ring_conv_pw_q", "ring_conv_dw_q", "ring_add_q")
 
 
 def time_cases(cases) -> dict[str, dict]:
@@ -1082,6 +1107,49 @@ def time_cases(cases) -> dict[str, dict]:
                          "library_calls": lib_calls}
             if name in PER_OP_KERNELS:
                 out[name]["per_op"] = per_op
+    return out
+
+
+def time_add_modes(cases) -> dict[str, dict]:
+    """``ring_add_q`` on each int8 add of ``cases`` in each mode it may
+    take: the barrier-free row map where ``quantized.add_needs_barrier``
+    allows it, and the read-first cooperative launch (forced where the map
+    would do); each launch bitwise the plain version, then timed, ms a
+    launch (held-stream CUDA events), by case and mode."""
+    from repro_torch.kernels import quantized
+    from repro_torch.kernels.cases import case_inputs
+
+    need, out = quantized.add_needs_barrier, {}
+    for case in (c for c in cases if c.kernel == "ring_add_q"):
+        kw, n = case.kwargs, case.n_seg
+        pool, _ = case_inputs(case, seed=0)
+        want = torch.from_numpy(pool).cuda()
+        quantized.ring_add_q_plain(want, **kw)
+        modes = [True] if need(n, kw["rows"], kw["d"], kw["in_ptr"] % n,
+                               kw["aux_ptr"] % n, kw["out_ptr"] % n) \
+            else [False, True]
+        row = {}
+        for barrier in modes:
+            quantized.add_needs_barrier = lambda *a, b=barrier: b
+            try:
+                got = torch.from_numpy(pool).cuda()
+                quantized.ring_add_q(got, **kw)
+                torch.cuda.synchronize()
+                if quantized.ring_add_q.barrier is not barrier \
+                        or not torch.equal(got, want):
+                    raise SystemExit(f"{case.name}: ring_add_q with barrier="
+                                     f"{barrier} differs from its plain "
+                                     "version")
+                row["read_first" if barrier else "map"] = _held_ms(
+                    lambda: quantized.ring_add_q(got, **kw), 50)
+            finally:
+                quantized.add_needs_barrier = need
+        out[case.name] = row
+    say("  ring_add_q by mode, bitwise the plain version in each (us a "
+        "launch, device): "
+        + "; ".join(f"{name} " + ", ".join(f"{m} {v * 1e3:.2f}"
+                                           for m, v in row.items())
+                    for name, row in out.items()))
     return out
 
 
@@ -1500,7 +1568,8 @@ def main() -> None:
         raise SystemExit("chip_smoke.py needs a CUDA card; none is "
                          "available")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.cases import (EDGE_CASES, F32_EDGE_CASES,
+    from repro_torch.kernels.cases import (CARD_EDGE_CASES, EDGE_CASES,
+                                           F32_EDGE_CASES,
                                            F32_FUSED_STREAM_EDGE_CASES,
                                            F32_MLP_EDGE_CASES)
 
@@ -1525,7 +1594,7 @@ def main() -> None:
     plans = {n: load_plan(n) for n in labels}
     goldens = {n: load_golden(n, plans[n]) for n in labels}
     cases = {n: plan_cases(n, cn) for n, cn in plans.items()}
-    errs = phase_parity(EDGE_CASES + F32_EDGE_CASES
+    errs = phase_parity(EDGE_CASES + CARD_EDGE_CASES + F32_EDGE_CASES
                         + F32_FUSED_STREAM_EDGE_CASES + F32_MLP_EDGE_CASES
                         + sum(cases.values(), ()))
     decode_err = phase_decode_parity()
@@ -1564,6 +1633,9 @@ def main() -> None:
     tower = cases[SEEDED_FLOAT_NETS[0] + F32][0]
     next(r for r in rows if r["name"] == "ring_fused_mlp")["by_tiling"] = \
         time_mlp_tilings(tower)
+    next(r for r in rows if r["name"] == "ring_add_q")["by_mode"] = \
+        time_add_modes(cases["resnet-8"] + cases["mcunet-5fps-vww"]
+                       + EDGE_CASES + CARD_EDGE_CASES)
     paths[f"{LM} serve"] = time_lm(lm_cfg, lm_weights)
     rows.append(time_decode_kernel(
         lm_cfg, max(LM_PROMPT_LENS) + LM_MAX_NEW // 2, counts[LM],

@@ -11,7 +11,9 @@ versions and to the CUDA kernels.
 
 :data:`EDGE_CASES` are the int8 geometries the DS-CNN plan does not
 reach (wrapping runs, other strides, paddings and blockings, saturating
-and wrapping int32 sums, streaming windows with ``hop`` 2);
+and wrapping int32 sums, streaming windows with ``hop`` 2), and
+:data:`CARD_EDGE_CASES` one too large to run through the reference on
+the CPU;
 :data:`F32_EDGE_CASES` are their fp32 twins for the six whole-network
 kernels, with every activation of the fp32 epilogue;
 :data:`F32_FUSED_STREAM_EDGE_CASES` those of the fused inverted
@@ -44,21 +46,22 @@ held by :func:`compare_f32` at the one tolerance :data:`RTOL` and
 the live channels of the rows the call writes, and exactly everywhere
 else (channel tails and segments the call does not write).
 
-Every in/out overlap here but five is one a certified plan allows: no
+Every in/out overlap here but six is one a certified plan allows: no
 output row lands on an input row (or residual row) a later step still
 reads, and no output lands on a streaming state region.  The reference
 kernels in interpret mode read an unaliased copy of the pool, and the
 plain versions read every input before they store, so an overlap no
 plan has would set them apart from a kernel that walks the ring in
-order.  The exceptions are the fp32 depthwise and k x k convs and the
-int8 k x k conv in place (``f32_dw_inplace*``, ``f32_k2d_inplace``,
+order.  The exceptions are the fp32 and int8 depthwise and k x k convs
+in place (``f32_dw_inplace*``, ``f32_k2d_inplace``, ``dw_inplace_uneven``,
 ``k2d_inplace_uneven``) and the fp32 stream whose output overlaps its
 window (``f32_stream_out_over_window``): those kernels read all of an
 op's input before any CTA stores, so they too must match the plain
 version there, where a kernel that walks the rows in order does not.  A
 store before their grid barrier shows when it lands while another CTA
 still reads: reliably in ``f32_dw_inplace_uneven``, whose short last
-tile finishes first (``k2d_inplace_uneven`` is built the same way).  The pointwise conv in place
+tile finishes first (``dw_inplace_uneven`` and ``k2d_inplace_uneven``
+are built the same way).  The pointwise conv in place
 (``f32_pw_inplace_uneven``, ``f32_pw_s2_inplace_uneven`` and their int8
 twins ``pw_inplace_uneven``, ``pw_s2_inplace_uneven``: a plan's
 overlap, each output row landing on an input row read earlier in the
@@ -70,8 +73,12 @@ fp32 add and stream cases ``f32_add_shifted_uneven``,
 ``f32_stream_out_over_window`` store onto rows that another CTA of the
 op reads (and the last, onto the window another CTA stores), so a
 kernel without its grid barrier may differ there
-(``tests/test_torch_add_stream_tiles.py`` models it).  So may the fused
-bottleneck in place (a plan's overlap: every VWW bottleneck runs in
+(``tests/test_torch_add_stream_tiles.py`` models it); so do the int8
+``add_shifted``, ``add_tiles_shifted``, ``add_shifted_uneven`` and
+``add_out_on_residual``, and :data:`CARD_EDGE_CASES`' card-sized
+``add_shifted_card``, the adds on which ``ring_add_q`` takes its
+barrier (``tests/test_torch_q_dw_add_tiles.py`` models them).  So may
+the fused bottleneck in place (a plan's overlap: every VWW bottleneck runs in
 place) on ``f32_ib_inplace_uneven``, whose short last tile stores onto
 the rows its neighbour's last sub-tile reads
 (``tests/test_torch_ib_tiles.py`` models it), and the fp32 FC on
@@ -264,6 +271,36 @@ EDGE_CASES = (
     # which the CTAs of rows 15-19 read
     Case("pw_s2_inplace_uneven", "ring_conv_pw_q", 600,
          _pw(134, 4, 16, 32, 2, False, 67, 2, 100, 100, None)),
+    # in place, an overlap no certified plan has: at 132 SMs 24 row blocks
+    # of 2 rows x 3 channel tiles (72 CTAs), the last block row 46 alone, so
+    # its CTAs finish first; they store row 46 while the CTAs of rows 44-45
+    # still read it.  The input run wraps the ring between whole rows
+    Case("dw_inplace_uneven", "ring_conv_dw_q", 1152,
+         _dw(47, 8, 384, 3, 1, "same", 47, 8, 48, 48, "relu")),
+    # row t lands on input row t - 1 (a barrier is needed): at 132 SMs 131
+    # CTAs of 2 rows and a last one of 1, which finishes first; it stores
+    # row 262 onto input row 261, which the CTA of rows 260-261 reads.  Both
+    # runs wrap the ring; 40 channels end inside a 16-byte vector
+    Case("add_shifted_uneven", "ring_add_q", 600,
+         _add(263, 40, 500, 200, 499, 0.8, 1.2, "relu")),
+    # two segments a row, tiled as above: row t lands on residual row t - 1,
+    # which the CTA of the rows before reads
+    Case("add_out_on_residual", "ring_add_q", 1200,
+         _add(263, 130, 0, 600, 598, 1.3, 0.7, None)),
+)
+
+#: Int8 edge cases too large for the reference's Pallas kernel in interpret
+#: mode on the CPU: only ``chip_smoke.py`` and the ``gpu`` tests of
+#: ``tests/test_torch_gpu.py`` hold them against the plain version, on the
+#: card.
+CARD_EDGE_CASES = (
+    # 8,385 rows over 132 CTAs, 64 each but the last, which has one and
+    # finishes first; row t lands on input row t - 1, which the CTA of the
+    # rows before reads last; the input run wraps the ring (the geometry of
+    # f32_add_shifted_uneven, which caught an fp32 add without its barrier
+    # on the card where a few hundred rows did not)
+    Case("add_shifted_card", "ring_add_q", 17000,
+         _add(8385, 16, 9000, 400, 8999, 0.9, 1.1, "relu")),
 )
 
 

@@ -123,13 +123,16 @@ def pw_sources(n_in: int, n_out: int, stride: int,
 K2D_CHANNEL_TILES = (4, 8, 16, 32)
 #: The pointwise convs, fp32 and int8.
 PW_KERNELS = ("ring_conv_pw", "ring_conv_pw_q")
+#: The depthwise convs, fp32 and int8: channel tiles of one segment.
+DW_KERNELS = ("ring_conv_dw", "ring_conv_dw_q")
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvTiling:
     """How :func:`ring_conv_pw` / :func:`ring_conv_dw` /
     :func:`ring_conv_k2d` / ``ring_conv_stream`` and the int8
-    ``ring_conv_pw_q`` / ``ring_conv_k2d_q`` cut an op: CTA i owns
+    ``ring_conv_pw_q`` / ``ring_conv_dw_q`` / ``ring_conv_k2d_q`` cut an
+    op: CTA i owns
     tile i, ``rows`` output image rows (fewer in the last block) by
     ``ctile`` output channels, channel tiles fastest; ``ctas`` is at most
     the SM count, so all of them are resident at once.  A streaming conv's
@@ -242,27 +245,34 @@ def _r16(n: int) -> int:
 
 
 def _conv_smem_q(rows, ctile, *, w_in, w_out, c_in, k, stride, kind) -> int:
-    """Bytes of an int8 pw / k x k conv CTA's shared memory
+    """Bytes of an int8 conv CTA's shared memory
     (``ring_q.cu::conv_q_layout``): the staged pixels (the pointwise
-    conv's source pixel of each output, the k x k conv's halo rows) at
-    :func:`q_pixel_pitch`, the held int8 outputs, bias, mult and shift (4
-    bytes each a channel), the weight slice ``[k * k, ctile, pitch]``
-    and the output rows' ring segments; each part from a 16-byte
-    boundary."""
-    pitch = q_pixel_pitch(c_in)
+    conv's source pixel of each output, the k x k and depthwise conv's
+    halo rows), the held int8 outputs, bias, mult and shift (4 bytes
+    each a channel), the weight slice and the output rows' ring
+    segments; each part from a 16-byte boundary.  A pw / k x k pixel
+    takes :func:`q_pixel_pitch` bytes and its weight slice ``[k * k,
+    ctile, pitch]``; a depthwise pixel only its channel tile's bytes,
+    ``ctile`` in whole 16-byte chunks, and its weight slice ``[k * k,
+    ctile]``, each tap's channels in whole 32-bit words."""
+    if kind == "ring_conv_dw_q":
+        pixel, w_len = _r16(ctile), _r16(k * k * -(-ctile // 4) * 4)
+    else:
+        pixel = q_pixel_pitch(c_in)
+        w_len = k * k * ctile * pixel
     pixels = rows * w_out if kind in PW_KERNELS \
         else ((rows - 1) * stride + k) * w_in
-    return (pixels * pitch + _r16(rows * w_out * ctile) + _r16(12 * ctile)
-            + k * k * ctile * pitch + 4 * rows)
+    return (pixels * pixel + _r16(rows * w_out * ctile) + _r16(12 * ctile)
+            + w_len + 4 * rows)
 
 
 def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
     """The tiling of a ``ring_conv_pw`` / ``ring_conv_dw`` /
     ``ring_conv_k2d`` / ``ring_conv_stream`` / ``ring_conv_pw_q`` /
-    ``ring_conv_k2d_q`` call (its kwargs ``kw``) over at most ``n_sm``
-    CTAs.
+    ``ring_conv_dw_q`` / ``ring_conv_k2d_q`` call (its kwargs ``kw``)
+    over at most ``n_sm`` CTAs.
 
-    A depthwise conv takes channel tiles of one segment (``min(c,
+    A depthwise conv (fp32 or int8) takes channel tiles of one segment (``min(c,
     128)``); a k x k or pointwise conv (k = 1, each output reading one
     source pixel) the ``K2D_CHANNEL_TILES`` entry (or ``c_out``) that
     gives the fewest outputs per CTA, ties to the wider tile, and a
@@ -273,7 +283,7 @@ def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
     (an int8 conv's tile always stages it, at int8 widths).  Raises
     ``ValueError``, naming the op's geometry, when no tile fits
     ``MAX_SMEM``."""
-    dw = kernel == "ring_conv_dw"
+    dw = kernel in DW_KERNELS
     if kernel in PW_KERNELS:
         return _pw_tiling(kw["h_in"], kw["w_in"], kw["h_out"], kw["w_out"],
                           kw["c_in"], kw["c_out"], kw.get("stride", 1),
@@ -300,7 +310,7 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
             padding, n_sm, resample=False) -> ConvTiling:
     """:func:`conv_tiling` by geometry, once per geometry (a wrapper
     calls it on every launch)."""
-    dw = kernel == "ring_conv_dw"
+    dw = kernel in DW_KERNELS
     stream = kernel == "ring_conv_stream"
     tiles = [min(c_out, SEG_WIDTH)] if dw else \
         sorted({min(c_out, t) for t in K2D_CHANNEL_TILES})
@@ -417,22 +427,30 @@ def ring_conv_k2d_plain(pool, w, b, *, h_in: int, w_in: int, h_out: int,
 
 @dataclasses.dataclass(frozen=True)
 class AddTiling:
-    """How :func:`ring_add` cuts an op of ``rows`` rows of ``d`` channels:
-    CTA i owns rows ``i * tile_rows ..`` (fewer in the last block) and
-    holds ``act(x + r)`` of their live channels across the grid barrier
-    (``held`` bytes, its whole shared memory ``smem``)."""
+    """How :func:`ring_add` (and the int8 ``ring_add_q`` where its op
+    needs a barrier) cuts an op of ``rows`` rows of ``d`` channels: CTA i
+    owns rows ``i * tile_rows ..`` (fewer in the last block) and holds
+    ``act(x + r)`` of their live channels across the grid barrier
+    (``held`` bytes, at :attr:`elem` bytes an element, its whole shared
+    memory ``smem``)."""
 
     rows: int
     d: int
     tile_rows: int
+    kernel: str = "ring_add"
 
     @property
     def ctas(self) -> int:
         return -(-self.rows // self.tile_rows)
 
     @property
+    def elem(self) -> int:
+        """Bytes of an element: 1 for the int8 add, else 4."""
+        return 1 if self.kernel.endswith("_q") else 4
+
+    @property
     def smem(self) -> int:
-        return 4 * self.tile_rows * self.d
+        return self.elem * self.tile_rows * self.d
 
     held = smem
 
@@ -443,15 +461,16 @@ class AddTiling:
 
 
 @functools.lru_cache(maxsize=4096)
-def add_tiling(rows: int, d: int, n_sm: int = H100_SMS) -> AddTiling:
-    """The tiling of a ``ring_add`` call over at most ``n_sm`` CTAs: the
-    fewest rows per CTA that keep the CTAs within ``n_sm``.  Raises
-    ``ValueError``, naming the op's geometry, when a CTA's rows do not fit
-    ``MAX_SMEM``."""
-    t = AddTiling(rows, d, -(-rows // n_sm))
+def add_tiling(rows: int, d: int, n_sm: int = H100_SMS,
+               kernel: str = "ring_add") -> AddTiling:
+    """The tiling of a ``ring_add`` (or ``ring_add_q``, ``kernel``) call
+    over at most ``n_sm`` CTAs: the fewest rows per CTA that keep the
+    CTAs within ``n_sm``.  Raises ``ValueError``, naming the op's
+    geometry, when a CTA's rows do not fit ``MAX_SMEM``."""
+    t = AddTiling(rows, d, -(-rows // n_sm), kernel)
     if t.smem > MAX_SMEM:
         raise ValueError(
-            f"ring_add: {rows} rows of {d} channels over at most {n_sm} "
+            f"{kernel}: {rows} rows of {d} channels over at most {n_sm} "
             f"CTAs hold {t.smem} B a CTA, above {MAX_SMEM} B of shared "
             "memory")
     return t

@@ -20,20 +20,27 @@
 // output rows p - 2 and p - 1 still read).  The plan is certified clobber-free
 // only for the order of the TPU's sequential grid: no store of step i may move
 // ahead of a read of an earlier step, so in that order every read of an op
-// sees the pool as it was before the op.  A kernel keeps that in one of two
+// sees the pool as it was before the op.  A kernel keeps that in one of three
 // ways.
 //
-// The 1x1 and k x k convs (ring_conv_pw_q, ring_conv_k2d_q) read EVERYTHING
-// before they store anything, over many CTAs in one cooperative launch:
-// each CTA stages what its tile of output rows x output channels reads,
-// computes its outputs into shared memory, meets every other CTA at one
-// grid-wide barrier, then stores (see their section below).  What bounds
-// them is the floor of that launch and its barrier, not bytes or MACs; their
-// products are __dp4a, bitwise the reference's wrapping int32 sums.
+// The 1x1, depthwise and k x k convs (ring_conv_pw_q, ring_conv_dw_q,
+// ring_conv_k2d_q) read EVERYTHING before they store anything, over many
+// CTAs in one cooperative launch: each CTA stages what its tile of output
+// rows x output channels reads, computes its outputs into shared memory,
+// meets every other CTA at one grid-wide barrier, then stores (see their
+// section below).  What bounds them is the floor of that launch and its
+// barrier, not bytes or MACs; their products (__dp4a for the 1x1 and k x k,
+// scalar for the depthwise) are bitwise the reference's wrapping int32
+// sums.
 //
-// The other six (the FC, the depthwise conv, the residual add, the average
-// pool, the streaming conv and the GRU cell) run as ONE thread block that
-// walks the steps in plan order:
+// The residual add (ring_add_q) maps its rows over many CTAs: where no
+// output row lands on an operand row of another index (every plan's add) a
+// thread reads a 32-bit word of row t and stores that word of out row t,
+// with no barrier, in an ordinary launch; elsewhere it reads first, as the
+// convs do (see its section).
+//
+// The other four (the FC, the average pool, the streaming conv and the GRU
+// cell) run as ONE thread block that walks the steps in plan order:
 //
 //   load the step's input segments into shared memory   (ring load, modulo n_seg)
 //   __syncthreads()
@@ -52,12 +59,10 @@
 // only when they fit beside the step's input tile; otherwise they are read
 // from global memory), so the dot products of every step read shared memory.
 // The Python wrappers (kernels/quantized.py) size shared memory: they pass
-// `stage_w`, the add's `tile_rows`, the pool's `chunk_pix` and the read-first
-// convs' tiling (conv2d.py::conv_tiling), and the entry points below only
-// turn those into the launch's byte count.  The residual add is bound by its
-// bytes (two operand rows in, one out, no MACs); it reads as many rows per
-// step as shared memory holds.  The GRU cell is one step of two small
-// matrix-vector products.
+// `stage_w`, the pool's `chunk_pix`, the read-first convs' tiling
+// (conv2d.py::conv_tiling) and the add's mode and rows a CTA, and the entry
+// points below only turn those into the launch's byte count.  The GRU cell
+// is one step of two small matrix-vector products.
 //
 // Requantization is the reference's (src/repro/quant/requant.py): the exact
 // 64-bit product acc * mult, one round-to-nearest-even at 31 - shift,
@@ -201,18 +206,20 @@ gemm_kernel(int8_t* pool, const int8_t* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// 1x1 and k x k convs that read first, over many CTAs in one cooperative
-// launch.  CTA i owns tile i of conv2d.py::conv_tiling (kinds
-// ring_conv_pw_q, ring_conv_k2d_q): output rows p0 .. p0 + np - 1 (fewer in
-// the last row block) x output channels c0 .. c0 + cn - 1, channel tiles
-// fastest.  It
+// 1x1, depthwise and k x k convs that read first, over many CTAs in one
+// cooperative launch.  CTA i owns tile i of conv2d.py::conv_tiling (kinds
+// ring_conv_pw_q, ring_conv_dw_q, ring_conv_k2d_q): output rows p0 .. p0 +
+// np - 1 (fewer in the last row block) x output channels c0 .. c0 + cn - 1,
+// channel tiles fastest.  It
 //   (a) stages, with 16-byte cp.async copies all in flight at once, what
-//       its taps reach: the k x k conv's input rows lo .. lo + nh - 1, the
-//       1x1 conv the source pixel of each of its outputs (p * stride, or
-//       the nearest-grid pick when resampling); and, with plain loads
-//       (STAGE_WORDS words a thread in flight), its weight slice,
-//       transposed, and its bias, mult and shift; then computes every
-//       output of its tile into shared memory as int8, storing nothing;
+//       its taps reach: the k x k and depthwise convs' input rows lo .. lo
+//       + nh - 1 (the depthwise conv only its channel tile of each pixel),
+//       the 1x1 conv the source pixel of each of its outputs (p * stride,
+//       or the nearest-grid pick when resampling); and, with plain loads,
+//       its weight slice (the 1x1 and k x k convs' transposed, STAGE_WORDS
+//       words a thread in flight) and its bias, mult and shift; then
+//       computes every output of its tile into shared memory as int8,
+//       storing nothing;
 //   (b) meets every other CTA at the grid barrier;
 //   (c) stores its outputs as 32-bit words, and the last channel tile the
 //       channel tail as zeros.
@@ -276,24 +283,45 @@ __host__ __device__ __forceinline__ int round16(int n) {
   return (n + 15) / 16 * 16;
 }
 
+__host__ __device__ __forceinline__ int round4(int n) {
+  return (n + 3) / 4 * 4;
+}
+
 // A read-first int8 conv CTA's shared memory, byte offsets
-// (conv2d.py::_conv_smem_q): the staged pixels [pixels, pitch chunks] from
-// 0, the held outputs [rows * w_out, ctile] int8, bias, mult and shift
-// [3, ctile] int32, the weight slice [taps, ctile, pitch chunks], the ring
+// (conv2d.py::_conv_smem_q): the staged pixels [pixels, px_bytes] from 0,
+// the held outputs [rows * w_out, ctile] int8, bias, mult and shift [3,
+// ctile] int32, the weight slice (w_bytes, a multiple of 16), the ring
 // segment of each output row [rows].
 struct ConvQSmem {
   int y, prm, w, out_row, bytes;
 };
 
 __host__ __device__ __forceinline__ ConvQSmem conv_q_layout(
-    int pixels, int pitch, int rows, int w_out, int ctile, int taps) {
+    int pixels, int px_bytes, int rows, int w_out, int ctile, int w_bytes) {
   ConvQSmem m;
-  m.y = pixels * pitch * 16;
+  m.y = pixels * px_bytes;
   m.prm = m.y + round16(rows * w_out * ctile);
   m.w = m.prm + round16(12 * ctile);
-  m.out_row = m.w + taps * ctile * pitch * 16;
+  m.out_row = m.w + w_bytes;
   m.bytes = m.out_row + 4 * rows;
   return m;
+}
+
+// The 1x1 and k x k convs' layout: a staged pixel and a channel's weights
+// at a tap take `pitch` 16-byte chunks.
+__host__ __device__ __forceinline__ ConvQSmem conv_q_layout_dense(
+    int pixels, int pitch, int rows, int w_out, int ctile, int taps) {
+  return conv_q_layout(pixels, pitch * 16, rows, w_out, ctile,
+                       taps * ctile * pitch * 16);
+}
+
+// The depthwise conv's layout: a staged pixel keeps its channel tile in
+// whole 16-byte chunks, and the weight slice [rs * rs, round4(ctile)] each
+// tap's channels in whole 32-bit words.
+__host__ __device__ __forceinline__ ConvQSmem conv_dw_q_layout(
+    int rows, int stride, int rs, int w_in, int w_out, int ctile) {
+  return conv_q_layout(((rows - 1) * stride + rs) * w_in, round16(ctile),
+                       rows, w_out, ctile, round16(rs * rs * round4(ctile)));
 }
 
 // Asynchronous 16-byte copy from global to shared memory (sm_80 and later):
@@ -312,17 +340,14 @@ __device__ __forceinline__ int conv_tid() {
   return threadIdx.y * blockDim.x + threadIdx.x;
 }
 
-// Stage tile t's bias, mult and shift, the ring segment of each of its
+// Stage tile t's bias, mult and shift and the ring segment of each of its
 // output rows (one modulo a row: a row never wraps, the wrappers require
-// the pool and the pointers aligned to whole rows), and its weight slice of
-// w [taps, c_in, c_out], transposed to [taps, ctile, pitch chunks] with
-// zeros past c_in (and for channels past the tile's cn).
-__device__ __forceinline__ void stage_q_tile(
+// the pool and the pointers aligned to whole rows).
+__device__ __forceinline__ void stage_q_consts(
     const ConvTile& t, const ConvQSmem& m, char* smem,
-    const int8_t* __restrict__ w, const int32_t* __restrict__ b,
-    const int32_t* __restrict__ mult, const int32_t* __restrict__ shift,
-    int taps, int c_in, int c_out, int ctile, int pitch, int n_seg,
-    int out_ptr, int out_seg) {
+    const int32_t* __restrict__ b, const int32_t* __restrict__ mult,
+    const int32_t* __restrict__ shift, int ctile, int n_seg, int out_ptr,
+    int out_seg) {
   const int tid = conv_tid(), nthr = blockDim.x * blockDim.y;
   int32_t* prm = reinterpret_cast<int32_t*>(smem + m.prm);
   for (int i = tid; i < t.cn; i += nthr) {
@@ -333,6 +358,19 @@ __device__ __forceinline__ void stage_q_tile(
   int* out_row = reinterpret_cast<int*>(smem + m.out_row);
   for (int i = tid; i < t.np; i += nthr)
     out_row[i] = (out_ptr + (t.p0 + i) * out_seg) % n_seg;
+}
+
+// stage_q_consts, and tile t's weight slice of w [taps, c_in, c_out],
+// transposed to [taps, ctile, pitch chunks] with zeros past c_in (and for
+// channels past the tile's cn).
+__device__ __forceinline__ void stage_q_tile(
+    const ConvTile& t, const ConvQSmem& m, char* smem,
+    const int8_t* __restrict__ w, const int32_t* __restrict__ b,
+    const int32_t* __restrict__ mult, const int32_t* __restrict__ shift,
+    int taps, int c_in, int c_out, int ctile, int pitch, int n_seg,
+    int out_ptr, int out_seg) {
+  stage_q_consts(t, m, smem, b, mult, shift, ctile, n_seg, out_ptr, out_seg);
+  const int tid = conv_tid(), nthr = blockDim.x * blockDim.y;
   // word j of channel co at tap r; co fastest, so a warp reads runs of a
   // weight row.  A thread loads STAGE_WORDS words before it stores any, so
   // that their loads are in flight together (a plan's slice is at most
@@ -385,9 +423,9 @@ __device__ __forceinline__ uint32_t dot_q(const int4* x, const int4* w,
 
 // (c) Store the tile's held outputs y [np * w_out, ctile] over lanes c0 ..
 // end of each output pixel as 32-bit words (c0 is 0 or a multiple of a
-// channel tile of 4 to 32, and end a multiple of 4), zeros from channel c
-// on: the last channel tile also stores the pixel's channel tail, up to
-// osegs * SEG.
+// channel tile of 4 to 32, or of a segment for the depthwise conv, and end
+// a multiple of 4), zeros from channel c on: the last channel tile also
+// stores the pixel's channel tail, up to osegs * SEG.
 __device__ __forceinline__ void store_q_tile(int8_t* pool, const ConvTile& t,
                                              const int8_t* y,
                                              const int* out_row, int w_out,
@@ -426,8 +464,8 @@ conv_k2d_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
   const int pitch = q_pitch(c_in), chunks = (c_in + 15) / 16;
   const ConvTile t = conv_tile(h_in, h_out, c_out, k, stride, pad_v, rows,
                                ctile);
-  const ConvQSmem m = conv_q_layout(((rows - 1) * stride + k) * w_in, pitch,
-                                    rows, w_out, ctile, k * k);
+  const ConvQSmem m = conv_q_layout_dense(((rows - 1) * stride + k) * w_in,
+                                          pitch, rows, w_out, ctile, k * k);
   const int nthr = blockDim.x * blockDim.y;
   for (int i = conv_tid(); i < t.nh * w_in * chunks; i += nthr) {
     const int pix = i / chunks, c = i - pix * chunks;
@@ -487,8 +525,8 @@ conv_pw_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
   const int pitch = q_pitch(c_in), chunks = (c_in + 15) / 16;
   const ConvTile t = conv_tile(h_in, h_out, c_out, 1, stride, 0, rows,
                                ctile);
-  const ConvQSmem m = conv_q_layout(rows * w_out, pitch, rows, w_out, ctile,
-                                    1);
+  const ConvQSmem m = conv_q_layout_dense(rows * w_out, pitch, rows, w_out,
+                                          ctile, 1);
   const int nthr = blockDim.x * blockDim.y;
   for (int i = conv_tid(); i < t.np * w_out * chunks; i += nthr) {
     const int pix = i / chunks, c = i - pix * chunks;
@@ -517,81 +555,89 @@ conv_pw_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
                w_out, c_out, nsegs, ctile);
 }
 
-// ---------------------------------------------------------------------------
-// Depthwise rs x rs conv (w [rs, rs, c]), walking one output row per step:
-// the rs halo rows (clamped into the image; taps outside it are masked).
-// The streaming conv shares the dot product (kxk_dot<false>).
-// ---------------------------------------------------------------------------
-
-// The int32 (wrapping) sum of output channel `co` at output column `q` of a
-// k x k conv.  Tap row r reads image row src0 + r, held in shared memory at
-// row (row0 + r) of `x`; rows outside [0, h_in) and columns outside
-// [0, w_in) are the zero padding.
-template <bool DEPTHWISE>
-__device__ __forceinline__ uint32_t kxk_dot(const int8_t* x, int row0,
-                                            int src0, int h_in, int w_in,
-                                            int ksegs, int c_in, int c_out,
-                                            int k, int q, int stride,
-                                            int pad_h, int co,
-                                            const int8_t* w) {
-  const int in_row = w_in * ksegs;
-  uint32_t acc = 0;
-  for (int r = 0; r < k; ++r) {
-    const int src = src0 + r;
-    if (src < 0 || src >= h_in) continue;
-    for (int s = 0; s < k; ++s) {
-      const int col = q * stride - pad_h + s;
-      if (col < 0 || col >= w_in) continue;
-      const int8_t* xr = x + ((row0 + r) * in_row + col * ksegs) * SEG;
-      if (DEPTHWISE) {
-        acc += (uint32_t)((int)xr[co] * (int)w[(r * k + s) * c_in + co]);
-      } else {
-        const int8_t* wc = w + (r * k + s) * c_in * c_out + co;
-#pragma unroll 4
-        for (int ci = 0; ci < c_in; ++ci)
-          acc += (uint32_t)((int)xr[ci] * (int)wc[ci * c_out]);
+// Depthwise rs x rs conv: w [rs, rs, c]; channel tiles of min(c, 128), one
+// segment each.  A CTA stages its channel tile of each pixel of the input
+// rows its taps reach (round16(ctile) bytes a pixel, the 16-byte chunks of
+// lanes c0 .. c0 + cn - 1 of the pixel's segment) and its weight slice
+// w[r, s, c0 .. c0 + cn - 1] as [rs * rs, round4(ctile)] with zeros past cn
+// (a plain copy: a depthwise conv needs no transpose).  A thread owns 4
+// consecutive channels of one output pixel, so each in-image tap is one
+// 32-bit word of the staged pixel and one of the weights; __dp4a would add
+// across the channels, so the four products are scalar int32
+// multiply-adds, summed mod 2**32 (bitwise the reference's wrapping sum).
+//
+// What bounds it: not bytes (VWW's largest op, [20, 20, 48], reads 19 KB
+// and stores 51 KB, about 21 ns at 3.35 TB/s) nor operations (its 173 k
+// multiply-adds at in-image taps are about 17 a thread over its 20 CTAs of
+// 512 threads), but the floor of a cooperative launch and its grid
+// barrier, about 4.5 us (PERF.md).
+__global__ void __launch_bounds__(CONV_THREADS)
+conv_dw_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
+                 const int32_t* __restrict__ b,
+                 const int32_t* __restrict__ mult,
+                 const int32_t* __restrict__ shift, int n_seg, int h_in,
+                 int w_in, int h_out, int w_out, int c, int rs, int stride,
+                 int pad_v, int pad_h, int in_ptr, int out_ptr, int relu,
+                 int rows, int ctile) {
+  extern __shared__ int4 qsmem[];
+  char* smem = reinterpret_cast<char*>(qsmem);
+  const int segs = segs_for(c), px = round16(ctile), wpitch = round4(ctile);
+  const ConvTile t = conv_tile(h_in, h_out, c, rs, stride, pad_v, rows,
+                               ctile);
+  const ConvQSmem m = conv_dw_q_layout(rows, stride, rs, w_in, w_out, ctile);
+  const int tid = threadIdx.x;
+  const int chunks = (t.cn + 15) / 16;   // c0 is a multiple of a segment
+  for (int i = tid; i < t.nh * w_in * chunks; i += CONV_THREADS) {
+    const int pix = i / chunks, ch = i - pix * chunks;
+    const int hr = pix / w_in, q = pix - hr * w_in;
+    const int seg = (in_ptr + (t.lo + hr) * w_in * segs) % n_seg + q * segs +
+                    t.c0 / SEG;
+    cp_async16(smem + pix * px + 16 * ch, pool + (size_t)seg * SEG + 16 * ch);
+  }
+  stage_q_consts(t, m, smem, b, mult, shift, ctile, n_seg, out_ptr,
+                 w_out * segs);
+  int8_t* ws = reinterpret_cast<int8_t*>(smem + m.w);
+  for (int i = tid; i < rs * rs * wpitch; i += CONV_THREADS) {
+    const int r = i / wpitch, ci = i - r * wpitch;
+    ws[i] = ci < t.cn ? w[(size_t)r * c + t.c0 + ci] : (int8_t)0;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  int8_t* y = reinterpret_cast<int8_t*>(smem + m.y);
+  const int32_t* prm = reinterpret_cast<const int32_t*>(smem + m.prm);
+  const int quads = (t.cn + 3) / 4;
+  for (int i = tid; i < t.np * w_out * quads; i += CONV_THREADS) {
+    const int j = i / quads, g = i - j * quads;
+    const int pl = j / w_out, q = j - pl * w_out;
+    const int top = (t.p0 + pl) * stride - pad_v, left = q * stride - pad_h;
+    // the in-image taps: rows r0 .. r1 - 1, columns s0 .. s1 - 1
+    const int r0 = max(0, -top), r1 = min(rs, h_in - top);
+    const int s0 = max(0, -left), s1 = min(rs, w_in - left);
+    uint32_t acc[4] = {0, 0, 0, 0};
+    for (int r = r0; r < r1; ++r) {
+      const char* xrow = smem + (top + r - t.lo) * w_in * px + 4 * g;
+      const char* wr = smem + m.w + r * rs * wpitch + 4 * g;
+      for (int s = s0; s < s1; ++s) {
+        const uint32_t xv =
+            *reinterpret_cast<const uint32_t*>(xrow + (left + s) * px);
+        const uint32_t wv = *reinterpret_cast<const uint32_t*>(wr + s * wpitch);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          acc[k] += (uint32_t)((int)(int8_t)(xv >> (8 * k)) *
+                               (int)(int8_t)(wv >> (8 * k)));
       }
     }
-  }
-  return acc;
-}
-
-__global__ void __launch_bounds__(THREADS)
-conv_dw_kernel(int8_t* pool, const int8_t* __restrict__ w,
-               const int32_t* __restrict__ b,
-               const int32_t* __restrict__ mult,
-               const int32_t* __restrict__ shift, int n_seg, int h_in,
-               int w_in, int h_out, int w_out, int c, int rs, int stride,
-               int pad_v, int pad_h, int in_ptr, int out_ptr, int relu,
-               int stage_w) {
-  extern __shared__ int4 smem[];
-  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
-  const int segs = segs_for(c);
-  const int in_row = w_in * segs, out_row = w_out * segs;
-  const Params prm = stage_params(
-      reinterpret_cast<char*>(smem) + rs * in_row * SEG, w, rs * rs * c, b,
-      mult, shift, c, stage_w);
-  for (int p = 0; p < h_out; ++p) {
-    for (int r = 0; r < rs; ++r) {
-      int src = p * stride - pad_v + r;
-      src = src < 0 ? 0 : (src > h_in - 1 ? h_in - 1 : src);
-      ring_load(smem + r * in_row * VEC, pool, (in_ptr + src * in_row) % n_seg,
-                in_row, n_seg);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int co = 4 * g + k;
+      if (co < t.cn)
+        y[j * ctile + co] = epilogue(acc[k], prm[co], prm[ctile + co],
+                                     prm[2 * ctile + co], relu);
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < out_row * SEG; j += blockDim.x) {
-      const int q = j / (segs * SEG), co = j % (segs * SEG);
-      int8_t y = 0;
-      if (co < c) {
-        const uint32_t acc = kxk_dot<true>(
-            x, 0, p * stride - pad_v, h_in, w_in, segs, c, c, rs, q,
-            stride, pad_h, co, prm.w);
-        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
-      }
-      *ring_byte(pool, (out_ptr + p * out_row) % n_seg, j, n_seg) = y;
-    }
-    __syncthreads();
   }
+  cg::this_grid().sync();   // (b): every read of the op is done
+  store_q_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
+               w_out, c, segs, ctile);
 }
 
 // ---------------------------------------------------------------------------
@@ -629,41 +675,103 @@ avgpool_kernel(int8_t* pool, int n_seg, int h, int w, int c, int in_ptr,
 }
 
 // ---------------------------------------------------------------------------
-// Residual add: `rows` pixel rows of `chunk` segments at in_ptr and at
-// aux_ptr, each requantized to the output scale, summed (wrapping), relu'd,
-// clipped to int8 and stored at out_ptr, often in place.  A step takes
-// `tile_rows` rows, all read before any is stored; a certified plan stores no
-// row onto one that a later step still reads, so reading ahead of the stores
-// leaves the sequential grid's pool (the prefetch-before-store corollary).
+// Residual add: `rows` pixel rows of d channels (`chunk` segments each) at
+// in_ptr and at aux_ptr, each requantized to the output scale, summed
+// (wrapping), relu'd, clipped to int8 and stored at out_ptr as whole
+// segments (channel tails zero), often in place.  CTA i owns rows i *
+// tile_rows .. (fewer in the last block); a thread takes one 32-bit word
+// (4 lanes) of one row at a time: it reads that word of both operands
+// (nothing past d) and computes its lanes.  A word and not a 16-byte
+// vector: what a thread costs is its chain of requantizations (a 64-bit
+// product and a rounding each, two a lane), 8 for a word and 32 for a
+// vector, not its bytes.
+//   READ_FIRST false, an ordinary launch (quantized.py::add_needs_barrier
+//   is False: every plan's add, in place): the thread stores the word of
+//   out row t at once.  No output row lands on an operand row of another
+//   index, and where out row t lies on row t of an operand this same thread
+//   read that word first, so the op is exact with no barrier
+//   (quantized.py::add_map_rows gives each thread one word).
+//   READ_FIRST true, one cooperative launch over conv2d.py::add_tiling's
+//   row blocks (an op that stores row t onto an operand row t - 1): the
+//   thread holds the live lanes in shared memory as int8 ([tile_rows, d]),
+//   every CTA meets the grid barrier, then each stores its rows as whole
+//   segments, a word a thread.
+// Bound by its bytes (ResNet-8's first add reads 32 KB and stores 128 KB,
+// about 49 ns at 3.35 TB/s); what remains is the launch (and the barrier).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-add_kernel(int8_t* pool, int n_seg, int rows, int chunk, int d, int in_ptr,
-           int aux_ptr, int out_ptr, int mult_in, int shift_in,
-           int mult_aux, int shift_aux, int relu, int tile_rows) {
-  extern __shared__ int4 smem[];
-  const int tile = tile_rows * chunk;               // segments per operand
-  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
-  const int8_t* res = x + (size_t)tile * SEG;
-  const int width = chunk * SEG;
-  for (int t0 = 0; t0 < rows; t0 += tile_rows) {
-    const int n = min(tile_rows, rows - t0);
-    ring_load(smem, pool, (in_ptr + t0 * chunk) % n_seg, n * chunk, n_seg);
-    ring_load(smem + tile * VEC, pool, (aux_ptr + t0 * chunk) % n_seg,
-              n * chunk, n_seg);
-    __syncthreads();
-    for (int j = threadIdx.x; j < n * width; j += blockDim.x) {
-      int8_t y = 0;
-      if (j % width < d) {
-        const uint32_t sum =
-            (uint32_t)requant_i32(x[j], mult_in, shift_in) +
-            (uint32_t)requant_i32(res[j], mult_aux, shift_aux);
-        int32_t a = (int32_t)sum;
-        if (relu && a < 0) a = 0;
-        y = sat8(a);
-      }
-      *ring_byte(pool, (out_ptr + t0 * chunk) % n_seg, j, n_seg) = y;
+constexpr int ADD_THREADS = 256;   // quantized.py::ADD_THREADS
+constexpr int WORDS = SEG / 4;     // 32-bit words per segment
+
+struct AddQ {
+  int mult_in, shift_in, mult_aux, shift_aux, relu;
+};
+
+// Lanes 0 .. 3 of two operand words (the first `live` of them; the rest
+// zero): requantized, summed mod 2**32, relu'd, clipped to int8.
+__device__ __forceinline__ uint32_t add_word(uint32_t x, uint32_t r,
+                                             int live, const AddQ& q) {
+  uint32_t y = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (k < live) {
+      const uint32_t sum =
+          (uint32_t)requant_i32((int8_t)(x >> (8 * k)), q.mult_in,
+                                q.shift_in) +
+          (uint32_t)requant_i32((int8_t)(r >> (8 * k)), q.mult_aux,
+                                q.shift_aux);
+      int32_t a = (int32_t)sum;
+      if (q.relu && a < 0) a = 0;
+      y |= (uint32_t)(uint8_t)sat8(a) << (8 * k);
     }
-    __syncthreads();
+  }
+  return y;
+}
+
+// Word v of the row that starts `row` segments into the run at ring
+// segment `ptr` (one modulo: a row never wraps, the wrappers require the
+// pool and the pointers aligned to whole rows).
+__device__ __forceinline__ uint32_t* row_word(int8_t* pool, int ptr,
+                                              int row, int v, int n_seg) {
+  return reinterpret_cast<uint32_t*>(pool +
+                                     (size_t)((ptr + row) % n_seg) * SEG) +
+         v;
+}
+
+template <bool READ_FIRST>
+__global__ void __launch_bounds__(ADD_THREADS)
+add_q_kernel(int8_t* pool, int n_seg, int rows, int d, int in_ptr,
+             int aux_ptr, int out_ptr, int mult_in, int shift_in,
+             int mult_aux, int shift_aux, int relu, int tile_rows) {
+  extern __shared__ int4 qsmem[];
+  int8_t* y = reinterpret_cast<int8_t*>(qsmem);   // [tile_rows, d]
+  const AddQ q{mult_in, shift_in, mult_aux, shift_aux, relu};
+  const int chunk = segs_for(d), words = chunk * WORDS;   // words a row
+  const int r0 = blockIdx.x * tile_rows, n = min(tile_rows, rows - r0);
+  for (int i = threadIdx.x; i < n * words; i += ADD_THREADS) {
+    const int p = i / words, v = i - p * words, c = 4 * v;
+    const int row = (r0 + p) * chunk;
+    uint32_t out = 0;
+    if (c < d)
+      out = add_word(*row_word(pool, in_ptr, row, v, n_seg),
+                     *row_word(pool, aux_ptr, row, v, n_seg), d - c, q);
+    if constexpr (!READ_FIRST) {
+      *row_word(pool, out_ptr, row, v, n_seg) = out;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c + k < d) y[p * d + c + k] = (int8_t)(out >> (8 * k));
+    }
+  }
+  if constexpr (READ_FIRST) {
+    cg::this_grid().sync();   // every read of the op is done
+    for (int i = threadIdx.x; i < n * words; i += ADD_THREADS) {
+      const int p = i / words, v = i - p * words, c = 4 * v;
+      uint32_t out = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c + k < d) out |= (uint32_t)(uint8_t)y[p * d + c + k] << (8 * k);
+      *row_word(pool, out_ptr, (r0 + p) * chunk, v, n_seg) = out;
+    }
   }
 }
 
@@ -674,6 +782,34 @@ add_kernel(int8_t* pool, int n_seg, int rows, int chunk, int d, int in_ptr,
 // output rows is computed from the window in shared memory and stored at
 // out_ptr (modulo n_seg).  Everything is read before anything is stored.
 // ---------------------------------------------------------------------------
+// The int32 (wrapping) sum of output channel `co` at output column `q` of a
+// k x k conv.  Tap row r reads image row src0 + r, held in shared memory at
+// row (row0 + r) of `x`; rows outside [0, h_in) and columns outside
+// [0, w_in) are the zero padding.
+__device__ __forceinline__ uint32_t kxk_dot(const int8_t* x, int row0,
+                                            int src0, int h_in, int w_in,
+                                            int ksegs, int c_in, int c_out,
+                                            int k, int q, int stride,
+                                            int pad_h, int co,
+                                            const int8_t* w) {
+  const int in_row = w_in * ksegs;
+  uint32_t acc = 0;
+  for (int r = 0; r < k; ++r) {
+    const int src = src0 + r;
+    if (src < 0 || src >= h_in) continue;
+    for (int s = 0; s < k; ++s) {
+      const int col = q * stride - pad_h + s;
+      if (col < 0 || col >= w_in) continue;
+      const int8_t* xr = x + ((row0 + r) * in_row + col * ksegs) * SEG;
+      const int8_t* wc = w + (r * k + s) * c_in * c_out + co;
+#pragma unroll 4
+      for (int ci = 0; ci < c_in; ++ci)
+        acc += (uint32_t)((int)xr[ci] * (int)wc[ci * c_out]);
+    }
+  }
+  return acc;
+}
+
 __global__ void __launch_bounds__(THREADS)
 conv_stream_kernel(int8_t* pool, const int8_t* __restrict__ w,
                    const int32_t* __restrict__ b,
@@ -702,9 +838,9 @@ conv_stream_kernel(int8_t* pool, const int8_t* __restrict__ w,
       const int q = j / (nsegs * SEG), co = j % (nsegs * SEG);
       int8_t y = 0;
       if (co < c_out) {
-        const uint32_t acc = kxk_dot<false>(x, src0, src0, h_win, w_in, ksegs,
-                                            c_in, c_out, k, q, stride, pad_h,
-                                            co, prm.w);
+        const uint32_t acc = kxk_dot(x, src0, src0, h_win, w_in, ksegs,
+                                     c_in, c_out, k, q, stride, pad_h, co,
+                                     prm.w);
         y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
       }
       *ring_byte(pool, (out_ptr + p * out_row) % n_seg, j, n_seg) = y;
@@ -786,17 +922,25 @@ size_t conv_smem(size_t x_bytes, size_t w_bytes, int c_out, int stage_w) {
   return x_bytes + 12 * (size_t)c_out + (stage_w ? w_bytes : 0);
 }
 
-// Launch one block with `smem` bytes of dynamic shared memory (above 48 KB
-// only after raising the kernel's limit) and report the launch's error code.
+// Launch `blocks` blocks of `threads` with `smem` bytes of dynamic shared
+// memory (above 48 KB only after raising the kernel's limit) and report the
+// launch's error code.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
+int launch_grid(Kernel kernel, int blocks, int threads, size_t smem,
+                void* stream, Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(args...);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// One block of THREADS: the walk of the kernels that walk an op.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
+  return launch_grid(kernel, 1, THREADS, smem, stream, args...);
 }
 
 // Launch `blocks` CTAs of `threads` cooperatively (all resident at once, so
@@ -846,8 +990,8 @@ int ring_conv_pw_q(void* pool, const void* w, const void* b,
                    int w_in, int h_out, int w_out, int c_in, int c_out,
                    int stride, int resample, int in_ptr, int out_ptr,
                    int relu, int rows, int ctile, void* stream) {
-  const ConvQSmem m = conv_q_layout(rows * w_out, q_pitch(c_in), rows, w_out,
-                                    ctile, 1);
+  const ConvQSmem m = conv_q_layout_dense(rows * w_out, q_pitch(c_in), rows,
+                                          w_out, ctile, 1);
   const int ctas = (h_out + rows - 1) / rows * ((c_out + ctile - 1) / ctile);
   return launch_cooperative(conv_pw_q_kernel, ctas, conv_block(ctile),
                             (size_t)m.bytes, stream, (int8_t*)pool,
@@ -862,13 +1006,15 @@ int ring_conv_dw_q(void* pool, const void* w, const void* b,
                    const void* mult, const void* shift, int n_seg, int h_in,
                    int w_in, int h_out, int w_out, int c, int rs, int stride,
                    int pad_v, int pad_h, int in_ptr, int out_ptr, int relu,
-                   int stage_w, void* stream) {
-  const size_t smem = conv_smem((size_t)rs * w_in * segs_for(c) * SEG,
-                                (size_t)rs * rs * c, c, stage_w);
-  return launch(conv_dw_kernel, smem, stream, (int8_t*)pool,
-                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
-                (const int32_t*)shift, n_seg, h_in, w_in, h_out, w_out, c, rs,
-                stride, pad_v, pad_h, in_ptr, out_ptr, relu, stage_w);
+                   int rows, int ctile, void* stream) {
+  const ConvQSmem m = conv_dw_q_layout(rows, stride, rs, w_in, w_out, ctile);
+  const int ctas = (h_out + rows - 1) / rows * ((c + ctile - 1) / ctile);
+  return launch_cooperative(conv_dw_q_kernel, ctas, dim3(CONV_THREADS),
+                            (size_t)m.bytes, stream, (int8_t*)pool,
+                            (const int8_t*)w, (const int32_t*)b,
+                            (const int32_t*)mult, (const int32_t*)shift,
+                            n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
+                            pad_v, pad_h, in_ptr, out_ptr, relu, rows, ctile);
 }
 
 int ring_conv_k2d_q(void* pool, const void* w, const void* b,
@@ -877,8 +1023,9 @@ int ring_conv_k2d_q(void* pool, const void* w, const void* b,
                     int k, int stride, int pad_v, int pad_h, int in_ptr,
                     int out_ptr, int relu, int rows, int ctile,
                     void* stream) {
-  const ConvQSmem m = conv_q_layout(((rows - 1) * stride + k) * w_in,
-                                    q_pitch(c_in), rows, w_out, ctile, k * k);
+  const ConvQSmem m = conv_q_layout_dense(((rows - 1) * stride + k) * w_in,
+                                          q_pitch(c_in), rows, w_out, ctile,
+                                          k * k);
   const int ctas = (h_out + rows - 1) / rows * ((c_out + ctile - 1) / ctile);
   return launch_cooperative(conv_k2d_q_kernel, ctas, conv_block(ctile),
                             (size_t)m.bytes, stream, (int8_t*)pool,
@@ -901,13 +1048,18 @@ int ring_avgpool_q(void* pool, int n_seg, int h, int w, int c, int in_ptr,
 
 int ring_add_q(void* pool, int n_seg, int rows, int d, int in_ptr,
                int aux_ptr, int out_ptr, int mult_in, int shift_in,
-               int mult_aux, int shift_aux, int relu, int tile_rows,
-               void* stream) {
-  const int chunk = segs_for(d);
-  return launch(add_kernel, 2 * (size_t)tile_rows * chunk * SEG, stream,
-                (int8_t*)pool, n_seg, rows, chunk, d, in_ptr, aux_ptr,
-                out_ptr, mult_in, shift_in, mult_aux, shift_aux, relu,
-                tile_rows);
+               int mult_aux, int shift_aux, int relu, int barrier,
+               int tile_rows, void* stream) {
+  const int blocks = (rows + tile_rows - 1) / tile_rows;
+  if (barrier)
+    return launch_cooperative(add_q_kernel<true>, blocks, dim3(ADD_THREADS),
+                              (size_t)tile_rows * d, stream, (int8_t*)pool,
+                              n_seg, rows, d, in_ptr, aux_ptr, out_ptr,
+                              mult_in, shift_in, mult_aux, shift_aux, relu,
+                              tile_rows);
+  return launch_grid(add_q_kernel<false>, blocks, ADD_THREADS, 0, stream,
+                     (int8_t*)pool, n_seg, rows, d, in_ptr, aux_ptr, out_ptr,
+                     mult_in, shift_in, mult_aux, shift_aux, relu, tile_rows);
 }
 
 int ring_conv_stream_q(void* pool, const void* w, const void* b,

@@ -19,17 +19,22 @@ Each wrapper counts its launches in ``<wrapper>.launches``, and a conv
 or FC wrapper records in ``<wrapper>.weights_staged`` whether its last
 launch staged the weights in shared memory (False: they were read from
 global memory; None for a kernel without weights to stage; for the
-pointwise and k x k convs, whether each CTA staged its weight slice,
-which it always does).  The wrappers size every kernel's shared memory;
-the kernels take the decision as an argument.
+pointwise, depthwise and k x k convs, whether each CTA staged its weight
+slice, which it always does).  The wrappers size every kernel's shared
+memory; the kernels take the decision as an argument.
 
-The pointwise and k x k convs run many CTAs that read all of the op's
-input before any stores, one grid-wide barrier between, tiled by
-:func:`repro_torch.kernels.conv2d.conv_tiling` (kinds
-``ring_conv_pw_q``, ``ring_conv_k2d_q``: a block of output image rows x
-a channel tile a CTA, at most one CTA per SM, shared memory counted at
-int8 widths); a launch the card refuses (more CTAs than fit at once)
-raises.  The other six kernels walk an op in one block.
+The pointwise, depthwise and k x k convs run many CTAs that read all of
+the op's input before any stores, one grid-wide barrier between, tiled
+by :func:`repro_torch.kernels.conv2d.conv_tiling` (kinds
+``ring_conv_pw_q``, ``ring_conv_dw_q``, ``ring_conv_k2d_q``: a block of
+output image rows x a channel tile a CTA, at most one CTA per SM, shared
+memory counted at int8 widths); a launch the card refuses (more CTAs
+than fit at once) raises.  The residual add maps its rows over many CTAs
+with no barrier where no output row lands on an operand row of another
+index (:func:`add_needs_barrier`), and reads first over the row blocks
+of ``conv2d.add_tiling`` elsewhere (``ring_add_q.barrier`` records
+which).  The other four kernels (the FC, the average pool, the streaming
+conv and the GRU cell) walk an op in one block.
 """
 from __future__ import annotations
 
@@ -207,17 +212,25 @@ def ring_conv_dw_q(pool, w, b, mult, shift, *, h_in: int, w_in: int,
                    stride: int = 1, padding: str = "same", in_ptr: int = 0,
                    out_ptr: int = 0, activation: str | None = None):
     """Int8 depthwise RSxRS conv inside the ring (replaces
-    ``ring_conv_dw_q``, ``src/repro/kernels/quantized.py:310``)."""
+    ``ring_conv_dw_q``, ``src/repro/kernels/quantized.py:310``).  One
+    cooperative launch runs the tiles of ``conv2d.conv_tiling`` (kind
+    ``ring_conv_dw_q``: a block of output rows x a channel tile of one
+    segment), each CTA staging its channel tile of the input rows its
+    taps reach and its weight slice, every read before one grid barrier,
+    then every store."""
+    from .conv2d import _tiling   # conv2d imports this module
+
     n_seg = pool.shape[0]
     _check_rows(n_seg, w_in, w_out, c, c, in_ptr, out_ptr)
     _check_cuda(pool, _per_channel(w, b, mult, shift, (rs, rs, c), c))
-    ring_conv_dw_q.weights_staged = _launch(
-        "ring_conv_dw_q", pool, rs * w_in * _segs(c) * SEG_WIDTH + 12 * c,
-        (w, b, mult, shift),
-        (n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
-         conv_k2d_pad(rs, padding), conv_k2d_pad_w(rs, padding),
-         in_ptr % n_seg, out_ptr % n_seg, _relu(activation)),
-        w_bytes=rs * rs * c)
+    t = _tiling("ring_conv_dw_q", h_in, w_in, h_out, w_out, c, c, rs,
+                stride, padding, _sm_count(pool.device))
+    _launch("ring_conv_dw_q", pool, t.smem, (w, b, mult, shift),
+            (n_seg, h_in, w_in, h_out, w_out, c, rs, stride,
+             conv_k2d_pad(rs, padding), conv_k2d_pad_w(rs, padding),
+             in_ptr % n_seg, out_ptr % n_seg, _relu(activation), t.rows,
+             t.ctile))
+    ring_conv_dw_q.weights_staged = t.stage_w
     ring_conv_dw_q.launches += 1
     return pool
 
@@ -285,23 +298,69 @@ def ring_conv_k2d_q_plain(pool, w, b, mult, shift, *, h_in: int, w_in: int,
 # Residual add.
 # ---------------------------------------------------------------------------
 
+#: Threads of a residual-add CTA (``ADD_THREADS`` in ``ring_q.cu``), each
+#: taking one 32-bit word (4 lanes) of a row at a time.
+ADD_THREADS = 256
+
+
+def add_needs_barrier(n_seg: int, rows: int, d: int, in_ptr: int,
+                      aux_ptr: int, out_ptr: int) -> bool:
+    """Whether some output row of an add (``rows`` rows of ``d``
+    channels, ``segs(d)`` segments each, runs at ``in_ptr``, ``aux_ptr``
+    and ``out_ptr`` on a ring of ``n_seg`` segments) lands on a segment
+    of an operand row of another index.  False exactly when, for each
+    operand run, ``out_ptr == ptr`` (mod ``n_seg``) or the output run and
+    that run share no segment (runs that wrap the ring included), and the
+    runs are no longer than the ring: then a thread that reads row t and
+    stores row t needs no barrier, for no other row's store lands on what
+    it reads."""
+    n = rows * _segs(d)
+    if n > n_seg:
+        return True
+    for ptr in (in_ptr, aux_ptr):
+        gap = (out_ptr - ptr) % n_seg
+        if gap and (gap < n or n_seg - gap < n):
+            return True
+    return False
+
+
+def add_map_rows(d: int) -> int:
+    """Rows a CTA of the barrier-free add takes: one 32-bit word of each
+    row's ``segs(d)`` segments a thread (at least one row)."""
+    return max(1, ADD_THREADS // (_segs(d) * SEG_WIDTH // 4))
+
+
 def ring_add_q(pool, *, rows: int, d: int, in_ptr: int, aux_ptr: int,
                out_ptr: int, mult_in: int, shift_in: int, mult_aux: int,
                shift_aux: int, activation: str | None = None):
     """Int8 residual add: both operands requantized to the output scale,
     summed (int32, wrapping), optional relu, saturated to int8 and
     stored at ``out_ptr`` (replaces ``ring_add_q``,
-    ``src/repro/kernels/quantized.py:515``)."""
+    ``src/repro/kernels/quantized.py:515``).  Where no output row lands
+    on an operand row of another index (:func:`add_needs_barrier`; every
+    plan's add, in place), one plain launch maps the rows, each thread
+    reading a 32-bit word of row t of both operands and storing that word
+    of out row t; elsewhere one cooperative launch over the row
+    blocks of ``conv2d.add_tiling`` reads every row before one grid
+    barrier, then stores.  ``ring_add_q.barrier`` records which."""
+    from .conv2d import add_tiling   # conv2d imports this module
+
     n_seg = pool.shape[0]
     _check_add(n_seg, d, in_ptr, aux_ptr, out_ptr)
     _check_cuda(pool)
-    # A step reads as many rows of both operands as shared memory holds.
-    row_bytes = 2 * _segs(d) * SEG_WIDTH
-    tile_rows = min(rows, MAX_SMEM // row_bytes)
-    _launch("ring_add_q", pool, tile_rows * row_bytes, (),
-            (n_seg, rows, d, in_ptr % n_seg, aux_ptr % n_seg,
-             out_ptr % n_seg, int(mult_in), int(shift_in), int(mult_aux),
-             int(shift_aux), _relu(activation), tile_rows))
+    in_ptr, aux_ptr, out_ptr = in_ptr % n_seg, aux_ptr % n_seg, \
+        out_ptr % n_seg
+    barrier = add_needs_barrier(n_seg, rows, d, in_ptr, aux_ptr, out_ptr)
+    if barrier:
+        t = add_tiling(rows, d, _sm_count(pool.device), "ring_add_q")
+        smem, tile_rows = t.smem, t.tile_rows
+    else:
+        smem, tile_rows = 0, add_map_rows(d)
+    _launch("ring_add_q", pool, smem, (),
+            (n_seg, rows, d, in_ptr, aux_ptr, out_ptr, int(mult_in),
+             int(shift_in), int(mult_aux), int(shift_aux), _relu(activation),
+             int(barrier), tile_rows))
+    ring_add_q.barrier = barrier
     ring_add_q.launches += 1
     return pool
 
@@ -406,3 +465,4 @@ PLAIN = {name: globals()[f"{name}_plain"] for name in KERNELS}
 for _f in KERNELS.values():
     _f.launches = 0
     _f.weights_staged = None
+ring_add_q.barrier = None

@@ -25,8 +25,8 @@ from repro_torch.core.executors import run_program
 from repro_torch.kernels import (KERNELS, PLAIN, launch_counts,
                                  reset_launch_counts)
 from repro_torch.graph.run import reference_forward
-from repro_torch.kernels.cases import (ATOL_REL, EDGE_CASES,
-                                       F32_EDGE_CASES,
+from repro_torch.kernels.cases import (ATOL_REL, CARD_EDGE_CASES,
+                                       EDGE_CASES, F32_EDGE_CASES,
                                        F32_FUSED_STREAM_EDGE_CASES,
                                        F32_MLP_EDGE_CASES, RTOL,
                                        case_inputs, compare_f32, live_lanes,
@@ -40,6 +40,7 @@ from repro_torch.kernels.cases import (DECODE_CASES, compare_decode,
                                        lm_params, logits_close)
 from repro_torch.kernels import fused_mlp
 from repro_torch.kernels.fused_mlp import MlpTiling, mlp_tiling
+from repro_torch.kernels.quantized import add_needs_barrier
 from repro_torch.kernels.ring_decode import (ring_decode_attention,
                                              ring_decode_attention_plain)
 from repro_torch.models import build_model, params_from_reference
@@ -67,7 +68,8 @@ def _program_cases(name):
                          prefix=f"{name}_")
 
 
-CASES = EDGE_CASES + sum((_program_cases(n) for n in NETS + STREAMS), ())
+CASES = EDGE_CASES + CARD_EDGE_CASES \
+    + sum((_program_cases(n) for n in NETS + STREAMS), ())
 FLOAT_NETS = NETS
 
 
@@ -128,6 +130,33 @@ def test_cuda_kernel_bitwise_equals_plain_on_card(case):
     got = torch.from_numpy(pool).cuda()
     KERNELS[case.kernel](got, *cuda_params, **case.kwargs)
     torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+ADD_CASES = tuple(c for c in CASES if c.kernel == "ring_add_q")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ADD_CASES, ids=lambda c: c.name)
+def test_add_takes_the_row_map_exactly_where_no_barrier_is_needed_on_card(
+        case):
+    """``ring_add_q`` maps the rows with no barrier on every plan's add
+    and on the in-place edge cases, and reads first on the shifted ones;
+    bitwise the plain version either way."""
+    _need_card()
+    kw, n = case.kwargs, case.n_seg
+    need = add_needs_barrier(n, kw["rows"], kw["d"], kw["in_ptr"] % n,
+                             kw["aux_ptr"] % n, kw["out_ptr"] % n)
+    assert need == (case.name in (
+        "add_shifted", "add_tiles_shifted", "add_shifted_uneven",
+        "add_out_on_residual", "add_shifted_card"))
+    pool, _ = case_inputs(case, seed=0)
+    want = torch.from_numpy(pool).cuda()
+    PLAIN[case.kernel](want, **kw)
+    got = torch.from_numpy(pool).cuda()
+    KERNELS[case.kernel](got, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[case.kernel].barrier is need
     assert torch.equal(got, want)
 
 

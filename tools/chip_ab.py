@@ -11,9 +11,9 @@ through that checkout's own ``repro_torch`` and ``chip_smoke.py``:
   and MCUNet-5fps-VWW, ``stream().step`` on the DS-CNN stream): median
   and quartiles of 300 calls on the host clock, each ending in
   ``torch.cuda.synchronize()``, after 20 calls of warm-up;
-* the device time of ``ring_conv_k2d_q`` and ``ring_conv_pw_q`` on every
-  op of those plans (``chip_smoke._held_ms``: held-stream CUDA events,
-  50 launches).
+* the device time of ``ring_conv_k2d_q``, ``ring_conv_pw_q``,
+  ``ring_conv_dw_q`` and ``ring_add_q`` on every op of those plans
+  (``chip_smoke._held_ms``: held-stream CUDA events, 50 launches).
 
 It prints each process's result as a JSON line, then a summary: per
 path the median of the processes' medians, per op the mean of the
@@ -31,7 +31,8 @@ import sys
 import time
 
 PATHS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ds-cnn-stream")
-KERNELS = ("ring_conv_k2d_q", "ring_conv_pw_q")
+KERNELS = ("ring_conv_k2d_q", "ring_conv_pw_q", "ring_conv_dw_q",
+           "ring_add_q")
 CALLS, WARM = 300, 20
 
 
