@@ -31,13 +31,17 @@ Phases, one summary line each:
      used once, or streamed in chunks); for each ``ring_gemm`` /
      ``ring_conv_pw`` / ``ring_conv_dw`` / ``ring_conv_k2d`` /
      ``ring_conv_stream`` / ``ring_add`` / ``ring_inverted_bottleneck``
-     / ``ring_conv_pw_q`` / ``ring_conv_dw_q`` / ``ring_conv_k2d_q``
-     call, its CTAs and the bytes each holds across the grid barrier
+     / ``ring_conv_pw_q`` / ``ring_conv_dw_q`` / ``ring_conv_k2d_q`` /
+     ``ring_conv_stream_q`` call, its CTAs and the bytes each holds across the grid barrier
      (``segment_matmul.gemm_tiling``, ``conv2d.conv_tiling``,
      ``conv2d.add_tiling``, ``inverted_bottleneck.ib_tiling``), for each
      ``ring_add_q`` call its mode (the barrier-free row map where
      ``quantized.add_needs_barrier`` is False, and the wrapper must have
      taken it; else read first), CTAs and bytes held, for each
+     ``ring_gemm_q`` call its mode (one CTA in an ordinary launch, or
+     column tiles under a grid barrier, as ``quantized.gemm_q_tiling``
+     rules, and the wrapper must have taken it), CTAs and bytes held,
+     for each
      ``ring_elementwise`` call its runs and blocks
      (``elementwise.ring_runs``, ``ew_blocks``); and for each
      ``ring_fused_mlp``
@@ -93,8 +97,8 @@ Phases, one summary line each:
      library call that computes the same op, at the shapes each path
      gives it (the fused bottleneck, the fp32 GRU cell and the fused MLP
      against a short sequence of calls, with the count stated; the FC
-     kernels, the int8 pw, dw and k x k convs and the int8 add also op by
-     op, ``PER_OP_KERNELS``); and the
+     kernels, the int8 pw, dw, k x k and streaming convs and the int8 add
+     also op by op, ``PER_OP_KERNELS``); and the
      gemma3-1b path's prefill latency at batch 4, per-token decode
      latency at batch 1 and 4, its device-busy share, and
      ``ring_decode_attention`` at its two serve shapes (a 512-slot local
@@ -104,7 +108,9 @@ Phases, one summary line each:
      ``ring_fused_mlp`` on the tower's layer under its tiling and a few
      others (``MLP_TILINGS``), and ``ring_add_q`` on every int8 add of
      the plans and edge cases in each mode it may take (the row map, and
-     reading first, forced where the map would do).
+     reading first, forced where the map would do), and ``ring_gemm_q``
+     on every int8 FC of the plans and edge cases in both of its modes
+     (``time_gemm_modes``).
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -451,8 +457,9 @@ def phase_parity(cases) -> dict[str, float]:
     weights from global memory, as the wrapper decided
     (``<wrapper>.weights_staged``); and the tiling of each depthwise,
     k x k and streaming fp32 conv, of each int8 pw, dw and k x k conv, of
-    each fp32 add, of each fused bottleneck and each int8 add's mode,
-    which the wrapper must have taken (``ring_add_q.barrier``).  Returns the max |difference| per kernel (0 for int8, or
+    each fp32 add, of each fused bottleneck and each int8 add's and int8
+    FC's mode, which the wrapper must have taken (``ring_add_q.barrier``,
+    ``ring_gemm_q.barrier``).  Returns the max |difference| per kernel (0 for int8, or
     this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
@@ -460,7 +467,9 @@ def phase_parity(cases) -> dict[str, float]:
     from repro_torch.kernels.conv2d import add_tiling, conv_tiling
     from repro_torch.kernels.elementwise import ew_blocks, ring_runs
     from repro_torch.kernels.inverted_bottleneck import ib_tiling
-    from repro_torch.kernels.quantized import add_map_rows, add_needs_barrier
+    from repro_torch.kernels.quantized import (add_map_rows,
+                                               add_needs_barrier,
+                                               gemm_q_tiling)
     from repro_torch.kernels.segment_matmul import gemm_tiling
 
     n_f32 = sum(is_f32(c.kernel) for c in cases)
@@ -474,7 +483,8 @@ def phase_parity(cases) -> dict[str, float]:
         barrier = None
         if case.kernel in ("ring_conv_pw", "ring_conv_dw", "ring_conv_k2d",
                            "ring_conv_stream", "ring_conv_pw_q",
-                           "ring_conv_dw_q", "ring_conv_k2d_q"):
+                           "ring_conv_dw_q", "ring_conv_k2d_q",
+                           "ring_conv_stream_q"):
             t = conv_tiling(case.kernel, case.kwargs, n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs, {t.held} B held")
         elif case.kernel == "ring_add":
@@ -498,6 +508,15 @@ def phase_parity(cases) -> dict[str, float]:
             t = gemm_tiling(kw["m_rows"], kw["d_in"], kw["d_out"], n_sm)
             tiles.append(f"{case.name} {t.ctas} CTAs ({t.rows} rows x "
                          f"{t.ctile} columns), {t.held} B held")
+        elif case.kernel == "ring_gemm_q":
+            kw = case.kwargs
+            t = gemm_q_tiling(kw["m_rows"], kw["d_in"], kw["d_out"], n_sm)
+            barrier = t.barrier
+            tiles.append(f"{case.name} "
+                         + ("grid barrier, cooperative" if barrier else
+                            "one CTA, ordinary launch")
+                         + f": {t.ctas} CTAs ({t.rows} rows x {t.ctile} "
+                         f"columns), {t.held} B held")
         elif case.kernel == "ring_elementwise":
             kw = case.kwargs
             n = kw["m_rows"] * _segs(kw["d"])
@@ -517,7 +536,7 @@ def phase_parity(cases) -> dict[str, float]:
         if KERNELS[case.kernel].weights_staged is False:
             global_w.append(case.name)
         if barrier is not None and KERNELS[case.kernel].barrier != barrier:
-            raise SystemExit(f"{case.name}: ring_add_q took barrier="
+            raise SystemExit(f"{case.name}: {case.kernel} took barrier="
                              f"{KERNELS[case.kernel].barrier}, not {barrier}")
         if case.kernel == "ring_fused_mlp":
             t = KERNELS[case.kernel].tiles
@@ -552,11 +571,11 @@ def phase_parity(cases) -> dict[str, float]:
         f"{global_w or 'none'}")
     say(f"  ring_gemm / ring_conv_pw / ring_conv_dw / ring_conv_k2d / "
         f"ring_conv_stream / ring_add / ring_inverted_bottleneck / "
-        f"ring_conv_pw_q / ring_conv_dw_q / ring_conv_k2d_q tiles on "
-        f"{n_sm} SMs (CTAs, bytes each holds across the grid barrier), "
-        "ring_add_q's mode, CTAs and bytes held, ring_elementwise's runs "
-        "and blocks, and ring_fused_mlp's (CTAs of its first kernel, "
-        "tiling, scratch):")
+        f"ring_conv_pw_q / ring_conv_dw_q / ring_conv_k2d_q / "
+        f"ring_conv_stream_q tiles on {n_sm} SMs (CTAs, bytes each holds "
+        "across the grid barrier), ring_gemm_q's and ring_add_q's mode, "
+        "CTAs and bytes held, ring_elementwise's runs and blocks, and "
+        "ring_fused_mlp's (CTAs of its first kernel, tiling, scratch):")
     for line in tiles:
         say(f"    {line}")
     return err
@@ -859,13 +878,13 @@ def _host_ms(fn, reps: int) -> float:
 #: Each wrapper's CUDA kernels, as the profiler names them: the first is
 #: launched once a wrapper call, and the row's device time is the sum of
 #: them all.
-KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_kernel",
+KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_q_kernel",
                   "ring_conv_pw_q": "conv_pw_q_kernel",
                   "ring_conv_dw_q": "conv_dw_q_kernel",
                   "ring_conv_k2d_q": "conv_k2d_q_kernel",
                   "ring_add_q": "add_q_kernel",
                   "ring_avgpool_q": "avgpool_kernel",
-                  "ring_conv_stream_q": "conv_stream_kernel",
+                  "ring_conv_stream_q": "conv_stream_q_kernel",
                   "ring_gru_cell_q": "gru_kernel",
                   "ring_gemm": "gemm_f32_kernel",
                   "ring_conv_pw": "conv_pw_f32_kernel",
@@ -1064,7 +1083,8 @@ def _work_kw(kernel: str, kw: dict, params) -> dict:
 #: Kernels whose phase-4 row also lists each op's device and library
 #: time (``per_op``), not only the plan's mean.
 PER_OP_KERNELS = ("ring_gemm_q", "ring_gemm", "ring_conv_k2d_q",
-                  "ring_conv_pw_q", "ring_conv_dw_q", "ring_add_q")
+                  "ring_conv_pw_q", "ring_conv_dw_q", "ring_add_q",
+                  "ring_conv_stream_q")
 
 
 def time_cases(cases) -> dict[str, dict]:
@@ -1149,6 +1169,56 @@ def time_add_modes(cases) -> dict[str, dict]:
         "launch, device): "
         + "; ".join(f"{name} " + ", ".join(f"{m} {v * 1e3:.2f}"
                                            for m, v in row.items())
+                    for name, row in out.items()))
+    return out
+
+
+def time_gemm_modes(cases) -> dict[str, dict]:
+    """``ring_gemm_q`` on each int8 FC of ``cases`` in both modes of
+    ``quantized.gemm_q_tiling``: one CTA in an ordinary launch (where its
+    shared memory fits) and the column tiles under a grid barrier in a
+    cooperative launch (its barrier even over one CTA); each launch
+    bitwise the plain version, then timed, ms a launch (held-stream CUDA
+    events), by case and mode, beside the mode the rule gives."""
+    from repro_torch.kernels import quantized
+    from repro_torch.kernels._launch import MAX_SMEM
+    from repro_torch.kernels.cases import case_inputs
+
+    tiling, out = quantized.gemm_q_tiling, {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for case in (c for c in cases if c.kernel == "ring_gemm_q"):
+        kw = case.kwargs
+        shape = (kw["m_rows"], kw["d_in"], kw["d_out"])
+        pool, params = case_inputs(case, seed=0)
+        params = _cuda(params)
+        want = torch.from_numpy(pool).cuda()
+        quantized.ring_gemm_q_plain(want, *params, **kw)
+        row = {"rule": "grid" if tiling(*shape, n_sm).barrier else "one"}
+        for mode, one in (("one", True), ("grid", False)):
+            if one and quantized.GemmQTiling(*shape, shape[0], shape[2],
+                                             False).smem > MAX_SMEM:
+                continue
+            quantized.gemm_q_tiling = \
+                lambda m, i, o, n, one=one: tiling(m, i, o, n, one)
+            try:
+                got = torch.from_numpy(pool).cuda()
+                quantized.ring_gemm_q(got, *params, **kw)
+                torch.cuda.synchronize()
+                if quantized.ring_gemm_q.barrier is one \
+                        or not torch.equal(got, want):
+                    raise SystemExit(f"{case.name}: ring_gemm_q in mode "
+                                     f"{mode} differs from its plain "
+                                     "version")
+                row[mode] = _held_ms(
+                    lambda: quantized.ring_gemm_q(got, *params, **kw), 50)
+            finally:
+                quantized.gemm_q_tiling = tiling
+        out[case.name] = row
+    say("  ring_gemm_q by mode, bitwise the plain version in each (us a "
+        "launch, device; the rule's mode first): "
+        + "; ".join(f"{name} ({row['rule']}) "
+                    + ", ".join(f"{m} {v * 1e3:.2f}"
+                                for m, v in row.items() if m != "rule")
                     for name, row in out.items()))
     return out
 
@@ -1636,6 +1706,9 @@ def main() -> None:
     next(r for r in rows if r["name"] == "ring_add_q")["by_mode"] = \
         time_add_modes(cases["resnet-8"] + cases["mcunet-5fps-vww"]
                        + EDGE_CASES + CARD_EDGE_CASES)
+    next(r for r in rows if r["name"] == "ring_gemm_q")["by_mode"] = \
+        time_gemm_modes(sum((cases[n] for n in NETS + STREAMS[:1]), ())
+                        + EDGE_CASES)
     paths[f"{LM} serve"] = time_lm(lm_cfg, lm_weights)
     rows.append(time_decode_kernel(
         lm_cfg, max(LM_PROMPT_LENS) + LM_MAX_NEW // 2, counts[LM],

@@ -35,13 +35,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: last.
 SIGNATURES = {
     "ring_q": {
-        "ring_gemm_q": [_P] * 5 + [_I] * 9 + [_P],
+        "ring_gemm_q": [_P] * 5 + [_I] * 10 + [_P],
         "ring_conv_pw_q": [_P] * 5 + [_I] * 14 + [_P],
         "ring_conv_dw_q": [_P] * 5 + [_I] * 15 + [_P],
         "ring_conv_k2d_q": [_P] * 5 + [_I] * 16 + [_P],
         "ring_avgpool_q": [_P] + [_I] * 9 + [_P],
         "ring_add_q": [_P] + [_I] * 13 + [_P],
-        "ring_conv_stream_q": [_P] * 5 + [_I] * 17 + [_P],
+        "ring_conv_stream_q": [_P] * 5 + [_I] * 19 + [_P],
         "ring_gru_cell_q": [_P] * 8 + [_I] * 6 + [_P],
     },
     "ring_f32": {

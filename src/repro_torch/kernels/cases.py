@@ -46,7 +46,7 @@ held by :func:`compare_f32` at the one tolerance :data:`RTOL` and
 the live channels of the rows the call writes, and exactly everywhere
 else (channel tails and segments the call does not write).
 
-Every in/out overlap here but six is one a certified plan allows: no
+Every in/out overlap here but seven is one a certified plan allows: no
 output row lands on an input row (or residual row) a later step still
 reads, and no output lands on a streaming state region.  The reference
 kernels in interpret mode read an unaliased copy of the pool, and the
@@ -54,8 +54,9 @@ plain versions read every input before they store, so an overlap no
 plan has would set them apart from a kernel that walks the ring in
 order.  The exceptions are the fp32 and int8 depthwise and k x k convs
 in place (``f32_dw_inplace*``, ``f32_k2d_inplace``, ``dw_inplace_uneven``,
-``k2d_inplace_uneven``) and the fp32 stream whose output overlaps its
-window (``f32_stream_out_over_window``): those kernels read all of an
+``k2d_inplace_uneven``) and the fp32 and int8 streams whose output
+overlaps the window (``f32_stream_out_over_window``,
+``stream_q_out_over_window``): those kernels read all of an
 op's input before any CTA stores, so they too must match the plain
 version there, where a kernel that walks the rows in order does not.  A
 store before their grid barrier shows when it lands while another CTA
@@ -85,7 +86,11 @@ the rows its neighbour's last sub-tile reads
 ``f32_gemm_inplace_uneven`` and ``f32_gemm_widen`` (plans' overlaps:
 every ToyADMOS layer but the last runs in place), whose CTAs store onto
 input channels that other CTAs read (``tests/test_torch_gemm_tiles.py``
-models it).
+models it); so may their int8 twins ``gemm_q_inplace_uneven`` and
+``gemm_q_widen``, and the int8 stream on ``stream_q_uneven``, whose short
+last CTA copies a window row back onto the source of the row its
+neighbour still reads (``tests/test_torch_q_stream_gemm_tiles.py`` models
+them).
 """
 from __future__ import annotations
 
@@ -287,6 +292,36 @@ EDGE_CASES = (
     # which the CTA of the rows before reads
     Case("add_out_on_residual", "ring_add_q", 1200,
          _add(263, 130, 0, 600, 598, 1.3, 0.7, None)),
+    # ToyADMOS's 640-wide layer in place, 132 outputs a row (the int8 twin
+    # of f32_gemm_inplace_uneven): at 132 SMs 2 row blocks x 9 column tiles
+    # of 16, the last 4 columns wide, so its CTA finishes first; it stores
+    # lanes 128 .. 255 of row 1's output (segment 13), channels 384 .. 511
+    # of row 0's input, while the CTAs of row 0 still read them
+    Case("gemm_q_inplace_uneven", "ring_gemm_q", 20,
+         dict(m_rows=2, d_in=640, d_out=132, in_ptr=10, out_ptr=10,
+              block_rows=1, activation="relu")),
+    # ToyADMOS's last layer, 128 -> 640, onto a shifted pointer (the twin
+    # of f32_gemm_widen): row 1's output wraps the ring onto segments 0 ..
+    # 4, over both rows' inputs (80 CTAs of 1 row x 16 columns)
+    Case("gemm_q_widen", "ring_gemm_q", 20,
+         dict(m_rows=2, d_in=128, d_out=640, in_ptr=0, out_ptr=15,
+              block_rows=1, activation=None)),
+    # the reference's int8 ImageNet head (mcunet-320kb-imagenet on
+    # cortex-m7: 96 -> 1000, in_ptr 594, out_ptr 584 on its 31,680-segment
+    # ring) on a 600-segment ring; 96,000 B of weights over 63 CTAs
+    Case("gemm_q_head_1000", "ring_gemm_q", 600,
+         dict(m_rows=1, d_in=96, d_out=1000, in_ptr=594, out_ptr=584,
+              block_rows=1, activation=None)),
+    # 133 output rows at 132 SMs: 67 CTAs of 2 rows, the last one row
+    # (row 132), so it finishes first; it also owns window row 132 (2 rows
+    # a CTA) and stores it onto old state row 132, the source of window
+    # row 131, which its neighbour (rows 130-131) still reads
+    Case("stream_q_uneven", "ring_conv_stream_q", 600,
+         _stream(133, 2, 4, 4, 3, 1, 1, 133, 2, 580, 0, 300, "relu")),
+    # the output run overlaps the window region, an overlap no plan has:
+    # the reference stores the window first, so the output wins there
+    Case("stream_q_out_over_window", "ring_conv_stream_q", 80,
+         _stream(6, 5, 8, 16, 3, 1, 2, 6, 5, 0, 40, 30, "relu")),
 )
 
 #: Int8 edge cases too large for the reference's Pallas kernel in interpret

@@ -125,14 +125,17 @@ K2D_CHANNEL_TILES = (4, 8, 16, 32)
 PW_KERNELS = ("ring_conv_pw", "ring_conv_pw_q")
 #: The depthwise convs, fp32 and int8: channel tiles of one segment.
 DW_KERNELS = ("ring_conv_dw", "ring_conv_dw_q")
+#: The streaming convs, fp32 and int8: the k x k conv's tiles over the
+#: window, each CTA also copying back a share of the window's rows.
+STREAM_KERNELS = ("ring_conv_stream", "ring_conv_stream_q")
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvTiling:
     """How :func:`ring_conv_pw` / :func:`ring_conv_dw` /
     :func:`ring_conv_k2d` / ``ring_conv_stream`` and the int8
-    ``ring_conv_pw_q`` / ``ring_conv_dw_q`` / ``ring_conv_k2d_q`` cut an
-    op: CTA i owns
+    ``ring_conv_pw_q`` / ``ring_conv_dw_q`` / ``ring_conv_k2d_q`` /
+    ``ring_conv_stream_q`` cut an op: CTA i owns
     tile i, ``rows`` output image rows (fewer in the last block) by
     ``ctile`` output channels, channel tiles fastest; ``ctas`` is at most
     the SM count, so all of them are resident at once.  A streaming conv's
@@ -143,7 +146,9 @@ class ConvTiling:
     a depthwise conv's input row segments, the held outputs, the bias, the
     weight slice when ``stage_w``, the output row segments; an int8
     conv's as :func:`_conv_smem_q` counts them), ``held`` the bytes of
-    outputs and window rows it keeps across the grid barrier."""
+    outputs and window rows it keeps across the grid barrier (an fp32
+    stream's window row holds its ``w_in * c_in`` live floats, an int8
+    one's its whole segments, ``win_row_len`` elements)."""
 
     kernel: str
     h_in: int
@@ -158,7 +163,7 @@ class ConvTiling:
     stage_w: bool
     smem: int
     win_rows: int = 0       # a streaming conv's window rows per CTA
-    win_row_len: int = 0    # their live floats, w_in * c_in
+    win_row_len: int = 0    # their elements a row: see above
     resample: bool = False  # a pointwise conv's nearest-grid pixel map
 
     @property
@@ -244,17 +249,20 @@ def _r16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _conv_smem_q(rows, ctile, *, w_in, w_out, c_in, k, stride, kind) -> int:
+def _conv_smem_q(rows, ctile, *, w_in, w_out, c_in, k, stride, kind,
+                 win_rows=0) -> int:
     """Bytes of an int8 conv CTA's shared memory
     (``ring_q.cu::conv_q_layout``): the staged pixels (the pointwise
-    conv's source pixel of each output, the k x k and depthwise conv's
-    halo rows), the held int8 outputs, bias, mult and shift (4 bytes
-    each a channel), the weight slice and the output rows' ring
-    segments; each part from a 16-byte boundary.  A pw / k x k pixel
-    takes :func:`q_pixel_pitch` bytes and its weight slice ``[k * k,
-    ctile, pitch]``; a depthwise pixel only its channel tile's bytes,
-    ``ctile`` in whole 16-byte chunks, and its weight slice ``[k * k,
-    ctile]``, each tap's channels in whole 32-bit words."""
+    conv's source pixel of each output, the k x k, streaming and
+    depthwise conv's halo rows, then a streaming conv's ``win_rows``
+    window rows as whole segments, ``conv_stream_q_layout``), the held
+    int8 outputs, bias, mult and shift (4 bytes each a channel), the
+    weight slice and the output rows' ring segments; each part from a
+    16-byte boundary.  A pw / k x k / streaming pixel takes
+    :func:`q_pixel_pitch` bytes and its weight slice ``[k * k, ctile,
+    pitch]``; a depthwise pixel only its channel tile's bytes, ``ctile``
+    in whole 16-byte chunks, and its weight slice ``[k * k, ctile]``,
+    each tap's channels in whole 32-bit words."""
     if kind == "ring_conv_dw_q":
         pixel, w_len = _r16(ctile), _r16(k * k * -(-ctile // 4) * 4)
     else:
@@ -262,15 +270,16 @@ def _conv_smem_q(rows, ctile, *, w_in, w_out, c_in, k, stride, kind) -> int:
         w_len = k * k * ctile * pixel
     pixels = rows * w_out if kind in PW_KERNELS \
         else ((rows - 1) * stride + k) * w_in
-    return (pixels * pixel + _r16(rows * w_out * ctile) + _r16(12 * ctile)
-            + w_len + 4 * rows)
+    window = win_rows * _win_row_len(kind, w_in, c_in)
+    return (pixels * pixel + window + _r16(rows * w_out * ctile)
+            + _r16(12 * ctile) + w_len + 4 * rows)
 
 
 def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
     """The tiling of a ``ring_conv_pw`` / ``ring_conv_dw`` /
     ``ring_conv_k2d`` / ``ring_conv_stream`` / ``ring_conv_pw_q`` /
-    ``ring_conv_dw_q`` / ``ring_conv_k2d_q`` call (its kwargs ``kw``)
-    over at most ``n_sm`` CTAs.
+    ``ring_conv_dw_q`` / ``ring_conv_k2d_q`` / ``ring_conv_stream_q``
+    call (its kwargs ``kw``) over at most ``n_sm`` CTAs.
 
     A depthwise conv (fp32 or int8) takes channel tiles of one segment (``min(c,
     128)``); a k x k or pointwise conv (k = 1, each output reading one
@@ -288,7 +297,7 @@ def conv_tiling(kernel: str, kw: dict, n_sm: int = H100_SMS) -> ConvTiling:
         return _pw_tiling(kw["h_in"], kw["w_in"], kw["h_out"], kw["w_out"],
                           kw["c_in"], kw["c_out"], kw.get("stride", 1),
                           bool(kw.get("resample")), n_sm, kernel)
-    if kernel == "ring_conv_stream":
+    if kernel in STREAM_KERNELS:
         return _tiling(kernel, kw["h_win"], kw["w_in"], kw["h_out"],
                        kw["w_out"], kw["c_in"], kw["c_out"], kw["k"],
                        kw["stride"], kw["padding"], n_sm)
@@ -305,13 +314,23 @@ def _pw_tiling(h_in, w_in, h_out, w_out, c_in, c_out, stride, resample,
                    stride, "valid", n_sm, resample)
 
 
+def _win_row_len(kernel, w_in, c_in) -> int:
+    """Elements a streaming conv CTA holds of one window row: the fp32
+    kernel's live channels, the int8 one's whole segments (a raw copy)."""
+    if kernel == "ring_conv_stream":
+        return w_in * c_in
+    if kernel == "ring_conv_stream_q":
+        return w_in * -(-c_in // SEG_WIDTH) * SEG_WIDTH
+    return 0
+
+
 @functools.lru_cache(maxsize=4096)
 def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
             padding, n_sm, resample=False) -> ConvTiling:
     """:func:`conv_tiling` by geometry, once per geometry (a wrapper
     calls it on every launch)."""
     dw = kernel in DW_KERNELS
-    stream = kernel == "ring_conv_stream"
+    stream = kernel in STREAM_KERNELS
     tiles = [min(c_out, SEG_WIDTH)] if dw else \
         sorted({min(c_out, t) for t in K2D_CHANNEL_TILES})
     best = None
@@ -324,7 +343,8 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
         geom = dict(w_in=w_in, w_out=w_out, c_in=c_in, k=k, stride=stride,
                     kind=kernel)
         if kernel.endswith("_q"):
-            smem, stage_w = _conv_smem_q(rows, ctile, **geom), True
+            smem, stage_w = _conv_smem_q(rows, ctile, win_rows=win_rows,
+                                         **geom), True
             if smem > MAX_SMEM:
                 continue
         else:
@@ -340,7 +360,7 @@ def _tiling(kernel, h_in, w_in, h_out, w_out, c_in, c_out, k, stride,
             best = key, ConvTiling(
                 kernel, h_in, h_out, w_out, c_out, k, stride,
                 conv_k2d_pad(k, padding), rows, ctile, stage_w, smem,
-                win_rows, w_in * c_in if stream else 0, resample)
+                win_rows, _win_row_len(kernel, w_in, c_in), resample)
     if best is None:
         raise ValueError(
             f"{kernel}: no tile of the op [{h_in}, {w_in}, {c_in}] -> "

@@ -23,15 +23,21 @@
 // sees the pool as it was before the op.  A kernel keeps that in one of three
 // ways.
 //
-// The 1x1, depthwise and k x k convs (ring_conv_pw_q, ring_conv_dw_q,
-// ring_conv_k2d_q) read EVERYTHING before they store anything, over many
-// CTAs in one cooperative launch: each CTA stages what its tile of output
-// rows x output channels reads, computes its outputs into shared memory,
-// meets every other CTA at one grid-wide barrier, then stores (see their
-// section below).  What bounds them is the floor of that launch and its
-// barrier, not bytes or MACs; their products (__dp4a for the 1x1 and k x k,
-// scalar for the depthwise) are bitwise the reference's wrapping int32
-// sums.
+// The 1x1, depthwise, k x k and streaming convs (ring_conv_pw_q,
+// ring_conv_dw_q, ring_conv_k2d_q, ring_conv_stream_q) read EVERYTHING
+// before they store anything, over many CTAs in one cooperative launch: each
+// CTA stages what its tile of output rows x output channels reads (the
+// stream also its share of the window rows), computes its outputs into
+// shared memory, meets every other CTA at one grid-wide barrier, then stores
+// (see their section below).  What bounds them is the floor of that launch
+// and its barrier, not bytes or MACs; their products (__dp4a for the 1x1, k x
+// k and streaming convs, scalar for the depthwise) are bitwise the
+// reference's wrapping int32 sums.
+//
+// The FC (ring_gemm_q) reads first too, with __dp4a products: in one CTA and
+// an ordinary launch where its tiling gives one (every plan's head and
+// ToyADMOS's 128-wide layers), else over many CTAs in one cooperative launch
+// with one grid barrier (see its section).
 //
 // The residual add (ring_add_q) maps its rows over many CTAs: where no
 // output row lands on an operand row of another index (every plan's add) a
@@ -39,30 +45,18 @@
 // with no barrier, in an ordinary launch; elsewhere it reads first, as the
 // convs do (see its section).
 //
-// The other four (the FC, the average pool, the streaming conv and the GRU
-// cell) run as ONE thread block that walks the steps in plan order:
+// The other two (the average pool and the GRU cell) run as ONE thread block
+// of THREADS that reads all of its op into shared memory, then stores: the
+// pool's pixels in chunks of `chunk_pix` as large as shared memory allows,
+// the GRU cell's x and h.  Their bytes and operations are tiny, so what they
+// cost is latency on one SM.  Channel tails (c .. segs(c) * 128) are stored
+// as zeros.
 //
-//   load the step's input segments into shared memory   (ring load, modulo n_seg)
-//   __syncthreads()
-//   int32 accumulate -> bias -> relu -> requantize        (threads over w_out x c_out)
-//   store the step's output segments                      (ring store, modulo n_seg)
-//   __syncthreads()                                       (stores visible before the next load)
-//
-// A run of segments that wraps the ring inside one step is handled segment by
-// segment.  Channel tails (c .. segs(c) * 128) are stored as zeros.
-//
-// What bounds the walking kernels on the card: the bytes and operations are
-// tiny (tens of KB and about a million int8 MACs per op for DS-CNN), so the
-// bound is a few nanoseconds; what the serial walk costs is latency, one SM
-// and one barrier pair per step.  Against that latency the weights, biases
-// and requant constants are staged once per op into shared memory (weights
-// only when they fit beside the step's input tile; otherwise they are read
-// from global memory), so the dot products of every step read shared memory.
-// The Python wrappers (kernels/quantized.py) size shared memory: they pass
-// `stage_w`, the pool's `chunk_pix`, the read-first convs' tiling
-// (conv2d.py::conv_tiling) and the add's mode and rows a CTA, and the entry
-// points below only turn those into the launch's byte count.  The GRU cell
-// is one step of two small matrix-vector products.
+// The Python wrappers (kernels/quantized.py, kernels/stream.py) size shared
+// memory: they pass the pool's `chunk_pix`, the read-first kernels' tilings
+// (conv2d.py::conv_tiling, quantized.py::gemm_q_tiling) and the add's mode
+// and rows a CTA, and the entry points below only turn those into the
+// launch's byte count.
 //
 // Requantization is the reference's (src/repro/quant/requant.py): the exact
 // 64-bit product acc * mult, one round-to-nearest-even at 31 - shift,
@@ -71,9 +65,9 @@
 // so do the residual add's sum and the GRU's gx + bias (summed in uint32).
 //
 // The streaming kernels keep persistent state in the ring, above the frame
-// program's extent (it never wraps).  ring_conv_stream_q reads the whole
-// window and the new frame into shared memory before it writes anything: the
-// shifted window goes back to the state region, then the output rows, which
+// program's extent (it never wraps).  ring_conv_stream_q reads its window
+// rows and the new frame's before any CTA writes anything: the shifted window
+// goes back to the state region as raw segments, then the output rows, which
 // may land on the frame's rows.  ring_gru_cell_q reads x and h before it
 // stores h' to the state and to the chained output.
 
@@ -87,7 +81,7 @@ namespace cg = cooperative_groups;
 
 constexpr int SEG = 128;              // bytes per int8 segment
 constexpr int VEC = SEG / 16;         // 16-byte vectors per segment
-constexpr int THREADS = 1024;        // one pass over a DS-CNN step's outputs
+constexpr int THREADS = 1024;        // threads of the one-block pool and GRU cell
 constexpr long long I24 = 1LL << 24;
 constexpr long long I32_MIN = -2147483648LL;
 constexpr long long I32_MAX = 2147483647LL;
@@ -139,76 +133,11 @@ __device__ __forceinline__ int8_t* ring_byte(int8_t* pool, int ptr, int j,
   return pool + (size_t)((ptr + j / SEG) % n_seg) * SEG + j % SEG;
 }
 
-// An op's weights and per-channel constants, wherever they are read from.
-struct Params {
-  const int8_t* w;
-  const int32_t* b;
-  const int32_t* mult;
-  const int32_t* shift;
-};
-
-// Stage bias, mult and shift (and the weights, when `stage_w`) into shared
-// memory at `dst`.  Read only after the first step's __syncthreads().
-__device__ __forceinline__ Params stage_params(
-    char* dst, const int8_t* __restrict__ w, int w_bytes,
-    const int32_t* __restrict__ b, const int32_t* __restrict__ mult,
-    const int32_t* __restrict__ shift, int c_out, int stage_w) {
-  int32_t* bs = reinterpret_cast<int32_t*>(dst);
-  int32_t* ms = bs + c_out;
-  int32_t* ss = ms + c_out;
-  for (int i = threadIdx.x; i < c_out; i += blockDim.x) {
-    bs[i] = b[i];
-    ms[i] = mult[i];
-    ss[i] = shift[i];
-  }
-  if (!stage_w) return {w, bs, ms, ss};
-  int8_t* ws = reinterpret_cast<int8_t*>(ss + c_out);
-  for (int i = threadIdx.x; i < w_bytes; i += blockDim.x) ws[i] = w[i];
-  return {ws, bs, ms, ss};
-}
-
-
 // ---------------------------------------------------------------------------
-// FC: m_rows rows, block_rows rows per step.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(int8_t* pool, const int8_t* __restrict__ w,
-            const int32_t* __restrict__ b, const int32_t* __restrict__ mult,
-            const int32_t* __restrict__ shift, int n_seg, int m_rows,
-            int d_in, int d_out, int block_rows, int in_ptr, int out_ptr,
-            int relu, int stage_w) {
-  extern __shared__ int4 smem[];
-  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
-  const int ksegs = segs_for(d_in), nsegs = segs_for(d_out);
-  const int bk = block_rows * ksegs, bn = block_rows * nsegs;
-  const Params prm = stage_params(reinterpret_cast<char*>(smem) + bk * SEG,
-                                  w, d_in * d_out, b, mult, shift, d_out,
-                                  stage_w);
-  for (int i = 0; i < m_rows / block_rows; ++i) {
-    ring_load(smem, pool, (in_ptr + i * bk) % n_seg, bk, n_seg);
-    __syncthreads();
-    for (int j = threadIdx.x; j < bn * SEG; j += blockDim.x) {
-      const int r = j / (nsegs * SEG), co = j % (nsegs * SEG);
-      int8_t y = 0;
-      if (co < d_out) {
-        const int8_t* xr = x + r * ksegs * SEG;
-        const int8_t* wc = prm.w + co;
-        uint32_t acc = 0;
-#pragma unroll 4
-        for (int k = 0; k < d_in; ++k)
-          acc += (uint32_t)((int)xr[k] * (int)wc[k * d_out]);
-        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
-      }
-      *ring_byte(pool, (out_ptr + i * bn) % n_seg, j, n_seg) = y;
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 1x1, depthwise and k x k convs that read first, over many CTAs in one
-// cooperative launch.  CTA i owns tile i of conv2d.py::conv_tiling (kinds
-// ring_conv_pw_q, ring_conv_dw_q, ring_conv_k2d_q): output rows p0 .. p0 +
+// 1x1, depthwise, k x k and streaming convs that read first, over many CTAs
+// in one cooperative launch.  CTA i owns tile i of conv2d.py::conv_tiling
+// (kinds ring_conv_pw_q, ring_conv_dw_q, ring_conv_k2d_q,
+// ring_conv_stream_q): output rows p0 .. p0 +
 // np - 1 (fewer in the last row block) x output channels c0 .. c0 + cn - 1,
 // channel tiles fastest.  It
 //   (a) stages, with 16-byte cp.async copies all in flight at once, what
@@ -360,16 +289,13 @@ __device__ __forceinline__ void stage_q_consts(
     out_row[i] = (out_ptr + (t.p0 + i) * out_seg) % n_seg;
 }
 
-// stage_q_consts, and tile t's weight slice of w [taps, c_in, c_out],
-// transposed to [taps, ctile, pitch chunks] with zeros past c_in (and for
-// channels past the tile's cn).
-__device__ __forceinline__ void stage_q_tile(
+// Tile t's weight slice of w [taps, c_in, c_out], transposed to [taps,
+// ctile, pitch chunks] with zeros past c_in (and for channels past the
+// tile's cn), byte by byte.
+__device__ __forceinline__ void stage_q_weights(
     const ConvTile& t, const ConvQSmem& m, char* smem,
-    const int8_t* __restrict__ w, const int32_t* __restrict__ b,
-    const int32_t* __restrict__ mult, const int32_t* __restrict__ shift,
-    int taps, int c_in, int c_out, int ctile, int pitch, int n_seg,
-    int out_ptr, int out_seg) {
-  stage_q_consts(t, m, smem, b, mult, shift, ctile, n_seg, out_ptr, out_seg);
+    const int8_t* __restrict__ w, int taps, int c_in, int c_out, int ctile,
+    int pitch) {
   const int tid = conv_tid(), nthr = blockDim.x * blockDim.y;
   // word j of channel co at tap r; co fastest, so a warp reads runs of a
   // weight row.  A thread loads STAGE_WORDS words before it stores any, so
@@ -405,20 +331,31 @@ __device__ __forceinline__ void stage_q_tile(
   }
 }
 
-// The int32 (wrapping) dot product of a staged pixel and a channel's
-// weights at one tap, `chunks` 16-byte chunks of each, added to acc: four
-// independent dp4a chains, summed mod 2**32.
+// stage_q_consts, then stage_q_weights.
+__device__ __forceinline__ void stage_q_tile(
+    const ConvTile& t, const ConvQSmem& m, char* smem,
+    const int8_t* __restrict__ w, const int32_t* __restrict__ b,
+    const int32_t* __restrict__ mult, const int32_t* __restrict__ shift,
+    int taps, int c_in, int c_out, int ctile, int pitch, int n_seg,
+    int out_ptr, int out_seg) {
+  stage_q_consts(t, m, smem, b, mult, shift, ctile, n_seg, out_ptr, out_seg);
+  stage_q_weights(t, m, smem, w, taps, c_in, c_out, ctile, pitch);
+}
+
+// The int32 (wrapping) dot product of chunks first, first + step, ... <
+// chunks of x and w (a staged pixel, or row, and a channel's weights at one
+// tap), 16 bytes each: four independent dp4a chains, summed mod 2**32.
 __device__ __forceinline__ uint32_t dot_q(const int4* x, const int4* w,
-                                          int chunks, uint32_t acc) {
+                                          int first, int chunks, int step) {
   int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-  for (int c = 0; c < chunks; ++c) {
+  for (int c = first; c < chunks; c += step) {
     const int4 u = x[c], v = w[c];
     a0 = __dp4a(u.x, v.x, a0);
     a1 = __dp4a(u.y, v.y, a1);
     a2 = __dp4a(u.z, v.z, a2);
     a3 = __dp4a(u.w, v.w, a3);
   }
-  return acc + (uint32_t)a0 + (uint32_t)a1 + (uint32_t)a2 + (uint32_t)a3;
+  return (uint32_t)a0 + (uint32_t)a1 + (uint32_t)a2 + (uint32_t)a3;
 }
 
 // (c) Store the tile's held outputs y [np * w_out, ctile] over lanes c0 ..
@@ -447,9 +384,76 @@ __device__ __forceinline__ void store_q_tile(int8_t* pool, const ConvTile& t,
   }
 }
 
+// The ring segment of image row r of a run of rows `row_segs` segments long
+// that starts at ring segment `ptr`: one modulo per row (a row never wraps:
+// the wrappers require the pool and the pointers aligned to whole rows).
+struct RunRows {
+  int ptr, row_segs, n_seg;
+  __device__ __forceinline__ int operator()(int r) const {
+    return (ptr + r * row_segs) % n_seg;
+  }
+};
+
+// The ring segment of row r of a streaming conv's shifted window: the first
+// `keep` rows are old state rows r + hop at state_ptr, the rest the frame's
+// rows at in_ptr, `wc` segments each (neither region wraps the ring).
+struct WindowRows {
+  int state_ptr, in_ptr, keep, hop, wc;
+  __device__ __forceinline__ int operator()(int r) const {
+    return r < keep ? state_ptr + (r + hop) * wc : in_ptr + (r - keep) * wc;
+  }
+};
+
+// (a) Stage the first `chunks` 16-byte chunks of each pixel of image rows
+// lo .. lo + n - 1 (w_in pixels of ksegs segments each; `seg` maps an image
+// row to its ring segment) into x at `pitch` chunks a pixel, as cp.async
+// copies all in flight at once.
+template <typename Rows>
+__device__ __forceinline__ void stage_q_rows(int4* x, const int8_t* pool,
+                                             Rows seg, int lo, int n,
+                                             int w_in, int ksegs, int pitch,
+                                             int chunks) {
+  const int nthr = blockDim.x * blockDim.y;
+  for (int i = conv_tid(); i < n * w_in * chunks; i += nthr) {
+    const int pix = i / chunks, c = i - pix * chunks;
+    const int hr = pix / w_in, px = pix - hr * w_in;
+    cp_async16(x + pix * pitch + c,
+               pool + ((size_t)seg(lo + hr) + px * ksegs) * SEG + 16 * c);
+  }
+}
+
+// (a) of the k x k convs: every output of tile t into y [np * w_out, ctile]
+// as int8, from the staged input rows x (image rows t.lo ..) and the
+// transposed weight slice ws.  Each output sums its in-image taps,
+// row-major (sums mod 2**32 do not depend on the order).
+__device__ __forceinline__ void k2d_q_outputs(
+    int8_t* y, const int4* x, const int4* ws, const int32_t* prm,
+    const ConvTile& t, int h_in, int w_in, int w_out, int k, int stride,
+    int pad_v, int pad_h, int pitch, int chunks, int ctile, int relu) {
+  const int co = threadIdx.x;
+  if (co >= t.cn) return;
+  const int4* wc = ws + co * pitch;
+  for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y) {
+    const int pl = j / w_out, q = j - pl * w_out;
+    const int top = (t.p0 + pl) * stride - pad_v, left = q * stride - pad_h;
+    // the in-image taps: rows r0 .. r1 - 1, columns s0 .. s1 - 1
+    const int r0 = max(0, -top), r1 = min(k, h_in - top);
+    const int s0 = max(0, -left), s1 = min(k, w_in - left);
+    uint32_t acc = 0;
+    for (int r = r0; r < r1; ++r) {
+      const int4* xrow = x + (top + r - t.lo) * w_in * pitch;
+      const int4* wr = wc + r * k * ctile * pitch;
+      for (int s = s0; s < s1; ++s)
+        acc += dot_q(xrow + (left + s) * pitch, wr + s * ctile * pitch, 0,
+                     chunks, 1);
+    }
+    y[j * ctile + co] =
+        epilogue(acc, prm[co], prm[ctile + co], prm[2 * ctile + co], relu);
+  }
+}
+
 // k x k conv: w [k, k, c_in, c_out].  A CTA stages the input rows its taps
-// reach ((rows - 1) * stride + k at most); each output sums its in-image
-// taps, row-major (sums mod 2**32 do not depend on the order).
+// reach ((rows - 1) * stride + k at most), then k2d_q_outputs.
 __global__ void __launch_bounds__(CONV_THREADS)
 conv_k2d_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
                   const int32_t* __restrict__ b,
@@ -466,42 +470,104 @@ conv_k2d_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
                                ctile);
   const ConvQSmem m = conv_q_layout_dense(((rows - 1) * stride + k) * w_in,
                                           pitch, rows, w_out, ctile, k * k);
+  stage_q_rows(qsmem, pool, RunRows{in_ptr, w_in * ksegs, n_seg}, t.lo, t.nh,
+               w_in, ksegs, pitch, chunks);
+  stage_q_tile(t, m, smem, w, b, mult, shift, k * k, c_in, c_out, ctile,
+               pitch, n_seg, out_ptr, w_out * nsegs);
+  cp_async_wait_all();
+  __syncthreads();
+  int8_t* y = reinterpret_cast<int8_t*>(smem + m.y);
+  k2d_q_outputs(y, qsmem, reinterpret_cast<const int4*>(smem + m.w),
+                reinterpret_cast<const int32_t*>(smem + m.prm), t, h_in,
+                w_in, w_out, k, stride, pad_v, pad_h, pitch, chunks, ctile,
+                relu);
+  cg::this_grid().sync();   // (b): every read of the op is done
+  store_q_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
+               w_out, c_out, nsegs, ctile);
+}
+
+// Streaming k x k conv: the [h_win, w_in, c_in] window at state_ptr drops
+// its oldest `hop` image rows and appends the frame at in_ptr; the window
+// goes back to state_ptr as an exact copy of its raw segments (channel tails
+// and all, as the reference copies them), and the k x k conv over it is
+// stored at out_ptr (modulo n_seg).  Tiled as the k x k conv (conv_tile with
+// h_in = h_win, kind ring_conv_stream_q of conv2d.py::conv_tiling); CTA i
+// also owns window rows i * win_rows .. of the writeback.  It
+//   (a) stages the window rows its taps reach, each from its source (old
+//       state or frame: WindowRows), as the k x k conv stages its halo, and
+//       its own window rows as whole segments, then computes its outputs
+//       into shared memory (k2d_q_outputs), storing nothing;
+//   (b) meets every other CTA at the grid barrier: the writeback moves each
+//       row by `hop` onto a row that another CTA's taps read;
+//   (c) stores its window rows at state_ptr as 16-byte vectors, then its
+//       outputs.
+// The reference stores the window before the outputs, so where the output
+// run overlaps the window region the output wins; the wrapper then passes
+// `out_over_window` and a second grid barrier orders the two kinds of store
+// (no committed plan has that overlap: the state lies above the frame
+// program's extent).
+//
+// What bounds it: bytes (DS-CNN's 49 x 10 x 1 window and 25 x 5 x 64 output
+// move about 82 KB, 24 ns at 3.35 TB/s); what remains is the cooperative
+// launch, one staging round trip and the barrier, as for the k x k conv.
+
+// The streaming conv's layout: the k x k conv's, with the CTA's window rows
+// (`win_bytes`, whole segments) after its staged halo pixels, from byte
+// `*win`.
+__host__ __device__ __forceinline__ ConvQSmem conv_stream_q_layout(
+    int rows, int stride, int k, int w_in, int pitch, int w_out, int ctile,
+    int win_bytes, int* win) {
+  *win = ((rows - 1) * stride + k) * w_in * pitch * 16;
+  return conv_q_layout(1, *win + win_bytes, rows, w_out, ctile,
+                       k * k * ctile * pitch * 16);
+}
+
+__global__ void __launch_bounds__(CONV_THREADS)
+conv_stream_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
+                     const int32_t* __restrict__ b,
+                     const int32_t* __restrict__ mult,
+                     const int32_t* __restrict__ shift, int n_seg, int h_win,
+                     int w_in, int h_out, int w_out, int c_in, int c_out,
+                     int k, int stride, int hop, int pad_v, int pad_h,
+                     int in_ptr, int out_ptr, int state_ptr, int relu,
+                     int rows, int ctile, int out_over_window,
+                     int win_rows) {
+  extern __shared__ int4 qsmem[];
+  char* smem = reinterpret_cast<char*>(qsmem);
+  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
+  const int pitch = q_pitch(c_in), chunks = (c_in + 15) / 16;
+  const int wc = w_in * ksegs;
+  const ConvTile t = conv_tile(h_win, h_out, c_out, k, stride, pad_v, rows,
+                               ctile);
+  int win_at;
+  const ConvQSmem m = conv_stream_q_layout(rows, stride, k, w_in, pitch,
+                                           w_out, ctile, win_rows * wc * SEG,
+                                           &win_at);
+  const WindowRows src{state_ptr, in_ptr, h_win - hop, hop, wc};
+  stage_q_rows(qsmem, pool, src, t.lo, t.nh, w_in, ksegs, pitch, chunks);
+  const int r0 = blockIdx.x * win_rows;
+  const int n = max(0, min(win_rows, h_win - r0)) * wc * VEC;  // vectors
+  int4* win = reinterpret_cast<int4*>(smem + win_at);
   const int nthr = blockDim.x * blockDim.y;
-  for (int i = conv_tid(); i < t.nh * w_in * chunks; i += nthr) {
-    const int pix = i / chunks, c = i - pix * chunks;
-    const int hr = pix / w_in, px = pix - hr * w_in;
-    const int seg = (in_ptr + (t.lo + hr) * w_in * ksegs) % n_seg +
-                    px * ksegs;
-    cp_async16(qsmem + pix * pitch + c, pool + (size_t)seg * SEG + 16 * c);
+  for (int i = conv_tid(); i < n; i += nthr) {
+    const int r = i / (wc * VEC), v = i - r * wc * VEC;
+    cp_async16(win + i, pool + (size_t)src(r0 + r) * SEG + 16 * v);
   }
   stage_q_tile(t, m, smem, w, b, mult, shift, k * k, c_in, c_out, ctile,
                pitch, n_seg, out_ptr, w_out * nsegs);
   cp_async_wait_all();
   __syncthreads();
   int8_t* y = reinterpret_cast<int8_t*>(smem + m.y);
-  const int co = threadIdx.x;
-  if (co < t.cn) {
-    const int4* wc = reinterpret_cast<const int4*>(smem + m.w) + co * pitch;
-    const int32_t* prm = reinterpret_cast<const int32_t*>(smem + m.prm);
-    for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y) {
-      const int pl = j / w_out, q = j - pl * w_out;
-      const int top = (t.p0 + pl) * stride - pad_v, left = q * stride - pad_h;
-      // the in-image taps: rows r0 .. r1 - 1, columns s0 .. s1 - 1
-      const int r0 = max(0, -top), r1 = min(k, h_in - top);
-      const int s0 = max(0, -left), s1 = min(k, w_in - left);
-      uint32_t acc = 0;
-      for (int r = r0; r < r1; ++r) {
-        const int4* xrow = qsmem + (top + r - t.lo) * w_in * pitch;
-        const int4* wr = wc + r * k * ctile * pitch;
-        for (int s = s0; s < s1; ++s)
-          acc = dot_q(xrow + (left + s) * pitch, wr + s * ctile * pitch,
-                      chunks, acc);
-      }
-      y[j * ctile + co] =
-          epilogue(acc, prm[co], prm[ctile + co], prm[2 * ctile + co], relu);
-    }
-  }
-  cg::this_grid().sync();   // (b): every read of the op is done
+  k2d_q_outputs(y, qsmem, reinterpret_cast<const int4*>(smem + m.w),
+                reinterpret_cast<const int32_t*>(smem + m.prm), t, h_win,
+                w_in, w_out, k, stride, pad_v, pad_h, pitch, chunks, ctile,
+                relu);
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();   // (b): every read of the op is done
+  int4* state = reinterpret_cast<int4*>(pool +
+                                        (size_t)(state_ptr + r0 * wc) * SEG);
+  for (int i = conv_tid(); i < n; i += nthr) state[i] = win[i];
+  if (out_over_window) grid.sync();   // the window's stores first
   store_q_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
                w_out, c_out, nsegs, ctile);
 }
@@ -546,7 +612,7 @@ conv_pw_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
     const int4* wc = reinterpret_cast<const int4*>(smem + m.w) + co * pitch;
     const int32_t* prm = reinterpret_cast<const int32_t*>(smem + m.prm);
     for (int j = threadIdx.y; j < t.np * w_out; j += blockDim.y)
-      y[j * ctile + co] = epilogue(dot_q(qsmem + j * pitch, wc, chunks, 0),
+      y[j * ctile + co] = epilogue(dot_q(qsmem + j * pitch, wc, 0, chunks, 1),
                                    prm[co], prm[ctile + co],
                                    prm[2 * ctile + co], relu);
   }
@@ -638,6 +704,175 @@ conv_dw_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
   cg::this_grid().sync();   // (b): every read of the op is done
   store_q_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row),
                w_out, c, segs, ctile);
+}
+
+// ---------------------------------------------------------------------------
+// FC: m_rows rows of d_in channels at in_ptr -> d_out channels at out_ptr,
+// w [d_in, d_out], each output an int32 (wrapping) sum, bias, relu? and the
+// per-channel requantization.  On every committed plan m_rows is 1 and the
+// op is in place (its output run overlaps its input run) but ToyADMOS's
+// last layer.  CTA i owns tile i of quantized.py::gemm_q_tiling: rows r0 ..
+// r0 + nr - 1 x output columns c0 .. c0 + cn - 1, column tiles fastest,
+// which is a 1x1 conv's tile over an image of m_rows one-pixel rows, so its
+// shared memory and its stores are the convs' (conv_q_layout_dense,
+// store_q_tile).  It
+//   (a) stages its rows' first ceil(d_in / 16) 16-byte chunks and its
+//       bias, mult and shift (cp.async), and its weight slice transposed to
+//       [ctile, pitch] with zeros from d_in on (the bytes of a row past d_in
+//       meet zero weights): from 32-bit words transposed in registers where
+//       d_out is a multiple of 4 (every plan FC but ResNet-8's and VWW's
+//       heads), else byte by byte (stage_q_weights); then computes its
+//       outputs into shared memory as int8, storing nothing;
+//   (b) meets the other threads of its CTA (one CTA, an ordinary launch:
+//       the tiling's rule for a small op, exact for any overlap) or every
+//       CTA at the grid barrier (BARRIER, a cooperative launch);
+//   (c) stores its outputs as 32-bit words, the last column tile the
+//       channel tail as zeros.
+// Products: `ks` lanes of one warp (a power of two up to 32, as many as the
+// CTA's threads allow, at most the chunks) share an output; lane j takes
+// chunks j, j + ks, ... (16 bytes of x and of w, four __dp4a each), and the
+// lanes' partials are summed with shuffles.  Any split of k is exact: a sum
+// mod 2**32 is the same in any order, so the accumulator is bitwise the
+// reference's wrapping int32 one.
+//
+// What bounds it: bytes (ToyADMOS's 640 -> 128 layer moves 83 KB, 25 ns
+// at 3.35 TB/s); what remains is the launch (and, with BARRIER, the
+// barrier) and one staging round trip of the weight slice.
+constexpr int GEMM_Q_THREADS = 512;   // quantized.py::GEMM_Q_THREADS
+
+// Asynchronous 4-byte copy from global to shared memory.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+// stage_q_consts with cp.async copies: the threads that copy the constants
+// do not wait on them before their weight loads are in flight: one global
+// round trip fewer, 0.1-0.4 us a launch on every plan FC on an H100
+// (tools/chip_ab.py, PERF.md §6).
+__device__ __forceinline__ void stage_gemm_consts(
+    const ConvTile& t, const ConvQSmem& m, char* smem,
+    const int32_t* __restrict__ b, const int32_t* __restrict__ mult,
+    const int32_t* __restrict__ shift, int ctile, int n_seg, int out_ptr,
+    int out_seg) {
+  int32_t* prm = reinterpret_cast<int32_t*>(smem + m.prm);
+  for (int i = threadIdx.x; i < t.cn; i += blockDim.x) {
+    cp_async4(prm + i, b + t.c0 + i);
+    cp_async4(prm + ctile + i, mult + t.c0 + i);
+    cp_async4(prm + 2 * ctile + i, shift + t.c0 + i);
+  }
+  int* out_row = reinterpret_cast<int*>(smem + m.out_row);
+  for (int i = threadIdx.x; i < t.np; i += blockDim.x)
+    out_row[i] = (out_ptr + (t.p0 + i) * out_seg) % n_seg;
+}
+
+constexpr int GEMM_ITEMS = 4;   // weight items a thread loads at once
+
+// The weight slice as stage_q_weights lays it out ([ctile, pitch chunks],
+// zeros from d_in on), from 32-bit words where d_out is a multiple of 4
+// and w is 4-byte aligned: an item is rows 4j .. 4j + 3 x columns c0 + 4q
+// .. c0 + 4q + 3, four word loads transposed in registers into word j of
+// each of the four columns.  Items run 16 values of j fastest, then q,
+// then blocks of 16 j: a column's words lie `words` = 4 * pitch apart,
+// and 4 * words is 16 mod 32 (pitch is odd), so the two quads x 16 words
+// of a warp's stores fall in 32 distinct banks (with q fastest, all 32
+// fell in two).  A thread loads GEMM_ITEMS items before it stores any.
+__device__ __forceinline__ void stage_gemm_quads(const ConvTile& t,
+                                                 const ConvQSmem& m,
+                                                 char* smem,
+                                                 const int8_t* __restrict__ w,
+                                                 int d_in, int d_out,
+                                                 int pitch) {
+  const int words = 4 * pitch, quads = (t.cn + 3) / 4;
+  const int total = (words + 15) / 16 * 16 * quads;
+  const uint32_t* w32 = reinterpret_cast<const uint32_t*>(w) + t.c0 / 4;
+  const int ld = d_out / 4;
+  uint32_t* ws = reinterpret_cast<uint32_t*>(smem + m.w);
+  for (int i0 = threadIdx.x; i0 < total; i0 += GEMM_ITEMS * blockDim.x) {
+    uint32_t r[GEMM_ITEMS][4];
+#pragma unroll
+    for (int u = 0; u < GEMM_ITEMS; ++u) {
+      const int i = i0 + u * blockDim.x, rest = i / 16;
+      const int q = rest % quads, j = rest / quads * 16 + i % 16;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = 4 * j + kk;
+        r[u][kk] = i < total && k < d_in ? __ldg(w32 + (size_t)k * ld + q) : 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < GEMM_ITEMS; ++u) {
+      const int i = i0 + u * blockDim.x, rest = i / 16;
+      const int q = rest % quads, j = rest / quads * 16 + i % 16;
+      if (i >= total || j >= words) continue;
+      // byte c of row kk -> byte kk of column c's word
+      const uint32_t lo01 = __byte_perm(r[u][0], r[u][1], 0x5140);
+      const uint32_t lo23 = __byte_perm(r[u][2], r[u][3], 0x5140);
+      const uint32_t hi01 = __byte_perm(r[u][0], r[u][1], 0x7362);
+      const uint32_t hi23 = __byte_perm(r[u][2], r[u][3], 0x7362);
+      const uint32_t col[4] = {__byte_perm(lo01, lo23, 0x5410),
+                               __byte_perm(lo01, lo23, 0x7632),
+                               __byte_perm(hi01, hi23, 0x5410),
+                               __byte_perm(hi01, hi23, 0x7632)};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4 * q + c < t.cn) ws[(4 * q + c) * words + j] = col[c];
+    }
+  }
+}
+
+template <bool BARRIER>
+__global__ void __launch_bounds__(GEMM_Q_THREADS)
+gemm_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
+              const int32_t* __restrict__ b, const int32_t* __restrict__ mult,
+              const int32_t* __restrict__ shift, int n_seg, int m_rows,
+              int d_in, int d_out, int in_ptr, int out_ptr, int relu,
+              int rows, int ctile) {
+  extern __shared__ int4 qsmem[];
+  char* smem = reinterpret_cast<char*>(qsmem);
+  const int ksegs = segs_for(d_in), nsegs = segs_for(d_out);
+  const int pitch = q_pitch(d_in), chunks = (d_in + 15) / 16;
+  const ConvTile t = conv_tile(m_rows, m_rows, d_out, 1, 1, 0, rows, ctile);
+  const ConvQSmem m = conv_q_layout_dense(rows, pitch, rows, 1, ctile, 1);
+  stage_q_rows(qsmem, pool, RunRows{in_ptr, ksegs, n_seg}, t.p0, t.np, 1,
+               ksegs, pitch, chunks);
+  stage_gemm_consts(t, m, smem, b, mult, shift, ctile, n_seg, out_ptr,
+                    nsegs);
+  if (d_out % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 3) == 0)
+    stage_gemm_quads(t, m, smem, w, d_in, d_out, pitch);
+  else
+    stage_q_weights(t, m, smem, w, 1, d_in, d_out, ctile, pitch);
+  cp_async_wait_all();
+  __syncthreads();
+  int8_t* y = reinterpret_cast<int8_t*>(smem + m.y);
+  const int4* ws = reinterpret_cast<const int4*>(smem + m.w);
+  const int32_t* prm = reinterpret_cast<const int32_t*>(smem + m.prm);
+  const int n_out = t.np * t.cn;
+  int ks = 1;
+  while (ks < 32 && 2 * ks <= chunks && 2 * ks * n_out <= GEMM_Q_THREADS)
+    ks *= 2;
+  const int lane = threadIdx.x % ks, per = GEMM_Q_THREADS / ks;
+  // every thread runs every pass (base is the same for all), so each
+  // shuffle meets the whole warp
+  for (int base = 0; base < n_out; base += per) {
+    const int o = base + threadIdx.x / ks;
+    const int r = o / t.cn, co = o - r * t.cn;
+    uint32_t acc = 0;
+    if (o < n_out)
+      acc = dot_q(qsmem + r * pitch, ws + co * pitch, lane, chunks, ks);
+    for (int off = ks / 2; off > 0; off /= 2)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (o < n_out && lane == 0)
+      y[r * ctile + co] =
+          epilogue(acc, prm[co], prm[ctile + co], prm[2 * ctile + co], relu);
+  }
+  if constexpr (BARRIER)
+    cg::this_grid().sync();   // (b): every read of the op is done
+  else
+    __syncthreads();          // (b): one CTA, every read of the op is done
+  store_q_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row), 1,
+               d_out, nsegs, ctile);
 }
 
 // ---------------------------------------------------------------------------
@@ -776,79 +1011,6 @@ add_q_kernel(int8_t* pool, int n_seg, int rows, int d, int in_ptr,
 }
 
 // ---------------------------------------------------------------------------
-// Streaming k x k conv: the [h_win, w_in, c_in] window at state_ptr drops its
-// oldest `hop` image rows and appends the frame at in_ptr, in shared memory;
-// the window goes back to state_ptr (an exact copy), then each of the h_out
-// output rows is computed from the window in shared memory and stored at
-// out_ptr (modulo n_seg).  Everything is read before anything is stored.
-// ---------------------------------------------------------------------------
-// The int32 (wrapping) sum of output channel `co` at output column `q` of a
-// k x k conv.  Tap row r reads image row src0 + r, held in shared memory at
-// row (row0 + r) of `x`; rows outside [0, h_in) and columns outside
-// [0, w_in) are the zero padding.
-__device__ __forceinline__ uint32_t kxk_dot(const int8_t* x, int row0,
-                                            int src0, int h_in, int w_in,
-                                            int ksegs, int c_in, int c_out,
-                                            int k, int q, int stride,
-                                            int pad_h, int co,
-                                            const int8_t* w) {
-  const int in_row = w_in * ksegs;
-  uint32_t acc = 0;
-  for (int r = 0; r < k; ++r) {
-    const int src = src0 + r;
-    if (src < 0 || src >= h_in) continue;
-    for (int s = 0; s < k; ++s) {
-      const int col = q * stride - pad_h + s;
-      if (col < 0 || col >= w_in) continue;
-      const int8_t* xr = x + ((row0 + r) * in_row + col * ksegs) * SEG;
-      const int8_t* wc = w + (r * k + s) * c_in * c_out + co;
-#pragma unroll 4
-      for (int ci = 0; ci < c_in; ++ci)
-        acc += (uint32_t)((int)xr[ci] * (int)wc[ci * c_out]);
-    }
-  }
-  return acc;
-}
-
-__global__ void __launch_bounds__(THREADS)
-conv_stream_kernel(int8_t* pool, const int8_t* __restrict__ w,
-                   const int32_t* __restrict__ b,
-                   const int32_t* __restrict__ mult,
-                   const int32_t* __restrict__ shift, int n_seg, int h_win,
-                   int w_in, int h_out, int w_out, int c_in, int c_out, int k,
-                   int stride, int hop, int pad_v, int pad_h, int in_ptr,
-                   int out_ptr, int state_ptr, int relu, int stage_w) {
-  extern __shared__ int4 smem[];
-  const int ksegs = segs_for(c_in), nsegs = segs_for(c_out);
-  const int wc = w_in * ksegs, win = h_win * wc, keep = (h_win - hop) * wc;
-  const int out_row = w_out * nsegs;
-  const Params prm = stage_params(
-      reinterpret_cast<char*>(smem) + (size_t)win * SEG, w,
-      k * k * c_in * c_out, b, mult, shift, c_out, stage_w);
-  ring_load(smem, pool, state_ptr + hop * wc, keep, n_seg);
-  ring_load(smem + (size_t)keep * VEC, pool, in_ptr, hop * wc, n_seg);
-  __syncthreads();
-  int4* state = reinterpret_cast<int4*>(pool + (size_t)state_ptr * SEG);
-  for (int i = threadIdx.x; i < win * VEC; i += blockDim.x) state[i] = smem[i];
-  __syncthreads();
-  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
-  for (int p = 0; p < h_out; ++p) {
-    const int src0 = p * stride - pad_v;
-    for (int j = threadIdx.x; j < out_row * SEG; j += blockDim.x) {
-      const int q = j / (nsegs * SEG), co = j % (nsegs * SEG);
-      int8_t y = 0;
-      if (co < c_out) {
-        const uint32_t acc = kxk_dot(x, src0, src0, h_win, w_in, ksegs,
-                                     c_in, c_out, k, q, stride, pad_h, co,
-                                     prm.w);
-        y = epilogue(acc, prm.b[co], prm.mult[co], prm.shift[co], relu);
-      }
-      *ring_byte(pool, (out_ptr + p * out_row) % n_seg, j, n_seg) = y;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Int8 GRU cell: gx = rq(x @ W, mx, sx) + b (wrapping) and gh = rq(h @ U, mu,
 // su) in the Q12 gate domain, then the fixed-point hard-gate update of
 // src/repro/quant/requant.py::gru_update_q12 into the Q7 state, stored at
@@ -916,12 +1078,6 @@ gru_kernel(int8_t* pool, const int8_t* __restrict__ w,
   }
 }
 
-// Shared memory of a conv/FC launch: the step's input tile, the per-channel
-// constants and, when the wrapper says they fit too, the weights.
-size_t conv_smem(size_t x_bytes, size_t w_bytes, int c_out, int stage_w) {
-  return x_bytes + 12 * (size_t)c_out + (stage_w ? w_bytes : 0);
-}
-
 // Launch `blocks` blocks of `threads` with `smem` bytes of dynamic shared
 // memory (above 48 KB only after raising the kernel's limit) and report the
 // launch's error code.
@@ -975,14 +1131,23 @@ const char* ring_q_error_string(int err) {
 
 int ring_gemm_q(void* pool, const void* w, const void* b, const void* mult,
                 const void* shift, int n_seg, int m_rows, int d_in,
-                int d_out, int block_rows, int in_ptr, int out_ptr, int relu,
-                int stage_w, void* stream) {
-  const size_t smem = conv_smem((size_t)block_rows * segs_for(d_in) * SEG,
-                                (size_t)d_in * d_out, d_out, stage_w);
-  return launch(gemm_kernel, smem, stream, (int8_t*)pool,
-                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
-                (const int32_t*)shift, n_seg, m_rows, d_in, d_out,
-                block_rows, in_ptr, out_ptr, relu, stage_w);
+                int d_out, int in_ptr, int out_ptr, int relu, int rows,
+                int ctile, int barrier, void* stream) {
+  const ConvQSmem m = conv_q_layout_dense(rows, q_pitch(d_in), rows, 1,
+                                          ctile, 1);
+  const int ctas = (m_rows + rows - 1) / rows * ((d_out + ctile - 1) / ctile);
+  if (barrier)
+    return launch_cooperative(gemm_q_kernel<true>, ctas, dim3(GEMM_Q_THREADS),
+                              (size_t)m.bytes, stream, (int8_t*)pool,
+                              (const int8_t*)w, (const int32_t*)b,
+                              (const int32_t*)mult, (const int32_t*)shift,
+                              n_seg, m_rows, d_in, d_out, in_ptr, out_ptr,
+                              relu, rows, ctile);
+  return launch_grid(gemm_q_kernel<false>, ctas, GEMM_Q_THREADS,
+                     (size_t)m.bytes, stream, (int8_t*)pool,
+                     (const int8_t*)w, (const int32_t*)b,
+                     (const int32_t*)mult, (const int32_t*)shift, n_seg,
+                     m_rows, d_in, d_out, in_ptr, out_ptr, relu, rows, ctile);
 }
 
 int ring_conv_pw_q(void* pool, const void* w, const void* b,
@@ -1067,14 +1232,22 @@ int ring_conv_stream_q(void* pool, const void* w, const void* b,
                        int h_win, int w_in, int h_out, int w_out, int c_in,
                        int c_out, int k, int stride, int hop, int pad_v,
                        int pad_h, int in_ptr, int out_ptr, int state_ptr,
-                       int relu, int stage_w, void* stream) {
-  const size_t smem = conv_smem((size_t)h_win * w_in * segs_for(c_in) * SEG,
-                                (size_t)k * k * c_in * c_out, c_out, stage_w);
-  return launch(conv_stream_kernel, smem, stream, (int8_t*)pool,
-                (const int8_t*)w, (const int32_t*)b, (const int32_t*)mult,
-                (const int32_t*)shift, n_seg, h_win, w_in, h_out, w_out,
-                c_in, c_out, k, stride, hop, pad_v, pad_h, in_ptr, out_ptr,
-                state_ptr, relu, stage_w);
+                       int relu, int rows, int ctile, int out_over_window,
+                       void* stream) {
+  const int ctas = (h_out + rows - 1) / rows * ((c_out + ctile - 1) / ctile);
+  const int win_rows = (h_win + ctas - 1) / ctas;
+  int win_at;
+  const ConvQSmem m = conv_stream_q_layout(
+      rows, stride, k, w_in, q_pitch(c_in), w_out, ctile,
+      win_rows * w_in * segs_for(c_in) * SEG, &win_at);
+  return launch_cooperative(conv_stream_q_kernel, ctas, conv_block(ctile),
+                            (size_t)m.bytes, stream, (int8_t*)pool,
+                            (const int8_t*)w, (const int32_t*)b,
+                            (const int32_t*)mult, (const int32_t*)shift,
+                            n_seg, h_win, w_in, h_out, w_out, c_in, c_out, k,
+                            stride, hop, pad_v, pad_h, in_ptr, out_ptr,
+                            state_ptr, relu, rows, ctile, out_over_window,
+                            win_rows);
 }
 
 int ring_gru_cell_q(void* pool, const void* w, const void* u, const void* b,

@@ -20,8 +20,9 @@ or FC wrapper records in ``<wrapper>.weights_staged`` whether its last
 launch staged the weights in shared memory (False: they were read from
 global memory; None for a kernel without weights to stage; for the
 pointwise, depthwise and k x k convs, whether each CTA staged its weight
-slice, which it always does).  The wrappers size every kernel's shared
-memory; the kernels take the decision as an argument.
+slice, which it always does; so does the FC's).  The wrappers size
+every kernel's shared memory; the kernels take the decision as an
+argument.
 
 The pointwise, depthwise and k x k convs run many CTAs that read all of
 the op's input before any stores, one grid-wide barrier between, tiled
@@ -33,11 +34,17 @@ than fit at once) raises.  The residual add maps its rows over many CTAs
 with no barrier where no output row lands on an operand row of another
 index (:func:`add_needs_barrier`), and reads first over the row blocks
 of ``conv2d.add_tiling`` elsewhere (``ring_add_q.barrier`` records
-which).  The other four kernels (the FC, the average pool, the streaming
-conv and the GRU cell) walk an op in one block.
+which).  The FC reads first too: one CTA in an ordinary launch where
+:func:`gemm_q_tiling` gives one (every plan's head), else column tiles
+under one grid barrier in a cooperative launch (``ring_gemm_q.barrier``
+records which).  The streaming conv (:mod:`repro_torch.kernels.stream`)
+reads first over the tiles of ``conv2d.conv_tiling``; the average pool
+and the GRU cell run in one block.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
@@ -45,7 +52,7 @@ import torch
 from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w, resample_src
 from ..core.vpool import SEG_WIDTH, fetch_rows, segments_for, stage_rows
 from ..quant.requant import act_i32, requantize, requantize_i32, wrap_i32
-from ._launch import MAX_SMEM, _sm_count
+from ._launch import H100_SMS, MAX_SMEM, _sm_count
 from ._launch import check_cuda as _check_cuda
 from ._launch import launch as _launch
 
@@ -115,21 +122,126 @@ def _per_channel(w, b, mult, shift, w_shape, c_out):
 # GEMM.
 # ---------------------------------------------------------------------------
 
+#: Threads of a gemm CTA (``GEMM_Q_THREADS`` in ``ring_q.cu``).
+GEMM_Q_THREADS = 512
+#: Output-column tiles a gemm CTA of the cooperative mode may take,
+#: narrowest first (a smaller ``d_out`` is one tile): each a whole number
+#: of 32-bit words and of 16-byte weight chunks.
+GEMM_Q_COLUMN_TILES = (16, 32, 64, 128, 256, 512, 1024)
+#: The most weight bytes (``d_in * d_out``) of an op that
+#: :func:`gemm_q_tiling` gives one CTA and an ordinary launch; a larger op
+#: is cut into column tiles over many CTAs with a grid barrier.  Set from
+#: ``chip_smoke.py::time_gemm_modes`` on an H100 80GB HBM3 at 700 W
+#: (PERF.md §6): one CTA is the faster mode up to 16,384 B (every head,
+#: ToyADMOS's 128-wide layers), the column tiles at 26,000 B (an 8-row
+#: edge case) and from 81,920 B on (ToyADMOS's 640-wide layers, the 96 ->
+#: 1000 head).
+GEMM_Q_ONE_CTA_BYTES = 16_384
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmQTiling:
+    """How :func:`ring_gemm_q` cuts an op of ``m_rows`` rows, ``d_in`` ->
+    ``d_out``: CTA ``i`` owns ``rows`` rows (fewer in the last row block)
+    x ``ctile`` output columns (fewer in the last column tile), column
+    tiles fastest.  ``barrier``: one cooperative launch whose CTAs meet a
+    grid barrier between their reads and their stores (at most one CTA an
+    SM); else one CTA in an ordinary launch, which reads all of the op
+    before it stores.  ``smem`` is one CTA's shared memory in bytes
+    (``ring_q.cu::conv_q_layout_dense``: the tile is a 1x1 conv's over
+    ``m_rows`` one-pixel rows), ``held`` the bytes of outputs it keeps
+    across the barrier."""
+
+    m_rows: int
+    d_in: int
+    d_out: int
+    rows: int
+    ctile: int
+    barrier: bool
+
+    @property
+    def col_tiles(self) -> int:
+        return -(-self.d_out // self.ctile)
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.m_rows // self.rows) * self.col_tiles
+
+    @property
+    def smem(self) -> int:
+        from .conv2d import _conv_smem_q   # conv2d imports this module
+
+        return _conv_smem_q(self.rows, self.ctile, w_in=1, w_out=1,
+                            c_in=self.d_in, k=1, stride=1,
+                            kind="ring_conv_pw_q")
+
+    @property
+    def held(self) -> int:
+        return self.rows * self.ctile
+
+    def tile(self, i: int) -> tuple[int, int, int, int]:
+        """CTA ``i``'s ``(r0, nr, c0, cn)``: rows ``r0 .. r0 + nr - 1``,
+        output columns ``c0 .. c0 + cn - 1`` (the kernel's own split)."""
+        rb, cb = divmod(i, self.col_tiles)
+        r0, c0 = rb * self.rows, cb * self.ctile
+        return (r0, min(self.rows, self.m_rows - r0), c0,
+                min(self.ctile, self.d_out - c0))
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_q_tiling(m_rows: int, d_in: int, d_out: int, n_sm: int = H100_SMS,
+                  one_cta: bool | None = None) -> GemmQTiling:
+    """The tiling of a ``ring_gemm_q`` call over at most ``n_sm`` CTAs.
+
+    One CTA of the whole op, in an ordinary launch, where its weights are
+    at most :data:`GEMM_Q_ONE_CTA_BYTES` and it fits ``MAX_SMEM``; else
+    the narrowest column tile of :data:`GEMM_Q_COLUMN_TILES` whose tiles
+    fit ``n_sm``, with the fewest rows per block that keep the CTAs within
+    ``n_sm``, whose CTA fits ``MAX_SMEM``, in one cooperative launch with
+    a grid barrier (a barrier only where that gives more than one CTA).
+    ``one_cta`` forces either mode (the cooperative one with its barrier
+    even over one CTA), as ``chip_smoke.py::time_gemm_modes`` measures
+    them.  Raises ``ValueError``, naming the op's shape, when no tile
+    fits."""
+    one = GemmQTiling(m_rows, d_in, d_out, m_rows, d_out, False)
+    if one_cta is not False and one.smem <= MAX_SMEM and (
+            one_cta or d_in * d_out <= GEMM_Q_ONE_CTA_BYTES):
+        return one
+    if one_cta is not True:
+        for ctile in sorted({min(d_out, c) for c in GEMM_Q_COLUMN_TILES}):
+            col_tiles = -(-d_out // ctile)
+            if col_tiles > n_sm:
+                continue
+            rows = -(-m_rows // (n_sm // col_tiles))
+            t = GemmQTiling(m_rows, d_in, d_out, rows, ctile, True)
+            if t.smem <= MAX_SMEM:
+                return dataclasses.replace(
+                    t, barrier=t.ctas > 1 or one_cta is False)
+    raise ValueError(
+        f"ring_gemm_q: no tile of the op [{m_rows}, {d_in}] -> [{m_rows}, "
+        f"{d_out}] fits {MAX_SMEM} B of shared memory"
+        + (" in one CTA" if one_cta else f" over at most {n_sm} CTAs"))
+
+
 def ring_gemm_q(pool, w, b, mult, shift, *, m_rows: int, d_in: int,
                 d_out: int, in_ptr: int, out_ptr: int, block_rows: int = 8,
                 activation: str | None = None):
     """Int8 Fig.-4 FC kernel: int8 In @ int8 W -> int32 acc -> requantize
     per output channel on store (replaces ``ring_gemm_q``,
-    ``src/repro/kernels/quantized.py:87``)."""
+    ``src/repro/kernels/quantized.py:87``).  ``block_rows`` is checked as
+    the reference does and shapes nothing: the kernel runs the tiles of
+    :func:`gemm_q_tiling`, each CTA staging its rows and its weight slice
+    and reading all of them before any store, in one CTA or over many
+    with a grid barrier (``ring_gemm_q.barrier`` records which)."""
     n_seg = pool.shape[0]
     _check_gemm(n_seg, m_rows, d_in, d_out, in_ptr, out_ptr, block_rows)
     _check_cuda(pool, _per_channel(w, b, mult, shift, (d_in, d_out), d_out))
-    ring_gemm_q.weights_staged = _launch(
-        "ring_gemm_q", pool,
-        block_rows * _segs(d_in) * SEG_WIDTH + 12 * d_out,
-        (w, b, mult, shift),
-        (n_seg, m_rows, d_in, d_out, block_rows, in_ptr % n_seg,
-         out_ptr % n_seg, _relu(activation)), w_bytes=d_in * d_out)
+    t = gemm_q_tiling(m_rows, d_in, d_out, _sm_count(pool.device))
+    _launch("ring_gemm_q", pool, t.smem, (w, b, mult, shift),
+            (n_seg, m_rows, d_in, d_out, in_ptr % n_seg, out_ptr % n_seg,
+             _relu(activation), t.rows, t.ctile, int(t.barrier)))
+    ring_gemm_q.weights_staged = True
+    ring_gemm_q.barrier = t.barrier
     ring_gemm_q.launches += 1
     return pool
 
@@ -466,3 +578,4 @@ for _f in KERNELS.values():
     _f.launches = 0
     _f.weights_staged = None
 ring_add_q.barrier = None
+ring_gemm_q.barrier = None

@@ -85,23 +85,31 @@ def ring_conv_stream_q(pool, w, b, mult, shift, *, h_win: int, w_in: int,
                        hop: int = 1, in_ptr: int = 0, out_ptr: int = 0,
                        state_ptr: int = 0, activation: str | None = None):
     """Int8 streaming conv step: window shift and writeback (an exact
-    int8 copy), then the k x k int32-accumulate conv with per-channel
-    requantization over the window (replaces ``ring_conv_stream_q``,
-    ``src/repro/kernels/stream.py:235``).  The window is held whole in
-    shared memory."""
+    int8 copy of the raw segments), then the k x k int32-accumulate conv
+    with per-channel requantization over the window (replaces
+    ``ring_conv_stream_q``, ``src/repro/kernels/stream.py:235``).  One
+    cooperative launch over the CTAs of :func:`conv2d.conv_tiling` (kind
+    ``ring_conv_stream_q``), each staging the window rows its taps reach
+    and its share of the window's segments, every read before one grid
+    barrier; where the output run overlaps the window region, the kernel
+    is told to store the window first, as the reference does."""
     n_seg = pool.shape[0]
     wc = _stream_geometry(n_seg, w_in=w_in, w_out=w_out, c_in=c_in,
                           c_out=c_out, h_win=h_win, hop=hop, in_ptr=in_ptr,
                           out_ptr=out_ptr, state_ptr=state_ptr)
     _check_cuda(pool, _per_channel(w, b, mult, shift,
                                    (k, k, c_in, c_out), c_out))
-    ring_conv_stream_q.weights_staged = _launch(
-        "ring_conv_stream_q", pool, h_win * wc * SEG_WIDTH + 12 * c_out,
-        (w, b, mult, shift),
-        (n_seg, h_win, w_in, h_out, w_out, c_in, c_out, k, stride, hop,
-         conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding), in_ptr,
-         out_ptr % n_seg, state_ptr, _relu(activation)),
-        w_bytes=k * k * c_in * c_out)
+    t = conv2d._tiling("ring_conv_stream_q", h_win, w_in, h_out, w_out,
+                       c_in, c_out, k, stride, padding,
+                       conv2d._sm_count(pool.device))
+    over = _runs_overlap(n_seg, out_ptr % n_seg,
+                         h_out * w_out * _segs(c_out), state_ptr, h_win * wc)
+    _launch("ring_conv_stream_q", pool, t.smem, (w, b, mult, shift),
+            (n_seg, h_win, w_in, h_out, w_out, c_in, c_out, k, stride, hop,
+             conv_k2d_pad(k, padding), conv_k2d_pad_w(k, padding), in_ptr,
+             out_ptr % n_seg, state_ptr, _relu(activation), t.rows, t.ctile,
+             int(over)))
+    ring_conv_stream_q.weights_staged = t.stage_w
     ring_conv_stream_q.launches += 1
     return pool
 

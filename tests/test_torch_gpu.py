@@ -40,7 +40,7 @@ from repro_torch.kernels.cases import (DECODE_CASES, compare_decode,
                                        lm_params, logits_close)
 from repro_torch.kernels import fused_mlp
 from repro_torch.kernels.fused_mlp import MlpTiling, mlp_tiling
-from repro_torch.kernels.quantized import add_needs_barrier
+from repro_torch.kernels.quantized import add_needs_barrier, gemm_q_tiling
 from repro_torch.kernels.ring_decode import (ring_decode_attention,
                                              ring_decode_attention_plain)
 from repro_torch.models import build_model, params_from_reference
@@ -157,6 +157,32 @@ def test_add_takes_the_row_map_exactly_where_no_barrier_is_needed_on_card(
     KERNELS[case.kernel](got, **kw)
     torch.cuda.synchronize()
     assert KERNELS[case.kernel].barrier is need
+    assert torch.equal(got, want)
+
+
+GEMM_CASES = tuple(c for c in CASES if c.kernel == "ring_gemm_q")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GEMM_CASES, ids=lambda c: c.name)
+def test_gemm_takes_the_mode_of_its_tiling_on_card(case):
+    """``ring_gemm_q`` runs one CTA in an ordinary launch where
+    ``quantized.gemm_q_tiling`` gives one, else its column tiles under a
+    grid barrier (ToyADMOS's wider layers and the FC edge cases in place
+    with a short last tile, ``gemm_q_inplace_uneven`` and
+    ``gemm_q_widen``); bitwise the plain version either way."""
+    _need_card()
+    kw = case.kwargs
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    t = gemm_q_tiling(kw["m_rows"], kw["d_in"], kw["d_out"], n_sm)
+    pool, params = case_inputs(case, seed=0)
+    cuda_params = [torch.from_numpy(a).cuda() for a in params]
+    want = torch.from_numpy(pool).cuda()
+    PLAIN[case.kernel](want, *cuda_params, **kw)
+    got = torch.from_numpy(pool).cuda()
+    KERNELS[case.kernel](got, *cuda_params, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[case.kernel].barrier is t.barrier is (t.ctas > 1)
     assert torch.equal(got, want)
 
 

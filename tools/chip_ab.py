@@ -7,12 +7,14 @@ Each round runs A, B, B, A, each in a process of its own
 (``--child DIR``), which builds that checkout's kernels and measures,
 through that checkout's own ``repro_torch`` and ``chip_smoke.py``:
 
-* the batch-1 latency of the int8 paths (``run`` on DS-CNN, ResNet-8
-  and MCUNet-5fps-VWW, ``stream().step`` on the DS-CNN stream): median
-  and quartiles of 300 calls on the host clock, each ending in
-  ``torch.cuda.synchronize()``, after 20 calls of warm-up;
+* the batch-1 latency of the int8 paths (``run`` on DS-CNN, ResNet-8,
+  MCUNet-5fps-VWW and ToyADMOS, ``stream().step`` on the DS-CNN stream
+  and the GRU chain): median and quartiles of 300 calls on the host
+  clock, each ending in ``torch.cuda.synchronize()``, after 20 calls of
+  warm-up;
 * the device time of ``ring_conv_k2d_q``, ``ring_conv_pw_q``,
-  ``ring_conv_dw_q`` and ``ring_add_q`` on every op of those plans
+  ``ring_conv_dw_q``, ``ring_add_q``, ``ring_conv_stream_q`` and
+  ``ring_gemm_q`` on every op of those plans
   (``chip_smoke._held_ms``: held-stream CUDA events, 50 launches).
 
 It prints each process's result as a JSON line, then a summary: per
@@ -30,9 +32,11 @@ import subprocess
 import sys
 import time
 
-PATHS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ds-cnn-stream")
+STREAM_PATHS = ("ds-cnn-stream", "kws-gru-chain")
+PATHS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos") \
+    + STREAM_PATHS
 KERNELS = ("ring_conv_k2d_q", "ring_conv_pw_q", "ring_conv_dw_q",
-           "ring_add_q")
+           "ring_add_q", "ring_conv_stream_q", "ring_gemm_q")
 CALLS, WARM = 300, 20
 
 
@@ -48,7 +52,7 @@ def child(root: pathlib.Path) -> dict:
     for name in PATHS:
         cn = cs.load_plan(name)
         golden = cs.load_golden(name, cn)
-        if name.endswith("-stream"):
+        if name in STREAM_PATHS:
             session = cn.stream()
             frame = torch.from_numpy(golden["x_q"][0]).cuda()
             fn = lambda s=session, f=frame: s.step(f)   # noqa: E731
