@@ -41,7 +41,11 @@ Phases, one summary line each:
      ``ring_gemm_q`` call its mode (one CTA in an ordinary launch, or
      column tiles under a grid barrier, as ``quantized.gemm_q_tiling``
      rules, and the wrapper must have taken it), CTAs and bytes held,
-     for each
+     for each ``ring_gru_cell_q`` call its mode (one CTA, or channel
+     tiles under a grid barrier, as ``stream.gru_q_tiling`` rules, and
+     the wrapper must have taken it), CTAs and shared memory, for each
+     ``ring_avgpool_q`` call its one CTA's parts and chunk
+     (``quantized.pool_q_tiling``), for each
      ``ring_elementwise`` call its runs and blocks
      (``elementwise.ring_runs``, ``ew_blocks``); and for each
      ``ring_fused_mlp``
@@ -97,8 +101,8 @@ Phases, one summary line each:
      library call that computes the same op, at the shapes each path
      gives it (the fused bottleneck, the fp32 GRU cell and the fused MLP
      against a short sequence of calls, with the count stated; the FC
-     kernels, the int8 pw, dw, k x k and streaming convs and the int8 add
-     also op by op, ``PER_OP_KERNELS``); and the
+     kernels, the int8 pw, dw, k x k and streaming convs, the int8 add,
+     pool and GRU cell also op by op, ``PER_OP_KERNELS``); and the
      gemma3-1b path's prefill latency at batch 4, per-token decode
      latency at batch 1 and 4, its device-busy share, and
      ``ring_decode_attention`` at its two serve shapes (a 512-slot local
@@ -108,9 +112,11 @@ Phases, one summary line each:
      ``ring_fused_mlp`` on the tower's layer under its tiling and a few
      others (``MLP_TILINGS``), and ``ring_add_q`` on every int8 add of
      the plans and edge cases in each mode it may take (the row map, and
-     reading first, forced where the map would do), and ``ring_gemm_q``
+     reading first, forced where the map would do), ``ring_gemm_q``
      on every int8 FC of the plans and edge cases in both of its modes
-     (``time_gemm_modes``).
+     (``time_gemm_modes``), and ``ring_gru_cell_q`` on the GRU chain's
+     cell and the GRU edge cases in both of its modes
+     (``time_gru_modes``).
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -457,9 +463,10 @@ def phase_parity(cases) -> dict[str, float]:
     weights from global memory, as the wrapper decided
     (``<wrapper>.weights_staged``); and the tiling of each depthwise,
     k x k and streaming fp32 conv, of each int8 pw, dw and k x k conv, of
-    each fp32 add, of each fused bottleneck and each int8 add's and int8
-    FC's mode, which the wrapper must have taken (``ring_add_q.barrier``,
-    ``ring_gemm_q.barrier``).  Returns the max |difference| per kernel (0 for int8, or
+    each fp32 add, of each fused bottleneck and each int8 add's, int8
+    FC's and int8 GRU cell's mode, which the wrapper must have taken
+    (``ring_add_q.barrier``, ``ring_gemm_q.barrier``,
+    ``ring_gru_cell_q.barrier``), and each int8 pool's CTA.  Returns the max |difference| per kernel (0 for int8, or
     this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
@@ -469,8 +476,9 @@ def phase_parity(cases) -> dict[str, float]:
     from repro_torch.kernels.inverted_bottleneck import ib_tiling
     from repro_torch.kernels.quantized import (add_map_rows,
                                                add_needs_barrier,
-                                               gemm_q_tiling)
+                                               gemm_q_tiling, pool_q_tiling)
     from repro_torch.kernels.segment_matmul import gemm_tiling
+    from repro_torch.kernels.stream import gru_q_tiling
 
     n_f32 = sum(is_f32(c.kernel) for c in cases)
     say(f"phase 2: {len(cases)} kernel calls against their plain versions "
@@ -517,6 +525,22 @@ def phase_parity(cases) -> dict[str, float]:
                             "one CTA, ordinary launch")
                          + f": {t.ctas} CTAs ({t.rows} rows x {t.ctile} "
                          f"columns), {t.held} B held")
+        elif case.kernel == "ring_gru_cell_q":
+            kw = case.kwargs
+            t = gru_q_tiling(kw["d_in"], kw["d_h"], n_sm)
+            barrier = t.barrier
+            tiles.append(f"{case.name} "
+                         + ("grid barrier, cooperative" if barrier else
+                            "one CTA, ordinary launch")
+                         + f": {t.ctas} CTAs of {t.ctile} hidden channels, "
+                         f"{t.smem} B of shared memory")
+        elif case.kernel == "ring_avgpool_q":
+            kw = case.kwargs
+            t = pool_q_tiling(kw["h"], kw["w"], kw["c"])
+            tiles.append(f"{case.name} one CTA of {t.threads} threads, "
+                         f"ordinary launch: {t.parts} part(s) of each "
+                         f"channel's sum, {t.chunk_pix} of {t.npix} pixels "
+                         f"a chunk, {t.smem} B of shared memory")
         elif case.kernel == "ring_elementwise":
             kw = case.kwargs
             n = kw["m_rows"] * _segs(kw["d"])
@@ -573,8 +597,9 @@ def phase_parity(cases) -> dict[str, float]:
         f"ring_conv_stream / ring_add / ring_inverted_bottleneck / "
         f"ring_conv_pw_q / ring_conv_dw_q / ring_conv_k2d_q / "
         f"ring_conv_stream_q tiles on {n_sm} SMs (CTAs, bytes each holds "
-        "across the grid barrier), ring_gemm_q's and ring_add_q's mode, "
-        "CTAs and bytes held, ring_elementwise's runs and blocks, and "
+        "across the grid barrier), ring_gemm_q's, ring_gru_cell_q's and "
+        "ring_add_q's mode, CTAs and bytes held, ring_avgpool_q's CTA, "
+        "ring_elementwise's runs and blocks, and "
         "ring_fused_mlp's (CTAs of its first kernel, tiling, scratch):")
     for line in tiles:
         say(f"    {line}")
@@ -883,9 +908,9 @@ KERNEL_SYMBOLS = {"ring_gemm_q": "gemm_q_kernel",
                   "ring_conv_dw_q": "conv_dw_q_kernel",
                   "ring_conv_k2d_q": "conv_k2d_q_kernel",
                   "ring_add_q": "add_q_kernel",
-                  "ring_avgpool_q": "avgpool_kernel",
+                  "ring_avgpool_q": "avgpool_q_kernel",
                   "ring_conv_stream_q": "conv_stream_q_kernel",
-                  "ring_gru_cell_q": "gru_kernel",
+                  "ring_gru_cell_q": "gru_q_kernel",
                   "ring_gemm": "gemm_f32_kernel",
                   "ring_conv_pw": "conv_pw_f32_kernel",
                   "ring_conv_dw": "conv_dw_f32_kernel",
@@ -1084,7 +1109,7 @@ def _work_kw(kernel: str, kw: dict, params) -> dict:
 #: time (``per_op``), not only the plan's mean.
 PER_OP_KERNELS = ("ring_gemm_q", "ring_gemm", "ring_conv_k2d_q",
                   "ring_conv_pw_q", "ring_conv_dw_q", "ring_add_q",
-                  "ring_conv_stream_q")
+                  "ring_conv_stream_q", "ring_avgpool_q", "ring_gru_cell_q")
 
 
 def time_cases(cases) -> dict[str, dict]:
@@ -1219,6 +1244,59 @@ def time_gemm_modes(cases) -> dict[str, dict]:
         + "; ".join(f"{name} ({row['rule']}) "
                     + ", ".join(f"{m} {v * 1e3:.2f}"
                                 for m, v in row.items() if m != "rule")
+                    for name, row in out.items()))
+    return out
+
+
+def time_gru_modes(cases) -> dict[str, dict]:
+    """``ring_gru_cell_q`` on each int8 GRU cell of ``cases`` in both modes
+    of ``stream.gru_q_tiling``: one CTA in an ordinary launch (where its
+    shared memory fits) and the channel tiles under a grid barrier in a
+    cooperative launch; each launch bitwise the plain version, then timed,
+    ms a launch (held-stream CUDA events), by case and mode, beside the
+    mode the rule gives."""
+    from repro_torch.kernels import stream
+    from repro_torch.kernels._launch import MAX_SMEM
+    from repro_torch.kernels.cases import case_inputs
+
+    tiling, out = stream.gru_q_tiling, {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for case in (c for c in cases if c.kernel == "ring_gru_cell_q"):
+        kw = case.kwargs
+        shape = (kw["d_in"], kw["d_h"])
+        pool, params = case_inputs(case, seed=0)
+        params = _cuda(params)
+        want = torch.from_numpy(pool).cuda()
+        stream.ring_gru_cell_q_plain(want, *params, **kw)
+        rule = tiling(*shape, n_sm)
+        row = {"rule": "grid" if rule.barrier else "one"}
+        for mode, one in (("one", True), ("grid", False)):
+            if one and stream.GruQTiling(*shape, shape[1], False).smem \
+                    > MAX_SMEM:
+                continue
+            stream.gru_q_tiling = lambda i, h, n, one=one: tiling(i, h, n, one)
+            try:
+                got = torch.from_numpy(pool).cuda()
+                stream.ring_gru_cell_q(got, *params, **kw)
+                torch.cuda.synchronize()
+                if stream.ring_gru_cell_q.barrier is one \
+                        or not torch.equal(got, want):
+                    raise SystemExit(f"{case.name}: ring_gru_cell_q in mode "
+                                     f"{mode} differs from its plain "
+                                     "version")
+                row[mode] = _held_ms(
+                    lambda: stream.ring_gru_cell_q(got, *params, **kw), 50)
+                if not one:
+                    row["grid_ctas"] = tiling(*shape, n_sm, False).ctas
+            finally:
+                stream.gru_q_tiling = tiling
+        out[case.name] = row
+    say("  ring_gru_cell_q by mode, bitwise the plain version in each (us a "
+        "launch, device; the rule's mode first): "
+        + "; ".join(f"{name} ({row['rule']}) "
+                    + ", ".join(f"{m} {v * 1e3:.2f}" for m, v in row.items()
+                                if m in ("one", "grid"))
+                    + f" ({row['grid_ctas']} CTAs)"
                     for name, row in out.items()))
     return out
 
@@ -1709,6 +1787,8 @@ def main() -> None:
     next(r for r in rows if r["name"] == "ring_gemm_q")["by_mode"] = \
         time_gemm_modes(sum((cases[n] for n in NETS + STREAMS[:1]), ())
                         + EDGE_CASES)
+    next(r for r in rows if r["name"] == "ring_gru_cell_q")["by_mode"] = \
+        time_gru_modes(cases[STREAMS[1]] + EDGE_CASES)
     paths[f"{LM} serve"] = time_lm(lm_cfg, lm_weights)
     rows.append(time_decode_kernel(
         lm_cfg, max(LM_PROMPT_LENS) + LM_MAX_NEW // 2, counts[LM],

@@ -42,7 +42,7 @@ SIGNATURES = {
         "ring_avgpool_q": [_P] + [_I] * 9 + [_P],
         "ring_add_q": [_P] + [_I] * 13 + [_P],
         "ring_conv_stream_q": [_P] * 5 + [_I] * 19 + [_P],
-        "ring_gru_cell_q": [_P] * 8 + [_I] * 6 + [_P],
+        "ring_gru_cell_q": [_P] * 8 + [_I] * 8 + [_P],
     },
     "ring_f32": {
         "ring_gemm": [_P] * 3 + [_I] * 9 + [_P],

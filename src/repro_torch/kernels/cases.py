@@ -12,8 +12,8 @@ versions and to the CUDA kernels.
 :data:`EDGE_CASES` are the int8 geometries the DS-CNN plan does not
 reach (wrapping runs, other strides, paddings and blockings, saturating
 and wrapping int32 sums, streaming windows with ``hop`` 2), and
-:data:`CARD_EDGE_CASES` one too large to run through the reference on
-the CPU;
+:data:`CARD_EDGE_CASES` three too large to run through the reference
+on the CPU;
 :data:`F32_EDGE_CASES` are their fp32 twins for the six whole-network
 kernels, with every activation of the fp32 epilogue;
 :data:`F32_FUSED_STREAM_EDGE_CASES` those of the fused inverted
@@ -90,7 +90,9 @@ models it); so may their int8 twins ``gemm_q_inplace_uneven`` and
 ``gemm_q_widen``, and the int8 stream on ``stream_q_uneven``, whose short
 last CTA copies a window row back onto the source of the row its
 neighbour still reads (``tests/test_torch_q_stream_gemm_tiles.py`` models
-them).
+them); so may the int8 GRU cell's channel tiles on ``gru_q_inplace`` (the
+GRU chain's overlap: h' lands on x and on h, which every tile reads;
+``tests/test_torch_q_pool_gru_tiles.py`` models it).
 """
 from __future__ import annotations
 
@@ -166,6 +168,12 @@ def _stream(h_win, w, ci, co, k, s, hop, hout, wout, i, o, st, act,
 def _ib(h, w, ci, cm, co, i, o, residual, rs=3):
     return dict(H=h, W=w, C_in=ci, C_mid=cm, C_out=co, RS=rs, in_ptr=i,
                 out_ptr=o, residual=residual)
+
+
+def _avgpool(h, w, c, i, o):
+    """A pool whose mult and shift fold in 0.9 / (h * w)."""
+    mult, shift = quantize_multiplier(0.9 / (h * w))
+    return dict(h=h, w=w, c=c, in_ptr=i, out_ptr=o, mult=mult, shift=shift)
 
 
 def _gru(d_in, d_h, i, o, st):
@@ -322,6 +330,24 @@ EDGE_CASES = (
     # the reference stores the window first, so the output wins there
     Case("stream_q_out_over_window", "ring_conv_stream_q", 80,
          _stream(6, 5, 8, 16, 3, 1, 2, 6, 5, 0, 40, 30, "relu")),
+    # in place (out_ptr == in_ptr, as every plan's pool), the input run of
+    # 125 one-segment pixels wrapping the ring, 100 channels (no multiple
+    # of 16: the last vector of a pixel is part tail)
+    Case("avgpool_q_inplace_wrap", "ring_avgpool_q", 150,
+         _avgpool(25, 5, 100, 100, 100)),
+    # 8 segments a pixel: 64 vectors, 4 pixel groups of 12-13 pixels a
+    # thread; in place, the input run wrapping the ring
+    Case("avgpool_q_wide", "ring_avgpool_q", 448,
+         _avgpool(7, 7, 1000, 336, 336)),
+    # the GRU chain's overlap: h' lands on x (out_ptr == in_ptr), the
+    # state elsewhere
+    Case("gru_q_inplace", "ring_gru_cell_q", 12, _gru(64, 64, 2, 2, 9)),
+    # d_h 70 (the int8 twin of f32_gru_d_h_72): 3 d_h = 210 is no
+    # multiple of 4, so W and U are staged byte by byte, and the last word
+    # of h' is half channel tail
+    Case("gru_q_d_h_70", "ring_gru_cell_q", 12, _gru(64, 70, 2, 3, 6)),
+    # 98,304 B of W and U (four times the GRU chain's), in place
+    Case("gru_q_wide", "ring_gru_cell_q", 8, _gru(128, 128, 2, 2, 5)),
 )
 
 #: Int8 edge cases too large for the reference's Pallas kernel in interpret
@@ -336,6 +362,16 @@ CARD_EDGE_CASES = (
     # on the card where a few hundred rows did not)
     Case("add_shifted_card", "ring_add_q", 17000,
          _add(8385, 16, 9000, 400, 8999, 0.9, 1.1, "relu")),
+    # 2,025 one-segment pixels (259,200 B): the pool's CTA stages them in
+    # two chunks (1,808 and 217 pixels); in place, the input run wrapping
+    # the ring
+    Case("avgpool_q_chunks_card", "ring_avgpool_q", 2115,
+         _avgpool(45, 45, 128, 90, 90)),
+    # 9,000 channels (71 segments, 568 vectors a pixel, more than the CTA's
+    # 512 threads): staged a vector a thread in turn, in chunks of 18
+    # pixels; in place, the input run wrapping the ring
+    Case("avgpool_q_wide_card", "ring_avgpool_q", 3976,
+         _avgpool(7, 7, 9000, 2485, 2485)),
 )
 
 

@@ -20,8 +20,11 @@
 // output rows p - 2 and p - 1 still read).  The plan is certified clobber-free
 // only for the order of the TPU's sequential grid: no store of step i may move
 // ahead of a read of an earlier step, so in that order every read of an op
-// sees the pool as it was before the op.  A kernel keeps that in one of three
-// ways.
+// sees the pool as it was before the op.  A kernel keeps that in one of two
+// ways: it reads all of the op before it stores anything (in one CTA, or over
+// many CTAs with a grid barrier between), or, the residual add where no
+// output row lands on an operand row of another index, it stores each word
+// right after the same thread read it.
 //
 // The 1x1, depthwise, k x k and streaming convs (ring_conv_pw_q,
 // ring_conv_dw_q, ring_conv_k2d_q, ring_conv_stream_q) read EVERYTHING
@@ -45,18 +48,22 @@
 // with no barrier, in an ordinary launch; elsewhere it reads first, as the
 // convs do (see its section).
 //
-// The other two (the average pool and the GRU cell) run as ONE thread block
-// of THREADS that reads all of its op into shared memory, then stores: the
-// pool's pixels in chunks of `chunk_pix` as large as shared memory allows,
-// the GRU cell's x and h.  Their bytes and operations are tiny, so what they
-// cost is latency on one SM.  Channel tails (c .. segs(c) * 128) are stored
-// as zeros.
+// The average pool (ring_avgpool_q) is one CTA in an ordinary launch: every
+// thread stages 16-byte vectors of the pixels, then sums one channel of a
+// share of them; after a __syncthreads (every read of the op is done) a
+// thread a channel adds the shares, requantizes and stores, the row landing
+// on the input's pixel 0 in every plan.  The GRU cell (ring_gru_cell_q)
+// stages x, h and its columns of W and U, then computes its gates with
+// __dp4a: in one CTA and an ordinary launch, or over channel tiles in one
+// cooperative launch with one grid barrier before any CTA stores h' (which
+// lands on h, and in place on x).  No int8 kernel walks an op in one block.
+// Channel tails (c .. segs(c) * 128) are stored as zeros.
 //
 // The Python wrappers (kernels/quantized.py, kernels/stream.py) size shared
-// memory: they pass the pool's `chunk_pix`, the read-first kernels' tilings
-// (conv2d.py::conv_tiling, quantized.py::gemm_q_tiling) and the add's mode
-// and rows a CTA, and the entry points below only turn those into the
-// launch's byte count.
+// memory: they pass the read-first kernels' tilings (conv2d.py::conv_tiling,
+// quantized.py::gemm_q_tiling, stream.py::gru_q_tiling), the add's mode and
+// rows a CTA and the pool's pixels a chunk (quantized.py::pool_q_tiling),
+// and the entry points below only turn those into the launch's byte count.
 //
 // Requantization is the reference's (src/repro/quant/requant.py): the exact
 // 64-bit product acc * mult, one round-to-nearest-even at 31 - shift,
@@ -69,7 +76,8 @@
 // rows and the new frame's before any CTA writes anything: the shifted window
 // goes back to the state region as raw segments, then the output rows, which
 // may land on the frame's rows.  ring_gru_cell_q reads x and h before it
-// stores h' to the state and to the chained output.
+// stores h' to the state and to the chained output (across the grid
+// barrier in its tile mode).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -81,7 +89,6 @@ namespace cg = cooperative_groups;
 
 constexpr int SEG = 128;              // bytes per int8 segment
 constexpr int VEC = SEG / 16;         // 16-byte vectors per segment
-constexpr int THREADS = 1024;        // threads of the one-block pool and GRU cell
 constexpr long long I24 = 1LL << 24;
 constexpr long long I32_MIN = -2147483648LL;
 constexpr long long I32_MAX = 2147483647LL;
@@ -114,23 +121,6 @@ __device__ __forceinline__ int8_t epilogue(uint32_t acc, int32_t bias,
   int32_t a = (int32_t)(acc + (uint32_t)bias);
   if (relu && a < 0) a = 0;
   return sat8(requant_i32(a, mult, shift));
-}
-
-// Copy `count` ring segments starting at segment `ptr` into shared memory.
-// (Pointers are normalized into [0, n_seg) by the wrappers and no tensor is
-// longer than the ring, so segment numbers stay well inside int32.)
-__device__ __forceinline__ void ring_load(int4* dst, const int8_t* pool,
-                                          int ptr, int count, int n_seg) {
-  for (int i = threadIdx.x; i < count * VEC; i += blockDim.x) {
-    const int seg = (ptr + i / VEC) % n_seg;
-    dst[i] = reinterpret_cast<const int4*>(pool + (size_t)seg * SEG)[i % VEC];
-  }
-}
-
-// Byte `j` of the run of segments starting at ring segment `ptr`.
-__device__ __forceinline__ int8_t* ring_byte(int8_t* pool, int ptr, int j,
-                                             int n_seg) {
-  return pool + (size_t)((ptr + j / SEG) % n_seg) * SEG + j % SEG;
 }
 
 // ---------------------------------------------------------------------------
@@ -769,6 +759,19 @@ __device__ __forceinline__ void stage_gemm_consts(
 
 constexpr int GEMM_ITEMS = 4;   // weight items a thread loads at once
 
+// A 4 x 4 block of bytes transposed in registers: byte c of row word
+// r[kk] becomes byte kk of column word col[c].
+__device__ __forceinline__ void transpose4(const uint32_t* r, uint32_t* col) {
+  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
+  col[0] = __byte_perm(lo01, lo23, 0x5410);
+  col[1] = __byte_perm(lo01, lo23, 0x7632);
+  col[2] = __byte_perm(hi01, hi23, 0x5410);
+  col[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
 // The weight slice as stage_q_weights lays it out ([ctile, pitch chunks],
 // zeros from d_in on), from 32-bit words where d_out is a multiple of 4
 // and w is 4-byte aligned: an item is rows 4j .. 4j + 3 x columns c0 + 4q
@@ -806,15 +809,8 @@ __device__ __forceinline__ void stage_gemm_quads(const ConvTile& t,
       const int i = i0 + u * blockDim.x, rest = i / 16;
       const int q = rest % quads, j = rest / quads * 16 + i % 16;
       if (i >= total || j >= words) continue;
-      // byte c of row kk -> byte kk of column c's word
-      const uint32_t lo01 = __byte_perm(r[u][0], r[u][1], 0x5140);
-      const uint32_t lo23 = __byte_perm(r[u][2], r[u][3], 0x5140);
-      const uint32_t hi01 = __byte_perm(r[u][0], r[u][1], 0x7362);
-      const uint32_t hi23 = __byte_perm(r[u][2], r[u][3], 0x7362);
-      const uint32_t col[4] = {__byte_perm(lo01, lo23, 0x5410),
-                               __byte_perm(lo01, lo23, 0x7632),
-                               __byte_perm(hi01, hi23, 0x5410),
-                               __byte_perm(hi01, hi23, 0x7632)};
+      uint32_t col[4];
+      transpose4(r[u], col);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         if (4 * q + c < t.cn) ws[(4 * q + c) * words + j] = col[c];
@@ -873,40 +869,6 @@ gemm_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
     __syncthreads();          // (b): one CTA, every read of the op is done
   store_q_tile(pool, t, y, reinterpret_cast<const int*>(smem + m.out_row), 1,
                d_out, nsegs, ctile);
-}
-
-// ---------------------------------------------------------------------------
-// Global average pool: int32 column sums over h x w pixels, one requantized
-// channel row stored after every read (the 1/(h*w) is folded into mult).
-// Nothing is stored before the last read, so the pixels are read in chunks of
-// `chunk_pix` as large as shared memory allows (all of DS-CNN's at once).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-avgpool_kernel(int8_t* pool, int n_seg, int h, int w, int c, int in_ptr,
-               int out_ptr, int mult, int shift, int chunk_pix) {
-  extern __shared__ int4 smem[];
-  const int segs = segs_for(c);
-  uint32_t* sums = reinterpret_cast<uint32_t*>(smem);     // [segs * SEG]
-  int4* tile = smem + segs * SEG * 4 / 16;
-  const int8_t* x = reinterpret_cast<const int8_t*>(tile);
-  for (int j = threadIdx.x; j < segs * SEG; j += blockDim.x) sums[j] = 0;
-  for (int p0 = 0; p0 < h * w; p0 += chunk_pix) {
-    const int n = min(chunk_pix, h * w - p0);
-    ring_load(tile, pool, (in_ptr + p0 * segs) % n_seg, n * segs, n_seg);
-    __syncthreads();
-    // thread j owns column j: sums[j] is only ever touched by its owner
-    for (int j = threadIdx.x; j < c; j += blockDim.x) {
-      uint32_t acc = sums[j];
-#pragma unroll 4
-      for (int pix = 0; pix < n; ++pix)
-        acc += (uint32_t)(int)x[pix * segs * SEG + j];
-      sums[j] = acc;
-    }
-    __syncthreads();
-  }
-  for (int j = threadIdx.x; j < segs * SEG; j += blockDim.x)
-    *ring_byte(pool, out_ptr, j, n_seg) =
-        j < c ? sat8(requant_i32((int32_t)sums[j], mult, shift)) : (int8_t)0;
 }
 
 // ---------------------------------------------------------------------------
@@ -1011,11 +973,160 @@ add_q_kernel(int8_t* pool, int n_seg, int rows, int d, int in_ptr,
 }
 
 // ---------------------------------------------------------------------------
+// Global average pool: the int32 column sums of h x w pixels of c channels
+// (`segs` segments each) at in_ptr, requantized (the 1/(h*w) is folded into
+// mult) into one row stored at out_ptr as whole segments, channel tail
+// zero.  Every plan's pool is in place (out_ptr == in_ptr): the row lands
+// on pixel 0.  One CTA of pool_q_threads(c) in an ordinary launch, every
+// thread in every phase; the pixels go through shared memory in chunks of
+// `chunk_pix` (all of a plan's at once):
+//   (a) the CTA stages the chunk's pixels with 16-byte cp.async copies, a
+//       thread a vector of a pixel (neighbouring threads on neighbouring
+//       vectors), then __syncthreads;
+//   (b) thread (j, ch), channels fastest over cw = pow2 >= c lanes (a
+//       warp reads 32 neighbouring bytes of one pixel: no bank conflict),
+//       adds channel ch of pixels j, j + parts, ... into its partial
+//       part[j][ch]: `parts` = clamp(h w / POOL_PIX_PER_PART, 1,
+//       threads / cw) short chains in place of one chain of h w loads;
+//       __syncthreads: after the last chunk every read of the op is done;
+//   (c) a thread a lane of the output row adds its channel's `parts`
+//       partials, requantizes once and stores its byte, zero from c on.
+// Sums mod 2**32 do not depend on their order, so the sums are bitwise the
+// reference's int32 ones.  What bounds it: bytes (DS-CNN's 25 x 5 x 64
+// pool reads 8,000 B, 2.4 ns at 3.35 TB/s); what remains is the launch of
+// one CTA and one round trip of its loads, then the longest thread's
+// chain, which the parts shorten.  Neither a reduction of every pixel's
+// vectors in registers (no staging) nor one of 16-byte partials over
+// pixel groups beat the CTA that walks (tools/q_pool_gru_variants.cu,
+// PERF.md).
+// ---------------------------------------------------------------------------
+constexpr int POOL_Q_THREADS = 256;        // quantized.py::POOL_Q_THREADS
+constexpr int POOL_Q_THREADS_WIDE = 512;   // above 256 channels
+constexpr int POOL_PIX_PER_PART = 16;      // quantized.py::POOL_PIX_PER_PART
+
+// log2 of cw, the power of two >= c (at least a warp) of the channel lanes;
+// one __clz on the card, where a loop lengthened every thread's chain.
+__host__ __device__ __forceinline__ int pool_q_lg(int c) {
+#ifdef __CUDA_ARCH__
+  return 32 - __clz(max(c, 32) - 1);
+#else
+  int lg = 5;
+  while ((1 << lg) < c) ++lg;
+  return lg;
+#endif
+}
+
+__host__ __device__ __forceinline__ int pool_q_threads(int c) {
+  return c <= POOL_Q_THREADS ? POOL_Q_THREADS : POOL_Q_THREADS_WIDE;
+}
+
+// The parts of a channel's sum for `threads` threads.
+__host__ __device__ __forceinline__ int pool_q_parts(int threads, int lg,
+                                                     int npix) {
+  return max(1, min(npix / POOL_PIX_PER_PART, threads >> lg));
+}
+
+template <int THR>
+__global__ void __launch_bounds__(THR)
+avgpool_q_kernel(int8_t* pool, int n_seg, int h, int w, int c, int in_ptr,
+                 int out_ptr, int mult, int shift, int chunk_pix) {
+  extern __shared__ int4 qsmem[];
+  const int segs = segs_for(c), vecs = segs * VEC, npix = h * w;
+  const int lanes = segs * SEG, lg = pool_q_lg(c), cw = 1 << lg;
+  const int parts = pool_q_parts(THR, lg, npix);
+  uint32_t* part = reinterpret_cast<uint32_t*>(qsmem);   // [parts][cw]
+  int4* tile = qsmem + parts * cw / 4;
+  const int8_t* x = reinterpret_cast<const int8_t*>(tile);
+  for (int p0 = 0; p0 < npix; p0 += chunk_pix) {
+    const int n = min(chunk_pix, npix - p0);
+    // (a) a pixel never wraps: the wrapper requires the pool and the
+    // pointers aligned to whole image rows
+    if (vecs <= THR) {
+      const int v = threadIdx.x % vecs, step = THR / vecs;
+      int seg = in_ptr + (p0 + threadIdx.x / vecs) * segs;
+      if (seg >= n_seg) seg %= n_seg;
+      if (threadIdx.x < step * vecs)
+        for (int p = threadIdx.x / vecs; p < n; p += step) {
+          cp_async16(tile + p * vecs + v, pool + (size_t)seg * SEG + 16 * v);
+          seg += step * segs;
+          if (seg >= n_seg) seg %= n_seg;
+        }
+    } else {
+      for (int i = threadIdx.x; i < n * vecs; i += THR) {
+        const int p = i / vecs, v = i - p * vecs;
+        cp_async16(tile + i, pool + (size_t)((in_ptr + (p0 + p) * segs) %
+                                             n_seg) * SEG + 16 * v);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    // (b) chunks are a multiple of `parts` pixels, so part j keeps pixels
+    // p = j (mod parts)
+    for (int t = threadIdx.x; t < parts * cw; t += THR) {
+      const int ch = t & (cw - 1), j = t >> lg;
+      if (ch < c) {
+        uint32_t s = 0;
+#pragma unroll 4
+        for (int p = j; p < n; p += parts)
+          s += (uint32_t)(int)x[p * lanes + ch];
+        part[t] = p0 ? part[t] + s : s;
+      }
+    }
+    __syncthreads();   // every read of the chunk (of the op, the last) done
+  }
+  // (c)
+  for (int i = threadIdx.x; i < lanes; i += THR) {
+    int8_t y = 0;
+    if (i < c) {
+      uint32_t sum = 0;
+#pragma unroll 4
+      for (int j = 0; j < parts; ++j) sum += part[j * cw + i];
+      y = sat8(requant_i32((int32_t)sum, mult, shift));
+    }
+    int seg = out_ptr + i / SEG;
+    if (seg >= n_seg) seg -= n_seg;
+    pool[(size_t)seg * SEG + i % SEG] = y;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Int8 GRU cell: gx = rq(x @ W, mx, sx) + b (wrapping) and gh = rq(h @ U, mu,
 // su) in the Q12 gate domain, then the fixed-point hard-gate update of
 // src/repro/quant/requant.py::gru_update_q12 into the Q7 state, stored at
 // state_ptr and at out_ptr.  W is [d_in, 3 d_h], U [d_h, 3 d_h]; gates z, r, n.
+// The GRU chain's op is in place: h' lands on x (out_ptr == in_ptr) and on
+// h.  CTA i owns hidden channels i0 = i * ctile .. i0 + tn - 1
+// (stream.py::gru_q_tiling: one CTA of all d_h channels, or channel tiles
+// of a multiple of 4) and the six matching column slices (z, r and n of W
+// and of U), "columns" j = s * ctile + co of gate s below.  It
+//   (a) stages x and h (16-byte cp.async chunks), its b, mx, sx, mu, su
+//       (4-byte cp.async) and its columns of W and U as they lie, rows of
+//       `P` = round4(3 ctile) bytes: the whole matrix as 16-byte cp.async
+//       copies in one CTA, else 4-byte ones of each row's three slices
+//       where d_h is a multiple of 4, else byte by byte;
+//   (b) computes its 6 tn gate pre-activations: a thread owns a quad of 4
+//       columns of W or U and a share (`ks` lanes) of its rows; for each 4
+//       rows it reads the 4 words of its quad (neighbouring threads on
+//       neighbouring words of one row), transposes them in registers
+//       (transpose4) and takes a __dp4a of each column with the 4 bytes of
+//       x or h (zero past d_in or d_h); the lanes' partials go to shared
+//       memory and one thread a column sums them (mod 2**32: bitwise the
+//       reference's wrapping int32 sum) and requantizes the gate, storing
+//       nothing;
+//   (c) meets the other threads of its CTA (one CTA, an ordinary launch)
+//       or every CTA at the grid barrier (BARRIER, a cooperative launch):
+//       every read of the op is done;
+//   (d) runs the update of its channels from the gates and the OLD h held
+//       in shared memory, a 32-bit word of h' a thread, and stores each
+//       word to the state and to the output (the last tile the channel
+//       tail as zeros).
+// What bounds it: bytes (the chain's 64 -> 64 cell moves 28 KB, 8.6 ns at
+// 3.35 TB/s, mostly W and U); what remains is the launch (and, with
+// BARRIER, the barrier) and one staging round trip.
 // ---------------------------------------------------------------------------
+constexpr int GRU_Q_THREADS = 256;   // stream.py::GRU_Q_THREADS
+constexpr int GRU_BYTES = 8;         // weight bytes a thread loads at once
+
 __device__ __forceinline__ int32_t clip32(int32_t v, int32_t lo, int32_t hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
@@ -1035,46 +1146,177 @@ __device__ __forceinline__ int8_t gru_update_q12(int32_t xz, int32_t xr,
   return sat8((z * h + (4096 - z) * n_q7 + 2048) >> 12);
 }
 
-__global__ void __launch_bounds__(THREADS)
-gru_kernel(int8_t* pool, const int8_t* __restrict__ w,
-           const int8_t* __restrict__ u, const int32_t* __restrict__ b,
-           const int32_t* __restrict__ mx, const int32_t* __restrict__ sx,
-           const int32_t* __restrict__ mu, const int32_t* __restrict__ su,
-           int n_seg, int d_in, int d_h, int in_ptr, int out_ptr,
-           int state_ptr) {
-  extern __shared__ int4 smem[];
-  const int ci = segs_for(d_in), co = segs_for(d_h), g = 3 * d_h;
-  const int8_t* x = reinterpret_cast<const int8_t*>(smem);
-  const int8_t* h = x + (size_t)ci * SEG;
-  int32_t* gx = reinterpret_cast<int32_t*>(smem + (ci + co) * VEC);
-  int32_t* gh = gx + g;
-  ring_load(smem, pool, in_ptr, ci, n_seg);
-  ring_load(smem + ci * VEC, pool, state_ptr, co, n_seg);
+// A GRU CTA's shared memory, byte offsets (stream.py::_gru_q_smem): x from
+// 0 and h, whole 16-byte chunks; W's and U's columns [round4(d), P] (each
+// region a multiple of 16 bytes); b, mx, sx, mu, su [5, 3 ctile] int32;
+// each thread's 4 partial sums; gx, gh [2, 3 ctile] int32.
+struct GruQSmem {
+  int h, w, u, prm, part, gates, bytes;
+};
+
+__host__ __device__ __forceinline__ int gru_row_bytes(int ctile) {
+  return round4(3 * ctile);
+}
+
+__host__ __device__ __forceinline__ GruQSmem gru_q_layout(int d_in, int d_h,
+                                                          int ctile) {
+  const int p = gru_row_bytes(ctile);
+  GruQSmem m;
+  m.h = round16(d_in);
+  m.w = m.h + round16(d_h);
+  m.u = m.w + round16(round4(d_in) * p);
+  m.prm = m.u + round16(round4(d_h) * p);
+  m.part = m.prm + 4 * 15 * ctile;
+  m.gates = m.part + 16 * GRU_Q_THREADS;
+  m.bytes = m.gates + 4 * 6 * ctile;
+  return m;
+}
+
+// Columns s * d_h + i0 .. + tn - 1 of w [depth, 3 d_h] for each gate s, as
+// rows of p bytes at byte `at` (gate s from byte s * ctile of a row).
+__device__ __forceinline__ void stage_gru_matrix(char* smem, int at,
+                                                 const int8_t* __restrict__ w,
+                                                 int depth, int d_h, int i0,
+                                                 int tn, int ctile, int p) {
+  const int g = 3 * d_h;
+  char* dst = smem + at;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(w);
+  if (tn == d_h && p == g && (depth * g) % 16 == 0 && align % 16 == 0) {
+    for (int i = threadIdx.x; i < depth * g / 16; i += GRU_Q_THREADS)
+      cp_async16(dst + 16 * i, w + 16 * i);
+  } else if (d_h % 4 == 0 && align % 4 == 0) {
+    // i0, tn and ctile are multiples of 4 here
+    const int words = tn / 4;
+    for (int i = threadIdx.x; i < depth * 3 * words; i += GRU_Q_THREADS) {
+      const int k = i / (3 * words), r = i - k * 3 * words;
+      const int s = r / words, wd = r - s * words;
+      cp_async4(dst + k * p + s * ctile + 4 * wd,
+                w + (size_t)k * g + s * d_h + i0 + 4 * wd);
+    }
+  } else {
+    const int n = depth * 3 * tn;
+    for (int first = threadIdx.x; first < n;
+         first += GRU_BYTES * GRU_Q_THREADS) {
+      int8_t v[GRU_BYTES];
+#pragma unroll
+      for (int u = 0; u < GRU_BYTES; ++u) {
+        const int i = first + u * GRU_Q_THREADS;
+        const int k = i / (3 * tn), r = i - k * 3 * tn, s = r / tn;
+        v[u] = i < n ? w[(size_t)k * g + s * d_h + i0 + r - s * tn] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < GRU_BYTES; ++u) {
+        const int i = first + u * GRU_Q_THREADS;
+        const int k = i / (3 * tn), r = i - k * 3 * tn, s = r / tn;
+        if (i < n) dst[k * p + s * ctile + r - s * tn] = v[u];
+      }
+    }
+  }
+}
+
+template <bool BARRIER>
+__global__ void __launch_bounds__(GRU_Q_THREADS)
+gru_q_kernel(int8_t* pool, const int8_t* __restrict__ w,
+             const int8_t* __restrict__ u, const int32_t* __restrict__ b,
+             const int32_t* __restrict__ mx, const int32_t* __restrict__ sx,
+             const int32_t* __restrict__ mu, const int32_t* __restrict__ su,
+             int n_seg, int d_in, int d_h, int in_ptr, int out_ptr,
+             int state_ptr, int ctile) {
+  extern __shared__ int4 qsmem[];
+  char* smem = reinterpret_cast<char*>(qsmem);
+  const GruQSmem m = gru_q_layout(d_in, d_h, ctile);
+  const int p = gru_row_bytes(ctile), nq = p / 4;
+  const int i0 = blockIdx.x * ctile, tn = min(ctile, d_h - i0);
+  // (a) x and h (neither region wraps the ring), the constants, W and U
+  stage_q_rows(qsmem, pool, RunRows{in_ptr, 0, n_seg}, 0, 1, 1, 0, 0,
+               (d_in + 15) / 16);
+  stage_q_rows(reinterpret_cast<int4*>(smem + m.h), pool,
+               RunRows{state_ptr, 0, n_seg}, 0, 1, 1, 0, 0,
+               (d_h + 15) / 16);
+  int32_t* prm = reinterpret_cast<int32_t*>(smem + m.prm);
+  const int32_t* consts[5] = {b, mx, sx, mu, su};
+  for (int i = threadIdx.x; i < 3 * tn; i += GRU_Q_THREADS) {
+    const int s = i / tn, co = i - s * tn;
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      cp_async4(prm + (3 * k + s) * ctile + co, consts[k] + s * d_h + i0 + co);
+  }
+  stage_gru_matrix(smem, m.w, w, d_in, d_h, i0, tn, ctile, p);
+  stage_gru_matrix(smem, m.u, u, d_h, d_h, i0, tn, ctile, p);
+  cp_async_wait_all();
   __syncthreads();
-  for (int j = threadIdx.x; j < 2 * g; j += blockDim.x) {
-    const bool rec = j >= g;
-    const int col = rec ? j - g : j, depth = rec ? d_h : d_in;
-    const int8_t* v = rec ? h : x;
-    const int8_t* m = (rec ? u : w) + col;
-    uint32_t acc = 0;
-#pragma unroll 4
-    for (int kk = 0; kk < depth; ++kk)
-      acc += (uint32_t)((int)v[kk] * (int)m[kk * g]);
-    if (rec)
-      gh[col] = requant_i32((int32_t)acc, mu[col], su[col]);
-    else
-      gx[col] = (int32_t)((uint32_t)requant_i32((int32_t)acc, mx[col],
-                                                sx[col]) +
-                          (uint32_t)b[col]);
+  // (b) quad q of W (qq < nq) or of U, rows 4j .. 4j + 3 for j = lane, lane
+  // + ks, ...
+  const int qqs = 2 * nq, rq = (max(d_in, d_h) + 3) / 4;
+  int ks = 1;
+  while (2 * ks <= rq && 2 * ks * qqs <= GRU_Q_THREADS) ks *= 2;
+  const int lane = threadIdx.x / qqs, qq = threadIdx.x - lane * qqs;
+  int32_t* part = reinterpret_cast<int32_t*>(smem + m.part);
+  if (lane < ks) {
+    const bool rec = qq >= nq;
+    const int q = rec ? qq - nq : qq, depth = rec ? d_h : d_in;
+    const uint32_t* v = reinterpret_cast<const uint32_t*>(rec ? smem + m.h
+                                                              : smem);
+    const uint32_t* mat =
+        reinterpret_cast<const uint32_t*>(smem + (rec ? m.u : m.w)) + q;
+    int acc[4] = {0, 0, 0, 0};
+    for (int j = lane; 4 * j < depth; j += ks) {
+      uint32_t xw = v[j];
+      if (4 * j + 4 > depth) xw &= (1u << (8 * (depth - 4 * j))) - 1u;
+      uint32_t r[4], col[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) r[kk] = mat[(4 * j + kk) * nq];
+      transpose4(r, col);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[c] = __dp4a((int)xw, (int)col[c], acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[4 * threadIdx.x + c] = acc[c];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < co * SEG; i += blockDim.x) {
-    int8_t y = 0;
-    if (i < d_h)
-      y = gru_update_q12(gx[i], gx[d_h + i], gx[2 * d_h + i], gh[i],
-                         gh[d_h + i], gh[2 * d_h + i], h[i]);
-    pool[(size_t)state_ptr * SEG + i] = y;
-    *ring_byte(pool, out_ptr, i, n_seg) = y;
+  // the lanes' partials of each column, summed mod 2**32, requantized
+  int32_t* gx = reinterpret_cast<int32_t*>(smem + m.gates);
+  int32_t* gh = gx + 3 * ctile;
+  for (int i = threadIdx.x; i < 6 * ctile; i += GRU_Q_THREADS) {
+    const bool rec = i >= 3 * ctile;
+    const int col = rec ? i - 3 * ctile : i;
+    if (col - col / ctile * ctile >= tn) continue;   // past the last tile
+    const int32_t* src = part + 4 * ((rec ? nq : 0) + col / 4) + col % 4;
+    uint32_t acc = 0;
+    for (int l = 0; l < ks; ++l) acc += (uint32_t)src[4 * l * qqs];
+    if (rec)
+      gh[col] = requant_i32((int32_t)acc, prm[9 * ctile + col],
+                            prm[12 * ctile + col]);
+    else
+      gx[col] = (int32_t)((uint32_t)requant_i32((int32_t)acc,
+                                                prm[3 * ctile + col],
+                                                prm[6 * ctile + col]) +
+                          (uint32_t)prm[col]);
+  }
+  if constexpr (BARRIER)
+    cg::this_grid().sync();   // (c): every read of the op is done
+  else
+    __syncthreads();          // (c): one CTA, every read of the op is done
+  // (d) a word of h' a thread, from the gates and the old h
+  const int8_t* hb = reinterpret_cast<const int8_t*>(smem + m.h);
+  const int end = i0 + ctile >= d_h ? segs_for(d_h) * SEG : i0 + ctile;
+  uint32_t* state =
+      reinterpret_cast<uint32_t*>(pool + (size_t)state_ptr * SEG);
+  for (int wd = threadIdx.x; wd < (end - i0) / 4; wd += GRU_Q_THREADS) {
+    const int c0 = i0 + 4 * wd;
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = c0 + k - i0;
+      if (c0 + k < d_h)
+        v |= (uint32_t)(uint8_t)gru_update_q12(
+                 gx[c], gx[ctile + c], gx[2 * ctile + c], gh[c],
+                 gh[ctile + c], gh[2 * ctile + c], hb[c0 + k])
+             << (8 * k);
+    }
+    state[c0 / 4] = v;
+    *row_word(pool, out_ptr, c0 / SEG, c0 % SEG / 4, n_seg) = v;
   }
 }
 
@@ -1091,12 +1333,6 @@ int launch_grid(Kernel kernel, int blocks, int threads, size_t smem,
   }
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
-}
-
-// One block of THREADS: the walk of the kernels that walk an op.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
-  return launch_grid(kernel, 1, THREADS, smem, stream, args...);
 }
 
 // Launch `blocks` CTAs of `threads` cooperatively (all resident at once, so
@@ -1204,11 +1440,18 @@ int ring_conv_k2d_q(void* pool, const void* w, const void* b,
 int ring_avgpool_q(void* pool, int n_seg, int h, int w, int c, int in_ptr,
                    int out_ptr, int mult, int shift, int chunk_pix,
                    void* stream) {
-  const size_t pix_bytes = (size_t)segs_for(c) * SEG;
-  return launch(avgpool_kernel,
-                pix_bytes * sizeof(uint32_t) + chunk_pix * pix_bytes, stream,
-                (int8_t*)pool, n_seg, h, w, c, in_ptr, out_ptr, mult, shift,
-                chunk_pix);
+  const int lg = pool_q_lg(c);
+  const size_t smem =
+      (size_t)pool_q_parts(pool_q_threads(c), lg, h * w) * (1 << lg) *
+          sizeof(uint32_t) +
+      (size_t)chunk_pix * segs_for(c) * SEG;
+  if (pool_q_threads(c) == POOL_Q_THREADS)
+    return launch_grid(avgpool_q_kernel<POOL_Q_THREADS>, 1, POOL_Q_THREADS,
+                       smem, stream, (int8_t*)pool, n_seg, h, w, c, in_ptr,
+                       out_ptr, mult, shift, chunk_pix);
+  return launch_grid(avgpool_q_kernel<POOL_Q_THREADS_WIDE>, 1,
+                     POOL_Q_THREADS_WIDE, smem, stream, (int8_t*)pool, n_seg,
+                     h, w, c, in_ptr, out_ptr, mult, shift, chunk_pix);
 }
 
 int ring_add_q(void* pool, int n_seg, int rows, int d, int in_ptr,
@@ -1253,13 +1496,23 @@ int ring_conv_stream_q(void* pool, const void* w, const void* b,
 int ring_gru_cell_q(void* pool, const void* w, const void* u, const void* b,
                     const void* mx, const void* sx, const void* mu,
                     const void* su, int n_seg, int d_in, int d_h, int in_ptr,
-                    int out_ptr, int state_ptr, void* stream) {
-  const size_t smem = (size_t)(segs_for(d_in) + segs_for(d_h)) * SEG +
-                      2 * 3 * (size_t)d_h * sizeof(int32_t);
-  return launch(gru_kernel, smem, stream, (int8_t*)pool, (const int8_t*)w,
-                (const int8_t*)u, (const int32_t*)b, (const int32_t*)mx,
-                (const int32_t*)sx, (const int32_t*)mu, (const int32_t*)su,
-                n_seg, d_in, d_h, in_ptr, out_ptr, state_ptr);
+                    int out_ptr, int state_ptr, int ctile, int barrier,
+                    void* stream) {
+  const size_t smem = (size_t)gru_q_layout(d_in, d_h, ctile).bytes;
+  const int ctas = (d_h + ctile - 1) / ctile;
+  if (barrier)
+    return launch_cooperative(gru_q_kernel<true>, ctas, dim3(GRU_Q_THREADS),
+                              smem, stream, (int8_t*)pool, (const int8_t*)w,
+                              (const int8_t*)u, (const int32_t*)b,
+                              (const int32_t*)mx, (const int32_t*)sx,
+                              (const int32_t*)mu, (const int32_t*)su, n_seg,
+                              d_in, d_h, in_ptr, out_ptr, state_ptr, ctile);
+  return launch_grid(gru_q_kernel<false>, ctas, GRU_Q_THREADS, smem, stream,
+                     (int8_t*)pool, (const int8_t*)w, (const int8_t*)u,
+                     (const int32_t*)b, (const int32_t*)mx,
+                     (const int32_t*)sx, (const int32_t*)mu,
+                     (const int32_t*)su, n_seg, d_in, d_h, in_ptr, out_ptr,
+                     state_ptr, ctile);
 }
 
 }  // extern "C"

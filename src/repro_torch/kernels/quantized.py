@@ -37,9 +37,12 @@ of ``conv2d.add_tiling`` elsewhere (``ring_add_q.barrier`` records
 which).  The FC reads first too: one CTA in an ordinary launch where
 :func:`gemm_q_tiling` gives one (every plan's head), else column tiles
 under one grid barrier in a cooperative launch (``ring_gemm_q.barrier``
-records which).  The streaming conv (:mod:`repro_torch.kernels.stream`)
-reads first over the tiles of ``conv2d.conv_tiling``; the average pool
-and the GRU cell run in one block.
+records which).  The average pool is one CTA in an ordinary launch
+whose every thread stages pixels and sums a channel over a share of
+them (:func:`pool_q_tiling`), and which stores after every read.  The streaming conv
+(:mod:`repro_torch.kernels.stream`) reads first over the tiles of
+``conv2d.conv_tiling``, and the GRU cell over those of
+``stream.gru_q_tiling``.
 """
 from __future__ import annotations
 
@@ -496,20 +499,75 @@ def ring_add_q_plain(pool, *, rows: int, d: int, in_ptr: int, aux_ptr: int,
 # Global average pool.
 # ---------------------------------------------------------------------------
 
+#: Threads of the pool's one CTA up to 256 channels
+#: (``POOL_Q_THREADS`` in ``ring_q.cu``), and above
+#: (``POOL_Q_THREADS_WIDE``).
+POOL_Q_THREADS = 256
+POOL_Q_THREADS_WIDE = 512
+#: Pixels a part of a channel's sum takes, at the least
+#: (``POOL_PIX_PER_PART`` in ``ring_q.cu``).
+POOL_PIX_PER_PART = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolQTiling:
+    """How :func:`ring_avgpool_q`'s one CTA cuts a pool of ``npix`` pixels
+    of ``c`` channels (``ring_q.cu::avgpool_q_kernel``): ``threads``
+    threads stage ``chunk_pix`` pixels at a time (all of a plan's), and
+    thread ``(j, ch)``, channels fastest over ``cw`` lanes (a power of two
+    at least ``c`` and 32), adds channel ``ch`` of pixels ``j, j + parts,
+    ...``; then a thread a channel adds its ``parts`` partials.  ``smem``
+    is the CTA's shared memory in bytes: the int32 partials
+    ``[parts, cw]``, then a chunk of pixels."""
+
+    c: int
+    npix: int
+    threads: int
+    cw: int
+    parts: int
+    chunk_pix: int
+
+    @property
+    def smem(self) -> int:
+        return 4 * self.parts * self.cw + self.chunk_pix * _segs(self.c) \
+            * SEG_WIDTH
+
+
+@functools.lru_cache(maxsize=1024)
+def pool_q_tiling(h: int, w: int, c: int) -> PoolQTiling:
+    """The tiling of a ``ring_avgpool_q`` call: ``parts`` =
+    clamp(``h w // POOL_PIX_PER_PART``, 1, ``threads // cw``), and as many
+    pixels a chunk as fit ``MAX_SMEM`` beside the partials, a multiple of
+    ``parts`` where that is fewer than all.  Raises ``ValueError``,
+    naming the pool's shape, when not one pixel fits."""
+    npix = h * w
+    threads = POOL_Q_THREADS if c <= POOL_Q_THREADS else POOL_Q_THREADS_WIDE
+    cw = max(32, 1 << (c - 1).bit_length())
+    parts = max(1, min(npix // POOL_PIX_PER_PART, threads // cw))
+    fit = (MAX_SMEM - 4 * parts * cw) // (_segs(c) * SEG_WIDTH)
+    chunk = npix if fit >= npix else fit // parts * parts
+    if chunk < 1:
+        raise ValueError(f"ring_avgpool_q: no pixel of the pool [{h}, {w}, "
+                         f"{c}] fits {MAX_SMEM} B of shared memory")
+    return PoolQTiling(c, npix, threads, cw, parts, chunk)
+
+
 def ring_avgpool_q(pool, *, h: int, w: int, c: int, in_ptr: int,
                    out_ptr: int, mult: int, shift: int):
     """Int8 global average pool: int32 column sums, one requantized
     output row stored after every read (replaces ``ring_avgpool_q``,
-    ``src/repro/kernels/quantized.py:603``)."""
+    ``src/repro/kernels/quantized.py:603``).  One CTA in an ordinary
+    launch (:func:`pool_q_tiling`): every thread stages 16-byte vectors
+    of the pixels, then sums one channel over a share of them; after
+    every read a thread a channel adds the shares, requantizes and
+    stores."""
     n_seg = pool.shape[0]
     _check_avgpool(n_seg, w, c, in_ptr, out_ptr)
     _check_cuda(pool)
-    # int32 column sums, then as many pixels per step as the rest holds.
-    pix_bytes = _segs(c) * SEG_WIDTH
-    chunk_pix = min(h * w, (MAX_SMEM - 4 * pix_bytes) // pix_bytes)
-    _launch("ring_avgpool_q", pool, (4 + chunk_pix) * pix_bytes, (),
+    t = pool_q_tiling(h, w, c)
+    _launch("ring_avgpool_q", pool, t.smem, (),
             (n_seg, h, w, c, in_ptr % n_seg, out_ptr % n_seg, int(mult),
-             int(shift), chunk_pix))
+             int(shift), t.chunk_pix))
     ring_avgpool_q.launches += 1
     return pool
 

@@ -11,7 +11,8 @@ state region never wraps:
     store the k x k conv over it at ``out_ptr``;
   * :func:`ring_gru_cell_q` / :func:`ring_gru_cell` read ``x`` at
     ``in_ptr`` and the hidden row at ``state_ptr`` (Q7 int8, or fp32)
-    and store ``h'`` to both the state and ``out_ptr``.
+    and store ``h'`` to both the state and ``out_ptr``; the int8 cell
+    reads first over the tiles of :func:`gru_q_tiling`.
 
 The wrappers follow :mod:`repro_torch.kernels.quantized` and
 :mod:`repro_torch.kernels.conv2d`: the reference's geometry checks, then
@@ -23,6 +24,9 @@ DMA does.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from ..core.program import resolve_activation
@@ -32,6 +36,7 @@ from ..core.vpool import (SEG_WIDTH, fetch_rows, fetch_segments,
 from ..quant.requant import gru_update, gru_update_q12, requantize, \
     requantize_i32, wrap_i32
 from . import conv2d
+from ._launch import H100_SMS, MAX_SMEM
 from .quantized import (_acc32, _check_cuda, _idot, _launch, _per_channel,
                         _relu, _segs, _store_image, _taps)
 from .segment_matmul import F32, act_code
@@ -214,6 +219,103 @@ def _gru_operands(w, u, b, mx, sx, mu, su, d_in, d_h):
             ("shift_u", su, torch.int32, (g,)))
 
 
+#: Threads of a GRU CTA (``GRU_Q_THREADS`` in ``ring_q.cu``).
+GRU_Q_THREADS = 256
+#: Hidden-channel tiles a GRU CTA of the cooperative mode may take,
+#: narrowest first (a smaller ``d_h`` is one tile): whole 32-bit words.
+GRU_Q_CHANNEL_TILES = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
+#: The most weight bytes (``(d_in + d_h) * 3 * d_h``) of a cell that
+#: :func:`gru_q_tiling` gives one CTA and an ordinary launch; a larger cell
+#: is cut into channel tiles over many CTAs with a grid barrier.  Set from
+#: ``chip_smoke.py::time_gru_modes`` on an H100 80GB HBM3 at 700 W
+#: (PERF.md §6): one CTA is the faster mode by 0.99-1.44 µs at 20,400 B
+#: (``gru_wide_input``) and 24,576 B (the GRU chain's cell), the channel
+#: tiles by 0.27 µs at 98,304 B (``gru_q_wide``).
+GRU_Q_ONE_CTA_BYTES = 24_576
+
+
+def _r(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _gru_q_smem(d_in: int, d_h: int, ctile: int) -> int:
+    """A GRU CTA's shared memory in bytes (``ring_q.cu::gru_q_layout``):
+    x and h in whole 16-byte chunks, the tile's columns of W and U as rows
+    of ``round4(3 ctile)`` bytes (each region in whole 16-byte chunks),
+    five int32 constants a column, 4 int32 partial sums a thread and two
+    int32 gates a column."""
+    row = _r(3 * ctile, 4)
+    return (_r(d_in, 16) + _r(d_h, 16) + _r(_r(d_in, 4) * row, 16)
+            + _r(_r(d_h, 4) * row, 16) + 4 * 15 * ctile
+            + 16 * GRU_Q_THREADS + 4 * 6 * ctile)
+
+
+@dataclasses.dataclass(frozen=True)
+class GruQTiling:
+    """How :func:`ring_gru_cell_q` cuts a cell of ``d_in`` inputs and
+    ``d_h`` hidden channels: CTA ``i`` owns hidden channels ``i * ctile
+    ..`` (fewer in the last tile) and their z, r and n columns of W and
+    U.  ``barrier``: one cooperative launch whose CTAs meet a grid
+    barrier between their reads and their stores (``h'`` lands on ``h``,
+    and in place on ``x``, which every CTA reads); else one CTA in an
+    ordinary launch, which reads all of the cell before it stores.
+    ``smem`` is one CTA's shared memory in bytes."""
+
+    d_in: int
+    d_h: int
+    ctile: int
+    barrier: bool
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.d_h // self.ctile)
+
+    @property
+    def smem(self) -> int:
+        return _gru_q_smem(self.d_in, self.d_h, self.ctile)
+
+    def tile(self, i: int) -> tuple[int, int]:
+        """CTA ``i``'s ``(i0, tn)``: hidden channels ``i0 .. i0 + tn -
+        1``."""
+        i0 = i * self.ctile
+        return i0, min(self.ctile, self.d_h - i0)
+
+
+@functools.lru_cache(maxsize=1024)
+def gru_q_tiling(d_in: int, d_h: int, n_sm: int = H100_SMS,
+                 one_cta: bool | None = None) -> GruQTiling:
+    """The tiling of a ``ring_gru_cell_q`` call over at most ``n_sm``
+    CTAs.
+
+    One CTA of the whole cell, in an ordinary launch, where its weights
+    are at most :data:`GRU_Q_ONE_CTA_BYTES`, ``d_h`` is a multiple of 4
+    (else one CTA stages W and U byte by byte: 25.07 µs against 7.74 for
+    the tiles on ``gru_q_d_h_70``) and it fits ``MAX_SMEM``; else the
+    narrowest channel tile of :data:`GRU_Q_CHANNEL_TILES` whose
+    tiles fit ``n_sm`` and whose CTA fits ``MAX_SMEM``, in one
+    cooperative launch with a grid barrier (a barrier only where that
+    gives more than one CTA).  ``one_cta`` forces either mode (the
+    cooperative one with its barrier even over one CTA), as
+    ``chip_smoke.py::time_gru_modes`` measures them.  Raises
+    ``ValueError``, naming the cell's shape, when no tile fits."""
+    one = GruQTiling(d_in, d_h, d_h, False)
+    if one_cta is not False and one.smem <= MAX_SMEM and (
+            one_cta or (d_h % 4 == 0 and (d_in + d_h) * 3 * d_h
+                        <= GRU_Q_ONE_CTA_BYTES)):
+        return one
+    if one_cta is not True:
+        for ctile in sorted({min(d_h, c) for c in GRU_Q_CHANNEL_TILES}):
+            t = GruQTiling(d_in, d_h, ctile, True)
+            if t.ctas <= n_sm and t.smem <= MAX_SMEM:
+                return dataclasses.replace(
+                    t, barrier=t.ctas > 1 or one_cta is False)
+    raise ValueError(
+        f"ring_gru_cell_q: no tile of the cell d_in {d_in}, d_h {d_h} "
+        f"(W [{d_in}, {3 * d_h}], U [{d_h}, {3 * d_h}]) fits {MAX_SMEM} B "
+        "of shared memory"
+        + (" in one CTA" if one_cta else f" over at most {n_sm} CTAs"))
+
+
 def ring_gru_cell_q(pool, w, u, b, mult_x, shift_x, mult_u, shift_u, *,
                     d_in: int, d_h: int, in_ptr: int = 0, out_ptr: int = 0,
                     state_ptr: int = 0):
@@ -221,17 +323,22 @@ def ring_gru_cell_q(pool, w, u, b, mult_x, shift_x, mult_u, shift_u, *,
     to the Q12 gate domain (plus the Q12 bias, wrapping), and
     ``gru_update_q12`` gives the Q7 ``h'``, stored at ``state_ptr`` and
     ``out_ptr`` (replaces ``ring_gru_cell_q``,
-    ``src/repro/kernels/stream.py:417``)."""
+    ``src/repro/kernels/stream.py:417``).  The kernel runs the tiles of
+    :func:`gru_q_tiling`, each CTA staging x, h and its columns of W and
+    U in shared memory and reading all of them before any store, in one
+    CTA or over many with a grid barrier (``ring_gru_cell_q.barrier``
+    records which)."""
     n_seg = pool.shape[0]
     _gru_geometry(n_seg, d_in=d_in, d_h=d_h, in_ptr=in_ptr, out_ptr=out_ptr,
                   state_ptr=state_ptr)
     ops = _gru_operands(w, u, b, mult_x, shift_x, mult_u, shift_u, d_in, d_h)
     _check_cuda(pool, ops)
-    _launch("ring_gru_cell_q", pool,
-            (_segs(d_in) + _segs(d_h)) * SEG_WIDTH + 24 * d_h,
-            tuple(t for _, t, _, _ in ops),
-            (n_seg, d_in, d_h, in_ptr, out_ptr % n_seg, state_ptr))
-    ring_gru_cell_q.weights_staged = False     # W and U: global memory
+    t = gru_q_tiling(d_in, d_h, conv2d._sm_count(pool.device))
+    _launch("ring_gru_cell_q", pool, t.smem, tuple(a for _, a, _, _ in ops),
+            (n_seg, d_in, d_h, in_ptr, out_ptr % n_seg, state_ptr, t.ctile,
+             int(t.barrier)))
+    ring_gru_cell_q.weights_staged = True      # W and U: shared memory
+    ring_gru_cell_q.barrier = t.barrier
     ring_gru_cell_q.launches += 1
     return pool
 
@@ -296,3 +403,4 @@ PLAIN = {name: globals()[f"{name}_plain"] for name in KERNELS}
 for _f in KERNELS.values():
     _f.launches = 0
     _f.weights_staged = None
+ring_gru_cell_q.barrier = None

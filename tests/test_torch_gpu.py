@@ -40,7 +40,9 @@ from repro_torch.kernels.cases import (DECODE_CASES, compare_decode,
                                        lm_params, logits_close)
 from repro_torch.kernels import fused_mlp
 from repro_torch.kernels.fused_mlp import MlpTiling, mlp_tiling
+from repro_torch.kernels import stream as stream_kernels
 from repro_torch.kernels.quantized import add_needs_barrier, gemm_q_tiling
+from repro_torch.kernels.stream import gru_q_tiling
 from repro_torch.kernels.ring_decode import (ring_decode_attention,
                                              ring_decode_attention_plain)
 from repro_torch.models import build_model, params_from_reference
@@ -183,6 +185,39 @@ def test_gemm_takes_the_mode_of_its_tiling_on_card(case):
     KERNELS[case.kernel](got, *cuda_params, **kw)
     torch.cuda.synchronize()
     assert KERNELS[case.kernel].barrier is t.barrier is (t.ctas > 1)
+    assert torch.equal(got, want)
+
+
+GRU_CASES = tuple(c for c in CASES if c.kernel == "ring_gru_cell_q")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("one", (True, False), ids=("one_cta", "tiles"))
+@pytest.mark.parametrize("case", GRU_CASES, ids=lambda c: c.name)
+def test_gru_in_each_mode_on_card(case, one, monkeypatch):
+    """``ring_gru_cell_q`` bitwise the plain version in both modes of
+    ``stream.gru_q_tiling`` (one CTA in an ordinary launch, channel tiles
+    under a grid barrier), forced; and, unforced, in the mode its rule
+    gives."""
+    _need_card()
+    kw = case.kwargs
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rule = gru_q_tiling(kw["d_in"], kw["d_h"], n_sm)
+    pool, params = case_inputs(case, seed=0)
+    cuda_params = [torch.from_numpy(a).cuda() for a in params]
+    want = torch.from_numpy(pool).cuda()
+    PLAIN[case.kernel](want, *cuda_params, **kw)
+    got = torch.from_numpy(pool).cuda()
+    KERNELS[case.kernel](got, *cuda_params, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[case.kernel].barrier is rule.barrier is (rule.ctas > 1)
+    assert torch.equal(got, want)
+    monkeypatch.setattr(stream_kernels, "gru_q_tiling",
+                        lambda d_in, d_h, n: gru_q_tiling(d_in, d_h, n, one))
+    got = torch.from_numpy(pool).cuda()
+    KERNELS[case.kernel](got, *cuda_params, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[case.kernel].barrier is not one
     assert torch.equal(got, want)
 
 

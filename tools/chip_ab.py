@@ -13,8 +13,9 @@ through that checkout's own ``repro_torch`` and ``chip_smoke.py``:
   clock, each ending in ``torch.cuda.synchronize()``, after 20 calls of
   warm-up;
 * the device time of ``ring_conv_k2d_q``, ``ring_conv_pw_q``,
-  ``ring_conv_dw_q``, ``ring_add_q``, ``ring_conv_stream_q`` and
-  ``ring_gemm_q`` on every op of those plans
+  ``ring_conv_dw_q``, ``ring_add_q``, ``ring_conv_stream_q``,
+  ``ring_gemm_q``, ``ring_avgpool_q`` and ``ring_gru_cell_q`` on every
+  op of those plans
   (``chip_smoke._held_ms``: held-stream CUDA events, 50 launches).
 
 It prints each process's result as a JSON line, then a summary: per
@@ -36,7 +37,8 @@ STREAM_PATHS = ("ds-cnn-stream", "kws-gru-chain")
 PATHS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos") \
     + STREAM_PATHS
 KERNELS = ("ring_conv_k2d_q", "ring_conv_pw_q", "ring_conv_dw_q",
-           "ring_add_q", "ring_conv_stream_q", "ring_gemm_q")
+           "ring_add_q", "ring_conv_stream_q", "ring_gemm_q",
+           "ring_avgpool_q", "ring_gru_cell_q")
 CALLS, WARM = 300, 20
 
 
