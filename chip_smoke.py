@@ -41,11 +41,13 @@ Phases, one summary line each:
      ``ring_gemm_q`` call its mode (one CTA in an ordinary launch, or
      column tiles under a grid barrier, as ``quantized.gemm_q_tiling``
      rules, and the wrapper must have taken it), CTAs and bytes held,
-     for each ``ring_gru_cell_q`` call its mode (one CTA, or channel
-     tiles under a grid barrier, as ``stream.gru_q_tiling`` rules, and
-     the wrapper must have taken it), CTAs and shared memory, for each
-     ``ring_avgpool_q`` call its one CTA's parts and chunk
-     (``quantized.pool_q_tiling``), for each
+     for each ``ring_gru_cell_q`` and ``ring_gru_cell`` call its mode
+     (one CTA, or channel tiles under a grid barrier, as
+     ``stream.gru_q_tiling`` / ``stream.gru_tiling`` rules, and the
+     wrapper must have taken it), CTAs and shared memory, for each
+     ``ring_avgpool_q`` and ``ring_avgpool`` call its one CTA's threads,
+     parts and chunk (``quantized.pool_q_tiling``,
+     ``conv2d.pool_tiling``), for each
      ``ring_elementwise`` call its runs and blocks
      (``elementwise.ring_runs``, ``ew_blocks``); and for each
      ``ring_fused_mlp``
@@ -102,7 +104,8 @@ Phases, one summary line each:
      gives it (the fused bottleneck, the fp32 GRU cell and the fused MLP
      against a short sequence of calls, with the count stated; the FC
      kernels, the int8 pw, dw, k x k and streaming convs, the int8 add,
-     pool and GRU cell also op by op, ``PER_OP_KERNELS``); and the
+     the int8 and fp32 pool and GRU cell also op by op,
+     ``PER_OP_KERNELS``); and the
      gemma3-1b path's prefill latency at batch 4, per-token decode
      latency at batch 1 and 4, its device-busy share, and
      ``ring_decode_attention`` at its two serve shapes (a 512-slot local
@@ -114,9 +117,9 @@ Phases, one summary line each:
      the plans and edge cases in each mode it may take (the row map, and
      reading first, forced where the map would do), ``ring_gemm_q``
      on every int8 FC of the plans and edge cases in both of its modes
-     (``time_gemm_modes``), and ``ring_gru_cell_q`` on the GRU chain's
-     cell and the GRU edge cases in both of its modes
-     (``time_gru_modes``).
+     (``time_gemm_modes``), and ``ring_gru_cell_q`` and ``ring_gru_cell``
+     on the GRU chain's cell and the GRU edge cases in both of their
+     modes (``time_gru_modes``).
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -464,21 +467,23 @@ def phase_parity(cases) -> dict[str, float]:
     (``<wrapper>.weights_staged``); and the tiling of each depthwise,
     k x k and streaming fp32 conv, of each int8 pw, dw and k x k conv, of
     each fp32 add, of each fused bottleneck and each int8 add's, int8
-    FC's and int8 GRU cell's mode, which the wrapper must have taken
-    (``ring_add_q.barrier``, ``ring_gemm_q.barrier``,
-    ``ring_gru_cell_q.barrier``), and each int8 pool's CTA.  Returns the max |difference| per kernel (0 for int8, or
-    this raises)."""
+    FC's and int8 and fp32 GRU cell's mode, which the wrapper must have
+    taken (``ring_add_q.barrier``, ``ring_gemm_q.barrier``,
+    ``ring_gru_cell_q.barrier``, ``ring_gru_cell.barrier``), and each
+    int8 and fp32 pool's CTA.  Returns the max |difference| per kernel (0
+    for int8, or this raises)."""
     from repro_torch.kernels import KERNELS, PLAIN
     from repro_torch.kernels.cases import (case_inputs, compare_f32, is_f32,
                                            live_lanes, output_regions)
-    from repro_torch.kernels.conv2d import add_tiling, conv_tiling
+    from repro_torch.kernels.conv2d import add_tiling, conv_tiling, \
+        pool_tiling
     from repro_torch.kernels.elementwise import ew_blocks, ring_runs
     from repro_torch.kernels.inverted_bottleneck import ib_tiling
     from repro_torch.kernels.quantized import (add_map_rows,
                                                add_needs_barrier,
                                                gemm_q_tiling, pool_q_tiling)
     from repro_torch.kernels.segment_matmul import gemm_tiling
-    from repro_torch.kernels.stream import gru_q_tiling
+    from repro_torch.kernels.stream import gru_q_tiling, gru_tiling
 
     n_f32 = sum(is_f32(c.kernel) for c in cases)
     say(f"phase 2: {len(cases)} kernel calls against their plain versions "
@@ -534,9 +539,19 @@ def phase_parity(cases) -> dict[str, float]:
                             "one CTA, ordinary launch")
                          + f": {t.ctas} CTAs of {t.ctile} hidden channels, "
                          f"{t.smem} B of shared memory")
-        elif case.kernel == "ring_avgpool_q":
+        elif case.kernel == "ring_gru_cell":
             kw = case.kwargs
-            t = pool_q_tiling(kw["h"], kw["w"], kw["c"])
+            t = gru_tiling(kw["d_in"], kw["d_h"], n_sm)
+            barrier = t.barrier
+            tiles.append(f"{case.name} "
+                         + ("grid barrier, cooperative" if barrier else
+                            "one CTA, ordinary launch")
+                         + f": {t.ctas} CTAs of {t.ctile} hidden channels, "
+                         f"k split {t.lanes}, {t.smem} B of shared memory")
+        elif case.kernel in ("ring_avgpool_q", "ring_avgpool"):
+            kw = case.kwargs
+            t = (pool_q_tiling if case.kernel == "ring_avgpool_q"
+                 else pool_tiling)(kw["h"], kw["w"], kw["c"])
             tiles.append(f"{case.name} one CTA of {t.threads} threads, "
                          f"ordinary launch: {t.parts} part(s) of each "
                          f"channel's sum, {t.chunk_pix} of {t.npix} pixels "
@@ -597,8 +612,9 @@ def phase_parity(cases) -> dict[str, float]:
         f"ring_conv_stream / ring_add / ring_inverted_bottleneck / "
         f"ring_conv_pw_q / ring_conv_dw_q / ring_conv_k2d_q / "
         f"ring_conv_stream_q tiles on {n_sm} SMs (CTAs, bytes each holds "
-        "across the grid barrier), ring_gemm_q's, ring_gru_cell_q's and "
-        "ring_add_q's mode, CTAs and bytes held, ring_avgpool_q's CTA, "
+        "across the grid barrier), ring_gemm_q's, ring_gru_cell_q's, "
+        "ring_gru_cell's and ring_add_q's mode, CTAs and bytes held, "
+        "ring_avgpool_q's and ring_avgpool's CTA, "
         "ring_elementwise's runs and blocks, and "
         "ring_fused_mlp's (CTAs of its first kernel, tiling, scratch):")
     for line in tiles:
@@ -1109,7 +1125,8 @@ def _work_kw(kernel: str, kw: dict, params) -> dict:
 #: time (``per_op``), not only the plan's mean.
 PER_OP_KERNELS = ("ring_gemm_q", "ring_gemm", "ring_conv_k2d_q",
                   "ring_conv_pw_q", "ring_conv_dw_q", "ring_add_q",
-                  "ring_conv_stream_q", "ring_avgpool_q", "ring_gru_cell_q")
+                  "ring_conv_stream_q", "ring_avgpool_q", "ring_gru_cell_q",
+                  "ring_avgpool", "ring_gru_cell")
 
 
 def time_cases(cases) -> dict[str, dict]:
@@ -1248,51 +1265,66 @@ def time_gemm_modes(cases) -> dict[str, dict]:
     return out
 
 
-def time_gru_modes(cases) -> dict[str, dict]:
-    """``ring_gru_cell_q`` on each int8 GRU cell of ``cases`` in both modes
-    of ``stream.gru_q_tiling``: one CTA in an ordinary launch (where its
+def time_gru_modes(cases, kernel: str) -> dict[str, dict]:
+    """``kernel`` (``ring_gru_cell_q`` or ``ring_gru_cell``) on each GRU
+    cell of ``cases`` in both modes of its tiling (``stream.gru_q_tiling``,
+    ``stream.gru_tiling``): one CTA in an ordinary launch (where its
     shared memory fits) and the channel tiles under a grid barrier in a
-    cooperative launch; each launch bitwise the plain version, then timed,
-    ms a launch (held-stream CUDA events), by case and mode, beside the
-    mode the rule gives."""
+    cooperative launch; each launch held to the plain version (int8
+    bitwise, fp32 by ``cases.compare_f32``), then timed, ms a launch
+    (held-stream CUDA events), by case and mode, beside the mode the rule
+    gives."""
     from repro_torch.kernels import stream
     from repro_torch.kernels._launch import MAX_SMEM
-    from repro_torch.kernels.cases import case_inputs
+    from repro_torch.kernels.cases import (case_inputs, compare_f32,
+                                           is_f32, live_lanes,
+                                           output_regions)
 
-    tiling, out = stream.gru_q_tiling, {}
+    f32 = is_f32(kernel)
+    name = "gru_tiling" if f32 else "gru_q_tiling"
+    tiling = getattr(stream, name)
+    cls = stream.GruTiling if f32 else stream.GruQTiling
+    wrapper, plain = getattr(stream, kernel), getattr(stream,
+                                                      f"{kernel}_plain")
+    out = {}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for case in (c for c in cases if c.kernel == "ring_gru_cell_q"):
+    for case in (c for c in cases if c.kernel == kernel):
         kw = case.kwargs
         shape = (kw["d_in"], kw["d_h"])
         pool, params = case_inputs(case, seed=0)
         params = _cuda(params)
         want = torch.from_numpy(pool).cuda()
-        stream.ring_gru_cell_q_plain(want, *params, **kw)
+        plain(want, *params, **kw)
+        live = live_lanes(case.n_seg, output_regions(kernel, kw))
         rule = tiling(*shape, n_sm)
         row = {"rule": "grid" if rule.barrier else "one"}
         for mode, one in (("one", True), ("grid", False)):
-            if one and stream.GruQTiling(*shape, shape[1], False).smem \
-                    > MAX_SMEM:
+            if one and cls(*shape, shape[1], False).smem > MAX_SMEM:
                 continue
-            stream.gru_q_tiling = lambda i, h, n, one=one: tiling(i, h, n, one)
+            setattr(stream, name,
+                    lambda i, h, n, one=one: tiling(i, h, n, one))
             try:
                 got = torch.from_numpy(pool).cuda()
-                stream.ring_gru_cell_q(got, *params, **kw)
+                wrapper(got, *params, **kw)
                 torch.cuda.synchronize()
-                if stream.ring_gru_cell_q.barrier is one \
-                        or not torch.equal(got, want):
-                    raise SystemExit(f"{case.name}: ring_gru_cell_q in mode "
+                held = (compare_f32(got.cpu().numpy(), want.cpu().numpy(),
+                                    live)[1] is None if f32
+                        else torch.equal(got, want))
+                if wrapper.barrier is one or not held:
+                    raise SystemExit(f"{case.name}: {kernel} in mode "
                                      f"{mode} differs from its plain "
                                      "version")
-                row[mode] = _held_ms(
-                    lambda: stream.ring_gru_cell_q(got, *params, **kw), 50)
+                row[mode] = _held_ms(lambda: wrapper(got, *params, **kw),
+                                     50)
                 if not one:
                     row["grid_ctas"] = tiling(*shape, n_sm, False).ctas
             finally:
-                stream.gru_q_tiling = tiling
+                setattr(stream, name, tiling)
         out[case.name] = row
-    say("  ring_gru_cell_q by mode, bitwise the plain version in each (us a "
-        "launch, device; the rule's mode first): "
+    say(f"  {kernel} by mode, "
+        + ("within the tolerance of" if f32 else "bitwise")
+        + " the plain version in each (us a launch, device; the rule's "
+        "mode first): "
         + "; ".join(f"{name} ({row['rule']}) "
                     + ", ".join(f"{m} {v * 1e3:.2f}" for m, v in row.items()
                                 if m in ("one", "grid"))
@@ -1788,7 +1820,10 @@ def main() -> None:
         time_gemm_modes(sum((cases[n] for n in NETS + STREAMS[:1]), ())
                         + EDGE_CASES)
     next(r for r in rows if r["name"] == "ring_gru_cell_q")["by_mode"] = \
-        time_gru_modes(cases[STREAMS[1]] + EDGE_CASES)
+        time_gru_modes(cases[STREAMS[1]] + EDGE_CASES, "ring_gru_cell_q")
+    next(r for r in rows if r["name"] == "ring_gru_cell")["by_mode"] = \
+        time_gru_modes(cases[STREAMS[1] + F32] + F32_FUSED_STREAM_EDGE_CASES,
+                       "ring_gru_cell")
     paths[f"{LM} serve"] = time_lm(lm_cfg, lm_weights)
     rows.append(time_decode_kernel(
         lm_cfg, max(LM_PROMPT_LENS) + LM_MAX_NEW // 2, counts[LM],

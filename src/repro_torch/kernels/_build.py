@@ -50,10 +50,10 @@ SIGNATURES = {
         "ring_conv_dw": [_P] * 3 + [_I] * 15 + [_P],
         "ring_conv_k2d": [_P] * 3 + [_I] * 17 + [_P],
         "ring_add": [_P] + [_I] * 8 + [_P],
-        "ring_avgpool": [_P] + [_I] * 7 + [_P],
+        "ring_avgpool": [_P] + [_I] * 9 + [_P],
         "ring_inverted_bottleneck": [_P] * 4 + [_I] * 15 + [_P],
         "ring_conv_stream": [_P] * 3 + [_I] * 20 + [_P],
-        "ring_gru_cell": [_P] * 4 + [_I] * 6 + [_P],
+        "ring_gru_cell": [_P] * 4 + [_I] * 8 + [_P],
         "ring_fused_mlp": [_P] * 5 + [_I] * 13 + [_P],
         "ring_elementwise": [_P] + [_I] * 5 + [_P],
     },

@@ -92,7 +92,9 @@ last CTA copies a window row back onto the source of the row its
 neighbour still reads (``tests/test_torch_q_stream_gemm_tiles.py`` models
 them); so may the int8 GRU cell's channel tiles on ``gru_q_inplace`` (the
 GRU chain's overlap: h' lands on x and on h, which every tile reads;
-``tests/test_torch_q_pool_gru_tiles.py`` models it).
+``tests/test_torch_q_pool_gru_tiles.py`` models it) and the fp32 cell's
+on ``f32_gru_inplace`` and ``f32_gru_wide``
+(``tests/test_torch_pool_gru_tiles.py`` models them).
 """
 from __future__ import annotations
 
@@ -474,6 +476,15 @@ F32_EDGE_CASES = (
     Case("f32_gemm_widen", "ring_gemm", 20,
          dict(m_rows=2, d_in=128, d_out=640, in_ptr=0, out_ptr=15,
               block_rows=1, activation=None)),
+    # 49 pixels of 1,280 channels (250,880 B, more than a CTA's shared
+    # memory): the pool's CTA stages them in two chunks (43 and 6 pixels);
+    # in place, the input run wrapping the ring
+    Case("f32_avgpool_chunks", "ring_avgpool", 630,
+         dict(h=7, w=7, c=1280, in_ptr=420, out_ptr=420)),
+    # MobileNet's head width (256 channels, two segments a pixel), in
+    # place, the input run wrapping the ring
+    Case("f32_avgpool_inplace_256", "ring_avgpool", 42,
+         dict(h=3, w=3, c=256, in_ptr=36, out_ptr=36)),
 )
 
 #: Edge cases of the fp32 fused inverted bottleneck, streaming conv and
@@ -517,6 +528,15 @@ F32_FUSED_STREAM_EDGE_CASES = (
     # both runs wrapping the ring
     Case("f32_ib_rs7_shifted_wrap", "ring_inverted_bottleneck", 176,
          _ib(11, 11, 40, 240, 40, 110, 99, True, rs=7)),
+    # the GRU chain's overlap: h' lands on x (out_ptr == in_ptr), the state
+    # elsewhere; the channel tiles need their grid barrier here
+    _f32(_EDGE["gru_q_inplace"], "f32_gru_inplace"),
+    # d_h 70: 3 d_h = 210 is no multiple of 4, so W's and U's rows are
+    # staged a float at a time
+    _f32(_EDGE["gru_q_d_h_70"], "f32_gru_d_h_70"),
+    # 393,216 B of fp32 W and U, more than one CTA's shared memory: channel
+    # tiles under the grid barrier; in place
+    _f32(_EDGE["gru_q_wide"], "f32_gru_wide"),
 )
 
 

@@ -19,7 +19,9 @@ The pointwise, depthwise and k x k convs, the streaming conv
 (:mod:`repro_torch.kernels.stream`) and the residual add run many CTAs
 that read all of the op's input before any stores (one grid-wide barrier
 between); :func:`conv_tiling` and :func:`add_tiling` are how they cut an
-op into tiles, one per CTA.  The pointwise conv's ``row_block`` is the
+op into tiles, one per CTA.  The average pool is one CTA in an ordinary
+launch whose threads each sum a share of a channel's pixels
+(:func:`pool_tiling`).  The pointwise conv's ``row_block`` is the
 reference's argument and is checked as the reference checks it; it
 shapes nothing, here or in the plain version.
 
@@ -40,8 +42,8 @@ from ..core.program import resolve_activation
 from ..core.rowsched import conv_k2d_pad, conv_k2d_pad_w, resample_src
 from ..core.vpool import SEG_WIDTH, fetch_rows, stage_rows
 from ._launch import H100_SMS, MAX_SMEM, _sm_count, check_cuda, launch
-from .quantized import _check_add, _check_avgpool, _check_pw, _check_rows, \
-    _taps
+from .quantized import PoolQTiling, _check_add, _check_avgpool, _check_pw, \
+    _check_rows, _pool_rule, _taps
 from .segment_matmul import F32, act_code
 
 
@@ -527,19 +529,46 @@ def ring_add_plain(pool, *, rows: int, d: int, in_ptr: int, aux_ptr: int,
 # Global average pool.
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class PoolTiling(PoolQTiling):
+    """How :func:`ring_avgpool`'s one CTA cuts a pool
+    (``ring_f32.cu::avgpool_f32_kernel<threads>``): as
+    :class:`~repro_torch.kernels.quantized.PoolQTiling`, but the threads
+    stage only the live float4s of each pixel, and the partials are fp32.
+    ``smem``: the partials ``[parts, cw]``, then a chunk of pixels of ``4
+    ceil(c / 4)`` floats each."""
+
+    @property
+    def smem(self) -> int:
+        return 4 * self.parts * self.cw + 16 * -(-self.c // 4) * self.chunk_pix
+
+
+@functools.lru_cache(maxsize=1024)
+def pool_tiling(h: int, w: int, c: int) -> PoolTiling:
+    """The tiling of a ``ring_avgpool`` call: the int8 pool's rule
+    (``quantized._pool_rule``: 256 threads up to 256 channels, else 512;
+    parts of at least 16 pixels), a pixel staged as its live float4s.
+    Raises ``ValueError``, naming the pool's shape, when not one pixel
+    fits."""
+    return _pool_rule(PoolTiling, "ring_avgpool", h, w, c, 16 * -(-c // 4))
+
+
 def ring_avgpool(pool, *, h: int, w: int, c: int, in_ptr: int,
                  out_ptr: int):
     """Global average pool ``[h, w, c] -> [1, c]`` in the ring: fp32 sums,
     one division by ``h * w``, one output row stored after every read
-    (replaces ``ring_avgpool``, ``src/repro/kernels/conv2d.py:514``)."""
+    (replaces ``ring_avgpool``, ``src/repro/kernels/conv2d.py:514``).  One
+    CTA in an ordinary launch (:func:`pool_tiling`): every thread stages
+    16-byte vectors of the pixels, then sums one channel over a share of
+    them; after every read a thread a channel adds the shares, divides and
+    stores."""
     n_seg = pool.shape[0]
     _check_avgpool(n_seg, w, c, in_ptr, out_ptr)
     check_cuda(pool, dtype=F32)
-    # fp32 column sums, then as many pixels per step as the rest holds
-    # (at least one, as for the add).
-    chunk_pix = min(h * w, max(1, MAX_SMEM // (4 * c) - 1))
-    launch("ring_avgpool", pool, 4 * c * (1 + chunk_pix), (),
-           (n_seg, h, w, c, in_ptr % n_seg, out_ptr % n_seg, chunk_pix))
+    t = pool_tiling(h, w, c)
+    launch("ring_avgpool", pool, t.smem, (),
+           (n_seg, h, w, c, in_ptr % n_seg, out_ptr % n_seg, t.threads,
+            t.parts, t.chunk_pix))
     ring_avgpool.launches += 1
     return pool
 

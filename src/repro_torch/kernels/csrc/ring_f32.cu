@@ -22,16 +22,8 @@
 // reads, often over input rows it has already consumed.  A certified plan
 // never stores onto a segment that a later step of the same op still
 // reads, so in the TPU's sequential grid every read of an op sees the pool
-// as it was before the op.  A kernel keeps that in one of two ways.
-//
-// Two of them run as ONE thread block that walks the steps in plan order
-// (the average pool and the GRU cell):
-//
-//   load the step's input rows into shared memory   (ring load, modulo n_seg)
-//   __syncthreads()
-//   fp32 sums -> activation                         (threads over live outputs)
-//   store the step's output rows                     (ring store, modulo n_seg)
-//   __syncthreads()                                  (stores visible before the next load)
+// as it was before the op.  No kernel here walks an op in one block; each
+// keeps that order in one of the ways below.
 //
 // The FC, the pointwise, depthwise, k x k and streaming convs, the residual
 // add and the inverted bottleneck read EVERYTHING before they store
@@ -51,11 +43,15 @@
 // ops: the fused MLP's first kernel reads every row it needs and stores
 // only into a scratch tensor, and a second launch stores the rows; the
 // elementwise map reads and stores each float in one thread (see each
-// kernel's comment).
+// kernel's comment).  The average pool is one CTA in an ordinary launch:
+// every thread stages pixels, then sums a channel over a share of them,
+// and after the last __syncthreads (every read of the op is done) a thread
+// a channel adds the shares and stores.  The GRU cell reads first too, in
+// one CTA and an ordinary launch or over channel tiles in one cooperative
+// launch with one grid barrier before any CTA stores h' (which lands on h,
+// and in place on x).
 //
-// The walking kernels take every element address modulo n_seg on its own,
-// so a step's run of segments that wraps the ring is handled segment by
-// segment; the read-first kernels take one modulo per row (a row of the FC,
+// The read-first kernels take one modulo per row (a row of the FC,
 // an image row of the dw, the output rows of a conv; a staged pixel of the
 // pointwise, the k x k and the streaming conv; a row of the add; a pixel of
 // the bottleneck), since their
@@ -71,11 +67,12 @@
 //
 // What bounds these kernels on the card: bytes and operations are tiny
 // (ResNet-8's largest conv is 4.7 MFLOP over about 0.2 MB), so the bound is
-// a few microseconds at most; what the serial walk costs is latency, one SM and
-// one barrier pair per step.  The wrappers (kernels/segment_matmul.py,
+// a few microseconds at most; what remains is the launch, a staging round
+// trip and each CTA's longest chain.  The wrappers (kernels/segment_matmul.py,
 // kernels/conv2d.py, kernels/stream.py, kernels/fused_mlp.py,
 // kernels/elementwise.py) size shared memory and pass whether a conv's
-// weight slice is staged (`stage_w`), the pool's `chunk_pix`, the FC's
+// weight slice is staged (`stage_w`), the pool's (conv2d.py::pool_tiling)
+// and the GRU cell's (stream.py::gru_tiling) tilings, the FC's
 // tiling (segment_matmul.py::gemm_tiling), the convs'
 // (conv2d.py::conv_tiling), the add's (conv2d.py::add_tiling), the fused
 // MLP's (fused_mlp.py::mlp_tiling) and the elementwise map's runs and grid
@@ -89,9 +86,8 @@
 // CTA when they fit (84 KB for MCUNet-VWW's widest op).  The streaming
 // conv's CTAs stage the window rows their taps reach, live channels only,
 // each from where it lies (old state or the new frame), and never assemble
-// the whole window.
-// The GRU cell uses each of W and U once per launch, so it reads them from
-// global memory (coalesced across output columns).
+// the whole window.  The GRU cell stages its columns of W and U in each
+// CTA.
 //
 // Numerics: fp32 FMA accumulation over the reduction in its natural order
 // (the FC's over d_in, in slices of 32 summed in order; taps row-major, then input channels; the fused MLP's over d_model, then
@@ -99,12 +95,16 @@
 // the bias, then the activation
 // of core/program.py::ACTIVATIONS with precise expf/tanhf (gelu is the tanh
 // approximation, the reference's default).  No fast math, no TF32.  The
-// average pool sums in fp32 and divides once by h * w (IEEE division).  The
-// GRU gates round each product and sum on its own (__fmul_rn, __fadd_rn),
-// as PyTorch's elementwise ops do.
+// average pool sums in fp32 (parts of a channel, then the parts in order)
+// and divides once by h * w (IEEE division).  The GRU cell's products sum
+// a chain a lane of its k split, then the lanes in order; its gates round
+// each product and sum on its own (__fmul_rn, __fadd_rn), as PyTorch's
+// elementwise ops do.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -144,17 +144,6 @@ __device__ __forceinline__ float activate(float x, int act) {
 __device__ __forceinline__ size_t ring_index(int ptr, int row, int col,
                                              int chunk, int n_seg) {
   return (size_t)((ptr + row * chunk + col / SEG) % n_seg) * SEG + col % SEG;
-}
-
-// Copy the `d` live channels of `n` rows starting at ring segment `ptr` into
-// dst[n * d] in shared memory.
-__device__ __forceinline__ void load_rows(float* dst, const float* pool,
-                                          int ptr, int n, int d, int chunk,
-                                          int n_seg) {
-  for (int j = threadIdx.x; j < n * d; j += blockDim.x) {
-    const int row = j / d, col = j - row * d;
-    dst[j] = pool[ring_index(ptr, row, col, chunk, n_seg)];
-  }
 }
 
 // Asynchronous copies from global to shared memory (sm_80 and later): a
@@ -683,35 +672,115 @@ add_f32_kernel(float* pool, int n_seg, int rows, int d, int in_ptr,
 }
 
 // ---------------------------------------------------------------------------
-// Global average pool: fp32 column sums over h x w pixels, divided once by
-// h * w, one channel row stored after every read.  Nothing is stored before
-// the last read, so the pixels are read in chunks of `chunk_pix` as large as
-// shared memory allows (all of DS-CNN's and ResNet-8's at once).
+// Global average pool: the fp32 column sums of h x w pixels of c channels
+// (`segs` segments each) at in_ptr, divided once by h * w (IEEE division),
+// stored as one row at out_ptr as whole segments, channel tail zero.  Every
+// plan's pool is in place (out_ptr == in_ptr): the row lands on pixel 0.
+// One CTA of `THR` threads in an ordinary launch (conv2d.py::pool_tiling
+// picks THR, `parts` and `chunk_pix`), every thread in every phase; the
+// pixels go through shared memory in chunks of `chunk_pix` (all of a plan's
+// at once):
+//   (a) the CTA stages the live vectors of the chunk's pixels (ceil(c / 4)
+//       float4s a pixel, 16-byte cp.async copies), a thread a vector of a
+//       pixel (neighbouring threads on neighbouring vectors), then
+//       __syncthreads;
+//   (b) thread (j, ch), channels fastest over cw = pow2 >= c lanes (a warp
+//       reads 32 neighbouring floats of one pixel: no bank conflict), adds
+//       channel ch of pixels j, j + parts, ... into its partial
+//       part[j][ch]: `parts` short chains in place of one chain of h w
+//       adds; __syncthreads: after the last chunk every read of the op is
+//       done;
+//   (c) a thread a lane of the output row adds its channel's `parts`
+//       partials in order, divides once by h * w and stores, zero from c
+//       on.
+// The sums run in another order than the walk's (parts of pixels j mod
+// parts, then the parts), so the result is the plain version's within the
+// fp32 tolerance, not bit for bit.  What bounds it: bytes (DS-CNN's 25 x 5
+// x 64 pool reads 32,000 B, 9.6 ns at 3.35 TB/s); what remains is the launch
+// of one CTA, one round trip of its loads and the longest thread's chain,
+// which the parts shorten (tools/f32_pool_gru_variants.cu, PERF.md).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
+
+// log2 of cw, the power of two >= c (at least a warp) of the channel lanes;
+// one __clz on the card.
+__host__ __device__ __forceinline__ int pool_lg(int c) {
+#ifdef __CUDA_ARCH__
+  return 32 - __clz(max(c, 32) - 1);
+#else
+  int lg = 5;
+  while ((1 << lg) < c) ++lg;
+  return lg;
+#endif
+}
+
+// The pool CTA's shared memory in floats (conv2d.py::PoolTiling.smem): the
+// partials [parts, cw], then a chunk of pixels [chunk_pix, 4 ceil(c / 4)].
+__host__ __device__ __forceinline__ size_t pool_smem_floats(int c, int parts,
+                                                            int chunk_pix) {
+  return (size_t)parts * (1 << pool_lg(c)) +
+         (size_t)chunk_pix * 4 * ((c + 3) / 4);
+}
+
+template <int THR>
+__global__ void __launch_bounds__(THR)
 avgpool_f32_kernel(float* pool, int n_seg, int h, int w, int c, int in_ptr,
-                   int out_ptr, int chunk_pix) {
-  extern __shared__ float smem[];
-  const int segs = segs_for(c);
-  float* sums = smem;                              // [c]
-  float* x = smem + c;                             // [chunk_pix, c]
-  // thread j owns column j: sums[j] is only ever touched by its owner
-  for (int j = threadIdx.x; j < c; j += blockDim.x) sums[j] = 0.f;
-  for (int p0 = 0; p0 < h * w; p0 += chunk_pix) {
-    const int n = min(chunk_pix, h * w - p0);
-    load_rows(x, pool, (in_ptr + p0 * segs) % n_seg, n, c, segs, n_seg);
-    __syncthreads();
-    for (int j = threadIdx.x; j < c; j += blockDim.x) {
-      float acc = sums[j];
-      for (int pix = 0; pix < n; ++pix) acc += x[pix * c + j];
-      sums[j] = acc;
+                   int out_ptr, int parts, int chunk_pix) {
+  extern __shared__ float4 vsmem[];
+  const int segs = segs_for(c), vecs = (c + 3) / 4, npix = h * w;
+  const int lg = pool_lg(c), cw = 1 << lg, pitch = 4 * vecs;
+  float* part = reinterpret_cast<float*>(vsmem);      // [parts][cw]
+  float4* tile = vsmem + parts * cw / 4;              // cw % 4 == 0
+  const float* x = reinterpret_cast<const float*>(tile);
+  for (int p0 = 0; p0 < npix; p0 += chunk_pix) {
+    const int n = min(chunk_pix, npix - p0);
+    // (a) a pixel never wraps: the wrapper requires the pool and the
+    // pointers aligned to whole image rows
+    if (vecs <= THR) {
+      const int v = threadIdx.x % vecs, step = THR / vecs;
+      int seg = (in_ptr + (p0 + threadIdx.x / vecs) * segs) % n_seg;
+      if (threadIdx.x < step * vecs)
+        for (int p = threadIdx.x / vecs; p < n; p += step) {
+          cp_async16(reinterpret_cast<float*>(tile + p * vecs + v),
+                     pool + (size_t)seg * SEG + 4 * v, 16);
+          seg = (seg + step * segs) % n_seg;
+        }
+    } else {
+      for (int i = threadIdx.x; i < n * vecs; i += THR) {
+        const int p = i / vecs, v = i - p * vecs;
+        cp_async16(reinterpret_cast<float*>(tile + i),
+                   pool + (size_t)((in_ptr + (p0 + p) * segs) % n_seg) * SEG +
+                       4 * v,
+                   16);
+      }
     }
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
+    // (b)
+    for (int t = threadIdx.x; t < parts * cw; t += THR) {
+      const int ch = t & (cw - 1), j = t >> lg;
+      if (ch < c) {
+        float s = 0.f;
+#pragma unroll 4
+        for (int p = j; p < n; p += parts) s += x[p * pitch + ch];
+        part[t] = p0 ? part[t] + s : s;
+      }
+    }
+    __syncthreads();   // every read of the chunk (of the op, the last) done
   }
-  const float count = (float)(h * w);
-  for (int j = threadIdx.x; j < segs * SEG; j += blockDim.x)
-    pool[ring_index(out_ptr, 0, j, segs, n_seg)] = j < c ? sums[j] / count
-                                                         : 0.f;
+  // (c)
+  const float count = (float)npix;
+  for (int i = threadIdx.x; i < segs * SEG; i += THR) {
+    float y = 0.f;
+    if (i < c) {
+      float sum = part[i];
+      for (int j = 1; j < parts; ++j) sum += part[j * cw + i];
+      y = sum / count;
+    }
+    int seg = out_ptr + i / SEG;
+    if (seg >= n_seg) seg -= n_seg;
+    pool[(size_t)seg * SEG + i % SEG] = y;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -922,8 +991,40 @@ conv_stream_f32_kernel(float* pool, const float* __restrict__ w,
 // Fp32 GRU cell: gx = x @ W + b and gh = h @ U (W [d_in, 3 d_h], U [d_h,
 // 3 d_h], gates z, r, n), then the hard-gate update of
 // src/repro/quant/requant.py::gru_update, stored at state_ptr and at out_ptr
-// with zero channel tails.  x and h are read before anything is stored.
+// with zero channel tails.  The GRU chain's op is in place: h' lands on x
+// (out_ptr == in_ptr) and on h.  CTA i owns hidden channels i0 = i * ctile
+// .. i0 + tn - 1 (stream.py::gru_tiling: one CTA of all d_h channels, or
+// channel tiles of a multiple of 4) and the six matching column slices (z,
+// r and n of W and of U), "columns" j = s * ctile + co of gate s below.  It
+//   (a) stages x and h (16-byte cp.async copies), its biases and its
+//       columns of W and U as rows of P = round4(3 ctile) floats: in one
+//       CTA with 3 d_h a multiple of 4, W and U as they lie, one flat run of
+//       16-byte copies each; else 16-byte copies of each row's three slices
+//       where d_h is a multiple of 4, else 4-byte ones;
+//   (b) computes its 6 tn gate pre-activations: a thread owns a quad of 4
+//       columns of W or U and a share (`ks` lanes, the k split) of its rows
+//       k = lane, lane + ks, ...; for each it reads the float4 of its quad
+//       (neighbouring threads on neighbouring float4s of one row) and takes
+//       4 FMAs with x[k] or h[k]; the lanes' partials go to shared memory
+//       and one thread a column sums them in lane order (+ the bias for
+//       gx), storing nothing;
+//   (c) meets the other threads of its CTA (one CTA, an ordinary launch)
+//       or every CTA at the grid barrier (BARRIER, a cooperative launch):
+//       every read of the op is done;
+//   (d) runs the update of its channels from the gates and the OLD h held
+//       in shared memory and stores h' to the state and to the output (the
+//       last tile the channel tail as zeros).
+// The products sum in another order than the walk's one chain a column (a
+// chain a lane, then the lanes), so h' is the plain version's within the
+// fp32 tolerance, not bit for bit; the update keeps the plain version's
+// rounding (each product and sum on its own: __fmul_rn, __fadd_rn).  What
+// bounds it: bytes (the chain's 64 -> 64 cell moves 100 KB, 30 ns at 3.35
+// TB/s, nearly all W and U); what remains is the launch (and, with BARRIER,
+// the barrier) and the staging round trip of W and U through one SM, which
+// the channel tiles spread over many.
 // ---------------------------------------------------------------------------
+constexpr int GRU_THREADS = 256;   // stream.py::GRU_THREADS
+
 __device__ __forceinline__ float hard_sigmoid(float t) {
   return fminf(fmaxf(__fadd_rn(__fmul_rn(0.25f, t), 0.5f), 0.f), 1.f);
 }
@@ -937,40 +1038,156 @@ __device__ __forceinline__ float gru_update(float xz, float xr, float xn,
   return __fadd_rn(__fmul_rn(__fsub_rn(1.f, z), n), __fmul_rn(z, h));
 }
 
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ __forceinline__ int round4f(int n) {
+  return (n + 3) / 4 * 4;
+}
+
+// A GRU CTA's shared memory, float offsets (stream.py::_gru_smem): x, h
+// (each in whole float4s); W's and U's columns [d, P]; the biases [P];
+// 4 partial sums a thread (or a quad, where the quads outnumber the
+// threads); gx, gh [2, 3 ctile].  Every region starts on a float4.
+struct GruSmem {
+  int h, w, u, b, part, gates, words;
+};
+
+__host__ __device__ __forceinline__ GruSmem gru_layout(int d_in, int d_h,
+                                                       int ctile, int thr) {
+  const int p = round4f(3 * ctile);
+  GruSmem m;
+  m.h = round4f(d_in);
+  m.w = m.h + round4f(d_h);
+  m.u = m.w + d_in * p;
+  m.b = m.u + d_h * p;
+  m.part = m.b + p;
+  m.gates = m.part + 4 * (thr > p / 2 ? thr : p / 2);
+  m.words = m.gates + 6 * ctile;
+  return m;
+}
+
+// Columns s * d_h + i0 .. + tn - 1 of w [depth, 3 d_h] for each gate s, as
+// rows of p floats at `dst` (gate s from float s * ctile of a row).
+template <int THR>
+__device__ __forceinline__ void stage_gru_matrix(float* dst,
+                                                 const float* __restrict__ w,
+                                                 int depth, int d_h, int i0,
+                                                 int tn, int ctile, int p) {
+  const int g = 3 * d_h;
+  const bool aligned = reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (tn == d_h && p == g && aligned) {
+    for (int i = threadIdx.x; i < depth * g / 4; i += THR)
+      cp_async16(dst + 4 * i, w + 4 * i, 16);
+  } else if (d_h % 4 == 0 && aligned) {
+    // i0, tn and ctile are multiples of 4 here
+    const int vecs = tn / 4;
+    for (int i = threadIdx.x; i < depth * 3 * vecs; i += THR) {
+      const int k = i / (3 * vecs), r = i - k * 3 * vecs;
+      const int s = r / vecs, v = r - s * vecs;
+      cp_async16(dst + k * p + s * ctile + 4 * v,
+                 w + (size_t)k * g + s * d_h + i0 + 4 * v, 16);
+    }
+  } else {
+    for (int i = threadIdx.x; i < depth * 3 * tn; i += THR) {
+      const int k = i / (3 * tn), r = i - k * 3 * tn, s = r / tn;
+      cp_async4(dst + k * p + s * ctile + r - s * tn,
+                w + (size_t)k * g + s * d_h + i0 + r - s * tn, 4);
+    }
+  }
+}
+
+// The k split: the most lanes (a power of two) whose quads fit THR
+// threads, with no more lanes than rows a lane.
+__host__ __device__ __forceinline__ int gru_lanes(int d_in, int d_h, int p,
+                                                  int thr) {
+  const int qqs = p / 2, depth = d_in > d_h ? d_in : d_h;
+  int ks = 1;
+  while (4 * ks * ks <= depth && 2 * ks * qqs <= thr) ks *= 2;
+  return ks;
+}
+
+template <int THR, bool BARRIER>
+__global__ void __launch_bounds__(THR)
 gru_f32_kernel(float* pool, const float* __restrict__ w,
                const float* __restrict__ u, const float* __restrict__ b,
                int n_seg, int d_in, int d_h, int in_ptr, int out_ptr,
-               int state_ptr) {
-  extern __shared__ float smem[];
-  const int ci = segs_for(d_in), co = segs_for(d_h), g = 3 * d_h;
-  float* x = smem;                                  // [d_in]
-  float* h = x + d_in;                              // [d_h]
-  float* gx = h + d_h;                              // [3 d_h]
-  float* gh = gx + g;                               // [3 d_h]
-  load_rows(x, pool, in_ptr, 1, d_in, ci, n_seg);
-  load_rows(h, pool, state_ptr, 1, d_h, co, n_seg);
+               int state_ptr, int ctile) {
+  extern __shared__ float4 vsmem[];
+  float* smem = reinterpret_cast<float*>(vsmem);
+  const GruSmem m = gru_layout(d_in, d_h, ctile, THR);
+  const int p = round4f(3 * ctile), nq = p / 4, qqs = 2 * nq;
+  const int i0 = blockIdx.x * ctile, tn = min(ctile, d_h - i0);
+  // (a) x and h (neither row wraps the ring), the biases, W and U
+  const float* xs = pool + (size_t)in_ptr * SEG;
+  const float* hs = pool + (size_t)state_ptr * SEG;
+  for (int i = threadIdx.x; i < m.h / 4; i += THR)
+    cp_async16(smem + 4 * i, xs + 4 * i, 16);
+  for (int i = threadIdx.x; i < (m.w - m.h) / 4; i += THR)
+    cp_async16(smem + m.h + 4 * i, hs + 4 * i, 16);
+  for (int i = threadIdx.x; i < 3 * tn; i += THR) {
+    const int s = i / tn, co = i - s * tn;
+    cp_async4(smem + m.b + s * ctile + co, b + s * d_h + i0 + co, 4);
+  }
+  stage_gru_matrix<THR>(smem + m.w, w, d_in, d_h, i0, tn, ctile, p);
+  stage_gru_matrix<THR>(smem + m.u, u, d_h, d_h, i0, tn, ctile, p);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  for (int j = threadIdx.x; j < 2 * g; j += blockDim.x) {
-    const bool rec = j >= g;
-    const int col = rec ? j - g : j, depth = rec ? d_h : d_in;
-    const float* v = rec ? h : x;
-    const float* m = (rec ? u : w) + col;
-    float acc = 0.f;
-    for (int kk = 0; kk < depth; ++kk) acc = fmaf(v[kk], m[kk * g], acc);
+  // (b) quad q of W (qq < nq) or of U, rows lane, lane + ks, ...
+  const int ks = gru_lanes(d_in, d_h, p, THR);
+  float4* part = reinterpret_cast<float4*>(smem + m.part);
+  for (int t = threadIdx.x; t < ks * qqs; t += THR) {
+    const int lane = t / qqs, qq = t - lane * qqs;
+    const bool rec = qq >= nq;
+    const int depth = rec ? d_h : d_in;
+    const float* v = smem + (rec ? m.h : 0);
+    const float4* mat =
+        reinterpret_cast<const float4*>(smem + (rec ? m.u : m.w)) +
+        (rec ? qq - nq : qq);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int k = lane; k < depth; k += ks) {
+      const float a = v[k];
+      const float4 wv = mat[k * nq];
+      acc.x = fmaf(a, wv.x, acc.x);
+      acc.y = fmaf(a, wv.y, acc.y);
+      acc.z = fmaf(a, wv.z, acc.z);
+      acc.w = fmaf(a, wv.w, acc.w);
+    }
+    part[t] = acc;
+  }
+  __syncthreads();
+  // the lanes' partials of each column, in lane order, + the bias for gx
+  const float* pf = smem + m.part;
+  float* gx = smem + m.gates;
+  float* gh = gx + 3 * ctile;
+  for (int i = threadIdx.x; i < 6 * ctile; i += THR) {
+    const bool rec = i >= 3 * ctile;
+    const int col = rec ? i - 3 * ctile : i;
+    if (col - col / ctile * ctile >= tn) continue;   // past the last tile
+    const float* src = pf + 4 * ((rec ? nq : 0) + col / 4) + col % 4;
+    float acc = src[0];
+    for (int l = 1; l < ks; ++l) acc += src[4 * l * qqs];
     if (rec)
       gh[col] = acc;
     else
-      gx[col] = __fadd_rn(acc, b[col]);
+      gx[col] = __fadd_rn(acc, smem[m.b + col]);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < co * SEG; i += blockDim.x) {
-    float y = 0.f;
-    if (i < d_h)
-      y = gru_update(gx[i], gx[d_h + i], gx[2 * d_h + i], gh[i], gh[d_h + i],
-                     gh[2 * d_h + i], h[i]);
-    pool[ring_index(state_ptr, 0, i, co, n_seg)] = y;
-    pool[ring_index(out_ptr, 0, i, co, n_seg)] = y;
+  if constexpr (BARRIER)
+    cg::this_grid().sync();   // (c): every read of the op is done
+  else
+    __syncthreads();          // (c): one CTA, every read of the op is done
+  // (d) the update from the gates and the old h
+  const int co = segs_for(d_h);
+  const int end = i0 + ctile >= d_h ? co * SEG : i0 + ctile;
+  const float* h = smem + m.h;
+  for (int c = i0 + threadIdx.x; c < end; c += THR) {
+    const int j = c - i0;
+    const float y = c < d_h ? gru_update(gx[j], gx[ctile + j],
+                                         gx[2 * ctile + j], gh[j],
+                                         gh[ctile + j], gh[2 * ctile + j],
+                                         h[c])
+                            : 0.f;
+    pool[(size_t)state_ptr * SEG + c] = y;
+    pool[ring_index(out_ptr, 0, c, co, n_seg)] = y;
   }
 }
 
@@ -1362,12 +1579,6 @@ int launch_cooperative(Kernel kernel, int blocks, dim3 threads, size_t smem,
                                           (cudaStream_t)stream);
 }
 
-// One block of THREADS: the ring-order walk of every other kernel.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, void* stream, Args... args) {
-  return launch_grid(kernel, 1, THREADS, smem, stream, args...);
-}
-
 }  // namespace
 
 extern "C" {
@@ -1445,10 +1656,20 @@ int ring_add(void* pool, int n_seg, int rows, int d, int in_ptr, int aux_ptr,
 }
 
 int ring_avgpool(void* pool, int n_seg, int h, int w, int c, int in_ptr,
-                 int out_ptr, int chunk_pix, void* stream) {
-  return launch(avgpool_f32_kernel,
-                sizeof(float) * (size_t)c * (1 + (size_t)chunk_pix), stream,
-                (float*)pool, n_seg, h, w, c, in_ptr, out_ptr, chunk_pix);
+                 int out_ptr, int threads, int parts, int chunk_pix,
+                 void* stream) {
+  const size_t smem = sizeof(float) * pool_smem_floats(c, parts, chunk_pix);
+  float* p = (float*)pool;
+  switch (threads) {
+    case 256:
+      return launch_grid(avgpool_f32_kernel<256>, 1, 256, smem, stream, p,
+                         n_seg, h, w, c, in_ptr, out_ptr, parts, chunk_pix);
+    case 512:
+      return launch_grid(avgpool_f32_kernel<512>, 1, 512, smem, stream, p,
+                         n_seg, h, w, c, in_ptr, out_ptr, parts, chunk_pix);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int ring_inverted_bottleneck(void* pool, const void* w1, const void* wd,
@@ -1491,11 +1712,20 @@ int ring_conv_stream(void* pool, const void* w, const void* b, int n_seg,
 
 int ring_gru_cell(void* pool, const void* w, const void* u, const void* b,
                   int n_seg, int d_in, int d_h, int in_ptr, int out_ptr,
-                  int state_ptr, void* stream) {
-  return launch(gru_f32_kernel, sizeof(float) * (size_t)(d_in + 7 * d_h),
-                stream, (float*)pool, (const float*)w, (const float*)u,
-                (const float*)b, n_seg, d_in, d_h, in_ptr, out_ptr,
-                state_ptr);
+                  int state_ptr, int ctile, int barrier, void* stream) {
+  const size_t smem =
+      sizeof(float) * (size_t)gru_layout(d_in, d_h, ctile, GRU_THREADS).words;
+  const int ctas = (d_h + ctile - 1) / ctile;
+  if (barrier)
+    return launch_cooperative(gru_f32_kernel<GRU_THREADS, true>, ctas,
+                              dim3(GRU_THREADS), smem, stream, (float*)pool,
+                              (const float*)w, (const float*)u,
+                              (const float*)b, n_seg, d_in, d_h, in_ptr,
+                              out_ptr, state_ptr, ctile);
+  return launch_grid(gru_f32_kernel<GRU_THREADS, false>, ctas, GRU_THREADS,
+                     smem, stream, (float*)pool, (const float*)w,
+                     (const float*)u, (const float*)b, n_seg, d_in, d_h,
+                     in_ptr, out_ptr, state_ptr, ctile);
 }
 
 int ring_fused_mlp(void* pool, const void* w_gate, const void* w_up,

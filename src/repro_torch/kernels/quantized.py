@@ -533,23 +533,33 @@ class PoolQTiling:
             * SEG_WIDTH
 
 
-@functools.lru_cache(maxsize=1024)
-def pool_q_tiling(h: int, w: int, c: int) -> PoolQTiling:
-    """The tiling of a ``ring_avgpool_q`` call: ``parts`` =
-    clamp(``h w // POOL_PIX_PER_PART``, 1, ``threads // cw``), and as many
-    pixels a chunk as fit ``MAX_SMEM`` beside the partials, a multiple of
-    ``parts`` where that is fewer than all.  Raises ``ValueError``,
-    naming the pool's shape, when not one pixel fits."""
+def _pool_rule(cls, kernel: str, h: int, w: int, c: int,
+               pixel_bytes: int):
+    """The rule of :func:`pool_q_tiling` and ``conv2d.pool_tiling``:
+    ``threads`` = :data:`POOL_Q_THREADS` up to that many channels, else
+    :data:`POOL_Q_THREADS_WIDE`; ``parts`` = clamp(``h w //
+    POOL_PIX_PER_PART``, 1, ``threads // cw``); and as many pixels of
+    ``pixel_bytes`` a chunk as fit ``MAX_SMEM`` beside the partials, a
+    multiple of ``parts`` where that is fewer than all.  Raises
+    ``ValueError``, naming the pool's shape, when not one pixel fits."""
     npix = h * w
     threads = POOL_Q_THREADS if c <= POOL_Q_THREADS else POOL_Q_THREADS_WIDE
     cw = max(32, 1 << (c - 1).bit_length())
     parts = max(1, min(npix // POOL_PIX_PER_PART, threads // cw))
-    fit = (MAX_SMEM - 4 * parts * cw) // (_segs(c) * SEG_WIDTH)
+    fit = (MAX_SMEM - 4 * parts * cw) // pixel_bytes
     chunk = npix if fit >= npix else fit // parts * parts
     if chunk < 1:
-        raise ValueError(f"ring_avgpool_q: no pixel of the pool [{h}, {w}, "
-                         f"{c}] fits {MAX_SMEM} B of shared memory")
-    return PoolQTiling(c, npix, threads, cw, parts, chunk)
+        raise ValueError(f"{kernel}: no pixel of the pool [{h}, {w}, {c}] "
+                         f"fits {MAX_SMEM} B of shared memory")
+    return cls(c, npix, threads, cw, parts, chunk)
+
+
+@functools.lru_cache(maxsize=1024)
+def pool_q_tiling(h: int, w: int, c: int) -> PoolQTiling:
+    """The tiling of a ``ring_avgpool_q`` call (:func:`_pool_rule`, a
+    pixel staged as its whole segments)."""
+    return _pool_rule(PoolQTiling, "ring_avgpool_q", h, w, c,
+                      _segs(c) * SEG_WIDTH)
 
 
 def ring_avgpool_q(pool, *, h: int, w: int, c: int, in_ptr: int,

@@ -11,8 +11,8 @@ state region never wraps:
     store the k x k conv over it at ``out_ptr``;
   * :func:`ring_gru_cell_q` / :func:`ring_gru_cell` read ``x`` at
     ``in_ptr`` and the hidden row at ``state_ptr`` (Q7 int8, or fp32)
-    and store ``h'`` to both the state and ``out_ptr``; the int8 cell
-    reads first over the tiles of :func:`gru_q_tiling`.
+    and store ``h'`` to both the state and ``out_ptr``; both cells read
+    first over the tiles of :func:`gru_q_tiling` / :func:`gru_tiling`.
 
 The wrappers follow :mod:`repro_torch.kernels.quantized` and
 :mod:`repro_torch.kernels.conv2d`: the reference's geometry checks, then
@@ -281,6 +281,30 @@ class GruQTiling:
         return i0, min(self.ctile, self.d_h - i0)
 
 
+def _cell_tiling(cls, kernel: str, small: bool, d_in: int, d_h: int,
+                 n_sm: int, one_cta: bool | None):
+    """The rule of :func:`gru_q_tiling` and :func:`gru_tiling`: one CTA
+    of the whole cell where ``small`` (or ``one_cta``) and it fits
+    ``MAX_SMEM``, else the narrowest channel tile of
+    :data:`GRU_Q_CHANNEL_TILES` whose tiles fit ``n_sm`` and whose CTA
+    fits ``MAX_SMEM``, under a grid barrier where that gives more than one
+    CTA (or ``one_cta`` is False)."""
+    one = cls(d_in, d_h, d_h, False)
+    if one_cta is not False and one.smem <= MAX_SMEM and (one_cta or small):
+        return one
+    if one_cta is not True:
+        for ctile in sorted({min(d_h, c) for c in GRU_Q_CHANNEL_TILES}):
+            t = cls(d_in, d_h, ctile, True)
+            if t.ctas <= n_sm and t.smem <= MAX_SMEM:
+                return dataclasses.replace(
+                    t, barrier=t.ctas > 1 or one_cta is False)
+    raise ValueError(
+        f"{kernel}: no tile of the cell d_in {d_in}, d_h {d_h} "
+        f"(W [{d_in}, {3 * d_h}], U [{d_h}, {3 * d_h}]) fits {MAX_SMEM} B "
+        "of shared memory"
+        + (" in one CTA" if one_cta else f" over at most {n_sm} CTAs"))
+
+
 @functools.lru_cache(maxsize=1024)
 def gru_q_tiling(d_in: int, d_h: int, n_sm: int = H100_SMS,
                  one_cta: bool | None = None) -> GruQTiling:
@@ -298,22 +322,9 @@ def gru_q_tiling(d_in: int, d_h: int, n_sm: int = H100_SMS,
     cooperative one with its barrier even over one CTA), as
     ``chip_smoke.py::time_gru_modes`` measures them.  Raises
     ``ValueError``, naming the cell's shape, when no tile fits."""
-    one = GruQTiling(d_in, d_h, d_h, False)
-    if one_cta is not False and one.smem <= MAX_SMEM and (
-            one_cta or (d_h % 4 == 0 and (d_in + d_h) * 3 * d_h
-                        <= GRU_Q_ONE_CTA_BYTES)):
-        return one
-    if one_cta is not True:
-        for ctile in sorted({min(d_h, c) for c in GRU_Q_CHANNEL_TILES}):
-            t = GruQTiling(d_in, d_h, ctile, True)
-            if t.ctas <= n_sm and t.smem <= MAX_SMEM:
-                return dataclasses.replace(
-                    t, barrier=t.ctas > 1 or one_cta is False)
-    raise ValueError(
-        f"ring_gru_cell_q: no tile of the cell d_in {d_in}, d_h {d_h} "
-        f"(W [{d_in}, {3 * d_h}], U [{d_h}, {3 * d_h}]) fits {MAX_SMEM} B "
-        "of shared memory"
-        + (" in one CTA" if one_cta else f" over at most {n_sm} CTAs"))
+    small = d_h % 4 == 0 and (d_in + d_h) * 3 * d_h <= GRU_Q_ONE_CTA_BYTES
+    return _cell_tiling(GruQTiling, "ring_gru_cell_q", small, d_in, d_h,
+                        n_sm, one_cta)
 
 
 def ring_gru_cell_q(pool, w, u, b, mult_x, shift_x, mult_u, shift_u, *,
@@ -362,21 +373,98 @@ def ring_gru_cell_q_plain(pool, w, u, b, mult_x, shift_x, mult_u, shift_u,
     return pool
 
 
+#: Threads of an fp32 GRU CTA (``GRU_THREADS`` in ``ring_f32.cu``).
+GRU_THREADS = 256
+#: The most fp32 weight bytes (``4 (d_in + d_h) 3 d_h``) of a cell that
+#: :func:`gru_tiling` gives one CTA and an ordinary launch; a larger cell
+#: is cut into channel tiles over many CTAs with a grid barrier.  Set from
+#: ``chip_smoke.py::time_gru_modes`` on an H100 80GB HBM3 at 700 W, whose
+#: times PERF.md §6 gives (the fp32 pool and GRU cell's section): one CTA
+#: is the faster mode at 81,600 B (``f32_gru_wide_input``), 98,304 B (the
+#: GRU chain's 64 -> 64 cell) and 117,504 B (``f32_gru_d_h_72``), the
+#: largest size it was measured at.
+GRU_ONE_CTA_BYTES = 117_504
+
+
+def _gru_smem(d_in: int, d_h: int, ctile: int) -> int:
+    """An fp32 GRU CTA's shared memory in bytes
+    (``ring_f32.cu::gru_layout``): x and h in whole float4s, the tile's
+    columns of W and U as rows of ``P = round4(3 ctile)`` floats, the
+    biases (``P``), 4 partial sums a thread (or a quad of columns, where
+    the ``P / 2`` quads of W and U outnumber the threads) and the two
+    gates of each column."""
+    row = _r(3 * ctile, 4)
+    return 4 * (_r(d_in, 4) + _r(d_h, 4) + (d_in + d_h) * row + row
+                + 4 * max(GRU_THREADS, row // 2) + 6 * ctile)
+
+
+@dataclasses.dataclass(frozen=True)
+class GruTiling(GruQTiling):
+    """How :func:`ring_gru_cell` cuts an fp32 cell: as
+    :class:`GruQTiling`, at 4 bytes an element (``smem``:
+    :func:`_gru_smem`)."""
+
+    @property
+    def smem(self) -> int:
+        return _gru_smem(self.d_in, self.d_h, self.ctile)
+
+    @property
+    def lanes(self) -> int:
+        """The k split (``ring_f32.cu::gru_lanes``): the lanes over which
+        a column's rows are summed, rows ``lane, lane + lanes, ...``; the
+        most (a power of two) whose quads of columns fit
+        :data:`GRU_THREADS`, with no more lanes than rows a lane."""
+        quads, depth = 2 * _r(3 * self.ctile, 4) // 4, max(self.d_in,
+                                                             self.d_h)
+        ks = 1
+        while 4 * ks * ks <= depth and 2 * ks * quads <= GRU_THREADS:
+            ks *= 2
+        return ks
+
+
+@functools.lru_cache(maxsize=1024)
+def gru_tiling(d_in: int, d_h: int, n_sm: int = H100_SMS,
+               one_cta: bool | None = None) -> GruTiling:
+    """The tiling of a ``ring_gru_cell`` call over at most ``n_sm`` CTAs.
+
+    One CTA of the whole cell, in an ordinary launch, where its fp32
+    weights are at most :data:`GRU_ONE_CTA_BYTES`, ``d_h`` is a multiple
+    of 4 (else one CTA stages W and U a float at a time: 14.83 µs against
+    5.86 for the tiles on ``f32_gru_d_h_70``) and it fits ``MAX_SMEM``;
+    else the
+    narrowest channel tile of
+    :data:`GRU_Q_CHANNEL_TILES` whose tiles fit ``n_sm`` and whose CTA
+    fits ``MAX_SMEM``, in one cooperative launch with a grid barrier (a
+    barrier only where that gives more than one CTA).  ``one_cta`` forces
+    either mode (the cooperative one with its barrier even over one CTA),
+    as ``chip_smoke.py::time_gru_modes`` measures them.  Raises
+    ``ValueError``, naming the cell's shape, when no tile fits."""
+    small = d_h % 4 == 0 and 4 * (d_in + d_h) * 3 * d_h <= GRU_ONE_CTA_BYTES
+    return _cell_tiling(GruTiling, "ring_gru_cell", small, d_in, d_h, n_sm,
+                        one_cta)
+
+
 def ring_gru_cell(pool, w, u, b, *, d_in: int, d_h: int, in_ptr: int = 0,
                   out_ptr: int = 0, state_ptr: int = 0):
     """Fp32 GRU step: ``h' = gru_update(x@W + b, h@U, h)``, stored at
     ``state_ptr`` and ``out_ptr`` (replaces ``ring_gru_cell``,
-    ``src/repro/kernels/stream.py:350``).  W and U are each used once
-    per launch, so they are read from global memory where they lie."""
+    ``src/repro/kernels/stream.py:350``).  The kernel runs the tiles of
+    :func:`gru_tiling`, each CTA staging x, h and its columns of W and U
+    in shared memory and reading all of them before any store, in one CTA
+    or over many with a grid barrier (``ring_gru_cell.barrier`` records
+    which)."""
     n_seg = pool.shape[0]
     _gru_geometry(n_seg, d_in=d_in, d_h=d_h, in_ptr=in_ptr, out_ptr=out_ptr,
                   state_ptr=state_ptr)
     g = 3 * d_h
     _check_cuda(pool, (("w", w, F32, (d_in, g)), ("u", u, F32, (d_h, g)),
                        ("b", b, F32, (g,))), dtype=F32)
-    _launch("ring_gru_cell", pool, 4 * (d_in + d_h + 2 * g), (w, u, b),
-            (n_seg, d_in, d_h, in_ptr, out_ptr % n_seg, state_ptr))
-    ring_gru_cell.weights_staged = False       # W and U: global memory
+    t = gru_tiling(d_in, d_h, conv2d._sm_count(pool.device))
+    _launch("ring_gru_cell", pool, t.smem, (w, u, b),
+            (n_seg, d_in, d_h, in_ptr, out_ptr % n_seg, state_ptr, t.ctile,
+             int(t.barrier)))
+    ring_gru_cell.weights_staged = True        # W and U: shared memory
+    ring_gru_cell.barrier = t.barrier
     ring_gru_cell.launches += 1
     return pool
 
@@ -404,3 +492,4 @@ for _f in KERNELS.values():
     _f.launches = 0
     _f.weights_staged = None
 ring_gru_cell_q.barrier = None
+ring_gru_cell.barrier = None

@@ -42,7 +42,7 @@ from repro_torch.kernels import fused_mlp
 from repro_torch.kernels.fused_mlp import MlpTiling, mlp_tiling
 from repro_torch.kernels import stream as stream_kernels
 from repro_torch.kernels.quantized import add_needs_barrier, gemm_q_tiling
-from repro_torch.kernels.stream import gru_q_tiling
+from repro_torch.kernels.stream import gru_q_tiling, gru_tiling
 from repro_torch.kernels.ring_decode import (ring_decode_attention,
                                              ring_decode_attention_plain)
 from repro_torch.models import build_model, params_from_reference
@@ -299,6 +299,47 @@ def test_fp32_cuda_kernel_matches_plain_on_card(case):
     live = live_lanes(case.n_seg, output_regions(case.kernel, case.kwargs))
     err, bad = compare_f32(got.cpu().numpy(), want.cpu().numpy(), live)
     assert bad is None, bad
+
+
+F32_GRU_CASES = tuple(c for c in F32_CASES if c.kernel == "ring_gru_cell")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("one", (True, False), ids=("one_cta", "tiles"))
+@pytest.mark.parametrize("case", F32_GRU_CASES, ids=lambda c: c.name)
+def test_f32_gru_in_each_mode_on_card(case, one, monkeypatch):
+    """``ring_gru_cell`` within the tolerance of the plain version in both
+    modes of ``stream.gru_tiling`` (one CTA in an ordinary launch where
+    its W and U fit one CTA's shared memory, channel tiles under a grid
+    barrier), forced; and, unforced, in the mode its rule gives."""
+    _need_card()
+    kw = case.kwargs
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rule = gru_tiling(kw["d_in"], kw["d_h"], n_sm)
+    pool, params = case_inputs(case, seed=0)
+    cuda_params = [torch.from_numpy(a).cuda() for a in params]
+    want = torch.from_numpy(pool).cuda()
+    PLAIN[case.kernel](want, *cuda_params, **kw)
+    live = live_lanes(case.n_seg, output_regions(case.kernel, kw))
+    got = torch.from_numpy(pool).cuda()
+    KERNELS[case.kernel](got, *cuda_params, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[case.kernel].barrier is rule.barrier is (rule.ctas > 1)
+    assert compare_f32(got.cpu().numpy(), want.cpu().numpy(), live)[1] \
+        is None
+    try:
+        forced = gru_tiling(kw["d_in"], kw["d_h"], n_sm, one)
+    except ValueError:            # W and U do not fit one CTA
+        assert one and rule.barrier
+        return
+    monkeypatch.setattr(stream_kernels, "gru_tiling",
+                        lambda d_in, d_h, n: forced)
+    got = torch.from_numpy(pool).cuda()
+    KERNELS[case.kernel](got, *cuda_params, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS[case.kernel].barrier is not one
+    assert compare_f32(got.cpu().numpy(), want.cpu().numpy(), live)[1] \
+        is None
 
 
 #: Launches of ``run`` on the 8 golden inputs of the fp32 plans.

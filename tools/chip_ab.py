@@ -7,16 +7,15 @@ Each round runs A, B, B, A, each in a process of its own
 (``--child DIR``), which builds that checkout's kernels and measures,
 through that checkout's own ``repro_torch`` and ``chip_smoke.py``:
 
-* the batch-1 latency of the int8 paths (``run`` on DS-CNN, ResNet-8,
-  MCUNet-5fps-VWW and ToyADMOS, ``stream().step`` on the DS-CNN stream
-  and the GRU chain): median and quartiles of 300 calls on the host
-  clock, each ending in ``torch.cuda.synchronize()``, after 20 calls of
-  warm-up;
-* the device time of ``ring_conv_k2d_q``, ``ring_conv_pw_q``,
-  ``ring_conv_dw_q``, ``ring_add_q``, ``ring_conv_stream_q``,
-  ``ring_gemm_q``, ``ring_avgpool_q`` and ``ring_gru_cell_q`` on every
-  op of those plans
-  (``chip_smoke._held_ms``: held-stream CUDA events, 50 launches).
+* the batch-1 latency of the int8 and fp32 paths (``run`` on DS-CNN,
+  ResNet-8, MCUNet-5fps-VWW and ToyADMOS, ``stream().step`` on the DS-CNN
+  stream and the GRU chain, each int8 on cortex-m4 and fp32 on
+  host-sim): median and quartiles of 300 calls on the host clock, each
+  ending in ``torch.cuda.synchronize()``, after 20 calls of warm-up;
+* the device time of every ring kernel on every op of those plans (the
+  eight int8 kernels and the fp32 FC, pw, dw, k x k and streaming convs,
+  add, pool, bottleneck and GRU cell; ``chip_smoke._held_ms``:
+  held-stream CUDA events, 50 launches).
 
 It prints each process's result as a JSON line, then a summary: per
 path the median of the processes' medians, per op the mean of the
@@ -34,11 +33,16 @@ import sys
 import time
 
 STREAM_PATHS = ("ds-cnn-stream", "kws-gru-chain")
-PATHS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos") \
+INT8_PATHS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos") \
     + STREAM_PATHS
+#: Every path: the int8 plans, then the fp32 ones by chip_smoke.py's label
+#: (the net's name + "-f32").
+PATHS = INT8_PATHS + tuple(f"{p}-f32" for p in INT8_PATHS)
 KERNELS = ("ring_conv_k2d_q", "ring_conv_pw_q", "ring_conv_dw_q",
            "ring_add_q", "ring_conv_stream_q", "ring_gemm_q",
-           "ring_avgpool_q", "ring_gru_cell_q")
+           "ring_avgpool_q", "ring_gru_cell_q", "ring_gemm", "ring_conv_pw",
+           "ring_conv_dw", "ring_conv_k2d", "ring_add", "ring_avgpool",
+           "ring_inverted_bottleneck", "ring_conv_stream", "ring_gru_cell")
 CALLS, WARM = 300, 20
 
 
@@ -54,9 +58,10 @@ def child(root: pathlib.Path) -> dict:
     for name in PATHS:
         cn = cs.load_plan(name)
         golden = cs.load_golden(name, cn)
-        if name in STREAM_PATHS:
+        if name.removesuffix("-f32") in STREAM_PATHS:
             session = cn.stream()
-            frame = torch.from_numpy(golden["x_q"][0]).cuda()
+            frame = torch.from_numpy(
+                golden["x_q" if cn.quantized else "x"][0]).cuda()
             fn = lambda s=session, f=frame: s.step(f)   # noqa: E731
         else:
             x1 = torch.from_numpy(golden["x"][0]).cuda()
