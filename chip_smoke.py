@@ -119,7 +119,27 @@ Phases, one summary line each:
      on every int8 FC of the plans and edge cases in both of its modes
      (``time_gemm_modes``), and ``ring_gru_cell_q`` and ``ring_gru_cell``
      on the GRU chain's cell and the GRU edge cases in both of their
-     modes (``time_gru_modes``).
+     modes (``time_gru_modes``);
+  5. the port's own compile pipeline, ``repro_torch.compile``, run on
+     the card machine's host CPU (which has no JAX), its pass seconds
+     printed beside the ``nvidia-smi`` line; then the card runs the plans
+     it compiled, each with the launch counts set to 0 just before and
+     read just after, and every kernel of the plan launched:
+       * ``ds-cnn`` int8 for ``cortex-m4`` from the float params and
+         calibration inputs the reference drew
+         (``assets/ds-cnn.cortex-m4.int8.compile.npz``): program,
+         certificate and ``mcu`` equal to the committed artifact's,
+         activation scales within rtol ``SCALE_RTOL`` of its, and
+         ``quantize_ops`` on its scales equal to its qparams bitwise;
+         ``run`` on the 8 golden inputs on the card equals the plain CPU
+         path bitwise (int8 and float outputs), with as many launches
+         as phase 3's DS-CNN, and lies within one int8 step of the
+         output scale of the golden (``COMPILED_INT8_STEPS``);
+       * ``mcunet-5fps-vww`` fp32 for ``host-sim`` with its artifact's
+         params, and ``ds-cnn`` fp32 with ``streaming=True``: each
+         program byte-identical to its asset's, then phase 3's checks
+         (the golden's tolerance, 60 steps for the stream) with phase
+         3's launch counts exactly.
 
 Then one JSON line with every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -186,6 +206,16 @@ LM = "gemma3-1b"
 LM_CACHE_LEN = 1024
 LM_PROMPT_LENS = (8, 64, 500, 600)
 LM_MAX_NEW = 32
+
+#: Phase 5: the rtol within which the port's activation scales hold
+#: the reference's, and the int8 steps of the output scale within which
+#: the port-calibrated DS-CNN's float outputs hold the golden (the
+#: builder's CPU run: 0.00216 of a 0.00217 step, 8 inputs, 5 of 96
+#: int8 outputs one step off).
+SCALE_RTOL = 1e-5
+COMPILED_INT8_STEPS = 1
+#: A phase-5 path's label: its phase-3 twin's, with this suffix.
+COMPILED = "-compiled"
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1740,6 +1770,163 @@ def time_lm(cfg, params) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the port's compile pipeline, then the card runs its plans.
+# ---------------------------------------------------------------------------
+
+def _compile_timed(*args, **kwargs):
+    """``repro_torch.compile(*args, **kwargs)``, with its wall seconds
+    and each pass's, on the host."""
+    import repro_torch
+
+    t0 = time.perf_counter()
+    cn = repro_torch.compile(*args, **kwargs)
+    total = time.perf_counter() - t0
+    return cn, {"total_s": total, "passes": {p.name: p.seconds
+                                             for p in cn.passes}}
+
+
+def _same_plan(label: str, cn, payload: dict) -> None:
+    """The compiled program, certificate and ``mcu`` summary equal the
+    committed artifact's."""
+    from repro_torch.compile.artifact import program_sha256
+
+    for key, have in (("program", cn.program.to_json_dict()),
+                      ("certificate", cn.certificate), ("mcu", cn.mcu)):
+        if have != payload[key]:
+            raise SystemExit(f"{label}: the compiled {key} differs from the "
+                             "committed artifact's")
+    say(f"  {label}: program ({len(cn.program.ops)} ops, sha256 "
+        f"{program_sha256(cn.program)[:12]}...), certificate and mcu equal "
+        "the committed artifact's")
+
+
+def _same_counts(label: str, counts, want) -> None:
+    if {k: n for k, n in counts.items() if n} \
+            != {k: n for k, n in want.items() if n}:
+        raise SystemExit(f"{label}: launches {counts} differ from phase "
+                         f"3's {want}")
+
+
+def path_compiled_int8(counts3, goldens) -> tuple[dict, dict]:
+    """DS-CNN int8 compiled by the port from the reference's params and
+    calibration inputs, then run on the card."""
+    from repro_torch.compile import artifact as art
+    from repro_torch.core.executors import run_program
+    from repro_torch.graph.run import quantize_ops
+    from repro_torch.quant.qtensor import QParams, quantize
+
+    name = "ds-cnn"
+    label = name + COMPILED
+    params, calib = art.read_compile_inputs(
+        ASSETS / f"{name}.cortex-m4.int8.compile.npz")
+    payload = art.load(artifact(name))
+    cn, timing = _compile_timed(name, "cortex-m4", params=params,
+                                calib=calib)
+    _same_plan(label, cn, payload)
+    want_scales = np.asarray(payload["quant"]["act_scales"])
+    rel = float((np.abs(np.asarray(cn.qnet.act_scales) - want_scales)
+                 / want_scales).max())
+    if rel > SCALE_RTOL:
+        raise SystemExit(f"{label}: activation scales differ from the "
+                         f"artifact's by {rel:.3g} > rtol {SCALE_RTOL}")
+    q = quantize_ops(cn.program, params, tuple(want_scales.tolist()))
+    want_q = art.decode(payload["quant"]["qparams"])
+    flat = [(a, b) for qa, qb in zip(q, want_q) for a, b in zip(qa, qb)]
+    if len(q) != len(want_q) or not all(
+            type(a) is type(b) and np.array_equal(a, b)
+            and np.asarray(a).dtype == np.asarray(b).dtype for a, b in flat):
+        raise SystemExit(f"{label}: quantize_ops on the artifact's scales "
+                         "differs from its qparams")
+    golden = goldens[name]
+    x = torch.from_numpy(golden["x"]).cuda()
+    out = {}
+
+    def drive():
+        out["batch"] = cn.run(x)
+        out["single"] = [cn.run(xi) for xi in x]
+
+    counts = _counted(f"{label} run", cn, 2 * len(x), "inference", drive)
+    _same_counts(label, counts, counts3[name])
+    y = out["batch"]
+    if y.device.type != DEVICE_TYPE or not all(
+            torch.equal(yi, y[i]) for i, yi in enumerate(out["single"])):
+        raise SystemExit(f"{label}: outputs left the card or single runs "
+                         "differ from the batch")
+    y_cpu = cn.run(golden["x"], device="cpu")
+    if not torch.equal(y.cpu(), y_cpu):
+        raise SystemExit(f"{label}: float outputs on the card differ from "
+                         "the plain CPU path")
+    qparams_card = art.to_device(cn.qnet.qparams, x.device)
+    qparams_cpu = art.to_device(cn.qnet.qparams, "cpu")
+    kbr = cn.target.kernel_block_rows
+    steps = 0
+    for i, xi in enumerate(x):
+        xq = quantize(xi, QParams(scale=cn.qnet.in_scale))
+        yq, _ = run_program(cn.program, xq, qparams_card,
+                            kernel_block_rows=kbr)
+        yq_cpu, _ = run_program(cn.program, xq.cpu(), qparams_cpu,
+                                kernel_block_rows=kbr)
+        if not torch.equal(yq.cpu(), yq_cpu):
+            raise SystemExit(f"{label}: int8 output {i} on the card differs "
+                             "from the plain CPU path")
+        steps = max(steps, int(np.abs(yq_cpu.numpy().astype(np.int64)
+                                      - golden["y_q"][i]).max()))
+    err = float(np.abs(y.cpu().numpy() - golden["y"]).max())
+    step = cn.qnet.out_scale
+    if steps > COMPILED_INT8_STEPS \
+            or err > COMPILED_INT8_STEPS * step * (1 + 1e-4):
+        raise SystemExit(f"{label}: outputs lie {err:.4g} ({steps} int8 "
+                         f"steps) from the golden, beyond "
+                         f"{COMPILED_INT8_STEPS} step of {step:.4g}")
+    say(f"  {label}: activation scales within {rel:.3g} of the artifact's "
+        f"(rtol {SCALE_RTOL}); quantize_ops on its scales equals its "
+        f"qparams bitwise; run on the card equals the plain CPU path "
+        f"bitwise on all {len(x)}, {err:.4g} ({steps} int8 step) from the "
+        f"golden (one step {step:.4g})")
+    timing.update(max_scale_rel=rel, golden_max_abs=err, golden_steps=steps)
+    return counts, timing
+
+
+def phase_compile(counts3, goldens) -> tuple[dict, dict]:
+    """Phase 5: the port compiles three plans on the host, the card runs
+    them.  Returns each compiled path's launch counts and timings."""
+    from repro_torch.compile import artifact as art
+
+    say("phase 5: repro_torch.compile on the host, then the card runs the "
+        "plans it compiled")
+    counts, timings = {}, {}
+    label = "ds-cnn" + COMPILED
+    counts[label], timings[label] = path_compiled_int8(counts3, goldens)
+
+    name = "mcunet-5fps-vww" + F32
+    label = name + COMPILED
+    payload = art.load(artifact(name))
+    cn, timings[label] = _compile_timed(
+        "mcunet-5fps-vww", "host-sim",
+        params=art.decode(payload["params"]))
+    _same_plan(label, cn, payload)
+    counts[label] = path_serve_f32(label, cn, goldens[name])
+    _same_counts(label, counts[label], counts3[name])
+
+    name = "ds-cnn-stream" + F32
+    label = name + COMPILED
+    payload = art.load(artifact(name))
+    cn, timings[label] = _compile_timed(
+        "ds-cnn", "host-sim", streaming=True,
+        params=art.decode(payload["params"]))
+    _same_plan(label, cn, payload)
+    counts[label] = path_stream_f32(label, cn, goldens[name])
+    _same_counts(label, counts[label], counts3[name])
+
+    say(f"  compile seconds, host CPU time on the card's machine "
+        f"({nvidia_smi_line()}):")
+    for label, t in timings.items():
+        say(f"    {label}: {t['total_s']:.4f} s in all; "
+            + ", ".join(f"{n} {sec:.4f}" for n, sec in t["passes"].items()))
+    return counts, timings
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SystemExit("chip_smoke.py runs from the root of a checkout "
@@ -1829,7 +2016,12 @@ def main() -> None:
         lm_cfg, max(LM_PROMPT_LENS) + LM_MAX_NEW // 2, counts[LM],
         decode_err))
 
+    compiled, compile_timings = phase_compile(counts, goldens)
+    for row in rows:
+        row["launches"] += sum(c[row["name"]] for c in compiled.values())
+
     say(json.dumps({"paths": paths}))
+    say(json.dumps({"compile": compile_timings}))
     say(json.dumps({"kernels": rows}))
     say(nvidia_smi_line())
     say(json.dumps({"ok": True, "device": {

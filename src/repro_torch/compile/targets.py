@@ -1,9 +1,16 @@
-"""Hardware target descriptors.
+"""Hardware target descriptors and their registry.
 
-Counterpart of the :class:`Target` record of
-:mod:`repro.compile.targets`, so that the ``target`` entry of a plan
-artifact loads as ``Target(**payload["target"])``.  The target registry
-comes with the compile pipeline, in a later slice.
+Counterpart of :mod:`repro.compile.targets`.  A :class:`Target` holds
+what the compile pipeline gates and plans against: the SRAM/flash
+budgets, the executed ring geometry (segment width + DMA block
+alignment), the SIMD width and requantization idiom the emitted C is
+annotated for, and the default pool dtype.  The ``target`` entry of a
+plan artifact loads as ``Target(**payload["target"])``.
+
+The registry ships the reference's four descriptors (``cortex-m4``,
+``cortex-m7``, ``cortex-m55``, ``host-sim``) field for field, so a plan
+the port compiles saves the same ``target`` entry as the reference's;
+:func:`register_target` adds new boards.
 """
 from __future__ import annotations
 
@@ -46,8 +53,89 @@ class Target:
             raise ValueError(f"target {self.name!r} needs positive "
                              "sram/flash budgets")
 
+    # -- planner knobs (ONE definition site) ------------------------------
+    @property
+    def plan_kwargs(self) -> dict:
+        """The executed-ring ``plan_net`` geometry of this target."""
+        return {"seg_width": self.seg_width, "block_rows": self.block_rows}
+
+    @property
+    def byte_ring_kwargs(self) -> dict:
+        """The paper's byte-granular geometry (Fig. 9/10 metric): one
+        byte per segment, tight Eq.-(1)/(2) pointers.  Shared by every
+        target — int8 bytes are int8 bytes on any MCU."""
+        return {"seg_width": 1, "block_rows": None}
+
+    # -- budgets -----------------------------------------------------------
     def fits_sram(self, bytes_: int) -> bool:
         return bytes_ <= self.sram_bytes
 
     def sram_margin(self, bytes_: int) -> int:
         return self.sram_bytes - bytes_
+
+
+_REGISTRY: dict[str, Target] = {}
+_ALIASES: dict[str, str] = {}
+
+
+def register_target(target: Target, *aliases: str,
+                    overwrite: bool = False) -> Target:
+    """Add ``target`` (and optional alias names) to the registry."""
+    if target.name in _REGISTRY and not overwrite:
+        raise ValueError(f"target {target.name!r} already registered")
+    _REGISTRY[target.name] = target
+    for a in aliases:
+        _ALIASES[a] = target.name
+    return target
+
+
+def get_target(target: str | Target) -> Target:
+    """Resolve a target name (or pass a Target descriptor through)."""
+    if isinstance(target, Target):
+        return target
+    name = _ALIASES.get(target, target)
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown target {target!r}; known: "
+                         f"{list_targets()}") from None
+
+
+def list_targets() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+# ---------------------------------------------------------------------------
+# The stock descriptors.
+# ---------------------------------------------------------------------------
+
+# The paper's evaluation boards: STM32F446RE (Cortex-M4, 128 KB SRAM —
+# the deployment story of examples/mcu_plan.py) and an M7-class part
+# with the larger 320 KB SRAM tier.  Both requantize via the dual-MAC
+# __SMLAD idiom; int8 is the deployment dtype.
+register_target(Target(
+    name="cortex-m4", cpu="Arm Cortex-M4 (STM32F446RE)",
+    sram_bytes=128_000, flash_bytes=512_000,
+    simd_bits=32, requant_idiom="smlad", default_dtype="int8"))
+
+register_target(Target(
+    name="cortex-m7", cpu="Arm Cortex-M7 (STM32F746ZG)",
+    sram_bytes=320_000, flash_bytes=1_024_000,
+    simd_bits=64, requant_idiom="smlad", default_dtype="int8"))
+
+# Helium/MVE-class part: 128-bit vector requant (VMLADAVA.S8 + VQRDMULH).
+register_target(Target(
+    name="cortex-m55", cpu="Arm Cortex-M55 (Helium MVE)",
+    sram_bytes=256_000, flash_bytes=2_048_000,
+    simd_bits=128, requant_idiom="mve", default_dtype="int8"))
+
+# Development target: the float ring with an effectively unbounded
+# budget — every pass runs, nothing gates.  Its ``cpu`` and
+# ``default_backend`` strings are the reference's, kept so that a saved
+# artifact's ``target`` entry is the reference's byte for byte; the port
+# runs it on the CUDA card like every other target.
+register_target(Target(
+    name="host-sim", cpu="host (XLA cpu/tpu; Pallas interpret)",
+    sram_bytes=1 << 40, flash_bytes=1 << 40,
+    simd_bits=128 * 32, requant_idiom="none",
+    default_dtype="float32"))

@@ -12,6 +12,11 @@ implementation:
     (:data:`repro_torch.kernels.PLAIN`) — the port of ``_apply_op_q``/
     ``_run_jnp_q`` and of ``_apply_op``/``_run_jnp``.
 
+:func:`run_program_sim` is the reference's ``sim`` backend, the clobber
+oracle: it replays every op's row schedule through a
+:class:`~repro_torch.core.pool.SegmentPool` on the host, with no tensor,
+and certifies a plan.
+
 Nothing on the CUDA path calls a plain version.  Every int8 op kind has
 its kernel, and so does every executable fp32 kind (:data:`F32_KINDS`):
 the whole-network ones, the fused inverted bottleneck, the streaming
@@ -22,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import KERNELS, PLAIN
+from .pool import SegmentPool
 from .program import EXECUTABLE_KINDS, PoolProgram
 from .vpool import VirtualPool, segments_for
 
@@ -316,3 +322,137 @@ def run_program(program: PoolProgram, x: torch.Tensor, params, *,
     y = pool.fetch_rows(program.output_ptr, program.out_rows,
                         program.out_dim).clone()
     return y, pool
+
+
+# ---------------------------------------------------------------------------
+# sim backend — the clobber oracle.
+# ---------------------------------------------------------------------------
+
+def _sim_rowsched_op(sim: SegmentPool, program: PoolProgram, i: int) -> None:
+    """Replay one conv-family op through the oracle from the SAME row
+    schedule the planner solved its delta with (``core.rowsched``)."""
+    from .rowsched import schedule_for_op
+
+    op = program.ops[i]
+    sched = schedule_for_op(op, program.seg_width)
+    frees = sched.frees()
+    ic, oc = sched.in_chunk, sched.out_chunk
+    # branch ops (in_op >= 0) read the held INPUT of op in_op — segment
+    # ownership tags carry that op's index, exactly like aux reads
+    iown = op.in_op if op.in_op >= 0 else i
+    # sliced ops (partial execution): reads window the source record at row
+    # offset in_row0; writes land inside the SHARED output tensor owned
+    # by op out_op at row offset out_row0
+    r0 = op.in_row0
+    oown = op.out_op if op.out_op >= 0 else i + 1
+    w0 = op.out_row0
+    for t in range(sched.steps):
+        for r in sched.reads[t]:
+            for s in range(ic):
+                seg = (r0 + r) * ic + s
+                sim.read(op.in_ptr + seg, owner=(iown, seg))
+        if sched.aux_reads is not None:
+            ac = sched.aux_chunk
+            for r in sched.aux_reads[t]:
+                for s in range(ac):
+                    seg = r * ac + s
+                    sim.read(op.aux_ptr + seg, owner=(op.aux_op, seg))
+                    sim.free(op.aux_ptr + seg, owner=(op.aux_op, seg))
+        if not op.hold_input:
+            for r in frees[t]:
+                for s in range(ic):
+                    seg = (r0 + r) * ic + s
+                    sim.free(op.in_ptr + seg, owner=(iown, seg))
+        for r in sched.writes[t]:
+            for s in range(oc):
+                sim.write(op.out_ptr + r * oc + s,
+                          owner=(oown, (w0 + r) * oc + s))
+    if op.free_src:
+        # last slice of a held source: release the WHOLE record (earlier
+        # slices held it; re-freeing an already-free segment is benign)
+        src_rows = op.h_src or sched.in_rows
+        for seg in range(src_rows * ic):
+            sim.free(op.in_ptr + seg, owner=(iown, seg))
+
+
+def _sim_stream_op(sim: SegmentPool, program: PoolProgram, i: int) -> None:
+    """conv_stream / gru_cell through the oracle: whole-state read then a
+    same-owner whole-state rewrite (the executors fetch the full window /
+    hidden vector, shift, and write it back — a FOREIGN write into the
+    live state region is exactly the clobber this catches), followed by
+    the frame traffic via the op's row schedule."""
+    op = program.ops[i]
+    for j in range(op.state_segments):
+        sim.read(op.state_ptr + j, owner=("state", i, j))
+    for j in range(op.state_segments):
+        sim.write(op.state_ptr + j, owner=("state", i, j))
+    _sim_rowsched_op(sim, program, i)
+
+
+def run_program_sim(program: PoolProgram, pool=None) -> SegmentPool:
+    """Execute the program's schedule in the SegmentPool simulator.
+
+    GEMM ops run the paper's fine-grained Fig.-4 schedule (input segment
+    freed after its LAST read) — strictly harder than the block-granular
+    schedule the ring kernels run, so a clobber-free sim run certifies
+    them.
+    Conv-family ops replay the row schedule their delta was solved with
+    (``core.rowsched``); residual sources are freed by the consuming add.
+    Returns the SegmentPool for access statistics (peak_live etc.).
+
+    The port of the reference's ``sim`` executor, run on the host with no
+    tensor at all (it needs no params).  Its per-op tracer comes with the
+    telemetry slice.
+    """
+    sw = program.seg_width
+    if isinstance(pool, SegmentPool):
+        # persistent streaming session (repro_torch.stream): state records
+        # from the previous step are still live under their ("state", i,
+        # j) owners — the next step must prove it never clobbers them
+        sim = pool
+    else:
+        sim = SegmentPool(program.n_segments,
+                          segment_bytes=sw * program.elem_bytes)
+        for i, op in enumerate(program.ops):
+            for j in range(op.state_segments):
+                sim.write(op.state_ptr + j, owner=("state", i, j))
+    first = program.ops[0]
+    for j in range(first.in_segments):
+        sim.write(first.in_ptr + j, owner=(0, j))
+    for i, op in enumerate(program.ops):
+        m = op.rows_in or program.m_rows
+        if op.kind == "gemm":
+            k_segs = segments_for(op.d_in, sw)
+            n_segs = segments_for(op.d_out, sw)
+            for r in range(m):
+                for n in range(n_segs):
+                    for k in range(k_segs):
+                        seg = r * k_segs + k
+                        sim.read(op.in_ptr + seg, owner=(i, seg))
+                        if n == n_segs - 1 and not op.hold_input:
+                            sim.free(op.in_ptr + seg, owner=(i, seg))
+                    outseg = r * n_segs + n
+                    sim.write(op.out_ptr + outseg, owner=(i + 1, outseg))
+        elif op.kind in ("fused_mlp", "elementwise"):
+            # per-row in-place at delta == 0
+            d_segs = segments_for(op.d_in, sw)
+            for r in range(m):
+                for s in range(d_segs):
+                    seg = r * d_segs + s
+                    sim.read(op.in_ptr + seg, owner=(i, seg))
+                    if not op.hold_input:
+                        sim.free(op.in_ptr + seg, owner=(i, seg))
+                for s in range(d_segs):
+                    seg = r * d_segs + s
+                    sim.write(op.out_ptr + seg, owner=(i + 1, seg))
+        elif op.kind in ("conv_stream", "gru_cell"):
+            _sim_stream_op(sim, program, i)
+        else:
+            _sim_rowsched_op(sim, program, i)
+    last = program.ops[-1]
+    for j in range(last.out_segments):  # outputs must survive the ring
+        sim.read(last.out_ptr + j, owner=(len(program.ops), j))
+    for i, op in enumerate(program.ops):  # ...and so must persistent state
+        for j in range(op.state_segments):
+            sim.read(op.state_ptr + j, owner=("state", i, j))
+    return sim

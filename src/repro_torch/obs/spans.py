@@ -1,11 +1,13 @@
 """Nested timed spans (the port of ``repro.obs.spans``: ``span``,
-``active`` and the collector they need).
+``set_attr``, ``active`` and the collector they need).
 
 A :class:`SpanCollector` is installed for a dynamic extent with
 :func:`collect`; inside it, ``with span(name, **attrs):`` records a
-nested span of wall seconds.  With no collector installed, :func:`span`
-is a no-op context manager, so spans can stay in hot paths such as the
-serving engine's decode loop.  PyTorch returns before the card finishes,
+nested span of wall seconds and ``set_attr(**attrs)`` annotates the
+innermost open one.  With no collector installed, :func:`span` is a
+no-op context manager and :func:`set_attr` returns at once, so spans can
+stay in hot paths such as the serving engine's decode loop and the
+scheduler's search.  PyTorch returns before the card finishes,
 so a caller that times device work synchronises inside the span when
 :func:`active` says a collector is listening (the serving engine calls
 ``torch.cuda.synchronize()`` where the reference calls
@@ -36,6 +38,11 @@ class Span:
     attrs: dict = dataclasses.field(default_factory=dict)
     children: list = dataclasses.field(default_factory=list)
 
+    def to_dict(self) -> dict:
+        return {"name": self.name, "seconds": self.seconds,
+                "start_s": self.start_s, "attrs": dict(self.attrs),
+                "children": [c.to_dict() for c in self.children]}
+
 
 class SpanCollector:
     """Accumulates a forest of spans for one instrumented extent."""
@@ -44,6 +51,9 @@ class SpanCollector:
         self.spans: list[Span] = []
         self._stack: list[Span] = []
         self._epoch = time.perf_counter()
+
+    def to_dicts(self) -> list[dict]:
+        return [s.to_dict() for s in self.spans]
 
 
 @contextlib.contextmanager
@@ -82,3 +92,10 @@ def span(name: str, **attrs: Any) -> Iterator[Span | None]:
 def active() -> bool:
     """True iff a collector is installed (for cheap guard checks)."""
     return _ACTIVE.get() is not None
+
+
+def set_attr(**attrs: Any) -> None:
+    """Annotate the innermost open span (no-op without a collector)."""
+    col = _ACTIVE.get()
+    if col is not None and col._stack:
+        col._stack[-1].attrs.update(attrs)

@@ -1,2 +1,2 @@
-"""Int8 quantization: parameters and fixed-point requantization —
-counterparts of ``repro.quant``."""
+"""Int8 quantization: parameters, calibration and fixed-point
+requantization — counterparts of ``repro.quant``."""

@@ -10,14 +10,20 @@ program's linear extent, so frame traffic never aliases them.
 A session runs an int8 plan (its calibrated qparams) or a float plan
 (its fp32 params), each on the session's device: a CUDA pool runs the
 hand-written kernels, a CPU pool (``device="cpu"``) their plain
-versions, as :meth:`repro_torch.CompiledNet.run` does.  The reference's
-``sim`` backend (the clobber oracle) and ``trace=True`` (per-step ring
-telemetry) are not ported yet.
+versions, as :meth:`repro_torch.CompiledNet.run` does.
+
+``backend="sim"`` is the reference's byte oracle: numerics-free, on the
+host, every step replays the schedule through
+:class:`~repro_torch.core.pool.SegmentPool` with the state records still
+live under their ``("state", i, j)`` owners, so an N-step run is N
+clobber proofs plus the carried state-survival invariant.
+``trace=True`` (per-step ring telemetry) is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.executors import run_program_sim
 from ..core.vpool import VirtualPool
 from ..graph.run import step_net, step_net_quantized
 
@@ -27,31 +33,38 @@ class StreamSession:
 
     Built by :meth:`repro_torch.CompiledNet.stream`; holds the pool (the
     persistent state) between ``step`` calls.  ``device`` is the CUDA
-    card unless it says otherwise."""
+    card unless it says otherwise; the ``sim`` backend runs on the host
+    and takes no device."""
 
     def __init__(self, compiled, device=None, *, backend: str | None = None,
                  trace: bool = False):
-        if backend == "sim":
-            raise NotImplementedError(
-                "the sim backend (the clobber oracle) is not ported yet: "
-                "it comes with Slice D (the sim oracle and the row "
-                "schedules)")
-        if backend is not None:
+        if backend not in (None, "sim"):
             raise ValueError(f"unknown stream backend {backend!r}: the "
-                             "port picks its kernels from the device")
+                             "port picks its kernels from the device, "
+                             "and 'sim' is the clobber oracle")
         if trace:
             raise NotImplementedError(
                 "trace=True is not ported yet: ring telemetry comes with "
                 "Slice G (partial execution, streaming and telemetry)")
-        from ..compile.driver import _device
+        from ..compile.driver import CompileError, _device
 
         self.compiled = compiled
-        self.device = _device(device)
+        self.backend = backend
         self.quantized = compiled.quantized
-        if self.quantized:
+        if not self.quantized and compiled.program.quantized:
+            raise CompileError(
+                "planner-only int8 compile: no qparams to stream with — "
+                "recompile with quantize=True")
+        if backend == "sim":
+            self.device = None
+            self.program = (compiled.qnet.program if self.quantized
+                            else compiled.program)
+        elif self.quantized:
+            self.device = _device(device)
             self.qnet = compiled._qnet_on(self.device)
             self.program = self.qnet.program
         else:
+            self.device = _device(device)
             self.params = compiled._params_on(self.device)
             self.program = compiled.program
         if not any(op.state_segments for op in self.program.ops):
@@ -65,18 +78,38 @@ class StreamSession:
         """Zero every state region and restart the step counter.  A zero
         window is the reference conv's zero padding."""
         self.steps = 0
-        self._pool = VirtualPool.alloc(self.program.spec(), self.device)
+        if self.backend == "sim":
+            self._pool = None      # run_program_sim pre-writes the state
+        else:
+            self._pool = VirtualPool.alloc(self.program.spec(), self.device)
         return self
 
     # -- one frame ---------------------------------------------------------
-    def step(self, frame) -> torch.Tensor:
+    def step(self, frame=None):
         """Advance one frame.
 
         ``frame`` is ``[rows_in, d_in]`` (or anything reshapeable to it).
         Through an int8 plan a float frame is quantized on entry and the
         output dequantized, while an int8 frame counts as quantized and
         the raw int8 output comes back (the bitwise contract); a float
-        plan takes the frame as fp32 and returns fp32."""
+        plan takes the frame as fp32 and returns fp32.  The ``sim``
+        backend ignores numerics (pass ``frame=None``) and returns the
+        oracle's counters."""
+        if self.backend == "sim":
+            program = self.program
+            sim = run_program_sim(program, pool=self._pool)
+            # the session consumes the step output; its record must die
+            # before the next frame is staged over it
+            last = program.ops[-1]
+            for j in range(last.out_segments):
+                sim.free(last.out_ptr + j, owner=(len(program.ops), j))
+            self._pool = sim
+            self.steps += 1
+            return {"reads": sim.reads, "writes": sim.writes,
+                    "frees": sim.frees, "peak_live": sim.peak_live,
+                    "live": sim.live, "steps": self.steps}
+        if frame is None:
+            raise ValueError("array backends need a frame per step")
         first = self.program.ops[0]
         frame = torch.as_tensor(frame, device=self.device).reshape(
             first.rows_in, self.program.in_dim)
@@ -99,9 +132,10 @@ class StreamSession:
         return y
 
     @property
-    def pool(self) -> VirtualPool:
+    def pool(self):
         """The persistent pool (state included), as the last step left
-        it."""
+        it: a :class:`VirtualPool`, or the sim backend's
+        :class:`~repro_torch.core.pool.SegmentPool`."""
         return self._pool
 
     @property

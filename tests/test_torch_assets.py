@@ -35,6 +35,12 @@ asset:
     reference's ``run(x, backend="jnp")`` outputs on ``GOLDEN_ROWS``
     (rows are independent under a delta-0 op, so a row subset is a true
     check);
+  * the compile inputs of ``COMPILE_NET`` (``ds-cnn.cortex-m4.int8.
+    compile.npz``): the float params and the ``n_calib=2`` calibration
+    inputs that the reference's default ``compile("ds-cnn",
+    "cortex-m4")`` draws, which the port's own ``repro_torch.compile``
+    takes on the card (``repro_torch.compile.artifact.
+    read_compile_inputs``);
   * streaming plans (``STREAMS``): ``ds-cnn-stream`` is
     ``repro.compile("ds-cnn", streaming=True)``; ``kws-gru-chain`` is the
     conv_stream -> avgpool -> GRU program of ``tests/test_stream.py`` at
@@ -82,6 +88,8 @@ from repro.graph.run import _quantize_net
 from repro.quant import QParams, dequantize, quantize
 from repro.models.registry import build_model as ref_build_model
 from repro.serve.engine import ServingEngine as RefEngine
+from repro_torch.compile.artifact import (read_compile_inputs,
+                                          write_compile_inputs)
 from repro_torch.configs import get_config as port_get_config
 from repro_torch.kernels.cases import (LM_GOLDEN_CACHE_LEN, LM_GOLDEN_STEPS,
                                        LM_GOLDEN_TOP, LM_PARAMS_VERSION,
@@ -105,6 +113,8 @@ GOLDEN_ROWS = np.r_[0:64, 1436:1500]
 N_INPUTS, N_FRAMES, N_SEEDED_INPUTS = 8, 60, 2
 #: Keys of a saved artifact that vary from compile to compile (timings).
 TIMED = ("passes", "spans")
+#: The net whose reference compile inputs are committed.
+COMPILE_NET = "ds-cnn"
 
 
 def artifact_path(name: str) -> pathlib.Path:
@@ -121,6 +131,24 @@ def float_artifact_path(name: str) -> pathlib.Path:
 
 def float_golden_path(name: str) -> pathlib.Path:
     return ASSETS / f"{name}.{FLOAT_TARGET}.float32.golden.npz"
+
+
+def compile_inputs_path() -> pathlib.Path:
+    return ASSETS / f"{COMPILE_NET}.{TARGET}.int8.compile.npz"
+
+
+def reference_compile_inputs(cn: RefCompiledNet) -> tuple[list, np.ndarray]:
+    """The float params of the reference's default int8 compile ``cn``
+    (``init_net_params`` from ``PRNGKey(0)``) and the calibration inputs
+    its ``_quantize_net`` drew (``n_calib=2`` normals from
+    ``PRNGKey(0)``), as numpy arrays."""
+    prog = cn.plan.program
+    calib = np.asarray(jax.random.normal(
+        jax.random.PRNGKey(0), (2, prog.in_rows, prog.in_dim)))
+    params = [None if p is None else
+              tuple(None if a is None else np.asarray(a) for a in p)
+              for p in cn.params]
+    return params, calib
 
 
 def _chain_params():
@@ -278,6 +306,9 @@ def write_assets(names=NETS + STREAMS,
         cn = compile_reference(name)
         artifact_path(name).write_text(json.dumps(artifact_payload(cn)))
         np.savez(golden_path(name), **reference_golden(name, cn))
+        if name == COMPILE_NET:
+            write_compile_inputs(compile_inputs_path(),
+                                 *reference_compile_inputs(cn))
     for name in float_names:
         cn = compile_float_reference(name)
         float_artifact_path(name).write_text(
@@ -409,6 +440,30 @@ def test_stream_assets_hold_state_and_every_stream_kind(fresh):
     assert chain.qnet.out_scale == 1.0 / 128.0    # the fixed Q7 state
     win = fresh("ds-cnn-stream").program.ops[0]
     assert win.state_segments * 128 == 62_720     # 49 x 10 x 1 window
+
+
+def test_compile_inputs_are_the_reference_default_draws(fresh):
+    """The committed compile inputs are a fresh reference compile's
+    params and calibration draws, bit for bit, and they are what its
+    ``quantize`` pass used: calibrating on them gives its scales."""
+    cn = fresh(COMPILE_NET)
+    have_p, have_c = read_compile_inputs(compile_inputs_path())
+    want_p, want_c = reference_compile_inputs(cn)
+    np.testing.assert_array_equal(have_c, want_c)
+    assert have_c.dtype == np.float32 and have_c.shape[0] == 2
+    assert len(have_p) == len(want_p) == len(cn.program.ops)
+    for i, (h, w) in enumerate(zip(have_p, want_p)):
+        assert (h is None) == (w is None), i
+        if w is None:
+            continue
+        assert len(h) == len(w), i
+        for a, b in zip(h, w):
+            assert (a is None) == (b is None), i
+            if b is not None:
+                assert a.dtype == b.dtype, i
+                np.testing.assert_array_equal(a, b, err_msg=str(i))
+    q = _quantize_net(cn.plan, have_p, calib=have_c)
+    assert q.act_scales == cn.qnet.act_scales
 
 
 # ---------------------------------------------------------------------------

@@ -557,3 +557,89 @@ def test_reduced_gemma3_serves_through_the_decode_kernel_on_card():
     with np.load(ASSETS / f"{cfg.name}.golden.npz") as g:
         held = hold_lm_golden(model, params, dict(g))
     assert held["ok"], held
+
+
+# ---------------------------------------------------------------------------
+# Plans the port compiled itself (``repro_torch.compile``), on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_port_compiled_int8_ds_cnn_runs_on_card():
+    """DS-CNN compiled by the port from the reference's params and
+    calibration inputs: the committed artifact's program, the same
+    launches as the artifact's plan on the golden inputs, outputs equal
+    to the plain CPU path bitwise and within one int8 step of the
+    output scale of the golden."""
+    _need_card()
+    from repro_torch import compile as port_compile
+    from repro_torch.compile.artifact import read_compile_inputs
+
+    params, calib = read_compile_inputs(
+        ASSETS / "ds-cnn.cortex-m4.int8.compile.npz")
+    cn = port_compile("ds-cnn", "cortex-m4", params=params, calib=calib)
+    loaded, golden = load(_artifact("ds-cnn")), _golden("ds-cnn")
+    assert cn.program == loaded.program
+    assert cn.certificate == loaded.certificate
+    counts = []
+    for net in (loaded, cn):
+        reset_launch_counts()
+        y = net.run(golden["x"])
+        torch.cuda.synchronize()
+        counts.append({k: n for k, n in launch_counts().items() if n})
+    assert counts[0] == counts[1] and len(counts[1]) == 5
+    assert y.device.type == "cuda"
+    assert torch.equal(y.cpu(), cn.run(golden["x"], device="cpu"))
+    step = cn.qnet.out_scale
+    assert np.abs(y.cpu().numpy() - golden["y"]).max() <= step * (1 + 1e-4)
+
+
+@pytest.mark.gpu
+def test_port_compiled_fp32_vww_runs_on_card():
+    """VWW compiled by the port for ``host-sim`` with its artifact's
+    params: the artifact's program, its exact launches, and outputs
+    within the tolerance of the golden."""
+    _need_card()
+    from repro_torch import compile as port_compile
+    from repro_torch.compile.artifact import decode, load as load_payload
+
+    payload = load_payload(_float_artifact("mcunet-5fps-vww"))
+    cn = port_compile("mcunet-5fps-vww", "host-sim",
+                      params=decode(payload["params"]))
+    assert cn.program.to_json_dict() == payload["program"]
+    golden = _float_golden("mcunet-5fps-vww")
+    reset_launch_counts()
+    y = cn.run(golden["x"])
+    torch.cuda.synchronize()
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == FLOAT_LAUNCHES["mcunet-5fps-vww"]
+    scale = float(np.abs(golden["y"]).max())
+    np.testing.assert_allclose(y.cpu().numpy(), golden["y"], rtol=RTOL,
+                               atol=ATOL_REL * scale)
+
+
+@pytest.mark.gpu
+def test_port_compiled_fp32_stream_runs_on_card():
+    """The fp32 DS-CNN stream compiled by the port (``streaming=True``)
+    with its artifact's params: the artifact's program, 60 steps with
+    the stream's exact launches, each within the tolerance of the
+    golden."""
+    _need_card()
+    from repro_torch import compile as port_compile
+    from repro_torch.compile.artifact import decode, load as load_payload
+
+    payload = load_payload(_float_artifact("ds-cnn-stream"))
+    cn = port_compile("ds-cnn", "host-sim", streaming=True,
+                      params=decode(payload["params"]))
+    assert cn.program.to_json_dict() == payload["program"]
+    golden = _float_golden("ds-cnn-stream")
+    s = cn.stream()
+    reset_launch_counts()
+    ys = [s.step(torch.from_numpy(f).cuda()) for f in golden["x"]]
+    torch.cuda.synchronize()
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == FLOAT_STREAM_LAUNCHES["ds-cnn-stream"]
+    scale = float(np.abs(golden["y"]).max())
+    for i, y in enumerate(ys):
+        np.testing.assert_allclose(y.cpu().numpy(), golden["y"][i],
+                                   rtol=RTOL, atol=ATOL_REL * scale,
+                                   err_msg=f"step {i}")

@@ -1,6 +1,9 @@
 """``repro_torch``, ``chip_smoke.py`` and ``tools/chip_ab.py`` stand alone:
 they import neither JAX nor anything of the reference package ``repro``,
-by the source and in a run with both blocked."""
+by the source and in a run with both blocked — in which the port also
+compiles DS-CNN for the M4 with its default passes, runs the result, and
+compiles the committed plan from the reference's params and
+calibration inputs."""
 import ast
 import os
 import pathlib
@@ -37,7 +40,11 @@ def test_sources_exist():
             "inverted_bottleneck.py", "requant.py", "fused_mlp.py",
             "elementwise.py", "ring_decode.py", "ops.py", "base.py",
             "gemma3_1b.py", "common.py", "transformer.py", "registry.py",
-            "engine.py", "spans.py"} <= names
+            "engine.py", "spans.py", "affine.py", "planner.py",
+            "graph_planner.py", "baselines.py", "rowsched.py", "pool.py",
+            "ir.py", "schedule.py", "netplan.py", "convert.py",
+            "qtensor.py", "lint.py", "verifier.py", "targets.py",
+            "artifact.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
             / "ring_decode.cu").exists()
     assert all(p.exists() for p in SOURCES)
@@ -104,6 +111,21 @@ out = ServingEngine(build_model(cfg), params, cache_len=48).generate(
 assert [len(o) for o in out] == [4, 4]
 with np.load(assets + "/gemma3-1b-smoke.golden.npz") as g:
     assert hold_lm_golden(build_model(cfg), params, dict(g))["ok"]
+cn = repro_torch.compile("ds-cnn", "cortex-m4")
+assert [p.name for p in cn.passes] == ["build", "schedule", "plan",
+                                       "budget", "quantize", "lint",
+                                       "certify"]
+assert cn.certificate["clobbers"] == 0 and cn.quantized
+y = cn.run(np.random.default_rng(0).standard_normal((49, 10), np.float32),
+           device="cpu")
+assert y.shape == (1, 12) and torch.isfinite(y).all()
+from repro_torch.compile.artifact import read_compile_inputs
+params, calib = read_compile_inputs(
+    assets + "/ds-cnn.cortex-m4.int8.compile.npz")
+cn = repro_torch.compile("ds-cnn", "cortex-m4", params=params, calib=calib)
+want = repro_torch.load(assets + "/ds-cnn.cortex-m4.int8.json")
+assert cn.program == want.program and cn.certificate == want.certificate
+assert cn.mcu == want.mcu
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
