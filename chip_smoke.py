@@ -139,9 +139,29 @@ Phases, one summary line each:
          params, and ``ds-cnn`` fp32 with ``streaming=True``: each
          program byte-identical to its asset's, then phase 3's checks
          (the golden's tolerance, 60 steps for the stream) with phase
-         3's launch counts exactly.
+         3's launch counts exactly;
+  6. the static verifier, lint and codegen (Slice F), on the host, then
+     the card:
+       * ``repro_torch.analysis.verify_program`` on each of the 13
+         committed plans (timed with its schedule cache empty, then
+         again warm): proven safe, with the certificate the artifact
+         stores, and ``lint_artifact`` clean;
+       * phase 5's three plans compiled again with ``certify="static"``:
+         a certify note that begins ``static proof``, the certificate
+         equal to phase 5's sim certificate and to the artifact's, then
+         run on the card under phase 3's golden checks and launch
+         counts; the static and the sim certify seconds side by side;
+       * MCUNet-5fps-VWW and ResNet-8 compiled for ``cortex-m4``
+         (planner-only) and their ``emit_c(geometry_only=True)`` units
+         byte-identical to ``tests/golden/vww/`` and
+         ``tests/golden/resnet8/``;
+       * ``python -m repro_torch.cli --smoke`` and ``python -m
+         repro_torch.analysis.cli --smoke`` as subprocesses, each exiting
+         0 on a host that has no JAX.
 
-Then one JSON line with every kernel (``{"kernels": [...]}``), the
+Then JSON lines with the paths' timings (``{"paths": ...}``), the
+compile seconds (``{"compile": ...}``), phase 6's record
+(``{"verify": ...}``) and every kernel (``{"kernels": [...]}``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Any mismatch, a failed build or launch, a missing card, or a run outside
 a checkout exits nonzero and prints no result.
@@ -216,6 +236,8 @@ SCALE_RTOL = 1e-5
 COMPILED_INT8_STEPS = 1
 #: A phase-5 path's label: its phase-3 twin's, with this suffix.
 COMPILED = "-compiled"
+#: A phase-6 path's label: its phase-5 twin's, with this suffix.
+STATIC = "-static"
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1776,9 +1798,12 @@ def time_lm(cfg, params) -> dict:
 
 def _compile_timed(*args, **kwargs):
     """``repro_torch.compile(*args, **kwargs)``, with its wall seconds
-    and each pass's, on the host."""
+    and each pass's, on the host; the static verifier's schedule cache is
+    emptied first, so a static proof is timed as in a fresh process."""
     import repro_torch
+    from repro_torch.analysis import verifier
 
+    verifier._SCHED_CACHE.clear()
     t0 = time.perf_counter()
     cn = repro_torch.compile(*args, **kwargs)
     total = time.perf_counter() - t0
@@ -1808,21 +1833,23 @@ def _same_counts(label: str, counts, want) -> None:
                          f"3's {want}")
 
 
-def path_compiled_int8(counts3, goldens) -> tuple[dict, dict]:
+def path_compiled_int8(counts3, goldens, certify,
+                       suffix) -> tuple[dict, dict, object]:
     """DS-CNN int8 compiled by the port from the reference's params and
-    calibration inputs, then run on the card."""
+    calibration inputs (certified by ``certify``), then run on the
+    card."""
     from repro_torch.compile import artifact as art
     from repro_torch.core.executors import run_program
     from repro_torch.graph.run import quantize_ops
     from repro_torch.quant.qtensor import QParams, quantize
 
     name = "ds-cnn"
-    label = name + COMPILED
+    label = name + suffix
     params, calib = art.read_compile_inputs(
         ASSETS / f"{name}.cortex-m4.int8.compile.npz")
     payload = art.load(artifact(name))
     cn, timing = _compile_timed(name, "cortex-m4", params=params,
-                                calib=calib)
+                                calib=calib, certify=certify)
     _same_plan(label, cn, payload)
     want_scales = np.asarray(payload["quant"]["act_scales"])
     rel = float((np.abs(np.asarray(cn.qnet.act_scales) - want_scales)
@@ -1885,38 +1912,40 @@ def path_compiled_int8(counts3, goldens) -> tuple[dict, dict]:
         f"bitwise on all {len(x)}, {err:.4g} ({steps} int8 step) from the "
         f"golden (one step {step:.4g})")
     timing.update(max_scale_rel=rel, golden_max_abs=err, golden_steps=steps)
-    return counts, timing
+    return counts, timing, cn
 
 
-def phase_compile(counts3, goldens) -> tuple[dict, dict]:
-    """Phase 5: the port compiles three plans on the host, the card runs
-    them.  Returns each compiled path's launch counts and timings."""
+def compile_and_run(counts3, goldens, certify: str,
+                    suffix: str) -> tuple[dict, dict, dict]:
+    """The port compiles phase 5's three plans on the host, certified by
+    ``certify``, and the card runs them.  Returns each compiled path's
+    launch counts, timings and net, by label (the phase-3 label and
+    ``suffix``)."""
     from repro_torch.compile import artifact as art
 
-    say("phase 5: repro_torch.compile on the host, then the card runs the "
-        "plans it compiled")
-    counts, timings = {}, {}
-    label = "ds-cnn" + COMPILED
-    counts[label], timings[label] = path_compiled_int8(counts3, goldens)
+    counts, timings, nets = {}, {}, {}
+    label = "ds-cnn" + suffix
+    counts[label], timings[label], nets[label] = path_compiled_int8(
+        counts3, goldens, certify, suffix)
 
     name = "mcunet-5fps-vww" + F32
-    label = name + COMPILED
+    label = name + suffix
     payload = art.load(artifact(name))
-    cn, timings[label] = _compile_timed(
-        "mcunet-5fps-vww", "host-sim",
+    nets[label], timings[label] = _compile_timed(
+        "mcunet-5fps-vww", "host-sim", certify=certify,
         params=art.decode(payload["params"]))
-    _same_plan(label, cn, payload)
-    counts[label] = path_serve_f32(label, cn, goldens[name])
+    _same_plan(label, nets[label], payload)
+    counts[label] = path_serve_f32(label, nets[label], goldens[name])
     _same_counts(label, counts[label], counts3[name])
 
     name = "ds-cnn-stream" + F32
-    label = name + COMPILED
+    label = name + suffix
     payload = art.load(artifact(name))
-    cn, timings[label] = _compile_timed(
-        "ds-cnn", "host-sim", streaming=True,
+    nets[label], timings[label] = _compile_timed(
+        "ds-cnn", "host-sim", streaming=True, certify=certify,
         params=art.decode(payload["params"]))
-    _same_plan(label, cn, payload)
-    counts[label] = path_stream_f32(label, cn, goldens[name])
+    _same_plan(label, nets[label], payload)
+    counts[label] = path_stream_f32(label, nets[label], goldens[name])
     _same_counts(label, counts[label], counts3[name])
 
     say(f"  compile seconds, host CPU time on the card's machine "
@@ -1924,7 +1953,132 @@ def phase_compile(counts3, goldens) -> tuple[dict, dict]:
     for label, t in timings.items():
         say(f"    {label}: {t['total_s']:.4f} s in all; "
             + ", ".join(f"{n} {sec:.4f}" for n, sec in t["passes"].items()))
-    return counts, timings
+    return counts, timings, nets
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the static proof, lint and C on the host, then the card.
+# ---------------------------------------------------------------------------
+
+def verify_assets() -> dict:
+    """(a) Every committed plan proven safe with the certificate it
+    stores, and linted clean; the proof timed with the verifier's
+    schedule cache empty (as in a fresh process), then warm."""
+    from repro_torch.analysis import lint_artifact, verifier, verify_program
+    from repro_torch.compile import artifact as art
+    from repro_torch.core.program import PoolProgram
+
+    out = {}
+    for path in sorted(ASSETS.glob("*.json")):
+        payload = art.load(path)
+        program = PoolProgram.from_json_dict(payload["program"])
+        verifier._SCHED_CACHE.clear()
+        t0 = time.perf_counter()
+        res = verify_program(program)
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        verify_program(program)
+        warm = time.perf_counter() - t0
+        cert = payload["certificate"]
+        if res.safe is not True \
+                or res.certificate(cert["program_sha256"]) != cert:
+            raise SystemExit(f"{path.name}: the static proof gives "
+                             f"{res.safe} {res.diagnostics[:1]}, not the "
+                             "artifact's certificate")
+        t0 = time.perf_counter()
+        rep = lint_artifact(str(path))
+        lint_s = time.perf_counter() - t0
+        if not rep.clean or rep.result.safe is not True:
+            raise SystemExit(f"{path.name}: lint is not clean: "
+                             f"{[str(d) for d in rep.result.diagnostics]}")
+        out[path.stem] = {"ops": len(program.ops), "verify_cold_s": cold,
+                          "verify_warm_s": warm, "lint_s": lint_s}
+        say(f"  {path.stem}: proven safe, certificate equal to the "
+            f"artifact's, lint clean ({len(program.ops)} ops; verify "
+            f"{cold:.5f} s cold, {warm:.5f} s warm; lint {lint_s:.5f} s)")
+    return out
+
+
+def golden_units() -> dict:
+    """(c) VWW's and ResNet-8's ring-geometry C equal to the goldens."""
+    import repro_torch
+
+    out = {}
+    for net, name in (("mcunet-5fps-vww", "vww"), ("resnet-8", "resnet8")):
+        t0 = time.perf_counter()
+        cn = repro_torch.compile(net, "cortex-m4", quantize=False,
+                                 certify=False)
+        units = cn.emit_c(geometry_only=True, name=name)
+        secs = time.perf_counter() - t0
+        golden = ROOT / "tests" / "golden" / name
+        want = {p.name: p.read_text() for p in golden.glob("*.c")}
+        if units != want:
+            bad = sorted(n for n in set(units) | set(want)
+                         if units.get(n) != want.get(n))
+            raise SystemExit(f"{name}: emitted C differs from "
+                             f"tests/golden/{name}/ in {bad}")
+        out[name] = {"units": len(units), "compile_and_emit_s": secs}
+        say(f"  {name}: {len(units)} geometry-only units byte-identical to "
+            f"tests/golden/{name}/ ({secs:.4f} s to compile and emit)")
+    return out
+
+
+def cli_smokes() -> dict:
+    """(d) Both command lines' ``--smoke`` as subprocesses, on a host with
+    no JAX."""
+    import os
+
+    out = {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for module in ("repro_torch.cli", "repro_torch.analysis.cli"):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", module, "--smoke"],
+                             cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise SystemExit(f"python -m {module} --smoke exited "
+                             f"{run.returncode}: {run.stderr[-2000:]}")
+        last = run.stdout.strip().splitlines()[-1]
+        out[module] = {"rc": run.returncode, "s": secs, "last": last}
+        say(f"  python -m {module} --smoke: exit 0 in {secs:.2f} s "
+            f"({last!r})")
+    return out
+
+
+def phase_static(counts3, goldens, sim_nets, sim_timings):
+    """Phase 6: the static proof, lint, C and both command lines on the
+    host, then phase 5's three plans compiled with ``certify="static"``
+    and run on the card.  Returns the compiled paths' launch counts and
+    the ``verify`` record."""
+    say("phase 6: the static verifier, lint and codegen on the host, then "
+        "the card runs the statically certified plans")
+    record = {"assets": verify_assets()}
+    counts, timings, nets = compile_and_run(counts3, goldens, "static",
+                                            COMPILED + STATIC)
+    certify = {}
+    for label, cn in nets.items():
+        sim_label = label[:-len(STATIC)]
+        note = next(p.note for p in cn.passes if p.name == "certify")
+        if not note.startswith("static proof"):
+            raise SystemExit(f"{label}: the certify pass fell back: {note}")
+        if cn.certificate != sim_nets[sim_label].certificate:
+            raise SystemExit(f"{label}: the static certificate differs from "
+                             "phase 5's sim certificate")
+        certify[sim_label] = {
+            "static_s": timings[label]["passes"]["certify"],
+            "sim_s": sim_timings[sim_label]["passes"]["certify"],
+            "static_total_s": timings[label]["total_s"],
+            "sim_total_s": sim_timings[sim_label]["total_s"]}
+    say(f"  certify seconds, host CPU time on the card's machine "
+        f"({nvidia_smi_line()}):")
+    for label, t in certify.items():
+        say(f"    {label}: static {t['static_s']:.5f} s, sim "
+            f"{t['sim_s']:.5f} s")
+    record["certify"] = certify
+    record["golden_c"] = golden_units()
+    record["cli"] = cli_smokes()
+    return counts, record
 
 
 def main() -> None:
@@ -2016,12 +2170,19 @@ def main() -> None:
         lm_cfg, max(LM_PROMPT_LENS) + LM_MAX_NEW // 2, counts[LM],
         decode_err))
 
-    compiled, compile_timings = phase_compile(counts, goldens)
+    say("phase 5: repro_torch.compile on the host, then the card runs the "
+        "plans it compiled")
+    compiled, compile_timings, compiled_nets = compile_and_run(
+        counts, goldens, "sim", COMPILED)
+    static, verify_record = phase_static(counts, goldens, compiled_nets,
+                                         compile_timings)
     for row in rows:
         row["launches"] += sum(c[row["name"]] for c in compiled.values())
+        row["launches"] += sum(c[row["name"]] for c in static.values())
 
     say(json.dumps({"paths": paths}))
     say(json.dumps({"compile": compile_timings}))
+    say(json.dumps({"verify": verify_record}))
     say(json.dumps({"kernels": rows}))
     say(nvidia_smi_line())
     say(json.dumps({"ok": True, "device": {

@@ -13,15 +13,17 @@ Python, numpy and PyTorch on the host, with no JAX:
   ``quantize``  int8 calibration + requant tables (int8 targets),
   ``lint``      budget/consistency findings (VMCU3xx/4xx — errors
                 abort, warnings ride in the note),
-  ``certify``   prove the plan clobber-free by replaying it through the
-                SegmentPool sim oracle.
+  ``certify``   prove the plan clobber-free: replay it through the
+                SegmentPool sim oracle (``"sim"``), or prove it
+                statically (``"static"``, :mod:`repro_torch.analysis
+                .verifier`; outside the verifier's decidable fragment
+                the pass falls back to the sim oracle and says so).
 
-Every plan, certificate and ``mcu`` summary it writes is the
-reference's, byte for byte.  What this slice refuses, with a
-``NotImplementedError`` naming its slice of the port: ``partial``
-other than ``"off"`` and the lint pass's partial-execution estimate
-(Slice G), ``certify="static"`` and :meth:`CompiledNet.emit_c`
-(Slice F).
+Every plan, certificate, ``mcu`` summary and emitted C unit
+(:meth:`CompiledNet.emit_c`) it writes is the reference's, byte for
+byte.  What it refuses, with a ``NotImplementedError`` naming Slice G
+(partial execution): ``partial`` other than ``"off"`` and the lint
+pass's partial-execution estimate.
 
 The result is a :class:`CompiledNet`, which is also what :func:`load`
 returns for a saved plan artifact (loading never re-runs the planner,
@@ -43,9 +45,9 @@ from __future__ import annotations
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
+from ..core.codegen import emit_program
 from ..core.program import PoolProgram, dtype_itemsize
 from ..graph.ir import (Graph, build_ad_autoencoder, build_ds_cnn,
                         build_mcunet, build_mobilenet_v1, build_resnet8)
@@ -207,7 +209,9 @@ class CompiledNet:
     float net its fp32 ``params`` and no ``qnet``; both hold numpy
     arrays, which :meth:`run` copies to each device it runs on, once.
     ``plan``/``graph`` carry the NetPlan and IR of an in-process compile
-    and are ``None`` after :meth:`load`."""
+    and are ``None`` after :meth:`load`.  The device copies are a cache
+    of this net's own tables: ``dataclasses.replace`` starts the new net
+    with none, and equality ignores them."""
 
     net_name: str
     target: Target
@@ -223,7 +227,8 @@ class CompiledNet:
     graph: Graph | None = None
     init_key: object = None    # seed or generator for lazy param init
     spans: list | None = None  # nested timed pipeline spans (obs.spans)
-    _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
+    _on_device: dict = dataclasses.field(default_factory=dict, init=False,
+                                         repr=False, compare=False)
 
     @property
     def quantized(self) -> bool:
@@ -339,11 +344,44 @@ class CompiledNet:
 
         return StreamSession(self, device, backend=backend, trace=trace)
 
-    def emit_c(self, *args, **kwargs):
-        """Intrinsic-C emission is not ported yet."""
-        raise NotImplementedError(
-            "emit_c is not ported yet: the C code generator comes with "
-            "Slice F (the verifier, lint and codegen)")
+    def emit_c(self, outdir=None, *, name: str | None = None,
+               geometry_only: bool = False,
+               idiom: str | None = _UNSET) -> dict[str, str]:
+        """Emit one intrinsic-C unit per op (``{filename: source}``).
+
+        Quantized nets bake their requant tables in (from the host numpy
+        ``qnet.qparams``); ``geometry_only`` emits just the solved ring
+        skeleton (byte-typed pool header, no requant constants — the
+        deterministic form the CLI smoke gate diffs against goldens).
+        ``idiom`` defaults to the target's requant idiom banner.
+        ``outdir`` additionally writes the files.
+        """
+        if idiom is _UNSET:
+            idiom = (self.target.requant_idiom
+                     if self.target.requant_idiom != "none" else None)
+        name = name or self.net_name
+        if geometry_only or not self.quantized:
+            if not geometry_only and self.program.quantized:
+                raise CompileError(
+                    "this is a planner-only int8 compile (quantize="
+                    "False): no requant tables to bake — recompile with "
+                    "quantize=True, or pass geometry_only=True for the "
+                    "ring skeleton")
+            prog = (self.program.with_dtype("byte") if geometry_only
+                    else self.program)
+            units = emit_program(prog, name, idiom=idiom)
+        else:
+            units = emit_program(self.qnet.program, name,
+                                 quant=_to_host(self.qnet.qparams),
+                                 idiom=idiom)
+        if outdir is not None:
+            import pathlib
+
+            out = pathlib.Path(outdir)
+            out.mkdir(parents=True, exist_ok=True)
+            for fname, src in units.items():
+                (out / fname).write_text(src)
+        return units
 
     def report(self) -> dict:
         """Footprint / bottleneck accounting against the target budget."""
@@ -519,15 +557,18 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
     calibration's forward runs on the CPU in float32, where the
     reference's runs.  ``quantize=False`` plans an int8 ring without
     calibrating (planner-only, ``.run`` unavailable); ``certify`` is
-    ``True``/``"sim"`` (replay the SegmentPool clobber oracle) or
-    ``False`` (skip); ``lint=False`` skips the VMCU3xx/4xx lint pass;
-    ``check_budget=False`` records the SRAM verdict without raising
-    :class:`SRAMBudgetError`.
+    ``True``/``"sim"`` (replay the SegmentPool clobber oracle),
+    ``"static"`` (prove the plan with
+    :func:`repro_torch.analysis.verify_program`: an unsafe plan raises
+    :class:`CompileError`, and a plan outside the proof's fragment is
+    replayed through the sim oracle, its pass note starting
+    ``sim fallback (VMCU105)``) or ``False`` (skip); ``lint=False``
+    skips the VMCU3xx/4xx lint pass; ``check_budget=False`` records the
+    SRAM verdict without raising :class:`SRAMBudgetError`.
 
-    Not ported yet, and refused with ``NotImplementedError``:
-    ``partial`` other than ``"off"`` and the lint pass's estimate of
-    partial execution on an over-budget net (Slice G), and
-    ``certify="static"`` (Slice F).
+    Not ported yet, and refused with ``NotImplementedError`` naming
+    Slice G: ``partial`` other than ``"off"`` and the lint pass's
+    estimate of partial execution on an over-budget net.
     """
     if certify not in (True, False, "sim", "static"):
         raise ValueError(f"certify must be True/False/'sim'/'static', "
@@ -540,11 +581,6 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
             f"partial={partial!r} is not ported yet: partial execution "
             "comes with Slice G (partial execution, streaming and "
             "telemetry)")
-    if certify == "static":
-        raise NotImplementedError(
-            "certify='static' is not ported yet: the static verifier "
-            "comes with Slice F (the verifier, lint and codegen); "
-            "certify='sim' replays the plan through the sim oracle")
     t = get_target(target)
     dtype = dtype or t.default_dtype
     dtype_itemsize(dtype)  # fail fast on unknown dtypes
@@ -697,6 +733,20 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
     certificate = None
     if certify:
         def _certify():
+            note = ""
+            if certify == "static":
+                from ..analysis import verify_program
+
+                res = verify_program(program)
+                if res.safe is False:
+                    raise CompileError(f"certify: {res.diagnostics[0]}")
+                if res.safe:
+                    cert = res.certificate(
+                        artifact.program_sha256(program))
+                    return cert, (f"static proof: zero clobbers; peak "
+                                  f"{cert['peak_live']}/"
+                                  f"{program.n_segments} segments live")
+                note = f"sim fallback ({res.diagnostics[0].code}); "
             sim = certify_net(program)
             cert = {"clobbers": 0, "peak_live": sim.peak_live,
                     "reads": sim.reads, "writes": sim.writes,
@@ -712,7 +762,7 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
                 cert["stream_horizon"] = (
                     "unbounded" if sim.live == state_total
                     + program.ops[-1].out_segments else 1)
-            return cert, (f"zero clobbers; peak {sim.peak_live}/"
+            return cert, (f"{note}zero clobbers; peak {sim.peak_live}/"
                           f"{program.n_segments} segments live")
         certificate = run_pass("certify", _certify)
 

@@ -15,8 +15,12 @@
     with ``-s``), ``quantize_ops`` on the reference's scales equal to
     its qparams bitwise, and ``save()`` writing the reference's payload
     key for key but for seconds.
-  * What this slice refuses (``partial``, ``certify="static"``,
-    ``emit_c``) raises ``NotImplementedError`` naming its slice.
+  * What the port does not have yet (``partial``) raises
+    ``NotImplementedError`` naming its slice; ``certify="static"`` and
+    ``emit_c`` run (``tests/test_torch_verifier.py`` and
+    ``tests/test_torch_codegen.py`` hold them against the reference).
+  * A net made by ``dataclasses.replace`` with new params or qparams
+    runs with them, not with the device copies of the net it came from.
 """
 import dataclasses
 import json
@@ -211,11 +215,13 @@ def test_what_this_slice_does_not_port_is_refused_by_name():
     for partial in ("auto", 2):
         with pytest.raises(NotImplementedError, match="Slice G"):
             repro_torch.compile("ds-cnn", "cortex-m4", partial=partial)
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        repro_torch.compile("ds-cnn", "cortex-m4", certify="static")
-    cn = repro_torch.compile("ds-cnn", "cortex-m4", quantize=False)
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        cn.emit_c()
+    cn = repro_torch.compile("ds-cnn", "cortex-m4", quantize=False,
+                             certify="static")
+    assert next(p.note for p in cn.passes if p.name == "certify") \
+        .startswith("static proof")
+    units = cn.emit_c(geometry_only=True)
+    assert len(units) == len(cn.program.ops)
+    assert all(name.startswith("ds-cnn_op") for name in units)
 
 
 def test_bad_arguments_are_refused_as_by_the_reference():
@@ -404,3 +410,62 @@ def test_saved_int8_compiles_load_in_the_port(calibrated, tmp_path):
     x = np.random.default_rng(0).standard_normal((32 * 32, 3), np.float32)
     assert torch.equal(back.run(x, device="cpu"), port.run(x, device="cpu"))
     assert back.report()["flash_bytes_used"] == port.flash_bytes_used
+
+
+# ---------------------------------------------------------------------------
+# A replaced net runs with its own tables.
+# ---------------------------------------------------------------------------
+
+def _fresh(cn):
+    """A net built anew from ``cn``'s fields (no device copies)."""
+    return repro_torch.CompiledNet(**{
+        f.name: getattr(cn, f.name)
+        for f in dataclasses.fields(repro_torch.CompiledNet) if f.init})
+
+
+def test_a_float_net_with_replaced_params_runs_them():
+    cn = repro_torch.load(str(ASSETS / "ds-cnn.host-sim.float32.json"))
+    x = np.random.default_rng(0).standard_normal((2, 49, 10), np.float32)
+    first = cn.run(x, device="cpu")
+    halved = [None if e is None else tuple(
+        None if a is None else a * np.float32(0.5) for a in e)
+        for e in cn.params]
+    new = dataclasses.replace(cn, params=halved)
+    second = new.run(x, device="cpu")
+    assert torch.equal(second, _fresh(new).run(x, device="cpu"))
+    assert not torch.equal(second, first)
+    assert torch.equal(cn.run(x, device="cpu"), first)
+
+
+def test_an_int8_net_with_replaced_qparams_runs_them(calibrated):
+    """The port-calibrated DS-CNN, then the same net with the tables of
+    twice its activation scales."""
+    _ref, port = calibrated["ds-cnn"]
+    x = np.random.default_rng(1).standard_normal((2, 49, 10), np.float32)
+    first = port.run(x, device="cpu")
+    scales = tuple(2 * s for s in port.qnet.act_scales)
+    qnet = dataclasses.replace(
+        port.qnet, act_scales=scales,
+        qparams=quantize_ops(port.plan, port.params, scales))
+    new = dataclasses.replace(port, qnet=qnet)
+    second = new.run(x, device="cpu")
+    assert torch.equal(second, _fresh(new).run(x, device="cpu"))
+    assert not torch.equal(second, first)
+
+
+def test_a_replaced_stream_steps_with_its_own_params():
+    cn = repro_torch.load(str(ASSETS / "ds-cnn-stream.host-sim.float32.json"))
+    frames = np.random.default_rng(2).standard_normal((4, 1, 10),
+                                                      np.float32)
+
+    def steps(net):
+        s = net.stream(device="cpu")
+        return torch.stack([s.step(torch.from_numpy(f)) for f in frames])
+    first = steps(cn)
+    doubled = [None if e is None else tuple(
+        None if a is None else a * np.float32(2) for a in e)
+        for e in cn.params]
+    new = dataclasses.replace(cn, params=doubled)
+    second = steps(new)
+    assert torch.equal(second, steps(_fresh(new)))
+    assert not torch.equal(second, first)

@@ -643,3 +643,59 @@ def test_port_compiled_fp32_stream_runs_on_card():
         np.testing.assert_allclose(y.cpu().numpy(), golden["y"][i],
                                    rtol=RTOL, atol=ATOL_REL * scale,
                                    err_msg=f"step {i}")
+
+
+def _counted_outputs(net, x, stream: bool):
+    """``net``'s outputs on ``x`` (run, or stream step by step) on the
+    card, and the launches they took."""
+    reset_launch_counts()
+    if stream:
+        s = net.stream()
+        y = torch.stack([s.step(torch.from_numpy(f).cuda()) for f in x])
+    else:
+        y = net.run(x)
+    torch.cuda.synchronize()
+    return {k: n for k, n in launch_counts().items() if n}, y.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ds-cnn", "mcunet-5fps-vww",
+                                  "ds-cnn-stream"])
+def test_statically_certified_compiles_run_on_card(name):
+    """The three plans the port compiles on the card's host, certified
+    with ``certify="static"``: a static proof with the committed
+    artifact's program and certificate, then, on the card, the launches
+    of the artifact's plan and outputs within the golden's tolerance
+    (DS-CNN int8: one int8 step of the output scale)."""
+    _need_card()
+    from repro_torch import compile as port_compile
+    from repro_torch.compile.artifact import (decode, load as load_payload,
+                                              read_compile_inputs)
+
+    stream = name == "ds-cnn-stream"
+    if name == "ds-cnn":
+        params, calib = read_compile_inputs(
+            ASSETS / "ds-cnn.cortex-m4.int8.compile.npz")
+        cn = port_compile("ds-cnn", "cortex-m4", params=params, calib=calib,
+                          certify="static")
+        loaded, golden = load(_artifact(name)), _golden(name)
+    else:
+        payload = load_payload(_float_artifact(name))
+        cn = port_compile("ds-cnn" if stream else name, "host-sim",
+                          streaming=stream, certify="static",
+                          params=decode(payload["params"]))
+        loaded, golden = load(_float_artifact(name)), _float_golden(name)
+    note = next(p.note for p in cn.passes if p.name == "certify")
+    assert note.startswith("static proof"), note
+    assert cn.program == loaded.program
+    assert cn.certificate == loaded.certificate
+    want_counts, _ = _counted_outputs(loaded, golden["x"], stream)
+    counts, y = _counted_outputs(cn, golden["x"], stream)
+    assert counts == want_counts
+    if name == "ds-cnn":
+        step = cn.qnet.out_scale
+        assert np.abs(y - golden["y"]).max() <= step * (1 + 1e-4)
+    else:
+        scale = float(np.abs(golden["y"]).max())
+        np.testing.assert_allclose(y, golden["y"], rtol=RTOL,
+                                   atol=ATOL_REL * scale)

@@ -1,9 +1,10 @@
 """``repro_torch``, ``chip_smoke.py`` and ``tools/chip_ab.py`` stand alone:
 they import neither JAX nor anything of the reference package ``repro``,
 by the source and in a run with both blocked — in which the port also
-compiles DS-CNN for the M4 with its default passes, runs the result, and
-compiles the committed plan from the reference's params and
-calibration inputs."""
+compiles DS-CNN for the M4 with its default passes, runs the result,
+compiles the committed plan from the reference's params and calibration
+inputs, proves VWW's plan statically, emits its C, and runs both of its
+command lines' ``--smoke`` gates."""
 import ast
 import os
 import pathlib
@@ -44,7 +45,11 @@ def test_sources_exist():
             "graph_planner.py", "baselines.py", "rowsched.py", "pool.py",
             "ir.py", "schedule.py", "netplan.py", "convert.py",
             "qtensor.py", "lint.py", "verifier.py", "targets.py",
-            "artifact.py"} <= names
+            "artifact.py", "intervals.py", "mutate.py", "codegen.py",
+            "cli.py"} <= names
+    src = ROOT / "src" / "repro_torch"
+    assert (src / "cli.py").exists()
+    assert (src / "analysis" / "cli.py").exists()
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
             / "ring_decode.cu").exists()
     assert all(p.exists() for p in SOURCES)
@@ -126,12 +131,25 @@ cn = repro_torch.compile("ds-cnn", "cortex-m4", params=params, calib=calib)
 want = repro_torch.load(assets + "/ds-cnn.cortex-m4.int8.json")
 assert cn.program == want.program and cn.certificate == want.certificate
 assert cn.mcu == want.mcu
+cn = repro_torch.compile("mcunet-5fps-vww", "cortex-m4", quantize=False,
+                         certify="static")
+assert cn.passes[-1].note.startswith("static proof")
+units = cn.emit_c(geometry_only=True, name="vww")
+golden = {str(ROOT / "tests" / "golden" / "vww")!r}
+import pathlib
+assert units == {{p.name: p.read_text()
+                 for p in pathlib.Path(golden).glob("*.c")}}
+from repro_torch.analysis.cli import main as lint_main
+from repro_torch.cli import main as compile_main
+assert compile_main(["--smoke"]) == 0
+assert lint_main(["--smoke"]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
