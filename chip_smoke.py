@@ -15,8 +15,9 @@ Phases, one summary line each:
      started together (time and the ``-Xptxas -v`` lines);
   2. every hand-written kernel against its plain PyTorch version on the
      card, with TF32 off: the eight int8 kernels bitwise, on every op of
-     the six committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
-     ToyADMOS, the DS-CNN stream and the GRU chain) and on the int8 edge
+     the seven committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
+     ToyADMOS, the sliced MCUNet-320KB-ImageNet, the DS-CNN stream and
+     the GRU chain) and on the int8 edge
      cases of ``repro_torch.kernels.cases`` (``CARD_EDGE_CASES``' 8,385-row
      shifted add among them); the eleven fp32 kernels
      within the tolerance of ``cases.compare_f32`` (channel tails and
@@ -53,6 +54,7 @@ Phases, one summary line each:
      ``ring_fused_mlp``
      call, the CTAs, row blocks and d_ff sub-tiles of its first kernel and
      its scratch bytes (``fused_mlp.mlp_tiling``);
+     the sliced plan's 31 window reads, each with its base, CTAs and mode;
      then ``ring_decode_attention`` against its plain version on every
      case of ``cases.DECODE_CASES`` (fp32 within 2e-5, bf16 within one
      bf16 ulp of the output's scale), with each case's splits and CTAs
@@ -64,6 +66,11 @@ Phases, one summary line each:
          inputs, batched and one by one; float outputs, int8 outputs and
          final-pool sha256 equal the golden that the reference wrote
          (ToyADMOS: exactly 10 ``ring_gemm_q`` launches an inference);
+       * the same on the sliced MCUNet-320KB-ImageNet plan (the
+         reference's ``partial="auto"`` compile for cortex-m4, 158 ops)
+         for its 2 golden inputs, at exactly 98 ``ring_conv_pw_q``, 48
+         ``ring_conv_dw_q``, 10 ``ring_add_q``, 1 ``ring_avgpool_q`` and 1
+         ``ring_gemm_q`` launches an inference;
        * the same on the fp32 DS-CNN, ResNet-8, MCUNet-5fps-VWW and
          ToyADMOS: outputs within the tolerance of the reference's golden
          and of the plain ``reference_forward``, each final pool within
@@ -142,7 +149,7 @@ Phases, one summary line each:
          3's launch counts exactly;
   6. the static verifier, lint and codegen (Slice F), on the host, then
      the card:
-       * ``repro_torch.analysis.verify_program`` on each of the 13
+       * ``repro_torch.analysis.verify_program`` on each of the 14
          committed plans (timed with its schedule cache empty, then
          again warm): proven safe, with the certificate the artifact
          stores, and ``lint_artifact`` clean;
@@ -157,11 +164,30 @@ Phases, one summary line each:
          ``tests/golden/resnet8/``;
        * ``python -m repro_torch.cli --smoke`` and ``python -m
          repro_torch.analysis.cli --smoke`` as subprocesses, each exiting
-         0 on a host that has no JAX.
+         0 on a host that has no JAX;
+  7. partial execution on the host: ``repro_torch.compile(
+     "mcunet-320kb-imagenet", "cortex-m4", partial="auto",
+     quantize=False, certify="static")`` with each pass's seconds, its
+     program, partial summary (36 slices, ring 196,416 -> 125,312 B),
+     certificate (0 clobbers) and ``mcu`` equal to the sliced asset's;
+     then CI's partial smoke through the port's command line
+     (``python -m repro_torch.cli mcunet-320kb-imagenet --target
+     cortex-m7 --dtype int8 --partial auto --no-quantize --certify
+     static``) as a subprocess, exit 0;
+  8. traces on the card: ``run(x, trace=True)`` on DS-CNN int8, VWW fp32
+     and the sliced plan, each bitwise the untraced run, its byte totals
+     the certificate's reads and writes, its watermark ``pool_bytes``,
+     its canonical form the CPU's, a wall time for every op (CUDA
+     events), their sum printed beside phase 4's card time of the path;
+     a traced 60-frame DS-CNN int8 stream whose counters after N steps
+     are init + N·step, as the sim oracle counts; and ``python -m
+     repro_torch.obs.cli --smoke`` in a temporary directory, exit 0.
 
 Then JSON lines with the paths' timings (``{"paths": ...}``), the
 compile seconds (``{"compile": ...}``), phase 6's record
-(``{"verify": ...}``) and every kernel (``{"kernels": [...]}``), the
+(``{"verify": ...}``), phase 7's and 8's (``{"partial": ...}``,
+``{"traces": ...}``) and every kernel (``{"kernels": [...]}``, its
+launches those of phases 3, 5, 6 and 8), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Any mismatch, a failed build or launch, a missing card, or a run outside
 a checkout exits nonzero and prints no result.
@@ -183,9 +209,12 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 ASSETS = ROOT / "src" / "repro_torch" / "assets"
 CSRC = "src/repro_torch/kernels/csrc"
+#: The sliced (partial-execution) int8 plan: MCUNet-320KB-ImageNet for
+#: the M4 with ``partial="auto"``, served by ``run`` beside the others.
+SLICED = "mcunet-320kb-imagenet-sliced"
 #: Plans served by ``run`` (int8 and fp32) and plans stepped by ``stream``.
-NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
-FLOAT_NETS = NETS
+NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos", SLICED)
+FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 FLOAT_STREAMS = STREAMS
 #: fp32 plans whose artifact holds no weights: ``mlp_tower_params`` of
@@ -259,6 +288,8 @@ def nvidia_smi_line() -> str:
 
 def _asset(label: str) -> str:
     """The asset stem of a path label."""
+    if label == SLICED:
+        return "mcunet-320kb-imagenet.cortex-m4.int8.sliced"
     if label.endswith(F32):
         return f"{label.removesuffix(F32)}.host-sim.float32"
     return f"{label}.cortex-m4.int8"
@@ -743,7 +774,7 @@ def path_serve(name: str, cn, golden) -> dict[str, int]:
             raise SystemExit(f"{name}: final pool {i} differs from the "
                              "golden")
     say(f"  {name}: {tuple(out['batch'].shape)} float outputs, int8 outputs "
-        "and final-pool sha256 equal the golden on all 8")
+        f"and final-pool sha256 equal the golden on all {len(x)}")
     return counts
 
 
@@ -758,6 +789,8 @@ def _within(got: np.ndarray, want: np.ndarray) -> bool:
 #: Launches per inference that a path must make exactly, per kernel.
 LAUNCHES_PER_INFERENCE = {
     "ad-toyadmos": {"ring_gemm_q": 10},
+    SLICED: {"ring_conv_pw_q": 98, "ring_conv_dw_q": 48, "ring_add_q": 10,
+             "ring_avgpool_q": 1, "ring_gemm_q": 1},
     "ad-toyadmos" + F32: {"ring_gemm": 10},
     "whisper-tiny-mlp" + F32: {"ring_fused_mlp": 4, "ring_elementwise": 1},
 }
@@ -1472,6 +1505,7 @@ def phase_timing(served, streamed, cases, counts, errs, goldens):
                                  zip(KERNEL_SYMBOLS[name], prof_parts[name]))
                     + " us a launch")
         by_path[label] = {"latency_ms": lat, "device_busy": busy,
+                          "call_us": call_us,
                           "kernels": t}
     rows = []
     for name in KERNELS:
@@ -2081,6 +2115,211 @@ def phase_static(counts3, goldens, sim_nets, sim_timings):
     return counts, record
 
 
+# ---------------------------------------------------------------------------
+# Phase 2's window reads, phase 7 (partial execution on the host) and
+# phase 8 (traces on the card).
+# ---------------------------------------------------------------------------
+
+#: A phase-8 path's label: its phase-3 twin's, with this suffix.
+TRACED = "-traced"
+#: The paths phase 8 traces (their phase-3 labels).
+TRACED_PATHS = ("ds-cnn", "mcunet-5fps-vww" + F32, SLICED)
+#: CI's partial-execution smoke, run by the port's command line.
+CI_PARTIAL = ("mcunet-320kb-imagenet", "--target", "cortex-m7", "--dtype",
+              "int8", "--partial", "auto", "--no-quantize", "--certify",
+              "static")
+
+
+def window_ops(cn) -> list[str]:
+    """Each op of ``cn`` that reads a window of a held source
+    (``in_row0``): its base (the source's pointer advanced ``in_row0``
+    image rows; the kernel takes it modulo the ring), its CTAs and its
+    mode, and the shared record it writes into."""
+    from repro_torch.core.executors import op_kernel_call
+    from repro_torch.kernels.conv2d import conv_tiling
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    prog = cn.program
+    lines = []
+    for i, (op, p) in enumerate(zip(prog.ops, params_of(cn))):
+        if not op.in_row0:
+            continue
+        name, _, kw = op_kernel_call(
+            prog, op, p, kernel_block_rows=cn.target.kernel_block_rows)
+        t = conv_tiling(name, kw, n_sm)
+        base = kw["in_ptr"]
+        lines.append(f"op {i} {name}: rows {op.in_row0}.."
+                     f"{op.in_row0 + op.h_in} of {op.h_src}, base {base}"
+                     + (f" (past the ring: {base % prog.n_segments})"
+                        if base >= prog.n_segments else "")
+                     + f", {t.ctas} CTAs, read first under a grid barrier"
+                     + (f", into op {op.out_op}'s record at row "
+                        f"{op.out_row0}" if op.out_op >= 0 else ""))
+    return lines
+
+
+def phase_partial() -> dict:
+    """Phase 7: the port's partial pass on the card machine's host — the
+    sliced ImageNet compile equal to the committed asset's plan, then CI's
+    partial smoke through the port's command line."""
+    import os
+
+    from repro_torch.compile import artifact as art
+
+    say("phase 7: partial execution, compiled on the card machine's host")
+    payload = art.load(artifact(SLICED))
+    cn, timing = _compile_timed("mcunet-320kb-imagenet", "cortex-m4",
+                                partial="auto", quantize=False,
+                                certify="static")
+    for key, have in (("program", cn.program.to_json_dict()),
+                      ("partial", cn.partial),
+                      ("certificate", cn.certificate), ("mcu", cn.mcu)):
+        if have != payload[key]:
+            raise SystemExit(f"phase 7: the compiled {key} differs from the "
+                             "sliced asset's")
+    if cn.certificate["clobbers"] != 0:
+        raise SystemExit("phase 7: the sliced plan's certificate shows "
+                         "clobbers")
+    s = cn.partial
+    say(f"  mcunet-320kb-imagenet cortex-m4 partial='auto': "
+        f"{s['n_sliced_groups']} groups, {s['total_slices']} slices, ring "
+        f"{s['ring_bytes_before']} -> {s['ring_bytes_after']} B, "
+        f"+{s['mac_overhead']:.4%} MACs, {len(cn.program.ops)} ops; "
+        "program, partial summary, certificate (0 clobbers) and mcu equal "
+        "the sliced asset's")
+    say(f"  compile seconds, host CPU time ({nvidia_smi_line()}): "
+        f"{timing['total_s']:.4f} s in all; "
+        + ", ".join(f"{n} {sec:.4f}" for n, sec in timing["passes"].items()))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.cli",
+                          *CI_PARTIAL], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise SystemExit(f"python -m repro_torch.cli {' '.join(CI_PARTIAL)} "
+                         f"exited {run.returncode}: {run.stderr[-2000:]}")
+    say(f"  python -m repro_torch.cli {' '.join(CI_PARTIAL)}: exit 0 in "
+        f"{secs:.2f} s")
+    return {"compile": timing, "summary": {k: v for k, v in s.items()
+                                           if k not in ("parents", "groups")},
+            "cli_s": secs}
+
+
+def _trace_path(label: str, cn, x, paths) -> tuple[dict, dict]:
+    """``run(x, trace=True)`` on the card against the untraced run, the
+    certificate, the ring and the CPU's trace."""
+    y = cn.run(x)
+    out = {}
+    counts = _counted(f"{label} traced run", cn, 1, "inference",
+                      lambda: out.update(r=cn.run(x, trace=True)))
+    y_t, art = out["r"]
+    if not torch.equal(y_t, y):
+        raise SystemExit(f"{label}: the traced output differs from the "
+                         "untraced one")
+    prog, cert = cn.program, cn.certificate
+    seg_bytes = prog.seg_width * prog.elem_bytes
+    t = art.totals
+    if (t["bytes_loaded"], t["bytes_stored"]) != \
+            (cert["reads"] * seg_bytes, cert["writes"] * seg_bytes):
+        raise SystemExit(f"{label}: traced traffic {t['bytes_loaded']} / "
+                         f"{t['bytes_stored']} B is not the certificate's")
+    if art.watermark_bytes != prog.pool_bytes \
+            or art.backend != DEVICE_TYPE:
+        raise SystemExit(f"{label}: watermark {art.watermark_bytes} B, "
+                         f"backend {art.backend}")
+    _, cpu = cn.run(x.cpu(), device="cpu", trace=True)
+    if dict(art.canonical(), backend=None) != \
+            dict(cpu.canonical(), backend=None):
+        raise SystemExit(f"{label}: the card's trace differs from the CPU's")
+    walls = [e["wall_us"] for e in art.events
+             if 0 <= e["index"] < len(prog.ops)]
+    if len(walls) != len(prog.ops) or min(walls) <= 0:
+        raise SystemExit(f"{label}: an op has no wall time")
+    p = paths[label]
+    card_us = None if p["device_busy"] is None \
+        else p["device_busy"] * p["call_us"]
+    say(f"  {label}: traced output bitwise the untraced one; "
+        f"{t['bytes_loaded']} B loaded / {t['bytes_stored']} B stored = the "
+        f"certificate's {cert['reads']} reads / {cert['writes']} writes x "
+        f"{seg_bytes} B; watermark {art.watermark_bytes} B = pool_bytes; "
+        f"canonical trace = the CPU's; {len(walls)} ops' wall_us sum "
+        f"{sum(walls):.1f} us (min {min(walls):.2f}, max {max(walls):.2f}) "
+        f"against phase 4's "
+        + ("card time not measured" if card_us is None else
+           f"{card_us:.1f} us of card time")
+        + f" and {p['latency_ms'] * 1e3:.1f} us latency per inference")
+    return counts, {"wall_us_sum": sum(walls), "wall_us_min": min(walls),
+                    "wall_us_max": max(walls), "phase4_card_us": card_us,
+                    "phase4_latency_ms": p["latency_ms"],
+                    "bytes_loaded": t["bytes_loaded"],
+                    "bytes_stored": t["bytes_stored"]}
+
+
+def phase_traces(plans, goldens, paths) -> tuple[dict, dict]:
+    """Phase 8: ``run(x, trace=True)`` on three paths, a traced stream,
+    and the trace command line's smoke.  Returns the traced runs' launch
+    counts and the record."""
+    import os
+    import tempfile
+
+    say("phase 8: traces on the card (CUDA events around each op's launch, "
+        "one synchronize after the last)")
+    counts, record = {}, {}
+    for label in TRACED_PATHS:
+        x = torch.from_numpy(goldens[label]["x"][0]).cuda()
+        counts[label + TRACED], record[label] = _trace_path(
+            label, plans[label], x, paths)
+
+    name = "ds-cnn-stream"
+    cn, golden = plans[name], goldens[name]
+    cert = cn.certificate
+    state = cert["state_segments"]
+    frames = torch.from_numpy(golden["x_q"]).cuda()
+    session, sim = cn.stream(trace=True), cn.stream(backend="sim")
+    ys = []
+    counts[name + TRACED] = _counted(
+        f"{name} traced stream", cn, len(frames), "step",
+        lambda: ys.extend(session.step(f) for f in frames))
+    for i, y in enumerate(ys):
+        if not np.array_equal(y.cpu().numpy(), golden["y_q"][i]):
+            raise SystemExit(f"{name}: traced step {i} differs from the "
+                             "golden")
+    reads, writes = 0, state
+    for k, art in enumerate(session.traces, start=1):
+        c = sim.step()
+        reads += art.totals["segs_read"] + 2 * state
+        writes += art.totals["segs_written"] + state
+        want = (k * cert["reads"], state + k * (cert["writes"] - state))
+        if (reads, writes) != want or (c["reads"], c["writes"]) != want:
+            raise SystemExit(f"{name}: counters after {k} traced steps "
+                             f"{(reads, writes)} (the sim's {c['reads']}, "
+                             f"{c['writes']}) are not init + k*step {want}")
+    walls = [a.totals["wall_us"] for a in session.traces]
+    say(f"  {name}: {len(ys)} traced steps, every int8 output equal the "
+        f"golden; counters after {len(ys)} steps = init + N*step = "
+        f"({reads} reads, {writes} writes), as the sim oracle counts; "
+        f"wall_us a step median {statistics.median(walls):.1f}")
+    record[name] = {"steps": len(ys), "reads": reads, "writes": writes,
+                    "wall_us_median": statistics.median(walls)}
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.obs.cli",
+                              "--smoke"], cwd=tmp, env=env,
+                             capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise SystemExit(f"python -m repro_torch.obs.cli --smoke exited "
+                         f"{run.returncode}: {run.stderr[-2000:]}")
+    last = run.stdout.strip().splitlines()[-1]
+    say(f"  python -m repro_torch.obs.cli --smoke: exit 0 in {secs:.2f} s "
+        f"in a temporary directory ({last!r})")
+    record["obs_smoke_s"] = secs
+    return counts, record
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SystemExit("chip_smoke.py runs from the root of a checkout "
@@ -2118,6 +2357,9 @@ def main() -> None:
     errs = phase_parity(EDGE_CASES + CARD_EDGE_CASES + F32_EDGE_CASES
                         + F32_FUSED_STREAM_EDGE_CASES + F32_MLP_EDGE_CASES
                         + sum(cases.values(), ()))
+    say(f"  {SLICED}'s window reads (base, CTAs, mode):")
+    for line in window_ops(plans[SLICED]):
+        say(f"    {line}")
     decode_err = phase_decode_parity()
 
     say("phase 3: the paths on the card")
@@ -2176,13 +2418,17 @@ def main() -> None:
         counts, goldens, "sim", COMPILED)
     static, verify_record = phase_static(counts, goldens, compiled_nets,
                                          compile_timings)
+    partial_record = phase_partial()
+    traced, trace_record = phase_traces(plans, goldens, paths)
     for row in rows:
-        row["launches"] += sum(c[row["name"]] for c in compiled.values())
-        row["launches"] += sum(c[row["name"]] for c in static.values())
+        for counted in (compiled, static, traced):
+            row["launches"] += sum(c[row["name"]] for c in counted.values())
 
     say(json.dumps({"paths": paths}))
     say(json.dumps({"compile": compile_timings}))
     say(json.dumps({"verify": verify_record}))
+    say(json.dumps({"partial": partial_record}))
+    say(json.dumps({"traces": trace_record}))
     say(json.dumps({"kernels": rows}))
     say(nvidia_smi_line())
     say(json.dumps({"ok": True, "device": {

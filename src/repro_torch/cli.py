@@ -11,9 +11,8 @@ the CI gate: compile MCUNet-VWW, enforce the SRAM budget, and diff the
 emitted ring-geometry C against the committed goldens.
 
 The port's counterpart of ``vmcu-compile`` (:mod:`repro.cli`): the same
-options, defaults, exit codes and standard output.  One difference:
-``--partial`` other than ``off`` is refused with exit code 2, since
-partial execution is not ported yet (Slice G).
+options, defaults, exit codes and standard output, ``--partial auto|N``
+(partial execution) included.
 """
 from __future__ import annotations
 
@@ -143,10 +142,6 @@ def main(argv=None) -> int:
                 print(f"--partial must be 'off', 'auto' or an integer "
                       f"slice count, got {partial!r}", file=sys.stderr)
                 return 2
-        if partial != "off":
-            print(f"--partial {args.partial} is not ported yet: partial "
-                  "execution comes with Slice G", file=sys.stderr)
-            return 2
         try:
             cn = repro_torch.compile(net, target=target, dtype=args.dtype,
                                      certify=(False if args.no_certify
@@ -156,9 +151,6 @@ def main(argv=None) -> int:
                                      partial=partial)
         except repro_torch.SRAMBudgetError as e:
             print(f"SRAM budget gate FAILED: {e}", file=sys.stderr)
-            return 2
-        except NotImplementedError as e:
-            print(e, file=sys.stderr)
             return 2
     _print_report(cn.report())
 

@@ -10,6 +10,9 @@ Python, numpy and PyTorch on the host, with no JAX:
   ``budget``    gate the byte-granular bottleneck on the target's SRAM
                 (before the expensive passes, so an over-budget net
                 fails in milliseconds),
+  ``partial``   slice over-budget fusion groups spatially until the
+                deployable ring fits (``partial="auto"|N``,
+                :mod:`repro_torch.partial`),
   ``quantize``  int8 calibration + requant tables (int8 targets),
   ``lint``      budget/consistency findings (VMCU3xx/4xx — errors
                 abort, warnings ride in the note),
@@ -21,9 +24,8 @@ Python, numpy and PyTorch on the host, with no JAX:
 
 Every plan, certificate, ``mcu`` summary and emitted C unit
 (:meth:`CompiledNet.emit_c`) it writes is the reference's, byte for
-byte.  What it refuses, with a ``NotImplementedError`` naming Slice G
-(partial execution): ``partial`` other than ``"off"`` and the lint
-pass's partial-execution estimate.
+byte, sliced plans (``partial``) and the lint pass's VMCU303 estimate
+of partial execution included.
 
 The result is a :class:`CompiledNet`, which is also what :func:`load`
 returns for a saved plan artifact (loading never re-runs the planner,
@@ -36,7 +38,9 @@ only with params the caller supplies, through
 ``repro_torch.kernels.cases.seeded_float_net`` builds them from a numpy
 seed.  ``CompiledNet.run`` runs either on the CUDA card unless the
 caller passes ``device="cpu"``; without a card it raises rather than
-run elsewhere.  ``CompiledNet.stream`` opens a
+run elsewhere; ``run(x, trace=True)`` and :meth:`CompiledNet.profile`
+return a :class:`repro_torch.obs.TraceArtifact` of the run beside it.
+``CompiledNet.stream`` opens a
 :class:`repro_torch.stream.StreamSession` on a streaming plan, int8 or
 float, on the same terms.
 """
@@ -45,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from ..core.codegen import emit_program
@@ -249,7 +254,10 @@ class CompiledNet:
             if self.plan is None:
                 raise CompileError("no parameters in this CompiledNet "
                                    "and no plan to initialize them from")
-            self.params = init_net_params(self.plan, self.init_key)
+            base = init_net_params(self.plan, self.init_key)
+            parents = self.partial_parents
+            self.params = (base if parents is None
+                           else [base[p] for p in parents])
         return self.params
 
     @property
@@ -303,13 +311,21 @@ class CompiledNet:
                                                       dev)
         return self._on_device[key]
 
-    def run(self, x, *, device=None) -> torch.Tensor:
+    def run(self, x, *, device=None, trace: bool = False):
         """Run the net on float input ``x`` — one sample ``[rows, d]`` or
         a batch ``[B, rows, d]`` — and return float output on
         ``device`` (the CUDA card when ``None``).  An int8 net quantizes
         on entry and dequantizes on exit; a float net stages ``x`` as it
         is.  A batch runs every sample through the one solved plan in
-        turn."""
+        turn.
+
+        ``trace=True`` threads a :class:`repro_torch.obs.RingTracer`
+        through the executor (per-op wall times: CUDA events on the card,
+        the host clock on the CPU) and returns ``(y, TraceArtifact)``
+        instead of ``y``.  ``trace=False`` records no event and adds no
+        synchronize; the output is the same bits either way.  A batched
+        trace is one artifact whose counters are the certificate scaled
+        by exactly the batch (wall times sum across samples)."""
         if not self.quantized and self.program.quantized:
             raise CompileError(
                 "this is a planner-only int8 compile (quantize=False): "
@@ -321,18 +337,85 @@ class CompiledNet:
         if self.quantized:
             qnet = self._qnet_on(dev)
 
-            def one(xi):
-                return run_net_quantized(qnet, xi, kernel_block_rows=kbr)
+            def one(xi, tracer=None):
+                return run_net_quantized(qnet, xi, kernel_block_rows=kbr,
+                                         tracer=tracer)
         else:
             params = self._params_on(dev)
             x = x.to(torch.float32)
 
-            def one(xi):
+            def one(xi, tracer=None):
                 return run_net(self.program, xi, params,
-                               kernel_block_rows=kbr)
+                               kernel_block_rows=kbr, tracer=tracer)
+        if not trace:
+            if x.ndim == 3:
+                return torch.stack([one(xi) for xi in x])
+            return one(x)
+        from ..obs import RingTracer
+
         if x.ndim == 3:
-            return torch.stack([one(xi) for xi in x])
-        return one(x)
+            return self._run_batch_traced(x, one)
+        tracer = RingTracer()
+        y = one(x, tracer)
+        return y, self._trace(tracer)
+
+    def _trace(self, tracer):
+        from ..obs import build_trace
+
+        return build_trace(self.program, tracer=tracer, net=self.net_name,
+                           target=self.target.name, spans=self.spans)
+
+    def _run_batch_traced(self, x: torch.Tensor, one):
+        """Batched ``trace=True``: every sample runs through the ONE
+        solved plan with its own tracer; wall times sum across samples
+        and the schedule-derived counters scale by exactly the batch —
+        the certificate × batch invariant the tests pin.  (The
+        occupancy timeline and watermark stay per sample: each runs its
+        own pool.)"""
+        from ..obs import RingTracer
+
+        agg = RingTracer(backend=x.device.type)
+        ys = []
+        for xi in x:
+            t = RingTracer()
+            ys.append(one(xi, t))
+            for i, s in t.wall_s.items():
+                agg.wall_s[i] = agg.wall_s.get(i, 0.0) + s
+        art = self._trace(agg)
+        batch = int(x.shape[0])
+        scaled = ("steps", "segs_read", "segs_written", "bytes_loaded",
+                  "bytes_stored", "macs", "requants")
+        for ev in art.events:
+            for k in scaled:
+                if k in ev:
+                    ev[k] = ev[k] * batch
+        for k in scaled:
+            if k in art.totals:
+                art.totals[k] = art.totals[k] * batch
+        art.totals["batch"] = batch
+        return torch.stack(ys), art
+
+    def profile(self, x=None, *, device=None):
+        """One traced run on ``x`` (a seeded normal input when ``None``);
+        returns the :class:`repro_torch.obs.TraceArtifact` (geometry,
+        per-op byte/MAC counters + wall times, occupancy timeline,
+        compile spans).
+
+        Planner-only int8 compiles (no qparams) profile through the sim
+        oracle on the host instead — measured segment traffic, no
+        numerics."""
+        if self.program.quantized and not self.quantized:
+            from ..core.executors import run_program_sim
+            from ..obs import RingTracer
+
+            tracer = RingTracer()
+            run_program_sim(self.program, tracer=tracer)
+            return self._trace(tracer)
+        if x is None:
+            x = np.random.default_rng(0).standard_normal(
+                (self.program.in_rows, self.program.in_dim), np.float32)
+        _y, art = self.run(x, device=device, trace=True)
+        return art
 
     def stream(self, device=None, *, backend: str | None = None,
                trace: bool = False):
@@ -566,9 +649,14 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
     skips the VMCU3xx/4xx lint pass; ``check_budget=False`` records the
     SRAM verdict without raising :class:`SRAMBudgetError`.
 
-    Not ported yet, and refused with ``NotImplementedError`` naming
-    Slice G: ``partial`` other than ``"off"`` and the lint pass's
-    estimate of partial execution on an over-budget net.
+    ``partial`` enables partial execution (:mod:`repro_torch.partial`):
+    ``"auto"`` slices over-budget fusion groups spatially until the
+    deployable ring fits the target SRAM (demoting
+    :class:`SRAMBudgetError` into a scheduled latency/memory trade), an
+    ``int`` forces that many slices on the ring-pinning group, ``"off"``
+    (default) keeps the hard budget gate.  An int8 net is calibrated on
+    the unsliced plan and each op's qparams are shared across its
+    slices, so sliced execution is bit for bit the unsliced one.
     """
     if certify not in (True, False, "sim", "static"):
         raise ValueError(f"certify must be True/False/'sim'/'static', "
@@ -576,21 +664,23 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
     if not (partial in ("off", "auto") or isinstance(partial, int)):
         raise ValueError(f"partial must be 'off', 'auto' or an int "
                          f"slice count, got {partial!r}")
-    if partial != "off":
-        raise NotImplementedError(
-            f"partial={partial!r} is not ported yet: partial execution "
-            "comes with Slice G (partial execution, streaming and "
-            "telemetry)")
     t = get_target(target)
     dtype = dtype or t.default_dtype
     dtype_itemsize(dtype)  # fail fast on unknown dtypes
     if fused_exec is None:
-        fused_exec = dtype != "int8"
+        # partial execution slices the unfused pw/dw/pw chain — the
+        # same deployment form int8 quantization requires
+        fused_exec = dtype != "int8" and partial == "off"
     elif fused_exec and dtype == "int8":
         raise CompileError(
             "int8 compilation requires unfused module lowering "
             "(fused_exec=False): quantized execution requantizes "
             "between the pw/dw/pw ops")
+    elif fused_exec and partial != "off":
+        raise CompileError(
+            "partial execution requires unfused module lowering "
+            "(fused_exec=False): the slice surgery rewrites the "
+            "pw/dw/pw chain ops individually")
     seg_width = t.seg_width if seg_width is None else seg_width
     block_rows = t.block_rows if block_rows is _UNSET else block_rows
     params = _to_host(params)
@@ -643,9 +733,10 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
     # per-group bound on.  Float compiles keep the analytic gate.
     byte_geometry = seg_width == 1 and block_rows is None
     real_mcu = t.sram_bytes < (1 << 38)     # host-sim never gates
-    ring_gate = dtype == "int8"
+    ring_gate = dtype == "int8" or partial != "off"
     byte_plan = None
-    if real_mcu and ring_gate and check_budget and not byte_geometry:
+    if real_mcu and ring_gate and (check_budget or partial != "off") \
+            and not byte_geometry:
         try:
             with collect(collector), span("byte_plan"):
                 byte_plan = _plan_net(graph, order=sched_order, dtype=dtype,
@@ -664,6 +755,8 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
         verdict = "fits" if margin >= 0 else "OVER"
         note = (f"bottleneck {bot} B, deployable ring {ring} B vs "
                 f"{t.sram_bytes} B SRAM ({verdict}, margin {margin} B)")
+        if margin < 0 and partial != "off":
+            return (deploy, margin), note + " — deferred to partial pass"
         if check_budget and margin < 0:
             raise SRAMBudgetError(
                 f"{graph.name} needs {deploy} B (deployable "
@@ -673,6 +766,40 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
                 "to record the verdict without gating")
         return (deploy, margin), note
     run_pass("budget", _budget)
+
+    # partial --------------------------------------------------------------
+    # Slice over-budget fusion groups spatially.  The slicing is CHOSEN on
+    # the deployable byte ring (that is the budget being missed) and
+    # APPLIED to the executed geometry too.
+    partial_plan = None
+    exec_parents = None
+    exec_program = plan.program
+    if partial != "off":
+        def _partial():
+            nonlocal exec_parents, exec_program
+            from ..partial import (PartialPlanError, apply_partial,
+                                   plan_partial)
+
+            policy = byte_plan if byte_plan is not None else plan
+            ranges = [(gp.op_lo, gp.op_hi) for gp in policy.groups]
+            force = partial if isinstance(partial, int) else None
+            try:
+                pp = plan_partial(policy.program, ranges, t.sram_bytes,
+                                  force=force)
+            except PartialPlanError as e:
+                raise SRAMBudgetError(
+                    f"partial execution cannot fit {graph.name} in "
+                    f"{t.sram_bytes} B SRAM on {t.name!r}: {e}") from e
+            if pp is None:
+                return None, "not needed (deployable ring fits SRAM)"
+            exec_program, exec_parents = apply_partial(plan.program,
+                                                       pp.choices)
+            return pp, (f"{len(pp.groups)} group(s) -> "
+                        f"{sum(g['n_slices'] for g in pp.groups)} "
+                        f"slices; ring {pp.ring_bytes_before} -> "
+                        f"{pp.ring_bytes_after} B, "
+                        f"+{pp.mac_overhead:.1%} MACs")
+        partial_plan = run_pass("partial", _partial)
 
     # quantize -------------------------------------------------------------
     # (float parameters materialize lazily: planner-only compiles never
@@ -689,34 +816,52 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
             note = (f"{len(q.qparams)} q-ops, requant tables for "
                     f"{sum(1 for op in q.program.ops if op.kind != 'add')}"
                     " stores")
+            if partial_plan is not None:
+                # calibrated on the UNSLICED plan; each op's qparams are
+                # shared across its slices, so requant constants match
+                from ..partial import apply_partial
+
+                qprog, qpar = apply_partial(q.program,
+                                            partial_plan.choices)
+                q = QuantizedNet(
+                    plan=q.plan, program=qprog,
+                    params=[q.params[p] for p in qpar],
+                    qparams=[q.qparams[p] for p in qpar],
+                    act_scales=q.act_scales)
+                note += f"; shared across {len(qpar)} sliced ops"
             return q, note
         qnet = run_pass("quantize", _quant)
 
-    program = qnet.program if qnet is not None else plan.program
+    program = qnet.program if qnet is not None else exec_program
 
     # deployable accounting shared by lint / mcu snapshot / report ---------
     ring_unsliced = (byte_plan.program.pool_bytes
                      if byte_plan is not None
                      else plan.program.pool_bytes
                      if byte_geometry and ring_gate else None)
-    deploy_bytes = max(plan.mcu_bottleneck_bytes, ring_unsliced or 0)
+    deploy_ring = (partial_plan.ring_bytes_after
+                   if partial_plan is not None else ring_unsliced)
+    deploy_bytes = max(plan.mcu_bottleneck_bytes, deploy_ring or 0)
 
     # lint -----------------------------------------------------------------
     if lint:
         def _lint():
             from ..analysis.lint import lint_program
 
-            if t.sram_margin(deploy_bytes) < 0:
-                # the reference asks here whether partial execution
-                # could resolve the overflow (its VMCU303 advisory)
-                raise NotImplementedError(
-                    f"lint of an over-budget plan ({deploy_bytes} B > "
-                    f"{t.sram_bytes} B SRAM) estimates partial execution, "
-                    "which is not ported yet: it comes with Slice G; "
-                    "pass lint=False to record the verdict without it")
+            est = None
+            if t.sram_margin(deploy_bytes) < 0 and partial_plan is None:
+                # the overflow stood — can partial execution resolve it?
+                from ..partial import estimate_slices
+
+                policy = byte_plan if byte_plan is not None else plan
+                pprog = policy.program
+                est = estimate_slices(
+                    pprog, [(gp.op_lo, gp.op_hi) for gp in policy.groups],
+                    t.sram_bytes // (pprog.seg_width * pprog.elem_bytes))
             diags = lint_program(
                 program, t, deploy_bytes=deploy_bytes,
-                bottleneck_group=plan.bottleneck_group().name)
+                bottleneck_group=plan.bottleneck_group().name,
+                partial_slices=est)
             # check_budget=False means "record, don't gate" — that
             # covers the lint pass's SRAM finding too
             errors = [d for d in diags if d.severity == "error"
@@ -769,9 +914,18 @@ def compile(net, target: str | Target = "host-sim", *, dtype=None,
     mcu = _mcu_summary(plan)
     mcu["byte_ring_bytes"] = ring_unsliced
     mcu["deploy_bytes"] = deploy_bytes
+    partial_info = None
+    if partial_plan is not None:
+        partial_info = dict(partial_plan.summary())
+        partial_info["parents"] = list(exec_parents)
+        mcu["partial"] = {k: v for k, v in partial_info.items()
+                          if k != "parents"}
+        if params is not None:     # re-align materialized float params
+            params = [params[p] for p in exec_parents]
 
     return CompiledNet(net_name=graph.name, target=t, dtype=dtype,
                        program=program, qnet=qnet, mcu=mcu,
                        certificate=certificate, passes=passes,
                        params=params, plan=plan, graph=graph,
-                       init_key=key, spans=collector.to_dicts())
+                       init_key=key, spans=collector.to_dicts(),
+                       partial=partial_info)

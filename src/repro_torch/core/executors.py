@@ -17,12 +17,19 @@ oracle: it replays every op's row schedule through a
 :class:`~repro_torch.core.pool.SegmentPool` on the host, with no tensor,
 and certifies a plan.
 
+Each takes a ``tracer`` (:class:`repro_torch.obs.RingTracer`): per-op
+wall seconds from CUDA events on a CUDA pool, from the host clock on a
+CPU pool, and the oracle's measured segment traffic in the sim.
+``tracer=None`` records nothing and synchronizes nothing.
+
 Nothing on the CUDA path calls a plain version.  Every int8 op kind has
 its kernel, and so does every executable fp32 kind (:data:`F32_KINDS`):
 the whole-network ones, the fused inverted bottleneck, the streaming
 ones, and the two delta-0 kinds, the fused MLP and the elementwise map.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -285,15 +292,53 @@ def _f32_kernel_call(program: PoolProgram, op, p, *,
         f"{F32_KINDS})")
 
 
+class _OpClock:
+    """Per-op wall seconds of a traced execution, into ``tracer``: a pair
+    of CUDA events around each op's launch on the pool's current stream,
+    read after one synchronize at the end, or the host clock around each
+    op on the CPU."""
+
+    def __init__(self, device: torch.device, tracer):
+        self.device = device
+        self.tracer = tracer
+        self.events: dict[int, tuple] = {}
+        tracer.backend = device.type
+
+    def start(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def stop(self, i: int, t0) -> None:
+        if self.device.type != "cuda":
+            self.tracer.record(i, time.perf_counter() - t0)
+            return
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        self.events[i] = (t0, event)
+
+    def finish(self) -> None:
+        if not self.events:
+            return
+        last = self.events[max(self.events)][1]
+        last.synchronize()
+        for i, (t0, t1) in self.events.items():
+            self.tracer.record(i, t0.elapsed_time(t1) / 1e3)
+
+
 def execute(program: PoolProgram, pool, params, *,
-            kernel_block_rows: int = 8):
+            kernel_block_rows: int = 8, tracer=None):
     """Run ``program`` on ``pool`` (a :class:`VirtualPool` or raw
     ``[n_segments, seg_width]`` tensor of the program's dtype, int8 or
     float32, with the input staged at ``program.input_ptr``), in place;
     returns ``pool``.
 
     A CUDA pool runs the CUDA kernels, a CPU pool their plain versions;
-    ``params`` must lie on the pool's device."""
+    ``params`` must lie on the pool's device.  A ``tracer`` gets each
+    op's wall seconds (:class:`_OpClock`) and ``backend`` ``"cuda"`` or
+    ``"cpu"``."""
     if not program.executable:
         raise NotImplementedError(
             f"program contains plan-only ops; only kinds "
@@ -305,20 +350,29 @@ def execute(program: PoolProgram, pool, params, *,
         table = PLAIN
     else:
         raise ValueError(f"no ring executor for device {arr.device}")
-    for op, p in zip(program.ops, _normalize_params(program, params)):
+    clock = None if tracer is None else _OpClock(arr.device, tracer)
+    for i, (op, p) in enumerate(zip(program.ops,
+                                    _normalize_params(program, params))):
         name, args, kwargs = op_kernel_call(
             program, op, p, kernel_block_rows=kernel_block_rows)
+        t0 = None if clock is None else clock.start()
         table[name](arr, *args, **kwargs)
+        if clock is not None:
+            clock.stop(i, t0)
+    if clock is not None:
+        clock.finish()
     return pool
 
 
 def run_program(program: PoolProgram, x: torch.Tensor, params, *,
-                kernel_block_rows: int = 8):
+                kernel_block_rows: int = 8, tracer=None):
     """Allocate a zero pool on ``x``'s device, stage ``x`` at the input
-    pointer, execute, fetch the output.  Returns ``(y, pool)``."""
+    pointer, execute (traced into ``tracer`` when given), fetch the
+    output.  Returns ``(y, pool)``."""
     pool = VirtualPool.alloc(program.spec(), x.device)
     pool.stage_rows(x, program.input_ptr)
-    execute(program, pool, params, kernel_block_rows=kernel_block_rows)
+    execute(program, pool, params, kernel_block_rows=kernel_block_rows,
+            tracer=tracer)
     y = pool.fetch_rows(program.output_ptr, program.out_rows,
                         program.out_dim).clone()
     return y, pool
@@ -389,7 +443,8 @@ def _sim_stream_op(sim: SegmentPool, program: PoolProgram, i: int) -> None:
     _sim_rowsched_op(sim, program, i)
 
 
-def run_program_sim(program: PoolProgram, pool=None) -> SegmentPool:
+def run_program_sim(program: PoolProgram, pool=None, *,
+                    tracer=None) -> SegmentPool:
     """Execute the program's schedule in the SegmentPool simulator.
 
     GEMM ops run the paper's fine-grained Fig.-4 schedule (input segment
@@ -401,8 +456,11 @@ def run_program_sim(program: PoolProgram, pool=None) -> SegmentPool:
     Returns the SegmentPool for access statistics (peak_live etc.).
 
     The port of the reference's ``sim`` executor, run on the host with no
-    tensor at all (it needs no params).  Its per-op tracer comes with the
-    telemetry slice.
+    tensor at all (it needs no params).  A ``tracer``
+    (:class:`repro_torch.obs.RingTracer`) snapshots the pool's
+    read/write/free counters around every op — measured per-op traffic
+    from the oracle itself, asserted bit-equal to the schedule-derived
+    static counters.
     """
     sw = program.seg_width
     if isinstance(pool, SegmentPool):
@@ -416,11 +474,16 @@ def run_program_sim(program: PoolProgram, pool=None) -> SegmentPool:
         for i, op in enumerate(program.ops):
             for j in range(op.state_segments):
                 sim.write(op.state_ptr + j, owner=("state", i, j))
+    if tracer is not None:
+        tracer.backend = "sim"
     first = program.ops[0]
     for j in range(first.in_segments):
         sim.write(first.in_ptr + j, owner=(0, j))
     for i, op in enumerate(program.ops):
         m = op.rows_in or program.m_rows
+        if tracer is not None:
+            pre = (sim.reads, sim.writes, sim.frees)
+            t0 = time.perf_counter()
         if op.kind == "gemm":
             k_segs = segments_for(op.d_in, sw)
             n_segs = segments_for(op.d_out, sw)
@@ -449,10 +512,17 @@ def run_program_sim(program: PoolProgram, pool=None) -> SegmentPool:
             _sim_stream_op(sim, program, i)
         else:
             _sim_rowsched_op(sim, program, i)
+        if tracer is not None:
+            tracer.record(i, time.perf_counter() - t0)
+            tracer.record_sim(i, reads=sim.reads - pre[0],
+                              writes=sim.writes - pre[1],
+                              frees=sim.frees - pre[2], live=sim.live)
     last = program.ops[-1]
     for j in range(last.out_segments):  # outputs must survive the ring
         sim.read(last.out_ptr + j, owner=(len(program.ops), j))
     for i, op in enumerate(program.ops):  # ...and so must persistent state
         for j in range(op.state_segments):
             sim.read(op.state_ptr + j, owner=("state", i, j))
+    if tracer is not None:
+        tracer.finish_sim(sim)
     return sim

@@ -109,23 +109,27 @@ def init_net_params(plan, key=None) -> list:
 
 
 def run_net(program: PoolProgram, x: torch.Tensor, params, *,
-            kernel_block_rows: int = 8) -> torch.Tensor:
+            kernel_block_rows: int = 8, tracer=None) -> torch.Tensor:
     """Stage ``x`` at the plan's input pointer, execute every op through
-    the one fp32 ring, fetch the network output; everything on ``x``'s
-    device (which must hold ``params``)."""
+    the one fp32 ring (traced into ``tracer`` when given), fetch the
+    network output; everything on ``x``'s device (which must hold
+    ``params``)."""
     y, _pool = run_program(program, x, params,
-                           kernel_block_rows=kernel_block_rows)
+                           kernel_block_rows=kernel_block_rows,
+                           tracer=tracer)
     return y
 
 
 def step_net(program: PoolProgram, pool: VirtualPool, frame: torch.Tensor,
-             params, *, kernel_block_rows: int = 8) -> torch.Tensor:
+             params, *, kernel_block_rows: int = 8,
+             tracer=None) -> torch.Tensor:
     """One fp32 streaming step on the persistent ``pool`` (on
     ``frame``'s device, which must hold ``params``): stage the frame at
     the input pointer, execute, fetch the output — a copy, since the
     next step overwrites the pool."""
     pool.stage_rows(frame.to(torch.float32), program.input_ptr)
-    execute(program, pool, params, kernel_block_rows=kernel_block_rows)
+    execute(program, pool, params, kernel_block_rows=kernel_block_rows,
+            tracer=tracer)
     return pool.fetch_rows(program.output_ptr, program.out_rows,
                            program.out_dim).clone()
 
@@ -441,18 +445,22 @@ def quantize_net(plan, params, **kwargs) -> QuantizedNet:
 
 
 def run_net_quantized(qnet: QuantizedNet, x: torch.Tensor, *,
-                      kernel_block_rows: int = 8) -> torch.Tensor:
-    """Quantize ``x``, execute the int8 program on the ring, dequantize;
-    everything on ``x``'s device (which must hold ``qnet.qparams``)."""
+                      kernel_block_rows: int = 8,
+                      tracer=None) -> torch.Tensor:
+    """Quantize ``x``, execute the int8 program on the ring (traced into
+    ``tracer`` when given), dequantize; everything on ``x``'s device
+    (which must hold ``qnet.qparams``)."""
     x_q = quantize(x, QParams(scale=qnet.in_scale))
     y_q, _pool = run_program(qnet.program, x_q, qnet.qparams,
-                             kernel_block_rows=kernel_block_rows)
+                             kernel_block_rows=kernel_block_rows,
+                             tracer=tracer)
     return dequantize(y_q, QParams(scale=qnet.out_scale))
 
 
 def step_net_quantized(qnet: QuantizedNet, pool: VirtualPool,
                        frame: torch.Tensor, *,
-                       kernel_block_rows: int = 8) -> torch.Tensor:
+                       kernel_block_rows: int = 8,
+                       tracer=None) -> torch.Tensor:
     """One streaming step on the persistent ``pool`` (on ``frame``'s
     device, which must hold ``qnet.qparams``): stage the frame at the
     input pointer, execute, fetch the output.
@@ -468,7 +476,7 @@ def step_net_quantized(qnet: QuantizedNet, pool: VirtualPool,
         frame = quantize(frame, QParams(scale=qnet.in_scale))
     pool.stage_rows(frame, program.input_ptr)
     execute(program, pool, qnet.qparams,
-            kernel_block_rows=kernel_block_rows)
+            kernel_block_rows=kernel_block_rows, tracer=tracer)
     y = pool.fetch_rows(program.output_ptr, program.out_rows,
                         program.out_dim).clone()
     return y if quantized else dequantize(y, QParams(scale=qnet.out_scale))

@@ -17,7 +17,11 @@ host, every step replays the schedule through
 :class:`~repro_torch.core.pool.SegmentPool` with the state records still
 live under their ``("state", i, j)`` owners, so an N-step run is N
 clobber proofs plus the carried state-survival invariant.
-``trace=True`` (per-step ring telemetry) is not ported yet.
+
+``trace=True`` threads a :class:`repro_torch.obs.RingTracer` through
+every step (per-op wall times: CUDA events on the card, the host clock
+on the CPU, the oracle's counters in the sim; byte traffic per frame);
+the artifacts accumulate in :attr:`StreamSession.traces`.
 """
 from __future__ import annotations
 
@@ -42,14 +46,12 @@ class StreamSession:
             raise ValueError(f"unknown stream backend {backend!r}: the "
                              "port picks its kernels from the device, "
                              "and 'sim' is the clobber oracle")
-        if trace:
-            raise NotImplementedError(
-                "trace=True is not ported yet: ring telemetry comes with "
-                "Slice G (partial execution, streaming and telemetry)")
         from ..compile.driver import CompileError, _device
 
         self.compiled = compiled
         self.backend = backend
+        self.trace = trace
+        self.traces: list = []
         self.quantized = compiled.quantized
         if not self.quantized and compiled.program.quantized:
             raise CompileError(
@@ -95,9 +97,14 @@ class StreamSession:
         plan takes the frame as fp32 and returns fp32.  The ``sim``
         backend ignores numerics (pass ``frame=None``) and returns the
         oracle's counters."""
+        tracer = None
+        if self.trace:
+            from ..obs import RingTracer
+
+            tracer = RingTracer()
         if self.backend == "sim":
             program = self.program
-            sim = run_program_sim(program, pool=self._pool)
+            sim = run_program_sim(program, pool=self._pool, tracer=tracer)
             # the session consumes the step output; its record must die
             # before the next frame is staged over it
             last = program.ops[-1]
@@ -105,6 +112,7 @@ class StreamSession:
                 sim.free(last.out_ptr + j, owner=(len(program.ops), j))
             self._pool = sim
             self.steps += 1
+            self._finish_trace(tracer)
             return {"reads": sim.reads, "writes": sim.writes,
                     "frees": sim.frees, "peak_live": sim.peak_live,
                     "live": sim.live, "steps": self.steps}
@@ -116,11 +124,12 @@ class StreamSession:
         kbr = self.compiled.target.kernel_block_rows
         if self.quantized:
             y = step_net_quantized(self.qnet, self._pool, frame,
-                                   kernel_block_rows=kbr)
+                                   kernel_block_rows=kbr, tracer=tracer)
         else:
             y = step_net(self.program, self._pool, frame, self.params,
-                         kernel_block_rows=kbr)
+                         kernel_block_rows=kbr, tracer=tracer)
         self.steps += 1
+        self._finish_trace(tracer)
         return y
 
     def run(self, frames) -> torch.Tensor | None:
@@ -130,6 +139,15 @@ class StreamSession:
         for f in frames:
             y = self.step(f)
         return y
+
+    def _finish_trace(self, tracer) -> None:
+        if tracer is None:
+            return
+        from ..obs import build_trace
+
+        self.traces.append(build_trace(
+            self.program, tracer=tracer, net=self.compiled.net_name,
+            target=self.compiled.target.name))
 
     @property
     def pool(self):

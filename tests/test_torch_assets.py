@@ -9,7 +9,7 @@ not on the card.  Run this file as a script to rewrite them all:
     PYTHONPATH=src python tests/test_torch_assets.py
 
 The int8 artifacts are the reference's ``CompiledNet.save`` without the
-fp32 ``params`` entry, which an int8 plan never reads.  Four kinds of
+fp32 ``params`` entry, which an int8 plan never reads.  Five kinds of
 asset:
 
   * main-path int8 nets (``NETS``): the golden holds the float outputs,
@@ -46,7 +46,19 @@ asset:
     conv_stream -> avgpool -> GRU program of ``tests/test_stream.py`` at
     the DS-CNN stem's width, calibrated by the reference.  The golden
     holds the int8 output of each of 60 steps from pre-quantized frames
-    and the pool's sha256 after the last.
+    and the pool's sha256 after the last;
+  * the sliced plan (``SLICED_NET``, ``mcunet-320kb-imagenet.cortex-m4.
+    int8.sliced.json``): the reference's ``compile("mcunet-320kb-imagenet",
+    "cortex-m4", dtype="int8", partial="auto", certify="static")``, 158
+    ops, without the fp32 ``params``; its golden holds 2 seeded inputs, the
+    reference's ``run(x, backend="jnp")`` outputs, int8 outputs and
+    final-pool sha256.  Its int8 compile calibrates ImageNet (about 40 s),
+    so only the script writes it; the tests hold its plan against a fresh
+    planner-only compile (``quantize=False``, the same program).
+
+``--sliced`` rewrites the sliced plan alone:
+
+    PYTHONPATH=src python tests/test_torch_assets.py --sliced
 
 And one LM golden, written only by the ``--lm`` mode, never by pytest:
 
@@ -115,6 +127,10 @@ N_INPUTS, N_FRAMES, N_SEEDED_INPUTS = 8, 60, 2
 TIMED = ("passes", "spans")
 #: The net whose reference compile inputs are committed.
 COMPILE_NET = "ds-cnn"
+#: The net served as a sliced (partial-execution) int8 plan, and the
+#: number of its golden inputs.
+SLICED_NET = "mcunet-320kb-imagenet"
+N_SLICED_INPUTS = 2
 
 
 def artifact_path(name: str) -> pathlib.Path:
@@ -131,6 +147,21 @@ def float_artifact_path(name: str) -> pathlib.Path:
 
 def float_golden_path(name: str) -> pathlib.Path:
     return ASSETS / f"{name}.{FLOAT_TARGET}.float32.golden.npz"
+
+
+def sliced_artifact_path() -> pathlib.Path:
+    return ASSETS / f"{SLICED_NET}.{TARGET}.int8.sliced.json"
+
+
+def sliced_golden_path() -> pathlib.Path:
+    return ASSETS / f"{SLICED_NET}.{TARGET}.int8.sliced.golden.npz"
+
+
+def compile_sliced_reference(quantize: bool = True) -> RefCompiledNet:
+    """The reference's sliced ImageNet compile for the M4 (planner-only
+    when not ``quantize``)."""
+    return repro.compile(SLICED_NET, TARGET, dtype="int8", partial="auto",
+                         certify="static", quantize=quantize)
 
 
 def compile_inputs_path() -> pathlib.Path:
@@ -245,10 +276,10 @@ def _sha(pool) -> str:
     return hashlib.sha256(np.asarray(pool.array).tobytes()).hexdigest()
 
 
-def net_golden(cn: RefCompiledNet) -> dict:
+def net_golden(cn: RefCompiledNet, n: int = N_INPUTS) -> dict:
     """The reference's float outputs (``run(x, backend="jnp")`` on the
     batch), int8 outputs and final-pool sha256 per input."""
-    x = golden_inputs(cn.program, N_INPUTS)
+    x = golden_inputs(cn.program, n)
     y = np.asarray(cn.run(x, backend="jnp"))
     qn = cn.qnet
     y_q, shas = [], []
@@ -314,6 +345,13 @@ def write_assets(names=NETS + STREAMS,
         float_artifact_path(name).write_text(
             json.dumps(float_payload(name, cn)))
         np.savez(float_golden_path(name), **float_golden(name, cn))
+    write_sliced_asset()
+
+
+def write_sliced_asset() -> None:
+    cn = compile_sliced_reference()
+    sliced_artifact_path().write_text(json.dumps(artifact_payload(cn)))
+    np.savez(sliced_golden_path(), **net_golden(cn, N_SLICED_INPUTS))
 
 
 @pytest.fixture(scope="module")
@@ -466,6 +504,34 @@ def test_compile_inputs_are_the_reference_default_draws(fresh):
     assert q.act_scales == cn.qnet.act_scales
 
 
+def test_the_sliced_asset_is_a_fresh_partial_compile():
+    """The sliced artifact's plan (program, certificate, ``mcu`` and
+    ``partial``) is a fresh planner-only compile's: 36 slices bring the
+    deployable ring from 196,416 to 125,312 B, 158 ops (pw 98, dw 48,
+    add 10, pool, gemm), 31 of them reading a window of a held source."""
+    have = json.loads(sliced_artifact_path().read_text())
+    want = artifact_payload(compile_sliced_reference(quantize=False))
+    assert "params" not in have and have["quant"] is not None
+    for key in ("program", "certificate", "mcu", "partial", "target",
+                "dtype", "net"):
+        assert have[key] == want[key], key
+    s = have["partial"]
+    assert (s["n_sliced_groups"], s["total_slices"], s["ring_bytes_before"],
+            s["ring_bytes_after"]) == (5, 36, 196_416, 125_312)
+    ops = have["program"]["ops"]
+    kinds = [op["kind"] for op in ops]
+    assert len(ops) == 158 and {k: kinds.count(k) for k in set(kinds)} == \
+        {"conv_pw": 98, "conv_dw": 48, "add": 10, "pool_avg": 1, "gemm": 1}
+    assert sum(op["in_row0"] > 0 for op in ops) == 31
+    assert sum(op["out_op"] >= 0 for op in ops) == 36
+    with np.load(sliced_golden_path()) as g:
+        assert sorted(g.files) == ["pool_sha256", "x", "y", "y_q"]
+        np.testing.assert_array_equal(
+            g["x"], golden_inputs(compile_sliced_reference(quantize=False)
+                                  .program, N_SLICED_INPUTS))
+        assert g["y"].shape == (N_SLICED_INPUTS, 1, 1000)
+
+
 # ---------------------------------------------------------------------------
 # The LM golden.
 # ---------------------------------------------------------------------------
@@ -589,7 +655,11 @@ def test_the_port_holds_the_reduced_lm_golden():
 
 
 if __name__ == "__main__":
-    if "--lm" in sys.argv[1:]:
+    if "--sliced" in sys.argv[1:]:
+        write_sliced_asset()
+        print(f"wrote the sliced {SLICED_NET} artifact and golden in "
+              f"{ASSETS}")
+    elif "--lm" in sys.argv[1:]:
         write_lm_goldens()
         print(f"wrote the {LM_NAME} goldens (full width and reduced) in "
               f"{ASSETS}")

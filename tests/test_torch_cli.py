@@ -4,8 +4,8 @@
 
 Each ``main(argv)`` is called on the same arguments as the reference's:
 the same exit code and the same standard output, once the seconds of
-the pass lines are taken out.  The port's compile line refuses
-``--partial`` other than ``off`` with exit code 2, naming Slice G.
+the pass lines are taken out, ``--partial`` included (its sliced
+ImageNet lines are in ``tests/test_torch_partial.py``).
 """
 import contextlib
 import io
@@ -131,12 +131,16 @@ def test_save_then_from_artifact_is_the_references(smoke, tmp_path):
     assert f"loaded {path} (ds-cnn for cortex-m4)" in outs[3][1]
 
 
-def test_partial_is_refused_by_name(capsys):
+def test_partial_is_refused_by_name():
+    """``--partial`` is no longer refused: ``auto`` (not needed on
+    DS-CNN) and a forced slice count compile as the reference's do, to
+    the same report."""
     for value in ("auto", "3"):
-        assert compile_main(["ds-cnn", "--partial", value]) == 2
-        err = capsys.readouterr().err
-        assert err.count("\n") == 1 and "Slice G" in err
-        assert "Traceback" not in err
+        argv = ["ds-cnn", "--target", "cortex-m4", "--no-quantize",
+                "--partial", value]
+        rc, out, err = _same(compile_main, ref_compile_main, argv)
+        assert rc == 0 and "Traceback" not in err
+        assert "pass partial" in out
 
 
 def test_the_port_compile_line_runs_as_a_module():

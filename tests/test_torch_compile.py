@@ -15,10 +15,10 @@
     with ``-s``), ``quantize_ops`` on the reference's scales equal to
     its qparams bitwise, and ``save()`` writing the reference's payload
     key for key but for seconds.
-  * What the port does not have yet (``partial``) raises
-    ``NotImplementedError`` naming its slice; ``certify="static"`` and
-    ``emit_c`` run (``tests/test_torch_verifier.py`` and
-    ``tests/test_torch_codegen.py`` hold them against the reference).
+  * ``partial``, the lint pass's VMCU303 estimate, ``certify="static"``
+    and ``emit_c`` run as the reference's (``tests/test_torch_partial.py``,
+    ``tests/test_torch_verifier.py`` and ``tests/test_torch_codegen.py``
+    hold them against the reference in full).
   * A net made by ``dataclasses.replace`` with new params or qparams
     runs with them, not with the device copies of the net it came from.
 """
@@ -147,18 +147,20 @@ def test_the_over_budget_net_is_the_reference_one():
 
 
 def test_lint_of_an_over_budget_plan_is_refused_by_name():
-    """Where the recorded verdict is over the SRAM, the reference's lint
-    pass asks partial execution for an estimate, which is not ported:
-    the port refuses, naming the slice; without lint the plan is the
-    reference's."""
+    """Where the recorded verdict is over the SRAM, the lint pass asks
+    partial execution for an estimate (the VMCU303 advisory) as the
+    reference's does: no longer refused, the pass notes and the plan are
+    the reference's, with lint and without."""
     from repro.compile.targets import Target as RefTarget
     from repro_torch.compile.targets import Target
 
     fields = dict(name="tiny", cpu="a 4 KB part", sram_bytes=4_000,
                   flash_bytes=1 << 20)
     kw = dict(quantize=False, check_budget=False)
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        repro_torch.compile("ds-cnn", Target(**fields), **kw)
+    have = repro_torch.compile("ds-cnn", Target(**fields), **kw)
+    _same_compile(have, repro.compile("ds-cnn", RefTarget(**fields), **kw))
+    assert "VMCU301" in next(p.note for p in have.passes
+                             if p.name == "lint")
     _same_compile(repro_torch.compile("ds-cnn", Target(**fields), lint=False,
                                       **kw),
                   repro.compile("ds-cnn", RefTarget(**fields), lint=False,
@@ -212,9 +214,13 @@ def test_a_caller_order_plans_as_the_reference():
 # ---------------------------------------------------------------------------
 
 def test_what_this_slice_does_not_port_is_refused_by_name():
+    """Nothing of the compile pipeline is refused any more: ``partial``
+    plans as the reference's (not needed on DS-CNN, or forced), and the
+    static proof and the C emission run."""
     for partial in ("auto", 2):
-        with pytest.raises(NotImplementedError, match="Slice G"):
-            repro_torch.compile("ds-cnn", "cortex-m4", partial=partial)
+        kw = dict(quantize=False, partial=partial)
+        _same_compile(repro_torch.compile("ds-cnn", "cortex-m4", **kw),
+                      repro.compile("ds-cnn", "cortex-m4", **kw))
     cn = repro_torch.compile("ds-cnn", "cortex-m4", quantize=False,
                              certify="static")
     assert next(p.note for p in cn.passes if p.name == "certify") \

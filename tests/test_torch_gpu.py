@@ -2,7 +2,8 @@
 version (int8 bitwise, fp32 within the tolerance of
 ``repro_torch.kernels.cases.compare_f32``, with TF32 off; the decode
 attention within ``cases.compare_decode``), the served and streaming
-paths against the reference's goldens, and reduced gemma3-1b served
+paths against the reference's goldens (the sliced ImageNet plan among
+them), traced runs against untraced ones, and reduced gemma3-1b served
 through one ``ring_decode_attention`` launch per layer per decode step.
 
 These tests import neither JAX nor the reference package, so they run
@@ -70,8 +71,29 @@ def _program_cases(name):
                          prefix=f"{name}_")
 
 
+#: The sliced (partial-execution) ImageNet plan and its launches per
+#: inference.
+SLICED = "mcunet-320kb-imagenet"
+SLICED_LAUNCHES = {"ring_conv_pw_q": 98, "ring_conv_dw_q": 48,
+                   "ring_add_q": 10, "ring_avgpool_q": 1, "ring_gemm_q": 1}
+
+
+def _sliced():
+    cn = load(ASSETS / f"{SLICED}.cortex-m4.int8.sliced.json")
+    with np.load(ASSETS / f"{SLICED}.cortex-m4.int8.sliced.golden.npz") as g:
+        return cn, {k: g[k] for k in g.files}
+
+
+def _sliced_cases():
+    cn = _sliced()[0]
+    return program_cases(cn.program, cn.qnet.qparams,
+                         kernel_block_rows=cn.target.kernel_block_rows,
+                         prefix=f"{SLICED}_sliced_")
+
+
 CASES = EDGE_CASES + CARD_EDGE_CASES \
-    + sum((_program_cases(n) for n in NETS + STREAMS), ())
+    + sum((_program_cases(n) for n in NETS + STREAMS), ()) \
+    + _sliced_cases()
 FLOAT_NETS = NETS
 
 
@@ -255,6 +277,78 @@ def test_served_main_path_equals_golden_on_card(name):
         np.testing.assert_array_equal(y_q.cpu().numpy(), golden["y_q"][i])
         sha = hashlib.sha256(pool.array.cpu().numpy().tobytes()).hexdigest()
         assert sha == golden["pool_sha256"][i]
+
+
+@pytest.mark.gpu
+def test_sliced_plan_equals_golden_on_card():
+    """The sliced plan served on the card: float outputs, int8 outputs
+    and final pools bitwise the reference's golden, at exactly 98 pw, 48
+    dw, 10 add, 1 pool and 1 FC launches an inference."""
+    _need_card()
+    cn, golden = _sliced()
+    reset_launch_counts()
+    y = cn.run(golden["x"])
+    torch.cuda.synchronize()
+    n = len(golden["x"])
+    assert {k: c for k, c in launch_counts().items() if c} \
+        == {k: c * n for k, c in SLICED_LAUNCHES.items()}
+    np.testing.assert_array_equal(y.cpu().numpy(), golden["y"])
+    qparams = to_device(cn.qnet.qparams, "cuda")
+    for i, x in enumerate(golden["x"]):
+        xq = quantize(torch.from_numpy(x).cuda(),
+                      QParams(scale=cn.qnet.in_scale))
+        y_q, pool = run_program(cn.program, xq, qparams)
+        np.testing.assert_array_equal(y_q.cpu().numpy(), golden["y_q"][i])
+        sha = hashlib.sha256(pool.array.cpu().numpy().tobytes()).hexdigest()
+        assert sha == golden["pool_sha256"][i]
+
+
+def _traced_plan(label):
+    if label == SLICED:
+        cn, g = _sliced()
+    elif label.endswith("-f32"):
+        cn = load(_float_artifact(label[:-4]))
+        g = _float_golden(label[:-4])
+    else:
+        cn, g = load(_artifact(label)), _golden(label)
+    return cn, g["x"][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["ds-cnn", "mcunet-5fps-vww-f32", SLICED])
+def test_a_traced_run_is_the_untraced_one_on_card(label):
+    """``run(x, trace=True)`` on the card: the same bits as the untraced
+    run, the certificate's traffic, the static trace's canonical form
+    (the CPU's), and a time for every op from its CUDA events."""
+    _need_card()
+    cn, x = _traced_plan(label)
+    y = cn.run(x)
+    y_t, art = cn.run(x, trace=True)
+    assert torch.equal(y_t, y) and art.backend == "cuda"
+    seg_bytes = cn.program.seg_width * cn.program.elem_bytes
+    assert art.totals["bytes_loaded"] == cn.certificate["reads"] * seg_bytes
+    assert art.totals["bytes_stored"] == \
+        cn.certificate["writes"] * seg_bytes
+    assert art.watermark_bytes == cn.program.pool_bytes
+    _, cpu = cn.run(x, device="cpu", trace=True)
+    assert dict(art.canonical(), backend=None) == \
+        dict(cpu.canonical(), backend=None)
+    ops = [e for e in art.events if 0 <= e["index"] < len(cn.program.ops)]
+    assert len(ops) == len(cn.program.ops)
+    assert all(e["wall_us"] > 0 for e in ops)
+
+
+@pytest.mark.gpu
+def test_a_traced_stream_is_the_untraced_one_on_card():
+    _need_card()
+    cn, golden = load(_artifact("ds-cnn-stream")), _golden("ds-cnn-stream")
+    plain, traced = cn.stream(), cn.stream(trace=True)
+    for f in golden["x_q"][:10]:
+        f = torch.from_numpy(f).cuda()
+        assert torch.equal(traced.step(f), plain.step(f))
+    assert len(traced.traces) == 10
+    assert all(t.backend == "cuda" and t.totals["wall_us"] > 0
+               for t in traced.traces)
 
 
 #: Launches of 60 ``step`` calls, per kernel.

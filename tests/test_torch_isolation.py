@@ -3,8 +3,11 @@ they import neither JAX nor anything of the reference package ``repro``,
 by the source and in a run with both blocked — in which the port also
 compiles DS-CNN for the M4 with its default passes, runs the result,
 compiles the committed plan from the reference's params and calibration
-inputs, proves VWW's plan statically, emits its C, and runs both of its
-command lines' ``--smoke`` gates."""
+inputs, proves VWW's plan statically, emits its C, runs both of its
+compile and lint command lines' ``--smoke`` gates, compiles ImageNet
+for the M4 with ``partial="auto"``, serves the sliced plan, traces a run
+and runs the trace command line's ``--smoke`` in a temporary
+directory."""
 import ast
 import os
 import pathlib
@@ -46,10 +49,14 @@ def test_sources_exist():
             "ir.py", "schedule.py", "netplan.py", "convert.py",
             "qtensor.py", "lint.py", "verifier.py", "targets.py",
             "artifact.py", "intervals.py", "mutate.py", "codegen.py",
-            "cli.py"} <= names
+            "cli.py", "slicer.py", "lower.py", "counters.py",
+            "timeline.py", "tracer.py", "analysis.py"} <= names
     src = ROOT / "src" / "repro_torch"
     assert (src / "cli.py").exists()
     assert (src / "analysis" / "cli.py").exists()
+    for module in ("partial/__init__.py", "obs/cli.py",
+                   "roofline/__init__.py"):
+        assert (src / module).exists()
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
             / "ring_decode.cu").exists()
     assert all(p.exists() for p in SOURCES)
@@ -143,6 +150,21 @@ from repro_torch.analysis.cli import main as lint_main
 from repro_torch.cli import main as compile_main
 assert compile_main(["--smoke"]) == 0
 assert lint_main(["--smoke"]) == 0
+cn = repro_torch.compile("mcunet-320kb-imagenet", "cortex-m4", quantize=False,
+                         certify="static", partial="auto")
+assert cn.partial["total_slices"] == 36 and len(cn.program.ops) == 158
+sliced = assets + "/mcunet-320kb-imagenet.cortex-m4.int8.sliced"
+cn = repro_torch.load(sliced + ".json")
+with np.load(sliced + ".golden.npz") as g:
+    y, art = cn.run(g["x"][0], device="cpu", trace=True)
+    assert np.array_equal(y.numpy(), g["y"][0])
+from repro_torch.roofline import ring_traffic_summary
+assert ring_traffic_summary(art)["macs"] > 0
+import os, tempfile
+from repro_torch.obs.cli import main as trace_main
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)
+    assert trace_main(["--smoke"]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")

@@ -152,8 +152,13 @@ def test_stream_refuses_what_is_not_ported_or_not_there(monkeypatch):
     # and steps to the oracle's counters
     counters = cn.stream(backend="sim").step()
     assert counters["steps"] == 1 and counters["live"] > 0
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        cn.stream(device="cpu", trace=True)
+    # trace=True is ported: one artifact per step, the same outputs
+    traced, plain = cn.stream(device="cpu", trace=True), cn.stream(
+        device="cpu")
+    frame = torch.zeros((cn.program.ops[0].rows_in, cn.program.in_dim),
+                        dtype=torch.int8)
+    assert torch.equal(traced.step(frame), plain.step(frame))
+    assert len(traced.traces) == 1 and traced.traces[0].backend == "cpu"
     with pytest.raises(ValueError, match="backend"):
         cn.stream(device="cpu", backend="pallas")
     with pytest.raises(ValueError, match="no stream state"):
