@@ -56,9 +56,12 @@ Phases, one summary line each:
      its scratch bytes (``fused_mlp.mlp_tiling``);
      the sliced plan's 31 window reads, each with its base, CTAs and mode;
      then ``ring_decode_attention`` against its plain version on every
-     case of ``cases.DECODE_CASES`` (fp32 within 2e-5, bf16 within one
-     bf16 ulp of the output's scale), with each case's splits and CTAs
-     (``ring_decode.decode_splits``);
+     case of ``cases.DECODE_CASES`` and ``cases.LM_DECODE_CASES`` (the
+     other LMs' geometries: 10 q heads on one KV head of 256 over a
+     wrapped 2,048-slot ring, 2 q heads per KV head of 64, a 1,500-slot
+     cross memory with a ragged last block; fp32 within 2e-5, bf16 within
+     one bf16 ulp of the output's scale), with each case's splits and
+     CTAs (``ring_decode.decode_splits``);
   3. the paths, each with the launch counts set to 0 just before it and
      read just after:
        * ``repro_torch.load(artifact).run(x)`` on the int8 DS-CNN,
@@ -103,6 +106,25 @@ Phases, one summary line each:
          (``build_model(..., plain=True)``) at every step; and, at batch
          1, the committed full-width golden's tokens and top-64 logits
          (``cases.hold_lm_golden``);
+       * after gemma3-1b is timed and freed, an LM of each other block
+         kind at full width and depth, one resident at a time
+         (``LM_PATHS``: its parameters, bytes on the card and host draw
+         seconds printed first): recurrentgemma-2b (prompts of 8, 64, 600
+         and 2,100 tokens, the last wrapping the 2,048-slot local rings in
+         prefill; 8 launches a decode step), granite-moe-1b-a400m (8, 64,
+         500, 600; 24 a step; the prefill's choices the capacity drops
+         printed by layer), mamba2-780m (8, 64, 500, 600; no launch) and
+         whisper-tiny (8, 64, 200, 400 tokens over 1,500 seeded encoder
+         frames; 4 self and 4 memory launches a step), each generating 32
+         tokens with exactly those launches and no other kernel, its
+         logits within the plain path's tolerance at every step (a row of
+         the MoE config that misses is let pass only from the step on
+         where the two paths' routings, ``moe.Routing``, really sent one
+         of its tokens to other experts), and the reference's committed
+         full-width golden held at batch 1 (an MoE golden's misses
+         likewise only where the routing went apart from the
+         reference's); then each is timed (phase 4) and freed; every
+         LM's host draw runs on a thread of its own from phase 1 on;
   4. timing: per-inference host-clock latency at batch 1 and 8 and
      per-step stream latency, the device-busy share of each path from
      ``torch.profiler``, and per kernel its CUDA-event time, its plain
@@ -116,9 +138,14 @@ Phases, one summary line each:
      gemma3-1b path's prefill latency at batch 4, per-token decode
      latency at batch 1 and 4, its device-busy share, and
      ``ring_decode_attention`` at its two serve shapes (a 512-slot local
-     ring and the 1,024-slot global cache, bf16, batch 4) beside its
+     ring and the 1,024-slot global cache, bf16, batch 4) and at the
+     three of ``LM_DECODE_CASES`` beside its
      bound, its plain version and one
-     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call; and
+     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call; each
+     other LM's prefill latency at batch 4 and per-token decode latency
+     at batch 1 and 4 with its busy share and bound (weight bytes a
+     decode step reads, of an MoE layer the top-k experts', at 3.35
+     TB/s); and
      ``ring_fused_mlp`` on the tower's layer under its tiling and a few
      others (``MLP_TILINGS``), and ``ring_add_q`` on every int8 add of
      the plans and edge cases in each mode it may take (the row map, and
@@ -275,7 +302,14 @@ CUDA_CORE_OPS_PER_S = 67e12        # outside the tensor cores: fp32 FMA
 DEVICE_TYPE = "cuda"               # where every path's outputs must lie
 
 
+#: The script's start on the host clock: each phase's first line says
+#: how many seconds had passed.
+T0 = time.perf_counter()
+
+
 def say(*args) -> None:
+    if args and str(args[0]).startswith("phase"):
+        args = (*args, f"[{time.perf_counter() - T0:.1f} s in]")
     print(*args, flush=True)
 
 
@@ -1553,14 +1587,16 @@ def _decode_call(case):
 def phase_decode_parity() -> float:
     """``ring_decode_attention`` against its plain version on the card on
     every decode case; returns the max |difference|."""
-    from repro_torch.kernels.cases import DECODE_CASES, compare_decode
+    from repro_torch.kernels.cases import (DECODE_CASES, LM_DECODE_CASES,
+                                           compare_decode)
     from repro_torch.kernels.ring_decode import (
         decode_splits, ring_decode_attention, ring_decode_attention_plain)
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     splits = []
-    for case in DECODE_CASES:
+    cases = DECODE_CASES + LM_DECODE_CASES
+    for case in cases:
         sp = decode_splits(case.batch or 1, case.kv_heads, case.window, n_sm)
         splits.append(f"{case.name} {sp.splits} splits of {sp.split_len} "
                       f"slots, {sp.ctas} CTAs")
@@ -1577,7 +1613,7 @@ def phase_decode_parity() -> float:
             raise SystemExit(f"{case.name}: ring_decode_attention differs "
                              f"from its plain version, {bad}")
         worst[case.dtype] = max(worst[case.dtype], err)
-    say(f"  ring_decode_attention: {len(DECODE_CASES)} calls within the "
+    say(f"  ring_decode_attention: {len(cases)} calls within the "
         f"tolerance of its plain version (fp32 2e-5, bf16 one ulp of the "
         f"output's scale); max |difference| fp32 {worst['float32']:.3g}, "
         f"bf16 {worst['bfloat16']:.3g}; splits on {n_sm} SMs:")
@@ -1586,25 +1622,57 @@ def phase_decode_parity() -> float:
     return max(worst.values())
 
 
-def lm_setup():
-    """gemma3-1b's config and its ``lm_params(cfg, SEED)`` on the card
-    (matmul weights bf16, embedding fp32)."""
+def _draw(name: str):
+    """``(lm_params(cfg, SEED), seconds)`` of a config, on the host."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.cases import lm_params
+
+    t0 = time.perf_counter()
+    tree = lm_params(get_config(name), SEED)
+    return tree, time.perf_counter() - t0
+
+
+def start_lm_draws(names) -> dict:
+    """Start each LM's host draw (``lm_params(cfg, SEED)``) on a thread
+    of its own, so that the draws run beside the phases before their
+    paths (numpy's generators release the GIL while they fill an array);
+    returns each name's future of ``(tree, seconds)``.  The threads end
+    with their draws."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import repro_torch.kernels.cases  # noqa: F401  (imported here, once)
+
+    pool = ThreadPoolExecutor(max_workers=len(names),
+                              thread_name_prefix="lm-draw")
+    futures = {name: pool.submit(_draw, name) for name in names}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def lm_setup(name: str = LM, draws: dict | None = None):
+    """A config's ``lm_params(cfg, SEED)`` on the card (matmul weights
+    bf16, embeddings fp32), taken from ``draws`` (:func:`start_lm_draws`)
+    or drawn here, with its parameter count, its bytes on the card, the
+    seconds of its host draw and the seconds this thread waited for it
+    printed."""
+    from repro_torch.configs import get_config
     from repro_torch.models import params_from_reference
 
-    cfg = get_config(LM)
+    cfg = get_config(name)
     t0 = time.perf_counter()
-    tree = lm_params(cfg, SEED)
+    threaded = draws is not None
+    tree, draw_s = draws.pop(name).result() if threaded else _draw(name)
     t1 = time.perf_counter()
     params = params_from_reference(cfg, tree, DEVICE_TYPE)
     del tree
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    say(f"  {LM}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+    where = f"on a host thread beside the earlier phases (waited " \
+        f"{t1 - t0:.1f} s for it)" if threaded else "here"
+    say(f"  {name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
         f"{cfg.vocab}: {n:,} parameters ({nbytes / 1e9:.3f} GB on the "
-        f"card) drawn by lm_params in {t1 - t0:.1f} s, moved in "
+        f"card) drawn by lm_params in {draw_s:.1f} s {where}, moved in "
         f"{time.perf_counter() - t1:.1f} s")
     return cfg, params
 
@@ -1620,100 +1688,186 @@ def _leaves(tree):
         yield tree
 
 
-def lm_prompts_of_path(cfg):
-    """The serve path's seeded prompts (``LM_PROMPT_LENS`` tokens) and
-    the left-padded batch the engine makes of them."""
+@dataclasses.dataclass(frozen=True)
+class LMPath:
+    """An LM served at full width and depth in phase 3 and timed in
+    phase 4: its seeded prompts' lengths (left-padded to the longest),
+    the decode cache length, the tokens generated, and the
+    ``ring_decode_attention`` launches of one decode step (one a
+    self-attention layer and one a cross layer's memory, for the whole
+    batch)."""
+
+    name: str
+    prompt_lens: tuple
+    cache_len: int
+    per_step: int
+    max_new: int = LM_MAX_NEW
+
+
+#: gemma3-1b (its 600-token prompt wraps the 512-slot local rings), then
+#: an LM of each other block kind, resident one at a time:
+#: recurrentgemma-2b (rec, rec, local: 8 local layers, a 2,048-slot ring
+#: the 2,100-token prompt wraps in prefill, 10 q heads on one KV head of
+#: 256), granite-moe-1b-a400m (24 full layers, 32 experts top 8: the
+#: prefill's 2,400 tokens have 750 slots an expert, so choices drop),
+#: mamba2-780m (48 ssm layers, no attention: SSD over 3 chunks of 256 with
+#: padding) and whisper-tiny (4 encoder layers over 1,500 seeded frames,
+#: 4 cross layers: 4 self and 4 memory launches a step).
+LM_PATHS = (
+    LMPath(LM, LM_PROMPT_LENS, LM_CACHE_LEN, 26),
+    LMPath("recurrentgemma-2b", (8, 64, 600, 2100), 2176, 8),
+    LMPath("granite-moe-1b-a400m", (8, 64, 500, 600), 1024, 24),
+    LMPath("mamba2-780m", (8, 64, 500, 600), 1024, 0),
+    LMPath("whisper-tiny", (8, 64, 200, 400), 512, 8),
+)
+
+
+def lm_prompts_of_path(cfg, prompt_lens=LM_PROMPT_LENS):
+    """The serve path's seeded prompts (``prompt_lens`` tokens) and the
+    left-padded batch the engine makes of them."""
     rng = np.random.default_rng([SEED, 2])
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab, n)]
-               for n in LM_PROMPT_LENS]
-    L = max(LM_PROMPT_LENS)
+               for n in prompt_lens]
+    L = max(prompt_lens)
     padded = torch.tensor([[0] * (L - len(p)) + p for p in prompts],
                           device=DEVICE_TYPE)
     return prompts, padded
 
 
-def path_lm(cfg, params, golden) -> dict[str, int]:
-    """gemma3-1b's ``ServingEngine.generate`` on the card: exactly one
-    ``ring_decode_attention`` launch per layer per decode step and no
-    other kernel; logits teacher-forced on its tokens within the bf16
-    tolerance of the plain path's at every step; the golden's tokens and
-    top-64 logits at batch 1."""
+def lm_memory_of_path(cfg, batch: int):
+    """The seeded memory (``cases.lm_memory``) of a config with cross
+    blocks on the card, else None."""
+    from repro_torch.kernels.cases import lm_memory
+
+    mem = lm_memory(cfg, SEED, batch)
+    return None if mem is None else torch.from_numpy(mem).to(DEVICE_TYPE)
+
+
+def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
+            ) -> dict[str, int]:
+    """An LM's ``ServingEngine.generate`` on the card: exactly
+    ``path.per_step`` ``ring_decode_attention`` launches per decode step
+    and no other kernel; logits teacher-forced on its tokens within the
+    bf16 tolerance of the plain path's at every step (a row of an MoE
+    config that misses is let pass only from the step on where the two
+    paths' routings, ``moe.Routing``, really sent one of its tokens to
+    other experts); the golden's tokens and top-64 logits at batch 1
+    (an MoE golden's misses likewise only where the port's routing went
+    apart from the reference's, ``cases.hold_lm_golden``)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.cases import (hold_lm_golden, logits_close,
-                                           near_tie)
+                                           near_tie, route_codes,
+                                           routed_apart)
     from repro_torch.models import build_model
+    from repro_torch.models.moe import capacity as moe_capacity
     from repro_torch.serve import ServingEngine
 
+    name = path.name
     model, plain = build_model(cfg), build_model(cfg, plain=True)
-    prompts, padded = lm_prompts_of_path(cfg)
-    engine = ServingEngine(model, params, cache_len=LM_CACHE_LEN)
+    prompts, padded = lm_prompts_of_path(cfg, path.prompt_lens)
+    B = len(prompts)
+    memory = lm_memory_of_path(cfg, B)
+    engine = ServingEngine(model, params, cache_len=path.cache_len)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, max_new=LM_MAX_NEW)
+    out = engine.generate(prompts, max_new=path.max_new, memory=memory)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     counts = launch_counts()
-    want = {"ring_decode_attention": cfg.n_layers * LM_MAX_NEW}
+    want = {"ring_decode_attention": path.per_step * path.max_new} \
+        if path.per_step else {}
     if {k: n for k, n in counts.items() if n} != want:
-        raise SystemExit(f"{LM}: launches {counts} are not {want} "
-                         f"({cfg.n_layers} per decode step)")
-    say(f"  {LM} generate launches: {want} ({cfg.n_layers} per decode "
-        f"step at batch {len(prompts)}; {gen_s:.2f} s)")
-    if [len(o) for o in out] != [LM_MAX_NEW] * len(prompts) or not all(
+        raise SystemExit(f"{name}: launches {counts} are not {want} "
+                         f"({path.per_step} per decode step)")
+    say(f"  {name} generate launches: {want or 'none'} ({path.per_step} "
+        f"per decode step at batch {B}; {gen_s:.2f} s)")
+    if [len(o) for o in out] != [path.max_new] * B or not all(
             0 <= t < cfg.vocab for o in out for t in o):
-        raise SystemExit(f"{LM}: generate gave {out}")
+        raise SystemExit(f"{name}: generate gave {out}")
 
-    lk, ck, cur_k = model.prefill(params, padded, cache_len=LM_CACHE_LEN)
-    lp, cp, cur_p = plain.prefill(params, padded, cache_len=LM_CACHE_LEN)
-    worst, scale = 0.0, 0.0
-    for t in range(LM_MAX_NEW + 1):
+    worst, scale, passed = 0.0, 0.0, []
+    # the step from which each row's routing went apart in the two paths
+    apart = np.full(B, path.max_new + 1)
+    rk, rp = [], []
+    lk, ck, cur_k = model.prefill(params, padded, cache_len=path.cache_len,
+                                  memory=memory, routes=rk)
+    if cfg.n_experts:
+        drops = [int((~r.keep).sum()) for r in rk]
+        T = padded.numel()
+        say(f"  {name} prefill: T = {T} tokens, {moe_capacity(cfg, T)} "
+            f"slots an expert; choices dropped of {T * cfg.top_k} by layer "
+            f"{drops} ({sum(drops)} in all)")
+    lp, cp, cur_p = plain.prefill(params, padded, cache_len=path.cache_len,
+                                  memory=memory, routes=rp)
+    for t in range(path.max_new + 1):
+        if cfg.n_experts:
+            rows = routed_apart(route_codes(rk), route_codes(rp)).any(1)
+            apart[rows] = np.minimum(apart[rows], t)
+            rk.clear()
+            rp.clear()
         got, ref = lk.float().cpu().numpy(), lp.float().cpu().numpy()
-        if not np.isfinite(got).all() or got.shape != (len(prompts),
-                                                       cfg.vocab):
-            raise SystemExit(f"{LM}: step {t} logits {got.shape} are not "
-                             "finite")
+        if not np.isfinite(got).all() or got.shape != (B, cfg.vocab):
+            raise SystemExit(f"{name}: step {t} logits {got.shape} are "
+                             "not finite")
         s = float(np.abs(ref).max())
-        err, ok = logits_close(got, ref, s)
-        if not ok:
-            raise SystemExit(f"{LM}: step {t} logits differ from the plain "
-                             f"path's by {err:.3g} (max |logit| {s:.3g})")
-        worst, scale = max(worst, err), max(scale, s)
-        if t == LM_MAX_NEW:
+        for b in range(B):
+            err, ok = logits_close(got[b], ref[b], s)
+            if not ok and apart[b] > t:
+                raise SystemExit(
+                    f"{name}: step {t} row {b} logits differ from the "
+                    f"plain path's by {err:.3g} (max |logit| {s:.3g})")
+            if not ok:
+                passed.append((t, b))
+            elif apart[b] > t:
+                worst = max(worst, err)
+        scale = max(scale, s)
+        if t == path.max_new:
             break
         tok = [row[t] for row in out]
         if [int(i) for i in got.argmax(-1)] != tok:
-            raise SystemExit(f"{LM}: generate's tokens {t} {tok} are not "
-                             "the argmax of the same path's logits")
+            raise SystemExit(f"{name}: generate's tokens {t} {tok} are "
+                             "not the argmax of the same path's logits")
         tok = torch.tensor(tok, device=DEVICE_TYPE)
-        lk, ck, cur_k = model.decode_step(params, ck, tok, cur_k)
-        lp, cp, cur_p = plain.decode_step(params, cp, tok, cur_p)
-    say(f"  {LM}: {len(prompts)} prompts of {list(LM_PROMPT_LENS)} tokens, "
-        f"{LM_MAX_NEW} new: the prefill and every decode step's logits "
+        lk, ck, cur_k = model.decode_step(params, ck, tok, cur_k, routes=rk)
+        lp, cp, cur_p = plain.decode_step(params, cp, tok, cur_p, routes=rp)
+    gone = {b: int(apart[b]) for b in range(B) if apart[b] <= path.max_new}
+    say(f"  {name}: {B} prompts of {list(path.prompt_lens)} tokens, "
+        f"{path.max_new} new: the prefill and every decode step's logits "
         f"within rtol 2e-2, atol 2e-2 * max|logits| of the plain path's "
-        f"(max |difference| {worst:.4g}, max |logit| {scale:.4g})")
+        f"(max |difference| {worst:.4g}, max |logit| {scale:.4g})"
+        + (f"; the two paths routed apart in (row: from step) "
+           f"{gone or 'none'}, misses let pass at (step, row) "
+           f"{passed or 'none'}" if cfg.n_experts else ""))
 
     held = hold_lm_golden(model, params, golden)
     if not held["ok"]:
-        raise SystemExit(f"{LM}: the port differs from the full-width "
+        raise SystemExit(f"{name}: the port differs from the full-width "
                          f"golden: {held}")
+    mem1 = lm_memory_of_path(cfg, 1)
     for i, n in enumerate(golden["prompt_lens"]):
+        if any(p == i for p, _ in held["routed_apart"]):
+            continue
         row = ServingEngine(model, params,
                             cache_len=int(golden["cache_len"])).generate(
             [[int(t) for t in golden["prompts"][i, :n]]],
-            max_new=golden["tokens"].shape[1])[0]
+            max_new=golden["tokens"].shape[1], memory=mem1)[0]
         for t, (a, b) in enumerate(zip(row, golden["tokens"][i])):
             if a == b:
                 continue
             if not near_tie(golden["top_logits"][i, t, :2],
                             float(golden["absmax"][i, t])):
-                raise SystemExit(f"{LM}: golden prompt {i} token {t} is "
+                raise SystemExit(f"{name}: golden prompt {i} token {t} is "
                                  f"{a}, not {b}")
             break   # after a flipped near tie the contexts differ
-    say(f"  {LM}: the full-width golden held at batch 1 (teacher-forced "
-        f"top-64 logits within the tolerance, max |difference| "
-        f"{held['max_err']:.4g}; greedy tokens {held['tokens']}, near ties "
-        f"flipped at {held['flips'] or 'none'})")
+    say(f"  {name}: the reference's full-width golden held at batch 1 "
+        f"(teacher-forced top-64 logits within the tolerance, max "
+        f"|difference| {held['max_err']:.4g}; greedy tokens "
+        f"{held['tokens']}, near ties flipped at {held['flips'] or 'none'}"
+        + (f", misses let pass where the routing went apart from the "
+           f"reference's, from (prompt, step) "
+           f"{held['routed_apart'] or 'none'}" if cfg.n_experts else "")
+        + ")")
     torch.cuda.synchronize()
     return counts
 
@@ -1788,42 +1942,157 @@ def time_decode_kernel(cfg, seq: int, counts, err) -> dict:
             "library_calls": 1, "by_shape": shapes}
 
 
-def time_lm(cfg, params) -> dict:
-    """gemma3-1b's prefill latency at batch 4, per-token decode latency
-    at batch 1 and 4 (host clock ending in synchronize), and the
+#: bf16 products on the tensor cores (NVIDIA data sheet, dense, 700 W).
+BF16_OPS_PER_S = 989e12
+
+
+def decode_weight_bytes(cfg, params) -> tuple[int, int]:
+    """``(bytes, parameters)`` one decode step must read: every decoder
+    layer's weights as they lie on the card (of an MoE layer's experts,
+    ``top_k`` of ``n_experts``: the router, the shared experts and the
+    chosen experts' gate, up and down), the final norm, and the
+    (un)embedding the logits read whole; the encoder's weights (run once
+    in prefill) and the embedding rows the step gathers are left out."""
+    nbytes = params_n = 0
+    for layer in params["layers"]:
+        for t in _leaves(layer):
+            nbytes += t.numel() * t.element_size()
+            params_n += t.numel()
+        ffn = layer.get("ffn", {})
+        if "moe_gate" in ffn:
+            skip = 1 - cfg.top_k / cfg.n_experts
+            for key in ("moe_gate", "moe_up", "moe_down"):
+                t = ffn[key]
+                nbytes -= int(t.numel() * t.element_size() * skip)
+                params_n -= int(t.numel() * skip)
+    for t in _leaves(params["final_ln"]):
+        nbytes += t.numel() * t.element_size()
+        params_n += t.numel()
+    w = params.get("unembed", params["embed"])
+    return (nbytes + w.numel() * w.element_size(), params_n + w.numel())
+
+
+def time_lm(cfg, params, path: LMPath = LM_PATHS[0]) -> dict:
+    """An LM's prefill latency at batch 4 and per-token decode latency at
+    batch 1 and 4 (host clock ending in synchronize), each with the
     device-busy share and ring_decode_attention's profiled time per
-    launch over decode steps."""
+    launch (torch.profiler), beside their bounds: a decode step's weight
+    bytes (:func:`decode_weight_bytes`) at 3.35 TB/s; a prefill's the
+    larger of those bytes and 2 x weights' parameters x tokens products
+    at the bf16 tensor-core rate (attention's products left out)."""
     from repro_torch.models import build_model
 
+    name = path.name
     model = build_model(cfg)
-    _, padded = lm_prompts_of_path(cfg)
-    prefill_ms = _host_ms(lambda: model.prefill(params, padded,
-                                                cache_len=LM_CACHE_LEN), 5)
-    out = {"prefill_ms_batch4": prefill_ms}
-    say(f"  {LM} serve: prefill {prefill_ms:.3f} ms at batch "
-        f"{len(padded)} x {padded.shape[1]} tokens")
+    _, padded = lm_prompts_of_path(cfg, path.prompt_lens)
+    memory = lm_memory_of_path(cfg, len(padded))
+    nbytes, n_params = decode_weight_bytes(cfg, params)
+    step_bound = nbytes / HBM_BYTES_PER_S * 1e3
+    tokens = padded.numel()
+    pre_bound = max(nbytes / HBM_BYTES_PER_S,
+                    2 * n_params * tokens / BF16_OPS_PER_S) * 1e3
+
+    def prefill():
+        model.prefill(params, padded, cache_len=path.cache_len,
+                      memory=memory)
+    prefill_ms = _host_ms(prefill, 3)
+    busy, call_us, _, _ = _device_busy(prefill, 1)
+    out = {"prefill_ms_batch4": prefill_ms, "prefill_busy_batch4": busy,
+           "prefill_bound_ms": pre_bound, "decode_bound_ms": step_bound,
+           "decode_weight_bytes": nbytes}
+    busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+    say(f"  {name} serve: prefill {prefill_ms:.3f} ms at batch "
+        f"{len(padded)} x {padded.shape[1]} tokens (host clock, ending in "
+        f"synchronize), device busy {busy_txt} of {call_us:.1f} us "
+        f"(profiler), bound {pre_bound:.3f} ms")
     for B in (1, len(padded)):
         toks = padded[-B:]
+        mem = None if memory is None else memory[-B:]
         logits, caches, cur = model.prefill(params, toks,
-                                            cache_len=LM_CACHE_LEN)
+                                            cache_len=path.cache_len,
+                                            memory=mem)
         tok = logits.argmax(-1)
 
         def step():   # the same step again: the same work every call
             model.decode_step(params, caches, tok, cur)
         ms = _host_ms(step, 20)
-        busy, call_us, prof, _ = _device_busy(step, 10)
+        busy, call_us, prof, _ = _device_busy(step, 3)
         out[f"decode_ms_batch{B}"] = ms
         out[f"device_busy_batch{B}"] = busy
         out[f"decode_kernel_profiler_ms_batch{B}"] = prof.get(
             "ring_decode_attention")
         busy_txt = "not measured" if busy is None else f"{busy:.4f}"
-        say(f"  {LM} serve: {ms:.4f} ms per decode step at batch {B} (host "
-            f"clock, ending in synchronize); device busy {busy_txt} of "
-            f"{call_us:.1f} us per step (profiler); ring_decode_attention "
-            f"{(prof.get('ring_decode_attention') or 0) * 1e3:.2f} us per "
-            "launch on the path (profiler)")
+        kern = prof.get("ring_decode_attention")
+        say(f"  {name} serve: {ms:.4f} ms per decode step at batch {B} "
+            f"(host clock, ending in synchronize); device busy {busy_txt} "
+            f"of {call_us:.1f} us per step (profiler); bound "
+            f"{step_bound:.4f} ms ({nbytes / 1e9:.3f} GB of weights at "
+            f"3.35 TB/s); ring_decode_attention "
+            + ("not on the path" if kern is None else
+               f"{kern * 1e3:.2f} us per launch on the path (profiler)"))
     return out
 
+
+def time_decode_shapes(cases) -> dict:
+    """``ring_decode_attention`` at the other LMs' decode geometries
+    (``cases.LM_DECODE_CASES``): device time per launch, its plain
+    version's, one ``F.scaled_dot_product_attention`` call on the same
+    tensors with the validity mask, and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ring_decode import (
+        ring_decode_attention, ring_decode_attention_plain)
+
+    shapes = {}
+    for case in cases:
+        q, k, v, seq = _decode_call(case)
+        B, S, H, KV, d = case.batch, case.window, case.q_heads, \
+            case.kv_heads, case.head_dim
+        slot = torch.arange(S, device=DEVICE_TYPE)
+        mask = ((slot < seq) | (seq >= S))[None, None, None, :] \
+            .expand(B, 1, 1, S)
+        qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), \
+            v.permute(0, 2, 1, 3)
+        kw = case.kwargs
+        ms = _held_ms(lambda: ring_decode_attention(q, k, v, seq, **kw), 200)
+        plain_ms = _event_ms(
+            lambda: ring_decode_attention_plain(q, k, v, seq, **kw), 20)
+        lib_ms = _held_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), 200)
+        valid = S if seq >= S else seq
+        b_ms, by = _decode_bound(B, H, KV, d, valid)
+        shapes[case.name] = {"slots": S, "valid": valid, "ms": ms,
+                             "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "bound_ms": b_ms, "bound_by": by}
+        say(f"    ring_decode_attention {case.name}: {ms * 1e3:8.2f} "
+            f"us/launch (device), plain {plain_ms * 1e3:9.2f} us, library "
+            f"(SDPA) {lib_ms * 1e3:8.2f} us, bound {b_ms * 1e3:.4f} us "
+            f"({by})")
+    return shapes
+
+
+def serve_new_lms(golden_dir, draws: dict) -> tuple[dict, dict]:
+    """Phase 3's checks and phase 4's timing of every LM path but
+    gemma3-1b, one resident at a time (moved to the card from its host
+    draw, served, timed, freed): returns each path's launch counts and
+    timings by name."""
+    counts, timings = {}, {}
+    for path in LM_PATHS[1:]:
+        t0 = time.perf_counter()
+        cfg, params = lm_setup(path.name, draws)
+        with np.load(golden_dir / f"{path.name}.golden.npz") as g:
+            golden = {k: g[k] for k in g.files}
+        t1 = time.perf_counter()
+        counts[path.name] = path_lm(cfg, params, golden, path)
+        t2 = time.perf_counter()
+        timings[f"{path.name} serve"] = time_lm(cfg, params, path)
+        say(f"  {path.name}: set up in {t1 - t0:.1f} s, served and held "
+            f"in {t2 - t1:.1f} s, timed in {time.perf_counter() - t2:.1f} "
+            f"s")
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return counts, timings
 
 
 # ---------------------------------------------------------------------------
@@ -2331,7 +2600,8 @@ def main() -> None:
     from repro_torch.kernels.cases import (CARD_EDGE_CASES, EDGE_CASES,
                                            F32_EDGE_CASES,
                                            F32_FUSED_STREAM_EDGE_CASES,
-                                           F32_MLP_EDGE_CASES)
+                                           F32_MLP_EDGE_CASES,
+                                           LM_DECODE_CASES)
 
     card = nvidia_smi_line()
     say(f"phase 0: card {card}")
@@ -2345,6 +2615,7 @@ def main() -> None:
         f"{torch.backends.cuda.matmul.allow_tf32}, "
         f"torch.backends.cudnn.allow_tf32 = "
         f"{torch.backends.cudnn.allow_tf32}")
+    draws = start_lm_draws([p.name for p in LM_PATHS])
     phase_build()
 
     served_labels = NETS + tuple(n + F32 for n in FLOAT_NETS
@@ -2374,7 +2645,7 @@ def main() -> None:
     for n in FLOAT_STREAMS:
         counts[n + F32] = path_stream_f32(n + F32, plans[n + F32],
                                           goldens[n + F32])
-    lm_cfg, lm_weights = lm_setup()
+    lm_cfg, lm_weights = lm_setup(LM, draws)
     with np.load(ASSETS / f"{LM}.golden.npz") as g:
         lm_golden = {k: g[k] for k in g.files}
     counts[LM] = path_lm(lm_cfg, lm_weights, lm_golden)
@@ -2408,9 +2679,26 @@ def main() -> None:
         time_gru_modes(cases[STREAMS[1] + F32] + F32_FUSED_STREAM_EDGE_CASES,
                        "ring_gru_cell")
     paths[f"{LM} serve"] = time_lm(lm_cfg, lm_weights)
-    rows.append(time_decode_kernel(
+    decode_row = time_decode_kernel(
         lm_cfg, max(LM_PROMPT_LENS) + LM_MAX_NEW // 2, counts[LM],
-        decode_err))
+        decode_err)
+    rows.append(decode_row)
+    del lm_weights
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    say("phases 3 and 4, the LMs of the other block kinds at full width, "
+        "one resident at a time: served and held (phase 3), then timed "
+        "(phase 4)")
+    lm_counts, lm_timings = serve_new_lms(ASSETS, draws)
+    counts.update(lm_counts)
+    paths.update(lm_timings)
+    decode_row["launches"] += sum(c["ring_decode_attention"]
+                                  for c in lm_counts.values())
+    decode_row["launches_by_path"] = {
+        p.name: counts[p.name]["ring_decode_attention"] for p in LM_PATHS}
+    say("  ring_decode_attention at those paths' decode geometries:")
+    decode_row["by_shape"].update(time_decode_shapes(LM_DECODE_CASES))
 
     say("phase 5: repro_torch.compile on the host, then the card runs the "
         "plans it compiled")

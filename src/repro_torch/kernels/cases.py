@@ -921,12 +921,9 @@ def _lm_norm(rng, cfg, lead: tuple) -> dict:
     return p
 
 
-def _lm_block(rng, cfg, lead: tuple) -> dict:
-    """One dense attention block's params (``lead`` = ``(g,)`` stacks a
-    scan group), drawn in this order: attention ln, w_q, w_k, w_v, w_o,
-    post_ln; FFN ln, w_gate (gated MLPs), w_up, w_down, post_ln."""
-    d, f = cfg.d_model, cfg.d_ff
-    s_in, s_out = 1 / math.sqrt(d), 1 / math.sqrt(f)
+def _lm_attn(rng, cfg, lead: tuple) -> dict:
+    """An attention sub-layer: ln, w_q, w_k, w_v, w_o, post_ln."""
+    d, s_in = cfg.d_model, 1 / math.sqrt(cfg.d_model)
     attn = {"ln": _lm_norm(rng, cfg, lead),
             "w_q": _normal(rng, lead + (d, cfg.q_dim), s_in),
             "w_k": _normal(rng, lead + (d, cfg.kv_dim), s_in),
@@ -934,6 +931,13 @@ def _lm_block(rng, cfg, lead: tuple) -> dict:
             "w_o": _normal(rng, lead + (cfg.q_dim, d), s_in)}
     if cfg.post_norms:
         attn["post_ln"] = _lm_norm(rng, cfg, lead)
+    return attn
+
+
+def _lm_mlp(rng, cfg, lead: tuple, d_ff: int | None = None) -> dict:
+    """A dense FFN: ln, w_gate (gated MLPs), w_up, w_down, post_ln."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    s_in, s_out = 1 / math.sqrt(d), 1 / math.sqrt(f)
     ffn = {"ln": _lm_norm(rng, cfg, lead)}
     if cfg.mlp in ("geglu", "swiglu"):
         ffn["w_gate"] = _normal(rng, lead + (d, f), s_in)
@@ -941,33 +945,141 @@ def _lm_block(rng, cfg, lead: tuple) -> dict:
     ffn["w_down"] = _normal(rng, lead + (f, d), s_out)
     if cfg.post_norms:
         ffn["post_ln"] = _lm_norm(rng, cfg, lead)
-    return {"attn": attn, "ffn": ffn}
+    return ffn
+
+
+def _lm_moe(rng, cfg, lead: tuple) -> dict:
+    """An MoE FFN (``models/moe.py:25``): ln, router, the experts' gate,
+    up and down, then the shared experts' gate, up and down."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    s_in, s_out = 1 / math.sqrt(d), 1 / math.sqrt(f)
+    p = {"ln": _lm_norm(rng, cfg, lead),
+         "router": _normal(rng, lead + (d, E), s_in),
+         "moe_gate": _normal(rng, lead + (E, d, f), s_in),
+         "moe_up": _normal(rng, lead + (E, d, f), s_in),
+         "moe_down": _normal(rng, lead + (E, f, d), s_out)}
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared_gate"] = _normal(rng, lead + (d, fs), s_in)
+        p["shared_up"] = _normal(rng, lead + (d, fs), s_in)
+        p["shared_down"] = _normal(rng, lead + (fs, d), s_out)
+    return p
+
+
+def _lm_rec(rng, cfg, lead: tuple) -> dict:
+    """An RG-LRU mixer (``models/rglru.py:31``), its init's
+    distributions: lambda U[0.9, 0.999), gates and conv 0.1 N(0, 1)."""
+    d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+    s = 1 / math.sqrt(d)
+    return {"ln": _lm_norm(rng, cfg, lead),
+            "lru_w_y": _normal(rng, lead + (d, w), s),
+            "lru_w_x": _normal(rng, lead + (d, w), s),
+            "lru_conv": _normal(rng, lead + (cfg.ssm_conv, w), 0.1),
+            "lru_lambda": rng.uniform(0.9, 0.999, lead + (w,))
+            .astype(np.float32),
+            "lru_gate_a": _normal(rng, lead + (w,), 0.1),
+            "lru_gate_i": _normal(rng, lead + (w,), 0.1),
+            "lru_out": _normal(rng, lead + (w, d), 1 / math.sqrt(w))}
+
+
+def _lm_ssm(rng, cfg, lead: tuple) -> dict:
+    """A Mamba-2 mixer (``models/mamba2.py:29``): the projections and
+    conv drawn, ``A_log``, ``dt_bias`` and the gated norm's scale zeros
+    and ``D`` ones, as the reference's init sets them."""
+    d, di = cfg.d_model, cfg.d_inner
+    G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    s = 1 / math.sqrt(d)
+    return {"ln": _lm_norm(rng, cfg, lead),
+            "ssm_w_z": _normal(rng, lead + (d, di), s),
+            "ssm_w_x": _normal(rng, lead + (d, di), s),
+            "ssm_w_b": _normal(rng, lead + (d, G * N), s),
+            "ssm_w_c": _normal(rng, lead + (d, G * N), s),
+            "ssm_w_dt": _normal(rng, lead + (d, H), s),
+            "ssm_conv": _normal(rng, lead + (cfg.ssm_conv, di + 2 * G * N),
+                                0.1),
+            "ssm_a_log": np.zeros(lead + (H,), np.float32),
+            "ssm_dt_bias": np.zeros(lead + (H,), np.float32),
+            "ssm_d": np.ones(lead + (H,), np.float32),
+            "ssm_norm": np.zeros(lead + (di,), np.float32),
+            "ssm_out": _normal(rng, lead + (di, d), 1 / math.sqrt(di))}
+
+
+def _lm_block(rng, cfg, lead: tuple, kind: str = "full",
+              dense_ff: int | None = None) -> dict:
+    """One block's params (``lead`` = ``(g,)`` stacks a scan group),
+    drawn in this order: the mixer (an attention block's ln, w_q, w_k,
+    w_v, w_o, post_ln; a cross block's self then cross attention; a
+    rec or ssm mixer), then the FFN (a dense one's ln, w_gate for gated
+    MLPs, w_up, w_down, post_ln; an MoE one; none where d_ff is 0)."""
+    if kind in ("full", "local", "global"):
+        p = {"attn": _lm_attn(rng, cfg, lead)}
+    elif kind == "cross":
+        p = {"attn": _lm_attn(rng, cfg, lead),
+             "xattn": _lm_attn(rng, cfg, lead)}
+    elif kind == "rec":
+        p = {"rec": _lm_rec(rng, cfg, lead)}
+    elif kind == "ssm":
+        p = {"ssm": _lm_ssm(rng, cfg, lead)}
+    else:
+        raise ValueError(kind)
+    if cfg.d_ff:
+        p["ffn"] = _lm_moe(rng, cfg, lead) \
+            if cfg.n_experts and dense_ff is None \
+            else _lm_mlp(rng, cfg, lead, dense_ff)
+    return p
 
 
 def lm_params(cfg, seed: int) -> dict:
-    """A dense decoder LM's params tree as numpy fp32 arrays, laid out as
-    the reference's ``Model.init`` builds it (``transformer.py:301-340``:
-    ``embed``, ``final_ln``, ``groups`` — one subtree per pattern
-    position stacked ``[g, ...]`` — and ``rem``), from one
-    ``np.random.default_rng(seed)``, tensor by tensor in this order:
-    embed (N(0, 1) x 0.02), final_ln, each pattern position's stacked
-    block, each remainder block.  Matmul weights take the reference's
-    init scales (``common.py:186-200, 231-245``: 1/sqrt(d) into the
-    model width's products, 1/sqrt(d_ff) for w_down); norm scales are
-    0.1 N(0, 1).  The same seed gives the same tree to the reference and
-    to the port on every machine."""
-    bad = set(cfg.pattern) - {"full", "local", "global"}
-    if bad or cfg.n_experts or cfg.first_dense_layers \
-            or not cfg.tie_embeddings or not cfg.d_ff:
-        raise ValueError(f"lm_params draws dense attention LMs with tied "
-                         f"embeddings; {cfg.name} is not one")
+    """An LM's params tree as numpy fp32 arrays, laid out as the
+    reference's ``Model.init`` builds it (``transformer.py:301-342``:
+    ``embed``, ``final_ln``, ``unembed`` where untied, ``lead``,
+    ``groups`` — one subtree per pattern position stacked ``[g, ...]`` —
+    ``rem`` and ``encoder``), from one ``np.random.default_rng(seed)``,
+    tensor by tensor in this order: embed (N(0, 1) x 0.02), final_ln,
+    unembed (as embed), each lead block (a dense FFN of ``d_ff * (top_k
+    + n_shared)``), each pattern position's stacked block, each
+    remainder block, the encoder's stacked blocks and final_ln.  Matmul
+    weights take the reference's init scales (``common.py:186-200,
+    231-245``, ``moe.py:25-45``, ``rglru.py:31-47``, ``mamba2.py:29-50``:
+    1/sqrt(d) into the model width's products, 1/sqrt of the inner width
+    out of it); norm scales are 0.1 N(0, 1); the recurrent blocks'
+    vectors follow their init's distributions.  A dense attention LM's
+    tree is the same, draw for draw, as before the other kinds were
+    added (``LM_PARAMS_VERSION`` 1).  The same seed gives the same tree
+    to the reference and to the port on every machine."""
     rng = np.random.default_rng(seed)
     g, rem = cfg.n_groups()
+    lead = cfg.first_dense_layers
+    if lead:
+        g = (cfg.n_layers - lead) // len(cfg.pattern)
+        rem = (cfg.n_layers - lead) % len(cfg.pattern)
     tree = {"embed": _normal(rng, (cfg.vocab, cfg.d_model), 0.02),
             "final_ln": _lm_norm(rng, cfg, ())}
-    tree["groups"] = tuple(_lm_block(rng, cfg, (g,)) for _ in cfg.pattern)
-    tree["rem"] = tuple(_lm_block(rng, cfg, ()) for _ in range(rem))
+    if not cfg.tie_embeddings:
+        tree["unembed"] = _normal(rng, (cfg.vocab, cfg.d_model), 0.02)
+    if lead:
+        dense_ff = cfg.d_ff * (cfg.top_k + cfg.n_shared_experts)
+        tree["lead"] = tuple(_lm_block(rng, cfg, (), cfg.pattern[0],
+                                       dense_ff) for _ in range(lead))
+    tree["groups"] = tuple(_lm_block(rng, cfg, (g,), kind)
+                           for kind in cfg.pattern)
+    tree["rem"] = tuple(_lm_block(rng, cfg, (), cfg.pattern[i])
+                        for i in range(rem))
+    if cfg.encoder_layers:
+        tree["encoder"] = {
+            "blocks": _lm_block(rng, cfg, (cfg.encoder_layers,), "full"),
+            "final_ln": _lm_norm(rng, cfg, ())}
     return tree
+
+
+def lm_memory(cfg, seed: int, batch: int):
+    """Seeded memory for a config's cross blocks, ``[batch,
+    memory_len, d_model]`` fp32 from N(0, 1): encoder frames (audio) or
+    image tokens (VLM); None for a config without cross blocks."""
+    if not cfg.memory_len():
+        return None
+    rng = np.random.default_rng([seed, 3])
+    return _normal(rng, (batch, cfg.memory_len(), cfg.d_model), 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1031,6 +1143,23 @@ DECODE_CASES = (
     # 13 whole splits past seq_len skipped
     DecodeCase("decode_gemma3_global_1024_batch4_bf16", 4, 1, 256, 1024,
                128, 600, batch=4, dtype="bfloat16"),
+)
+
+
+#: The decode attention at the geometries of the other block kinds' LMs
+#: served on the card (bf16, batch 4): recurrentgemma-2b's local ring (10
+#: q heads on one KV head, head_dim 256, 2,048 slots) wrapped;
+#: granite-moe-1b-a400m's full cache (2 q heads per KV head, head_dim 64,
+#: 1,024 slots) part full; whisper-tiny's cross memory (6 heads of 64
+#: over 1,500 frames, always full: 11 blocks of 128 and a ragged one of
+#: 92).
+LM_DECODE_CASES = (
+    DecodeCase("decode_recurrentgemma_local_2048_wrapped_batch4_bf16", 10, 1,
+               256, 2048, 128, 2116, batch=4, dtype="bfloat16"),
+    DecodeCase("decode_granite_moe_full_1024_batch4_bf16", 16, 8, 64, 1024,
+               128, 616, batch=4, dtype="bfloat16"),
+    DecodeCase("decode_whisper_cross_1500_batch4_bf16", 6, 6, 64, 1500, 128,
+               1500, batch=4, dtype="bfloat16"),
 )
 
 
@@ -1117,41 +1246,86 @@ def near_tie(top2, scale: float) -> bool:
     return float(top2[0]) - float(top2[1]) <= 2 * tol
 
 
+def route_codes(routes) -> np.ndarray:
+    """``[layers, B, S, k]``: the codes (``moe.Routing.codes``: kept
+    experts as ids, dropped ones as ``-1 - id``, sorted) of one pass's
+    MoE routings, in layer order; two runs sent a token alike at a layer
+    where its codes there are equal."""
+    return np.stack([r.codes().cpu().numpy() for r in routes])
+
+
+def routed_apart(a, b) -> np.ndarray:
+    """``[B, S]``: where two runs' :func:`route_codes` (or one run's and
+    a golden's) differ at any layer: the positions where they really
+    routed a token apart, to other experts or past the capacity."""
+    return (np.asarray(a) != np.asarray(b)).any(axis=(0, 3))
+
+
 def hold_lm_golden(model, params, golden) -> dict:
     """Hold the port's model against an LM golden: for each prompt at
-    batch 1, teacher-forced on the golden's tokens, every step's logits
-    at the golden's top ids within :func:`logits_close`, and its greedy
-    token equal to the golden's unless the golden's top two are a
-    :func:`near_tie`.  Returns ``{"max_err", "ok", "tokens", "flips"}``:
-    the port's greedy token at every step and the steps where a near tie
-    flipped."""
+    batch 1 (with the config's :func:`lm_memory` of the golden's seed
+    where it has cross blocks), teacher-forced on the golden's tokens,
+    every step's logits at the golden's top ids within
+    :func:`logits_close`, and its greedy token equal to the golden's
+    unless the golden's top two are a :func:`near_tie`.  An MoE golden
+    holds the reference's routing (``"routes"``, ``[prompts, layers,
+    positions, k]`` :func:`route_codes`: the prompt's positions, then
+    one a decode step); a prompt whose step misses is let pass, and not
+    held further, only where the port's routing already went apart from
+    the golden's at that step or an earlier one (two runs that round a
+    bf16 router product apart can send a token to other experts).
+    Returns ``{"max_err", "ok", "tokens", "flips", "routed_apart",
+    "misses"}``: the port's greedy token at every step, the steps where a
+    near tie flipped, the ``(prompt, step)`` of each let-pass miss, the
+    step being the first whose routing went apart, and the ``(prompt,
+    step, max |difference|)`` of each step that failed."""
     import torch
 
     device = params["embed"].device
-    out = {"max_err": 0.0, "ok": True, "tokens": [], "flips": []}
+    memory = lm_memory(model.cfg, int(golden["seed"]), 1)
+    if memory is not None:
+        memory = torch.from_numpy(memory).to(device)
+    out = {"max_err": 0.0, "ok": True, "tokens": [], "flips": [],
+           "routed_apart": [], "misses": []}
+    steps = golden["tokens"].shape[1]
     for i, n in enumerate(golden["prompt_lens"]):
+        routes = [] if "routes" in golden else None
         prompt = torch.as_tensor(golden["prompts"][i, :n][None],
                                  device=device).to(torch.int64)
         logits, caches, cur = model.prefill(
-            params, prompt, cache_len=int(golden["cache_len"]))
-        row = []
-        for t in range(golden["tokens"].shape[1]):
+            params, prompt, cache_len=int(golden["cache_len"]),
+            memory=memory, routes=routes)
+        row, apart_at = [], None
+        for t in range(steps):
             if t:
                 tok = torch.as_tensor(golden["tokens"][i, t - 1:t],
                                       device=device).to(torch.int64)
-                logits, caches, cur = model.decode_step(params, caches, tok,
-                                                        cur)
+                logits, caches, cur = model.decode_step(
+                    params, caches, tok, cur, routes=routes)
+            if routes is not None:
+                at = slice(0, n) if t == 0 else slice(n + t - 1, n + t)
+                want_routes = golden["routes"][i][:, None, at]
+                if apart_at is None and routed_apart(
+                        route_codes(routes), want_routes).any():
+                    apart_at = t
+                routes.clear()
             got = logits[0].float().cpu().numpy()
             ids, want = golden["top_ids"][i, t], golden["top_logits"][i, t]
             scale = float(golden["absmax"][i, t])
             err, ok = logits_close(got[ids], want, scale)
-            out["max_err"] = max(out["max_err"], err)
-            out["ok"] &= ok
             row.append(int(got.argmax()))
             if row[-1] != int(golden["tokens"][i, t]):
                 if near_tie(want[:2], scale):
                     out["flips"].append((i, t))
                 else:
-                    out["ok"] = False
+                    ok = False
+            if not ok and apart_at is not None:
+                out["routed_apart"].append((i, apart_at))
+                row += [-1] * (steps - len(row))
+                break
+            out["max_err"] = max(out["max_err"], err)
+            out["ok"] &= ok
+            if not ok:
+                out["misses"].append((i, t, round(err, 4)))
         out["tokens"].append(row)
     return out

@@ -1,0 +1,2 @@
+"""Command-line entry points (the port of ``repro.launch``): ``serve``,
+batched greedy generation through the serving engine."""

@@ -1,11 +1,17 @@
-"""Shared layers: norms, RoPE, attention (prefill and decode), dense MLPs,
-as plain functions on tensors (the port of ``repro.models.common``).
+"""Shared layers: norms, RoPE, attention (prefill and decode), dense MLPs
+and their initialisers, as plain functions on tensors (the port of
+``repro.models.common``).
 
 The reference's order of operations and dtypes are kept: norms and RoPE
 compute in fp32 and cast back, attention scores and softmax are fp32,
 activations stay in the residual stream's dtype (bf16 on the serve
 path) and every matmul weight is cast to it.  There is no sharding: the
 reference's ``rules.act`` constraints are single-device no-ops here.
+
+The initialisers (``init_norm``, ``init_attn``, ``init_mlp``) draw from
+an explicit ``torch.Generator`` on its device (or on ``device``, which
+may be ``"meta"`` for shapes alone): the layout, dtypes and
+distributions are the reference's, the values cannot be the JAX PRNG's.
 """
 from __future__ import annotations
 
@@ -54,6 +60,32 @@ def apply_norm(p: dict, x, cfg):
     if cfg.norm == "layernorm":
         return layernorm(x, p["scale"], p["bias"])
     return rmsnorm(x, p["scale"])
+
+
+# --------------------------------------------------------------------------
+# Initialisers
+# --------------------------------------------------------------------------
+
+def normal(gen: torch.Generator, shape, scale: float = 1.0, device=None):
+    """``scale * N(0, 1)`` of ``shape``, fp32, drawn from ``gen`` on its
+    device (or on ``device``)."""
+    t = torch.empty(shape, dtype=F32, device=device or gen.device)
+    return t.normal_(generator=gen).mul_(scale)
+
+
+def uniform(gen: torch.Generator, shape, low: float, high: float,
+            device=None):
+    """U[low, high) of ``shape``, fp32, drawn from ``gen``."""
+    t = torch.empty(shape, dtype=F32, device=device or gen.device)
+    return t.uniform_(low, high, generator=gen)
+
+
+def init_norm(cfg, d: int | None = None, device="cpu") -> dict:
+    d = d or cfg.d_model
+    p = {"scale": torch.zeros((d,), dtype=F32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=F32, device=device)
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -153,6 +185,23 @@ def decode_attention(q, k, v, cur_len, *, softcap: float | None,
 # Attention block
 # --------------------------------------------------------------------------
 
+def init_attn(gen: torch.Generator, cfg, *, cross: bool = False,
+              device=None) -> dict:
+    """An attention sub-layer's params (reference ``common.py:186``):
+    w_q, w_k, w_v, w_o drawn N(0, 1) / sqrt(d_model), in that order."""
+    device = device or gen.device
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    s = 1.0 / math.sqrt(d)
+    p = {"ln": init_norm(cfg, device=device),
+         "w_q": normal(gen, (d, qd), s, device),
+         "w_k": normal(gen, (d, kvd), s, device),
+         "w_v": normal(gen, (d, kvd), s, device),
+         "w_o": normal(gen, (qd, d), s, device)}
+    if cfg.post_norms:
+        p["post_ln"] = init_norm(cfg, device=device)
+    return p
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor   # [B, S_or_window, KV, D]
     v: torch.Tensor
@@ -200,8 +249,29 @@ def _gelu(x):
 
 
 def _silu(x):
-    """``jax.nn.silu``: ``x * sigmoid(x)``, two roundings in x's dtype."""
-    return x * torch.sigmoid(x)
+    """``jax.nn.silu``, ``x * sigmoid(x)``, one operation at a time in x's
+    dtype as the reference computes it: XLA expands the sigmoid to ``1 /
+    (1 + exp(-x))`` and rounds every step in bf16 (``torch.sigmoid``,
+    one rounding of the sigmoid, differs from it in about 28% of bf16
+    outputs)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def init_mlp(gen: torch.Generator, cfg, d_ff: int | None = None,
+             device=None) -> dict:
+    """A dense MLP's params (reference ``common.py:231``): w_gate (gated
+    MLPs), w_up at 1/sqrt(d_model), w_down at 1/sqrt(d_ff)."""
+    device = device or gen.device
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"ln": init_norm(cfg, device=device)}
+    if cfg.mlp in ("geglu", "swiglu"):
+        p["w_gate"] = normal(gen, (d, f), s_in, device)
+    p["w_up"] = normal(gen, (d, f), s_in, device)
+    p["w_down"] = normal(gen, (f, d), s_out, device)
+    if cfg.post_norms:
+        p["post_ln"] = init_norm(cfg, device=device)
+    return p
 
 
 def mlp_forward(p: dict, x, cfg):

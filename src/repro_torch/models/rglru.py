@@ -1,0 +1,132 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma), the port of
+``repro.models.rglru``.
+
+Recurrence: ``h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)`` with
+``a_t = exp(-c * softplus(8 * lambda) * sigmoid(r_t))``.  The full
+sequence (prefill) runs a log-depth scan in torch ops: ``ceil(log2 S)``
+rounds of whole-tensor products and sums, not one step per token.  The
+decode step is the O(1)-state update.  Gates are diagonal
+(per-channel), as in the reference.  The state ``h`` is fp32; the conv
+state is in the activations' dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .common import F32, _gelu, apply_norm, init_norm, matmul, normal, \
+    uniform
+
+_C = 8.0  # Griffin's fixed temperature
+
+
+class LRUCache(NamedTuple):
+    h: torch.Tensor       # [B, W] fp32
+    conv: torch.Tensor    # [B, K-1, W]
+
+
+def init_rec(gen: torch.Generator, cfg, device=None) -> dict:
+    """The block's params (reference ``rglru.py:31``), drawn in the
+    reference's key order: w_y, w_x, conv, lambda, gate_a, gate_i, out."""
+    device = device or gen.device
+    d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+    s = 1.0 / math.sqrt(d)
+    return {
+        "ln": init_norm(cfg, device=device),
+        "lru_w_y": normal(gen, (d, w), s, device),
+        "lru_w_x": normal(gen, (d, w), s, device),
+        "lru_conv": normal(gen, (cfg.ssm_conv, w), 0.1, device),
+        "lru_lambda": uniform(gen, (w,), 0.9, 0.999, device),
+        "lru_gate_a": normal(gen, (w,), 0.1, device),
+        "lru_gate_i": normal(gen, (w,), 0.1, device),
+        "lru_out": normal(gen, (w, d), 1.0 / math.sqrt(w), device),
+    }
+
+
+def _gates(p: dict, x):
+    """``(a_t, gated input)`` of x ``[..., W]`` fp32."""
+    log_lam = torch.nn.functional.softplus(8.0 * p["lru_lambda"])
+    r = torch.sigmoid(x * p["lru_gate_a"])
+    i = torch.sigmoid(x * p["lru_gate_i"])
+    log_a = -_C * log_lam * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    return a, beta * i * x
+
+
+def _assoc_scan(a, bx, h0=None):
+    """``h_t = a_t h_{t-1} + bx_t`` over axis 1, with ``h_{-1} = h0``
+    (zero when None): a Hillis-Steele scan, ``ceil(log2 S)`` rounds of
+    the combine ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)``."""
+    if h0 is not None:
+        bx = bx.clone()
+        bx[:, 0] += a[:, 0] * h0
+    S = a.shape[1]
+    off = 1
+    while off < S:
+        b_new = bx.clone()
+        b_new[:, off:] += a[:, off:] * bx[:, :-off]
+        a_new = a.clone()
+        a_new[:, off:] *= a[:, :-off]
+        a, bx = a_new, b_new
+        off *= 2
+    return bx
+
+
+def _conv(full, w, S: int):
+    """The reference's causal depthwise conv: ``sum_i full[:, i:i+S] *
+    w[i]``, each product and sum rounded in the activations' dtype."""
+    out = 0
+    for i in range(w.shape[0]):
+        out = out + full[:, i:i + S] * w[i].to(full.dtype)
+    return out
+
+
+def rec_forward(p: dict, x, cfg, cache: LRUCache | None = None, *,
+                return_cache: bool = False):
+    """x ``[B, S, d]`` -> (mixed output, pre-residual; the cache or
+    None)."""
+    B, S, d = x.shape
+    dt = x.dtype
+    h = apply_norm(p["ln"], x, cfg)
+    y_gate = _gelu(matmul(h, p["lru_w_y"]))
+    xs = matmul(h, p["lru_w_x"])
+    K = p["lru_conv"].shape[0]
+    pad = torch.zeros_like(xs[:, :K - 1]) if cache is None \
+        else cache.conv.to(dt)
+    full = torch.cat([pad, xs], dim=1)
+    xs = _conv(full, p["lru_conv"], S)
+    a, bx = _gates(p, xs.to(F32))
+    hseq = _assoc_scan(a, bx, None if cache is None else cache.h)
+    out = matmul(hseq.to(dt) * y_gate, p["lru_out"])
+    if not return_cache:
+        return out, None
+    return out, LRUCache(h=hseq[:, -1].contiguous(),
+                         conv=full[:, full.shape[1] - (K - 1):].contiguous())
+
+
+def rec_step(p: dict, x, cfg, cache: LRUCache):
+    """One decode token, x ``[B, 1, d]`` -> (output ``[B, 1, d]``, new
+    cache)."""
+    dt = x.dtype
+    h = apply_norm(p["ln"], x, cfg)[:, 0]
+    y_gate = _gelu(matmul(h, p["lru_w_y"]))
+    xs = matmul(h, p["lru_w_x"])
+    full = torch.cat([cache.conv.to(dt), xs[:, None]], dim=1)
+    # the reference's einsum "bkw,kw->bw": one dot, fp32 sums, one rounding
+    xs = (full.to(F32) * p["lru_conv"].to(dt).to(F32)).sum(dim=1).to(dt)
+    a, bx = _gates(p, xs.to(F32))
+    h_new = a * cache.h + bx
+    out = matmul(h_new.to(dt) * y_gate, p["lru_out"])[:, None]
+    return out, LRUCache(h=h_new, conv=full[:, 1:].contiguous())
+
+
+def init_rec_cache(cfg, batch: int, dtype=torch.bfloat16,
+                   device="cuda") -> LRUCache:
+    w = cfg.lru_width or cfg.d_model
+    return LRUCache(
+        h=torch.zeros((batch, w), dtype=F32, device=device),
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, w), dtype=dtype,
+                         device=device))

@@ -1,72 +1,89 @@
-"""The decoder LM for serving (the port of ``repro.models.transformer``:
-``forward``, ``prefill``, ``decode_step`` and ``init_caches`` for the
-attention block kinds ``full``, ``local`` and ``global`` with a dense
-FFN).
+"""The LM for serving (the port of ``repro.models.transformer``): one
+engine for the decoder LM, MoE, hybrid, SSM, encoder-decoder and VLM
+configs, with ``init``, ``forward``, ``prefill``, ``decode_step`` and
+``init_caches`` for every block kind (``full``, ``local``, ``global``,
+``cross``, ``rec``, ``ssm``) and FFN kind (dense, MoE, none).
 
 Modes:
-  * ``forward``      full sequence -> logits ``[B, S, V]``
+  * ``forward``      full sequence -> logits ``[B, S, V]`` and the aux
   * ``prefill``      full sequence + caches -> (last logits, caches, S)
   * ``decode_step``  one token against the caches
 
 Cache kinds: a full or global layer keeps ``[B, cache_len, KV, D]``; a
 sliding-window (``local``) layer keeps the vMCU ring of ``window`` slots,
-where slot ``t % window`` holds token ``t``.  A decode step writes its
-token's K/V into its slot in place (the reference builds a new cache
+where slot ``t % window`` holds token ``t``; a ``cross`` layer keeps its
+self-attention cache and the memory's K/V (``CrossCache``), projected
+once in prefill with no RoPE; ``rec`` and ``ssm`` layers keep their O(1)
+state (``rglru.LRUCache``, ``mamba2.SSMCache``).  A decode step writes
+its token's K/V into its slot in place (the reference builds a new cache
 with a one-hot masked add; a token past the end of a global cache is
 dropped by both) and runs the decode attention: on a CUDA card through
-the hand-written ``ring_decode_attention`` kernel (one launch per layer
-for the whole batch, a global cache taken as a ring of ``cache_len``
-slots that never wraps), on the CPU — or with ``Model(cfg, plain=True)``
-on the card — through the plain ``common.decode_attention``.
+the hand-written ``ring_decode_attention`` kernel (one launch per
+attention for the whole batch; a global cache is a ring of
+``cache_len`` slots that never wraps, the cross memory one of
+``memory_len`` slots, always full), on the CPU — or with
+``Model(cfg, plain=True)`` on the card — through the plain
+``common.decode_attention``.
 
 The reference scans over stacked layer groups; the port runs the same
 layers in the same order (``lead``, then each group's pattern, then the
-remainder: :func:`layer_kinds`) from a flat list.  Params are a dict:
-``embed`` (fp32, also the tied unembedding), ``final_ln``, and
-``layers``, one block dict per layer, matmul weights stored in bf16 once
-at load (the value the reference's ``w.astype(bf16)`` gives at every
-call).  :func:`params_from_reference` builds it from the reference's
-params tree as numpy arrays.
+remainder: :func:`layer_kinds`) from a flat list.  ``Model.init`` draws
+the reference's tree layout (``lead``, ``groups`` stacked ``[g, ...]``,
+``rem``, ``encoder``) from a ``torch.Generator``;
+:func:`params_from_reference` turns such a tree (torch or numpy arrays,
+the reference's own among them) into the port's params: ``embed`` (fp32,
+also the tied unembedding), ``unembed`` (untied configs, fp32),
+``final_ln``, ``layers`` (one block dict per layer) and ``encoder``
+(``blocks``, ``final_ln``), every weight the reference casts to the
+activations' dtype at each call stored so (bf16) once at load.
 
-The block kinds ``cross``, ``rec`` and ``ssm`` and MoE FFNs are not
-ported (ROADMAP Queue 1 item 9): :class:`Model` raises
-``NotImplementedError`` for them.
+Training (``Model.loss``) is not ported (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..kernels.ring_decode import ring_decode_attention
 from .common import (KVCache, _softcap, apply_norm, attention,
-                     decode_attention, matmul, mlp_forward, project_qkv,
-                     rope)
+                     decode_attention, init_attn, init_mlp, init_norm,
+                     matmul, mlp_forward, normal, project_qkv, rope)
+from .mamba2 import SSMCache, init_ssm, init_ssm_cache, ssm_forward, \
+    ssm_step
+from .moe import init_moe, moe_forward
+from .rglru import LRUCache, init_rec, init_rec_cache, rec_forward, rec_step
 
-ATTN_KINDS = ("full", "local", "global")
+SELF_KINDS = ("full", "local", "global")
+ATTN_KINDS = SELF_KINDS + ("cross",)
+BLOCK_KINDS = ATTN_KINDS + ("rec", "ssm")
 #: Weights every call casts to the activations' dtype: stored so at load.
-MATMUL_WEIGHTS = ("w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down")
+MATMUL_WEIGHTS = (
+    "w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down",
+    "lru_w_y", "lru_w_x", "lru_conv", "lru_out",
+    "ssm_w_z", "ssm_w_x", "ssm_w_b", "ssm_w_c", "ssm_w_dt", "ssm_conv",
+    "ssm_out",
+    "router", "moe_gate", "moe_up", "moe_down", "shared_gate", "shared_up",
+    "shared_down")
 #: Slots per online-softmax block of the decode kernel.
 DECODE_BLOCK = 128
 ACT_DTYPE = torch.bfloat16
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               "item 9: MoE, mamba2, rglru, cross-attention)")
+class CrossCache(NamedTuple):
+    self_kv: KVCache
+    mem_k: torch.Tensor    # [B, S_mem, KV, D]
+    mem_v: torch.Tensor
 
 
 def check_supported(cfg) -> None:
-    """Raise for what the port's LM stack does not run yet."""
-    bad = sorted(set(cfg.pattern) - set(ATTN_KINDS))
+    """Raise ``ValueError`` for a block kind no engine runs."""
+    bad = sorted(set(cfg.pattern) - set(BLOCK_KINDS))
     if bad:
-        raise _unported(f"block kind(s) {bad} of {cfg.name}")
-    if cfg.n_experts:
-        raise _unported(f"the MoE FFN of {cfg.name}")
-    if cfg.encoder_layers or cfg.n_image_tokens:
-        raise _unported(f"the encoder/image memory of {cfg.name}")
+        raise ValueError(f"unknown block kind(s) {bad} in {cfg.name}")
 
 
 def _layer_seq(cfg) -> tuple[int, int, int]:
@@ -98,6 +115,17 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _stack(trees: list, template):
+    """The leaves of ``trees`` stacked on a new first axis (``[0, ...]``
+    of ``template``'s shapes when there are none)."""
+    if isinstance(template, dict):
+        return {k: _stack([t[k] for t in trees], v)
+                for k, v in template.items()}
+    if not trees:
+        return template.new_zeros((0,) + tuple(template.shape))
+    return torch.stack(trees)
+
+
 def layers_from_tree(cfg, tree) -> list:
     """Per-layer subtrees, in :func:`layer_kinds` order, of a tree laid
     out as the reference's params or caches: ``lead`` (a tuple),
@@ -111,28 +139,71 @@ def layers_from_tree(cfg, tree) -> list:
 
 
 def params_from_reference(cfg, tree, device="cuda") -> dict:
-    """The port's params from the reference's params tree (numpy arrays
-    laid out as ``Model.init`` builds them, ``transformer.py:301-340``):
-    the embedding and norm scales as fp32, matmul weights as bf16, on
-    ``device``."""
+    """The port's params from a params tree laid out as the reference's
+    ``Model.init`` builds it (``transformer.py:301-342``; numpy arrays or
+    torch tensors, e.g. :meth:`Model.init`'s): the embeddings and norm
+    and gate vectors as fp32, the weights of :data:`MATMUL_WEIGHTS` as
+    bf16, on ``device``."""
     check_supported(cfg)
-    if "unembed" in tree:
-        raise _unported("an untied unembedding")
 
     def put(name, a):
-        a = np.ascontiguousarray(a, np.float32)
-        if not a.flags.writeable:   # torch wants memory it may write
-            a = a.copy()
-        t = torch.from_numpy(a).to(device)
+        if isinstance(a, torch.Tensor):
+            t = a.to(device=device, dtype=torch.float32)
+        else:
+            a = np.ascontiguousarray(a, np.float32)
+            if not a.flags.writeable:   # torch wants memory it may write
+                a = a.copy()
+            t = torch.from_numpy(a).to(device)
         return t.to(ACT_DTYPE) if name in MATMUL_WEIGHTS else t
 
     def convert(sub):
         return {k: convert(v) if isinstance(v, dict) else put(k, v)
                 for k, v in sub.items()}
 
-    return {"embed": put("embed", tree["embed"]),
-            "final_ln": convert(tree["final_ln"]),
-            "layers": [convert(p) for p in layers_from_tree(cfg, tree)]}
+    params = {"embed": put("embed", tree["embed"]),
+              "final_ln": convert(tree["final_ln"]),
+              "layers": [convert(p) for p in layers_from_tree(cfg, tree)]}
+    if "unembed" in tree:
+        params["unembed"] = put("unembed", tree["unembed"])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        n = len(enc["blocks"]["attn"]["w_q"])
+        params["encoder"] = {
+            "blocks": [convert(_index(enc["blocks"], i)) for i in range(n)],
+            "final_ln": convert(enc["final_ln"])}
+    return params
+
+
+# --------------------------------------------------------------------------
+# Block init
+# --------------------------------------------------------------------------
+
+def _ffn_init(gen, cfg, *, dense_ff: int | None = None, device=None):
+    if cfg.d_ff == 0:
+        return None
+    if cfg.n_experts and dense_ff is None:
+        return init_moe(gen, cfg, device)
+    return init_mlp(gen, cfg, d_ff=dense_ff, device=device)
+
+
+def init_block(gen: torch.Generator, cfg, kind: str, *,
+               dense_ff: int | None = None, device=None) -> dict:
+    """One block's params (reference ``transformer.py:60``)."""
+    if kind in SELF_KINDS:
+        p = {"attn": init_attn(gen, cfg, device=device)}
+    elif kind == "cross":
+        p = {"attn": init_attn(gen, cfg, device=device),
+             "xattn": init_attn(gen, cfg, cross=True, device=device)}
+    elif kind == "rec":
+        p = {"rec": init_rec(gen, cfg, device)}
+    elif kind == "ssm":
+        p = {"ssm": init_ssm(gen, cfg, device)}
+    else:
+        raise ValueError(kind)
+    ffn = _ffn_init(gen, cfg, dense_ff=dense_ff, device=device)
+    if ffn is not None:
+        p["ffn"] = ffn
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -169,33 +240,93 @@ def _attn_sub(p: dict, x, cfg, kind: str, positions, *,
     return o, cache
 
 
-def _ffn_sub(p: dict, x, cfg):
+def _xattn_sub(p: dict, x, cfg, memory, *, make_cache: bool = False):
+    """Cross-attention to the encoder/image memory: no causal mask, no
+    RoPE (reference ``:121-140``) -> (out, (K, V) of the memory or
+    None)."""
+    if memory is None:
+        raise ValueError(f"{cfg.name}'s cross blocks need memory")
+    B, S, _ = x.shape
+    h = apply_norm(p["ln"], x, cfg)
+    q = matmul(h, p["w_q"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    mk = matmul(memory, p["w_k"]).reshape(B, -1, cfg.n_kv_heads,
+                                          cfg.head_dim)
+    mv = matmul(memory, p["w_v"]).reshape(B, -1, cfg.n_kv_heads,
+                                          cfg.head_dim)
+    o = attention(q, mk, mv, causal=False, window=None, softcap=None,
+                  bf16_einsum=cfg.bf16_einsum)
+    o = matmul(o.reshape(B, S, cfg.q_dim), p["w_o"])
+    return o, ((mk, mv) if make_cache else None)
+
+
+def _ffn_sub(p: dict, x, cfg, routes=None):
+    """The FFN sub-layer -> (out, aux): none, MoE (a ``router`` in its
+    params; its ``moe.Routing`` appended to ``routes`` where that is a
+    list) or dense (the ``lead`` layers of an MoE config too)."""
     if "ffn" not in p:
-        return torch.zeros_like(x)
-    return mlp_forward(p["ffn"], x, cfg)
+        return torch.zeros_like(x), 0.0
+    if cfg.n_experts and "router" in p["ffn"]:
+        out, aux, routing = moe_forward(p["ffn"], x, cfg)
+        if routes is not None:
+            routes.append(routing)
+        return out, aux
+    return mlp_forward(p["ffn"], x, cfg), 0.0
 
 
-def block_forward(p: dict, x, cfg, kind: str, positions, *,
-                  make_cache: bool = False, cache_len: int = 0):
-    """Residual block, full sequence -> (x, cache)."""
-    if kind not in ATTN_KINDS:
-        raise _unported(f"block kind {kind!r}")
-    o, cache = _attn_sub(p["attn"], x, cfg, kind, positions,
-                         make_cache=make_cache, cache_len=cache_len)
-    x = x + o
-    return x + _ffn_sub(p, x, cfg), cache
+def block_forward(p: dict, x, cfg, kind: str, positions, *, memory=None,
+                  make_cache: bool = False, cache_len: int = 0,
+                  routes=None):
+    """Residual block, full sequence -> (x, cache, aux)."""
+    cache = None
+    if kind in SELF_KINDS:
+        o, cache = _attn_sub(p["attn"], x, cfg, kind, positions,
+                             make_cache=make_cache, cache_len=cache_len)
+        x = x + o
+    elif kind == "cross":
+        o, sc = _attn_sub(p["attn"], x, cfg, "full", positions,
+                          make_cache=make_cache, cache_len=cache_len)
+        x = x + o
+        xo, mkv = _xattn_sub(p["xattn"], x, cfg, memory,
+                             make_cache=make_cache)
+        x = x + xo
+        if make_cache:
+            cache = CrossCache(sc, mkv[0].contiguous(), mkv[1].contiguous())
+    elif kind == "rec":
+        o, cache = rec_forward(p["rec"], x, cfg, return_cache=make_cache)
+        x = x + o
+    elif kind == "ssm":
+        o, cache = ssm_forward(p["ssm"], x, cfg, return_cache=make_cache)
+        x = x + o
+    else:
+        raise ValueError(kind)
+    o, aux = _ffn_sub(p, x, cfg, routes)
+    return x + o, cache, aux
 
 
-def block_step(p: dict, x, cfg, kind: str, cache: KVCache, cur_len: int,
-               *, plain: bool = False):
-    """One-token decode step -> (x, cache), the cache written in place
-    (reference ``:184-254``)."""
-    if kind not in ATTN_KINDS:
-        raise _unported(f"block kind {kind!r}")
+def _decode_attn(q, k, v, cur_len: int, *, softcap, ring: bool,
+                 window: int, plain: bool):
+    """Decode attention of q ``[B, 1, H, D]`` over k/v ``[B, S, KV,
+    D]``: on a card the kernel, the cache taken as a ring of S slots
+    (the ring rule gives the reference's ``slot < cur_len`` for a cache
+    that never wraps); elsewhere, or ``plain``, the plain version."""
+    if q.device.type != "cuda" or plain:
+        return decode_attention(q, k, v, cur_len, softcap=softcap,
+                                ring=ring, window=window)
+    B, _, H, D = q.shape
+    # an fp32 memory (image tokens) takes q up to fp32, exactly, as the
+    # plain version computes every score in fp32
+    qk = q.reshape(B, H, D).to(k.dtype).contiguous()
+    o = ring_decode_attention(qk, k, v, cur_len, window=k.shape[1],
+                              block=DECODE_BLOCK, softcap=softcap)
+    return o.to(q.dtype).reshape(B, 1, H, D)
+
+
+def _self_attn_step(ap: dict, x, cfg, kv: KVCache, cur_len: int, *,
+                    ring: bool, plain: bool):
+    """One token's self-attention (reference ``:191-232``): project,
+    RoPE, write the token's slot in place, attend -> (out, kv)."""
     B = x.shape[0]
     pos = cur_len - 1
-    ap = p["attn"]
-    ring = kind == "local"
     h = apply_norm(ap["ln"], x, cfg)
     q = matmul(h, ap["w_q"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
     kn = matmul(h, ap["w_k"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
@@ -203,36 +334,68 @@ def block_step(p: dict, x, cfg, kind: str, cache: KVCache, cur_len: int,
     q = rope(q, pos, cfg.rope_theta)
     kn = rope(kn, pos, cfg.rope_theta)
     slot = pos % cfg.window if ring else pos
-    S = cache.k.shape[1]
-    if slot < S:   # a token past a full global cache is dropped
-        cache.k[:, slot] = kn[:, 0].to(cache.k.dtype)
-        cache.v[:, slot] = vn[:, 0].to(cache.v.dtype)
-    if q.device.type == "cuda" and not plain:
-        # one launch for the batch; a global cache is a ring of S slots
-        # that never wraps, where the validity rule is slot < cur_len
-        o = ring_decode_attention(
-            q.reshape(B, cfg.n_heads, cfg.head_dim).contiguous(), cache.k,
-            cache.v, cur_len, window=S, block=DECODE_BLOCK,
-            softcap=cfg.attn_softcap)
-    else:
-        o = decode_attention(q, cache.k, cache.v, cur_len,
-                             softcap=cfg.attn_softcap, ring=ring,
-                             window=cfg.window)
+    if slot < kv.k.shape[1]:   # a token past a full global cache is dropped
+        kv.k[:, slot] = kn[:, 0].to(kv.k.dtype)
+        kv.v[:, slot] = vn[:, 0].to(kv.v.dtype)
+    o = _decode_attn(q, kv.k, kv.v, cur_len, softcap=cfg.attn_softcap,
+                     ring=ring, window=cfg.window, plain=plain)
     o = matmul(o.reshape(B, 1, cfg.q_dim), ap["w_o"])
     if cfg.post_norms:
         o = apply_norm(ap["post_ln"], o, cfg)
-    x = x + o
-    return x + _ffn_sub(p, x, cfg), cache
+    return o, kv
+
+
+def block_step(p: dict, x, cfg, kind: str, cache, cur_len: int, *,
+               plain: bool = False, routes=None):
+    """One-token decode step -> (x, cache); attention caches are written
+    in place, recurrent states replaced (reference ``:184-254``)."""
+    B = x.shape[0]
+    if kind in SELF_KINDS:
+        o, cache = _self_attn_step(p["attn"], x, cfg, cache, cur_len,
+                                   ring=kind == "local", plain=plain)
+        x_new = x + o
+    elif kind == "cross":
+        o, skv = _self_attn_step(p["attn"], x, cfg, cache.self_kv, cur_len,
+                                 ring=False, plain=plain)
+        x_new = x + o
+        xp = p["xattn"]
+        h = apply_norm(xp["ln"], x_new, cfg)
+        q = matmul(h, xp["w_q"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        M = cache.mem_k.shape[1]
+        o = _decode_attn(q, cache.mem_k, cache.mem_v, M, softcap=None,
+                         ring=False, window=0, plain=plain)
+        x_new = x_new + matmul(o.reshape(B, 1, cfg.q_dim), xp["w_o"])
+        cache = CrossCache(skv, cache.mem_k, cache.mem_v)
+    elif kind == "rec":
+        o, cache = rec_step(p["rec"], x, cfg, cache)
+        x_new = x + o
+    elif kind == "ssm":
+        o, cache = ssm_step(p["ssm"], x, cfg, cache)
+        x_new = x + o
+    else:
+        raise ValueError(kind)
+    o, _ = _ffn_sub(p, x_new, cfg, routes)
+    return x_new + o, cache
 
 
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
-                     dtype=ACT_DTYPE, device="cuda") -> KVCache:
-    if kind not in ATTN_KINDS:
-        raise _unported(f"the cache of block kind {kind!r}")
-    S = cfg.window if kind == "local" else cache_len
-    shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+                     dtype=ACT_DTYPE, device="cuda"):
+    def kv(S):
+        shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+    if kind in ("full", "global"):
+        return kv(cache_len)
+    if kind == "local":
+        return kv(cfg.window)
+    if kind == "cross":
+        mem = kv(cfg.memory_len())
+        return CrossCache(kv(cache_len), mem.k, mem.v)
+    if kind == "rec":
+        return init_rec_cache(cfg, batch, dtype, device)
+    if kind == "ssm":
+        return init_ssm_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
 
 
 # --------------------------------------------------------------------------
@@ -251,12 +414,52 @@ class Model:
     def __post_init__(self):
         check_supported(self.cfg)
 
+    # ---- init -------------------------------------------------------------
+    def init(self, generator: torch.Generator, device=None) -> dict:
+        """A params tree laid out as the reference's ``Model.init``
+        (``transformer.py:301-342``), fp32, drawn from ``generator`` on
+        its device (or on ``device``; ``"meta"`` gives shapes alone):
+        the embedding (and an untied unembedding) at 0.02, the ``lead``
+        layers with a dense FFN of ``d_ff * (top_k + n_shared)``, each
+        pattern position's ``g`` blocks stacked, the remainder, and the
+        encoder's blocks stacked with its final norm."""
+        cfg = self.cfg
+        device = device or generator.device
+        lead, g, rem = _layer_seq(cfg)
+        tree = {"embed": normal(generator, (cfg.vocab, cfg.d_model), 0.02,
+                                device),
+                "final_ln": init_norm(cfg, device=device)}
+        if not cfg.tie_embeddings:
+            tree["unembed"] = normal(generator, (cfg.vocab, cfg.d_model),
+                                     0.02, device)
+        if lead:
+            dense_ff = cfg.d_ff * (cfg.top_k + cfg.n_shared_experts)
+            tree["lead"] = tuple(
+                init_block(generator, cfg, cfg.pattern[0] if cfg.pattern
+                           else "full", dense_ff=dense_ff, device=device)
+                for _ in range(lead))
+
+        def stacked(kind: str, n: int):
+            blocks = [init_block(generator, cfg, kind, device=device)
+                      for _ in range(n)]
+            template = blocks[0] if blocks else init_block(
+                generator, cfg, kind, device="meta")
+            return _stack(blocks, template)
+        tree["groups"] = tuple(stacked(kind, g) for kind in cfg.pattern)
+        tree["rem"] = tuple(init_block(generator, cfg, cfg.pattern[i],
+                                       device=device) for i in range(rem))
+        if cfg.encoder_layers:
+            tree["encoder"] = {"blocks": stacked("full", cfg.encoder_layers),
+                               "final_ln": init_norm(cfg, device=device)}
+        return tree
+
+    # ---- helpers ------------------------------------------------------------
     def _embed(self, params, tokens):
         x = params["embed"][tokens]
         return (x * math.sqrt(self.cfg.d_model)).to(ACT_DTYPE)
 
     def _unembed(self, params, x):
-        w = params["embed"]
+        w = params.get("unembed", params["embed"])
         logits = x.to(torch.float32) @ w.to(torch.float32).T
         return _softcap(logits, self.cfg.logit_softcap)
 
@@ -264,47 +467,101 @@ class Model:
         return torch.as_tensor(tokens, device=params["embed"].device) \
             .to(torch.int64)
 
-    def forward(self, params, tokens):
-        """tokens ``[B, S]`` -> (logits ``[B, S, V]`` fp32, aux 0.0)."""
+    def _encode(self, params, frames):
+        """The encoder over precomputed frame embeddings (reference
+        ``:361-385``): bidirectional attention blocks, then its norm."""
+        cfg = self.cfg
+        x = frames.to(ACT_DTYPE)
+        B, S, _ = x.shape
+        pos = torch.arange(S, device=x.device)
+        for bp in params["encoder"]["blocks"]:
+            h = apply_norm(bp["attn"]["ln"], x, cfg)
+            q, k, v = project_qkv(bp["attn"], h, cfg, pos)
+            o = attention(q, k, v, causal=False, window=None, softcap=None,
+                          bf16_einsum=cfg.bf16_einsum)
+            x = x + matmul(o.reshape(B, S, cfg.q_dim), bp["attn"]["w_o"])
+            x = x + mlp_forward(bp["ffn"], x, cfg)
+        return apply_norm(params["encoder"]["final_ln"], x, cfg)
+
+    def _memory(self, params, memory):
+        """The memory the cross blocks attend to: the encoder's output of
+        ``memory`` (frames) where the config has an encoder, else the
+        memory (image tokens) as given."""
+        if memory is None:
+            return None
+        memory = torch.as_tensor(memory, device=params["embed"].device)
+        if self.cfg.encoder_layers:
+            memory = self._encode(params, memory)
+        return memory
+
+    # ---- public: full-sequence forward ---------------------------------------
+    def forward(self, params, tokens, memory=None, *, routes=None):
+        """tokens ``[B, S]`` -> (logits ``[B, S, V]`` fp32, aux: 0.0, or
+        the MoE layers' summed aux loss).  Where ``routes`` is a list,
+        each MoE layer appends its ``moe.Routing`` to it, in layer order
+        (so do ``prefill`` and ``decode_step``)."""
         cfg = self.cfg
         tokens = self._tokens(params, tokens)
+        memory = self._memory(params, memory)
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
+        aux = 0.0
         for p, kind in zip(params["layers"], layer_kinds(cfg)):
-            x, _ = block_forward(p, x, cfg, kind, positions)
+            x, _, a = block_forward(p, x, cfg, kind, positions,
+                                    memory=memory, routes=routes)
+            aux = aux + a
         x = apply_norm(params["final_ln"], x, cfg)
-        return self._unembed(params, x), 0.0
+        return self._unembed(params, x), aux
 
+    def loss(self, params, batch: dict):
+        raise NotImplementedError(
+            "Model.loss (training) is not ported yet (ROADMAP Queue 1 item "
+            "9: train/, checkpoint/, parallel/, launch/)")
+
+    # ---- public: serving ----------------------------------------------------
     def init_caches(self, batch: int, cache_len: int, dtype=ACT_DTYPE,
-                    device="cuda") -> list[KVCache]:
+                    device="cuda") -> list:
         return [init_block_cache(self.cfg, kind, batch, cache_len, dtype,
                                  device) for kind in layer_kinds(self.cfg)]
 
-    def prefill(self, params, tokens, cache_len: int = 0):
+    def prefill(self, params, tokens, cache_len: int = 0, *, memory=None,
+                routes=None):
         """Full-sequence pass materializing caches; returns (logits of
         the last position ``[B, V]``, caches, cur_len)."""
         cfg = self.cfg
         tokens = self._tokens(params, tokens)
+        memory = self._memory(params, memory)
         S = tokens.shape[1]
         cache_len = max(cache_len, S)
         x = self._embed(params, tokens)
         positions = torch.arange(S, device=x.device)
         caches = []
         for p, kind in zip(params["layers"], layer_kinds(cfg)):
-            x, c = block_forward(p, x, cfg, kind, positions,
-                                 make_cache=True, cache_len=cache_len)
+            x, c, _ = block_forward(p, x, cfg, kind, positions,
+                                    memory=memory, make_cache=True,
+                                    cache_len=cache_len, routes=routes)
             caches.append(c)
         x = apply_norm(params["final_ln"], x, cfg)
         return self._unembed(params, x[:, -1:])[:, 0], caches, S
 
-    def decode_step(self, params, caches, token, cur_len: int):
-        """token ``[B]`` -> (logits ``[B, V]``, caches written in place,
-        cur_len + 1)."""
+    def decode_step(self, params, caches, token, cur_len: int, *,
+                    routes=None):
+        """token ``[B]`` -> (logits ``[B, V]``, caches (attention caches
+        written in place), cur_len + 1)."""
         cfg = self.cfg
         token = self._tokens(params, token)
         x = self._embed(params, token[:, None])
         cur = int(cur_len) + 1  # length including this token
+        new = []
         for p, kind, c in zip(params["layers"], layer_kinds(cfg), caches):
-            x, _ = block_step(p, x, cfg, kind, c, cur, plain=self.plain)
+            x, c = block_step(p, x, cfg, kind, c, cur, plain=self.plain,
+                              routes=routes)
+            new.append(c)
         x = apply_norm(params["final_ln"], x, cfg)
-        return self._unembed(params, x)[:, 0], caches, cur
+        return self._unembed(params, x)[:, 0], new, cur
+
+
+__all__ = ["ATTN_KINDS", "BLOCK_KINDS", "CrossCache", "KVCache",
+           "LRUCache", "Model", "SSMCache", "block_forward", "block_step",
+           "init_block", "init_block_cache", "layer_kinds",
+           "layers_from_tree", "params_from_reference"]

@@ -3,7 +3,8 @@ port of ``repro.serve.engine``).
 
 ``prefill`` materializes the caches (full and global layers ->
 ``[B, cache_len, KV, D]``; sliding-window layers -> the vMCU ring of
-``window`` slots) and ``decode_step`` advances every row one token,
+``window`` slots; cross layers -> their memory's K/V beside that;
+recurrent and SSM layers -> their O(1) state) and ``decode_step`` advances every row one token,
 writing ring slots modulo the window; on a CUDA card each layer's decode
 attention is one launch of the hand-written ``ring_decode_attention``
 for the whole batch.  The engine runs where the params lie.
@@ -31,8 +32,9 @@ def make_serve_fns(model: Model, *, cache_len: int):
     """The prefill and decode-step functions of ``model`` (plain calls:
     PyTorch runs eagerly, so there is nothing to compile)."""
 
-    def prefill(params, tokens):
-        return model.prefill(params, tokens, cache_len=cache_len)
+    def prefill(params, tokens, memory=None):
+        return model.prefill(params, tokens, cache_len=cache_len,
+                             memory=memory)
 
     def decode_step(params, caches, token, cur_len):
         return model.decode_step(params, caches, token, cur_len)
@@ -51,8 +53,12 @@ class ServingEngine:
         self.prefill, self.decode = make_serve_fns(model,
                                                    cache_len=cache_len)
 
-    def generate(self, prompts: list[list[int]],
-                 max_new: int = 16) -> list[list[int]]:
+    def generate(self, prompts: list[list[int]], max_new: int = 16,
+                 memory=None) -> list[list[int]]:
+        """Greedy tokens for each prompt; ``memory`` (``[B, S_mem, d]``,
+        encoder frames or image tokens) is what the cross blocks attend
+        to.  Pad tokens pass through the recurrences and take MoE
+        capacity slots, as in the reference."""
         B = len(prompts)
         L = max(len(p) for p in prompts)
         device = self.params["embed"].device
@@ -61,7 +67,7 @@ class ServingEngine:
         toks = torch.tensor([[0] * (L - len(p)) + list(p) for p in prompts],
                             dtype=torch.int64, device=device)
         with span("serve.prefill", batch=B, prompt_len=L):
-            logits, caches, cur = self.prefill(self.params, toks)
+            logits, caches, cur = self.prefill(self.params, toks, memory)
             if active() and device.type == "cuda":  # sync only when timing
                 torch.cuda.synchronize(device)
         out = [[] for _ in range(B)]

@@ -72,7 +72,19 @@ ids and max |logit|, with the recipe's seed and version.  The same mode
 writes ``gemma3-1b-smoke.golden.npz``, the same golden of the reduced
 config, which is the one tier-1 re-derives (a full-width reference run
 takes gigabytes and minutes, so tier-1 checks only the full golden's
-record and the reduced golden's freshness).
+record and the reduced golden's freshness).  The same mode writes both
+goldens of the LMs of every other block kind the card serves,
+``NEW_LM_NAMES`` (recurrentgemma-2b, granite-moe-1b-a400m, mamba2-780m,
+whisper-tiny; whisper's prompts attend to ``lm_memory(cfg, 0, 1)``),
+from the reference at full width and at reduced width; tier-1 re-derives
+the reduced ones.  An MoE config's golden also holds the reference's
+routing of every position at every MoE layer (``"routes"``, as
+``cases.route_codes``), read out of its run by
+``test_torch_moe.reference_routes``.  A full-width tree is held once:
+each numpy leaf is dropped as it becomes a jax array.  Names after
+``--lm`` write those configs' goldens alone:
+
+    PYTHONPATH=src python tests/test_torch_assets.py --lm mamba2-780m
 """
 import dataclasses
 import hashlib
@@ -105,9 +117,11 @@ from repro_torch.compile.artifact import (read_compile_inputs,
 from repro_torch.configs import get_config as port_get_config
 from repro_torch.kernels.cases import (LM_GOLDEN_CACHE_LEN, LM_GOLDEN_STEPS,
                                        LM_GOLDEN_TOP, LM_PARAMS_VERSION,
-                                       hold_lm_golden, lm_params, lm_prompts,
-                                       mlp_tower_params)
+                                       hold_lm_golden, lm_memory, lm_params,
+                                       lm_prompts, mlp_tower_params,
+                                       route_codes)
 from repro_torch.models import build_model, params_from_reference
+from test_torch_moe import reference_routes, routing_of
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
@@ -538,21 +552,44 @@ def test_the_sliced_asset_is_a_fresh_partial_compile():
 
 #: The LM whose golden is committed, at full width and reduced.
 LM_NAME = "gemma3-1b"
+#: The LMs of the other block kinds, whose goldens (full width and
+#: reduced) are committed too.
+NEW_LM_NAMES = ("recurrentgemma-2b", "granite-moe-1b-a400m", "mamba2-780m",
+                "whisper-tiny")
 
 
 def lm_golden_path(cfg) -> pathlib.Path:
     return ASSETS / f"{cfg.name}.golden.npz"
 
 
+def _to_jax(tree):
+    """``tree`` with its numpy leaves as jax arrays, converted in place
+    where the tree is a dict, so that each numpy leaf is dropped once
+    copied: a full-width tree is held once, not twice."""
+    if isinstance(tree, dict):
+        for key in list(tree):
+            tree[key] = _to_jax(tree[key])
+        return tree
+    if isinstance(tree, tuple):
+        return tuple(_to_jax(v) for v in tree)
+    return jnp.asarray(tree)
+
+
 def lm_golden(cfg, seed: int = PARAMS_SEED) -> dict:
     """The reference's greedy steps on ``lm_prompts``: per prompt, at
     batch 1 through the reference ``ServingEngine``'s jitted prefill and
     decode step (what its ``generate`` runs), each step's token (the
-    argmax), top-``LM_GOLDEN_TOP`` logits and ids and max |logit|."""
+    argmax), top-``LM_GOLDEN_TOP`` logits and ids and max |logit|; for
+    an MoE config, every position's routing at every MoE layer
+    (``"routes"``, ``[prompts, layers, max prompt + steps - 1, k]``: the
+    prompt's positions, then one a decode step; ``n_experts`` past a
+    prompt's own)."""
     model = ref_build_model(cfg)
-    tree = jax.tree.map(jnp.asarray, lm_params(cfg, seed))
-    engine = RefEngine(model, tree, cache_len=LM_GOLDEN_CACHE_LEN)
+    moe_layers = cfg.n_layers - cfg.first_dense_layers if cfg.n_experts \
+        else 0
     prompts = lm_prompts(cfg.vocab, seed)
+    memory = lm_memory(cfg, seed, 1)
+    memory = None if memory is None else jnp.asarray(memory)
     L = max(len(p) for p in prompts)
     out = {"prompts": np.zeros((len(prompts), L), np.int32),
            "prompt_lens": np.asarray([len(p) for p in prompts], np.int32),
@@ -565,26 +602,45 @@ def lm_golden(cfg, seed: int = PARAMS_SEED) -> dict:
            "seed": np.int32(seed), "recipe_version":
            np.int32(LM_PARAMS_VERSION), "config": np.str_(cfg.name),
            "cache_len": np.int32(LM_GOLDEN_CACHE_LEN)}
-    for i, prompt in enumerate(prompts):
-        out["prompts"][i, :len(prompt)] = prompt
-        logits, caches, cur = engine.prefill(
-            tree, jnp.asarray([prompt], jnp.int32))
-        for t in range(LM_GOLDEN_STEPS):
-            if t:
-                logits, caches, cur = engine.decode(
-                    tree, caches, jnp.asarray(out["tokens"][i, t - 1:t]),
-                    cur)
-            vals, ids = jax.lax.top_k(logits[0], LM_GOLDEN_TOP)
-            out["top_logits"][i, t] = np.asarray(vals)
-            out["top_ids"][i, t] = np.asarray(ids)
-            out["tokens"][i, t] = int(jnp.argmax(logits[0]))
-            out["absmax"][i, t] = float(jnp.abs(logits[0]).max())
+    if moe_layers:
+        out["routes"] = np.full((len(prompts), moe_layers,
+                                 L + LM_GOLDEN_STEPS - 1, cfg.top_k),
+                                cfg.n_experts, np.int32)
+    with reference_routes(cfg) as calls:
+        tree = _to_jax(lm_params(cfg, seed))
+        engine = RefEngine(model, tree, cache_len=LM_GOLDEN_CACHE_LEN)
+        for i, prompt in enumerate(prompts):
+            n = len(prompt)
+            out["prompts"][i, :n] = prompt
+            logits, caches, cur = engine.prefill(
+                tree, jnp.asarray([prompt], jnp.int32), memory)
+            for t in range(LM_GOLDEN_STEPS):
+                if t:
+                    logits, caches, cur = engine.decode(
+                        tree, caches,
+                        jnp.asarray(out["tokens"][i, t - 1:t]), cur)
+                vals, ids = jax.lax.top_k(logits[0], LM_GOLDEN_TOP)
+                out["top_logits"][i, t] = np.asarray(vals)
+                out["top_ids"][i, t] = np.asarray(ids)
+                out["tokens"][i, t] = int(jnp.argmax(logits[0]))
+                out["absmax"][i, t] = float(jnp.abs(logits[0]).max())
+                jax.effects_barrier()
+                if moe_layers:
+                    assert len(calls) == moe_layers, (len(calls), t)
+                    at = slice(0, n) if t == 0 else slice(n + t - 1, n + t)
+                    out["routes"][i, :, at] = route_codes(
+                        [routing_of(c, 1, cfg) for c in calls])[:, 0]
+                calls.clear()
     return out
 
 
-def write_lm_goldens() -> None:
-    for cfg in (get_config(LM_NAME), get_config(LM_NAME).reduced()):
-        np.savez(lm_golden_path(cfg), **lm_golden(cfg))
+def write_lm_goldens(names=()) -> None:
+    """Both goldens of gemma3-1b and of each ``NEW_LM_NAMES`` config, or
+    of ``names`` alone."""
+    for name in names or (LM_NAME,) + NEW_LM_NAMES:
+        for cfg in (get_config(name), get_config(name).reduced()):
+            np.savez(lm_golden_path(cfg), **lm_golden(cfg))
+            print(f"wrote {lm_golden_path(cfg)}", flush=True)
 
 
 @pytest.fixture(scope="module")
@@ -597,9 +653,20 @@ def test_lm_golden_matches_a_fresh_reference_run(lm_smoke_golden):
     """The reduced golden is the reference's greedy run on the recipe's
     weights: the same prompts, tokens and top ids, logits to the fp32
     tolerance of a golden written in another process."""
-    want = lm_smoke_golden
+    _same_lm_golden(get_config(LM_NAME).reduced(), lm_smoke_golden)
+
+
+@pytest.mark.parametrize("name", NEW_LM_NAMES)
+def test_new_kind_lm_goldens_match_a_fresh_reference_run(name):
+    """The reduced golden of each other block kind is the reference's
+    greedy run, as gemma3-1b's is."""
+    cfg = get_config(name).reduced()
+    _same_lm_golden(cfg, lm_golden(cfg))
+
+
+def _same_lm_golden(cfg, want) -> None:
     tol = 3e-5 * float(want["absmax"].max())
-    with np.load(lm_golden_path(get_config(LM_NAME).reduced())) as have:
+    with np.load(lm_golden_path(cfg)) as have:
         assert sorted(have.files) == sorted(want)
         for key in sorted(set(want) - {"top_logits", "absmax", "top_ids"}):
             np.testing.assert_array_equal(have[key], want[key], err_msg=key)
@@ -641,6 +708,53 @@ def test_the_full_width_lm_golden_is_the_recipe_of_record():
         assert np.isfinite(g["top_logits"]).all()
 
 
+@pytest.mark.parametrize("name", NEW_LM_NAMES)
+def test_the_full_width_new_kind_lm_goldens_are_the_recipe_of_record(name):
+    """The committed full-width goldens of the other block kinds hold
+    the reference's run, laid out as gemma3-1b's (plus the routing of an
+    MoE config), from ``lm_params`` of the current recipe version and
+    seed, on ``lm_prompts``' prompts (and ``lm_memory``'s frames), and
+    are small."""
+    cfg = port_get_config(name)
+    path = lm_golden_path(cfg)
+    assert path.stat().st_size < 1 << 20
+    with np.load(lm_golden_path(get_config(LM_NAME))) as g:
+        keys = set(g.files) | ({"routes"} if cfg.n_experts else set())
+    with np.load(path) as g:
+        assert set(g.files) == keys
+        assert str(g["config"]) == name
+        if cfg.n_experts:
+            moe_layers = cfg.n_layers - cfg.first_dense_layers
+            assert g["routes"].shape == (2, moe_layers, 24 + LM_GOLDEN_STEPS
+                                         - 1, cfg.top_k)
+            assert ((g["routes"] >= -cfg.n_experts)
+                    & (g["routes"] <= cfg.n_experts)).all()
+        assert int(g["seed"]) == PARAMS_SEED
+        assert int(g["recipe_version"]) == LM_PARAMS_VERSION
+        assert int(g["cache_len"]) == LM_GOLDEN_CACHE_LEN
+        prompts = lm_prompts(cfg.vocab, PARAMS_SEED)
+        assert list(g["prompt_lens"]) == [8, 24]
+        for i, p in enumerate(prompts):
+            assert list(g["prompts"][i, :len(p)]) == p
+        assert g["tokens"].shape == (2, LM_GOLDEN_STEPS)
+        assert g["top_ids"].shape == g["top_logits"].shape \
+            == (2, LM_GOLDEN_STEPS, LM_GOLDEN_TOP)
+        assert (g["tokens"] == g["top_ids"][..., 0]).all()
+        assert ((g["top_ids"] >= 0) & (g["top_ids"] < cfg.vocab)).all()
+        assert np.isfinite(g["top_logits"]).all()
+
+
+@pytest.mark.parametrize("name", NEW_LM_NAMES)
+def test_the_port_holds_the_new_kind_reduced_lm_goldens(name):
+    """The port on the CPU holds each other kind's reduced golden as it
+    holds gemma3-1b's."""
+    cfg = port_get_config(name).reduced()
+    params = params_from_reference(cfg, lm_params(cfg, PARAMS_SEED), "cpu")
+    with np.load(lm_golden_path(cfg)) as g:
+        held = hold_lm_golden(build_model(cfg), params, dict(g))
+    assert held["ok"], held
+
+
 def test_the_port_holds_the_reduced_lm_golden():
     """The port on the CPU, teacher-forced on the reduced golden's
     tokens: every step's logits at the golden's top ids within rtol 2e-2
@@ -660,9 +774,7 @@ if __name__ == "__main__":
         print(f"wrote the sliced {SLICED_NET} artifact and golden in "
               f"{ASSETS}")
     elif "--lm" in sys.argv[1:]:
-        write_lm_goldens()
-        print(f"wrote the {LM_NAME} goldens (full width and reduced) in "
-              f"{ASSETS}")
+        write_lm_goldens(tuple(sys.argv[sys.argv.index("--lm") + 1:]))
     else:
         write_assets()
         print(f"wrote the artifacts and goldens of {NETS + STREAMS} and of "

@@ -13,7 +13,8 @@ exp(m_i - M) and divides once.  Held here:
   B x kv_heads);
 * a model of the kernels' arithmetic (the splits, the skipped ones past
   seq_len, the combine) against the port's oracle ``ring_decode_ref``
-  and the plain version on every ``DECODE_CASES`` entry, at
+  and the plain version on every ``DECODE_CASES`` entry and the other
+  block kinds' LM geometries (``LM_DECODE_CASES``), at
   ``compare_decode``'s tolerance (fp32 2e-5, bf16 one ulp of the
   output's scale), and against the plain version where seq_len < 1
   averages the whole window;
@@ -24,8 +25,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ring_decode as rd
-from repro_torch.kernels.cases import (DECODE_CASES, DecodeCase,
-                                       compare_decode, decode_inputs)
+from repro_torch.kernels.cases import (DECODE_CASES, LM_DECODE_CASES,
+                                       DecodeCase, compare_decode,
+                                       decode_inputs)
 from repro_torch.kernels.ring_decode import (SPLIT_SLOTS, decode_splits,
                                              ring_decode_attention_plain,
                                              ring_decode_ref)
@@ -40,7 +42,8 @@ def _rows(case) -> int:
     return case.batch or 1
 
 
-GEOMETRIES = sorted({(_rows(c), c.kv_heads, c.window) for c in DECODE_CASES}
+GEOMETRIES = sorted({(_rows(c), c.kv_heads, c.window)
+                     for c in DECODE_CASES + LM_DECODE_CASES}
                     | {(4, 1, 512), (4, 1, 1024), (1, 1, 512),
                        (1, 1, 1024), (8, 1, 5), (200, 1, 64)})
 
@@ -140,7 +143,8 @@ def _model(case, tq, tk, tv, seqs, n_sm=132):
                         block=case.block, softcap=case.softcap, sp=sp)
 
 
-@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: c.name)
+@pytest.mark.parametrize("case", DECODE_CASES + LM_DECODE_CASES,
+                         ids=lambda c: c.name)
 def test_split_model_matches_oracle_and_plain(case):
     tq, tk, tv, seqs = _inputs(case)
     got = _model(case, tq, tk, tv, seqs).float().numpy()
@@ -176,7 +180,8 @@ def test_split_model_averages_the_window_when_nothing_is_valid():
     c for c in DECODE_CASES if c.name in (
         "decode_gemma3_batch4_bf16", "decode_gemma3_local_batch1_bf16",
         "decode_gemma3_global_1024_batch4_bf16", "decode_batch4_per_row_seq",
-        "decode_q16_kv1_d64_w512_b128_T7")], ids=lambda c: c.name)
+        "decode_q16_kv1_d64_w512_b128_T7")] + list(LM_DECODE_CASES),
+    ids=lambda c: c.name)
 def test_wrapper_launch_arguments(case, monkeypatch):
     calls = []
     monkeypatch.setattr(rd, "_check_cuda", lambda *a: None)
@@ -206,5 +211,5 @@ def test_wrapper_launch_arguments(case, monkeypatch):
                           sp.splits)
     assert ints[10] == d ** -0.5 and ints[11] == (case.softcap or 0.0)
     assert rd.ring_decode_attention.launches == 1
-    if (B, case.window) in ((4, 512), (4, 1024)):
+    if (B, case.kv_heads, case.window) in ((4, 1, 512), (4, 1, 1024)):
         assert sp.ctas == 128 > B * case.kv_heads

@@ -3,8 +3,10 @@ version (int8 bitwise, fp32 within the tolerance of
 ``repro_torch.kernels.cases.compare_f32``, with TF32 off; the decode
 attention within ``cases.compare_decode``), the served and streaming
 paths against the reference's goldens (the sliced ImageNet plan among
-them), traced runs against untraced ones, and reduced gemma3-1b served
-through one ``ring_decode_attention`` launch per layer per decode step.
+them), traced runs against untraced ones, reduced gemma3-1b served
+through one ``ring_decode_attention`` launch per layer per decode step,
+and a reduced LM of each other block kind (rec, ssm, MoE, cross) served
+through the decode kernel, kernel path against plain path.
 
 These tests import neither JAX nor the reference package, so they run
 on a machine that has only PyTorch and the CUDA toolkit:
@@ -36,9 +38,11 @@ from repro_torch.kernels.cases import (ATOL_REL, CARD_EDGE_CASES,
                                        seeded_float_net)
 from repro_torch.quant.qtensor import QParams, quantize
 from repro_torch.configs import get_config
-from repro_torch.kernels.cases import (DECODE_CASES, compare_decode,
-                                       decode_inputs, hold_lm_golden,
-                                       lm_params, logits_close)
+from repro_torch.kernels.cases import (DECODE_CASES, LM_DECODE_CASES,
+                                       compare_decode, decode_inputs,
+                                       hold_lm_golden, lm_memory, lm_params,
+                                       logits_close, route_codes,
+                                       routed_apart)
 from repro_torch.kernels import fused_mlp
 from repro_torch.kernels.fused_mlp import MlpTiling, mlp_tiling
 from repro_torch.kernels import stream as stream_kernels
@@ -596,7 +600,8 @@ def test_fused_mlp_every_row_block_matches_plain_on_card(case, tm,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: c.name)
+@pytest.mark.parametrize("case", DECODE_CASES + LM_DECODE_CASES,
+                         ids=lambda c: c.name)
 def test_ring_decode_kernel_matches_plain_on_card(case):
     """fp32 within rtol and atol 2e-5, bf16 within one bf16 ulp of the
     output's scale; one launch per call, batch and all."""
@@ -651,6 +656,75 @@ def test_reduced_gemma3_serves_through_the_decode_kernel_on_card():
     with np.load(ASSETS / f"{cfg.name}.golden.npz") as g:
         held = hold_lm_golden(model, params, dict(g))
     assert held["ok"], held
+
+
+#: Each other block kind's reduced LM and its decode-kernel launches per
+#: decode step (self-attention layers, plus cross layers' memory).
+NEW_KIND_LMS = {"recurrentgemma-2b": 1, "mamba2-780m": 0,
+                "granite-moe-1b-a400m": 2, "deepseek-moe-16b": 2,
+                "whisper-tiny": 4, "llama-3.2-vision-90b": 6}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(NEW_KIND_LMS))
+def test_reduced_new_kinds_serve_through_the_decode_kernel_on_card(name):
+    """Each other block kind at reduced width (rec and a 32-slot ring the
+    40-token prompt wraps; ssm; MoE; lead layers and a shared expert;
+    cross-attention over encoder frames and image tokens; an untied
+    unembedding) generates 8 tokens for 3 prompts with exactly the
+    stated ``ring_decode_attention`` launches per decode step and no
+    other kernel; its prefill and decode logits, teacher-forced on its
+    tokens, are within the bf16 tolerance of the plain path's (a row of
+    an MoE config that misses is let pass only from the step on where
+    the two paths' routings, ``moe.Routing``, really sent one of its
+    tokens to other experts); and it holds its reduced golden where one
+    is committed."""
+    _need_card()
+    cfg = get_config(name).reduced()
+    params = params_from_reference(cfg, lm_params(cfg, 0), "cuda")
+    model, plain = build_model(cfg), build_model(cfg, plain=True)
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, n)]
+               for n in (40, 9, 21)]
+    mem = lm_memory(cfg, 0, 3)
+    mem = None if mem is None else torch.from_numpy(mem).cuda()
+    reset_launch_counts()
+    out = ServingEngine(model, params, cache_len=48).generate(
+        prompts, 8, memory=mem)
+    torch.cuda.synchronize()
+    per_step = NEW_KIND_LMS[name]
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == ({"ring_decode_attention": per_step * 8} if per_step else {})
+    toks = torch.tensor([[0] * (40 - len(p)) + p for p in prompts],
+                        device="cuda")
+    apart = np.zeros(3, bool)
+    rk, rp = [], []
+    lk, ck, curk = model.prefill(params, toks, cache_len=48, memory=mem,
+                                 routes=rk)
+    lp, cp, curp = plain.prefill(params, toks, cache_len=48, memory=mem,
+                                 routes=rp)
+    for t in range(9):
+        if rk:
+            apart |= routed_apart(route_codes(rk), route_codes(rp)).any(1)
+            rk.clear()
+            rp.clear()
+        want = lp.float().cpu().numpy()
+        scale = float(np.abs(want).max())
+        got = lk.float().cpu().numpy()
+        for b in range(3):
+            err, ok = logits_close(got[b], want[b], scale)
+            assert ok or apart[b], (t, b, err)
+        if t == 8:
+            break
+        tok = torch.tensor([row[t] for row in out], device="cuda")
+        assert lk.argmax(-1).tolist() == tok.tolist()
+        lk, ck, curk = model.decode_step(params, ck, tok, curk, routes=rk)
+        lp, cp, curp = plain.decode_step(params, cp, tok, curp, routes=rp)
+    path = ASSETS / f"{cfg.name}.golden.npz"
+    if path.exists():
+        with np.load(path) as g:
+            held = hold_lm_golden(model, params, dict(g))
+        assert held["ok"], held
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ inputs, proves VWW's plan statically, emits its C, runs both of its
 compile and lint command lines' ``--smoke`` gates, compiles ImageNet
 for the M4 with ``partial="auto"``, serves the sliced plan, traces a run
 and runs the trace command line's ``--smoke`` in a temporary
-directory."""
+directory; serves a reduced model of each LM block and FFN kind (rec,
+ssm, MoE, lead layers, cross-attention over encoder frames and image
+tokens, an untied unembedding), runs the serving command, the FC chain
+through the ring and ``ops.segment_gemm`` against its oracle."""
 import ast
 import os
 import pathlib
@@ -50,12 +53,17 @@ def test_sources_exist():
             "qtensor.py", "lint.py", "verifier.py", "targets.py",
             "artifact.py", "intervals.py", "mutate.py", "codegen.py",
             "cli.py", "slicer.py", "lower.py", "counters.py",
-            "timeline.py", "tracer.py", "analysis.py"} <= names
+            "timeline.py", "tracer.py", "analysis.py", "rglru.py",
+            "mamba2.py", "moe.py", "ring_buffer.py", "ref.py",
+            "serve.py"} <= names
     src = ROOT / "src" / "repro_torch"
     assert (src / "cli.py").exists()
     assert (src / "analysis" / "cli.py").exists()
     for module in ("partial/__init__.py", "obs/cli.py",
-                   "roofline/__init__.py"):
+                   "roofline/__init__.py", "launch/__init__.py",
+                   "launch/serve.py", "models/rglru.py", "models/mamba2.py",
+                   "models/moe.py", "core/ring_buffer.py",
+                   "kernels/ref.py"):
         assert (src / module).exists()
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
             / "ring_decode.cu").exists()
@@ -123,6 +131,34 @@ out = ServingEngine(build_model(cfg), params, cache_len=48).generate(
 assert [len(o) for o in out] == [4, 4]
 with np.load(assets + "/gemma3-1b-smoke.golden.npz") as g:
     assert hold_lm_golden(build_model(cfg), params, dict(g))["ok"]
+from repro_torch.kernels.cases import lm_memory
+for name in ("recurrentgemma-2b", "mamba2-780m", "granite-moe-1b-a400m",
+             "deepseek-moe-16b", "whisper-tiny", "llama-3.2-vision-90b"):
+    cfg = get_config(name).reduced()
+    params = params_from_reference(cfg, lm_params(cfg, 0), "cpu")
+    mem = lm_memory(cfg, 0, 2)
+    out = ServingEngine(build_model(cfg), params, cache_len=48).generate(
+        [[5, 6, 7], list(range(1, 41))], max_new=3,
+        memory=None if mem is None else torch.from_numpy(mem))
+    assert [len(o) for o in out] == [3, 3], name
+import contextlib, io
+from repro_torch.launch.serve import main as serve_main
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    serve_main(["--arch", "whisper-tiny", "--reduced", "--device", "cpu",
+                "--max-new", "2"])
+assert buf.getvalue().startswith("generated 8 tokens")
+from repro_torch.core.ring_buffer import (init_chain_params,
+                                          naive_chain_apply, plan_chain,
+                                          run_chain_via_ring)
+from repro_torch.kernels import ops, ref
+plan = plan_chain(8, [96, 384, 96], seg_width=32)
+chain = init_chain_params(torch.Generator().manual_seed(0), [96, 384, 96])
+x = torch.randn((8, 96), generator=torch.Generator().manual_seed(1))
+assert torch.allclose(run_chain_via_ring(x, chain, plan),
+                      naive_chain_apply(x, chain), atol=1e-4)
+w = torch.randn((96, 40), generator=torch.Generator().manual_seed(2))
+y, info = ops.segment_gemm(x, w)
+assert torch.allclose(y, ref.gemm_ref(x, w, torch.zeros(40)), atol=1e-4)
 cn = repro_torch.compile("ds-cnn", "cortex-m4")
 assert [p.name for p in cn.passes] == ["build", "schedule", "plan",
                                        "budget", "quantize", "lint",

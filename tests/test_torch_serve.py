@@ -24,8 +24,9 @@ bitwise):
 
 Also: ``get_config`` and ``reduced()`` give the reference's fields for
 every registered name, the recipe's tree has ``Model.init``'s layout,
-``generate`` records the reference's spans, and the kinds the port does
-not run yet raise.
+``generate`` records the reference's spans, and what the port does not
+run yet (training: ``Model.loss``) raises for the configs of every new
+block kind, which build.
 """
 import dataclasses
 
@@ -296,8 +297,11 @@ def test_params_from_reference_layout():
 @pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-2b",
                                   "whisper-tiny", "granite-moe-1b-a400m"])
 def test_unported_kinds_raise(name):
+    """Every block kind builds now; what stays unported is training:
+    ``Model.loss`` raises, naming the ROADMAP item."""
+    model = build_model(name)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build_model(name)
+        model.loss(None, {"tokens": [[1]], "labels": [[1]]})
 
 
 def test_generate_records_the_reference_spans():

@@ -17,9 +17,17 @@ through that checkout's own ``repro_torch`` and ``chip_smoke.py``:
   add, pool, bottleneck and GRU cell; ``chip_smoke._held_ms``:
   held-stream CUDA events, 50 launches).
 
+With ``--lm`` each process instead draws gemma3-1b at full width
+(``chip_smoke.lm_setup``) and times that checkout's model by this
+script's own loop, the same for both: prefill of ``chip_smoke``'s 4
+prompts at batch 4 (5 calls) and one decode step at batch 1 and 4 (20
+calls), each the median on the host clock ending in synchronize
+(``chip_smoke._host_ms``).
+
 It prints each process's result as a JSON line, then a summary: per
 path the median of the processes' medians, per op the mean of the
-processes' times, for A and for B.  Host times move between processes
+processes' times (``--lm``: the median of each timing and its
+spread, the smallest and largest of the processes'), for A and for B.  Host times move between processes
 and machines, so only an A/B inside one call counts.
 """
 from __future__ import annotations
@@ -88,14 +96,36 @@ def child(root: pathlib.Path) -> dict:
     return {"root": str(root), "latency_ms": latency, "kernel_us": kernel_us}
 
 
+def child_lm(root: pathlib.Path) -> dict:
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import chip_smoke as cs
+
+    from repro_torch.models import build_model
+
+    cfg, params = cs.lm_setup()
+    model = build_model(cfg)
+    _, padded = cs.lm_prompts_of_path(cfg)
+    out = {"prefill_ms_batch4": cs._host_ms(lambda: model.prefill(
+        params, padded, cache_len=cs.LM_CACHE_LEN), 5)}
+    for B in (1, len(padded)):
+        logits, caches, cur = model.prefill(params, padded[-B:],
+                                            cache_len=cs.LM_CACHE_LEN)
+        tok = logits.argmax(-1)
+        out[f"decode_ms_batch{B}"] = cs._host_ms(
+            lambda: model.decode_step(params, caches, tok, cur), 20)
+    return {"root": str(root), "lm": out}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("dirs", nargs="*", type=pathlib.Path)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--child", type=pathlib.Path)
+    ap.add_argument("--lm", action="store_true")
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.child.resolve())), flush=True)
+        fn = child_lm if args.lm else child
+        print(json.dumps(fn(args.child.resolve())), flush=True)
         return
     if len(args.dirs) != 2:
         ap.error("give two checkouts, A and B")
@@ -104,13 +134,24 @@ def main() -> None:
     for _ in range(args.rounds):
         for root in (a, b, b, a):
             out = subprocess.run(
-                [sys.executable, __file__, "--child", str(root)],
+                [sys.executable, __file__, "--child", str(root)]
+                + (["--lm"] if args.lm else []),
                 capture_output=True, text=True, check=True)
             line = out.stdout.strip().splitlines()[-1]
             print(line, flush=True)
             runs[root].append(json.loads(line))
     for label, root in (("A", a), ("B", b)):
         rs = runs[root]
+        if args.lm:
+            keys = [k for k in rs[0]["lm"] if all(
+                isinstance(r["lm"].get(k), float) for r in rs)]
+            print(json.dumps({label: str(root), "lm": {
+                k: statistics.median(r["lm"][k] for r in rs)
+                for k in keys}, "lm_min": {
+                k: min(r["lm"][k] for r in rs) for k in keys}, "lm_max": {
+                k: max(r["lm"][k] for r in rs) for k in keys}}),
+                flush=True)
+            continue
         lat = {p: statistics.median(r["latency_ms"][p][0] for r in rs)
                for p in PATHS}
         us = {op: statistics.mean(r["kernel_us"][op] for r in rs)
