@@ -208,9 +208,30 @@ Phases, one summary line each:
      events), their sum printed beside phase 4's card time of the path;
      a traced 60-frame DS-CNN int8 stream whose counters after N steps
      are init + N·step, as the sim oracle counts; and ``python -m
-     repro_torch.obs.cli --smoke`` in a temporary directory, exit 0.
+     repro_torch.obs.cli --smoke`` in a temporary directory, exit 0;
+  9. training (run after phase 4's LMs, before phase 5): gemma3-1b at
+     full width and depth from the serve path's host draw
+     (``cases.lm_params(cfg, 0)``, fp32 masters, mu and nu on the card),
+     ``make_train_step`` with the config's remat for the golden's 3 steps
+     at its batch and sequence (``cases.hold_train_golden``): the
+     batches bitwise, each step's loss, grad_norm and lr and step 0's
+     gradient norm of every leaf within rtol 2e-2 of the reference's
+     committed full-width train golden
+     (``assets/gemma3-1b.train.npz``), and no ring kernel launched; the
+     state saved with ``CheckpointManager.save_async`` under ``build/``,
+     restored into a fresh state (bitwise), and step 3 run from both
+     (losses within rtol 1e-5); the trained tree served through
+     ``ServingEngine.generate`` for 8 tokens with phase 3's checks
+     against the plain path (26 ``ring_decode_attention`` launches a
+     decode step); each other kind's reduced config (``TRAIN_KINDS``)
+     trained 2 steps on the card and on the CPU from the same params,
+     losses within rtol 2e-2; then the full-width step timed at the
+     golden's 2 x 128 tokens and at 8 x 512 (median of 5 after a
+     warm-up, busy share, ``max_memory_allocated``, tokens/s) beside
+     its bound (``train_bound``).
 
-Then JSON lines with the paths' timings (``{"paths": ...}``), the
+Then JSON lines with the paths' timings (``{"paths": ...}``, the
+training step's among them), the
 compile seconds (``{"compile": ...}``), phase 6's record
 (``{"verify": ...}``), phase 7's and 8's (``{"partial": ...}``,
 ``{"traces": ...}``) and every kernel (``{"kernels": [...]}``, its
@@ -1649,12 +1670,14 @@ def start_lm_draws(names) -> dict:
     return futures
 
 
-def lm_setup(name: str = LM, draws: dict | None = None):
+def lm_setup(name: str = LM, draws: dict | None = None,
+             keep_tree: bool = False):
     """A config's ``lm_params(cfg, SEED)`` on the card (matmul weights
     bf16, embeddings fp32), taken from ``draws`` (:func:`start_lm_draws`)
     or drawn here, with its parameter count, its bytes on the card, the
     seconds of its host draw and the seconds this thread waited for it
-    printed."""
+    printed; with ``keep_tree``, also the host draw itself (the fp32
+    tree that training starts from)."""
     from repro_torch.configs import get_config
     from repro_torch.models import params_from_reference
 
@@ -1664,7 +1687,8 @@ def lm_setup(name: str = LM, draws: dict | None = None):
     tree, draw_s = draws.pop(name).result() if threaded else _draw(name)
     t1 = time.perf_counter()
     params = params_from_reference(cfg, tree, DEVICE_TYPE)
-    del tree
+    if not keep_tree:
+        del tree
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
@@ -1674,7 +1698,7 @@ def lm_setup(name: str = LM, draws: dict | None = None):
         f"{cfg.vocab}: {n:,} parameters ({nbytes / 1e9:.3f} GB on the "
         f"card) drawn by lm_params in {draw_s:.1f} s {where}, moved in "
         f"{time.perf_counter() - t1:.1f} s")
-    return cfg, params
+    return (cfg, params, tree) if keep_tree else (cfg, params)
 
 
 def _leaves(tree):
@@ -1753,7 +1777,8 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
     paths' routings, ``moe.Routing``, really sent one of its tokens to
     other experts); the golden's tokens and top-64 logits at batch 1
     (an MoE golden's misses likewise only where the port's routing went
-    apart from the reference's, ``cases.hold_lm_golden``)."""
+    apart from the reference's, ``cases.hold_lm_golden``; no golden
+    where ``golden`` is None)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.cases import (hold_lm_golden, logits_close,
                                            near_tie, route_codes,
@@ -1840,6 +1865,9 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
            f"{gone or 'none'}, misses let pass at (step, row) "
            f"{passed or 'none'}" if cfg.n_experts else ""))
 
+    if golden is None:
+        torch.cuda.synchronize()
+        return counts
     held = hold_lm_golden(model, params, golden)
     if not held["ok"]:
         raise SystemExit(f"{name}: the port differs from the full-width "
@@ -2093,6 +2121,239 @@ def serve_new_lms(golden_dir, draws: dict) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     return counts, timings
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: training on the card.
+# ---------------------------------------------------------------------------
+
+#: The reduced configs of the other block kinds, trained 2 steps on the
+#: card and on the CPU from the same params.
+TRAIN_KINDS = ("recurrentgemma-2b", "granite-moe-1b-a400m",
+               "deepseek-moe-16b", "mamba2-780m", "whisper-tiny",
+               "llama-3.2-vision-90b")
+#: Timed full-width steps (after one warm-up) and their shapes: the
+#: golden's, and a batch of 4,096 tokens.
+TRAIN_TIMED_STEPS = 5
+TRAIN_TIMED_SHAPES = ((2, 128), (8, 512))
+#: Bytes the optimizer moves a parameter: the gradient read twice (the
+#: global norm, the update), params, mu and nu read and written (fp32).
+OPTIMIZER_BYTES_PER_PARAM = 4 * (2 + 3 * 2)
+
+
+def _attended_pairs(seq: int, window: int) -> int:
+    """The (query, key) pairs of one head over a sequence of ``seq``
+    where each query sees itself and up to ``window - 1`` keys before
+    it: sum over i of min(i + 1, window)."""
+    w = min(window, seq)
+    return w * (w + 1) // 2 + (seq - w) * w
+
+
+def train_bound(cfg, tokens: int, seq: int, n_params: int) -> dict:
+    """The least time of one full-width train step of an attention-only
+    config at ``tokens`` tokens of ``seq``: bf16 products (every layer's
+    weight products, 2 FLOPs a weight a token forward, 4 backward, 2
+    more where the remat policy recomputes a group) at 989 TFLOP/s; fp32
+    products (the unembedding, 6 x vocab x d_model FLOPs a token, and
+    the attention scores and values, 4 x head_dim FLOPs a head a pair
+    the causal mask keeps, a ``local`` layer's within its window) at 67
+    TFLOP/s; the optimizer's bytes at 3.35 TB/s.  The bound is the
+    largest of the three."""
+    from repro_torch.models.transformer import _layer_seq, layer_kinds
+
+    lead, g, _ = _layer_seq(cfg)
+    grouped = set(range(lead, lead + g * len(cfg.pattern)))
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    attn_w = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+    mlp_w = d * cfg.d_ff * (3 if cfg.mlp in ("geglu", "swiglu") else 2)
+    bf16 = fp32 = 0
+    for i, kind in enumerate(layer_kinds(cfg)):
+        passes = 8 if (i in grouped and cfg.remat_policy != "none") else 6
+        bf16 += passes / 2 * 2 * (attn_w + mlp_w) * tokens
+        pairs = _attended_pairs(seq, cfg.window if kind == "local" else seq)
+        fp32 += passes / 2 * 4 * tokens // seq * pairs * h * hd
+    fp32 += 6 * cfg.vocab * d * tokens
+    opt_bytes = OPTIMIZER_BYTES_PER_PARAM * n_params
+    parts = {"bf16_ms": bf16 / BF16_OPS_PER_S * 1e3,
+             "fp32_ms": fp32 / CUDA_CORE_OPS_PER_S * 1e3,
+             "optimizer_ms": opt_bytes / HBM_BYTES_PER_S * 1e3}
+    return {"bound_ms": max(parts.values()), "bf16_flops": bf16,
+            "fp32_flops": fp32, "optimizer_bytes": opt_bytes, **parts}
+
+
+def _train_state_on_card(tree):
+    """The fp32 train state of a reference-layout host tree, on the card."""
+    from repro_torch.train import init_state
+    from repro_torch.train.tree import leaves, unflatten_like
+
+    return init_state(unflatten_like(tree, [
+        torch.from_numpy(np.asarray(a, np.float32)).to(DEVICE_TYPE)
+        for a in leaves(tree)]))
+
+
+def time_train(cfg, state, step_fn) -> dict:
+    """The full-width step's median host-clock time over
+    ``TRAIN_TIMED_STEPS`` steps after a warm-up (each ending in
+    synchronize), its device-busy share (torch.profiler over 2 steps),
+    the peak memory allocated and tokens/s, beside its bound, at each of
+    ``TRAIN_TIMED_SHAPES``."""
+    from repro_torch.train import synthetic_batch
+
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    out = {}
+    for B, S in TRAIN_TIMED_SHAPES:
+        batch = synthetic_batch(cfg, B, S, 0, device=DEVICE_TYPE)
+        torch.cuda.reset_peak_memory_stats()
+
+        def step():   # the state is updated in place; the same work
+            step_fn(state, batch)
+        ms = _host_ms(step, TRAIN_TIMED_STEPS)
+        busy, call_us, _, _ = _device_busy(step, 2)
+        peak = torch.cuda.max_memory_allocated()
+        bound = train_bound(cfg, B * S, S, n_params)
+        row = {"step_ms": ms, "device_busy": busy, "tokens_per_s":
+               B * S / ms * 1e3, "max_memory_allocated": peak, **bound}
+        out[f"{B}x{S}"] = row
+        busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+        say(f"  {cfg.name} train step at batch {B} x {S} tokens: "
+            f"{ms:.3f} ms median of {TRAIN_TIMED_STEPS} after a warm-up "
+            f"(host clock, ending in synchronize), "
+            f"{row['tokens_per_s']:,.0f} tokens/s; device busy {busy_txt} "
+            f"of {call_us:.0f} us a step (profiler); "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; bound "
+            f"{bound['bound_ms']:.3f} ms (bf16 products "
+            f"{bound['bf16_flops'] / 1e12:.3f} TFLOP at 989 TFLOP/s "
+            f"{bound['bf16_ms']:.3f} ms, fp32 products "
+            f"{bound['fp32_flops'] / 1e12:.3f} TFLOP at 67 TFLOP/s "
+            f"{bound['fp32_ms']:.3f} ms, optimizer "
+            f"{bound['optimizer_bytes'] / 1e9:.2f} GB at 3.35 TB/s "
+            f"{bound['optimizer_ms']:.3f} ms); {nvidia_smi_line()}")
+    return out
+
+
+def train_other_kinds() -> None:
+    """Each other kind's reduced config: 2 steps on the card and on the
+    CPU from the same params (``lm_params(cfg, SEED)``) and batches,
+    each step's loss within rtol 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cases import TRAIN_RTOL, lm_params
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state, make_train_step, \
+        synthetic_batch
+    from repro_torch.train.tree import leaves, unflatten_like
+
+    for name in TRAIN_KINDS:
+        cfg = get_config(name).reduced()
+        tree = lm_params(cfg, SEED)
+        losses = {}
+        for device in ("cpu", DEVICE_TYPE):
+            state = init_state(unflatten_like(tree, [
+                torch.from_numpy(np.array(a, np.float32)).to(device)
+                for a in leaves(tree)]))
+            step = make_train_step(build_model(cfg))
+            losses[device] = []
+            for i in range(2):
+                state, m = step(state, synthetic_batch(cfg, 4, 32, i,
+                                                       device=device))
+                losses[device].append(float(m["loss"]))
+        got, want = np.array(losses[DEVICE_TYPE]), np.array(losses["cpu"])
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        if not np.isfinite(got).all() or err > TRAIN_RTOL:
+            raise SystemExit(f"phase 9: {cfg.name} losses on the card "
+                             f"{got} against the CPU's {want}")
+        say(f"  {cfg.name}: 2 steps at 4 x 32 on the card, losses "
+            f"{got.round(5).tolist()} within {err:.2e} of the CPU's")
+
+
+def phase_train(cfg, tree, golden) -> tuple[dict, dict]:
+    """Phase 9: gemma3-1b trained at full width on the card from the
+    serve path's host draw, held to the reference's train golden; a
+    checkpoint saved asynchronously, restored and stepped beside the
+    live state; the trained tree served through ``ring_decode_attention``;
+    then every other kind's reduced config; then the timing.  Returns the
+    serve's launch counts and the timing record."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.cases import TRAIN_RTOL, hold_train_golden
+    from repro_torch.models import build_model, params_from_reference
+    from repro_torch.train import make_train_step, synthetic_batch
+    from repro_torch.train.train_step import eval_state_shapes
+    from repro_torch.train.tree import leaves
+
+    say(f"phase 9: {cfg.name} trained at full width on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    held = hold_train_golden(cfg, tree, golden, DEVICE_TYPE)
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        raise SystemExit(f"phase 9: training launched ring kernels "
+                         f"{launch_counts()}")
+    if not held["ok"]:
+        raise SystemExit(f"phase 9: {cfg.name} misses the reference's "
+                         f"train golden: {held['errs']} (data "
+                         f"{held['same_data']}; {held['metrics']})")
+    state, opt = held["state"], held["opt"]
+    B, S = int(golden["batch"]), int(golden["seq"])
+    n_params = sum(t.numel() for t in leaves(state.params))
+    say(f"  the reference's train golden held ({n_params:,} parameters, "
+        f"batch {B} x {S}, {len(held['metrics'])} steps, "
+        f"{time.perf_counter() - t0:.1f} s, no ring kernel launched): "
+        f"worst relative errors {held['errs']} (limit {TRAIN_RTOL}); "
+        f"loss / grad_norm / lr by step "
+        + "; ".join(f"{m['loss']:.5f} / {m['grad_norm']:.5f} / "
+                    f"{m['lr']:.3g}" for m in held["metrics"]))
+
+    model = build_model(cfg)
+    step_fn = make_train_step(model, opt=opt)
+    ckpt_root = ROOT / "build"
+    ckpt_root.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ckpt_root) as d:
+        mgr = CheckpointManager(d)
+        n = int(state.step)
+        mgr.save_async(n, state)
+        snap_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        restored = mgr.restore(eval_state_shapes(model), device=DEVICE_TYPE)
+        load_s = time.perf_counter() - t0 - save_s
+    if not all(torch.equal(a, b) for a, b in zip(leaves(restored),
+                                                 leaves(state))):
+        raise SystemExit("phase 9: the restored state differs from the "
+                         "saved one")
+    batch = synthetic_batch(cfg, B, S, n, device=DEVICE_TYPE)
+    _, live_m = step_fn(state, batch)
+    restored, back_m = step_fn(restored, batch)
+    live, back = float(live_m["loss"]), float(back_m["loss"])
+    if not abs(live - back) <= 1e-5 * abs(live):
+        raise SystemExit(f"phase 9: step {n} from the restored state: loss "
+                         f"{back} against the live state's {live}")
+    say(f"  checkpoint of step {n}: save_async returned after {snap_s:.1f} "
+        f"s (host copy), written in {save_s:.1f} s, restored in "
+        f"{load_s:.1f} s, bitwise the saved state; step {n} from both: "
+        f"loss {live:.6f} and {back:.6f}")
+    del restored
+
+    serve = params_from_reference(cfg, state.params, DEVICE_TYPE)
+    path = dataclasses.replace(LM_PATHS[0], max_new=8)
+    counts = path_lm(cfg, serve, None, path)
+    say(f"  the trained tree served: {counts['ring_decode_attention']} "
+        f"ring_decode_attention launches ({path.per_step} a decode step), "
+        f"logits within the plain path's tolerance")
+    del serve
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    train_other_kinds()
+    timing = time_train(cfg, state, step_fn)
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts, timing
 
 
 # ---------------------------------------------------------------------------
@@ -2645,7 +2906,7 @@ def main() -> None:
     for n in FLOAT_STREAMS:
         counts[n + F32] = path_stream_f32(n + F32, plans[n + F32],
                                           goldens[n + F32])
-    lm_cfg, lm_weights = lm_setup(LM, draws)
+    lm_cfg, lm_weights, lm_tree = lm_setup(LM, draws, keep_tree=True)
     with np.load(ASSETS / f"{LM}.golden.npz") as g:
         lm_golden = {k: g[k] for k in g.files}
     counts[LM] = path_lm(lm_cfg, lm_weights, lm_golden)
@@ -2699,6 +2960,15 @@ def main() -> None:
         p.name: counts[p.name]["ring_decode_attention"] for p in LM_PATHS}
     say("  ring_decode_attention at those paths' decode geometries:")
     decode_row["by_shape"].update(time_decode_shapes(LM_DECODE_CASES))
+
+    with np.load(ASSETS / f"{LM}.train.npz") as g:
+        train_golden = {k: g[k] for k in g.files}
+    train_counts, paths[f"{LM} train"] = phase_train(lm_cfg, lm_tree,
+                                                     train_golden)
+    del lm_tree
+    decode_row["launches"] += train_counts["ring_decode_attention"]
+    decode_row["launches_by_path"][f"{LM} trained"] = \
+        train_counts["ring_decode_attention"]
 
     say("phase 5: repro_torch.compile on the host, then the card runs the "
         "plans it compiled")

@@ -1329,3 +1329,118 @@ def hold_lm_golden(model, params, golden) -> dict:
                 out["misses"].append((i, t, round(err, 4)))
         out["tokens"].append(row)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The train golden: the reference's first train steps from lm_params.
+# ---------------------------------------------------------------------------
+
+#: A train golden's batch, sequence, steps and optimizer
+#: (``train.optimizer.AdamWConfig``'s other fields at their defaults):
+#: step 0 in the warmup, steps 1 and 2 on the cosine.
+TRAIN_GOLDEN_BATCH, TRAIN_GOLDEN_SEQ, TRAIN_GOLDEN_STEPS = 2, 128, 3
+TRAIN_GOLDEN_OPT = dict(peak_lr=3e-4, warmup_steps=2, total_steps=10)
+#: Each step's loss, grad_norm, lr and update (its norm, and its dot
+#: with the new mu over mu's norm) and step 0's per-leaf gradient norms,
+#: update dots and mu norms within this relative tolerance of the
+#: golden's.
+TRAIN_RTOL = 2e-2
+#: A train golden's float records (besides ``loss``, ``grad_norm`` and
+#: ``lr``, one a step): ``update_norm`` and ``update_dot`` one a step,
+#: ``leaf_norms``, ``leaf_update_dots`` and ``leaf_mu_norms`` one a leaf.
+TRAIN_GOLDEN_FLOATS = ("loss", "grad_norm", "lr", "update_norm",
+                       "update_dot", "leaf_norms", "leaf_update_dots",
+                       "leaf_mu_norms")
+
+
+def update_records(d2, dots, mu2) -> dict:
+    """A step's update records from each leaf's sum of squares of its
+    update (new params - old), its update's dot with its new mu, and
+    its new mu's sum of squares: the update's global norm, its global
+    dot with mu over mu's norm (below 0 for a descent step, 0 for none,
+    above 0 for a reversed one), and per leaf the dot over mu's norm
+    and mu's norm ((1 - b1) times the step's own gradient's norm, where
+    a misrouted gradient shows)."""
+    d2, dots, mu2 = (np.asarray(a, np.float64) for a in (d2, dots, mu2))
+    return {"update_norm": float(np.sqrt(d2.sum())),
+            "update_dot": float(dots.sum() / np.sqrt(mu2.sum())),
+            "leaf_update_dots": dots / np.sqrt(mu2),
+            "leaf_mu_norms": np.sqrt(mu2)}
+
+
+def hold_train_golden(cfg, tree, golden, device) -> dict:
+    """Train ``cfg`` from ``tree`` (a reference-layout params tree,
+    numpy or torch; copied to fp32 on ``device``) as a train golden's
+    recipe says, and hold it against the golden: the batches
+    (``synthetic_batch`` of each step, bitwise), step 0's gradient norm
+    of every leaf (the loss the step differentiates, by autograd, in the
+    reference's leaf order), each step's loss, grad_norm and lr, and
+    each step's update (:func:`update_records`; step 0's leaf by leaf)
+    within :data:`TRAIN_RTOL`.  Returns ``{"ok", "metrics" (one dict a
+    step), "updates" (its update records a step), "errs" (the worst
+    relative error of each quantity), "same_data", "state" (after the
+    last step), "opt"}``.
+    Each step keeps a copy of the params it starts from, for the
+    update."""
+    import torch
+
+    from ..models import build_model
+    from ..train import (AdamWConfig, init_state, make_train_step,
+                         synthetic_batch)
+    from ..train.tree import leaves, leaves_with_paths, unflatten_like
+
+    model = build_model(cfg)
+    keys = ["|".join(p) for p, _ in leaves_with_paths(tree)]
+    assert keys == [str(k) for k in golden["leaf_keys"]], "leaf order"
+    params = unflatten_like(tree, [
+        torch.as_tensor(np.asarray(a, np.float32) if not isinstance(
+            a, torch.Tensor) else a).to(device=device, dtype=torch.float32,
+                                        copy=True)
+        for a in leaves(tree)])
+    B, S = int(golden["batch"]), int(golden["seq"])
+    batches = [synthetic_batch(cfg, B, S, i, device=device)
+               for i in range(len(golden["loss"]))]
+    same_data = all(
+        np.array_equal(b["tokens"].cpu().numpy(), golden["tokens"][i])
+        and np.array_equal(b["labels"].cpu().numpy(), golden["labels"][i])
+        for i, b in enumerate(batches))
+    live = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, _ = model.loss(unflatten_like(params, live), batches[0])
+    grads = torch.autograd.grad(loss, live)
+    leaf_norms = torch.stack([torch.linalg.vector_norm(g.float())
+                              for g in grads]).cpu().numpy()
+    del live, grads, loss
+    opt = AdamWConfig(**{f.name: golden["opt_" + f.name].item()
+                         for f in dataclasses.fields(AdamWConfig)})
+    step = make_train_step(model, opt=opt)
+    state = init_state(params)
+    metrics, updates = [], []
+    for b in batches:
+        old = [p.detach().clone() for p in leaves(state.params)]
+        state, m = step(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+        sums = [[], [], []]
+        for p0, p, mu in zip(old, leaves(state.params), leaves(state.mu)):
+            d = (p.detach() - p0).reshape(-1)
+            mu = mu.reshape(-1)
+            for acc, (x, y) in zip(sums, ((d, d), (d, mu), (mu, mu))):
+                acc.append(torch.sum(x * y, dtype=torch.float64))
+        del old
+        updates.append(update_records(
+            *(torch.stack(a).cpu().numpy() for a in sums)))
+
+    def rel(got, want):
+        want = np.asarray(want, np.float64)
+        return float(np.max(np.abs(np.asarray(got, np.float64) - want)
+                            / np.abs(want)))
+    errs = {k: rel([m[k] for m in metrics], golden[k])
+            for k in ("loss", "grad_norm", "lr")}
+    for k in ("update_norm", "update_dot"):
+        errs[k] = rel([u[k] for u in updates], golden[k])
+    errs["leaf_norms"] = rel(leaf_norms, golden["leaf_norms"])
+    for k in ("leaf_update_dots", "leaf_mu_norms"):
+        errs[k] = rel(updates[0][k], golden[k])
+    return {"ok": same_data and max(errs.values()) <= TRAIN_RTOL,
+            "same_data": same_data, "metrics": metrics,
+            "updates": updates, "errs": errs,
+            "state": state, "opt": opt}

@@ -1,2 +1,3 @@
 """Command-line entry points (the port of ``repro.launch``): ``serve``,
-batched greedy generation through the serving engine."""
+batched greedy generation through the serving engine, and ``train``,
+the fault-tolerant training loop on one device."""

@@ -59,18 +59,17 @@ def _gates(p: dict, x):
 def _assoc_scan(a, bx, h0=None):
     """``h_t = a_t h_{t-1} + bx_t`` over axis 1, with ``h_{-1} = h0``
     (zero when None): a Hillis-Steele scan, ``ceil(log2 S)`` rounds of
-    the combine ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)``."""
+    the combine ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)``.  Each
+    round builds new tensors (no write into one that autograd saved), so
+    the scan trains as it serves."""
     if h0 is not None:
-        bx = bx.clone()
-        bx[:, 0] += a[:, 0] * h0
+        bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]], 1)
     S = a.shape[1]
     off = 1
     while off < S:
-        b_new = bx.clone()
-        b_new[:, off:] += a[:, off:] * bx[:, :-off]
-        a_new = a.clone()
-        a_new[:, off:] *= a[:, :-off]
-        a, bx = a_new, b_new
+        bx = torch.cat([bx[:, :off], bx[:, off:] + a[:, off:] * bx[:, :-off]],
+                       dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2
     return bx
 

@@ -29,19 +29,30 @@ The reference scans over stacked layer groups; the port runs the same
 layers in the same order (``lead``, then each group's pattern, then the
 remainder: :func:`layer_kinds`) from a flat list.  ``Model.init`` draws
 the reference's tree layout (``lead``, ``groups`` stacked ``[g, ...]``,
-``rem``, ``encoder``) from a ``torch.Generator``;
-:func:`params_from_reference` turns such a tree (torch or numpy arrays,
-the reference's own among them) into the port's params: ``embed`` (fp32,
+``rem``, ``encoder``) from a ``torch.Generator``; :func:`train_params`
+lays such a tree (torch or numpy arrays, the reference's own among them)
+out as the port's params, and :func:`params_from_reference` copies that
+layout to the serving device: ``embed`` (fp32,
 also the tied unembedding), ``unembed`` (untied configs, fp32),
 ``final_ln``, ``layers`` (one block dict per layer) and ``encoder``
 (``blocks``, ``final_ln``), every weight the reference casts to the
 activations' dtype at each call stored so (bf16) once at load.
 
-Training (``Model.loss``) is not ported (ROADMAP Queue 1 item 9).
+Training (``Model.loss``) takes the reference's tree itself, the fp32
+masters (or a bf16 copy of them), and lays it out by
+:func:`train_params` (differentiable slices, no copy and no cast); every
+use casts a weight as the reference does, so the gradients land on the
+tree's leaves.  ``loss`` is the reference's cross-entropy
+(plus ``0.01 * aux`` for MoE), and its ``remat_policy`` checkpoints each
+pattern group as the reference's ``jax.checkpoint`` of ``apply_pattern``:
+``"none"`` keeps every activation, ``"dots"`` keeps the products with no
+batch dims (``aten.mm``) and recomputes the rest, and ``"nothing"`` (the
+configs' default) or any other name recomputes the whole group.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -49,7 +60,7 @@ import numpy as np
 import torch
 
 from ..kernels.ring_decode import ring_decode_attention
-from .common import (KVCache, _softcap, apply_norm, attention,
+from .common import (F32, KVCache, _const, _softcap, apply_norm, attention,
                      decode_attention, init_attn, init_mlp, init_norm,
                      matmul, mlp_forward, normal, project_qkv, rope)
 from .mamba2 import SSMCache, init_ssm, init_ssm_cache, ssm_forward, \
@@ -138,14 +149,32 @@ def layers_from_tree(cfg, tree) -> list:
     return layers + list(tree.get("rem", ()))
 
 
-def params_from_reference(cfg, tree, device="cuda") -> dict:
-    """The port's params from a params tree laid out as the reference's
-    ``Model.init`` builds it (``transformer.py:301-342``; numpy arrays or
-    torch tensors, e.g. :meth:`Model.init`'s): the embeddings and norm
-    and gate vectors as fp32, the weights of :data:`MATMUL_WEIGHTS` as
-    bf16, on ``device``."""
+def train_params(cfg, tree) -> dict:
+    """The port's params laid out over a reference-layout tree (the
+    reference's ``Model.init``, ``transformer.py:301-342``) without a
+    copy or a cast: ``embed``, ``final_ln``, ``unembed`` and the
+    encoder's ``final_ln`` are the tree's own arrays, and ``layers`` /
+    the encoder's ``blocks`` slices of its stacked leaves, so autograd
+    carries each layer's gradient back to the leaf it was sliced from."""
     check_supported(cfg)
+    params = {"embed": tree["embed"], "final_ln": tree["final_ln"],
+              "layers": layers_from_tree(cfg, tree)}
+    if "unembed" in tree:
+        params["unembed"] = tree["unembed"]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        n = enc["blocks"]["attn"]["w_q"].shape[0]
+        params["encoder"] = {
+            "blocks": [_index(enc["blocks"], i) for i in range(n)],
+            "final_ln": enc["final_ln"]}
+    return params
 
+
+def params_from_reference(cfg, tree, device="cuda") -> dict:
+    """The serve path's params: :func:`train_params` of a reference-layout
+    tree (numpy arrays or torch tensors, e.g. :meth:`Model.init`'s) with
+    the embeddings and norm and gate vectors as fp32 and the weights of
+    :data:`MATMUL_WEIGHTS` as bf16 copies, on ``device``."""
     def put(name, a):
         if isinstance(a, torch.Tensor):
             t = a.to(device=device, dtype=torch.float32)
@@ -156,22 +185,37 @@ def params_from_reference(cfg, tree, device="cuda") -> dict:
             t = torch.from_numpy(a).to(device)
         return t.to(ACT_DTYPE) if name in MATMUL_WEIGHTS else t
 
-    def convert(sub):
-        return {k: convert(v) if isinstance(v, dict) else put(k, v)
-                for k, v in sub.items()}
+    def convert(name, sub):
+        if isinstance(sub, dict):
+            return {k: convert(k, v) for k, v in sub.items()}
+        if isinstance(sub, list):
+            return [convert(name, v) for v in sub]
+        return put(name, sub)
+    return convert(None, train_params(cfg, tree))
 
-    params = {"embed": put("embed", tree["embed"]),
-              "final_ln": convert(tree["final_ln"]),
-              "layers": [convert(p) for p in layers_from_tree(cfg, tree)]}
-    if "unembed" in tree:
-        params["unembed"] = put("unembed", tree["unembed"])
-    if "encoder" in tree:
-        enc = tree["encoder"]
-        n = len(enc["blocks"]["attn"]["w_q"])
-        params["encoder"] = {
-            "blocks": [convert(_index(enc["blocks"], i)) for i in range(n)],
-            "final_ln": convert(enc["final_ln"])}
-    return params
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy: keep the outputs of products with no
+    batch dims (``jax.checkpoint_policies.dots_with_no_batch_dims_
+    saveable``: ``aten.mm``), recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the remat ``policy`` (``"none"``: as it is)."""
+    if policy == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kwargs = {}
+    if policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kwargs)
 
 
 # --------------------------------------------------------------------------
@@ -456,7 +500,7 @@ class Model:
     # ---- helpers ------------------------------------------------------------
     def _embed(self, params, tokens):
         x = params["embed"][tokens]
-        return (x * math.sqrt(self.cfg.d_model)).to(ACT_DTYPE)
+        return (x * _const(math.sqrt(self.cfg.d_model), x)).to(ACT_DTYPE)
 
     def _unembed(self, params, x):
         w = params.get("unembed", params["embed"])
@@ -495,28 +539,64 @@ class Model:
         return memory
 
     # ---- public: full-sequence forward ---------------------------------------
-    def forward(self, params, tokens, memory=None, *, routes=None):
+    def forward(self, params, tokens, memory=None, *, routes=None,
+                remat_policy: str = "none"):
         """tokens ``[B, S]`` -> (logits ``[B, S, V]`` fp32, aux: 0.0, or
-        the MoE layers' summed aux loss).  Where ``routes`` is a list,
+        the MoE layers' summed aux loss).  ``params`` are laid out as
+        :func:`train_params` gives them.  Where ``routes`` is a list,
         each MoE layer appends its ``moe.Routing`` to it, in layer order
-        (so do ``prefill`` and ``decode_step``)."""
+        (so do ``prefill`` and ``decode_step``); a remat policy other
+        than ``"none"`` would record a recomputed group twice, so it
+        takes no ``routes``."""
         cfg = self.cfg
+        if routes is not None and remat_policy != "none":
+            raise ValueError("routes= needs remat_policy='none'")
         tokens = self._tokens(params, tokens)
         memory = self._memory(params, memory)
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
-        aux = 0.0
-        for p, kind in zip(params["layers"], layer_kinds(cfg)):
-            x, _, a = block_forward(p, x, cfg, kind, positions,
-                                    memory=memory, routes=routes)
-            aux = aux + a
+
+        def run(x, aux, layers, kinds):
+            for p, kind in zip(layers, kinds):
+                x, _, a = block_forward(p, x, cfg, kind, positions,
+                                        memory=memory, routes=routes)
+                aux = aux + a
+            return x, aux
+
+        # lead layers, then each pattern group under the remat policy,
+        # then the remainder, as the reference's _scan_blocks
+        lead, g, _ = _layer_seq(cfg)
+        layers, kinds = params["layers"], layer_kinds(cfg)
+        P = len(cfg.pattern)
+        x, aux = run(x, 0.0, layers[:lead], kinds[:lead])
+        group = _remat(run, remat_policy)
+        for gi in range(lead, lead + g * P, P):
+            x, aux = group(x, aux, layers[gi:gi + P], kinds[gi:gi + P])
+        x, aux = run(x, aux, layers[lead + g * P:], kinds[lead + g * P:])
         x = apply_norm(params["final_ln"], x, cfg)
         return self._unembed(params, x), aux
 
-    def loss(self, params, batch: dict):
-        raise NotImplementedError(
-            "Model.loss (training) is not ported yet (ROADMAP Queue 1 item "
-            "9: train/, checkpoint/, parallel/, launch/)")
+    def loss(self, params, batch: dict, remat_policy: str | None = None):
+        """The reference's training loss (``transformer.py:443-461``) ->
+        (loss, {"ce", "aux"}), fp32 scalars.  ``params`` is a
+        reference-layout tree, the fp32 masters or a bf16 copy; ``batch``
+        holds ``tokens`` and ``labels`` ``[B, S]`` and, for cross
+        blocks, ``memory``.  The label's log-probability is taken by
+        ``gather``, the same value as the reference's masked sum over
+        the vocabulary (every other term of that sum is an exact 0)."""
+        cfg = self.cfg
+        logits, aux = self.forward(train_params(cfg, params),
+                                   batch["tokens"],
+                                   batch.get("memory"),
+                                   remat_policy=remat_policy
+                                   or cfg.remat_policy)
+        labels = torch.as_tensor(batch["labels"], device=logits.device)
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = logp.gather(-1, labels.to(torch.int64)[..., None])[..., 0]
+        ce = -ll.mean()
+        aux = torch.as_tensor(aux, dtype=F32, device=logits.device)
+        loss = ce + 0.01 * aux if cfg.n_experts else ce
+        return loss, {"ce": ce, "aux": aux}
 
     # ---- public: serving ----------------------------------------------------
     def init_caches(self, batch: int, cache_len: int, dtype=ACT_DTYPE,
@@ -564,4 +644,4 @@ class Model:
 __all__ = ["ATTN_KINDS", "BLOCK_KINDS", "CrossCache", "KVCache",
            "LRUCache", "Model", "SSMCache", "block_forward", "block_step",
            "init_block", "init_block_cache", "layer_kinds",
-           "layers_from_tree", "params_from_reference"]
+           "layers_from_tree", "params_from_reference", "train_params"]

@@ -85,18 +85,41 @@ each numpy leaf is dropped as it becomes a jax array.  Names after
 ``--lm`` write those configs' goldens alone:
 
     PYTHONPATH=src python tests/test_torch_assets.py --lm mamba2-780m
+
+And one train golden, written only by the ``--train`` mode, never by
+pytest:
+
+    PYTHONPATH=src python tests/test_torch_assets.py --train [NAME]
+
+``gemma3-1b.train.npz`` is the reference's ``make_train_step`` (its
+default remat, jitted, the state donated) at full width and depth from
+``lm_params(cfg, 0)``: ``cases.TRAIN_GOLDEN_STEPS`` steps on
+``synthetic_batch`` at ``cases.TRAIN_GOLDEN_BATCH`` x
+``TRAIN_GOLDEN_SEQ`` with ``AdamWConfig(**cases.TRAIN_GOLDEN_OPT)``:
+each step's batch, loss, grad_norm and lr, each step's update (its
+norm, and its dot with the new mu over mu's norm:
+``cases.update_records``), the L2 norm of step 0's gradient of every
+params leaf (``jax.value_and_grad`` of the loss the step
+differentiates) and step 0's update records of every leaf, in the
+reference's leaf order, with the optimizer's fields, the seed and the
+recipe version.  The same mode
+writes ``gemma3-1b-smoke.train.npz``, the same golden of the reduced
+config, which tier-1 re-derives and holds the port to.
 """
 import dataclasses
 import hashlib
 import json
 import pathlib
 import sys
+import resource
 import tempfile
+import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro
 from repro.analysis import verify_program
@@ -112,15 +135,24 @@ from repro.graph.run import _quantize_net
 from repro.quant import QParams, dequantize, quantize
 from repro.models.registry import build_model as ref_build_model
 from repro.serve.engine import ServingEngine as RefEngine
+from repro.train import optimizer as ref_opt
+from repro.train.data import synthetic_batch as ref_synthetic_batch
+from repro.train.train_step import make_train_step as ref_make_train_step
 from repro_torch.compile.artifact import (read_compile_inputs,
                                           write_compile_inputs)
 from repro_torch.configs import get_config as port_get_config
 from repro_torch.kernels.cases import (LM_GOLDEN_CACHE_LEN, LM_GOLDEN_STEPS,
                                        LM_GOLDEN_TOP, LM_PARAMS_VERSION,
-                                       hold_lm_golden, lm_memory, lm_params,
-                                       lm_prompts, mlp_tower_params,
-                                       route_codes)
+                                       TRAIN_GOLDEN_BATCH,
+                                       TRAIN_GOLDEN_FLOATS, TRAIN_GOLDEN_OPT,
+                                       TRAIN_GOLDEN_SEQ, TRAIN_GOLDEN_STEPS,
+                                       hold_lm_golden, hold_train_golden,
+                                       lm_memory, lm_params, lm_prompts,
+                                       mlp_tower_params, route_codes,
+                                       update_records)
 from repro_torch.models import build_model, params_from_reference
+from repro_torch.train import synthetic_batch as port_synthetic_batch
+from repro_torch.train.tree import leaves_with_paths
 from test_torch_moe import reference_routes, routing_of
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -768,6 +800,149 @@ def test_the_port_holds_the_reduced_lm_golden():
     assert held["ok"], held
 
 
+# ---------------------------------------------------------------------------
+# The train golden
+# ---------------------------------------------------------------------------
+
+def train_golden_path(cfg) -> pathlib.Path:
+    return ASSETS / f"{cfg.name}.train.npz"
+
+
+def _ref_key(path) -> str:
+    return "|".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
+def train_golden(cfg, seed: int = PARAMS_SEED) -> dict:
+    """The reference's first train steps, as the ``--train`` mode writes
+    them (module docstring)."""
+    model = ref_build_model(cfg)
+    opt = ref_opt.AdamWConfig(**TRAIN_GOLDEN_OPT)
+    B, S = TRAIN_GOLDEN_BATCH, TRAIN_GOLDEN_SEQ
+    batches = [ref_synthetic_batch(cfg, B, S, i)
+               for i in range(TRAIN_GOLDEN_STEPS)]
+    out = {"config": np.str_(cfg.name), "seed": np.int32(seed),
+           "recipe_version": np.int32(LM_PARAMS_VERSION),
+           "batch": np.int32(B), "seq": np.int32(S),
+           "tokens": np.stack([np.asarray(b["tokens"]) for b in batches]),
+           "labels": np.stack([np.asarray(b["labels"]) for b in batches])}
+    for f in dataclasses.fields(opt):
+        out["opt_" + f.name] = np.asarray(getattr(opt, f.name))
+    tree = _to_jax(lm_params(cfg, seed))
+    out["leaf_keys"] = np.asarray(
+        [_ref_key(p) for p, _ in jax.tree_util.tree_flatten_with_path(
+            tree)[0]])
+
+    def leaf_norms(params, batch):
+        grads = jax.grad(lambda p: model.loss(p, batch)[0])(params)
+        return jnp.stack([jnp.sqrt(jnp.sum(jnp.square(
+            g.astype(jnp.float32)))) for g in jax.tree.leaves(grads)])
+    out["leaf_norms"] = np.asarray(jax.jit(leaf_norms)(tree, batches[0]))
+    train_step = ref_make_train_step(model, opt=opt)
+
+    def step_with_sums(state, batch):
+        """The step, and per leaf its update's sum of squares, the
+        update's dot with the new mu and the new mu's sum of squares
+        (``jnp.sum`` of the products: XLA's CPU ``vdot`` sums a long
+        vector in one fp32 run a lane, and stalls near 2^24 terms)."""
+        new, m = train_step(state, batch)
+        d = [a - b for a, b in zip(jax.tree.leaves(new.params),
+                                   jax.tree.leaves(state.params))]
+        mu = jax.tree.leaves(new.mu)
+        return new, m, [jnp.stack([jnp.sum(x * y) for x, y in pairs])
+                        for pairs in (zip(d, d), zip(d, mu), zip(mu, mu))]
+    step = jax.jit(step_with_sums, donate_argnums=(0,))
+    state = ref_opt.init_state(tree)
+    del tree
+    rows, updates = [], []
+    for b in batches:
+        state, m, sums = step(state, b)
+        rows.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+        updates.append(update_records(*(np.asarray(a) for a in sums)))
+    for j, k in enumerate(("loss", "grad_norm", "lr")):
+        out[k] = np.asarray([r[j] for r in rows], np.float32)
+    for k in ("update_norm", "update_dot"):
+        out[k] = np.asarray([u[k] for u in updates], np.float32)
+    for k in ("leaf_update_dots", "leaf_mu_norms"):
+        out[k] = np.asarray(updates[0][k], np.float32)
+    return out
+
+
+def write_train_goldens(names=()) -> None:
+    """Both train goldens of gemma3-1b, or of ``names``; prints each
+    one's seconds and the process's peak RSS so far."""
+    for name in names or (LM_NAME,):
+        for cfg in (get_config(name), get_config(name).reduced()):
+            t0 = time.perf_counter()
+            np.savez(train_golden_path(cfg), **train_golden(cfg))
+            rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            print(f"wrote {train_golden_path(cfg)} in "
+                  f"{time.perf_counter() - t0:.1f} s (peak RSS so far "
+                  f"{rss / 2**20:.2f} GiB)", flush=True)
+
+
+def _same_train_golden(have, want) -> None:
+    assert sorted(have) == sorted(want)
+    for k in want:
+        if k in TRAIN_GOLDEN_FLOATS:
+            np.testing.assert_allclose(have[k], want[k], rtol=1e-4,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(have[k], want[k], err_msg=k)
+
+
+def test_the_reduced_train_golden_matches_a_fresh_reference_run():
+    cfg = get_config(LM_NAME).reduced()
+    with np.load(train_golden_path(cfg)) as g:
+        _same_train_golden({k: g[k] for k in g.files}, train_golden(cfg))
+
+
+def test_the_full_width_train_golden_is_the_recipe_of_record():
+    """The committed full-width train golden was written from
+    ``lm_params`` of the current recipe at the recipe's batch, steps and
+    optimizer, its batches are ``synthetic_batch``'s, and it is small."""
+    cfg = port_get_config(LM_NAME)
+    path = train_golden_path(cfg)
+    assert path.stat().st_size < 1 << 20
+    with np.load(path) as g:
+        assert str(g["config"]) == LM_NAME
+        assert int(g["seed"]) == PARAMS_SEED
+        assert int(g["recipe_version"]) == LM_PARAMS_VERSION
+        assert (int(g["batch"]), int(g["seq"])) == (TRAIN_GOLDEN_BATCH,
+                                                    TRAIN_GOLDEN_SEQ)
+        opt = ref_opt.AdamWConfig(**TRAIN_GOLDEN_OPT)
+        for f in dataclasses.fields(opt):
+            assert g["opt_" + f.name].item() == getattr(opt, f.name)
+        for k in ("loss", "grad_norm", "lr", "update_norm"):
+            assert g[k].shape == (TRAIN_GOLDEN_STEPS,)
+            assert np.isfinite(g[k]).all() and (g[k] > 0).all()
+        assert g["update_dot"].shape == (TRAIN_GOLDEN_STEPS,)
+        assert (g["update_dot"] < 0).all()   # each step descends
+        keys = ["|".join(p) for p, _ in leaves_with_paths(build_model(
+            cfg).init(torch.Generator(), device="meta"))]
+        assert list(g["leaf_keys"]) == keys
+        for k in ("leaf_norms", "leaf_update_dots", "leaf_mu_norms"):
+            assert g[k].shape == (len(keys),)
+            assert np.isfinite(g[k]).all()
+        for i in range(TRAIN_GOLDEN_STEPS):
+            b = port_synthetic_batch(cfg, TRAIN_GOLDEN_BATCH,
+                                     TRAIN_GOLDEN_SEQ, i)
+            assert np.array_equal(b["tokens"].numpy(), g["tokens"][i])
+            assert np.array_equal(b["labels"].numpy(), g["labels"][i])
+
+
+def test_the_port_holds_the_reduced_train_golden():
+    """The port on the CPU, trained as the golden's recipe says: the
+    batches bitwise, each step's loss, grad_norm and lr and step 0's
+    per-leaf gradient norms within rtol 2e-2 (the check ``chip_smoke.py``
+    makes at full width on the card)."""
+    cfg = port_get_config(LM_NAME).reduced()
+    with np.load(train_golden_path(cfg)) as g:
+        held = hold_train_golden(cfg, lm_params(cfg, PARAMS_SEED),
+                                 {k: g[k] for k in g.files}, "cpu")
+    assert held["ok"], held["errs"]
+
+
 if __name__ == "__main__":
     if "--sliced" in sys.argv[1:]:
         write_sliced_asset()
@@ -775,6 +950,8 @@ if __name__ == "__main__":
               f"{ASSETS}")
     elif "--lm" in sys.argv[1:]:
         write_lm_goldens(tuple(sys.argv[sys.argv.index("--lm") + 1:]))
+    elif "--train" in sys.argv[1:]:
+        write_train_goldens(tuple(sys.argv[sys.argv.index("--train") + 1:]))
     else:
         write_assets()
         print(f"wrote the artifacts and goldens of {NETS + STREAMS} and of "

@@ -9,8 +9,10 @@ for the M4 with ``partial="auto"``, serves the sliced plan, traces a run
 and runs the trace command line's ``--smoke`` in a temporary
 directory; serves a reduced model of each LM block and FFN kind (rec,
 ssm, MoE, lead layers, cross-attention over encoder frames and image
-tokens, an untied unembedding), runs the serving command, the FC chain
-through the ring and ``ops.segment_gemm`` against its oracle."""
+tokens, an untied unembedding), runs the serving command, trains the
+reduced gemma3-1b for 2 steps, checkpoints and restores it, runs the
+training command, and runs the FC chain through the ring and
+``ops.segment_gemm`` against its oracle."""
 import ast
 import os
 import pathlib
@@ -55,7 +57,8 @@ def test_sources_exist():
             "cli.py", "slicer.py", "lower.py", "counters.py",
             "timeline.py", "tracer.py", "analysis.py", "rglru.py",
             "mamba2.py", "moe.py", "ring_buffer.py", "ref.py",
-            "serve.py"} <= names
+            "serve.py", "train.py", "data.py", "optimizer.py",
+            "train_step.py", "tree.py", "manager.py"} <= names
     src = ROOT / "src" / "repro_torch"
     assert (src / "cli.py").exists()
     assert (src / "analysis" / "cli.py").exists()
@@ -147,6 +150,35 @@ with contextlib.redirect_stdout(io.StringIO()) as buf:
     serve_main(["--arch", "whisper-tiny", "--reduced", "--device", "cpu",
                 "--max-new", "2"])
 assert buf.getvalue().startswith("generated 8 tokens")
+import tempfile
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.launch.train import main as train_main
+from repro_torch.train import init_state, make_train_step, synthetic_batch
+from repro_torch.train.train_step import eval_state_shapes
+from repro_torch.train.tree import leaves, unflatten_like
+cfg = get_config("gemma3-1b").reduced()
+model = build_model(cfg)
+tree = lm_params(cfg, 0)
+state = init_state(unflatten_like(tree, [torch.tensor(a)
+                                         for a in leaves(tree)]))
+step = make_train_step(model)
+for i in range(2):
+    state, metrics = step(state, synthetic_batch(cfg, 2, 8, i))
+    assert torch.isfinite(metrics["loss"])
+with tempfile.TemporaryDirectory() as tmp:
+    mgr = CheckpointManager(tmp)
+    mgr.save_async(2, state)
+    mgr.wait()
+    back = mgr.restore(eval_state_shapes(model))
+    assert int(back.step) == 2
+    assert all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                 leaves(state)))
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        train_main(["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
+                    "--steps", "2", "--batch", "2", "--seq", "8",
+                    "--ckpt-dir", tmp + "/run"])
+    assert "'final_loss'" in buf.getvalue()
+    assert CheckpointManager(tmp + "/run").latest_step() == 2
 from repro_torch.core.ring_buffer import (init_chain_params,
                                           naive_chain_apply, plan_chain,
                                           run_chain_via_ring)

@@ -47,6 +47,8 @@ from repro_torch.models import build_model, params_from_reference
 from repro_torch.models.transformer import layer_kinds, layers_from_tree
 from repro_torch.obs.spans import active, collect
 from repro_torch.serve import ServingEngine
+from repro_torch.train import synthetic_batch
+from repro_torch.train.tree import leaves, unflatten_like
 
 torch.set_num_threads(2)
 
@@ -296,12 +298,18 @@ def test_params_from_reference_layout():
 
 @pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-2b",
                                   "whisper-tiny", "granite-moe-1b-a400m"])
-def test_unported_kinds_raise(name):
-    """Every block kind builds now; what stays unported is training:
-    ``Model.loss`` raises, naming the ROADMAP item."""
-    model = build_model(name)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        model.loss(None, {"tokens": [[1]], "labels": [[1]]})
+def test_every_kind_has_a_finite_loss(name):
+    """Every block kind trains now: ``Model.loss`` of the reduced config
+    on a reference-layout tree gives a finite loss, ce and aux (aux > 0
+    for MoE, 0 otherwise)."""
+    cfg = get_config(name).reduced()
+    model = build_model(cfg)
+    tree = lm_params(cfg, 0)
+    params = unflatten_like(tree, [torch.tensor(a) for a in leaves(tree)])
+    loss, metrics = model.loss(params, synthetic_batch(cfg, 2, 8, 0))
+    for v in (loss, metrics["ce"], metrics["aux"]):
+        assert v.shape == () and torch.isfinite(v)
+    assert (float(metrics["aux"]) > 0) == bool(cfg.n_experts)
 
 
 def test_generate_records_the_reference_spans():
