@@ -15,15 +15,17 @@ Phases, one summary line each:
      started together (time and the ``-Xptxas -v`` lines);
   2. every hand-written kernel against its plain PyTorch version on the
      card, with TF32 off: the eight int8 kernels bitwise, on every op of
-     the seven committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
-     ToyADMOS, the sliced MCUNet-320KB-ImageNet, the DS-CNN stream and
-     the GRU chain) and on the int8 edge
+     the nine committed int8 plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW,
+     ToyADMOS, the sliced MCUNet-320KB-ImageNet, MobileNetV1-0.25, the
+     unsliced MCUNet-320KB-ImageNet for the cortex-m7, the DS-CNN stream
+     and the GRU chain) and on the int8 edge
      cases of ``repro_torch.kernels.cases`` (``CARD_EDGE_CASES``' 8,385-row
      shifted add among them); the eleven fp32 kernels
      within the tolerance of ``cases.compare_f32`` (channel tails and
-     unwritten lanes exact), on every op of the seven fp32 ``host-sim``
-     plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW, ToyADMOS, the DS-CNN
-     stream, the GRU chain, the whisper-tiny MLP tower) and on the fp32
+     unwritten lanes exact), on every op of the nine fp32 ``host-sim``
+     plans (DS-CNN, ResNet-8, MCUNet-5fps-VWW, ToyADMOS, MobileNetV1-0.25,
+     MCUNet-320KB-ImageNet, the DS-CNN stream, the GRU chain, the
+     whisper-tiny MLP tower) and on the fp32
      edge cases (a gemma3-1b-width geglu layer and a d_model-4096 one
      among them; the depthwise and k x k convs also in place, where only
      a kernel that reads all of an op before storing matches, and the
@@ -74,8 +76,18 @@ Phases, one summary line each:
          for its 2 golden inputs, at exactly 98 ``ring_conv_pw_q``, 48
          ``ring_conv_dw_q``, 10 ``ring_add_q``, 1 ``ring_avgpool_q`` and 1
          ``ring_gemm_q`` launches an inference;
-       * the same on the fp32 DS-CNN, ResNet-8, MCUNet-5fps-VWW and
-         ToyADMOS: outputs within the tolerance of the reference's golden
+       * the same on MobileNetV1-0.25 for the cortex-m4 (29 ops: 1
+         ``ring_conv_k2d_q``, 13 ``ring_conv_dw_q``, 13
+         ``ring_conv_pw_q``, 1 ``ring_avgpool_q`` and 1 ``ring_gemm_q``
+         launches an inference) and the unsliced MCUNet-320KB-ImageNet
+         for the cortex-m7 (65 ops: 36 pw, 17 dw, 10 add, pool, the 96 ->
+         1000 FC), each for its 2 golden inputs;
+       * the same on the fp32 DS-CNN, ResNet-8, MCUNet-5fps-VWW,
+         ToyADMOS, MobileNetV1-0.25 (29 launches an inference, as its
+         int8 twin's) and MCUNet-320KB-ImageNet (10
+         ``ring_inverted_bottleneck``, 16 pw, 7 dw, 1 add, pool and FC
+         launches an inference; 2 golden inputs each):
+         outputs within the tolerance of the reference's golden
          and of the plain ``reference_forward``, each final pool within
          it of the pool the plain versions leave, channel tails exactly
          0 (ToyADMOS: exactly 10 ``ring_gemm`` launches an inference);
@@ -260,9 +272,13 @@ CSRC = "src/repro_torch/kernels/csrc"
 #: The sliced (partial-execution) int8 plan: MCUNet-320KB-ImageNet for
 #: the M4 with ``partial="auto"``, served by ``run`` beside the others.
 SLICED = "mcunet-320kb-imagenet-sliced"
-#: Plans served by ``run`` (int8 and fp32) and plans stepped by ``stream``.
-NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos", SLICED)
-FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
+#: Plans served by ``run`` (int8 and fp32) and plans stepped by ``stream``;
+#: an int8 plan's MCU target is ``cases.INT8_TARGETS``' (unsliced ImageNet:
+#: the cortex-m7).
+NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos", SLICED,
+        "mobilenetv1-0.25", "mcunet-320kb-imagenet")
+FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos",
+              "mobilenetv1-0.25", "mcunet-320kb-imagenet")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
 FLOAT_STREAMS = STREAMS
 #: fp32 plans whose artifact holds no weights: ``mlp_tower_params`` of
@@ -343,11 +359,11 @@ def nvidia_smi_line() -> str:
 
 def _asset(label: str) -> str:
     """The asset stem of a path label."""
-    if label == SLICED:
-        return "mcunet-320kb-imagenet.cortex-m4.int8.sliced"
+    from repro_torch.kernels.cases import int8_stem
+
     if label.endswith(F32):
         return f"{label.removesuffix(F32)}.host-sim.float32"
-    return f"{label}.cortex-m4.int8"
+    return int8_stem(label)
 
 
 def artifact(label: str) -> pathlib.Path:
@@ -846,7 +862,20 @@ LAUNCHES_PER_INFERENCE = {
     "ad-toyadmos": {"ring_gemm_q": 10},
     SLICED: {"ring_conv_pw_q": 98, "ring_conv_dw_q": 48, "ring_add_q": 10,
              "ring_avgpool_q": 1, "ring_gemm_q": 1},
+    "mobilenetv1-0.25": {"ring_conv_k2d_q": 1, "ring_conv_dw_q": 13,
+                         "ring_conv_pw_q": 13, "ring_avgpool_q": 1,
+                         "ring_gemm_q": 1},
+    "mcunet-320kb-imagenet": {"ring_conv_pw_q": 36, "ring_conv_dw_q": 17,
+                              "ring_add_q": 10, "ring_avgpool_q": 1,
+                              "ring_gemm_q": 1},
     "ad-toyadmos" + F32: {"ring_gemm": 10},
+    "mobilenetv1-0.25" + F32: {"ring_conv_k2d": 1, "ring_conv_dw": 13,
+                               "ring_conv_pw": 13, "ring_avgpool": 1,
+                               "ring_gemm": 1},
+    "mcunet-320kb-imagenet" + F32: {"ring_inverted_bottleneck": 10,
+                                    "ring_conv_pw": 16, "ring_conv_dw": 7,
+                                    "ring_add": 1, "ring_avgpool": 1,
+                                    "ring_gemm": 1},
     "whisper-tiny-mlp" + F32: {"ring_fused_mlp": 4, "ring_elementwise": 1},
 }
 

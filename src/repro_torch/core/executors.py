@@ -3,19 +3,22 @@
 Counterpart of :mod:`repro.core.executors` for the op kinds the port
 has kernels for.  One dispatch (:func:`op_kernel_call`, a port of
 ``_run_pallas_q`` and of the fp32 loop of ``run_program_pallas``) maps
-each op to a ring kernel and its arguments; the pool's device picks the
-implementation:
+each op to a ring kernel and its arguments.  :func:`execute` runs a plan
+on a named backend, as the reference's does (:func:`register_executor`,
+:func:`executor_names`):
 
-  * a CUDA pool runs the hand-written kernels
-    (:data:`repro_torch.kernels.KERNELS`),
-  * a CPU pool runs their plain PyTorch versions
-    (:data:`repro_torch.kernels.PLAIN`) — the port of ``_apply_op_q``/
-    ``_run_jnp_q`` and of ``_apply_op``/``_run_jnp``.
+  * ``"cuda"`` runs the hand-written kernels
+    (:data:`repro_torch.kernels.KERNELS`) on a CUDA pool,
+  * ``"cpu"`` runs their plain PyTorch versions
+    (:data:`repro_torch.kernels.PLAIN`) on a CPU pool — the port of
+    ``_apply_op_q``/``_run_jnp_q`` and of ``_apply_op``/``_run_jnp``,
+  * ``"sim"`` is :func:`run_program_sim`, the reference's clobber
+    oracle: it replays every op's row schedule through a
+    :class:`~repro_torch.core.pool.SegmentPool` on the host, with no
+    tensor, and certifies a plan.
 
-:func:`run_program_sim` is the reference's ``sim`` backend, the clobber
-oracle: it replays every op's row schedule through a
-:class:`~repro_torch.core.pool.SegmentPool` on the host, with no tensor,
-and certifies a plan.
+With no backend named, the pool's device picks ``"cuda"`` or ``"cpu"``;
+a named array backend refuses a pool on the other device.
 
 Each takes a ``tracer`` (:class:`repro_torch.obs.RingTracer`): per-op
 wall seconds from CUDA events on a CUDA pool, from the host clock on a
@@ -30,6 +33,7 @@ ones, and the two delta-0 kinds, the fused MLP and the elementwise map.
 from __future__ import annotations
 
 import time
+from typing import Callable
 
 import torch
 
@@ -328,28 +332,74 @@ class _OpClock:
             self.tracer.record(i, t0.elapsed_time(t1) / 1e3)
 
 
-def execute(program: PoolProgram, pool, params, *,
-            kernel_block_rows: int = 8, tracer=None):
-    """Run ``program`` on ``pool`` (a :class:`VirtualPool` or raw
-    ``[n_segments, seg_width]`` tensor of the program's dtype, int8 or
-    float32, with the input staged at ``program.input_ptr``), in place;
-    returns ``pool``.
+# ---------------------------------------------------------------------------
+# Registry.
+# ---------------------------------------------------------------------------
 
-    A CUDA pool runs the CUDA kernels, a CPU pool their plain versions;
-    ``params`` must lie on the pool's device.  A ``tracer`` gets each
-    op's wall seconds (:class:`_OpClock`) and ``backend`` ``"cuda"`` or
-    ``"cpu"``."""
+_EXECUTORS: dict[str, Callable] = {}
+
+
+def register_executor(name: str):
+    """Register ``fn(program, pool, params, **kw)`` as backend ``name``."""
+    def deco(fn):
+        _EXECUTORS[name] = fn
+        return fn
+    return deco
+
+
+def executor_names() -> tuple[str, ...]:
+    return tuple(sorted(_EXECUTORS))
+
+
+def execute(program: PoolProgram, pool=None, params=None, *,
+            backend: str | None = None, **kwargs):
+    """Run ``program`` on ``backend``: ``"cuda"`` (the CUDA kernels),
+    ``"cpu"`` (their plain versions), ``"sim"`` (:func:`run_program_sim`,
+    which ignores ``pool`` and ``params`` and returns the
+    :class:`SegmentPool`) or any registered with
+    :func:`register_executor`; ``None`` picks ``"cuda"`` or ``"cpu"`` by
+    the pool's device.  ``pool`` is a :class:`VirtualPool` or raw
+    ``[n_segments, seg_width]`` tensor of the program's dtype, int8 or
+    float32, with the input staged at ``program.input_ptr``, and
+    ``params`` lie on its device; the array backends run in place and
+    return ``pool``.  ``kwargs``: ``kernel_block_rows`` (default 8) and
+    ``tracer``, which gets each op's wall seconds (:class:`_OpClock`)
+    and ``backend``."""
+    if backend is None:
+        arr = pool.array if isinstance(pool, VirtualPool) else pool
+        backend = arr.device.type
+        if backend not in ("cuda", "cpu"):
+            raise ValueError(f"no ring executor for device {arr.device}")
+    try:
+        fn = _EXECUTORS[backend]
+    except KeyError:
+        raise ValueError(f"unknown backend {backend!r}; registered: "
+                         f"{executor_names()}") from None
     if not program.executable:
         raise NotImplementedError(
             f"program contains plan-only ops; only kinds "
             f"{EXECUTABLE_KINDS} are executable")
+    return fn(program, pool, params, **kwargs)
+
+
+@register_executor("cuda")
+def _run_cuda(program, pool, params, **kwargs):
+    return _run_table(KERNELS, "cuda", program, pool, params, **kwargs)
+
+
+@register_executor("cpu")
+def _run_cpu(program, pool, params, **kwargs):
+    return _run_table(PLAIN, "cpu", program, pool, params, **kwargs)
+
+
+def _run_table(table, device: str, program: PoolProgram, pool, params, *,
+               kernel_block_rows: int = 8, tracer=None):
+    """Each op through ``table``'s wrapper of its kernel, on a pool that
+    must lie on ``device``."""
     arr = pool.array if isinstance(pool, VirtualPool) else pool
-    if arr.device.type == "cuda":
-        table = KERNELS
-    elif arr.device.type == "cpu":
-        table = PLAIN
-    else:
-        raise ValueError(f"no ring executor for device {arr.device}")
+    if arr.device.type != device:
+        raise ValueError(f"the {device!r} backend runs a pool on its "
+                         f"device, not on {arr.device}")
     clock = None if tracer is None else _OpClock(arr.device, tracer)
     for i, (op, p) in enumerate(zip(program.ops,
                                     _normalize_params(program, params))):
@@ -526,3 +576,8 @@ def run_program_sim(program: PoolProgram, pool=None, *,
     if tracer is not None:
         tracer.finish_sim(sim)
     return sim
+
+
+@register_executor("sim")
+def _run_sim(program, pool, params, *, tracer=None, **_):
+    return run_program_sim(program, pool, tracer=tracer)

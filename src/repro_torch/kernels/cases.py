@@ -618,6 +618,29 @@ def mlp_tower_params(program, seed: int) -> list:
     return params
 
 
+#: The MCU target of each committed int8 plan, by its label: the
+#: reference's compile of the zoo net for that target, written by
+#: ``tests/test_torch_assets.py`` and served by ``chip_smoke.py``.  A
+#: label ending in ``SLICED_SUFFIX`` is the net compiled with
+#: ``partial="auto"``.  Every fp32 twin is compiled for ``host-sim``.
+INT8_TARGETS = {"ds-cnn": "cortex-m4", "resnet-8": "cortex-m4",
+                "mcunet-5fps-vww": "cortex-m4", "ad-toyadmos": "cortex-m4",
+                "mobilenetv1-0.25": "cortex-m4",
+                "mcunet-320kb-imagenet": "cortex-m7",
+                "mcunet-320kb-imagenet-sliced": "cortex-m4",
+                "ds-cnn-stream": "cortex-m4", "kws-gru-chain": "cortex-m4"}
+SLICED_SUFFIX = "-sliced"
+
+
+def int8_stem(label: str) -> str:
+    """The asset stem of an int8 plan: ``<net>.<target>.int8``, with
+    ``.sliced`` after it for a sliced plan."""
+    target = INT8_TARGETS[label]
+    if label.endswith(SLICED_SUFFIX):
+        return f"{label.removesuffix(SLICED_SUFFIX)}.{target}.int8.sliced"
+    return f"{label}.{target}.int8"
+
+
 def seeded_float_net(path, seed: int = 0):
     """A :class:`repro_torch.compile.driver.CompiledNet` from a float
     artifact saved without params, run with :func:`mlp_tower_params` of

@@ -120,7 +120,9 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
             "median_step_s": statistics.median(times) if times else 0.0}
 
 
-def main(argv: list[str] | None = None) -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """The command's arguments; ``--ckpt-dir`` defaults to the
+    reference's ``/tmp/repro_ckpt``."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -128,10 +130,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--ckpt-dir", default="repro_ckpt")
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = build_parser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: run on one, or pass --device cpu")
     cfg = get_config(args.arch)

@@ -130,10 +130,16 @@ def attention(q, k, v, *, causal: bool, window: int | None,
               softcap: float | None, q_offset: int = 0, chunk: int = 2048,
               bf16_einsum: bool = False):
     """q: [B,Sq,H,D]; k/v: [B,Skv,KV,D] (GQA).  Query-chunked so the
-    score matrix never exceeds [B,H,chunk,Skv], as the reference."""
-    if bf16_einsum:
-        raise NotImplementedError("the bf16 score pipeline (bf16_einsum) is "
-                                  "not ported; no config sets it")
+    score matrix never exceeds [B,H,chunk,Skv], as the reference.
+
+    ``bf16_einsum``: the reference's bf16 score pipeline.  The scores are
+    the products of q and k in their own dtype summed in fp32, then
+    rounded to q's dtype; softcap, mask (at that dtype's lowest value),
+    ``exp(s - max)`` and ``p / sum`` stay in it, the max and the sum are
+    taken in fp32, and ``p @ v`` sums in fp32 before it is rounded to q's
+    dtype.  An fp32 product of operands that were bf16 is exact, so
+    multiplying the upcast operands is bf16 operands with fp32
+    accumulation."""
     B, Sq, H, D = q.shape
     k = _expand_kv(k, H).to(F32)
     v = _expand_kv(v, H).to(F32)
@@ -142,6 +148,8 @@ def attention(q, k, v, *, causal: bool, window: int | None,
 
     def chunk_attn(qc, cstart: int):
         s = torch.einsum("bqhd,bshd->bhqs", qc.to(F32), k)
+        if bf16_einsum:
+            s = s.to(q.dtype)
         s = _softcap(s, softcap)
         qpos = (cstart + q_offset
                 + torch.arange(qc.shape[1], device=q.device))[:, None]
@@ -150,7 +158,15 @@ def attention(q, k, v, *, causal: bool, window: int | None,
             mask &= kpos <= qpos
         if window is not None:
             mask &= kpos > qpos - window
-        s = s.masked_fill(~mask, NEG_INF)
+        s = s.masked_fill(~mask, NEG_INF if s.dtype == F32
+                          else torch.finfo(s.dtype).min)
+        if bf16_einsum:
+            m = s.to(F32).amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m.to(s.dtype))
+            total = p.sum(dim=-1, keepdim=True, dtype=F32)
+            p = p / total.to(s.dtype)
+            return torch.einsum("bhqs,bshd->bqhd", p.to(F32),
+                                v).to(q.dtype)
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bhqs,bshd->bqhd", p, v).to(q.dtype)
 

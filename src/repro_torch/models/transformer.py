@@ -503,7 +503,12 @@ class Model:
         return (x * _const(math.sqrt(self.cfg.d_model), x)).to(ACT_DTYPE)
 
     def _unembed(self, params, x):
+        """The logits in fp32; with ``bf16_einsum`` the weights are
+        rounded to x's dtype first (the reference's operands in x's
+        dtype, summed in fp32)."""
         w = params.get("unembed", params["embed"])
+        if self.cfg.bf16_einsum:
+            w = w.to(x.dtype)
         logits = x.to(torch.float32) @ w.to(torch.float32).T
         return _softcap(logits, self.cfg.logit_softcap)
 

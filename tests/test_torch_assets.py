@@ -54,11 +54,25 @@ asset:
     reference's ``run(x, backend="jnp")`` outputs, int8 outputs and
     final-pool sha256.  Its int8 compile calibrates ImageNet (about 40 s),
     so only the script writes it; the tests hold its plan against a fresh
-    planner-only compile (``quantize=False``, the same program).
+    planner-only compile (``quantize=False``, the same program);
+  * the zoo plans of the main path (``ZOO_NETS``: MobileNetV1-0.25 for
+    the cortex-m4, the unsliced MCUNet-320KB-ImageNet for the cortex-m7,
+    each also fp32 for ``host-sim``; the int8 target of every plan is
+    ``repro_torch.kernels.cases.INT8_TARGETS``'): the reference's
+    compiles, the int8 ones without the fp32 ``params``; each golden
+    holds 2 seeded inputs and the reference's ``run(x, backend="jnp")``
+    outputs (int8: also the int8 outputs and final-pool sha256).  The
+    per-net files ``tests/test_torch_mobilenet.py`` and
+    ``tests/test_torch_imagenet_m7.py`` hold them
+    (``hold_fresh_zoo_assets``, ``hold_port_zoo_int8``,
+    ``hold_port_zoo_float``), each compiling its net once;
+    ``write_assets`` writes them after the others.
 
-``--sliced`` rewrites the sliced plan alone:
+``--sliced`` rewrites the sliced plan alone, ``--zoo [NAME ...]`` the
+zoo plans (MobileNet about 40 s, ImageNet about 100 s):
 
     PYTHONPATH=src python tests/test_torch_assets.py --sliced
+    PYTHONPATH=src python tests/test_torch_assets.py --zoo mobilenetv1-0.25
 
 And one LM golden, written only by the ``--lm`` mode, never by pytest:
 
@@ -138,26 +152,32 @@ from repro.serve.engine import ServingEngine as RefEngine
 from repro.train import optimizer as ref_opt
 from repro.train.data import synthetic_batch as ref_synthetic_batch
 from repro.train.train_step import make_train_step as ref_make_train_step
-from repro_torch.compile.artifact import (read_compile_inputs,
+from repro_torch import load as port_load
+from repro_torch.compile.artifact import (read_compile_inputs, to_device,
                                           write_compile_inputs)
 from repro_torch.configs import get_config as port_get_config
-from repro_torch.kernels.cases import (LM_GOLDEN_CACHE_LEN, LM_GOLDEN_STEPS,
+from repro_torch.core.executors import run_program as port_run_program
+from repro_torch.kernels.cases import (ATOL_REL, INT8_TARGETS,
+                                       LM_GOLDEN_CACHE_LEN, LM_GOLDEN_STEPS,
                                        LM_GOLDEN_TOP, LM_PARAMS_VERSION,
+                                       RTOL, SLICED_SUFFIX,
                                        TRAIN_GOLDEN_BATCH,
                                        TRAIN_GOLDEN_FLOATS, TRAIN_GOLDEN_OPT,
                                        TRAIN_GOLDEN_SEQ, TRAIN_GOLDEN_STEPS,
-                                       hold_lm_golden, hold_train_golden,
+                                       compare_f32, hold_lm_golden,
+                                       hold_train_golden, int8_stem,
                                        lm_memory, lm_params, lm_prompts,
-                                       mlp_tower_params, route_codes,
-                                       update_records)
+                                       mlp_tower_params, program_live_lanes,
+                                       route_codes, update_records)
 from repro_torch.models import build_model, params_from_reference
+from repro_torch.quant.qtensor import QParams as PortQParams
+from repro_torch.quant.qtensor import quantize as port_quantize
 from repro_torch.train import synthetic_batch as port_synthetic_batch
 from repro_torch.train.tree import leaves_with_paths
 from test_torch_moe import reference_routes, routing_of
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
-TARGET = "cortex-m4"
 NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
 FLOAT_TARGET = "host-sim"
 FLOAT_NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
@@ -180,11 +200,11 @@ N_SLICED_INPUTS = 2
 
 
 def artifact_path(name: str) -> pathlib.Path:
-    return ASSETS / f"{name}.{TARGET}.int8.json"
+    return ASSETS / f"{int8_stem(name)}.json"
 
 
 def golden_path(name: str) -> pathlib.Path:
-    return ASSETS / f"{name}.{TARGET}.int8.golden.npz"
+    return ASSETS / f"{int8_stem(name)}.golden.npz"
 
 
 def float_artifact_path(name: str) -> pathlib.Path:
@@ -196,22 +216,23 @@ def float_golden_path(name: str) -> pathlib.Path:
 
 
 def sliced_artifact_path() -> pathlib.Path:
-    return ASSETS / f"{SLICED_NET}.{TARGET}.int8.sliced.json"
+    return artifact_path(SLICED_NET + SLICED_SUFFIX)
 
 
 def sliced_golden_path() -> pathlib.Path:
-    return ASSETS / f"{SLICED_NET}.{TARGET}.int8.sliced.golden.npz"
+    return golden_path(SLICED_NET + SLICED_SUFFIX)
 
 
 def compile_sliced_reference(quantize: bool = True) -> RefCompiledNet:
     """The reference's sliced ImageNet compile for the M4 (planner-only
     when not ``quantize``)."""
-    return repro.compile(SLICED_NET, TARGET, dtype="int8", partial="auto",
+    return repro.compile(SLICED_NET, INT8_TARGETS[SLICED_NET + SLICED_SUFFIX],
+                         dtype="int8", partial="auto",
                          certify="static", quantize=quantize)
 
 
 def compile_inputs_path() -> pathlib.Path:
-    return ASSETS / f"{COMPILE_NET}.{TARGET}.int8.compile.npz"
+    return ASSETS / f"{int8_stem(COMPILE_NET)}.compile.npz"
 
 
 def reference_compile_inputs(cn: RefCompiledNet) -> tuple[list, np.ndarray]:
@@ -253,7 +274,8 @@ def _gru_chain(quantize: bool = True) -> RefCompiledNet:
         ref_artifact.program_sha256(prog))
     return RefCompiledNet(
         net_name="kws-gru-chain",
-        target=get_target(TARGET if quantize else FLOAT_TARGET),
+        target=get_target(INT8_TARGETS["kws-gru-chain"] if quantize
+                          else FLOAT_TARGET),
         dtype="int8" if quantize else "float32", program=prog,
         params=params, qnet=qnet, mcu={}, certificate=cert, passes=[])
 
@@ -262,8 +284,8 @@ def compile_reference(name: str) -> RefCompiledNet:
     if name == "kws-gru-chain":
         return _gru_chain()
     if name == "ds-cnn-stream":
-        return repro.compile("ds-cnn", TARGET, streaming=True)
-    return repro.compile(name, TARGET)
+        return repro.compile("ds-cnn", INT8_TARGETS[name], streaming=True)
+    return repro.compile(name, INT8_TARGETS[name])
 
 
 def _mlp_tower(seed: int = PARAMS_SEED) -> RefCompiledNet:
@@ -392,12 +414,133 @@ def write_assets(names=NETS + STREAMS,
             json.dumps(float_payload(name, cn)))
         np.savez(float_golden_path(name), **float_golden(name, cn))
     write_sliced_asset()
+    write_zoo_assets()
 
 
 def write_sliced_asset() -> None:
     cn = compile_sliced_reference()
     sliced_artifact_path().write_text(json.dumps(artifact_payload(cn)))
     np.savez(sliced_golden_path(), **net_golden(cn, N_SLICED_INPUTS))
+
+
+#: The zoo nets of the main path whose assets the per-net test files
+#: hold (``tests/test_torch_mobilenet.py``,
+#: ``tests/test_torch_imagenet_m7.py``), each compiling the reference's
+#: plans once: int8 for the net's target in ``INT8_TARGETS``, fp32 for
+#: ``host-sim``.  Each golden holds ``N_ZOO_INPUTS`` seeded inputs and
+#: the reference's ``run(x, backend="jnp")`` outputs (and, int8, the
+#: int8 outputs and final-pool sha256).
+ZOO_NETS = ("mobilenetv1-0.25", "mcunet-320kb-imagenet")
+N_ZOO_INPUTS = 2
+
+
+def zoo_float_golden(cn: RefCompiledNet) -> dict:
+    x = golden_inputs(cn.program, N_ZOO_INPUTS)
+    return {"x": x, "y": np.asarray(cn.run(x, backend="jnp"))}
+
+
+def write_zoo_assets(names=ZOO_NETS) -> None:
+    for name in names:
+        for quantized in (True, False):
+            t0 = time.perf_counter()
+            if quantized:
+                cn = compile_reference(name)
+                artifact_path(name).write_text(
+                    json.dumps(artifact_payload(cn)))
+            else:
+                cn = compile_float_reference(name)
+                float_artifact_path(name).write_text(
+                    json.dumps(float_payload(name, cn)))
+            t1 = time.perf_counter()
+            if quantized:
+                np.savez(golden_path(name), **net_golden(cn, N_ZOO_INPUTS))
+            else:
+                np.savez(float_golden_path(name), **zoo_float_golden(cn))
+            print(f"wrote {name} {cn.dtype} ({cn.target.name}): compile "
+                  f"{t1 - t0:.1f} s, golden {time.perf_counter() - t1:.1f} s",
+                  flush=True)
+
+
+def hold_fresh_zoo_assets(name: str, ref_q: RefCompiledNet,
+                          ref_f: RefCompiledNet) -> None:
+    """A zoo net's four assets are a fresh reference compile's (``ref_q``
+    int8, ``ref_f`` fp32) and its fresh run's: the artifacts but their
+    timings, the goldens' inputs bitwise, the int8 outputs, float outputs
+    and pool hashes bitwise, the fp32 outputs to the fp32 tolerance (a
+    golden written in another process)."""
+    for have, want in ((json.loads(artifact_path(name).read_text()),
+                        artifact_payload(ref_q)),
+                       (json.loads(float_artifact_path(name).read_text()),
+                        float_payload(name, ref_f))):
+        assert sorted(have) == sorted(want)
+        for key in sorted(set(want) - set(TIMED)):
+            assert have[key] == want[key], key
+    assert "params" not in json.loads(artifact_path(name).read_text())
+    want = net_golden(ref_q, N_ZOO_INPUTS)
+    with np.load(golden_path(name)) as have:
+        assert sorted(have.files) == sorted(want)
+        for key, arr in want.items():
+            np.testing.assert_array_equal(have[key], arr, err_msg=key)
+    want = zoo_float_golden(ref_f)
+    with np.load(float_golden_path(name)) as have:
+        assert sorted(have.files) == ["x", "y"]
+        np.testing.assert_array_equal(have["x"], want["x"])
+        scale = float(np.abs(want["y"]).max())
+        np.testing.assert_allclose(have["y"], want["y"], rtol=3e-4,
+                                   atol=3e-5 * scale)
+    assert want["y"].shape[0] == N_ZOO_INPUTS
+    assert np.isfinite(want["y"]).all()
+
+
+def hold_port_zoo_int8(name: str) -> None:
+    """The port's plain path on the int8 asset, on the CPU: ``run``'s
+    float outputs, each input's int8 outputs and final-pool sha256 equal
+    the golden (the reference's ``jnp`` run) bit for bit."""
+    cn = port_load(artifact_path(name))
+    with np.load(golden_path(name)) as g:
+        golden = {k: g[k] for k in g.files}
+    y = cn.run(golden["x"], device="cpu")
+    assert y.device.type == "cpu" and np.array_equal(y.numpy(), golden["y"])
+    qparams = to_device(cn.qnet.qparams, "cpu")
+    for i, xi in enumerate(torch.from_numpy(golden["x"])):
+        y_q, pool = port_run_program(
+            cn.program, port_quantize(xi, PortQParams(
+                scale=cn.qnet.in_scale)), qparams,
+            kernel_block_rows=cn.target.kernel_block_rows)
+        assert np.array_equal(y_q.numpy(), golden["y_q"][i]), i
+        assert hashlib.sha256(pool.array.numpy().tobytes()).hexdigest() \
+            == golden["pool_sha256"][i], i
+
+
+def hold_port_zoo_float(name: str, ref_f: RefCompiledNet) -> None:
+    """The port's plain path on the fp32 asset, on the CPU: ``run``'s
+    outputs within the fp32 tolerance of the golden, and each input's
+    final pool within it of the reference's ``jnp`` pool on the live
+    channels, exactly equal on channel tails and unwritten lanes (which
+    hold 0)."""
+    cn = port_load(float_artifact_path(name))
+    with np.load(float_golden_path(name)) as g:
+        x, want = g["x"], g["y"]
+    y = cn.run(x, device="cpu").numpy()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(y, want, rtol=RTOL, atol=ATOL_REL * scale)
+    kbr = cn.target.kernel_block_rows
+    params = to_device(cn.params, "cpu")
+    live = program_live_lanes(cn.program, cn.params, kernel_block_rows=kbr)
+    for xi in x:
+        _, pool_ref = run_program(ref_f.program, jnp.asarray(xi),
+                                  ref_f.params, backend="jnp")
+        _, pool = port_run_program(cn.program, torch.from_numpy(xi), params,
+                                   kernel_block_rows=kbr)
+        got = pool.array.numpy()
+        _, bad = compare_f32(got, np.asarray(pool_ref.array), live)
+        assert bad is None, bad
+        assert not got[~live].any()
+
+
+def op_kinds(cn) -> dict[str, int]:
+    kinds = [op.kind for op in cn.program.ops]
+    return {k: kinds.count(k) for k in sorted(set(kinds))}
 
 
 @pytest.fixture(scope="module")
@@ -948,6 +1091,9 @@ if __name__ == "__main__":
         write_sliced_asset()
         print(f"wrote the sliced {SLICED_NET} artifact and golden in "
               f"{ASSETS}")
+    elif "--zoo" in sys.argv[1:]:
+        write_zoo_assets(tuple(sys.argv[sys.argv.index("--zoo") + 1:])
+                         or ZOO_NETS)
     elif "--lm" in sys.argv[1:]:
         write_lm_goldens(tuple(sys.argv[sys.argv.index("--lm") + 1:]))
     elif "--train" in sys.argv[1:]:

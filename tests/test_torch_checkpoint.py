@@ -325,3 +325,9 @@ def test_the_command_trains_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "step     0 loss" in out and "'final_loss'" in out
     assert CheckpointManager(str(tmp_path)).latest_step() == 2
+
+
+def test_the_command_checkpoints_under_tmp_by_default():
+    """As the reference's: a run from a checkout writes nothing into it."""
+    args = train_mod.build_parser().parse_args(["--arch", NAME])
+    assert args.ckpt_dir == "/tmp/repro_ckpt"

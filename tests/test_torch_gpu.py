@@ -2,8 +2,9 @@
 version (int8 bitwise, fp32 within the tolerance of
 ``repro_torch.kernels.cases.compare_f32``, with TF32 off; the decode
 attention within ``cases.compare_decode``), the served and streaming
-paths against the reference's goldens (the sliced ImageNet plan among
-them), traced runs against untraced ones, reduced gemma3-1b served
+paths against the reference's goldens (the sliced ImageNet plan,
+MobileNetV1-0.25 and the unsliced ImageNet plan for the cortex-m7
+among them), traced runs against untraced ones, reduced gemma3-1b served
 through one ``ring_decode_attention`` launch per layer per decode step,
 and a reduced LM of each other block kind (rec, ssm, MoE, cross) served
 through the decode kernel, kernel path against plain path.
@@ -33,9 +34,9 @@ from repro_torch.kernels.cases import (ATOL_REL, CARD_EDGE_CASES,
                                        F32_FUSED_STREAM_EDGE_CASES,
                                        F32_MLP_EDGE_CASES, RTOL,
                                        case_inputs, compare_f32, live_lanes,
-                                       output_regions, plain_pool,
-                                       program_cases, program_live_lanes,
-                                       seeded_float_net)
+                                       int8_stem, output_regions,
+                                       plain_pool, program_cases,
+                                       program_live_lanes, seeded_float_net)
 from repro_torch.quant.qtensor import QParams, quantize
 from repro_torch.configs import get_config
 from repro_torch.kernels.cases import (DECODE_CASES, LM_DECODE_CASES,
@@ -46,6 +47,8 @@ from repro_torch.kernels.cases import (DECODE_CASES, LM_DECODE_CASES,
 from repro_torch.kernels import fused_mlp
 from repro_torch.kernels.fused_mlp import MlpTiling, mlp_tiling
 from repro_torch.kernels import stream as stream_kernels
+from repro_torch.kernels.conv2d import conv_tiling
+from repro_torch.kernels.inverted_bottleneck import ib_tiling
 from repro_torch.kernels.quantized import add_needs_barrier, gemm_q_tiling
 from repro_torch.kernels.stream import gru_q_tiling, gru_tiling
 from repro_torch.kernels.ring_decode import (ring_decode_attention,
@@ -57,15 +60,36 @@ ASSETS = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "assets")
 NETS = ("ds-cnn", "resnet-8", "mcunet-5fps-vww", "ad-toyadmos")
 STREAMS = ("ds-cnn-stream", "kws-gru-chain")
+#: The zoo plans served beside them (int8 for their target in
+#: ``cases.INT8_TARGETS``, fp32 for the host; goldens of 2 inputs), whose
+#: kernel cases here are a few ops of each (``_few``).
+ZOO = ("mobilenetv1-0.25", "mcunet-320kb-imagenet")
 
 
 def _artifact(name):
-    return ASSETS / f"{name}.cortex-m4.int8.json"
+    return ASSETS / f"{int8_stem(name)}.json"
 
 
 def _golden(name):
-    with np.load(ASSETS / f"{name}.cortex-m4.int8.golden.npz") as g:
+    with np.load(ASSETS / f"{int8_stem(name)}.golden.npz") as g:
         return {k: g[k] for k in g.files}
+
+
+def _few(cases, n_sm=132):
+    """Of a plan's cases: the first and last op of each kernel, the conv
+    op on the fewest CTAs and the bottleneck with the most shared memory
+    (at ``n_sm`` SMs)."""
+    keep = set()
+    for kernel in {c.kernel for c in cases}:
+        mine = [c for c in cases if c.kernel == kernel]
+        keep |= {mine[0].name, mine[-1].name}
+        if kernel.startswith("ring_conv"):
+            keep.add(min(mine, key=lambda c: conv_tiling(
+                kernel, c.kwargs, n_sm).ctas).name)
+        if kernel == "ring_inverted_bottleneck":
+            keep.add(max(mine, key=lambda c: ib_tiling(c.kwargs,
+                                                       n_sm).smem).name)
+    return tuple(c for c in cases if c.name in keep)
 
 
 def _program_cases(name):
@@ -97,7 +121,7 @@ def _sliced_cases():
 
 CASES = EDGE_CASES + CARD_EDGE_CASES \
     + sum((_program_cases(n) for n in NETS + STREAMS), ()) \
-    + _sliced_cases()
+    + _sliced_cases() + sum((_few(_program_cases(n)) for n in ZOO), ())
 FLOAT_NETS = NETS
 
 
@@ -136,7 +160,7 @@ def _tower_cases():
 F32_CASES = F32_EDGE_CASES + F32_FUSED_STREAM_EDGE_CASES \
     + F32_MLP_EDGE_CASES \
     + sum((_float_program_cases(n) for n in FLOAT_NETS + STREAMS), ()) \
-    + _tower_cases()
+    + _tower_cases() + sum((_few(_float_program_cases(n)) for n in ZOO), ())
 
 
 def _need_card():
@@ -258,11 +282,18 @@ SERVED_LAUNCHES = {
                         "ring_conv_dw_q": 64, "ring_add_q": 56,
                         "ring_avgpool_q": 8},
     "ad-toyadmos": {"ring_gemm_q": 80},
+    # the zoo plans' goldens hold 2 inputs
+    "mobilenetv1-0.25": {"ring_gemm_q": 2, "ring_conv_pw_q": 26,
+                         "ring_conv_dw_q": 26, "ring_conv_k2d_q": 2,
+                         "ring_avgpool_q": 2},
+    "mcunet-320kb-imagenet": {"ring_gemm_q": 2, "ring_conv_pw_q": 72,
+                              "ring_conv_dw_q": 34, "ring_add_q": 20,
+                              "ring_avgpool_q": 2},
 }
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", NETS)
+@pytest.mark.parametrize("name", NETS + ZOO)
 def test_served_main_path_equals_golden_on_card(name):
     _need_card()
     cn, golden = load(_artifact(name)), _golden(name)
@@ -450,11 +481,18 @@ FLOAT_LAUNCHES = {
                         "ring_conv_dw": 16, "ring_add": 16,
                         "ring_avgpool": 8, "ring_inverted_bottleneck": 48},
     "ad-toyadmos": {"ring_gemm": 80},
+    "mobilenetv1-0.25": {"ring_gemm": 2, "ring_conv_pw": 26,
+                         "ring_conv_dw": 26, "ring_conv_k2d": 2,
+                         "ring_avgpool": 2},
+    "mcunet-320kb-imagenet": {"ring_gemm": 2, "ring_conv_pw": 32,
+                              "ring_conv_dw": 14, "ring_add": 2,
+                              "ring_avgpool": 2,
+                              "ring_inverted_bottleneck": 20},
 }
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", FLOAT_NETS)
+@pytest.mark.parametrize("name", FLOAT_NETS + ZOO)
 def test_fp32_served_main_path_matches_golden_on_card(name):
     """The fp32 plan through its CUDA kernels: outputs within the
     tolerance of the golden, and each final pool within it of the final
