@@ -1796,8 +1796,8 @@ def lm_memory_of_path(cfg, batch: int):
     return None if mem is None else torch.from_numpy(mem).to(DEVICE_TYPE)
 
 
-def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
-            ) -> dict[str, int]:
+def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0],
+            rules=None) -> dict[str, int]:
     """An LM's ``ServingEngine.generate`` on the card: exactly
     ``path.per_step`` ``ring_decode_attention`` launches per decode step
     and no other kernel; logits teacher-forced on its tokens within the
@@ -1807,7 +1807,8 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
     other experts); the golden's tokens and top-64 logits at batch 1
     (an MoE golden's misses likewise only where the port's routing went
     apart from the reference's, ``cases.hold_lm_golden``; no golden
-    where ``golden`` is None)."""
+    where ``golden`` is None).  With ``rules`` (a mesh's) every call of
+    both paths runs on the mesh."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.cases import (hold_lm_golden, logits_close,
                                            near_tie, route_codes,
@@ -1821,7 +1822,8 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
     prompts, padded = lm_prompts_of_path(cfg, path.prompt_lens)
     B = len(prompts)
     memory = lm_memory_of_path(cfg, B)
-    engine = ServingEngine(model, params, cache_len=path.cache_len)
+    engine = ServingEngine(model, params, rules=rules,
+                           cache_len=path.cache_len)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1845,7 +1847,7 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
     apart = np.full(B, path.max_new + 1)
     rk, rp = [], []
     lk, ck, cur_k = model.prefill(params, padded, cache_len=path.cache_len,
-                                  memory=memory, routes=rk)
+                                  memory=memory, routes=rk, rules=rules)
     if cfg.n_experts:
         drops = [int((~r.keep).sum()) for r in rk]
         T = padded.numel()
@@ -1853,7 +1855,7 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
             f"slots an expert; choices dropped of {T * cfg.top_k} by layer "
             f"{drops} ({sum(drops)} in all)")
     lp, cp, cur_p = plain.prefill(params, padded, cache_len=path.cache_len,
-                                  memory=memory, routes=rp)
+                                  memory=memory, routes=rp, rules=rules)
     for t in range(path.max_new + 1):
         if cfg.n_experts:
             rows = routed_apart(route_codes(rk), route_codes(rp)).any(1)
@@ -1883,8 +1885,10 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
             raise SystemExit(f"{name}: generate's tokens {t} {tok} are "
                              "not the argmax of the same path's logits")
         tok = torch.tensor(tok, device=DEVICE_TYPE)
-        lk, ck, cur_k = model.decode_step(params, ck, tok, cur_k, routes=rk)
-        lp, cp, cur_p = plain.decode_step(params, cp, tok, cur_p, routes=rp)
+        lk, ck, cur_k = model.decode_step(params, ck, tok, cur_k, routes=rk,
+                                          rules=rules)
+        lp, cp, cur_p = plain.decode_step(params, cp, tok, cur_p, routes=rp,
+                                          rules=rules)
     gone = {b: int(apart[b]) for b in range(B) if apart[b] <= path.max_new}
     say(f"  {name}: {B} prompts of {list(path.prompt_lens)} tokens, "
         f"{path.max_new} new: the prefill and every decode step's logits "
@@ -1897,7 +1901,7 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
     if golden is None:
         torch.cuda.synchronize()
         return counts
-    held = hold_lm_golden(model, params, golden)
+    held = hold_lm_golden(model, params, golden, rules)
     if not held["ok"]:
         raise SystemExit(f"{name}: the port differs from the full-width "
                          f"golden: {held}")
@@ -1905,7 +1909,7 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0]
     for i, n in enumerate(golden["prompt_lens"]):
         if any(p == i for p, _ in held["routed_apart"]):
             continue
-        row = ServingEngine(model, params,
+        row = ServingEngine(model, params, rules=rules,
                             cache_len=int(golden["cache_len"])).generate(
             [[int(t) for t in golden["prompts"][i, :n]]],
             max_new=golden["tokens"].shape[1], memory=mem1)[0]
@@ -2029,14 +2033,15 @@ def decode_weight_bytes(cfg, params) -> tuple[int, int]:
     return (nbytes + w.numel() * w.element_size(), params_n + w.numel())
 
 
-def time_lm(cfg, params, path: LMPath = LM_PATHS[0]) -> dict:
+def time_lm(cfg, params, path: LMPath = LM_PATHS[0], rules=None) -> dict:
     """An LM's prefill latency at batch 4 and per-token decode latency at
     batch 1 and 4 (host clock ending in synchronize), each with the
     device-busy share and ring_decode_attention's profiled time per
     launch (torch.profiler), beside their bounds: a decode step's weight
     bytes (:func:`decode_weight_bytes`) at 3.35 TB/s; a prefill's the
     larger of those bytes and 2 x weights' parameters x tokens products
-    at the bf16 tensor-core rate (attention's products left out)."""
+    at the bf16 tensor-core rate (attention's products left out).  With
+    ``rules`` (a mesh's) the calls run on the mesh."""
     from repro_torch.models import build_model
 
     name = path.name
@@ -2051,7 +2056,7 @@ def time_lm(cfg, params, path: LMPath = LM_PATHS[0]) -> dict:
 
     def prefill():
         model.prefill(params, padded, cache_len=path.cache_len,
-                      memory=memory)
+                      memory=memory, rules=rules)
     prefill_ms = _host_ms(prefill, 3)
     busy, call_us, _, _ = _device_busy(prefill, 1)
     out = {"prefill_ms_batch4": prefill_ms, "prefill_busy_batch4": busy,
@@ -2067,11 +2072,11 @@ def time_lm(cfg, params, path: LMPath = LM_PATHS[0]) -> dict:
         mem = None if memory is None else memory[-B:]
         logits, caches, cur = model.prefill(params, toks,
                                             cache_len=path.cache_len,
-                                            memory=mem)
+                                            memory=mem, rules=rules)
         tok = logits.argmax(-1)
 
         def step():   # the same step again: the same work every call
-            model.decode_step(params, caches, tok, cur)
+            model.decode_step(params, caches, tok, cur, rules=rules)
         ms = _host_ms(step, 20)
         busy, call_us, prof, _ = _device_busy(step, 3)
         out[f"decode_ms_batch{B}"] = ms
@@ -2220,17 +2225,17 @@ def _train_state_on_card(tree):
         for a in leaves(tree)]))
 
 
-def time_train(cfg, state, step_fn) -> dict:
+def time_train(cfg, state, step_fn, shapes=TRAIN_TIMED_SHAPES) -> dict:
     """The full-width step's median host-clock time over
     ``TRAIN_TIMED_STEPS`` steps after a warm-up (each ending in
     synchronize), its device-busy share (torch.profiler over 2 steps),
     the peak memory allocated and tokens/s, beside its bound, at each of
-    ``TRAIN_TIMED_SHAPES``."""
+    ``shapes``."""
     from repro_torch.train import synthetic_batch
 
     n_params = sum(t.numel() for t in _leaves(state.params))
     out = {}
-    for B, S in TRAIN_TIMED_SHAPES:
+    for B, S in shapes:
         batch = synthetic_batch(cfg, B, S, 0, device=DEVICE_TYPE)
         torch.cuda.reset_peak_memory_stats()
 
@@ -2383,6 +2388,164 @@ def phase_train(cfg, tree, golden) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return counts, timing
+
+
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: the mesh path, on a one-card NCCL mesh and on gloo
+# ranks on the host CPU.
+# ---------------------------------------------------------------------------
+
+#: The mesh phase's serve path: phase 3's gemma3-1b prompts, fewer new
+#: tokens (its teacher-forced check runs both paths on the mesh).
+MESH_LM_MAX_NEW = 8
+#: The mesh phase times its train step at the golden's shape only.
+MESH_TRAIN_SHAPES = TRAIN_TIMED_SHAPES[:1]
+
+
+def _state_shardings(rules, state):
+    """The shardings of a train state's leaves by ``rules`` (the step
+    unplaced)."""
+    return state._replace(step=None,
+                          params=rules.params_shardings(state.params),
+                          mu=rules.params_shardings(state.mu),
+                          nu=rules.params_shardings(state.nu))
+
+
+def phase_mesh(cfg, tree, lm_golden, train_golden, unsharded) -> tuple:
+    """Phase 10: gemma3-1b at full width and depth on a one-card NCCL
+    mesh (``make_host_mesh(1, 1)``, ``make_rules`` of the decode and the
+    train cell): served from DTensor params (``params_shardings``) with
+    phase 3's checks and 26 ``ring_decode_attention`` launches a decode
+    step, then timed beside phase 4's unsharded step; trained on DTensor
+    state against the reference's train golden; its state saved and
+    restored with ``shardings=`` (bitwise the live state); its step
+    timed and its peak memory beside phase 9's.  Returns the serve's
+    launch counts and the timings."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import DECODE_32K, TRAIN_4K
+    from repro_torch.kernels.cases import TRAIN_RTOL, hold_train_golden
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import make_rules
+    from repro_torch.models import build_model, params_from_reference
+    from repro_torch.parallel import place_tree
+    from repro_torch.parallel.sharding import is_dtensor
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import eval_state_shapes
+    from repro_torch.train.tree import leaves
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, 1)
+    backend = dist.get_backend()
+    say(f"phase 10: {cfg.name} at full width on a one-card mesh "
+        f"({backend}, {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+        f"{mesh.device_type})")
+    if backend != "nccl" or mesh.device_type != DEVICE_TYPE:
+        raise SystemExit(f"phase 10: the mesh is {backend} on "
+                         f"{mesh.device_type}, not nccl on {DEVICE_TYPE}")
+    try:
+        decode_rules = make_rules(cfg, mesh, DECODE_32K)
+        train_rules = make_rules(cfg, mesh, TRAIN_4K)
+        params = params_from_reference(cfg, tree, DEVICE_TYPE)
+        params = place_tree(params, decode_rules.params_shardings(params))
+        n_dt = sum(is_dtensor(t) for t in _leaves(params))
+        say(f"  serve params: {n_dt} of {len(list(_leaves(params)))} "
+            f"leaves DTensors placed by params_shardings")
+        path = dataclasses.replace(LM_PATHS[0], max_new=MESH_LM_MAX_NEW)
+        counts = path_lm(cfg, params, lm_golden, path, rules=decode_rules)
+        timing = {"serve": time_lm(cfg, params, rules=decode_rules)}
+        for B in (1, len(path.prompt_lens)):
+            ms = timing["serve"][f"decode_ms_batch{B}"]
+            was = unsharded[f"decode_ms_batch{B}"]
+            say(f"  decode at batch {B}: {ms:.3f} ms a step, {B / ms * 1e3:.1f}"
+                f" tokens/s on the mesh; unsharded (phase 4) {was:.3f} ms, "
+                f"{B / was * 1e3:.1f} tokens/s; {nvidia_smi_line()}")
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        held = hold_train_golden(cfg, tree, train_golden, DEVICE_TYPE,
+                                 rules=train_rules)
+        torch.cuda.synchronize()
+        if not held["ok"]:
+            raise SystemExit(f"phase 10: {cfg.name} on the mesh misses the "
+                             f"reference's train golden: {held['errs']} "
+                             f"(data {held['same_data']})")
+        state = held["state"]
+        say(f"  the reference's train golden held on DTensor state: worst "
+            f"relative errors {held['errs']} (limit {TRAIN_RTOL}); loss / "
+            f"grad_norm by step "
+            + "; ".join(f"{m['loss']:.5f} / {m['grad_norm']:.5f}"
+                        for m in held["metrics"]))
+        model = build_model(cfg)
+        like = eval_state_shapes(model)
+        t1 = time.perf_counter()
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            mgr = CheckpointManager(d)
+            mgr.save(int(state.step), state)
+            save_s = time.perf_counter() - t1
+            restored = mgr.restore(like, device=DEVICE_TYPE,
+                                   shardings=_state_shardings(train_rules,
+                                                              like))
+            load_s = time.perf_counter() - t1 - save_s
+        for got, want in zip(leaves(restored), leaves(state)):
+            if is_dtensor(want):
+                same = is_dtensor(got) and got.placements == \
+                    want.placements and torch.equal(got.to_local(),
+                                                    want.to_local())
+            else:
+                same = torch.equal(got, want)
+            if not same:
+                raise SystemExit("phase 10: the restored sharded state "
+                                 "differs from the live one")
+        say(f"  sharded checkpoint of step {int(state.step)}: written in "
+            f"{save_s:.1f} s, restored with shardings= in {load_s:.1f} s, "
+            f"bitwise the live DTensor state")
+        del restored
+        step_fn = make_train_step(model, train_rules, opt=held["opt"])
+        timing["train"] = time_train(cfg, state, step_fn, MESH_TRAIN_SHAPES)
+        peak = timing["train"]["2x128"]["max_memory_allocated"]
+        say(f"  max_memory_allocated at 2 x 128 on the mesh {peak / 2**30:.2f}"
+            f" GiB (phase 9, unsharded: 19.51 GiB in chip run 6 of PR 35); "
+            f"phase 10 took {time.perf_counter() - t0:.1f} s")
+        del state, held
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return counts, timing
+
+
+def phase_gloo() -> dict:
+    """Phase 11: ``tools/mesh_check.py`` on the card machine's host CPU:
+    4 gloo ranks hold the mesh path against one process."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import mesh_check
+
+    say(f"phase 11: the mesh path on {mesh_check.RANKS} gloo ranks on the "
+        f"host CPU (no card), against one process")
+    t0 = time.perf_counter()
+    record = mesh_check.run()
+    record["wall_s"] = time.perf_counter() - t0
+    train = record["training"]
+    for label, row in train.items():
+        if label == "one_process":
+            continue
+        say(f"  {label}: losses {row['loss']} (one process "
+            f"{train['one_process']['loss']}), relative errors "
+            f"{row['rel_err']}, parameters after step 3 at "
+            f"{row['params_worst_of_tolerance']:.3f} of the tolerance; "
+            f"bf16 loss errors {row.get('bf16_rel_err', 'not run')}")
+    say(f"  collectives {record['collectives']}; checkpoint "
+        f"{record['checkpoint']}; served tokens equal one process's; "
+        f"refusals {sorted(record['refusals'])}; "
+        f"{record['wall_s']:.1f} s on the host CPU")
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -2994,10 +3157,16 @@ def main() -> None:
         train_golden = {k: g[k] for k in g.files}
     train_counts, paths[f"{LM} train"] = phase_train(lm_cfg, lm_tree,
                                                      train_golden)
-    del lm_tree
     decode_row["launches"] += train_counts["ring_decode_attention"]
     decode_row["launches_by_path"][f"{LM} trained"] = \
         train_counts["ring_decode_attention"]
+    mesh_counts, paths[f"{LM} mesh"] = phase_mesh(
+        lm_cfg, lm_tree, lm_golden, train_golden, paths[f"{LM} serve"])
+    del lm_tree
+    decode_row["launches"] += mesh_counts["ring_decode_attention"]
+    decode_row["launches_by_path"][f"{LM} mesh"] = \
+        mesh_counts["ring_decode_attention"]
+    paths["mesh gloo"] = phase_gloo()
 
     say("phase 5: repro_torch.compile on the host, then the card runs the "
         "plans it compiled")

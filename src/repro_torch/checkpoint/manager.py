@@ -6,7 +6,13 @@
   ``MANIFEST.json``).
 * **Logical**: arrays are saved under their tree paths with their full
   shapes; ``restore`` lays them onto whatever tree and device the
-  restarted job builds.
+  restarted job builds, and with ``shardings=`` onto whatever mesh:
+  each rank places only its own piece of each leaf (elastic
+  rescaling).
+* **Distributed**: a tree with DTensor leaves is saved by every rank of
+  its mesh together: each leaf is gathered whole, rank 0 of the default
+  group alone writes, and the files are those one process writes of the
+  same values; the ranks meet at a barrier once they are committed.
 * **Async**: ``save_async`` copies every leaf to the host before it
   returns (a CPU leaf too: the next in-place optimizer step would
   otherwise rewrite the snapshot), then writes on a background thread.
@@ -19,9 +25,7 @@ joined by ``|``: ``step``, ``params|embed``, ``mu|groups|0|attn|w_k``,
 ...), each array in its own dtype.  A bf16 leaf is stored as the
 reference's numpy stores one, its 2-byte payload as the void dtype
 ``|V2`` (``ml_dtypes``' bfloat16 has no numpy type code), and read back
-from those bytes; numpy needs no bf16 support for either.  Elastic
-restore onto a mesh (``shardings=``) waits for the port of
-``parallel/`` (ROADMAP Queue 1 item 9).
+from those bytes; numpy needs no bf16 support for either.
 """
 from __future__ import annotations
 
@@ -35,7 +39,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.sharding import is_dtensor
 from ..train.tree import leaves_with_paths, map_with_path
 
 _SEP = "|"
@@ -48,7 +54,10 @@ def _key(path: tuple) -> str:
 
 def _to_numpy(leaf, copy: bool) -> np.ndarray:
     """A leaf as the numpy array the file holds (``copy``: never sharing
-    the leaf's memory)."""
+    the leaf's memory; a DTensor gathered whole, which every rank of its
+    mesh must do together)."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=copy)
         if t.dtype == torch.bfloat16:
@@ -68,6 +77,18 @@ def _from_numpy(arr: np.ndarray) -> torch.Tensor:
 def _flatten(tree: Any, copy: bool = False) -> dict[str, np.ndarray]:
     return {_key(path): _to_numpy(leaf, copy)
             for path, leaf in leaves_with_paths(tree)}
+
+
+def _distributed(tree: Any) -> bool:
+    """Whether the tree has DTensor leaves: every rank saves it, rank 0
+    writes."""
+    return any(is_dtensor(x) for _, x in leaves_with_paths(tree))
+
+
+def _writes(distributed: bool) -> bool:
+    """Whether this process writes a save: any process its own tree, rank
+    0 alone a distributed one."""
+    return not distributed or dist.get_rank() == 0
 
 
 def _structure(tree) -> str:
@@ -91,6 +112,7 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(self.dir, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self._barrier = False   # a distributed save is pending
 
     # -- paths ---------------------------------------------------------------
     def _step_dir(self, step: int) -> str:
@@ -111,7 +133,16 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------------
     def save(self, step: int, tree: Any, metadata: dict | None = None) -> str:
-        return self._write(step, _flatten(tree), _structure(tree), metadata)
+        """Write ``tree`` as step ``step`` and return its directory; a tree
+        with DTensor leaves is saved by every rank together (rank 0
+        writes; all return once the checkpoint is committed)."""
+        flat, distributed = _flatten(tree), _distributed(tree)
+        final = self._step_dir(step)
+        if _writes(distributed):
+            final = self._write(step, flat, _structure(tree), metadata)
+        if distributed:
+            dist.barrier()
+        return final
 
     def _write(self, step: int, flat: dict, structure: str,
                metadata: dict | None) -> str:
@@ -134,19 +165,26 @@ class CheckpointManager:
 
     def save_async(self, step: int, tree: Any,
                    metadata: dict | None = None) -> None:
-        """Copy every leaf to the host now, write on a thread."""
+        """Copy every leaf to the host now, write on a thread (rank 0's,
+        for a tree with DTensor leaves; every rank's :meth:`wait` meets
+        the others once it is written)."""
         flat = _flatten(tree, copy=True)   # the snapshot, before return
         structure = _structure(tree)
         self.wait()
-        self._thread = threading.Thread(
-            target=self._write, args=(step, flat, structure, metadata),
-            daemon=True)
-        self._thread.start()
+        self._barrier = _distributed(tree)
+        if _writes(self._barrier):
+            self._thread = threading.Thread(
+                target=self._write, args=(step, flat, structure, metadata),
+                daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self) -> None:
         for s in self.steps()[: -self.keep]:
@@ -159,11 +197,14 @@ class CheckpointManager:
         structure of ``like``, each leaf in its ``like`` leaf's dtype on
         ``device``, or else on that leaf's device (a ``meta`` leaf: the
         CPU).  Tensors of ``like`` give its leaves; anything else with a
-        ``dtype`` (a numpy array) is restored as a numpy array."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=) waits for the port of parallel/ "
-                "(ROADMAP Queue 1 item 9)")
+        ``dtype`` (a numpy array) is restored as a numpy array.  A leaf
+        that ``shardings`` (a tree of ``parallel.sharding.Sharding`` in
+        ``like``'s structure, None where a leaf is not placed; e.g.
+        ``rules.params_shardings``) places is placed shard by shard onto
+        its mesh, whatever mesh wrote it: a DTensor of which this rank
+        holds only its own piece."""
+        placed = {} if shardings is None else dict(
+            leaves_with_paths(shardings))
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -176,6 +217,9 @@ class CheckpointManager:
 
         def place(path, leaf):
             arr = data[_key(path)]
+            if path in placed:
+                return placed[path].place(
+                    _from_numpy(arr).to(dtype=leaf.dtype))
             if not isinstance(leaf, torch.Tensor):
                 return arr.astype(leaf.dtype) if hasattr(leaf, "dtype") \
                     else arr

@@ -1284,7 +1284,7 @@ def routed_apart(a, b) -> np.ndarray:
     return (np.asarray(a) != np.asarray(b)).any(axis=(0, 3))
 
 
-def hold_lm_golden(model, params, golden) -> dict:
+def hold_lm_golden(model, params, golden, rules=None) -> dict:
     """Hold the port's model against an LM golden: for each prompt at
     batch 1 (with the config's :func:`lm_memory` of the golden's seed
     where it has cross blocks), teacher-forced on the golden's tokens,
@@ -1301,7 +1301,9 @@ def hold_lm_golden(model, params, golden) -> dict:
     "misses"}``: the port's greedy token at every step, the steps where a
     near tie flipped, the ``(prompt, step)`` of each let-pass miss, the
     step being the first whose routing went apart, and the ``(prompt,
-    step, max |difference|)`` of each step that failed."""
+    step, max |difference|)`` of each step that failed.  ``rules`` (a
+    mesh's, whose batch is not split: the golden runs at batch 1) are
+    the model's."""
     import torch
 
     device = params["embed"].device
@@ -1317,14 +1319,14 @@ def hold_lm_golden(model, params, golden) -> dict:
                                  device=device).to(torch.int64)
         logits, caches, cur = model.prefill(
             params, prompt, cache_len=int(golden["cache_len"]),
-            memory=memory, routes=routes)
+            memory=memory, routes=routes, rules=rules)
         row, apart_at = [], None
         for t in range(steps):
             if t:
                 tok = torch.as_tensor(golden["tokens"][i, t - 1:t],
                                       device=device).to(torch.int64)
                 logits, caches, cur = model.decode_step(
-                    params, caches, tok, cur, routes=routes)
+                    params, caches, tok, cur, routes=routes, rules=rules)
             if routes is not None:
                 at = slice(0, n) if t == 0 else slice(n + t - 1, n + t)
                 want_routes = golden["routes"][i][:, None, at]
@@ -1391,7 +1393,7 @@ def update_records(d2, dots, mu2) -> dict:
             "leaf_mu_norms": np.sqrt(mu2)}
 
 
-def hold_train_golden(cfg, tree, golden, device) -> dict:
+def hold_train_golden(cfg, tree, golden, device, rules=None) -> dict:
     """Train ``cfg`` from ``tree`` (a reference-layout params tree,
     numpy or torch; copied to fp32 on ``device``) as a train golden's
     recipe says, and hold it against the golden: the batches
@@ -1404,13 +1406,23 @@ def hold_train_golden(cfg, tree, golden, device) -> dict:
     relative error of each quantity), "same_data", "state" (after the
     last step), "opt"}``.
     Each step keeps a copy of the params it starts from, for the
-    update."""
+    update.  With ``rules`` (a mesh's) the state is DTensors placed by
+    ``rules.params_shardings``, each batch comes by ``sharded_batch``
+    and the steps are the mesh's (``make_train_step(model, rules)``); the
+    records are taken of the gathered tensors."""
     import torch
 
     from ..models import build_model
+    from ..parallel.sharding import is_dtensor, no_sharding, place_tree
     from ..train import (AdamWConfig, init_state, make_train_step,
-                         synthetic_batch)
+                         sharded_batch)
+    from ..train.train_step import rank_loss_and_grads
     from ..train.tree import leaves, leaves_with_paths, unflatten_like
+
+    rules = rules or no_sharding()
+
+    def whole(t):
+        return t.full_tensor() if is_dtensor(t) else t
 
     model = build_model(cfg)
     keys = ["|".join(p) for p, _ in leaves_with_paths(tree)]
@@ -1420,32 +1432,34 @@ def hold_train_golden(cfg, tree, golden, device) -> dict:
             a, torch.Tensor) else a).to(device=device, dtype=torch.float32,
                                         copy=True)
         for a in leaves(tree)])
+    params = place_tree(params, rules.params_shardings(params))
     B, S = int(golden["batch"]), int(golden["seq"])
-    batches = [synthetic_batch(cfg, B, S, i, device=device)
+    rows = {"tokens": rules.sharding("batch", None),
+            "labels": rules.sharding("batch", None)}
+    batches = [sharded_batch(cfg, B, S, i, rows, device=device)
                for i in range(len(golden["loss"]))]
     same_data = all(
-        np.array_equal(b["tokens"].cpu().numpy(), golden["tokens"][i])
-        and np.array_equal(b["labels"].cpu().numpy(), golden["labels"][i])
+        np.array_equal(whole(b["tokens"]).cpu().numpy(), golden["tokens"][i])
+        and np.array_equal(whole(b["labels"]).cpu().numpy(),
+                           golden["labels"][i])
         for i, b in enumerate(batches))
-    live = [p.detach().requires_grad_(True) for p in leaves(params)]
-    loss, _ = model.loss(unflatten_like(params, live), batches[0])
-    grads = torch.autograd.grad(loss, live)
-    leaf_norms = torch.stack([torch.linalg.vector_norm(g.float())
-                              for g in grads]).cpu().numpy()
-    del live, grads, loss
+    _, grads = rank_loss_and_grads(model, params, batches[0], rules)
+    leaf_norms = torch.stack([torch.linalg.vector_norm(whole(g).float())
+                              for g in leaves(grads)]).cpu().numpy()
+    del grads
     opt = AdamWConfig(**{f.name: golden["opt_" + f.name].item()
                          for f in dataclasses.fields(AdamWConfig)})
-    step = make_train_step(model, opt=opt)
+    step = make_train_step(model, rules, opt=opt)
     state = init_state(params)
     metrics, updates = [], []
     for b in batches:
-        old = [p.detach().clone() for p in leaves(state.params)]
+        old = [whole(p.detach()).clone() for p in leaves(state.params)]
         state, m = step(state, b)
         metrics.append({k: float(v) for k, v in m.items()})
         sums = [[], [], []]
         for p0, p, mu in zip(old, leaves(state.params), leaves(state.mu)):
-            d = (p.detach() - p0).reshape(-1)
-            mu = mu.reshape(-1)
+            d = (whole(p.detach()) - p0).reshape(-1)
+            mu = whole(mu).reshape(-1)
             for acc, (x, y) in zip(sums, ((d, d), (d, mu), (mu, mu))):
                 acc.append(torch.sum(x * y, dtype=torch.float64))
         del old

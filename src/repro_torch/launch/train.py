@@ -1,5 +1,6 @@
 """The training driver with fault tolerance (the port of
-``repro.launch.train``), on one device:
+``repro.launch.train``), on one device or, through ``train_loop(...,
+rules=)``, on a mesh:
 
     python -m repro_torch.launch.train --arch gemma3-1b [--reduced]
         [--steps 200] [--batch 8] [--seq 128] [--ckpt-dir DIR]
@@ -9,7 +10,8 @@ The device is the card unless ``--device cpu`` (without a card the
 command exits nonzero).  What it keeps of the reference's loop:
 
 * checkpoint/restart: the atomic ``CheckpointManager``; a run resumes
-  from the latest step under ``ckpt_dir``;
+  from the latest step under ``ckpt_dir``, placed onto the mesh where
+  there is one (elastic restore);
 * deterministic data: batches are a pure function of the step, so a
   restart replays exactly;
 * preemption: SIGTERM sets a flag, and the loop checkpoints and stops
@@ -32,7 +34,8 @@ import torch
 from ..checkpoint.manager import CheckpointManager
 from ..configs import get_config
 from ..models.registry import build_model
-from ..train.data import synthetic_batch
+from ..parallel.sharding import AxisRules, no_sharding, place_tree
+from ..train.data import sharded_batch, synthetic_batch
 from ..train.optimizer import AdamWConfig, init_state
 from ..train.train_step import (eval_state_shapes, init_train_state,
                                 make_train_step)
@@ -57,20 +60,34 @@ def _params_on(params, device):
 
 
 def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
-               ckpt_every: int = 50, microbatches: int = 1,
-               log_every: int = 10, straggler_factor: float = 3.0,
-               device="cuda", params=None) -> dict:
+               ckpt_every: int = 50, rules: AxisRules | None = None,
+               microbatches: int = 1, log_every: int = 10,
+               straggler_factor: float = 3.0, device="cuda",
+               params=None) -> dict:
     """Train ``cfg`` for ``steps`` steps (resuming from the latest
     checkpoint under ``ckpt_dir``) -> {"final_loss", "first_loss",
     "stragglers", "median_step_s"}.  A fresh run starts from ``params``
     (a reference-layout tree, numpy or torch, e.g. the reference's own
     ``Model.init`` or ``cases.lm_params``) or, where it is None, from
-    ``Model.init`` of a ``torch.Generator`` seeded 0."""
+    ``Model.init`` of a ``torch.Generator`` seeded 0.  On a mesh
+    (``rules`` with one; every rank of it runs the loop) the state is
+    placed by ``rules.params_shardings``, each batch comes by
+    ``sharded_batch`` and a restart restores onto the mesh."""
+    rules = rules or no_sharding()
     model = build_model(cfg)
     opt = AdamWConfig(peak_lr=3e-4, warmup_steps=max(10, steps // 20),
                       total_steps=steps)
-    step_fn = make_train_step(model, opt=opt, microbatches=microbatches)
+    step_fn = make_train_step(model, rules, opt=opt,
+                              microbatches=microbatches)
     mgr = CheckpointManager(ckpt_dir)
+    like = eval_state_shapes(model)
+    shardings = like._replace(
+        step=None, params=rules.params_shardings(like.params),
+        mu=rules.params_shardings(like.mu),
+        nu=rules.params_shardings(like.nu))
+    rows = {"tokens": rules.sharding("batch", None),
+            "labels": rules.sharding("batch", None),
+            "memory": rules.sharding("batch", None, None)}
 
     start = mgr.latest_step()
     if start is None:
@@ -79,9 +96,10 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
             state = init_train_state(model, gen)
         else:
             state = init_state(_params_on(params, device))
+        state = place_tree(state, shardings)
         start = 0
     else:
-        state = mgr.restore(eval_state_shapes(model), device=device)
+        state = mgr.restore(like, device=device, shardings=shardings)
         print(f"[restore] resumed from step {start}")
 
     previous = signal.signal(signal.SIGTERM, _on_sigterm)
@@ -89,7 +107,9 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
     step = start
     try:
         for step in range(start, steps):
-            b = synthetic_batch(cfg, batch, seq, step, device=device)
+            b = synthetic_batch(cfg, batch, seq, step, device=device) \
+                if rules.mesh is None else \
+                sharded_batch(cfg, batch, seq, step, rows)
             t0 = time.time()
             state, metrics = step_fn(state, b)
             loss = float(metrics["loss"])

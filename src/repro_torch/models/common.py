@@ -5,8 +5,10 @@ and their initialisers, as plain functions on tensors (the port of
 The reference's order of operations and dtypes are kept: norms and RoPE
 compute in fp32 and cast back, attention scores and softmax are fp32,
 activations stay in the residual stream's dtype (bf16 on the serve
-path) and every matmul weight is cast to it.  There is no sharding: the
-reference's ``rules.act`` constraints are single-device no-ops here.
+path) and every matmul weight is cast to it.  Each ``rules.act`` of the
+reference is kept (``parallel.sharding.AxisRules``): it acts only on a
+DTensor, and the mesh path hands these functions plain tensors, the
+rank's own rows.
 
 The initialisers (``init_norm``, ``init_attn``, ``init_mlp``) draw from
 an explicit ``torch.Generator`` on its device (or on ``device``, which
@@ -20,6 +22,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ..parallel.sharding import NO_SHARDING, AxisRules
 
 F32 = torch.float32
 NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
@@ -224,7 +228,7 @@ class KVCache(NamedTuple):
 
 
 def project_qkv(p: dict, x, cfg, positions, *, rope_q: bool = True,
-                rope_k: bool = True):
+                rope_k: bool = True, rules: AxisRules = NO_SHARDING):
     B, S, _ = x.shape
     q = matmul(x, p["w_q"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = matmul(x, p["w_k"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
@@ -233,6 +237,9 @@ def project_qkv(p: dict, x, cfg, positions, *, rope_q: bool = True,
         q = rope(q, positions, cfg.rope_theta)
     if rope_k:
         k = rope(k, positions, cfg.rope_theta)
+    q = rules.act(q, "batch", "seq", "heads", None)
+    k = rules.act(k, "batch", None, "kv_heads", None)
+    v = rules.act(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -290,16 +297,17 @@ def init_mlp(gen: torch.Generator, cfg, d_ff: int | None = None,
     return p
 
 
-def mlp_forward(p: dict, x, cfg):
+def mlp_forward(p: dict, x, cfg, rules: AxisRules = NO_SHARDING):
     h = apply_norm(p["ln"], x, cfg)
     up = matmul(h, p["w_up"])
+    up = rules.act(up, "batch", "seq", "ff")
     if cfg.mlp == "geglu":
         up = _gelu(matmul(h, p["w_gate"])) * up
     elif cfg.mlp == "swiglu":
         up = _silu(matmul(h, p["w_gate"])) * up
     else:
         up = _gelu(up)
-    out = matmul(up, p["w_down"])
+    out = rules.act(matmul(up, p["w_down"]), "batch", "res_seq", None)
     if cfg.post_norms:
         out = apply_norm(p["post_ln"], out, cfg)
     return out

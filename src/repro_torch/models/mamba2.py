@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import NO_SHARDING, AxisRules
 from .common import F32, _silu, apply_norm, init_norm, normal, rmsnorm
 
 
@@ -148,7 +149,7 @@ def _project(p: dict, h, cfg):
 
 
 def ssm_forward(p: dict, x, cfg, cache: SSMCache | None = None, *,
-                return_cache: bool = False):
+                return_cache: bool = False, rules: AxisRules = NO_SHARDING):
     """Full-sequence forward (prefill): x ``[B, S, d]`` -> (output,
     pre-residual; the cache or None)."""
     B, S, d = x.shape
@@ -159,7 +160,7 @@ def ssm_forward(p: dict, x, cfg, cache: SSMCache | None = None, *,
     z, conv_in, dt = _project(p, h, cfg)
     conv_out, conv_state = _causal_conv(conv_in, p["ssm_conv"])
     xs, Bp, Cp = torch.split(conv_out, [di, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, S, H, P)
+    xs = rules.act(xs.reshape(B, S, H, P), "batch", "seq", "heads", None)
     Bp = Bp.reshape(B, S, G, N).to(F32)
     Cp = Cp.reshape(B, S, G, N).to(F32)
 
@@ -174,7 +175,7 @@ def ssm_forward(p: dict, x, cfg, cache: SSMCache | None = None, *,
     y = _ssd_chunked(xp.to(F32), dtp, p["ssm_a_log"], Bq, Cq, chunk)[:, :S]
     y = y + xs.to(F32) * p["ssm_d"][:, None]
     y = _gated_norm(y.reshape(B, S, di).to(dt_), z, p["ssm_norm"])
-    out = _matmul(y, p["ssm_out"])
+    out = rules.act(_matmul(y, p["ssm_out"]), "batch", "res_seq", None)
     if not return_cache:
         return out, None
     # the final state for the decode hand-off, from a cumsum over S

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.sharding import NO_SHARDING, AxisRules
 from .common import F32, _gelu, _silu, apply_norm, init_norm, matmul, normal
 
 
@@ -106,7 +107,7 @@ def dispatch(flat_e, E: int, cap: int, mode: str):
     return rank, rank < cap
 
 
-def moe_forward(p: dict, x, cfg):
+def moe_forward(p: dict, x, cfg, rules: AxisRules = NO_SHARDING):
     """x ``[B, S, d]`` -> (out ``[B, S, d]``, aux loss (a 0-d fp32
     tensor), :class:`Routing`)."""
     B, S, d = x.shape
@@ -130,12 +131,16 @@ def moe_forward(p: dict, x, cfg):
     xk = torch.where(keep[:, None], xk, torch.zeros((), dtype=dt,
                                                     device=x.device))
     # a kept choice owns its slot; a dropped one adds zeros
-    xe = torch.zeros((E * cap, d), dtype=dt, device=x.device) \
-        .index_add_(0, slot, xk).reshape(E, cap, d)
+    buf = torch.zeros((E, cap, d), dtype=dt, device=x.device)
+    if cfg.moe_dispatch == "scan":   # expert-major before the scatter
+        buf = rules.act(buf, "heads", None, None)
+    xe = buf.reshape(E * cap, d).index_add_(0, slot, xk).reshape(E, cap, d)
+    xe = rules.act(xe, "heads", None, None)   # experts on the model axis
 
     g = matmul(xe, p["moe_gate"])
     u = matmul(xe, p["moe_up"])
-    y = matmul(_act(cfg, g, u), p["moe_down"])
+    y = rules.act(matmul(_act(cfg, g, u), p["moe_down"]), "heads", None,
+                  None)
 
     out = y.reshape(E * cap, d)[slot] * keep[:, None].to(dt)
     out = (out.reshape(T, k, d) * gate[..., None].to(dt)).sum(dim=1)
@@ -144,5 +149,6 @@ def moe_forward(p: dict, x, cfg):
         sg = matmul(ht, p["shared_gate"])
         su = matmul(ht, p["shared_up"])
         out = out + matmul(_act(cfg, sg, su), p["shared_down"])
-    return out.reshape(B, S, d), aux, Routing(eidx.reshape(B, S, k),
+    out = rules.act(out.reshape(B, S, d), "batch", "res_seq", None)
+    return out, aux, Routing(eidx.reshape(B, S, k),
                                               keep.reshape(B, S, k))

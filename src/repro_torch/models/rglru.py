@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.sharding import NO_SHARDING, AxisRules
 from .common import F32, _gelu, apply_norm, init_norm, matmul, normal, \
     uniform
 
@@ -84,7 +85,7 @@ def _conv(full, w, S: int):
 
 
 def rec_forward(p: dict, x, cfg, cache: LRUCache | None = None, *,
-                return_cache: bool = False):
+                return_cache: bool = False, rules: AxisRules = NO_SHARDING):
     """x ``[B, S, d]`` -> (mixed output, pre-residual; the cache or
     None)."""
     B, S, d = x.shape
@@ -96,10 +97,11 @@ def rec_forward(p: dict, x, cfg, cache: LRUCache | None = None, *,
     pad = torch.zeros_like(xs[:, :K - 1]) if cache is None \
         else cache.conv.to(dt)
     full = torch.cat([pad, xs], dim=1)
-    xs = _conv(full, p["lru_conv"], S)
+    xs = rules.act(_conv(full, p["lru_conv"], S), "batch", "seq", "tp")
     a, bx = _gates(p, xs.to(F32))
     hseq = _assoc_scan(a, bx, None if cache is None else cache.h)
-    out = matmul(hseq.to(dt) * y_gate, p["lru_out"])
+    out = rules.act(matmul(hseq.to(dt) * y_gate, p["lru_out"]), "batch",
+                    "res_seq", None)
     if not return_cache:
         return out, None
     return out, LRUCache(h=hseq[:, -1].contiguous(),

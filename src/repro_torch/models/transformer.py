@@ -48,6 +48,13 @@ pattern group as the reference's ``jax.checkpoint`` of ``apply_pattern``:
 ``"none"`` keeps every activation, ``"dots"`` keeps the products with no
 batch dims (``aten.mm``) and recomputes the rest, and ``"nothing"`` (the
 configs' default) or any other name recomputes the whole group.
+
+Every entry point takes the reference's ``rules`` (a keyword here):
+each ``rules.act`` of the reference is kept, and on a mesh the params
+may be DTensors: the leaves outside the blocks are gathered whole on
+entry, each block's just before it runs (``AxisRules.gather``), and the
+tokens, memory, caches and every op's operands are plain tensors of the
+rank's own rows (``parallel.sharding`` says why and where that ends).
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ import numpy as np
 import torch
 
 from ..kernels.ring_decode import ring_decode_attention
+from ..parallel.sharding import NO_SHARDING, AxisRules, local_tree
 from .common import (F32, KVCache, _const, _softcap, apply_norm, attention,
                      decode_attention, init_attn, init_mlp, init_norm,
                      matmul, mlp_forward, normal, project_qkv, rope)
@@ -255,15 +263,17 @@ def init_block(gen: torch.Generator, cfg, kind: str, *,
 # --------------------------------------------------------------------------
 
 def _attn_sub(p: dict, x, cfg, kind: str, positions, *,
-              make_cache: bool = False, cache_len: int = 0):
+              make_cache: bool = False, cache_len: int = 0,
+              rules: AxisRules = NO_SHARDING):
     """Self-attention sub-layer, full sequence (reference ``:84-118``)."""
     B, S, _ = x.shape
     h = apply_norm(p["ln"], x, cfg)
-    q, k, v = project_qkv(p, h, cfg, positions)
+    q, k, v = project_qkv(p, h, cfg, positions, rules=rules)
     window = cfg.window if kind == "local" else None
     o = attention(q, k, v, causal=True, window=window,
                   softcap=cfg.attn_softcap, bf16_einsum=cfg.bf16_einsum)
     o = matmul(o.reshape(B, S, cfg.q_dim), p["w_o"])
+    o = rules.act(o, "batch", "res_seq", None)
     if cfg.post_norms:
         o = apply_norm(p["post_ln"], o, cfg)
     cache = None
@@ -271,20 +281,27 @@ def _attn_sub(p: dict, x, cfg, kind: str, positions, *,
         if kind == "local":
             w = cfg.window
             if S >= w:   # the ring roll: slot t % w holds token t
-                cache = KVCache(torch.roll(k[:, S - w:], S % w, dims=1),
-                                torch.roll(v[:, S - w:], S % w, dims=1))
+                ring_k = torch.roll(k[:, S - w:], S % w, dims=1)
+                ring_v = torch.roll(v[:, S - w:], S % w, dims=1)
             else:
                 pad = (0, 0, 0, 0, 0, w - S)
-                cache = KVCache(torch.nn.functional.pad(k, pad),
-                                torch.nn.functional.pad(v, pad))
+                ring_k = torch.nn.functional.pad(k, pad)
+                ring_v = torch.nn.functional.pad(v, pad)
+            cache = KVCache(
+                rules.act(ring_k, "batch", None, "kv_heads", None),
+                rules.act(ring_v, "batch", None, "kv_heads", None))
         else:
             pad = (0, 0, 0, 0, 0, max(cache_len, S) - S)
-            cache = KVCache(torch.nn.functional.pad(k, pad),
-                            torch.nn.functional.pad(v, pad))
+            cache = KVCache(
+                rules.act(torch.nn.functional.pad(k, pad), "batch",
+                          "kv_seq", "kv_heads", None),
+                rules.act(torch.nn.functional.pad(v, pad), "batch",
+                          "kv_seq", "kv_heads", None))
     return o, cache
 
 
-def _xattn_sub(p: dict, x, cfg, memory, *, make_cache: bool = False):
+def _xattn_sub(p: dict, x, cfg, memory, *, make_cache: bool = False,
+               rules: AxisRules = NO_SHARDING):
     """Cross-attention to the encoder/image memory: no causal mask, no
     RoPE (reference ``:121-140``) -> (out, (K, V) of the memory or
     None)."""
@@ -297,53 +314,61 @@ def _xattn_sub(p: dict, x, cfg, memory, *, make_cache: bool = False):
                                           cfg.head_dim)
     mv = matmul(memory, p["w_v"]).reshape(B, -1, cfg.n_kv_heads,
                                           cfg.head_dim)
+    q = rules.act(q, "batch", "seq", "heads", None)
+    mk = rules.act(mk, "batch", None, "kv_heads", None)
+    mv = rules.act(mv, "batch", None, "kv_heads", None)
     o = attention(q, mk, mv, causal=False, window=None, softcap=None,
                   bf16_einsum=cfg.bf16_einsum)
     o = matmul(o.reshape(B, S, cfg.q_dim), p["w_o"])
+    o = rules.act(o, "batch", "res_seq", None)
     return o, ((mk, mv) if make_cache else None)
 
 
-def _ffn_sub(p: dict, x, cfg, routes=None):
+def _ffn_sub(p: dict, x, cfg, routes=None, rules: AxisRules = NO_SHARDING):
     """The FFN sub-layer -> (out, aux): none, MoE (a ``router`` in its
     params; its ``moe.Routing`` appended to ``routes`` where that is a
     list) or dense (the ``lead`` layers of an MoE config too)."""
     if "ffn" not in p:
         return torch.zeros_like(x), 0.0
     if cfg.n_experts and "router" in p["ffn"]:
-        out, aux, routing = moe_forward(p["ffn"], x, cfg)
+        out, aux, routing = moe_forward(p["ffn"], x, cfg, rules)
         if routes is not None:
             routes.append(routing)
         return out, aux
-    return mlp_forward(p["ffn"], x, cfg), 0.0
+    return mlp_forward(p["ffn"], x, cfg, rules), 0.0
 
 
 def block_forward(p: dict, x, cfg, kind: str, positions, *, memory=None,
                   make_cache: bool = False, cache_len: int = 0,
-                  routes=None):
+                  routes=None, rules: AxisRules = NO_SHARDING):
     """Residual block, full sequence -> (x, cache, aux)."""
     cache = None
     if kind in SELF_KINDS:
         o, cache = _attn_sub(p["attn"], x, cfg, kind, positions,
-                             make_cache=make_cache, cache_len=cache_len)
+                             make_cache=make_cache, cache_len=cache_len,
+                             rules=rules)
         x = x + o
     elif kind == "cross":
         o, sc = _attn_sub(p["attn"], x, cfg, "full", positions,
-                          make_cache=make_cache, cache_len=cache_len)
+                          make_cache=make_cache, cache_len=cache_len,
+                          rules=rules)
         x = x + o
         xo, mkv = _xattn_sub(p["xattn"], x, cfg, memory,
-                             make_cache=make_cache)
+                             make_cache=make_cache, rules=rules)
         x = x + xo
         if make_cache:
             cache = CrossCache(sc, mkv[0].contiguous(), mkv[1].contiguous())
     elif kind == "rec":
-        o, cache = rec_forward(p["rec"], x, cfg, return_cache=make_cache)
+        o, cache = rec_forward(p["rec"], x, cfg, return_cache=make_cache,
+                               rules=rules)
         x = x + o
     elif kind == "ssm":
-        o, cache = ssm_forward(p["ssm"], x, cfg, return_cache=make_cache)
+        o, cache = ssm_forward(p["ssm"], x, cfg, return_cache=make_cache,
+                               rules=rules)
         x = x + o
     else:
         raise ValueError(kind)
-    o, aux = _ffn_sub(p, x, cfg, routes)
+    o, aux = _ffn_sub(p, x, cfg, routes, rules)
     return x + o, cache, aux
 
 
@@ -390,7 +415,8 @@ def _self_attn_step(ap: dict, x, cfg, kv: KVCache, cur_len: int, *,
 
 
 def block_step(p: dict, x, cfg, kind: str, cache, cur_len: int, *,
-               plain: bool = False, routes=None):
+               plain: bool = False, routes=None,
+               rules: AxisRules = NO_SHARDING):
     """One-token decode step -> (x, cache); attention caches are written
     in place, recurrent states replaced (reference ``:184-254``)."""
     B = x.shape[0]
@@ -418,7 +444,7 @@ def block_step(p: dict, x, cfg, kind: str, cache, cur_len: int, *,
         x_new = x + o
     else:
         raise ValueError(kind)
-    o, _ = _ffn_sub(p, x_new, cfg, routes)
+    o, _ = _ffn_sub(p, x_new, cfg, routes, rules)
     return x_new + o, cache
 
 
@@ -498,7 +524,24 @@ class Model:
         return tree
 
     # ---- helpers ------------------------------------------------------------
+    def _on_rank(self, params, rules: AxisRules):
+        """On a mesh (after :meth:`AxisRules.check`), ``params`` with the
+        leaves outside the blocks (embeddings, final norms) gathered whole
+        on this rank; each block gathers its own just before it runs."""
+        if rules.mesh is None:
+            return params
+        rules.check(self.cfg)
+        out = {k: v if k in ("layers", "encoder") else rules.gather(v)
+               for k, v in params.items()}
+        if "encoder" in params:
+            out["encoder"] = {
+                "blocks": params["encoder"]["blocks"],
+                "final_ln": rules.gather(params["encoder"]["final_ln"])}
+        return out
+
     def _embed(self, params, tokens):
+        """The embedded tokens; each caller constrains them (``rules.act(x,
+        "batch", "res_seq", None)``, the reference's ``_embed``'s)."""
         x = params["embed"][tokens]
         return (x * _const(math.sqrt(self.cfg.d_model), x)).to(ACT_DTYPE)
 
@@ -512,11 +555,16 @@ class Model:
         logits = x.to(torch.float32) @ w.to(torch.float32).T
         return _softcap(logits, self.cfg.logit_softcap)
 
+    def _logits(self, params, x, rules: AxisRules):
+        """:meth:`_unembed`, constrained as the reference's ``_unembed``
+        constrains its logits."""
+        return rules.act(self._unembed(params, x), "batch", None, "vocab")
+
     def _tokens(self, params, tokens):
         return torch.as_tensor(tokens, device=params["embed"].device) \
             .to(torch.int64)
 
-    def _encode(self, params, frames):
+    def _encode(self, params, frames, rules: AxisRules = NO_SHARDING):
         """The encoder over precomputed frame embeddings (reference
         ``:361-385``): bidirectional attention blocks, then its norm."""
         cfg = self.cfg
@@ -524,15 +572,17 @@ class Model:
         B, S, _ = x.shape
         pos = torch.arange(S, device=x.device)
         for bp in params["encoder"]["blocks"]:
+            bp = rules.gather(bp)
             h = apply_norm(bp["attn"]["ln"], x, cfg)
-            q, k, v = project_qkv(bp["attn"], h, cfg, pos)
+            q, k, v = project_qkv(bp["attn"], h, cfg, pos, rules=rules)
             o = attention(q, k, v, causal=False, window=None, softcap=None,
                           bf16_einsum=cfg.bf16_einsum)
-            x = x + matmul(o.reshape(B, S, cfg.q_dim), bp["attn"]["w_o"])
-            x = x + mlp_forward(bp["ffn"], x, cfg)
+            o = matmul(o.reshape(B, S, cfg.q_dim), bp["attn"]["w_o"])
+            x = x + rules.act(o, "batch", "res_seq", None)
+            x = x + mlp_forward(bp["ffn"], x, cfg, rules)
         return apply_norm(params["encoder"]["final_ln"], x, cfg)
 
-    def _memory(self, params, memory):
+    def _memory(self, params, memory, rules: AxisRules = NO_SHARDING):
         """The memory the cross blocks attend to: the encoder's output of
         ``memory`` (frames) where the config has an encoder, else the
         memory (image tokens) as given."""
@@ -540,31 +590,38 @@ class Model:
             return None
         memory = torch.as_tensor(memory, device=params["embed"].device)
         if self.cfg.encoder_layers:
-            memory = self._encode(params, memory)
+            memory = self._encode(params, memory, rules)
         return memory
 
     # ---- public: full-sequence forward ---------------------------------------
     def forward(self, params, tokens, memory=None, *, routes=None,
-                remat_policy: str = "none"):
+                remat_policy: str = "none", rules: AxisRules | None = None):
         """tokens ``[B, S]`` -> (logits ``[B, S, V]`` fp32, aux: 0.0, or
         the MoE layers' summed aux loss).  ``params`` are laid out as
         :func:`train_params` gives them.  Where ``routes`` is a list,
         each MoE layer appends its ``moe.Routing`` to it, in layer order
         (so do ``prefill`` and ``decode_step``); a remat policy other
         than ``"none"`` would record a recomputed group twice, so it
-        takes no ``routes``."""
+        takes no ``routes``.  On a mesh (``rules``), ``tokens`` and
+        ``memory`` are this rank's rows (or DTensors of them) and the
+        params may be DTensors: each block's are gathered whole just
+        before it runs (inside its remat group, so a recompute gathers
+        them again)."""
         cfg = self.cfg
+        rules = rules or NO_SHARDING
         if routes is not None and remat_policy != "none":
             raise ValueError("routes= needs remat_policy='none'")
-        tokens = self._tokens(params, tokens)
-        memory = self._memory(params, memory)
-        x = self._embed(params, tokens)
+        params = self._on_rank(params, rules)
+        tokens = self._tokens(params, local_tree(tokens))
+        memory = self._memory(params, local_tree(memory), rules)
+        x = rules.act(self._embed(params, tokens), "batch", "res_seq", None)
         positions = torch.arange(tokens.shape[1], device=x.device)
 
         def run(x, aux, layers, kinds):
             for p, kind in zip(layers, kinds):
-                x, _, a = block_forward(p, x, cfg, kind, positions,
-                                        memory=memory, routes=routes)
+                x, _, a = block_forward(rules.gather(p), x, cfg, kind,
+                                        positions, memory=memory,
+                                        routes=routes, rules=rules)
                 aux = aux + a
             return x, aux
 
@@ -579,22 +636,29 @@ class Model:
             x, aux = group(x, aux, layers[gi:gi + P], kinds[gi:gi + P])
         x, aux = run(x, aux, layers[lead + g * P:], kinds[lead + g * P:])
         x = apply_norm(params["final_ln"], x, cfg)
-        return self._unembed(params, x), aux
+        return self._logits(params, x, rules), aux
 
-    def loss(self, params, batch: dict, remat_policy: str | None = None):
+    def loss(self, params, batch: dict, remat_policy: str | None = None, *,
+             rules: AxisRules | None = None):
         """The reference's training loss (``transformer.py:443-461``) ->
         (loss, {"ce", "aux"}), fp32 scalars.  ``params`` is a
         reference-layout tree, the fp32 masters or a bf16 copy; ``batch``
         holds ``tokens`` and ``labels`` ``[B, S]`` and, for cross
         blocks, ``memory``.  The label's log-probability is taken by
         ``gather``, the same value as the reference's masked sum over
-        the vocabulary (every other term of that sum is an exact 0)."""
+        the vocabulary (every other term of that sum is an exact 0:
+        the vocabulary is whole on every rank, as a ``model`` axis of 1
+        leaves it).  On a mesh the batch's arrays are this rank's rows
+        (or DTensors of them) and the loss is their mean: the global
+        loss is the mean of the ranks' (``make_train_step`` takes it)."""
         cfg = self.cfg
+        rules = rules or NO_SHARDING
+        batch = local_tree(batch)
         logits, aux = self.forward(train_params(cfg, params),
                                    batch["tokens"],
                                    batch.get("memory"),
                                    remat_policy=remat_policy
-                                   or cfg.remat_policy)
+                                   or cfg.remat_policy, rules=rules)
         labels = torch.as_tensor(batch["labels"], device=logits.device)
         logp = torch.log_softmax(logits, dim=-1)
         ll = logp.gather(-1, labels.to(torch.int64)[..., None])[..., 0]
@@ -610,40 +674,49 @@ class Model:
                                  device) for kind in layer_kinds(self.cfg)]
 
     def prefill(self, params, tokens, cache_len: int = 0, *, memory=None,
-                routes=None):
+                routes=None, rules: AxisRules | None = None):
         """Full-sequence pass materializing caches; returns (logits of
-        the last position ``[B, V]``, caches, cur_len)."""
+        the last position ``[B, V]``, caches, cur_len).  On a mesh, as
+        :meth:`forward`: the rank's rows, each block's params gathered
+        just before it, and caches of the rank's rows."""
         cfg = self.cfg
-        tokens = self._tokens(params, tokens)
-        memory = self._memory(params, memory)
+        rules = rules or NO_SHARDING
+        params = self._on_rank(params, rules)
+        tokens = self._tokens(params, local_tree(tokens))
+        memory = self._memory(params, local_tree(memory), rules)
         S = tokens.shape[1]
         cache_len = max(cache_len, S)
-        x = self._embed(params, tokens)
+        x = rules.act(self._embed(params, tokens), "batch", "res_seq", None)
         positions = torch.arange(S, device=x.device)
         caches = []
         for p, kind in zip(params["layers"], layer_kinds(cfg)):
-            x, c, _ = block_forward(p, x, cfg, kind, positions,
+            x, c, _ = block_forward(rules.gather(p), x, cfg, kind, positions,
                                     memory=memory, make_cache=True,
-                                    cache_len=cache_len, routes=routes)
+                                    cache_len=cache_len, routes=routes,
+                                    rules=rules)
             caches.append(c)
         x = apply_norm(params["final_ln"], x, cfg)
-        return self._unembed(params, x[:, -1:])[:, 0], caches, S
+        return self._logits(params, x[:, -1:], rules)[:, 0], caches, S
 
     def decode_step(self, params, caches, token, cur_len: int, *,
-                    routes=None):
+                    routes=None, rules: AxisRules | None = None):
         """token ``[B]`` -> (logits ``[B, V]``, caches (attention caches
-        written in place), cur_len + 1)."""
+        written in place), cur_len + 1).  On a mesh, as :meth:`prefill`:
+        the decode attention runs on the rank's rows of plain caches."""
         cfg = self.cfg
-        token = self._tokens(params, token)
-        x = self._embed(params, token[:, None])
+        rules = rules or NO_SHARDING
+        params = self._on_rank(params, rules)
+        token = self._tokens(params, local_tree(token))
+        x = rules.act(self._embed(params, token[:, None]), "batch",
+                      "res_seq", None)
         cur = int(cur_len) + 1  # length including this token
         new = []
         for p, kind, c in zip(params["layers"], layer_kinds(cfg), caches):
-            x, c = block_step(p, x, cfg, kind, c, cur, plain=self.plain,
-                              routes=routes)
+            x, c = block_step(rules.gather(p), x, cfg, kind, c, cur,
+                              plain=self.plain, routes=routes, rules=rules)
             new.append(c)
         x = apply_norm(params["final_ln"], x, cfg)
-        return self._unembed(params, x)[:, 0], new, cur
+        return self._logits(params, x, rules)[:, 0], new, cur
 
 
 __all__ = ["ATTN_KINDS", "BLOCK_KINDS", "CrossCache", "KVCache",

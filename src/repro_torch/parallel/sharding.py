@@ -1,0 +1,400 @@
+"""Logical-axis sharding rules for both mesh modes (the port of
+``repro.parallel.sharding``), over ``torch.distributed`` DTensors.
+
+Two modes, as the reference's:
+
+* ``tp``      — Megatron TP on the ``model`` axis (heads / d_ff / experts /
+                vocab) + ZeRO-3 FSDP on ``data`` + DP batch on (pod, data).
+* ``fsdp_sp`` — params replicated on ``model`` (FSDP on ``data``),
+                activations sequence-sharded on ``model``; vocab still TP.
+
+Models never name physical axes: they call ``rules.act(x, "batch", "seq",
+None)``, and the rules give each parameter path its spec
+(``param_spec``).  A spec is the reference's ``PartitionSpec`` as a tuple,
+one entry a tensor dim: ``None``, a mesh axis name, or a tuple of names
+(one tensor dim over several mesh dims, the first named outermost).
+``placements`` turns a spec into DTensor placements, one per mesh dim.
+Without a mesh every call is a no-op, so the same code runs on one
+device.
+
+The mesh path keeps DTensors at its edges: the train state and a batch
+(placed by these rules), a checkpoint's restore, and each block's weight
+gather (:meth:`AxisRules.gather`), which hands the block plain tensors
+and sends their gradients back as partial sums that autograd
+reduce-scatters into the parameters' own placements.  Every op of the
+model and every hand-written kernel sees plain tensors: the rank's own
+batch rows, and whole weights.  That holds while each activation's
+only sharded dim is the batch, so a ``model`` axis larger than 1
+(tensor, sequence and expert parallelism) raises, as does an MoE
+block under a batch axis larger than 1: its routing couples rows across
+the whole batch (:func:`check_executable`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+import sys
+from typing import Any, ClassVar
+
+import torch
+
+from ..train.tree import leaves_with_paths, map_with_path, tree_map
+
+#: Where the execution that :func:`check_executable` refuses is queued.
+MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 9.6"
+
+
+def _dt():
+    """``torch.distributed.tensor``, imported at first use on a mesh (it
+    takes over a second to import; the path without a mesh never needs
+    it)."""
+    import torch.distributed.tensor as dt
+    return dt
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (none can be before the module is
+    imported, so this imports nothing)."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    return dt is not None and isinstance(x, dt.DTensor)
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a mesh (a ``DeviceMesh``)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def check_executable(cfg, *, model: int, batch: int) -> None:
+    """Raise ``NotImplementedError`` where the mesh path would change the
+    numbers: a ``model`` axis of ``model > 1`` ranks, or an MoE config
+    whose batch is split over ``batch > 1`` ranks (its capacity, each
+    token's slot and the aux loss are functions of the whole batch,
+    reference ``moe.py:59-78``)."""
+    if model > 1:
+        raise NotImplementedError(
+            f"execution over a 'model' axis of {model} ranks (tensor, "
+            f"sequence and expert parallelism) is not ported: "
+            f"{MODEL_AXIS_ITEM}")
+    if batch > 1 and getattr(cfg, "n_experts", 0):
+        raise NotImplementedError(
+            f"{cfg.name}'s MoE blocks route over the whole batch, which is "
+            f"split over {batch} ranks here; global MoE routing is not "
+            f"ported: {MODEL_AXIS_ITEM}")
+
+
+def local_slices(shape, mesh_shape, placements, coord) -> tuple[slice, ...]:
+    """The slices of a tensor of ``shape`` that the rank at mesh
+    coordinate ``coord`` holds under ``placements``: mesh dims in order,
+    each ``Shard(d)`` cutting the rank's current piece of dim ``d`` into
+    ``torch.chunk`` pieces (the first ``ceil(size / n)`` long; a rank
+    past the end holds none), as DTensor cuts it."""
+    start, size = [0] * len(shape), list(shape)
+    for n, p, c in zip(mesh_shape, placements, coord):
+        if isinstance(p, _dt().Shard):
+            d = p.dim
+            chunk = -(-size[d] // n)
+            lo = min(c * chunk, size[d])
+            start[d] += lo
+            size[d] = min(chunk, size[d] - lo)
+    return tuple(slice(s, s + n) for s, n in zip(start, size))
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where a tensor lies on a mesh: the rule's ``spec`` and the DTensor
+    ``placements`` it gives, one per mesh dim (the port's
+    ``NamedSharding``)."""
+
+    mesh: Any
+    spec: tuple
+    placements: tuple
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of the whole tensor ``full`` (a view)."""
+        return full[local_slices(full.shape, self.mesh.shape,
+                                 self.placements,
+                                 self.mesh.get_coordinate())]
+
+    def place(self, full, device=None):
+        """A DTensor of the whole tensor ``full`` (a tensor or numpy
+        array, on any device): this rank keeps only its piece, moved to
+        ``device`` (the mesh's device by default), and nothing is sent."""
+        full = torch.as_tensor(full)
+        if device is None:
+            device = mesh_device(self.mesh)
+        local = self.local(full).to(device).contiguous()
+        return _dt().DTensor.from_local(local, self.mesh, self.placements,
+                                  run_check=False, shape=full.shape,
+                                  stride=_contiguous_stride(full.shape))
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device a mesh's tensors lie on in this process."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _contiguous_stride(shape) -> tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _whole(x) -> torch.Tensor:
+    """A DTensor gathered whole onto this rank as a plain tensor; its
+    gradient arrives as this rank's partial sum and goes back into the
+    DTensor's placements (a reduce-scatter over the dims it is sharded
+    on, an all-reduce over the others)."""
+    dt, n = _dt(), x.device_mesh.ndim
+    return x.redistribute(x.device_mesh, [dt.Replicate()] * n) \
+        .to_local(grad_placements=[dt.Partial()] * n)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    mesh: Any                  # a DeviceMesh, or None
+    mode: str = "tp"           # "tp" | "fsdp_sp"
+    multi_pod: bool = False
+    decode: bool = False       # decode steps: S==1, never shard "seq"
+    long_context: bool = False  # long_500k: batch==1, shard cache seq
+    kv_shardable: bool = True  # n_kv_heads % model_size == 0
+    sp_residual: bool = False  # tp mode: Megatron-SP — shard the residual
+                               # stream (and saved activations) on "model"
+
+    # -- logical -> physical ---------------------------------------------------
+    def _phys(self, logical: str | None):
+        if logical is None:
+            return None
+        if logical == "batch":
+            if self.long_context:
+                return None    # batch == 1
+            return ("pod", "data") if self.multi_pod else "data"
+        if logical == "fsdp":
+            return "data"
+        if logical == "seq":
+            if self.decode:
+                return None    # decode: query length 1
+            return "model" if self.mode == "fsdp_sp" else None
+        if logical == "res_seq":   # residual stream between blocks
+            if self.decode:
+                return None
+            if self.mode == "fsdp_sp" or self.sp_residual:
+                return "model"
+            return None
+        if logical == "kv_seq":      # KV-cache sequence dim
+            if self.long_context:
+                # batch==1: spread the cache over everything available
+                return "data" if self.kv_shardable else ("data", "model")
+            if self.decode and not self.kv_shardable:
+                return "model"  # heads can't shard — shard cache seq instead
+            return None
+        if logical == "kv_heads":
+            return ("model" if self.mode == "tp" and self.kv_shardable
+                    else None)
+        if logical in ("heads", "ff", "experts", "tp"):
+            return "model" if self.mode == "tp" else None
+        if logical == "vocab":
+            return "model"
+        raise ValueError(f"unknown logical axis {logical!r}")
+
+    def spec(self, *logical: str | None) -> tuple:
+        return tuple(self._phys(ax) for ax in logical)
+
+    def placements(self, spec: tuple) -> tuple:
+        """DTensor placements of ``spec`` on the mesh: ``Shard(d)`` on
+        every mesh dim that entry ``d`` names, ``Replicate()`` on the
+        others.  A tuple entry names its mesh dims outermost first, in
+        the mesh's order (the data-major layout of JAX's)."""
+        dt, names = _dt(), tuple(self.mesh.mesh_dim_names)
+        out: list = [dt.Replicate()] * len(names)
+        for d, entry in enumerate(spec):
+            axes = () if entry is None else \
+                (entry,) if isinstance(entry, str) else tuple(entry)
+            for a in axes:
+                if a not in names:
+                    raise ValueError(f"spec {spec} names {a!r}, not an axis "
+                                     f"of the mesh {names}")
+            dims = [names.index(a) for a in axes]
+            if dims != sorted(set(dims)):
+                raise ValueError(f"spec entry {entry!r} must name distinct "
+                                 f"mesh axes in the mesh's order {names}")
+            for m in dims:
+                if not isinstance(out[m], dt.Replicate):
+                    raise ValueError(f"spec {spec} names mesh axis "
+                                     f"{names[m]!r} twice")
+                out[m] = dt.Shard(d)
+        return tuple(out)
+
+    def act(self, x, *logical: str | None):
+        """Constrain an activation: a DTensor is redistributed to the
+        rule's placements; a plain tensor (the rank's own rows, as the
+        mesh path hands every op) and anything without a mesh is
+        returned as it is."""
+        if self.mesh is None or not is_dtensor(x):
+            return x
+        return x.redistribute(self.mesh, self.placements(self.spec(*logical)))
+
+    def sharding(self, *logical: str | None) -> Sharding | None:
+        if self.mesh is None:
+            return None
+        spec = self.spec(*logical)
+        return Sharding(self.mesh, spec, self.placements(spec))
+
+    # -- parameter placement ---------------------------------------------------
+    # Path-pattern rules, first match wins. Trailing dims are matched right-
+    # aligned so stacked [n_groups, ...] params get None on the lead axis.
+    _PARAM_RULES: ClassVar[tuple[tuple[str, tuple[str | None, ...]], ...]] = (
+        (r"embed|unembed", ("vocab", "fsdp")),
+        (r"\bw_(q|k|v)\b", ("fsdp", "heads")),
+        (r"\bw_o\b", ("heads", "fsdp")),
+        (r"\bw_(gate|up)\b$", ("fsdp", "ff")),
+        (r"\bw_down\b", ("ff", "fsdp")),
+        (r"moe_(gate|up)", ("experts", "fsdp", None)),
+        (r"moe_down", ("experts", None, "fsdp")),
+        (r"shared_(gate|up)", ("fsdp", "ff")),
+        (r"shared_down", ("ff", "fsdp")),
+        (r"router", ("fsdp", None)),
+        (r"ssm_w_(z|x)|ssm_conv_x", ("fsdp", "heads")),  # d_inner cols
+        (r"ssm_w_(b|c|dt)", ("fsdp", None)),
+        (r"ssm_out", ("heads", "fsdp")),
+        (r"ssm_(a_log|d|dt_bias|norm)", (None,)),
+        (r"lru_w_(x|y)", ("fsdp", "tp")),
+        (r"lru_out", ("tp", "fsdp")),
+        (r"lru_", (None,)),
+        (r"conv", (None, None)),
+        (r"ln|norm|scale|bias", (None,)),
+    )
+
+    def param_spec(self, path: str, ndim: int) -> tuple:
+        for pat, dims in self._PARAM_RULES:
+            if re.search(pat, path):
+                if len(dims) > ndim:
+                    dims = dims[-ndim:]
+                lead = (None,) * (ndim - len(dims))
+                return tuple(self._phys(d) for d in (lead + dims))
+        return (None,) * ndim
+
+    def params_shardings(self, params) -> Any:
+        """A param tree's :class:`Sharding` of every leaf, by its path
+        (keys joined by ``/``; no mesh: a tree of None)."""
+        if self.mesh is None:
+            return tree_map(lambda _: None, params)
+
+        def leaf(path, x):
+            spec = self.param_spec("/".join(path), x.ndim)
+            return Sharding(self.mesh, spec, self.placements(spec))
+        return map_with_path(leaf, params)
+
+    def constrain_tree(self, params):
+        """Pin every DTensor param to its rule placements (a no-op where
+        it already lies so); plain tensors and a tree without a mesh are
+        returned as they are."""
+        if self.mesh is None:
+            return params
+
+        def leaf(path, x):
+            if not is_dtensor(x):
+                return x
+            spec = self.param_spec("/".join(path), x.ndim)
+            return x.redistribute(self.mesh, self.placements(spec))
+        return map_with_path(leaf, params)
+
+    # -- the mesh path ---------------------------------------------------------
+    def _batch_dims(self) -> tuple[int, ...]:
+        """The mesh dims the batch is split over."""
+        spec = self.spec("batch")[0]
+        axes = () if spec is None else \
+            (spec,) if isinstance(spec, str) else spec
+        names = tuple(self.mesh.mesh_dim_names)
+        return tuple(names.index(a) for a in axes if a in names)
+
+    def batch_shards(self) -> int:
+        """How many ranks split the batch (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        return math.prod(self.mesh.shape[d] for d in self._batch_dims())
+
+    def check(self, cfg) -> None:
+        """:func:`check_executable` of this mesh (no mesh: nothing)."""
+        if self.mesh is not None:
+            check_executable(cfg, model=axis_sizes(self.mesh).get("model", 1),
+                             batch=self.batch_shards())
+
+    def gather(self, tree):
+        """Every DTensor leaf of ``tree`` whole on this rank as a plain
+        tensor (a block's weights just before it runs); autograd sends
+        each gradient back into its leaf's placements."""
+        if self.mesh is None:
+            return tree
+        return tree_map(lambda x: _whole(x) if is_dtensor(x) else x, tree)
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of a rank's plain ``x`` over the ranks that split the
+        batch (``x`` itself without a mesh)."""
+        if self.mesh is None:
+            return x
+        dims = [d for d in self._batch_dims() if self.mesh.shape[d] > 1]
+        return self._sum_over(x, dims)
+
+    def _sum_over(self, x: torch.Tensor, dims) -> torch.Tensor:
+        """The sum of a rank's plain ``x`` over the ranks along mesh
+        ``dims`` (one all-reduce a dim; none where ``dims`` is empty)."""
+        dt = _dt()
+        part = [dt.Partial() if d in dims else dt.Replicate()
+                for d in range(self.mesh.ndim)]
+        return dt.DTensor.from_local(x, self.mesh, part).full_tensor()
+
+    def global_norm(self, tree) -> torch.Tensor:
+        """The global norm of a tree of DTensors (and plain tensors), in
+        fp32: each leaf's sum of squares over its local shards, counted
+        once however many ranks hold a replica, summed over every rank
+        in one all-reduce, then over the leaves in their order."""
+        if self.mesh is None:
+            raise ValueError("global_norm needs a mesh")
+        dt, coord = _dt(), self.mesh.get_coordinate()
+        sums = []
+        for _, x in leaves_with_paths(tree):
+            if isinstance(x, dt.DTensor):
+                owner = all(c == 0 for c, p in zip(coord, x.placements)
+                            if not isinstance(p, dt.Shard))
+                x = x.to_local()
+            else:
+                owner = all(c == 0 for c in coord)
+            sq = x.detach().to(torch.float32).square().sum()
+            sums.append(sq if owner else torch.zeros_like(sq))
+        total = self._sum_over(torch.stack(sums), [
+            d for d, n in enumerate(self.mesh.shape) if n > 1])
+        acc = total[0]
+        for s in total[1:]:
+            acc = acc + s
+        return torch.sqrt(acc)
+
+
+def local_tree(tree):
+    """Every DTensor leaf of ``tree`` as this rank's local tensor."""
+    return tree_map(lambda x: x.to_local() if is_dtensor(x) else x, tree)
+
+
+def place_tree(tree, shardings):
+    """``tree`` with each leaf that ``shardings`` (the same structure,
+    e.g. :meth:`AxisRules.params_shardings`) gives a :class:`Sharding`
+    placed by it (:meth:`Sharding.place`); the others as they are."""
+    by_path = {p: s for p, s in leaves_with_paths(shardings)}
+
+    def leaf(path, x):
+        s = by_path.get(path)
+        return x if s is None else s.place(x)
+    return map_with_path(leaf, tree)
+
+
+#: The rules without a mesh (immutable, so one instance serves every
+#: caller): every call a no-op.
+NO_SHARDING = AxisRules(mesh=None)
+
+
+def no_sharding() -> AxisRules:
+    return NO_SHARDING

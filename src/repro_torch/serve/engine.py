@@ -7,7 +7,11 @@ port of ``repro.serve.engine``).
 recurrent and SSM layers -> their O(1) state) and ``decode_step`` advances every row one token,
 writing ring slots modulo the window; on a CUDA card each layer's decode
 attention is one launch of the hand-written ``ring_decode_attention``
-for the whole batch.  The engine runs where the params lie.
+for the whole batch.  The engine runs where the params lie.  On a mesh
+(``rules`` with one) each rank prefills and decodes only its own rows
+of the batch, with plain caches and each block's weights gathered whole
+just before it (the params may be DTensors), and the ranks' tokens are
+gathered at the end, so every rank returns the whole batch's.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from ..models.transformer import Model
 from ..obs.spans import active, span
+from ..parallel.sharding import AxisRules, no_sharding
 
 
 @dataclasses.dataclass
@@ -28,16 +33,20 @@ class Request:
     generated: list[int] = dataclasses.field(default_factory=list)
 
 
-def make_serve_fns(model: Model, *, cache_len: int):
-    """The prefill and decode-step functions of ``model`` (plain calls:
-    PyTorch runs eagerly, so there is nothing to compile)."""
+def make_serve_fns(model: Model, rules: AxisRules | None = None, *,
+                   cache_len: int):
+    """The prefill and decode-step functions of ``model`` under ``rules``
+    (plain calls: PyTorch runs eagerly, so there is nothing to
+    compile)."""
+    rules = rules or no_sharding()
 
     def prefill(params, tokens, memory=None):
         return model.prefill(params, tokens, cache_len=cache_len,
-                             memory=memory)
+                             memory=memory, rules=rules)
 
     def decode_step(params, caches, token, cur_len):
-        return model.decode_step(params, caches, token, cur_len)
+        return model.decode_step(params, caches, token, cur_len,
+                                 rules=rules)
 
     return prefill, decode_step
 
@@ -46,11 +55,14 @@ class ServingEngine:
     """Greedy batched generation; one prefill per batch, then lockstep
     decode (one ``cur_len`` for every row, as the reference)."""
 
-    def __init__(self, model: Model, params: Any, cache_len: int = 256):
+    def __init__(self, model: Model, params: Any,
+                 rules: AxisRules | None = None, cache_len: int = 256):
         self.model = model
         self.params = params
+        self.rules = rules or no_sharding()
+        self.rules.check(model.cfg)
         self.cache_len = cache_len
-        self.prefill, self.decode = make_serve_fns(model,
+        self.prefill, self.decode = make_serve_fns(model, self.rules,
                                                    cache_len=cache_len)
 
     def generate(self, prompts: list[list[int]], max_new: int = 16,
@@ -65,12 +77,22 @@ class ServingEngine:
         # left-pad with token 0, which is attended (no pad mask), as the
         # reference does
         toks = torch.tensor([[0] * (L - len(p)) + list(p) for p in prompts],
-                            dtype=torch.int64, device=device)
+                            dtype=torch.int64)
+        rows = self.rules.sharding("batch", None)
+        if rows is not None:
+            if B % self.rules.batch_shards():
+                raise ValueError(f"a batch of {B} prompts does not split "
+                                 f"evenly over {self.rules.batch_shards()} "
+                                 "ranks")
+            toks = rows.local(toks)
+            if memory is not None:
+                memory = rows.local(torch.as_tensor(memory))
+        toks = toks.to(device)
         with span("serve.prefill", batch=B, prompt_len=L):
             logits, caches, cur = self.prefill(self.params, toks, memory)
             if active() and device.type == "cuda":  # sync only when timing
                 torch.cuda.synchronize(device)
-        out = [[] for _ in range(B)]
+        out = [[] for _ in range(len(toks))]
         tok = torch.argmax(logits, dim=-1)
         with span("serve.decode", batch=B, steps=max_new):
             for _ in range(max_new):
@@ -79,4 +101,13 @@ class ServingEngine:
                 logits, caches, cur = self.decode(self.params, caches, tok,
                                                   cur)
                 tok = torch.argmax(logits, dim=-1)
+        if rows is not None:   # every rank's rows, on every rank
+            from torch.distributed.tensor import DTensor
+
+            mine = torch.tensor(out, dtype=torch.int64, device=device) \
+                .reshape(len(toks), max_new)
+            out = DTensor.from_local(mine, rows.mesh, rows.placements,
+                                     shape=(B, max_new),
+                                     stride=(max_new, 1)).full_tensor() \
+                .tolist()
         return out

@@ -6,8 +6,8 @@ regenerates exactly the stream it would have seen: the data half of
 checkpoint/restart fault tolerance.  The draws are the reference's, one
 ``np.random.default_rng(seed * 1_000_003 + step)`` stream, so tokens,
 labels and memory are bit for bit the reference's batch.
-``sharded_batch`` (each host materializing its own shards) waits for the
-port of ``parallel/`` (ROADMAP Queue 1 item 9).
+``sharded_batch`` gives each rank of a mesh only its own rows of it, as
+DTensors.
 """
 from __future__ import annotations
 
@@ -39,6 +39,17 @@ def synthetic_batch(cfg, batch: int, seq: int, step: int, seed: int = 0,
     takes it (JAX canonicalizes float64 to float32 first): one rounding
     straight from float64 differs in the last bf16 bit where the float32
     value lands on a bf16 midpoint."""
+    return sharded_batch(cfg, batch, seq, step, {}, seed, device)
+
+
+def sharded_batch(cfg, batch: int, seq: int, step: int, shardings: dict,
+                  seed: int = 0, device="cpu") -> dict:
+    """The batch of ``step`` with each array that ``shardings`` (name ->
+    ``parallel.sharding.Sharding``, e.g. ``rules.sharding("batch",
+    None)``) places as a DTensor of which this rank holds only its own
+    rows, on the mesh's device; the others whole on ``device``.  The
+    draw on the host is the whole batch (one numpy stream, which cannot
+    be entered midway), so every rank's rows are the reference's."""
     rng = np.random.default_rng(np.uint64(seed) * 1_000_003
                                 + np.uint64(step))
     toks = rng.integers(0, cfg.vocab, size=(batch, seq + 1), dtype=np.int64)
@@ -51,4 +62,8 @@ def synthetic_batch(cfg, batch: int, seq: int, step: int, seed: int = 0,
         draw = rng.standard_normal((batch, mem_len, cfg.d_model))
         out["memory"] = torch.from_numpy(draw.astype(np.float32)) \
             .to(torch.bfloat16)
-    return {k: v.to(device) for k, v in out.items()}
+
+    def place(name, x):
+        sh = shardings.get(name)
+        return x.to(device) if sh is None else sh.place(x)
+    return {k: place(k, v) for k, v in out.items()}

@@ -97,12 +97,16 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(state: TrainState, grads: Any, cfg: AdamWConfig
+def adamw_update(state: TrainState, grads: Any, cfg: AdamWConfig, *,
+                 gnorm: torch.Tensor | None = None
                  ) -> tuple[TrainState, dict]:
     """One AdamW step with global-norm clipping -> (state, {"grad_norm",
     "lr"}); params, mu, nu (and cast) are updated in place, the step is
-    a new tensor."""
-    gnorm = global_norm(grads)
+    a new tensor.  ``gnorm`` is the gradients' global norm where the
+    caller has it (on a mesh, where ``grads`` are one rank's shards);
+    else :func:`global_norm` of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, state.step)
     t = (state.step + 1).to(F32)

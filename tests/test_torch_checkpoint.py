@@ -219,8 +219,10 @@ def test_restore_places_leaves_on_the_device_asked(tmp_path):
     mgr.save(7, state)
     out = mgr.restore(_like(state), device="cpu")
     assert {t.device.type for t in leaves(out)} == {"cpu"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        mgr.restore(_like(state), shardings={})
+    # a shardings tree that places no leaf restores every leaf as above
+    bare = mgr.restore(_like(state), shardings={}, device="cpu")
+    assert all(type(g) is torch.Tensor and torch.equal(g, w)
+               for g, w in zip(leaves(bare), leaves(out)))
 
 
 # -- the training loop ----------------------------------------------------------

@@ -905,3 +905,186 @@ def test_statically_certified_compiles_run_on_card(name):
         scale = float(np.abs(golden["y"]).max())
         np.testing.assert_allclose(y, golden["y"], rtol=RTOL,
                                    atol=ATOL_REL * scale)
+
+
+# -- the mesh path: a one-rank NCCL mesh, and two gloo ranks ------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group over a FileStore and its 1 x 1 ``("data",
+    "model")`` mesh (``make_host_mesh``), ended after the module."""
+    _need_card()
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(1, 1)
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _mesh_rules(cfg, mesh, kind):
+    from repro_torch.configs.base import DECODE_32K, TRAIN_4K
+    from repro_torch.launch.specs import make_rules
+
+    return make_rules(cfg, mesh, DECODE_32K if kind == "decode" else TRAIN_4K)
+
+
+@pytest.mark.gpu
+def test_reduced_gemma3_on_a_one_rank_nccl_mesh_is_the_unsharded_path(
+        nccl_mesh):
+    """Reduced gemma3-1b on the one-rank NCCL mesh, its params DTensors
+    placed by ``params_shardings``: the served tokens are the unsharded
+    engine's, through one ``ring_decode_attention`` launch per layer per
+    decode step; 2 train steps on DTensor state give the unsharded
+    steps' losses, grad_norms and new params (within rtol 1e-5, atol
+    1e-6 x max; one rank sums in the same order)."""
+    from repro_torch.parallel import place_tree
+    from repro_torch.train import init_state, make_train_step, \
+        sharded_batch, synthetic_batch
+    from repro_torch.train.tree import leaves, unflatten_like
+
+    cfg = get_config("gemma3-1b").reduced()
+    model = build_model(cfg)
+    params = params_from_reference(cfg, lm_params(cfg, 0), "cuda")
+    rules = _mesh_rules(cfg, nccl_mesh, "decode")
+    placed = place_tree(params, rules.params_shardings(params))
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, n)]
+               for n in (40, 9, 21)]
+    want = ServingEngine(model, params, cache_len=48).generate(prompts, 8)
+    reset_launch_counts()
+    got = ServingEngine(model, placed, rules=rules,
+                        cache_len=48).generate(prompts, 8)
+    torch.cuda.synchronize()
+    assert got == want
+    assert {k: n for k, n in launch_counts().items() if n} \
+        == {"ring_decode_attention": cfg.n_layers * 8}
+
+    tree = lm_params(cfg, 0)
+    rules = _mesh_rules(cfg, nccl_mesh, "train")
+
+    def fresh():
+        return init_state(unflatten_like(tree, [
+            torch.from_numpy(np.array(a, np.float32)).cuda()
+            for a in leaves(tree)]))
+    plain, sharded = fresh(), fresh()
+    sharded = place_tree(sharded, sharded._replace(
+        step=None, params=rules.params_shardings(sharded.params),
+        mu=rules.params_shardings(sharded.mu),
+        nu=rules.params_shardings(sharded.nu)))
+    rows = {"tokens": rules.sharding("batch", None),
+            "labels": rules.sharding("batch", None)}
+    step, mesh_step = make_train_step(model), make_train_step(model, rules)
+    for i in range(2):
+        plain, m1 = step(plain, synthetic_batch(cfg, 4, 32, i,
+                                                device="cuda"))
+        sharded, m2 = mesh_step(sharded, sharded_batch(cfg, 4, 32, i, rows))
+        for k in ("loss", "grad_norm"):
+            assert abs(float(m2[k]) - float(m1[k])) <= 1e-5 * abs(float(m1[k]))
+    for got, want in zip(leaves(sharded.params), leaves(plain.params)):
+        got = got.full_tensor()
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_a_sharded_checkpoint_restores_onto_the_mesh_on_card(nccl_mesh,
+                                                             tmp_path):
+    """A DTensor train state saved on the one-rank NCCL mesh and restored
+    with ``shardings=params_shardings`` is the live state bitwise, each
+    leaf a DTensor in its placements; its files are those the unsharded
+    state writes."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.parallel import place_tree
+    from repro_torch.parallel.sharding import is_dtensor
+    from repro_torch.train import init_state
+    from repro_torch.train.train_step import eval_state_shapes
+    from repro_torch.train.tree import leaves, unflatten_like
+
+    cfg = get_config("gemma3-1b").reduced()
+    tree = lm_params(cfg, 0)
+    rules = _mesh_rules(cfg, nccl_mesh, "train")
+    state = init_state(unflatten_like(tree, [
+        torch.from_numpy(np.array(a, np.float32)).cuda()
+        for a in leaves(tree)]))
+    shardings = state._replace(
+        step=None, params=rules.params_shardings(state.params),
+        mu=rules.params_shardings(state.mu),
+        nu=rules.params_shardings(state.nu))
+    placed = place_tree(state, shardings)
+    mgr = CheckpointManager(str(tmp_path / "mesh"))
+    mgr.save(3, placed)
+    back = mgr.restore(eval_state_shapes(build_model(cfg)), device="cuda",
+                       shardings=shardings)
+    for got, want in zip(leaves(back), leaves(placed)):
+        assert is_dtensor(got) == is_dtensor(want)
+        if is_dtensor(want):
+            assert got.placements == want.placements
+            got, want = got.to_local(), want.to_local()
+        assert got.device.type == "cuda" and torch.equal(got, want)
+    one = CheckpointManager(str(tmp_path / "one")).save(3, state)
+    with np.load(pathlib.Path(one) / "shard_00000.npz") as a, \
+            np.load(tmp_path / "mesh" / f"step_{3:010d}"
+                    / "shard_00000.npz") as b:
+        assert a.files == b.files
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a.files)
+
+
+def _gloo_collectives_rank(rank: int, world: int, store: str) -> None:
+    """One rank of :func:`test_collectives_over_two_gloo_ranks`: the
+    process-group collectives against the one-process forms."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import (bucketed_psum, bucketed_psum_stacked,
+                                      compressed_psum,
+                                      compressed_psum_stacked)
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        xs = [torch.from_numpy(np.random.default_rng([5, r])
+                               .standard_normal(300).astype(np.float32)
+                               * (r + 1)) for r in range(world)]
+        assert torch.equal(compressed_psum(xs[rank]),
+                           compressed_psum_stacked(xs)[rank])
+        trees = [{"a": x[:100].reshape(10, 10), "b": x[100:]} for x in xs]
+        for compressed in (True, False):
+            got = bucketed_psum(trees[rank], bucket_bytes=128,
+                                compressed=compressed)
+            want = bucketed_psum_stacked(trees, bucket_bytes=128,
+                                         compressed=compressed)[rank]
+            for k in want:
+                if compressed:
+                    assert torch.equal(got[k], want[k]), k
+                else:
+                    torch.testing.assert_close(
+                        got[k], want[k], rtol=1e-6,
+                        atol=1e-6 * float(want[k].abs().max()))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_collectives_over_two_gloo_ranks(tmp_path):
+    """Two spawned gloo ranks over a FileStore: ``compressed_psum`` and
+    ``bucketed_psum`` (compressed: bitwise; else within rtol 1e-6) equal
+    the one-process forms; each rank is joined with a timeout."""
+    _need_card()
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_collectives_rank,
+                         args=(r, 2, str(tmp_path / "store")))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(120)
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(10)
+    assert not any(alive) and [p.exitcode for p in procs] == [0, 0]

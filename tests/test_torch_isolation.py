@@ -11,8 +11,10 @@ directory; serves a reduced model of each LM block and FFN kind (rec,
 ssm, MoE, lead layers, cross-attention over encoder frames and image
 tokens, an untied unembedding), runs the serving command, trains the
 reduced gemma3-1b for 2 steps, checkpoints and restores it, runs the
-training command, and runs the FC chain through the ring and
-``ops.segment_gemm`` against its oracle."""
+training command, runs the FC chain through the ring and
+``ops.segment_gemm`` against its oracle, and imports the mesh path
+(``parallel``, ``launch.mesh``, ``launch.specs``) and runs its rules and
+one-process collectives."""
 import ast
 import os
 import pathlib
@@ -23,7 +25,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "chip_ab.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "chip_ab.py",
+       ROOT / "tools" / "mesh_check.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -58,7 +61,9 @@ def test_sources_exist():
             "timeline.py", "tracer.py", "analysis.py", "rglru.py",
             "mamba2.py", "moe.py", "ring_buffer.py", "ref.py",
             "serve.py", "train.py", "data.py", "optimizer.py",
-            "train_step.py", "tree.py", "manager.py"} <= names
+            "train_step.py", "tree.py", "manager.py", "sharding.py",
+            "collectives.py", "mesh.py", "specs.py",
+            "mesh_check.py"} <= names
     src = ROOT / "src" / "repro_torch"
     assert (src / "cli.py").exists()
     assert (src / "analysis" / "cli.py").exists()
@@ -179,6 +184,17 @@ with tempfile.TemporaryDirectory() as tmp:
                     "--ckpt-dir", tmp + "/run"])
     assert "'final_loss'" in buf.getvalue()
     assert CheckpointManager(tmp + "/run").latest_step() == 2
+from repro_torch.configs.base import TRAIN_4K
+from repro_torch.launch.mesh import production_mesh_shape
+from repro_torch.launch.specs import make_rules
+from repro_torch.parallel import (compressed_psum_stacked,
+                                  dequantize_int8, quantize_int8)
+rules = make_rules(get_config("gemma3-1b"), None, TRAIN_4K)
+assert rules.param_spec("embed", 2) == ("model", "data")
+assert production_mesh_shape(multi_pod=True)[1] == ("pod", "data", "model")
+x = torch.linspace(-3, 2, 11)
+assert torch.equal(compressed_psum_stacked([x])[0],
+                   dequantize_int8(*quantize_int8(x)))
 from repro_torch.core.ring_buffer import (init_chain_params,
                                           naive_chain_apply, plan_chain,
                                           run_chain_via_ring)
