@@ -240,14 +240,36 @@ Phases, one summary line each:
      losses within rtol 2e-2; then the full-width step timed at the
      golden's 2 x 128 tokens and at 8 x 512 (median of 5 after a
      warm-up, busy share, ``max_memory_allocated``, tokens/s) beside
-     its bound (``train_bound``).
+     its bound (``train_bound``);
+ 10. (after 9) gemma3-1b at full width on a one-card NCCL mesh: served,
+     trained against the train golden, checkpointed and restored with
+     ``shardings=``, timed beside the unsharded numbers;
+ 11. ``tools/mesh_check.py`` on the host CPU: 4 gloo ranks against one
+     process, reduced gemma3-1b on ``data=4`` and ``(pod, data, model)
+     = (2, 2, 1)``, and tensor parallelism (reduced granite-moe and
+     mamba2 at ``(data, model) = (1, 4)`` and ``(2, 2)``, granite-moe's
+     global MoE routing at ``data=4``);
+ 12. tensor parallelism on the card, the model ranks as threads of one
+     process (``parallel.standin.StandInMesh``; NCCL takes one rank a
+     card): granite-moe-1b-a400m at full width served through
+     ``ServingEngine(rules=...)`` over 2 and 4 model ranks and
+     mamba2-780m over 2 (each rank its heads, experts, ``d_ff`` and
+     vocabulary rows; phase 3's prompts, 8 new tokens), each with phase
+     3's checks against the plain path over the same ranks (the ranks'
+     logits gathered), 24 / 0 ``ring_decode_attention`` launches a
+     decode step on each rank, and its full-width golden on every rank,
+     its decode per token and busy share timed beside phase 4's
+     unsharded; one granite-moe train step
+     over 2 model ranks (``standin_train_step``, the golden's 2 x 128
+     tokens, remat ``"none"``): loss, grad_norm and update norm within
+     2e-2 of the unsharded step's.
 
 Then JSON lines with the paths' timings (``{"paths": ...}``, the
 training step's among them), the
 compile seconds (``{"compile": ...}``), phase 6's record
 (``{"verify": ...}``), phase 7's and 8's (``{"partial": ...}``,
 ``{"traces": ...}``) and every kernel (``{"kernels": [...]}``, its
-launches those of phases 3, 5, 6 and 8), the
+launches those of phases 3, 5, 6, 8, 9, 10 and 12), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Any mismatch, a failed build or launch, a missing card, or a run outside
 a checkout exits nonzero and prints no result.
@@ -1796,23 +1818,140 @@ def lm_memory_of_path(cfg, batch: int):
     return None if mem is None else torch.from_numpy(mem).to(DEVICE_TYPE)
 
 
+def forced_steps(model, params, padded, out, path: LMPath, memory=None,
+                 rules=None) -> tuple[list, list]:
+    """One path teacher-forced on the generated tokens ``out``: each
+    step's logits over the whole vocabulary (gathered over a ``model``
+    axis) as numpy, and its routing codes (``cases.route_codes``; None
+    without MoE), the prefill's first."""
+    from repro_torch.kernels.cases import route_codes
+    from repro_torch.models.transformer import vocab_logits
+    from repro_torch.parallel.sharding import no_sharding
+
+    rules = rules or no_sharding()
+    steps, codes, routes = [], [], []
+    logits, caches, cur = model.prefill(params, padded,
+                                        cache_len=path.cache_len,
+                                        memory=memory, routes=routes,
+                                        rules=rules)
+    for t in range(path.max_new + 1):
+        steps.append(vocab_logits(logits, rules).float().cpu().numpy())
+        codes.append(route_codes(routes) if routes else None)
+        routes.clear()
+        if t == path.max_new:
+            break
+        tok = torch.tensor([row[t] for row in out], device=DEVICE_TYPE)
+        logits, caches, cur = model.decode_step(params, caches, tok, cur,
+                                                routes=routes, rules=rules)
+    return steps, codes
+
+
+def hold_forced(name: str, cfg, kern, plain, out, max_new: int,
+                what: str) -> None:
+    """Phase 3's check of two teacher-forced runs (:func:`forced_steps`
+    of the kernel path and of the plain path): every step's logits within
+    the bf16 tolerance of the plain path's (a row of an MoE config that
+    misses let pass only from the step on where the two routings really
+    sent one of its tokens to other experts) and their argmax the
+    generated tokens ``out``."""
+    from repro_torch.kernels.cases import logits_close, routed_apart
+
+    (steps, codes), (ref_steps, ref_codes) = kern, plain
+    B = len(out)
+    worst, scale, passed = 0.0, 0.0, []
+    apart = np.full(B, max_new + 1)
+    for t in range(max_new + 1):
+        got, ref = steps[t], ref_steps[t]
+        if codes[t] is not None:
+            rows = routed_apart(codes[t], ref_codes[t]).any(1)
+            apart[rows] = np.minimum(apart[rows], t)
+        if not np.isfinite(got).all() or got.shape != (B, cfg.vocab):
+            raise SystemExit(f"{name}: step {t} logits {got.shape} are "
+                             "not finite")
+        s = float(np.abs(ref).max())
+        for b in range(B):
+            err, ok = logits_close(got[b], ref[b], s)
+            if not ok and apart[b] > t:
+                raise SystemExit(
+                    f"{name}: step {t} row {b} logits differ from the "
+                    f"plain path's by {err:.3g} (max |logit| {s:.3g})")
+            if not ok:
+                passed.append((t, b))
+            elif apart[b] > t:
+                worst = max(worst, err)
+        scale = max(scale, s)
+        tok = [row[t] for row in out] if t < max_new else None
+        if tok is not None and [int(i) for i in got.argmax(-1)] != tok:
+            raise SystemExit(f"{name}: generate's tokens {t} {tok} are "
+                             "not the argmax of the same path's logits")
+    gone = {b: int(apart[b]) for b in range(B) if apart[b] <= max_new}
+    say(f"  {name}: {what}, {max_new} new: the prefill and every decode "
+        f"step's logits within rtol 2e-2, atol 2e-2 * max|logits| of the "
+        f"plain path's (max |difference| {worst:.4g}, max |logit| "
+        f"{scale:.4g})"
+        + (f"; the two paths routed apart in (row: from step) "
+           f"{gone or 'none'}, misses let pass at (step, row) "
+           f"{passed or 'none'}" if cfg.n_experts else ""))
+
+
+def golden_rows(model, params, golden, rules=None) -> tuple[dict, list]:
+    """``cases.hold_lm_golden`` of the model, and its greedy tokens for
+    each of the golden's prompts at batch 1."""
+    from repro_torch.kernels.cases import hold_lm_golden
+    from repro_torch.serve import ServingEngine
+
+    held = hold_lm_golden(model, params, golden, rules)
+    mem1 = lm_memory_of_path(model.cfg, 1)
+    rows = [ServingEngine(model, params, rules=rules,
+                          cache_len=int(golden["cache_len"])).generate(
+        [[int(t) for t in golden["prompts"][i, :n]]],
+        max_new=golden["tokens"].shape[1], memory=mem1)[0]
+        for i, n in enumerate(golden["prompt_lens"])]
+    return held, rows
+
+
+def hold_golden(name: str, cfg, held: dict, rows: list, golden) -> None:
+    """The reference's full-width golden at batch 1 (:func:`golden_rows`):
+    the teacher-forced logits within the tolerance, and each greedy row
+    the golden's tokens up to a near tie that flipped (an MoE prompt's
+    misses let pass only where its routing went apart from the
+    reference's)."""
+    from repro_torch.kernels.cases import near_tie
+
+    if not held["ok"]:
+        raise SystemExit(f"{name}: the port differs from the full-width "
+                         f"golden: {held}")
+    for i, row in enumerate(rows):
+        if any(p == i for p, _ in held["routed_apart"]):
+            continue
+        for t, (a, b) in enumerate(zip(row, golden["tokens"][i])):
+            if a == b:
+                continue
+            if not near_tie(golden["top_logits"][i, t, :2],
+                            float(golden["absmax"][i, t])):
+                raise SystemExit(f"{name}: golden prompt {i} token {t} is "
+                                 f"{a}, not {b}")
+            break   # after a flipped near tie the contexts differ
+    say(f"  {name}: the reference's full-width golden held at batch 1 "
+        f"(teacher-forced top-64 logits within the tolerance, max "
+        f"|difference| {held['max_err']:.4g}; greedy tokens "
+        f"{held['tokens']}, near ties flipped at {held['flips'] or 'none'}"
+        + (f", misses let pass where the routing went apart from the "
+           f"reference's, from (prompt, step) "
+           f"{held['routed_apart'] or 'none'}" if cfg.n_experts else "")
+        + ")")
+
+
 def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0],
             rules=None) -> dict[str, int]:
     """An LM's ``ServingEngine.generate`` on the card: exactly
     ``path.per_step`` ``ring_decode_attention`` launches per decode step
     and no other kernel; logits teacher-forced on its tokens within the
-    bf16 tolerance of the plain path's at every step (a row of an MoE
-    config that misses is let pass only from the step on where the two
-    paths' routings, ``moe.Routing``, really sent one of its tokens to
-    other experts); the golden's tokens and top-64 logits at batch 1
-    (an MoE golden's misses likewise only where the port's routing went
-    apart from the reference's, ``cases.hold_lm_golden``; no golden
-    where ``golden`` is None).  With ``rules`` (a mesh's) every call of
-    both paths runs on the mesh."""
+    bf16 tolerance of the plain path's at every step (:func:`hold_forced`);
+    the golden's tokens and top-64 logits at batch 1
+    (:func:`hold_golden`; no golden where ``golden`` is None).  With
+    ``rules`` (a mesh's) every call of both paths runs on the mesh."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.cases import (hold_lm_golden, logits_close,
-                                           near_tie, route_codes,
-                                           routed_apart)
     from repro_torch.models import build_model
     from repro_torch.models.moe import capacity as moe_capacity
     from repro_torch.serve import ServingEngine
@@ -1842,93 +1981,20 @@ def path_lm(cfg, params, golden, path: LMPath = LM_PATHS[0],
             0 <= t < cfg.vocab for o in out for t in o):
         raise SystemExit(f"{name}: generate gave {out}")
 
-    worst, scale, passed = 0.0, 0.0, []
-    # the step from which each row's routing went apart in the two paths
-    apart = np.full(B, path.max_new + 1)
-    rk, rp = [], []
-    lk, ck, cur_k = model.prefill(params, padded, cache_len=path.cache_len,
-                                  memory=memory, routes=rk, rules=rules)
+    kern = forced_steps(model, params, padded, out, path, memory, rules)
     if cfg.n_experts:
-        drops = [int((~r.keep).sum()) for r in rk]
+        drops = [int((c < 0).sum()) for c in kern[1][0]]
         T = padded.numel()
         say(f"  {name} prefill: T = {T} tokens, {moe_capacity(cfg, T)} "
             f"slots an expert; choices dropped of {T * cfg.top_k} by layer "
             f"{drops} ({sum(drops)} in all)")
-    lp, cp, cur_p = plain.prefill(params, padded, cache_len=path.cache_len,
-                                  memory=memory, routes=rp, rules=rules)
-    for t in range(path.max_new + 1):
-        if cfg.n_experts:
-            rows = routed_apart(route_codes(rk), route_codes(rp)).any(1)
-            apart[rows] = np.minimum(apart[rows], t)
-            rk.clear()
-            rp.clear()
-        got, ref = lk.float().cpu().numpy(), lp.float().cpu().numpy()
-        if not np.isfinite(got).all() or got.shape != (B, cfg.vocab):
-            raise SystemExit(f"{name}: step {t} logits {got.shape} are "
-                             "not finite")
-        s = float(np.abs(ref).max())
-        for b in range(B):
-            err, ok = logits_close(got[b], ref[b], s)
-            if not ok and apart[b] > t:
-                raise SystemExit(
-                    f"{name}: step {t} row {b} logits differ from the "
-                    f"plain path's by {err:.3g} (max |logit| {s:.3g})")
-            if not ok:
-                passed.append((t, b))
-            elif apart[b] > t:
-                worst = max(worst, err)
-        scale = max(scale, s)
-        if t == path.max_new:
-            break
-        tok = [row[t] for row in out]
-        if [int(i) for i in got.argmax(-1)] != tok:
-            raise SystemExit(f"{name}: generate's tokens {t} {tok} are "
-                             "not the argmax of the same path's logits")
-        tok = torch.tensor(tok, device=DEVICE_TYPE)
-        lk, ck, cur_k = model.decode_step(params, ck, tok, cur_k, routes=rk,
-                                          rules=rules)
-        lp, cp, cur_p = plain.decode_step(params, cp, tok, cur_p, routes=rp,
-                                          rules=rules)
-    gone = {b: int(apart[b]) for b in range(B) if apart[b] <= path.max_new}
-    say(f"  {name}: {B} prompts of {list(path.prompt_lens)} tokens, "
-        f"{path.max_new} new: the prefill and every decode step's logits "
-        f"within rtol 2e-2, atol 2e-2 * max|logits| of the plain path's "
-        f"(max |difference| {worst:.4g}, max |logit| {scale:.4g})"
-        + (f"; the two paths routed apart in (row: from step) "
-           f"{gone or 'none'}, misses let pass at (step, row) "
-           f"{passed or 'none'}" if cfg.n_experts else ""))
-
-    if golden is None:
-        torch.cuda.synchronize()
-        return counts
-    held = hold_lm_golden(model, params, golden, rules)
-    if not held["ok"]:
-        raise SystemExit(f"{name}: the port differs from the full-width "
-                         f"golden: {held}")
-    mem1 = lm_memory_of_path(cfg, 1)
-    for i, n in enumerate(golden["prompt_lens"]):
-        if any(p == i for p, _ in held["routed_apart"]):
-            continue
-        row = ServingEngine(model, params, rules=rules,
-                            cache_len=int(golden["cache_len"])).generate(
-            [[int(t) for t in golden["prompts"][i, :n]]],
-            max_new=golden["tokens"].shape[1], memory=mem1)[0]
-        for t, (a, b) in enumerate(zip(row, golden["tokens"][i])):
-            if a == b:
-                continue
-            if not near_tie(golden["top_logits"][i, t, :2],
-                            float(golden["absmax"][i, t])):
-                raise SystemExit(f"{name}: golden prompt {i} token {t} is "
-                                 f"{a}, not {b}")
-            break   # after a flipped near tie the contexts differ
-    say(f"  {name}: the reference's full-width golden held at batch 1 "
-        f"(teacher-forced top-64 logits within the tolerance, max "
-        f"|difference| {held['max_err']:.4g}; greedy tokens "
-        f"{held['tokens']}, near ties flipped at {held['flips'] or 'none'}"
-        + (f", misses let pass where the routing went apart from the "
-           f"reference's, from (prompt, step) "
-           f"{held['routed_apart'] or 'none'}" if cfg.n_experts else "")
-        + ")")
+    hold_forced(name, cfg, kern, forced_steps(plain, params, padded, out,
+                                              path, memory, rules),
+                out, path.max_new,
+                f"{B} prompts of {list(path.prompt_lens)} tokens")
+    if golden is not None:
+        hold_golden(name, cfg, *golden_rows(model, params, golden, rules),
+                    golden)
     torch.cuda.synchronize()
     return counts
 
@@ -2133,15 +2199,20 @@ def time_decode_shapes(cases) -> dict:
     return shapes
 
 
-def serve_new_lms(golden_dir, draws: dict) -> tuple[dict, dict]:
+def serve_new_lms(golden_dir, draws: dict) -> tuple[dict, dict, dict]:
     """Phase 3's checks and phase 4's timing of every LM path but
     gemma3-1b, one resident at a time (moved to the card from its host
     draw, served, timed, freed): returns each path's launch counts and
-    timings by name."""
-    counts, timings = {}, {}
+    timings by name, and the host draws that phase 12 serves again."""
+    counts, timings, trees = {}, {}, {}
+    kept = {name for name, _ in TP_SERVED} | {TP_TRAINED}
     for path in LM_PATHS[1:]:
         t0 = time.perf_counter()
-        cfg, params = lm_setup(path.name, draws)
+        if path.name in kept:
+            cfg, params, trees[path.name] = lm_setup(path.name, draws,
+                                                     keep_tree=True)
+        else:
+            cfg, params = lm_setup(path.name, draws)
         with np.load(golden_dir / f"{path.name}.golden.npz") as g:
             golden = {k: g[k] for k in g.files}
         t1 = time.perf_counter()
@@ -2154,7 +2225,7 @@ def serve_new_lms(golden_dir, draws: dict) -> tuple[dict, dict]:
         del params
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    return counts, timings
+    return counts, timings, trees
 
 
 # ---------------------------------------------------------------------------
@@ -2523,7 +2594,8 @@ def phase_mesh(cfg, tree, lm_golden, train_golden, unsharded) -> tuple:
 
 def phase_gloo() -> dict:
     """Phase 11: ``tools/mesh_check.py`` on the card machine's host CPU:
-    4 gloo ranks hold the mesh path against one process."""
+    4 gloo ranks hold the mesh path against one process (tensor
+    parallelism and global MoE routing among it)."""
     sys.path.insert(0, str(ROOT / "tools"))
     import mesh_check
 
@@ -2541,11 +2613,281 @@ def phase_gloo() -> dict:
             f"{row['rel_err']}, parameters after step 3 at "
             f"{row['params_worst_of_tolerance']:.3f} of the tolerance; "
             f"bf16 loss errors {row.get('bf16_rel_err', 'not run')}")
+    for label, row in record["tensor_parallel"].items():
+        if "rel_err" in row:
+            say(f"  {label}: losses {row['loss']}, relative errors "
+                f"{row['rel_err']} against one process; the first step's "
+                f"gradients at {row['grads_worst_of_tolerance']:.3f} of the "
+                f"tolerance; tokens {row['tokens']}")
     say(f"  collectives {record['collectives']}; checkpoint "
         f"{record['checkpoint']}; served tokens equal one process's; "
-        f"refusals {sorted(record['refusals'])}; "
+        f"refusals {record['refusals']}; "
         f"{record['wall_s']:.1f} s on the host CPU")
     return record
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: tensor parallelism over a model axis, the ranks as threads of
+# one process on the card.
+# ---------------------------------------------------------------------------
+
+#: The phase's served configs and the model ranks of each, and the
+#: config trained a step on two model ranks.
+TP_SERVED = (("granite-moe-1b-a400m", (2, 4)), ("mamba2-780m", (2,)))
+TP_TRAINED = "granite-moe-1b-a400m"
+#: Tokens each served path generates over the model ranks (phase 3's
+#: prompts; fewer new tokens, as phase 10's mesh path: the ranks run one
+#: at a time, so a step costs R times the host work).
+TP_MAX_NEW = 8
+
+
+def _tp_ranks(cfg, R: int, params):
+    """``(mesh, rules, per-rank params)`` of ``R`` model ranks on the
+    card (``StandInMesh((1, R))``, the decode cell's rules): each rank's
+    tree its own contiguous copy of ``rules.rank_tree(params)``, as a
+    rank of a process group would hold it."""
+    from repro_torch.configs.base import DECODE_32K
+    from repro_torch.launch.specs import make_rules
+    from repro_torch.parallel.standin import StandInMesh
+    from repro_torch.train.tree import tree_map
+
+    mesh = StandInMesh((1, R), device_type=DEVICE_TYPE)
+    rules = make_rules(cfg, mesh, DECODE_32K)
+    rules.check(cfg)
+    mine = {c: tree_map(lambda t: t.contiguous().clone(),
+                        rules.rank_tree(params, c)) for c in mesh.coords()}
+    torch.cuda.synchronize()
+    return mesh, rules, mine
+
+
+def path_lm_tp(cfg, whole, golden, path: LMPath, R: int) -> dict:
+    """An LM served over ``R`` model ranks on the card, phase 3's checks:
+    ``ServingEngine(rules=...).generate`` on each rank (the same tokens on
+    every rank, exactly ``path.per_step`` ``ring_decode_attention``
+    launches a decode step on each); each step's logits, teacher-forced
+    on those tokens and gathered over the ranks' vocabulary rows, within
+    the bf16 tolerance of the plain path's over the same ranks
+    (:func:`hold_forced`); the reference's full-width golden at batch 1
+    on every rank (:func:`hold_golden`).  Returns the counts and the
+    ranks' params with their mesh and rules."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ring_decode import thread_launches
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServingEngine
+
+    name = f"{path.name} over {R} model ranks"
+    mesh, rules, mine = _tp_ranks(cfg, R, whole)
+    model, plain = build_model(cfg), build_model(cfg, plain=True)
+    prompts, padded = lm_prompts_of_path(cfg, path.prompt_lens)
+    B = len(prompts)
+
+    def generate(c):
+        before = thread_launches()
+        out = ServingEngine(model, mine[c], rules=rules,
+                            cache_len=path.cache_len).generate(
+            prompts, max_new=path.max_new)
+        return out, thread_launches() - before
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = mesh.run(generate)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = launch_counts()
+    out = runs[(0, 0)][0]
+    per_rank = {c: n for c, (_, n) in runs.items()}
+    want = path.per_step * path.max_new
+    total = {k: n for k, n in counts.items() if n}
+    if any(n != want for n in per_rank.values()) or total != (
+            {"ring_decode_attention": want * R} if want else {}):
+        raise SystemExit(f"{name}: launches {total}, by rank {per_rank}, "
+                         f"are not {path.per_step} a decode step on each "
+                         "rank")
+    if any(o != out for o, _ in runs.values()) or [len(o) for o in out] \
+            != [path.max_new] * B:
+        raise SystemExit(f"{name}: the ranks' tokens differ or are short: "
+                         f"{runs}")
+    say(f"  {name}: generate made {path.per_step} ring_decode_attention "
+        f"launches a decode step on each rank ({per_rank}; "
+        f"{sum(total.values())} in all) at batch {B}; {gen_s:.2f} s")
+
+    forced = mesh.run(lambda c: [
+        forced_steps(m, mine[c], padded, out, path, rules=rules)
+        for m in (model, plain)])
+    kern, ref = forced[(0, 0)]
+    if any(any(not np.array_equal(a, b) for a, b in zip(k[0], kern[0]))
+           for k, _ in forced.values()):
+        raise SystemExit(f"{name}: the ranks' logits differ")
+    hold_forced(name, cfg, kern, ref, out, path.max_new,
+                f"{B} prompts of {list(path.prompt_lens)} tokens, the "
+                "ranks' logits gathered")
+    held = mesh.run(lambda c: golden_rows(model, mine[c], golden, rules))
+    if any(rows != held[(0, 0)][1] or not h["ok"]
+           for h, rows in held.values()):
+        raise SystemExit(f"{name}: the ranks' golden checks differ or "
+                         f"fail: {held}")
+    hold_golden(f"{name}, every rank", cfg, *held[(0, 0)], golden)
+    torch.cuda.synchronize()
+    return counts, (mesh, rules, mine)
+
+
+def time_lm_tp(cfg, ranks, path: LMPath, unsharded: dict) -> dict:
+    """Per-token decode latency at batch 1 and 4 over the model ranks
+    (host clock from starting the ranks' threads to synchronize) and the
+    busy share (torch.profiler), beside phase 4's unsharded numbers."""
+    from repro_torch.models import build_model
+
+    mesh, rules, mine = ranks
+    model = build_model(cfg)
+    _, padded = lm_prompts_of_path(cfg, path.prompt_lens)
+    R = rules.model_ranks()
+    out = {}
+    for B in (1, len(padded)):
+        toks = padded[-B:]
+        state = mesh.run(lambda c: model.prefill(
+            mine[c], toks, cache_len=path.cache_len, rules=rules))
+        tok = state[(0, 0)][0].argmax(-1)   # a rank's rows; any token
+
+        def step():   # the same step again: the same work every call
+            mesh.run(lambda c: model.decode_step(
+                mine[c], state[c][1], tok, state[c][2], rules=rules))
+        ms = _host_ms(step, 10)
+        busy, call_us, prof, _ = _device_busy(step, 3)
+        was = unsharded[f"decode_ms_batch{B}"]
+        out[f"decode_ms_batch{B}"] = ms
+        out[f"device_busy_batch{B}"] = busy
+        out[f"decode_kernel_profiler_ms_batch{B}"] = prof.get(
+            "ring_decode_attention")
+        busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+        kern = prof.get("ring_decode_attention")
+        say(f"  {cfg.name} over {R} model ranks: {ms:.4f} ms per decode "
+            f"step at batch {B} (host clock, the ranks' threads started to "
+            f"synchronize), device busy {busy_txt} of {call_us:.1f} us "
+            f"(profiler); unsharded (phase 4) {was:.4f} ms, busy "
+            f"{unsharded[f'device_busy_batch{B}']}; ring_decode_attention "
+            + ("not on the path" if kern is None else
+               f"{kern * 1e3:.2f} us per launch (profiler, each rank "
+               f"{cfg.n_heads // R} q heads on "
+               f"{cfg.n_kv_heads // R} KV heads)")
+            + f"; {nvidia_smi_line()}")
+    return out
+
+
+def _update_norm(before: list, after: list) -> float:
+    """The norm of ``after - before`` over the leaves, in fp64."""
+    return float(sum(float((a.double() - b.double()).square().sum())
+                     for a, b in zip(after, before)) ** 0.5)
+
+
+def train_tp(cfg, tree, R: int = 2) -> dict:
+    """One full-width train step (bf16 activations, fp32 masters, the
+    train golden's batch and optimizer, remat ``"none"``) unsharded and
+    over ``R`` model ranks on the card (``standin_train_step``): loss,
+    grad_norm and the update's norm within ``TRAIN_RTOL``."""
+    from repro_torch.configs.base import TRAIN_4K
+    from repro_torch.kernels.cases import (TRAIN_GOLDEN_BATCH,
+                                           TRAIN_GOLDEN_OPT,
+                                           TRAIN_GOLDEN_SEQ, TRAIN_RTOL)
+    from repro_torch.launch.specs import make_rules
+    from repro_torch.models import build_model
+    from repro_torch.parallel.standin import StandInMesh
+    from repro_torch.train import AdamWConfig, make_train_step, \
+        synthetic_batch
+    from repro_torch.train.train_step import (standin_states,
+                                              standin_train_step)
+    from repro_torch.train.tree import leaves, leaves_with_paths, \
+        unflatten_like
+
+    model, opt = build_model(cfg), AdamWConfig(**TRAIN_GOLDEN_OPT)
+    batch = synthetic_batch(cfg, TRAIN_GOLDEN_BATCH, TRAIN_GOLDEN_SEQ, 0,
+                            device=DEVICE_TYPE)
+    state = _train_state_on_card(tree)
+    start = unflatten_like(state.params,
+                           [p.clone() for p in leaves(state.params)])
+    t0 = time.perf_counter()
+    state, m1 = make_train_step(model, opt=opt, remat_policy="none")(
+        state, batch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    want = {"loss": float(m1["loss"]), "grad_norm": float(m1["grad_norm"]),
+            "update_norm": _update_norm(leaves(start), leaves(state.params))}
+    del state
+    torch.cuda.empty_cache()
+
+    mesh = StandInMesh((1, R), device_type=DEVICE_TYPE)
+    rules = make_rules(cfg, mesh, TRAIN_4K)
+    states = standin_states(rules, start)
+    del start
+    torch.cuda.empty_cache()
+    before = {c: [p.clone() for p in leaves(s.params)]
+              for c, s in states.items()}
+    t0 = time.perf_counter()
+    states, m = standin_train_step(model, rules, opt=opt)(states, batch)
+    torch.cuda.synchronize()
+    tp_s = time.perf_counter() - t0
+    sq = 0.0
+    like = states[(0, 0)].params
+    for i, (path, x) in enumerate(leaves_with_paths(like)):
+        owners = mesh.coords() if rules.model_dim(path, x.ndim) is not None \
+            else [(0, 0)]
+        for c in owners:
+            a, b = leaves(states[c].params)[i], before[c][i]
+            sq += float((a.double() - b.double()).square().sum())
+    got = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "update_norm": sq ** 0.5}
+    errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    if not all(np.isfinite(list(got.values()))) or \
+            max(errs.values()) > TRAIN_RTOL:
+        raise SystemExit(f"phase 12: {cfg.name}'s step over {R} model ranks "
+                         f"{got} against the unsharded step's {want}")
+    say(f"  {cfg.name} train step at {TRAIN_GOLDEN_BATCH} x "
+        f"{TRAIN_GOLDEN_SEQ} over {R} model ranks: loss, grad_norm, update "
+        f"norm {got} against the unsharded step's {want} (relative "
+        f"{errs}; limit {TRAIN_RTOL}); {tp_s:.2f} s against {one_s:.2f} s "
+        f"(host clock, first step of each)")
+    del states, before
+    torch.cuda.empty_cache()
+    return {"tp": got, "unsharded": want, "rel_err": errs,
+            "tp_s": tp_s, "unsharded_s": one_s}
+
+
+def phase_tp(trees: dict, paths: dict) -> tuple[dict, dict]:
+    """Phase 12: granite-moe-1b-a400m at full width served over 2 and 4
+    model ranks and mamba2-780m over 2, each with phase 3's checks and
+    its golden (``path_lm_tp``) and its decode timed beside phase 4's
+    unsharded step; one granite-moe train step over 2 model ranks beside
+    the unsharded step.  Returns the launch counts by path and the
+    timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import params_from_reference
+
+    t0 = time.perf_counter()
+    say("phase 12: tensor parallelism on the card: the model ranks as "
+        "threads of one process (StandInMesh), each rank its heads, "
+        "experts, d_ff and vocabulary rows")
+    counts, timings = {}, {}
+    by_name = {p.name: dataclasses.replace(p, max_new=TP_MAX_NEW)
+               for p in LM_PATHS}
+    for name, ranks in TP_SERVED:
+        cfg = get_config(name)
+        whole = params_from_reference(cfg, trees[name], DEVICE_TYPE)
+        with np.load(ASSETS / f"{name}.golden.npz") as g:
+            golden = {k: g[k] for k in g.files}
+        for R in ranks:
+            key = f"{name} model={R}"
+            counts[key], tp = path_lm_tp(cfg, whole, golden, by_name[name],
+                                         R)
+            timings[key] = time_lm_tp(cfg, tp, by_name[name],
+                                      paths[f"{name} serve"])
+            del tp
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        del whole
+        torch.cuda.empty_cache()
+    cfg = get_config(TP_TRAINED)
+    timings[f"{TP_TRAINED} train model=2"] = train_tp(cfg, trees[TP_TRAINED])
+    say(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    return counts, timings
 
 
 # ---------------------------------------------------------------------------
@@ -3143,7 +3485,7 @@ def main() -> None:
     say("phases 3 and 4, the LMs of the other block kinds at full width, "
         "one resident at a time: served and held (phase 3), then timed "
         "(phase 4)")
-    lm_counts, lm_timings = serve_new_lms(ASSETS, draws)
+    lm_counts, lm_timings, tp_trees = serve_new_lms(ASSETS, draws)
     counts.update(lm_counts)
     paths.update(lm_timings)
     decode_row["launches"] += sum(c["ring_decode_attention"]
@@ -3167,6 +3509,13 @@ def main() -> None:
     decode_row["launches_by_path"][f"{LM} mesh"] = \
         mesh_counts["ring_decode_attention"]
     paths["mesh gloo"] = phase_gloo()
+    tp_counts, tp_timings = phase_tp(tp_trees, paths)
+    del tp_trees
+    paths.update({f"{k} tp": v for k, v in tp_timings.items()})
+    for key, c in tp_counts.items():
+        decode_row["launches"] += c["ring_decode_attention"]
+        decode_row["launches_by_path"][f"{key} (all ranks)"] = \
+            c["ring_decode_attention"]
 
     say("phase 5: repro_torch.compile on the host, then the card runs the "
         "plans it compiled")

@@ -1303,8 +1303,12 @@ def hold_lm_golden(model, params, golden, rules=None) -> dict:
     step being the first whose routing went apart, and the ``(prompt,
     step, max |difference|)`` of each step that failed.  ``rules`` (a
     mesh's, whose batch is not split: the golden runs at batch 1) are
-    the model's."""
+    the model's; over a ``model`` axis each rank holds the whole
+    vocabulary's logits (``transformer.vocab_logits``)."""
     import torch
+
+    from ..models.transformer import vocab_logits
+    from ..parallel.sharding import NO_SHARDING
 
     device = params["embed"].device
     memory = lm_memory(model.cfg, int(golden["seed"]), 1)
@@ -1334,7 +1338,8 @@ def hold_lm_golden(model, params, golden, rules=None) -> dict:
                         route_codes(routes), want_routes).any():
                     apart_at = t
                 routes.clear()
-            got = logits[0].float().cpu().numpy()
+            got = vocab_logits(logits, rules or NO_SHARDING)[0] \
+                .float().cpu().numpy()
             ids, want = golden["top_ids"][i, t], golden["top_logits"][i, t]
             scale = float(golden["absmax"][i, t])
             err, ok = logits_close(got[ids], want, scale)

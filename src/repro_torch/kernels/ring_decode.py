@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -197,8 +198,21 @@ def ring_decode_attention(q, k_ring, v_ring, seq_len, *, window: int,
            (B, window, kv_heads, group, d, block, seq_scalar,
             int(q.dtype == torch.bfloat16), sp.split_len, sp.splits,
             d ** -0.5, float(softcap or 0.0)))
-    ring_decode_attention.launches += 1
+    with _COUNTING:   # the ranks of a one-process mesh launch in threads
+        ring_decode_attention.launches += 1
+    _THREAD.launches = getattr(_THREAD, "launches", 0) + 1
     return out[0] if unbatched else out
+
+
+_COUNTING = threading.Lock()
+_THREAD = threading.local()
+
+
+def thread_launches() -> int:
+    """The launches of :func:`ring_decode_attention` made on this thread
+    since it began (a stand-in mesh's rank runs on a thread of its
+    own)."""
+    return getattr(_THREAD, "launches", 0)
 
 
 def ring_decode_attention_plain(q, k_ring, v_ring, seq_len, *, window: int,

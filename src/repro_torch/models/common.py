@@ -8,7 +8,12 @@ activations stay in the residual stream's dtype (bf16 on the serve
 path) and every matmul weight is cast to it.  Each ``rules.act`` of the
 reference is kept (``parallel.sharding.AxisRules``): it acts only on a
 DTensor, and the mesh path hands these functions plain tensors, the
-rank's own rows.
+rank's own rows.  Over a ``model`` axis (``tp``) the weights are the
+rank's shards: its query heads (and KV heads, or the KV heads its query
+heads read where they do not divide: :func:`local_heads`), its
+``d_ff`` columns; a row-parallel product (``w_o``, ``w_down``) gives
+the rank's partial sum, which :func:`row_parallel` adds up over the
+ranks in fp32 before it rounds to the activations' dtype.
 
 The initialisers (``init_norm``, ``init_attn``, ``init_mlp``) draw from
 an explicit ``torch.Generator`` on its device (or on ``device``, which
@@ -39,6 +44,19 @@ def matmul(x, w):
     if x.dtype == torch.bfloat16 and x.device.type == "cpu":
         return (x.to(F32) @ w.to(F32)).to(x.dtype)
     return x @ w
+
+
+def row_parallel(x, w, rules: AxisRules, logical: str, product=None):
+    """``x @ w`` of a product whose rows ``w`` holds this rank's shard of
+    over ``logical`` (``heads``, ``ff``): the ranks' fp32 partial sums are
+    summed, then rounded to x's dtype once, as one device rounds its
+    product's fp32 sum once (a bf16 partial rounded on each rank before
+    the sum would add a rounding a rank); ``product`` (:func:`matmul` by
+    default) where ``logical`` is whole."""
+    if rules.shards(logical) == 1:
+        return (product or matmul)(x, w)
+    part = x.to(F32) @ w.to(x.dtype).to(F32)
+    return rules.psum(part, logical).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -227,12 +245,44 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+def local_heads(cfg, rules: AxisRules = NO_SHARDING) -> tuple[int, int, int]:
+    """``(query heads, KV heads, first KV head)`` of this rank: its
+    ``n_heads / R`` query heads where ``heads`` is split over R ranks,
+    and its ``n_kv_heads / R`` KV heads where those divide (``kv_heads``
+    split too); else every rank holds the KV projections whole and uses
+    the KV heads its query heads read (GQA groups of ``n_heads /
+    n_kv_heads`` heads; :func:`~repro_torch.parallel.sharding.
+    check_executable` refuses a split whose runs differ in length)."""
+    R = rules.shards("heads")
+    hq = cfg.n_heads // R
+    if R == 1 or rules.shards("kv_heads") > 1:
+        kv = cfg.n_kv_heads // R
+        return hq, kv, rules.shard_index("heads") * kv
+    group = cfg.n_heads // cfg.n_kv_heads
+    return hq, max(1, hq // group), rules.shard_index("heads") * hq // group
+
+
+def kv_weights(p: dict, cfg, rules: AxisRules = NO_SHARDING):
+    """``(w_k, w_v)`` of the KV heads this rank computes
+    (:func:`local_heads`): the leaves as they are, or the columns of the
+    KV heads its query heads read where every rank holds them whole."""
+    _, kv, first = local_heads(cfg, rules)
+    w_k, w_v = p["w_k"], p["w_v"]
+    if w_k.shape[-1] == kv * cfg.head_dim:
+        return w_k, w_v
+    cols = slice(first * cfg.head_dim, (first + kv) * cfg.head_dim)
+    return w_k[:, cols], w_v[:, cols]
+
+
 def project_qkv(p: dict, x, cfg, positions, *, rope_q: bool = True,
                 rope_k: bool = True, rules: AxisRules = NO_SHARDING):
+    """q ``[B, S, heads, D]`` and k, v ``[B, S, KV heads, D]`` of this
+    rank's heads (all of them off a ``model`` axis)."""
     B, S, _ = x.shape
-    q = matmul(x, p["w_q"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = matmul(x, p["w_k"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = matmul(x, p["w_v"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    w_k, w_v = kv_weights(p, cfg, rules)
+    q = matmul(x, p["w_q"]).reshape(B, S, -1, cfg.head_dim)
+    k = matmul(x, w_k).reshape(B, S, -1, cfg.head_dim)
+    v = matmul(x, w_v).reshape(B, S, -1, cfg.head_dim)
     if rope_q:
         q = rope(q, positions, cfg.rope_theta)
     if rope_k:
@@ -307,7 +357,8 @@ def mlp_forward(p: dict, x, cfg, rules: AxisRules = NO_SHARDING):
         up = _silu(matmul(h, p["w_gate"])) * up
     else:
         up = _gelu(up)
-    out = rules.act(matmul(up, p["w_down"]), "batch", "res_seq", None)
+    out = rules.act(row_parallel(up, p["w_down"], rules, "ff"), "batch",
+                    "res_seq", None)
     if cfg.post_norms:
         out = apply_norm(p["post_ln"], out, cfg)
     return out

@@ -8,6 +8,14 @@ chunks a scan of the small ``[H, P, N]`` state.  The decode hand-off
 state is recomputed from a cumsum over the whole sequence, as the
 reference does.  ``ssm_step`` is the one-token recurrence.  The SSM
 state is fp32; the conv state is in the activations' dtype.
+
+Over a ``model`` axis (``tp``) a rank holds its SSD heads' columns of
+``ssm_w_z`` and ``ssm_w_x`` and their rows of ``ssm_out`` (row-parallel:
+the ranks' products are summed); ``ssm_w_b``, ``ssm_w_c``, ``ssm_w_dt``,
+``ssm_conv`` and the per-head and norm vectors are whole on every rank,
+which takes its heads' slice of them (:func:`_local`).  The gated norm is
+an RMS over the whole ``d_inner``: its sum of squares is summed over the
+ranks.  The caches hold the rank's heads.
 """
 from __future__ import annotations
 
@@ -18,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import NO_SHARDING, AxisRules
-from .common import F32, _silu, apply_norm, init_norm, normal, rmsnorm
+from .common import (F32, _silu, apply_norm, init_norm, normal, rmsnorm,
+                     row_parallel)
 
 
 class SSMCache(NamedTuple):
@@ -124,12 +133,45 @@ def _matmul(x, w):
     return (x.to(F32) @ w.to(x.dtype).to(F32)).to(x.dtype)
 
 
-def _gated_norm(y, z, scale):
+def _gated_norm(y, z, scale, rules: AxisRules = NO_SHARDING):
     """``rmsnorm(y * silu(z))`` in y's dtype, the gate's product taken in
     fp32 into the norm: the reference writes it in bf16, but XLA fuses
     the product into the norm's fp32 cast and drops its bf16 rounding
-    (rounding it here differs in about 26% of the outputs)."""
-    return rmsnorm(y.to(F32) * _silu(z).to(F32), scale).to(y.dtype)
+    (rounding it here differs in about 26% of the outputs).  Over heads
+    split on ``model`` (y, z and ``scale`` the rank's columns) the sum
+    of squares is summed over the ranks."""
+    g = y.to(F32) * _silu(z).to(F32)
+    R = rules.shards("heads")
+    if R == 1:
+        return rmsnorm(g, scale).to(y.dtype)
+    var = rules.psum(g.square().sum(dim=-1, keepdim=True), "heads") \
+        / (g.shape[-1] * R)
+    out = g * torch.rsqrt(var + 1e-6) * (1.0 + scale.to(F32))
+    return out.to(y.dtype)
+
+
+def _local(p: dict, cfg, rules: AxisRules) -> tuple[dict, int]:
+    """``(params, heads)``: the block's params as this rank computes with
+    them, and its SSD head count (all of them off a ``model`` axis): the
+    columns of ``ssm_w_z`` / ``ssm_w_x`` and the rows of ``ssm_out`` are
+    its own; of the leaves that every rank holds whole, its heads' slice
+    (``ssm_w_dt``, ``ssm_a_log``, ``ssm_dt_bias``, ``ssm_d``, its
+    ``d_inner`` columns of ``ssm_norm`` and of the conv's x channels; the
+    conv's B and C channels whole)."""
+    P, di = cfg.ssm_head_dim, cfg.d_inner
+    H = p["ssm_w_x"].shape[-1] // P
+    if H == cfg.ssm_heads:
+        return p, H
+    h0 = rules.shard_index("heads") * H
+    heads, cols = slice(h0, h0 + H), slice(h0 * P, (h0 + H) * P)
+    q = dict(p)
+    q["ssm_w_dt"] = p["ssm_w_dt"][:, heads]
+    for name in ("ssm_a_log", "ssm_dt_bias", "ssm_d"):
+        q[name] = p[name][heads]
+    q["ssm_norm"] = p["ssm_norm"][cols]
+    q["ssm_conv"] = torch.cat([p["ssm_conv"][:, cols], p["ssm_conv"][:, di:]],
+                              dim=1)
+    return q, H
 
 
 def _project(p: dict, h, cfg):
@@ -154,8 +196,9 @@ def ssm_forward(p: dict, x, cfg, cache: SSMCache | None = None, *,
     pre-residual; the cache or None)."""
     B, S, d = x.shape
     dt_ = x.dtype
-    di, G, N, H, P = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
-                      cfg.ssm_heads, cfg.ssm_head_dim)
+    p, H = _local(p, cfg, rules)
+    G, N, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    di = H * P
     h = apply_norm(p["ln"], x, cfg)
     z, conv_in, dt = _project(p, h, cfg)
     conv_out, conv_state = _causal_conv(conv_in, p["ssm_conv"])
@@ -174,8 +217,9 @@ def ssm_forward(p: dict, x, cfg, cache: SSMCache | None = None, *,
         dtp = F.pad(dt, (0, 0, 0, pad))
     y = _ssd_chunked(xp.to(F32), dtp, p["ssm_a_log"], Bq, Cq, chunk)[:, :S]
     y = y + xs.to(F32) * p["ssm_d"][:, None]
-    y = _gated_norm(y.reshape(B, S, di).to(dt_), z, p["ssm_norm"])
-    out = rules.act(_matmul(y, p["ssm_out"]), "batch", "res_seq", None)
+    y = _gated_norm(y.reshape(B, S, di).to(dt_), z, p["ssm_norm"], rules)
+    out = rules.act(row_parallel(y, p["ssm_out"], rules, "heads", _matmul),
+                    "batch", "res_seq", None)
     if not return_cache:
         return out, None
     # the final state for the decode hand-off, from a cumsum over S
@@ -189,13 +233,15 @@ def ssm_forward(p: dict, x, cfg, cache: SSMCache | None = None, *,
                          conv=conv_state.to(dt_).contiguous())
 
 
-def ssm_step(p: dict, x, cfg, cache: SSMCache):
+def ssm_step(p: dict, x, cfg, cache: SSMCache,
+             rules: AxisRules = NO_SHARDING):
     """One decode token, x ``[B, 1, d]`` -> (output ``[B, 1, d]``, new
     cache)."""
     B = x.shape[0]
     dt_ = x.dtype
-    di, G, N, H, P = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
-                      cfg.ssm_heads, cfg.ssm_head_dim)
+    p, H = _local(p, cfg, rules)
+    G, N, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    di = H * P
     h = apply_norm(p["ln"], x, cfg)[:, 0]
     z, conv_in, dt = _project(p, h, cfg)                      # dt [B,H]
     full = torch.cat([cache.conv.to(dt_), conv_in[:, None]], dim=1)
@@ -211,16 +257,18 @@ def ssm_step(p: dict, x, cfg, cache: SSMCache):
              + (dt[..., None] * xs)[..., None] * Bp[:, :, None, :])
     y = torch.einsum("bhn,bhpn->bhp", Cp, state)
     y = y + xs * p["ssm_d"][:, None]
-    y = _gated_norm(y.reshape(B, di).to(dt_), z, p["ssm_norm"])
-    out = _matmul(y, p["ssm_out"])[:, None]
+    y = _gated_norm(y.reshape(B, di).to(dt_), z, p["ssm_norm"], rules)
+    out = row_parallel(y, p["ssm_out"], rules, "heads", _matmul)[:, None]
     return out, SSMCache(state=state, conv=full[:, 1:].contiguous())
 
 
-def init_ssm_cache(cfg, batch: int, dtype=torch.bfloat16,
-                   device="cuda") -> SSMCache:
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+def init_ssm_cache(cfg, batch: int, dtype=torch.bfloat16, device="cuda",
+                   rules: AxisRules = NO_SHARDING) -> SSMCache:
+    """An empty cache of this rank's SSD heads."""
+    R = rules.shards("heads")
+    conv_dim = cfg.d_inner // R + 2 * cfg.ssm_groups * cfg.ssm_state
     return SSMCache(
-        state=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+        state=torch.zeros((batch, cfg.ssm_heads // R, cfg.ssm_head_dim,
                            cfg.ssm_state), dtype=F32, device=device),
         conv=torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
                          device=device))

@@ -9,6 +9,18 @@ expert products are batched matmuls over ``[E, cap, d]``; the shared
 experts (deepseek) are one dense gated MLP beside them.  Returns the
 output, the reference's load-balance + router z-loss aux, and the
 routing it chose (:class:`Routing`), which checks compare across runs.
+
+On a mesh the routing is the whole batch's, as the reference's GSPMD
+program computes it: where the batch is split over ranks, the capacity
+is that of the global token count, a choice's rank within its expert is
+offset by the choices of that expert on the lower batch ranks (each
+rank's ``[E]`` counts exchanged; token-major order runs over the ranks'
+rows in turn), and the aux loss's means are over every token.  A
+token's output depends only on its slot and its ``keep``, so no token
+row crosses ranks.  Over a ``model`` axis (``tp``: experts on
+``model``), each rank runs its ``E / R`` experts (and its ``d_ff``
+columns of the shared experts) on every token, which the ranks hold
+alike, and the ranks' outputs are summed.
 """
 from __future__ import annotations
 
@@ -97,14 +109,30 @@ def route(p: dict, ht, cfg):
     return logits, probs, gate / gate.sum(dim=-1, keepdim=True), eidx
 
 
-def dispatch(flat_e, E: int, cap: int, mode: str):
+def dispatch(flat_e, E: int, cap: int, mode: str,
+             rules: AxisRules = NO_SHARDING):
     """``(rank, keep)`` of each flattened choice: its rank among the
-    choices of its expert in token-major order, and ``rank < cap``."""
+    choices of its expert in token-major order over the whole batch (on
+    a mesh, after the choices of the lower batch ranks), and ``rank <
+    cap``."""
     onehot = torch.nn.functional.one_hot(flat_e, E).to(torch.int32)
     csum = _prefix_sum(onehot) if mode == "scan" \
         else torch.cumsum(onehot, dim=0, dtype=torch.int32)
     rank = (csum * onehot).sum(dim=-1) - 1
+    if rules.shards("batch") > 1:
+        counts = rules.pgather(onehot.sum(dim=0), "batch")     # [D, E]
+        below = counts[:rules.shard_index("batch")].sum(dim=0)
+        rank = rank + below[flat_e]
     return rank, rank < cap
+
+
+def _mean0(x, rules: AxisRules, T: int):
+    """The mean over the whole batch's ``T`` tokens of ``x [t, ...]``,
+    the rank's ``t`` tokens' rows (``x.mean(0)`` where the batch is
+    whole)."""
+    if rules.shards("batch") == 1:
+        return x.mean(0)
+    return rules.psum(x.sum(0), "batch") / T
 
 
 def moe_forward(p: dict, x, cfg, rules: AxisRules = NO_SHARDING):
@@ -114,27 +142,35 @@ def moe_forward(p: dict, x, cfg, rules: AxisRules = NO_SHARDING):
     dt = x.dtype
     h = apply_norm(p["ln"], x, cfg)
     T = B * S
+    Tg = T * rules.shards("batch")          # the whole batch's tokens
     ht = h.reshape(T, d)
     E, k = cfg.n_experts, cfg.top_k
-    cap = capacity(cfg, T)
+    cap = capacity(cfg, Tg)
     logits, probs, gate, eidx = route(p, ht, cfg)
 
     # load-balance aux loss (Switch-style) + router z-loss
-    density = torch.nn.functional.one_hot(eidx[:, 0], E).to(F32).mean(0)
-    aux = E * torch.sum(density * probs.mean(0))
-    aux = aux + 1e-3 * torch.logsumexp(logits, -1).square().mean()
+    density = _mean0(torch.nn.functional.one_hot(eidx[:, 0], E).to(F32),
+                     rules, Tg)
+    aux = E * torch.sum(density * _mean0(probs, rules, Tg))
+    aux = aux + 1e-3 * _mean0(torch.logsumexp(logits, -1).square(), rules,
+                              Tg)
 
     flat_e = eidx.reshape(-1)                                   # [T*k]
-    rank, keep = dispatch(flat_e, E, cap, cfg.moe_dispatch)
-    slot = flat_e * cap + rank.clamp(0, cap - 1)
+    rank, keep = dispatch(flat_e, E, cap, cfg.moe_dispatch, rules)
+    # this rank's experts (all of them off a model axis)
+    El = p["moe_gate"].shape[0]
+    e0 = rules.shard_index("experts") * El
+    mine = keep if El == E else keep & (flat_e >= e0) & (flat_e < e0 + El)
+    slot = (flat_e - e0).clamp(0, El - 1) * cap + rank.clamp(0, cap - 1)
     xk = torch.repeat_interleave(ht, k, dim=0)
-    xk = torch.where(keep[:, None], xk, torch.zeros((), dtype=dt,
+    xk = torch.where(mine[:, None], xk, torch.zeros((), dtype=dt,
                                                     device=x.device))
     # a kept choice owns its slot; a dropped one adds zeros
-    buf = torch.zeros((E, cap, d), dtype=dt, device=x.device)
+    buf = torch.zeros((El, cap, d), dtype=dt, device=x.device)
     if cfg.moe_dispatch == "scan":   # expert-major before the scatter
         buf = rules.act(buf, "heads", None, None)
-    xe = buf.reshape(E * cap, d).index_add_(0, slot, xk).reshape(E, cap, d)
+    xe = buf.reshape(El * cap, d).index_add_(0, slot, xk) \
+        .reshape(El, cap, d)
     xe = rules.act(xe, "heads", None, None)   # experts on the model axis
 
     g = matmul(xe, p["moe_gate"])
@@ -142,13 +178,22 @@ def moe_forward(p: dict, x, cfg, rules: AxisRules = NO_SHARDING):
     y = rules.act(matmul(_act(cfg, g, u), p["moe_down"]), "heads", None,
                   None)
 
-    out = y.reshape(E * cap, d)[slot] * keep[:, None].to(dt)
-    out = (out.reshape(T, k, d) * gate[..., None].to(dt)).sum(dim=1)
-
+    out = y.reshape(El * cap, d)[slot] * mine[:, None].to(dt)
+    out = out.reshape(T, k, d) * gate[..., None].to(dt)
+    # over a model axis the ranks' partial outputs are summed in fp32 and
+    # rounded once (``common.row_parallel``); the experts' ranks and the
+    # shared experts' d_ff ranks are the same ones (``experts`` and
+    # ``ff`` both on ``model`` under tp)
+    split = rules.shards("experts") > 1
+    out = out.to(F32).sum(dim=1) if split else out.sum(dim=1)
     if cfg.n_shared_experts:
         sg = matmul(ht, p["shared_gate"])
         su = matmul(ht, p["shared_up"])
-        out = out + matmul(_act(cfg, sg, su), p["shared_down"])
+        h = _act(cfg, sg, su)
+        out = out + (h.to(F32) @ p["shared_down"].to(dt).to(F32) if split
+                     else matmul(h, p["shared_down"]))
+    if split:
+        out = rules.psum(out, "experts").to(dt)
     out = rules.act(out.reshape(B, S, d), "batch", "res_seq", None)
     return out, aux, Routing(eidx.reshape(B, S, k),
                                               keep.reshape(B, S, k))

@@ -70,7 +70,8 @@ from ..kernels.ring_decode import ring_decode_attention
 from ..parallel.sharding import NO_SHARDING, AxisRules, local_tree
 from .common import (F32, KVCache, _const, _softcap, apply_norm, attention,
                      decode_attention, init_attn, init_mlp, init_norm,
-                     matmul, mlp_forward, normal, project_qkv, rope)
+                     kv_weights, local_heads, matmul, mlp_forward, normal,
+                     project_qkv, row_parallel)
 from .mamba2 import SSMCache, init_ssm, init_ssm_cache, ssm_forward, \
     ssm_step
 from .moe import init_moe, moe_forward
@@ -272,7 +273,7 @@ def _attn_sub(p: dict, x, cfg, kind: str, positions, *,
     window = cfg.window if kind == "local" else None
     o = attention(q, k, v, causal=True, window=window,
                   softcap=cfg.attn_softcap, bf16_einsum=cfg.bf16_einsum)
-    o = matmul(o.reshape(B, S, cfg.q_dim), p["w_o"])
+    o = row_parallel(o.reshape(B, S, -1), p["w_o"], rules, "heads")
     o = rules.act(o, "batch", "res_seq", None)
     if cfg.post_norms:
         o = apply_norm(p["post_ln"], o, cfg)
@@ -309,17 +310,17 @@ def _xattn_sub(p: dict, x, cfg, memory, *, make_cache: bool = False,
         raise ValueError(f"{cfg.name}'s cross blocks need memory")
     B, S, _ = x.shape
     h = apply_norm(p["ln"], x, cfg)
-    q = matmul(h, p["w_q"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    mk = matmul(memory, p["w_k"]).reshape(B, -1, cfg.n_kv_heads,
-                                          cfg.head_dim)
-    mv = matmul(memory, p["w_v"]).reshape(B, -1, cfg.n_kv_heads,
-                                          cfg.head_dim)
+    w_k, w_v = kv_weights(p, cfg, rules)
+    q = matmul(h, p["w_q"]).reshape(B, S, -1, cfg.head_dim)
+    M = memory.shape[1]
+    mk = matmul(memory, w_k).reshape(B, M, -1, cfg.head_dim)
+    mv = matmul(memory, w_v).reshape(B, M, -1, cfg.head_dim)
     q = rules.act(q, "batch", "seq", "heads", None)
     mk = rules.act(mk, "batch", None, "kv_heads", None)
     mv = rules.act(mv, "batch", None, "kv_heads", None)
     o = attention(q, mk, mv, causal=False, window=None, softcap=None,
                   bf16_einsum=cfg.bf16_einsum)
-    o = matmul(o.reshape(B, S, cfg.q_dim), p["w_o"])
+    o = row_parallel(o.reshape(B, S, -1), p["w_o"], rules, "heads")
     o = rules.act(o, "batch", "res_seq", None)
     return o, ((mk, mv) if make_cache else None)
 
@@ -391,24 +392,20 @@ def _decode_attn(q, k, v, cur_len: int, *, softcap, ring: bool,
 
 
 def _self_attn_step(ap: dict, x, cfg, kv: KVCache, cur_len: int, *,
-                    ring: bool, plain: bool):
+                    ring: bool, plain: bool, rules: AxisRules = NO_SHARDING):
     """One token's self-attention (reference ``:191-232``): project,
     RoPE, write the token's slot in place, attend -> (out, kv)."""
     B = x.shape[0]
     pos = cur_len - 1
     h = apply_norm(ap["ln"], x, cfg)
-    q = matmul(h, ap["w_q"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    kn = matmul(h, ap["w_k"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
-    vn = matmul(h, ap["w_v"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
-    q = rope(q, pos, cfg.rope_theta)
-    kn = rope(kn, pos, cfg.rope_theta)
+    q, kn, vn = project_qkv(ap, h, cfg, pos, rules=rules)
     slot = pos % cfg.window if ring else pos
     if slot < kv.k.shape[1]:   # a token past a full global cache is dropped
         kv.k[:, slot] = kn[:, 0].to(kv.k.dtype)
         kv.v[:, slot] = vn[:, 0].to(kv.v.dtype)
     o = _decode_attn(q, kv.k, kv.v, cur_len, softcap=cfg.attn_softcap,
                      ring=ring, window=cfg.window, plain=plain)
-    o = matmul(o.reshape(B, 1, cfg.q_dim), ap["w_o"])
+    o = row_parallel(o.reshape(B, 1, -1), ap["w_o"], rules, "heads")
     if cfg.post_norms:
         o = apply_norm(ap["post_ln"], o, cfg)
     return o, kv
@@ -422,25 +419,27 @@ def block_step(p: dict, x, cfg, kind: str, cache, cur_len: int, *,
     B = x.shape[0]
     if kind in SELF_KINDS:
         o, cache = _self_attn_step(p["attn"], x, cfg, cache, cur_len,
-                                   ring=kind == "local", plain=plain)
+                                   ring=kind == "local", plain=plain,
+                                   rules=rules)
         x_new = x + o
     elif kind == "cross":
         o, skv = _self_attn_step(p["attn"], x, cfg, cache.self_kv, cur_len,
-                                 ring=False, plain=plain)
+                                 ring=False, plain=plain, rules=rules)
         x_new = x + o
         xp = p["xattn"]
         h = apply_norm(xp["ln"], x_new, cfg)
-        q = matmul(h, xp["w_q"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        q = matmul(h, xp["w_q"]).reshape(B, 1, -1, cfg.head_dim)
         M = cache.mem_k.shape[1]
         o = _decode_attn(q, cache.mem_k, cache.mem_v, M, softcap=None,
                          ring=False, window=0, plain=plain)
-        x_new = x_new + matmul(o.reshape(B, 1, cfg.q_dim), xp["w_o"])
+        x_new = x_new + row_parallel(o.reshape(B, 1, -1), xp["w_o"], rules,
+                                     "heads")
         cache = CrossCache(skv, cache.mem_k, cache.mem_v)
     elif kind == "rec":
         o, cache = rec_step(p["rec"], x, cfg, cache)
         x_new = x + o
     elif kind == "ssm":
-        o, cache = ssm_step(p["ssm"], x, cfg, cache)
+        o, cache = ssm_step(p["ssm"], x, cfg, cache, rules=rules)
         x_new = x + o
     else:
         raise ValueError(kind)
@@ -449,9 +448,12 @@ def block_step(p: dict, x, cfg, kind: str, cache, cur_len: int, *,
 
 
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
-                     dtype=ACT_DTYPE, device="cuda"):
+                     dtype=ACT_DTYPE, device="cuda",
+                     rules: AxisRules = NO_SHARDING):
+    """A layer's empty cache: of this rank's KV and SSM heads on a
+    ``model`` axis (:func:`~.common.local_heads`)."""
     def kv(S):
-        shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
+        shape = (batch, S, local_heads(cfg, rules)[1], cfg.head_dim)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device))
     if kind in ("full", "global"):
@@ -464,8 +466,68 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
     if kind == "rec":
         return init_rec_cache(cfg, batch, dtype, device)
     if kind == "ssm":
-        return init_ssm_cache(cfg, batch, dtype, device)
+        return init_ssm_cache(cfg, batch, dtype, device, rules)
     raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------
+# The vocabulary over a model axis
+# --------------------------------------------------------------------------
+
+def log_softmax(logits, rules: AxisRules = NO_SHARDING):
+    """The log-softmax of fp32 logits over the vocabulary: where it is
+    split on ``model`` (each rank's logits its own rows'), the max and
+    the sum of exponentials are taken over the ranks."""
+    if rules.shards("vocab") == 1:
+        return torch.log_softmax(logits, dim=-1)
+    m = rules.pmax(logits.detach().amax(dim=-1, keepdim=True), "vocab")
+    total = rules.psum(torch.exp(logits - m).sum(dim=-1, keepdim=True),
+                       "vocab")
+    return logits - (m + torch.log(total))
+
+
+def label_logprob(logp, labels, rules: AxisRules = NO_SHARDING):
+    """``[B, S]``: the label's log-probability, the reference's masked sum
+    over the vocabulary (``transformer.py:449-456``: ``logp`` where the
+    vocabulary id is the label, else 0).  Every other term of that sum is
+    an exact 0, so the rank's term is read at the label where it lies in
+    the rank's rows (``gather`` at the clamped id, masked) rather than
+    summed over a ``[B, S, V]`` mask, and the sum over a ``model`` axis
+    has one term that is not 0: both are exactly the masked sum."""
+    labels = labels.to(torch.int64)
+    n = logp.shape[-1]
+    ids = labels - rules.shard_index("vocab") * n
+    mine = (ids >= 0) & (ids < n)
+    got = logp.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    return rules.psum(torch.where(mine, got, torch.zeros((), dtype=got.dtype,
+                                                         device=got.device)),
+                      "vocab")
+
+
+def vocab_logits(logits, rules: AxisRules = NO_SHARDING):
+    """Logits over the whole vocabulary on every rank, from each rank's
+    own rows' (``[..., V / R]``; as they are where the vocabulary is not
+    split)."""
+    if rules.shards("vocab") == 1:
+        return logits
+    parts = rules.pgather(logits, "vocab")          # [R, ..., V / R]
+    return torch.cat(list(parts), dim=-1)
+
+
+def greedy(logits, rules: AxisRules = NO_SHARDING):
+    """``[B]``: each row's argmax over the vocabulary (the first of equal
+    maxima, the lowest id, as ``jnp.argmax``): over a vocabulary split on
+    ``model``, each rank's max and the global id of its first argmax,
+    then the largest max, its lowest id among equals."""
+    if rules.shards("vocab") == 1:
+        return torch.argmax(logits, dim=-1)
+    best, at = logits.max(dim=-1)
+    at = at + rules.shard_index("vocab") * logits.shape[-1]
+    vals = rules.pgather(best, "vocab")                # [R, B]
+    ids = rules.pgather(at, "vocab")
+    top = vals.amax(dim=0)
+    return torch.where(vals == top, ids, torch.iinfo(ids.dtype).max) \
+        .amin(dim=0)
 
 
 # --------------------------------------------------------------------------
@@ -539,10 +601,21 @@ class Model:
                 "final_ln": rules.gather(params["encoder"]["final_ln"])}
         return out
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, rules: AxisRules = NO_SHARDING):
         """The embedded tokens; each caller constrains them (``rules.act(x,
-        "batch", "res_seq", None)``, the reference's ``_embed``'s)."""
-        x = params["embed"][tokens]
+        "batch", "res_seq", None)``, the reference's ``_embed``'s).  Over
+        a vocabulary split on ``model`` a rank looks up the tokens in its
+        range and puts zeros elsewhere; the sum over the ranks is the
+        lookup, exactly (one term of it is not 0)."""
+        table = params["embed"]
+        if rules.shards("vocab") > 1:
+            n = table.shape[0]
+            ids = tokens - rules.shard_index("vocab") * n
+            mine = (ids >= 0) & (ids < n)
+            x = table[ids.clamp(0, n - 1)] * mine[..., None]
+            x = rules.psum(x, "vocab")
+        else:
+            x = table[tokens]
         return (x * _const(math.sqrt(self.cfg.d_model), x)).to(ACT_DTYPE)
 
     def _unembed(self, params, x):
@@ -557,7 +630,9 @@ class Model:
 
     def _logits(self, params, x, rules: AxisRules):
         """:meth:`_unembed`, constrained as the reference's ``_unembed``
-        constrains its logits."""
+        constrains its logits: over a vocabulary split on ``model``, the
+        logits of this rank's vocabulary rows (``vocab_logits`` gathers
+        them whole)."""
         return rules.act(self._unembed(params, x), "batch", None, "vocab")
 
     def _tokens(self, params, tokens):
@@ -577,7 +652,8 @@ class Model:
             q, k, v = project_qkv(bp["attn"], h, cfg, pos, rules=rules)
             o = attention(q, k, v, causal=False, window=None, softcap=None,
                           bf16_einsum=cfg.bf16_einsum)
-            o = matmul(o.reshape(B, S, cfg.q_dim), bp["attn"]["w_o"])
+            o = row_parallel(o.reshape(B, S, -1), bp["attn"]["w_o"], rules,
+                             "heads")
             x = x + rules.act(o, "batch", "res_seq", None)
             x = x + mlp_forward(bp["ffn"], x, cfg, rules)
         return apply_norm(params["encoder"]["final_ln"], x, cfg)
@@ -614,7 +690,8 @@ class Model:
         params = self._on_rank(params, rules)
         tokens = self._tokens(params, local_tree(tokens))
         memory = self._memory(params, local_tree(memory), rules)
-        x = rules.act(self._embed(params, tokens), "batch", "res_seq", None)
+        x = rules.act(self._embed(params, tokens, rules), "batch", "res_seq",
+                      None)
         positions = torch.arange(tokens.shape[1], device=x.device)
 
         def run(x, aux, layers, kinds):
@@ -644,13 +721,14 @@ class Model:
         (loss, {"ce", "aux"}), fp32 scalars.  ``params`` is a
         reference-layout tree, the fp32 masters or a bf16 copy; ``batch``
         holds ``tokens`` and ``labels`` ``[B, S]`` and, for cross
-        blocks, ``memory``.  The label's log-probability is taken by
-        ``gather``, the same value as the reference's masked sum over
-        the vocabulary (every other term of that sum is an exact 0:
-        the vocabulary is whole on every rank, as a ``model`` axis of 1
-        leaves it).  On a mesh the batch's arrays are this rank's rows
-        (or DTensors of them) and the loss is their mean: the global
-        loss is the mean of the ranks' (``make_train_step`` takes it)."""
+        blocks, ``memory``.  The label's log-probability is the
+        reference's masked sum over the vocabulary (:func:`label_logprob`),
+        and over a vocabulary split on ``model`` the log-softmax takes its
+        max and its sum of exponentials over the ranks.  On a mesh the
+        batch's arrays are this rank's rows (or DTensors of them) and the
+        loss is their mean: the global loss is the mean of the ranks'
+        (``make_train_step`` takes it), and every rank of a ``model``
+        axis holds it alike."""
         cfg = self.cfg
         rules = rules or NO_SHARDING
         batch = local_tree(batch)
@@ -660,8 +738,7 @@ class Model:
                                    remat_policy=remat_policy
                                    or cfg.remat_policy, rules=rules)
         labels = torch.as_tensor(batch["labels"], device=logits.device)
-        logp = torch.log_softmax(logits, dim=-1)
-        ll = logp.gather(-1, labels.to(torch.int64)[..., None])[..., 0]
+        ll = label_logprob(log_softmax(logits, rules), labels, rules)
         ce = -ll.mean()
         aux = torch.as_tensor(aux, dtype=F32, device=logits.device)
         loss = ce + 0.01 * aux if cfg.n_experts else ce
@@ -669,9 +746,10 @@ class Model:
 
     # ---- public: serving ----------------------------------------------------
     def init_caches(self, batch: int, cache_len: int, dtype=ACT_DTYPE,
-                    device="cuda") -> list:
+                    device="cuda", rules: AxisRules | None = None) -> list:
         return [init_block_cache(self.cfg, kind, batch, cache_len, dtype,
-                                 device) for kind in layer_kinds(self.cfg)]
+                                 device, rules or NO_SHARDING)
+                for kind in layer_kinds(self.cfg)]
 
     def prefill(self, params, tokens, cache_len: int = 0, *, memory=None,
                 routes=None, rules: AxisRules | None = None):
@@ -686,7 +764,8 @@ class Model:
         memory = self._memory(params, local_tree(memory), rules)
         S = tokens.shape[1]
         cache_len = max(cache_len, S)
-        x = rules.act(self._embed(params, tokens), "batch", "res_seq", None)
+        x = rules.act(self._embed(params, tokens, rules), "batch", "res_seq",
+                      None)
         positions = torch.arange(S, device=x.device)
         caches = []
         for p, kind in zip(params["layers"], layer_kinds(cfg)):
@@ -707,7 +786,7 @@ class Model:
         rules = rules or NO_SHARDING
         params = self._on_rank(params, rules)
         token = self._tokens(params, local_tree(token))
-        x = rules.act(self._embed(params, token[:, None]), "batch",
+        x = rules.act(self._embed(params, token[:, None], rules), "batch",
                       "res_seq", None)
         cur = int(cur_len) + 1  # length including this token
         new = []
@@ -721,5 +800,6 @@ class Model:
 
 __all__ = ["ATTN_KINDS", "BLOCK_KINDS", "CrossCache", "KVCache",
            "LRUCache", "Model", "SSMCache", "block_forward", "block_step",
-           "init_block", "init_block_cache", "layer_kinds",
-           "layers_from_tree", "params_from_reference", "train_params"]
+           "greedy", "init_block", "init_block_cache", "label_logprob",
+           "layer_kinds", "layers_from_tree", "log_softmax",
+           "params_from_reference", "train_params", "vocab_logits"]

@@ -8,6 +8,10 @@
   buckets, one after another, then split back into the tree with each
   leaf's dtype.
 * ``quantize_int8 / dequantize_int8`` — the codec.
+* ``mesh_sum / mesh_max / mesh_gather`` — tensor parallelism's sums and
+  MoE routing's exchanges along mesh dims, over a ``DeviceMesh``'s
+  process groups or a one-process ``standin.StandInMesh`` (what
+  ``AxisRules.psum``, ``pmax`` and ``pgather`` call).
 
 The arithmetic is written once, over rows of a leading participant
 axis, with the reduction over participants injected: the process-group
@@ -141,3 +145,80 @@ def bucketed_psum_stacked(trees: list, bucket_bytes: int = 4 << 20,
     rows = [torch.stack([x.reshape(-1) for x in xs]) for xs in per_leaf]
     flat = _bucketed_rows(rows, _stacked_reduce, bucket_bytes, compressed)
     return [_split(f, trees[0]) for f in flat]
+
+
+# -- the model and batch axes of a mesh --------------------------------------
+#
+# Tensor parallelism's sums, and MoE routing's exchanges over the batch,
+# along mesh dims: over a ``DeviceMesh``'s process groups, or over a
+# ``StandInMesh`` (one thread a rank).  A sum's gradient is the sum of
+# the ranks' gradients: a rank holds a partial gradient of every value
+# that all ranks hold alike (its own share of the loss), and the sum over
+# the ranks of the partial gradients is the whole.
+
+def _groups(mesh, dims) -> list:
+    """The process groups of a ``DeviceMesh`` along ``dims``."""
+    return [mesh.get_group(mesh.mesh_dim_names[d]) for d in dims]
+
+
+def _reduced(x: torch.Tensor, groups, op: str) -> torch.Tensor:
+    out = x.contiguous().clone()
+    for g in groups:
+        dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                                 "max": dist.ReduceOp.MAX}[op], group=g)
+    return out
+
+
+class _GroupSum(torch.autograd.Function):
+    """The sum over process groups; its backward sums the gradient over
+    them too."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _reduced(x, groups, "sum")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduced(grad, ctx.groups, "sum"), None
+
+
+def _standin(mesh) -> bool:
+    from .standin import StandInMesh
+    return isinstance(mesh, StandInMesh)
+
+
+def mesh_sum(mesh, dims, x: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's ``x`` along the mesh ``dims``, on every one
+    of them (autograd-aware; the stand-in adds the ranks' tensors in rank
+    order)."""
+    if _standin(mesh):
+        parts = mesh.exchange(dims, x)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
+    return _GroupSum.apply(x, _groups(mesh, dims))
+
+
+def mesh_max(mesh, dims, x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of every rank's ``x`` along ``dims`` (no
+    gradient)."""
+    x = x.detach()
+    if _standin(mesh):
+        return torch.stack(mesh.exchange(dims, x)).amax(dim=0)
+    return _reduced(x, _groups(mesh, dims), "max")
+
+
+def mesh_gather(mesh, dims, x: torch.Tensor) -> torch.Tensor:
+    """``[ranks, *x.shape]``: every rank's ``x`` along ``dims`` stacked in
+    their order on ``dims`` (the first dim outermost; no gradient)."""
+    x = x.detach()
+    if _standin(mesh):
+        return torch.stack(mesh.exchange(dims, x))
+    out = x.contiguous()[None]
+    for g in reversed(_groups(mesh, dims)):   # the innermost dim first
+        parts = [torch.empty_like(out) for _ in range(dist.get_world_size(g))]
+        dist.all_gather(parts, out, group=g)
+        out = torch.cat(parts)
+    return out

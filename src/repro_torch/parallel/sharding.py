@@ -19,15 +19,22 @@ device.
 
 The mesh path keeps DTensors at its edges: the train state and a batch
 (placed by these rules), a checkpoint's restore, and each block's weight
-gather (:meth:`AxisRules.gather`), which hands the block plain tensors
-and sends their gradients back as partial sums that autograd
-reduce-scatters into the parameters' own placements.  Every op of the
-model and every hand-written kernel sees plain tensors: the rank's own
-batch rows, and whole weights.  That holds while each activation's
-only sharded dim is the batch, so a ``model`` axis larger than 1
-(tensor, sequence and expert parallelism) raises, as does an MoE
-block under a batch axis larger than 1: its routing couples rows across
-the whole batch (:func:`check_executable`).
+gather (:meth:`AxisRules.gather`), which hands the block plain tensors:
+whole over the batch/FSDP dims, and on the ``model`` axis the rank's own
+shard of every leaf that ``tp`` shards there (heads, ``d_ff``, experts,
+vocabulary, SSD heads).  Every op of the model and every hand-written
+kernel sees plain tensors, the rank's own batch rows, and the model
+code itself makes the reductions that GSPMD inserts from the
+reference's specs (a sum after a row-parallel product, the vocabulary's max
+and sum, the MoE routing's exchange over the batch: :meth:`AxisRules.
+psum` and the methods beside it, over the mesh's process groups or a
+one-process ``standin.StandInMesh``).  A rank holds a partial gradient
+of every value the ranks hold alike, so the sum's backward sums the
+gradient over the ranks, and a leaf replicated on ``model`` gathers a
+partial gradient on each rank (``Partial``, as on the batch dims).
+Sequence parallelism (``fsdp_sp``, ``sp_residual``, a KV cache's
+sequence on a mesh dim) is not ported: :func:`check_executable` refuses
+it.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from typing import Any, ClassVar
 import torch
 
 from ..train.tree import leaves_with_paths, map_with_path, tree_map
+from . import collectives
 
 #: Where the execution that :func:`check_executable` refuses is queued.
 MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 9.6"
@@ -65,22 +73,65 @@ def axis_sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
-def check_executable(cfg, *, model: int, batch: int) -> None:
-    """Raise ``NotImplementedError`` where the mesh path would change the
-    numbers: a ``model`` axis of ``model > 1`` ranks, or an MoE config
-    whose batch is split over ``batch > 1`` ranks (its capacity, each
-    token's slot and the aux loss are functions of the whole batch,
-    reference ``moe.py:59-78``)."""
-    if model > 1:
+def _axes(entry) -> tuple[str, ...]:
+    """The mesh axes a spec entry names."""
+    return () if entry is None else \
+        (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def check_executable(cfg, rules) -> None:
+    """Raise where the mesh path of ``rules`` would not compute the
+    reference's numbers.  ``NotImplementedError`` (naming
+    :data:`MODEL_AXIS_ITEM`) for sequence parallelism: the ``fsdp_sp``
+    mode over a ``model`` axis above 1, and any rule that puts ``seq``,
+    ``res_seq`` or ``kv_seq`` on a mesh dim above 1 (``sp_residual``, a
+    decode cache's sequence where the KV heads do not divide,
+    ``long_context`` over a data axis; ``kv_seq`` only where the config
+    has attention, and so KV caches); and for an ``lru_`` block under
+    ``tp`` with a ``model`` axis above 1 (no config has one).
+    ``ValueError`` where the ``model`` axis does not divide a width it
+    shards, or where a rank's query heads would read KV heads in runs of
+    unequal length."""
+    sizes = axis_sizes(rules.mesh)
+    R = sizes.get("model", 1)
+    # a config with no attention keeps no KV cache for kv_seq to shard
+    cached = {"full", "local", "global", "cross"} & set(cfg.pattern)
+    on = [name for name in ("seq", "res_seq", "kv_seq")
+          if (name != "kv_seq" or cached)
+          and any(sizes.get(a, 1) > 1 for a in _axes(rules._phys(name)))]
+    if on or (R > 1 and rules.mode == "fsdp_sp"):
         raise NotImplementedError(
-            f"execution over a 'model' axis of {model} ranks (tensor, "
-            f"sequence and expert parallelism) is not ported: "
-            f"{MODEL_AXIS_ITEM}")
-    if batch > 1 and getattr(cfg, "n_experts", 0):
+            f"{cfg.name}: the {rules.mode} rules on {sizes} shard "
+            f"{', '.join(on) or 'the sequence over model'}; sequence "
+            f"parallelism is not ported: {MODEL_AXIS_ITEM}")
+    if R == 1:
+        return
+    if "rec" in cfg.pattern:
         raise NotImplementedError(
-            f"{cfg.name}'s MoE blocks route over the whole batch, which is "
-            f"split over {batch} ranks here; global MoE routing is not "
-            f"ported: {MODEL_AXIS_ITEM}")
+            f"{cfg.name}'s rec blocks under a 'model' axis of {R} ranks "
+            f"(lru_ widths on 'model') are not ported: {MODEL_AXIS_ITEM}")
+    widths = {"vocab": cfg.vocab, "d_ff": cfg.d_ff,
+              "n_experts": cfg.n_experts}
+    if cached:
+        widths["n_heads"] = cfg.n_heads
+    if cfg.first_dense_layers:
+        widths["lead d_ff"] = cfg.d_ff * (cfg.top_k + cfg.n_shared_experts)
+    if cfg.ssm_state:
+        widths["ssm_heads"] = cfg.ssm_heads
+        if cfg.ssm_groups != 1:
+            raise ValueError(f"{cfg.name}: SSD heads over a 'model' axis "
+                             f"read one B/C group; it has {cfg.ssm_groups}")
+    bad = {k: n for k, n in widths.items() if n % R}
+    if bad:
+        raise ValueError(f"{cfg.name}: a 'model' axis of {R} ranks does not "
+                         f"divide {bad}")
+    if cached and not rules.kv_shardable:
+        group = cfg.n_heads // cfg.n_kv_heads
+        if group % (cfg.n_heads // R):
+            raise ValueError(
+                f"{cfg.name}: each of {R} ranks holds {cfg.n_heads // R} "
+                f"query heads, which straddle groups of {group} on "
+                f"{cfg.n_kv_heads} KV heads")
 
 
 def local_slices(shape, mesh_shape, placements, coord) -> tuple[slice, ...]:
@@ -144,14 +195,22 @@ def _contiguous_stride(shape) -> tuple[int, ...]:
     return tuple(reversed(stride))
 
 
-def _whole(x) -> torch.Tensor:
-    """A DTensor gathered whole onto this rank as a plain tensor; its
-    gradient arrives as this rank's partial sum and goes back into the
+def _on_rank(x, keep_model: bool) -> torch.Tensor:
+    """A DTensor as the plain tensor this rank computes on: whole over
+    every mesh dim but ``model``, where ``keep_model`` keeps the rank's
+    shard (a leaf replicated there is whole anyway).  The gradient
+    arrives as this rank's partial sum over every dim it is whole on
+    (the ranks' own rows; on ``model``, the rank's share of the loss)
+    and its own shard where it keeps one, and goes back into the
     DTensor's placements (a reduce-scatter over the dims it is sharded
     on, an all-reduce over the others)."""
-    dt, n = _dt(), x.device_mesh.ndim
-    return x.redistribute(x.device_mesh, [dt.Replicate()] * n) \
-        .to_local(grad_placements=[dt.Partial()] * n)
+    dt, mesh = _dt(), x.device_mesh
+    keep = [keep_model and name == "model" and isinstance(p, dt.Shard)
+            for name, p in zip(mesh.mesh_dim_names, x.placements)]
+    target = [p if k else dt.Replicate() for p, k in zip(x.placements, keep)]
+    return x.redistribute(mesh, target).to_local(
+        grad_placements=[p if k else dt.Partial()
+                         for p, k in zip(target, keep)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,8 +271,7 @@ class AxisRules:
         dt, names = _dt(), tuple(self.mesh.mesh_dim_names)
         out: list = [dt.Replicate()] * len(names)
         for d, entry in enumerate(spec):
-            axes = () if entry is None else \
-                (entry,) if isinstance(entry, str) else tuple(entry)
+            axes = _axes(entry)
             for a in axes:
                 if a not in names:
                     raise ValueError(f"spec {spec} names {a!r}, not an axis "
@@ -304,41 +362,120 @@ class AxisRules:
         return map_with_path(leaf, params)
 
     # -- the mesh path ---------------------------------------------------------
-    def _batch_dims(self) -> tuple[int, ...]:
-        """The mesh dims the batch is split over."""
-        spec = self.spec("batch")[0]
-        axes = () if spec is None else \
-            (spec,) if isinstance(spec, str) else spec
-        names = tuple(self.mesh.mesh_dim_names)
-        return tuple(names.index(a) for a in axes if a in names)
-
     def batch_shards(self) -> int:
         """How many ranks split the batch (1 without a mesh)."""
-        if self.mesh is None:
-            return 1
-        return math.prod(self.mesh.shape[d] for d in self._batch_dims())
+        return self.shards("batch")
 
     def check(self, cfg) -> None:
         """:func:`check_executable` of this mesh (no mesh: nothing)."""
         if self.mesh is not None:
-            check_executable(cfg, model=axis_sizes(self.mesh).get("model", 1),
-                             batch=self.batch_shards())
+            check_executable(cfg, self)
+
+    def whole_on_model(self, path) -> bool:
+        """Whether a leaf at ``path`` (its keys) is computed on whole
+        where the rules shard it on ``model``: the KV projections when
+        the KV heads do not divide (``kv_heads`` replicated: each rank
+        reads the KV heads its query heads need)."""
+        return not self.kv_shardable and bool(path) \
+            and path[-1] in ("w_k", "w_v")
 
     def gather(self, tree):
-        """Every DTensor leaf of ``tree`` whole on this rank as a plain
-        tensor (a block's weights just before it runs); autograd sends
-        each gradient back into its leaf's placements."""
+        """Every DTensor leaf of ``tree`` as the plain tensor this rank
+        computes on (a block's weights just before it runs): whole over
+        the batch/FSDP dims, the rank's shard on a ``model`` axis above 1
+        (:meth:`whole_on_model` aside); autograd sends each gradient
+        back into its leaf's placements."""
         if self.mesh is None:
             return tree
-        return tree_map(lambda x: _whole(x) if is_dtensor(x) else x, tree)
+        keep = self.model_ranks() > 1
+        return map_with_path(
+            lambda path, x: _on_rank(x, keep and not self.whole_on_model(
+                path)) if is_dtensor(x) else x, tree)
+
+    def rank_tree(self, tree, coord=None):
+        """This rank's plain tree of a whole one (any layout whose leaf
+        paths the param rules read: the reference's tree or the serve
+        path's params): each leaf as :meth:`gather` hands it to the
+        rank at ``coord`` (this rank's by default), a view."""
+        if self.mesh is None or self.model_ranks() == 1:
+            return tree
+        names = tuple(self.mesh.mesh_dim_names)
+        m = list(coord if coord is not None
+                 else self.mesh.get_coordinate())[names.index("model")]
+        R = self.model_ranks()
+
+        def leaf(path, x):
+            d = self.model_dim(path, x.ndim)
+            if d is None:
+                return x
+            n = x.shape[d] // R
+            return x.narrow(d, m * n, n)
+        return map_with_path(leaf, tree)
+
+    def model_dim(self, path, ndim: int) -> int | None:
+        """The dim of a leaf at ``path`` whose ``model`` shard a rank
+        computes on (None: it computes on the leaf whole)."""
+        if self.whole_on_model(path):
+            return None
+        spec = self.param_spec("/".join(path), ndim)
+        return next((d for d, entry in enumerate(spec)
+                     if "model" in _axes(entry)), None)
+
+    # -- collectives over the mesh dims of a logical axis ---------------------
+    def mesh_dims(self, logical: str) -> list[int]:
+        """The mesh dims above 1 that ``logical`` is sharded over."""
+        if self.mesh is None:
+            return []
+        names = tuple(self.mesh.mesh_dim_names)
+        return [names.index(a) for a in _axes(self._phys(logical))
+                if a in names and self.mesh.shape[names.index(a)] > 1]
+
+    def shards(self, logical: str) -> int:
+        """How many ranks split ``logical`` (1 where none does)."""
+        return math.prod(self.mesh.shape[d] for d in self.mesh_dims(logical))
+
+    def model_ranks(self) -> int:
+        """The ranks of the ``model`` axis (1 without a mesh)."""
+        return 1 if self.mesh is None else \
+            axis_sizes(self.mesh).get("model", 1)
+
+    def shard_index(self, logical: str) -> int:
+        """This rank's index among the ranks that split ``logical``
+        (row-major over their mesh dims; 0 where nothing splits it)."""
+        dims = self.mesh_dims(logical)
+        if not dims:
+            return 0
+        coord, i = self.mesh.get_coordinate(), 0
+        for d in dims:
+            i = i * self.mesh.shape[d] + coord[d]
+        return i
+
+    def psum(self, x: torch.Tensor, logical: str) -> torch.Tensor:
+        """The sum of the ranks' ``x`` over the mesh dims that split
+        ``logical`` (``x`` itself where none does): the reduction GSPMD
+        inserts after a product contracted over that axis.  Its backward
+        sums the ranks' gradients."""
+        dims = self.mesh_dims(logical)
+        return collectives.mesh_sum(self.mesh, dims, x) if dims else x
+
+    def pmax(self, x: torch.Tensor, logical: str) -> torch.Tensor:
+        """The elementwise max of the ranks' ``x`` over the mesh dims that
+        split ``logical`` (no gradient)."""
+        dims = self.mesh_dims(logical)
+        return collectives.mesh_max(self.mesh, dims, x) if dims \
+            else x.detach()
+
+    def pgather(self, x: torch.Tensor, logical: str) -> torch.Tensor:
+        """``[n, *x.shape]``: the ``n`` ranks' ``x`` that split
+        ``logical``, in :meth:`shard_index` order (no gradient)."""
+        dims = self.mesh_dims(logical)
+        return collectives.mesh_gather(self.mesh, dims, x) if dims \
+            else x.detach()[None]
 
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of a rank's plain ``x`` over the ranks that split the
         batch (``x`` itself without a mesh)."""
-        if self.mesh is None:
-            return x
-        dims = [d for d in self._batch_dims() if self.mesh.shape[d] > 1]
-        return self._sum_over(x, dims)
+        return self.psum(x, "batch")
 
     def _sum_over(self, x: torch.Tensor, dims) -> torch.Tensor:
         """The sum of a rank's plain ``x`` over the ranks along mesh

@@ -9,9 +9,13 @@ writing ring slots modulo the window; on a CUDA card each layer's decode
 attention is one launch of the hand-written ``ring_decode_attention``
 for the whole batch.  The engine runs where the params lie.  On a mesh
 (``rules`` with one) each rank prefills and decodes only its own rows
-of the batch, with plain caches and each block's weights gathered whole
-just before it (the params may be DTensors), and the ranks' tokens are
-gathered at the end, so every rank returns the whole batch's.
+of the batch, with plain caches and each block's weights gathered just
+before it (the params may be DTensors, or the rank's own plain tree),
+and the ranks' tokens are gathered at the end, so every rank returns
+the whole batch's.  Over a ``model`` axis every rank of a row decodes
+its heads, experts and vocabulary rows (caches of its KV and SSM
+heads), and the greedy token is the argmax over the ranks' vocabulary
+rows (``transformer.greedy``).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Any
 
 import torch
 
-from ..models.transformer import Model
+from ..models.transformer import Model, greedy
 from ..obs.spans import active, span
 from ..parallel.sharding import AxisRules, no_sharding
 
@@ -93,21 +97,17 @@ class ServingEngine:
             if active() and device.type == "cuda":  # sync only when timing
                 torch.cuda.synchronize(device)
         out = [[] for _ in range(len(toks))]
-        tok = torch.argmax(logits, dim=-1)
+        tok = greedy(logits, self.rules)
         with span("serve.decode", batch=B, steps=max_new):
             for _ in range(max_new):
                 for i, t in enumerate(tok.tolist()):
                     out[i].append(t)
                 logits, caches, cur = self.decode(self.params, caches, tok,
                                                   cur)
-                tok = torch.argmax(logits, dim=-1)
+                tok = greedy(logits, self.rules)
         if rows is not None:   # every rank's rows, on every rank
-            from torch.distributed.tensor import DTensor
-
             mine = torch.tensor(out, dtype=torch.int64, device=device) \
                 .reshape(len(toks), max_new)
-            out = DTensor.from_local(mine, rows.mesh, rows.placements,
-                                     shape=(B, max_new),
-                                     stride=(max_new, 1)).full_tensor() \
+            out = self.rules.pgather(mine, "batch").reshape(B, max_new) \
                 .tolist()
         return out

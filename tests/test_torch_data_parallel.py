@@ -17,8 +17,10 @@ the mesh path's code (``AxisRules.check``, the per-block ``gather``,
   bf16 each shard's weight gradient is rounded before the sum): loss
   and grad_norm within rtol 1e-5, every new parameter, mu and nu within
   rtol 1e-5, atol 1e-6 x the leaf's max;
-* reduced granite-moe under a batch axis above 1, and a ``model`` axis
-  above 1, raise ``NotImplementedError``;
+* reduced granite-moe under a batch axis of 4 (the stand-in's threads:
+  global MoE routing) takes the one-batch step's loss and grad_norm, and
+  gemma3-1b (``fsdp_sp``) under a ``model`` axis above 1 raises
+  ``NotImplementedError``;
 * every rank's rows of the batch (``Sharding.local``, the cut
   ``sharded_batch`` places) are the reference's ``synthetic_batch``
   rows, on a ``data`` mesh and, data-major, on a ``(pod, data)`` one.
@@ -37,11 +39,14 @@ from repro_torch.kernels.cases import TRAIN_GOLDEN_OPT, lm_params
 from repro_torch.launch.specs import make_rules
 from repro_torch.models import build_model, transformer
 from repro_torch.parallel.sharding import MODEL_AXIS_ITEM, Sharding
+from repro_torch.parallel.standin import StandInMesh
 from repro_torch.train import (AdamWConfig, adamw_update, init_state,
                                make_train_step, sharded_batch,
                                synthetic_batch)
 from repro_torch.train.optimizer import global_norm
-from repro_torch.train.train_step import rank_loss_and_grads
+from repro_torch.train.train_step import (rank_loss_and_grads,
+                                          standin_states,
+                                          standin_train_step)
 from repro_torch.train.tree import leaves, leaves_with_paths, unflatten_like
 from test_torch_sharding import FakeMesh
 
@@ -123,15 +128,20 @@ def test_a_step_over_four_shards_is_the_one_batch_step(arch):
 
 def test_moe_under_a_batch_axis_and_a_model_axis_raise():
     moe = get_config("granite-moe-1b-a400m").reduced()
-    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-        make_train_step(build_model(moe), _rules(moe))
-    rows = {k: v[:2] for k, v in synthetic_batch(moe, B, S, 0).items()}
-    with pytest.raises(NotImplementedError, match="route over the whole"):
-        rank_loss_and_grads(build_model(moe), _state(moe).params, rows,
-                            _rules(moe))
-    make_train_step(build_model(moe), _rules(moe, shape=(1, 1)))
+    model = build_model(moe)
+    opt = AdamWConfig(**TRAIN_GOLDEN_OPT)
+    mesh = StandInMesh((SHARDS, 1))
+    rules = make_rules(moe, mesh, TRAIN_4K)
+    with float32_activations():
+        batch = synthetic_batch(moe, B, S, 0)
+        _, m1 = make_train_step(model, opt=opt, remat_policy="none")(
+            _state(moe), batch)
+        states = standin_states(rules, _state(moe).params)
+        _, m4 = standin_train_step(model, rules, opt=opt)(states, batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m4[k]) - float(m1[k])) <= RTOL * float(m1[k]), k
     dense = get_config("gemma3-1b").reduced()
-    with pytest.raises(NotImplementedError, match="'model' axis of 2"):
+    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
         make_train_step(build_model(dense), _rules(dense, shape=(2, 2)))
 
 

@@ -14,7 +14,8 @@ reduced gemma3-1b for 2 steps, checkpoints and restores it, runs the
 training command, runs the FC chain through the ring and
 ``ops.segment_gemm`` against its oracle, and imports the mesh path
 (``parallel``, ``launch.mesh``, ``launch.specs``) and runs its rules and
-one-process collectives."""
+one-process collectives, and reduced granite-moe's forward over a
+``(data, model) = (2, 2)`` stand-in mesh."""
 import ast
 import os
 import pathlib
@@ -195,6 +196,18 @@ assert production_mesh_shape(multi_pod=True)[1] == ("pod", "data", "model")
 x = torch.linspace(-3, 2, 11)
 assert torch.equal(compressed_psum_stacked([x])[0],
                    dequantize_int8(*quantize_int8(x)))
+from repro_torch.parallel import StandInMesh
+from repro_torch.models.transformer import vocab_logits
+cfg = get_config("granite-moe-1b-a400m").reduced()
+mesh = StandInMesh((2, 2))
+rules = make_rules(cfg, mesh, TRAIN_4K)
+params = params_from_reference(cfg, lm_params(cfg, 0), "cpu")
+toks = torch.arange(1, 25).reshape(2, 12)
+got = mesh.run(lambda c: vocab_logits(build_model(cfg).forward(
+    rules.rank_tree(params), rules.sharding("batch", None).local(toks),
+    rules=rules)[0], rules))
+assert got[(0, 0)].shape == (1, 12, cfg.vocab)
+assert torch.equal(got[(1, 0)], got[(1, 1)])
 from repro_torch.core.ring_buffer import (init_chain_params,
                                           naive_chain_apply, plan_chain,
                                           run_chain_via_ring)

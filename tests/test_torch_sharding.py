@@ -18,8 +18,10 @@ rules read (axis names, shape, this rank's coordinate).
 * ``placements`` cuts a tuple entry data-major, as JAX does: every
   rank's ``local_slices`` is its block of the whole array;
 * the production mesh's shape and axis names are the reference's;
-* ``check_executable`` refuses a ``model`` axis above 1 and an MoE
-  config under a batch axis above 1, naming the ROADMAP item.
+* ``check_executable`` refuses sequence parallelism (an ``fsdp_sp``
+  config over a ``model`` axis above 1, a sequence dim on a mesh dim
+  above 1), naming the ROADMAP item, and takes a ``tp`` config over a
+  ``model`` axis and an MoE config under a batch axis above 1.
 """
 import itertools
 
@@ -199,18 +201,21 @@ def test_the_production_mesh_is_the_references(multi_pod, monkeypatch):
 def test_the_mesh_path_refuses_a_model_axis_and_split_moe():
     dense = get_config("gemma3-1b").reduced()
     moe = get_config("granite-moe-1b-a400m").reduced()
-    check_executable(dense, model=1, batch=4)
-    check_executable(moe, model=1, batch=1)
+
+    def rules(cfg, shape, names=("data", "model"), **kw):
+        return make_rules(cfg, FakeMesh(names, shape), TRAIN_4K, **kw)
+    check_executable(dense, rules(dense, (4, 1)))
+    check_executable(moe, rules(moe, (1, 1)))
     with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-        check_executable(dense, model=2, batch=1)
-    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-        check_executable(moe, model=1, batch=2)
-    rules = AxisRules(mesh=FakeMesh(("data", "model"), (2, 2)))
-    assert rules.batch_shards() == 2
-    with pytest.raises(NotImplementedError, match="'model' axis of 2"):
-        rules.check(dense)
-    pod = AxisRules(mesh=FakeMesh(("pod", "data", "model"), (2, 3, 1)),
-                    multi_pod=True)
+        check_executable(dense, rules(dense, (1, 2)))
+    check_executable(moe, rules(moe, (2, 1)))     # global routing
+    check_executable(moe, rules(moe, (1, 2)))     # tp: experts on model
+    fsdp_sp = rules(dense, (2, 2))
+    assert fsdp_sp.batch_shards() == 2 and fsdp_sp.mode == "fsdp_sp"
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        fsdp_sp.check(dense)
+    pod = rules(moe, (2, 3, 1), ("pod", "data", "model"), multi_pod=True)
     assert pod.batch_shards() == 6
-    with pytest.raises(NotImplementedError, match="split over 6 ranks"):
-        pod.check(moe)
+    pod.check(moe)
+    with pytest.raises(ValueError, match="does not divide"):
+        rules(moe, (1, 3)).check(moe)

@@ -40,8 +40,24 @@ the same work done in one process (which each rank also does):
 * serving: reduced gemma3-1b, ``len(PROMPT_LENS)`` prompts over the
   ``data`` mesh, params placed by ``params_shardings``: the one-process
   engine's tokens;
-* the refusals: a mesh with a ``model`` axis above 1, and reduced
-  granite-moe under a batch axis above 1, raise ``NotImplementedError``.
+* tensor parallelism: reduced granite-moe and mamba2 (``tp``) on
+  ``(data, model) = (1, ranks)`` and ``(2, ranks / 2)``, with fp32
+  activations on DTensor state (each block's weights the rank's
+  ``model`` shard; the model's sums over the ``model`` process group):
+  the first step's gradient of every leaf, in its placements gathered
+  whole, within rtol 1e-5, atol 1e-6 x max of one process's, and each
+  of ``STEPS`` steps' loss and grad_norm within rtol 1e-5 (the
+  parameters after three steps are not held element by element: AdamW
+  magnifies a rounding of a gradient element near its ``eps``, 1e-8, so
+  that a few of some 90,000 lie up to 5x past the tolerance; the
+  one-process stand-in shows the same); served, the one-process
+  engine's tokens (with fp32 activations: the ranks' bf16 products
+  round apart from one device's, and a near tie may flip a token);
+* global MoE routing: reduced granite-moe on a ``data`` mesh of every
+  rank, the same checks and its parameters after the last step at the
+  training tolerances above;
+* the refusals: reduced gemma3-1b (``fsdp_sp``: sequence parallelism)
+  over a ``model`` axis above 1 raises ``NotImplementedError``.
 
 A rank that fails or outlives ``--timeout`` fails the check (exit 1);
 the others are ended.  The last line of the output is the JSON record.
@@ -64,6 +80,8 @@ RANKS = 4
 SEED = 0
 ARCH = "gemma3-1b"
 MOE_ARCH = "granite-moe-1b-a400m"
+#: The tensor-parallel checks' configs (``shard_mode`` ``"tp"``).
+TP_ARCHS = (MOE_ARCH, "mamba2-780m")
 STEPS, BATCH, SEQ = 3, 8, 32
 PROMPT_LENS = (5, 9, 12, 16)
 MAX_NEW, CACHE_LEN = 8, 48
@@ -362,6 +380,132 @@ def check_train_loop(rank: int, world: int, tmp: str, cfg, tree) -> dict:
     return {"resumed_loss": got, "one_process_loss": want}
 
 
+def _params_worst(label, want, got, when=f" after step {STEPS}") -> float:
+    """The largest error of ``got``'s leaves against ``want``'s over the
+    tolerance (both whole trees); fails past it."""
+    from repro_torch.train.tree import leaves, leaves_with_paths
+
+    worst = 0.0
+    for (path, w), g in zip(leaves_with_paths(want), leaves(got)):
+        err = _close(g, w, RTOL, ATOL_REL)
+        _check(err <= 1, f"{label}: parameter {'/'.join(path)}{when} off "
+               f"by {err:.3g} of the tolerance")
+        worst = max(worst, err)
+    return worst
+
+
+def _metric_errs(label, got_m, want_m) -> dict:
+    errs = {}
+    for k in ("loss", "grad_norm"):
+        errs[k] = max(abs(g[k] - w[k]) / abs(w[k])
+                      for g, w in zip(got_m, want_m))
+        _check(errs[k] <= RTOL, f"{label}: {k} {[g[k] for g in got_m]} "
+               f"against {[w[k] for w in want_m]}")
+    return errs
+
+
+def _first_grads(cfg, tree, rules):
+    """The first step's gradients, whole: one process's (``rules`` None)
+    or the mesh's (DTensor state placed by ``rules``, gathered)."""
+    from repro_torch.models import build_model
+    from repro_torch.parallel import place_tree
+    from repro_torch.parallel.sharding import local_tree, no_sharding
+    from repro_torch.train import sharded_batch, synthetic_batch
+    from repro_torch.train.train_step import rank_loss_and_grads
+
+    state = _fresh_state(tree)
+    if rules is None:
+        return rank_loss_and_grads(build_model(cfg), state.params,
+                                   synthetic_batch(cfg, BATCH, SEQ, 0),
+                                   no_sharding())[1]
+    state = place_tree(state, _state_shardings(rules, state))
+    rows = {"tokens": rules.sharding("batch", None),
+            "labels": rules.sharding("batch", None)}
+    batch = local_tree(sharded_batch(cfg, BATCH, SEQ, 0, rows))
+    return _whole(rank_loss_and_grads(build_model(cfg), state.params, batch,
+                                      rules)[1])
+
+
+def _tokens(world, cfg, tree, shape) -> tuple[list, list]:
+    """``(mesh's tokens, one process's)`` of the serve prompts, the mesh
+    ``(data, model) = shape`` (the decode cell's rules where the decode
+    cache may stay whole, else the prefill cell's)."""
+    import numpy as np
+
+    from repro_torch.configs.base import DECODE_32K, PREFILL_32K
+    from repro_torch.launch.specs import make_rules
+    from repro_torch.models import build_model, params_from_reference
+    from repro_torch.parallel import place_tree
+    from repro_torch.serve import ServingEngine
+
+    model = build_model(cfg)
+    params = params_from_reference(cfg, tree, "cpu")
+    rng = np.random.default_rng([SEED, 3])
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, n)]
+               for n in PROMPT_LENS]
+    want = ServingEngine(model, params, cache_len=CACHE_LEN) \
+        .generate(prompts, MAX_NEW)
+    mesh = _mesh(shape, ("data", "model"))
+    rules = make_rules(cfg, mesh, DECODE_32K)
+    try:
+        rules.check(cfg)
+    except NotImplementedError:
+        rules = make_rules(cfg, mesh, PREFILL_32K)
+    placed = place_tree(params, rules.params_shardings(params))
+    got = ServingEngine(model, placed, rules=rules, cache_len=CACHE_LEN) \
+        .generate(prompts, MAX_NEW)
+    return got, want
+
+
+def check_tensor_parallel(world: int) -> dict:
+    """The tensor-parallel and global-routing checks of every arch of
+    :data:`TP_ARCHS` (see the module's docstring)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TRAIN_4K
+    from repro_torch.kernels.cases import lm_params
+    from repro_torch.launch.specs import make_rules
+
+    out = {}
+    for arch in TP_ARCHS:
+        cfg = get_config(arch).reduced()
+        tree = lm_params(cfg, SEED)
+        with activations(torch.float32):
+            one_m, one_state = one_process_training(cfg, tree)
+            one_g = _first_grads(cfg, tree, None)
+        shapes = [(1, world), (2, world // 2)]
+        if cfg.n_experts:
+            shapes.append((world, 1))
+        for shape in shapes:
+            label = f"{arch} (data, model)={shape}"
+            rules = make_rules(cfg, _mesh(shape, ("data", "model")),
+                               TRAIN_4K)
+            with activations(torch.float32):
+                grads = _first_grads(cfg, tree, rules)
+                got_m, state = mesh_training(cfg, tree, rules)
+            row = {"loss": [m["loss"] for m in got_m],
+                   "rel_err": _metric_errs(label, got_m, one_m),
+                   "grads_worst_of_tolerance": _params_worst(
+                       f"{label}: the first step's gradient of", one_g,
+                       grads, "")}
+            if shape[1] == 1:
+                row["params_worst_of_tolerance"] = _params_worst(
+                    label, one_state.params, _whole(state.params))
+            # over a model axis the ranks' bf16 products round apart from
+            # one device's, and a near tie may flip: the tokens are held
+            # with fp32 activations there
+            with activations(torch.float32 if shape[1] > 1
+                             else torch.bfloat16):
+                got, want = _tokens(world, cfg, tree, shape)
+            _check(got == want, f"{label}: the mesh's tokens {got} differ "
+                   f"from one process's {want}")
+            row["tokens"] = "one process's"
+            out[label] = row
+        out[f"{arch} one_process"] = {"loss": [m["loss"] for m in one_m]}
+    return out
+
+
 def check_serving(world: int, cfg, tree) -> dict:
     import numpy as np
 
@@ -389,6 +533,9 @@ def check_serving(world: int, cfg, tree) -> dict:
 
 
 def check_refusals(world: int) -> dict:
+    """``fsdp_sp`` (sequence parallelism) over a ``model`` axis raises;
+    an MoE config under a batch axis and a ``tp`` one over a ``model``
+    axis do not."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TRAIN_4K
     from repro_torch.launch.specs import make_rules
@@ -396,17 +543,20 @@ def check_refusals(world: int) -> dict:
     from repro_torch.train import make_train_step
 
     out = {}
-    cases = {"model axis": (ARCH, (world // 2, 2)),
-             "MoE under a batch axis": (MOE_ARCH, (world, 1))}
-    for label, (arch, shape) in cases.items():
+    cases = {"sequence parallelism": (ARCH, (world // 2, 2), True),
+             "MoE under a batch axis": (MOE_ARCH, (world, 1), False),
+             "tp over a model axis": (MOE_ARCH, (world // 2, 2), False)}
+    for label, (arch, shape, raises) in cases.items():
         cfg = get_config(arch).reduced()
         rules = make_rules(cfg, _mesh(shape, ("data", "model")), TRAIN_4K)
         try:
             make_train_step(build_model(cfg), rules)
         except NotImplementedError as e:
+            _check(raises, f"{label}: {arch} on {shape} raised {e}")
             out[label] = str(e)
             continue
-        _check(False, f"{label}: {arch} on {shape} did not raise")
+        _check(not raises, f"{label}: {arch} on {shape} did not raise")
+        out[label] = "runs"
     return out
 
 
@@ -452,6 +602,8 @@ def _rank_main(rank: int, world: int, store: str, out: str,
         lap("train_loop")
         record["serving"] = check_serving(world, cfg, tree)
         lap("serving")
+        record["tensor_parallel"] = check_tensor_parallel(world)
+        lap("tensor parallel")
         record["refusals"] = check_refusals(world)
         lap("refusals")
         if rank == 0:
@@ -504,7 +656,8 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     record = run(args.ranks, args.timeout)
     print(f"mesh check: {args.ranks} gloo ranks on the host CPU held the "
-          f"one-process collectives, training, checkpoint and tokens in "
+          f"one-process collectives, training, checkpoint, tokens, tensor "
+          f"parallelism and global MoE routing in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps(record))
 
