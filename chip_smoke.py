@@ -246,9 +246,11 @@ Phases, one summary line each:
      ``shardings=``, timed beside the unsharded numbers;
  11. ``tools/mesh_check.py`` on the host CPU: 4 gloo ranks against one
      process, reduced gemma3-1b on ``data=4`` and ``(pod, data, model)
-     = (2, 2, 1)``, and tensor parallelism (reduced granite-moe and
-     mamba2 at ``(data, model) = (1, 4)`` and ``(2, 2)``, granite-moe's
-     global MoE routing at ``data=4``);
+     = (2, 2, 1)``, tensor parallelism (reduced granite-moe and mamba2
+     at ``(data, model) = (1, 4)`` and ``(2, 2)``, granite-moe's global
+     MoE routing at ``data=4``) and sequence parallelism (reduced
+     gemma3-1b and recurrentgemma-2b, ``fsdp_sp``, at the same two
+     meshes);
  12. tensor parallelism on the card, the model ranks as threads of one
      process (``parallel.standin.StandInMesh``; NCCL takes one rank a
      card): granite-moe-1b-a400m at full width served through
@@ -262,14 +264,33 @@ Phases, one summary line each:
      unsharded; one granite-moe train step
      over 2 model ranks (``standin_train_step``, the golden's 2 x 128
      tokens, remat ``"none"``): loss, grad_norm and update norm within
-     2e-2 of the unsharded step's.
+     2e-2 of the unsharded step's;
+ 13. sequence parallelism on the card, the ranks as threads of one
+     process: gemma3-1b at full width served under the decode cell's
+     rules over 2 and 4 model ranks (each rank a run of the 4 global
+     caches, ``kv_seq``: 26 ``ring_decode_attention`` launches a step on
+     each rank, 4 of them with ``return_lse``, the partials combined by
+     their log-sum-exp) and under the long-context cell's over ``(data,
+     model) = (2, 1)`` and ``(2, 2)`` at batch 1, each with the unsharded
+     path's tokens, logits within the bf16 tolerance of the unsharded
+     plain path's, the golden on every rank (the decode cell), each
+     rank's cache bytes against the unsharded caches' and its decode
+     timed; its prefill cell's sequence-sharded prefill over 2 and 4
+     (last logits and caches against the unsharded prefill's) and one
+     train step over 2 model ranks (``fsdp_sp``, as phase 12's);
+     recurrentgemma-2b's sequence-sharded prefill of 4 x 2,100 tokens
+     over 2 ranks (the window, the scan carry and the conv halo across
+     them) and its golden under the decode cell's rules; whisper-tiny's
+     prefill over 2 and 4 (the encoder's 1,500 frames in runs of 750 and
+     375) and its serving over 4 (``kv_seq`` on the self caches) with
+     the same checks.
 
 Then JSON lines with the paths' timings (``{"paths": ...}``, the
 training step's among them), the
 compile seconds (``{"compile": ...}``), phase 6's record
 (``{"verify": ...}``), phase 7's and 8's (``{"partial": ...}``,
 ``{"traces": ...}``) and every kernel (``{"kernels": [...]}``, its
-launches those of phases 3, 5, 6, 8, 9, 10 and 12), the
+launches those of phases 3, 5, 6, 8, 9, 10, 12 and 13), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Any mismatch, a failed build or launch, a missing card, or a run outside
 a checkout exits nonzero and prints no result.
@@ -1658,9 +1679,12 @@ def _decode_call(case):
 
 def phase_decode_parity() -> float:
     """``ring_decode_attention`` against its plain version on the card on
-    every decode case; returns the max |difference|."""
+    every decode case, and with ``return_lse`` on the slice cases (a
+    rank's run of gemma3-1b's global cache split on ``kv_seq``: part
+    filled, full, empty); returns the max |difference|."""
     from repro_torch.kernels.cases import (DECODE_CASES, LM_DECODE_CASES,
-                                           compare_decode)
+                                           SLICE_DECODE_CASES, compare_decode,
+                                           compare_lse)
     from repro_torch.kernels.ring_decode import (
         decode_splits, ring_decode_attention, ring_decode_attention_plain)
 
@@ -1685,10 +1709,33 @@ def phase_decode_parity() -> float:
             raise SystemExit(f"{case.name}: ring_decode_attention differs "
                              f"from its plain version, {bad}")
         worst[case.dtype] = max(worst[case.dtype], err)
+    lse_worst = 0.0
+    for case in SLICE_DECODE_CASES:
+        args = _decode_call(case)
+        want, want_lse = ring_decode_attention_plain(*args, **case.kwargs,
+                                                     return_lse=True)
+        got, lse = ring_decode_attention(*args, **case.kwargs,
+                                         return_lse=True)
+        torch.cuda.synchronize()
+        if torch.isnan(got).any() or torch.isnan(lse).any():
+            raise SystemExit(f"{case.name}: return_lse gives NaN")
+        err, bad = compare_decode(got.float().cpu().numpy(),
+                                  want.float().cpu().numpy(), case.dtype)
+        lerr, lbad = compare_lse(lse.cpu().numpy(), want_lse.cpu().numpy())
+        if bad or lbad:
+            raise SystemExit(f"{case.name}: ring_decode_attention(..., "
+                             f"return_lse=True) differs from its plain "
+                             f"version: out {bad}, lse {lbad}")
+        worst[case.dtype] = max(worst[case.dtype], err)
+        lse_worst = max(lse_worst, lerr)
     say(f"  ring_decode_attention: {len(cases)} calls within the "
         f"tolerance of its plain version (fp32 2e-5, bf16 one ulp of the "
-        f"output's scale); max |difference| fp32 {worst['float32']:.3g}, "
-        f"bf16 {worst['bfloat16']:.3g}; splits on {n_sm} SMs:")
+        f"output's scale), and {len(SLICE_DECODE_CASES)} with return_lse "
+        f"on gemma3-1b's global-cache slices (512 and 256 slots: part "
+        f"filled, full, empty, mixed rows; lse within 2e-5, -inf on the "
+        f"empty rows, no NaN); max |difference| fp32 "
+        f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}, lse "
+        f"{lse_worst:.3g}; splits on {n_sm} SMs:")
     for line in splits:
         say(f"    {line}")
     return max(worst.values())
@@ -2161,11 +2208,14 @@ def time_lm(cfg, params, path: LMPath = LM_PATHS[0], rules=None) -> dict:
     return out
 
 
-def time_decode_shapes(cases) -> dict:
+def time_decode_shapes(cases, lse: bool = False) -> dict:
     """``ring_decode_attention`` at the other LMs' decode geometries
     (``cases.LM_DECODE_CASES``): device time per launch, its plain
     version's, one ``F.scaled_dot_product_attention`` call on the same
-    tensors with the validity mask, and the bound."""
+    tensors with the validity mask, and the bound.  ``lse``: the calls
+    take ``return_lse`` (a rank's slice of a split cache,
+    ``cases.SLICE_DECODE_CASES``), and the kernel is timed without it
+    too."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ring_decode import (
@@ -2181,8 +2231,10 @@ def time_decode_shapes(cases) -> dict:
             .expand(B, 1, 1, S)
         qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), \
             v.permute(0, 2, 1, 3)
-        kw = case.kwargs
+        kw = dict(case.kwargs, return_lse=True) if lse else case.kwargs
         ms = _held_ms(lambda: ring_decode_attention(q, k, v, seq, **kw), 200)
+        bare_ms = _held_ms(lambda: ring_decode_attention(
+            q, k, v, seq, **case.kwargs), 200) if lse else None
         plain_ms = _event_ms(
             lambda: ring_decode_attention_plain(q, k, v, seq, **kw), 20)
         lib_ms = _held_ms(lambda: F.scaled_dot_product_attention(
@@ -2192,8 +2244,13 @@ def time_decode_shapes(cases) -> dict:
         shapes[case.name] = {"slots": S, "valid": valid, "ms": ms,
                              "plain_ms": plain_ms, "library_ms": lib_ms,
                              "bound_ms": b_ms, "bound_by": by}
-        say(f"    ring_decode_attention {case.name}: {ms * 1e3:8.2f} "
-            f"us/launch (device), plain {plain_ms * 1e3:9.2f} us, library "
+        if lse:
+            shapes[case.name]["ms_without_lse"] = bare_ms
+        say(f"    ring_decode_attention {case.name}"
+            + (" (return_lse)" if lse else "") + f": {ms * 1e3:8.2f} "
+            f"us/launch (device)"
+            + (f", {bare_ms * 1e3:.2f} without the flag" if lse else "")
+            + f", plain {plain_ms * 1e3:9.2f} us, library "
             f"(SDPA) {lib_ms * 1e3:8.2f} us, bound {b_ms * 1e3:.4f} us "
             f"({by})")
     return shapes
@@ -2203,9 +2260,10 @@ def serve_new_lms(golden_dir, draws: dict) -> tuple[dict, dict, dict]:
     """Phase 3's checks and phase 4's timing of every LM path but
     gemma3-1b, one resident at a time (moved to the card from its host
     draw, served, timed, freed): returns each path's launch counts and
-    timings by name, and the host draws that phase 12 serves again."""
+    timings by name, and the host draws that phases 12 and 13 serve
+    again."""
     counts, timings, trees = {}, {}, {}
-    kept = {name for name, _ in TP_SERVED} | {TP_TRAINED}
+    kept = {name for name, _ in TP_SERVED} | {TP_TRAINED} | set(SP_SERVED)
     for path in LM_PATHS[1:]:
         t0 = time.perf_counter()
         if path.name in kept:
@@ -2594,8 +2652,8 @@ def phase_mesh(cfg, tree, lm_golden, train_golden, unsharded) -> tuple:
 
 def phase_gloo() -> dict:
     """Phase 11: ``tools/mesh_check.py`` on the card machine's host CPU:
-    4 gloo ranks hold the mesh path against one process (tensor
-    parallelism and global MoE routing among it)."""
+    4 gloo ranks hold the mesh path against one process (tensor and
+    sequence parallelism and global MoE routing among it)."""
     sys.path.insert(0, str(ROOT / "tools"))
     import mesh_check
 
@@ -2613,7 +2671,8 @@ def phase_gloo() -> dict:
             f"{row['rel_err']}, parameters after step 3 at "
             f"{row['params_worst_of_tolerance']:.3f} of the tolerance; "
             f"bf16 loss errors {row.get('bf16_rel_err', 'not run')}")
-    for label, row in record["tensor_parallel"].items():
+    for label, row in {**record["tensor_parallel"],
+                       **record["sequence_parallel"]}.items():
         if "rel_err" in row:
             say(f"  {label}: losses {row['loss']}, relative errors "
                 f"{row['rel_err']} against one process; the first step's "
@@ -2639,6 +2698,9 @@ TP_TRAINED = "granite-moe-1b-a400m"
 #: prompts; fewer new tokens, as phase 10's mesh path: the ranks run one
 #: at a time, so a step costs R times the host work).
 TP_MAX_NEW = 8
+#: Decode steps each per-token time takes the median of (fewer than the
+#: unsharded paths' 20: a step over 4 ranks takes near a second).
+TP_TIMED_STEPS = 5
 
 
 def _tp_ranks(cfg, R: int, params):
@@ -2751,8 +2813,8 @@ def time_lm_tp(cfg, ranks, path: LMPath, unsharded: dict) -> dict:
         def step():   # the same step again: the same work every call
             mesh.run(lambda c: model.decode_step(
                 mine[c], state[c][1], tok, state[c][2], rules=rules))
-        ms = _host_ms(step, 10)
-        busy, call_us, prof, _ = _device_busy(step, 3)
+        ms = _host_ms(step, TP_TIMED_STEPS)
+        busy, call_us, prof, _ = _device_busy(step, 2)
         was = unsharded[f"decode_ms_batch{B}"]
         out[f"decode_ms_batch{B}"] = ms
         out[f"device_busy_batch{B}"] = busy
@@ -2779,7 +2841,7 @@ def _update_norm(before: list, after: list) -> float:
                      for a, b in zip(after, before)) ** 0.5)
 
 
-def train_tp(cfg, tree, R: int = 2) -> dict:
+def train_tp(cfg, tree, R: int = 2, label: str = "phase 12") -> dict:
     """One full-width train step (bf16 activations, fp32 masters, the
     train golden's batch and optimizer, remat ``"none"``) unsharded and
     over ``R`` model ranks on the card (``standin_train_step``): loss,
@@ -2838,7 +2900,7 @@ def train_tp(cfg, tree, R: int = 2) -> dict:
     errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
     if not all(np.isfinite(list(got.values()))) or \
             max(errs.values()) > TRAIN_RTOL:
-        raise SystemExit(f"phase 12: {cfg.name}'s step over {R} model ranks "
+        raise SystemExit(f"{label}: {cfg.name}'s step over {R} model ranks "
                          f"{got} against the unsharded step's {want}")
     say(f"  {cfg.name} train step at {TRAIN_GOLDEN_BATCH} x "
         f"{TRAIN_GOLDEN_SEQ} over {R} model ranks: loss, grad_norm, update "
@@ -2887,6 +2949,367 @@ def phase_tp(trees: dict, paths: dict) -> tuple[dict, dict]:
     cfg = get_config(TP_TRAINED)
     timings[f"{TP_TRAINED} train model=2"] = train_tp(cfg, trees[TP_TRAINED])
     say(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    return counts, timings
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: sequence parallelism, the ranks as threads of one process on
+# the card.
+# ---------------------------------------------------------------------------
+
+#: The phase's model ranks for gemma3-1b's decode and prefill cells and
+#: its long-context meshes ``(data, model)``, the other configs it serves
+#: from their host draws, and the tokens each served path generates.
+SP_RANKS = (2, 4)
+SP_SERVED = ("recurrentgemma-2b", "whisper-tiny")
+SP_LONG_SHAPES = ((2, 1), (2, 2))
+SP_MAX_NEW = 8
+#: Decode steps each per-token time takes the median of.
+SP_TIMED_STEPS = 5
+
+
+def _sp_ranks(cfg, params, shape, cell):
+    """``(mesh, rules, per-rank params)`` of ``StandInMesh(shape)`` on the
+    card under ``cell``'s rules: each rank's tree ``rules.rank_tree`` of
+    ``params`` (views: the ranks only read their weights, and the
+    replicated ones need no copy on one card)."""
+    from repro_torch.launch.specs import make_rules
+    from repro_torch.parallel.standin import StandInMesh
+
+    mesh = StandInMesh(shape, device_type=DEVICE_TYPE)
+    rules = make_rules(cfg, mesh, cell)
+    rules.check(cfg)
+    return mesh, rules, {c: rules.rank_tree(params, c)
+                         for c in mesh.coords()}
+
+
+def _first(out: dict):
+    return out[min(out)]
+
+
+def _nbytes(x) -> int:
+    """The bytes of the tensors of a cache (a tensor or a tuple)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return sum(_nbytes(t) for t in x) if isinstance(x, tuple) else 0
+
+
+def _cache_bytes(caches) -> tuple[int, int]:
+    """``(bytes of the kv_seq slices, bytes of every other cache)`` of a
+    rank's caches."""
+    from repro_torch.models.common import KVSlice
+    from repro_torch.models.transformer import CrossCache
+
+    sliced = other = 0
+    for c in caches:
+        for part in ((c.self_kv, c.mem_k, c.mem_v)
+                     if isinstance(c, CrossCache) else (c,)):
+            if isinstance(part, KVSlice):
+                sliced += _nbytes(part)
+            else:
+                other += _nbytes(part)
+    return sliced, other
+
+
+def unsharded_serve(cfg, whole, path: LMPath, prompts, padded, memory):
+    """The unsharded path's tokens (``generate``) and its plain path's
+    logits teacher-forced on them: what phase 13's ranks are held to."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServingEngine
+
+    out = ServingEngine(build_model(cfg), whole,
+                        cache_len=path.cache_len).generate(
+        prompts, max_new=path.max_new, memory=memory)
+    plain = forced_steps(build_model(cfg, plain=True), whole, padded, out,
+                         path, memory)
+    return out, plain
+
+
+def serve_sp(cfg, whole, golden, path: LMPath, shape, cell, want,
+             unsharded: dict | None = None) -> dict:
+    """An LM served on ``StandInMesh(shape)`` under ``cell``'s rules
+    (``kv_seq`` split where the KV heads do not divide, or over the data
+    axis under ``long_context``): ``generate`` on each rank, the same
+    tokens on every rank and the unsharded path's (``want``, from
+    :func:`unsharded_serve`), exactly ``path.per_step``
+    ``ring_decode_attention`` launches a decode step on each rank, those
+    on the global caches' slices with ``return_lse``; the kernel path's
+    logits teacher-forced on them within the bf16 tolerance of the
+    unsharded plain path's; the golden at batch 1 on every rank (given
+    one); each rank's cache bytes against the unsharded caches'; and the
+    decode per token at batch 1 and the batch's, with its busy share,
+    beside phase 4's unsharded step (``unsharded``).  Returns the counts
+    and the timings."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ring_decode import thread_launches
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import (ATTN_KINDS, kv_split,
+                                                layer_kinds)
+    from repro_torch.serve import ServingEngine
+
+    name = f"{path.name} {cell.name} on {shape} (data, model)"
+    mesh, rules, mine = _sp_ranks(cfg, whole, shape, cell)
+    model = build_model(cfg)
+    prompts, padded = lm_prompts_of_path(cfg, path.prompt_lens)
+    memory = lm_memory_of_path(cfg, len(prompts))
+    B = len(prompts)
+    split = sum(kv_split(cfg, "full" if k == "cross" else k,
+                         path.cache_len, rules)
+                for k in layer_kinds(cfg) if k in ATTN_KINDS)
+
+    def generate(c):
+        n0, l0 = thread_launches(), thread_launches(lse=True)
+        out = ServingEngine(model, mine[c], rules=rules,
+                            cache_len=path.cache_len).generate(
+            prompts, max_new=path.max_new, memory=memory)
+        return out, thread_launches() - n0, thread_launches(lse=True) - l0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = mesh.run(generate)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = launch_counts()
+    out = _first(runs)[0]
+    per_rank = {c: (n, m) for c, (_, n, m) in runs.items()}
+    if any(n != path.per_step * path.max_new or m != split * path.max_new
+           for n, m in per_rank.values()):
+        raise SystemExit(f"{name}: launches (all, return_lse) by rank "
+                         f"{per_rank} are not {path.per_step} and {split} a "
+                         "decode step")
+    if any(o != out for o, _, _ in runs.values()) or out != want[0]:
+        raise SystemExit(f"{name}: the ranks' tokens {out} differ from "
+                         f"each other's or the unsharded path's {want[0]}")
+    say(f"  {name}: kv_seq over {rules.shards('kv_seq')} ranks; generate "
+        f"made {path.per_step} ring_decode_attention launches a decode "
+        f"step on each rank, {split} of them on the global caches' slices "
+        f"with return_lse ({per_rank}); the unsharded path's tokens at "
+        f"batch {B}; {gen_s:.2f} s")
+    forced = mesh.run(lambda c: forced_steps(model, mine[c], padded, out,
+                                             path, memory, rules))
+    hold_forced(name, cfg, _first(forced), want[1], out, path.max_new,
+                f"{B} prompts of {list(path.prompt_lens)} tokens, the "
+                "ranks' logits against the unsharded plain path's")
+    if golden is not None:
+        held = mesh.run(lambda c: golden_rows(model, mine[c], golden,
+                                              rules))
+        if any(rows != _first(held)[1] or not h["ok"]
+               for h, rows in held.values()):
+            raise SystemExit(f"{name}: the ranks' golden checks differ or "
+                             f"fail: {held}")
+        hold_golden(f"{name}, every rank", cfg, *_first(held), golden)
+    state = mesh.run(lambda c: model.prefill(
+        mine[c], padded, cache_len=path.cache_len, memory=memory,
+        rules=rules))
+    one = model.prefill(whole, padded, cache_len=path.cache_len,
+                        memory=memory)
+    full = _cache_bytes(one[1])[1]
+    rank_bytes = {c: _cache_bytes(s[1]) for c, s in state.items()}
+    sliced_whole = full - _first(rank_bytes)[1]
+    say(f"  {name}: cache bytes a rank at batch {B}: kv_seq slices "
+        + ", ".join(f"{c}: {b[0]:,}" for c, b in rank_bytes.items())
+        + f" of the unsharded {sliced_whole:,} (1/{rules.shards('kv_seq')}"
+        f" = {sliced_whole / rules.shards('kv_seq'):,.0f}), plus "
+        f"{_first(rank_bytes)[1]:,} whole (rings, memories)")
+    del state, one
+    timings = {"cache_bytes_by_rank": {str(c): b[0] for c, b in
+                                       rank_bytes.items()},
+               "cache_bytes_unsharded": sliced_whole, "generate_s": gen_s}
+    for b in sorted({1, B}):
+        toks = padded[-b:]
+        mem = None if memory is None else memory[-b:]
+        st = mesh.run(lambda c: model.prefill(
+            mine[c], toks, cache_len=path.cache_len, memory=mem,
+            rules=rules))
+        tok = _first(st)[0].argmax(-1)   # a rank's rows; any token
+
+        def step():   # the same step again: the same work every call
+            mesh.run(lambda c: model.decode_step(mine[c], st[c][1], tok,
+                                                 st[c][2], rules=rules))
+        ms = _host_ms(step, SP_TIMED_STEPS)
+        busy, call_us, prof, _ = _device_busy(step, 2)
+        kern = prof.get("ring_decode_attention")
+        timings[f"decode_ms_batch{b}"] = ms
+        timings[f"device_busy_batch{b}"] = busy
+        timings[f"decode_kernel_profiler_ms_batch{b}"] = kern
+        busy_txt = "not measured" if busy is None else f"{busy:.4f}"
+        was = (unsharded or {}).get(f"decode_ms_batch{b}")
+        say(f"  {name}: {ms:.4f} ms per decode step at batch {b} (host "
+            f"clock, the ranks' threads started to synchronize, median of "
+            f"{SP_TIMED_STEPS}), device busy {busy_txt} of {call_us:.1f} us "
+            f"(profiler); unsharded (phase 4) "
+            + ("not run" if was is None else f"{was:.4f} ms")
+            + "; ring_decode_attention "
+            + ("not on the path" if kern is None else
+               f"{kern * 1e3:.2f} us a launch (profiler)")
+            + f"; {nvidia_smi_line()}")
+        del st
+    torch.cuda.synchronize()
+    return counts, timings
+
+
+def _tree_close(got, want) -> float:
+    """max |got - want| over max |want| of two caches' tensors."""
+    from repro_torch.train.tree import leaves
+
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want)):
+        if not isinstance(a, torch.Tensor):
+            continue
+        scale = float(b.float().abs().max()) or 1.0
+        worst = max(worst, float((a.float() - b.float()).abs().max())
+                    / scale)
+    return worst
+
+
+def prefill_sp(cfg, whole, path: LMPath, R: int) -> dict:
+    """The prefill cell's rules over ``R`` model ranks (each rank a run
+    of the prompts' positions; ``fsdp_sp``): the last logits (the ranks'
+    vocabulary rows gathered) within the bf16 tolerance of the unsharded
+    prefill's, every cache within 2e-2 of its max (the caches are whole
+    on every rank), and the prefill's time beside the unsharded one."""
+    from repro_torch.configs.base import PREFILL_32K
+    from repro_torch.kernels.cases import logits_close
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import vocab_logits
+
+    name = f"{path.name} prefill_32k over {R} model ranks"
+    mesh, rules, mine = _sp_ranks(cfg, whole, (1, R), PREFILL_32K)
+    model = build_model(cfg)
+    _, padded = lm_prompts_of_path(cfg, path.prompt_lens)
+    memory = lm_memory_of_path(cfg, len(padded))
+    n = padded.shape[1]
+    runs = [b for _, b in rules.seq_slices("seq", n)]
+    want = model.prefill(whole, padded, cache_len=path.cache_len,
+                         memory=memory)
+
+    def prefill():
+        return mesh.run(lambda c: model.prefill(
+            mine[c], padded, cache_len=path.cache_len, memory=memory,
+            rules=rules))
+    got = prefill()
+    lgs = mesh.run(lambda c: vocab_logits(got[c][0], rules))
+    torch.cuda.synchronize()
+    ref = want[0].float().cpu().numpy()
+    scale = float(np.abs(ref).max())
+    worst_logit, worst_cache = 0.0, 0.0
+    for c, (logits, caches, cur) in got.items():
+        have = lgs[c].float().cpu().numpy()
+        for b in range(len(ref)):
+            err, ok = logits_close(have[b], ref[b], scale)
+            if not ok:
+                raise SystemExit(f"{name}: rank {c} row {b}'s last logits "
+                                 f"differ by {err:.3g} from the unsharded "
+                                 "prefill's")
+            worst_logit = max(worst_logit, err)
+        worst_cache = max(worst_cache, _tree_close(caches, want[1]))
+        if cur != want[2]:
+            raise SystemExit(f"{name}: cur_len {cur} != {want[2]}")
+    if worst_cache > 2e-2:
+        raise SystemExit(f"{name}: a cache differs from the unsharded "
+                         f"prefill's by {worst_cache:.3g} of its max")
+    del got, lgs, want
+    ms = _host_ms(prefill, 3)
+    one_ms = _host_ms(lambda: model.prefill(
+        whole, padded, cache_len=path.cache_len, memory=memory), 3)
+    mem_txt = "" if memory is None else \
+        f", the encoder's {memory.shape[1]:,} frames in runs of " \
+        f"{[b for _, b in rules.seq_slices('seq', memory.shape[1])]}"
+    say(f"  {name}: {len(padded)} x {n} tokens in runs of {runs} a "
+        f"rank{mem_txt}; last logits within rtol 2e-2, atol 2e-2 * "
+        f"max|logits| of the unsharded prefill's on every rank (max "
+        f"|difference| {worst_logit:.4g}, max |logit| {scale:.4g}), "
+        f"caches within {worst_cache:.3g} of their max; {ms:.3f} ms "
+        f"(host clock, median of 3) against {one_ms:.3f} unsharded; "
+        f"{nvidia_smi_line()}")
+    return {"prefill_ms": ms, "unsharded_prefill_ms": one_ms,
+            "logit_err": worst_logit, "cache_rel_err": worst_cache}
+
+
+def phase_sp(trees: dict, goldens: dict, paths: dict) -> tuple[dict, dict]:
+    """Phase 13: gemma3-1b at full width served under the decode cell's
+    rules over 2 and 4 model ranks (``kv_seq`` on ``model``: its one KV
+    head does not divide) and the long-context cell's over ``(2, 1)`` and
+    ``(2, 2)`` (batch 1), its prefill cell's sequence-sharded prefill over
+    2 and 4, one train step over 2 model ranks (``fsdp_sp``);
+    recurrentgemma-2b's sequence-sharded prefill over 2 ranks (its 2,100
+    positions in runs of 1,050: the window, the scan carry and the conv
+    halo cross the ranks) and its golden under the decode cell's rules;
+    whisper-tiny's prefill over 2 and 4 (the encoder's 1,500 frames in
+    runs of 750 and 375) and its serving over 4 (``kv_seq`` on its self
+    caches).  Returns the launch counts by path and the timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import DECODE_32K, LONG_500K
+    from repro_torch.models import build_model, params_from_reference
+
+    t0 = time.perf_counter()
+    say("phase 13: sequence parallelism on the card: the ranks as threads "
+        "of one process (StandInMesh); fsdp_sp (each rank a run of the "
+        "positions), kv_seq (each rank a run of the global caches, the "
+        "partial attentions combined by their log-sum-exp), long context")
+    counts, timings = {}, {}
+    by_name = {p.name: dataclasses.replace(p, max_new=SP_MAX_NEW)
+               for p in LM_PATHS}
+
+    cfg = get_config(LM)
+    path = by_name[LM]
+    whole = params_from_reference(cfg, trees[LM], DEVICE_TYPE)
+    prompts, padded = lm_prompts_of_path(cfg, path.prompt_lens)
+    want = unsharded_serve(cfg, whole, path, prompts, padded, None)
+    for R in SP_RANKS:
+        key = f"{LM} decode_32k model={R}"
+        counts[key], timings[key] = serve_sp(cfg, whole, goldens[LM], path,
+                                             (1, R), DECODE_32K, want,
+                                             paths.get(f"{LM} serve"))
+    for R in SP_RANKS:
+        timings[f"{LM} prefill_32k model={R}"] = prefill_sp(cfg, whole, path,
+                                                            R)
+    long_path = dataclasses.replace(path, prompt_lens=path.prompt_lens[-1:])
+    lp, lpad = lm_prompts_of_path(cfg, long_path.prompt_lens)
+    want = unsharded_serve(cfg, whole, long_path, lp, lpad, None)
+    for shape in SP_LONG_SHAPES:
+        key = f"{LM} long_500k {shape}"
+        counts[key], timings[key] = serve_sp(cfg, whole, None, long_path,
+                                             shape, LONG_500K, want,
+                                             paths.get(f"{LM} serve"))
+    del whole, want
+    torch.cuda.empty_cache()
+    timings[f"{LM} train model=2"] = train_tp(cfg, trees[LM], 2,
+                                              label="phase 13")
+
+    name = "recurrentgemma-2b"
+    cfg, path = get_config(name), by_name[name]
+    whole = params_from_reference(cfg, trees[name], DEVICE_TYPE)
+    timings[f"{name} prefill_32k model=2"] = prefill_sp(cfg, whole, path, 2)
+    mesh, rules, mine = _sp_ranks(cfg, whole, (1, 2), DECODE_32K)
+    held = mesh.run(lambda c: golden_rows(build_model(cfg), mine[c],
+                                          goldens[name], rules))
+    if any(rows != _first(held)[1] or not h["ok"]
+           for h, rows in held.values()):
+        raise SystemExit(f"{name} decode_32k over 2 model ranks: the "
+                         f"ranks' golden checks differ or fail: {held}")
+    hold_golden(f"{name} decode_32k over 2 model ranks, every rank", cfg,
+                *_first(held), goldens[name])
+    del whole, mesh, rules, mine
+    torch.cuda.empty_cache()
+
+    name = "whisper-tiny"
+    cfg, path = get_config(name), by_name[name]
+    whole = params_from_reference(cfg, trees[name], DEVICE_TYPE)
+    for R in SP_RANKS:
+        timings[f"{name} prefill_32k model={R}"] = prefill_sp(cfg, whole,
+                                                              path, R)
+    prompts, padded = lm_prompts_of_path(cfg, path.prompt_lens)
+    memory = lm_memory_of_path(cfg, len(prompts))
+    want = unsharded_serve(cfg, whole, path, prompts, padded, memory)
+    key = f"{name} decode_32k model=4"
+    counts[key], timings[key] = serve_sp(cfg, whole, goldens[name], path,
+                                         (1, 4), DECODE_32K, want,
+                                         paths.get(f"{name} serve"))
+    del whole, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
     return counts, timings
 
 
@@ -3396,7 +3819,8 @@ def main() -> None:
                                            F32_EDGE_CASES,
                                            F32_FUSED_STREAM_EDGE_CASES,
                                            F32_MLP_EDGE_CASES,
-                                           LM_DECODE_CASES)
+                                           LM_DECODE_CASES,
+                                           SLICE_DECODE_CASES)
 
     card = nvidia_smi_line()
     say(f"phase 0: card {card}")
@@ -3494,6 +3918,11 @@ def main() -> None:
         p.name: counts[p.name]["ring_decode_attention"] for p in LM_PATHS}
     say("  ring_decode_attention at those paths' decode geometries:")
     decode_row["by_shape"].update(time_decode_shapes(LM_DECODE_CASES))
+    say("  ring_decode_attention with return_lse on a rank's slice of "
+        "gemma3-1b's global cache (phase 13's kv_seq path):")
+    decode_row["by_shape"].update(time_decode_shapes(
+        [c for c in SLICE_DECODE_CASES if isinstance(c.seq_len, int)],
+        lse=True))
 
     with np.load(ASSETS / f"{LM}.train.npz") as g:
         train_golden = {k: g[k] for k in g.files}
@@ -3504,15 +3933,22 @@ def main() -> None:
         train_counts["ring_decode_attention"]
     mesh_counts, paths[f"{LM} mesh"] = phase_mesh(
         lm_cfg, lm_tree, lm_golden, train_golden, paths[f"{LM} serve"])
-    del lm_tree
     decode_row["launches"] += mesh_counts["ring_decode_attention"]
     decode_row["launches_by_path"][f"{LM} mesh"] = \
         mesh_counts["ring_decode_attention"]
     paths["mesh gloo"] = phase_gloo()
     tp_counts, tp_timings = phase_tp(tp_trees, paths)
-    del tp_trees
     paths.update({f"{k} tp": v for k, v in tp_timings.items()})
-    for key, c in tp_counts.items():
+    sp_goldens = {}
+    for name in (LM,) + SP_SERVED:
+        with np.load(ASSETS / f"{name}.golden.npz") as g:
+            sp_goldens[name] = {k: g[k] for k in g.files}
+    sp_counts, sp_timings = phase_sp(
+        {LM: lm_tree, **{n: tp_trees[n] for n in SP_SERVED}}, sp_goldens,
+        paths)
+    del tp_trees, lm_tree
+    paths.update({f"{k} sp": v for k, v in sp_timings.items()})
+    for key, c in {**tp_counts, **sp_counts}.items():
         decode_row["launches"] += c["ring_decode_attention"]
         decode_row["launches_by_path"][f"{key} (all ranks)"] = \
             c["ring_decode_attention"]

@@ -58,7 +58,7 @@ SIGNATURES = {
         "ring_elementwise": [_P] + [_I] * 5 + [_P],
     },
     "ring_decode": {
-        "ring_decode_attention": [_P] * 6 + [_I] * 10 + [_F] * 2 + [_P],
+        "ring_decode_attention": [_P] * 6 + [_I] * 10 + [_F] * 2 + [_I, _P],
     },
 }
 

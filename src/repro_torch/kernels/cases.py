@@ -1186,6 +1186,19 @@ LM_DECODE_CASES = (
 )
 
 
+#: The decode attention over a rank's slice of gemma3-1b's 1,024-slot
+#: global cache split on ``kv_seq`` over 2 and 4 ranks (512 and 256
+#: slots; 4 q heads on one KV head, head_dim 256, bf16, batch 4), called
+#: with ``return_lse``: the slice part filled, full, empty (no valid slot
+#: yet: ``out = 0``, ``lse = -inf``), and one of each in a batch.
+SLICE_DECODE_CASES = tuple(
+    DecodeCase(f"decode_gemma3_slice{n}_{what}_batch4_bf16", 4, 1, 256, n,
+               128, seq, batch=4, dtype="bfloat16")
+    for n in (512, 256)
+    for what, seq in (("part", n * 3 // 5), ("full", n), ("empty", 0),
+                      ("rows", (0, 1, n // 2, n))))
+
+
 def decode_inputs(case: DecodeCase, seed: int = 0):
     """``(q, k_ring, v_ring, seq_len)``: fp32 numpy arrays from N(0, 1)
     (q times ``q_scale``; a bf16 case rounds them to bf16 at the call)
@@ -1208,6 +1221,26 @@ def bf16_ulp(x: float) -> float:
     """The spacing of bf16 values at magnitude ``x`` (8 significant
     bits)."""
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 2.0 ** -133
+
+
+def compare_lse(got: np.ndarray, want: np.ndarray) -> tuple[float,
+                                                             str | None]:
+    """``(max |got - want| over the finite entries, None)`` when the
+    log-sum-exps are ``-inf`` at the same rows and the rest within rtol
+    and atol 2e-5, else a description of the first miss."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    live = np.isfinite(want)
+    if not np.array_equal(np.isneginf(got), ~live) or \
+            not np.isfinite(got[live]).all():
+        return float("inf"), (f"-inf rows {np.argwhere(np.isneginf(got))} "
+                              f"against {np.argwhere(~live)}")
+    err = np.abs(got[live] - want[live]) if live.any() else np.zeros(1)
+    bad = err > DECODE_TOL + DECODE_TOL * np.abs(want[live])
+    if not bad.any():
+        return float(err.max()), None
+    i = int(np.argwhere(bad)[0][0])
+    return float(err.max()), f"{got[live][i]!r} against {want[live][i]!r}"
 
 
 def compare_decode(got: np.ndarray, want: np.ndarray,

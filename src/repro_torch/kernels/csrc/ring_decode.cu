@@ -43,7 +43,15 @@
 // seq_len < 1 every slot is masked (-1e30, not -inf), each split has
 // m = -1e30 and p = 1 per slot, and the combine weighs them all by
 // exp(0) = 1: the uniform average over the window, as the plain version
-// gives.  The group (q heads per kv head, at most 16) is a template
+// gives.
+//
+// Given an lse pointer (a kv_seq slice of a cache split over ranks, whose
+// partial attentions the ranks combine by their log-sum-exp), the combine
+// also writes each q row's lse = M + log L (fp32, [B, q_heads]), and a row
+// with seq_len < 1 (a slice that holds no valid slot yet) is empty: every
+// split is skipped, and the combine stores o = 0 and lse = -inf, the
+// partial that adds nothing to the ranks' sum.  Without it (null) nothing
+// of the above changes.  The group (q heads per kv head, at most 16) is a template
 // parameter rounded up to a power of two, so the per-row loops unroll to
 // it; head_dim is a power of two up to 256.
 //
@@ -96,7 +104,8 @@ __global__ void __launch_bounds__(THREADS)
                        const int* __restrict__ seq_lens,
                        float* __restrict__ part, int seq_scalar, int window,
                        int kv_heads, int group, int d, int block,
-                       int split_len, float scale, float softcap) {
+                       int split_len, float scale, float softcap,
+                       int empty_rows) {
   // G: the group rounded up to a power of two (a template, so the per-row
   // loops unroll exactly); rows g >= group are skipped.
   extern __shared__ __align__(16) float smem[];
@@ -110,7 +119,8 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q_heads = kv_heads * group;
   const int seq = seq_lens ? seq_lens[b] : seq_scalar;
-  const int end = (seq >= window || seq < 1) ? window : seq;
+  const int end = seq >= window ? window : seq >= 1 ? seq
+                                                  : empty_rows ? 0 : window;
   const int s0 = z * split_len, s1 = min(s0 + split_len, end);
   if (s0 >= end) return;   // wholly past seq: the combine skips it
   const size_t q_row = ((size_t)b * q_heads + (size_t)kh * group) * d;
@@ -231,20 +241,24 @@ __global__ void __launch_bounds__(THREADS)
 // l of every live split into shared memory; per q row (one warp each) M,
 // the weights exp(m_i - M) and L = sum l_i exp(m_i - M); then each thread
 // sums acc_i exp(m_i - M) over the splits in order and divides once by L.
+// Given lse, the thread of a row's column 0 stores M + log L there (an
+// empty row, no live split: o = 0, lse = -inf).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     ring_decode_combine_kernel(const int* __restrict__ seq_lens,
                                const float* __restrict__ part,
-                               T* __restrict__ out, int seq_scalar,
+                               T* __restrict__ out,
+                               float* __restrict__ lse, int seq_scalar,
                                int window, int kv_heads, int group, int d,
                                int split_len, int splits) {
   extern __shared__ float w_s[];          // [group][splits]: m, then weights
   float* l_s = w_s + group * splits;      // [group][splits]: l
   float* big_l = l_s + group * splits;    // [group]: L
+  float* big_m = big_l + group;           // [group]: M
   const int kh = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int seq = seq_lens ? seq_lens[b] : seq_scalar;
-  const int end = (seq >= window || seq < 1) ? window : seq;
+  const int end = seq >= window ? window : seq >= 1 ? seq : lse ? 0 : window;
   const int live = (end + split_len - 1) / split_len;
   const size_t stride = (size_t)group * (d + 2);
   const float* pb = part + ((size_t)b * kv_heads + kh) * splits * stride;
@@ -265,26 +279,36 @@ __global__ void __launch_bounds__(THREADS)
       l += l_s[g * splits + i] * w[i];
     }
     l = warp_sum(l);
-    if (lane == 0) big_l[g] = l;
+    if (lane == 0) {
+      big_l[g] = l;
+      big_m[g] = mx;
+    }
   }
   __syncthreads();
   const int e = blockIdx.z * THREADS + tid;
   if (e >= group * d) return;
   const int g = e / d;
+  const size_t row = (size_t)b * kv_heads + kh;
+  if (live == 0) {   // an empty row of a slice (only given lse)
+    store(&out[row * group * d + e], 0.f);
+    if (e % d == 0) lse[row * group + g] = -INFINITY;
+    return;
+  }
   const float* w = w_s + g * splits;
   const float* acc = pb + 2 * group + e;
   float o = 0.f;
 #pragma unroll 16
   for (int i = 0; i < live; ++i) o += acc[i * stride] * w[i];
-  store(&out[((size_t)b * kv_heads + kh) * group * d + e], o / big_l[g]);
+  store(&out[row * group * d + e], o / big_l[g]);
+  if (lse && e % d == 0) lse[row * group + g] = big_m[g] + logf(big_l[g]);
 }
 
 template <typename T, int G>
 int launch_g(const void* q, const void* k, const void* v,
-             const void* seq_lens, void* out, void* part, int batch,
-             int window, int kv_heads, int group, int d, int block,
-             int seq_scalar, int split_len, int splits, float scale,
-             float softcap, void* stream) {
+             const void* seq_lens, void* out, void* part, void* lse,
+             int batch, int window, int kv_heads, int group, int d,
+             int block, int seq_scalar, int split_len, int splits,
+             float scale, float softcap, void* stream) {
   const size_t smem =
       sizeof(float) * ((size_t)group * d + (size_t)group * block + 3 * group);
   if (smem > 48 * 1024) {
@@ -297,26 +321,27 @@ int launch_g(const void* q, const void* k, const void* v,
                              (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)seq_lens,
       (float*)part, seq_scalar, window, kv_heads, group, d, block, split_len,
-      scale, softcap);
+      scale, softcap, lse != nullptr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   ring_decode_combine_kernel<T><<<
       dim3(kv_heads, batch, (group * d + THREADS - 1) / THREADS), THREADS,
-      sizeof(float) * (size_t)group * (2 * splits + 1),
+      sizeof(float) * (size_t)group * (2 * splits + 2),
       (cudaStream_t)stream>>>(
-      (const int*)seq_lens, (const float*)part, (T*)out, seq_scalar, window,
-      kv_heads, group, d, split_len, splits);
+      (const int*)seq_lens, (const float*)part, (T*)out, (float*)lse,
+      seq_scalar, window, kv_heads, group, d, split_len, splits);
   return (int)cudaGetLastError();
 }
 
 // The group rounded up to a power of two picks the instantiation.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* seq_lens,
-           void* out, void* part, int batch, int window, int kv_heads,
-           int group, int d, int block, int seq_scalar, int split_len,
-           int splits, float scale, float softcap, void* stream) {
+           void* out, void* part, void* lse, int batch, int window,
+           int kv_heads, int group, int d, int block, int seq_scalar,
+           int split_len, int splits, float scale, float softcap,
+           void* stream) {
 #define RING_DECODE_LAUNCH(G)                                                 \
-  return launch_g<T, G>(q, k, v, seq_lens, out, part, batch, window,         \
+  return launch_g<T, G>(q, k, v, seq_lens, out, part, lse, batch, window,    \
                         kv_heads, group, d, block, seq_scalar, split_len,    \
                         splits, scale, softcap, stream)
   if (group <= 1) RING_DECODE_LAUNCH(1);
@@ -337,21 +362,26 @@ const char* ring_decode_error_string(int err) {
 
 // seq_lens: an int32 [batch] device array, or NULL for seq_scalar in every
 // row; part: the splits' fp32 workspace, batch * kv_heads * splits *
-// group * (d + 2) floats; softcap 0 for none; bf16
-// selects bf16 q/k/v/out (else fp32).
+// group * (d + 2) floats, followed where with_lse is set by the rows'
+// log-sum-exp, [batch, q_heads] fp32 (and empty rows at seq_len < 1);
+// softcap 0 for none; bf16 selects bf16 q/k/v/out (else fp32).
 int ring_decode_attention(const void* q, const void* k, const void* v,
                           const void* seq_lens, void* out, void* part,
                           int batch, int window, int kv_heads, int group,
                           int d, int block, int seq_scalar, int bf16,
                           int split_len, int splits, float scale,
-                          float softcap, void* stream) {
+                          float softcap, int with_lse, void* stream) {
+  void* lse = with_lse ? (void*)((float*)part + (size_t)batch * kv_heads *
+                                                    splits * group * (d + 2))
+                       : nullptr;
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, seq_lens, out, part, batch, window,
-                                 kv_heads, group, d, block, seq_scalar,
-                                 split_len, splits, scale, softcap, stream);
-  return launch<float>(q, k, v, seq_lens, out, part, batch, window, kv_heads,
-                       group, d, block, seq_scalar, split_len, splits, scale,
-                       softcap, stream);
+    return launch<__nv_bfloat16>(q, k, v, seq_lens, out, part, lse, batch,
+                                 window, kv_heads, group, d, block,
+                                 seq_scalar, split_len, splits, scale,
+                                 softcap, stream);
+  return launch<float>(q, k, v, seq_lens, out, part, lse, batch, window,
+                       kv_heads, group, d, block, seq_scalar, split_len,
+                       splits, scale, softcap, stream);
 }
 
 }  // extern "C"

@@ -25,6 +25,13 @@ counts as one launch in ``ring_decode_attention.launches``.  A range
 shorter than ``block`` holds only the slots that exist, so any window (a
 global cache of any ``cache_len``) is taken.
 
+``return_lse=True`` (both versions) also returns each q row's
+log-sum-exp of its valid scores, ``[B, q_heads]`` fp32, so that ranks
+that each hold a slice of a cache can combine their partial attentions;
+a row whose slice holds no valid slot yet (``seq_len < 1``) is then
+empty, ``out = 0`` and ``lse = -inf``, instead of the uniform average
+over the window that an empty cache gives without it.
+
 :func:`ring_decode_attention_plain` is the plain version: the Pallas
 body's block-by-block online softmax in PyTorch, batched.
 :func:`ring_decode_ref` is the port of ``repro.kernels.ref.
@@ -161,11 +168,14 @@ def _check_cuda(q, k, v) -> None:
 
 
 def ring_decode_attention(q, k_ring, v_ring, seq_len, *, window: int,
-                          block: int = 128, softcap: float | None = None):
+                          block: int = 128, softcap: float | None = None,
+                          return_lse: bool = False):
     """One decode step of attention over a ring KV cache on the card
     (replaces ``ring_decode_attention``,
     ``src/repro/kernels/ring_decode.py:77``); returns q's shape and
-    dtype."""
+    dtype, and with ``return_lse`` also the rows' log-sum-exp (``[B,
+    q_heads]``, or ``[q_heads]`` unbatched; fp32), empty rows at
+    ``seq_len < 1`` giving 0 and ``-inf``."""
     q, k, v, unbatched = _batched(q, k_ring, v_ring)
     group = _check(q, k, v, window, block)
     B, q_heads, d = q.shape
@@ -191,16 +201,22 @@ def ring_decode_attention(q, k_ring, v_ring, seq_len, *, window: int,
     kv_heads = k.shape[2]
     sp = decode_splits(B, kv_heads, window, _sm_count(q.device))
     out = torch.empty_like(q)
-    # the splits' partials: (m, l) per q row, then acc [group, d], fp32
-    part = torch.empty((sp.ctas * group * (d + 2),), dtype=F32,
-                       device=q.device)
+    # the splits' partials: (m, l) per q row, then acc [group, d], fp32;
+    # then, with return_lse, the rows' log-sum-exp [B, q_heads]
+    work = sp.ctas * group * (d + 2)
+    part = torch.empty((work + (B * q_heads if return_lse else 0),),
+                       dtype=F32, device=q.device)
     launch("ring_decode_attention", q, smem, (k, v, seq_rows, out, part),
            (B, window, kv_heads, group, d, block, seq_scalar,
             int(q.dtype == torch.bfloat16), sp.split_len, sp.splits,
-            d ** -0.5, float(softcap or 0.0)))
+            d ** -0.5, float(softcap or 0.0), int(return_lse)))
     with _COUNTING:   # the ranks of a one-process mesh launch in threads
         ring_decode_attention.launches += 1
     _THREAD.launches = getattr(_THREAD, "launches", 0) + 1
+    if return_lse:
+        _THREAD.lse_launches = getattr(_THREAD, "lse_launches", 0) + 1
+        lse = part[work:].view(B, q_heads)
+        return (out[0], lse[0]) if unbatched else (out, lse)
     return out[0] if unbatched else out
 
 
@@ -208,18 +224,19 @@ _COUNTING = threading.Lock()
 _THREAD = threading.local()
 
 
-def thread_launches() -> int:
+def thread_launches(lse: bool = False) -> int:
     """The launches of :func:`ring_decode_attention` made on this thread
     since it began (a stand-in mesh's rank runs on a thread of its
-    own)."""
-    return getattr(_THREAD, "launches", 0)
+    own); ``lse``: of them, those with ``return_lse``."""
+    return getattr(_THREAD, "lse_launches" if lse else "launches", 0)
 
 
 def ring_decode_attention_plain(q, k_ring, v_ring, seq_len, *, window: int,
                                 block: int = 128,
-                                softcap: float | None = None):
+                                softcap: float | None = None,
+                                return_lse: bool = False):
     """Plain version of :func:`ring_decode_attention`: the Pallas body's
-    online softmax, block by block, in fp32."""
+    online softmax, block by block, in fp32 (``return_lse`` as there)."""
     q, k, v, unbatched = _batched(q, k_ring, v_ring)
     group = _check(q, k, v, window, block)
     B, q_heads, d = q.shape
@@ -244,8 +261,18 @@ def ring_decode_attention_plain(q, k_ring, v_ring, seq_len, *, window: int,
         acc = acc * alpha[..., None] + torch.einsum(
             "bkgs,bskd->bkgd", p, v[:, base:base + block].to(F32))
         m = m_new
-    out = (acc / l[..., None]).reshape(B, q_heads, d).to(q.dtype)
-    return out[0] if unbatched else out
+    out = (acc / l[..., None]).reshape(B, q_heads, d)
+    if not return_lse:
+        out = out.to(q.dtype)
+        return out[0] if unbatched else out
+    lse = (m + torch.log(l)).reshape(B, q_heads)
+    empty = (seq < 1).reshape(B, 1)
+    out = torch.where(empty[..., None], torch.zeros((), dtype=F32,
+                                                    device=q.device), out)
+    lse = torch.where(empty, torch.full((), float("-inf"), device=q.device),
+                      lse)
+    out = out.to(q.dtype)
+    return (out[0], lse[0]) if unbatched else (out, lse)
 
 
 def ring_decode_ref(q, k_ring, v_ring, seq_len, *, window: int,

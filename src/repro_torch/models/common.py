@@ -13,7 +13,14 @@ rank's shards: its query heads (and KV heads, or the KV heads its query
 heads read where they do not divide: :func:`local_heads`), its
 ``d_ff`` columns; a row-parallel product (``w_o``, ``w_down``) gives
 the rank's partial sum, which :func:`row_parallel` adds up over the
-ranks in fp32 before it rounds to the activations' dtype.
+ranks in fp32 before it rounds to the activations' dtype (under
+``sp_residual`` each rank keeps its run of the sequence of that sum:
+:func:`reduce_partial`).  Where the sequence is split over ranks
+(``seq`` on a mesh dim) q is the rank's run and :func:`attention` takes
+K and V gathered whole with the run's offset; where a decode cache's
+sequence is (``kv_seq``), each rank attends over its slice and
+:func:`combine_partials` joins the ranks' results by their
+log-sum-exp.
 
 The initialisers (``init_norm``, ``init_attn``, ``init_mlp``) draw from
 an explicit ``torch.Generator`` on its device (or on ``device``, which
@@ -46,17 +53,27 @@ def matmul(x, w):
     return x @ w
 
 
+def reduce_partial(part, rules: AxisRules, logical: str):
+    """The sum over ``logical``'s ranks of their partial sums ``part``
+    ``[B, S, ...]``; under ``sp_residual`` (the residual's sequence split
+    where the block's is not) this rank's run of the sequence of it, a
+    reduce-scatter in place of the full sum."""
+    if rules.scatters_residual():
+        return rules.scatter_sum(part, "res_seq", dim=1)
+    return rules.psum(part, logical)
+
+
 def row_parallel(x, w, rules: AxisRules, logical: str, product=None):
     """``x @ w`` of a product whose rows ``w`` holds this rank's shard of
     over ``logical`` (``heads``, ``ff``): the ranks' fp32 partial sums are
-    summed, then rounded to x's dtype once, as one device rounds its
-    product's fp32 sum once (a bf16 partial rounded on each rank before
-    the sum would add a rounding a rank); ``product`` (:func:`matmul` by
-    default) where ``logical`` is whole."""
+    summed (:func:`reduce_partial`), then rounded to x's dtype once, as
+    one device rounds its product's fp32 sum once (a bf16 partial rounded
+    on each rank before the sum would add a rounding a rank);
+    ``product`` (:func:`matmul` by default) where ``logical`` is whole."""
     if rules.shards(logical) == 1:
         return (product or matmul)(x, w)
     part = x.to(F32) @ w.to(x.dtype).to(F32)
-    return rules.psum(part, logical).to(x.dtype)
+    return reduce_partial(part, rules, logical).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -161,8 +178,13 @@ def attention(q, k, v, *, causal: bool, window: int | None,
     taken in fp32, and ``p @ v`` sums in fp32 before it is rounded to q's
     dtype.  An fp32 product of operands that were bf16 is exact, so
     multiplying the upcast operands is bf16 operands with fp32
-    accumulation."""
+    accumulation.
+
+    ``q_offset`` is the position of q's first row: a rank's run of a
+    sequence split over ranks attends K and V gathered whole."""
     B, Sq, H, D = q.shape
+    if Sq == 0:   # a rank past the end of a short split sequence
+        return q.new_zeros((B, 0, H, v.shape[-1]))
     k = _expand_kv(k, H).to(F32)
     v = _expand_kv(v, H).to(F32)
     qs = q * _const(D ** -0.5, q)
@@ -197,11 +219,15 @@ def attention(q, k, v, *, causal: bool, window: int | None,
 
 
 def decode_attention(q, k, v, cur_len, *, softcap: float | None,
-                     ring: bool = False, window: int = 0):
+                     ring: bool = False, window: int = 0,
+                     return_lse: bool = False):
     """Single-step decode, the plain version.  q: [B,1,H,D]; k/v:
     [B,S,KV,D] (S = cache length or ring window).  ``cur_len``: tokens so
     far *including* the current one.  For ``ring`` caches, slot validity
-    is the vMCU boundary check."""
+    is the vMCU boundary check.  ``return_lse``: also each q row's
+    log-sum-exp ``[B, H]`` (fp32), the output in fp32, and a slice with
+    no valid slot gives 0 and ``-inf`` (the partial a rank of a split
+    cache adds: :func:`combine_partials`)."""
     B, _, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -214,9 +240,32 @@ def decode_attention(q, k, v, cur_len, *, softcap: float | None,
     else:
         valid = slot < cur_len
     s = s.masked_fill(~valid, NEG_INF)
+    if return_lse:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        total = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bkgs,bskd->bkgd", p / total, v.to(F32))
+        lse = (m + torch.log(total))[..., 0].reshape(B, H)
+        empty = torch.as_tensor(cur_len, device=q.device) < 1
+        o = torch.where(empty, torch.zeros((), device=q.device), o)
+        lse = torch.where(empty, torch.full((), float("-inf"),
+                                            device=q.device), lse)
+        return o.reshape(B, 1, H, D), lse
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v.to(F32))
     return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def combine_partials(o, lse, rules: AxisRules, logical: str = "kv_seq"):
+    """The ranks' partial attentions over their slices of a split cache
+    joined into the attention over the whole, in fp32: ``o [B, 1, H, D]``
+    and ``lse [B, H]`` of this rank; ``m = pmax(lse)``, ``w = exp(lse -
+    m)``, ``psum(w o) / psum(w)`` over ``logical``'s ranks (an empty
+    slice, ``lse = -inf``, weighs 0)."""
+    m = rules.pmax(lse, logical)
+    w = torch.exp(lse - m)[:, None, :, None]
+    num = rules.psum(w * o.to(F32), logical)
+    return num / rules.psum(w, logical)
 
 
 # --------------------------------------------------------------------------
@@ -243,6 +292,14 @@ def init_attn(gen: torch.Generator, cfg, *, cross: bool = False,
 class KVCache(NamedTuple):
     k: torch.Tensor   # [B, S_or_window, KV, D]
     v: torch.Tensor
+
+
+class KVSlice(NamedTuple):
+    """A rank's run of a cache split on ``kv_seq``: slots ``start ..
+    start + n`` of the whole cache, every KV head."""
+    k: torch.Tensor   # [B, n, KV, D]
+    v: torch.Tensor
+    start: int
 
 
 def local_heads(cfg, rules: AxisRules = NO_SHARDING) -> tuple[int, int, int]:
@@ -275,11 +332,15 @@ def kv_weights(p: dict, cfg, rules: AxisRules = NO_SHARDING):
 
 
 def project_qkv(p: dict, x, cfg, positions, *, rope_q: bool = True,
-                rope_k: bool = True, rules: AxisRules = NO_SHARDING):
+                rope_k: bool = True, rules: AxisRules = NO_SHARDING,
+                all_kv: bool = False):
     """q ``[B, S, heads, D]`` and k, v ``[B, S, KV heads, D]`` of this
-    rank's heads (all of them off a ``model`` axis)."""
+    rank's heads (all of them off a ``model`` axis); ``all_kv``: k and v
+    of every KV head (a cache split on ``kv_seq`` under ``tp``, where each
+    rank attends every head over its slice; the projections are whole
+    there, ``AxisRules.whole_on_model``)."""
     B, S, _ = x.shape
-    w_k, w_v = kv_weights(p, cfg, rules)
+    w_k, w_v = (p["w_k"], p["w_v"]) if all_kv else kv_weights(p, cfg, rules)
     q = matmul(x, p["w_q"]).reshape(B, S, -1, cfg.head_dim)
     k = matmul(x, w_k).reshape(B, S, -1, cfg.head_dim)
     v = matmul(x, w_v).reshape(B, S, -1, cfg.head_dim)

@@ -30,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 from ..parallel.sharding import NO_SHARDING, AxisRules
-from .common import F32, _gelu, _silu, apply_norm, init_norm, matmul, normal
+from .common import (F32, _gelu, _silu, apply_norm, init_norm, matmul,
+                     normal, reduce_partial)
 
 
 class Routing(NamedTuple):
@@ -192,8 +193,8 @@ def moe_forward(p: dict, x, cfg, rules: AxisRules = NO_SHARDING):
         h = _act(cfg, sg, su)
         out = out + (h.to(F32) @ p["shared_down"].to(dt).to(F32) if split
                      else matmul(h, p["shared_down"]))
-    if split:
-        out = rules.psum(out, "experts").to(dt)
-    out = rules.act(out.reshape(B, S, d), "batch", "res_seq", None)
+    if split:   # under sp_residual, this rank's run of the sum
+        out = reduce_partial(out.reshape(B, S, d), rules, "experts").to(dt)
+    out = rules.act(out.reshape(B, -1, d), "batch", "res_seq", None)
     return out, aux, Routing(eidx.reshape(B, S, k),
                                               keep.reshape(B, S, k))

@@ -8,6 +8,14 @@ rounds of whole-tensor products and sums, not one step per token.  The
 decode step is the O(1)-state update.  Gates are diagonal
 (per-channel), as in the reference.  The state ``h`` is fp32; the conv
 state is in the activations' dtype.
+
+Over a sequence split on ranks (``seq`` on a mesh dim, ``fsdp_sp``), two
+things cross the ranks' boundaries: the conv's halo (the ``K - 1`` rows
+of ``xs`` before a rank's run, from the ranks before it; zeros or the
+cache's conv state before the first) and the scan's carry (each rank
+scans its run from ``h = 0`` keeping the prefix product of ``a``; the
+ranks' ``(prod a, h_end)`` are gathered and each folds those of the
+ranks before it into the ``h`` its run starts from).
 """
 from __future__ import annotations
 
@@ -57,12 +65,13 @@ def _gates(p: dict, x):
     return a, beta * i * x
 
 
-def _assoc_scan(a, bx, h0=None):
+def _assoc_scan(a, bx, h0=None, with_prod: bool = False):
     """``h_t = a_t h_{t-1} + bx_t`` over axis 1, with ``h_{-1} = h0``
     (zero when None): a Hillis-Steele scan, ``ceil(log2 S)`` rounds of
     the combine ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)``.  Each
     round builds new tensors (no write into one that autograd saved), so
-    the scan trains as it serves."""
+    the scan trains as it serves.  ``with_prod``: ``(prefix products of
+    a, h)``."""
     if h0 is not None:
         bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]], 1)
     S = a.shape[1]
@@ -72,7 +81,7 @@ def _assoc_scan(a, bx, h0=None):
                        dim=1)
         a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2
-    return bx
+    return (a, bx) if with_prod else bx
 
 
 def _conv(full, w, S: int):
@@ -84,28 +93,94 @@ def _conv(full, w, S: int):
     return out
 
 
+def _last_rows(x, m: int):
+    """The last ``m`` rows of ``x`` on axis 1, zeros before a shorter
+    one."""
+    S = x.shape[1]
+    if S >= m:
+        return x[:, S - m:]
+    return torch.cat([x.new_zeros((x.shape[0], m - S) + x.shape[2:]), x], 1)
+
+
+def _rows_before(pad, tails, runs, upto: int, m: int):
+    """The last ``m`` rows of the sequence before rank ``upto``'s run:
+    ``pad``, then the real rows of each earlier rank's tail (``tails[j]``
+    its last ``m`` rows, zero-padded; ``runs[j]`` its ``(offset,
+    length)``)."""
+    parts = [pad] + [tails[j][:, m - min(runs[j][1], m):]
+                     for j in range(upto)]
+    return _last_rows(torch.cat(parts, dim=1), m)
+
+
+def _joined(x, gathered):
+    """``x`` with ``gathered`` in its graph at weight 0 (exactly ``x``): a
+    rank whose result reads none of a gather's rows (the first rank, of
+    the halo and the carry) still enters the gather's backward, a
+    collective that every rank of a process group must enter."""
+    return x + 0 * gathered.sum()
+
+
+def _carried(a, bx, h0, rules: AxisRules):
+    """``(h over the rank's run, h after the whole sequence)`` of the scan
+    split over the ``seq`` ranks: the run scanned from 0 with its prefix
+    products ``A``, the ranks' ``(A_end, h_end)`` gathered, the carry in
+    ``h_in`` the fold of the earlier ranks' from ``h0``, and ``h = h_run +
+    A h_in``."""
+    B, S, W = a.shape
+    A, hloc = _assoc_scan(a, bx, with_prod=True)
+    ends = torch.stack([A[:, -1], hloc[:, -1]]) if S else \
+        torch.stack([torch.ones_like(h0), torch.zeros_like(h0)])
+    ends = rules.pgather(ends, "seq")                  # [R, 2, B, W]
+    r = rules.shard_index("seq")
+    h_in, h_last = h0, None
+    for j in range(ends.shape[0]):
+        if j == r:
+            h_run = hloc + A * h_in[:, None]
+        h_in = ends[j, 0] * h_in + ends[j, 1]
+        h_last = h_in
+    return _joined(h_run, ends), h_last
+
+
 def rec_forward(p: dict, x, cfg, cache: LRUCache | None = None, *,
-                return_cache: bool = False, rules: AxisRules = NO_SHARDING):
-    """x ``[B, S, d]`` -> (mixed output, pre-residual; the cache or
-    None)."""
+                return_cache: bool = False, rules: AxisRules = NO_SHARDING,
+                total: int | None = None):
+    """x ``[B, S, d]`` -> (mixed output, pre-residual; the cache or None).
+    Over a sequence split on ``seq`` (``total`` positions in all), x is
+    the rank's run, and the cache returned on every rank is the whole
+    sequence's (the last rank's ``h`` and the sequence's conv tail)."""
     B, S, d = x.shape
     dt = x.dtype
     h = apply_norm(p["ln"], x, cfg)
     y_gate = _gelu(matmul(h, p["lru_w_y"]))
     xs = matmul(h, p["lru_w_x"])
     K = p["lru_conv"].shape[0]
-    pad = torch.zeros_like(xs[:, :K - 1]) if cache is None \
-        else cache.conv.to(dt)
-    full = torch.cat([pad, xs], dim=1)
+    split = bool(rules.mesh_dims("seq"))
+    pad = cache.conv.to(dt) if cache is not None else \
+        torch.zeros_like(_last_rows(xs, K - 1) if split else xs[:, :K - 1])
+    if split:
+        runs = rules.seq_slices("seq", total)
+        r = rules.shard_index("seq")
+        tails = rules.pgather(_last_rows(xs, K - 1), "seq")
+        full = torch.cat([_joined(_rows_before(pad, tails, runs, r, K - 1),
+                                  tails), xs], 1)
+        conv_tail = _rows_before(pad, tails, runs, len(runs), K - 1)
+    else:
+        full = torch.cat([pad, xs], dim=1)
+        conv_tail = full[:, full.shape[1] - (K - 1):]
     xs = rules.act(_conv(full, p["lru_conv"], S), "batch", "seq", "tp")
     a, bx = _gates(p, xs.to(F32))
-    hseq = _assoc_scan(a, bx, None if cache is None else cache.h)
+    if split:
+        h0 = torch.zeros((B, a.shape[-1]), dtype=F32, device=x.device) \
+            if cache is None else cache.h
+        hseq, h_last = _carried(a, bx, h0, rules)
+    else:
+        hseq = _assoc_scan(a, bx, None if cache is None else cache.h)
+        h_last = hseq[:, -1]
     out = rules.act(matmul(hseq.to(dt) * y_gate, p["lru_out"]), "batch",
                     "res_seq", None)
     if not return_cache:
         return out, None
-    return out, LRUCache(h=hseq[:, -1].contiguous(),
-                         conv=full[:, full.shape[1] - (K - 1):].contiguous())
+    return out, LRUCache(h=h_last.contiguous(), conv=conv_tail.contiguous())
 
 
 def rec_step(p: dict, x, cfg, cache: LRUCache):

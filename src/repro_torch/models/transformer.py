@@ -55,6 +55,26 @@ may be DTensors: the leaves outside the blocks are gathered whole on
 entry, each block's just before it runs (``AxisRules.gather``), and the
 tokens, memory, caches and every op's operands are plain tensors of the
 rank's own rows (``parallel.sharding`` says why and where that ends).
+
+Sequence parallelism.  Where the rules split ``seq``/``res_seq`` over
+ranks (``fsdp_sp`` over a ``model`` axis), the tokens (and an encoder's
+frames) come whole and each rank computes on its run of the positions:
+the embedding keeps the rank's run of the vocabulary's sum
+(``AxisRules.scatter_sum``), each attention gathers K and V whole and
+attends its queries from the run's offset (causal, windowed across the
+ranks, or bidirectional), a ``rec`` block carries its conv halo and scan
+state across the ranks (``rglru``), the caches are built from the
+gathered K/V and the whole sequence's recurrent state, and the hidden
+sequence is gathered whole before the vocabulary-split unembedding, so
+the logits (and the loss) are those of every position on each rank's
+vocabulary rows.  Under ``sp_residual`` (``tp``) only the residual is
+split: a block gathers it at its entry and scatters its row-parallel
+sums.  Where the rules split ``kv_seq`` (a decode cache whose KV heads
+do not divide the ``model`` axis, ``long_context`` over a data axis), a
+rank keeps its run of every full-length cache (``common.KVSlice``; ring
+windows and cross memories stay whole), writes a token's slot only where
+it owns it, and the ranks' partial decode attentions (the kernel's
+``return_lse``) are combined by their log-sum-exp.
 """
 from __future__ import annotations
 
@@ -68,10 +88,11 @@ import torch
 
 from ..kernels.ring_decode import ring_decode_attention
 from ..parallel.sharding import NO_SHARDING, AxisRules, local_tree
-from .common import (F32, KVCache, _const, _softcap, apply_norm, attention,
-                     decode_attention, init_attn, init_mlp, init_norm,
-                     kv_weights, local_heads, matmul, mlp_forward, normal,
-                     project_qkv, row_parallel)
+from .common import (F32, KVCache, KVSlice, _const, _softcap, apply_norm,
+                     attention, combine_partials, decode_attention,
+                     init_attn, init_mlp, init_norm, kv_weights,
+                     local_heads, matmul, mlp_forward, normal, project_qkv,
+                     row_parallel)
 from .mamba2 import SSMCache, init_ssm, init_ssm_cache, ssm_forward, \
     ssm_step
 from .moe import init_moe, moe_forward
@@ -94,7 +115,7 @@ ACT_DTYPE = torch.bfloat16
 
 
 class CrossCache(NamedTuple):
-    self_kv: KVCache
+    self_kv: KVCache    # or, split on kv_seq, a KVSlice
     mem_k: torch.Tensor    # [B, S_mem, KV, D]
     mem_v: torch.Tensor
 
@@ -263,16 +284,40 @@ def init_block(gen: torch.Generator, cfg, kind: str, *,
 # Blocks
 # --------------------------------------------------------------------------
 
+def kv_split(cfg, kind: str, cache_len: int, rules: AxisRules) -> bool:
+    """Whether a ``kind`` layer's cache is split on ``kv_seq`` over ranks:
+    only a full-length one (a ``full``/``global`` layer's, or a cross
+    block's self cache) of ``cache_len != window`` slots, as the
+    reference's ``cache_specs`` classifies it; ring windows and cross
+    memories stay whole."""
+    return bool(rules.mesh_dims("kv_seq")) and kind != "local" \
+        and cache_len != cfg.window
+
+
 def _attn_sub(p: dict, x, cfg, kind: str, positions, *,
               make_cache: bool = False, cache_len: int = 0,
-              rules: AxisRules = NO_SHARDING):
-    """Self-attention sub-layer, full sequence (reference ``:84-118``)."""
+              rules: AxisRules = NO_SHARDING, total: int | None = None):
+    """Self-attention sub-layer, full sequence (reference ``:84-118``).
+    Over a sequence split on ``seq`` (``total`` positions), x is the
+    rank's run: K and V are gathered whole and q attends from the run's
+    offset; a cache is built from the whole K/V (and split on
+    ``kv_seq`` where the rules say: :func:`kv_split`)."""
     B, S, _ = x.shape
+    n = total or S
+    split = make_cache and kv_split(cfg, kind, cache_len, rules)
+    all_kv = split and rules.shards("heads") > 1
     h = apply_norm(p["ln"], x, cfg)
-    q, k, v = project_qkv(p, h, cfg, positions, rules=rules)
+    q, k, v = project_qkv(p, h, cfg, positions, rules=rules, all_kv=all_kv)
+    if rules.mesh_dims("seq"):
+        k, v = rules.seq_gather(k, "seq", n), rules.seq_gather(v, "seq", n)
+    ka, va = k, v
+    if all_kv:   # this rank's heads attend the KV heads they read
+        _, kvh, first = local_heads(cfg, rules)
+        ka, va = k[:, :, first:first + kvh], v[:, :, first:first + kvh]
     window = cfg.window if kind == "local" else None
-    o = attention(q, k, v, causal=True, window=window,
-                  softcap=cfg.attn_softcap, bf16_einsum=cfg.bf16_einsum)
+    o = attention(q, ka, va, causal=True, window=window,
+                  softcap=cfg.attn_softcap, bf16_einsum=cfg.bf16_einsum,
+                  q_offset=rules.seq_slice("seq", n)[0])
     o = row_parallel(o.reshape(B, S, -1), p["w_o"], rules, "heads")
     o = rules.act(o, "batch", "res_seq", None)
     if cfg.post_norms:
@@ -281,23 +326,27 @@ def _attn_sub(p: dict, x, cfg, kind: str, positions, *,
     if make_cache:
         if kind == "local":
             w = cfg.window
-            if S >= w:   # the ring roll: slot t % w holds token t
-                ring_k = torch.roll(k[:, S - w:], S % w, dims=1)
-                ring_v = torch.roll(v[:, S - w:], S % w, dims=1)
+            if n >= w:   # the ring roll: slot t % w holds token t
+                ring_k = torch.roll(k[:, n - w:], n % w, dims=1)
+                ring_v = torch.roll(v[:, n - w:], n % w, dims=1)
             else:
-                pad = (0, 0, 0, 0, 0, w - S)
+                pad = (0, 0, 0, 0, 0, w - n)
                 ring_k = torch.nn.functional.pad(k, pad)
                 ring_v = torch.nn.functional.pad(v, pad)
             cache = KVCache(
                 rules.act(ring_k, "batch", None, "kv_heads", None),
                 rules.act(ring_v, "batch", None, "kv_heads", None))
         else:
-            pad = (0, 0, 0, 0, 0, max(cache_len, S) - S)
+            pad = (0, 0, 0, 0, 0, max(cache_len, n) - n)
             cache = KVCache(
                 rules.act(torch.nn.functional.pad(k, pad), "batch",
                           "kv_seq", "kv_heads", None),
                 rules.act(torch.nn.functional.pad(v, pad), "batch",
                           "kv_seq", "kv_heads", None))
+            if split:   # the rank's run, copied so the whole is freed
+                lo, m = rules.seq_slice("kv_seq", max(cache_len, n))
+                cache = KVSlice(cache.k[:, lo:lo + m].contiguous(),
+                                cache.v[:, lo:lo + m].contiguous(), lo)
     return o, cache
 
 
@@ -341,54 +390,94 @@ def _ffn_sub(p: dict, x, cfg, routes=None, rules: AxisRules = NO_SHARDING):
 
 def block_forward(p: dict, x, cfg, kind: str, positions, *, memory=None,
                   make_cache: bool = False, cache_len: int = 0,
-                  routes=None, rules: AxisRules = NO_SHARDING):
-    """Residual block, full sequence -> (x, cache, aux)."""
+                  routes=None, rules: AxisRules = NO_SHARDING,
+                  total: int | None = None):
+    """Residual block, full sequence -> (x, cache, aux).  Over a sequence
+    split on ranks (``total`` positions in all) x is the rank's run of
+    the residual; under ``sp_residual`` each sub-layer gathers it whole
+    at its entry (its row-parallel sum comes back as the rank's run)."""
+    n = total or x.shape[1]
+
+    def enter(t):   # a sub-layer's input
+        return rules.block_input(t, n)
     cache = None
     if kind in SELF_KINDS:
-        o, cache = _attn_sub(p["attn"], x, cfg, kind, positions,
+        o, cache = _attn_sub(p["attn"], enter(x), cfg, kind, positions,
                              make_cache=make_cache, cache_len=cache_len,
-                             rules=rules)
+                             rules=rules, total=n)
         x = x + o
     elif kind == "cross":
-        o, sc = _attn_sub(p["attn"], x, cfg, "full", positions,
+        o, sc = _attn_sub(p["attn"], enter(x), cfg, "full", positions,
                           make_cache=make_cache, cache_len=cache_len,
-                          rules=rules)
+                          rules=rules, total=n)
         x = x + o
-        xo, mkv = _xattn_sub(p["xattn"], x, cfg, memory,
+        xo, mkv = _xattn_sub(p["xattn"], enter(x), cfg, memory,
                              make_cache=make_cache, rules=rules)
         x = x + xo
         if make_cache:
             cache = CrossCache(sc, mkv[0].contiguous(), mkv[1].contiguous())
     elif kind == "rec":
-        o, cache = rec_forward(p["rec"], x, cfg, return_cache=make_cache,
-                               rules=rules)
+        o, cache = rec_forward(p["rec"], enter(x), cfg,
+                               return_cache=make_cache, rules=rules, total=n)
         x = x + o
     elif kind == "ssm":
-        o, cache = ssm_forward(p["ssm"], x, cfg, return_cache=make_cache,
-                               rules=rules)
+        o, cache = ssm_forward(p["ssm"], enter(x), cfg,
+                               return_cache=make_cache, rules=rules)
         x = x + o
     else:
         raise ValueError(kind)
-    o, aux = _ffn_sub(p, x, cfg, routes, rules)
+    o, aux = _ffn_sub(p, enter(x) if "ffn" in p else x, cfg, routes, rules)
     return x + o, cache, aux
 
 
 def _decode_attn(q, k, v, cur_len: int, *, softcap, ring: bool,
-                 window: int, plain: bool):
+                 window: int, plain: bool, return_lse: bool = False):
     """Decode attention of q ``[B, 1, H, D]`` over k/v ``[B, S, KV,
     D]``: on a card the kernel, the cache taken as a ring of S slots
     (the ring rule gives the reference's ``slot < cur_len`` for a cache
-    that never wraps); elsewhere, or ``plain``, the plain version."""
+    that never wraps); elsewhere, or ``plain``, the plain version.
+    ``return_lse`` (a rank's slice of a split cache, ``cur_len`` its
+    valid slots): ``(out, lse [B, H])``, an empty slice giving 0 and
+    ``-inf``."""
+    B, _, H, D = q.shape
+    if return_lse and k.shape[1] == 0:   # a rank past the cache's end
+        return (torch.zeros(q.shape, dtype=F32, device=q.device),
+                torch.full((B, H), float("-inf"), device=q.device))
     if q.device.type != "cuda" or plain:
         return decode_attention(q, k, v, cur_len, softcap=softcap,
-                                ring=ring, window=window)
-    B, _, H, D = q.shape
+                                ring=ring, window=window,
+                                return_lse=return_lse)
     # an fp32 memory (image tokens) takes q up to fp32, exactly, as the
     # plain version computes every score in fp32
     qk = q.reshape(B, H, D).to(k.dtype).contiguous()
     o = ring_decode_attention(qk, k, v, cur_len, window=k.shape[1],
-                              block=DECODE_BLOCK, softcap=softcap)
+                              block=DECODE_BLOCK, softcap=softcap,
+                              return_lse=return_lse)
+    if return_lse:
+        return o[0].reshape(B, 1, H, D), o[1]
     return o.to(q.dtype).reshape(B, 1, H, D)
+
+
+def _split_decode_attn(q, kv: KVSlice, cur_len: int, cfg, *, plain: bool,
+                       rules: AxisRules):
+    """Decode attention over a cache split on ``kv_seq``: this rank
+    attends over its slice (its valid slots ``cur_len - start``, clamped)
+    and the ranks' partials are combined (:func:`~.common.
+    combine_partials`).  Under ``tp`` (heads split too) the ranks' q are
+    gathered, every head attends, and the rank keeps its own heads."""
+    hq = q.shape[2]
+    heads = rules.shards("heads") > 1
+    if heads:
+        q = torch.cat(list(rules.pgather(q, "heads")), dim=2)
+    n = kv.k.shape[1]
+    local = min(max(cur_len - kv.start, 0), n)
+    o, lse = _decode_attn(q, kv.k, kv.v, local, softcap=cfg.attn_softcap,
+                          ring=False, window=n, plain=plain, return_lse=True)
+    o = combine_partials(o, lse, rules)
+    if heads:
+        h0 = rules.shard_index("heads") * hq
+        o = o[:, :, h0:h0 + hq]
+    return o.to(q.dtype)
 
 
 def _self_attn_step(ap: dict, x, cfg, kv: KVCache, cur_len: int, *,
@@ -397,14 +486,22 @@ def _self_attn_step(ap: dict, x, cfg, kv: KVCache, cur_len: int, *,
     RoPE, write the token's slot in place, attend -> (out, kv)."""
     B = x.shape[0]
     pos = cur_len - 1
+    split = isinstance(kv, KVSlice)
     h = apply_norm(ap["ln"], x, cfg)
-    q, kn, vn = project_qkv(ap, h, cfg, pos, rules=rules)
+    q, kn, vn = project_qkv(ap, h, cfg, pos, rules=rules,
+                            all_kv=split and rules.shards("heads") > 1)
     slot = pos % cfg.window if ring else pos
-    if slot < kv.k.shape[1]:   # a token past a full global cache is dropped
+    if split:   # the slot lies in one rank's slice, or past the cache
+        slot -= kv.start
+    if 0 <= slot < kv.k.shape[1]:   # a token past a full cache is dropped
         kv.k[:, slot] = kn[:, 0].to(kv.k.dtype)
         kv.v[:, slot] = vn[:, 0].to(kv.v.dtype)
-    o = _decode_attn(q, kv.k, kv.v, cur_len, softcap=cfg.attn_softcap,
-                     ring=ring, window=cfg.window, plain=plain)
+    if split:
+        o = _split_decode_attn(q, kv, cur_len, cfg, plain=plain,
+                               rules=rules)
+    else:
+        o = _decode_attn(q, kv.k, kv.v, cur_len, softcap=cfg.attn_softcap,
+                         ring=ring, window=cfg.window, plain=plain)
     o = row_parallel(o.reshape(B, 1, -1), ap["w_o"], rules, "heads")
     if cfg.post_norms:
         o = apply_norm(ap["post_ln"], o, cfg)
@@ -451,18 +548,25 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
                      dtype=ACT_DTYPE, device="cuda",
                      rules: AxisRules = NO_SHARDING):
     """A layer's empty cache: of this rank's KV and SSM heads on a
-    ``model`` axis (:func:`~.common.local_heads`)."""
-    def kv(S):
-        shape = (batch, S, local_heads(cfg, rules)[1], cfg.head_dim)
-        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device))
+    ``model`` axis (:func:`~.common.local_heads`); a full-length one split
+    on ``kv_seq`` (:func:`kv_split`) the rank's slice of every KV head."""
+    def kv(S, split=False):
+        heads = local_heads(cfg, rules)[1]
+        if split:
+            start, S = rules.seq_slice("kv_seq", S)
+            heads = cfg.n_kv_heads
+        shape = (batch, S, heads, cfg.head_dim)
+        k, v = (torch.zeros(shape, dtype=dtype, device=device)
+                for _ in range(2))
+        return KVSlice(k, v, start) if split else KVCache(k, v)
+    split = kv_split(cfg, "full", cache_len, rules)
     if kind in ("full", "global"):
-        return kv(cache_len)
+        return kv(cache_len, split)
     if kind == "local":
         return kv(cfg.window)
     if kind == "cross":
         mem = kv(cfg.memory_len())
-        return CrossCache(kv(cache_len), mem.k, mem.v)
+        return CrossCache(kv(cache_len, split), mem.k, mem.v)
     if kind == "rec":
         return init_rec_cache(cfg, batch, dtype, device)
     if kind == "ssm":
@@ -601,19 +705,24 @@ class Model:
                 "final_ln": rules.gather(params["encoder"]["final_ln"])}
         return out
 
-    def _embed(self, params, tokens, rules: AxisRules = NO_SHARDING):
+    def _embed(self, params, tokens, rules: AxisRules = NO_SHARDING,
+               split: bool = True):
         """The embedded tokens; each caller constrains them (``rules.act(x,
         "batch", "res_seq", None)``, the reference's ``_embed``'s).  Over
         a vocabulary split on ``model`` a rank looks up the tokens in its
         range and puts zeros elsewhere; the sum over the ranks is the
-        lookup, exactly (one term of it is not 0)."""
+        lookup, exactly (one term of it is not 0).  Where the residual's
+        sequence is split (and ``split``: not a one-token step) the rank
+        keeps its run of that sum (of the whole tokens it was given)."""
         table = params["embed"]
+        runs = split and bool(rules.mesh_dims("res_seq"))
         if rules.shards("vocab") > 1:
             n = table.shape[0]
             ids = tokens - rules.shard_index("vocab") * n
             mine = (ids >= 0) & (ids < n)
             x = table[ids.clamp(0, n - 1)] * mine[..., None]
-            x = rules.psum(x, "vocab")
+            x = rules.scatter_sum(x, "res_seq") if runs \
+                else rules.psum(x, "vocab")
         else:
             x = table[tokens]
         return (x * _const(math.sqrt(self.cfg.d_model), x)).to(ACT_DTYPE)
@@ -628,12 +737,21 @@ class Model:
         logits = x.to(torch.float32) @ w.to(torch.float32).T
         return _softcap(logits, self.cfg.logit_softcap)
 
-    def _logits(self, params, x, rules: AxisRules):
+    def _logits(self, params, x, rules: AxisRules, total: int | None = None):
         """:meth:`_unembed`, constrained as the reference's ``_unembed``
         constrains its logits: over a vocabulary split on ``model``, the
         logits of this rank's vocabulary rows (``vocab_logits`` gathers
-        them whole)."""
+        them whole).  Given ``total``, x is the rank's run of a residual
+        split on ``res_seq`` and is gathered whole first."""
+        if total is not None:
+            x = rules.seq_gather(x, "res_seq", total)
         return rules.act(self._unembed(params, x), "batch", None, "vocab")
+
+    def _positions(self, x, rules: AxisRules, n: int):
+        """The positions of the rank's run of ``n`` split on ``seq`` (all
+        of them where nothing splits it), on x's device."""
+        lo, m = rules.seq_slice("seq", n)
+        return torch.arange(lo, lo + m, device=x.device)
 
     def _tokens(self, params, tokens):
         return torch.as_tensor(tokens, device=params["embed"].device) \
@@ -641,22 +759,33 @@ class Model:
 
     def _encode(self, params, frames, rules: AxisRules = NO_SHARDING):
         """The encoder over precomputed frame embeddings (reference
-        ``:361-385``): bidirectional attention blocks, then its norm."""
+        ``:361-385``): bidirectional attention blocks, then its norm.
+        Over a sequence split on ranks each rank encodes its run of the
+        frames (K and V gathered whole), and the memory is gathered whole
+        at the end."""
         cfg = self.cfg
         x = frames.to(ACT_DTYPE)
-        B, S, _ = x.shape
-        pos = torch.arange(S, device=x.device)
+        B, n, _ = x.shape
+        lo, m = rules.seq_slice("res_seq", n)
+        x = x[:, lo:lo + m]
+        pos = self._positions(x, rules, n)
+        seq = bool(rules.mesh_dims("seq"))
         for bp in params["encoder"]["blocks"]:
             bp = rules.gather(bp)
-            h = apply_norm(bp["attn"]["ln"], x, cfg)
+            h = apply_norm(bp["attn"]["ln"], rules.block_input(x, n), cfg)
             q, k, v = project_qkv(bp["attn"], h, cfg, pos, rules=rules)
+            if seq:
+                k = rules.seq_gather(k, "seq", n)
+                v = rules.seq_gather(v, "seq", n)
             o = attention(q, k, v, causal=False, window=None, softcap=None,
                           bf16_einsum=cfg.bf16_einsum)
-            o = row_parallel(o.reshape(B, S, -1), bp["attn"]["w_o"], rules,
-                             "heads")
+            o = row_parallel(o.reshape(B, h.shape[1], -1),
+                             bp["attn"]["w_o"], rules, "heads")
             x = x + rules.act(o, "batch", "res_seq", None)
-            x = x + mlp_forward(bp["ffn"], x, cfg, rules)
-        return apply_norm(params["encoder"]["final_ln"], x, cfg)
+            x = x + mlp_forward(bp["ffn"], rules.block_input(x, n), cfg,
+                                rules)
+        x = apply_norm(params["encoder"]["final_ln"], x, cfg)
+        return rules.seq_gather(x, "res_seq", n)
 
     def _memory(self, params, memory, rules: AxisRules = NO_SHARDING):
         """The memory the cross blocks attend to: the encoder's output of
@@ -692,13 +821,14 @@ class Model:
         memory = self._memory(params, local_tree(memory), rules)
         x = rules.act(self._embed(params, tokens, rules), "batch", "res_seq",
                       None)
-        positions = torch.arange(tokens.shape[1], device=x.device)
+        n = tokens.shape[1]
+        positions = self._positions(x, rules, n)
 
         def run(x, aux, layers, kinds):
             for p, kind in zip(layers, kinds):
                 x, _, a = block_forward(rules.gather(p), x, cfg, kind,
                                         positions, memory=memory,
-                                        routes=routes, rules=rules)
+                                        routes=routes, rules=rules, total=n)
                 aux = aux + a
             return x, aux
 
@@ -713,7 +843,7 @@ class Model:
             x, aux = group(x, aux, layers[gi:gi + P], kinds[gi:gi + P])
         x, aux = run(x, aux, layers[lead + g * P:], kinds[lead + g * P:])
         x = apply_norm(params["final_ln"], x, cfg)
-        return self._logits(params, x, rules), aux
+        return self._logits(params, x, rules, n), aux
 
     def loss(self, params, batch: dict, remat_policy: str | None = None, *,
              rules: AxisRules | None = None):
@@ -766,15 +896,16 @@ class Model:
         cache_len = max(cache_len, S)
         x = rules.act(self._embed(params, tokens, rules), "batch", "res_seq",
                       None)
-        positions = torch.arange(S, device=x.device)
+        positions = self._positions(x, rules, S)
         caches = []
         for p, kind in zip(params["layers"], layer_kinds(cfg)):
             x, c, _ = block_forward(rules.gather(p), x, cfg, kind, positions,
                                     memory=memory, make_cache=True,
                                     cache_len=cache_len, routes=routes,
-                                    rules=rules)
+                                    rules=rules, total=S)
             caches.append(c)
         x = apply_norm(params["final_ln"], x, cfg)
+        x = rules.seq_gather(x, "res_seq", S)
         return self._logits(params, x[:, -1:], rules)[:, 0], caches, S
 
     def decode_step(self, params, caches, token, cur_len: int, *,
@@ -783,11 +914,11 @@ class Model:
         written in place), cur_len + 1).  On a mesh, as :meth:`prefill`:
         the decode attention runs on the rank's rows of plain caches."""
         cfg = self.cfg
-        rules = rules or NO_SHARDING
+        rules = (rules or NO_SHARDING).one_token()
         params = self._on_rank(params, rules)
         token = self._tokens(params, local_tree(token))
-        x = rules.act(self._embed(params, token[:, None], rules), "batch",
-                      "res_seq", None)
+        x = rules.act(self._embed(params, token[:, None], rules, split=False),
+                      "batch", "res_seq", None)
         cur = int(cur_len) + 1  # length including this token
         new = []
         for p, kind, c in zip(params["layers"], layer_kinds(cfg), caches):
@@ -798,7 +929,7 @@ class Model:
         return self._logits(params, x, rules)[:, 0], new, cur
 
 
-__all__ = ["ATTN_KINDS", "BLOCK_KINDS", "CrossCache", "KVCache",
+__all__ = ["ATTN_KINDS", "BLOCK_KINDS", "CrossCache", "KVCache", "KVSlice",
            "LRUCache", "Model", "SSMCache", "block_forward", "block_step",
            "greedy", "init_block", "init_block_cache", "label_logprob",
            "layer_kinds", "layers_from_tree", "log_softmax",

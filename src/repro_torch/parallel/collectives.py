@@ -11,7 +11,11 @@
 * ``mesh_sum / mesh_max / mesh_gather`` — tensor parallelism's sums and
   MoE routing's exchanges along mesh dims, over a ``DeviceMesh``'s
   process groups or a one-process ``standin.StandInMesh`` (what
-  ``AxisRules.psum``, ``pmax`` and ``pgather`` call).
+  ``AxisRules.psum`` and ``pmax`` call).
+* ``mesh_cat`` — the ranks' runs of a dim joined whole, its backward a
+  reduce-scatter (what ``AxisRules.seq_gather`` and ``pgather`` call;
+  ``AxisRules.scatter_sum`` is a ``mesh_sum`` and the rank's slice of
+  it).
 
 The arithmetic is written once, over rows of a leading participant
 axis, with the reduction over participants injected: the process-group
@@ -222,3 +226,38 @@ def mesh_gather(mesh, dims, x: torch.Tensor) -> torch.Tensor:
         dist.all_gather(parts, out, group=g)
         out = torch.cat(parts)
     return out
+
+
+class _GroupCat(torch.autograd.Function):
+    """The ranks' runs of ``dim`` joined in rank order over process
+    groups; the backward sums the gradient of the whole over them and
+    hands this rank its own run (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims, dim, lengths, index):
+        ctx.groups, ctx.dim = _groups(mesh, dims), dim
+        ctx.lo, ctx.n = sum(lengths[:index]), lengths[index]
+        chunk = max(lengths)
+        pad = [0, 0] * (x.dim() - 1 - dim) + [0, chunk - x.shape[dim]]
+        stacked = mesh_gather(mesh, dims,
+                              torch.nn.functional.pad(x, pad))
+        return torch.cat([stacked[i].narrow(dim, 0, n)
+                          for i, n in enumerate(lengths)], dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = _reduced(grad, ctx.groups, "sum")
+        return whole.narrow(ctx.dim, ctx.lo, ctx.n), None, None, None, \
+            None, None
+
+
+def mesh_cat(mesh, dims, x: torch.Tensor, dim: int, lengths,
+             index: int) -> torch.Tensor:
+    """Every rank's ``x`` along the mesh ``dims`` joined on ``dim`` in
+    their order (rank ``i`` holding ``lengths[i]`` rows of it; this rank
+    is ``index``): autograd-aware, each rank's gradient of the whole
+    summed over them and cut back to its own rows (the stand-in keeps the
+    ranks' autograd edges, so the caller's one backward does that)."""
+    if _standin(mesh):
+        return torch.cat(mesh.exchange(dims, x), dim=dim)
+    return _GroupCat.apply(x, mesh, tuple(dims), dim, tuple(lengths), index)

@@ -32,9 +32,20 @@ one-process ``standin.StandInMesh``).  A rank holds a partial gradient
 of every value the ranks hold alike, so the sum's backward sums the
 gradient over the ranks, and a leaf replicated on ``model`` gathers a
 partial gradient on each rank (``Partial``, as on the batch dims).
-Sequence parallelism (``fsdp_sp``, ``sp_residual``, a KV cache's
-sequence on a mesh dim) is not ported: :func:`check_executable` refuses
-it.
+
+Sequence parallelism is the model code's too.  Where ``seq`` or
+``res_seq`` lies on a mesh dim above 1 (``fsdp_sp`` over ``model``, and
+``sp_residual``'s residual under ``tp``) a rank holds a contiguous run
+of positions, cut as a DTensor ``Shard`` cuts them
+(:meth:`AxisRules.seq_slice`: ceil-sized runs, the last shorter); the
+tokens come whole, the embedding keeps the rank's run
+(:meth:`AxisRules.scatter_sum`), attention gathers K and V
+(:meth:`AxisRules.seq_gather`, its backward a reduce-scatter), a
+recurrence passes its carry across the ranks, and the hidden sequence
+is gathered before the vocabulary-split unembedding.  Where ``kv_seq``
+does (a decode cache whose KV heads do not divide, ``long_context``
+over a data axis) a rank keeps its run of each full-length cache and
+the ranks' partial attentions are combined by their log-sum-exp.
 """
 from __future__ import annotations
 
@@ -82,56 +93,76 @@ def _axes(entry) -> tuple[str, ...]:
 def check_executable(cfg, rules) -> None:
     """Raise where the mesh path of ``rules`` would not compute the
     reference's numbers.  ``NotImplementedError`` (naming
-    :data:`MODEL_AXIS_ITEM`) for sequence parallelism: the ``fsdp_sp``
-    mode over a ``model`` axis above 1, and any rule that puts ``seq``,
-    ``res_seq`` or ``kv_seq`` on a mesh dim above 1 (``sp_residual``, a
-    decode cache's sequence where the KV heads do not divide,
-    ``long_context`` over a data axis; ``kv_seq`` only where the config
-    has attention, and so KV caches); and for an ``lru_`` block under
-    ``tp`` with a ``model`` axis above 1 (no config has one).
-    ``ValueError`` where the ``model`` axis does not divide a width it
-    shards, or where a rank's query heads would read KV heads in runs of
-    unequal length."""
+    :data:`MODEL_AXIS_ITEM`) for what no config reaches: an ``lru_``
+    block under ``tp`` with a ``model`` axis above 1 (its widths on
+    ``model``), and an MoE or SSM block over a split ``seq`` (routing and
+    the chunked SSD's state over the ranks' runs).  ``ValueError`` where
+    the ``model`` axis does not divide a width it shards, where a rank's
+    query heads would read KV heads in runs of unequal length, or where
+    the residual's sequence is split over other ranks than the
+    vocabulary (the embedding's sum keeps the rank's run)."""
     sizes = axis_sizes(rules.mesh)
     R = sizes.get("model", 1)
     # a config with no attention keeps no KV cache for kv_seq to shard
     cached = {"full", "local", "global", "cross"} & set(cfg.pattern)
-    on = [name for name in ("seq", "res_seq", "kv_seq")
-          if (name != "kv_seq" or cached)
-          and any(sizes.get(a, 1) > 1 for a in _axes(rules._phys(name)))]
-    if on or (R > 1 and rules.mode == "fsdp_sp"):
+    res = rules.mesh_dims("res_seq")
+    if res and res != rules.mesh_dims("vocab"):
+        raise ValueError(f"{cfg.name}: the residual's sequence on mesh dims "
+                         f"{res}, the vocabulary on "
+                         f"{rules.mesh_dims('vocab')}")
+    if rules.mesh_dims("seq") and ({"ssm"} & set(cfg.pattern)
+                                   or cfg.n_experts):
         raise NotImplementedError(
-            f"{cfg.name}: the {rules.mode} rules on {sizes} shard "
-            f"{', '.join(on) or 'the sequence over model'}; sequence "
-            f"parallelism is not ported: {MODEL_AXIS_ITEM}")
+            f"{cfg.name}: MoE routing and the SSD's state over a sequence "
+            f"split on {sizes} are not ported: {MODEL_AXIS_ITEM}")
     if R == 1:
         return
-    if "rec" in cfg.pattern:
-        raise NotImplementedError(
-            f"{cfg.name}'s rec blocks under a 'model' axis of {R} ranks "
-            f"(lru_ widths on 'model') are not ported: {MODEL_AXIS_ITEM}")
-    widths = {"vocab": cfg.vocab, "d_ff": cfg.d_ff,
-              "n_experts": cfg.n_experts}
-    if cached:
-        widths["n_heads"] = cfg.n_heads
-    if cfg.first_dense_layers:
-        widths["lead d_ff"] = cfg.d_ff * (cfg.top_k + cfg.n_shared_experts)
-    if cfg.ssm_state:
-        widths["ssm_heads"] = cfg.ssm_heads
-        if cfg.ssm_groups != 1:
-            raise ValueError(f"{cfg.name}: SSD heads over a 'model' axis "
-                             f"read one B/C group; it has {cfg.ssm_groups}")
+    widths = {"vocab": cfg.vocab}
+    if rules.mode == "tp":
+        if "rec" in cfg.pattern:
+            raise NotImplementedError(
+                f"{cfg.name}'s rec blocks under a 'model' axis of {R} "
+                f"ranks (lru_ widths on 'model') are not ported: "
+                f"{MODEL_AXIS_ITEM}")
+        widths.update({"d_ff": cfg.d_ff, "n_experts": cfg.n_experts})
+        if cached:
+            widths["n_heads"] = cfg.n_heads
+        if cfg.first_dense_layers:
+            widths["lead d_ff"] = cfg.d_ff * (cfg.top_k
+                                              + cfg.n_shared_experts)
+        if cfg.ssm_state:
+            widths["ssm_heads"] = cfg.ssm_heads
+            if cfg.ssm_groups != 1:
+                raise ValueError(f"{cfg.name}: SSD heads over a 'model' "
+                                 f"axis read one B/C group; it has "
+                                 f"{cfg.ssm_groups}")
     bad = {k: n for k, n in widths.items() if n % R}
     if bad:
         raise ValueError(f"{cfg.name}: a 'model' axis of {R} ranks does not "
                          f"divide {bad}")
-    if cached and not rules.kv_shardable:
+    if rules.mode == "tp" and cached and not rules.kv_shardable:
         group = cfg.n_heads // cfg.n_kv_heads
         if group % (cfg.n_heads // R):
             raise ValueError(
                 f"{cfg.name}: each of {R} ranks holds {cfg.n_heads // R} "
                 f"query heads, which straddle groups of {group} on "
                 f"{cfg.n_kv_heads} KV heads")
+
+
+def run_of(n: int, counts, index) -> tuple[int, int]:
+    """``(offset, length)`` of the run of a dim of ``n`` that the rank at
+    ``index`` (one coordinate a mesh dim that splits it, outermost first)
+    holds when ``counts`` ranks split it on those dims in turn: each dim
+    cuts the rank's current run into ``ceil(size / count)`` pieces, the
+    last shorter (a rank past the end holds none), as
+    :func:`local_slices` and a DTensor ``Shard`` cut it."""
+    lo, size = 0, n
+    for count, c in zip(counts, index):
+        chunk = -(-size // count)
+        off = min(c * chunk, size)
+        lo += off
+        size = min(chunk, size - off)
+    return lo, size
 
 
 def local_slices(shape, mesh_shape, placements, coord) -> tuple[slice, ...]:
@@ -465,12 +496,90 @@ class AxisRules:
         return collectives.mesh_max(self.mesh, dims, x) if dims \
             else x.detach()
 
+    def seq_slices(self, logical: str, n: int) -> list[tuple[int, int]]:
+        """``(offset, length)`` of every rank's run of a dim of ``n``
+        split on ``logical``, in :meth:`shard_index` order (one run, the
+        whole, where nothing splits it)."""
+        counts = [self.mesh.shape[d] for d in self.mesh_dims(logical)] \
+            if self.mesh is not None else []
+        out = []
+        for i in range(math.prod(counts)):
+            index = []
+            for c in reversed(counts):
+                index.append(i % c)
+                i //= c
+            out.append(run_of(n, counts, index[::-1]))
+        return out
+
+    def seq_slice(self, logical: str, n: int) -> tuple[int, int]:
+        """This rank's ``(offset, length)`` of a dim of ``n`` split on
+        ``logical``: its run of positions (``(0, n)`` where nothing
+        splits it)."""
+        dims = self.mesh_dims(logical)
+        if not dims:
+            return 0, n
+        coord = self.mesh.get_coordinate()
+        return run_of(n, [self.mesh.shape[d] for d in dims],
+                      [coord[d] for d in dims])
+
+    def seq_gather(self, x: torch.Tensor, logical: str, n: int,
+                   dim: int = 1) -> torch.Tensor:
+        """The whole dim ``dim`` (``n`` long) from the ranks' runs of it
+        split on ``logical`` (``x`` is this rank's): autograd-aware, the
+        gradient of each rank's run reduce-scattered back to it."""
+        dims = self.mesh_dims(logical)
+        if not dims:
+            return x
+        return collectives.mesh_cat(
+            self.mesh, dims, x, dim,
+            [m for _, m in self.seq_slices(logical, n)],
+            self.shard_index(logical))
+
+    def scatter_sum(self, x: torch.Tensor, logical: str,
+                    dim: int = 1) -> torch.Tensor:
+        """This rank's run (split on ``logical``) of dim ``dim`` of the sum
+        of the ranks' ``x`` over ``logical``'s mesh dims: a psum and the
+        rank's slice of it (its backward sums the ranks' gradients)."""
+        dims = self.mesh_dims(logical)
+        if not dims:
+            return x
+        lo, m = self.seq_slice(logical, x.shape[dim])
+        return collectives.mesh_sum(self.mesh, dims, x).narrow(dim, lo, m)
+
+    def scatters_residual(self) -> bool:
+        """Whether the residual's sequence is split where the blocks'
+        is not (``sp_residual``, Megatron-SP): a block gathers it at its
+        entry and scatters its row-parallel sums."""
+        res = self.mesh_dims("res_seq")
+        return bool(res) and res != self.mesh_dims("seq")
+
+    def block_input(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """A sub-layer's input from this rank's run of the residual ``x``
+        (``n`` positions in all): the whole sequence where the residual is
+        split and the blocks are not (:meth:`scatters_residual`), else
+        ``x``."""
+        return self.seq_gather(x, "res_seq", n) if self.scatters_residual() \
+            else x
+
+    def one_token(self) -> "AxisRules":
+        """The rules of a one-token decode step under these: a sequence
+        of one is not split (``sp_residual`` off; ``fsdp_sp``'s blocks and
+        residual are split alike, so nothing moves), the caches stay
+        where prefill put them."""
+        return dataclasses.replace(self, sp_residual=False) \
+            if self.sp_residual else self
+
     def pgather(self, x: torch.Tensor, logical: str) -> torch.Tensor:
         """``[n, *x.shape]``: the ``n`` ranks' ``x`` that split
-        ``logical``, in :meth:`shard_index` order (no gradient)."""
+        ``logical``, in :meth:`shard_index` order; autograd-aware (a scan
+        carry or a conv halo that crosses the ranks' runs), each rank's
+        gradient of the whole summed back to the rank of each row."""
         dims = self.mesh_dims(logical)
-        return collectives.mesh_gather(self.mesh, dims, x) if dims \
-            else x.detach()[None]
+        if not dims:
+            return x[None]
+        return collectives.mesh_cat(self.mesh, dims, x[None], 0,
+                                    [1] * self.shards(logical),
+                                    self.shard_index(logical))
 
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of a rank's plain ``x`` over the ranks that split the

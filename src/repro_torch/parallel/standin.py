@@ -14,11 +14,13 @@ op, and ranks that ran at once would hand it to each other at every op
 or subprocess, and every wait is bounded: a rank that fails breaks the
 barriers, so the others raise instead of waiting.
 
-A sum keeps the autograd edges of every rank's contribution: the ranks'
-graphs join into one, and one ``backward`` of the sum of every rank's
+A sum, and a gather of a sequence's runs (``collectives.mesh_cat``),
+keep the autograd edges of every rank's contribution: the ranks' graphs
+join into one, and one ``backward`` of the sum of every rank's
 loss (in the caller's thread, after :meth:`run`) gives each rank's
 leaves the gradients a process group's ranks get from the same step,
-where a sum's backward sums the ranks' gradients.  So training needs no
+where a sum's backward sums the ranks' gradients and a gather's
+reduce-scatters them.  So training needs no
 collective in the backward, and no recompute: the stand-in runs under
 the ``"none"`` remat policy.
 """

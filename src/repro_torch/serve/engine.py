@@ -15,7 +15,11 @@ and the ranks' tokens are gathered at the end, so every rank returns
 the whole batch's.  Over a ``model`` axis every rank of a row decodes
 its heads, experts and vocabulary rows (caches of its KV and SSM
 heads), and the greedy token is the argmax over the ranks' vocabulary
-rows (``transformer.greedy``).
+rows (``transformer.greedy``).  Where the rules split a decode cache's
+sequence (``kv_seq``: KV heads that do not divide the ``model`` axis, or
+``long_context`` over a data axis) each rank's prefill keeps its run of
+every full-length cache, and each decode step combines the ranks'
+partial attentions by their log-sum-exp (``transformer.Model``).
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ of their summed shares, and AdamW on each rank's own tree.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -64,9 +65,20 @@ def rank_loss_and_grads(model, params, rows: dict, rules, *,
 
 def loss_share(loss, rules):
     """A rank's share of the global loss: ``loss`` over the ranks that
-    hold a share of it (the batch shards times the ``model`` ranks, which
-    hold the loss alike); ``loss`` itself off a mesh."""
-    ranks = rules.batch_shards() * rules.model_ranks()
+    hold a share of it, the batch shards times the ranks that hold the
+    loss alike: the ``model`` ranks, and the ranks that split the
+    sequence (``seq``, ``res_seq``: each holds a run of the positions,
+    and the hidden sequence is gathered whole before the logits, so
+    every one of them holds the whole loss); ``loss`` itself off a
+    mesh."""
+    if rules.mesh is None:
+        return loss
+    names = tuple(rules.mesh.mesh_dim_names)
+    dims = set(rules.mesh_dims("batch")) | set(rules.mesh_dims("seq")) \
+        | set(rules.mesh_dims("res_seq"))
+    if "model" in names:
+        dims.add(names.index("model"))
+    ranks = math.prod(rules.mesh.shape[d] for d in dims)
     return loss / ranks if ranks > 1 else loss
 
 
@@ -93,8 +105,8 @@ def make_train_step(model, rules=None, *, opt: AdamWConfig | None = None,
 
     The state is updated in place (``optimizer.adamw_update``).  A mesh
     whose rules shard a sequence dim (``fsdp_sp`` over a ``model`` axis
-    above 1) raises ``NotImplementedError``
-    (``parallel.sharding.check_executable``)."""
+    above 1) runs it as the model code does (``parallel.sharding``);
+    ``parallel.sharding.check_executable`` says what it refuses."""
     # here, not at the top: parallel.sharding imports train.tree, and so
     # this package, first
     from ..parallel.sharding import local_tree, no_sharding

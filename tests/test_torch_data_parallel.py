@@ -19,8 +19,9 @@ the mesh path's code (``AxisRules.check``, the per-block ``gather``,
   rtol 1e-5, atol 1e-6 x the leaf's max;
 * reduced granite-moe under a batch axis of 4 (the stand-in's threads:
   global MoE routing) takes the one-batch step's loss and grad_norm, and
-  gemma3-1b (``fsdp_sp``) under a ``model`` axis above 1 raises
-  ``NotImplementedError``;
+  so does gemma3-1b (``fsdp_sp``, its sequence split over the model
+  ranks) under a ``(data, model) = (2, 2)`` mesh, whose
+  ``make_train_step`` builds;
 * every rank's rows of the batch (``Sharding.local``, the cut
   ``sharded_batch`` places) are the reference's ``synthetic_batch``
   rows, on a ``data`` mesh and, data-major, on a ``(pod, data)`` one.
@@ -38,7 +39,7 @@ from repro_torch.configs.base import TRAIN_4K
 from repro_torch.kernels.cases import TRAIN_GOLDEN_OPT, lm_params
 from repro_torch.launch.specs import make_rules
 from repro_torch.models import build_model, transformer
-from repro_torch.parallel.sharding import MODEL_AXIS_ITEM, Sharding
+from repro_torch.parallel.sharding import Sharding
 from repro_torch.parallel.standin import StandInMesh
 from repro_torch.train import (AdamWConfig, adamw_update, init_state,
                                make_train_step, sharded_batch,
@@ -141,8 +142,18 @@ def test_moe_under_a_batch_axis_and_a_model_axis_raise():
     for k in ("loss", "grad_norm"):
         assert abs(float(m4[k]) - float(m1[k])) <= RTOL * float(m1[k]), k
     dense = get_config("gemma3-1b").reduced()
-    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-        make_train_step(build_model(dense), _rules(dense, shape=(2, 2)))
+    make_train_step(build_model(dense), _rules(dense, shape=(2, 2)))
+    rules = make_rules(dense, StandInMesh((2, 2)), TRAIN_4K)
+    assert rules.mode == "fsdp_sp" and rules.shards("seq") == 2
+    with float32_activations():
+        batch = synthetic_batch(dense, B, S, 0)
+        _, m1 = make_train_step(build_model(dense), opt=opt,
+                                remat_policy="none")(_state(dense), batch)
+        states = standin_states(rules, _state(dense).params)
+        _, m4 = standin_train_step(build_model(dense), rules, opt=opt)(
+            states, batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m4[k]) - float(m1[k])) <= RTOL * float(m1[k]), k
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "whisper-tiny"])

@@ -40,7 +40,8 @@ from repro_torch.kernels.cases import (ATOL_REL, CARD_EDGE_CASES,
 from repro_torch.quant.qtensor import QParams, quantize
 from repro_torch.configs import get_config
 from repro_torch.kernels.cases import (DECODE_CASES, LM_DECODE_CASES,
-                                       compare_decode, decode_inputs,
+                                       SLICE_DECODE_CASES, compare_decode,
+                                       compare_lse, decode_inputs,
                                        hold_lm_golden, lm_memory, lm_params,
                                        logits_close, route_codes,
                                        routed_apart)
@@ -657,6 +658,40 @@ def test_ring_decode_kernel_matches_plain_on_card(case):
     err, bad = compare_decode(got.float().cpu().numpy(),
                               want.float().cpu().numpy(), case.dtype)
     assert bad is None, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SLICE_DECODE_CASES, ids=lambda c: c.name)
+def test_ring_decode_return_lse_matches_plain_on_card(case):
+    """``return_lse`` on a rank's slice of gemma3-1b's global cache
+    (part filled, full, empty, one of each in a batch): the output within
+    one bf16 ulp of the plain version's, an empty row 0; the log-sum-exp
+    within rtol and atol 2e-5, ``-inf`` exactly on the empty rows; no
+    NaN; one launch per call; and the call without the flag unchanged
+    (the same output as the one with it where a row has valid slots)."""
+    _need_card()
+    q, k, v, seq = decode_inputs(case)
+    args = [torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v)]
+    seq = seq if isinstance(seq, int) else torch.from_numpy(seq).cuda()
+    want, want_lse = ring_decode_attention_plain(*args, seq, **case.kwargs,
+                                                 return_lse=True)
+    before = ring_decode_attention.launches
+    got, lse = ring_decode_attention(*args, seq, **case.kwargs,
+                                     return_lse=True)
+    plain_call = ring_decode_attention(*args, seq, **case.kwargs)
+    torch.cuda.synchronize()
+    assert ring_decode_attention.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+    assert not torch.isnan(got).any() and not torch.isnan(lse).any()
+    err, bad = compare_decode(got.float().cpu().numpy(),
+                              want.float().cpu().numpy(), case.dtype)
+    assert bad is None, bad
+    _, bad = compare_lse(lse.cpu().numpy(), want_lse.cpu().numpy())
+    assert bad is None, bad
+    live = torch.as_tensor(seq).expand(case.batch).cpu() >= 1
+    assert torch.equal(got[live.cuda()], plain_call[live.cuda()])
+    assert (got[~live.cuda()] == 0).all()
 
 
 @pytest.mark.gpu

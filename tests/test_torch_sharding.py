@@ -18,11 +18,13 @@ rules read (axis names, shape, this rank's coordinate).
 * ``placements`` cuts a tuple entry data-major, as JAX does: every
   rank's ``local_slices`` is its block of the whole array;
 * the production mesh's shape and axis names are the reference's;
-* ``check_executable`` refuses sequence parallelism (an ``fsdp_sp``
-  config over a ``model`` axis above 1, a sequence dim on a mesh dim
-  above 1), naming the ROADMAP item, and takes a ``tp`` config over a
-  ``model`` axis and an MoE config under a batch axis above 1.
+* ``check_executable`` takes sequence parallelism (an ``fsdp_sp``
+  config over a ``model`` axis above 1), a ``tp`` config over a
+  ``model`` axis and an MoE config under a batch axis above 1, and
+  refuses, naming the ROADMAP item, an MoE block over a split sequence
+  (no config has one).
 """
+import dataclasses
 import itertools
 
 import jax
@@ -206,14 +208,16 @@ def test_the_mesh_path_refuses_a_model_axis_and_split_moe():
         return make_rules(cfg, FakeMesh(names, shape), TRAIN_4K, **kw)
     check_executable(dense, rules(dense, (4, 1)))
     check_executable(moe, rules(moe, (1, 1)))
-    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-        check_executable(dense, rules(dense, (1, 2)))
+    check_executable(dense, rules(dense, (1, 2)))   # the sequence on model
     check_executable(moe, rules(moe, (2, 1)))     # global routing
     check_executable(moe, rules(moe, (1, 2)))     # tp: experts on model
     fsdp_sp = rules(dense, (2, 2))
     assert fsdp_sp.batch_shards() == 2 and fsdp_sp.mode == "fsdp_sp"
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        fsdp_sp.check(dense)
+    assert fsdp_sp.shards("seq") == 2
+    fsdp_sp.check(dense)
+    moe_sp = dataclasses.replace(moe, shard_mode="fsdp_sp")
+    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
+        rules(moe_sp, (1, 2)).check(moe_sp)
     pod = rules(moe, (2, 3, 1), ("pod", "data", "model"), multi_pod=True)
     assert pod.batch_shards() == 6
     pod.check(moe)

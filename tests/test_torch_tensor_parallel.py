@@ -43,10 +43,14 @@ gemma2-27b and llama-3.2-vision-90b (the configs whose ``shard_mode`` is
   drops choices;
 * the decode kernel's split on a rank's KV heads (``decode_splits``
   takes the local count from the cache: about one CTA an SM);
-* the refusals: ``fsdp_sp`` configs over a ``model`` axis above 1, and
-  ``kv_seq`` on a mesh dim (a decode cache whose KV heads do not divide,
-  ``long_context`` over a data axis), raise ``NotImplementedError``
-  naming ``MODEL_AXIS_ITEM``; a failing rank raises on every rank.
+* sequence parallelism, which these rules used to refuse, is taken:
+  the ``fsdp_sp`` configs over a ``model`` axis above 1 build a train
+  step, and ``kv_seq`` on a mesh dim (a decode cache whose KV heads do
+  not divide, ``long_context`` over a data axis) and ``sp_residual``
+  pass ``check`` and build an engine (``test_torch_sequence_parallel``
+  holds their numbers); a ``rec`` block under ``tp`` still raises
+  ``NotImplementedError`` naming ``MODEL_AXIS_ITEM``; a failing rank
+  raises on every rank.
 """
 import contextlib
 import dataclasses
@@ -435,30 +439,43 @@ def test_moe_routing_is_the_whole_batchs(moe_arch, data, cf):
 @pytest.mark.parametrize("name", ["gemma3-1b", "whisper-tiny",
                                   "recurrentgemma-2b", "gemma2-2b"])
 def test_sequence_parallel_rules_raise(name):
+    """The ``fsdp_sp`` rules over a ``model`` axis above 1 split the
+    sequence and build a train step (they raised before sequence
+    parallelism was ported); a ``rec`` block under ``tp`` still
+    raises."""
     cfg = get_config(name).reduced()
     for shape in ((1, 2), (2, 2)):
         _, rules = _mesh_rules(cfg, shape)
-        assert rules.mode == "fsdp_sp"
+        assert rules.mode == "fsdp_sp" and rules.shards("seq") == 2
+        rules.check(cfg)
+        assert callable(make_train_step(build_model(cfg), rules))
+    if "rec" in cfg.pattern:
+        tp = dataclasses.replace(cfg, shard_mode="tp")
         with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-            make_train_step(build_model(cfg), rules)
+            _mesh_rules(tp, (1, 2))[1].check(tp)
 
 
 def test_kv_seq_on_a_mesh_dim_raises():
+    """``kv_seq`` on a mesh dim and ``sp_residual`` pass ``check`` and
+    build an engine (they raised before sequence parallelism was
+    ported): a rank's cache is its slice of every KV head."""
     cfg = get_config("granite-moe-1b-a400m").reduced()   # 2 KV heads
-    _, rules = _mesh_rules(cfg, (1, 4), DECODE_32K)
+    mesh, rules = _mesh_rules(cfg, (1, 4), DECODE_32K)
     assert rules.spec("kv_seq") == ("model",)
-    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-        rules.check(cfg)
+    rules.check(cfg)
+    caches = mesh.run(lambda c: build_model(cfg).init_caches(
+        2, 24, device="cpu", rules=rules))
+    for m in range(4):
+        kv = caches[(0, m)][0]
+        assert (kv.start, tuple(kv.k.shape)) == (6 * m, (2, 6, 2, 16))
     _, rules = _mesh_rules(cfg, (2, 2), LONG_500K)
     assert rules.spec("kv_seq") == ("data",)
-    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-        ServingEngine(build_model(cfg), {}, rules=rules)
+    ServingEngine(build_model(cfg), {}, rules=rules)
     _, rules = _mesh_rules(cfg, (1, 2), DECODE_32K)   # 1 KV head a rank
     rules.check(cfg)
     sp = dataclasses.replace(rules, decode=False, sp_residual=True)
-    assert sp.spec("res_seq") == ("model",)
-    with pytest.raises(NotImplementedError, match=MODEL_AXIS_ITEM):
-        sp.check(cfg)
+    assert sp.spec("res_seq") == ("model",) and sp.scatters_residual()
+    sp.check(cfg)
 
 
 def test_a_failing_rank_raises_on_every_rank():

@@ -56,8 +56,19 @@ the same work done in one process (which each rank also does):
 * global MoE routing: reduced granite-moe on a ``data`` mesh of every
   rank, the same checks and its parameters after the last step at the
   training tolerances above;
-* the refusals: reduced gemma3-1b (``fsdp_sp``: sequence parallelism)
-  over a ``model`` axis above 1 raises ``NotImplementedError``.
+* sequence parallelism: reduced gemma3-1b and recurrentgemma-2b
+  (``fsdp_sp``: each rank a run of the positions, K/V, the scan carry
+  and the conv halo gathered over the ``model`` process group, whose
+  gathers' backward reduce-scatters the gradients to the runs' ranks) on
+  ``(data, model) = (1, ranks)`` and ``(2, ranks / 2)``, the same checks
+  as tensor parallelism's; served under the decode cell's rules
+  (gemma3-1b's global caches split on ``kv_seq`` over the ``model``
+  ranks, the partial attentions combined by their log-sum-exp), the
+  one-process engine's tokens;
+* the refusals: a ``rec`` block under ``tp`` over a ``model`` axis above
+  1 raises ``NotImplementedError``; ``fsdp_sp`` over a ``model`` axis,
+  an MoE config under a batch axis and a ``tp`` one over a ``model``
+  axis do not.
 
 A rank that fails or outlives ``--timeout`` fails the check (exit 1);
 the others are ended.  The last line of the output is the JSON record.
@@ -82,6 +93,7 @@ ARCH = "gemma3-1b"
 MOE_ARCH = "granite-moe-1b-a400m"
 #: The tensor-parallel checks' configs (``shard_mode`` ``"tp"``).
 TP_ARCHS = (MOE_ARCH, "mamba2-780m")
+SP_ARCHS = (ARCH, "recurrentgemma-2b")
 STEPS, BATCH, SEQ = 3, 8, 32
 PROMPT_LENS = (5, 9, 12, 16)
 MAX_NEW, CACHE_LEN = 8, 48
@@ -457,9 +469,10 @@ def _tokens(world, cfg, tree, shape) -> tuple[list, list]:
     return got, want
 
 
-def check_tensor_parallel(world: int) -> dict:
+def check_tensor_parallel(world: int, archs=TP_ARCHS) -> dict:
     """The tensor-parallel and global-routing checks of every arch of
-    :data:`TP_ARCHS` (see the module's docstring)."""
+    :data:`TP_ARCHS`, or the sequence-parallel ones of
+    :data:`SP_ARCHS` (see the module's docstring)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -468,7 +481,7 @@ def check_tensor_parallel(world: int) -> dict:
     from repro_torch.launch.specs import make_rules
 
     out = {}
-    for arch in TP_ARCHS:
+    for arch in archs:
         cfg = get_config(arch).reduced()
         tree = lm_params(cfg, SEED)
         with activations(torch.float32):
@@ -533,9 +546,12 @@ def check_serving(world: int, cfg, tree) -> dict:
 
 
 def check_refusals(world: int) -> dict:
-    """``fsdp_sp`` (sequence parallelism) over a ``model`` axis raises;
-    an MoE config under a batch axis and a ``tp`` one over a ``model``
-    axis do not."""
+    """A ``rec`` block under ``tp`` over a ``model`` axis raises;
+    ``fsdp_sp`` (sequence parallelism) over a ``model`` axis, an MoE
+    config under a batch axis and a ``tp`` one over a ``model`` axis do
+    not."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TRAIN_4K
     from repro_torch.launch.specs import make_rules
@@ -543,11 +559,14 @@ def check_refusals(world: int) -> dict:
     from repro_torch.train import make_train_step
 
     out = {}
-    cases = {"sequence parallelism": (ARCH, (world // 2, 2), True),
+    cases = {"rec under tp": ("recurrentgemma-2b", (world // 2, 2), True),
+             "sequence parallelism": (ARCH, (world // 2, 2), False),
              "MoE under a batch axis": (MOE_ARCH, (world, 1), False),
              "tp over a model axis": (MOE_ARCH, (world // 2, 2), False)}
     for label, (arch, shape, raises) in cases.items():
         cfg = get_config(arch).reduced()
+        if raises:
+            cfg = dataclasses.replace(cfg, shard_mode="tp")
         rules = make_rules(cfg, _mesh(shape, ("data", "model")), TRAIN_4K)
         try:
             make_train_step(build_model(cfg), rules)
@@ -604,6 +623,8 @@ def _rank_main(rank: int, world: int, store: str, out: str,
         lap("serving")
         record["tensor_parallel"] = check_tensor_parallel(world)
         lap("tensor parallel")
+        record["sequence_parallel"] = check_tensor_parallel(world, SP_ARCHS)
+        lap("sequence parallel")
         record["refusals"] = check_refusals(world)
         lap("refusals")
         if rank == 0:
@@ -657,7 +678,7 @@ def main(argv=None) -> None:
     record = run(args.ranks, args.timeout)
     print(f"mesh check: {args.ranks} gloo ranks on the host CPU held the "
           f"one-process collectives, training, checkpoint, tokens, tensor "
-          f"parallelism and global MoE routing in "
+          f"and sequence parallelism and global MoE routing in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps(record))
 
