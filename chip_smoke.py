@@ -280,7 +280,12 @@ Phases, one summary line each:
      train step over 2 model ranks (``fsdp_sp``, as phase 12's);
      recurrentgemma-2b's sequence-sharded prefill of 4 x 2,100 tokens
      over 2 ranks (the window, the scan carry and the conv halo across
-     them) and its golden under the decode cell's rules; whisper-tiny's
+     them), its first rec block in fp32 over 2 and 4 ranks (every
+     position and the cache within 1e-5 of the unsplit block's, the
+     ``lru_lambda`` as drawn and slowed so that the carry reaches across
+     a run), the slowed model's prefill over 2 in fp32 (last logits and
+     caches within 1e-4), and its golden under the decode cell's rules;
+     whisper-tiny's
      prefill over 2 and 4 (the encoder's 1,500 frames in runs of 750 and
      375) and its serving over 4 (``kv_seq`` on the self caches) with
      the same checks.
@@ -1680,8 +1685,9 @@ def _decode_call(case):
 def phase_decode_parity() -> float:
     """``ring_decode_attention`` against its plain version on the card on
     every decode case, and with ``return_lse`` on the slice cases (a
-    rank's run of gemma3-1b's global cache split on ``kv_seq``: part
-    filled, full, empty); returns the max |difference|."""
+    rank's run of gemma3-1b's global cache or whisper-tiny's self caches
+    split on ``kv_seq``, at batch 4 and 1: part filled, full, empty);
+    returns the max |difference|."""
     from repro_torch.kernels.cases import (DECODE_CASES, LM_DECODE_CASES,
                                            SLICE_DECODE_CASES, compare_decode,
                                            compare_lse)
@@ -1731,9 +1737,10 @@ def phase_decode_parity() -> float:
     say(f"  ring_decode_attention: {len(cases)} calls within the "
         f"tolerance of its plain version (fp32 2e-5, bf16 one ulp of the "
         f"output's scale), and {len(SLICE_DECODE_CASES)} with return_lse "
-        f"on gemma3-1b's global-cache slices (512 and 256 slots: part "
-        f"filled, full, empty, mixed rows; lse within 2e-5, -inf on the "
-        f"empty rows, no NaN); max |difference| fp32 "
+        f"on the kv_seq slices (gemma3-1b's global cache: 512 and 256 "
+        f"slots; whisper-tiny's self caches: 128 slots; batch 4 and 1; "
+        f"part filled, full, empty, mixed rows; lse within 2e-5, -inf on "
+        f"the empty rows, no NaN); max |difference| fp32 "
         f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}, lse "
         f"{lse_worst:.3g}; splits on {n_sm} SMs:")
     for line in splits:
@@ -2966,6 +2973,11 @@ SP_LONG_SHAPES = ((2, 1), (2, 2))
 SP_MAX_NEW = 8
 #: Decode steps each per-token time takes the median of.
 SP_TIMED_STEPS = 5
+#: The range that the carry checks slow recurrentgemma-2b's
+#: ``lru_lambda`` to: ``a_t`` near ``1 - 1e-3`` (as drawn, in [0.9,
+#: 0.999], it is near ``exp(-30)`` and the scan's carry is gone a step
+#: into a rank's run), so that every earlier rank's carry reaches each run.
+SP_SLOW_LAMBDA = (-1.2, -0.9)
 
 
 def _sp_ranks(cfg, params, shape, cell):
@@ -3226,6 +3238,141 @@ def prefill_sp(cfg, whole, path: LMPath, R: int) -> dict:
             "logit_err": worst_logit, "cache_rel_err": worst_cache}
 
 
+def _tol_units(got, want, rtol: float = 1e-5) -> float:
+    """max |got - want| / (rtol * max|want| + rtol * |want|): at most 1
+    within rtol and atol ``rtol`` x max."""
+    got, want = got.double(), want.double()
+    atol = rtol * float(want.abs().max())
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _slowed(params):
+    """The tree with every rec block's ``lru_lambda`` spread over
+    ``SP_SLOW_LAMBDA`` (the other leaves shared)."""
+    def layer(lp):
+        if "rec" not in lp:
+            return lp
+        lam = lp["rec"]["lru_lambda"]
+        return dict(lp, rec=dict(lp["rec"], lru_lambda=torch.linspace(
+            *SP_SLOW_LAMBDA, lam.numel(), dtype=lam.dtype,
+            device=lam.device)))
+    return dict(params, layers=[layer(lp) for lp in params["layers"]])
+
+
+def carry_sp(cfg, whole, path: LMPath) -> dict:
+    """The scan carry and the conv halo across the ranks, where they can
+    be seen: recurrentgemma-2b's first rec block at full width in fp32
+    (TF32 off) on 4 x 2,100 seeded positions, split over 2 and 4 model
+    ranks (``fsdp_sp``; runs of 1,050 and 525), every position's output
+    and the returned cache within rtol 1e-5, atol 1e-5 x max of the
+    unsplit block's, with ``lru_lambda`` as drawn and slowed
+    (``SP_SLOW_LAMBDA``); beside each, rank 1's run computed alone with
+    its halo but from zero state (a dropped carry), and alone from zeros
+    (a dropped carry and halo), in units of the same tolerance.  Then the
+    whole slowed model's sequence-sharded prefill of ``path``'s prompts
+    over 2 ranks with fp32 activations: the last logits and every cache
+    (the local rings hold the last 2,048 positions of every attention
+    layer) within rtol 1e-4, atol 1e-4 x max of the unsharded prefill's.
+    (In bf16 the two prefills' roundings part where their sums run in
+    another order, and 26 layers of slowed recurrence carry a flipped
+    rounding along the sequence: a CPU probe at reduced width put the
+    caches 6e-3 of max apart in bf16, 7e-7 in fp32.)"""
+    from repro_torch.configs.base import PREFILL_32K
+    from repro_torch.launch.specs import make_rules
+    from repro_torch.models import build_model, rglru, transformer
+    from repro_torch.models.transformer import vocab_logits
+    from repro_torch.parallel.standin import StandInMesh
+    from repro_torch.train.tree import leaves, tree_map
+
+    B, S = 4, 2100
+    gen = torch.Generator(device=DEVICE_TYPE).manual_seed(SEED)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=DEVICE_TYPE)
+    drawn = tree_map(lambda t: t.float(), whole["layers"][0]["rec"])
+    slow = _slowed({"layers": [{"rec": drawn}]})["layers"][0]["rec"]
+    K = drawn["lru_conv"].shape[0]
+    out = {}
+    for label, p in (("as drawn", drawn), ("slowed", slow)):
+        want, cache = rglru.rec_forward(p, x, cfg, return_cache=True)
+        for R in SP_RANKS:
+            mesh = StandInMesh((1, R), device_type=DEVICE_TYPE)
+            rules = make_rules(cfg, mesh, PREFILL_32K)
+
+            def rank(c):
+                lo, m = rules.seq_slice("seq", S)
+                return (lo, m) + rglru.rec_forward(
+                    p, x[:, lo:lo + m], cfg, return_cache=True, rules=rules,
+                    total=S)
+            got = mesh.run(rank)
+            joined = torch.cat([got[c][2] for c in sorted(got)], dim=1)
+            err = _tol_units(joined, want)
+            cache_err = max(max(_tol_units(g[3].h, cache.h),
+                                _tol_units(g[3].conv, cache.conv))
+                            for g in got.values())
+            lo, m = got[(0, 1)][:2]
+            no_carry = _tol_units(rglru.rec_forward(
+                p, x[:, lo - (K - 1):lo + m], cfg)[0][:, K - 1:],
+                want[:, lo:lo + m])
+            neither = _tol_units(rglru.rec_forward(p, x[:, lo:lo + m],
+                                                   cfg)[0],
+                                 want[:, lo:lo + m])
+            name = (f"recurrentgemma-2b's rec block, lru_lambda {label}, "
+                    f"over {R} model ranks")
+            if err > 1 or cache_err > 1:
+                raise SystemExit(f"{name}: the split block's output lies "
+                                 f"{err:.3g}, its cache {cache_err:.3g} "
+                                 "tolerances from the unsplit block's")
+            say(f"  {name}: {B} x {S:,} positions in runs of "
+                f"{[b for _, b in rules.seq_slices('seq', S)]}, fp32; "
+                f"every position's output {err:.3g} and the cache "
+                f"{cache_err:.3g} of the tolerance (rtol 1e-5, atol 1e-5 x "
+                f"max) from the unsplit block's; rank 1's run without the "
+                f"carry would lie {no_carry:.3g}, without carry and halo "
+                f"{neither:.3g} of it")
+            out[f"{label} model={R}"] = {
+                "of_tolerance": err, "cache_of_tolerance": cache_err,
+                "without_carry": no_carry,
+                "without_carry_or_halo": neither}
+            del got, joined
+        del want, cache
+    del x
+    torch.cuda.empty_cache()
+
+    saved = transformer.ACT_DTYPE
+    transformer.ACT_DTYPE = torch.float32   # outside mesh.run: shared
+    try:
+        slowed = _slowed(whole)
+        model = build_model(cfg)
+        _, padded = lm_prompts_of_path(cfg, path.prompt_lens)
+        want = model.prefill(slowed, padded, cache_len=path.cache_len)
+        mesh, rules, mine = _sp_ranks(cfg, slowed, (1, 2), PREFILL_32K)
+        got = mesh.run(lambda c: model.prefill(
+            mine[c], padded, cache_len=path.cache_len, rules=rules))
+        lgs = mesh.run(lambda c: vocab_logits(got[c][0], rules))
+        logit_err = max(_tol_units(v, want[0], 1e-4) for v in lgs.values())
+        cache_err = max(_tol_units(a, b, 1e-4)
+                        for g in got.values()
+                        for a, b in zip(leaves(g[1]), leaves(want[1]))
+                        if isinstance(a, torch.Tensor))
+    finally:
+        transformer.ACT_DTYPE = saved
+    name = ("recurrentgemma-2b prefill_32k over 2 model ranks, lru_lambda "
+            "slowed, fp32 activations")
+    if logit_err > 1 or cache_err > 1:
+        raise SystemExit(f"{name}: the last logits lie {logit_err:.3g}, a "
+                         f"cache {cache_err:.3g} tolerances from the "
+                         "unsharded prefill's")
+    say(f"  {name}: {len(padded)} x {padded.shape[1]:,} tokens in runs of "
+        f"{[b for _, b in rules.seq_slices('seq', padded.shape[1])]}; the "
+        f"last logits {logit_err:.3g} and every cache {cache_err:.3g} of "
+        f"the tolerance (rtol 1e-4, atol 1e-4 x max) from the unsharded "
+        f"prefill's; {nvidia_smi_line()}")
+    out["prefill fp32 slowed model=2"] = {"logits_of_tolerance": logit_err,
+                                          "caches_of_tolerance": cache_err}
+    del got, lgs, want, slowed, mine
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_sp(trees: dict, goldens: dict, paths: dict) -> tuple[dict, dict]:
     """Phase 13: gemma3-1b at full width served under the decode cell's
     rules over 2 and 4 model ranks (``kv_seq`` on ``model``: its one KV
@@ -3234,7 +3381,8 @@ def phase_sp(trees: dict, goldens: dict, paths: dict) -> tuple[dict, dict]:
     2 and 4, one train step over 2 model ranks (``fsdp_sp``);
     recurrentgemma-2b's sequence-sharded prefill over 2 ranks (its 2,100
     positions in runs of 1,050: the window, the scan carry and the conv
-    halo cross the ranks) and its golden under the decode cell's rules;
+    halo cross the ranks), the carry and halo where they can be seen
+    (:func:`carry_sp`) and its golden under the decode cell's rules;
     whisper-tiny's prefill over 2 and 4 (the encoder's 1,500 frames in
     runs of 750 and 375) and its serving over 4 (``kv_seq`` on its self
     caches).  Returns the launch counts by path and the timings."""
@@ -3281,6 +3429,7 @@ def phase_sp(trees: dict, goldens: dict, paths: dict) -> tuple[dict, dict]:
     cfg, path = get_config(name), by_name[name]
     whole = params_from_reference(cfg, trees[name], DEVICE_TYPE)
     timings[f"{name} prefill_32k model=2"] = prefill_sp(cfg, whole, path, 2)
+    timings[f"{name} carry"] = carry_sp(cfg, whole, path)
     mesh, rules, mine = _sp_ranks(cfg, whole, (1, 2), DECODE_32K)
     held = mesh.run(lambda c: golden_rows(build_model(cfg), mine[c],
                                           goldens[name], rules))
@@ -3919,7 +4068,8 @@ def main() -> None:
     say("  ring_decode_attention at those paths' decode geometries:")
     decode_row["by_shape"].update(time_decode_shapes(LM_DECODE_CASES))
     say("  ring_decode_attention with return_lse on a rank's slice of "
-        "gemma3-1b's global cache (phase 13's kv_seq path):")
+        "gemma3-1b's global cache and whisper-tiny's self caches (phase "
+        "13's kv_seq paths):")
     decode_row["by_shape"].update(time_decode_shapes(
         [c for c in SLICE_DECODE_CASES if isinstance(c.seq_len, int)],
         lse=True))

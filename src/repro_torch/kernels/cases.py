@@ -1186,17 +1186,27 @@ LM_DECODE_CASES = (
 )
 
 
-#: The decode attention over a rank's slice of gemma3-1b's 1,024-slot
-#: global cache split on ``kv_seq`` over 2 and 4 ranks (512 and 256
-#: slots; 4 q heads on one KV head, head_dim 256, bf16, batch 4), called
-#: with ``return_lse``: the slice part filled, full, empty (no valid slot
-#: yet: ``out = 0``, ``lse = -inf``), and one of each in a batch.
+#: The decode attention over a rank's slice of a cache split on
+#: ``kv_seq``, called with ``return_lse``, at the slice geometries that
+#: the sequence-parallel paths run: gemma3-1b's 1,024-slot global cache
+#: over 2 and 4 ranks (512 and 256 slots; 4 q heads on one KV head,
+#: head_dim 256) at batch 4 (the decode cell) and at batch 1 (the
+#: long-context cell, and the decode cell's timed batch-1 step: other
+#: splits), and whisper-tiny's 512-slot self caches over 4 ranks (128
+#: slots; 6 q and 6 KV heads, head_dim 64, a group of 1) at batch 1 and
+#: 4; bf16.  Each slice part filled, full and empty (no valid slot yet:
+#: ``out = 0``, ``lse = -inf``), and at batch 4 one of each in a batch.
 SLICE_DECODE_CASES = tuple(
-    DecodeCase(f"decode_gemma3_slice{n}_{what}_batch4_bf16", 4, 1, 256, n,
-               128, seq, batch=4, dtype="bfloat16")
-    for n in (512, 256)
+    DecodeCase(f"decode_{lm}_slice{n}_{what}_batch{b}_bf16", qh, kvh, d, n,
+               128, seq, batch=b, dtype="bfloat16")
+    for lm, qh, kvh, d, slices, batches in (
+        ("gemma3", 4, 1, 256, (512, 256), (4, 1)),
+        ("whisper", 6, 6, 64, (128,), (4, 1)))
+    for b in batches
+    for n in slices
     for what, seq in (("part", n * 3 // 5), ("full", n), ("empty", 0),
-                      ("rows", (0, 1, n // 2, n))))
+                      ("rows", (0, 1, n // 2, n)))
+    if what != "rows" or b == 4)
 
 
 def decode_inputs(case: DecodeCase, seed: int = 0):

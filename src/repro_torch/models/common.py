@@ -341,9 +341,10 @@ def project_qkv(p: dict, x, cfg, positions, *, rope_q: bool = True,
     there, ``AxisRules.whole_on_model``)."""
     B, S, _ = x.shape
     w_k, w_v = (p["w_k"], p["w_v"]) if all_kv else kv_weights(p, cfg, rules)
-    q = matmul(x, p["w_q"]).reshape(B, S, -1, cfg.head_dim)
-    k = matmul(x, w_k).reshape(B, S, -1, cfg.head_dim)
-    v = matmul(x, w_v).reshape(B, S, -1, cfg.head_dim)
+    D = cfg.head_dim   # head counts from the weights: S may be 0
+    q = matmul(x, p["w_q"]).reshape(B, S, p["w_q"].shape[-1] // D, D)
+    k = matmul(x, w_k).reshape(B, S, w_k.shape[-1] // D, D)
+    v = matmul(x, w_v).reshape(B, S, w_v.shape[-1] // D, D)
     if rope_q:
         q = rope(q, positions, cfg.rope_theta)
     if rope_k:

@@ -67,7 +67,8 @@ state across the ranks (``rglru``), the caches are built from the
 gathered K/V and the whole sequence's recurrent state, and the hidden
 sequence is gathered whole before the vocabulary-split unembedding, so
 the logits (and the loss) are those of every position on each rank's
-vocabulary rows.  Under ``sp_residual`` (``tp``) only the residual is
+vocabulary rows (prefill gathers only the last position's row,
+``AxisRules.seq_last``).  Under ``sp_residual`` (``tp``) only the residual is
 split: a block gathers it at its entry and scatters its row-parallel
 sums.  Where the rules split ``kv_seq`` (a decode cache whose KV heads
 do not divide the ``model`` axis, ``long_context`` over a data axis), a
@@ -318,7 +319,7 @@ def _attn_sub(p: dict, x, cfg, kind: str, positions, *,
     o = attention(q, ka, va, causal=True, window=window,
                   softcap=cfg.attn_softcap, bf16_einsum=cfg.bf16_einsum,
                   q_offset=rules.seq_slice("seq", n)[0])
-    o = row_parallel(o.reshape(B, S, -1), p["w_o"], rules, "heads")
+    o = row_parallel(o.flatten(2), p["w_o"], rules, "heads")
     o = rules.act(o, "batch", "res_seq", None)
     if cfg.post_norms:
         o = apply_norm(p["post_ln"], o, cfg)
@@ -360,7 +361,8 @@ def _xattn_sub(p: dict, x, cfg, memory, *, make_cache: bool = False,
     B, S, _ = x.shape
     h = apply_norm(p["ln"], x, cfg)
     w_k, w_v = kv_weights(p, cfg, rules)
-    q = matmul(h, p["w_q"]).reshape(B, S, -1, cfg.head_dim)
+    q = matmul(h, p["w_q"]).reshape(B, S, p["w_q"].shape[-1]
+                                    // cfg.head_dim, cfg.head_dim)
     M = memory.shape[1]
     mk = matmul(memory, w_k).reshape(B, M, -1, cfg.head_dim)
     mv = matmul(memory, w_v).reshape(B, M, -1, cfg.head_dim)
@@ -369,7 +371,7 @@ def _xattn_sub(p: dict, x, cfg, memory, *, make_cache: bool = False,
     mv = rules.act(mv, "batch", None, "kv_heads", None)
     o = attention(q, mk, mv, causal=False, window=None, softcap=None,
                   bf16_einsum=cfg.bf16_einsum)
-    o = row_parallel(o.reshape(B, S, -1), p["w_o"], rules, "heads")
+    o = row_parallel(o.flatten(2), p["w_o"], rules, "heads")
     o = rules.act(o, "batch", "res_seq", None)
     return o, ((mk, mv) if make_cache else None)
 
@@ -779,7 +781,7 @@ class Model:
                 v = rules.seq_gather(v, "seq", n)
             o = attention(q, k, v, causal=False, window=None, softcap=None,
                           bf16_einsum=cfg.bf16_einsum)
-            o = row_parallel(o.reshape(B, h.shape[1], -1),
+            o = row_parallel(o.flatten(2),
                              bp["attn"]["w_o"], rules, "heads")
             x = x + rules.act(o, "batch", "res_seq", None)
             x = x + mlp_forward(bp["ffn"], rules.block_input(x, n), cfg,
@@ -905,8 +907,8 @@ class Model:
                                     rules=rules, total=S)
             caches.append(c)
         x = apply_norm(params["final_ln"], x, cfg)
-        x = rules.seq_gather(x, "res_seq", S)
-        return self._logits(params, x[:, -1:], rules)[:, 0], caches, S
+        x = rules.seq_last(x, "res_seq", S)
+        return self._logits(params, x, rules)[:, 0], caches, S
 
     def decode_step(self, params, caches, token, cur_len: int, *,
                     routes=None, rules: AxisRules | None = None):

@@ -12,10 +12,11 @@
   MoE routing's exchanges along mesh dims, over a ``DeviceMesh``'s
   process groups or a one-process ``standin.StandInMesh`` (what
   ``AxisRules.psum`` and ``pmax`` call).
-* ``mesh_cat`` — the ranks' runs of a dim joined whole, its backward a
-  reduce-scatter (what ``AxisRules.seq_gather`` and ``pgather`` call;
-  ``AxisRules.scatter_sum`` is a ``mesh_sum`` and the rank's slice of
-  it).
+* ``mesh_cat / mesh_scatter_sum`` — the ranks' runs of a dim joined
+  whole, its backward a reduce-scatter; and the reduce-scatter itself
+  (the sum of the ranks' whole dims, each rank keeping its run), its
+  backward the join (what ``AxisRules.seq_gather``, ``pgather`` and
+  ``scatter_sum`` call).
 
 The arithmetic is written once, over rows of a leading participant
 axis, with the reduction over participants injected: the process-group
@@ -228,27 +229,77 @@ def mesh_gather(mesh, dims, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: ``reduce_scatter_single``; older torch (2.11) has it only as
+#: ``reduce_scatter_tensor`` (the same arguments), which newer torch warns
+#: of
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def _padded(x: torch.Tensor, dim: int, chunk: int) -> torch.Tensor:
+    """``x`` zero-padded at the end of ``dim`` to ``chunk`` rows."""
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, chunk - x.shape[dim]]
+    return torch.nn.functional.pad(x, pad)
+
+
+def _joined_runs(x, mesh, dims, dim, lengths) -> torch.Tensor:
+    """Every rank's run ``x`` of ``dim`` (rank ``i`` holding
+    ``lengths[i]`` rows) joined in rank order: an all-gather of the runs
+    padded to the longest, the padding cut away."""
+    stacked = mesh_gather(mesh, dims, _padded(x, dim, max(lengths)))
+    return torch.cat([stacked[i].narrow(dim, 0, n)
+                      for i, n in enumerate(lengths)], dim=dim)
+
+
+def _scattered_runs(whole, mesh, dims, dim, lengths,
+                    index) -> torch.Tensor:
+    """Rank ``index``'s run of ``dim`` of the sum of every rank's
+    ``whole`` (the runs ``lengths`` long, joined in rank order): a
+    reduce-scatter of the runs padded to the longest, one a mesh dim,
+    outermost first, each rank sending and receiving ``1 / R`` of the
+    whole but for the padding."""
+    chunk, lo = max(lengths), 0
+    runs = []
+    for n in lengths:
+        runs.append(_padded(whole.narrow(dim, lo, n), dim, chunk))
+        lo += n
+    rows = torch.stack(runs).contiguous()           # [R, ...chunk...]
+    for g in _groups(mesh, dims):
+        size = dist.get_world_size(g)
+        out = rows.new_empty((rows.shape[0] // size,) + rows.shape[1:])
+        _reduce_scatter(out, rows, group=g)
+        rows = out
+    return rows[0].narrow(dim, 0, lengths[index])
+
+
 class _GroupCat(torch.autograd.Function):
     """The ranks' runs of ``dim`` joined in rank order over process
-    groups; the backward sums the gradient of the whole over them and
-    hands this rank its own run (a reduce-scatter)."""
+    groups; the backward reduce-scatters the gradient of the whole, each
+    rank receiving the sum over them of its own run's."""
 
     @staticmethod
     def forward(ctx, x, mesh, dims, dim, lengths, index):
-        ctx.groups, ctx.dim = _groups(mesh, dims), dim
-        ctx.lo, ctx.n = sum(lengths[:index]), lengths[index]
-        chunk = max(lengths)
-        pad = [0, 0] * (x.dim() - 1 - dim) + [0, chunk - x.shape[dim]]
-        stacked = mesh_gather(mesh, dims,
-                              torch.nn.functional.pad(x, pad))
-        return torch.cat([stacked[i].narrow(dim, 0, n)
-                          for i, n in enumerate(lengths)], dim=dim)
+        ctx.args = mesh, dims, dim, lengths, index
+        return _joined_runs(x, mesh, dims, dim, lengths)
 
     @staticmethod
     def backward(ctx, grad):
-        whole = _reduced(grad, ctx.groups, "sum")
-        return whole.narrow(ctx.dim, ctx.lo, ctx.n), None, None, None, \
-            None, None
+        return (_scattered_runs(grad, *ctx.args),) + (None,) * 5
+
+
+class _GroupScatterSum(torch.autograd.Function):
+    """The sum over process groups of the ranks' whole ``dim``, each rank
+    keeping its run (a reduce-scatter); the backward joins the ranks'
+    gradients of their runs."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims, dim, lengths, index):
+        ctx.args = mesh, dims, dim, lengths
+        return _scattered_runs(x, mesh, dims, dim, lengths, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_joined_runs(grad, *ctx.args),) + (None,) * 5
 
 
 def mesh_cat(mesh, dims, x: torch.Tensor, dim: int, lengths,
@@ -256,8 +307,23 @@ def mesh_cat(mesh, dims, x: torch.Tensor, dim: int, lengths,
     """Every rank's ``x`` along the mesh ``dims`` joined on ``dim`` in
     their order (rank ``i`` holding ``lengths[i]`` rows of it; this rank
     is ``index``): autograd-aware, each rank's gradient of the whole
-    summed over them and cut back to its own rows (the stand-in keeps the
+    reduce-scattered back to the ranks' runs (the stand-in keeps the
     ranks' autograd edges, so the caller's one backward does that)."""
     if _standin(mesh):
         return torch.cat(mesh.exchange(dims, x), dim=dim)
     return _GroupCat.apply(x, mesh, tuple(dims), dim, tuple(lengths), index)
+
+
+def mesh_scatter_sum(mesh, dims, x: torch.Tensor, dim: int, lengths,
+                     index: int) -> torch.Tensor:
+    """This rank's run (``lengths[index]`` rows at the rank's offset, the
+    runs in rank order) of dim ``dim`` of the sum of every rank's ``x``
+    along the mesh ``dims``: a reduce-scatter over process groups, its
+    backward the join of the ranks' gradients (the stand-in adds the
+    ranks' tensors in rank order and cuts the run, keeping their autograd
+    edges)."""
+    if _standin(mesh):
+        lo = sum(lengths[:index])
+        return mesh_sum(mesh, dims, x).narrow(dim, lo, lengths[index])
+    return _GroupScatterSum.apply(x, mesh, tuple(dims), dim,
+                                  tuple(lengths), index)

@@ -538,13 +538,29 @@ class AxisRules:
     def scatter_sum(self, x: torch.Tensor, logical: str,
                     dim: int = 1) -> torch.Tensor:
         """This rank's run (split on ``logical``) of dim ``dim`` of the sum
-        of the ranks' ``x`` over ``logical``'s mesh dims: a psum and the
-        rank's slice of it (its backward sums the ranks' gradients)."""
+        of the ranks' ``x`` over ``logical``'s mesh dims: a reduce-scatter
+        (its backward gathers the ranks' gradients of their runs)."""
         dims = self.mesh_dims(logical)
         if not dims:
             return x
-        lo, m = self.seq_slice(logical, x.shape[dim])
-        return collectives.mesh_sum(self.mesh, dims, x).narrow(dim, lo, m)
+        return collectives.mesh_scatter_sum(
+            self.mesh, dims, x, dim,
+            [m for _, m in self.seq_slices(logical, x.shape[dim])],
+            self.shard_index(logical))
+
+    def seq_last(self, x: torch.Tensor, logical: str,
+                 n: int) -> torch.Tensor:
+        """The last row of dim 1 (``n`` long, split on ``logical``; ``x``
+        is this rank's run), on every rank: each rank's last row (zeros
+        from a rank past the end) gathered, the last holder's kept."""
+        dims = self.mesh_dims(logical)
+        if not dims:
+            return x[:, -1:]
+        owner = max(i for i, (_, m) in
+                    enumerate(self.seq_slices(logical, n)) if m)
+        row = x[:, -1:] if x.shape[1] else \
+            x.new_zeros(x.shape[:1] + (1,) + x.shape[2:])
+        return self.pgather(row, logical)[owner]
 
     def scatters_residual(self) -> bool:
         """Whether the residual's sequence is split where the blocks'

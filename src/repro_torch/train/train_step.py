@@ -22,7 +22,6 @@ of their summed shares, and AdamW on each rank's own tree.
 """
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
@@ -65,20 +64,12 @@ def rank_loss_and_grads(model, params, rows: dict, rules, *,
 
 def loss_share(loss, rules):
     """A rank's share of the global loss: ``loss`` over the ranks that
-    hold a share of it, the batch shards times the ranks that hold the
-    loss alike: the ``model`` ranks, and the ranks that split the
-    sequence (``seq``, ``res_seq``: each holds a run of the positions,
-    and the hidden sequence is gathered whole before the logits, so
-    every one of them holds the whole loss); ``loss`` itself off a
-    mesh."""
-    if rules.mesh is None:
-        return loss
-    names = tuple(rules.mesh.mesh_dim_names)
-    dims = set(rules.mesh_dims("batch")) | set(rules.mesh_dims("seq")) \
-        | set(rules.mesh_dims("res_seq"))
-    if "model" in names:
-        dims.add(names.index("model"))
-    ranks = math.prod(rules.mesh.shape[d] for d in dims)
+    hold a share of it (the batch shards times the ``model`` ranks, which
+    hold the loss alike); ``loss`` itself off a mesh.  The ranks that
+    split the sequence (``seq``, ``res_seq``) are the ``model`` ranks:
+    each holds a run of the positions, and the hidden sequence is
+    gathered whole before the logits, so each holds the whole loss."""
+    ranks = rules.batch_shards() * rules.model_ranks()
     return loss / ranks if ranks > 1 else loss
 
 

@@ -663,8 +663,9 @@ def test_ring_decode_kernel_matches_plain_on_card(case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", SLICE_DECODE_CASES, ids=lambda c: c.name)
 def test_ring_decode_return_lse_matches_plain_on_card(case):
-    """``return_lse`` on a rank's slice of gemma3-1b's global cache
-    (part filled, full, empty, one of each in a batch): the output within
+    """``return_lse`` on a rank's slice of gemma3-1b's global cache and
+    whisper-tiny's self caches (batch 4 and 1; part filled, full, empty,
+    one of each in a batch of 4): the output within
     one bf16 ulp of the plain version's, an empty row 0; the log-sum-exp
     within rtol and atol 2e-5, ``-inf`` exactly on the empty rows; no
     NaN; one launch per call; and the call without the flag unchanged

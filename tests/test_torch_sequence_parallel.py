@@ -340,6 +340,56 @@ def test_fsdp_sp_prefill_then_decode_match_unsharded(arch, shape):
     _hold_served(arch, rules, out, want, want_gen)
 
 
+@pytest.mark.parametrize("n", [8, 5, 3, 1],
+                         ids=["runs2222", "runs2210", "runs1110", "runs1000"])
+def test_seq_last_is_the_last_position_on_every_rank(n):
+    """``AxisRules.seq_last``: the row of position ``n - 1`` on every rank
+    of a sequence split over 4, from the last rank that holds a run (the
+    ranks past the end hold none)."""
+    cfg = get_config("gemma3-1b").reduced()
+    mesh = StandInMesh((1, 4))
+    rules = make_rules(cfg, mesh, PREFILL_32K)
+    x = torch.arange(2 * n * 3, dtype=torch.float32).reshape(2, n, 3)
+
+    def rank(coord):
+        lo, m = rules.seq_slice("seq", n)
+        return m, rules.seq_last(x[:, lo:lo + m], "res_seq", n)
+    got = mesh.run(rank)
+    assert [got[(0, r)][0] for r in range(4)] == \
+        [b for _, b in rules.seq_slices("seq", n)]
+    for _, row in got.values():
+        assert torch.equal(row, x[:, -1:])
+
+
+def test_a_sequence_that_leaves_a_rank_empty(arch):
+    """5 positions over 4 ranks (runs of 2, 2, 1, 0): the last rank
+    computes on an empty run, the forward's logits (whole vocabulary) are
+    the unsharded forward's, and the prefill's last logits, which come
+    from the rank that holds position 4, the unsharded prefill's
+    (fp32)."""
+    cfg, model = arch["cfg"], arch["model"]
+    mesh = StandInMesh((1, 4))
+    toks = arch["tokens"][:, :5]
+    mem = None if arch["memory"] is None else arch["memory"].float()
+    p = arch["params32"]
+    with activations(torch.float32):
+        for cell in (TRAIN_4K, PREFILL_32K):
+            rules = make_rules(cfg, mesh, cell)
+            assert [b for _, b in rules.seq_slices("seq", 5)] == \
+                [2, 2, 1, 0]
+            if cell is TRAIN_4K:
+                want = model.forward(p, toks, mem)[0]
+                got = mesh.run(lambda c: vocab_logits(model.forward(
+                    rules.rank_tree(p), toks, mem, rules=rules)[0], rules))
+            else:
+                want = model.prefill(p, toks, CACHE_LEN, memory=mem)[0]
+                got = mesh.run(lambda c: vocab_logits(model.prefill(
+                    rules.rank_tree(p), toks, CACHE_LEN, memory=mem,
+                    rules=rules)[0], rules))
+            for v in got.values():
+                assert _close(v, want) <= 1, cell.name
+
+
 # -- kv_seq: a decode cache's sequence over ranks ----------------------------
 
 KV_SEQ = (("gemma3-1b", (1, 2), DECODE_32K),
@@ -514,43 +564,57 @@ def test_the_scan_carry_and_conv_halo_are_the_whole_sequences(n):
     1, 1, 1, 0, shorter than the conv's halo): each rank's output is its
     run of the whole sequence's, whose conv is ``_conv`` and scan
     ``_assoc_scan`` over all of it, and every rank returns the whole
-    sequence's cache (last ``h``, conv tail)."""
+    sequence's cache (last ``h``, conv tail).  With ``lru_lambda`` as
+    drawn, ``a_t`` is near ``exp(-30)`` and the carry is gone a step into
+    a run; so the block is also held with it slowed to [-1.2, -0.9]
+    (``a_t`` near ``1 - 1e-3``), where every earlier rank's carry reaches
+    each run: rank 2's run of 4 scanned from zero state (no carry, no
+    halo) then misses the whole sequence's by over 100 times the
+    tolerance."""
     arch = _load("recurrentgemma-2b")
     cfg = arch["cfg"]
     assert layer_kinds(cfg)[0] == "rec"
-    p = train_params(cfg, arch["ttree"])["layers"][0]["rec"]
+    drawn = train_params(cfg, arch["ttree"])["layers"][0]["rec"]
+    slow = dict(drawn, lru_lambda=torch.linspace(
+        -1.2, -0.9, drawn["lru_lambda"].numel()))
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (2, n, cfg.d_model)).astype(np.float32))
-    want, cache = rglru.rec_forward(p, x, cfg, return_cache=True)
-    # the whole sequence's conv and scan, written out
-    h = rglru.apply_norm(p["ln"], x, cfg)
-    xs = rglru.matmul(h, p["lru_w_x"])
-    K = p["lru_conv"].shape[0]
-    full = torch.cat([torch.zeros_like(xs[:, :K - 1]), xs], 1) \
-        if n >= K - 1 else torch.cat([xs.new_zeros((2, K - 1, xs.shape[2])),
-                                      xs], 1)
-    a, bx = rglru._gates(p, rglru._conv(full, p["lru_conv"], n))
-    hseq = rglru._assoc_scan(a, bx)
     mesh = StandInMesh((1, 4))
     rules = make_rules(cfg, mesh, TRAIN_4K)
+    for p in (drawn, slow):
+        want, cache = rglru.rec_forward(p, x, cfg, return_cache=True)
+        # the whole sequence's conv and scan, written out
+        h = rglru.apply_norm(p["ln"], x, cfg)
+        xs = rglru.matmul(h, p["lru_w_x"])
+        K = p["lru_conv"].shape[0]
+        full = torch.cat([torch.zeros_like(xs[:, :K - 1]), xs], 1) \
+            if n >= K - 1 else torch.cat(
+                [xs.new_zeros((2, K - 1, xs.shape[2])), xs], 1)
+        a, bx = rglru._gates(p, rglru._conv(full, p["lru_conv"], n))
+        hseq = rglru._assoc_scan(a, bx)
 
-    def rank(coord):
-        lo, m = rules.seq_slice("seq", n)
-        out, c = rglru.rec_forward(p, x[:, lo:lo + m], cfg,
-                                   return_cache=True, rules=rules, total=n)
-        return lo, m, out, c
-    got = mesh.run(rank)
-    assert [got[(0, r)][1] for r in range(4)] == \
-        ([4, 4, 4, 2] if n == 14 else [1, 1, 1, 0])
-    whole = torch.cat([got[(0, r)][2] for r in range(4)], dim=1)
-    if n >= K - 1:
-        assert _close(whole, want) <= 1
-    for _, _, _, c in got.values():
-        assert _close(c.h, hseq[:, -1]) <= 1
-        assert torch.equal(c.conv, full[:, -(K - 1):])
+        def rank(coord):
+            lo, m = rules.seq_slice("seq", n)
+            out, c = rglru.rec_forward(p, x[:, lo:lo + m], cfg,
+                                       return_cache=True, rules=rules,
+                                       total=n)
+            return lo, m, out, c
+        got = mesh.run(rank)
+        assert [got[(0, r)][1] for r in range(4)] == \
+            ([4, 4, 4, 2] if n == 14 else [1, 1, 1, 0])
+        whole = torch.cat([got[(0, r)][2] for r in range(4)], dim=1)
         if n >= K - 1:
-            assert _close(c.h, cache.h) <= 1
-            assert torch.equal(c.conv, cache.conv)
+            assert _close(whole, want) <= 1
+        for _, _, _, c in got.values():
+            assert _close(c.h, hseq[:, -1]) <= 1
+            assert torch.equal(c.conv, full[:, -(K - 1):])
+            if n >= K - 1:
+                assert _close(c.h, cache.h) <= 1
+                assert torch.equal(c.conv, cache.conv)
+        if p is slow and n == 14:
+            lo, m = got[(0, 2)][:2]
+            alone, _ = rglru.rec_forward(p, x[:, lo:lo + m], cfg)
+            assert _close(alone, want[:, lo:lo + m]) > 100
 
 
 @pytest.mark.parametrize("name", ["gemma3-1b", "recurrentgemma-2b",

@@ -13,7 +13,10 @@ the same work done in one process (which each rank also does):
 * the collectives: ``compressed_psum`` and ``bucketed_psum`` (compressed
   and not) over the group equal ``*_psum_stacked`` over the ranks'
   inputs, bitwise when compressed, else within rtol 1e-6, atol 1e-6 x
-  max (the fp32 sums run in another order);
+  max (the fp32 sums run in another order); ``mesh_cat`` (all-gather,
+  backward reduce-scatter) and ``mesh_scatter_sum`` (reduce-scatter,
+  backward all-gather) on uneven runs over one and two mesh dims, the
+  forward and the gradient against the sums in one process;
 * training: reduced gemma3-1b, ``STEPS`` steps of ``make_train_step`` at
   ``BATCH`` x ``SEQ`` tokens on DTensor state placed by
   ``params_shardings``, the batch from ``sharded_batch``, on a ``data``
@@ -159,6 +162,69 @@ def check_collectives(rank: int, world: int) -> dict:
                        "the tolerance")
                 worst = max(worst, err)
     return {"compressed": "bitwise", "bucketed_worst_of_tolerance": worst}
+
+
+def check_runs(rank: int, world: int) -> dict:
+    """``mesh_cat`` (an all-gather, its backward a reduce-scatter) and
+    ``mesh_scatter_sum`` (a reduce-scatter, its backward an all-gather)
+    on runs of a dim of 7 (2, 2, 2, 1 over four ranks; 4, 3 over two)
+    along the ``model`` dim of ``(1, ranks)`` and ``(2, ranks / 2)``
+    meshes and along both dims of the latter: each rank's forward and
+    gradient against the same sums over every rank's draws in one
+    process."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import run_of
+
+    n, out, worst = 7, {}, 0.0
+    for shape, dims in (((1, world), (1,)), ((2, world // 2), (1,)),
+                        ((2, world // 2), (0, 1))):
+        mesh = _mesh(shape, ("data", "model"))
+        coord = mesh.get_coordinate()
+        counts = [shape[d] for d in dims]
+        idx = list(itertools.product(*(range(c) for c in counts)))
+        runs = [run_of(n, counts, i) for i in idx]
+        lengths = [m for _, m in runs]
+        me = idx.index(tuple(coord[d] for d in dims))
+        peers = [tuple(c[d] if d in dims else coord[d] for d in range(2))
+                 for c in itertools.product(*(range(k) for k in shape))
+                 if all(c[d] == coord[d] for d in range(2) if d not in dims)]
+
+        def draw(c, what, rows):
+            rng = np.random.default_rng([SEED, 7, *c, what])
+            return torch.from_numpy(rng.standard_normal((3, rows, 5))
+                                    .astype(np.float32))
+        x = draw(coord, 0, lengths[me]).requires_grad_()
+        whole = collectives.mesh_cat(mesh, dims, x, 1, lengths, me)
+        want = torch.cat([draw(c, 0, m) for c, m in zip(peers, lengths)], 1)
+        _check(torch.equal(whole.detach(), want),
+               f"mesh_cat on {shape} over dims {dims} differs from the "
+               "runs joined")
+        (gx,) = torch.autograd.grad((whole * draw(coord, 1, n)).sum(), x)
+        lo, m = runs[me]
+        want = sum(draw(c, 1, n) for c in peers).narrow(1, lo, m)
+        err = _close(gx, want, SUM_RTOL, SUM_ATOL_REL)
+        _check(err <= 1, f"mesh_cat's gradient on {shape} over dims "
+               f"{dims} off by {err:.3g} of the tolerance")
+        worst = max(worst, err)
+        y = draw(coord, 2, n).requires_grad_()
+        part = collectives.mesh_scatter_sum(mesh, dims, y, 1, lengths, me)
+        want = sum(draw(c, 2, n) for c in peers).narrow(1, lo, m)
+        err = _close(part.detach(), want, SUM_RTOL, SUM_ATOL_REL)
+        _check(err <= 1 and part.shape == want.shape,
+               f"mesh_scatter_sum on {shape} over dims {dims} off by "
+               f"{err:.3g} of the tolerance")
+        (gy,) = torch.autograd.grad((part * draw(coord, 3, m)).sum(), y)
+        want = torch.cat([draw(c, 3, k) for c, k in zip(peers, lengths)], 1)
+        _check(torch.equal(gy, want), f"mesh_scatter_sum's gradient on "
+               f"{shape} over dims {dims} differs from the runs joined")
+        worst = max(worst, err)
+        out[f"{shape} over dims {dims}"] = lengths
+    return {"runs": out, "sums_worst_of_tolerance": worst}
 
 
 def _mesh(shape, names):
@@ -605,6 +671,7 @@ def _rank_main(rank: int, world: int, store: str, out: str,
             record["seconds"][name] = now - clock
             clock = now
         record["collectives"] = check_collectives(rank, world)
+        record["collectives"].update(check_runs(rank, world))
         lap("collectives")
         bf16_one, _ = one_process_training(cfg, tree)
         with activations(torch.float32):
